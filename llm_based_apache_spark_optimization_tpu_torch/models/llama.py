@@ -1,0 +1,146 @@
+"""Llama-family transformer: parameters as a plain dict of tensors and one
+`forward` for prefill and decode.
+
+Counterpart of the JAX package's `models/llama.py`, with the same params
+tree: per-layer weights stacked on a leading [L, ...] axis, matmul weights
+in `[in, out]` layout (`x @ w`), `embed` [V, D], `final_norm` [D] and, for
+untied models, `lm_head` [V, D]. `convert.params_from_jax` maps one tree
+onto the other.
+
+- Matmuls run in the params dtype (bf16 on the card); norms, rope, softmax
+  and the SiLU gate run in f32; logits come back in f32.
+- The unembed accumulates in f32: for bf16 on CUDA it is one bf16 matmul
+  with an f32 output (`torch.mm(..., out_dtype=torch.float32)`), elsewhere
+  `x.float() @ w.float().T`.
+- The KV cache is `{"k", "v"}: [L, B, K, S, H]`, updated in place: each
+  layer writes its fresh [B, T, K, H] sliver at per-row offsets of its own
+  layer, and attention reads that layer's [B, K, S, H] view. Nothing
+  rebuilds the cache.
+- Attention goes through `ops.kernels.dispatch`: the hand-written flash
+  kernel on CUDA, its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..ops.kernels.dispatch import attention
+from ..ops.norm import rms_norm
+from ..ops.rope import apply_rope, rope_cos_sin
+from .configs import LlamaConfig
+
+Params = Dict[str, object]
+
+
+def init_params(
+    cfg: LlamaConfig,
+    generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    device=None,
+) -> Params:
+    """Random weights made on `device` (default CUDA) from `generator`
+    (default: seed 0 on that device), scaled 1/sqrt(fan_in) so random models
+    give finite logits at any depth. Norm weights are ones."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    nh, kh, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+
+    def w(shape, fan_in):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+        return x.mul_(fan_in ** -0.5).to(dtype)
+
+    params: Params = {
+        "embed": w((cfg.vocab_size, d), d),
+        "blocks": {
+            "wq": w((L, d, nh * hd), d),
+            "wk": w((L, d, kh * hd), d),
+            "wv": w((L, d, kh * hd), d),
+            "wo": w((L, nh * hd, d), nh * hd),
+            "wg": w((L, d, f), d),
+            "wu": w((L, d, f), d),
+            "wd": w((L, f, d), f),
+            "ln_attn": torch.ones((L, d), dtype=dtype, device=dev),
+            "ln_mlp": torch.ones((L, d), dtype=dtype, device=dev),
+        },
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = w((cfg.vocab_size, d), d)
+    return params
+
+
+def _write_cache(layer_cache: torch.Tensor, new: torch.Tensor,
+                 start: torch.Tensor) -> None:
+    """Write `new` [B, T, K, H] into `layer_cache` [B, K, S, H] (a view of
+    one layer of the stacked cache) at slots start[b] + t, in place."""
+    b, t = new.shape[:2]
+    rows = torch.arange(b, device=new.device)[:, None]
+    slots = start.long()[:, None] + torch.arange(t, device=new.device)[None, :]
+    layer_cache[rows, :, slots] = new.to(layer_cache.dtype)
+
+
+def _unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[B, T, D] x [V, D] -> [B, T, V] f32 logits, accumulated in f32."""
+    b, t, d = x.shape
+    x2 = x.reshape(b * t, d)
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        logits = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        logits = x2.float() @ w.float().t()
+    return logits.reshape(b, t, -1)
+
+
+def forward(
+    cfg: LlamaConfig,
+    params: Params,
+    tokens: torch.Tensor,     # [B, T] int
+    positions: torch.Tensor,  # [B, T] int — absolute position of each token
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"}: [L, B, K, S, H]
+    logit_indices: Optional[torch.Tensor] = None,     # [B] int
+    kv_lens: Optional[torch.Tensor] = None,           # [B] int — live KV slots
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Run T tokens through the stack; returns (logits f32, cache).
+
+    With `cache=None` the layer's own K/V are the keys (prefill-only
+    scoring). With a cache, K/V are written at `positions[:, 0] + t` and
+    attention reads the layer's whole cache, masked by position.
+    `logit_indices` unembeds only those T-indices ([B, 1, V] logits)."""
+    b, t = tokens.shape
+    x = params["embed"][tokens.long()]  # [B, T, D]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+    start = positions[:, 0]
+    nh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    blocks = params["blocks"]
+
+    for l in range(cfg.num_layers):
+        h = rms_norm(x, blocks["ln_attn"][l], cfg.norm_eps)
+        q = (h @ blocks["wq"][l]).reshape(b, t, nh, hd)
+        k = (h @ blocks["wk"][l]).reshape(b, t, kh, hd)
+        v = (h @ blocks["wv"][l]).reshape(b, t, kh, hd)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if cache is None:
+            k_full = k.transpose(1, 2).contiguous()  # cache layout [B, K, T, H]
+            v_full = v.transpose(1, 2).contiguous()
+        else:
+            k_full, v_full = cache["k"][l], cache["v"][l]
+            _write_cache(k_full, k, start)
+            _write_cache(v_full, v, start)
+        attn = attention(q, k_full, v_full, positions, cfg.sliding_window,
+                         kv_lens)
+        x = x + attn.reshape(b, t, nh * hd) @ blocks["wo"][l]
+        h2 = rms_norm(x, blocks["ln_mlp"][l], cfg.norm_eps)
+        gate = F.silu((h2 @ blocks["wg"][l]).float()).to(x.dtype)
+        x = x + (gate * (h2 @ blocks["wu"][l])) @ blocks["wd"][l]
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if logit_indices is not None:
+        x = x[torch.arange(b, device=x.device), logit_indices.long()][:, None]
+    unembed = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return _unembed(x, unembed), cache

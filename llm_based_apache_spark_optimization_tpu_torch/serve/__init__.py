@@ -1,0 +1,5 @@
+"""Serving: prompt templates, the engine backend and the generation service."""
+
+from .backends import Completion, EngineBackend, resolve_stop_ids  # noqa: F401
+from .service import GenerateResult, GenerationService  # noqa: F401
+from .templates import TEMPLATES  # noqa: F401
