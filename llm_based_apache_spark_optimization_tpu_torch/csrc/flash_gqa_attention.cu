@@ -39,8 +39,13 @@
 //     row with kv_lens = 0 loads nothing. The last tile may be ragged
 //     (S is a multiple of 8, not of 64): slots past the end read as zeros
 //     and are masked.
-//   * Per tile: K and V load into shared memory as f32 (16-byte vector
-//     loads); each thread scores one key against its half of the rows;
+//   * Loads. K and V tiles go from device memory straight into shared
+//     memory in their own type with cp.async (16 bytes per copy, every copy
+//     of a tile in flight at once; slots at or past the end are zero-filled
+//     by the copy itself), double buffered: the next tile's copies run
+//     behind this tile's math, so a block pays the memory latency about
+//     once, not once per load.
+//   * Per tile: each thread scores one key against its half of the rows;
 //     one warp per row does the max / exp / sum of the online softmax
 //     (masked probabilities are zeroed, never exp(NEG_INF - NEG_INF));
 //     each thread then accumulates one output column for all rows.
@@ -61,6 +66,17 @@ constexpr int kWarps = kThreads / 32;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// Four consecutive elements of shared memory as floats.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 template <typename T> struct Cvt;
 template <> struct Cvt<float> {
   static __device__ __forceinline__ float out(float x) { return x; }
@@ -73,32 +89,61 @@ template <> struct Cvt<__nv_bfloat16> {
   }
 };
 
-// 16 bytes of T -> floats at dst (VEC = 16 / sizeof(T) elements).
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+// 16-byte asynchronous copy to shared memory; copies nothing and writes
+// zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(src_bytes));
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h2[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 __device__ __forceinline__ bool visible(int kv, int p, int kvl, int window) {
   return kv <= p && kv < kvl && (window <= 0 || p - kv < window);
 }
 
-template <int HD, int BR>
-constexpr size_t smem_bytes() {
-  // Qs [BR][HD+4], Ks [64][HD+4], Vs [64][HD], Ps [BR][64], M/L/alpha [BR],
-  // Pos [BR] (int).
-  return sizeof(float) * (BR * (HD + 4) + kBlockKV * (HD + 4) + kBlockKV * HD +
-                          BR * kBlockKV + 3 * BR + BR);
+// Shared memory layout, in bytes (every region a multiple of 16):
+//   Ks [2][64][HD + 16/sizeof(T)] T   (row padded by 16 bytes)
+//   Vs [2][64][HD] T
+//   Qs [BR][HD + 4] f32
+//   Ps [BR][64] f32, then M, L, alpha [BR] f32 and Pos [BR] i32.
+template <typename T, int HD>
+struct Layout {
+  static constexpr int kRowK = HD + 16 / sizeof(T);  // K row stride, elements
+  static constexpr int kRowQ = HD + 4;               // Q row stride, floats
+  static constexpr size_t kStageK = sizeof(T) * kBlockKV * kRowK;
+  static constexpr size_t kStageV = sizeof(T) * kBlockKV * HD;
+  static constexpr size_t k_off = 0;
+  static constexpr size_t v_off = 2 * kStageK;
+  static constexpr size_t q_off = v_off + 2 * kStageV;
+  template <int BR>
+  static constexpr size_t bytes() {
+    return q_off + sizeof(float) * (BR * kRowQ + BR * kBlockKV + 4 * BR);
+  }
+};
+
+// Issue the copies of KV tile [s0, s0 + 64) into one stage; slots at or
+// past kv_end are zero-filled.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb, const T* vb,
+                                          int s0, int kv_end, int tid) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int ROWK = Layout<T, HD>::kRowK;
+#pragma unroll
+  for (int i = tid; i < kBlockKV * HD / VEC; i += kThreads) {
+    const int e = i * VEC, jj = e / HD, h = e % HD;
+    const bool ok = s0 + jj < kv_end;
+    const long long off = ok ? (long long)(s0 + jj) * HD + h : 0;
+    cp_async16(ks + jj * ROWK + h, kb + off, ok);
+    cp_async16(vs + jj * HD + h, vb + off, ok);
+  }
 }
 
 template <typename T, int HD, int BR>
@@ -110,17 +155,19 @@ flash_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long q_sb, long long q_st, long long q_sn,
                  long long o_sb, long long o_st, long long o_sn,
                  int window, float scale) {
-  constexpr int QS = HD + 4;          // padded row stride: conflict-free float4 reads
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  using L = Layout<T, HD>;
+  constexpr int ROWK = L::kRowK;
+  constexpr int ROWQ = L::kRowQ;
   constexpr int RG = kThreads / kBlockKV;        // row groups in the score phase
   constexpr int RPG = (BR + RG - 1) / RG;        // rows per group
   constexpr int CG = kThreads / HD;              // column groups in the PV phase
 
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BR * QS;
-  float* Vs = Ks + kBlockKV * QS;
-  float* Ps = Vs + kBlockKV * HD;
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* Ks = reinterpret_cast<T*>(smem + L::k_off);   // 2 stages
+  T* Vs = reinterpret_cast<T*>(smem + L::v_off);   // 2 stages
+  float* Qs = reinterpret_cast<float*>(smem + L::q_off);
+  float* Ps = Qs + BR * ROWQ;
   float* Ms = Ps + BR * kBlockKV;
   float* Ls = Ms + BR;
   float* As = Ls + BR;
@@ -149,7 +196,7 @@ flash_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int g = row / t_len, t = row % t_len;
       x = to_f32(q[b * q_sb + t * q_st + (long long)(kh * g_size + g) * q_sn + h]);
     }
-    Qs[r * QS + h] = x;
+    Qs[r * ROWQ + h] = x;
   }
   __syncthreads();
   if (tid == 0) {
@@ -180,25 +227,22 @@ flash_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < BR; ++r) acc[r] = 0.f;
 
-  for (int s0 = kv_begin / kBlockKV * kBlockKV; s0 < kv_end; s0 += kBlockKV) {
-    // 1. K and V tile -> shared f32. Slots at or past kv_end read as zero.
-    for (int i = tid; i < kBlockKV * HD / VEC; i += kThreads) {
-      const int e = i * VEC, jj = e / HD, h = e % HD;
-      float kf[VEC], vf[VEC];
-      if (s0 + jj < kv_end) {
-        load16(kb + (long long)(s0 + jj) * HD + h, kf);
-        load16(vb + (long long)(s0 + jj) * HD + h, vf);
-      } else {
-#pragma unroll
-        for (int x = 0; x < VEC; ++x) kf[x] = vf[x] = 0.f;
-      }
-#pragma unroll
-      for (int x = 0; x < VEC; ++x) {
-        Ks[jj * QS + h + x] = kf[x];
-        Vs[jj * HD + h + x] = vf[x];
-      }
+  int s0 = kv_begin / kBlockKV * kBlockKV;
+  if (s0 < kv_end) load_tile<T, HD>(Ks, Vs, kb, vb, s0, kv_end, tid);
+  cp_async_commit();
+  for (int stage = 0; s0 < kv_end; s0 += kBlockKV, stage ^= 1) {
+    // 1. Start the next tile's copies into the other stage, then wait for
+    // this tile's.
+    if (s0 + kBlockKV < kv_end) {
+      load_tile<T, HD>(Ks + (stage ^ 1) * kBlockKV * ROWK,
+                       Vs + (stage ^ 1) * kBlockKV * HD, kb, vb,
+                       s0 + kBlockKV, kv_end, tid);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
+    const T* kt = Ks + stage * kBlockKV * ROWK;
+    const T* vt = Vs + stage * kBlockKV * HD;
 
     // 2. Scores: thread (j, rg) dots key j with rows rg, rg + RG, ...
     float sc[RPG];
@@ -206,12 +250,12 @@ flash_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < RPG; ++i) sc[i] = 0.f;
 #pragma unroll 4
     for (int h = 0; h < HD; h += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(&Ks[j * QS + h]);
+      const float4 kk = ld4(kt + j * ROWK + h);
 #pragma unroll
       for (int i = 0; i < RPG; ++i) {
         const int r = rg + RG * i;
         if (r < BR) {
-          const float4 qq = *reinterpret_cast<const float4*>(&Qs[r * QS + h]);
+          const float4 qq = ld4(Qs + r * ROWQ + h);
           sc[i] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
         }
       }
@@ -260,23 +304,25 @@ flash_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < BR; ++r) acc[r] *= As[r];
     for (int jj = 4 * cg; jj < kBlockKV; jj += 4 * CG) {
-      const float v0 = Vs[(jj + 0) * HD + col];
-      const float v1 = Vs[(jj + 1) * HD + col];
-      const float v2 = Vs[(jj + 2) * HD + col];
-      const float v3 = Vs[(jj + 3) * HD + col];
+      const float v0 = to_f32(vt[(jj + 0) * HD + col]);
+      const float v1 = to_f32(vt[(jj + 1) * HD + col]);
+      const float v2 = to_f32(vt[(jj + 2) * HD + col]);
+      const float v3 = to_f32(vt[(jj + 3) * HD + col]);
 #pragma unroll
       for (int r = 0; r < BR; ++r) {
-        const float4 pp = *reinterpret_cast<const float4*>(&Ps[r * kBlockKV + jj]);
+        const float4 pp = ld4(Ps + r * kBlockKV + jj);
         acc[r] += pp.x * v0 + pp.y * v1 + pp.z * v2 + pp.w * v3;
       }
     }
-    __syncthreads();
+    __syncthreads();  // this stage is free for the copies two tiles on
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
   // Column groups (H = 64: two) hold partial sums over disjoint keys: add
-  // them through shared memory (the K tile is free now).
+  // them through shared memory (the K stages are free now).
   if (CG > 1) {
-    float* part = Ks;
+    float* part = reinterpret_cast<float*>(smem + L::k_off);
     if (cg > 0) {
 #pragma unroll
       for (int r = 0; r < BR; ++r) part[((cg - 1) * BR + r) * HD + col] = acc[r];
@@ -315,7 +361,7 @@ struct Args {
 
 template <typename T, int HD, int BR>
 int launch(const Args& a) {
-  constexpr size_t smem = smem_bytes<HD, BR>();
+  constexpr size_t smem = Layout<T, HD>::template bytes<BR>();
   auto kernel = flash_gqa_kernel<T, HD, BR>;
   // Above 48 KB a block's dynamic shared memory must be opted into, once.
   static bool opted_in = false;

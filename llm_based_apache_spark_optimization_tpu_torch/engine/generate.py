@@ -35,8 +35,8 @@ class InferenceEngine:
 
     `device` defaults to CUDA and must hold `params`. `last_stats` describes
     the last `generate`: seconds to the first token (`ttft_s`, prefill and
-    first sample, synchronised), total seconds, and the number of forward
-    calls (one prefill plus the decode steps)."""
+    first sample, synchronised), the number of forward calls (one prefill
+    plus the decode steps), the padded prompt length and the batch."""
 
     def __init__(
         self,
@@ -74,7 +74,8 @@ class InferenceEngine:
         sampling: SamplingParams = SamplingParams(),
         seed: int = 0,
     ) -> List[List[int]]:
-        assert prompts and all(len(p) >= 1 for p in prompts), "empty prompt"
+        if not prompts or not all(prompts):
+            raise ValueError("generate needs at least one non-empty prompt")
         cfg, dev = self.cfg, self.device
         t0 = time.perf_counter()
         b = len(prompts)
@@ -132,7 +133,6 @@ class InferenceEngine:
         out_l, lens_l = out_t.tolist(), gen_lens.tolist()
         self.last_stats = {
             "ttft_s": ttft,
-            "total_s": time.perf_counter() - t0,
             "forward_calls": step,
             "decode_steps": step - 1,
             "prompt_len": t,

@@ -7,4 +7,4 @@ from .attention import (  # noqa: F401
     flash_gqa_attention_plain,
     reset_launches,
 )
-from .dispatch import attention_impl, set_attention_impl  # noqa: F401
+from .dispatch import set_attention_impl  # noqa: F401

@@ -124,6 +124,8 @@ def flash_gqa_attention_cuda(q, k, v, q_positions, sliding_window=None,
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 or any(
             st * q.element_size() % 16 for st in q.stride()[:3]):
         raise ValueError("q, k, v must be 16-byte aligned")
+    # qpos and lens may be freed when this returns, before the kernel runs:
+    # the caching allocator reuses their memory only in this stream's order.
     qpos = q_positions.to(torch.int32).contiguous()
     lens = _default_kv_lens(qpos, kv_lens, s).to(q.device).contiguous()
     out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)

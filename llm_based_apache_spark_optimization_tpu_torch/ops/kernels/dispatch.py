@@ -28,10 +28,6 @@ def set_attention_impl(mode: Optional[str]) -> None:
     _mode = mode or "auto"
 
 
-def attention_impl() -> str:
-    return _mode
-
-
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,

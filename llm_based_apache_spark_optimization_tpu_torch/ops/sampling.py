@@ -60,7 +60,8 @@ def sample(
     """Next token ids [B] int32 from logits [B, V]."""
     if params.is_greedy:
         return greedy(logits)
-    assert generator is not None, "stochastic sampling needs a torch.Generator"
+    if generator is None:
+        raise ValueError("stochastic sampling needs a torch.Generator")
     logits = logits.float() / params.temperature
     if params.top_k > 0:
         logits = _apply_top_k(logits, params.top_k)
