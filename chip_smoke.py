@@ -80,11 +80,11 @@ def nvidia_smi_line() -> str:
 
 
 def make_case(torch, dtype, b, t, n, kh, h, s, positions, kv_lens=None,
-              window=None, nan_dead=False, seed=0):
+              window=None, nan_dead=False):
     """q, k, v from a seeded generator on the card; NaN planted in the K/V
     slots at or past kv_lens when `nan_dead`."""
     dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((b, t, n, h), generator=g, device=dev).to(dtype)
     k = torch.randn((b, kh, s, h), generator=g, device=dev).to(dtype)
     v = torch.randn((b, kh, s, h), generator=g, device=dev).to(dtype)
@@ -98,7 +98,7 @@ def make_case(torch, dtype, b, t, n, kh, h, s, positions, kv_lens=None,
     return dict(q=q, k=k, v=v, pos=pos, kv_lens=lens, window=window)
 
 
-def cases(torch):
+def cases():
     """(launch, name, kwargs) at the shapes listed in the module docstring."""
     def run(b, t, starts):
         return [[st + i for i in range(t)] for st in starts]
@@ -139,7 +139,7 @@ def check_kernels(torch, attn_mod):
     """Kernel vs plain on every case and dtype; returns the worst error per
     launch and dtype."""
     worst = {(l, d): 0.0 for l in ("prefill", "decode") for d in TOL}
-    for launch, name, kw in cases(torch):
+    for launch, name, kw in cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             c = make_case(torch, dtype, **kw)
@@ -164,7 +164,7 @@ def check_kernels(torch, attn_mod):
 # ------------------------------------------------------------- reference
 
 
-def small_reference(torch, pkg):
+def small_reference(torch):
     """Greedy tokens of a 2-layer f32 model (H = 64, GQA) through the kernel
     on the card == through the plain version on the CPU."""
     import dataclasses
@@ -391,7 +391,7 @@ def time_ms(torch, fn, calls, reps=20):
     return start.elapsed_time(end) / (reps * calls)
 
 
-def time_launch(torch, attn_mod, launch, n, kh, h, layers, b, t, s, positions):
+def time_launch(torch, attn_mod, n, kh, h, layers, b, t, s, positions):
     """Kernel, plain and SDPA times on one layer's shapes, cycling over a
     [layers, B, K, S, H] cache so reads come from device memory."""
     import torch.nn.functional as F
@@ -473,7 +473,7 @@ def main() -> int:
     worst = check_kernels(torch, attn_mod)
 
     phase("small reference")
-    small_reference(torch, PKG)
+    small_reference(torch)
 
     phase("serve")
     records, launches, shapes, engines, svc = serve(torch)
@@ -488,10 +488,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t, s, n_prompt = shapes["padded"], shapes["cache_len"], shapes["prompt_len"]
     timed = {
-        "prefill": time_launch(torch, attn_mod, "prefill", cfg7.num_heads,
+        "prefill": time_launch(torch, attn_mod, cfg7.num_heads,
                                cfg7.num_kv_heads, cfg7.head_dim, cfg7.num_layers,
                                1, t, s, [list(range(t))]),
-        "decode": time_launch(torch, attn_mod, "decode", cfg7.num_heads,
+        "decode": time_launch(torch, attn_mod, cfg7.num_heads,
                               cfg7.num_kv_heads, cfg7.head_dim, cfg7.num_layers,
                               1, 1, s, [[n_prompt + MAX_NEW // 2]]),
     }
