@@ -263,7 +263,6 @@ def serve(torch):
                  template="llama3-chat")
 
     expected = {"flash_gqa_prefill": 0, "flash_gqa_decode": 0}
-    records = []
 
     def account(model, results, kind):
         eng = engines[model]
@@ -278,7 +277,6 @@ def serve(torch):
                        output_tokens=r.output_tokens,
                        latency_s=round(r.latency_s, 4), ttft_s=round(r.ttft_s, 4),
                        decode_tok_per_s=round(rate, 1))
-            records.append(rec)
             print(f"  {json.dumps(rec)}", flush=True)
             print(f"    response: {r.response!r}", flush=True)
 
@@ -323,7 +321,7 @@ def serve(torch):
     assert rel <= LOGIT_TOL
     shapes = {"prompt_len": len(ids), "padded": t,
               "cache_len": t + 64 + (-(t + 64) % 8)}
-    return records, launches, shapes, engines, svc
+    return launches, shapes, engines, svc
 
 
 # --------------------------------------------------------------- profile
@@ -360,10 +358,6 @@ def profile_request(torch, svc):
         f"{k} {v / 1e3:.2f}" for k, v in groups.items()), flush=True)
     for key, us, n in rows[:15]:
         print(f"    {us / 1e3:9.3f} ms  x{n:<6d} {key[:110]}", flush=True)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_7b_request.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=60))
 
 
 # ---------------------------------------------------------------- timing
@@ -476,7 +470,7 @@ def main() -> int:
     small_reference(torch)
 
     phase("serve")
-    records, launches, shapes, engines, svc = serve(torch)
+    launches, shapes, engines, svc = serve(torch)
     if args.profile:
         phase("profile")
         profile_request(torch, svc)
@@ -521,9 +515,6 @@ def main() -> int:
         print(f"  {launch}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
               f"sdpa {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
               f"({tm['bound_by']}) at {tm['shape']}", flush=True)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "chip_smoke_requests.json"), "w") as f:
-        json.dump({"device": smi, "requests": records, "kernels": kernels}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
