@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the whole run (one card)
     python3 chip_smoke.py --profile   # plus a torch.profiler breakdown
@@ -11,28 +11,54 @@ Phases, each fatal on failure:
 2. Build: compiles every `csrc/*.cu` of the port with nvcc (one process per
    source, all at once) and prints the build seconds and ptxas's register /
    shared-memory lines.
-3. Kernels against their plain versions: both launches of the flash GQA
-   attention kernel (prefill T > 1, decode T == 1), in bf16 and f32, at the
-   main path's shapes (duckdb-nsql-7B: N = K = 32; llama3.2-3B: N = 24,
-   K = 8; both H = 128), llama3.2-1B (H = 64), a Mistral window of 4096
-   over S = 8192, a row with kv_lens = 0, ragged last KV tiles and NaN
-   planted in dead cache slots.
-4. A small reference: a 2-layer f32 model (H = 64) greedily decoded on the
-   card through the kernel must give the tokens its plain version gives on
-   the CPU.
-5. Serve: a GenerationService with EngineBackends for `duckdb-nsql`
+3. Kernels against their plain versions, in bf16 and f32:
+   - both launches of the flash GQA attention kernel (prefill T > 1, decode
+     T == 1) at the engine path's shapes (duckdb-nsql-7B: N = K = 32;
+     llama3.2-3B: N = 24, K = 8; both H = 128), llama3.2-1B (H = 64), a
+     Mistral window of 4096 over S = 8192, a row with kv_lens = 0, ragged
+     last KV tiles and NaN planted in dead cache slots; and the prefill
+     launch at the scheduler's chunked-prefill shapes (7B and 3B, groups of
+     6-8 rows, buckets of 128, 32 and 16 over S = 1024 row views, chunk
+     starts after prefix reuse that end mid-page, default kv_lens);
+   - the ragged paged attention kernel at the 7B, 3B and 1B shapes, T = 1,
+     B = 8 as the scheduler's slots, through permuted tables with sentinel
+     entries, parked rows (all-sentinel, kv_lens = 0) and NaN planted in
+     dead offsets and unmapped pages; windows T = 8 and 32 with ragged
+     q_lens, a G*T = 512 window, pages of 16 and 64, a Mistral window;
+   - the fused page write, bit-exact: T = 1 at B = 8 into the 7B
+     scheduler's pool (32 layers, 128 pages of 64, tables of 16 pages) at
+     its last layer with parked rows, and T = 4 with q_lens and sentinel
+     rows.
+4. Small references, 2-layer f32 models (H = 64): greedy tokens through the
+   kernels on the card must equal the plain versions' on the CPU, for the
+   engine and for the paged scheduler (page 16, shared prefixes).
+5. Engine serve: a GenerationService with EngineBackends for `duckdb-nsql`
    (DUCKDB_NSQL_7B, full width and depth) and `llama3.2` (LLAMA32_3B on the
    llama3-chat template), random bf16 weights from a seed, ByteTokenizer.
    Three NL->SQL requests with a table schema in `system`, one batch of four
    mixed-length prompts, one error explanation. Launch counts are zeroed
-   just before and read just after; each kernel must have launched exactly
-   num_layers x (prefill calls + decode steps) times. Prefill logits through
-   the kernel must agree with the plain version's.
-6. Timing at the main path's shapes (one CUDA graph of one call per layer,
-   each on its own layer of a full-depth cache so K/V come from device
-   memory, replayed between CUDA events): kernel, plain
-   version, and `scaled_dot_product_attention` with the same boolean mask
-   (a yardstick the port never calls); the bound is the larger of the bytes
+   just before and read just after; each flash launch must number
+   num_layers x (prefill calls + decode steps). Prefill logits through the
+   kernel must agree with the plain version's.
+6. Scheduler serve: the same weights behind paged continuous-batching
+   schedulers (8 slots, pages of 64, decode_chunk 8, max_seq 1024) and
+   SchedulerBackends. Two NL->SQL requests one after the other, then six at
+   once from threads while a 3B error explanation runs. Launch counts are
+   zeroed just before and read just after: ragged paged attention and page
+   writes must number num_layers x decode_chunk x rounds issued, flash
+   prefill num_layers x prefill forwards. The prefix cache must hit, share
+   pages and leak none; one decode step on the live pool through the
+   kernels must agree with the plain versions, at full depth in bf16 and
+   on an f32 copy of two layers, and a one-page fault planted on the plain
+   side must miss by more than each tolerance.
+   With --profile, one 7B engine request and six concurrent 7B scheduler
+   requests run under torch.profiler: device busy share and device time
+   by kernel group.
+7. Timing at the main paths' shapes (one CUDA graph of one call per layer,
+   each on its own layer so K/V come from device memory, replayed between
+   CUDA events): kernel, plain version and a PyTorch yardstick the port
+   never calls (`scaled_dot_product_attention`; for the page write,
+   `index_put_` of the same slivers). The bound is the larger of the bytes
    over 3.35 TB/s and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
 
 Prints a `{"kernels": [...]}` line, then as its last line
@@ -55,12 +81,21 @@ TOL = {"bfloat16": 3e-2, "float32": 1e-4}  # kernel vs plain, max abs error
 # bf16: outputs are rounded to bf16 (1 ulp = 1.6e-2 at |x| in [2, 4]) and
 # probabilities are rounded at a different running max than the plain
 # version's global max. f32: only the order of the f32 sums differs.
-LOGIT_TOL = 5e-2  # 7B prefill logits, kernel vs plain path, over max |logit|
+LOGIT_TOL = 5e-2  # 7B bf16 logits, kernel vs plain path, over max |logit|
+F32_LOGIT_TOL = 1e-4  # the same for 2 layers of 7B in f32
 PKG = "llm_based_apache_spark_optimization_tpu_torch"
-SOURCE = f"{PKG}/csrc/flash_gqa_attention.cu"
+REF = "llm_based_apache_spark_optimization_tpu/ops/pallas"
+SOURCES = {
+    "prefill": f"{PKG}/csrc/flash_gqa_attention.cu",
+    "decode": f"{PKG}/csrc/flash_gqa_attention.cu",
+    "paged": f"{PKG}/csrc/ragged_paged_attention.cu",
+    "write": f"{PKG}/csrc/fused_page_write.cu",
+}
 REPLACES = {
-    "prefill": "llm_based_apache_spark_optimization_tpu/ops/pallas/attention.py:428",
-    "decode": "llm_based_apache_spark_optimization_tpu/ops/pallas/attention.py:313",
+    "prefill": f"{REF}/attention.py:428",
+    "decode": f"{REF}/attention.py:313",
+    "paged": f"{REF}/paged_attention.py:225",
+    "write": f"{REF}/paged_write.py:191",
 }
 
 
@@ -82,7 +117,8 @@ def nvidia_smi_line() -> str:
 def make_case(torch, dtype, b, t, n, kh, h, s, positions, kv_lens=None,
               window=None, nan_dead=False):
     """q, k, v from a seeded generator on the card; NaN planted in the K/V
-    slots at or past kv_lens when `nan_dead`."""
+    slots at or past the live length (kv_lens, or by default max(position)
+    + 1) when `nan_dead`."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((b, t, n, h), generator=g, device=dev).to(dtype)
@@ -92,7 +128,8 @@ def make_case(torch, dtype, b, t, n, kh, h, s, positions, kv_lens=None,
     lens = None if kv_lens is None else torch.tensor(kv_lens, dtype=torch.int32,
                                                      device=dev)
     if nan_dead:
-        dead = torch.arange(s, device=dev)[None, :] >= lens[:, None]  # [B, S]
+        live = pos.max(dim=1).values + 1 if lens is None else lens
+        dead = torch.arange(s, device=dev)[None, :] >= live[:, None]  # [B, S]
         k[dead[:, None, :, None].expand_as(k)] = float("nan")
         v[dead[:, None, :, None].expand_as(v)] = float("nan")
     return dict(q=q, k=k, v=v, pos=pos, kv_lens=lens, window=window)
@@ -116,6 +153,21 @@ def cases():
         ("prefill", "kvlens0_nan", dict(b=3, t=64, n=24, kh=8, h=128, s=264,
                                         positions=run(3, 64, [0, 60, 200]),
                                         kv_lens=[0, 100, 264], nan_dead=True)),
+    ]
+    # The scheduler's chunked prefill: groups of k same-bucket chunks over
+    # row views of S = 16 pages x 64 = 1024 slots, kv_lens left to default
+    # (max position + 1), chunk starts at multiples of 128 and after prefix
+    # reuse at 16-token blocks that end mid-page (208, 336, 400, ...), a
+    # 128-token bucket and short final buckets; NaN past the live length
+    # stands in for the other pages' stale data the row view holds there.
+    for model, n, kh in (("7b", 32, 32), ("3b", 24, 8)):
+        for b, t, starts in ((8, 128, [0, 128, 256, 0, 208, 336, 464, 896]),
+                             (6, 32, [384, 400, 208, 432, 496, 992]),
+                             (7, 16, [512, 528, 208, 624, 880, 1008, 0])):
+            out.append(("prefill", f"{model}_sched_b{b}_t{t}",
+                        dict(b=b, t=t, n=n, kh=kh, h=128, s=1024,
+                             positions=run(b, t, starts), nan_dead=True)))
+    out += [
         ("decode", "7b_one", dict(b=1, t=1, n=32, kh=32, h=128, s=448,
                                   positions=[[300]])),
         ("decode", "7b_batch4", dict(b=4, t=1, n=32, kh=32, h=128, s=448,
@@ -161,17 +213,168 @@ def check_kernels(torch, attn_mod):
     return worst
 
 
+def paged_case(torch, dtype, b, t, n, kh, h, ps, np_tab, rows, window=None):
+    """A ragged paged attention case on the card. `rows` gives per row
+    (start, q_len, kv_len): live columns sit at start + i, dead columns at
+    junk positions. Pages are a random permutation of the pool; entries
+    past a row's live pages are the sentinel; NaN is planted in every
+    page no table maps, in the live rows' dead pages and in the dead
+    offsets of each last live page."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    pool_pages = b * np_tab + 3
+    q = torch.randn((b, t, n, h), generator=g, device=dev).to(dtype)
+    kp = torch.randn((pool_pages, kh, ps, h), generator=g, device=dev).to(dtype)
+    vp = torch.randn((pool_pages, kh, ps, h), generator=g, device=dev).to(dtype)
+    perm = torch.randperm(pool_pages, generator=g, device=dev)
+    tab = perm[: b * np_tab].reshape(b, np_tab).clone()
+    pos = torch.full((b, t), np_tab * ps - 1, dtype=torch.int32, device=dev)
+    live = torch.zeros(pool_pages, dtype=torch.bool, device=dev)
+    for i, (start, ql, kvl) in enumerate(rows):
+        pos[i, :ql] = start + torch.arange(ql, device=dev)
+        n_live = -(-kvl // ps)
+        tab[i, n_live:] = pool_pages  # sentinel past the live region
+        live[tab[i, :n_live]] = True
+        if kvl % ps:
+            last = tab[i, n_live - 1]
+            kp[last, :, kvl % ps:] = float("nan")
+            vp[last, :, kvl % ps:] = float("nan")
+    kp[~live] = float("nan")
+    vp[~live] = float("nan")
+    kv_lens = torch.tensor([r[2] for r in rows], dtype=torch.int32, device=dev)
+    # T = 1 passes no q_lens, as a decode step does.
+    q_lens = None if t == 1 else torch.tensor([r[1] for r in rows],
+                                              dtype=torch.int32, device=dev)
+    return (q, kp, vp, tab.int(), pos, window, kv_lens, q_lens)
+
+
+def paged_cases():
+    """(name, kwargs) of ragged paged attention cases: decode at the main
+    paths' shapes, then ragged windows."""
+    def decode_rows(s_virt):
+        # The scheduler's 8 slots: live rows ending mid-page, on a page
+        # boundary and at the row's end, and parked slots (an all-sentinel
+        # table row at the last position, kv_lens = 0).
+        return [(s_virt // 2 - 1, 1, s_virt // 2), (s_virt - 1, 1, 0),
+                (s_virt - 1, 1, s_virt), (77, 1, 78), (255, 1, 256), (0, 1, 1),
+                (s_virt - 1, 1, 0), (s_virt // 3, 1, s_virt // 3 + 1)]
+
+    return [
+        ("7b_decode_p64", dict(t=1, n=32, kh=32, h=128, ps=64, np_tab=16,
+                               rows=decode_rows(1024))),
+        ("3b_decode_p64", dict(t=1, n=24, kh=8, h=128, ps=64, np_tab=16,
+                               rows=decode_rows(1024))),
+        ("1b_decode_p16", dict(t=1, n=32, kh=8, h=64, ps=16, np_tab=24,
+                               rows=decode_rows(384))),
+        ("3b_window8_p16", dict(t=8, n=24, kh=8, h=128, ps=16, np_tab=20,
+                                rows=[(100, 8, 108), (37, 3, 40), (0, 0, 0),
+                                      (310, 5, 315)])),
+        ("7b_window32_p64", dict(t=32, n=32, kh=32, h=128, ps=64, np_tab=8,
+                                 rows=[(0, 32, 32), (400, 17, 417), (480, 32, 512)])),
+        ("gt512_p16", dict(t=32, n=32, kh=2, h=64, ps=16, np_tab=16,
+                           rows=[(200, 32, 232), (5, 20, 25)])),
+        ("mistral_window", dict(t=1, n=32, kh=8, h=128, ps=64, np_tab=128,
+                                rows=[(7999, 1, 8000), (4999, 1, 5000)],
+                                window=4096)),
+    ]
+
+
+def check_paged(torch, pa_mod):
+    """Ragged paged attention kernel vs plain on every case and dtype;
+    returns the worst error per dtype."""
+    worst = {d: 0.0 for d in TOL}
+    for name, kw in paged_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            args = paged_case(torch, dtype, b=len(kw["rows"]), **kw)
+            out = pa_mod.ragged_paged_attention_cuda(*args)
+            ref = pa_mod.ragged_paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            assert out.shape == ref.shape and out.dtype == ref.dtype
+            assert torch.isfinite(out).all(), f"paged/{name}/{dname}: non-finite"
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = err <= TOL[dname]
+            print(f"  paged   {name:16s} {dname:8s} max_abs_err={err:.3e} "
+                  f"tol={TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+            assert ok, f"paged/{name}/{dname}: {err} > {TOL[dname]}"
+            for i, (_, ql, kvl) in enumerate(kw["rows"]):
+                dead = out[i] if kvl == 0 else out[i, ql:]
+                assert (dead == 0).all(), f"paged/{name}: row {i} not exact zeros"
+            worst[dname] = max(worst[dname], err)
+    return worst
+
+
+def check_write(torch, pw_mod):
+    """Fused page write kernel vs plain, bit for bit: T = 1 at B = 8 into
+    the 7B scheduler's pool (L = 32, P = 128 pages of 64, tables of 16
+    pages) at its last layer, two slots parked at the last position behind
+    all-sentinel rows; and T = 4 with q_lens, a sentinel row and a
+    past-the-row position (3B shapes)."""
+    dev = "cuda"
+    worst = {d: 0.0 for d in TOL}
+    # (name, layers, kv heads, page size, B, T, table pages, pool pages)
+    cases = [("7b_t1_b8", 32, 32, 64, 8, 1, 16, 128),
+             ("3b_t4_qlens", 28, 8, 16, 4, 4, 16, 66)]
+    for name, n_layers, kh, ps, b, t, np_tab, pages in cases:
+        layer = n_layers - 1
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=dev).manual_seed(3)
+            shape = (n_layers, pages, kh, ps, 128)
+            kk = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+            vk = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+            kr, vr, before = kk.clone(), vk.clone(), kk[layer].clone()
+            k_new = torch.randn((b, t, kh, 128), generator=g, device=dev).to(dtype)
+            v_new = torch.randn_like(k_new)
+            tab = torch.randperm(pages, generator=g, device=dev)[: b * np_tab]
+            tab = tab.reshape(b, np_tab).int()
+            starts = torch.randint(0, np_tab * ps - t, (b, 1), generator=g,
+                                   device=dev)
+            pos = (starts + torch.arange(t, device=dev)).int()
+            q_lens = None
+            if t > 1:
+                tab[1] = pages           # a parked row: all sentinel
+                pos[2, -1] = np_tab * ps  # past the row: dropped
+                q_lens = torch.tensor([t, 1, t, 2], dtype=torch.int32, device=dev)
+            else:
+                for i in (2, 6):         # parked slots, as a decode round has
+                    tab[i] = pages
+                    pos[i] = np_tab * ps - 1
+            pw_mod.fused_page_write_cuda(kk, vk, k_new, v_new, pos, tab, layer,
+                                         q_lens)
+            pw_mod.fused_page_write_plain(kr, vr, k_new, v_new, pos, tab, layer,
+                                          q_lens)
+            torch.cuda.synchronize()
+            same = torch.equal(kk, kr) and torch.equal(vk, vr)
+            wrote = not torch.equal(kk[layer], before)
+            dname = str(dtype).split(".")[1]
+            # The error over the written layer; torch.equal covered the rest.
+            err = max((kk[layer].float() - kr[layer].float()).abs().max().item(),
+                      (vk[layer].float() - vr[layer].float()).abs().max().item())
+            del kk, vk, kr, vr, before
+            print(f"  write   {name:16s} {dname:8s} max_abs_err={err:.3e} "
+                  f"bit-exact={same} wrote={wrote}", flush=True)
+            assert same and wrote, f"write/{name}: kernel != plain"
+            worst[dname] = max(worst[dname], err)
+    return worst
+
+
 # ------------------------------------------------------------- reference
 
 
 def small_reference(torch):
-    """Greedy tokens of a 2-layer f32 model (H = 64, GQA) through the kernel
-    on the card == through the plain version on the CPU."""
+    """Greedy tokens of a 2-layer f32 model (H = 64, GQA) through the
+    kernels on the card == through the plain versions on the CPU: the
+    engine, and the paged scheduler (8-token prefix blocks in 16-token
+    pages, prompts that share a 41-token prefix: the cache hits, and copies
+    the page where the match ends mid-page)."""
     import dataclasses
 
     from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
     from llm_based_apache_spark_optimization_tpu_torch.models import LLAMA32_1B
     from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+    )
 
     cfg = dataclasses.replace(LLAMA32_1B, name="ref-small", vocab_size=512,
                               hidden_size=256, intermediate_size=512,
@@ -186,8 +389,24 @@ def small_reference(torch):
     prompts = [[1, 17, 93, 5], [1, 40, 41], [1] + list(range(60, 130))]
     ref = InferenceEngine(cfg, cpu_params, device="cpu").generate(prompts, 24)
     got = InferenceEngine(cfg, gpu_params, device="cuda").generate(prompts, 24)
-    print(f"  cpu plain : {ref}\n  cuda kern : {got}", flush=True)
+    print(f"  engine cpu plain : {ref}\n  engine cuda kern : {got}", flush=True)
     assert got == ref, "kernel path disagrees with the plain CPU reference"
+
+    prefix = [1] + list(range(100, 140))
+    sched_prompts = [prefix + [200 + i] for i in range(3)] + prompts
+    outs = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        with ContinuousBatchingScheduler(
+                cfg, params, num_slots=4, decode_chunk=4, prompt_bucket=8,
+                stop_ids=(-1,), kv_page_size=16, device=dev) as s:
+            seq = [s.submit(p, 16).result(timeout=600) for p in sched_prompts[:3]]
+            futs = [s.submit(p, 16) for p in sched_prompts]
+            outs[dev] = seq + [f.result(timeout=600) for f in futs]
+            hits, cow = s.prefix_stats["hits"], s.page_stats["cow_copies"]
+        print(f"  scheduler {dev}: prefix hits {hits}, cow copies {cow}: "
+              f"{outs[dev]}", flush=True)
+    assert outs["cuda"] == outs["cpu"], "scheduler on the card != on the CPU"
+    assert hits > 0 and cow > 0, "the small scheduler's prefix cache never hit"
 
 
 # ----------------------------------------------------------------- serve
@@ -218,7 +437,13 @@ ERROR = ("AnalysisException: [UNRESOLVED_COLUMN.WITH_SUGGESTION] A column or "
          "one of the following? [`fare_amount`, `tip_amount`, `total_amount`].")
 SYSTEM_ERR = ("You are an AI that helps troubleshoot Apache Spark errors. "
               "Provide clear, concise solutions.")
+ERROR_PROMPT = (f"The following Spark error occurred:\n\n{ERROR}\n\n"
+                "Please analyze this error and suggest possible solutions.")
 MAX_NEW = 32
+# The scheduler phase: two NL->SQL requests one after the other, then the
+# other six at once (with one 3B error explanation beside them).
+SCHED_SQL = QUESTIONS + BATCH + ["Which payment type has the highest average fare?"]
+SCHED = dict(num_slots=8, max_seq=1024, decode_chunk=8, kv_page_size=64)
 
 
 def serve(torch):
@@ -262,7 +487,7 @@ def serve(torch):
                                            max_new_tokens=MAX_NEW, add_bos=False),
                  template="llama3-chat")
 
-    expected = {"flash_gqa_prefill": 0, "flash_gqa_decode": 0}
+    expected = dict.fromkeys(LAUNCHES, 0)
 
     def account(model, results, kind):
         eng = engines[model]
@@ -287,17 +512,14 @@ def serve(torch):
         account("duckdb-nsql", [r], "generate")
     rs = svc.generate_batch("duckdb-nsql", BATCH, system=SYSTEM_SQL)
     account("duckdb-nsql", rs, "generate_batch")
-    r = svc.generate(
-        "llama3.2",
-        f"The following Spark error occurred:\n\n{ERROR}\n\n"
-        "Please analyze this error and suggest possible solutions.",
-        system=SYSTEM_ERR,
-    )
+    r = svc.generate("llama3.2", ERROR_PROMPT, system=SYSTEM_ERR)
     account("llama3.2", [r], "generate")
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     print(f"  launches {launches} expected {expected}", flush=True)
     assert launches == expected, f"launch counts {launches} != {expected}"
+    for k in ("flash_gqa_prefill", "flash_gqa_decode"):
+        assert launches[k] > 0, f"the engine path never launched {k}"
 
     # Right answers: prefill logits of the first SQL request through the
     # kernel vs through the plain version, same weights and inputs.
@@ -324,18 +546,223 @@ def serve(torch):
     return launches, shapes, engines, svc
 
 
+def wait_idle(sched, timeout=60.0):
+    """Futures resolve before the worker frees the slot's pages and drains
+    its last round: poll until only prefix-cache pages stay in use."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        st = sched.page_stats
+        if st["pages_in_use"] == st["prefix_resident_pages"] and not sched._pending:
+            return st
+        time.sleep(0.01)
+    raise AssertionError(f"scheduler did not drain: {sched.page_stats}")
+
+
+def live_pool_logits(torch, sched):
+    """One decode step on the drained scheduler's live pool, through the
+    kernels and through the plain versions: the token after the longest
+    cached prefix, attending to the prefix's shared pages, writing its own
+    K/V into a free page. At full depth in bf16 the logits must agree
+    within LOGIT_TOL; on an f32 copy of the first two layers and of their
+    pool, within F32_LOGIT_TOL. A control reads the row's first page in
+    place of its second on the plain side (a kernel that read a wrong
+    page): its logits must miss the plain ones by more than each
+    tolerance, so that both checks can fail such a kernel."""
+    import dataclasses
+
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        set_attention_impl,
+    )
+
+    key = max(sched._prefix_pages, key=len)
+    ps, alloc = sched._page_size, sched._page_alloc
+    n_use = (len(key) - 1) // ps * ps
+    assert n_use >= 2 * ps, f"the cached prefix ({len(key)} tokens) spans < 2 pages"
+    free = alloc.alloc(1)
+    row = list(sched._prefix_pages[key][: n_use // ps]) + free
+    row += [alloc.num_pages] * (sched._pages_per_slot - len(row))
+    fault = list(row)
+    fault[1] = fault[0]
+    tokens = torch.tensor([[key[n_use]]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([[n_use]], dtype=torch.int32, device="cuda")
+    kvl = torch.tensor([n_use + 1], dtype=torch.int32, device="cuda")
+
+    def step(cfg, params, kp, vp, table, impl):
+        cache = {"kp": kp, "vp": vp,
+                 "ptab": torch.tensor([table], dtype=torch.int32, device="cuda")}
+        set_attention_impl(impl)
+        try:
+            logits, _ = forward(cfg, params, tokens, pos, cache, kv_lens=kvl)
+        finally:
+            set_attention_impl("auto")
+        assert logits.shape == (1, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+        return logits
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    cfg2 = dataclasses.replace(sched.cfg, num_layers=2)
+    with torch.inference_mode():
+        kp, vp = sched._pool["kp"], sched._pool["vp"]
+        lk = step(sched.cfg, sched.params, kp, vp, row, "auto")
+        lp = step(sched.cfg, sched.params, kp, vp, row, "plain")
+        lf = step(sched.cfg, sched.params, kp, vp, fault, "plain")
+        p2 = {k: ({kk: vv[:2].float() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.float())
+              for k, v in sched.params.items()}
+        kp2, vp2 = kp[:2].float(), vp[:2].float()
+        lk2 = step(cfg2, p2, kp2, vp2, row, "auto")
+        lp2 = step(cfg2, p2, kp2, vp2, row, "plain")
+        lf2 = step(cfg2, p2, kp2, vp2, fault, "plain")
+        del p2, kp2, vp2
+    alloc.release(free)
+    out = {}
+    for label, k_, p_, f_, tol in (
+            (f"bf16, {sched.cfg.num_layers} layers", lk, lp, lf, LOGIT_TOL),
+            ("f32, 2 layers", lk2, lp2, lf2, F32_LOGIT_TOL)):
+        out[label] = (rel(k_, p_), rel(f_, p_), tol)
+        print(f"  7B decode logits on the live pool after {n_use} cached tokens "
+              f"({label}): kernel vs plain max|diff|/max|logit| = "
+              f"{out[label][0]:.3e} (tol {tol:.0e}), argmax equal: "
+              f"{int(k_.argmax()) == int(p_.argmax())}; one-page fault vs plain "
+              f"{out[label][1]:.3e}, argmax equal: "
+              f"{int(f_.argmax()) == int(p_.argmax())}", flush=True)
+    for label, (err, fault_err, tol) in out.items():
+        assert err <= tol, f"live pool ({label}): kernel vs plain {err} > {tol}"
+        assert fault_err > tol, (f"live pool ({label}): a one-page fault moves the "
+                                 f"logits by {fault_err}, within the tolerance {tol}")
+    return out
+
+
+def scheduler_serve(torch, engines, profile=False):
+    """The paged scheduler path: 7B and 3B behind SchedulerBackends, exact
+    launch counts, prefix sharing, no leaked page, and a live-pool check.
+    With `profile`, six concurrent 7B requests alone under torch.profiler
+    after the checked run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        GenerationService,
+        SchedulerBackend,
+        resolve_stop_ids,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    scheds = {name: ContinuousBatchingScheduler(
+        eng.cfg, eng.params, stop_ids=resolve_stop_ids(eng.cfg, tok),
+        device="cuda", **SCHED) for name, eng in engines.items()}
+    svc = GenerationService()
+    svc.register("duckdb-nsql", SchedulerBackend(scheds["duckdb-nsql"], tok,
+                                                 max_new_tokens=MAX_NEW))
+    svc.register("llama3.2", SchedulerBackend(scheds["llama3.2"], tok,
+                                              max_new_tokens=MAX_NEW, add_bos=False),
+                 template="llama3-chat")
+    for name, sc in scheds.items():
+        st = sc.page_stats
+        print(f"  {name}: pool of {st['pages_total']} pages x "
+              f"{st['page_bytes'] / 2**20:.1f} MiB, {sc.num_slots} slots, "
+              f"max_seq {sc.max_seq}", flush=True)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    start = {n: (sc.rounds_issued, sc.prefill_forwards) for n, sc in scheds.items()}
+    results = []
+    t0 = time.perf_counter()
+    for qn in SCHED_SQL[:2]:
+        results.append(("duckdb-nsql", "sequential",
+                        svc.generate("duckdb-nsql", qn, system=SYSTEM_SQL)))
+    t_burst = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=7) as pool:
+        futs = [pool.submit(svc.generate, "duckdb-nsql", qn, SYSTEM_SQL)
+                for qn in SCHED_SQL[2:]]
+        err = pool.submit(svc.generate, "llama3.2", ERROR_PROMPT, SYSTEM_ERR)
+        results += [("duckdb-nsql", "concurrent", f.result()) for f in futs]
+        results.append(("llama3.2", "concurrent", err.result()))
+    t_end = time.perf_counter()
+    stats = {n: wait_idle(sc) for n, sc in scheds.items()}
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+
+    expected = dict.fromkeys(LAUNCHES, 0)
+    for n, sc in scheds.items():
+        n_layers = sc.cfg.num_layers
+        rounds = sc.rounds_issued - start[n][0]
+        prefills = sc.prefill_forwards - start[n][1]
+        for k in ("ragged_paged_attention", "fused_page_write"):
+            expected[k] += n_layers * sc.decode_chunk * rounds
+        expected["flash_gqa_prefill"] += n_layers * prefills
+        print(f"  {n}: {rounds} decode rounds, {prefills} prefill forwards; "
+              f"pages {stats[n]}; prefix {sc.prefix_stats}", flush=True)
+    for model, kind, r in results:
+        dec_s = r.latency_s - r.ttft_s
+        rate = (r.output_tokens - 1) / dec_s if r.output_tokens > 1 and dec_s > 0 else 0.0
+        print("  " + json.dumps(dict(
+            model=model, kind=kind, prompt_tokens=r.prompt_tokens,
+            output_tokens=r.output_tokens, latency_s=round(r.latency_s, 4),
+            ttft_s=round(r.ttft_s, 4), decode_tok_per_s=round(rate, 1))), flush=True)
+    burst = sum(r.output_tokens for _, kind, r in results if kind == "concurrent")
+    total = sum(r.output_tokens for _, _, r in results)
+    print(f"  aggregate: {total} tokens in {t_end - t0:.3f} s = "
+          f"{total / (t_end - t0):.1f} tok/s; concurrent burst {burst} tokens in "
+          f"{t_end - t_burst:.3f} s = {burst / (t_end - t_burst):.1f} tok/s", flush=True)
+    print(f"  launches {launches} expected {expected}", flush=True)
+    assert launches == expected, f"launch counts {launches} != {expected}"
+    for k in ("flash_gqa_prefill", "ragged_paged_attention", "fused_page_write"):
+        assert launches[k] > 0, f"the scheduler path never launched {k}"
+
+    s7 = scheds["duckdb-nsql"]
+    assert s7.prefix_stats["hits"] > 0, "the schema prefix never hit"
+    assert stats["duckdb-nsql"]["zero_copy_shares"] > 0, "no page was shared"
+    if profile:
+        def burst():
+            with ThreadPoolExecutor(max_workers=6) as pool:
+                futs = [pool.submit(svc.generate, "duckdb-nsql", qn, SYSTEM_SQL)
+                        for qn in SCHED_SQL[2:]]
+                return sum(f.result().output_tokens for f in futs)
+
+        phase("profile (scheduler path)")
+        r0, t1 = s7.rounds_issued, time.perf_counter()
+        n_tok = burst()
+        wall = time.perf_counter() - t1
+        print(f"  six concurrent 7B scheduler requests alone, no profiler: {n_tok} "
+              f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; "
+              f"{s7.rounds_issued - r0} decode rounds of {s7.decode_chunk} steps",
+              flush=True)
+        wait_idle(s7)
+        r0 = s7.rounds_issued
+        profile_device(torch, "six concurrent 7B scheduler requests", burst)
+        print(f"  {s7.rounds_issued - r0} decode rounds of {s7.decode_chunk} steps",
+              flush=True)
+        wait_idle(s7)
+    for sc in scheds.values():
+        sc.shutdown()
+        sc._page_alloc.check()
+        st = sc.page_stats
+        assert st["pages_in_use"] == st["prefix_resident_pages"], f"leaked pages: {st}"
+    live_pool_logits(torch, s7)
+    return launches
+
+
 # --------------------------------------------------------------- profile
 
 
-def profile_request(torch, svc):
-    """Device time by kernel over one 7B request (`--profile`), and the
-    device's busy share of the request's wall time under the profiler."""
+def profile_device(torch, label, send):
+    """Device time by kernel group over `send()` (`--profile`), which
+    returns the tokens it generated, and the device's busy share of its
+    wall time under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r = svc.generate("duckdb-nsql", QUESTIONS[0], system=SYSTEM_SQL)
+        n_tokens = send()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device-side rows only: a CPU op's row repeats its kernels' time.
@@ -343,15 +770,20 @@ def profile_request(torch, svc):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda x: -x[1])
     busy_us = sum(x[1] for x in rows)
-    groups = {"attention kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"flash attention": 0.0, "paged attention": 0.0, "page write": 0.0,
+              "matmul": 0.0, "other": 0.0}
     for key, us, _ in rows:
-        if "flash_gqa" in key:
-            groups["attention kernel"] += us
+        if "PagedSrc" in key:
+            groups["paged attention"] += us
+        elif "gqa_tile" in key:
+            groups["flash attention"] += us
+        elif "fused_page_write" in key:
+            groups["page write"] += us
         elif any(w in key.lower() for w in ("nvjet", "gemm", "gemv", "cutlass")):
             groups["matmul"] += us
         else:
             groups["other"] += us
-    print(f"  one request: {r.output_tokens} tokens, wall {wall_us / 1e3:.1f} ms "
+    print(f"  {label}: {n_tokens} tokens, wall {wall_us / 1e3:.1f} ms "
           f"under the profiler, device busy {busy_us / 1e3:.1f} ms "
           f"({100 * busy_us / wall_us:.1f}%)", flush=True)
     print("  device ms by group: " + ", ".join(
@@ -425,13 +857,110 @@ def time_launch(torch, attn_mod, n, kh, h, layers, b, t, s, positions):
                 shape=dict(B=b, T=t, N=n, K=kh, S=s, H=h, dtype="bfloat16"))
 
 
+def time_host(torch, fn, calls, reps=5):
+    """Device ms per call of `fn(i)` dispatched from the host between CUDA
+    events: for a function that synchronises and so cannot be captured in
+    a CUDA graph (the plain page write selects its kept slivers)."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for i in range(calls):
+            fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+PAGED_LENS = [64, 200, 333, 480, 600, 777, 900, 1024]  # live tokens per row
+
+
+def time_paged(torch, pa_mod, pw_mod, cfg):
+    """The paged decode launches at 7B: B = 8 rows at PAGED_LENS through
+    tables of pages of 64 over a full-depth pool, one call per layer.
+    Ragged paged attention: kernel, plain, and SDPA over K/V gathered
+    through the tables in advance (the gather is not timed). Page write of
+    the decode step's own position, kv_lens - 1 (T = 1): kernel, plain
+    (host-dispatched: it synchronises) and index_put_ of the same slivers
+    at precomputed coordinates."""
+    import torch.nn.functional as F
+
+    dev, dt = "cuda", torch.bfloat16
+    ps, np_tab, n_layers = 64, 16, cfg.num_layers
+    n, kh, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b = len(PAGED_LENS)
+    need = [-(-x // ps) for x in PAGED_LENS]
+    pool_pages = sum(need) + 7
+    g = torch.Generator(device=dev).manual_seed(4)
+    shape = (n_layers, pool_pages, kh, ps, h)
+    kp = torch.randn(shape, generator=g, device=dev, dtype=dt)
+    vp = torch.randn(shape, generator=g, device=dev, dtype=dt)
+    perm = torch.randperm(pool_pages, generator=g, device=dev).tolist()
+    rows, i = [], 0
+    for nd in need:
+        rows.append(perm[i:i + nd] + [pool_pages] * (np_tab - nd))
+        i += nd
+    tab = torch.tensor(rows, dtype=torch.int32, device=dev)
+    kvl = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    pos = (kvl - 1)[:, None]
+    q = torch.randn((b, 1, n, h), generator=g, device=dev, dtype=dt)
+
+    ms = time_ms(torch, lambda l: pa_mod.ragged_paged_attention_cuda(
+        q, kp[l], vp[l], tab, pos, None, kvl), n_layers)
+    plain = time_ms(torch, lambda l: pa_mod.ragged_paged_attention_plain(
+        q, kp[l], vp[l], tab, pos, None, kvl), n_layers)
+    grp = n // kh
+    kg = [pa_mod.gather_pages(kp[l], tab).repeat_interleave(grp, dim=1)
+          for l in range(n_layers)]
+    vg = [pa_mod.gather_pages(vp[l], tab).repeat_interleave(grp, dim=1)
+          for l in range(n_layers)]
+    mask = (torch.arange(np_tab * ps, device=dev)[None, :] < kvl[:, None])[:, None, None]
+    qt = q.transpose(1, 2)
+    lib = time_ms(torch, lambda l: F.scaled_dot_product_attention(
+        qt, kg[l], vg[l], attn_mask=mask), n_layers)
+    del kg, vg
+    live = sum(PAGED_LENS)
+    b_ms, b_by = bound(2 * (2 * live * kh * h + 2 * q.numel()), 4 * h * live * n)
+    paged = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                 shape=dict(B=b, T=1, N=n, K=kh, H=h, page=ps, kv_lens=PAGED_LENS,
+                            dtype="bfloat16"))
+
+    kn = torch.randn((b, 1, kh, h), generator=g, device=dev, dtype=dt)
+    vn = torch.randn_like(kn)
+    ms = time_ms(torch, lambda l: pw_mod.fused_page_write_cuda(
+        kp, vp, kn, vn, pos, tab, l), n_layers)
+    plain = time_host(torch, lambda l: pw_mod.fused_page_write_plain(
+        kp, vp, kn, vn, pos, tab, l), n_layers)
+    pages, offs = pw_mod.page_coords(pos, tab, ps, pool_pages)
+    pg, of = pages.reshape(-1), offs.reshape(-1)
+    assert bool((pg < pool_pages).all())  # every sliver lands
+
+    def index_put(l):
+        kp[l][pg, :, of] = kn[:, 0]
+        vp[l][pg, :, of] = vn[:, 0]
+
+    lib = time_ms(torch, index_put, n_layers)
+    b_ms, b_by = bound(2 * 2 * kn.numel() * kn.element_size(), 0)
+    write = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                 shape=dict(B=b, T=1, K=kh, H=h, page=ps, dtype="bfloat16"))
+    return paged, write
+
+
 # ------------------------------------------------------------------ main
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one 7B request with torch.profiler")
+                    help="also trace one 7B engine request and a burst of 7B "
+                         "scheduler requests with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -444,6 +973,12 @@ def main() -> int:
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import _build
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
         attention as attn_mod,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        paged_attention as pa_mod,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        paged_write as pw_mod,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -465,16 +1000,22 @@ def main() -> int:
 
     phase("kernels vs plain")
     worst = check_kernels(torch, attn_mod)
+    worst_paged = check_paged(torch, pa_mod)
+    write_err = check_write(torch, pw_mod)
 
     phase("small reference")
     small_reference(torch)
 
-    phase("serve")
+    phase("serve (engine path)")
     launches, shapes, engines, svc = serve(torch)
     if args.profile:
-        phase("profile")
-        profile_request(torch, svc)
+        phase("profile (engine path)")
+        profile_device(torch, "one 7B engine request", lambda: svc.generate(
+            "duckdb-nsql", QUESTIONS[0], system=SYSTEM_SQL).output_tokens)
     del svc
+
+    phase("serve (scheduler path)")
+    sched_launches = scheduler_serve(torch, engines, args.profile)
 
     phase("timing")
     cfg7 = engines["duckdb-nsql"].cfg
@@ -489,31 +1030,46 @@ def main() -> int:
                               cfg7.num_kv_heads, cfg7.head_dim, cfg7.num_layers,
                               1, 1, s, [[n_prompt + MAX_NEW // 2]]),
     }
+    timed["paged"], timed["write"] = time_paged(torch, pa_mod, pw_mod, cfg7)
+    errors = {
+        "prefill": {d: worst[("prefill", d)] for d in TOL},
+        "decode": {d: worst[("decode", d)] for d in TOL},
+        "paged": worst_paged,
+        "write": write_err,
+    }
+    names = {"prefill": "flash_gqa_attention_prefill",
+             "decode": "flash_gqa_attention_decode",
+             "paged": "ragged_paged_attention", "write": "fused_page_write"}
+    counts = {
+        "prefill": {"engine": launches["flash_gqa_prefill"],
+                    "scheduler": sched_launches["flash_gqa_prefill"]},
+        "decode": {"engine": launches["flash_gqa_decode"],
+                   "scheduler": sched_launches["flash_gqa_decode"]},
+        "paged": {"scheduler": sched_launches["ragged_paged_attention"]},
+        "write": {"scheduler": sched_launches["fused_page_write"]},
+    }
     kernels = []
-    for launch in ("prefill", "decode"):
+    for launch in ("prefill", "decode", "paged", "write"):
         tm = timed[launch]
-        err = max(worst[(launch, d)] for d in TOL)
         kernels.append({
-            "name": f"flash_gqa_attention_{launch}",
+            "name": names[launch],
             "route": "cuda",
-            "source": SOURCE,
+            "source": SOURCES[launch],
             "replaces": REPLACES[launch],
-            "launches": launches[f"flash_gqa_{launch}"],
-            "max_abs_err": err,
-            "max_abs_err_bf16": worst[(launch, "bfloat16")],
-            "max_abs_err_f32": worst[(launch, "float32")],
-            "tolerance": TOL,
+            "launches": sum(counts[launch].values()),
+            "launches_by_path": counts[launch],
+            "max_abs_err": max(errors[launch].values()),
+            "max_abs_err_by_dtype": errors[launch],
+            "tolerance": {"bfloat16": 0.0, "float32": 0.0} if launch == "write" else TOL,
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
-            "max_err": err,
-            "kernel_ms": tm["ms"],
             "shape": tm["shape"],
         })
         print(f"  {launch}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
-              f"sdpa {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
+              f"library {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
               f"({tm['bound_by']}) at {tm['shape']}", flush=True)
 
     print(json.dumps({"kernels": kernels}))

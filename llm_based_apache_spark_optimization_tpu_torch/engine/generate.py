@@ -7,6 +7,12 @@ from those logits; then one forward per step decodes every row at its own
 position, with per-row stop handling, an early exit once every row has
 stopped, and a step budget no larger than the bucketed cap the cache was
 sized for. The loop runs on the host, one eager forward per step.
+
+With `kv_layout="paged"` the prefill runs over a prompt-sized contiguous
+cache, `pack_prefill_pages` moves its K/V into pool pages with identity
+per-row tables, and every decode step writes and reads through the tables
+(the paged forward: the fused page-write and ragged paged attention
+kernels on the card).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from ..models.configs import LlamaConfig
 from ..models.llama import Params, forward
 from ..ops.sampling import SamplingParams, sample
 from .kvcache import bucket_len, init_cache
+from .paged_kv import default_page_size, pack_prefill_pages
 
 
 def _is_stop(tok: torch.Tensor, stop_ids: Tuple[int, ...]) -> torch.Tensor:
@@ -46,7 +53,16 @@ class InferenceEngine:
         prompt_bucket: int = 128,
         new_bucket: int = 64,
         device=None,
+        kv_layout: str = "contiguous",
+        kv_page_size: Optional[int] = None,
     ):
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(
+                f"kv_layout must be 'contiguous' or 'paged', got {kv_layout!r}"
+            )
+        self.kv_layout = kv_layout
+        self.kv_page_size = (int(kv_page_size or default_page_size())
+                             if kv_layout == "paged" else 0)
         self.cfg = cfg
         self.device = resolve_device(device)
         if params["final_norm"].device.type != self.device.type:
@@ -96,8 +112,10 @@ class InferenceEngine:
         cap = min(bucket_len(int(max_new_tokens), self.new_bucket),
                   cfg.max_seq_len - t)
         budget = min(int(max_new_tokens), cap)
-        cache = init_cache(cfg, b, t + cap, dtype=self.params["final_norm"].dtype,
-                           device=dev)
+        paged = self.kv_layout == "paged"
+        # Paged: a prompt-sized transient cache, packed into pages below.
+        cache = init_cache(cfg, b, t if paged else t + cap,
+                           dtype=self.params["final_norm"].dtype, device=dev)
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t)
         gen = None
         if not sampling.is_greedy:
@@ -110,6 +128,9 @@ class InferenceEngine:
         out = [cur]
         finished = bool(done.all())  # synchronises: the first token exists
         ttft = time.perf_counter() - t0
+        if paged:
+            ps = self.kv_page_size
+            cache = pack_prefill_pages(cache, ps, -(-(t + cap) // ps))
         pos = lengths.clone()
         pad = torch.tensor(cfg.pad_id, dtype=torch.int32, device=dev)
         step = 1

@@ -16,8 +16,13 @@ onto the other.
   layer writes its fresh [B, T, K, H] sliver at per-row offsets of its own
   layer, and attention reads that layer's [B, K, S, H] view. Nothing
   rebuilds the cache.
-- Attention goes through `ops.kernels.dispatch`: the hand-written flash
-  kernel on CUDA, its plain version on the CPU.
+- Or the paged cache `{"kp", "vp": [L, P, K, PS, H], "ptab": [B, NP]}`
+  (engine/paged_kv.py), for T <= `_UNROLL_MAX_T` (decode steps and small
+  windows): each layer first writes its sliver through the page table, in
+  place (the fused page-write kernel), then attends through the table (the
+  ragged paged attention kernel).
+- Attention and page writes go through `ops.kernels.dispatch`: the
+  hand-written kernels on CUDA, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -28,12 +33,18 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..ops.kernels.dispatch import attention
+from ..ops.kernels.dispatch import attention, page_write, paged_attention
 from ..ops.norm import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
 from .configs import LlamaConfig
 
 Params = Dict[str, object]
+
+# Paged forwards serve windows of at most this many tokens (decode steps,
+# verify windows, mixed rounds); longer prefill runs a contiguous cache and
+# packs or scatters its K/V into pool pages (engine/generate.py,
+# serve/scheduler.py). The JAX package's unrolled small-T bound.
+_UNROLL_MAX_T = 32
 
 
 def init_params(
@@ -102,16 +113,32 @@ def forward(
     tokens: torch.Tensor,     # [B, T] int
     positions: torch.Tensor,  # [B, T] int — absolute position of each token
     cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"}: [L, B, K, S, H]
+                              # or paged {"kp","vp": [L, P, K, PS, H],
+                              # "ptab": [B, NP] int}
     logit_indices: Optional[torch.Tensor] = None,     # [B] int
     kv_lens: Optional[torch.Tensor] = None,           # [B] int — live KV slots
+    q_lens: Optional[torch.Tensor] = None,            # [B] int — live query
+                                                      # cols (paged windows)
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run T tokens through the stack; returns (logits f32, cache).
 
     With `cache=None` the layer's own K/V are the keys (prefill-only
     scoring). With a cache, K/V are written at `positions[:, 0] + t` and
-    attention reads the layer's whole cache, masked by position.
-    `logit_indices` unembeds only those T-indices ([B, 1, V] logits)."""
+    attention reads the layer's whole cache, masked by position. With a
+    paged cache, K/V are written at `positions` through the page table
+    (dead columns past `q_lens` write nothing and read zeros), then
+    attention reads through it. `logit_indices` unembeds only those
+    T-indices ([B, 1, V] logits)."""
     b, t = tokens.shape
+    paged = cache is not None and "kp" in cache
+    if paged and t > _UNROLL_MAX_T:
+        raise ValueError(
+            "a paged KV cache serves the unrolled small-T path only "
+            f"(T <= {_UNROLL_MAX_T}; decode, verify windows, and mixed "
+            "ragged prefill+decode rounds): longer prefill runs a "
+            "contiguous transient/row cache and packs or scatters its K/V "
+            "into pool pages (engine/generate.py, serve/scheduler.py)."
+        )
     x = params["embed"][tokens.long()]  # [B, T, D]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
@@ -125,15 +152,22 @@ def forward(
         k = (h @ blocks["wk"][l]).reshape(b, t, kh, hd)
         v = (h @ blocks["wv"][l]).reshape(b, t, kh, hd)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        if cache is None:
-            k_full = k.transpose(1, 2).contiguous()  # cache layout [B, K, T, H]
-            v_full = v.transpose(1, 2).contiguous()
+        if paged:
+            page_write(cache["kp"], cache["vp"], k, v, positions,
+                       cache["ptab"], l, q_lens)
+            attn = paged_attention(q, cache["kp"][l], cache["vp"][l],
+                                   cache["ptab"], positions,
+                                   cfg.sliding_window, kv_lens, q_lens)
         else:
-            k_full, v_full = cache["k"][l], cache["v"][l]
-            _write_cache(k_full, k, start)
-            _write_cache(v_full, v, start)
-        attn = attention(q, k_full, v_full, positions, cfg.sliding_window,
-                         kv_lens)
+            if cache is None:
+                k_full = k.transpose(1, 2).contiguous()  # cache layout [B, K, T, H]
+                v_full = v.transpose(1, 2).contiguous()
+            else:
+                k_full, v_full = cache["k"][l], cache["v"][l]
+                _write_cache(k_full, k, start)
+                _write_cache(v_full, v, start)
+            attn = attention(q, k_full, v_full, positions, cfg.sliding_window,
+                             kv_lens)
         x = x + attn.reshape(b, t, nh * hd) @ blocks["wo"][l]
         h2 = rms_norm(x, blocks["ln_mlp"][l], cfg.norm_eps)
         gate = F.silu((h2 @ blocks["wg"][l]).float()).to(x.dtype)

@@ -1,10 +1,12 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles on its own into `build/lib<name>.so` (a
-plain C interface: no PyTorch headers, so a build takes seconds). A library
-is rebuilt when its source is newer than it. Nothing is built at import:
-`load(name)` builds on first use, and `build_all()` starts one nvcc per
-source at once and waits for all of them.
+plain C interface: no PyTorch headers, so a build takes seconds); the
+`csrc/*.cuh` headers are shared between sources. A library is rebuilt when
+its source or any header is newer than it. Nothing is built at import:
+`load(name)` builds on first use, `kernel_fn(name, argtypes)` binds the
+C function of that name, and `build_all()` starts one nvcc per source at
+once and waits for all of them.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[str, object] = {}
 
 
 def nvcc() -> str:
@@ -46,7 +49,10 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    inputs = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                      if f.endswith(".cuh")]
+    return not os.path.exists(lib) or os.path.getmtime(lib) < max(
+        os.path.getmtime(f) for f in inputs)
 
 
 def _start(name: str, extra_flags=()) -> subprocess.Popen:
@@ -91,3 +97,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_paths(name)[1])
         _loaded[name] = lib
         return lib
+
+
+def kernel_fn(name: str, argtypes) -> object:
+    """The C function `name` of `csrc/<name>.cu` (built first if stale),
+    with its argument types set and an int (CUDA error code) result."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(load(name), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
+    return fn

@@ -15,23 +15,18 @@ launches the kernel or raises. There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
 from ..common import NEG_INF
+from .launches import count
 
-#: Kernel launches per launch kind, bumped only where the kernel launches.
-LAUNCHES: Dict[str, int] = {"flash_gqa_prefill": 0, "flash_gqa_decode": 0}
-
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)
 _PREFILL_ROWS = 16  # rows per block of the prefill launch (csrc BR)
-_fn = None
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _LL, _LL, _LL, _LL, _LL, _LL, _I, ctypes.c_float, _I, _I, _P]
 
 
 def _default_kv_lens(q_positions: torch.Tensor, kv_lens, s: int) -> torch.Tensor:
@@ -77,20 +72,6 @@ def flash_gqa_attention_plain(
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, n, h).to(q.dtype)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        from ._build import load
-
-        fn = load("flash_gqa_attention").flash_gqa_attention
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, i, ctypes.c_float, i, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def decode_rows(g: int) -> int:
     """Row tile of the decode launch: the next power of two >= G, at most 16
     (so one block holds every query head of its KV head up to G = 16)."""
@@ -112,8 +93,8 @@ def flash_gqa_attention_cuda(q, k, v, q_positions, sliding_window=None,
         raise TypeError(f"flash kernel takes bf16 or f32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    if h not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel supports head_dim in {_HEAD_DIMS}, got {h}")
+    if h not in HEAD_DIMS:
+        raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, got {h}")
     if k.shape != (b, kh, s, h) or v.shape != k.shape or n % kh:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -131,7 +112,9 @@ def flash_gqa_attention_cuda(q, k, v, q_positions, sliding_window=None,
     out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)
     decode = t == 1
     br = decode_rows(n // kh) if decode else _PREFILL_ROWS
-    err = _kernel()(
+    from ._build import kernel_fn
+
+    err = kernel_fn("flash_gqa_attention", _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
         lens.data_ptr(), out.data_ptr(), b, t, n, kh, s, h,
         *q.stride()[:3], *out.stride()[:3],
@@ -140,7 +123,7 @@ def flash_gqa_attention_cuda(q, k, v, q_positions, sliding_window=None,
     )
     if err != 0:
         raise RuntimeError(f"flash_gqa_attention launch failed: CUDA error {err}")
-    LAUNCHES["flash_gqa_decode" if decode else "flash_gqa_prefill"] += 1
+    count("flash_gqa_decode" if decode else "flash_gqa_prefill")
     return out
 
 

@@ -1,10 +1,10 @@
-"""Attention implementation selection.
+"""Kernel implementation selection for the model's attention and page writes.
 
 Modes:
-- "auto"  (default) — `flash_gqa_attention`: the CUDA kernel for a CUDA
-  tensor, its plain version for a CPU tensor. No size crossover.
-- "plain" — the plain version on any device. For tests, and for the
-  kernel-vs-plain comparison of `chip_smoke.py`; the serving path never
+- "auto"  (default) — the hand-written CUDA kernel for a CUDA tensor, its
+  plain version for a CPU tensor. No size crossover.
+- "plain" — the plain versions on any device. For tests, and for the
+  kernel-vs-plain comparisons of `chip_smoke.py`; the serving path never
   sets it.
 """
 
@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 
 from .attention import flash_gqa_attention, flash_gqa_attention_plain
+from .paged_attention import ragged_paged_attention, ragged_paged_attention_plain
+from .paged_write import fused_page_write, fused_page_write_plain
 
 _VALID = ("auto", "plain")
 _mode = "auto"
@@ -38,3 +40,33 @@ def attention(
 ) -> torch.Tensor:
     fn = flash_gqa_attention_plain if _mode == "plain" else flash_gqa_attention
     return fn(q, k, v, q_positions, sliding_window, kv_lens)
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    q_positions: torch.Tensor,
+    sliding_window: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    q_lens: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    fn = (ragged_paged_attention_plain if _mode == "plain"
+          else ragged_paged_attention)
+    return fn(q, k_pool, v_pool, page_table, q_positions, sliding_window,
+              kv_lens, q_lens)
+
+
+def page_write(
+    kp: torch.Tensor,
+    vp: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    positions: torch.Tensor,
+    page_table: torch.Tensor,
+    layer: int,
+    q_lens: Optional[torch.Tensor] = None,
+) -> None:
+    fn = fused_page_write_plain if _mode == "plain" else fused_page_write
+    fn(kp, vp, k_new, v_new, positions, page_table, layer, q_lens)

@@ -1,15 +1,19 @@
-"""The flash GQA attention kernel against its plain version, on a CUDA card.
+"""The port's CUDA kernels against their plain versions, on a CUDA card:
+flash GQA attention, ragged paged attention and the fused page write.
 
 Needs a card (marker `cuda`); skips elsewhere. On the card:
 `python -m pytest tests/test_torch_cuda.py -q`. Tolerances as in
 chip_smoke.py: max abs error 1e-4 in f32, 3e-2 in bf16 (bf16 outputs are
 rounded to bf16 and the probabilities are rounded at a different running
-max than the plain version's)."""
+max than the plain version's); the page write is bit-exact."""
 
 import pytest
 import torch
 
+from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import LAUNCHES
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import attention as k
+from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_attention as pa
+from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_write as pw
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -36,14 +40,14 @@ def test_kernel_matches_plain(cuda, dtype, t, n, kh, h, window):
     pos = (torch.tensor([[0], [50], [s - t]], device=cuda)
            + torch.arange(t, device=cuda)).int()
     lens = torch.tensor([0, 50 + t, s], dtype=torch.int32, device=cuda)
-    before = dict(k.LAUNCHES)
+    before = dict(LAUNCHES)
     out = k.flash_gqa_attention(q, kk, v, pos, window, lens)
     ref = k.flash_gqa_attention_plain(q, kk, v, pos, window, lens)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
     assert (out[0] == 0).all()
     launch = "flash_gqa_decode" if t == 1 else "flash_gqa_prefill"
-    assert k.LAUNCHES[launch] == before[launch] + 1
+    assert LAUNCHES[launch] == before[launch] + 1
 
 
 def test_kernel_raises_on_unsupported_head_dim(cuda):
@@ -52,3 +56,56 @@ def test_kernel_raises_on_unsupported_head_dim(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         k.flash_gqa_attention(q, kv, kv, torch.zeros((1, 1), dtype=torch.int32,
                                                      device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,n,kh,h,ps,window", [
+    (1, 32, 32, 128, 64, None), (1, 24, 8, 128, 16, None), (1, 32, 8, 64, 8, None),
+    (8, 24, 8, 128, 16, None), (32, 16, 8, 128, 64, None), (4, 32, 8, 128, 16, 40),
+])
+def test_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, window):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, np_tab = 3, 8
+    pages = b * np_tab + 2
+    kp = torch.randn((pages, kh, ps, h), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((pages, kh, ps, h), generator=g, device=cuda).to(dtype)
+    tab = torch.randperm(pages, generator=g, device=cuda)[: b * np_tab]
+    tab = tab.reshape(b, np_tab).int()
+    tab[1, -2:] = pages  # unmapped tail past the live region
+    s_virt = np_tab * ps
+    q = torch.randn((b, t, n, h), generator=g, device=cuda).to(dtype)
+    starts = torch.tensor([[0], [s_virt // 3], [s_virt - t]], device=cuda)
+    pos = (starts + torch.arange(t, device=cuda)).int()
+    kvl = torch.tensor([0, s_virt // 3 + t, s_virt], dtype=torch.int32, device=cuda)
+    qln = torch.tensor([t, max(1, t // 2), t], dtype=torch.int32, device=cuda)
+    before = dict(LAUNCHES)
+    out = pa.ragged_paged_attention(q, kp, vp, tab, pos, window, kvl, qln)
+    ref = pa.ragged_paged_attention_plain(q, kp, vp, tab, pos, window, kvl, qln)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (out[0] == 0).all() and (out[1, int(qln[1]):] == 0).all()
+    assert LAUNCHES["ragged_paged_attention"] == before["ragged_paged_attention"] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 4])
+def test_page_write_kernel_is_bit_exact(cuda, dtype, t):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n_layers, pages, kh, ps, h, b, np_tab = 3, 20, 8, 16, 128, 4, 4
+    kp = torch.randn((n_layers, pages, kh, ps, h), generator=g, device=cuda).to(dtype)
+    vp = torch.randn_like(kp)
+    k_new = torch.randn((b, t, kh, h), generator=g, device=cuda).to(dtype)
+    v_new = torch.randn_like(k_new)
+    tab = torch.randperm(pages, generator=g, device=cuda)[: b * np_tab]
+    tab = tab.reshape(b, np_tab).int()
+    tab[3] = pages  # a parked row
+    pos = (torch.tensor([[0], [ps - 1], [np_tab * ps - 2], [5]], device=cuda)
+           + torch.arange(t, device=cuda)).int()  # row 2 runs past the row
+    qln = torch.tensor([t, max(1, t - 2), t, t], dtype=torch.int32, device=cuda)
+    kk, vk, kr, vr = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    before = dict(LAUNCHES)
+    pw.fused_page_write(kk, vk, k_new, v_new, pos, tab, 1, qln)
+    pw.fused_page_write_plain(kr, vr, k_new, v_new, pos, tab, 1, qln)
+    torch.cuda.synchronize()
+    assert torch.equal(kk, kr) and torch.equal(vk, vr) and not torch.equal(kk, kp)
+    assert LAUNCHES["fused_page_write"] == before["fused_page_write"] + 1

@@ -36,17 +36,22 @@ CHILD = textwrap.dedent(f"""
     from {PORT}.engine.kvcache import init_cache
     from {PORT}.models import TINY
     from {PORT}.models.llama import init_params
+    from {PORT}.engine.paged_kv import init_page_pool
+    from {PORT}.serve.scheduler import ContinuousBatchingScheduler
 
     assert not torch.cuda.is_available()
+    cpu_params = init_params(TINY, device="cpu")  # an explicit CPU request runs
     for call in (lambda: init_params(TINY), lambda: init_cache(TINY, 1, 8),
-                 lambda: params_from_jax({{}})):
+                 lambda: params_from_jax({{}}),
+                 lambda: init_page_pool(TINY, 2, 8),
+                 lambda: ContinuousBatchingScheduler(TINY, cpu_params)):
         try:
             call()
         except RuntimeError as e:
             assert "no CUDA device" in str(e)
         else:
             raise AssertionError("an entry point ran without CUDA and no device")
-    init_params(TINY, device="cpu")  # an explicit CPU request runs
+    ContinuousBatchingScheduler(TINY, cpu_params, device="cpu")
     print("ok")
 """)
 
@@ -57,7 +62,7 @@ def test_port_imports_without_jax_and_needs_an_explicit_cpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
-    assert int(res.stdout.split()[1]) >= 20  # every module was walked
+    assert int(res.stdout.split()[1]) >= 30  # every module was walked
 
 
 def _imports(path):
