@@ -28,10 +28,19 @@ Phases, each fatal on failure:
    - the fused page write, bit-exact: T = 1 at B = 8 into the 7B
      scheduler's pool (32 layers, 128 pages of 64, tables of 16 pages) at
      its last layer with parked rows, and T = 4 with q_lens and sentinel
-     rows.
+     rows;
+   - the quantized serving path's four kernels: the quantized decode
+     attention at the decode cases above over an int8 cache (NaN in dead
+     scales), the quantized ragged paged attention at the paged cases above
+     over int8 pools, the quantizing page write bit-exact (values and
+     scales) into the 7B int8 pool's shape, and the int4 matmul at every 7B
+     and 3B weight shape (wd's group of 86 included) at R = 1, 4, 8, 131,
+     384, 1024 and 2048 (4 and 2048 are the engine batch's decode and
+     prefill).
 4. Small references, 2-layer f32 models (H = 64): greedy tokens through the
    kernels on the card must equal the plain versions' on the CPU, for the
-   engine and for the paged scheduler (page 16, shared prefixes).
+   engine and for the paged scheduler (page 16, shared prefixes); then the
+   same with int4 weights and the int8 KV cache.
 5. Engine serve: a GenerationService with EngineBackends for `duckdb-nsql`
    (DUCKDB_NSQL_7B, full width and depth) and `llama3.2` (LLAMA32_3B on the
    llama3-chat template), random bf16 weights from a seed, ByteTokenizer.
@@ -54,12 +63,34 @@ Phases, each fatal on failure:
    With --profile, one 7B engine request and six concurrent 7B scheduler
    requests run under torch.profiler: device busy share and device time
    by kernel group.
-7. Timing at the main paths' shapes (one CUDA graph of one call per layer,
-   each on its own layer so K/V come from device memory, replayed between
-   CUDA events): kernel, plain version and a PyTorch yardstick the port
-   never calls (`scaled_dot_product_attention`; for the page write,
-   `index_put_` of the same slivers). The bound is the larger of the bytes
+7. Quantized serve: DUCKDB_NSQL_7B at full width and depth with int4 block
+   weights (`quantize_params_int4` of the seed-0 bf16 tree, on the card)
+   and the int8 KV cache: an `EngineBackend` over an
+   `InferenceEngine(kv_quant="int8")` serves two NL->SQL requests and a
+   batch of four, then a `SchedulerBackend` over a paged
+   `ContinuousBatchingScheduler(kv_quant="int8")` (settings of phase 6)
+   two requests one after the other and six at once. Launch counts exact:
+   int4 matmuls 7 x layers x forwards (plus one reduce launch for each
+   decode matmul whose contraction axis is split), quantized decode
+   attention layers x engine decode steps, quantized paged read and write
+   layers x decode_chunk x rounds, flash prefill layers x prefill
+   forwards. Prefill
+   logits through the kernels agree with the plain versions'; the prefix
+   cache hits, shares and leaks no page; the live int8 pool's decode step
+   is checked as in phase 6. With --profile, six concurrent requests under
+   torch.profiler.
+8. Timing at the main paths' shapes (one CUDA graph of one call per layer,
+   each on its own layer so K/V and weights come from device memory,
+   replayed between CUDA events): kernel, plain version and a PyTorch
+   yardstick the port never calls (`scaled_dot_product_attention`, over
+   K/V dequantized in advance for the int8 caches; for the page writes,
+   `index_put_` of the same slivers, quantized in advance; for the int4
+   matmul, `torch.matmul` against the weight dequantized to bf16 in
+   advance: the bf16 product, moving 4x the weight bytes, since no PyTorch
+   call computes the int4 function). The bound is the larger of the bytes
    over 3.35 TB/s and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
+
+Every phase prints its seconds.
 
 Prints a `{"kernels": [...]}` line, then as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -83,6 +114,10 @@ TOL = {"bfloat16": 3e-2, "float32": 1e-4}  # kernel vs plain, max abs error
 # version's global max. f32: only the order of the f32 sums differs.
 LOGIT_TOL = 5e-2  # 7B bf16 logits, kernel vs plain path, over max |logit|
 F32_LOGIT_TOL = 1e-4  # the same for 2 layers of 7B in f32
+# int4 matmul vs plain, max |diff| over max |out|: only the order of the f32
+# sums differs; bf16 outputs are rounded to bf16 (one ulp is up to 2**-7 of
+# the largest output), f32 sums of up to 11008 products drift by ~1e-6.
+INT4_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 PKG = "llm_based_apache_spark_optimization_tpu_torch"
 REF = "llm_based_apache_spark_optimization_tpu/ops/pallas"
 SOURCES = {
@@ -90,17 +125,38 @@ SOURCES = {
     "decode": f"{PKG}/csrc/flash_gqa_attention.cu",
     "paged": f"{PKG}/csrc/ragged_paged_attention.cu",
     "write": f"{PKG}/csrc/fused_page_write.cu",
+    "decode_q": f"{PKG}/csrc/flash_gqa_attention_quantized.cu",
+    "paged_q": f"{PKG}/csrc/ragged_paged_attention_quantized.cu",
+    "write_q": f"{PKG}/csrc/fused_page_write_quantized.cu",
+    "int4": f"{PKG}/csrc/int4_matmul.cu",
 }
 REPLACES = {
     "prefill": f"{REF}/attention.py:428",
     "decode": f"{REF}/attention.py:313",
     "paged": f"{REF}/paged_attention.py:225",
     "write": f"{REF}/paged_write.py:191",
+    # The quantized twins share their pallas_call lines with rows 2 and 4
+    # (attention.py:313, paged_attention.py:225): their wrappers name them.
+    "decode_q": f"{REF}/attention.py:453",
+    "paged_q": f"{REF}/paged_attention.py:304",
+    "write_q": f"{REF}/paged_write.py:249",
+    "int4": f"{REF}/int4mm.py:171",
 }
 
 
+_PHASE = {"name": None, "t0": 0.0, "seconds": {}}
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Start phase `name`, printing the seconds the previous one took."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        dt = now - _PHASE["t0"]
+        _PHASE["seconds"][_PHASE["name"]] = round(dt, 1)
+        print(f"  ({_PHASE['name']}: {dt:.1f} s)", flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -358,20 +414,203 @@ def check_write(torch, pw_mod):
     return worst
 
 
+def quantize(torch, x):
+    """(int8 values, f32 scales) of K/V [..., H], the port's quantize_kv:
+    NaN planted in x comes out as NaN scales (and junk values) there."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_kv
+
+    q = quantize_kv(x)
+    return q["q8"], q["s"]
+
+
+def check_kernels_quantized(torch, attn_mod):
+    """The quantized decode attention kernel vs plain on the decode cases of
+    `cases()` over an int8 cache (NaN planted in the dead slots' scales);
+    returns the worst error per dtype."""
+    worst = {d: 0.0 for d in TOL}
+    for launch, name, kw in cases():
+        if launch != "decode":
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            c = make_case(torch, dtype, **kw)
+            k8, ks = quantize(torch, c["k"])
+            v8, vs = quantize(torch, c["v"])
+            args = (c["q"], k8, ks, v8, vs, c["pos"], c["window"], c["kv_lens"])
+            out = attn_mod.flash_gqa_attention_quantized_cuda(*args)
+            ref = attn_mod.flash_gqa_attention_quantized_plain(*args)
+            torch.cuda.synchronize()
+            assert out.shape == ref.shape and out.dtype == ref.dtype
+            assert torch.isfinite(out).all(), f"decode_q/{name}/{dname}: non-finite"
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = err <= TOL[dname]
+            print(f"  decode_q {name:15s} {dname:8s} max_abs_err={err:.3e} "
+                  f"tol={TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+            assert ok, f"decode_q/{name}/{dname}: {err} > {TOL[dname]}"
+            if c["kv_lens"] is not None and (c["kv_lens"] == 0).any():
+                assert (out[c["kv_lens"] == 0] == 0).all(), "kv_lens=0 row is not zeros"
+            worst[dname] = max(worst[dname], err)
+    return worst
+
+
+def check_paged_quantized(torch, pa_mod):
+    """The quantized ragged paged attention kernel vs plain on every paged
+    case, the pools quantized after the NaN was planted (so the dead
+    offsets and unmapped pages carry NaN scales); returns the worst error
+    per dtype."""
+    worst = {d: 0.0 for d in TOL}
+    for name, kw in paged_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            q, kp, vp, tab, pos, window, kvl, qln = paged_case(
+                torch, dtype, b=len(kw["rows"]), **kw)
+            kp8, kps = quantize(torch, kp)
+            vp8, vps = quantize(torch, vp)
+            del kp, vp
+            args = (q, kp8, kps, vp8, vps, tab, pos, window, kvl, qln)
+            out = pa_mod.ragged_paged_attention_quantized_cuda(*args)
+            ref = pa_mod.ragged_paged_attention_quantized_plain(*args)
+            torch.cuda.synchronize()
+            assert out.shape == ref.shape and out.dtype == ref.dtype
+            assert torch.isfinite(out).all(), f"paged_q/{name}/{dname}: non-finite"
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = err <= TOL[dname]
+            print(f"  paged_q {name:16s} {dname:8s} max_abs_err={err:.3e} "
+                  f"tol={TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+            assert ok, f"paged_q/{name}/{dname}: {err} > {TOL[dname]}"
+            for i, (_, ql, kvl_i) in enumerate(kw["rows"]):
+                dead = out[i] if kvl_i == 0 else out[i, ql:]
+                assert (dead == 0).all(), f"paged_q/{name}: row {i} not exact zeros"
+            worst[dname] = max(worst[dname], err)
+    return worst
+
+
+def check_write_quantized(torch, pw_mod):
+    """The quantizing page write kernel vs plain, bit for bit in values and
+    scales: T = 1 at B = 8 into the 7B int8 pool's shape (L = 32, P = 128
+    pages of 64, tables of 16 pages) at its last layer, two slots parked;
+    and T = 4 with q_lens, a parked row and a past-the-row position (3B
+    shapes). Returns the worst error (0 when bit-exact) per dtype."""
+    dev = "cuda"
+    worst = {d: 0.0 for d in TOL}
+    cases = [("7b_t1_b8", 32, 32, 64, 8, 1, 16, 128),
+             ("3b_t4_qlens", 28, 8, 16, 4, 4, 16, 66)]
+    for name, n_layers, kh, ps, b, t, np_tab, pages in cases:
+        layer = n_layers - 1
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=dev).manual_seed(3)
+            shape = (n_layers, pages, kh, ps, 128)
+            pools = [torch.randint(-127, 128, shape, generator=g, device=dev,
+                                   dtype=torch.int8),
+                     torch.rand(shape[:4], generator=g, device=dev),
+                     torch.randint(-127, 128, shape, generator=g, device=dev,
+                                   dtype=torch.int8),
+                     torch.rand(shape[:4], generator=g, device=dev)]
+            refs = [x.clone() for x in pools]
+            before = pools[0][layer].clone()
+            k_new = torch.randn((b, t, kh, 128), generator=g, device=dev).to(dtype)
+            v_new = torch.randn((b, t, kh, 128), generator=g, device=dev).to(dtype)
+            tab = torch.randperm(pages, generator=g, device=dev)[: b * np_tab]
+            tab = tab.reshape(b, np_tab).int()
+            starts = torch.randint(0, np_tab * ps - t, (b, 1), generator=g, device=dev)
+            pos = (starts + torch.arange(t, device=dev)).int()
+            q_lens = None
+            if t > 1:
+                tab[1] = pages
+                pos[2, -1] = np_tab * ps
+                q_lens = torch.tensor([t, 1, t, 2], dtype=torch.int32, device=dev)
+            else:
+                for i in (2, 6):
+                    tab[i] = pages
+                    pos[i] = np_tab * ps - 1
+            pw_mod.fused_page_write_quantized_cuda(*pools, k_new, v_new, pos, tab, layer,
+                                                   q_lens)
+            pw_mod.fused_page_write_quantized_plain(*refs, k_new, v_new, pos, tab, layer,
+                                                    q_lens)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, r) for a, r in zip(pools, refs))
+            wrote = not torch.equal(pools[0][layer], before)
+            dname = str(dtype).split(".")[1]
+            err = max((a[layer].float() - r[layer].float()).abs().max().item()
+                      for a, r in zip(pools, refs))
+            del pools, refs, before
+            print(f"  write_q {name:16s} {dname:8s} max_abs_err={err:.3e} "
+                  f"bit-exact={same} wrote={wrote}", flush=True)
+            assert same and wrote, f"write_q/{name}: kernel != plain"
+            worst[dname] = max(worst[dname], err)
+    return worst
+
+
+# (model, weight, IN, OUT) of every 7B and 3B block matmul shape.
+INT4_SHAPES = [("7b", "wq/wk/wv/wo", 4096, 4096), ("7b", "wg/wu", 4096, 11008),
+               ("7b", "wd", 11008, 4096), ("3b", "wq/wo", 3072, 3072),
+               ("3b", "wk/wv", 3072, 1024), ("3b", "wg/wu", 3072, 8192),
+               ("3b", "wd", 8192, 3072)]
+INT4_ROWS = (1, 4, 8, 131, 384, 1024, 2048)
+
+
+def check_int4(torch, mm_mod):
+    """The int4 matmul kernel vs plain at every 7B and 3B weight shape (the
+    group `tp_safe_group` gives: 86 for 7B's wd, 128 elsewhere) and R in
+    INT4_ROWS, in bf16 and f32. Returns the worst (absolute, relative to
+    max |out|) error per dtype."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_weight_int4,
+        tp_safe_group,
+    )
+
+    dev = "cuda"
+    worst = {d: [0.0, 0.0] for d in TOL}
+    for model, name, n_in, n_out in INT4_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(5)
+        group = tp_safe_group(n_in)
+        w = quantize_weight_int4(
+            torch.randn((n_in, n_out), generator=g, device=dev) * n_in ** -0.5, group)
+        for rows in INT4_ROWS:
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).split(".")[1]
+                x = torch.randn((rows, n_in), generator=g, device=dev).to(dtype)
+                out = mm_mod.int4_matmul_cuda(x, w["q4"], w["s4"])
+                ref = mm_mod.int4_matmul_plain(x, w["q4"], w["s4"])
+                torch.cuda.synchronize()
+                assert out.shape == ref.shape and out.dtype == ref.dtype
+                assert torch.isfinite(out).all(), f"int4/{model} {name}: non-finite"
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = err / ref.float().abs().max().item()
+                ok = rel <= INT4_TOL[dname]
+                print(f"  int4    {model} {name:12s} group {group:3d} R={rows:5d} "
+                      f"{dname:8s} max_abs_err={err:.3e} rel={rel:.3e} "
+                      f"tol={INT4_TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+                assert ok, f"int4/{model} {name} R={rows} {dname}: {rel}"
+                worst[dname] = [max(worst[dname][0], err), max(worst[dname][1], rel)]
+    return worst
+
+
 # ------------------------------------------------------------- reference
 
 
-def small_reference(torch):
+def tree_to(tree, device):
+    """A params tree (nested dicts of tensors) on `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def small_reference(torch, quantized=False):
     """Greedy tokens of a 2-layer f32 model (H = 64, GQA) through the
     kernels on the card == through the plain versions on the CPU: the
     engine, and the paged scheduler (8-token prefix blocks in 16-token
     pages, prompts that share a 41-token prefix: the cache hits, and copies
-    the page where the match ends mid-page)."""
+    the page where the match ends mid-page). `quantized`: int4 block
+    weights (`quantize_params_int4`) and the int8 KV cache in both."""
     import dataclasses
 
     from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
     from llm_based_apache_spark_optimization_tpu_torch.models import LLAMA32_1B
     from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_params_int4,
+    )
     from llm_based_apache_spark_optimization_tpu_torch.serve import (
         ContinuousBatchingScheduler,
     )
@@ -383,14 +622,19 @@ def small_reference(torch):
                               eos_id=2, pad_id=0, extra_stop_ids=())
     gen = torch.Generator(device="cpu").manual_seed(7)
     cpu_params = init_params(cfg, gen, torch.float32, device="cpu")
-    gpu_params = {k: ({kk: vv.cuda() for kk, vv in v.items()}
-                      if isinstance(v, dict) else v.cuda())
-                  for k, v in cpu_params.items()}
+    kv_quant = "int8" if quantized else None
+    if quantized:
+        cpu_params = quantize_params_int4(cpu_params)
+    gpu_params = tree_to(cpu_params, "cuda")
+    label = "int4 weights, int8 KV" if quantized else "f32"
     prompts = [[1, 17, 93, 5], [1, 40, 41], [1] + list(range(60, 130))]
-    ref = InferenceEngine(cfg, cpu_params, device="cpu").generate(prompts, 24)
-    got = InferenceEngine(cfg, gpu_params, device="cuda").generate(prompts, 24)
-    print(f"  engine cpu plain : {ref}\n  engine cuda kern : {got}", flush=True)
-    assert got == ref, "kernel path disagrees with the plain CPU reference"
+    ref = InferenceEngine(cfg, cpu_params, device="cpu", kv_quant=kv_quant).generate(
+        prompts, 24)
+    got = InferenceEngine(cfg, gpu_params, device="cuda", kv_quant=kv_quant).generate(
+        prompts, 24)
+    print(f"  [{label}] engine cpu plain : {ref}\n  [{label}] engine cuda kern : {got}",
+          flush=True)
+    assert got == ref, f"[{label}] kernel path disagrees with the plain CPU reference"
 
     prefix = [1] + list(range(100, 140))
     sched_prompts = [prefix + [200 + i] for i in range(3)] + prompts
@@ -398,15 +642,15 @@ def small_reference(torch):
     for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
         with ContinuousBatchingScheduler(
                 cfg, params, num_slots=4, decode_chunk=4, prompt_bucket=8,
-                stop_ids=(-1,), kv_page_size=16, device=dev) as s:
+                stop_ids=(-1,), kv_page_size=16, kv_quant=kv_quant, device=dev) as s:
             seq = [s.submit(p, 16).result(timeout=600) for p in sched_prompts[:3]]
             futs = [s.submit(p, 16) for p in sched_prompts]
             outs[dev] = seq + [f.result(timeout=600) for f in futs]
             hits, cow = s.prefix_stats["hits"], s.page_stats["cow_copies"]
-        print(f"  scheduler {dev}: prefix hits {hits}, cow copies {cow}: "
+        print(f"  [{label}] scheduler {dev}: prefix hits {hits}, cow copies {cow}: "
               f"{outs[dev]}", flush=True)
-    assert outs["cuda"] == outs["cpu"], "scheduler on the card != on the CPU"
-    assert hits > 0 and cow > 0, "the small scheduler's prefix cache never hit"
+    assert outs["cuda"] == outs["cpu"], f"[{label}] scheduler on the card != on the CPU"
+    assert hits > 0 and cow > 0, f"[{label}] the small scheduler's prefix cache never hit"
 
 
 # ----------------------------------------------------------------- serve
@@ -588,9 +832,8 @@ def live_pool_logits(torch, sched):
     pos = torch.tensor([[n_use]], dtype=torch.int32, device="cuda")
     kvl = torch.tensor([n_use + 1], dtype=torch.int32, device="cuda")
 
-    def step(cfg, params, kp, vp, table, impl):
-        cache = {"kp": kp, "vp": vp,
-                 "ptab": torch.tensor([table], dtype=torch.int32, device="cuda")}
+    def step(cfg, params, pool, table, impl):
+        cache = dict(pool, ptab=torch.tensor([table], dtype=torch.int32, device="cuda"))
         set_attention_impl(impl)
         try:
             logits, _ = forward(cfg, params, tokens, pos, cache, kv_lens=kvl)
@@ -602,27 +845,35 @@ def live_pool_logits(torch, sched):
     def rel(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
 
+    def f32(x):  # floating tensors to f32; int8 pools and q4 nibbles as they are
+        return x.float() if x.is_floating_point() else x.clone()
+
+    def two_layers(tree):  # the first two layers of a params or pool tree
+        if isinstance(tree, dict):
+            return {k: two_layers(v) for k, v in tree.items()}
+        return f32(tree[:2])
+
     cfg2 = dataclasses.replace(sched.cfg, num_layers=2)
     with torch.inference_mode():
-        kp, vp = sched._pool["kp"], sched._pool["vp"]
-        lk = step(sched.cfg, sched.params, kp, vp, row, "auto")
-        lp = step(sched.cfg, sched.params, kp, vp, row, "plain")
-        lf = step(sched.cfg, sched.params, kp, vp, fault, "plain")
-        p2 = {k: ({kk: vv[:2].float() for kk, vv in v.items()}
-                  if isinstance(v, dict) else v.float())
+        pool = sched._pool
+        lk = step(sched.cfg, sched.params, pool, row, "auto")
+        lp = step(sched.cfg, sched.params, pool, row, "plain")
+        lf = step(sched.cfg, sched.params, pool, fault, "plain")
+        p2 = {k: two_layers(v) if k == "blocks" else f32(v)
               for k, v in sched.params.items()}
-        kp2, vp2 = kp[:2].float(), vp[:2].float()
-        lk2 = step(cfg2, p2, kp2, vp2, row, "auto")
-        lp2 = step(cfg2, p2, kp2, vp2, row, "plain")
-        lf2 = step(cfg2, p2, kp2, vp2, fault, "plain")
-        del p2, kp2, vp2
+        pool2 = two_layers(pool)
+        lk2 = step(cfg2, p2, pool2, row, "auto")
+        lp2 = step(cfg2, p2, pool2, row, "plain")
+        lf2 = step(cfg2, p2, pool2, fault, "plain")
+        del p2, pool2
     alloc.release(free)
+    pool_kind = "int8" if sched.kv_quant else "bf16"
     out = {}
     for label, k_, p_, f_, tol in (
             (f"bf16, {sched.cfg.num_layers} layers", lk, lp, lf, LOGIT_TOL),
             ("f32, 2 layers", lk2, lp2, lf2, F32_LOGIT_TOL)):
         out[label] = (rel(k_, p_), rel(f_, p_), tol)
-        print(f"  7B decode logits on the live pool after {n_use} cached tokens "
+        print(f"  7B decode logits on the live {pool_kind} pool after {n_use} cached tokens "
               f"({label}): kernel vs plain max|diff|/max|logit| = "
               f"{out[label][0]:.3e} (tol {tol:.0e}), argmax equal: "
               f"{int(k_.argmax()) == int(p_.argmax())}; one-page fault vs plain "
@@ -750,6 +1001,189 @@ def scheduler_serve(torch, engines, profile=False):
     return launches
 
 
+def quantized_serve(torch, engines, profile=False):
+    """The quantized serving path: DUCKDB_NSQL_7B at full width and depth
+    with int4 block weights quantized on the card from the seed-0 bf16 tree,
+    and the int8 KV cache, behind an EngineBackend and a paged
+    SchedulerBackend. Exact launch counts, prefill logits kernel vs plain,
+    prefix sharing with no leaked page, the live int8 pool's decode step.
+    Returns (launch counts per path, the int4 params)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+        set_attention_impl,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int4mm as mm_mod
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_params_int4,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        EngineBackend,
+        GenerationService,
+        SchedulerBackend,
+        resolve_stop_ids,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    cfg = engines["duckdb-nsql"].cfg
+    n_layers = cfg.num_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params4 = quantize_params_int4(engines["duckdb-nsql"].params)
+    torch.cuda.synchronize()
+    q4_bytes = sum(w[k].numel() * w[k].element_size()
+                   for w in params4["blocks"].values() if isinstance(w, dict)
+                   for k in ("q4", "s4"))
+    print(f"  {cfg.name}: block weights quantized to int4 on the card in "
+          f"{time.perf_counter() - t0:.1f} s ({q4_bytes / 2**30:.2f} GiB of nibbles "
+          f"and scales); {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    blocks = mm_mod.resident_blocks(torch.device("cuda", torch.cuda.current_device()))
+
+    def reduces(rows):
+        """Reduce launches of one layer's block matmuls at `rows` rows of x:
+        one for each matmul whose contraction axis the split plan divides."""
+        return sum(mm_mod.split_plan(rows, w["q4"].shape[1] * 2, w["q4"].shape[2],
+                                     blocks)[0] > 1
+                   for w in params4["blocks"].values() if isinstance(w, dict))
+
+    stop_ids = resolve_stop_ids(cfg, tok)
+    eng = InferenceEngine(cfg, params4, device="cuda", stop_ids=stop_ids, kv_quant="int8")
+    backend = EngineBackend(eng, tok, max_new_tokens=MAX_NEW)
+    svc = GenerationService()
+    svc.register("duckdb-nsql", backend)
+    expected = dict.fromkeys(LAUNCHES, 0)
+
+    def account(results, kind):
+        st = eng.last_stats
+        expected["int4_matmul"] += 7 * n_layers * st["forward_calls"]
+        expected["int4_matmul_reduce"] += n_layers * st["decode_steps"] * reduces(st["batch"])
+        expected["flash_gqa_prefill"] += n_layers
+        expected["flash_gqa_decode_quantized"] += n_layers * st["decode_steps"]
+        for r in results:
+            dec_s = r.latency_s - r.ttft_s
+            rate = (r.output_tokens - 1) / dec_s if r.output_tokens > 1 and dec_s > 0 else 0.0
+            print("  " + json.dumps(dict(
+                model="duckdb-nsql", weights="int4", kv="int8", path="engine",
+                kind=kind, prompt_tokens=r.prompt_tokens, padded_prompt=st["prompt_len"],
+                batch=st["batch"], output_tokens=r.output_tokens,
+                latency_s=round(r.latency_s, 4), ttft_s=round(r.ttft_s, 4),
+                decode_tok_per_s=round(rate, 1))), flush=True)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    for qn in QUESTIONS[:2]:
+        account([svc.generate("duckdb-nsql", qn, system=SYSTEM_SQL)], "generate")
+    account(svc.generate_batch("duckdb-nsql", BATCH, system=SYSTEM_SQL), "generate_batch")
+    torch.cuda.synchronize()
+    engine_launches = dict(LAUNCHES)
+    print(f"  engine launches {engine_launches} expected {expected}", flush=True)
+    assert engine_launches == expected, f"launch counts {engine_launches} != {expected}"
+    for k in ("int4_matmul", "int4_matmul_reduce", "flash_gqa_prefill",
+              "flash_gqa_decode_quantized"):
+        assert engine_launches[k] > 0, f"the quantized engine path never launched {k}"
+
+    # Prefill logits of the first request through the kernels (the int4
+    # tensor-core launch and the flash prefill) vs the plain versions.
+    ids = tok.encode(f"{SYSTEM_SQL}\n\n{QUESTIONS[0]}")
+    t = eng.padded_prompt_len(len(ids))
+    tokens = torch.tensor([ids + [0] * (t - len(ids))], dtype=torch.int32, device="cuda")
+    pos = torch.arange(t, dtype=torch.int32, device="cuda")[None]
+    last = torch.tensor([len(ids) - 1], device="cuda")
+    with torch.inference_mode():
+        lk, _ = forward(cfg, params4, tokens, pos, logit_indices=last)
+        set_attention_impl("plain")
+        lp, _ = forward(cfg, params4, tokens, pos, logit_indices=last)
+        set_attention_impl("auto")
+    assert lk.shape == (1, 1, cfg.vocab_size) and torch.isfinite(lk).all()
+    rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    print(f"  7B int4 prefill logits kernel vs plain: max|diff|/max|logit| = {rel:.3e} "
+          f"(tol {LOGIT_TOL:.0e}); argmax equal: {int(lk.argmax()) == int(lp.argmax())}",
+          flush=True)
+    assert rel <= LOGIT_TOL
+    del svc, backend, eng
+
+    sched = ContinuousBatchingScheduler(cfg, params4, stop_ids=stop_ids, kv_quant="int8",
+                                        device="cuda", **SCHED)
+    sb = SchedulerBackend(sched, tok, max_new_tokens=MAX_NEW)
+    svc = GenerationService()
+    svc.register("duckdb-nsql", sb)
+    st = sched.page_stats
+    print(f"  int8 pool of {st['pages_total']} pages x {st['page_bytes'] / 2**20:.1f} MiB, "
+          f"{sched.num_slots} slots, max_seq {sched.max_seq}", flush=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    r0, p0 = sched.rounds_issued, sched.prefill_forwards
+    results = []
+    t0 = time.perf_counter()
+    for qn in SCHED_SQL[:2]:
+        results.append(("sequential", svc.generate("duckdb-nsql", qn, system=SYSTEM_SQL)))
+    t_burst = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        futs = [pool.submit(svc.generate, "duckdb-nsql", qn, SYSTEM_SQL)
+                for qn in SCHED_SQL[2:]]
+        results += [("concurrent", f.result()) for f in futs]
+    t_end = time.perf_counter()
+    stats = wait_idle(sched)
+    torch.cuda.synchronize()
+    sched_launches = dict(LAUNCHES)
+    rounds, prefills = sched.rounds_issued - r0, sched.prefill_forwards - p0
+    want = dict.fromkeys(LAUNCHES, 0)
+    for k in ("ragged_paged_attention_quantized", "fused_page_write_quantized"):
+        want[k] = n_layers * sched.decode_chunk * rounds
+    want["flash_gqa_prefill"] = n_layers * prefills
+    want["int4_matmul"] = 7 * n_layers * (sched.decode_chunk * rounds + prefills)
+    want["int4_matmul_reduce"] = (n_layers * sched.decode_chunk * rounds
+                                  * reduces(sched.num_slots))
+    for kind, r in results:
+        dec_s = r.latency_s - r.ttft_s
+        rate = (r.output_tokens - 1) / dec_s if r.output_tokens > 1 and dec_s > 0 else 0.0
+        print("  " + json.dumps(dict(
+            model="duckdb-nsql", weights="int4", kv="int8", path="scheduler", kind=kind,
+            prompt_tokens=r.prompt_tokens, output_tokens=r.output_tokens,
+            latency_s=round(r.latency_s, 4), ttft_s=round(r.ttft_s, 4),
+            decode_tok_per_s=round(rate, 1))), flush=True)
+    burst = sum(r.output_tokens for kind, r in results if kind == "concurrent")
+    total = sum(r.output_tokens for _, r in results)
+    print(f"  {rounds} decode rounds, {prefills} prefill forwards; pages {stats}; "
+          f"prefix {sched.prefix_stats}", flush=True)
+    print(f"  aggregate: {total} tokens in {t_end - t0:.3f} s = "
+          f"{total / (t_end - t0):.1f} tok/s; concurrent burst {burst} tokens in "
+          f"{t_end - t_burst:.3f} s = {burst / (t_end - t_burst):.1f} tok/s", flush=True)
+    print(f"  scheduler launches {sched_launches} expected {want}", flush=True)
+    assert sched_launches == want, f"launch counts {sched_launches} != {want}"
+    for k in ("int4_matmul", "int4_matmul_reduce", "flash_gqa_prefill",
+              "ragged_paged_attention_quantized", "fused_page_write_quantized"):
+        assert sched_launches[k] > 0, f"the quantized scheduler path never launched {k}"
+    assert sched.prefix_stats["hits"] > 0, "the schema prefix never hit"
+    assert stats["zero_copy_shares"] > 0, "no page was shared"
+    if profile:
+        def burst_fn():
+            with ThreadPoolExecutor(max_workers=6) as pool:
+                futs = [pool.submit(svc.generate, "duckdb-nsql", qn, SYSTEM_SQL)
+                        for qn in SCHED_SQL[2:]]
+                return sum(f.result().output_tokens for f in futs)
+
+        phase("profile (quantized scheduler path)")
+        r1 = sched.rounds_issued
+        profile_device(torch, "six concurrent int4/int8 7B scheduler requests", burst_fn)
+        print(f"  {sched.rounds_issued - r1} decode rounds of {sched.decode_chunk} steps",
+              flush=True)
+        wait_idle(sched)
+    sb.shutdown()
+    sched._page_alloc.check()
+    st = sched.page_stats
+    assert st["pages_in_use"] == st["prefix_resident_pages"], f"leaked pages: {st}"
+    live_pool_logits(torch, sched)
+    return {"engine": engine_launches, "scheduler": sched_launches}, params4
+
+
 # --------------------------------------------------------------- profile
 
 
@@ -771,9 +1205,11 @@ def profile_device(torch, label, send):
     rows.sort(key=lambda x: -x[1])
     busy_us = sum(x[1] for x in rows)
     groups = {"flash attention": 0.0, "paged attention": 0.0, "page write": 0.0,
-              "matmul": 0.0, "other": 0.0}
+              "int4 matmul": 0.0, "matmul": 0.0, "other": 0.0}
     for key, us, _ in rows:
-        if "PagedSrc" in key:
+        if "int4_" in key:
+            groups["int4 matmul"] += us
+        elif "PagedSrc" in key:
             groups["paged attention"] += us
         elif "gqa_tile" in key:
             groups["flash attention"] += us
@@ -953,6 +1389,156 @@ def time_paged(torch, pa_mod, pw_mod, cfg):
     return paged, write
 
 
+def time_decode_quantized(torch, attn_mod, n, kh, h, layers, s, position):
+    """The quantized decode launch at the engine's 7B decode (B = 1): kernel,
+    plain and SDPA over K/V dequantized to bf16 in advance, cycling over an
+    int8 [layers, 1, K, S, H] cache so reads come from device memory."""
+    import torch.nn.functional as F
+
+    dev, dt = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((1, 1, n, h), generator=g, device=dev).to(dt)
+    k8, ks = quantize(torch, torch.randn((layers, 1, kh, s, h), generator=g, device=dev))
+    v8, vs = quantize(torch, torch.randn((layers, 1, kh, s, h), generator=g, device=dev))
+    pos = torch.tensor([[position]], dtype=torch.int32, device=dev)
+    kvl = pos[:, 0] + 1
+    ms = time_ms(torch, lambda i: attn_mod.flash_gqa_attention_quantized_cuda(
+        q, k8[i], ks[i], v8[i], vs[i], pos, None, kvl), layers)
+    plain = time_ms(torch, lambda i: attn_mod.flash_gqa_attention_quantized_plain(
+        q, k8[i], ks[i], v8[i], vs[i], pos, None, kvl), layers)
+    grp = n // kh
+    kr = [attn_mod.dequantize_kv(k8[l], ks[l], dt).repeat_interleave(grp, dim=1)
+          for l in range(layers)]
+    vr = [attn_mod.dequantize_kv(v8[l], vs[l], dt).repeat_interleave(grp, dim=1)
+          for l in range(layers)]
+    mask = (torch.arange(s, device=dev) < kvl[:, None])[:, None, None]
+    qt = q.transpose(1, 2)
+    lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, kr[i], vr[i], attn_mask=mask), layers)
+    live = position + 1
+    b_ms, b_by = bound(2 * 2 * q.numel() + live * kh * (2 * h + 8), 4 * h * live * n)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                shape=dict(B=1, T=1, N=n, K=kh, S=s, H=h, kv_len=live, dtype="bfloat16",
+                           cache="int8"))
+
+
+def time_paged_quantized(torch, pa_mod, pw_mod, cfg):
+    """The int8 pool's decode launches at 7B, as `time_paged`: B = 8 rows
+    at PAGED_LENS through tables of pages of 64 over a full-depth int8 pool.
+    Quantized paged read: kernel, plain, and SDPA over K/V gathered and
+    dequantized in advance. Quantizing page write of the step's own
+    position (T = 1): kernel, plain (host-dispatched: it synchronises), and
+    the four `index_put_`s of slivers quantized in advance."""
+    import torch.nn.functional as F
+
+    dev, dt = "cuda", torch.bfloat16
+    ps, np_tab, n_layers = 64, 16, cfg.num_layers
+    n, kh, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b = len(PAGED_LENS)
+    need = [-(-x // ps) for x in PAGED_LENS]
+    pool_pages = sum(need) + 7
+    g = torch.Generator(device=dev).manual_seed(4)
+    shape = (n_layers, pool_pages, kh, ps, h)
+    kp, kps = quantize(torch, torch.randn(shape, generator=g, device=dev, dtype=dt))
+    vp, vps = quantize(torch, torch.randn(shape, generator=g, device=dev, dtype=dt))
+    perm = torch.randperm(pool_pages, generator=g, device=dev).tolist()
+    rows, i = [], 0
+    for nd in need:
+        rows.append(perm[i:i + nd] + [pool_pages] * (np_tab - nd))
+        i += nd
+    tab = torch.tensor(rows, dtype=torch.int32, device=dev)
+    kvl = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    pos = (kvl - 1)[:, None]
+    q = torch.randn((b, 1, n, h), generator=g, device=dev, dtype=dt)
+
+    ms = time_ms(torch, lambda l: pa_mod.ragged_paged_attention_quantized_cuda(
+        q, kp[l], kps[l], vp[l], vps[l], tab, pos, None, kvl), n_layers)
+    plain = time_ms(torch, lambda l: pa_mod.ragged_paged_attention_quantized_plain(
+        q, kp[l], kps[l], vp[l], vps[l], tab, pos, None, kvl), n_layers)
+    grp = n // kh
+
+    def rows_deq(pool, scales, l):
+        return pa_mod.dequantize_kv(pa_mod.gather_pages(pool[l], tab),
+                                    pa_mod.gather_page_scales(scales[l], tab),
+                                    dt).repeat_interleave(grp, dim=1)
+
+    kg = [rows_deq(kp, kps, l) for l in range(n_layers)]
+    vg = [rows_deq(vp, vps, l) for l in range(n_layers)]
+    mask = (torch.arange(np_tab * ps, device=dev)[None, :] < kvl[:, None])[:, None, None]
+    qt = q.transpose(1, 2)
+    lib = time_ms(torch, lambda l: F.scaled_dot_product_attention(
+        qt, kg[l], vg[l], attn_mask=mask), n_layers)
+    del kg, vg
+    live = sum(PAGED_LENS)
+    b_ms, b_by = bound(2 * 2 * q.numel() + live * kh * (2 * h + 8), 4 * h * live * n)
+    paged = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                 shape=dict(B=b, T=1, N=n, K=kh, H=h, page=ps, kv_lens=PAGED_LENS,
+                            dtype="bfloat16", pool="int8"))
+
+    kn = torch.randn((b, 1, kh, h), generator=g, device=dev, dtype=dt)
+    vn = torch.randn_like(kn)
+    pools = (kp, kps, vp, vps)
+    ms = time_ms(torch, lambda l: pw_mod.fused_page_write_quantized_cuda(
+        *pools, kn, vn, pos, tab, l), n_layers)
+    plain = time_host(torch, lambda l: pw_mod.fused_page_write_quantized_plain(
+        *pools, kn, vn, pos, tab, l), n_layers)
+    pages, offs = pw_mod.page_coords(pos, tab, ps, pool_pages)
+    pg, of = pages.reshape(-1), offs.reshape(-1)
+    assert bool((pg < pool_pages).all())  # every sliver lands
+    k8n, ksn = quantize(torch, kn[:, 0])
+    v8n, vsn = quantize(torch, vn[:, 0])
+
+    def index_put(l):
+        kp[l][pg, :, of] = k8n
+        kps[l][pg, :, of] = ksn
+        vp[l][pg, :, of] = v8n
+        vps[l][pg, :, of] = vsn
+
+    lib = time_ms(torch, index_put, n_layers)
+    b_ms, b_by = bound(2 * kn.numel() * kn.element_size() + 2 * b * kh * (h + 4), 0)
+    write = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                 shape=dict(B=b, T=1, K=kh, H=h, page=ps, dtype="bfloat16", pool="int8"))
+    return paged, write
+
+
+def time_int4(torch, mm_mod, params4, cfg):
+    """The int4 matmul at 7B for `wq` and `wd` at decode (R = 8, the
+    scheduler's slots) and at a prefill chunk (R = 1024 = 8 x 128), one call
+    per layer on the layer's own weight: kernel, plain (dequantize + f32
+    product), and the bf16 product against the weight dequantized to bf16
+    in advance (cuBLAS; 4x the weight bytes). Bound: x, the nibbles, the
+    scales and out once each over 3.35 TB/s, or 2 R IN OUT FLOPs over 989
+    TFLOP/s."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        dequantize_weight_int4,
+    )
+
+    dev, dt, n_layers = "cuda", torch.bfloat16, cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for name in ("wq", "wd"):
+        q4, s4 = params4["blocks"][name]["q4"], params4["blocks"][name]["s4"]
+        n_in, n_out = q4.shape[1] * 2, q4.shape[2]
+        wb = [dequantize_weight_int4({"q4": q4[l], "s4": s4[l]}, dt)
+              for l in range(n_layers)]
+        for rows in (8, 1024):
+            x = torch.randn((rows, n_in), generator=g, device=dev).to(dt)
+            ms = time_ms(torch, lambda l: mm_mod.int4_matmul_cuda(x, q4[l], s4[l]),
+                         n_layers)
+            plain = time_ms(torch, lambda l: mm_mod.int4_matmul_plain(x, q4[l], s4[l]),
+                            n_layers, reps=3)
+            lib = time_ms(torch, lambda l: torch.matmul(x, wb[l]), n_layers)
+            nbytes = (x.numel() * 2 + q4[0].numel() + s4[0].numel() * 4
+                      + rows * n_out * 2)
+            b_ms, b_by = bound(nbytes, 2 * rows * n_in * n_out)
+            out[f"{name}_R{rows}"] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                shape=dict(R=rows, IN=n_in, OUT=n_out, group=n_in // s4.shape[1],
+                           dtype="bfloat16", bytes_mb=round(nbytes / 1e6, 2)))
+        del wb
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -999,12 +1585,19 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     phase("kernels vs plain")
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int4mm as mm_mod
+
     worst = check_kernels(torch, attn_mod)
     worst_paged = check_paged(torch, pa_mod)
     write_err = check_write(torch, pw_mod)
+    errors_q = {"decode_q": check_kernels_quantized(torch, attn_mod),
+                "paged_q": check_paged_quantized(torch, pa_mod),
+                "write_q": check_write_quantized(torch, pw_mod)}
+    int4_err = check_int4(torch, mm_mod)
 
     phase("small reference")
     small_reference(torch)
+    small_reference(torch, quantized=True)
 
     phase("serve (engine path)")
     launches, shapes, engines, svc = serve(torch)
@@ -1016,6 +1609,9 @@ def main() -> int:
 
     phase("serve (scheduler path)")
     sched_launches = scheduler_serve(torch, engines, args.profile)
+
+    phase("serve (quantized path: int4 weights, int8 KV)")
+    q_launches, params4 = quantized_serve(torch, engines, args.profile)
 
     phase("timing")
     cfg7 = engines["duckdb-nsql"].cfg
@@ -1029,48 +1625,75 @@ def main() -> int:
         "decode": time_launch(torch, attn_mod, cfg7.num_heads,
                               cfg7.num_kv_heads, cfg7.head_dim, cfg7.num_layers,
                               1, 1, s, [[n_prompt + MAX_NEW // 2]]),
+        "decode_q": time_decode_quantized(torch, attn_mod, cfg7.num_heads,
+                                          cfg7.num_kv_heads, cfg7.head_dim,
+                                          cfg7.num_layers, s, n_prompt + MAX_NEW // 2),
     }
     timed["paged"], timed["write"] = time_paged(torch, pa_mod, pw_mod, cfg7)
+    timed["paged_q"], timed["write_q"] = time_paged_quantized(torch, pa_mod, pw_mod, cfg7)
+    int4_times = time_int4(torch, mm_mod, params4, cfg7)
+    timed["int4"] = dict(int4_times["wd_R8"], by_shape=int4_times)
     errors = {
         "prefill": {d: worst[("prefill", d)] for d in TOL},
         "decode": {d: worst[("decode", d)] for d in TOL},
         "paged": worst_paged,
         "write": write_err,
+        **errors_q,
+        "int4": {d: int4_err[d][0] for d in TOL},
     }
     names = {"prefill": "flash_gqa_attention_prefill",
              "decode": "flash_gqa_attention_decode",
-             "paged": "ragged_paged_attention", "write": "fused_page_write"}
-    counts = {
-        "prefill": {"engine": launches["flash_gqa_prefill"],
-                    "scheduler": sched_launches["flash_gqa_prefill"]},
-        "decode": {"engine": launches["flash_gqa_decode"],
-                   "scheduler": sched_launches["flash_gqa_decode"]},
-        "paged": {"scheduler": sched_launches["ragged_paged_attention"]},
-        "write": {"scheduler": sched_launches["fused_page_write"]},
-    }
+             "paged": "ragged_paged_attention", "write": "fused_page_write",
+             "decode_q": "flash_gqa_attention_quantized",
+             "paged_q": "ragged_paged_attention_quantized",
+             "write_q": "fused_page_write_quantized", "int4": "int4_matmul"}
+    counters = {"prefill": "flash_gqa_prefill", "decode": "flash_gqa_decode",
+                "paged": "ragged_paged_attention", "write": "fused_page_write",
+                "decode_q": "flash_gqa_decode_quantized",
+                "paged_q": "ragged_paged_attention_quantized",
+                "write_q": "fused_page_write_quantized", "int4": "int4_matmul"}
+    paths = {"engine": launches, "scheduler": sched_launches,
+             "quantized_engine": q_launches["engine"],
+             "quantized_scheduler": q_launches["scheduler"]}
+    tolerance = {"write": {"bfloat16": 0.0, "float32": 0.0},
+                 "write_q": {"bfloat16": 0.0, "float32": 0.0},
+                 "int4": {f"{d}_over_max_abs_out": v for d, v in INT4_TOL.items()}}
     kernels = []
-    for launch in ("prefill", "decode", "paged", "write"):
+    for launch in names:
         tm = timed[launch]
-        kernels.append({
+        by_path = {p: c[counters[launch]] for p, c in paths.items() if c[counters[launch]]}
+        entry = {
             "name": names[launch],
             "route": "cuda",
             "source": SOURCES[launch],
             "replaces": REPLACES[launch],
-            "launches": sum(counts[launch].values()),
-            "launches_by_path": counts[launch],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(errors[launch].values()),
             "max_abs_err_by_dtype": errors[launch],
-            "tolerance": {"bfloat16": 0.0, "float32": 0.0} if launch == "write" else TOL,
+            "tolerance": tolerance.get(launch, TOL),
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"],
             "library_ms": tm["library_ms"],
             "shape": tm["shape"],
-        })
-        print(f"  {launch}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
-              f"library {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
-              f"({tm['bound_by']}) at {tm['shape']}", flush=True)
+        }
+        if launch == "int4":
+            # A decode call whose contraction axis is split launches the
+            # reduce kernel after the rows kernel; `launches` counts calls.
+            entry["reduce_launches_by_path"] = {
+                p: c["int4_matmul_reduce"] for p, c in paths.items()
+                if c["int4_matmul_reduce"]}
+            entry["max_rel_err_by_dtype"] = {d: int4_err[d][1] for d in TOL}
+            entry["by_shape"] = tm["by_shape"]
+        kernels.append(entry)
+        for label, t_ in (tm.get("by_shape") or {launch: tm}).items():
+            print(f"  {label}: kernel {t_['ms']:.4f} ms, plain {t_['plain_ms']:.4f} ms, "
+                  f"library {t_['library_ms']:.4f} ms, bound {t_['bound_ms']:.5f} ms "
+                  f"({t_['bound_by']}) at {t_['shape']}", flush=True)
+    phase(None)
+    print(f"  phase seconds: {json.dumps(_PHASE['seconds'])}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

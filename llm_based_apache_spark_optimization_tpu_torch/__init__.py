@@ -8,7 +8,8 @@ of it and nothing of jax.
 
 Subpackages (bottom-up):
   models/      Llama-family configs and the transformer forward
-  ops/         rmsnorm, rope, attention (plain golden), sampling
+  ops/         rmsnorm, rope, attention (plain goldens), sampling, quantizers
+               (int4 weights, int8 KV) and `mm`
   ops/kernels/ hand-written CUDA kernels, their plain versions, the dispatch
   csrc/        CUDA C++ sources, built with nvcc at first use
   engine/      KV cache, prefill + decode loop

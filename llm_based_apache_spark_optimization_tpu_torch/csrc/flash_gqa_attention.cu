@@ -43,8 +43,8 @@ extern "C" int flash_gqa_attention(
     long long q_sb, long long q_st, long long q_sn, long long o_sb,
     long long o_st, long long o_sn, int window, float scale, int is_bf16,
     int br, void* stream) {
-  gqa_tile::Args a{q, k, v, q_positions, kv_lens, nullptr, out, b, t, n, kh,
-                   q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale,
+  gqa_tile::Args a{q, k, v, nullptr, nullptr, q_positions, kv_lens, nullptr, out, b,
+                   t, n, kh, q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale,
                    static_cast<cudaStream_t>(stream)};
-  return gqa_tile::launch_any(a, ContigSrc{kh, s}, h, is_bf16, br);
+  return gqa_tile::launch_any<false>(a, ContigSrc{kh, s}, h, is_bf16, br);
 }

@@ -1,6 +1,7 @@
 // The flash GQA tile kernel shared by the contiguous-cache and the paged
-// attention kernels (flash_gqa_attention.cu, ragged_paged_attention.cu),
-// for Hopper (sm_90a).
+// attention kernels, over a compute-type or an int8 cache
+// (flash_gqa_attention.cu, ragged_paged_attention.cu and their _quantized
+// twins), for Hopper (sm_90a).
 //
 // Contract, per batch row b:
 //   q [B, T, N, H] (strided, head dim contiguous), q_positions [B, T] i32,
@@ -18,6 +19,10 @@
 //   NaN there cannot leak through 0 * NaN.
 //
 // Element types: bf16 in and out, or f32 in and out. Head dims 64 and 128.
+// The cache is in that type (KV = T), or int8 (KV = int8_t) with one f32
+// scale per slot for K and for V, indexed by the same row as the slot's
+// values: slot s of (b, kh) stands for T(float(k8[row, h]) * ks[row]), the
+// TPU kernels' dequantize (`_dequant_streams`, `_dequant_page_streams`).
 //
 // Design (a first, simple kernel: scalar FMA in f32, no tensor cores, no
 // TMA, no wgmma):
@@ -41,12 +46,20 @@
 //     each thread then accumulates one output column for all rows.
 //   * With bf16 inputs the probabilities are rounded to bf16 before the PV
 //     product, as the TPU kernels do (p.astype(v.dtype)).
+//   * int8 cache: the copies bring each slot's H int8 values (16-byte
+//     cp.async) and its 4-byte f32 scale (4-byte cp.async) into double-
+//     buffered staging, half the bytes of a bf16 tile; once a tile has
+//     landed, one pass dequantizes it into a single compute-type tile, which
+//     the score and PV phases read as before. A slot that is not loaded
+//     gets zero values and a zero scale, so it dequantizes to 0, never NaN.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace gqa_tile {
 
@@ -89,6 +102,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(gmem), "r"(src_bytes));
 }
+// The 4-byte twin (a slot's scale): cp.async.cg takes 16 bytes only.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -102,19 +122,28 @@ __device__ __forceinline__ bool visible(int kv, int p, int kvl, int window) {
 }
 
 // Shared memory layout, in bytes (every region a multiple of 16):
-//   Ks [2][64][HD + 16/sizeof(T)] T   (row padded by 16 bytes)
-//   Vs [2][64][HD] T
+//   Ks [S][64][HD + 16/sizeof(T)] T   (row padded by 16 bytes)
+//   Vs [S][64][HD] T                  (S = 2 stages; 1 over an int8 cache)
+//   int8 cache only: K8, V8 [2][64][HD] int8, KSc, VSc [2][64] f32 staging
 //   Qs [BR][HD + 4] f32
 //   Ps [BR][64] f32, then M, L, alpha [BR] f32 and Pos [BR] i32.
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 struct Layout {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr int kStagesT = kQuant ? 1 : 2;    // compute-type tiles
   static constexpr int kRowK = HD + 16 / sizeof(T);  // K row stride, elements
   static constexpr int kRowQ = HD + 4;               // Q row stride, floats
   static constexpr size_t kStageK = sizeof(T) * kBlockKV * kRowK;
   static constexpr size_t kStageV = sizeof(T) * kBlockKV * HD;
+  static constexpr size_t kStage8 = kQuant ? kBlockKV * HD : 0;
+  static constexpr size_t kStageS = kQuant ? sizeof(float) * kBlockKV : 0;
   static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = 2 * kStageK;
-  static constexpr size_t q_off = v_off + 2 * kStageV;
+  static constexpr size_t v_off = kStagesT * kStageK;
+  static constexpr size_t k8_off = v_off + kStagesT * kStageV;
+  static constexpr size_t v8_off = k8_off + 2 * kStage8;
+  static constexpr size_t ks_off = v8_off + 2 * kStage8;
+  static constexpr size_t vs_off = ks_off + 2 * kStageS;
+  static constexpr size_t q_off = vs_off + 2 * kStageS;
   template <int BR>
   static constexpr size_t bytes() {
     return q_off + sizeof(float) * (BR * kRowQ + BR * kBlockKV + 4 * BR);
@@ -128,7 +157,7 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* k, const T* v,
                                           const Src& src, int b, int kh, int s0,
                                           int kv_begin, int kv_end, int tid) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int ROWK = Layout<T, HD>::kRowK;
+  constexpr int ROWK = Layout<T, T, HD>::kRowK;
 #pragma unroll
   for (int i = tid; i < kBlockKV * HD / VEC; i += kThreads) {
     const int e = i * VEC, jj = e / HD, h = e % HD;
@@ -141,17 +170,87 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* k, const T* v,
   }
 }
 
-template <typename T, int HD, int BR, typename Src>
+// The int8 twin: values into K8/V8 staging, each slot's scale into KSc/VSc.
+template <int HD, typename Src>
+__device__ __forceinline__ void load_tile_q8(int8_t* k8s, int8_t* v8s, float* kss,
+                                             float* vss, const int8_t* k, const int8_t* v,
+                                             const float* kscale, const float* vscale,
+                                             const Src& src, int b, int kh, int s0,
+                                             int kv_begin, int kv_end, int tid) {
+  constexpr int VEC = 16;
+#pragma unroll
+  for (int i = tid; i < kBlockKV * HD / VEC; i += kThreads) {
+    const int e = i * VEC, jj = e / HD, h = e % HD;
+    const int s = s0 + jj;
+    const long long row = (s >= kv_begin && s < kv_end) ? src.row(b, kh, s) : -1;
+    const bool ok = row >= 0;
+    const long long off = ok ? row * HD + h : 0;
+    cp_async16(k8s + jj * HD + h, k + off, ok);
+    cp_async16(v8s + jj * HD + h, v + off, ok);
+    if (h == 0) {
+      cp_async4(kss + jj, kscale + (ok ? row : 0), ok);
+      cp_async4(vss + jj, vscale + (ok ? row : 0), ok);
+    }
+  }
+}
+
+// Dequantize one landed int8 stage into the compute-type tiles, four values
+// a step: T(float(q) * scale), rounded once, as the TPU kernels do.
+template <typename T, int HD>
+__device__ __forceinline__ void dequant_tile(T* kt, T* vt, const int8_t* k8s,
+                                             const int8_t* v8s, const float* kss,
+                                             const float* vss, int tid) {
+  constexpr int ROWK = Layout<T, int8_t, HD>::kRowK;
+  for (int i = tid; i < kBlockKV * HD / 4; i += kThreads) {
+    const int e = i * 4, jj = e / HD, h = e % HD;
+    const char4 kq = *reinterpret_cast<const char4*>(k8s + e);
+    const char4 vq = *reinterpret_cast<const char4*>(v8s + e);
+    const float ksc = kss[jj], vsc = vss[jj];
+    T* kd = kt + jj * ROWK + h;
+    T* vd = vt + jj * HD + h;
+    kd[0] = Cvt<T>::out((float)kq.x * ksc);
+    kd[1] = Cvt<T>::out((float)kq.y * ksc);
+    kd[2] = Cvt<T>::out((float)kq.z * ksc);
+    kd[3] = Cvt<T>::out((float)kq.w * ksc);
+    vd[0] = Cvt<T>::out((float)vq.x * vsc);
+    vd[1] = Cvt<T>::out((float)vq.y * vsc);
+    vd[2] = Cvt<T>::out((float)vq.z * vsc);
+    vd[3] = Cvt<T>::out((float)vq.w * vsc);
+  }
+}
+
+// Issue the copies of the tile at s0 into `stage`: compute-type K/V, or int8
+// values and scales into the staging buffers.
+template <typename T, typename KV, int HD, typename Src>
+__device__ __forceinline__ void issue_tile(T* Ks, T* Vs, int8_t* K8, int8_t* V8,
+                                           float* KSc, float* VSc, const KV* k,
+                                           const KV* v, const float* kscale,
+                                           const float* vscale, const Src& src, int b,
+                                           int kh, int stage, int s0, int kv_begin,
+                                           int kv_end, int tid) {
+  if constexpr (Layout<T, KV, HD>::kQuant) {
+    load_tile_q8<HD>(K8 + stage * kBlockKV * HD, V8 + stage * kBlockKV * HD,
+                     KSc + stage * kBlockKV, VSc + stage * kBlockKV, k, v, kscale, vscale,
+                     src, b, kh, s0, kv_begin, kv_end, tid);
+  } else {
+    constexpr int ROWK = Layout<T, KV, HD>::kRowK;
+    load_tile<T, HD>(Ks + stage * kBlockKV * ROWK, Vs + stage * kBlockKV * HD, k, v, src,
+                     b, kh, s0, kv_begin, kv_end, tid);
+  }
+}
+
+template <typename T, typename KV, int HD, int BR, typename Src>
 __global__ void __launch_bounds__(kThreads)
-gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const Src src,
+gqa_tile_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                const KV* __restrict__ v, const float* __restrict__ kscale,
+                const float* __restrict__ vscale, const Src src,
                 const int* __restrict__ qpos, const int* __restrict__ kv_lens,
                 const int* __restrict__ q_lens, T* __restrict__ out,
                 int t_len, int n_heads, int kv_heads,
                 long long q_sb, long long q_st, long long q_sn,
                 long long o_sb, long long o_st, long long o_sn,
                 int window, float scale) {
-  using L = Layout<T, HD>;
+  using L = Layout<T, KV, HD>;
   constexpr int ROWK = L::kRowK;
   constexpr int ROWQ = L::kRowQ;
   constexpr int RG = kThreads / kBlockKV;        // row groups in the score phase
@@ -160,8 +259,12 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  T* Ks = reinterpret_cast<T*>(smem + L::k_off);   // 2 stages
-  T* Vs = reinterpret_cast<T*>(smem + L::v_off);   // 2 stages
+  T* Ks = reinterpret_cast<T*>(smem + L::k_off);   // kStagesT stages
+  T* Vs = reinterpret_cast<T*>(smem + L::v_off);
+  int8_t* K8 = reinterpret_cast<int8_t*>(smem + L::k8_off);  // int8 staging
+  int8_t* V8 = reinterpret_cast<int8_t*>(smem + L::v8_off);
+  float* KSc = reinterpret_cast<float*>(smem + L::ks_off);
+  float* VSc = reinterpret_cast<float*>(smem + L::vs_off);
   float* Qs = reinterpret_cast<float*>(smem + L::q_off);
   float* Ps = Qs + BR * ROWQ;
   float* Ms = Ps + BR * kBlockKV;
@@ -223,21 +326,29 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < BR; ++r) acc[r] = 0.f;
 
   int s0 = kv_begin / kBlockKV * kBlockKV;
-  if (s0 < kv_end) load_tile<T, HD>(Ks, Vs, k, v, src, b, kh, s0, kv_begin, kv_end, tid);
+  if (s0 < kv_end) {
+    issue_tile<T, KV, HD>(Ks, Vs, K8, V8, KSc, VSc, k, v, kscale, vscale, src, b, kh, 0,
+                          s0, kv_begin, kv_end, tid);
+  }
   cp_async_commit();
   for (int stage = 0; s0 < kv_end; s0 += kBlockKV, stage ^= 1) {
     // 1. Start the next tile's copies into the other stage, then wait for
-    // this tile's.
+    // this tile's (and, over an int8 cache, dequantize it).
     if (s0 + kBlockKV < kv_end) {
-      load_tile<T, HD>(Ks + (stage ^ 1) * kBlockKV * ROWK,
-                       Vs + (stage ^ 1) * kBlockKV * HD, k, v, src, b, kh,
-                       s0 + kBlockKV, kv_begin, kv_end, tid);
+      issue_tile<T, KV, HD>(Ks, Vs, K8, V8, KSc, VSc, k, v, kscale, vscale, src, b, kh,
+                            stage ^ 1, s0 + kBlockKV, kv_begin, kv_end, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const T* kt = Ks + stage * kBlockKV * ROWK;
-    const T* vt = Vs + stage * kBlockKV * HD;
+    const int tstage = L::kQuant ? 0 : stage;
+    if constexpr (L::kQuant) {
+      dequant_tile<T, HD>(Ks, Vs, K8 + stage * kBlockKV * HD, V8 + stage * kBlockKV * HD,
+                          KSc + stage * kBlockKV, VSc + stage * kBlockKV, tid);
+      __syncthreads();
+    }
+    const T* kt = Ks + tstage * kBlockKV * ROWK;
+    const T* vt = Vs + tstage * kBlockKV * HD;
 
     // 2. Scores: thread (j, rg) dots key j with rows rg, rg + RG, ...
     float sc[RPG];
@@ -345,7 +456,7 @@ gqa_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 struct Args {
-  const void *q, *k, *v, *qpos, *kv_lens, *q_lens;
+  const void *q, *k, *v, *k_scale, *v_scale, *qpos, *kv_lens, *q_lens;
   void* out;
   int b, t, n, kh;
   long long q_sb, q_st, q_sn, o_sb, o_st, o_sn;
@@ -354,10 +465,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int BR, typename Src>
+template <typename T, typename KV, int HD, int BR, typename Src>
 int launch(const Args& a, const Src& src) {
-  constexpr size_t smem = Layout<T, HD>::template bytes<BR>();
-  auto kernel = gqa_tile_kernel<T, HD, BR, Src>;
+  constexpr size_t smem = Layout<T, KV, HD>::template bytes<BR>();
+  auto kernel = gqa_tile_kernel<T, KV, HD, BR, Src>;
   // Above 48 KB a block's dynamic shared memory must be opted into, once.
   static bool opted_in = false;
   if (!opted_in) {
@@ -369,36 +480,41 @@ int launch(const Args& a, const Src& src) {
   const int rows = (a.n / a.kh) * a.t;
   dim3 grid(a.b * a.kh, (rows + BR - 1) / BR);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), src, static_cast<const int*>(a.qpos),
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), src, static_cast<const int*>(a.qpos),
       static_cast<const int*>(a.kv_lens), static_cast<const int*>(a.q_lens),
       static_cast<T*>(a.out), a.t, a.n, a.kh, a.q_sb, a.q_st, a.q_sn,
       a.o_sb, a.o_st, a.o_sn, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD, typename Src>
+template <typename T, typename KV, int HD, typename Src>
 int launch_br(const Args& a, const Src& src, int br) {
   switch (br) {
-    case 1: return launch<T, HD, 1>(a, src);
-    case 2: return launch<T, HD, 2>(a, src);
-    case 4: return launch<T, HD, 4>(a, src);
-    case 8: return launch<T, HD, 8>(a, src);
-    case 16: return launch<T, HD, 16>(a, src);
+    case 1: return launch<T, KV, HD, 1>(a, src);
+    case 2: return launch<T, KV, HD, 2>(a, src);
+    case 4: return launch<T, KV, HD, 4>(a, src);
+    case 8: return launch<T, KV, HD, 8>(a, src);
+    case 16: return launch<T, KV, HD, 16>(a, src);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dispatch on element type, head dim and row tile. Returns
+// Dispatch on element type, head dim and row tile; `Quant` reads an int8
+// cache with per-slot scales (a.k_scale, a.v_scale). Returns
 // cudaGetLastError() after the launch (0 = launched).
-template <typename Src>
+template <bool Quant, typename Src>
 int launch_any(const Args& a, const Src& src, int h, int is_bf16, int br) {
+  using B = __nv_bfloat16;
+  using KB = typename std::conditional<Quant, int8_t, B>::type;
+  using KF = typename std::conditional<Quant, int8_t, float>::type;
   if (h != 64 && h != 128) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    return h == 64 ? launch_br<__nv_bfloat16, 64>(a, src, br)
-                   : launch_br<__nv_bfloat16, 128>(a, src, br);
+    return h == 64 ? launch_br<B, KB, 64>(a, src, br) : launch_br<B, KB, 128>(a, src, br);
   }
-  return h == 64 ? launch_br<float, 64>(a, src, br) : launch_br<float, 128>(a, src, br);
+  return h == 64 ? launch_br<float, KF, 64>(a, src, br)
+                 : launch_br<float, KF, 128>(a, src, br);
 }
 
 }  // namespace gqa_tile

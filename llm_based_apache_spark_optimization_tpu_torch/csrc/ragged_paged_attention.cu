@@ -59,10 +59,10 @@ extern "C" int ragged_paged_attention(
     int h, long long q_sb, long long q_st, long long q_sn, long long o_sb,
     long long o_st, long long o_sn, int window, float scale, int is_bf16,
     int br, void* stream) {
-  gqa_tile::Args a{q, k_pool, v_pool, q_positions, kv_lens, q_lens, out, b, t,
-                   n, kh, q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale,
+  gqa_tile::Args a{q, k_pool, v_pool, nullptr, nullptr, q_positions, kv_lens, q_lens,
+                   out, b, t, n, kh, q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale,
                    static_cast<cudaStream_t>(stream)};
   const PagedSrc src{static_cast<const int*>(table), num_pages, kh, page_size,
                      np_tab};
-  return gqa_tile::launch_any(a, src, h, is_bf16, br);
+  return gqa_tile::launch_any<false>(a, src, h, is_bf16, br);
 }

@@ -13,6 +13,11 @@ cache, `pack_prefill_pages` moves its K/V into pool pages with identity
 per-row tables, and every decode step writes and reads through the tables
 (the paged forward: the fused page-write and ragged paged attention
 kernels on the card).
+
+With `kv_quant="int8"` the prefill fills the compute-dtype cache, then
+`quantize_cache` converts it once to the int8 cache (int8 values plus one
+f32 scale per slot), and every decode step writes and reads that cache (the
+quantized flash decode kernel on the card).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from .. import resolve_device
 from ..models.configs import LlamaConfig
 from ..models.llama import Params, forward
+from ..ops.quant import quantize_cache
 from ..ops.sampling import SamplingParams, sample
 from .kvcache import bucket_len, init_cache
 from .paged_kv import default_page_size, pack_prefill_pages
@@ -55,12 +61,21 @@ class InferenceEngine:
         device=None,
         kv_layout: str = "contiguous",
         kv_page_size: Optional[int] = None,
+        kv_quant: Optional[str] = None,
     ):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be 'contiguous' or 'paged', got {kv_layout!r}"
             )
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
+        if kv_quant and kv_layout == "paged":
+            raise ValueError(
+                "kv_quant with the engine's paged layout is not ported (ROADMAP "
+                "A10; the layout itself is queued for removal, A4): the int8 "
+                "paged pool serves through the scheduler")
         self.kv_layout = kv_layout
+        self.kv_quant = kv_quant
         self.kv_page_size = (int(kv_page_size or default_page_size())
                              if kv_layout == "paged" else 0)
         self.cfg = cfg
@@ -131,6 +146,8 @@ class InferenceEngine:
         if paged:
             ps = self.kv_page_size
             cache = pack_prefill_pages(cache, ps, -(-(t + cap) // ps))
+        elif self.kv_quant:
+            cache = quantize_cache(cache["k"], cache["v"])
         pos = lengths.clone()
         pad = torch.tensor(cfg.pad_id, dtype=torch.int32, device=dev)
         step = 1

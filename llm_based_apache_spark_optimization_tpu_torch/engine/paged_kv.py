@@ -1,9 +1,11 @@
 """Paged KV cache: a shared device page pool + host-side page allocator.
 
-Counterpart of the JAX package's `engine/paged_kv.py` for the compute-dtype
-pool (its int8 pool, page export/import and handoff blobs are not ported):
+Counterpart of the JAX package's `engine/paged_kv.py` (its page
+export/import and handoff blobs are not ported):
 
     pool:        {"kp": [L, P, K, page_size, H], "vp": [L, P, K, page_size, H]}
+                 int8 pool (kv_quant="int8"): int8 "kp"/"vp" plus f32
+                 per-position scales "kps"/"vps": [L, P, K, page_size]
     page table:  [slots, pages_per_slot] int32 — per-slot logical->pool map
 
 - The pool is sized to a device-memory budget (`pages_for_budget`), not to
@@ -50,15 +52,26 @@ def default_page_size() -> int:
     return ps
 
 
-def page_bytes(cfg: LlamaConfig, page_size: int, itemsize: int = 2) -> int:
-    """Device bytes of ONE pool page across all layers (K and V)."""
-    return 2 * cfg.num_layers * cfg.num_kv_heads * page_size * cfg.head_dim * itemsize
+def _check_kv_quant(kv_quant: Optional[str]) -> None:
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
+
+
+def page_bytes(cfg: LlamaConfig, page_size: int, itemsize: int = 2,
+               kv_quant: Optional[str] = None) -> int:
+    """Device bytes of ONE pool page across all layers (K and V). An int8
+    pool costs H int8 values plus one f32 scale per position (`itemsize` is
+    then ignored)."""
+    _check_kv_quant(kv_quant)
+    per_pos = cfg.head_dim + 4 if kv_quant else cfg.head_dim * itemsize
+    return 2 * cfg.num_layers * cfg.num_kv_heads * page_size * per_pos
 
 
 def pages_for_budget(cfg: LlamaConfig, budget_bytes: int, page_size: int,
-                     itemsize: int = 2) -> int:
-    """Pool pages a device-memory budget buys."""
-    return max(0, int(budget_bytes) // page_bytes(cfg, page_size, itemsize))
+                     itemsize: int = 2, kv_quant: Optional[str] = None) -> int:
+    """Pool pages a device-memory budget buys (an int8 pool about twice as
+    many)."""
+    return max(0, int(budget_bytes) // page_bytes(cfg, page_size, itemsize, kv_quant))
 
 
 def pages_for_tokens(n_tokens: int, page_size: int) -> int:
@@ -69,16 +82,26 @@ def pages_for_tokens(n_tokens: int, page_size: int) -> int:
 def init_page_pool(
     cfg: LlamaConfig, num_pages: int, page_size: int,
     dtype: torch.dtype = torch.bfloat16, device=None,
+    kv_quant: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """The zeroed shared page pool on `device` (default CUDA): per
-    (page, kv head) a contiguous [page_size, H] tile."""
+    (page, kv head) a contiguous [page_size, H] tile. `kv_quant="int8"`
+    stores int8 values plus f32 per-position scales "kps"/"vps"
+    [L, P, K, page_size], initialised to 1 so an unwritten page dequantizes
+    to zeros, never NaN."""
     if page_size <= 0 or page_size % 8:
         raise ValueError(
             f"page_size must be a positive multiple of 8, got {page_size}"
         )
+    _check_kv_quant(kv_quant)
     shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
              cfg.head_dim)
     dev = resolve_device(device)
+    if kv_quant:
+        return {"kp": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "kps": torch.ones(shape[:-1], dtype=torch.float32, device=dev),
+                "vp": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "vps": torch.ones(shape[:-1], dtype=torch.float32, device=dev)}
     return {"kp": torch.zeros(shape, dtype=dtype, device=dev),
             "vp": torch.zeros(shape, dtype=dtype, device=dev)}
 

@@ -9,6 +9,10 @@ onto the other.
 
 - Matmuls run in the params dtype (bf16 on the card); norms, rope, softmax
   and the SiLU gate run in f32; logits come back in f32.
+- Every block matmul goes through `ops.quant.mm`: a plain `@` for a weight
+  tensor, the int4 matmul kernel for a 4-bit tree {"q4", "s4"}
+  (`quantize_params_int4`; the params dtype is then that of the norms and
+  embeddings).
 - The unembed accumulates in f32: for bf16 on CUDA it is one bf16 matmul
   with an f32 output (`torch.mm(..., out_dtype=torch.float32)`), elsewhere
   `x.float() @ w.float().T`.
@@ -21,8 +25,17 @@ onto the other.
   windows): each layer first writes its sliver through the page table, in
   place (the fused page-write kernel), then attends through the table (the
   ragged paged attention kernel).
-- Attention and page writes go through `ops.kernels.dispatch`: the
-  hand-written kernels on CUDA, their plain versions on the CPU.
+- Or the int8 caches. The contiguous `{"k8", "v8": [L, B, K, S, H] int8,
+  "ks", "vs": [L, B, K, S] f32}` (`ops.quant.quantize_cache`) serves decode
+  steps only (T == 1): each layer quantizes its fresh sliver (one scale per
+  slot, absmax over H), writes values and scales in place, then attends
+  through the quantized flash kernel, which dequantizes in its tile. The
+  paged pool with scales `{"kp", "vp": int8, "kps", "vps": [L, P, K, PS]
+  f32, "ptab"}` writes through the quantizing page-write kernel and reads
+  through the quantized ragged paged attention kernel.
+- Attention, page writes and int4 matmuls go through
+  `ops.kernels.dispatch`: the hand-written kernels on CUDA, their plain
+  versions on the CPU.
 """
 
 from __future__ import annotations
@@ -33,8 +46,16 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..ops.kernels.dispatch import attention, page_write, paged_attention
+from ..ops.kernels.dispatch import (
+    attention,
+    attention_quantized,
+    page_write,
+    page_write_quantized,
+    paged_attention,
+    paged_attention_quantized,
+)
 from ..ops.norm import rms_norm
+from ..ops.quant import mm, quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 from .configs import LlamaConfig
 
@@ -89,11 +110,17 @@ def init_params(
 def _write_cache(layer_cache: torch.Tensor, new: torch.Tensor,
                  start: torch.Tensor) -> None:
     """Write `new` [B, T, K, H] into `layer_cache` [B, K, S, H] (a view of
-    one layer of the stacked cache) at slots start[b] + t, in place."""
+    one layer of the stacked cache) at slots start[b] + t, in place; the
+    same for per-slot scales [B, T, K] into [B, K, S]."""
     b, t = new.shape[:2]
     rows = torch.arange(b, device=new.device)[:, None]
     slots = start.long()[:, None] + torch.arange(t, device=new.device)[None, :]
     layer_cache[rows, :, slots] = new.to(layer_cache.dtype)
+
+
+def _at(w, layer: int):
+    """Layer `layer` of a stacked weight: a tensor, or a q4 tree's arrays."""
+    return {k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
 
 
 def _unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -113,8 +140,9 @@ def forward(
     tokens: torch.Tensor,     # [B, T] int
     positions: torch.Tensor,  # [B, T] int — absolute position of each token
     cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"}: [L, B, K, S, H]
-                              # or paged {"kp","vp": [L, P, K, PS, H],
-                              # "ptab": [B, NP] int}
+                              # or int8 {"k8","v8","ks","vs"}, or paged
+                              # {"kp","vp": [L, P, K, PS, H], "ptab": [B, NP]
+                              # int} (int8 pool: plus "kps","vps")
     logit_indices: Optional[torch.Tensor] = None,     # [B] int
     kv_lens: Optional[torch.Tensor] = None,           # [B] int — live KV slots
     q_lens: Optional[torch.Tensor] = None,            # [B] int — live query
@@ -124,13 +152,19 @@ def forward(
 
     With `cache=None` the layer's own K/V are the keys (prefill-only
     scoring). With a cache, K/V are written at `positions[:, 0] + t` and
-    attention reads the layer's whole cache, masked by position. With a
-    paged cache, K/V are written at `positions` through the page table
-    (dead columns past `q_lens` write nothing and read zeros), then
-    attention reads through it. `logit_indices` unembeds only those
-    T-indices ([B, 1, V] logits)."""
+    attention reads the layer's whole cache, masked by position (an int8
+    cache: T == 1 only). With a paged cache, K/V are written at `positions`
+    through the page table (dead columns past `q_lens` write nothing and
+    read zeros), then attention reads through it. `logit_indices` unembeds
+    only those T-indices ([B, 1, V] logits)."""
     b, t = tokens.shape
     paged = cache is not None and "kp" in cache
+    quant = cache is not None and "k8" in cache
+    if quant and t != 1:
+        raise ValueError(
+            f"an int8 KV cache serves decode steps only (T == 1), got T={t}: "
+            "prefill fills a compute-dtype cache, then quantize_cache converts "
+            "it once (engine/generate.py)")
     if paged and t > _UNROLL_MAX_T:
         raise ValueError(
             "a paged KV cache serves the unrolled small-T path only "
@@ -148,16 +182,32 @@ def forward(
 
     for l in range(cfg.num_layers):
         h = rms_norm(x, blocks["ln_attn"][l], cfg.norm_eps)
-        q = (h @ blocks["wq"][l]).reshape(b, t, nh, hd)
-        k = (h @ blocks["wk"][l]).reshape(b, t, kh, hd)
-        v = (h @ blocks["wv"][l]).reshape(b, t, kh, hd)
+        q = mm(h, _at(blocks["wq"], l)).reshape(b, t, nh, hd)
+        k = mm(h, _at(blocks["wk"], l)).reshape(b, t, kh, hd)
+        v = mm(h, _at(blocks["wv"], l)).reshape(b, t, kh, hd)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        if paged:
+        if paged and "kps" in cache:
+            page_write_quantized(cache["kp"], cache["kps"], cache["vp"],
+                                 cache["vps"], k, v, positions, cache["ptab"],
+                                 l, q_lens)
+            attn = paged_attention_quantized(
+                q, cache["kp"][l], cache["kps"][l], cache["vp"][l],
+                cache["vps"][l], cache["ptab"], positions, cfg.sliding_window,
+                kv_lens, q_lens)
+        elif paged:
             page_write(cache["kp"], cache["vp"], k, v, positions,
                        cache["ptab"], l, q_lens)
             attn = paged_attention(q, cache["kp"][l], cache["vp"][l],
                                    cache["ptab"], positions,
                                    cfg.sliding_window, kv_lens, q_lens)
+        elif quant:
+            for name, new in (("k", k), ("v", v)):
+                qn = quantize_kv(new)
+                _write_cache(cache[f"{name}8"][l], qn["q8"], start)
+                _write_cache(cache[f"{name}s"][l], qn["s"], start)
+            attn = attention_quantized(q, cache["k8"][l], cache["ks"][l],
+                                       cache["v8"][l], cache["vs"][l], positions,
+                                       cfg.sliding_window, kv_lens)
         else:
             if cache is None:
                 k_full = k.transpose(1, 2).contiguous()  # cache layout [B, K, T, H]
@@ -168,10 +218,10 @@ def forward(
                 _write_cache(v_full, v, start)
             attn = attention(q, k_full, v_full, positions, cfg.sliding_window,
                              kv_lens)
-        x = x + attn.reshape(b, t, nh * hd) @ blocks["wo"][l]
+        x = x + mm(attn.reshape(b, t, nh * hd), _at(blocks["wo"], l))
         h2 = rms_norm(x, blocks["ln_mlp"][l], cfg.norm_eps)
-        gate = F.silu((h2 @ blocks["wg"][l]).float()).to(x.dtype)
-        x = x + (gate * (h2 @ blocks["wu"][l])) @ blocks["wd"][l]
+        gate = F.silu(mm(h2, _at(blocks["wg"], l)).float()).to(x.dtype)
+        x = x + mm(gate * mm(h2, _at(blocks["wu"], l)), _at(blocks["wd"], l))
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logit_indices is not None:

@@ -18,6 +18,13 @@ LAUNCHES: Dict[str, int] = {
     "flash_gqa_decode": 0,
     "ragged_paged_attention": 0,
     "fused_page_write": 0,
+    "flash_gqa_decode_quantized": 0,
+    "ragged_paged_attention_quantized": 0,
+    "fused_page_write_quantized": 0,
+    "int4_matmul": 0,
+    # The second launch of an int4_matmul call whose contraction axis was
+    # split (decode): it adds the splits' f32 partial sums.
+    "int4_matmul_reduce": 0,
 }
 
 

@@ -26,6 +26,18 @@ share one decode batch on the device:
   and 0 for parked ones (parked slots read nothing; their writes at the
   parking position go through all-sentinel table rows and are dropped, or
   land where no query can see them).
+- int8 KV (`kv_quant="int8"`): the pool holds int8 values plus one f32
+  scale per (layer, page, kv head, position), `"kps"`/`"vps"`
+  [L, P, K, PS], about twice the tokens per device byte. Decode writes
+  through the quantizing page-write kernel and reads through the quantized
+  ragged paged attention kernel, which dequantizes in its tile. A prefill
+  chunk dequantizes its gathered row views to the compute dtype (values
+  and scales cast to it, then multiplied in it, as the JAX scheduler does)
+  and requantizes only its own window on the way back, so every entry is
+  quantized exactly once. Copy-on-write copies the scale pages with the
+  values.
+- Weights may be int4 trees (`ops.quant.quantize_params_int4`): every
+  block matmul then runs the int4 matmul kernel on the card.
 - Per-row sampling knobs and per-request streams (ops/sampling
   `sample_runtime`): slot s samples its i-th token from (seed, i), so a
   request replays the same tokens whatever shares the batch.
@@ -42,7 +54,7 @@ One worker thread owns all device work. It enters `torch.inference_mode`
 and the scheduler's device and stream itself: both are per-thread state.
 
 Not ported yet (ROADMAP A7 follow-ups): the contiguous layout, mixed
-ragged rounds, speculation, grammar constraints, int8 KV, overcommit,
+ragged rounds, speculation, grammar constraints, overcommit,
 preemption and spill, phase roles, QoS, deadlines, profiling and the
 flight recorder, prefix telemetry, the heartbeat, `SchedulerPool`, meshes
 and the checkpoint constructors.
@@ -73,6 +85,7 @@ from ..engine.paged_kv import (
 )
 from ..models.configs import LlamaConfig
 from ..models.llama import Params, forward
+from ..ops.quant import quantize_kv
 from ..ops.sampling import SamplingParams, greedy, sample_runtime
 from .backends import Completion, trim_stop_texts
 from .resilience import SchedulerCrashed
@@ -149,8 +162,10 @@ class ContinuousBatchingScheduler:
         kv_page_size: Optional[int] = None,
         kv_pages: Optional[int] = None,
         kv_hbm_budget_bytes: Optional[int] = None,
+        kv_quant: Optional[str] = None,
         device=None,
     ):
+        self.kv_quant = kv_quant
         if kv_layout != "paged":
             raise ValueError(
                 f"kv_layout={kv_layout!r} is not ported: the scheduler serves "
@@ -182,7 +197,7 @@ class ContinuousBatchingScheduler:
             num_pages = int(kv_pages)
         elif kv_hbm_budget_bytes:
             num_pages = pages_for_budget(cfg, kv_hbm_budget_bytes, ps,
-                                         dtype.itemsize)
+                                         dtype.itemsize, kv_quant)
         else:
             # Default: the contiguous layout's own footprint.
             num_pages = num_slots * self._pages_per_slot
@@ -203,7 +218,7 @@ class ContinuousBatchingScheduler:
         self._page_wait_events = 0
 
         dev = self.device
-        self._pool = init_page_pool(cfg, num_pages, ps, dtype, dev)
+        self._pool = init_page_pool(cfg, num_pages, ps, dtype, dev, kv_quant)
         # Device page tables; the unmapped sentinel is num_pages.
         self._ptab = torch.full((num_slots, self._pages_per_slot), num_pages,
                                 dtype=torch.int32, device=dev)
@@ -308,8 +323,9 @@ class ContinuousBatchingScheduler:
         self._ptab[slot] = self._h2d(row, torch.int32)
 
     def _copy_page(self, dst: int, src: int) -> None:
-        """One-page device copy (copy-on-write), every layer, K and V."""
-        for pool in (self._pool["kp"], self._pool["vp"]):
+        """One-page device copy (copy-on-write), every layer, K and V (and
+        their scale pages in an int8 pool)."""
+        for pool in self._pool.values():
             pool[:, dst] = pool[:, src]
 
     # ---------------------------------------------------- paged-KV host side
@@ -495,8 +511,9 @@ class ContinuousBatchingScheduler:
         out = self._page_alloc.stats()
         out["pages_per_slot"] = self._pages_per_slot
         out["page_waits"] = self._page_wait_events
+        out["kv_quant"] = self.kv_quant or ""
         out["page_bytes"] = page_bytes(self.cfg, self._page_size,
-                                       self._dtype.itemsize)
+                                       self._dtype.itemsize, self.kv_quant)
         return out
 
     @property
@@ -652,11 +669,20 @@ class ContinuousBatchingScheduler:
         k = len(group)
         safe = self._h2d(rows, torch.int64).clamp(max=num_pages - 1)
 
-        def rowview(pool):  # [L, P, K, PS, H] -> [L, k, K, NP*PS, H]
-            return pool[:, safe].permute(0, 1, 3, 2, 4, 5).reshape(
-                n_layers, k, kh, np_tab * ps, hd)
+        def rowview(pool):  # [L, P, K, PS(, H)] -> [L, k, K, NP*PS(, H)]
+            g = pool[:, safe]
+            perm = (0, 1, 3, 2, 4, 5) if pool.dim() == 5 else (0, 1, 3, 2, 4)
+            return g.permute(*perm).reshape(n_layers, k, kh, np_tab * ps,
+                                            *pool.shape[4:])
 
-        row_cache = {"k": rowview(kp), "v": rowview(vp)}
+        if self.kv_quant:
+            dt = self._dtype
+            row_cache = {
+                "k": rowview(kp).to(dt) * rowview(self._pool["kps"])[..., None].to(dt),
+                "v": rowview(vp).to(dt) * rowview(self._pool["vps"])[..., None].to(dt),
+            }
+        else:
+            row_cache = {"k": rowview(kp), "v": rowview(vp)}
         positions = (self._h2d(starts, torch.int32)[:, None]
                      + torch.arange(t, dtype=torch.int32, device=self.device))
         lengths_t = self._h2d(lengths, torch.int64)
@@ -666,8 +692,14 @@ class ContinuousBatchingScheduler:
         if w_row:
             r, p = self._h2d(w_row, torch.int64), self._h2d(w_pos, torch.int64)
             pg, of = self._h2d(w_page, torch.int64), self._h2d(w_off, torch.int64)
-            kp[:, pg, :, of] = row_cache["k"][:, r, :, p]
-            vp[:, pg, :, of] = row_cache["v"][:, r, :, p]
+            if self.kv_quant:
+                for name in ("k", "v"):
+                    qn = quantize_kv(row_cache[name][:, r, :, p])  # [n, L, K, H]
+                    self._pool[f"{name}p"][:, pg, :, of] = qn["q8"]
+                    self._pool[f"{name}ps"][:, pg, :, of] = qn["s"]
+            else:
+                kp[:, pg, :, of] = row_cache["k"][:, r, :, p]
+                vp[:, pg, :, of] = row_cache["v"][:, r, :, p]
         reqs = [req for _, req in group]
         if all(r.temperature <= 0.0 for r in reqs):
             return greedy(logits[:, 0])
@@ -757,8 +789,7 @@ class ContinuousBatchingScheduler:
     def _decode_round(self, active: torch.Tensor, sampled: bool) -> torch.Tensor:
         """`decode_chunk` T=1 steps of the whole slot batch through the
         paged forward; returns the tokens [slots, chunk] (device)."""
-        cache = {"kp": self._pool["kp"], "vp": self._pool["vp"],
-                 "ptab": self._ptab}
+        cache = dict(self._pool, ptab=self._ptab)
         cur, pos, toks = self._cur, self._pos, []
         for i in range(self.decode_chunk):
             logits, _ = forward(

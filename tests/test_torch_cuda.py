@@ -1,17 +1,23 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
-flash GQA attention, ragged paged attention and the fused page write.
+flash GQA attention, ragged paged attention and the fused page write, their
+int8-cache twins, and the int4 matmul.
 
 Needs a card (marker `cuda`); skips elsewhere. On the card:
 `python -m pytest tests/test_torch_cuda.py -q`. Tolerances as in
-chip_smoke.py: max abs error 1e-4 in f32, 3e-2 in bf16 (bf16 outputs are
-rounded to bf16 and the probabilities are rounded at a different running
-max than the plain version's); the page write is bit-exact."""
+chip_smoke.py: attention max abs error 1e-4 in f32, 3e-2 in bf16 (bf16
+outputs are rounded to bf16 and the probabilities are rounded at a
+different running max than the plain version's); the page writes are
+bit-exact; the int4 matmul within 1e-5 (f32) and 1e-2 (bf16: one bf16 ulp
+is up to 2**-7 of the largest output) of max |out|, since only the order of
+the f32 sums differs."""
 
 import pytest
 import torch
 
+from llm_based_apache_spark_optimization_tpu_torch.ops import quant
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import LAUNCHES
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import attention as k
+from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int4mm
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_attention as pa
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_write as pw
 
@@ -109,3 +115,120 @@ def test_page_write_kernel_is_bit_exact(cuda, dtype, t):
     torch.cuda.synchronize()
     assert torch.equal(kk, kr) and torch.equal(vk, vr) and not torch.equal(kk, kp)
     assert LAUNCHES["fused_page_write"] == before["fused_page_write"] + 1
+
+
+def q8(x):
+    q = quant.quantize_kv(x)
+    return q["q8"], q["s"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,kh,h,window", [
+    (32, 32, 128, None), (24, 8, 128, None), (32, 8, 64, 40),
+])
+def test_quantized_flash_kernel_matches_plain(cuda, dtype, n, kh, h, window):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, s = 3, 136
+    q = torch.randn((b, 1, n, h), generator=g, device=cuda).to(dtype)
+    k8, ks = q8(torch.randn((b, kh, s, h), generator=g, device=cuda))
+    v8, vs = q8(torch.randn((b, kh, s, h), generator=g, device=cuda))
+    pos = torch.tensor([[0], [50], [s - 1]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([0, 51, s], dtype=torch.int32, device=cuda)
+    ks[1, :, 51:] = float("nan")  # dead slots: never read
+    vs[1, :, 51:] = float("nan")
+    before = dict(LAUNCHES)
+    out = k.flash_gqa_attention_quantized(q, k8, ks, v8, vs, pos, window, lens)
+    ref = k.flash_gqa_attention_quantized_plain(q, k8, ks, v8, vs, pos, window, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (out[0] == 0).all()
+    assert (LAUNCHES["flash_gqa_decode_quantized"]
+            == before["flash_gqa_decode_quantized"] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,n,kh,h,ps,window", [
+    (1, 32, 32, 128, 64, None), (1, 24, 8, 128, 16, None), (1, 32, 8, 64, 8, None),
+    (8, 24, 8, 128, 16, None), (32, 16, 8, 128, 64, None), (4, 32, 8, 128, 16, 40),
+])
+def test_quantized_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, window):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, np_tab = 3, 8
+    pages = b * np_tab + 2
+    kp, kps = q8(torch.randn((pages, kh, ps, h), generator=g, device=cuda))
+    vp, vps = q8(torch.randn((pages, kh, ps, h), generator=g, device=cuda))
+    tab = torch.randperm(pages, generator=g, device=cuda)[: b * np_tab]
+    tab = tab.reshape(b, np_tab).int()
+    tab[1, -2:] = pages  # unmapped tail past the live region
+    unmapped = torch.ones(pages, dtype=torch.bool, device=cuda)
+    unmapped[tab[tab < pages].long()] = False
+    kps[unmapped] = float("nan")
+    vps[unmapped] = float("nan")
+    s_virt = np_tab * ps
+    q = torch.randn((b, t, n, h), generator=g, device=cuda).to(dtype)
+    starts = torch.tensor([[0], [s_virt // 3], [s_virt - t]], device=cuda)
+    pos = (starts + torch.arange(t, device=cuda)).int()
+    kvl = torch.tensor([0, s_virt // 3 + t, s_virt], dtype=torch.int32, device=cuda)
+    qln = torch.tensor([t, max(1, t // 2), t], dtype=torch.int32, device=cuda)
+    args = (q, kp, kps, vp, vps, tab, pos, window, kvl, qln)
+    before = dict(LAUNCHES)
+    out = pa.ragged_paged_attention_quantized(*args)
+    ref = pa.ragged_paged_attention_quantized_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (out[0] == 0).all() and (out[1, int(qln[1]):] == 0).all()
+    assert (LAUNCHES["ragged_paged_attention_quantized"]
+            == before["ragged_paged_attention_quantized"] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,h", [(1, 128), (4, 128), (1, 64)])
+def test_quantized_page_write_kernel_is_bit_exact(cuda, dtype, t, h):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n_layers, pages, kh, ps, b, np_tab = 3, 20, 8, 16, 4, 4
+    kp, kps = q8(torch.randn((n_layers, pages, kh, ps, h), generator=g, device=cuda))
+    vp, vps = q8(torch.randn((n_layers, pages, kh, ps, h), generator=g, device=cuda))
+    k_new = torch.randn((b, t, kh, h), generator=g, device=cuda).to(dtype)
+    v_new = torch.randn((b, t, kh, h), generator=g, device=cuda).to(dtype)
+    k_new[0, 0, 1] = 0.0  # an all-zero row takes scale 1
+    tab = torch.randperm(pages, generator=g, device=cuda)[: b * np_tab]
+    tab = tab.reshape(b, np_tab).int()
+    tab[3] = pages  # a parked row
+    pos = (torch.tensor([[0], [ps - 1], [np_tab * ps - 2], [5]], device=cuda)
+           + torch.arange(t, device=cuda)).int()  # row 2 runs past the row
+    qln = torch.tensor([t, max(1, t - 2), t, t], dtype=torch.int32, device=cuda)
+    got = [x.clone() for x in (kp, kps, vp, vps)]
+    want = [x.clone() for x in (kp, kps, vp, vps)]
+    before = dict(LAUNCHES)
+    pw.fused_page_write_quantized(*got, k_new, v_new, pos, tab, 1, qln)
+    pw.fused_page_write_quantized_plain(*want, k_new, v_new, pos, tab, 1, qln)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert not torch.equal(got[0], kp)
+    assert (LAUNCHES["fused_page_write_quantized"]
+            == before["fused_page_write_quantized"] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n_in,n_out,group", [
+    (1, 4096, 4096, 128), (8, 11008, 4096, 86), (3, 688, 256, 86),
+    (130, 688, 512, 86), (64, 256, 144, 32), (9, 4096, 1024, 128),
+])
+def test_int4_kernel_matches_plain(cuda, dtype, rows, n_in, n_out, group):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    w = quant.quantize_weight_int4(
+        torch.randn((n_in, n_out), generator=g, device=cuda) * n_in ** -0.5, group)
+    x = torch.randn((rows, n_in), generator=g, device=cuda).to(dtype)
+    before = dict(LAUNCHES)
+    out = int4mm.int4_matmul(x, w["q4"], w["s4"])
+    ref = int4mm.int4_matmul_plain(x, w["q4"], w["s4"])
+    torch.cuda.synchronize()
+    assert out.shape == (rows, n_out) and out.dtype == dtype
+    rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    assert rel <= (1e-5 if dtype == torch.float32 else 1e-2), rel
+    assert LAUNCHES["int4_matmul"] == before["int4_matmul"] + 1
+    splits, _ = int4mm.split_plan(rows, n_in, n_out, int4mm.resident_blocks(x.device))
+    assert (LAUNCHES["int4_matmul_reduce"]
+            == before["int4_matmul_reduce"] + int(splits > 1))

@@ -8,7 +8,10 @@
 - `PageAllocator` and `pack_prefill_pages` vs JAX's;
 - the paged forward's logits vs JAX's paged forward (xla impl), 1e-5;
 - the paged engine's greedy tokens vs JAX's paged engine and the port's
-  contiguous engine, token for token.
+  contiguous engine, token for token;
+- the int8 pool: sizing and layout vs JAX's, and the paged forward over it
+  (int4 weights, the quantizing write, the quantized read) vs JAX's paged
+  forward, logits within 1e-5 and the written pages within one int8 step.
 Inputs come from numpy seeds and pass between the packages as numpy."""
 
 import jax
@@ -24,7 +27,13 @@ from llm_based_apache_spark_optimization_tpu.engine.paged_kv import (
     PageAllocator as JaxAllocator,
 )
 from llm_based_apache_spark_optimization_tpu.engine.paged_kv import (
+    init_page_pool as jax_init_pool,
+)
+from llm_based_apache_spark_optimization_tpu.engine.paged_kv import (
     pack_prefill_pages as jax_pack,
+)
+from llm_based_apache_spark_optimization_tpu.engine.paged_kv import (
+    page_bytes as jax_page_bytes,
 )
 from llm_based_apache_spark_optimization_tpu.models import TINY as JAX_TINY
 from llm_based_apache_spark_optimization_tpu.models import init_params as jax_init
@@ -36,6 +45,10 @@ from llm_based_apache_spark_optimization_tpu.ops.pallas import (
 from llm_based_apache_spark_optimization_tpu.ops.pallas import (
     ragged_paged_attention as jax_ragged,
 )
+from llm_based_apache_spark_optimization_tpu.ops.quant import (
+    quantize_params_int4 as jax_q4,
+)
+from llm_based_apache_spark_optimization_tpu.ops.quant import quantize_kv as jax_qkv
 from llm_based_apache_spark_optimization_tpu_torch.convert import params_from_jax
 from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
 from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
@@ -49,6 +62,7 @@ from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
 )
 from llm_based_apache_spark_optimization_tpu_torch.models import TINY
 from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_params_int4
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
     LAUNCHES,
     fused_page_write,
@@ -313,3 +327,58 @@ def test_paged_engine_greedy_matches_jax_and_contiguous(both, stop_ids):
     assert got == contiguous.generate(prompts, 6)
     with pytest.raises(ValueError, match="kv_layout"):
         InferenceEngine(TINY, tp, kv_layout="sideways", device="cpu")
+
+
+def test_int8_pool_sizing_matches_jax():
+    cfg = TINY
+    for ps in (8, 16, 64):
+        assert page_bytes(cfg, ps, 4, "int8") == jax_page_bytes(JAX_TINY, ps, 4, "int8")
+    pb = page_bytes(cfg, 16, 4, "int8")
+    assert pb == 2 * cfg.num_layers * cfg.num_kv_heads * 16 * (cfg.head_dim + 4)
+    assert pages_for_budget(cfg, 7 * pb, 16, 4, "int8") == 7
+    assert pages_for_budget(cfg, 7 * pb, 16, 4, "int8") > pages_for_budget(
+        cfg, 7 * pb, 16, 4)
+    pool = init_page_pool(cfg, 5, 16, torch.float32, device="cpu", kv_quant="int8")
+    want = jax_init_pool(JAX_TINY, 5, 16, jnp.float32, kv_quant="int8")
+    assert set(pool) == set(want)
+    for name, arr in pool.items():
+        assert tuple(arr.shape) == want[name].shape
+        np.testing.assert_array_equal(arr.numpy(), np.asarray(want[name]))
+    assert sum(a.numel() * a.element_size() for a in pool.values()) == 5 * pb
+    with pytest.raises(ValueError, match="kv_quant"):
+        init_page_pool(cfg, 5, 16, device="cpu", kv_quant="fp8")
+
+
+@pytest.mark.parametrize("T", [1, 4])
+def test_int8_paged_forward_logits_match_jax(both, rng, T):
+    """A decode step (T=1) and a ragged T=4 window over the int8 pool, with
+    int4 block weights: logits of live columns vs JAX's paged forward (xla
+    impl: the reference write and read), and the pools after the writes."""
+    jp, tp = both
+    jp4, tp4 = jax_q4(jp, group=32), quantize_params_int4(tp, group=32)
+    cfg = TINY
+    b, ps, np_tab, pool_pages = 3, 8, 4, 14
+    shape = (cfg.num_layers, pool_pages, cfg.num_kv_heads, ps, cfg.head_dim)
+    kq = jax_qkv(jnp.asarray(rng.normal(size=shape).astype(np.float32)))
+    vq = jax_qkv(jnp.asarray(rng.normal(size=shape).astype(np.float32)))
+    tab = np.stack([rng.permutation(pool_pages)[:np_tab] for _ in range(b)])
+    tab[2, 3] = pool_pages
+    starts = np.asarray([5, 17, 9])
+    pos = starts[:, None] + np.arange(T)
+    q_lens = np.asarray([T, max(1, T - 2), T])
+    tokens = rng.integers(0, cfg.vocab_size, size=(b, T))
+    jcache = {"kp": kq["q8"], "kps": kq["s"], "vp": vq["q8"], "vps": vq["s"],
+              "ptab": jnp.asarray(tab, jnp.int32)}
+    want, jnew = jax_forward(JAX_TINY, jp4, jnp.asarray(tokens, jnp.int32),
+                             jnp.asarray(pos, jnp.int32), jcache, attn_impl="xla",
+                             q_lens=jnp.asarray(q_lens, jnp.int32))
+    tcache = {"kp": t(kq["q8"], torch.int8), "kps": t(kq["s"]),
+              "vp": t(vq["q8"], torch.int8), "vps": t(vq["s"]), "ptab": i32(tab)}
+    got, _ = forward(cfg, tp4, i32(tokens), i32(pos), tcache, q_lens=i32(q_lens))
+    for bi in range(b):
+        np.testing.assert_allclose(got[bi, : q_lens[bi]].numpy(),
+                                   np.asarray(want)[bi, : q_lens[bi]], atol=ATOL)
+    for name, tol in (("kp", 1), ("vp", 1), ("kps", ATOL), ("vps", ATOL)):
+        np.testing.assert_allclose(tcache[name].numpy().astype(np.float32),
+                                   np.asarray(jnew[name]).astype(np.float32),
+                                   atol=tol, rtol=0)

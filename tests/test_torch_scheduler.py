@@ -5,7 +5,9 @@ copy-on-write copies on the prefix-sharing traffic of
 tests/test_paged_kv.py, page pressure that waits and completes, no leaked
 page after drain; seeded sampling that replays whatever shares the batch,
 and a chi-square test of the runtime sampler against its target
-distribution."""
+distribution. The quantized serving configuration (int4 block weights,
+int8 page pool) gives the JAX scheduler's tokens too, with multi-chunk
+prompts whose prefix hits end mid-page (scale pages copied on write)."""
 
 import dataclasses
 import threading
@@ -19,6 +21,9 @@ import torch
 
 from llm_based_apache_spark_optimization_tpu.models import TINY as JAX_TINY
 from llm_based_apache_spark_optimization_tpu.models import init_params as jax_init
+from llm_based_apache_spark_optimization_tpu.ops.quant import (
+    quantize_params_int4 as jax_q4,
+)
 from llm_based_apache_spark_optimization_tpu.ops.sampling import (
     filtered_runtime_logits as jax_filtered,
 )
@@ -36,6 +41,7 @@ from llm_based_apache_spark_optimization_tpu.tokenizer import (
 )
 from llm_based_apache_spark_optimization_tpu_torch.convert import params_from_jax
 from llm_based_apache_spark_optimization_tpu_torch.models import TINY
+from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_params_int4
 from llm_based_apache_spark_optimization_tpu_torch.ops.sampling import (
     SamplingParams,
     filtered_runtime_logits,
@@ -60,6 +66,13 @@ BASE = dict(num_slots=2, decode_chunk=4, prompt_bucket=8, stop_ids=(-1,),
 def both():
     jp = jax_init(JAX_TINY, jax.random.key(0), dtype=jnp.float32)
     return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def both4(both):
+    """The same TINY tree with int4 block weights in both packages."""
+    jp, tp = both
+    return jax_q4(jp, group=32), quantize_params_int4(tp, group=32)
 
 
 def wait_drained(sched, timeout=30.0):
@@ -123,6 +136,38 @@ def test_prefix_sharing_matches_jax(both, ps, cow):
         assert prefix[key] == jprefix[key], key
     assert prefix["hits"] >= 3 and stats["zero_copy_shares"] > 0
     assert (stats["cow_copies"] > 0) == cow
+
+
+def test_int4_int8_greedy_matches_jax(both4):
+    """Int4 weights and the int8 pool: the JAX scheduler's tokens, and the
+    pool priced at int8 values plus f32 scales."""
+    (want, jstats, _), (got, stats, _) = run_both(
+        both4, concurrent(PROMPTS * 2, 6), kv_page_size=16, kv_quant="int8")
+    assert got == want
+    assert stats["kv_quant"] == "int8" and stats["pages_in_use"] == 0
+    assert stats["page_bytes"] == jstats["page_bytes"]
+
+
+@pytest.mark.parametrize("ps,cow", [(8, False), (16, True)])
+def test_int8_multichunk_prefix_sharing_matches_jax(both4, ps, cow):
+    """25-token prompts in 8-token chunks over the int8 pool: every chunk
+    requantizes only its window, and the 24-token prefix hits. With 16-token
+    pages the hit ends mid-page, where copy-on-write copies the value and
+    scale pages. Tokens, shares, COW copies and prefix counters match JAX."""
+    (want, jstats, jprefix), (got, stats, prefix) = run_both(
+        both4, sequential(SHARED, 5), kv_page_size=ps, kv_quant="int8")
+    assert got == want
+    for key in ("zero_copy_shares", "cow_copies", "prefix_resident_pages"):
+        assert stats[key] == jstats[key], key
+    for key in ("hits", "misses", "blocks_reused", "reused_tokens"):
+        assert prefix[key] == jprefix[key], key
+    assert prefix["hits"] >= 3 and stats["zero_copy_shares"] > 0
+    assert (stats["cow_copies"] > 0) == cow
+
+
+def test_kv_quant_is_validated(both):
+    with pytest.raises(ValueError, match="kv_quant"):
+        ContinuousBatchingScheduler(TINY, both[1], kv_quant="int4", device="cpu")
 
 
 def test_page_pressure_waits_and_completes(both):
