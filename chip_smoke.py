@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the whole run (one card)
-    python3 chip_smoke.py --profile   # plus a torch.profiler breakdown
+    python3 chip_smoke.py                # the whole run (one card)
+    python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
+    python3 chip_smoke.py --timing-only  # phases 1, 2 and 8 alone
+
+`--timing-only` times the package that sits beside this file, so a copy of
+this file placed in an unpacked archive of another commit times that
+commit's kernels at the same shapes (for comparing two commits in one
+call, in turns).
 
 Phases, each fatal on failure:
 
 1. Device: requires CUDA; prints the card's name and power limit as
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives them.
 2. Build: compiles every `csrc/*.cu` of the port with nvcc (one process per
-   source, all at once) and prints the build seconds and ptxas's register /
-   shared-memory lines.
+   source, all at once) and prints the build seconds and, for each kernel,
+   ptxas's register, shared-memory and spill lines.
 3. Kernels against their plain versions, in bf16 and f32:
    - both launches of the flash GQA attention kernel (prefill T > 1, decode
-     T == 1) at the engine path's shapes (duckdb-nsql-7B: N = K = 32;
-     llama3.2-3B: N = 24, K = 8; both H = 128), llama3.2-1B (H = 64), a
-     Mistral window of 4096 over S = 8192, a row with kv_lens = 0, ragged
-     last KV tiles and NaN planted in dead cache slots; and the prefill
-     launch at the scheduler's chunked-prefill shapes (7B and 3B, groups of
-     6-8 rows, buckets of 128, 32 and 16 over S = 1024 row views, chunk
-     starts after prefix reuse that end mid-page, default kv_lens);
+     T == 1; bf16 prefill runs the tensor-core kernel) at the engine path's
+     shapes (duckdb-nsql-7B: N = K = 32; llama3.2-3B: N = 24, K = 8; both
+     H = 128), llama3.2-1B (H = 64), a Mistral window of 4096 over S =
+     8192, a row with kv_lens = 0, ragged last KV tiles and NaN planted in
+     dead cache slots; prefill chunks of T = 100 and 37 (no multiple of 64)
+     over S = 1024 with ragged starts, windows, kv_lens = 0 and NaN past the
+     live length; and the prefill launch at the scheduler's chunked-prefill
+     shapes (7B and 3B, groups of 6-8 rows, buckets of 128, 32 and 16 over
+     S = 1024 row views, chunk starts after prefix reuse that end mid-page,
+     default kv_lens);
    - the ragged paged attention kernel at the 7B, 3B and 1B shapes, T = 1,
      B = 8 as the scheduler's slots, through permuted tables with sentinel
      entries, parked rows (all-sentinel, kv_lens = 0) and NaN planted in
@@ -34,9 +43,10 @@ Phases, each fatal on failure:
      scales), the quantized ragged paged attention at the paged cases above
      over int8 pools, the quantizing page write bit-exact (values and
      scales) into the 7B int8 pool's shape, and the int4 matmul at every 7B
-     and 3B weight shape (wd's group of 86 included) at R = 1, 4, 8, 131,
-     384, 1024 and 2048 (4 and 2048 are the engine batch's decode and
-     prefill).
+     and 3B weight shape (wd's group of 86 included) and at OUT = 400 (no
+     multiple of a column tile) at R = 1, 4, 8, 9, 16, 131, 384, 1024 and
+     2048 (4 and 2048 are the engine batch's decode and prefill; 8 and 9
+     straddle the decode / prefill crossover).
 4. Small references, 2-layer f32 models (H = 64): greedy tokens through the
    kernels on the card must equal the plain versions' on the CPU, for the
    engine and for the paged scheduler (page 16, shared prefixes); then the
@@ -70,12 +80,12 @@ Phases, each fatal on failure:
    batch of four, then a `SchedulerBackend` over a paged
    `ContinuousBatchingScheduler(kv_quant="int8")` (settings of phase 6)
    two requests one after the other and six at once. Launch counts exact:
-   int4 matmuls 7 x layers x forwards (plus one reduce launch for each
-   decode matmul whose contraction axis is split), quantized decode
-   attention layers x engine decode steps, quantized paged read and write
-   layers x decode_chunk x rounds, flash prefill layers x prefill
-   forwards. Prefill
-   logits through the kernels agree with the plain versions'; the prefix
+   int4 matmuls 7 x layers x forwards (one launch a call: a split of the
+   contraction axis is added up inside a thread-block cluster), quantized
+   decode attention layers x engine decode steps, quantized paged read and
+   write layers x decode_chunk x rounds, flash prefill layers x prefill
+   forwards. Prefill logits through the kernels agree with the plain
+   versions'; the prefix
    cache hits, shares and leaks no page; the live int8 pool's decode step
    is checked as in phase 6. With --profile, six concurrent requests under
    torch.profiler.
@@ -87,8 +97,11 @@ Phases, each fatal on failure:
    `index_put_` of the same slivers, quantized in advance; for the int4
    matmul, `torch.matmul` against the weight dequantized to bf16 in
    advance: the bf16 product, moving 4x the weight bytes, since no PyTorch
-   call computes the int4 function). The bound is the larger of the bytes
-   over 3.35 TB/s and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
+   call computes the int4 function). The flash prefill at the 7B prompt
+   and at the scheduler's prefill chunk (B = 8, T = 128, S = 1024); the
+   int4 matmul for 7B's `wq` and `wd` at R = 1, 4, 8 (decode) and 1024 (a
+   prefill chunk). The bound is the larger of the bytes over 3.35 TB/s
+   and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
 
 Every phase prints its seconds.
 
@@ -121,7 +134,7 @@ INT4_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 PKG = "llm_based_apache_spark_optimization_tpu_torch"
 REF = "llm_based_apache_spark_optimization_tpu/ops/pallas"
 SOURCES = {
-    "prefill": f"{PKG}/csrc/flash_gqa_attention.cu",
+    "prefill": f"{PKG}/csrc/flash_prefill.cuh",  # bf16; built by flash_gqa_attention.cu
     "decode": f"{PKG}/csrc/flash_gqa_attention.cu",
     "paged": f"{PKG}/csrc/ragged_paged_attention.cu",
     "write": f"{PKG}/csrc/fused_page_write.cu",
@@ -209,6 +222,17 @@ def cases():
         ("prefill", "kvlens0_nan", dict(b=3, t=64, n=24, kh=8, h=128, s=264,
                                         positions=run(3, 64, [0, 60, 200]),
                                         kv_lens=[0, 100, 264], nan_dead=True)),
+        # Chunks of no multiple of 64 rows over S = 1024: G = 3 (3B) and
+        # G = 4 at H = 64 (1B), ragged starts, a window, kv_lens = 0 and
+        # NaN past each row's live length.
+        ("prefill", "3b_t100_window", dict(b=3, t=100, n=24, kh=8, h=128, s=1024,
+                                           positions=run(3, 100, [0, 208, 924]),
+                                           kv_lens=[0, 308, 1024], window=96,
+                                           nan_dead=True)),
+        ("prefill", "1b_t37_window", dict(b=3, t=37, n=32, kh=8, h=64, s=1024,
+                                          positions=run(3, 37, [0, 500, 987]),
+                                          kv_lens=[0, 537, 1024], window=40,
+                                          nan_dead=True)),
     ]
     # The scheduler's chunked prefill: groups of k same-bucket chunks over
     # row views of S = 16 pages x 64 = 1024 slots, kv_lens left to default
@@ -541,19 +565,21 @@ def check_write_quantized(torch, pw_mod):
     return worst
 
 
-# (model, weight, IN, OUT) of every 7B and 3B block matmul shape.
+# (model, weight, IN, OUT) of every 7B and 3B block matmul shape, and an
+# edge: OUT = 400 is no multiple of a 128- or 256-column tile (group 86).
 INT4_SHAPES = [("7b", "wq/wk/wv/wo", 4096, 4096), ("7b", "wg/wu", 4096, 11008),
                ("7b", "wd", 11008, 4096), ("3b", "wq/wo", 3072, 3072),
                ("3b", "wk/wv", 3072, 1024), ("3b", "wg/wu", 3072, 8192),
-               ("3b", "wd", 8192, 3072)]
-INT4_ROWS = (1, 4, 8, 131, 384, 1024, 2048)
+               ("3b", "wd", 8192, 3072), ("edge", "OUT 400", 688, 400)]
+INT4_ROWS = (1, 4, 8, 9, 16, 131, 384, 1024, 2048)
 
 
 def check_int4(torch, mm_mod):
-    """The int4 matmul kernel vs plain at every 7B and 3B weight shape (the
-    group `tp_safe_group` gives: 86 for 7B's wd, 128 elsewhere) and R in
-    INT4_ROWS, in bf16 and f32. Returns the worst (absolute, relative to
-    max |out|) error per dtype."""
+    """The int4 matmul kernel vs plain at every shape of INT4_SHAPES (the
+    group `tp_safe_group` gives: 86 for 7B's wd and the edge, 128
+    elsewhere) and R in INT4_ROWS, in bf16 (the decode kernel up to 8 rows,
+    the prefill kernel above) and f32 (the rows kernel). Returns the worst
+    (absolute, relative to max |out|) error per dtype."""
     from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
         quantize_weight_int4,
         tp_safe_group,
@@ -578,7 +604,7 @@ def check_int4(torch, mm_mod):
                 err = (out.float() - ref.float()).abs().max().item()
                 rel = err / ref.float().abs().max().item()
                 ok = rel <= INT4_TOL[dname]
-                print(f"  int4    {model} {name:12s} group {group:3d} R={rows:5d} "
+                print(f"  int4    {model:4s} {name:12s} group {group:3d} R={rows:5d} "
                       f"{dname:8s} max_abs_err={err:.3e} rel={rel:.3e} "
                       f"tol={INT4_TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
                 assert ok, f"int4/{model} {name} R={rows} {dname}: {rel}"
@@ -785,9 +811,8 @@ def serve(torch):
     print(f"  7B prefill logits kernel vs plain: max|diff|/max|logit| = {rel:.3e} "
           f"(tol {LOGIT_TOL:.0e}); argmax equal: {same}", flush=True)
     assert rel <= LOGIT_TOL
-    shapes = {"prompt_len": len(ids), "padded": t,
-              "cache_len": t + 64 + (-(t + 64) % 8)}
-    return launches, shapes, engines, svc
+    assert t == prompt_shapes(eng.cfg)["padded"], "the timed prompt is not this one"
+    return launches, engines, svc
 
 
 def wait_idle(sched, timeout=60.0):
@@ -1007,7 +1032,7 @@ def quantized_serve(torch, engines, profile=False):
     and the int8 KV cache, behind an EngineBackend and a paged
     SchedulerBackend. Exact launch counts, prefill logits kernel vs plain,
     prefix sharing with no leaked page, the live int8 pool's decode step.
-    Returns (launch counts per path, the int4 params)."""
+    Returns the launch counts per path."""
     from concurrent.futures import ThreadPoolExecutor
 
     from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
@@ -1017,7 +1042,6 @@ def quantized_serve(torch, engines, profile=False):
         reset_launches,
         set_attention_impl,
     )
-    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int4mm as mm_mod
     from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
         quantize_params_int4,
     )
@@ -1044,14 +1068,6 @@ def quantized_serve(torch, engines, profile=False):
           f"{time.perf_counter() - t0:.1f} s ({q4_bytes / 2**30:.2f} GiB of nibbles "
           f"and scales); {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
           flush=True)
-    blocks = mm_mod.resident_blocks(torch.device("cuda", torch.cuda.current_device()))
-
-    def reduces(rows):
-        """Reduce launches of one layer's block matmuls at `rows` rows of x:
-        one for each matmul whose contraction axis the split plan divides."""
-        return sum(mm_mod.split_plan(rows, w["q4"].shape[1] * 2, w["q4"].shape[2],
-                                     blocks)[0] > 1
-                   for w in params4["blocks"].values() if isinstance(w, dict))
 
     stop_ids = resolve_stop_ids(cfg, tok)
     eng = InferenceEngine(cfg, params4, device="cuda", stop_ids=stop_ids, kv_quant="int8")
@@ -1063,7 +1079,6 @@ def quantized_serve(torch, engines, profile=False):
     def account(results, kind):
         st = eng.last_stats
         expected["int4_matmul"] += 7 * n_layers * st["forward_calls"]
-        expected["int4_matmul_reduce"] += n_layers * st["decode_steps"] * reduces(st["batch"])
         expected["flash_gqa_prefill"] += n_layers
         expected["flash_gqa_decode_quantized"] += n_layers * st["decode_steps"]
         for r in results:
@@ -1085,8 +1100,7 @@ def quantized_serve(torch, engines, profile=False):
     engine_launches = dict(LAUNCHES)
     print(f"  engine launches {engine_launches} expected {expected}", flush=True)
     assert engine_launches == expected, f"launch counts {engine_launches} != {expected}"
-    for k in ("int4_matmul", "int4_matmul_reduce", "flash_gqa_prefill",
-              "flash_gqa_decode_quantized"):
+    for k in ("int4_matmul", "flash_gqa_prefill", "flash_gqa_decode_quantized"):
         assert engine_launches[k] > 0, f"the quantized engine path never launched {k}"
 
     # Prefill logits of the first request through the kernels (the int4
@@ -1139,8 +1153,6 @@ def quantized_serve(torch, engines, profile=False):
         want[k] = n_layers * sched.decode_chunk * rounds
     want["flash_gqa_prefill"] = n_layers * prefills
     want["int4_matmul"] = 7 * n_layers * (sched.decode_chunk * rounds + prefills)
-    want["int4_matmul_reduce"] = (n_layers * sched.decode_chunk * rounds
-                                  * reduces(sched.num_slots))
     for kind, r in results:
         dec_s = r.latency_s - r.ttft_s
         rate = (r.output_tokens - 1) / dec_s if r.output_tokens > 1 and dec_s > 0 else 0.0
@@ -1158,8 +1170,8 @@ def quantized_serve(torch, engines, profile=False):
           f"{t_end - t_burst:.3f} s = {burst / (t_end - t_burst):.1f} tok/s", flush=True)
     print(f"  scheduler launches {sched_launches} expected {want}", flush=True)
     assert sched_launches == want, f"launch counts {sched_launches} != {want}"
-    for k in ("int4_matmul", "int4_matmul_reduce", "flash_gqa_prefill",
-              "ragged_paged_attention_quantized", "fused_page_write_quantized"):
+    for k in ("int4_matmul", "flash_gqa_prefill", "ragged_paged_attention_quantized",
+              "fused_page_write_quantized"):
         assert sched_launches[k] > 0, f"the quantized scheduler path never launched {k}"
     assert sched.prefix_stats["hits"] > 0, "the schema prefix never hit"
     assert stats["zero_copy_shares"] > 0, "no page was shared"
@@ -1181,7 +1193,7 @@ def quantized_serve(torch, engines, profile=False):
     st = sched.page_stats
     assert st["pages_in_use"] == st["prefix_resident_pages"], f"leaked pages: {st}"
     live_pool_logits(torch, sched)
-    return {"engine": engine_launches, "scheduler": sched_launches}, params4
+    return {"engine": engine_launches, "scheduler": sched_launches}
 
 
 # --------------------------------------------------------------- profile
@@ -1211,7 +1223,7 @@ def profile_device(torch, label, send):
             groups["int4 matmul"] += us
         elif "PagedSrc" in key:
             groups["paged attention"] += us
-        elif "gqa_tile" in key:
+        elif "gqa_tile" in key or "flash_prefill" in key:
             groups["flash attention"] += us
         elif "fused_page_write" in key:
             groups["page write"] += us
@@ -1501,42 +1513,113 @@ def time_paged_quantized(torch, pa_mod, pw_mod, cfg):
     return paged, write
 
 
-def time_int4(torch, mm_mod, params4, cfg):
-    """The int4 matmul at 7B for `wq` and `wd` at decode (R = 8, the
-    scheduler's slots) and at a prefill chunk (R = 1024 = 8 x 128), one call
-    per layer on the layer's own weight: kernel, plain (dequantize + f32
-    product), and the bf16 product against the weight dequantized to bf16
-    in advance (cuBLAS; 4x the weight bytes). Bound: x, the nibbles, the
-    scales and out once each over 3.35 TB/s, or 2 R IN OUT FLOPs over 989
-    TFLOP/s."""
+INT4_TIME_ROWS = (1, 4, 8, 1024)
+
+
+def time_int4(torch, mm_mod, cfg):
+    """The int4 matmul at 7B for `wq` (4096 -> 4096) and `wd` (11008 -> 4096,
+    group 86) at R in INT4_TIME_ROWS: the engine's decode of one request
+    and of its batch of four, the scheduler's decode over 8 slots, a
+    prefill chunk (8 x 128). One call per layer on the layer's own weight
+    (random from a seed, quantized as `quantize_params_int4` does): kernel,
+    plain (dequantize + f32 product), and the bf16 product against the
+    weight dequantized to bf16 in advance (cuBLAS; 4x the weight bytes).
+    Bound: x, the nibbles, the scales and out once each over 3.35 TB/s, or
+    2 R IN OUT FLOPs over 989 TFLOP/s."""
     from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
         dequantize_weight_int4,
+        quantize_weight_int4,
+        tp_safe_group,
     )
 
     dev, dt, n_layers = "cuda", torch.bfloat16, cfg.num_layers
     g = torch.Generator(device=dev).manual_seed(6)
     out = {}
-    for name in ("wq", "wd"):
-        q4, s4 = params4["blocks"][name]["q4"], params4["blocks"][name]["s4"]
-        n_in, n_out = q4.shape[1] * 2, q4.shape[2]
-        wb = [dequantize_weight_int4({"q4": q4[l], "s4": s4[l]}, dt)
-              for l in range(n_layers)]
-        for rows in (8, 1024):
+    for name, n_in, n_out in (("wq", cfg.hidden_size, cfg.num_heads * cfg.head_dim),
+                              ("wd", cfg.intermediate_size, cfg.hidden_size)):
+        group = tp_safe_group(n_in)
+        ws = [quantize_weight_int4(torch.randn((n_in, n_out), generator=g, device=dev)
+                                   * n_in ** -0.5, group) for _ in range(n_layers)]
+        wb = [dequantize_weight_int4(w, dt) for w in ws]
+        for rows in INT4_TIME_ROWS:
             x = torch.randn((rows, n_in), generator=g, device=dev).to(dt)
-            ms = time_ms(torch, lambda l: mm_mod.int4_matmul_cuda(x, q4[l], s4[l]),
+            ms = time_ms(torch, lambda l: mm_mod.int4_matmul_cuda(x, ws[l]["q4"], ws[l]["s4"]),
                          n_layers)
-            plain = time_ms(torch, lambda l: mm_mod.int4_matmul_plain(x, q4[l], s4[l]),
-                            n_layers, reps=3)
+            plain = time_ms(torch, lambda l: mm_mod.int4_matmul_plain(
+                x, ws[l]["q4"], ws[l]["s4"]), n_layers, reps=3)
             lib = time_ms(torch, lambda l: torch.matmul(x, wb[l]), n_layers)
-            nbytes = (x.numel() * 2 + q4[0].numel() + s4[0].numel() * 4
+            # The host's side of a call: the seconds to enqueue one launch per
+            # layer, five times over, without waiting for the card.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                for l in range(n_layers):
+                    mm_mod.int4_matmul_cuda(x, ws[l]["q4"], ws[l]["s4"])
+            host_us = (time.perf_counter() - t0) / (5 * n_layers) * 1e6
+            torch.cuda.synchronize()
+            nbytes = (x.numel() * 2 + ws[0]["q4"].numel() + ws[0]["s4"].numel() * 4
                       + rows * n_out * 2)
             b_ms, b_by = bound(nbytes, 2 * rows * n_in * n_out)
             out[f"{name}_R{rows}"] = dict(
                 ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                shape=dict(R=rows, IN=n_in, OUT=n_out, group=n_in // s4.shape[1],
-                           dtype="bfloat16", bytes_mb=round(nbytes / 1e6, 2)))
-        del wb
+                host_us_per_call=host_us,
+                shape=dict(R=rows, IN=n_in, OUT=n_out, group=group, dtype="bfloat16",
+                           bytes_mb=round(nbytes / 1e6, 2)))
+        del ws, wb
     return out
+
+
+def prompt_shapes(cfg):
+    """The engine's first 7B NL->SQL request as `serve` sends it: prompt
+    tokens, the padded prompt (the engine's bucket of 128) and the cache
+    length after 64 more slots, rounded up to 8."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import bucket_len
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    n = len(ByteTokenizer().encode(f"{SYSTEM_SQL}\n\n{QUESTIONS[0]}"))
+    t = bucket_len(n, min(128, max(1, cfg.max_seq_len // 2)))
+    return {"prompt_len": n, "padded": t, "cache_len": t + 64 + (-(t + 64) % 8)}
+
+
+# The scheduler's prefill chunk at 7B: 8 chunks of the 128-token bucket over
+# row views of 1024 slots, starting where `cases()` starts them.
+SCHED_CHUNK_STARTS = [0, 128, 256, 0, 208, 336, 464, 896]
+
+
+def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
+    """Phase 8 at 7B (`cfg`): every kernel's times, by kernel, and for the
+    flash prefill and the int4 matmul by shape (`by_shape`)."""
+    shp = prompt_shapes(cfg)
+    t, s, n_prompt = shp["padded"], shp["cache_len"], shp["prompt_len"]
+    n, kh, h, n_layers = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    chunk = 128
+    prefill = {
+        "7b_prompt": time_launch(torch, attn_mod, n, kh, h, n_layers, 1, t, s,
+                                 [list(range(t))]),
+        "7b_sched_chunk": time_launch(torch, attn_mod, n, kh, h, n_layers,
+                                      len(SCHED_CHUNK_STARTS), chunk, 1024,
+                                      [list(range(st, st + chunk))
+                                       for st in SCHED_CHUNK_STARTS]),
+    }
+    timed = {
+        "prefill": dict(prefill["7b_prompt"], by_shape=prefill),
+        "decode": time_launch(torch, attn_mod, n, kh, h, n_layers, 1, 1, s,
+                              [[n_prompt + MAX_NEW // 2]]),
+        "decode_q": time_decode_quantized(torch, attn_mod, n, kh, h, n_layers, s,
+                                          n_prompt + MAX_NEW // 2),
+    }
+    timed["paged"], timed["write"] = time_paged(torch, pa_mod, pw_mod, cfg)
+    timed["paged_q"], timed["write_q"] = time_paged_quantized(torch, pa_mod, pw_mod, cfg)
+    int4_times = time_int4(torch, mm_mod, cfg)
+    timed["int4"] = dict(int4_times["wd_R8"], by_shape=int4_times)
+    for launch, tm in timed.items():
+        for label, t_ in (tm.get("by_shape") or {launch: tm}).items():
+            host = (f", host {t_['host_us_per_call']:.1f} us a call"
+                    if "host_us_per_call" in t_ else "")
+            print(f"  {label}: kernel {t_['ms']:.4f} ms, plain {t_['plain_ms']:.4f} ms, "
+                  f"library {t_['library_ms']:.4f} ms, bound {t_['bound_ms']:.5f} ms "
+                  f"({t_['bound_by']}){host} at {t_['shape']}", flush=True)
+    return timed
 
 
 # ------------------------------------------------------------------ main
@@ -1547,6 +1630,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one 7B engine request and a burst of 7B "
                          "scheduler requests with torch.profiler")
+    ap.add_argument("--timing-only", action="store_true",
+                    help="build and run the timing phase alone (no checks; "
+                         "prints the times and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -1581,12 +1667,21 @@ def main() -> int:
     print(f"  built {sorted(reports)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "Used" in line or "spill" in line and " 0 bytes spill" not in line:
-                print(f"  {name}: {line.strip()}")
-
-    phase("kernels vs plain")
+            if "Compiling entry function" in line:  # the mangled kernel name
+                print(f"  {name}: {line.split(chr(39))[1][:120]}")
+            elif "Used" in line or "spill" in line and " 0 bytes spill" not in line:
+                print(f"  {name}:   {line.strip()}")
+    from llm_based_apache_spark_optimization_tpu_torch.models import DUCKDB_NSQL_7B
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int4mm as mm_mod
 
+    if args.timing_only:
+        phase("timing")
+        timed = timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
+        phase(None)
+        print(json.dumps({"timing": timed, "device": smi}))
+        return 0
+
+    phase("kernels vs plain")
     worst = check_kernels(torch, attn_mod)
     worst_paged = check_paged(torch, pa_mod)
     write_err = check_write(torch, pw_mod)
@@ -1600,7 +1695,7 @@ def main() -> int:
     small_reference(torch, quantized=True)
 
     phase("serve (engine path)")
-    launches, shapes, engines, svc = serve(torch)
+    launches, engines, svc = serve(torch)
     if args.profile:
         phase("profile (engine path)")
         profile_device(torch, "one 7B engine request", lambda: svc.generate(
@@ -1611,28 +1706,13 @@ def main() -> int:
     sched_launches = scheduler_serve(torch, engines, args.profile)
 
     phase("serve (quantized path: int4 weights, int8 KV)")
-    q_launches, params4 = quantized_serve(torch, engines, args.profile)
+    q_launches = quantized_serve(torch, engines, args.profile)
 
     phase("timing")
-    cfg7 = engines["duckdb-nsql"].cfg
+    assert engines["duckdb-nsql"].cfg == DUCKDB_NSQL_7B
     del engines
     torch.cuda.empty_cache()
-    t, s, n_prompt = shapes["padded"], shapes["cache_len"], shapes["prompt_len"]
-    timed = {
-        "prefill": time_launch(torch, attn_mod, cfg7.num_heads,
-                               cfg7.num_kv_heads, cfg7.head_dim, cfg7.num_layers,
-                               1, t, s, [list(range(t))]),
-        "decode": time_launch(torch, attn_mod, cfg7.num_heads,
-                              cfg7.num_kv_heads, cfg7.head_dim, cfg7.num_layers,
-                              1, 1, s, [[n_prompt + MAX_NEW // 2]]),
-        "decode_q": time_decode_quantized(torch, attn_mod, cfg7.num_heads,
-                                          cfg7.num_kv_heads, cfg7.head_dim,
-                                          cfg7.num_layers, s, n_prompt + MAX_NEW // 2),
-    }
-    timed["paged"], timed["write"] = time_paged(torch, pa_mod, pw_mod, cfg7)
-    timed["paged_q"], timed["write_q"] = time_paged_quantized(torch, pa_mod, pw_mod, cfg7)
-    int4_times = time_int4(torch, mm_mod, params4, cfg7)
-    timed["int4"] = dict(int4_times["wd_R8"], by_shape=int4_times)
+    timed = timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
     errors = {
         "prefill": {d: worst[("prefill", d)] for d in TOL},
         "decode": {d: worst[("decode", d)] for d in TOL},
@@ -1680,18 +1760,10 @@ def main() -> int:
             "shape": tm["shape"],
         }
         if launch == "int4":
-            # A decode call whose contraction axis is split launches the
-            # reduce kernel after the rows kernel; `launches` counts calls.
-            entry["reduce_launches_by_path"] = {
-                p: c["int4_matmul_reduce"] for p, c in paths.items()
-                if c["int4_matmul_reduce"]}
             entry["max_rel_err_by_dtype"] = {d: int4_err[d][1] for d in TOL}
+        if "by_shape" in tm:
             entry["by_shape"] = tm["by_shape"]
         kernels.append(entry)
-        for label, t_ in (tm.get("by_shape") or {launch: tm}).items():
-            print(f"  {label}: kernel {t_['ms']:.4f} ms, plain {t_['plain_ms']:.4f} ms, "
-                  f"library {t_['library_ms']:.4f} ms, bound {t_['bound_ms']:.5f} ms "
-                  f"({t_['bound_by']}) at {t_['shape']}", flush=True)
     phase(None)
     print(f"  phase seconds: {json.dumps(_PHASE['seconds'])}", flush=True)
 

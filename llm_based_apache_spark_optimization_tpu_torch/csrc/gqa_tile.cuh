@@ -25,7 +25,9 @@
 // TPU kernels' dequantize (`_dequant_streams`, `_dequant_page_streams`).
 //
 // Design (a first, simple kernel: scalar FMA in f32, no tensor cores, no
-// TMA, no wgmma):
+// TMA, no wgmma). It serves decode, both paged kernels and the f32 prefill;
+// the contiguous cache's bf16 prefill runs on `flash_prefill.cuh`, which
+// reuses `load_tile` and `visible`:
 //   * Row fold. The G query heads of one KV head become rows r = g*T + t,
 //     read from q through its strides (no transposed copy). One K/V tile in
 //     shared memory serves all G heads, so K/V are read once per KV head,
@@ -61,6 +63,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace gqa_tile {
 
 constexpr float kNegInf = -1e30f;
@@ -94,28 +98,10 @@ template <> struct Cvt<__nv_bfloat16> {
   }
 };
 
-// 16-byte asynchronous copy to shared memory; copies nothing and writes
-// zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(src_bytes));
-}
-// The 4-byte twin (a slot's scale): cp.async.cg takes 16 bytes only.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
+using hopper::cp_async16;
+using hopper::cp_async4;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
 __device__ __forceinline__ bool visible(int kv, int p, int kvl, int window) {
   return kv <= p && kv < kvl && (window <= 0 || p - kv < window);
@@ -151,8 +137,9 @@ struct Layout {
 };
 
 // Issue the copies of KV tile [s0, s0 + 64) into one stage; slots outside
-// [kv_begin, kv_end) or without a backing row are zero-filled.
-template <typename T, int HD, typename Src>
+// [kv_begin, kv_end) or without a backing row are zero-filled. K rows are
+// kRowK elements apart in shared memory, V rows ROWV.
+template <typename T, int HD, typename Src, int ROWV = HD>
 __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* k, const T* v,
                                           const Src& src, int b, int kh, int s0,
                                           int kv_begin, int kv_end, int tid) {
@@ -166,7 +153,7 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* k, const T* v,
     const bool ok = row >= 0;
     const long long off = ok ? row * HD + h : 0;
     cp_async16(ks + jj * ROWK + h, k + off, ok);
-    cp_async16(vs + jj * HD + h, v + off, ok);
+    cp_async16(vs + jj * ROWV + h, v + off, ok);
   }
 }
 

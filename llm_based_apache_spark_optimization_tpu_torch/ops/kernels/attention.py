@@ -7,7 +7,9 @@ Counterpart of the JAX package's `ops/pallas/attention.py`
 called through ctypes; see their headers for the design. Three launches,
 counted apart:
 
-- "flash_gqa_prefill" (T > 1): one block per (b, kv head, 16-row tile);
+- "flash_gqa_prefill" (T > 1): one block per (b, kv head, tile of rows):
+  in bf16 the tensor-core kernel of `csrc/flash_prefill.cuh`, 64 rows a
+  block; in f32 the scalar tile kernel, 16 rows a block;
 - "flash_gqa_decode" (T == 1): one block per (b, kv head) holding all G rows;
 - "flash_gqa_decode_quantized" (T == 1, int8 cache): the same blocks over
   int8 K/V with one f32 scale per slot, dequantized in the tile.
@@ -27,7 +29,7 @@ from ..common import NEG_INF
 from .launches import count
 
 HEAD_DIMS = (64, 128)
-_PREFILL_ROWS = 16  # rows per block of the prefill launch (csrc BR)
+_PREFILL_ROWS = 16  # rows per block of the scalar kernel's prefill (csrc BR)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _LL, _LL, _LL, _LL, _LL, _LL, _I, ctypes.c_float, _I, _I, _P]

@@ -3,9 +3,12 @@
 Counterpart of the JAX package's `ops/pallas/int4mm.py` (`int4_matmul`):
 `x [R, IN] @ dequant(q4 [IN/2, OUT] uint8, s4 [IN/group, OUT] f32)`, the
 weight dequantized to x's dtype and the products summed in f32, returned
-in x's dtype. The kernel is `csrc/int4_matmul.cu`, built with nvcc at first
-use and called through ctypes; see its header for the design (a rows
-kernel for decode and f32, a tensor-core kernel for bf16 prefill).
+in x's dtype. The kernels are `csrc/int4_matmul.cu`, built with nvcc at
+first use and called through ctypes; see its header for the design. One
+rule, `int4_route`, picks the kernel: bf16 with R <= 8 rows (decode) the
+tensor-core decode kernel, bf16 above 8 rows (prefill) the tensor-core
+prefill kernel, f32 the scalar rows kernel. Every call is one launch: a
+split of the contraction axis is added up inside a thread-block cluster.
 
 A tensor on the CPU goes to `int4_matmul_plain`; a CUDA tensor launches the
 kernel or raises. There is no fallback between the two.
@@ -23,10 +26,12 @@ from ..quant import dequantize_weight_int4
 from .launches import count
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 5 + [_I] * 4 + [_LL] + [_I] * 3 + [_P]
-_ROWS_PER_BLOCK = 8     # the rows kernel's register tile (csrc RB)
-_TILE_COLS = 256        # output columns of one rows-kernel block (csrc kTileCols)
-_MIN_SPLIT_ROWS = 64    # packed rows one split covers at least
+_ARGTYPES = [_P] * 4 + [_I] * 4 + [_LL] + [_I] * 3 + [_P]
+DECODE_MAX_ROWS = 8     # rows of the decode kernel (the mma's n = 8; csrc kMaxRows)
+_ROUTES = {"rows": 0, "decode": 1, "prefill": 2}  # csrc Route
+_TILE_COLS = 128        # output columns of a split kernel's block (csrc kBN)
+_MAX_SPLITS = 8          # blocks of a portable thread-block cluster
+_MIN_SPLIT_ROWS = 64    # packed rows one split covers at least (a decode stage)
 
 
 def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
@@ -37,25 +42,35 @@ def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> to
     return (x.float() @ w.float()).to(x.dtype)
 
 
+def int4_route(rows: int, dtype: torch.dtype) -> str:
+    """The kernel of one call: "decode" for bf16 x of at most 8 rows,
+    "prefill" for bf16 above, "rows" (scalar f32) for f32 x."""
+    if dtype == torch.float32:
+        return "rows"
+    return "decode" if rows <= DECODE_MAX_ROWS else "prefill"
+
+
 @functools.lru_cache(maxsize=None)
 def resident_blocks(device: torch.device) -> int:
-    """Rows-kernel blocks the card holds at once: two per SM (its launch
-    bounds)."""
-    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+    """Decode-kernel blocks the card holds at once: four per SM (256
+    threads of at most 64 registers by its launch bounds, and four stages of
+    about 14 KB of shared memory at groups of 64 and more)."""
+    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def split_plan(rows: int, n_in: int, n_out: int, blocks: int) -> Tuple[int, int]:
-    """(splits, packed rows per split) of the contraction axis for the rows
-    kernel: at decode (R <= 8) enough splits to fill about `blocks` blocks
-    (`resident_blocks`), each covering at least 64 packed rows; none
-    otherwise. With more than one split the kernel's partial sums are added
-    by a second launch, the reduce kernel."""
+    """(splits, packed rows per split) of the contraction axis, the cluster
+    plan of the decode and rows kernels: at R <= 8 enough splits to fill
+    about `blocks` blocks (`resident_blocks`), at most 8 (one cluster), each
+    covering at least 64 packed rows, a multiple of 8; none above 8 rows.
+    The splits' partial sums are added inside the cluster."""
     n_pk = n_in // 2
-    if rows > _ROWS_PER_BLOCK:
+    if rows > DECODE_MAX_ROWS:
         return 1, n_pk
     col_tiles = -(-n_out // _TILE_COLS)
-    splits = max(1, min(-(-blocks // col_tiles), n_pk // _MIN_SPLIT_ROWS))
+    splits = max(1, min(_MAX_SPLITS, -(-blocks // col_tiles), n_pk // _MIN_SPLIT_ROWS))
     per = -(-n_pk // splits)
+    per = -(-per // 8) * 8
     return -(-n_pk // per), per
 
 
@@ -86,22 +101,18 @@ def int4_matmul_cuda(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> tor
     if (x.data_ptr() | q4.data_ptr() | s4.data_ptr()) % 16:
         raise ValueError("x, q4 and s4 must be 16-byte aligned")
     out = torch.empty((rows, n_out), dtype=x.dtype, device=x.device)
+    route = int4_route(rows, x.dtype)
     splits, per = split_plan(rows, n_in, n_out, resident_blocks(x.device))
-    part = (torch.empty((splits, rows, n_out), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
     from ._build import kernel_fn
 
     err = kernel_fn("int4_matmul", _ARGTYPES)(
-        x.data_ptr(), q4.data_ptr(), s4.data_ptr(),
-        None if part is None else part.data_ptr(), out.data_ptr(),
-        rows, n_in, n_out, group, n_in, int(x.dtype == torch.bfloat16), splits, per,
+        x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
+        rows, n_in, n_out, group, n_in, _ROUTES[route], splits, per,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"int4_matmul launch failed: CUDA error {err}")
     count("int4_matmul")
-    if splits > 1:
-        count("int4_matmul_reduce")
     return out
 
 

@@ -22,9 +22,6 @@ LAUNCHES: Dict[str, int] = {
     "ragged_paged_attention_quantized": 0,
     "fused_page_write_quantized": 0,
     "int4_matmul": 0,
-    # The second launch of an int4_matmul call whose contraction axis was
-    # split (decode): it adds the splits' f32 partial sums.
-    "int4_matmul_reduce": 0,
 }
 
 

@@ -199,9 +199,10 @@ def test_int4_matmul_plain_matches_jax(rng, dtype, rows, n_in, n_out, group):
     (1, 4096, 4096, 264), (8, 11008, 4096, 264), (8, 4096, 11008, 264),
     (4, 4096, 1024, 228), (8, 256, 64, 264), (9, 4096, 4096, 264)])
 def test_int4_split_plan_covers_the_contraction_axis(rows, n_in, n_out, blocks):
-    """The rows kernel's split of the packed rows: at decode (R <= 8) every
-    packed row in exactly one split, each split at least 64 rows, and no more
-    blocks than about `blocks`; above 8 rows, no split."""
+    """The cluster plan of the decode and rows kernels: at R <= 8 every
+    packed row in exactly one split, at most 8 splits (one portable
+    cluster), each split at least 64 packed rows and a multiple of 8, and no
+    more blocks of 128 columns than about `blocks`; above 8 rows, no split."""
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.int4mm import split_plan
 
     splits, per = split_plan(rows, n_in, n_out, blocks)
@@ -210,8 +211,28 @@ def test_int4_split_plan_covers_the_contraction_axis(rows, n_in, n_out, blocks):
     if rows > 8:
         assert (splits, per) == (1, n_pk)
     else:
-        assert splits > 1 and per >= 64
-        assert (splits - 1) * -(-n_out // 256) < blocks
+        assert 1 < splits <= 8 and per >= 64 and per % 8 == 0
+        assert (splits - 1) * -(-n_out // 128) < blocks
+
+
+@pytest.mark.parametrize("rows,dtype,route", [
+    (1, torch.bfloat16, "decode"), (4, torch.bfloat16, "decode"),
+    (8, torch.bfloat16, "decode"), (9, torch.bfloat16, "prefill"),
+    (16, torch.bfloat16, "prefill"), (1024, torch.bfloat16, "prefill"),
+    (1, torch.float32, "rows"), (8, torch.float32, "rows"), (131, torch.float32, "rows")])
+def test_int4_route_crosses_over_at_eight_rows(rows, dtype, route):
+    """One rule picks the kernel: bf16 decode up to 8 rows (the mma's n),
+    bf16 prefill above, the scalar rows kernel for f32; only the first and
+    the last split the contraction axis, and only up to 8 rows."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.int4mm import (
+        DECODE_MAX_ROWS,
+        int4_route,
+        split_plan,
+    )
+
+    assert int4_route(rows, dtype) == route
+    splits, _ = split_plan(rows, 4096, 4096, 528)
+    assert (splits > 1) == (rows <= DECODE_MAX_ROWS)
 
 
 def test_mm_routes_tensors_and_q4_trees(rng):
