@@ -39,9 +39,14 @@ Phases, each fatal on failure:
      its last layer with parked rows, and T = 4 with q_lens and sentinel
      rows;
    - the quantized serving path's four kernels: the quantized decode
-     attention at the decode cases above over an int8 cache (NaN in dead
-     scales), the quantized ragged paged attention at the paged cases above
-     over int8 pools, the quantizing page write bit-exact (values and
+     attention (the split-KV kernel of `decode_q8.cuh`) at the decode cases
+     above over an int8 cache (NaN in dead scales) and at the split kernel's
+     edges (G = 1, 3, 4, 16 at H = 128 and 64; live lengths of 1 and 7
+     slots; kv_lens = 0 beside a full row; a window of 3), the quantized
+     ragged paged attention at the paged cases above over int8 pools and at
+     the same edges through tables (T > 1 windows on the tile kernel), each
+     int8 attention case launched twice and compared bit for bit, the
+     quantizing page write bit-exact (values and
      scales) into the 7B int8 pool's shape, and the int4 matmul at every 7B
      and 3B weight shape (wd's group of 86 included) and at OUT = 400 (no
      multiple of a column tile) at R = 1, 4, 8, 9, 16, 131, 384, 1024 and
@@ -99,6 +104,8 @@ Phases, each fatal on failure:
    advance: the bf16 product, moving 4x the weight bytes, since no PyTorch
    call computes the int4 function). The flash prefill at the 7B prompt
    and at the scheduler's prefill chunk (B = 8, T = 128, S = 1024); the
+   quantized decode attention at the engine's B = 1 and its batch of four
+   (S = 512, rows at the prompts' 317-443 tokens); the
    int4 matmul for 7B's `wq` and `wd` at R = 1, 4, 8 (decode) and 1024 (a
    prefill chunk). The bound is the larger of the bytes over 3.35 TB/s
    and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
@@ -138,8 +145,11 @@ SOURCES = {
     "decode": f"{PKG}/csrc/flash_gqa_attention.cu",
     "paged": f"{PKG}/csrc/ragged_paged_attention.cu",
     "write": f"{PKG}/csrc/fused_page_write.cu",
-    "decode_q": f"{PKG}/csrc/flash_gqa_attention_quantized.cu",
-    "paged_q": f"{PKG}/csrc/ragged_paged_attention_quantized.cu",
+    # The int8 decode launches (T == 1) run the split-KV kernel of
+    # decode_q8.cuh, built by flash_gqa_attention_quantized.cu and
+    # ragged_paged_attention_quantized.cu.
+    "decode_q": f"{PKG}/csrc/decode_q8.cuh",
+    "paged_q": f"{PKG}/csrc/decode_q8.cuh",
     "write_q": f"{PKG}/csrc/fused_page_write_quantized.cu",
     "int4": f"{PKG}/csrc/int4_matmul.cu",
 }
@@ -447,14 +457,32 @@ def quantize(torch, x):
     return q["q8"], q["s"]
 
 
+def decode_edge_cases():
+    """(name, kwargs) of decode cases at the split-KV kernel's edges, G = 1,
+    3, 4 and 16 at H = 128 and 64 over S = 1000: live lengths of 1 and 7
+    slots (fewer than the splits), kv_lens = 0 beside a full row, NaN in
+    every dead slot, and with a window of 3 that hides all but each row's
+    last 3 slots (whole splits empty)."""
+    out = []
+    for g, n, kh in ((1, 32, 32), (3, 24, 8), (4, 32, 8), (16, 32, 2)):
+        for h in (128, 64):
+            for window in (None, 3):
+                out.append((f"g{g}_h{h}_w{window or 0}",
+                            dict(b=4, t=1, n=n, kh=kh, h=h, s=1000,
+                                 positions=[[0], [6], [500], [999]],
+                                 kv_lens=[1, 7, 0, 1000], window=window,
+                                 nan_dead=True)))
+    return out
+
+
 def check_kernels_quantized(torch, attn_mod):
     """The quantized decode attention kernel vs plain on the decode cases of
-    `cases()` over an int8 cache (NaN planted in the dead slots' scales);
+    `cases()` and `decode_edge_cases()` over an int8 cache (NaN planted in
+    the dead slots' scales), each launched twice and compared bit for bit;
     returns the worst error per dtype."""
     worst = {d: 0.0 for d in TOL}
-    for launch, name, kw in cases():
-        if launch != "decode":
-            continue
+    todo = [(name, kw) for launch, name, kw in cases() if launch == "decode"]
+    for name, kw in todo + decode_edge_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             c = make_case(torch, dtype, **kw)
@@ -462,28 +490,49 @@ def check_kernels_quantized(torch, attn_mod):
             v8, vs = quantize(torch, c["v"])
             args = (c["q"], k8, ks, v8, vs, c["pos"], c["window"], c["kv_lens"])
             out = attn_mod.flash_gqa_attention_quantized_cuda(*args)
+            again = attn_mod.flash_gqa_attention_quantized_cuda(*args)
             ref = attn_mod.flash_gqa_attention_quantized_plain(*args)
             torch.cuda.synchronize()
             assert out.shape == ref.shape and out.dtype == ref.dtype
             assert torch.isfinite(out).all(), f"decode_q/{name}/{dname}: non-finite"
             err = (out.float() - ref.float()).abs().max().item()
-            ok = err <= TOL[dname]
+            same = torch.equal(out, again)
+            ok = err <= TOL[dname] and same
             print(f"  decode_q {name:15s} {dname:8s} max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
-            assert ok, f"decode_q/{name}/{dname}: {err} > {TOL[dname]}"
+                  f"tol={TOL[dname]:.0e} bit-identical-twice={same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            assert ok, f"decode_q/{name}/{dname}: {err} > {TOL[dname]} or not repeatable"
             if c["kv_lens"] is not None and (c["kv_lens"] == 0).any():
                 assert (out[c["kv_lens"] == 0] == 0).all(), "kv_lens=0 row is not zeros"
             worst[dname] = max(worst[dname], err)
     return worst
 
 
+def paged_edge_cases():
+    """(name, kwargs) of T = 1 paged cases at the split-KV kernel's edges,
+    G = 1, 3, 4 and 16, H = 128 over pages of 64 and H = 64 over pages of 16:
+    rows of 1 and 7 live slots, a parked row (all sentinel, kv_lens = 0)
+    beside a full row, with and without a window of 3."""
+    out = []
+    for g, n, kh in ((1, 32, 32), (3, 24, 8), (4, 32, 8), (16, 32, 2)):
+        for h, ps, np_tab in ((128, 64, 16), (64, 16, 24)):
+            s_virt = ps * np_tab
+            for window in (None, 3):
+                out.append((f"g{g}_h{h}_w{window or 0}",
+                            dict(t=1, n=n, kh=kh, h=h, ps=ps, np_tab=np_tab,
+                                 rows=[(0, 1, 1), (6, 1, 7), (s_virt - 1, 1, 0),
+                                       (s_virt - 1, 1, s_virt)], window=window)))
+    return out
+
+
 def check_paged_quantized(torch, pa_mod):
     """The quantized ragged paged attention kernel vs plain on every paged
-    case, the pools quantized after the NaN was planted (so the dead
-    offsets and unmapped pages carry NaN scales); returns the worst error
-    per dtype."""
+    case and on `paged_edge_cases()`, the pools quantized after the NaN was
+    planted (so the dead offsets and unmapped pages carry NaN scales), each
+    launched twice and compared bit for bit; returns the worst error per
+    dtype."""
     worst = {d: 0.0 for d in TOL}
-    for name, kw in paged_cases():
+    for name, kw in paged_cases() + paged_edge_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             q, kp, vp, tab, pos, window, kvl, qln = paged_case(
@@ -493,15 +542,18 @@ def check_paged_quantized(torch, pa_mod):
             del kp, vp
             args = (q, kp8, kps, vp8, vps, tab, pos, window, kvl, qln)
             out = pa_mod.ragged_paged_attention_quantized_cuda(*args)
+            again = pa_mod.ragged_paged_attention_quantized_cuda(*args)
             ref = pa_mod.ragged_paged_attention_quantized_plain(*args)
             torch.cuda.synchronize()
             assert out.shape == ref.shape and out.dtype == ref.dtype
             assert torch.isfinite(out).all(), f"paged_q/{name}/{dname}: non-finite"
             err = (out.float() - ref.float()).abs().max().item()
-            ok = err <= TOL[dname]
+            same = torch.equal(out, again)
+            ok = err <= TOL[dname] and same
             print(f"  paged_q {name:16s} {dname:8s} max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
-            assert ok, f"paged_q/{name}/{dname}: {err} > {TOL[dname]}"
+                  f"tol={TOL[dname]:.0e} bit-identical-twice={same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            assert ok, f"paged_q/{name}/{dname}: {err} > {TOL[dname]} or not repeatable"
             for i, (_, ql, kvl_i) in enumerate(kw["rows"]):
                 dead = out[i] if kvl_i == 0 else out[i, ql:]
                 assert (dead == 0).all(), f"paged_q/{name}: row {i} not exact zeros"
@@ -1223,7 +1275,7 @@ def profile_device(torch, label, send):
             groups["int4 matmul"] += us
         elif "PagedSrc" in key:
             groups["paged attention"] += us
-        elif "gqa_tile" in key or "flash_prefill" in key:
+        elif any(w in key for w in ("gqa_tile", "flash_prefill", "decode_q8")):
             groups["flash attention"] += us
         elif "fused_page_write" in key:
             groups["page write"] += us
@@ -1401,18 +1453,19 @@ def time_paged(torch, pa_mod, pw_mod, cfg):
     return paged, write
 
 
-def time_decode_quantized(torch, attn_mod, n, kh, h, layers, s, position):
-    """The quantized decode launch at the engine's 7B decode (B = 1): kernel,
-    plain and SDPA over K/V dequantized to bf16 in advance, cycling over an
-    int8 [layers, 1, K, S, H] cache so reads come from device memory."""
+def time_decode_quantized(torch, attn_mod, n, kh, h, layers, s, positions):
+    """The quantized decode launch at the engine's 7B decode, one row per
+    entry of `positions` (B = 1, and the batch of four): kernel, plain and
+    SDPA over K/V dequantized to bf16 in advance, cycling over an int8
+    [layers, B, K, S, H] cache so reads come from device memory."""
     import torch.nn.functional as F
 
-    dev, dt = "cuda", torch.bfloat16
+    dev, dt, b = "cuda", torch.bfloat16, len(positions)
     g = torch.Generator(device=dev).manual_seed(1)
-    q = torch.randn((1, 1, n, h), generator=g, device=dev).to(dt)
-    k8, ks = quantize(torch, torch.randn((layers, 1, kh, s, h), generator=g, device=dev))
-    v8, vs = quantize(torch, torch.randn((layers, 1, kh, s, h), generator=g, device=dev))
-    pos = torch.tensor([[position]], dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, n, h), generator=g, device=dev).to(dt)
+    k8, ks = quantize(torch, torch.randn((layers, b, kh, s, h), generator=g, device=dev))
+    v8, vs = quantize(torch, torch.randn((layers, b, kh, s, h), generator=g, device=dev))
+    pos = torch.tensor([[p] for p in positions], dtype=torch.int32, device=dev)
     kvl = pos[:, 0] + 1
     ms = time_ms(torch, lambda i: attn_mod.flash_gqa_attention_quantized_cuda(
         q, k8[i], ks[i], v8[i], vs[i], pos, None, kvl), layers)
@@ -1427,11 +1480,11 @@ def time_decode_quantized(torch, attn_mod, n, kh, h, layers, s, position):
     qt = q.transpose(1, 2)
     lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         qt, kr[i], vr[i], attn_mask=mask), layers)
-    live = position + 1
+    live = sum(p + 1 for p in positions)
     b_ms, b_by = bound(2 * 2 * q.numel() + live * kh * (2 * h + 8), 4 * h * live * n)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                shape=dict(B=1, T=1, N=n, K=kh, S=s, H=h, kv_len=live, dtype="bfloat16",
-                           cache="int8"))
+                shape=dict(B=b, T=1, N=n, K=kh, S=s, H=h, kv_lens=[p + 1 for p in positions],
+                           dtype="bfloat16", cache="int8"))
 
 
 def time_paged_quantized(torch, pa_mod, pw_mod, cfg):
@@ -1581,6 +1634,15 @@ def prompt_shapes(cfg):
     return {"prompt_len": n, "padded": t, "cache_len": t + 64 + (-(t + 64) % 8)}
 
 
+def batch_prompt_lens():
+    """Prompt tokens of the engine's batch of four (`BATCH` under the SQL
+    system prompt), 317-443 with ByteTokenizer."""
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    return [len(tok.encode(f"{SYSTEM_SQL}\n\n{qn}")) for qn in BATCH]
+
+
 # The scheduler's prefill chunk at 7B: 8 chunks of the 128-token bucket over
 # row views of 1024 slots, starting where `cases()` starts them.
 SCHED_CHUNK_STARTS = [0, 128, 256, 0, 208, 336, 464, 896]
@@ -1605,9 +1667,16 @@ def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
         "prefill": dict(prefill["7b_prompt"], by_shape=prefill),
         "decode": time_launch(torch, attn_mod, n, kh, h, n_layers, 1, 1, s,
                               [[n_prompt + MAX_NEW // 2]]),
-        "decode_q": time_decode_quantized(torch, attn_mod, n, kh, h, n_layers, s,
-                                          n_prompt + MAX_NEW // 2),
     }
+    # The int8 engine decode: one request (cache of `s`) and the batch of
+    # four (a cache of 512, each row at its prompt's length).
+    batch = batch_prompt_lens()
+    decode_q = {
+        "7b_one": time_decode_quantized(torch, attn_mod, n, kh, h, n_layers, s,
+                                        [n_prompt + MAX_NEW // 2]),
+        "7b_batch4": time_decode_quantized(torch, attn_mod, n, kh, h, n_layers, 512, batch),
+    }
+    timed["decode_q"] = dict(decode_q["7b_one"], by_shape=decode_q)
     timed["paged"], timed["write"] = time_paged(torch, pa_mod, pw_mod, cfg)
     timed["paged_q"], timed["write_q"] = time_paged_quantized(torch, pa_mod, pw_mod, cfg)
     int4_times = time_int4(torch, mm_mod, cfg)

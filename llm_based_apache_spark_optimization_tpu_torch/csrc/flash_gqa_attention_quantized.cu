@@ -17,20 +17,20 @@
 // sum_b min(S, kv_lens[b]) * K * (2 * H + 8) (int8 K and V plus two f32
 // scales per slot), over 3.35 TB/s: half the bytes of the bf16 decode.
 //
-// Design: the tile kernel of `gqa_tile.cuh` over an int8 source (the copies
-// bring H bytes and a 4-byte scale per slot into double-buffered staging;
-// one pass per tile dequantizes into the compute-type tile), with slot s of
-// (b, kv head kh) at row (b * K + kh) * S + s of the values and the scales.
-// One block per (b, kv head) holding all G query heads (BR = the next power
-// of two >= G, up to 16), so the cache is read once per KV head.
+// Design: the split-KV kernel of `decode_q8.cuh` over a contiguous source,
+// slot s of (b, kv head kh) at row (b * K + kh) * S + s of the values and
+// the scales. Each (b, kv head) row's live range is split over a cluster of
+// `splits` blocks (the wrapper's `decode_split_plan`), dequantized in
+// registers, and the partial softmaxes merged in the cluster.
 
-#include "gqa_tile.cuh"
+#include "decode_q8.cuh"
 
 namespace {
 
 struct ContigSrc {
   int kv_heads, s_len;
-  __device__ __forceinline__ long long row(int b, int kh, int s) const {
+  __device__ __forceinline__ long long row_at(int b, int kh, int s,
+                                              decode_q8::RowCache&) const {
     return ((long long)b * kv_heads + kh) * s_len + s;
   }
   __device__ __forceinline__ int len() const { return s_len; }
@@ -38,15 +38,17 @@ struct ContigSrc {
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched). Strides are in
-// elements; the head dim of q and out is contiguous. `br` is the row tile.
+// Returns the launch's error or cudaGetLastError() after it (0 = launched).
+// Strides are in elements; the head dim of q and out is contiguous.
+// `splits` (1..8) is the cluster size: the blocks one row's cache is split
+// over.
 extern "C" int flash_gqa_attention_quantized(
     const void* q, const void* k8, const void* ks, const void* v8, const void* vs,
     const void* q_positions, const void* kv_lens, void* out, int b, int n, int kh,
     int s, int h, long long q_sb, long long q_sn, long long o_sb, long long o_sn,
-    int window, float scale, int is_bf16, int br, void* stream) {
-  gqa_tile::Args a{q, k8, v8, ks, vs, q_positions, kv_lens, nullptr, out, b, 1, n, kh,
-                   q_sb, 0, q_sn, o_sb, 0, o_sn, window, scale,
-                   static_cast<cudaStream_t>(stream)};
-  return gqa_tile::launch_any<true>(a, ContigSrc{kh, s}, h, is_bf16, br);
+    int window, float scale, int is_bf16, int splits, void* stream) {
+  decode_q8::Args a{q, k8, v8, ks, vs, q_positions, kv_lens, nullptr, out, b, n, kh,
+                    q_sb, q_sn, o_sb, o_sn, window, scale,
+                    static_cast<cudaStream_t>(stream)};
+  return decode_q8::launch_any(a, ContigSrc{kh, s}, h, is_bf16, splits);
 }

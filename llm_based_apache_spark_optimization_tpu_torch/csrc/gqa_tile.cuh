@@ -1,7 +1,8 @@
 // The flash GQA tile kernel shared by the contiguous-cache and the paged
 // attention kernels, over a compute-type or an int8 cache
-// (flash_gqa_attention.cu, ragged_paged_attention.cu and their _quantized
-// twins), for Hopper (sm_90a).
+// (flash_gqa_attention.cu, ragged_paged_attention.cu, and the query windows,
+// T > 1, of ragged_paged_attention_quantized.cu; the int8 decode launches
+// run the split kernel of decode_q8.cuh), for Hopper (sm_90a).
 //
 // Contract, per batch row b:
 //   q [B, T, N, H] (strided, head dim contiguous), q_positions [B, T] i32,

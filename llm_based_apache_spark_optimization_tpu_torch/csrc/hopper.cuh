@@ -1,7 +1,8 @@
 // Asynchronous copies and tensor-core helpers shared by the port's kernels,
 // for Hopper (sm_90a): 16- and 4-byte `cp.async` with zero-fill,
 // `mma.sync.m16n8k16` bf16 with f32 accumulators, `ldmatrix` (plain and
-// transposed), and `wgmma` with A in registers and B in shared memory.
+// transposed), `wgmma` with A in registers and B in shared memory, and the
+// launch of a thread-block cluster.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * gid + tig, gid = lane / 4,
 // tig = lane % 4; each register holds two bf16, the lower index in the low
@@ -14,6 +15,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -132,6 +134,31 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a,
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// ---- thread-block clusters
+
+// Launch `kernel` over `grid` with clusters of (1, splits, 1) blocks (grid.y
+// a multiple of `splits`, splits <= 8). Returns the launch's error, or
+// cudaGetLastError() after it (0 = launched).
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int smem, int splits,
+                   cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hopper

@@ -505,27 +505,6 @@ int4_rows_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q4,
 
 // ------------------------------------------------------------- launches
 
-// Launch `kernel` over `grid` with clusters of (1, splits, 1) blocks.
-template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int smem, int splits,
-                   cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = splits;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 // Opt a kernel into `bytes` of dynamic shared memory, once.
 int opt_in(const void* kernel, int bytes, bool* done) {
   if (*done) return 0;
@@ -541,8 +520,8 @@ int launch_rows(const float* x, const uint8_t* q4, const float* s4, float* out, 
                 int n_in, int n_out, int group, long long ldx, int splits, int kp_split,
                 cudaStream_t st) {
   const dim3 grid((n_out + kBN - 1) / kBN, splits, (rows + RB - 1) / RB);
-  return launch_cluster(int4_rows_kernel<RB>, grid, kRowsThreads, 0, splits, st, x, q4, s4,
-                        out, rows, n_in, n_out, group, ldx, kp_split);
+  return hopper::launch_cluster(int4_rows_kernel<RB>, grid, kRowsThreads, 0, splits, st, x,
+                                q4, s4, out, rows, n_in, n_out, group, ldx, kp_split);
 }
 
 }  // namespace
@@ -572,10 +551,11 @@ extern "C" int int4_matmul(const void* x, const void* q4, const void* s4, void* 
       int err = opt_in((const void*)int4_decode_kernel, kMaxSmem, &done);
       if (err) return err;
       const dim3 grid((n_out + kBN - 1) / kBN, splits);
-      return launch_cluster(int4_decode_kernel, grid, kDecThreads,
-                            kDecStages * dec_stage_bytes(ns), splits, st,
-                            static_cast<const bf16*>(x), w, s, static_cast<bf16*>(out), rows,
-                            n_in, n_out, group, ldx, kp_split, ns);
+      return hopper::launch_cluster(int4_decode_kernel, grid, kDecThreads,
+                                    kDecStages * dec_stage_bytes(ns), splits, st,
+                                    static_cast<const bf16*>(x), w, s,
+                                    static_cast<bf16*>(out), rows, n_in, n_out, group, ldx,
+                                    kp_split, ns);
     }
     case kRoutePrefill: {
       if (splits != 1) return (int)cudaErrorInvalidValue;

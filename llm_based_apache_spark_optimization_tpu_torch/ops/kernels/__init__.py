@@ -2,6 +2,7 @@
 PyTorch version, and the dispatch between them."""
 
 from .attention import (  # noqa: F401
+    decode_split_plan,
     flash_gqa_attention,
     flash_gqa_attention_plain,
     flash_gqa_attention_quantized,

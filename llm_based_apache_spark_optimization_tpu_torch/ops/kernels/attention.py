@@ -11,8 +11,10 @@ counted apart:
   in bf16 the tensor-core kernel of `csrc/flash_prefill.cuh`, 64 rows a
   block; in f32 the scalar tile kernel, 16 rows a block;
 - "flash_gqa_decode" (T == 1): one block per (b, kv head) holding all G rows;
-- "flash_gqa_decode_quantized" (T == 1, int8 cache): the same blocks over
-  int8 K/V with one f32 scale per slot, dequantized in the tile.
+- "flash_gqa_decode_quantized" (T == 1, int8 cache): the split-KV kernel of
+  `csrc/decode_q8.cuh`: each (b, kv head) row's cache is split over a
+  thread-block cluster of `decode_split_plan` blocks, the int8 K/V
+  dequantized in registers and the partial softmaxes merged in the cluster.
 
 A tensor on the CPU goes to `flash_gqa_attention_plain`; a CUDA tensor
 launches the kernel or raises. There is no fallback between the two.
@@ -30,6 +32,9 @@ from .launches import count
 
 HEAD_DIMS = (64, 128)
 _PREFILL_ROWS = 16  # rows per block of the scalar kernel's prefill (csrc BR)
+_MAX_SPLITS = 8     # blocks of a portable thread-block cluster (csrc kMaxSplits)
+_SPLIT_RUN = 16     # slots: a split covers whole runs of this many (csrc kRun)
+_SPLIT_BLOCKS = 512  # about one wave of the split kernel's blocks on 132 SMs
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _LL, _LL, _LL, _LL, _LL, _LL, _I, ctypes.c_float, _I, _I, _P]
@@ -87,6 +92,27 @@ def decode_rows(g: int) -> int:
     while br < min(g, _PREFILL_ROWS):
         br *= 2
     return br
+
+
+def decode_split_plan(b: int, kh: int, s_virt: int, t: int = 1) -> int:
+    """Cluster size of an int8-cache attention launch: the number of blocks
+    each (b, kv head) row's live range is split over by the split-KV decode
+    kernel (`csrc/decode_q8.cuh`), or 0 for T > 1, which the tile kernel
+    serves. At most 8 (one portable cluster), no more than the 16-slot runs
+    of the longest row the cache can hold (S_virt), and no more than brings
+    the launch to 512 blocks, about one wave on 132 SMs: a block's fixed
+    cost (its loads of the row's lengths, the page table and the first
+    slots one after the other, the merges and two cluster barriers) is
+    paid again in every further wave, and on an H100 the scheduler's
+    8-slot decode ran faster at 2 splits than at 8. At the 7B engine's
+    decode (B = 1, K = 32) 8 splits, 256 blocks on 132 SMs. Pure: the
+    device finds each row's live length itself, so the plan reads no
+    tensor and the launch needs no host sync."""
+    if t != 1:
+        return 0
+    by_len = -(-max(s_virt, 1) // _SPLIT_RUN)
+    by_blocks = -(-_SPLIT_BLOCKS // max(b * kh, 1))
+    return max(1, min(_MAX_SPLITS, by_len, by_blocks))
 
 
 def flash_gqa_attention_cuda(q, k, v, q_positions, sliding_window=None,
@@ -181,8 +207,9 @@ def flash_gqa_attention_quantized_plain(
 
 def flash_gqa_attention_quantized_cuda(q, k8, ks, v8, vs, q_positions,
                                        sliding_window=None, kv_lens=None) -> torch.Tensor:
-    """Launch the quantized CUDA kernel (T == 1); raises on anything it does
-    not take."""
+    """Launch the quantized CUDA kernel (T == 1: the split-KV decode kernel,
+    one launch a call); raises on anything it does not take, and on a
+    refused cluster launch."""
     b, t, n, h = q.shape
     kh, s = k8.shape[1], k8.shape[2]
     for name, x in (("k8", k8), ("ks", ks), ("v8", v8), ("vs", vs),
@@ -221,7 +248,7 @@ def flash_gqa_attention_quantized_cuda(q, k8, ks, v8, vs, q_positions,
         qpos.data_ptr(), lens.data_ptr(), out.data_ptr(), b, n, kh, s, h,
         q.stride(0), q.stride(2), out.stride(0), out.stride(2),
         int(sliding_window or 0), h ** -0.5, int(q.dtype == torch.bfloat16),
-        decode_rows(n // kh), torch.cuda.current_stream(q.device).cuda_stream,
+        decode_split_plan(b, kh, s), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_gqa_attention_quantized launch failed: CUDA error {err}")

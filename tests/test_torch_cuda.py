@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
 flash GQA attention (the scalar tile kernel and the bf16 tensor-core
 prefill), ragged paged attention and the fused page write, their int8-cache
-twins, and the int4 matmul (decode, prefill and f32 rows kernels).
+twins (the split-KV decode kernel at its edges, and bit-identical from
+launch to launch), and the int4 matmul (decode, prefill and f32 rows
+kernels).
 
 Needs a card (marker `cuda`); skips elsewhere. On the card:
 `python -m pytest tests/test_torch_cuda.py -q`. Tolerances as in
@@ -156,6 +158,7 @@ def q8(x):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,kh,h,window", [
     (32, 32, 128, None), (24, 8, 128, None), (32, 8, 64, 40),
+    (32, 8, 128, None), (8, 8, 64, None), (32, 2, 128, None), (32, 2, 64, 8),
 ])
 def test_quantized_flash_kernel_matches_plain(cuda, dtype, n, kh, h, window):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -182,6 +185,8 @@ def test_quantized_flash_kernel_matches_plain(cuda, dtype, n, kh, h, window):
 @pytest.mark.parametrize("t,n,kh,h,ps,window", [
     (1, 32, 32, 128, 64, None), (1, 24, 8, 128, 16, None), (1, 32, 8, 64, 8, None),
     (8, 24, 8, 128, 16, None), (32, 16, 8, 128, 64, None), (4, 32, 8, 128, 16, 40),
+    (1, 32, 8, 128, 16, 5), (1, 16, 16, 64, 16, None), (1, 32, 2, 128, 8, None),
+    (1, 32, 2, 64, 64, 20),
 ])
 def test_quantized_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, window):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -212,6 +217,118 @@ def test_quantized_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, wind
     assert (out[0] == 0).all() and (out[1, int(qln[1]):] == 0).all()
     assert (LAUNCHES["ragged_paged_attention_quantized"]
             == before["ragged_paged_attention_quantized"] + 1)
+
+
+def _decode_edges(cuda, dtype, g, h, s, seed):
+    """q and a quantized contiguous cache for the split kernel's edges: live
+    lengths of 1 and 7 slots (fewer than the splits), kv_lens = 0 beside a
+    full row, NaN in every dead slot's scales."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    b, kh = 4, 2
+    q = torch.randn((b, 1, g * kh, h), generator=gen, device=cuda).to(dtype)
+    k8, ks = q8(torch.randn((b, kh, s, h), generator=gen, device=cuda))
+    v8, vs = q8(torch.randn((b, kh, s, h), generator=gen, device=cuda))
+    pos = torch.tensor([[0], [6], [s // 2], [s - 1]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([1, 7, 0, s], dtype=torch.int32, device=cuda)
+    dead = torch.arange(s, device=cuda)[None, :] >= lens[:, None]
+    ks[dead[:, None].expand_as(ks)] = float("nan")
+    vs[dead[:, None].expand_as(vs)] = float("nan")
+    return q, k8, ks, v8, vs, pos, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 3, 4, 16])
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("window", [None, 3])
+def test_quantized_flash_kernel_edges_match_plain(cuda, dtype, g, h, window):
+    """The split decode kernel at its edges (`_decode_edges`; the window of
+    3 hides all but the last 3 slots of each row), G = 1, 3, 4, 16: within
+    TOL of the plain version, exact zeros for the parked row, bit-identical
+    over two launches, one launch a call."""
+    q, k8, ks, v8, vs, pos, lens = _decode_edges(cuda, dtype, g, h, 520, seed=4)
+    args = (q, k8, ks, v8, vs, pos, window, lens)
+    before = dict(LAUNCHES)
+    out = k.flash_gqa_attention_quantized(*args)
+    again = k.flash_gqa_attention_quantized(*args)
+    ref = k.flash_gqa_attention_quantized_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (out[2] == 0).all()
+    assert torch.equal(out, again)
+    assert LAUNCHES == dict(before, flash_gqa_decode_quantized=before[
+        "flash_gqa_decode_quantized"] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 3, 4, 16])
+@pytest.mark.parametrize("h,ps", [(64, 16), (128, 64)])
+@pytest.mark.parametrize("window", [None, 3])
+def test_quantized_paged_kernel_edges_match_plain(cuda, dtype, g, h, ps, window):
+    """The split decode kernel over the int8 pool at its edges: rows of 1
+    and 7 live slots, a parked row (all sentinel, kv_lens = 0) beside a full
+    row, a window hiding all but the last 3 slots, NaN scales on every page
+    no table maps, G = 1, 3, 4, 16: within TOL, exact zeros for the parked
+    row, bit-identical over two launches, one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, kh, np_tab = 4, 2, 16
+    pages = b * np_tab + 3
+    kp, kps = q8(torch.randn((pages, kh, ps, h), generator=gen, device=cuda))
+    vp, vps = q8(torch.randn((pages, kh, ps, h), generator=gen, device=cuda))
+    s_virt = np_tab * ps
+    kvl = torch.tensor([1, 7, 0, s_virt], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([[0], [6], [s_virt - 1], [s_virt - 1]], dtype=torch.int32,
+                       device=cuda)
+    perm = torch.randperm(pages, generator=gen, device=cuda)
+    tab = torch.full((b, np_tab), pages, dtype=torch.int32, device=cuda)
+    tab[0, 0], tab[1, 0] = perm[0], perm[1]
+    tab[3] = perm[2:2 + np_tab].int()
+    unmapped = torch.ones(pages, dtype=torch.bool, device=cuda)
+    unmapped[tab[tab < pages].long()] = False
+    kps[unmapped] = float("nan")
+    vps[unmapped] = float("nan")
+    q = torch.randn((b, 1, g * kh, h), generator=gen, device=cuda).to(dtype)
+    args = (q, kp, kps, vp, vps, tab, pos, window, kvl, None)
+    before = dict(LAUNCHES)
+    out = pa.ragged_paged_attention_quantized(*args)
+    again = pa.ragged_paged_attention_quantized(*args)
+    ref = pa.ragged_paged_attention_quantized_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert (out[2] == 0).all()
+    assert torch.equal(out, again)
+    assert LAUNCHES == dict(before, ragged_paged_attention_quantized=before[
+        "ragged_paged_attention_quantized"] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_decode_kernels_are_deterministic(cuda, dtype):
+    """Both int8 decode launches at the main paths' shapes (7B: the engine
+    at B = 1, S = 448, position 374; the scheduler's 8 slots over pages of
+    64, live 64-1024) give bit-identical output launch after launch: the
+    split partials merge in fixed orders, never with atomics."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    n = kh = 32
+    h = 128
+    q = torch.randn((1, 1, n, h), generator=gen, device=cuda).to(dtype)
+    k8, ks = q8(torch.randn((1, kh, 448, h), generator=gen, device=cuda))
+    v8, vs = q8(torch.randn((1, kh, 448, h), generator=gen, device=cuda))
+    pos = torch.tensor([[374]], dtype=torch.int32, device=cuda)
+    outs = [k.flash_gqa_attention_quantized(q, k8, ks, v8, vs, pos) for _ in range(3)]
+    lens = [64, 200, 333, 480, 600, 777, 900, 1024]
+    pages = 16 * len(lens)
+    kp, kps = q8(torch.randn((pages, kh, 64, h), generator=gen, device=cuda))
+    vp, vps = q8(torch.randn((pages, kh, 64, h), generator=gen, device=cuda))
+    tab = torch.randperm(pages, generator=gen, device=cuda).reshape(len(lens), 16).int()
+    kvl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    qp = torch.randn((len(lens), 1, n, h), generator=gen, device=cuda).to(dtype)
+    paged = [pa.ragged_paged_attention_quantized(qp, kp, kps, vp, vps, tab,
+                                                 (kvl - 1)[:, None], None, kvl)
+             for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert all(torch.equal(paged[0], o) for o in paged[1:])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

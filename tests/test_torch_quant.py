@@ -235,6 +235,45 @@ def test_int4_route_crosses_over_at_eight_rows(rows, dtype, route):
     assert (splits > 1) == (rows <= DECODE_MAX_ROWS)
 
 
+@pytest.mark.parametrize("b,kh,s_virt,want", [
+    (1, 32, 448, 8),    # 7B engine decode, one request (cache of 448)
+    (4, 32, 512, 4),    # 7B engine decode, the batch of four
+    (8, 32, 1024, 2),   # 7B paged decode: 8 slots, tables of 16 pages of 64
+    (1, 8, 320, 8),     # 3B engine decode
+    (8, 8, 1024, 8),    # 3B paged decode
+    (8, 8, 384, 8),     # 1B (H = 64) paged decode, pages of 16
+    (1, 32, 40, 3),     # S_virt < 16 * 8: no split shorter than 16 slots
+    (3, 8, 100, 7),
+    (2, 2, 1, 1),
+    (16, 32, 1024, 1),  # 512 rows fill a wave unsplit
+    (64, 32, 4096, 1),
+])
+def test_decode_split_plan_fills_the_card_in_whole_runs(b, kh, s_virt, want):
+    """The cluster size of the int8 decode launch: 1..8 (one portable
+    cluster), no split shorter than one 16-slot run of the longest row the
+    cache holds, splits only while the launch stays within 512 blocks; the
+    7B engine's decode (B = 1, K = 32) reaches 132 blocks and more."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import decode_split_plan
+
+    splits = decode_split_plan(b, kh, s_virt)
+    assert splits == want
+    assert 1 <= splits <= 8
+    assert splits == 1 or 16 * (splits - 1) < s_virt
+    assert splits == 1 or b * kh * (splits - 1) < 512
+    if (b, kh) == (1, 32):
+        assert b * kh * splits >= 132 or s_virt < 16 * 8
+
+
+@pytest.mark.parametrize("t,tile", [(1, False), (2, True), (8, True), (32, True)])
+def test_decode_split_plan_routes_windows_to_the_tile_kernel(t, tile):
+    """T == 1 runs the split-KV kernel (splits >= 1); a query window (T > 1)
+    runs the tile kernel (0), at every shape."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import decode_split_plan
+
+    for b, kh, s_virt in ((1, 32, 448), (8, 32, 1024), (4, 8, 320)):
+        assert (decode_split_plan(b, kh, s_virt, t) == 0) == tile
+
+
 def test_mm_routes_tensors_and_q4_trees(rng):
     x = t(rng.normal(size=(2, 3, 64)).astype(np.float32))
     w = t(rng.normal(size=(64, 32)).astype(np.float32))
@@ -256,7 +295,8 @@ def test_quantized_decode_attention_matches_jax(rng):
     k8, ks = q8(rng.normal(size=(b, kh, s, h)).astype(np.float32))
     v8, vs = q8(rng.normal(size=(b, kh, s, h)).astype(np.float32))
     pos = np.asarray([[5], [s - 1], [22]])
-    for window, kvl in ((None, None), (8, None), (None, [6, 0, 23])):
+    for window, kvl in ((None, None), (8, None), (None, [6, 0, 23]), (None, [1, 7, 0]),
+                        (3, None)):
         jargs = (jnp.asarray(q), jnp.asarray(k8), jnp.asarray(ks), jnp.asarray(v8),
                  jnp.asarray(vs), j32(pos), window, j32(kvl))
         want = np.asarray(jax_flash_q(*jargs, interpret=True))
@@ -272,10 +312,79 @@ def test_quantized_decode_attention_matches_jax(rng):
             mine = gqa_attention_quantized(*targs[:5], attention_mask(i32(pos), s, window))
             np.testing.assert_allclose(mine.numpy(), golden, atol=ATOL)
         else:
-            assert np.abs(got[1]).max() == 0.0
+            for bi in np.flatnonzero(np.asarray(kvl) == 0):
+                assert np.abs(got[bi]).max() == 0.0
     with pytest.raises(ValueError, match="T=1"):
         flash_gqa_attention_quantized(t(np.zeros((1, 2, n, h), np.float32)),
                                       *(x[:1] for x in targs[1:5]), i32([[0, 1]]))
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_quantized_decode_attention_edges_match_jax(rng, g):
+    """The split decode kernel's edges at G = 1 and 4: live lengths of 1
+    and 7 slots (fewer than the splits), kv_lens = 0 beside a full row, a
+    window that hides all but the last 4 slots. The port's plain version and
+    wrapper, with NaN in every dead slot's scales, vs JAX's kernel
+    (interpret) on the clean cache."""
+    b, kh, s, h = 4, 2, 48, 16
+    q = rng.normal(size=(b, 1, g * kh, h)).astype(np.float32)
+    k8, ks = q8(rng.normal(size=(b, kh, s, h)).astype(np.float32))
+    v8, vs = q8(rng.normal(size=(b, kh, s, h)).astype(np.float32))
+    pos = np.asarray([[0], [6], [30], [s - 1]])
+    for window, kvl in ((None, [1, 7, 0, s]), (4, None), (None, None)):
+        jargs = (jnp.asarray(q), jnp.asarray(k8), jnp.asarray(ks), jnp.asarray(v8),
+                 jnp.asarray(vs), j32(pos), window, j32(kvl))
+        want = np.asarray(jax_flash_q(*jargs, interpret=True))
+        live = pos[:, 0] + 1 if kvl is None else np.asarray(kvl)
+        dead = np.arange(s)[None, :] >= live[:, None]              # [B, S]
+        ks_nan, vs_nan = ks.copy(), vs.copy()
+        ks_nan[np.broadcast_to(dead[:, None], ks.shape)] = np.nan
+        vs_nan[np.broadcast_to(dead[:, None], vs.shape)] = np.nan
+        targs = (t(q), t(k8), t(ks_nan), t(v8), t(vs_nan), i32(pos), window,
+                 None if kvl is None else i32(kvl))
+        got = flash_gqa_attention_quantized_plain(*targs).numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, atol=ATOL)
+        np.testing.assert_array_equal(flash_gqa_attention_quantized(*targs).numpy(), got)
+        for bi in np.flatnonzero(live == 0):
+            assert np.abs(got[bi]).max() == 0.0
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_quantized_ragged_paged_decode_edges_match_jax(rng, g):
+    """The split decode kernel's edges over the int8 pool at G = 1 and 4:
+    rows of 1 and 7 live slots, a parked row (kv_lens = 0, all sentinel)
+    beside a full row, then a window that hides all but the last 3 slots;
+    NaN scales on every page no table maps. The port's plain version and
+    wrapper vs JAX's kernel (interpret) and reference."""
+    b, kh, h, ps, np_tab, pool_pages = 4, 2, 16, 8, 4, 16
+    kp, kps = q8(rng.normal(size=(pool_pages, kh, ps, h)).astype(np.float32))
+    vp, vps = q8(rng.normal(size=(pool_pages, kh, ps, h)).astype(np.float32))
+    s_virt = np_tab * ps
+    kvl = np.asarray([1, 7, 0, s_virt])
+    pos = np.asarray([[0], [6], [s_virt - 1], [s_virt - 1]])
+    perm = rng.permutation(pool_pages - 2)
+    tab = np.full((b, np_tab), pool_pages)
+    tab[0, 0], tab[1, 0] = perm[0], perm[1]
+    tab[3] = perm[2:2 + np_tab]
+    q = rng.normal(size=(b, 1, kh * g, h)).astype(np.float32)
+    mapped = np.zeros(pool_pages, bool)
+    mapped[tab[tab < pool_pages]] = True
+    kps_nan, vps_nan = kps.copy(), vps.copy()
+    kps_nan[~mapped] = vps_nan[~mapped] = np.nan
+    for window in (None, 3):
+        jargs = (jnp.asarray(q), jnp.asarray(kp), jnp.asarray(kps), jnp.asarray(vp),
+                 jnp.asarray(vps), j32(tab), j32(pos), window, j32(kvl), None)
+        want_k = np.asarray(jax_ragged_q(*jargs, interpret=True))
+        want_r = np.asarray(jax_paged_ref_q(*jargs))
+        targs = (t(q), t(kp), t(kps_nan), t(vp), t(vps_nan), i32(tab), i32(pos),
+                 window, i32(kvl), None)
+        got = ragged_paged_attention_quantized_plain(*targs).numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want_k, atol=ATOL)
+        np.testing.assert_allclose(got, want_r, atol=ATOL)
+        np.testing.assert_array_equal(ragged_paged_attention_quantized(*targs).numpy(), got)
+        assert np.abs(got[2]).max() == 0.0
 
 
 @pytest.mark.parametrize("T", [1, 4])
