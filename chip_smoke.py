@@ -4,11 +4,14 @@
     python3 chip_smoke.py                # the whole run (one card)
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
     python3 chip_smoke.py --timing-only  # phases 1, 2 and 8 alone
+    python3 chip_smoke.py --sweep        # phases 1, 2, then the split sweep
 
 `--timing-only` times the package that sits beside this file, so a copy of
 this file placed in an unpacked archive of another commit times that
 commit's kernels at the same shapes (for comparing two commits in one
-call, in turns).
+call, in turns). `--sweep` times each decode launch (T == 1, bf16 and int8
+caches, contiguous and paged) at every cluster size of SWEEP_SPLITS beside
+the split plan's pick, at phase 8's shapes.
 
 Phases, each fatal on failure:
 
@@ -19,11 +22,15 @@ Phases, each fatal on failure:
    ptxas's register, shared-memory and spill lines.
 3. Kernels against their plain versions, in bf16 and f32:
    - both launches of the flash GQA attention kernel (prefill T > 1, decode
-     T == 1; bf16 prefill runs the tensor-core kernel) at the engine path's
-     shapes (duckdb-nsql-7B: N = K = 32; llama3.2-3B: N = 24, K = 8; both
-     H = 128), llama3.2-1B (H = 64), a Mistral window of 4096 over S =
-     8192, a row with kv_lens = 0, ragged last KV tiles and NaN planted in
-     dead cache slots; prefill chunks of T = 100 and 37 (no multiple of 64)
+     T == 1; bf16 prefill runs the tensor-core kernel, decode the split-KV
+     kernel of `decode_split.cuh`) at the engine path's shapes
+     (duckdb-nsql-7B: N = K = 32; llama3.2-3B: N = 24, K = 8; both H =
+     128), llama3.2-1B (H = 64), a Mistral window of 4096 over S = 8192, a
+     row with kv_lens = 0, ragged last KV tiles and NaN planted in dead
+     cache slots; the decode launch also at the split kernel's edges (G =
+     1, 3, 4, 16 at H = 128 and 64; live lengths of 1 and 7 slots; kv_lens
+     = 0 beside a full row; a window of 3), each decode case launched twice
+     and compared bit for bit; prefill chunks of T = 100 and 37 (no multiple of 64)
      over S = 1024 with ragged starts, windows, kv_lens = 0 and NaN past the
      live length; and the prefill launch at the scheduler's chunked-prefill
      shapes (7B and 3B, groups of 6-8 rows, buckets of 128, 32 and 16 over
@@ -33,13 +40,15 @@ Phases, each fatal on failure:
      B = 8 as the scheduler's slots, through permuted tables with sentinel
      entries, parked rows (all-sentinel, kv_lens = 0) and NaN planted in
      dead offsets and unmapped pages; windows T = 8 and 32 with ragged
-     q_lens, a G*T = 512 window, pages of 16 and 64, a Mistral window;
+     q_lens, a G*T = 512 window, pages of 16 and 64, a Mistral window; and
+     T = 1 (the split-KV kernel) at its edges through tables, each T = 1
+     case launched twice and compared bit for bit;
    - the fused page write, bit-exact: T = 1 at B = 8 into the 7B
      scheduler's pool (32 layers, 128 pages of 64, tables of 16 pages) at
      its last layer with parked rows, and T = 4 with q_lens and sentinel
      rows;
    - the quantized serving path's four kernels: the quantized decode
-     attention (the split-KV kernel of `decode_q8.cuh`) at the decode cases
+     attention (the split-KV kernel over int8) at the decode cases
      above over an int8 cache (NaN in dead scales) and at the split kernel's
      edges (G = 1, 3, 4, 16 at H = 128 and 64; live lengths of 1 and 7
      slots; kv_lens = 0 beside a full row; a window of 3), the quantized
@@ -104,8 +113,9 @@ Phases, each fatal on failure:
    advance: the bf16 product, moving 4x the weight bytes, since no PyTorch
    call computes the int4 function). The flash prefill at the 7B prompt
    and at the scheduler's prefill chunk (B = 8, T = 128, S = 1024); the
-   quantized decode attention at the engine's B = 1 and its batch of four
-   (S = 512, rows at the prompts' 317-443 tokens); the
+   decode attention, over the bf16 and the int8 cache, at the engine's B =
+   1 and its batch of four (S = 512, rows at the prompts' 317-443 tokens);
+   the paged reads at the scheduler's 8 slots (live 64-1024); the
    int4 matmul for 7B's `wq` and `wd` at R = 1, 4, 8 (decode) and 1024 (a
    prefill chunk). The bound is the larger of the bytes over 3.35 TB/s
    and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
@@ -142,14 +152,14 @@ PKG = "llm_based_apache_spark_optimization_tpu_torch"
 REF = "llm_based_apache_spark_optimization_tpu/ops/pallas"
 SOURCES = {
     "prefill": f"{PKG}/csrc/flash_prefill.cuh",  # bf16; built by flash_gqa_attention.cu
-    "decode": f"{PKG}/csrc/flash_gqa_attention.cu",
-    "paged": f"{PKG}/csrc/ragged_paged_attention.cu",
+    # Every decode launch (T == 1) runs the split-KV kernel of
+    # decode_split.cuh, built by the four attention sources; the paged
+    # query windows (T > 1) run gqa_tile.cuh.
+    "decode": f"{PKG}/csrc/decode_split.cuh",
+    "paged": f"{PKG}/csrc/decode_split.cuh",
     "write": f"{PKG}/csrc/fused_page_write.cu",
-    # The int8 decode launches (T == 1) run the split-KV kernel of
-    # decode_q8.cuh, built by flash_gqa_attention_quantized.cu and
-    # ragged_paged_attention_quantized.cu.
-    "decode_q": f"{PKG}/csrc/decode_q8.cuh",
-    "paged_q": f"{PKG}/csrc/decode_q8.cuh",
+    "decode_q": f"{PKG}/csrc/decode_split.cuh",
+    "paged_q": f"{PKG}/csrc/decode_split.cuh",
     "write_q": f"{PKG}/csrc/fused_page_write_quantized.cu",
     "int4": f"{PKG}/csrc/int4_matmul.cu",
 }
@@ -278,24 +288,30 @@ def cases():
 
 
 def check_kernels(torch, attn_mod):
-    """Kernel vs plain on every case and dtype; returns the worst error per
+    """Kernel vs plain on every case of `cases()` and, for the decode
+    launch, of `decode_edge_cases()`, in each dtype; each decode case is
+    launched twice and compared bit for bit. Returns the worst error per
     launch and dtype."""
     worst = {(l, d): 0.0 for l in ("prefill", "decode") for d in TOL}
-    for launch, name, kw in cases():
+    edges = [("decode", name, kw) for name, kw in decode_edge_cases()]
+    for launch, name, kw in cases() + edges:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             c = make_case(torch, dtype, **kw)
             args = (c["q"], c["k"], c["v"], c["pos"], c["window"], c["kv_lens"])
             out = attn_mod.flash_gqa_attention_cuda(*args)
+            same = launch != "decode" or torch.equal(
+                out, attn_mod.flash_gqa_attention_cuda(*args))
             ref = attn_mod.flash_gqa_attention_plain(*args)
             torch.cuda.synchronize()
             assert out.shape == ref.shape and out.dtype == ref.dtype
             assert torch.isfinite(out).all(), f"{launch}/{name}/{dname}: non-finite"
             err = (out.float() - ref.float()).abs().max().item()
-            ok = err <= TOL[dname]
+            ok = err <= TOL[dname] and same
+            twice = " bit-identical-twice=True" if launch == "decode" and same else ""
             print(f"  {launch:7s} {name:16s} {dname:8s} max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
-            assert ok, f"{launch}/{name}/{dname}: {err} > {TOL[dname]}"
+                  f"tol={TOL[dname]:.0e}{twice} {'ok' if ok else 'FAIL'}", flush=True)
+            assert ok, f"{launch}/{name}/{dname}: {err} > {TOL[dname]} or not repeatable"
             if c["kv_lens"] is not None and (c["kv_lens"] == 0).any():
                 zero_rows = out[c["kv_lens"] == 0]
                 assert (zero_rows == 0).all(), "kv_lens=0 row is not exact zeros"
@@ -370,23 +386,28 @@ def paged_cases():
 
 
 def check_paged(torch, pa_mod):
-    """Ragged paged attention kernel vs plain on every case and dtype;
-    returns the worst error per dtype."""
+    """Ragged paged attention kernel vs plain on every case of
+    `paged_cases()` and `paged_edge_cases()` and each dtype; each T = 1
+    case (the split-KV kernel) is launched twice and compared bit for bit.
+    Returns the worst error per dtype."""
     worst = {d: 0.0 for d in TOL}
-    for name, kw in paged_cases():
+    for name, kw in paged_cases() + paged_edge_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             args = paged_case(torch, dtype, b=len(kw["rows"]), **kw)
             out = pa_mod.ragged_paged_attention_cuda(*args)
+            decode = kw["t"] == 1
+            same = not decode or torch.equal(out, pa_mod.ragged_paged_attention_cuda(*args))
             ref = pa_mod.ragged_paged_attention_plain(*args)
             torch.cuda.synchronize()
             assert out.shape == ref.shape and out.dtype == ref.dtype
             assert torch.isfinite(out).all(), f"paged/{name}/{dname}: non-finite"
             err = (out.float() - ref.float()).abs().max().item()
-            ok = err <= TOL[dname]
+            ok = err <= TOL[dname] and same
+            twice = " bit-identical-twice=True" if decode and same else ""
             print(f"  paged   {name:16s} {dname:8s} max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
-            assert ok, f"paged/{name}/{dname}: {err} > {TOL[dname]}"
+                  f"tol={TOL[dname]:.0e}{twice} {'ok' if ok else 'FAIL'}", flush=True)
+            assert ok, f"paged/{name}/{dname}: {err} > {TOL[dname]} or not repeatable"
             for i, (_, ql, kvl) in enumerate(kw["rows"]):
                 dead = out[i] if kvl == 0 else out[i, ql:]
                 assert (dead == 0).all(), f"paged/{name}: row {i} not exact zeros"
@@ -720,7 +741,8 @@ def small_reference(torch, quantized=False):
     for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
         with ContinuousBatchingScheduler(
                 cfg, params, num_slots=4, decode_chunk=4, prompt_bucket=8,
-                stop_ids=(-1,), kv_page_size=16, kv_quant=kv_quant, device=dev) as s:
+                stop_ids=(-1,), kv_layout="paged", kv_page_size=16, kv_quant=kv_quant,
+                device=dev) as s:
             seq = [s.submit(p, 16).result(timeout=600) for p in sched_prompts[:3]]
             futs = [s.submit(p, 16) for p in sched_prompts]
             outs[dev] = seq + [f.result(timeout=600) for f in futs]
@@ -765,7 +787,8 @@ MAX_NEW = 32
 # The scheduler phase: two NL->SQL requests one after the other, then the
 # other six at once (with one 3B error explanation beside them).
 SCHED_SQL = QUESTIONS + BATCH + ["Which payment type has the highest average fare?"]
-SCHED = dict(num_slots=8, max_seq=1024, decode_chunk=8, kv_page_size=64)
+SCHED = dict(num_slots=8, max_seq=1024, decode_chunk=8, kv_layout="paged",
+             kv_page_size=64)
 
 
 def serve(torch):
@@ -1275,7 +1298,7 @@ def profile_device(torch, label, send):
             groups["int4 matmul"] += us
         elif "PagedSrc" in key:
             groups["paged attention"] += us
-        elif any(w in key for w in ("gqa_tile", "flash_prefill", "decode_q8")):
+        elif any(w in key for w in ("gqa_tile", "flash_prefill", "decode_split")):
             groups["flash attention"] += us
         elif "fused_page_write" in key:
             groups["page write"] += us
@@ -1663,14 +1686,20 @@ def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
                                       [list(range(st, st + chunk))
                                        for st in SCHED_CHUNK_STARTS]),
     }
+    # The engine decode: one request (cache of `s`) and the batch of four
+    # (a cache of 512, each row at its prompt's length), over the bf16 and
+    # the int8 cache.
+    batch = batch_prompt_lens()
+    decode = {
+        "7b_one": time_launch(torch, attn_mod, n, kh, h, n_layers, 1, 1, s,
+                              [[n_prompt + MAX_NEW // 2]]),
+        "7b_batch4": time_launch(torch, attn_mod, n, kh, h, n_layers, len(batch), 1, 512,
+                                 [[p] for p in batch]),
+    }
     timed = {
         "prefill": dict(prefill["7b_prompt"], by_shape=prefill),
-        "decode": time_launch(torch, attn_mod, n, kh, h, n_layers, 1, 1, s,
-                              [[n_prompt + MAX_NEW // 2]]),
+        "decode": dict(decode["7b_one"], by_shape=decode),
     }
-    # The int8 engine decode: one request (cache of `s`) and the batch of
-    # four (a cache of 512, each row at its prompt's length).
-    batch = batch_prompt_lens()
     decode_q = {
         "7b_one": time_decode_quantized(torch, attn_mod, n, kh, h, n_layers, s,
                                         [n_prompt + MAX_NEW // 2]),
@@ -1691,6 +1720,57 @@ def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
     return timed
 
 
+SWEEP_SPLITS = (1, 2, 3, 4, 6, 8)
+
+
+def sweep(torch, attn_mod, pa_mod, pw_mod, cfg):
+    """`--sweep`: the kernel time of each decode launch at `timing`'s 7B
+    shapes (the engine's B = 1 and batch of four, the scheduler's 8 slots;
+    bf16 and int8 caches) and at the 3B scheduler's 8 slots (K = 8) with
+    the cluster size forced to each of SWEEP_SPLITS, beside the size
+    `decode_split_plan` picks there. Returns {shape: {"plan": splits, "ms":
+    {splits: ms}}}."""
+    from llm_based_apache_spark_optimization_tpu_torch.models import LLAMA32_3B
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.launches import sm_count
+
+    shp = prompt_shapes(cfg)
+    n, kh, h, n_layers = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    one, batch = [shp["prompt_len"] + MAX_NEW // 2], batch_prompt_lens()
+    shapes = {  # name: (batch, kv heads, virtual length, time the launch)
+        "decode 7b_one": (1, kh, shp["cache_len"], lambda: time_launch(
+            torch, attn_mod, n, kh, h, n_layers, 1, 1, shp["cache_len"], [one])),
+        "decode 7b_batch4": (4, kh, 512, lambda: time_launch(
+            torch, attn_mod, n, kh, h, n_layers, 4, 1, 512, [[p] for p in batch])),
+        "paged 7b_b8": (8, kh, 1024, lambda: time_paged(torch, pa_mod, pw_mod, cfg)[0]),
+        "paged 3b_b8": (8, LLAMA32_3B.num_kv_heads, 1024, lambda: time_paged(
+            torch, pa_mod, pw_mod, LLAMA32_3B)[0]),
+        "decode_q 7b_one": (1, kh, shp["cache_len"], lambda: time_decode_quantized(
+            torch, attn_mod, n, kh, h, n_layers, shp["cache_len"], one)),
+        "decode_q 7b_batch4": (4, kh, 512, lambda: time_decode_quantized(
+            torch, attn_mod, n, kh, h, n_layers, 512, batch)),
+        "paged_q 7b_b8": (8, kh, 1024, lambda: time_paged_quantized(
+            torch, pa_mod, pw_mod, cfg)[0]),
+        "paged_q 3b_b8": (8, LLAMA32_3B.num_kv_heads, 1024, lambda: time_paged_quantized(
+            torch, pa_mod, pw_mod, LLAMA32_3B)[0]),
+    }
+    plan = attn_mod.decode_split_plan
+    out = {}
+    try:
+        for name, (b, kv, s_virt, fn) in shapes.items():
+            row = {"plan": plan(b, kv, s_virt, 1, sm_count(torch.device("cuda"))), "ms": {}}
+            for sp in SWEEP_SPLITS:
+                def forced(b_, kh_, s_, t, sms, sp=sp):
+                    return sp if t == 1 else 0
+                attn_mod.decode_split_plan = pa_mod.decode_split_plan = forced
+                row["ms"][sp] = fn()["ms"]
+            out[name] = row
+            print(f"  sweep {name:18s} plan {row['plan']}: " + ", ".join(
+                f"{sp} splits {ms:.4f} ms" for sp, ms in row["ms"].items()), flush=True)
+    finally:
+        attn_mod.decode_split_plan = pa_mod.decode_split_plan = plan
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1702,6 +1782,9 @@ def main() -> int:
     ap.add_argument("--timing-only", action="store_true",
                     help="build and run the timing phase alone (no checks; "
                          "prints the times and no ok line)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="build and time each decode launch at every cluster size "
+                         "of SWEEP_SPLITS (no checks; prints the times and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -1748,6 +1831,12 @@ def main() -> int:
         timed = timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
         phase(None)
         print(json.dumps({"timing": timed, "device": smi}))
+        return 0
+    if args.sweep:
+        phase("split sweep")
+        swept = sweep(torch, attn_mod, pa_mod, pw_mod, DUCKDB_NSQL_7B)
+        phase(None)
+        print(json.dumps({"sweep": swept, "device": smi}))
         return 0
 
     phase("kernels vs plain")

@@ -1,35 +1,43 @@
-// The split-KV decode attention kernel over an int8 KV cache, shared by the
-// contiguous cache (flash_gqa_attention_quantized.cu) and the paged pool
-// (ragged_paged_attention_quantized.cu), for Hopper (sm_90a).
+// The split-KV decode attention kernel: every T == 1 attention launch of
+// the port, over a contiguous cache (flash_gqa_attention.cu,
+// flash_gqa_attention_quantized.cu) or the paged pool
+// (ragged_paged_attention.cu, ragged_paged_attention_quantized.cu), with the
+// cache stored in the compute type or in int8, for Hopper (sm_90a).
 //
-// Replaces, at T == 1, the TPU kernels `_make_decode_kernel(True)`
+// Replaces, at T == 1, the TPU kernels `_make_decode_kernel(False)` and
+// `_make_decode_kernel(True)`
 // (llm_based_apache_spark_optimization_tpu/ops/pallas/attention.py:184, its
-// pallas_call at :313) and `_make_paged_decode_kernel(True)`
-// (paged_attention.py:71, its pallas_call at :225), with their dequantize
-// (`_dequant_streams`, `_dequant_page_streams`).
+// pallas_call at :313) and `_make_paged_decode_kernel(False)` and
+// `_make_paged_decode_kernel(True)` (paged_attention.py:71, its pallas_call
+// at :225), the int8 ones with their dequantize (`_dequant_streams`,
+// `_dequant_page_streams`).
 //
 // Contract, per batch row b (T == 1):
 //   q [B, 1, N, H] (strided, head dim contiguous), q_positions [B] i32,
 //   kv_lens [B] i32, optional q_lens [B] i32 -> out [B, 1, N, H]. Slot s of
-//   (b, kv head kh) sits at row `Src::row_at(b, kh, s, cache)` of the int8
-//   K and V arrays (H values a row) and of the f32 scales (one a row), or
-//   nowhere (-1: an unmapped page, read as zeros); `Src::len()` is the
-//   virtual length S the kv_lens clip to. The slot stands for
-//   T(float(k8) * ks), rounded once to the compute type, as the TPU
-//   kernels' dequantize does. The query at position p sees slots
+//   (b, kv head kh) sits at row `Src::row_at(b, kh, s, cache)` of the K and
+//   V arrays (H values a row), or nowhere (-1: an unmapped page, never
+//   read); `Src::len()` is the virtual length S the kv_lens clip to
+//   (`kv_source.cuh`). The cache holds the compute type T (KV = T), or int8
+//   (KV = int8_t) with one f32 scale a row for K and for V, the slot then
+//   standing for T(float(k8) * ks), rounded once to the compute type, as
+//   the TPU kernels' dequantize does. The query at position p sees slots
 //   [max(0, p - w + 1) (w > 0 a window), min(kv_lens[b], p + 1)); a row with
 //   q_lens[b] = 0 sees none. Scale H**-0.5, f32 online softmax, the
 //   probabilities rounded to T before the PV product (p.astype(v.dtype)),
 //   exact zeros for a row with no visible key. Slots no row can see are
-//   never read: NaN in a dead scale or an unmapped page cannot leak.
-//   Element types bf16 or f32; head dims 64 and 128; G = N / K up to 16.
+//   never read: NaN in a dead slot, a dead scale or an unmapped page cannot
+//   leak. Element types bf16 or f32; head dims 64 and 128; G = N / K up to
+//   16.
 //
-// What bounds it on an H100 SXM: the live cache bytes,
-// sum_b live_b * K * (2 * H + 8) (int8 K and V plus two f32 scales a
-// slot), plus q and out, over 3.35 TB/s. At the 7B engine's decode that is
-// 3.2 MB (about 1 us); at the scheduler's eight slots 37 MB (11 us).
+// What bounds it on an H100 SXM: the live cache bytes, sum_b live_b * K *
+// 2 * H * sizeof(KV) (plus 8 bytes of scales a slot over int8), plus q and
+// out, over 3.35 TB/s. At the 7B engine's decode (one row at 375 slots)
+// that is 6.1 MB in bf16 (1.8 us) and 3.2 MB in int8 (1 us); at the
+// scheduler's eight slots (64-1024 live) 72 MB in bf16 (21 us) and 37 MB in
+// int8 (11 us).
 //
-// Design. The tile kernel (`gqa_tile.cuh`) that served these launches
+// Design. The tile kernel (`gqa_tile.cuh`) that first served these launches
 // carried the online softmax down each row's cache inside one block, as the
 // TPU kernel carries it down its sequential grid axis. It lost time three
 // ways, and the design answers each:
@@ -44,23 +52,24 @@
 //     ceil(live / splits) slots rounded up to 16. Each block pays a fixed
 //     chain (the row's lengths, the page table, the first slots, two
 //     cluster barriers), so the wrapper's rule (`decode_split_plan`) keeps
-//     the launch near one wave: 8 splits at the 7B engine's B = 1, 2 at
-//     the scheduler's 8 slots.
+//     the launch within the blocks the card holds at once.
 //   * Four to five block-wide barriers and a shared-memory round trip of
-//     the dequantized tile per 64 slots, three of four warps idle in the
-//     softmax at G = 1. Here there is no barrier in the slot loop. Each warp
-//     owns a contiguous run of its block's slots, a lane group per slot (8
-//     lanes at H = 128, 4 at H = 64; 16 columns a lane, one 16-byte load of
-//     K and of V), with the loads of two steps in flight in registers. A
-//     lane dequantizes its 16 values in registers (off the quarter-rate
-//     conversion pipe, `dequant16`), dots them against its columns of the
-//     query rows, adds the group's partial dots with shuffles, and keeps its
-//     own online softmax (m, l, and the p.v accumulators of its columns) in
-//     registers, rescaling them only when its running max moves.
-//   * A page-table lookup per 16-byte copy (8 per slot at H = 128). Here a
-//     lane remembers the page of its last slot (`RowCache`): the table is
-//     read once per page a lane group enters, the eight lanes of a group
-//     reading the same word.
+//     each 64-slot tile, three of four warps idle in the softmax at G = 1.
+//     Here there is no barrier in the slot loop. Each warp owns a contiguous
+//     run of its block's slots, a lane group per slot, each lane holding
+//     `Slot<KV>::kCols` columns of K and of V: 16 int8 columns in one 16-byte
+//     load (8 lanes a slot at H = 128, 4 at H = 64), 16 bf16 columns in two,
+//     8 f32 columns in two (16 lanes at H = 128, 8 at H = 64), the loads of
+//     two steps in flight in registers. A lane widens its values to f32 in
+//     registers (int8 off the quarter-rate conversion pipe, `dequant16`;
+//     bf16 by a shift or a mask, as a bf16 is the top half of its f32), dots
+//     them against its columns of the query rows, adds the group's partial
+//     dots with shuffles, and keeps its own online softmax (m, l, and the
+//     p.v accumulators of its columns) in registers, rescaling them only
+//     when its running max moves.
+//   * A page-table lookup per 16-byte copy. Here a lane remembers the page of
+//     its last slot (`RowCache`): the table is read once per page a lane
+//     group enters, the lanes of a group reading the same word.
 // The partial softmaxes merge in three fixed orders, so one input gives
 // bit-identical output from launch to launch: the lane groups of a warp
 // through xor shuffles, the warps of a block through shared memory in warp
@@ -71,14 +80,36 @@
 // of 0, and a row that sees nothing comes out as 0 / 1 = exact zeros.
 //
 // The query rows. A block holds R = min(4, next power of two >= G) of the
-// G query heads of its KV head in registers (16 columns a row a lane, beside
-// 16 accumulators a row); G > 4 runs ceil(G / R) row chunks as blocks of
-// their own, which read the same K/V again, mostly from L2. Of the options
-// for G > 4 (q in shared memory, mma.sync m16n8k16 on dequantized
+// G query heads of its KV head in registers (kCols columns a row a lane,
+// beside kCols accumulators a row); G > 4 runs ceil(G / R) row chunks as
+// blocks of their own, which read the same K/V again, mostly from L2. Of the
+// options for G > 4 (q in shared memory, mma.sync m16n8k16 on widened
 // fragments) this is the one that keeps the G <= 4 path of every model the
 // repo serves (7B G = 1, 3B G = 3, 1B G = 4) free of shared-memory reads in
 // the loop, at the price of the K/V reads' repeats at G = 8 and 16, which
 // no served configuration has.
+//
+// Registers a thread (ptxas -v for sm_90a, CUDA 12.8; `chip_smoke.py`'s
+// build phase prints them) of the 48 instantiations; none spills.
+//   cache (compute type)  source  H    R = 1  R = 2  R = 4
+//   bf16 (bf16)           contig  128  120    148    220
+//                                 64   120    147    229
+//                         paged   128  118    154    225
+//                                 64   118    154    227
+//   f32 (f32)             contig  128  104    120    139
+//                                 64   104    120    141
+//                         paged   128   96    120    153
+//                                 64    96    120    152
+//   int8 (bf16)           contig  128  120    128    210
+//                                 64   120    128    209
+//                         paged   128   96    128    213
+//                                 64    96    128    215
+//   int8 (f32)            contig  128  124    128    210
+//                                 64   122    128    209
+//                         paged   128   96    128    212
+//                                 64    96    128    215
+// At R = 1 (7B, G = 1) four blocks of 128 threads fit an SM's registers,
+// at R = 2 three, at R = 4 (3B, 1B) two.
 
 #pragma once
 
@@ -87,16 +118,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include <type_traits>
 
-namespace decode_q8 {
+#include "hopper.cuh"
+#include "kv_source.cuh"
+
+namespace decode_split {
 
 namespace cg = cooperative_groups;
+using kv_source::RowCache;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRun = 16;       // a split's share is a multiple of this many slots
-constexpr int kCols = 16;      // head-dim columns a lane: one 16-byte int8 load
 constexpr int kMaxSplits = 8;  // blocks of a portable cluster
 constexpr int kDepth = 2;      // warp steps whose loads are in flight at once
 constexpr float kNegInf = -1e30f;
@@ -122,35 +156,44 @@ template <> struct Cvt<__nv_bfloat16> {
   static __device__ __forceinline__ __nv_bfloat16 out(float x) { return __float2bfloat16(x); }
 };
 
-// The row of the page a lane read last: key = the slot's page index (or any
-// value a contiguous source ignores), base = its first row, -1 if unmapped.
-struct RowCache {
-  int key;
-  long long base;
-};
-
-// One lane's share of one slot: 16 int8 values of K and of V, and the
-// slot's two scales; zeros (and so zero values, never NaN) when not read.
-struct Raw {
-  uint4 k, v;
+// One lane's share of one slot: kCols values of K and of V in kVecs 16-byte
+// words each (at most 32 bytes: int8 16 columns in one word, bf16 16 in
+// two, f32 8 in two), and over int8 the slot's two scales; zeros (and so
+// zero values, never NaN) when not read.
+template <typename KV>
+struct Slot {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr int kCols = sizeof(KV) == 4 ? 8 : 16;
+  static constexpr int kVecs = kCols * (int)sizeof(KV) / 16;
+  uint4 k[kVecs], v[kVecs];
   float ks, vs;
 };
 
-template <int HD, typename Src>
-__device__ __forceinline__ Raw load_slot(const int8_t* __restrict__ k,
-                                         const int8_t* __restrict__ v,
-                                         const float* __restrict__ kscale,
-                                         const float* __restrict__ vscale, const Src& src,
-                                         int b, int kh, int s, bool live, int col0,
-                                         RowCache& rc) {
-  Raw r{make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0), 0.f, 0.f};
+template <int HD, typename KV, typename Src>
+__device__ __forceinline__ Slot<KV> load_slot(const KV* __restrict__ k,
+                                              const KV* __restrict__ v,
+                                              const float* __restrict__ kscale,
+                                              const float* __restrict__ vscale,
+                                              const Src& src, int b, int kh, int s,
+                                              bool live, int col0, RowCache& rc) {
+  Slot<KV> r;
+#pragma unroll
+  for (int i = 0; i < Slot<KV>::kVecs; ++i) r.k[i] = r.v[i] = make_uint4(0, 0, 0, 0);
+  r.ks = r.vs = 0.f;
   if (live) {
     const long long row = src.row_at(b, kh, s, rc);
     if (row >= 0) {
-      r.k = __ldg(reinterpret_cast<const uint4*>(k + row * HD + col0));
-      r.v = __ldg(reinterpret_cast<const uint4*>(v + row * HD + col0));
-      r.ks = __ldg(kscale + row);
-      r.vs = __ldg(vscale + row);
+      const uint4* kp = reinterpret_cast<const uint4*>(k + row * HD + col0);
+      const uint4* vp = reinterpret_cast<const uint4*>(v + row * HD + col0);
+#pragma unroll
+      for (int i = 0; i < Slot<KV>::kVecs; ++i) {
+        r.k[i] = __ldg(kp + i);
+        r.v[i] = __ldg(vp + i);
+      }
+      if constexpr (Slot<KV>::kQuant) {
+        r.ks = __ldg(kscale + row);
+        r.vs = __ldg(vscale + row);
+      }
     }
   }
   return r;
@@ -174,19 +217,46 @@ __device__ __forceinline__ void dequant16(const uint4& raw, float sc, float* x) 
     }
   }
 #pragma unroll
-  for (int i = 0; i < kCols; i += 2) Cvt<T>::round2(x[i], x[i + 1]);
+  for (int i = 0; i < 16; i += 2) Cvt<T>::round2(x[i], x[i + 1]);
 }
 
-template <typename T, int HD, int R, typename Src>
+// A lane's kCols values of K or V as f32: int8 dequantized (`dequant16`);
+// bf16 widened exactly, a shift for the low half of a word and a mask for
+// the high half (a bf16 is the top half of its f32); f32 as it is.
+template <typename T, typename KV>
+__device__ __forceinline__ void widen(const uint4* w, float sc, float* x) {
+  if constexpr (Slot<KV>::kQuant) {
+    dequant16<T>(w[0], sc, x);
+  } else {
+#pragma unroll
+    for (int i = 0; i < Slot<KV>::kVecs; ++i) {
+      const uint32_t u[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (sizeof(KV) == 2) {
+          x[8 * i + 2 * j] = __uint_as_float(u[j] << 16);
+          x[8 * i + 2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+        } else {
+          x[4 * i + j] = __uint_as_float(u[j]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, typename KV, int HD, int R, typename Src>
 __global__ void __launch_bounds__(kThreads)
-decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
-                 const int8_t* __restrict__ v, const float* __restrict__ kscale,
-                 const float* __restrict__ vscale, const Src src,
-                 const int* __restrict__ qpos, const int* __restrict__ kv_lens,
-                 const int* __restrict__ q_lens, T* __restrict__ out, int n_heads,
-                 int kv_heads, long long q_sb, long long q_sn, long long o_sb,
-                 long long o_sn, int window, float scale) {
-  constexpr int LPS = HD / kCols;        // lanes a slot: 8 at H = 128, 4 at H = 64
+decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, const float* __restrict__ kscale,
+                    const float* __restrict__ vscale, const Src src,
+                    const int* __restrict__ qpos, const int* __restrict__ kv_lens,
+                    const int* __restrict__ q_lens, T* __restrict__ out, int n_heads,
+                    int kv_heads, long long q_sb, long long q_sn, long long o_sb,
+                    long long o_sn, int window, float scale) {
+  static_assert(Slot<KV>::kQuant || std::is_same<KV, T>::value,
+                "the cache is int8 or the compute type");
+  constexpr int kCols = Slot<KV>::kCols;
+  constexpr int LPS = HD / kCols;        // lanes a slot
   constexpr int SPW = 32 / LPS;          // slots a warp step
   constexpr unsigned kFull = 0xffffffffu;
   __shared__ float part_acc[kWarps][R][HD];
@@ -222,7 +292,7 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   const int whi = lo + min(blen, (warp + 1) * wper);
   const int steps = (whi - wlo + SPW - 1) / SPW;
 
-  // This lane's 16 columns of the block's R query rows (pad rows are 0).
+  // This lane's columns of the block's R query rows (pad rows are 0).
   float qr[R][kCols];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -242,7 +312,7 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   }
 
   RowCache rc{-1, -1};
-  Raw buf[kDepth];
+  Slot<KV> buf[kDepth];
 #pragma unroll
   for (int d = 0; d < kDepth; ++d) {
     const int s = wlo + d * SPW + grp;
@@ -255,7 +325,7 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
       if (i < steps) {  // warp-uniform: the shuffles below see every lane
         const bool valid = wlo + i * SPW + grp < whi;
         float x[kCols];
-        dequant16<T>(buf[d].k, buf[d].ks, x);
+        widen<T, KV>(buf[d].k, buf[d].ks, x);
         float sc[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
@@ -266,7 +336,7 @@ decode_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
           for (int o = LPS / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
           sc[r] = dot * scale;
         }
-        dequant16<T>(buf[d].v, buf[d].vs, x);
+        widen<T, KV>(buf[d].v, buf[d].vs, x);
         // Refill this buffer with the slot kDepth steps on.
         const int sn = wlo + (i + kDepth) * SPW + grp;
         buf[d] = load_slot<HD>(k, v, kscale, vscale, src, b, kh, sn, sn < whi, col0, rc);
@@ -392,41 +462,45 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int R, typename Src>
+template <typename T, typename KV, int HD, int R, typename Src>
 int launch(const Args& a, const Src& src, int splits) {
   const int chunks = (a.n / a.kh + R - 1) / R;
   const dim3 grid(a.b * a.kh * chunks, splits);
   return hopper::launch_cluster(
-      decode_q8_kernel<T, HD, R, Src>, grid, kThreads, 0, splits, a.stream,
-      static_cast<const T*>(a.q), static_cast<const int8_t*>(a.k),
-      static_cast<const int8_t*>(a.v), static_cast<const float*>(a.k_scale),
+      decode_split_kernel<T, KV, HD, R, Src>, grid, kThreads, 0, splits, a.stream,
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), src, static_cast<const int*>(a.qpos),
       static_cast<const int*>(a.kv_lens), static_cast<const int*>(a.q_lens),
       static_cast<T*>(a.out), a.n, a.kh, a.q_sb, a.q_sn, a.o_sb, a.o_sn, a.window, a.scale);
 }
 
-template <typename T, int HD, typename Src>
+template <typename T, typename KV, int HD, typename Src>
 int launch_rows(const Args& a, const Src& src, int splits) {
   const int g = a.n / a.kh;
-  if (g <= 1) return launch<T, HD, 1>(a, src, splits);
-  if (g == 2) return launch<T, HD, 2>(a, src, splits);
-  return launch<T, HD, 4>(a, src, splits);
+  if (g <= 1) return launch<T, KV, HD, 1>(a, src, splits);
+  if (g == 2) return launch<T, KV, HD, 2>(a, src, splits);
+  return launch<T, KV, HD, 4>(a, src, splits);
 }
 
-// Dispatch on element type and head dim. `splits` (1..8) is the cluster's
-// size. Returns the launch's error or cudaGetLastError() after it (0 =
-// launched).
-template <typename Src>
+// Dispatch on element type and head dim; `Quant` reads an int8 cache with
+// per-slot scales (a.k_scale, a.v_scale), else a cache of the compute type.
+// `splits` (1..8) is the cluster's size. Returns the launch's error or
+// cudaGetLastError() after it (0 = launched).
+template <bool Quant, typename Src>
 int launch_any(const Args& a, const Src& src, int h, int is_bf16, int splits) {
   using B = __nv_bfloat16;
+  using KB = typename std::conditional<Quant, int8_t, B>::type;
+  using KF = typename std::conditional<Quant, int8_t, float>::type;
   if ((h != 64 && h != 128) || splits < 1 || splits > kMaxSplits || a.kh < 1 ||
       a.n % a.kh)
     return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    return h == 64 ? launch_rows<B, 64>(a, src, splits) : launch_rows<B, 128>(a, src, splits);
+    return h == 64 ? launch_rows<B, KB, 64>(a, src, splits)
+                   : launch_rows<B, KB, 128>(a, src, splits);
   }
-  return h == 64 ? launch_rows<float, 64>(a, src, splits)
-                 : launch_rows<float, 128>(a, src, splits);
+  return h == 64 ? launch_rows<float, KF, 64>(a, src, splits)
+                 : launch_rows<float, KF, 128>(a, src, splits);
 }
 
-}  // namespace decode_q8
+}  // namespace decode_split

@@ -17,26 +17,15 @@
 // sum_b min(S, kv_lens[b]) * K * (2 * H + 8) (int8 K and V plus two f32
 // scales per slot), over 3.35 TB/s: half the bytes of the bf16 decode.
 //
-// Design: the split-KV kernel of `decode_q8.cuh` over a contiguous source,
-// slot s of (b, kv head kh) at row (b * K + kh) * S + s of the values and
-// the scales. Each (b, kv head) row's live range is split over a cluster of
-// `splits` blocks (the wrapper's `decode_split_plan`), dequantized in
-// registers, and the partial softmaxes merged in the cluster.
+// Design: the split-KV kernel of `decode_split.cuh` over the contiguous
+// source (`kv_source::ContigSrc`), slot s of (b, kv head kh) at row
+// (b * K + kh) * S + s of the values and the scales. Each (b, kv head)
+// row's live range is split over a cluster of `splits` blocks (the
+// wrapper's `decode_split_plan`), dequantized in registers, and the partial
+// softmaxes merged in the cluster.
 
-#include "decode_q8.cuh"
-
-namespace {
-
-struct ContigSrc {
-  int kv_heads, s_len;
-  __device__ __forceinline__ long long row_at(int b, int kh, int s,
-                                              decode_q8::RowCache&) const {
-    return ((long long)b * kv_heads + kh) * s_len + s;
-  }
-  __device__ __forceinline__ int len() const { return s_len; }
-};
-
-}  // namespace
+#include "decode_split.cuh"
+#include "kv_source.cuh"
 
 // Returns the launch's error or cudaGetLastError() after it (0 = launched).
 // Strides are in elements; the head dim of q and out is contiguous.
@@ -47,8 +36,8 @@ extern "C" int flash_gqa_attention_quantized(
     const void* q_positions, const void* kv_lens, void* out, int b, int n, int kh,
     int s, int h, long long q_sb, long long q_sn, long long o_sb, long long o_sn,
     int window, float scale, int is_bf16, int splits, void* stream) {
-  decode_q8::Args a{q, k8, v8, ks, vs, q_positions, kv_lens, nullptr, out, b, n, kh,
-                    q_sb, q_sn, o_sb, o_sn, window, scale,
-                    static_cast<cudaStream_t>(stream)};
-  return decode_q8::launch_any(a, ContigSrc{kh, s}, h, is_bf16, splits);
+  decode_split::Args a{q, k8, v8, ks, vs, q_positions, kv_lens, nullptr, out, b, n, kh,
+                       q_sb, q_sn, o_sb, o_sn, window, scale,
+                       static_cast<cudaStream_t>(stream)};
+  return decode_split::launch_any<true>(a, kv_source::ContigSrc{kh, s}, h, is_bf16, splits);
 }

@@ -1,8 +1,10 @@
 // The flash GQA tile kernel shared by the contiguous-cache and the paged
-// attention kernels, over a compute-type or an int8 cache
-// (flash_gqa_attention.cu, ragged_paged_attention.cu, and the query windows,
-// T > 1, of ragged_paged_attention_quantized.cu; the int8 decode launches
-// run the split kernel of decode_q8.cuh), for Hopper (sm_90a).
+// attention kernels, over a compute-type or an int8 cache, for Hopper
+// (sm_90a): the f32 prefill of flash_gqa_attention.cu and the query windows
+// (T > 1) of ragged_paged_attention.cu and
+// ragged_paged_attention_quantized.cu. Every decode launch (T == 1) runs the
+// split kernel of decode_split.cuh; the bf16 prefill runs flash_prefill.cuh,
+// which reuses `load_tile` and `visible`.
 //
 // Contract, per batch row b:
 //   q [B, T, N, H] (strided, head dim contiguous), q_positions [B, T] i32,
@@ -26,14 +28,12 @@
 // TPU kernels' dequantize (`_dequant_streams`, `_dequant_page_streams`).
 //
 // Design (a first, simple kernel: scalar FMA in f32, no tensor cores, no
-// TMA, no wgmma). It serves decode, both paged kernels and the f32 prefill;
-// the contiguous cache's bf16 prefill runs on `flash_prefill.cuh`, which
-// reuses `load_tile` and `visible`:
+// TMA, no wgmma):
 //   * Row fold. The G query heads of one KV head become rows r = g*T + t,
 //     read from q through its strides (no transposed copy). One K/V tile in
 //     shared memory serves all G heads, so K/V are read once per KV head,
 //     never once per query head.
-//   * Grid. One block per (b, kv head, tile of BR rows).
+//   * Grid. One block per (b, kv head, tile of kRows = 16 rows).
 //   * KV loop. A block walks KV tiles of 64 slots from the first slot its
 //     rows' window can see (0 without a window) to min(kv_lens[b],
 //     max position in the tile + 1): slots no row can see are never read,
@@ -72,6 +72,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kBlockKV = 64;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 16;  // folded query rows a block (BR)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -112,7 +113,7 @@ __device__ __forceinline__ bool visible(int kv, int p, int kvl, int window) {
 //   Ks [S][64][HD + 16/sizeof(T)] T   (row padded by 16 bytes)
 //   Vs [S][64][HD] T                  (S = 2 stages; 1 over an int8 cache)
 //   int8 cache only: K8, V8 [2][64][HD] int8, KSc, VSc [2][64] f32 staging
-//   Qs [BR][HD + 4] f32
+//   Qs [BR][HD + 4] f32                (BR = kRows)
 //   Ps [BR][64] f32, then M, L, alpha [BR] f32 and Pos [BR] i32.
 template <typename T, typename KV, int HD>
 struct Layout {
@@ -131,10 +132,8 @@ struct Layout {
   static constexpr size_t ks_off = v8_off + 2 * kStage8;
   static constexpr size_t vs_off = ks_off + 2 * kStageS;
   static constexpr size_t q_off = vs_off + 2 * kStageS;
-  template <int BR>
-  static constexpr size_t bytes() {
-    return q_off + sizeof(float) * (BR * kRowQ + BR * kBlockKV + 4 * BR);
-  }
+  static constexpr size_t kBytes =
+      q_off + sizeof(float) * (kRows * kRowQ + kRows * kBlockKV + 4 * kRows);
 };
 
 // Issue the copies of KV tile [s0, s0 + 64) into one stage; slots outside
@@ -227,7 +226,7 @@ __device__ __forceinline__ void issue_tile(T* Ks, T* Vs, int8_t* K8, int8_t* V8,
   }
 }
 
-template <typename T, typename KV, int HD, int BR, typename Src>
+template <typename T, typename KV, int HD, typename Src>
 __global__ void __launch_bounds__(kThreads)
 gqa_tile_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                 const KV* __restrict__ v, const float* __restrict__ kscale,
@@ -239,6 +238,7 @@ gqa_tile_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                 long long o_sb, long long o_st, long long o_sn,
                 int window, float scale) {
   using L = Layout<T, KV, HD>;
+  constexpr int BR = kRows;
   constexpr int ROWK = L::kRowK;
   constexpr int ROWQ = L::kRowQ;
   constexpr int RG = kThreads / kBlockKV;        // row groups in the score phase
@@ -453,10 +453,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, typename KV, int HD, int BR, typename Src>
+template <typename T, typename KV, int HD, typename Src>
 int launch(const Args& a, const Src& src) {
-  constexpr size_t smem = Layout<T, KV, HD>::template bytes<BR>();
-  auto kernel = gqa_tile_kernel<T, KV, HD, BR, Src>;
+  constexpr size_t smem = Layout<T, KV, HD>::kBytes;
+  auto kernel = gqa_tile_kernel<T, KV, HD, Src>;
   // Above 48 KB a block's dynamic shared memory must be opted into, once.
   static bool opted_in = false;
   if (!opted_in) {
@@ -466,7 +466,7 @@ int launch(const Args& a, const Src& src) {
     opted_in = true;
   }
   const int rows = (a.n / a.kh) * a.t;
-  dim3 grid(a.b * a.kh, (rows + BR - 1) / BR);
+  dim3 grid(a.b * a.kh, (rows + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), static_cast<const float*>(a.k_scale),
@@ -477,32 +477,19 @@ int launch(const Args& a, const Src& src) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename KV, int HD, typename Src>
-int launch_br(const Args& a, const Src& src, int br) {
-  switch (br) {
-    case 1: return launch<T, KV, HD, 1>(a, src);
-    case 2: return launch<T, KV, HD, 2>(a, src);
-    case 4: return launch<T, KV, HD, 4>(a, src);
-    case 8: return launch<T, KV, HD, 8>(a, src);
-    case 16: return launch<T, KV, HD, 16>(a, src);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Dispatch on element type, head dim and row tile; `Quant` reads an int8
-// cache with per-slot scales (a.k_scale, a.v_scale). Returns
-// cudaGetLastError() after the launch (0 = launched).
+// Dispatch on element type and head dim; `Quant` reads an int8 cache with
+// per-slot scales (a.k_scale, a.v_scale). Returns cudaGetLastError() after
+// the launch (0 = launched).
 template <bool Quant, typename Src>
-int launch_any(const Args& a, const Src& src, int h, int is_bf16, int br) {
+int launch_any(const Args& a, const Src& src, int h, int is_bf16) {
   using B = __nv_bfloat16;
   using KB = typename std::conditional<Quant, int8_t, B>::type;
   using KF = typename std::conditional<Quant, int8_t, float>::type;
   if (h != 64 && h != 128) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    return h == 64 ? launch_br<B, KB, 64>(a, src, br) : launch_br<B, KB, 128>(a, src, br);
+    return h == 64 ? launch<B, KB, 64>(a, src) : launch<B, KB, 128>(a, src);
   }
-  return h == 64 ? launch_br<float, KF, 64>(a, src, br)
-                 : launch_br<float, KF, 128>(a, src, br);
+  return h == 64 ? launch<float, KF, 64>(a, src) : launch<float, KF, 128>(a, src);
 }
 
 }  // namespace gqa_tile

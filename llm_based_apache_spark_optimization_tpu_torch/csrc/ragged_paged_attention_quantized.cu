@@ -20,73 +20,44 @@
 // sum_b min(kv_lens[b], max position + 1) * K * (2 * H + 8), plus q and out,
 // over 3.35 TB/s: about half the bf16 pool's bytes.
 //
-// Design. Decode (T == 1, `splits` >= 1): the split-KV kernel of
-// `decode_q8.cuh`: each (row b, KV head) row's live range is split over a
-// cluster of `splits` blocks (the wrapper's `decode_split_plan`), the int8
-// values dequantized in registers, the partial softmaxes merged in the
-// cluster; a lane reads the table once per page it enters. Query windows
-// (T > 1, `splits` = 0): the tile kernel of `gqa_tile.cuh` over an int8
-// source, one block per (row b, KV head, tile of `br` = 16 folded rows r =
-// g * T + t); each slot's H int8 values come in 16-byte cp.async copies and
-// its scale in a 4-byte one, into double-buffered staging, and one pass per
-// tile dequantizes into the compute-type tile. Both find key slot s of (b,
-// kv head kh) through the table at row (page * K + kh) * PS + s % PS of the
-// values and of the scales (a page's PS scales are contiguous per (page,
-// head)). Slots before the window, past the live length, or behind a
-// sentinel entry read as zeros (values and scale) and are never loaded, so
-// NaN in a dead scale never reaches a sum.
+// Design: ragged_paged_attention.cu's two kernels over the int8 source.
+// Decode (T == 1, `splits` >= 1): the split-KV kernel of `decode_split.cuh`,
+// the int8 values dequantized in registers. Query windows (T > 1, `splits`
+// = 0): the tile kernel of `gqa_tile.cuh`, 16 folded rows a block; each
+// slot's H int8 values come in 16-byte cp.async copies and its scale in a
+// 4-byte one, into double-buffered staging, and one pass per tile
+// dequantizes into the compute-type tile. Both find key slot s of (b, kv
+// head kh) through the table (`kv_source::PagedSrc`) at row
+// (page * K + kh) * PS + s % PS of the values and of the scales. Slots
+// before the window, past the live length, or behind a sentinel entry read
+// as zeros (values and scale) and are never loaded, so NaN in a dead scale
+// never reaches a sum.
 
-#include "decode_q8.cuh"
+#include "decode_split.cuh"
 #include "gqa_tile.cuh"
-
-namespace {
-
-struct PagedSrc {
-  const int* table;  // [B, NP]
-  int num_pages, kv_heads, page_size, np_tab;
-  __device__ __forceinline__ long long row(int b, int kh, int s) const {
-    const int page = table[(long long)b * np_tab + s / page_size];
-    if (page < 0 || page >= num_pages) return -1;
-    return ((long long)page * kv_heads + kh) * page_size + s % page_size;
-  }
-  // row() once per page a lane enters: the page's base row is cached.
-  __device__ __forceinline__ long long row_at(int b, int kh, int s,
-                                              decode_q8::RowCache& c) const {
-    const int pi = s / page_size;
-    if (pi != c.key) {
-      c.key = pi;
-      const int page = table[(long long)b * np_tab + pi];
-      c.base = (page < 0 || page >= num_pages)
-                   ? -1
-                   : ((long long)page * kv_heads + kh) * page_size;
-    }
-    return c.base < 0 ? -1 : c.base + (s - pi * page_size);
-  }
-  __device__ __forceinline__ int len() const { return np_tab * page_size; }
-};
-
-}  // namespace
+#include "kv_source.cuh"
 
 // Returns the launch's error or cudaGetLastError() after it (0 = launched).
-// Strides are in elements; the head dim of q and out is contiguous. With
-// `splits` >= 1 (T == 1 only) the split kernel runs over clusters of
-// `splits` blocks; with 0 the tile kernel, `br` rows a block.
+// Strides are in elements; the head dim of q and out is contiguous.
+// `splits` (1..8, T == 1 only) is the decode kernel's cluster size; 0 for a
+// query window (T > 1), which the tile kernel serves.
 extern "C" int ragged_paged_attention_quantized(
     const void* q, const void* k_pool, const void* k_scale, const void* v_pool,
     const void* v_scale, const void* table, const void* q_positions,
     const void* kv_lens, const void* q_lens, void* out, int b, int t, int n, int kh,
     int num_pages, int page_size, int np_tab, int h, long long q_sb, long long q_st,
     long long q_sn, long long o_sb, long long o_st, long long o_sn, int window,
-    float scale, int is_bf16, int br, int splits, void* stream) {
-  const PagedSrc src{static_cast<const int*>(table), num_pages, kh, page_size, np_tab};
+    float scale, int is_bf16, int splits, void* stream) {
+  const kv_source::PagedSrc src{static_cast<const int*>(table), num_pages, kh, page_size,
+                                np_tab};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((splits > 0) != (t == 1)) return (int)cudaErrorInvalidValue;
   if (splits > 0) {
-    if (t != 1) return (int)cudaErrorInvalidValue;
-    decode_q8::Args a{q, k_pool, v_pool, k_scale, v_scale, q_positions, kv_lens, q_lens,
-                      out, b, n, kh, q_sb, q_sn, o_sb, o_sn, window, scale, st};
-    return decode_q8::launch_any(a, src, h, is_bf16, splits);
+    decode_split::Args a{q, k_pool, v_pool, k_scale, v_scale, q_positions, kv_lens,
+                         q_lens, out, b, n, kh, q_sb, q_sn, o_sb, o_sn, window, scale, st};
+    return decode_split::launch_any<true>(a, src, h, is_bf16, splits);
   }
   gqa_tile::Args a{q, k_pool, v_pool, k_scale, v_scale, q_positions, kv_lens, q_lens,
                    out, b, t, n, kh, q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale, st};
-  return gqa_tile::launch_any<true>(a, src, h, is_bf16, br);
+  return gqa_tile::launch_any<true>(a, src, h, is_bf16);
 }

@@ -10,11 +10,11 @@ counted apart:
 - "flash_gqa_prefill" (T > 1): one block per (b, kv head, tile of rows):
   in bf16 the tensor-core kernel of `csrc/flash_prefill.cuh`, 64 rows a
   block; in f32 the scalar tile kernel, 16 rows a block;
-- "flash_gqa_decode" (T == 1): one block per (b, kv head) holding all G rows;
-- "flash_gqa_decode_quantized" (T == 1, int8 cache): the split-KV kernel of
-  `csrc/decode_q8.cuh`: each (b, kv head) row's cache is split over a
-  thread-block cluster of `decode_split_plan` blocks, the int8 K/V
-  dequantized in registers and the partial softmaxes merged in the cluster.
+- "flash_gqa_decode" (T == 1) and "flash_gqa_decode_quantized" (T == 1,
+  int8 cache): the split-KV kernel of `csrc/decode_split.cuh`: each (b, kv
+  head) row's cache is split over a thread-block cluster of
+  `decode_split_plan` blocks, K/V read (and int8 dequantized) in registers
+  and the partial softmaxes merged in the cluster.
 
 A tensor on the CPU goes to `flash_gqa_attention_plain`; a CUDA tensor
 launches the kernel or raises. There is no fallback between the two.
@@ -28,13 +28,12 @@ from typing import Optional
 import torch
 
 from ..common import NEG_INF
-from .launches import count
+from .launches import count, sm_count
 
 HEAD_DIMS = (64, 128)
-_PREFILL_ROWS = 16  # rows per block of the scalar kernel's prefill (csrc BR)
 _MAX_SPLITS = 8     # blocks of a portable thread-block cluster (csrc kMaxSplits)
 _SPLIT_RUN = 16     # slots: a split covers whole runs of this many (csrc kRun)
-_SPLIT_BLOCKS = 512  # about one wave of the split kernel's blocks on 132 SMs
+_SPLIT_WAVE_PER_SM = 3  # split-kernel blocks an SM takes in one wave of clusters
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _LL, _LL, _LL, _LL, _LL, _LL, _I, ctypes.c_float, _I, _I, _P]
@@ -85,39 +84,37 @@ def flash_gqa_attention_plain(
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, n, h).to(q.dtype)
 
 
-def decode_rows(g: int) -> int:
-    """Row tile of the decode launch: the next power of two >= G, at most 16
-    (so one block holds every query head of its KV head up to G = 16)."""
-    br = 1
-    while br < min(g, _PREFILL_ROWS):
-        br *= 2
-    return br
-
-
-def decode_split_plan(b: int, kh: int, s_virt: int, t: int = 1) -> int:
-    """Cluster size of an int8-cache attention launch: the number of blocks
-    each (b, kv head) row's live range is split over by the split-KV decode
-    kernel (`csrc/decode_q8.cuh`), or 0 for T > 1, which the tile kernel
-    serves. At most 8 (one portable cluster), no more than the 16-slot runs
-    of the longest row the cache can hold (S_virt), and no more than brings
-    the launch to 512 blocks, about one wave on 132 SMs: a block's fixed
-    cost (its loads of the row's lengths, the page table and the first
-    slots one after the other, the merges and two cluster barriers) is
-    paid again in every further wave, and on an H100 the scheduler's
-    8-slot decode ran faster at 2 splits than at 8. At the 7B engine's
-    decode (B = 1, K = 32) 8 splits, 256 blocks on 132 SMs. Pure: the
-    device finds each row's live length itself, so the plan reads no
-    tensor and the launch needs no host sync."""
+def decode_split_plan(b: int, kh: int, s_virt: int, t: int, sms: int) -> int:
+    """Cluster size of an attention launch: the number of blocks each (b, kv
+    head) row's live range is split over by the split-KV decode kernel
+    (`csrc/decode_split.cuh`), or 0 for T > 1, which the tile kernels
+    serve. At most 8 (one portable cluster), no more than the 16-slot runs
+    of the longest row the cache can hold (S_virt), and the whole number
+    of splits that brings the launch nearest to one wave of three blocks
+    on each of the card's `sms` SMs. A block's fixed cost (its loads of the
+    row's lengths, the page table and the first slots one after the other,
+    the merges and two cluster barriers) is paid again in every further
+    wave: on an H100 the 7B engine's batch of four ran a fifth slower at 4
+    splits (512 blocks) than at 3 (384), over the bf16 and the int8 cache
+    alike, while the scheduler's ragged 8 slots ran fastest at 2 (512
+    blocks, most of them short) and one row at 6 to 8 (`chip_smoke.py
+    --sweep`). At the 7B engine's decode (B = 1, K = 32) 8 splits, 256
+    blocks on 132 SMs. Pure: the device finds each row's live length
+    itself, so the plan reads no tensor and the launch needs no host
+    sync."""
     if t != 1:
         return 0
+    rows = max(b * kh, 1)
     by_len = -(-max(s_virt, 1) // _SPLIT_RUN)
-    by_blocks = -(-_SPLIT_BLOCKS // max(b * kh, 1))
+    by_blocks = (2 * _SPLIT_WAVE_PER_SM * sms + rows) // (2 * rows)  # nearest
     return max(1, min(_MAX_SPLITS, by_len, by_blocks))
 
 
 def flash_gqa_attention_cuda(q, k, v, q_positions, sliding_window=None,
                              kv_lens=None) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on anything it does not take."""
+    """Launch the CUDA kernel (T == 1: the split-KV decode kernel; T > 1:
+    the prefill kernels), one launch a call; raises on anything it does not
+    take, and on a refused cluster launch."""
     b, t, n, h = q.shape
     kh, s = k.shape[1], k.shape[2]
     for name, x in (("k", k), ("v", v), ("q_positions", q_positions)):
@@ -144,8 +141,6 @@ def flash_gqa_attention_cuda(q, k, v, q_positions, sliding_window=None,
     qpos = q_positions.to(torch.int32).contiguous()
     lens = _default_kv_lens(qpos, kv_lens, s).to(q.device).contiguous()
     out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)
-    decode = t == 1
-    br = decode_rows(n // kh) if decode else _PREFILL_ROWS
     from ._build import kernel_fn
 
     err = kernel_fn("flash_gqa_attention", _ARGTYPES)(
@@ -153,11 +148,12 @@ def flash_gqa_attention_cuda(q, k, v, q_positions, sliding_window=None,
         lens.data_ptr(), out.data_ptr(), b, t, n, kh, s, h,
         *q.stride()[:3], *out.stride()[:3],
         int(sliding_window or 0), h ** -0.5, int(q.dtype == torch.bfloat16),
-        br, torch.cuda.current_stream(q.device).cuda_stream,
+        decode_split_plan(b, kh, s, t, sm_count(q.device)),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_gqa_attention launch failed: CUDA error {err}")
-    count("flash_gqa_decode" if decode else "flash_gqa_prefill")
+    count("flash_gqa_decode" if t == 1 else "flash_gqa_prefill")
     return out
 
 
@@ -248,7 +244,8 @@ def flash_gqa_attention_quantized_cuda(q, k8, ks, v8, vs, q_positions,
         qpos.data_ptr(), lens.data_ptr(), out.data_ptr(), b, n, kh, s, h,
         q.stride(0), q.stride(2), out.stride(0), out.stride(2),
         int(sliding_window or 0), h ** -0.5, int(q.dtype == torch.bfloat16),
-        decode_split_plan(b, kh, s), torch.cuda.current_stream(q.device).cuda_stream,
+        decode_split_plan(b, kh, s, t, sm_count(q.device)),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_gqa_attention_quantized launch failed: CUDA error {err}")

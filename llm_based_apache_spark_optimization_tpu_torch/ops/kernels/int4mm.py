@@ -17,13 +17,12 @@ kernel or raises. There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
 from ..quant import dequantize_weight_int4
-from .launches import count
+from .launches import count, sm_count
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 4 + [_I] * 4 + [_LL] + [_I] * 3 + [_P]
@@ -50,12 +49,11 @@ def int4_route(rows: int, dtype: torch.dtype) -> str:
     return "decode" if rows <= DECODE_MAX_ROWS else "prefill"
 
 
-@functools.lru_cache(maxsize=None)
 def resident_blocks(device: torch.device) -> int:
     """Decode-kernel blocks the card holds at once: four per SM (256
     threads of at most 64 registers by its launch bounds, and four stages of
     about 14 KB of shared memory at groups of 64 and more)."""
-    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    return 4 * sm_count(device)
 
 
 def split_plan(rows: int, n_in: int, n_out: int, blocks: int) -> Tuple[int, int]:

@@ -1,4 +1,5 @@
-"""Launch counts of the hand-written kernels.
+"""Launch counts of the hand-written kernels, and the card's SM count that
+sizes their split launches.
 
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else, so a run can show that its main path went through the
@@ -8,8 +9,11 @@ threads at once."""
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Dict
+
+import torch
 
 _lock = threading.Lock()
 
@@ -35,3 +39,11 @@ def reset_launches() -> None:
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card `device` (132 on an H100 SXM),
+    read once: the split plans size their launches by it without a host
+    sync."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

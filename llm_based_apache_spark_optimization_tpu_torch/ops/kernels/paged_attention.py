@@ -12,9 +12,10 @@ parks a row (zeros). The int8 pool holds int8 values and one f32 scale per
 (page, kv head, position), `[P, K, PS]`. The kernels are
 `csrc/ragged_paged_attention.cu` and `csrc/ragged_paged_attention_quantized.cu`,
 built with nvcc at first use and called through ctypes; see their headers
-for the design. The int8 pool's decode (T == 1) runs the split-KV kernel of
-`csrc/decode_q8.cuh` over a thread-block cluster of `decode_split_plan`
-blocks a row; its query windows (T > 1) the tile kernel.
+for the design. Decode (T == 1), over either pool, runs the split-KV kernel
+of `csrc/decode_split.cuh` over a thread-block cluster of
+`decode_split_plan` blocks a row; query windows (T > 1) the tile kernel of
+`csrc/gqa_tile.cuh`, 16 folded rows a block.
 
 A tensor on the CPU goes to the `_plain` version; a CUDA tensor launches the
 kernel or raises. There is no fallback between the two.
@@ -30,22 +31,20 @@ import torch
 from .attention import (
     HEAD_DIMS,
     _default_kv_lens,
-    decode_rows,
     decode_split_plan,
     dequantize_kv,
     flash_gqa_attention_plain,
 )
-from .launches import count
+from .launches import count, sm_count
 
 #: Folded query rows (T * G) one launch serves: the TPU kernel keeps the
 #: whole folded query block resident, and the port keeps its bound.
 MAX_QROWS = 512
-_WINDOW_ROWS = 16  # rows per block for T > 1 (csrc BR)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 8 + [_I] * 8 + [_LL] * 6
              + [_I, ctypes.c_float, _I, _I, _P])
 _Q_ARGTYPES = ([_P] * 10 + [_I] * 8 + [_LL] * 6
-               + [_I, ctypes.c_float, _I, _I, _I, _P])
+               + [_I, ctypes.c_float, _I, _I, _P])
 
 
 def validate_window(q: torch.Tensor, kv_heads: int) -> None:
@@ -128,7 +127,9 @@ def _attend_rows(q, k_rows, v_rows, q_positions, sliding_window, kv_lens, q_lens
 def ragged_paged_attention_cuda(q, k_pool, v_pool, page_table, q_positions,
                                 sliding_window=None, kv_lens=None,
                                 q_lens=None) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on anything it does not take."""
+    """Launch the CUDA kernel (T == 1: the split-KV decode kernel; T > 1:
+    the tile kernel), one launch a call; raises on anything it does not
+    take, and on a refused cluster launch."""
     b, t, n, h = q.shape
     num_pages, kh, ps = k_pool.shape[:3]
     np_tab = page_table.shape[1]
@@ -165,7 +166,6 @@ def ragged_paged_attention_cuda(q, k_pool, v_pool, page_table, q_positions,
     kvl, ql = _lens(qpos, kv_lens, q_lens, np_tab * ps, t)
     kvl, ql = kvl.to(q.device).contiguous(), ql.to(q.device).contiguous()
     out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)
-    br = decode_rows(n // kh) if t == 1 else _WINDOW_ROWS
     from ._build import kernel_fn
 
     err = kernel_fn("ragged_paged_attention", _ARGTYPES)(
@@ -174,7 +174,8 @@ def ragged_paged_attention_cuda(q, k_pool, v_pool, page_table, q_positions,
         b, t, n, kh, num_pages, ps, np_tab, h,
         *q.stride()[:3], *out.stride()[:3],
         int(sliding_window or 0), h ** -0.5, int(q.dtype == torch.bfloat16),
-        br, torch.cuda.current_stream(q.device).cuda_stream,
+        decode_split_plan(b, kh, np_tab * ps, t, sm_count(q.device)),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA error {err}")
@@ -235,7 +236,9 @@ def ragged_paged_attention_quantized_plain(
 def ragged_paged_attention_quantized_cuda(q, k_pool, k_scale, v_pool, v_scale,
                                           page_table, q_positions, sliding_window=None,
                                           kv_lens=None, q_lens=None) -> torch.Tensor:
-    """Launch the quantized CUDA kernel; raises on anything it does not take."""
+    """Launch the quantized CUDA kernel (T == 1: the split-KV decode kernel;
+    T > 1: the tile kernel), one launch a call; raises on anything it does
+    not take, and on a refused cluster launch."""
     b, t, n, h = q.shape
     num_pages, kh, ps = k_pool.shape[:3]
     np_tab = page_table.shape[1]
@@ -276,9 +279,6 @@ def ragged_paged_attention_quantized_cuda(q, k_pool, k_scale, v_pool, v_scale,
     kvl, ql = _lens(qpos, kv_lens, q_lens, np_tab * ps, t)
     kvl, ql = kvl.to(q.device).contiguous(), ql.to(q.device).contiguous()
     out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device)
-    # T == 1: the split-KV decode kernel over `splits` blocks a row; T > 1:
-    # the tile kernel, 16 folded rows a block.
-    splits = decode_split_plan(b, kh, np_tab * ps, t)
     from ._build import kernel_fn
 
     err = kernel_fn("ragged_paged_attention_quantized", _Q_ARGTYPES)(
@@ -287,7 +287,8 @@ def ragged_paged_attention_quantized_cuda(q, k_pool, k_scale, v_pool, v_scale,
         ql.data_ptr(), out.data_ptr(), b, t, n, kh, num_pages, ps, np_tab, h,
         *q.stride()[:3], *out.stride()[:3],
         int(sliding_window or 0), h ** -0.5, int(q.dtype == torch.bfloat16),
-        _WINDOW_ROWS, splits, torch.cuda.current_stream(q.device).cuda_stream,
+        decode_split_plan(b, kh, np_tab * ps, t, sm_count(q.device)),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(

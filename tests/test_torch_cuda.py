@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
-flash GQA attention (the scalar tile kernel and the bf16 tensor-core
-prefill), ragged paged attention and the fused page write, their int8-cache
-twins (the split-KV decode kernel at its edges, and bit-identical from
-launch to launch), and the int4 matmul (decode, prefill and f32 rows
-kernels).
+flash GQA attention (the split-KV decode kernel, the scalar tile kernel and
+the bf16 tensor-core prefill), ragged paged attention (the split-KV decode
+kernel and the tile kernel's query windows) and the fused page write, their
+int8-cache twins (the split-KV decode kernel at its edges, and every decode
+launch bit-identical from launch to launch), and the int4 matmul (decode,
+prefill and f32 rows kernels).
 
 Needs a card (marker `cuda`); skips elsewhere. On the card:
 `python -m pytest tests/test_torch_cuda.py -q`. Tolerances as in
@@ -39,24 +40,39 @@ def cuda():
 @pytest.mark.parametrize("t,n,kh,h,window", [
     (1, 32, 32, 128, None), (1, 24, 8, 128, None), (1, 32, 8, 64, 40),
     (37, 32, 32, 128, None), (37, 24, 8, 128, 16), (20, 32, 8, 64, None),
+    # The split decode kernel's edges: G = 1, 3, 4, 16 at H = 64 and 128,
+    # windows of 3 that hide all but each row's last 3 slots.
+    (1, 32, 32, 64, 3), (1, 24, 8, 64, None), (1, 32, 8, 128, 3),
+    (1, 32, 2, 128, None), (1, 32, 2, 64, 3), (1, 24, 8, 128, 3),
 ])
 def test_kernel_matches_plain(cuda, dtype, t, n, kh, h, window):
+    """Rows of 1 and 6 + T live slots (fewer than the splits at T = 1),
+    kv_lens = 0 beside a full row, NaN in every slot past a row's live
+    length: within TOL of the plain version, exact zeros for the parked
+    row, one launch a call; a decode launch (the split kernel) is
+    bit-identical over two launches."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    b, s = 3, 136
+    b, s = 4, 136
     q = torch.randn((b, t, n, h), generator=g, device=cuda).to(dtype)
     kk = torch.randn((b, kh, s, h), generator=g, device=cuda).to(dtype)
     v = torch.randn((b, kh, s, h), generator=g, device=cuda).to(dtype)
-    pos = (torch.tensor([[0], [50], [s - t]], device=cuda)
+    pos = (torch.tensor([[0], [6], [50], [s - t]], device=cuda)
            + torch.arange(t, device=cuda)).int()
-    lens = torch.tensor([0, 50 + t, s], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([1, 6 + t, 0, s], dtype=torch.int32, device=cuda)
+    dead = torch.arange(s, device=cuda)[None, :] >= lens[:, None]
+    kk[dead[:, None, :, None].expand_as(kk)] = float("nan")
+    v[dead[:, None, :, None].expand_as(v)] = float("nan")
+    launch = "flash_gqa_decode" if t == 1 else "flash_gqa_prefill"
     before = dict(LAUNCHES)
     out = k.flash_gqa_attention(q, kk, v, pos, window, lens)
+    assert LAUNCHES == dict(before, **{launch: before[launch] + 1})
     ref = k.flash_gqa_attention_plain(q, kk, v, pos, window, lens)
     torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
-    assert (out[0] == 0).all()
-    launch = "flash_gqa_decode" if t == 1 else "flash_gqa_prefill"
-    assert LAUNCHES[launch] == before[launch] + 1
+    assert (out[2] == 0).all()
+    if t == 1:
+        assert torch.equal(out, k.flash_gqa_attention(q, kk, v, pos, window, lens))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -101,29 +117,51 @@ def test_kernel_raises_on_unsupported_head_dim(cuda):
 @pytest.mark.parametrize("t,n,kh,h,ps,window", [
     (1, 32, 32, 128, 64, None), (1, 24, 8, 128, 16, None), (1, 32, 8, 64, 8, None),
     (8, 24, 8, 128, 16, None), (32, 16, 8, 128, 64, None), (4, 32, 8, 128, 16, 40),
+    # The split decode kernel's edges: G = 1, 3, 4, 16 at H = 64 and 128
+    # over pages of 8 and 64, windows of 3.
+    (1, 32, 32, 64, 8, 3), (1, 24, 8, 64, 64, None), (1, 32, 8, 128, 64, 3),
+    (1, 32, 2, 128, 8, None), (1, 32, 2, 64, 64, 3), (1, 24, 8, 128, 8, 3),
 ])
 def test_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, window):
+    """Rows of 1 and 6 + T live slots, a parked row (all sentinel, kv_lens =
+    0) beside a full row, ragged q_lens, NaN on every page no table maps and
+    in the dead offsets of each row's last live page: within TOL of the
+    plain version, exact zeros for the parked row and the dead columns, one
+    launch a call; a decode launch (the split kernel) is bit-identical over
+    two launches."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    b, np_tab = 3, 8
+    b, np_tab = 4, 8
     pages = b * np_tab + 2
     kp = torch.randn((pages, kh, ps, h), generator=g, device=cuda).to(dtype)
     vp = torch.randn((pages, kh, ps, h), generator=g, device=cuda).to(dtype)
+    s_virt = np_tab * ps
+    kvl = torch.tensor([1, 6 + t, 0, s_virt], dtype=torch.int32, device=cuda)
     tab = torch.randperm(pages, generator=g, device=cuda)[: b * np_tab]
     tab = tab.reshape(b, np_tab).int()
-    tab[1, -2:] = pages  # unmapped tail past the live region
-    s_virt = np_tab * ps
+    live = torch.zeros(pages, dtype=torch.bool, device=cuda)
+    for i, n_live in enumerate((-(-int(x) // ps) for x in kvl)):
+        tab[i, n_live:] = pages  # sentinel past the live pages; row 2 parked
+        live[tab[i, :n_live].long()] = True
+        if int(kvl[i]) % ps:
+            kp[tab[i, n_live - 1], :, int(kvl[i]) % ps:] = float("nan")
+            vp[tab[i, n_live - 1], :, int(kvl[i]) % ps:] = float("nan")
+    kp[~live] = float("nan")
+    vp[~live] = float("nan")
     q = torch.randn((b, t, n, h), generator=g, device=cuda).to(dtype)
-    starts = torch.tensor([[0], [s_virt // 3], [s_virt - t]], device=cuda)
+    starts = torch.tensor([[0], [6], [s_virt - t], [s_virt - t]], device=cuda)
     pos = (starts + torch.arange(t, device=cuda)).int()
-    kvl = torch.tensor([0, s_virt // 3 + t, s_virt], dtype=torch.int32, device=cuda)
-    qln = torch.tensor([t, max(1, t // 2), t], dtype=torch.int32, device=cuda)
+    qln = torch.tensor([t, max(1, t // 2), t, t], dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, tab, pos, window, kvl, qln)
     before = dict(LAUNCHES)
-    out = pa.ragged_paged_attention(q, kp, vp, tab, pos, window, kvl, qln)
-    ref = pa.ragged_paged_attention_plain(q, kp, vp, tab, pos, window, kvl, qln)
+    out = pa.ragged_paged_attention(*args)
+    assert LAUNCHES == dict(before, ragged_paged_attention=before["ragged_paged_attention"] + 1)
+    ref = pa.ragged_paged_attention_plain(*args)
     torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
-    assert (out[0] == 0).all() and (out[1, int(qln[1]):] == 0).all()
-    assert LAUNCHES["ragged_paged_attention"] == before["ragged_paged_attention"] + 1
+    assert (out[2] == 0).all() and (out[1, int(qln[1]):] == 0).all()
+    if t == 1:
+        assert torch.equal(out, pa.ragged_paged_attention(*args))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -325,6 +363,34 @@ def test_int8_decode_kernels_are_deterministic(cuda, dtype):
     qp = torch.randn((len(lens), 1, n, h), generator=gen, device=cuda).to(dtype)
     paged = [pa.ragged_paged_attention_quantized(qp, kp, kps, vp, vps, tab,
                                                  (kvl - 1)[:, None], None, kvl)
+             for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert all(torch.equal(paged[0], o) for o in paged[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_are_deterministic(cuda, dtype):
+    """The twin of the int8 test above over a cache of the compute type:
+    both decode launches at the main paths' 7B shapes (the engine at B = 1,
+    S = 448, position 374; the scheduler's 8 slots over pages of 64, live
+    64-1024) give bit-identical output over three launches."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    n = kh = 32
+    h = 128
+    q = torch.randn((1, 1, n, h), generator=gen, device=cuda).to(dtype)
+    kk = torch.randn((1, kh, 448, h), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, kh, 448, h), generator=gen, device=cuda).to(dtype)
+    pos = torch.tensor([[374]], dtype=torch.int32, device=cuda)
+    outs = [k.flash_gqa_attention(q, kk, v, pos) for _ in range(3)]
+    lens = [64, 200, 333, 480, 600, 777, 900, 1024]
+    pages = 16 * len(lens)
+    kp = torch.randn((pages, kh, 64, h), generator=gen, device=cuda).to(dtype)
+    vp = torch.randn((pages, kh, 64, h), generator=gen, device=cuda).to(dtype)
+    tab = torch.randperm(pages, generator=gen, device=cuda).reshape(len(lens), 16).int()
+    kvl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    qp = torch.randn((len(lens), 1, n, h), generator=gen, device=cuda).to(dtype)
+    paged = [pa.ragged_paged_attention(qp, kp, vp, tab, (kvl - 1)[:, None], None, kvl)
              for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])

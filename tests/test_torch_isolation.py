@@ -44,14 +44,14 @@ CHILD = textwrap.dedent(f"""
     for call in (lambda: init_params(TINY), lambda: init_cache(TINY, 1, 8),
                  lambda: params_from_jax({{}}),
                  lambda: init_page_pool(TINY, 2, 8),
-                 lambda: ContinuousBatchingScheduler(TINY, cpu_params)):
+                 lambda: ContinuousBatchingScheduler(TINY, cpu_params, kv_layout="paged")):
         try:
             call()
         except RuntimeError as e:
             assert "no CUDA device" in str(e)
         else:
             raise AssertionError("an entry point ran without CUDA and no device")
-    ContinuousBatchingScheduler(TINY, cpu_params, device="cpu")
+    ContinuousBatchingScheduler(TINY, cpu_params, kv_layout="paged", device="cpu")
     print("ok")
 """)
 

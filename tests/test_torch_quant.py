@@ -235,33 +235,42 @@ def test_int4_route_crosses_over_at_eight_rows(rows, dtype, route):
     assert (splits > 1) == (rows <= DECODE_MAX_ROWS)
 
 
-@pytest.mark.parametrize("b,kh,s_virt,want", [
-    (1, 32, 448, 8),    # 7B engine decode, one request (cache of 448)
-    (4, 32, 512, 4),    # 7B engine decode, the batch of four
-    (8, 32, 1024, 2),   # 7B paged decode: 8 slots, tables of 16 pages of 64
-    (1, 8, 320, 8),     # 3B engine decode
-    (8, 8, 1024, 8),    # 3B paged decode
-    (8, 8, 384, 8),     # 1B (H = 64) paged decode, pages of 16
-    (1, 32, 40, 3),     # S_virt < 16 * 8: no split shorter than 16 slots
-    (3, 8, 100, 7),
-    (2, 2, 1, 1),
-    (16, 32, 1024, 1),  # 512 rows fill a wave unsplit
-    (64, 32, 4096, 1),
+@pytest.mark.parametrize("b,kh,s_virt,sms,want", [
+    (1, 32, 448, 132, 8),    # 7B engine decode, one request (cache of 448)
+    (4, 32, 512, 132, 3),    # 7B engine decode, the batch of four
+    (8, 32, 1024, 132, 2),   # 7B paged decode: 8 slots, tables of 16 pages of 64
+    (1, 8, 320, 132, 8),     # 3B engine decode
+    (8, 8, 1024, 132, 6),    # 3B paged decode
+    (8, 8, 384, 132, 6),     # 1B (H = 64) paged decode, pages of 16
+    (1, 32, 40, 132, 3),     # S_virt < 16 * 8: no split shorter than 16 slots
+    (3, 8, 100, 132, 7),
+    (2, 2, 1, 132, 1),
+    (16, 32, 1024, 132, 1),  # 512 rows fill a wave unsplit
+    (64, 32, 4096, 132, 1),
+    (8, 32, 1024, 114, 1),   # 342 blocks a wave on 114 SMs: 256 rows stay unsplit
+    (4, 32, 512, 114, 3),
+    (1, 32, 448, 114, 8),
+    (4, 32, 512, 264, 6),    # twice the SMs, twice the splits (up to 8)
+    (8, 32, 1024, 264, 3),
+    (1, 32, 448, 8, 1),      # 24 blocks a wave on a small card: no split
 ])
-def test_decode_split_plan_fills_the_card_in_whole_runs(b, kh, s_virt, want):
-    """The cluster size of the int8 decode launch: 1..8 (one portable
-    cluster), no split shorter than one 16-slot run of the longest row the
-    cache holds, splits only while the launch stays within 512 blocks; the
-    7B engine's decode (B = 1, K = 32) reaches 132 blocks and more."""
+def test_decode_split_plan_fills_the_card_in_whole_runs(b, kh, s_virt, sms, want):
+    """The cluster size of a decode launch: 1..8 (one portable cluster), no
+    split shorter than one 16-slot run of the longest row the cache holds,
+    and the launch nearest one wave of three blocks an SM of the card; the
+    7B engine's decode (B = 1, K = 32) reaches 132 blocks and more on an
+    H100's 132 SMs."""
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import decode_split_plan
 
-    splits = decode_split_plan(b, kh, s_virt)
+    splits = decode_split_plan(b, kh, s_virt, 1, sms)
     assert splits == want
     assert 1 <= splits <= 8
     assert splits == 1 or 16 * (splits - 1) < s_virt
-    assert splits == 1 or b * kh * (splits - 1) < 512
-    if (b, kh) == (1, 32):
-        assert b * kh * splits >= 132 or s_virt < 16 * 8
+    assert splits == 1 or b * kh * splits <= 3 * sms + b * kh / 2
+    if sms == 132:
+        assert splits == 1 or b * kh * (splits - 1) < 512
+        if (b, kh) == (1, 32):
+            assert b * kh * splits >= 132 or s_virt < 16 * 8
 
 
 @pytest.mark.parametrize("t,tile", [(1, False), (2, True), (8, True), (32, True)])
@@ -271,7 +280,7 @@ def test_decode_split_plan_routes_windows_to_the_tile_kernel(t, tile):
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import decode_split_plan
 
     for b, kh, s_virt in ((1, 32, 448), (8, 32, 1024), (4, 8, 320)):
-        assert (decode_split_plan(b, kh, s_virt, t) == 0) == tile
+        assert (decode_split_plan(b, kh, s_virt, t, 132) == 0) == tile
 
 
 def test_mm_routes_tensors_and_q4_trees(rng):

@@ -167,7 +167,8 @@ def test_int8_multichunk_prefix_sharing_matches_jax(both4, ps, cow):
 
 def test_kv_quant_is_validated(both):
     with pytest.raises(ValueError, match="kv_quant"):
-        ContinuousBatchingScheduler(TINY, both[1], kv_quant="int4", device="cpu")
+        ContinuousBatchingScheduler(TINY, both[1], kv_quant="int4", kv_layout="paged",
+                                    device="cpu")
 
 
 def test_page_pressure_waits_and_completes(both):
@@ -181,7 +182,8 @@ def test_page_pressure_waits_and_completes(both):
     assert stats["page_waits"] > 0 and stats["pages_in_use"] == 0
     with pytest.raises(ValueError, match="page pool"):
         ContinuousBatchingScheduler(TINY, both[1], num_slots=2, max_seq=48,
-                                    kv_page_size=16, kv_pages=1, device="cpu")
+                                    kv_layout="paged", kv_page_size=16, kv_pages=1,
+                                    device="cpu")
 
 
 def test_only_the_paged_layout_is_ported(both):
