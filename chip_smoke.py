@@ -18,8 +18,9 @@ Phases, each fatal on failure:
 1. Device: requires CUDA; prints the card's name and power limit as
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives them.
 2. Build: compiles every `csrc/*.cu` of the port with nvcc (one process per
-   source, all at once) and prints the build seconds and, for each kernel,
-   ptxas's register, shared-memory and spill lines.
+   source, all at once) and prints the build seconds, the CUDA runtime and
+   driver versions the kernels run on and, for each kernel, ptxas's
+   register, shared-memory and spill lines.
 3. Kernels against their plain versions, in bf16 and f32:
    - both launches of the flash GQA attention kernel (prefill T > 1, decode
      T == 1; bf16 prefill runs the tensor-core kernel, decode the split-KV
@@ -43,10 +44,12 @@ Phases, each fatal on failure:
      q_lens, a G*T = 512 window, pages of 16 and 64, a Mistral window; and
      T = 1 (the split-KV kernel) at its edges through tables, each T = 1
      case launched twice and compared bit for bit;
-   - the fused page write, bit-exact: T = 1 at B = 8 into the 7B
-     scheduler's pool (32 layers, 128 pages of 64, tables of 16 pages) at
-     its last layer with parked rows, and T = 4 with q_lens and sentinel
-     rows;
+   - the page write (one kernel for both pools, `page_write.cuh`),
+     bit-exact, at WRITE_CASES: T = 1 at B = 8 into the 7B and 3B
+     schedulers' pools (128 pages of 64, tables of 16 pages) at their last
+     layer with parked rows, the same at 1B's H = 64, T = 4 with q_lens and
+     sentinel rows, and a 7B round in which every sliver drops (the pool
+     must be unchanged);
    - the quantized serving path's four kernels: the quantized decode
      attention (the split-KV kernel over int8) at the decode cases
      above over an int8 cache (NaN in dead scales) and at the split kernel's
@@ -55,8 +58,8 @@ Phases, each fatal on failure:
      ragged paged attention at the paged cases above over int8 pools and at
      the same edges through tables (T > 1 windows on the tile kernel), each
      int8 attention case launched twice and compared bit for bit, the
-     quantizing page write bit-exact (values and
-     scales) into the 7B int8 pool's shape, and the int4 matmul at every 7B
+     page write into an int8 pool bit-exact (values and scales) at
+     WRITE_CASES, and the int4 matmul at every 7B
      and 3B weight shape (wd's group of 86 included) and at OUT = 400 (no
      multiple of a column tile) at R = 1, 4, 8, 9, 16, 131, 384, 1024 and
      2048 (4 and 2048 are the engine batch's decode and prefill; 8 and 9
@@ -115,9 +118,10 @@ Phases, each fatal on failure:
    and at the scheduler's prefill chunk (B = 8, T = 128, S = 1024); the
    decode attention, over the bf16 and the int8 cache, at the engine's B =
    1 and its batch of four (S = 512, rows at the prompts' 317-443 tokens);
-   the paged reads at the scheduler's 8 slots (live 64-1024); the
-   int4 matmul for 7B's `wq` and `wd` at R = 1, 4, 8 (decode) and 1024 (a
-   prefill chunk). The bound is the larger of the bytes over 3.35 TB/s
+   the paged reads and the page writes at the scheduler's 8 slots (live
+   64-1024; each write also with every sliver dropped, its floor, and with
+   the table prefetch forced on and off); the int4 matmul for 7B's `wq` and `wd` at R =
+   1, 4, 8 (decode) and 1024 (a prefill chunk). The bound is the larger of the bytes over 3.35 TB/s
    and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
 
 Every phase prints its seconds.
@@ -157,10 +161,12 @@ SOURCES = {
     # query windows (T > 1) run gqa_tile.cuh.
     "decode": f"{PKG}/csrc/decode_split.cuh",
     "paged": f"{PKG}/csrc/decode_split.cuh",
-    "write": f"{PKG}/csrc/fused_page_write.cu",
+    # Both page writes run the kernel of page_write.cuh, built by
+    # fused_page_write.cu and fused_page_write_quantized.cu.
+    "write": f"{PKG}/csrc/page_write.cuh",
     "decode_q": f"{PKG}/csrc/decode_split.cuh",
     "paged_q": f"{PKG}/csrc/decode_split.cuh",
-    "write_q": f"{PKG}/csrc/fused_page_write_quantized.cu",
+    "write_q": f"{PKG}/csrc/page_write.cuh",
     "int4": f"{PKG}/csrc/int4_matmul.cu",
 }
 REPLACES = {
@@ -201,6 +207,23 @@ def nvidia_smi_line() -> str:
 
 
 # ---------------------------------------------------------------- inputs
+
+
+def cuda_versions(build) -> str:
+    """cudaRuntimeGetVersion of the toolkit that builds the kernels (nvcc
+    links its runtime into each library) and cudaDriverGetVersion, e.g.
+    12080 for 12.8: a CUDA graph captures a programmatic dependent launch
+    from 12.3 on."""
+    import ctypes
+
+    lib = ctypes.CDLL(os.path.join(os.path.dirname(os.path.dirname(build.nvcc())),
+                                   "lib64", "libcudart.so"))
+    out = []
+    for name in ("cudaRuntimeGetVersion", "cudaDriverGetVersion"):
+        v = ctypes.c_int(0)
+        err = getattr(lib, name)(ctypes.byref(v))
+        out.append(f"{name} {v.value if err == 0 else f'error {err}'}")
+    return ", ".join(out)
 
 
 def make_case(torch, dtype, b, t, n, kh, h, s, positions, kv_lens=None,
@@ -415,41 +438,62 @@ def check_paged(torch, pa_mod):
     return worst
 
 
+# Page-write cases of phase 3: (name, layers, kv heads, head dim, page size,
+# B, T, table pages, pool pages). The 7B and 3B schedulers' decode rounds
+# (T = 1 at B = 8, two slots parked behind all-sentinel rows) at their
+# last layer; 1B's H = 64; windows of 4 with q_lens, a parked row and a
+# past-the-row position; and a 7B round in which every sliver drops
+# (negative, past the row, sentinel, q_lens = 0), which must write nothing.
+WRITE_CASES = [("7b_t1_b8", 32, 32, 128, 64, 8, 1, 16, 128),
+               ("3b_t1_b8", 28, 8, 128, 64, 8, 1, 16, 128),
+               ("1b_t1_b8_h64", 16, 8, 64, 64, 8, 1, 16, 128),
+               ("3b_t4_qlens", 28, 8, 128, 16, 4, 4, 16, 66),
+               ("7b_all_dropped", 32, 32, 128, 64, 8, 1, 16, 128)]
+
+
+def write_case(torch, name, kh, h, ps, b, t, np_tab, pages, dtype, g):
+    """(k_new, v_new, positions, table, q_lens) of one WRITE_CASES entry,
+    every kept sliver on its own (page, offset)."""
+    dev = "cuda"
+    k_new = torch.randn((b, t, kh, h), generator=g, device=dev).to(dtype)
+    v_new = torch.randn((b, t, kh, h), generator=g, device=dev).to(dtype)
+    tab = torch.randperm(pages, generator=g, device=dev)[: b * np_tab]
+    tab = tab.reshape(b, np_tab).int()
+    starts = torch.randint(0, np_tab * ps - t, (b, 1), generator=g, device=dev)
+    pos = (starts + torch.arange(t, device=dev)).int()
+    q_lens = None
+    if t > 1:
+        tab[1] = pages           # a parked row: all sentinel
+        pos[2, -1] = np_tab * ps  # past the row: dropped
+        q_lens = torch.tensor([t, 1, t, 2], dtype=torch.int32, device=dev)
+    elif name.endswith("all_dropped"):
+        pos[0:2] = -1
+        pos[2:4] = np_tab * ps
+        tab[4:6] = pages
+        q_lens = torch.tensor([1] * 6 + [0] * (b - 6), dtype=torch.int32, device=dev)
+    else:
+        for i in (2, 6):         # parked slots, as a decode round has
+            tab[i] = pages
+            pos[i] = np_tab * ps - 1
+    return k_new, v_new, pos, tab, q_lens
+
+
 def check_write(torch, pw_mod):
-    """Fused page write kernel vs plain, bit for bit: T = 1 at B = 8 into
-    the 7B scheduler's pool (L = 32, P = 128 pages of 64, tables of 16
-    pages) at its last layer, two slots parked at the last position behind
-    all-sentinel rows; and T = 4 with q_lens, a sentinel row and a
-    past-the-row position (3B shapes)."""
+    """Page write kernel into a bf16 or f32 pool vs plain, bit for bit, at
+    every WRITE_CASES entry; the all-dropped round must leave the pools as
+    they were, every other case must write."""
     dev = "cuda"
     worst = {d: 0.0 for d in TOL}
-    # (name, layers, kv heads, page size, B, T, table pages, pool pages)
-    cases = [("7b_t1_b8", 32, 32, 64, 8, 1, 16, 128),
-             ("3b_t4_qlens", 28, 8, 16, 4, 4, 16, 66)]
-    for name, n_layers, kh, ps, b, t, np_tab, pages in cases:
+    for name, n_layers, kh, h, ps, b, t, np_tab, pages in WRITE_CASES:
         layer = n_layers - 1
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device=dev).manual_seed(3)
-            shape = (n_layers, pages, kh, ps, 128)
+            shape = (n_layers, pages, kh, ps, h)
             kk = torch.randn(shape, generator=g, device=dev, dtype=dtype)
             vk = torch.randn(shape, generator=g, device=dev, dtype=dtype)
             kr, vr, before = kk.clone(), vk.clone(), kk[layer].clone()
-            k_new = torch.randn((b, t, kh, 128), generator=g, device=dev).to(dtype)
-            v_new = torch.randn_like(k_new)
-            tab = torch.randperm(pages, generator=g, device=dev)[: b * np_tab]
-            tab = tab.reshape(b, np_tab).int()
-            starts = torch.randint(0, np_tab * ps - t, (b, 1), generator=g,
-                                   device=dev)
-            pos = (starts + torch.arange(t, device=dev)).int()
-            q_lens = None
-            if t > 1:
-                tab[1] = pages           # a parked row: all sentinel
-                pos[2, -1] = np_tab * ps  # past the row: dropped
-                q_lens = torch.tensor([t, 1, t, 2], dtype=torch.int32, device=dev)
-            else:
-                for i in (2, 6):         # parked slots, as a decode round has
-                    tab[i] = pages
-                    pos[i] = np_tab * ps - 1
+            k_new, v_new, pos, tab, q_lens = write_case(
+                torch, name, kh, h, ps, b, t, np_tab, pages, dtype, g)
             pw_mod.fused_page_write_cuda(kk, vk, k_new, v_new, pos, tab, layer,
                                          q_lens)
             pw_mod.fused_page_write_plain(kr, vr, k_new, v_new, pos, tab, layer,
@@ -464,7 +508,8 @@ def check_write(torch, pw_mod):
             del kk, vk, kr, vr, before
             print(f"  write   {name:16s} {dname:8s} max_abs_err={err:.3e} "
                   f"bit-exact={same} wrote={wrote}", flush=True)
-            assert same and wrote, f"write/{name}: kernel != plain"
+            assert same and wrote != name.endswith("all_dropped"), \
+                f"write/{name}: kernel != plain"
             worst[dname] = max(worst[dname], err)
     return worst
 
@@ -583,20 +628,17 @@ def check_paged_quantized(torch, pa_mod):
 
 
 def check_write_quantized(torch, pw_mod):
-    """The quantizing page write kernel vs plain, bit for bit in values and
-    scales: T = 1 at B = 8 into the 7B int8 pool's shape (L = 32, P = 128
-    pages of 64, tables of 16 pages) at its last layer, two slots parked;
-    and T = 4 with q_lens, a parked row and a past-the-row position (3B
-    shapes). Returns the worst error (0 when bit-exact) per dtype."""
+    """The page write kernel into an int8 pool vs plain, bit for bit in
+    values and scales, at every WRITE_CASES entry (bf16 and f32 slivers; the
+    all-dropped round writes nothing). Returns the worst error (0 when
+    bit-exact) per dtype."""
     dev = "cuda"
     worst = {d: 0.0 for d in TOL}
-    cases = [("7b_t1_b8", 32, 32, 64, 8, 1, 16, 128),
-             ("3b_t4_qlens", 28, 8, 16, 4, 4, 16, 66)]
-    for name, n_layers, kh, ps, b, t, np_tab, pages in cases:
+    for name, n_layers, kh, h, ps, b, t, np_tab, pages in WRITE_CASES:
         layer = n_layers - 1
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device=dev).manual_seed(3)
-            shape = (n_layers, pages, kh, ps, 128)
+            shape = (n_layers, pages, kh, ps, h)
             pools = [torch.randint(-127, 128, shape, generator=g, device=dev,
                                    dtype=torch.int8),
                      torch.rand(shape[:4], generator=g, device=dev),
@@ -605,21 +647,8 @@ def check_write_quantized(torch, pw_mod):
                      torch.rand(shape[:4], generator=g, device=dev)]
             refs = [x.clone() for x in pools]
             before = pools[0][layer].clone()
-            k_new = torch.randn((b, t, kh, 128), generator=g, device=dev).to(dtype)
-            v_new = torch.randn((b, t, kh, 128), generator=g, device=dev).to(dtype)
-            tab = torch.randperm(pages, generator=g, device=dev)[: b * np_tab]
-            tab = tab.reshape(b, np_tab).int()
-            starts = torch.randint(0, np_tab * ps - t, (b, 1), generator=g, device=dev)
-            pos = (starts + torch.arange(t, device=dev)).int()
-            q_lens = None
-            if t > 1:
-                tab[1] = pages
-                pos[2, -1] = np_tab * ps
-                q_lens = torch.tensor([t, 1, t, 2], dtype=torch.int32, device=dev)
-            else:
-                for i in (2, 6):
-                    tab[i] = pages
-                    pos[i] = np_tab * ps - 1
+            k_new, v_new, pos, tab, q_lens = write_case(
+                torch, name, kh, h, ps, b, t, np_tab, pages, dtype, g)
             pw_mod.fused_page_write_quantized_cuda(*pools, k_new, v_new, pos, tab, layer,
                                                    q_lens)
             pw_mod.fused_page_write_quantized_plain(*refs, k_new, v_new, pos, tab, layer,
@@ -633,7 +662,8 @@ def check_write_quantized(torch, pw_mod):
             del pools, refs, before
             print(f"  write_q {name:16s} {dname:8s} max_abs_err={err:.3e} "
                   f"bit-exact={same} wrote={wrote}", flush=True)
-            assert same and wrote, f"write_q/{name}: kernel != plain"
+            assert same and wrote != name.endswith("all_dropped"), \
+                f"write_q/{name}: kernel != plain"
             worst[dname] = max(worst[dname], err)
     return worst
 
@@ -1300,7 +1330,7 @@ def profile_device(torch, label, send):
             groups["paged attention"] += us
         elif any(w in key for w in ("gqa_tile", "flash_prefill", "decode_split")):
             groups["flash attention"] += us
-        elif "fused_page_write" in key:
+        elif "page_write_kernel" in key:
             groups["page write"] += us
         elif any(w in key.lower() for w in ("nvjet", "gemm", "gemv", "cutlass")):
             groups["matmul"] += us
@@ -1405,6 +1435,30 @@ def bound(nbytes, flops):
 PAGED_LENS = [64, 200, 333, 480, 600, 777, 900, 1024]  # live tokens per row
 
 
+WRITE_VARIANTS = ("floor_ms", "prefetch_ms", "no_prefetch_ms")
+
+
+def time_write_variants(torch, pw_mod, write, pos, n_layers):
+    """More kernel times of a page write `write(layer, positions)`, in
+    `time_ms`'s graph: `floor_ms`, every position -1 (every sliver dropped:
+    the launch and the coordinate chain, no store); `prefetch_ms` and
+    `no_prefetch_ms`, with `table_prefetch` forced on (the row's whole
+    table loaded beside the position) and off (the one entry loaded after
+    it), the rule's pick being `ms` (both absent from a package without
+    the rule)."""
+    dead = torch.full_like(pos, -1)
+    out = {"floor_ms": time_ms(torch, lambda l: write(l, dead), n_layers)}
+    rule = getattr(pw_mod, "table_prefetch", None)
+    if rule is not None:
+        try:
+            for key, forced in (("prefetch_ms", True), ("no_prefetch_ms", False)):
+                pw_mod.table_prefetch = lambda np_tab, quantized, f=forced: f
+                out[key] = time_ms(torch, lambda l: write(l, pos), n_layers)
+        finally:
+            pw_mod.table_prefetch = rule
+    return out
+
+
 def time_paged(torch, pa_mod, pw_mod, cfg):
     """The paged decode launches at 7B: B = 8 rows at PAGED_LENS through
     tables of pages of 64 over a full-depth pool, one call per layer.
@@ -1457,8 +1511,12 @@ def time_paged(torch, pa_mod, pw_mod, cfg):
 
     kn = torch.randn((b, 1, kh, h), generator=g, device=dev, dtype=dt)
     vn = torch.randn_like(kn)
-    ms = time_ms(torch, lambda l: pw_mod.fused_page_write_cuda(
-        kp, vp, kn, vn, pos, tab, l), n_layers)
+
+    def write_cuda(l, p):
+        pw_mod.fused_page_write_cuda(kp, vp, kn, vn, p, tab, l)
+
+    ms = time_ms(torch, lambda l: write_cuda(l, pos), n_layers)
+    variants = time_write_variants(torch, pw_mod, write_cuda, pos, n_layers)
     plain = time_host(torch, lambda l: pw_mod.fused_page_write_plain(
         kp, vp, kn, vn, pos, tab, l), n_layers)
     pages, offs = pw_mod.page_coords(pos, tab, ps, pool_pages)
@@ -1472,7 +1530,7 @@ def time_paged(torch, pa_mod, pw_mod, cfg):
     lib = time_ms(torch, index_put, n_layers)
     b_ms, b_by = bound(2 * 2 * kn.numel() * kn.element_size(), 0)
     write = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                 shape=dict(B=b, T=1, K=kh, H=h, page=ps, dtype="bfloat16"))
+                 **variants, shape=dict(B=b, T=1, K=kh, H=h, page=ps, dtype="bfloat16"))
     return paged, write
 
 
@@ -1566,8 +1624,12 @@ def time_paged_quantized(torch, pa_mod, pw_mod, cfg):
     kn = torch.randn((b, 1, kh, h), generator=g, device=dev, dtype=dt)
     vn = torch.randn_like(kn)
     pools = (kp, kps, vp, vps)
-    ms = time_ms(torch, lambda l: pw_mod.fused_page_write_quantized_cuda(
-        *pools, kn, vn, pos, tab, l), n_layers)
+
+    def write_cuda(l, p):
+        pw_mod.fused_page_write_quantized_cuda(*pools, kn, vn, p, tab, l)
+
+    ms = time_ms(torch, lambda l: write_cuda(l, pos), n_layers)
+    variants = time_write_variants(torch, pw_mod, write_cuda, pos, n_layers)
     plain = time_host(torch, lambda l: pw_mod.fused_page_write_quantized_plain(
         *pools, kn, vn, pos, tab, l), n_layers)
     pages, offs = pw_mod.page_coords(pos, tab, ps, pool_pages)
@@ -1585,6 +1647,7 @@ def time_paged_quantized(torch, pa_mod, pw_mod, cfg):
     lib = time_ms(torch, index_put, n_layers)
     b_ms, b_by = bound(2 * kn.numel() * kn.element_size() + 2 * b * kh * (h + 4), 0)
     write = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                 **variants,
                  shape=dict(B=b, T=1, K=kh, H=h, page=ps, dtype="bfloat16", pool="int8"))
     return paged, write
 
@@ -1714,6 +1777,8 @@ def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
         for label, t_ in (tm.get("by_shape") or {launch: tm}).items():
             host = (f", host {t_['host_us_per_call']:.1f} us a call"
                     if "host_us_per_call" in t_ else "")
+            host += "".join(f", {k[:-3]} {t_[k]:.4f} ms" for k in WRITE_VARIANTS
+                            if k in t_)
             print(f"  {label}: kernel {t_['ms']:.4f} ms, plain {t_['plain_ms']:.4f} ms, "
                   f"library {t_['library_ms']:.4f} ms, bound {t_['bound_ms']:.5f} ms "
                   f"({t_['bound_by']}){host} at {t_['shape']}", flush=True)
@@ -1817,6 +1882,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build_all(force=True, extra_flags=("-Xptxas", "-v"))
     print(f"  built {sorted(reports)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  {cuda_versions(_build)}", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "Compiling entry function" in line:  # the mangled kernel name
@@ -1917,6 +1983,9 @@ def main() -> int:
             "library_ms": tm["library_ms"],
             "shape": tm["shape"],
         }
+        for k in WRITE_VARIANTS:
+            if k in tm:
+                entry[k] = tm[k]
         if launch == "int4":
             entry["max_rel_err_by_dtype"] = {d: int4_err[d][1] for d in TOL}
         if "by_shape" in tm:

@@ -1,8 +1,8 @@
 // Asynchronous copies and tensor-core helpers shared by the port's kernels,
 // for Hopper (sm_90a): 16- and 4-byte `cp.async` with zero-fill,
 // `mma.sync.m16n8k16` bf16 with f32 accumulators, `ldmatrix` (plain and
-// transposed), `wgmma` with A in registers and B in shared memory, and the
-// launch of a thread-block cluster.
+// transposed), `wgmma` with A in registers and B in shared memory, the
+// launch of a thread-block cluster, and the programmatic dependent launch.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * gid + tig, gid = lane / 4,
 // tig = lane % 4; each register holds two bf16, the lower index in the low
@@ -159,6 +159,38 @@ int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int smem, 
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// ---- programmatic dependent launch
+
+// Launch `kernel` over `grid` with programmatic stream serialization: its
+// blocks may be scheduled while the kernel before it in the stream is still
+// running, so the launch overlaps that kernel's tail. The kernel must call
+// grid_dependency_wait() before it reads global memory. A stream capture
+// records the launch as a programmatic edge. Returns the launch's error, or
+// cudaGetLastError() after it (0 = launched).
+template <typename... Params, typename... Args>
+int launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, int smem, cudaStream_t st,
+               Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Waits until the grids this one depends on have finished and their writes
+// are visible (`cudaGridDependencySynchronize`); at once for a plain launch.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 }  // namespace hopper

@@ -6,11 +6,14 @@ pool `fused_page_write_quantized`, `paged_write_reference_quantized`): fresh K/V
 [B, T, K, H] land in the pools [L, P, K, PS, H] at a static layer, through
 the page table, in place. A sliver is dropped (writes nothing) through a
 sentinel table entry, past the row's pages, at a negative position, and,
-with `q_lens`, at a window column at or past the row's live length. The
-kernels are `csrc/fused_page_write.cu` and, quantizing each sliver to int8
-values plus one f32 scale per (position, kv head) on the way in,
-`csrc/fused_page_write_quantized.cu`; both match their plain versions bit for
-bit.
+with `q_lens`, at a window column at or past the row's live length. One
+kernel, `csrc/page_write.cuh`, serves both pools through two C entries:
+`csrc/fused_page_write.cu` (a copy into a bf16 or f32 pool) and
+`csrc/fused_page_write_quantized.cu` (each sliver quantized to int8 values
+plus one f32 scale per (position, kv head) on the way in); both match their
+plain versions bit for bit. The kernel is a programmatic dependent launch:
+it may start while the kernel before it (the RoPE of k, or this wrapper's
+int32 casts) is still running, and waits for it before its first read.
 
 A tensor on the CPU goes to `fused_page_write_plain`; a CUDA tensor
 launches the kernel or raises. There is no fallback between the two.
@@ -27,8 +30,20 @@ from ..quant import quantize_kv
 from .launches import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P]
-_Q_ARGTYPES = [_P] * 9 + [_I] * 9 + [_P]
+_ARGTYPES = [_P] * 7 + [_I] * 10 + [_P]
+_Q_ARGTYPES = [_P] * 9 + [_I] * 10 + [_P]
+# The kernel can load a row's page table up front, beside its position, when
+# the table has at most this many pages (two entries a lane of a warp);
+# otherwise it loads the one entry the position selects, after it.
+TABLE_PREFETCH_PAGES = 64
+
+
+def table_prefetch(np_tab: int, quantized: bool) -> bool:
+    """Whether the kernel prefetches a table of `np_tab` pages: for the copy
+    into a bf16 or f32 pool, which has nothing to do while the entry's load
+    is in flight. The int8 pool quantizes meanwhile, which outlasts the load
+    (on an H100 the prefetch made it slower; PERF.md)."""
+    return not quantized and np_tab <= TABLE_PREFETCH_PAGES
 
 
 def page_coords(
@@ -97,8 +112,8 @@ def fused_page_write_cuda(kp, vp, k_new, v_new, positions, page_table, layer,
                          f"{tuple(page_table.shape)}")
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} outside [0, {n_layers})")
-    if h * kp.element_size() % 16:
-        raise ValueError(f"head_dim {h} is not a multiple of 16 bytes")
+    if h not in (64, 128):
+        raise ValueError(f"page write supports head_dim 64 or 128, got {h}")
     if not (kp.is_contiguous() and vp.is_contiguous()) \
             or (kp.data_ptr() | vp.data_ptr()) % 16:
         raise ValueError("pools must be contiguous and 16-byte aligned")
@@ -117,7 +132,8 @@ def fused_page_write_cuda(kp, vp, k_new, v_new, positions, page_table, layer,
         kn.data_ptr(), vn.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         pos.data_ptr(), tab.data_ptr(), None if ql is None else ql.data_ptr(),
         b, t, page_table.shape[1], num_pages, kh, ps, h, layer,
-        kp.element_size(), torch.cuda.current_stream(kp.device).cuda_stream,
+        kp.element_size(), int(table_prefetch(page_table.shape[1], False)),
+        torch.cuda.current_stream(kp.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_page_write launch failed: CUDA error {err}")
@@ -206,6 +222,8 @@ def fused_page_write_quantized_cuda(kp, kps, vp, vps, k_new, v_new, positions,
     pos = positions.to(torch.int32).contiguous()
     tab = page_table.to(torch.int32).contiguous()
     ql = None if q_lens is None else q_lens.to(torch.int32).to(kp.device).contiguous()
+    if (kn.data_ptr() | vn.data_ptr()) % 16:
+        raise ValueError("k_new and v_new must be 16-byte aligned")
     from ._build import kernel_fn
 
     err = kernel_fn("fused_page_write_quantized", _Q_ARGTYPES)(
@@ -213,6 +231,7 @@ def fused_page_write_quantized_cuda(kp, kps, vp, vps, k_new, v_new, positions,
         vps.data_ptr(), pos.data_ptr(), tab.data_ptr(),
         None if ql is None else ql.data_ptr(),
         b, t, page_table.shape[1], num_pages, kh, ps, h, layer, kn.element_size(),
+        int(table_prefetch(page_table.shape[1], True)),
         torch.cuda.current_stream(kp.device).cuda_stream,
     )
     if err != 0:

@@ -56,3 +56,16 @@ def test_argtypes_match_the_c_signature(name):
     assert not unknown, f"{name}: C types without a ctypes twin: {unknown}"
     assert [C_TYPES[t] for t in types] == list(BINDINGS[name]), (
         f"{name}: C takes {types}")
+
+
+def test_table_prefetch_limit_matches_the_kernel():
+    """The wrapper asks the page write kernel to prefetch a row's table
+    only up to the kernel's own limit (two entries a lane of a warp; the
+    kernel refuses a larger one), and only for the copy: the int8 pool
+    loads its entry while it quantizes."""
+    with open(os.path.join(CSRC, "page_write.cuh"), encoding="utf-8") as f:
+        limit = int(re.search(r"kPrefetchPages = (\d+);", f.read()).group(1))
+    assert paged_write.TABLE_PREFETCH_PAGES == limit == 64
+    rule = paged_write.table_prefetch
+    assert rule(16, False) and rule(limit, False) and not rule(limit + 1, False)
+    assert not rule(16, True) and not rule(limit, True)

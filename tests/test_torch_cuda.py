@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
 flash GQA attention (the split-KV decode kernel, the scalar tile kernel and
 the bf16 tensor-core prefill), ragged paged attention (the split-KV decode
-kernel and the tile kernel's query windows) and the fused page write, their
+kernel and the tile kernel's query windows) and the page write (one kernel
+for both pools, also behind its producer in a CUDA graph), their
 int8-cache twins (the split-KV decode kernel at its edges, and every decode
 launch bit-identical from launch to launch), and the int4 matmul (decode,
 prefill and f32 rows kernels).
@@ -164,28 +165,124 @@ def test_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, window):
         assert torch.equal(out, pa.ragged_paged_attention(*args))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [1, 4])
-def test_page_write_kernel_is_bit_exact(cuda, dtype, t):
+# Page-write cases: (name, B, T, table pages). "t1_b8" is a decode round of
+# 8 slots, two parked behind all-sentinel rows; "t4_qlens" windows of 4 with
+# q_lens, a parked row and a row that runs past its table; "all_dropped" a
+# round that writes nothing (every drop: negative, past the row, sentinel,
+# q_lens = 0); "long_table" a table of more than TABLE_PREFETCH_PAGES pages,
+# whose entry is loaded after the position.
+WRITE_CASES = [("t1_b8", 8, 1, 4), ("t4_qlens", 4, 4, 4), ("all_dropped", 8, 1, 4),
+               ("long_table", 8, 1, 80)]
+
+
+def write_inputs(cuda, case, kh, h, ps, dtype):
+    """(pool pages, k_new, v_new, positions, table, q_lens) of one case:
+    every kept sliver on its own (page, offset), so the plain version's
+    order of writes does not matter."""
+    name, b, t, np_tab = case
     g = torch.Generator(device=cuda).manual_seed(1)
-    n_layers, pages, kh, ps, h, b, np_tab = 3, 20, 8, 16, 128, 4, 4
-    kp = torch.randn((n_layers, pages, kh, ps, h), generator=g, device=cuda).to(dtype)
-    vp = torch.randn_like(kp)
     k_new = torch.randn((b, t, kh, h), generator=g, device=cuda).to(dtype)
-    v_new = torch.randn_like(k_new)
+    v_new = torch.randn((b, t, kh, h), generator=g, device=cuda).to(dtype)
+    k_new[0, 0, 1] = 0.0  # an all-zero row (the int8 pool: scale 1)
+    cap = np_tab * ps
+    if name == "long_table":
+        pages = b + 3
+        pos = torch.randint(0, cap, (b, 1), generator=g, device=cuda)
+        tab = torch.full((b, np_tab), pages, dtype=torch.int32, device=cuda)
+        tab[torch.arange(b, device=cuda), pos[:, 0] // ps] = torch.randperm(
+            pages, generator=g, device=cuda)[:b].int()
+        return pages, k_new, v_new, pos.int(), tab, None
+    pages = b * np_tab + 3
     tab = torch.randperm(pages, generator=g, device=cuda)[: b * np_tab]
     tab = tab.reshape(b, np_tab).int()
-    tab[3] = pages  # a parked row
-    pos = (torch.tensor([[0], [ps - 1], [np_tab * ps - 2], [5]], device=cuda)
-           + torch.arange(t, device=cuda)).int()  # row 2 runs past the row
-    qln = torch.tensor([t, max(1, t - 2), t, t], dtype=torch.int32, device=cuda)
+    starts = torch.randint(0, cap - t, (b, 1), generator=g, device=cuda)
+    pos = (starts + torch.arange(t, device=cuda)).int()
+    qln = None
+    if name == "t1_b8":
+        for i in (2, 6):  # parked slots, as a decode round has
+            tab[i] = pages
+            pos[i] = cap - 1
+    elif name == "t4_qlens":
+        tab[3] = pages            # a parked row
+        pos[2] = cap - 2 + torch.arange(t, device=cuda)  # runs past the row
+        qln = torch.tensor([t, 2, t, t], dtype=torch.int32, device=cuda)
+    else:  # all_dropped
+        pos[0:2] = -1
+        pos[2:4] = cap + torch.tensor([[0], [ps]], device=cuda)
+        tab[4:6] = pages
+        qln = torch.tensor([1, 1, 1, 1, 1, 1, 0, 0], dtype=torch.int32, device=cuda)
+    return pages, k_new, v_new, pos, tab, qln
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kh,h", [(32, 128), (8, 128), (32, 64), (8, 64)])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("case", WRITE_CASES, ids=[c[0] for c in WRITE_CASES])
+def test_page_write_kernel_is_bit_exact(cuda, dtype, kh, h, ps, case):
+    pages, k_new, v_new, pos, tab, qln = write_inputs(cuda, case, kh, h, ps, dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    kp = torch.randn((3, pages, kh, ps, h), generator=g, device=cuda).to(dtype)
+    vp = torch.randn_like(kp)
     kk, vk, kr, vr = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     before = dict(LAUNCHES)
     pw.fused_page_write(kk, vk, k_new, v_new, pos, tab, 1, qln)
     pw.fused_page_write_plain(kr, vr, k_new, v_new, pos, tab, 1, qln)
     torch.cuda.synchronize()
-    assert torch.equal(kk, kr) and torch.equal(vk, vr) and not torch.equal(kk, kp)
-    assert LAUNCHES["fused_page_write"] == before["fused_page_write"] + 1
+    assert torch.equal(kk, kr) and torch.equal(vk, vr)
+    # all_dropped leaves the pools as they were; every other case writes.
+    assert torch.equal(kk, kp) == (case[0] == "all_dropped")
+    assert LAUNCHES == dict(before, fused_page_write=before["fused_page_write"] + 1)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_page_write_is_exact_behind_its_producer_in_a_graph(cuda, quantized):
+    """The programmatic dependent launch against its producer: one CUDA
+    graph of 32 layers, each an in-place op that rewrites k_new, v_new and
+    the int64 positions, then the page write through the wrapper, whose
+    int32 casts of the positions and the int64 table run just before the
+    kernel. Replayed, every layer is bit-exact with the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n_layers, b, kh, h, ps, np_tab = 32, 8, 32, 128, 64, 16
+    pages = b * np_tab + 1
+    src_k = torch.randn((n_layers, b, 1, kh, h), generator=g, device=cuda).bfloat16()
+    src_v = torch.randn((n_layers, b, 1, kh, h), generator=g, device=cuda).bfloat16()
+    src_pos = torch.randint(0, np_tab * ps, (n_layers, b, 1), generator=g, device=cuda)
+    tab = torch.randperm(pages, generator=g, device=cuda)[: b * np_tab].reshape(b, np_tab)
+    shape = (n_layers, pages, kh, ps, h)
+    if quantized:
+        k8, ks = q8(torch.randn(shape, generator=g, device=cuda))
+        v8, vs = q8(torch.randn(shape, generator=g, device=cuda))
+        pools = [k8, ks, v8, vs]
+        write, plain = pw.fused_page_write_quantized, pw.fused_page_write_quantized_plain
+    else:
+        pools = [torch.randn(shape, generator=g, device=cuda).bfloat16() for _ in "kv"]
+        write, plain = pw.fused_page_write, pw.fused_page_write_plain
+    start = [x.clone() for x in pools]
+    k_new, v_new = torch.empty_like(src_k[0]), torch.empty_like(src_v[0])
+    pos = torch.empty_like(src_pos[0])
+
+    def step(layer):
+        k_new.copy_(src_k[layer])
+        v_new.copy_(src_v[layer])
+        pos.copy_(src_pos[layer])
+        write(*pools, k_new, v_new, pos, tab, layer)
+
+    step(0)  # loads the kernel before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for layer in range(n_layers):
+            step(layer)
+    for x, x0 in zip(pools, start):
+        x.copy_(x0)
+    graph.replay()
+    want = [x.clone() for x in start]
+    for layer in range(n_layers):
+        plain(*want, src_k[layer], src_v[layer], src_pos[layer], tab, layer)
+    torch.cuda.synchronize()
+    for x, w in zip(pools, want):
+        assert torch.equal(x, w)
+    assert not torch.equal(pools[0], start[0])
 
 
 def q8(x):
@@ -398,21 +495,14 @@ def test_decode_kernels_are_deterministic(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,h", [(1, 128), (4, 128), (1, 64)])
-def test_quantized_page_write_kernel_is_bit_exact(cuda, dtype, t, h):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    n_layers, pages, kh, ps, b, np_tab = 3, 20, 8, 16, 4, 4
-    kp, kps = q8(torch.randn((n_layers, pages, kh, ps, h), generator=g, device=cuda))
-    vp, vps = q8(torch.randn((n_layers, pages, kh, ps, h), generator=g, device=cuda))
-    k_new = torch.randn((b, t, kh, h), generator=g, device=cuda).to(dtype)
-    v_new = torch.randn((b, t, kh, h), generator=g, device=cuda).to(dtype)
-    k_new[0, 0, 1] = 0.0  # an all-zero row takes scale 1
-    tab = torch.randperm(pages, generator=g, device=cuda)[: b * np_tab]
-    tab = tab.reshape(b, np_tab).int()
-    tab[3] = pages  # a parked row
-    pos = (torch.tensor([[0], [ps - 1], [np_tab * ps - 2], [5]], device=cuda)
-           + torch.arange(t, device=cuda)).int()  # row 2 runs past the row
-    qln = torch.tensor([t, max(1, t - 2), t, t], dtype=torch.int32, device=cuda)
+@pytest.mark.parametrize("kh,h", [(32, 128), (8, 128), (32, 64), (8, 64)])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("case", WRITE_CASES, ids=[c[0] for c in WRITE_CASES])
+def test_quantized_page_write_kernel_is_bit_exact(cuda, dtype, kh, h, ps, case):
+    pages, k_new, v_new, pos, tab, qln = write_inputs(cuda, case, kh, h, ps, dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    kp, kps = q8(torch.randn((3, pages, kh, ps, h), generator=g, device=cuda))
+    vp, vps = q8(torch.randn((3, pages, kh, ps, h), generator=g, device=cuda))
     got = [x.clone() for x in (kp, kps, vp, vps)]
     want = [x.clone() for x in (kp, kps, vp, vps)]
     before = dict(LAUNCHES)
@@ -420,9 +510,9 @@ def test_quantized_page_write_kernel_is_bit_exact(cuda, dtype, t, h):
     pw.fused_page_write_quantized_plain(*want, k_new, v_new, pos, tab, 1, qln)
     torch.cuda.synchronize()
     assert all(torch.equal(a, w) for a, w in zip(got, want))
-    assert not torch.equal(got[0], kp)
-    assert (LAUNCHES["fused_page_write_quantized"]
-            == before["fused_page_write_quantized"] + 1)
+    assert torch.equal(got[0], kp) == (case[0] == "all_dropped")
+    assert LAUNCHES == dict(before, fused_page_write_quantized=before[
+        "fused_page_write_quantized"] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -210,6 +210,32 @@ def test_fused_page_write_matches_reference_bitwise(rng, with_q_lens):
         np.testing.assert_array_equal(tk[0].numpy(), kp[0])  # other layer untouched
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("bad", ["head_dim", "misaligned"])
+def test_page_write_launchers_refuse_what_the_kernel_does_not_take(quantized, bad):
+    """The CUDA launchers check their inputs before they build or launch
+    anything: the kernel has head_dim 64 and 128 only, and its lanes move
+    the slivers in 8- to 32-byte accesses, so they must be 16-byte
+    aligned. Checked on CPU tensors, which reach no kernel."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_write as pw
+
+    h = 32 if bad == "head_dim" else 64
+    b, kh, ps, pages = 2, 2, 8, 4
+    kp = torch.zeros((1, pages, kh, ps, h), dtype=torch.int8 if quantized else torch.float32)
+    k_new = torch.zeros(b * kh * h + 1)[1:].view(b, 1, kh, h)  # 4 bytes past 16
+    if bad == "head_dim":
+        k_new = torch.zeros((b, 1, kh, h))
+    pos, tab = torch.zeros((b, 1), dtype=torch.int32), torch.zeros((b, 2), dtype=torch.int32)
+    pools = (kp, torch.zeros(kp.shape[:4]), kp.clone(), torch.zeros(kp.shape[:4])) \
+        if quantized else (kp, kp.clone())
+    launch = pw.fused_page_write_quantized_cuda if quantized else pw.fused_page_write_cuda
+    match = "head_dim 64 or 128" if bad == "head_dim" else "16-byte aligned"
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        launch(*pools, k_new, k_new, pos, tab, 0)
+    assert LAUNCHES == before
+
+
 def test_allocator_matches_jax_on_a_random_op_sequence(rng):
     ours, ref = PageAllocator(12, 8), JaxAllocator(12, 8)
     held = []
