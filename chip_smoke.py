@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                # the whole run (one card)
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
-    python3 chip_smoke.py --timing-only  # phases 1, 2 and 8 alone
+    python3 chip_smoke.py --timing-only  # phases 1, 2 and 10 alone
     python3 chip_smoke.py --sweep        # phases 1, 2, then the split sweep
 
 `--timing-only` times the package that sits beside this file, so a copy of
@@ -11,7 +11,7 @@ this file placed in an unpacked archive of another commit times that
 commit's kernels at the same shapes (for comparing two commits in one
 call, in turns). `--sweep` times each decode launch (T == 1, bf16 and int8
 caches, contiguous and paged) at every cluster size of SWEEP_SPLITS beside
-the split plan's pick, at phase 8's shapes.
+the split plan's pick, at phase 10's shapes.
 
 Phases, each fatal on failure:
 
@@ -36,7 +36,9 @@ Phases, each fatal on failure:
      live length; and the prefill launch at the scheduler's chunked-prefill
      shapes (7B and 3B, groups of 6-8 rows, buckets of 128, 32 and 16 over
      S = 1024 row views, chunk starts after prefix reuse that end mid-page,
-     default kv_lens);
+     default kv_lens); the decode launch also at the contiguous scheduler's
+     8 slots over the whole cache (7B over 4096, 3B over 8192; six live
+     rows, two parked at kv_lens = 0, NaN in every dead slot);
    - the ragged paged attention kernel at the 7B, 3B and 1B shapes, T = 1,
      B = 8 as the scheduler's slots, through permuted tables with sentinel
      entries, parked rows (all-sentinel, kv_lens = 0) and NaN planted in
@@ -66,8 +68,9 @@ Phases, each fatal on failure:
      straddle the decode / prefill crossover).
 4. Small references, 2-layer f32 models (H = 64): greedy tokens through the
    kernels on the card must equal the plain versions' on the CPU, for the
-   engine and for the paged scheduler (page 16, shared prefixes); then the
-   same with int4 weights and the int8 KV cache.
+   engine, the paged scheduler (page 16, shared prefixes) and the
+   contiguous scheduler (the same traffic); then the same with int4
+   weights and the int8 KV cache.
 5. Engine serve: a GenerationService with EngineBackends for `duckdb-nsql`
    (DUCKDB_NSQL_7B, full width and depth) and `llama3.2` (LLAMA32_3B on the
    llama3-chat template), random bf16 weights from a seed, ByteTokenizer.
@@ -90,23 +93,51 @@ Phases, each fatal on failure:
    With --profile, one 7B engine request and six concurrent 7B scheduler
    requests run under torch.profiler: device busy share and device time
    by kernel group.
-7. Quantized serve: DUCKDB_NSQL_7B at full width and depth with int4 block
+7. Contiguous scheduler serve, the reference app's default: the same
+   weights behind ContinuousBatchingSchedulers with `kv_layout` and
+   `max_seq` left at their defaults (contiguous; 4096 for 7B, 8192 for 3B:
+   a 16 GiB and a 7.5 GiB cache), 8 slots, decode_chunk 8. Phase 6's
+   traffic. Launch counts exact: flash decode num_layers x decode_chunk x
+   rounds, flash prefill num_layers x prefill forwards (each chunk runs
+   over its slots' own cache rows, one layer at a time). The schema prefix
+   must hit; one decode step over the live cache (the longest cached
+   prefix's blocks) through the kernels must agree with the plain
+   versions, at full depth and on an f32 copy of two layers, and a fault
+   planted on the plain side (each odd block a copy of the block before
+   it) must miss.
+8. App: `POST /process-data/` through the port's API app
+   (`create_api_app(service, SQLiteBackend, SQLiteHistory(":memory:"),
+   cfg)`, a temporary `data/input/taxi.csv`, the WSGI test client) on
+   phase 7's schedulers: three requests one after the other, then four
+   from threads. The SQL model's text is decoded byte id mod 256 (random
+   weights almost never pick one of the ByteTokenizer's own ids, and
+   SQLite runs empty SQL as a success), so every request walks the failure
+   path: generate, execute, two repair regenerations, the 3B explanation.
+   Each body must have tests/test_app.py's failure shape; launch counts
+   exact; wall and TTFT per request. Then the entry point as a user starts
+   it, `python -m llm_based_apache_spark_optimization_tpu_torch.app
+   --backend tiny --api` in a process of its own on the card: one `POST
+   /process-data/` over HTTP on localhost, then SIGTERM, and it must drain
+   and exit 0.
+9. Quantized serve: DUCKDB_NSQL_7B at full width and depth with int4 block
    weights (`quantize_params_int4` of the seed-0 bf16 tree, on the card)
    and the int8 KV cache: an `EngineBackend` over an
    `InferenceEngine(kv_quant="int8")` serves two NL->SQL requests and a
    batch of four, then a `SchedulerBackend` over a paged
    `ContinuousBatchingScheduler(kv_quant="int8")` (settings of phase 6)
-   two requests one after the other and six at once. Launch counts exact:
-   int4 matmuls 7 x layers x forwards (one launch a call: a split of the
-   contraction axis is added up inside a thread-block cluster), quantized
-   decode attention layers x engine decode steps, quantized paged read and
-   write layers x decode_chunk x rounds, flash prefill layers x prefill
-   forwards. Prefill logits through the kernels agree with the plain
+   two requests one after the other and six at once, then the same over a
+   contiguous `ContinuousBatchingScheduler(kv_quant="int8")` (8 slots x
+   4096). Launch counts exact: int4 matmuls 7 x layers x forwards (one
+   launch a call: a split of the contraction axis is added up inside a
+   thread-block cluster), quantized decode attention layers x engine
+   decode steps (contiguous scheduler: x decode_chunk x rounds), quantized
+   paged read and write layers x decode_chunk x rounds, flash prefill
+   layers x prefill forwards. Prefill logits through the kernels agree with the plain
    versions'; the prefix
    cache hits, shares and leaks no page; the live int8 pool's decode step
-   is checked as in phase 6. With --profile, six concurrent requests under
-   torch.profiler.
-8. Timing at the main paths' shapes (one CUDA graph of one call per layer,
+   is checked as in phase 6, the live int8 cache's as in phase 7. With
+   --profile, six concurrent requests under torch.profiler.
+10. Timing at the main paths' shapes (one CUDA graph of one call per layer,
    each on its own layer so K/V and weights come from device memory,
    replayed between CUDA events): kernel, plain version and a PyTorch
    yardstick the port never calls (`scaled_dot_product_attention`, over
@@ -117,7 +148,9 @@ Phases, each fatal on failure:
    call computes the int4 function). The flash prefill at the 7B prompt
    and at the scheduler's prefill chunk (B = 8, T = 128, S = 1024); the
    decode attention, over the bf16 and the int8 cache, at the engine's B =
-   1 and its batch of four (S = 512, rows at the prompts' 317-443 tokens);
+   1 and its batch of four (S = 512, rows at the prompts' 317-443 tokens)
+   and at the contiguous scheduler's 8 slots (S = 4096, six rows at the
+   concurrent requests' 334-460 tokens, two parked; 8 layers cycled);
    the paged reads and the page writes at the scheduler's 8 slots (live
    64-1024; each write also with every sliver dropped, its floor, and with
    the table prefetch forced on and off); the int4 matmul for 7B's `wq` and `wd` at R =
@@ -134,6 +167,7 @@ Exits non-zero, printing no result, without CUDA or without the package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -307,6 +341,15 @@ def cases():
                                        positions=[[50], [120], [263]],
                                        kv_lens=[0, 100, 264], nan_dead=True)),
     ]
+    # The contiguous scheduler's decode: 8 slots over the whole cache (7B:
+    # 4096, 3B: 8192), six live rows and two parked (position max_seq - 1,
+    # kv_lens 0), NaN in every dead slot.
+    for model, n, kh, s in (("7b", 32, 32, 4096), ("3b", 24, 8, 8192)):
+        live = [318, 357, 390, 412, 444, 1000]
+        out.append(("decode", f"{model}_contig_b8", dict(
+            b=8, t=1, n=n, kh=kh, h=128, s=s,
+            positions=[[p - 1] for p in live] + [[s - 1], [s - 1]],
+            kv_lens=live + [0, 0], nan_dead=True)))
     return out
 
 
@@ -728,9 +771,10 @@ def tree_to(tree, device):
 def small_reference(torch, quantized=False):
     """Greedy tokens of a 2-layer f32 model (H = 64, GQA) through the
     kernels on the card == through the plain versions on the CPU: the
-    engine, and the paged scheduler (8-token prefix blocks in 16-token
-    pages, prompts that share a 41-token prefix: the cache hits, and copies
-    the page where the match ends mid-page). `quantized`: int4 block
+    engine, the paged scheduler (8-token prefix blocks in 16-token pages,
+    prompts that share a 41-token prefix: the cache hits, and copies the
+    page where the match ends mid-page) and the contiguous scheduler (the
+    same traffic: its block copies hit). `quantized`: int4 block
     weights (`quantize_params_int4`) and the int8 KV cache in both."""
     import dataclasses
 
@@ -767,20 +811,24 @@ def small_reference(torch, quantized=False):
 
     prefix = [1] + list(range(100, 140))
     sched_prompts = [prefix + [200 + i] for i in range(3)] + prompts
-    outs = {}
-    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-        with ContinuousBatchingScheduler(
-                cfg, params, num_slots=4, decode_chunk=4, prompt_bucket=8,
-                stop_ids=(-1,), kv_layout="paged", kv_page_size=16, kv_quant=kv_quant,
-                device=dev) as s:
-            seq = [s.submit(p, 16).result(timeout=600) for p in sched_prompts[:3]]
-            futs = [s.submit(p, 16) for p in sched_prompts]
-            outs[dev] = seq + [f.result(timeout=600) for f in futs]
-            hits, cow = s.prefix_stats["hits"], s.page_stats["cow_copies"]
-        print(f"  [{label}] scheduler {dev}: prefix hits {hits}, cow copies {cow}: "
-              f"{outs[dev]}", flush=True)
-    assert outs["cuda"] == outs["cpu"], f"[{label}] scheduler on the card != on the CPU"
-    assert hits > 0 and cow > 0, f"[{label}] the small scheduler's prefix cache never hit"
+    for layout in ("paged", "contiguous"):
+        outs = {}
+        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            with ContinuousBatchingScheduler(
+                    cfg, params, num_slots=4, decode_chunk=4, prompt_bucket=8,
+                    stop_ids=(-1,), kv_layout=layout, kv_page_size=16,
+                    kv_quant=kv_quant, device=dev) as s:
+                seq = [s.submit(p, 16).result(timeout=600) for p in sched_prompts[:3]]
+                futs = [s.submit(p, 16) for p in sched_prompts]
+                outs[dev] = seq + [f.result(timeout=600) for f in futs]
+                hits = s.prefix_stats["hits"]
+                cow = s.page_stats["cow_copies"] if layout == "paged" else None
+            print(f"  [{label}] {layout} scheduler {dev}: prefix hits {hits}, cow copies "
+                  f"{cow}: {outs[dev]}", flush=True)
+        assert outs["cuda"] == outs["cpu"], (
+            f"[{label}] {layout} scheduler on the card != on the CPU")
+        assert hits > 0, f"[{label}] the small {layout} scheduler's prefix cache never hit"
+        assert layout != "paged" or cow > 0, f"[{label}] no page was copied on write"
 
 
 # ----------------------------------------------------------------- serve
@@ -1131,6 +1179,428 @@ def scheduler_serve(torch, engines, profile=False):
     return launches
 
 
+def wait_settled(sched, timeout=60.0):
+    """Futures resolve before the worker releases the slot and drains its
+    last round: poll until no slot is held and no round is in flight (the
+    contiguous layout keeps no page accounting to poll)."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if not sched._pending and all(r is None for r in sched._slot_req):
+            return
+        time.sleep(0.01)
+    raise AssertionError("scheduler did not settle")
+
+
+def expect_contiguous(expected, sched, rounds, prefills):
+    """Add a contiguous scheduler's launches to `expected`: its decode
+    kernel (int8 cache: the quantized one) layers x decode_chunk x rounds,
+    the flash prefill layers x prefill forwards, and over int4 weights the
+    int4 matmul 7 x layers x forwards."""
+    n_layers = sched.cfg.num_layers
+    decode = "flash_gqa_decode_quantized" if sched.kv_quant else "flash_gqa_decode"
+    expected[decode] += n_layers * sched.decode_chunk * rounds
+    expected["flash_gqa_prefill"] += n_layers * prefills
+    if isinstance(sched.params["blocks"]["wq"], dict):
+        expected["int4_matmul"] += 7 * n_layers * (sched.decode_chunk * rounds + prefills)
+
+
+def live_cache_logits(torch, sched):
+    """One decode step over a contiguous scheduler's cache, as
+    `live_pool_logits` does over the pool: the longest cached prefix's
+    blocks copied into one row (the scheduler's own `_restore_block`
+    layout), then the token at the prefix's last position attending to all
+    of it, through the kernels and through the plain versions, at full
+    depth in the serving dtype (LOGIT_TOL) and on an f32 copy of two layers
+    (F32_LOGIT_TOL). A control copies each even block over the odd block
+    after it on the plain side (a kernel that read the wrong block for half
+    the prefix): it must miss by more than each tolerance."""
+    import dataclasses
+
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        set_attention_impl,
+    )
+
+    pb = sched._pblock
+    key = max(sched._prefix_cache, key=len)
+    n_use = len(key) - 1
+    assert n_use >= 2 * pb, f"the cached prefix ({len(key)} tokens) spans < 2 blocks"
+    row = {n: torch.zeros_like(c[:, :1]) for n, c in sched._cache.items()}
+    for j in range(len(key) // pb):
+        block = sched._prefix_cache[key[: (j + 1) * pb]]
+        for n, c in row.items():
+            c[:, 0, :, j * pb:(j + 1) * pb] = block[n][:, 0]
+    fault = {n: c.clone() for n, c in row.items()}
+    for j in range(1, len(key) // pb, 2):
+        for c in fault.values():
+            c[:, 0, :, j * pb:(j + 1) * pb] = c[:, 0, :, (j - 1) * pb:j * pb]
+    tokens = torch.tensor([[key[n_use]]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([[n_use]], dtype=torch.int32, device="cuda")
+    kvl = torch.tensor([n_use + 1], dtype=torch.int32, device="cuda")
+
+    def step(cfg, params, cache, impl):
+        set_attention_impl(impl)
+        try:
+            logits, _ = forward(cfg, params, tokens, pos,
+                                {n: c.clone() for n, c in cache.items()}, kv_lens=kvl)
+        finally:
+            set_attention_impl("auto")
+        assert logits.shape == (1, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+        return logits
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def f32(x):  # floating tensors to f32; int8 caches and q4 nibbles as they are
+        return x.float() if x.is_floating_point() else x.clone()
+
+    def two_layers(tree):
+        if isinstance(tree, dict):
+            return {k: two_layers(v) for k, v in tree.items()}
+        return f32(tree[:2])
+
+    cfg2 = dataclasses.replace(sched.cfg, num_layers=2)
+    with torch.inference_mode():
+        lk = step(sched.cfg, sched.params, row, "auto")
+        lp = step(sched.cfg, sched.params, row, "plain")
+        lf = step(sched.cfg, sched.params, fault, "plain")
+        p2 = {k: two_layers(v) if k == "blocks" else f32(v)
+              for k, v in sched.params.items()}
+        row2, fault2 = two_layers(row), two_layers(fault)
+        lk2 = step(cfg2, p2, row2, "auto")
+        lp2 = step(cfg2, p2, row2, "plain")
+        lf2 = step(cfg2, p2, fault2, "plain")
+        del p2, row2, fault2, row, fault
+    kind = "int8" if sched.kv_quant else "bf16"
+    out = {}
+    for label, k_, p_, f_, tol in (
+            (f"{sched.cfg.num_layers} layers", lk, lp, lf, LOGIT_TOL),
+            ("f32, 2 layers", lk2, lp2, lf2, F32_LOGIT_TOL)):
+        out[label] = (rel(k_, p_), rel(f_, p_), tol)
+        print(f"  {sched.cfg.name} decode logits on the live contiguous {kind} cache after "
+              f"{n_use} cached tokens ({label}): kernel vs plain max|diff|/max|logit| = "
+              f"{out[label][0]:.3e} (tol {tol:.0e}), argmax equal: "
+              f"{int(k_.argmax()) == int(p_.argmax())}; odd-block fault vs plain "
+              f"{out[label][1]:.3e}", flush=True)
+    for label, (err, fault_err, tol) in out.items():
+        assert err <= tol, f"live cache ({label}): kernel vs plain {err} > {tol}"
+        assert fault_err > tol, (f"live cache ({label}): an odd-block fault moves the "
+                                 f"logits by {fault_err}, within the tolerance {tol}")
+    return out
+
+
+def send_traffic(svc, sql_model="duckdb-nsql", err_model=None):
+    """Two NL->SQL requests one after the other, then six at once from
+    threads, beside one error explanation on `err_model` when given.
+    Returns [(model, kind, result)] and the walls (t0, t_burst, t_end)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    results = []
+    t0 = time.perf_counter()
+    for qn in SCHED_SQL[:2]:
+        results.append((sql_model, "sequential",
+                        svc.generate(sql_model, qn, system=SYSTEM_SQL)))
+    t_burst = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=7) as pool:
+        futs = [pool.submit(svc.generate, sql_model, qn, SYSTEM_SQL)
+                for qn in SCHED_SQL[2:]]
+        err = (pool.submit(svc.generate, err_model, ERROR_PROMPT, SYSTEM_ERR)
+               if err_model else None)
+        results += [(sql_model, "concurrent", f.result()) for f in futs]
+        if err is not None:
+            results.append((err_model, "concurrent", err.result()))
+    return results, (t0, t_burst, time.perf_counter())
+
+
+def report_traffic(results, walls, **labels):
+    t0, t_burst, t_end = walls
+    for model, kind, r in results:
+        dec_s = r.latency_s - r.ttft_s
+        rate = (r.output_tokens - 1) / dec_s if r.output_tokens > 1 and dec_s > 0 else 0.0
+        print("  " + json.dumps(dict(
+            model=model, **labels, kind=kind, prompt_tokens=r.prompt_tokens,
+            output_tokens=r.output_tokens, latency_s=round(r.latency_s, 4),
+            ttft_s=round(r.ttft_s, 4), decode_tok_per_s=round(rate, 1))), flush=True)
+    burst = sum(r.output_tokens for _, kind, r in results if kind == "concurrent")
+    total = sum(r.output_tokens for _, _, r in results)
+    print(f"  aggregate: {total} tokens in {t_end - t0:.3f} s = "
+          f"{total / (t_end - t0):.1f} tok/s; concurrent burst {burst} tokens in "
+          f"{t_end - t_burst:.3f} s = {burst / (t_end - t_burst):.1f} tok/s", flush=True)
+
+
+def contiguous_serve(torch, engines):
+    """The contiguous-layout scheduler path, the reference app's default:
+    7B and 3B at full width and depth behind SchedulerBackends, `kv_layout`
+    and `max_seq` left at their defaults (4096 and 8192), 8 slots. Exact
+    launch counts (the flash decode kernel over the slots' rows, the flash
+    prefill over the chunks' rows), prefix block hits, and the live cache's
+    decode step kernel vs plain. Returns (launches, schedulers)."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import cache_bytes
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        GenerationService,
+        SchedulerBackend,
+        resolve_stop_ids,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    torch.cuda.empty_cache()
+    scheds = {name: ContinuousBatchingScheduler(
+        eng.cfg, eng.params, num_slots=8, decode_chunk=8,
+        stop_ids=resolve_stop_ids(eng.cfg, tok), device="cuda")
+        for name, eng in engines.items()}
+    for name, sc in scheds.items():
+        assert sc.kv_layout == "contiguous" and sc.max_seq == sc.cfg.max_seq_len
+        print(f"  {name}: contiguous cache of {sc.num_slots} slots x {sc.max_seq} = "
+              f"{cache_bytes(sc.cfg, sc.num_slots, sc.max_seq) / 2**30:.2f} GiB; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    svc = GenerationService()
+    svc.register("duckdb-nsql", SchedulerBackend(scheds["duckdb-nsql"], tok,
+                                                 max_new_tokens=MAX_NEW))
+    svc.register("llama3.2", SchedulerBackend(scheds["llama3.2"], tok,
+                                              max_new_tokens=MAX_NEW, add_bos=False),
+                 template="llama3-chat")
+    torch.cuda.synchronize()
+    reset_launches()
+    start = {n: (sc.rounds_issued, sc.prefill_forwards) for n, sc in scheds.items()}
+    results, walls = send_traffic(svc, err_model="llama3.2")
+    for sc in scheds.values():
+        wait_settled(sc)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    expected = dict.fromkeys(LAUNCHES, 0)
+    for n, sc in scheds.items():
+        rounds = sc.rounds_issued - start[n][0]
+        prefills = sc.prefill_forwards - start[n][1]
+        expect_contiguous(expected, sc, rounds, prefills)
+        print(f"  {n}: {rounds} decode rounds, {prefills} prefill forwards; "
+              f"prefix {sc.prefix_stats}", flush=True)
+    report_traffic(results, walls, layout="contiguous")
+    print(f"  launches {launches} expected {expected}", flush=True)
+    assert launches == expected, f"launch counts {launches} != {expected}"
+    for k in ("flash_gqa_prefill", "flash_gqa_decode"):
+        assert launches[k] > 0, f"the contiguous scheduler path never launched {k}"
+    assert scheds["duckdb-nsql"].prefix_stats["hits"] > 0, "the schema prefix never hit"
+    for r in (r for _, _, r in results):
+        assert r.output_tokens > 0 and r.ttft_s > 0
+    live_cache_logits(torch, scheds["duckdb-nsql"])
+    return launches, scheds
+
+
+CSV = ("VendorID,passenger_count,trip_distance,payment_type,fare_amount,tip_amount,"
+       "total_amount\n" + "".join(
+           f"{1 + i % 2},{1 + i % 4},{0.5 + i * 0.37:.2f},{('card', 'cash')[i % 2]},"
+           f"{5 + i * 1.25:.2f},{i % 3 * 0.75:.2f},{6 + i * 1.5:.2f}\n" for i in range(64)))
+APP_QUESTIONS = [
+    "What is the total fare per vendor?",
+    "How many trips were paid by card?",
+    "What is the average tip amount for each passenger count?",
+    "Which payment type has the highest average total amount?",
+    "List the five longest trips.",
+    "What is the mean trip distance per vendor?",
+    "Count the trips with more than two passengers.",
+]
+
+
+class ByteModTokenizer:
+    """ByteTokenizer whose decode maps every id to byte id mod 256: random
+    7B weights almost never pick one of the ByteTokenizer's 259 ids, so
+    its text would be empty, and SQLite runs empty SQL as a success. With
+    this decode the random model writes bytes, so each request walks the
+    failure path (the app phase's purpose). Encode is ByteTokenizer's."""
+
+    def __init__(self):
+        from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+        self._tok = ByteTokenizer()
+        self.eos_ids = ()
+
+    def encode(self, text, add_bos=True):
+        return self._tok.encode(text, add_bos=add_bos)
+
+    def decode(self, ids):
+        return bytes(i % 256 for i in ids).decode("utf-8", errors="replace")
+
+
+def app_serve(torch, scheds):
+    """`POST /process-data/` through the port's app on the contiguous 7B and
+    3B schedulers: `create_api_app(service, SQLiteBackend,
+    SQLiteHistory(":memory:"), cfg)` over a temporary `data/input/taxi.csv`,
+    driven through the WSGI test client, three requests one after the
+    other, then four from threads. Random weights write SQL that fails, so
+    each request runs generate, execute, up to two repair regenerations and
+    the 3B explanation; each body must have the failure shape of
+    tests/test_app.py. The history store records successful runs only (as
+    the reference's `query_results`), so it must hold none, and the web
+    app's `GET /history` over it must answer. Launch counts exact over the
+    phase; wall and TTFT (of the NL->SQL generate) per request. Returns the
+    launches."""
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_based_apache_spark_optimization_tpu_torch.app import (
+        AppConfig,
+        create_api_app,
+        create_web_app,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        GenerationService,
+        SchedulerBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+
+    generated = []
+    lock = threading.Lock()
+
+    class RecordingService(GenerationService):
+        def generate(self, model, prompt, *a, **kw):
+            res = super().generate(model, prompt, *a, **kw)
+            with lock:
+                generated.append((model, res))
+            return res
+
+    tok = ByteModTokenizer()
+    svc = RecordingService()
+    svc.register("duckdb-nsql", SchedulerBackend(scheds["duckdb-nsql"], tok,
+                                                 max_new_tokens=MAX_NEW))
+    svc.register("llama3.2", SchedulerBackend(scheds["llama3.2"], tok,
+                                              max_new_tokens=MAX_NEW, add_bos=False),
+                 template="llama3-chat")
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        os.makedirs(os.path.join(data, "input"))
+        with open(os.path.join(data, "input", "taxi.csv"), "w") as f:
+            f.write(CSV)
+        cfg = AppConfig(input_dir=os.path.join(data, "input"),
+                        output_dir=os.path.join(data, "output"),
+                        history_db=":memory:", max_new_tokens=MAX_NEW)
+        history = SQLiteHistory(":memory:")
+        client = create_api_app(svc, SQLiteBackend, history, cfg).test_client()
+
+        def post(qn):
+            t = time.perf_counter()
+            res = client.post_json("/process-data/",
+                                   {"input_text": qn, "file_name": "taxi.csv"})
+            return res, time.perf_counter() - t
+
+        torch.cuda.synchronize()
+        reset_launches()
+        start = {n: (sc.rounds_issued, sc.prefill_forwards) for n, sc in scheds.items()}
+        t0 = time.perf_counter()
+        responses = [(qn, "sequential") + post(qn) for qn in APP_QUESTIONS[:3]]
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            futs = [(qn, pool.submit(post, qn)) for qn in APP_QUESTIONS[3:]]
+            responses += [(qn, "concurrent") + f.result() for qn, f in futs]
+        wall = time.perf_counter() - t0
+        for sc in scheds.values():
+            wait_settled(sc)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        hist_page = create_web_app(svc, SQLiteBackend, history, cfg).test_client().get(
+            "/history")
+    assert history.count() == 0 and hist_page.status == 200, "failed runs were recorded"
+    expected = dict.fromkeys(LAUNCHES, 0)
+    for n, sc in scheds.items():
+        expect_contiguous(expected, sc, sc.rounds_issued - start[n][0],
+                          sc.prefill_forwards - start[n][1])
+    by_model = {}
+    for model, _ in generated:
+        by_model[model] = by_model.get(model, 0) + 1
+    for qn, kind, res, t in responses:
+        body = res.json()
+        rid = res.headers["X-Request-Id"]
+        first = next(r for m, r in generated if r.request_id == rid)
+        print("  " + json.dumps(dict(
+            kind=kind, status=res.status, wall_s=round(t, 4),
+            ttft_s=round(first.ttft_s, 4), sql_bytes=len(body.get("sql_query", "")),
+            details_bytes=len(body.get("error_details", "")),
+            keys=sorted(body))), flush=True)
+        assert res.status == 200, body
+        assert set(body) == {"error", "sql_query", "error_details"}, body
+        assert body["error"] == "SQL execution failed" and body["error_details"]
+    print(f"  seven requests in {wall:.3f} s; generates by model {by_model}", flush=True)
+    print(f"  launches {launches} expected {expected}", flush=True)
+    assert launches == expected, f"launch counts {launches} != {expected}"
+    assert by_model.get("llama3.2", 0) == len(responses), "an explanation did not run"
+    assert by_model["duckdb-nsql"] >= len(responses)
+    return launches
+
+
+def entry_point(torch, device_args=()):
+    """The entry point as a user starts it, in a process of its own:
+    `python -m <package>.app --backend tiny --api` (contiguous schedulers
+    on the card) over a temporary input directory; wait for `/healthz`,
+    `POST /process-data/` once, then SIGTERM (the graceful drain), and the
+    process must exit 0. Its launches are its own process's, outside every
+    counted window."""
+    import signal
+    import socket
+    import tempfile
+    import urllib.request
+
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "data", "input"))
+        with open(os.path.join(root, "data", "input", "taxi.csv"), "w") as f:
+            f.write(CSV)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = dict(os.environ, LSOT_HISTORY_DB=":memory:",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        cmd = [sys.executable, "-m", f"{PKG}.app", "--backend", "tiny", "--api",
+               "--port", str(port), *device_args]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        url = f"http://127.0.0.1:{port}"
+        try:
+            while True:
+                assert proc.poll() is None, f"the app exited: {proc.stdout.read()}"
+                assert time.perf_counter() - t0 < 180, "the app did not come up"
+                try:
+                    with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
+                        if json.loads(r.read()) == {"status": "ok"}:
+                            break
+                except OSError:
+                    time.sleep(0.5)
+            t_up = time.perf_counter() - t0
+            req = urllib.request.Request(
+                f"{url}/process-data/", method="POST",
+                data=json.dumps({"input_text": APP_QUESTIONS[0],
+                                 "file_name": "taxi.csv"}).encode(),
+                headers={"Content-Type": "application/json"})
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                status, body = r.status, json.loads(r.read())
+            wall = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+        log = proc.stdout.read()
+    print(f"  `python {' '.join(cmd[1:])}`: up in {t_up:.1f} s; POST /process-data/ "
+          f"{status} in {wall:.3f} s, keys {sorted(body)}; exit {rc} after SIGTERM",
+          flush=True)
+    assert status == 200 and (set(body) == {"error", "sql_query", "error_details"}
+                              or body.get("message") == "Query executed successfully!"), body
+    assert rc == 0 and "SIGTERM: draining" in log, log
+
+
 def quantized_serve(torch, engines, profile=False):
     """The quantized serving path: DUCKDB_NSQL_7B at full width and depth
     with int4 block weights quantized on the card from the seed-0 bf16 tree,
@@ -1298,7 +1768,40 @@ def quantized_serve(torch, engines, profile=False):
     st = sched.page_stats
     assert st["pages_in_use"] == st["prefix_resident_pages"], f"leaked pages: {st}"
     live_pool_logits(torch, sched)
-    return {"engine": engine_launches, "scheduler": sched_launches}
+    del svc, sb, sched
+    torch.cuda.empty_cache()
+
+    # The contiguous layout over the int8 cache: 8 slots x 4096.
+    sched = ContinuousBatchingScheduler(cfg, params4, num_slots=8, decode_chunk=8,
+                                        stop_ids=stop_ids, kv_quant="int8", device="cuda")
+    assert sched.kv_layout == "contiguous" and sched.max_seq == cfg.max_seq_len
+    sb = SchedulerBackend(sched, tok, max_new_tokens=MAX_NEW)
+    svc = GenerationService()
+    svc.register("duckdb-nsql", sb)
+    print(f"  contiguous int8 cache of {sched.num_slots} slots x {sched.max_seq}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    r0, p0 = sched.rounds_issued, sched.prefill_forwards
+    results, walls = send_traffic(svc)
+    wait_settled(sched)
+    torch.cuda.synchronize()
+    contig_launches = dict(LAUNCHES)
+    rounds, prefills = sched.rounds_issued - r0, sched.prefill_forwards - p0
+    want = dict.fromkeys(LAUNCHES, 0)
+    expect_contiguous(want, sched, rounds, prefills)
+    print(f"  {rounds} decode rounds, {prefills} prefill forwards; "
+          f"prefix {sched.prefix_stats}", flush=True)
+    report_traffic(results, walls, weights="int4", kv="int8", layout="contiguous")
+    print(f"  contiguous scheduler launches {contig_launches} expected {want}", flush=True)
+    assert contig_launches == want, f"launch counts {contig_launches} != {want}"
+    for k in ("int4_matmul", "flash_gqa_prefill", "flash_gqa_decode_quantized"):
+        assert contig_launches[k] > 0, f"the quantized contiguous path never launched {k}"
+    assert sched.prefix_stats["hits"] > 0, "the schema prefix never hit"
+    sb.shutdown()
+    live_cache_logits(torch, sched)
+    return {"engine": engine_launches, "scheduler": sched_launches,
+            "contiguous": contig_launches}
 
 
 # --------------------------------------------------------------- profile
@@ -1370,9 +1873,10 @@ def time_ms(torch, fn, calls, reps=20):
     return start.elapsed_time(end) / (reps * calls)
 
 
-def time_launch(torch, attn_mod, n, kh, h, layers, b, t, s, positions):
+def time_launch(torch, attn_mod, n, kh, h, layers, b, t, s, positions, kv_lens=None):
     """Kernel, plain and SDPA times on one layer's shapes, cycling over a
-    [layers, B, K, S, H] cache so reads come from device memory."""
+    [layers, B, K, S, H] cache so reads come from device memory. `kv_lens`
+    defaults to max(position) + 1 a row (0 for a parked row)."""
     import torch.nn.functional as F
 
     dev, dt = "cuda", torch.bfloat16
@@ -1381,7 +1885,8 @@ def time_launch(torch, attn_mod, n, kh, h, layers, b, t, s, positions):
     kc = torch.randn((layers, b, kh, s, h), generator=g, device=dev).to(dt)
     vc = torch.randn((layers, b, kh, s, h), generator=g, device=dev).to(dt)
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-    kvl = pos.max(dim=1).values + 1
+    kvl = (pos.max(dim=1).values + 1 if kv_lens is None
+           else torch.tensor(kv_lens, dtype=torch.int32, device=dev))
     ms = time_ms(torch, lambda i: attn_mod.flash_gqa_attention_cuda(
         q, kc[i % layers], vc[i % layers], pos, None, kvl), layers)
     plain = time_ms(torch, lambda i: attn_mod.flash_gqa_attention_plain(
@@ -1407,7 +1912,8 @@ def time_launch(torch, attn_mod, n, kh, h, layers, b, t, s, positions):
     return dict(ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                shape=dict(B=b, T=t, N=n, K=kh, S=s, H=h, dtype="bfloat16"))
+                shape=dict(B=b, T=t, N=n, K=kh, S=s, H=h, dtype="bfloat16",
+                           **({} if kv_lens is None else {"kv_lens": kv_lens})))
 
 
 def time_host(torch, fn, calls, reps=5):
@@ -1534,20 +2040,25 @@ def time_paged(torch, pa_mod, pw_mod, cfg):
     return paged, write
 
 
-def time_decode_quantized(torch, attn_mod, n, kh, h, layers, s, positions):
-    """The quantized decode launch at the engine's 7B decode, one row per
-    entry of `positions` (B = 1, and the batch of four): kernel, plain and
-    SDPA over K/V dequantized to bf16 in advance, cycling over an int8
+def time_decode_quantized(torch, attn_mod, n, kh, h, layers, s, positions,
+                          kv_lens=None):
+    """The quantized decode launch at the 7B decode, one row per entry of
+    `positions` (the engine's B = 1 and batch of four, the contiguous
+    scheduler's 8 slots with `kv_lens` 0 for parked rows): kernel, plain
+    and SDPA over K/V dequantized to bf16 in advance, cycling over an int8
     [layers, B, K, S, H] cache so reads come from device memory."""
     import torch.nn.functional as F
 
     dev, dt, b = "cuda", torch.bfloat16, len(positions)
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((b, 1, n, h), generator=g, device=dev).to(dt)
-    k8, ks = quantize(torch, torch.randn((layers, b, kh, s, h), generator=g, device=dev))
-    v8, vs = quantize(torch, torch.randn((layers, b, kh, s, h), generator=g, device=dev))
+    k8, ks = zip(*(quantize(torch, torch.randn((b, kh, s, h), generator=g, device=dev))
+                   for _ in range(layers)))
+    v8, vs = zip(*(quantize(torch, torch.randn((b, kh, s, h), generator=g, device=dev))
+                   for _ in range(layers)))
     pos = torch.tensor([[p] for p in positions], dtype=torch.int32, device=dev)
-    kvl = pos[:, 0] + 1
+    kv_lens = kv_lens or [p + 1 for p in positions]
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     ms = time_ms(torch, lambda i: attn_mod.flash_gqa_attention_quantized_cuda(
         q, k8[i], ks[i], v8[i], vs[i], pos, None, kvl), layers)
     plain = time_ms(torch, lambda i: attn_mod.flash_gqa_attention_quantized_plain(
@@ -1561,10 +2072,10 @@ def time_decode_quantized(torch, attn_mod, n, kh, h, layers, s, positions):
     qt = q.transpose(1, 2)
     lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         qt, kr[i], vr[i], attn_mask=mask), layers)
-    live = sum(p + 1 for p in positions)
+    live = sum(kv_lens)
     b_ms, b_by = bound(2 * 2 * q.numel() + live * kh * (2 * h + 8), 4 * h * live * n)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                shape=dict(B=b, T=1, N=n, K=kh, S=s, H=h, kv_lens=[p + 1 for p in positions],
+                shape=dict(B=b, T=1, N=n, K=kh, S=s, H=h, kv_lens=kv_lens,
                            dtype="bfloat16", cache="int8"))
 
 
@@ -1729,6 +2240,24 @@ def batch_prompt_lens():
     return [len(tok.encode(f"{SYSTEM_SQL}\n\n{qn}")) for qn in BATCH]
 
 
+def contiguous_decode_rows(cfg):
+    """The contiguous scheduler's decode at `cfg` (8 slots over its
+    max_seq_len): six rows at the concurrent requests' prompts plus half
+    the decode budget, and two parked rows (position max_seq - 1, kv_lens
+    0). Returns (positions, kv_lens)."""
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    live = [len(tok.encode(f"{SYSTEM_SQL}\n\n{qn}")) + MAX_NEW // 2
+            for qn in SCHED_SQL[2:]]
+    park = cfg.max_seq_len - 1
+    return [[p] for p in live] + [[park], [park]], [p + 1 for p in live] + [0, 0]
+
+
+# Layers cycled when timing the contiguous decode: 8 layers of K and V at
+# 8 x 4096 slots (2 GiB of bf16) keep the reads in device memory.
+CONTIG_TIMED_LAYERS = 8
+
 # The scheduler's prefill chunk at 7B: 8 chunks of the 128-token bucket over
 # row views of 1024 slots, starting where `cases()` starts them.
 SCHED_CHUNK_STARTS = [0, 128, 256, 0, 208, 336, 464, 896]
@@ -1759,6 +2288,10 @@ def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
         "7b_batch4": time_launch(torch, attn_mod, n, kh, h, n_layers, len(batch), 1, 512,
                                  [[p] for p in batch]),
     }
+    # The contiguous scheduler's decode: 8 slots over 4096, two parked.
+    cpos, ckvl = contiguous_decode_rows(cfg)
+    decode["7b_contig_b8"] = time_launch(torch, attn_mod, n, kh, h, CONTIG_TIMED_LAYERS,
+                                         len(cpos), 1, cfg.max_seq_len, cpos, ckvl)
     timed = {
         "prefill": dict(prefill["7b_prompt"], by_shape=prefill),
         "decode": dict(decode["7b_one"], by_shape=decode),
@@ -1767,6 +2300,9 @@ def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
         "7b_one": time_decode_quantized(torch, attn_mod, n, kh, h, n_layers, s,
                                         [n_prompt + MAX_NEW // 2]),
         "7b_batch4": time_decode_quantized(torch, attn_mod, n, kh, h, n_layers, 512, batch),
+        "7b_contig_b8": time_decode_quantized(torch, attn_mod, n, kh, h,
+                                              CONTIG_TIMED_LAYERS, cfg.max_seq_len,
+                                              [p for p, in cpos], ckvl),
     }
     timed["decode_q"] = dict(decode_q["7b_one"], by_shape=decode_q)
     timed["paged"], timed["write"] = time_paged(torch, pa_mod, pw_mod, cfg)
@@ -1929,6 +2465,17 @@ def main() -> int:
     phase("serve (scheduler path)")
     sched_launches = scheduler_serve(torch, engines, args.profile)
 
+    phase("serve (contiguous scheduler path)")
+    contig_launches, contig_scheds = contiguous_serve(torch, engines)
+
+    phase("app (POST /process-data/ on the contiguous schedulers)")
+    app_launches = app_serve(torch, contig_scheds)
+    for sc in contig_scheds.values():
+        sc.shutdown()
+    del contig_scheds
+    gc.collect()  # the app's reference cycles hold the caches until collected
+    entry_point(torch)
+
     phase("serve (quantized path: int4 weights, int8 KV)")
     q_launches = quantized_serve(torch, engines, args.profile)
 
@@ -1957,8 +2504,10 @@ def main() -> int:
                 "paged_q": "ragged_paged_attention_quantized",
                 "write_q": "fused_page_write_quantized", "int4": "int4_matmul"}
     paths = {"engine": launches, "scheduler": sched_launches,
+             "contiguous_scheduler": contig_launches, "app": app_launches,
              "quantized_engine": q_launches["engine"],
-             "quantized_scheduler": q_launches["scheduler"]}
+             "quantized_scheduler": q_launches["scheduler"],
+             "quantized_contiguous_scheduler": q_launches["contiguous"]}
     tolerance = {"write": {"bfloat16": 0.0, "float32": 0.0},
                  "write_q": {"bfloat16": 0.0, "float32": 0.0},
                  "int4": {f"{d}_over_max_abs_out": v for d, v in INT4_TOL.items()}}

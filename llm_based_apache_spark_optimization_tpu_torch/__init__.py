@@ -14,7 +14,14 @@ Subpackages (bottom-up):
   csrc/        CUDA C++ sources, built with nvcc at first use
   engine/      KV cache, prefill + decode loop
   tokenizer/   byte-level tokenizer
-  serve/       prompt templates, engine backend, generation service
+  serve/       prompt templates, engine and scheduler backends, the
+               continuous-batching scheduler, generation service, typed
+               serving errors
+  sql/         CSV -> temp_view -> SQL execution (SQLite, Spark)
+  history/     query-results history store
+  utils/       fault injection, request tracing, counters
+  app/         the studio's web UI and JSON API, and its entry point
+               (`python -m llm_based_apache_spark_optimization_tpu_torch.app`)
   convert.py   JAX params tree (as numpy) -> this package's params
 
 Entry points take an explicit `device`. They default to CUDA and raise when

@@ -27,12 +27,20 @@ onto the other.
   ragged paged attention kernel).
 - Or the int8 caches. The contiguous `{"k8", "v8": [L, B, K, S, H] int8,
   "ks", "vs": [L, B, K, S] f32}` (`ops.quant.quantize_cache`) serves decode
-  steps only (T == 1): each layer quantizes its fresh sliver (one scale per
+  steps (T == 1): each layer quantizes its fresh sliver (one scale per
   slot, absmax over H), writes values and scales in place, then attends
   through the quantized flash kernel, which dequantizes in its tile. The
   paged pool with scales `{"kp", "vp": int8, "kps", "vps": [L, P, K, PS]
   f32, "ptab"}` writes through the quantizing page-write kernel and reads
   through the quantized ragged paged attention kernel.
+- `rows` runs a contiguous cache (bf16/f32 or int8) over a subset of its
+  batch rows, one layer at a time: the scheduler's chunked prefill. Layer
+  l gathers the rows' cache over [0, `span`) (an int8 cache dequantized to
+  the compute dtype: values and scales cast to it, then multiplied in it),
+  writes the chunk's K/V into that view, attends over it through the
+  flash kernel, and writes only the chunk's window back into the cache
+  (int8: quantized once, there). No all-layer view is built: at 7B, 8 rows
+  of 4096 slots take 268 MiB a layer for K and again for V.
 - Attention, page writes and int4 matmuls go through
   `ops.kernels.dispatch`: the hand-written kernels on CUDA, their plain
   versions on the CPU.
@@ -118,6 +126,32 @@ def _write_cache(layer_cache: torch.Tensor, new: torch.Tensor,
     layer_cache[rows, :, slots] = new.to(layer_cache.dtype)
 
 
+def _row_view(cache: Dict[str, torch.Tensor], name: str, layer: int,
+              rows: torch.Tensor, span: int, dtype: torch.dtype) -> torch.Tensor:
+    """Layer `layer` of K or V (`name`) for cache rows `rows` over [0, span):
+    [k, K, span, H] in `dtype`, a fresh tensor (an int8 cache dequantized)."""
+    if f"{name}8" in cache:
+        q8 = cache[f"{name}8"][layer][rows, :, :span]
+        sc = cache[f"{name}s"][layer][rows, :, :span]
+        return q8.to(dtype) * sc[..., None].to(dtype)
+    return cache[name][layer][rows, :, :span].to(dtype)
+
+
+def _write_rows(cache: Dict[str, torch.Tensor], name: str, layer: int,
+                rows: torch.Tensor, positions: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """Write the chunk's K or V window `new` [k, T, K, H] into cache rows
+    `rows` at `positions` [k, T] of layer `layer`; an int8 cache quantizes
+    it there (one scale per slot)."""
+    idx = (rows[:, None], slice(None), positions.long())
+    if f"{name}8" in cache:
+        qn = quantize_kv(new)
+        cache[f"{name}8"][layer][idx] = qn["q8"]
+        cache[f"{name}s"][layer][idx] = qn["s"]
+    else:
+        cache[name][layer][idx] = new.to(cache[name].dtype)
+
+
 def _at(w, layer: int):
     """Layer `layer` of a stacked weight: a tensor, or a q4 tree's arrays."""
     return {k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
@@ -147,6 +181,8 @@ def forward(
     kv_lens: Optional[torch.Tensor] = None,           # [B] int — live KV slots
     q_lens: Optional[torch.Tensor] = None,            # [B] int — live query
                                                       # cols (paged windows)
+    rows: Optional[torch.Tensor] = None,              # [B] int — cache rows
+    span: Optional[int] = None,                       # cache slots rows read
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run T tokens through the stack; returns (logits f32, cache).
 
@@ -156,11 +192,18 @@ def forward(
     cache: T == 1 only). With a paged cache, K/V are written at `positions`
     through the page table (dead columns past `q_lens` write nothing and
     read zeros), then attention reads through it. `logit_indices` unembeds
-    only those T-indices ([B, 1, V] logits)."""
+    only those T-indices ([B, 1, V] logits). With `rows`, token row i runs
+    over contiguous cache row rows[i], reading slots [0, span) (default:
+    the whole cache), one layer at a time; an int8 cache then serves any T."""
     b, t = tokens.shape
     paged = cache is not None and "kp" in cache
     quant = cache is not None and "k8" in cache
-    if quant and t != 1:
+    if rows is not None:
+        if cache is None or paged:
+            raise ValueError("rows runs over a contiguous cache")
+        s_cache = cache["k8" if quant else "k"].shape[3]
+        span = s_cache if span is None else min(span, s_cache)
+    elif quant and t != 1:
         raise ValueError(
             f"an int8 KV cache serves decode steps only (T == 1), got T={t}: "
             "prefill fills a compute-dtype cache, then quantize_cache converts "
@@ -200,6 +243,15 @@ def forward(
             attn = paged_attention(q, cache["kp"][l], cache["vp"][l],
                                    cache["ptab"], positions,
                                    cfg.sliding_window, kv_lens, q_lens)
+        elif rows is not None:
+            views = []
+            for name, new in (("k", k), ("v", v)):
+                view = _row_view(cache, name, l, rows, span, x.dtype)
+                _write_cache(view, new, start)
+                _write_rows(cache, name, l, rows, positions, new)
+                views.append(view)
+            attn = attention(q, views[0], views[1], positions, cfg.sliding_window,
+                             kv_lens)
         elif quant:
             for name, new in (("k", k), ("v", v)):
                 qn = quantize_kv(new)

@@ -1,15 +1,19 @@
 """Completion backends: the text -> text seam under the generation service.
 
 `EngineBackend` tokenizes, runs `engine.generate` and detokenizes; it is
-the counterpart of the JAX package's `serve/backends.EngineBackend`
-(without its grammar constraint, deadline clamp and checkpoint loaders).
+the counterpart of the JAX package's `serve/backends.EngineBackend` with its
+deadline clamp (a request's remaining deadline exchanged for a step budget
+at the measured seconds a token), without its grammar constraint (ROADMAP
+A8) and checkpoint loaders (A5). `FakeBackend` answers canned text (demos
+and tests).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Optional, Sequence
+import time
+from typing import Callable, List, Optional, Sequence
 
 from ..engine.generate import InferenceEngine
 from ..ops.sampling import SamplingParams
@@ -49,7 +53,15 @@ class EngineBackend:
     serialises the device work.
 
     Set `add_bos=False` for chat templates whose rendered prompt already
-    begins with the BOS string (llama3-chat's <|begin_of_text|>)."""
+    begins with the BOS string (llama3-chat's <|begin_of_text|>).
+    `sec_per_tok_seed` primes the deadline clamp's seconds-a-token rate;
+    without it the first request after start runs unclamped."""
+
+    #: GenerationService forwards a `deadline_s` only to backends that set
+    #: this: the engine cannot retire a request mid-decode, so it clamps
+    #: the step budget at issue time and fails an expired one before any
+    #: device work.
+    supports_deadline = True
 
     def __init__(
         self,
@@ -59,6 +71,7 @@ class EngineBackend:
         sampling: SamplingParams = SamplingParams(),
         stop_texts: Sequence[str] = (),
         add_bos: bool = True,
+        sec_per_tok_seed: Optional[float] = None,
     ):
         self.engine = engine
         self.tokenizer = tokenizer
@@ -67,11 +80,16 @@ class EngineBackend:
         self.stop_texts = tuple(stop_texts)
         self.add_bos = add_bos
         self._lock = threading.Lock()
+        # EWMA of seconds an output token over completed requests: the
+        # deadline -> step budget exchange rate. The first completion of
+        # each (batch, padded prompt) shape is discarded.
+        self._sec_per_tok: Optional[float] = (
+            float(sec_per_tok_seed)
+            if sec_per_tok_seed is not None and sec_per_tok_seed > 0 else None)
+        self._rate_warm_shapes: set = set()
 
-    def _budget(self, n_prompt_tokens: int, max_new_tokens: Optional[int]) -> int:
-        """The requested budget, clamped to the context room left after the
-        bucketed prompt (a serving backend degrades to a shorter completion
-        instead of erroring)."""
+    def _room(self, n_prompt_tokens: int) -> int:
+        """Context room left after the bucketed prompt."""
         cfg = self.engine.cfg
         room = cfg.max_seq_len - self.engine.padded_prompt_len(n_prompt_tokens)
         if room < 1:
@@ -79,7 +97,63 @@ class EngineBackend:
                 f"prompt ({n_prompt_tokens} tokens) leaves no room in the "
                 f"{cfg.max_seq_len}-token context of {cfg.name}"
             )
-        return min(max_new_tokens or self.max_new_tokens, room)
+        return room
+
+    def _budget(self, n_prompt_tokens: int, max_new_tokens: Optional[int]) -> int:
+        """The requested budget, clamped to the context room (a serving
+        backend degrades to a shorter completion instead of erroring)."""
+        return min(max_new_tokens or self.max_new_tokens, self._room(n_prompt_tokens))
+
+    @staticmethod
+    def _make_deadline(deadline_s: Optional[float]):
+        """Stamp the deadline at request entry, so time queued behind
+        another decode on this serialised engine is charged too."""
+        if deadline_s is None:
+            return None
+        if deadline_s <= 0:
+            raise ValueError(f"deadline_s must be positive, got {deadline_s}")
+        from .resilience import Deadline
+
+        return Deadline.after(deadline_s)
+
+    def _deadline_budget(self, budget: int, deadline) -> int:
+        """Exchange the remaining deadline for a step budget at the measured
+        rate. Expired (or unaffordable even for one token) fails typed
+        `DeadlineExceeded` before the device is touched."""
+        if deadline is None:
+            return budget
+        from ..utils.observability import resilience
+        from .resilience import DeadlineExceeded
+
+        remaining = deadline.remaining()
+        if remaining <= 0:
+            resilience.inc("deadline_expired")
+            raise DeadlineExceeded(
+                "request deadline expired before issue (burned queueing "
+                "behind the serialized engine)")
+        rate = self._sec_per_tok
+        if rate is None or rate <= 0:
+            return budget
+        afford = int(remaining / rate)
+        if afford < 1:
+            resilience.inc("deadline_expired")
+            raise DeadlineExceeded(
+                f"remaining deadline of {remaining:.3f}s cannot afford one "
+                f"token at the measured {rate:.4f}s/token — not issued")
+        if afford < budget:
+            resilience.inc("deadline_clamps")
+            return afford
+        return budget
+
+    def _record_rate(self, wall_s: float, output_tokens: int, shape: tuple) -> None:
+        if output_tokens < 1 or wall_s <= 0:
+            return
+        if shape not in self._rate_warm_shapes:
+            self._rate_warm_shapes.add(shape)  # first run of a shape: discard
+            return
+        rate = wall_s / output_tokens
+        prev = self._sec_per_tok
+        self._sec_per_tok = rate if prev is None else 0.2 * rate + 0.8 * prev
 
     def _completion(self, prompt_ids: List[int], out: List[int]) -> Completion:
         if out and out[-1] in self.engine.stop_ids:
@@ -90,27 +164,63 @@ class EngineBackend:
                           ttft_s=self.engine.last_stats.get("ttft_s", 0.0))
 
     def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
-                 sampling: Optional[SamplingParams] = None,
-                 seed: int = 0) -> Completion:
+                 sampling: Optional[SamplingParams] = None, seed: int = 0,
+                 deadline_s: Optional[float] = None) -> Completion:
+        deadline = self._make_deadline(deadline_s)
         ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
         budget = self._budget(len(ids), max_new_tokens)
         with self._lock:
+            budget = self._deadline_budget(budget, deadline)
+            t0 = time.perf_counter()
             out = self.engine.generate(
                 [ids], max_new_tokens=budget,
                 sampling=sampling or self.sampling, seed=seed,
             )[0]
+            self._record_rate(time.perf_counter() - t0, len(out),
+                              (1, self.engine.padded_prompt_len(len(ids))))
             return self._completion(ids, out)
 
     def complete_batch(
         self, prompts: Sequence[str], max_new_tokens: Optional[int] = None,
         sampling: Optional[SamplingParams] = None, seed: int = 0,
+        deadline_s: Optional[float] = None,
     ) -> List[Completion]:
-        """One batched prefill and decode loop for all prompts."""
+        """One batched prefill and decode loop for all prompts; a deadline
+        clamps the shared step budget."""
+        deadline = self._make_deadline(deadline_s)
         ids = [self.tokenizer.encode(p, add_bos=self.add_bos) for p in prompts]
-        budget = self._budget(max(len(i) for i in ids), max_new_tokens)
+        longest = max(len(i) for i in ids)
+        budget = self._budget(longest, max_new_tokens)
         with self._lock:
+            budget = self._deadline_budget(budget, deadline)
+            t0 = time.perf_counter()
             outs = self.engine.generate(
                 ids, max_new_tokens=budget,
                 sampling=sampling or self.sampling, seed=seed,
             )
+            self._record_rate(time.perf_counter() - t0,
+                              max((len(o) for o in outs), default=0),
+                              (len(ids), self.engine.padded_prompt_len(longest)))
             return [self._completion(i, o) for i, o in zip(ids, outs)]
+
+
+class FakeBackend:
+    """Deterministic canned backend: `fn(prompt) -> text`."""
+
+    def __init__(self, fn: Callable[[str], str]):
+        self.fn = fn
+        self.calls: List[str] = []
+
+    def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
+                 sampling: Optional[SamplingParams] = None, seed: int = 0) -> Completion:
+        self.calls.append(prompt)
+        text = self.fn(prompt)
+        return Completion(
+            text=text,
+            output_tokens=len(text.split()),
+            prompt_tokens=len(prompt.split()),
+        )
+
+    def complete_batch(self, prompts, max_new_tokens=None, sampling=None,
+                       seed: int = 0) -> List[Completion]:
+        return [self.complete(p, max_new_tokens, sampling, seed) for p in prompts]

@@ -1,32 +1,51 @@
-"""Continuous-batching scheduler over the paged KV pool, and its backend.
+"""Continuous-batching scheduler, over a contiguous KV cache or a paged KV
+pool, and its backend.
 
-Counterpart of the JAX package's `serve/scheduler.py` (the paged core of
-`ContinuousBatchingScheduler`, and `SchedulerBackend`). Concurrent requests
-share one decode batch on the device:
+Counterpart of the JAX package's `serve/scheduler.py` (the core of
+`ContinuousBatchingScheduler`, both layouts, and `SchedulerBackend`).
+Concurrent requests share one decode batch on the device, a fixed set of
+`num_slots` sequence slots. Two KV layouts:
 
-- A fixed pool of `num_slots` sequence slots. K/V live in a shared page
-  pool `[L, P, K, PS, H]` sized to a device-memory budget; each slot maps
-  its logical pages through a row of the device page table `[slots, NP]`
+- `kv_layout="contiguous"` (the default, as in the JAX package and the
+  reference app): one row a slot, `{"k", "v"}: [L, slots, K, S, H]`
+  (engine/kvcache.py). Prefix cache: content-keyed blocks of the smallest
+  bucket, each a device copy of the publisher's K/V (`[L, 1, K, pblock,
+  H]`), restored into a new slot's row by device-to-device copies.
+- `kv_layout="paged"`: K/V live in a shared page pool `[L, P, K, PS, H]`
+  sized to a device-memory budget; each slot maps its logical pages
+  through a row of the device page table `[slots, NP]`
   (engine/paged_kv.py). Admission allocates the request's whole envelope
   (bucketed prompt + budget + overshoot), all or nothing; a request the
   pool cannot hold yet waits in `_page_wait` until retirements free pages.
-- Prefix cache: content-keyed, block-chained entries that REFERENCE pool
-  pages (refcounts), so a hit maps the cached schema prefix into the new
-  slot's table with no copy; a page is copied only where a matched prefix
-  ends mid-page (copy-on-write). A block is published on its second
-  sighting and hit from the third.
+  Prefix cache: entries that REFERENCE pool pages (refcounts), so a hit
+  maps the cached prefix into the new slot's table with no copy; a page is
+  copied only where a matched prefix ends mid-page (copy-on-write).
+
+In both, a block is published on its second sighting and hit from the
+third, and reuse stops on block boundaries.
+
 - Chunked prefill: one prompt chunk (a power-of-two bucket up to
-  `prompt_bucket`) for up to 8 same-bucket admissions per forward, over
-  contiguous row views gathered from the pool, then a windowed scatter of
-  the chunk's K/V back through the slots' pages. The final chunk samples
-  the first token.
-- Decode rounds: `decode_chunk` T=1 steps of the whole slot batch through
-  the paged forward — each layer's fused page write and ragged paged
-  attention kernels on the card — with `kv_lens = pos + 1` for active slots
-  and 0 for parked ones (parked slots read nothing; their writes at the
-  parking position go through all-sentinel table rows and are dropped, or
-  land where no query can see them).
-- int8 KV (`kv_quant="int8"`): the pool holds int8 values plus one f32
+  `prompt_bucket`) for up to 8 same-bucket admissions per forward. The
+  contiguous layout runs the forward over the slots' own cache rows, one
+  layer at a time (`forward(rows=...)`: no view of all layers is built);
+  the paged layout over contiguous row views gathered from the pool, then
+  a windowed scatter of the chunk's K/V back through the slots' pages.
+  The final chunk samples the first token.
+- Decode rounds: `decode_chunk` T=1 steps of the whole slot batch, with
+  `kv_lens = pos + 1` for active slots and 0 for parked ones (parked slots
+  read nothing and write at the parking position, `max_seq - 1`, which no
+  query can see). Contiguous: each layer's flash GQA decode kernel over
+  the slots' rows; paged: the fused page write and ragged paged attention
+  kernels.
+- Deadlines: a request submitted with `deadline_s` fails with
+  `DeadlineExceeded` at admission if it expired while queued (or waiting
+  for pages), or at the next harvest once in flight.
+- int8 KV (`kv_quant="int8"`). Contiguous: int8 values plus one f32 scale
+  a slot, `{"k8", "v8", "ks", "vs"}` with scales `[L, slots, K, S]`; decode
+  writes quantize each fresh sliver and read through the quantized flash
+  decode kernel; a prefill chunk dequantizes its rows to the compute dtype
+  and quantizes only its own window back, so every entry is quantized
+  once. Paged: the pool holds int8 values plus one f32
   scale per (layer, page, kv head, position), `"kps"`/`"vps"`
   [L, P, K, PS], about twice the tokens per device byte. Decode writes
   through the quantizing page-write kernel and reads through the quantized
@@ -53,11 +72,10 @@ share one decode batch on the device:
 One worker thread owns all device work. It enters `torch.inference_mode`
 and the scheduler's device and stream itself: both are per-thread state.
 
-Not ported yet (ROADMAP A7 follow-ups): the contiguous layout, mixed
-ragged rounds, speculation, grammar constraints, overcommit,
-preemption and spill, phase roles, QoS, deadlines, profiling and the
-flight recorder, prefix telemetry, the heartbeat, `SchedulerPool`, meshes
-and the checkpoint constructors.
+Not ported yet (ROADMAP A7 follow-ups): mixed ragged rounds, speculation,
+grammar constraints, overcommit, preemption and spill, phase roles, QoS,
+profiling and the flight recorder, prefix telemetry, the heartbeat,
+`SchedulerPool`, meshes and the checkpoint constructors.
 """
 
 from __future__ import annotations
@@ -74,7 +92,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import resolve_device
-from ..engine.kvcache import bucket_len
+from ..engine.kvcache import bucket_len, init_cache
 from ..engine.paged_kv import (
     PageAllocator,
     default_page_size,
@@ -88,7 +106,8 @@ from ..models.llama import Params, forward
 from ..ops.quant import quantize_kv
 from ..ops.sampling import SamplingParams, greedy, sample_runtime
 from .backends import Completion, trim_stop_texts
-from .resilience import SchedulerCrashed
+from ..utils.observability import resilience
+from .resilience import Deadline, DeadlineExceeded, SchedulerCrashed
 
 _M32 = 0xFFFFFFFF
 
@@ -130,6 +149,15 @@ class _Request:
     page_end: int = 0
     # Already counted in page_waits (count requests, not retries).
     page_waited: bool = False
+    deadline: Optional[Deadline] = None
+
+    def past_deadline(self) -> bool:
+        return self.deadline is not None and self.deadline.expired()
+
+    def deadline_error(self) -> DeadlineExceeded:
+        return DeadlineExceeded(
+            f"request deadline exceeded with {len(self.generated)} of "
+            f"{self.max_new} tokens generated")
 
     def emit(self, tok: int) -> None:
         if self.on_token is not None:
@@ -141,7 +169,7 @@ class _Request:
 
 class ContinuousBatchingScheduler:
     """Admit -> chunked prefill -> batched decode rounds -> retire, on one
-    device batch over the paged KV pool.
+    device batch over a contiguous KV cache or the paged KV pool.
 
     `submit()` is thread-safe and returns a Future of generated token ids
     (stop token stripped). A daemon thread owns all device work. `device`
@@ -158,7 +186,7 @@ class ContinuousBatchingScheduler:
         prompt_bucket: int = 128,
         stop_ids: Optional[Sequence[int]] = None,
         prefix_cache_blocks: int = 64,
-        kv_layout: str = "paged",
+        kv_layout: str = "contiguous",
         kv_page_size: Optional[int] = None,
         kv_pages: Optional[int] = None,
         kv_hbm_budget_bytes: Optional[int] = None,
@@ -166,12 +194,15 @@ class ContinuousBatchingScheduler:
         device=None,
     ):
         self.kv_quant = kv_quant
-        if kv_layout != "paged":
+        if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
-                f"kv_layout={kv_layout!r} is not ported: the scheduler serves "
-                f"kv_layout='paged' only (the contiguous layout is a ROADMAP "
-                f"A7 follow-up)"
+                f"kv_layout must be 'contiguous' or 'paged', got "
+                f"{kv_layout!r}"
             )
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
+        self.kv_layout = kv_layout
+        self._paged = kv_layout == "paged"
         self.cfg = cfg
         self.device = resolve_device(device)
         if params["final_norm"].device.type != self.device.type:
@@ -186,42 +217,19 @@ class ContinuousBatchingScheduler:
         dtype = params["final_norm"].dtype
         self._dtype = dtype
 
-        ps = int(kv_page_size or default_page_size())
-        if ps <= 0 or ps % 8:
-            raise ValueError(
-                f"kv_page_size must be a positive multiple of 8, got {ps}")
-        self._page_size = ps
-        # Logical pages per slot: enough table entries to address max_seq.
-        self._pages_per_slot = pages_for_tokens(self.max_seq, ps)
-        if kv_pages:
-            num_pages = int(kv_pages)
-        elif kv_hbm_budget_bytes:
-            num_pages = pages_for_budget(cfg, kv_hbm_budget_bytes, ps,
-                                         dtype.itemsize, kv_quant)
-        else:
-            # Default: the contiguous layout's own footprint.
-            num_pages = num_slots * self._pages_per_slot
-        if num_pages < self._pages_per_slot:
-            raise ValueError(
-                f"page pool of {num_pages} pages cannot hold one max-length "
-                f"request ({self._pages_per_slot} pages of {ps} tokens for "
-                f"max_seq={self.max_seq}); raise kv_pages / "
-                f"kv_hbm_budget_bytes or lower max_seq"
-            )
-        self._page_alloc = PageAllocator(num_pages, ps)
-        # Host-side per-slot page lists (the device table's mirror).
-        self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
-        # Prefix cache: content key (token prefix) -> pool pages covering it.
-        self._prefix_pages: "OrderedDict[Tuple[int, ...], Tuple[int, ...]]" = (
-            OrderedDict())
-        self._page_wait: "deque[_Request]" = deque()
-        self._page_wait_events = 0
-
         dev = self.device
-        self._pool = init_page_pool(cfg, num_pages, ps, dtype, dev, kv_quant)
-        # Device page tables; the unmapped sentinel is num_pages.
-        self._ptab = torch.full((num_slots, self._pages_per_slot), num_pages,
-                                dtype=torch.int32, device=dev)
+        self._page_wait: "deque[_Request]" = deque()
+        if self._paged:
+            self._init_paged(kv_page_size, kv_pages, kv_hbm_budget_bytes)
+        else:
+            # [L, slots, K, S, H], S rounded up to a multiple of 8 (int8:
+            # values, and scales [L, slots, K, S]).
+            self._cache = init_cache(cfg, num_slots, self.max_seq, dtype, dev,
+                                     kv_quant)
+            # Prefix cache: content key (token prefix) -> one block's K/V
+            # (and scales), each [L, 1, K, pblock(, H)].
+            self._prefix_cache: "OrderedDict[Tuple[int, ...], Dict[str, torch.Tensor]]" = (
+                OrderedDict())
         # Inactive slots park at the last cache slot: a parked write lands
         # where no query can see it (submit keeps requests below it).
         self._park = self.max_seq - 1
@@ -322,6 +330,22 @@ class ContinuousBatchingScheduler:
     def _set_row(self, slot: int, row: List[int]) -> None:
         self._ptab[slot] = self._h2d(row, torch.int32)
 
+    def _slice_block(self, slot: int, start: int) -> Dict[str, torch.Tensor]:
+        """A copy of one prefix block of a slot's row: every cache tensor
+        [L, slots, K, S(, H)] -> [L, 1, K, pblock(, H)] (values and, under
+        int8, their scales)."""
+        end = start + self._pblock
+        return {n: c[:, slot:slot + 1, :, start:end].clone()
+                for n, c in self._cache.items()}
+
+    def _restore_block(self, block: Dict[str, torch.Tensor], slot: int,
+                       start: int) -> None:
+        """Copy a cached prefix block into a slot's row at `start`, device
+        to device: a hit costs copies instead of a forward."""
+        end = start + self._pblock
+        for n, c in self._cache.items():
+            c[:, slot, :, start:end] = block[n][:, 0]
+
     def _copy_page(self, dst: int, src: int) -> None:
         """One-page device copy (copy-on-write), every layer, K and V (and
         their scale pages in an int8 pool)."""
@@ -329,6 +353,44 @@ class ContinuousBatchingScheduler:
             pool[:, dst] = pool[:, src]
 
     # ---------------------------------------------------- paged-KV host side
+
+    def _init_paged(self, kv_page_size, kv_pages, kv_hbm_budget_bytes) -> None:
+        """The page pool, its allocator and the device page tables."""
+        cfg, num_slots, dtype = self.cfg, self.num_slots, self._dtype
+        ps = int(kv_page_size or default_page_size())
+        if ps <= 0 or ps % 8:
+            raise ValueError(
+                f"kv_page_size must be a positive multiple of 8, got {ps}")
+        self._page_size = ps
+        # Logical pages per slot: enough table entries to address max_seq.
+        self._pages_per_slot = pages_for_tokens(self.max_seq, ps)
+        if kv_pages:
+            num_pages = int(kv_pages)
+        elif kv_hbm_budget_bytes:
+            num_pages = pages_for_budget(cfg, kv_hbm_budget_bytes, ps,
+                                         dtype.itemsize, self.kv_quant)
+        else:
+            # Default: the contiguous layout's own footprint.
+            num_pages = num_slots * self._pages_per_slot
+        if num_pages < self._pages_per_slot:
+            raise ValueError(
+                f"page pool of {num_pages} pages cannot hold one max-length "
+                f"request ({self._pages_per_slot} pages of {ps} tokens for "
+                f"max_seq={self.max_seq}); raise kv_pages / "
+                f"kv_hbm_budget_bytes or lower max_seq"
+            )
+        self._page_alloc = PageAllocator(num_pages, ps)
+        # Host-side per-slot page lists (the device table's mirror).
+        self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
+        # Prefix cache: content key (token prefix) -> pool pages covering it.
+        self._prefix_pages: "OrderedDict[Tuple[int, ...], Tuple[int, ...]]" = (
+            OrderedDict())
+        self._page_wait_events = 0
+        self._pool = init_page_pool(cfg, num_pages, ps, dtype, self.device,
+                                    self.kv_quant)
+        # Device page tables; the unmapped sentinel is num_pages.
+        self._ptab = torch.full((num_slots, self._pages_per_slot), num_pages,
+                                dtype=torch.int32, device=self.device)
 
     def _sync_ptab_row(self, slot: int) -> None:
         """Mirror a slot's host page list into the device table (unmapped
@@ -401,10 +463,11 @@ class ContinuousBatchingScheduler:
         if self._thread is None:
             if self._crash is not None:
                 raise self._crash_error()
-            # Re-sync every table row from the host mirror: a previous
-            # _close released abandoned slots' pages host-side only.
-            for i in range(self.num_slots):
-                self._sync_ptab_row(i)
+            if self._paged:
+                # Re-sync every table row from the host mirror: a previous
+                # _close released abandoned slots' pages host-side only.
+                for i in range(self.num_slots):
+                    self._sync_ptab_row(i)
             self._stop_evt.clear()
             with self._submit_lock:
                 self._closed = False
@@ -446,14 +509,19 @@ class ContinuousBatchingScheduler:
         sampling: SamplingParams = SamplingParams(),
         seed: int = 0,
         on_token: Optional[Callable[[int], None]] = None,
+        deadline_s: Optional[float] = None,
     ) -> "Future[List[int]]":
         """Queue a request; returns a Future of its generated ids. The
         request samples from its own (seed, index) stream, so (ids,
         sampling, seed, max_new) reproduces the same tokens whatever else
         is served. `on_token` gets each accepted token, in order, from the
-        worker thread."""
+        worker thread. With `deadline_s` the request fails with
+        `DeadlineExceeded` once that many seconds have passed: at admission,
+        or at the next harvest once in flight."""
         if not ids:
             raise ValueError("empty prompt")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be positive, got {deadline_s}")
         need = (bucket_len(len(ids), self.prompt_bucket) + max_new_tokens
                 + self.overshoot)
         if need > self.max_seq - 1:  # the last cache slot is the parking spot
@@ -467,6 +535,7 @@ class ContinuousBatchingScheduler:
             temperature=sampling.temperature, top_p=sampling.top_p,
             top_k=sampling.top_k, seed=seed, future=Future(),
             on_token=on_token,
+            deadline=Deadline.after(deadline_s) if deadline_s is not None else None,
         )
         req.future._lsot_request = req  # cancel() handle
         with self._submit_lock:
@@ -505,9 +574,11 @@ class ContinuousBatchingScheduler:
     # ------------------------------------------------------------- stats
 
     @property
-    def page_stats(self) -> Dict[str, int]:
+    def page_stats(self) -> Optional[Dict[str, int]]:
         """Pool occupancy and sharing counters (a leaked page shows up as
-        pages_in_use that never drains)."""
+        pages_in_use that never drains); None for the contiguous layout."""
+        if not self._paged:
+            return None
         out = self._page_alloc.stats()
         out["pages_per_slot"] = self._pages_per_slot
         out["page_waits"] = self._page_wait_events
@@ -528,7 +599,8 @@ class ContinuousBatchingScheduler:
             "blocks_reused": self._prefix_blocks_reused,
             "reused_tokens": self._prefix_reused_tokens,
             "evictions": self._prefix_evictions,
-            "cached_blocks": len(self._prefix_pages),
+            "cached_blocks": len(self._prefix_pages if self._paged
+                                 else self._prefix_cache),
         }
 
     # ------------------------------------------------------------ admission
@@ -597,13 +669,40 @@ class ContinuousBatchingScheduler:
                 if key in self._prefix_pages:
                     self._prefix_pages.move_to_end(key)
         if self._prefix_cache_blocks:
-            if reuse:
-                self._prefix_hits += 1
-                self._prefix_blocks_reused += n
-                self._prefix_reused_tokens += reuse
-            elif (plen - 1) // pb:
-                self._prefix_misses += 1  # cacheable, but nothing matched
+            self._note_prefix(plen, n)
         return True
+
+    def _admit_blocks(self, slot: int, req: _Request) -> None:
+        """Contiguous prefix reuse: copy the longest cached chain of blocks
+        of the prompt into the slot's row, device to device. At least one
+        prompt token still goes through prefill (its logit samples the
+        first output token)."""
+        pb, ids = self._pblock, req.ids
+        max_blocks = (len(ids) - 1) // pb
+        n = 0
+        while n < max_blocks and tuple(ids[: (n + 1) * pb]) in self._prefix_cache:
+            n += 1
+        # A reuse offset shifts every chunk start; the final chunk's bucket
+        # must still land inside the cache.
+        s_cache = next(iter(self._cache.values())).shape[3]
+        while n and self._chunk_end(n * pb, len(ids)) > s_cache:
+            n -= 1
+        for j in range(n):
+            key = tuple(ids[: (j + 1) * pb])
+            self._prefix_cache.move_to_end(key)  # LRU touch
+            self._restore_block(self._prefix_cache[key], slot, j * pb)
+        req.prefilled = n * pb
+        self._note_prefix(len(ids), n)
+
+    def _note_prefix(self, plen: int, n: int) -> None:
+        """Count an admission that reused `n` blocks (a hit), or a cacheable
+        one that found none (a miss)."""
+        if n:
+            self._prefix_hits += 1
+            self._prefix_blocks_reused += n
+            self._prefix_reused_tokens += n * self._pblock
+        elif (plen - 1) // self._pblock:
+            self._prefix_misses += 1
 
     def _admit(self, slot: int, req: _Request) -> bool:
         """Reserve `slot` and queue the prompt for chunked prefill, reusing
@@ -612,11 +711,17 @@ class ContinuousBatchingScheduler:
         if req.cancelled:  # cancelled while queued: never occupy a slot
             req.future.set_result(req.generated)
             return True
-        if not self._admit_paged(slot, req):
+        if req.past_deadline():  # expired while queued: fail fast, typed
+            resilience.inc("deadline_expired")
+            req.future.set_exception(req.deadline_error())
+            return True
+        if self._paged and not self._admit_paged(slot, req):
             return False
         self._slot_req[slot] = req
         self._slot_epoch[slot] += 1
         self._park_slot(slot)
+        if not self._paged and self._prefix_cache_blocks:
+            self._admit_blocks(slot, req)
         self._prefill_q.append((slot, req))
         return True
 
@@ -640,22 +745,55 @@ class ContinuousBatchingScheduler:
     # -------------------------------------------------------------- prefill
 
     def _prefill_forward(self, group, t: int) -> torch.Tensor:
-        """One prompt chunk for each (slot, req) of `group` in one forward,
-        over contiguous row views gathered from the pool; the chunk's K/V
-        then scatter back through the slots' pages (only this window:
-        other pages of a row may be shared prefix pages). Returns the
-        first-token samples [k] (used on final chunks)."""
-        cfg, ps = self.cfg, self._page_size
-        np_tab, num_pages = self._pages_per_slot, self._page_alloc.num_pages
-        kp, vp = self._pool["kp"], self._pool["vp"]
-        n_layers, _, kh, _, hd = kp.shape
-        tokens, lengths, starts, rows = [], [], [], []
-        w_row, w_pos, w_page, w_off = [], [], [], []
-        for i, (slot, req) in enumerate(group):
+        """One prompt chunk for each (slot, req) of `group` in one forward.
+        Returns the first-token samples [k] (used on final chunks)."""
+        cfg = self.cfg
+        tokens, lengths, starts = [], [], []
+        for slot, req in group:
             chunk_ids = req.ids[req.prefilled: req.prefilled + t]
             tokens.append(chunk_ids + [cfg.pad_id] * (t - len(chunk_ids)))
             lengths.append(len(chunk_ids))
             starts.append(req.prefilled)
+        tokens_t = self._h2d(tokens, torch.int32)
+        positions = (self._h2d(starts, torch.int32)[:, None]
+                     + torch.arange(t, dtype=torch.int32, device=self.device))
+        last = self._h2d(lengths, torch.int64) - 1
+        if self._paged:
+            logits = self._prefill_paged(group, t, tokens_t, positions, last)
+        else:
+            # Over the slots' own cache rows, one layer at a time, reading
+            # the slots below the chunks' end (rounded up to 64).
+            span = max(starts) + t
+            logits, _ = forward(cfg, self.params, tokens_t, positions,
+                                self._cache, logit_indices=last,
+                                rows=self._h2d([s for s, _ in group], torch.int64),
+                                span=span + -span % 64)
+        self.prefill_forwards += 1
+        reqs = [req for _, req in group]
+        if all(r.temperature <= 0.0 for r in reqs):
+            return greedy(logits[:, 0])
+        return sample_runtime(
+            logits[:, 0],
+            self._h2d([r.temperature for r in reqs], torch.float32),
+            self._h2d([r.top_p for r in reqs], torch.float32),
+            self._h2d([r.top_k for r in reqs], torch.int32),
+            self._h2d([r.seed & _M32 for r in reqs], torch.int64),
+            torch.zeros(len(reqs), dtype=torch.int64, device=self.device),
+        )
+
+    def _prefill_paged(self, group, t: int, tokens: torch.Tensor,
+                       positions: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+        """The paged chunk forward, over contiguous row views gathered from
+        the pool; the chunk's K/V then scatter back through the slots' pages
+        (only this window: other pages of a row may be shared prefix
+        pages). Returns the logits [k, 1, V]."""
+        cfg, ps = self.cfg, self._page_size
+        np_tab, num_pages = self._pages_per_slot, self._page_alloc.num_pages
+        kp, vp = self._pool["kp"], self._pool["vp"]
+        n_layers, _, kh, _, hd = kp.shape
+        rows = []
+        w_row, w_pos, w_page, w_off = [], [], [], []
+        for i, (slot, req) in enumerate(group):
             pages = self._slot_pages[slot]
             rows.append(pages + [num_pages] * (np_tab - len(pages)))
             # Window scatter coordinates, from the host mirror of the table:
@@ -683,12 +821,8 @@ class ContinuousBatchingScheduler:
             }
         else:
             row_cache = {"k": rowview(kp), "v": rowview(vp)}
-        positions = (self._h2d(starts, torch.int32)[:, None]
-                     + torch.arange(t, dtype=torch.int32, device=self.device))
-        lengths_t = self._h2d(lengths, torch.int64)
-        logits, _ = forward(cfg, self.params, self._h2d(tokens, torch.int32),
-                            positions, row_cache, logit_indices=lengths_t - 1)
-        self.prefill_forwards += 1
+        logits, _ = forward(cfg, self.params, tokens, positions, row_cache,
+                            logit_indices=last)
         if w_row:
             r, p = self._h2d(w_row, torch.int64), self._h2d(w_pos, torch.int64)
             pg, of = self._h2d(w_page, torch.int64), self._h2d(w_off, torch.int64)
@@ -700,17 +834,7 @@ class ContinuousBatchingScheduler:
             else:
                 kp[:, pg, :, of] = row_cache["k"][:, r, :, p]
                 vp[:, pg, :, of] = row_cache["v"][:, r, :, p]
-        reqs = [req for _, req in group]
-        if all(r.temperature <= 0.0 for r in reqs):
-            return greedy(logits[:, 0])
-        return sample_runtime(
-            logits[:, 0],
-            self._h2d([r.temperature for r in reqs], torch.float32),
-            self._h2d([r.top_p for r in reqs], torch.float32),
-            self._h2d([r.top_k for r in reqs], torch.int32),
-            self._h2d([r.seed & _M32 for r in reqs], torch.int64),
-            torch.zeros(k, dtype=torch.int64, device=self.device),
-        )
+        return logits
 
     def _prefill_step(self) -> None:
         """Run ONE prompt chunk for up to `_prefill_kmax` waiting requests
@@ -734,9 +858,9 @@ class ContinuousBatchingScheduler:
             self._prefill_q.appendleft(item)
         if not group:
             return
-        # Copy-on-write sweep over each chunk's write window.
-        for slot, req in group:
-            self._ensure_writable(slot, req.prefilled, req.prefilled + t)
+        if self._paged:  # copy-on-write sweep over each chunk's write window
+            for slot, req in group:
+                self._ensure_writable(slot, req.prefilled, req.prefilled + t)
         chunk_lens = [len(req.ids[req.prefilled: req.prefilled + t])
                       for _, req in group]
         toks = self._prefill_forward(group, t)
@@ -745,7 +869,10 @@ class ContinuousBatchingScheduler:
             chunk_start = req.prefilled
             req.prefilled += chunk_lens[i]
             if self._prefix_cache_blocks:
-                self._publish_blocks_paged(slot, req, chunk_start)
+                if self._paged:
+                    self._publish_blocks_paged(slot, req, chunk_start)
+                else:
+                    self._publish_blocks(slot, req, chunk_start)
             if req.prefilled < len(req.ids):
                 self._prefill_q.append((slot, req))
                 continue
@@ -753,11 +880,41 @@ class ContinuousBatchingScheduler:
             # attach it to the next round's harvest (stop/budget checks on
             # it happen there, one round late).
             req.ready = True
-            # Decode writes [len(ids), page_end): the final chunk's publish
-            # may have shared the page holding the prompt tail.
-            self._ensure_writable(slot, len(req.ids), req.page_end)
+            if self._paged:
+                # Decode writes [len(ids), page_end): the final chunk's
+                # publish may have shared the page holding the prompt tail.
+                self._ensure_writable(slot, len(req.ids), req.page_end)
             self._ready_slot(slot, req, toks[i])
             self._first_pending.append((slot, req, toks[i], self._slot_epoch[slot]))
+
+    def _first_sighting(self, key: Tuple[int, ...]) -> bool:
+        """The publish gate: remember a block's first sighting (and publish
+        nothing); True from the second on."""
+        if key in self._prefix_seen:
+            return False
+        self._prefix_seen[key] = None
+        while len(self._prefix_seen) > 4 * self._prefix_cache_blocks:
+            self._prefix_seen.popitem(last=False)
+        return True
+
+    def _publish_blocks(self, slot: int, req: _Request, chunk_start: int) -> None:
+        """Publish the chunk's completed prefix blocks as copies of the
+        slot's row (chunk_start is block-aligned: reuse stops on block
+        boundaries and every non-final chunk is a multiple of a block),
+        gated on the block's second sighting; LRU eviction past
+        `prefix_cache_blocks`."""
+        pb = self._pblock
+        for b0 in range(chunk_start // pb, req.prefilled // pb):
+            key = tuple(req.ids[: (b0 + 1) * pb])
+            if key in self._prefix_cache:
+                self._prefix_cache.move_to_end(key)
+                continue
+            if self._first_sighting(key):
+                continue
+            self._prefix_cache[key] = self._slice_block(slot, b0 * pb)
+            while len(self._prefix_cache) > self._prefix_cache_blocks:
+                self._prefix_cache.popitem(last=False)
+                self._prefix_evictions += 1
 
     def _publish_blocks_paged(self, slot: int, req: _Request,
                               chunk_start: int) -> None:
@@ -770,11 +927,7 @@ class ContinuousBatchingScheduler:
             if key in self._prefix_pages:
                 self._prefix_pages.move_to_end(key)
                 continue
-            if key not in self._prefix_seen:
-                # First sighting: remember the content, share nothing.
-                self._prefix_seen[key] = None
-                while len(self._prefix_seen) > 4 * self._prefix_cache_blocks:
-                    self._prefix_seen.popitem(last=False)
+            if self._first_sighting(key):
                 continue
             pages = tuple(
                 self._slot_pages[slot][: pages_for_tokens((b0 + 1) * pb, ps)])
@@ -787,9 +940,9 @@ class ContinuousBatchingScheduler:
     # --------------------------------------------------------------- decode
 
     def _decode_round(self, active: torch.Tensor, sampled: bool) -> torch.Tensor:
-        """`decode_chunk` T=1 steps of the whole slot batch through the
-        paged forward; returns the tokens [slots, chunk] (device)."""
-        cache = dict(self._pool, ptab=self._ptab)
+        """`decode_chunk` T=1 steps of the whole slot batch over the cache
+        or the pool; returns the tokens [slots, chunk] (device)."""
+        cache = dict(self._pool, ptab=self._ptab) if self._paged else self._cache
         cur, pos, toks = self._cur, self._pos, []
         for i in range(self.decode_chunk):
             logits, _ = forward(
@@ -828,19 +981,32 @@ class ContinuousBatchingScheduler:
 
     def _retire(self, slot: int, req: _Request, result: List[int]) -> None:
         req.future.set_result(result)
+        self._release_slot(slot)
+
+    def _fail_slot(self, slot: int, req: _Request, exc: Exception) -> None:
+        """Retire a slot with a typed failure (deadline expiry)."""
+        req.future.set_exception(exc)
+        self._release_slot(slot)
+
+    def _release_slot(self, slot: int) -> None:
         self._slot_req[slot] = None
         self._slot_epoch[slot] += 1
         self._retire_slot(slot)
-        # In-flight rounds still write through the table rows they were
-        # issued with; stream order puts those writes before any new
-        # occupant's prefill of the freed pages.
-        self._free_slot_pages(slot)
+        if self._paged:
+            # In-flight rounds still write through the table rows they were
+            # issued with; stream order puts those writes before any new
+            # occupant's prefill of the freed pages.
+            self._free_slot_pages(slot)
 
     def _append_first(self, slot: int, req: _Request, first: int,
                       epoch: int) -> None:
         """Apply a harvested prefill first token: stop/budget checks run
         here, one round late."""
         if req is not self._slot_req[slot] or epoch != self._slot_epoch[slot]:
+            return
+        if req.past_deadline():
+            resilience.inc("deadline_expired")
+            self._fail_slot(slot, req, req.deadline_error())
             return
         if req.cancelled or first in self.stop_ids or req.max_new < 1:
             self._retire(slot, req, req.generated)
@@ -867,6 +1033,10 @@ class ContinuousBatchingScheduler:
                 continue  # inactive at issue, or retired since
             if req.cancelled:
                 self._retire(i, req, req.generated)
+                continue
+            if req.past_deadline():
+                resilience.inc("deadline_expired")
+                self._fail_slot(i, req, req.deadline_error())
                 continue
             done = False
             for tok in flat[i * chunk: (i + 1) * chunk]:
@@ -927,7 +1097,7 @@ class ContinuousBatchingScheduler:
             if req is not None:
                 req.future.set_exception(exc)
                 self._slot_req[i] = None
-                if self._slot_pages[i]:
+                if self._paged and self._slot_pages[i]:
                     # Host-side release only; start() re-syncs the rows.
                     self._page_alloc.release(self._slot_pages[i])
                     self._slot_pages[i] = []
@@ -940,11 +1110,15 @@ class ContinuousBatchingScheduler:
                 req.future.set_exception(exc)
 
     def _sweep_page_wait(self) -> None:
-        """Cancelled page-starved waiters resolve with what they have."""
+        """Cancelled page-starved waiters resolve with what they have;
+        expired ones fail typed."""
         keep: "deque[_Request]" = deque()
         for req in self._page_wait:
             if req.cancelled:
                 req.future.set_result(req.generated)
+            elif req.past_deadline():
+                resilience.inc("deadline_expired")
+                req.future.set_exception(req.deadline_error())
             else:
                 keep.append(req)
         self._page_wait = keep
@@ -997,7 +1171,12 @@ class SchedulerBackend:
     """Tokenize -> scheduler.submit -> detokenize: the continuous-batching
     twin of `EngineBackend` (serve/backends.py). Concurrent callers share
     the scheduler's decode batch; no lock serialises them. TTFT is the time
-    from submit to the request's first accepted token."""
+    from submit to the request's first accepted token. `deadline_s` is the
+    default per-request deadline (None: none); a request's own overrides
+    it, and the scheduler retires an expired request typed."""
+
+    #: GenerationService forwards a `deadline_s` to backends that set this.
+    supports_deadline = True
 
     def __init__(
         self,
@@ -1007,6 +1186,7 @@ class SchedulerBackend:
         sampling: SamplingParams = SamplingParams(),
         stop_texts: Sequence[str] = (),
         add_bos: bool = True,
+        deadline_s: Optional[float] = None,
     ):
         self.scheduler = scheduler.start()
         self.tokenizer = tokenizer
@@ -1014,9 +1194,16 @@ class SchedulerBackend:
         self.sampling = sampling
         self.stop_texts = tuple(stop_texts)
         self.add_bos = add_bos
+        self.deadline_s = deadline_s
 
     def shutdown(self) -> None:
         self.scheduler.shutdown()
+
+    def check_budget(self, prompt: str, max_new_tokens: Optional[int] = None) -> None:
+        """Raise the ValueError `complete` would raise for a prompt that
+        leaves no decode room, without submitting."""
+        self._budget(len(self.tokenizer.encode(prompt, add_bos=self.add_bos)),
+                     max_new_tokens)
 
     def _budget(self, n_prompt_tokens: int, max_new_tokens: Optional[int]) -> int:
         """The requested budget, clamped to the room the scheduler window
@@ -1031,11 +1218,12 @@ class SchedulerBackend:
             )
         return min(max_new_tokens or self.max_new_tokens, room)
 
-    def _submit(self, ids, max_new_tokens, sampling, seed):
+    def _submit(self, ids, max_new_tokens, sampling, seed, deadline_s):
         on_tok, first_at = _first_token_timer()
         fut = self.scheduler.submit(
             ids, max_new_tokens=self._budget(len(ids), max_new_tokens),
-            sampling=sampling or self.sampling, seed=seed, on_token=on_tok)
+            sampling=sampling or self.sampling, seed=seed, on_token=on_tok,
+            deadline_s=deadline_s if deadline_s is not None else self.deadline_s)
         return fut, first_at
 
     def _completion(self, ids, fut, first_at, t_submit) -> Completion:
@@ -1046,23 +1234,25 @@ class SchedulerBackend:
                           ttft_s=(first_at[0] - t_submit) if first_at else 0.0)
 
     def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
-                 sampling: Optional[SamplingParams] = None,
-                 seed: int = 0) -> Completion:
+                 sampling: Optional[SamplingParams] = None, seed: int = 0,
+                 deadline_s: Optional[float] = None) -> Completion:
         ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
         t_submit = time.perf_counter()
-        fut, first_at = self._submit(ids, max_new_tokens, sampling, seed)
+        fut, first_at = self._submit(ids, max_new_tokens, sampling, seed,
+                                     deadline_s)
         return self._completion(ids, fut, first_at, t_submit)
 
     def complete_batch(
         self, prompts: Sequence[str], max_new_tokens: Optional[int] = None,
         sampling: Optional[SamplingParams] = None, seed: int = 0,
+        deadline_s: Optional[float] = None,
     ) -> List[Completion]:
         """Submit the whole batch at once: the scheduler interleaves the
         prompts through its slots (continuous batching)."""
         ids_list = [self.tokenizer.encode(p, add_bos=self.add_bos)
                     for p in prompts]
         t_submit = time.perf_counter()
-        subs = [self._submit(ids, max_new_tokens, sampling, seed)
+        subs = [self._submit(ids, max_new_tokens, sampling, seed, deadline_s)
                 for ids in ids_list]
         return [self._completion(ids, fut, first_at, t_submit)
                 for ids, (fut, first_at) in zip(ids_list, subs)]

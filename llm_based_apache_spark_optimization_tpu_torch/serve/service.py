@@ -1,19 +1,28 @@
 """Generation service: a registry of named models and `generate`, the call
 shape of `ollama.generate(model=..., system=..., prompt=...)`.
 
-Counterpart of the JAX package's `serve/service.py` (registry, templates,
-per-model stats); its tracing, QoS, Prometheus and fleet hooks are not
-ported yet.
+Counterpart of the JAX package's `serve/service.py`: registry, templates,
+per-model stats, request tracing, deadlines and request ids, the lifecycle
+seams the app's health routes and drain gate read (`health`, `draining`,
+`drain`, `close`), `validate` and `generate_stream` for `/api/generate`.
+Not ported yet: constrained decoding (a `constrain` spec raises, ROADMAP
+A8), the QoS front door and tenant routing (`tenant`/`qos` are carried and
+not charged, A11), supervised health and idempotency journals (A11),
+Prometheus, SLOs and profiling (A12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
 from typing import Dict, List, Optional
 
 from ..ops.sampling import SamplingParams
+from ..utils import tracing
+from ..utils.observability import HistogramSet
+from ..utils.tracing import TRACER
 from .templates import TEMPLATES, Template
 
 
@@ -25,6 +34,8 @@ class GenerateResult:
     output_tokens: int
     ttft_s: float = 0.0
     prompt_tokens: int = 0
+    # Trace-correlation id when the request ran under one.
+    request_id: str = ""
 
     @property
     def tok_per_s(self) -> float:
@@ -34,7 +45,7 @@ class GenerateResult:
 @dataclasses.dataclass
 class ModelEntry:
     name: str
-    backend: object  # EngineBackend (duck-typed .complete / .complete_batch)
+    backend: object  # EngineBackend | SchedulerBackend | FakeBackend (duck-typed)
     template: Template
 
 
@@ -45,6 +56,12 @@ class GenerationService:
         self._models: Dict[str, ModelEntry] = {}
         self._lock = threading.Lock()
         self.stats: Dict[str, Dict[str, float]] = {}
+        # Fixed-bucket latency and TTFT histograms per model (the JAX
+        # package's Prometheus feed; /metrics is ROADMAP A12).
+        self.histograms = HistogramSet()
+        # Drain mode (SIGTERM path): once set, the HTTP layers answer new
+        # work with 503 + Retry-After while in-flight requests finish.
+        self._draining = False
 
     def register(self, name: str, backend, template: str = "completion") -> None:
         if template not in TEMPLATES:
@@ -66,13 +83,72 @@ class GenerationService:
             )
         return entry
 
-    def _record(self, model: str, n_requests: int, latency: float,
-                tokens: int) -> None:
+    def _entries(self) -> List[ModelEntry]:
+        with self._lock:
+            return list(self._models.values())
+
+    def _record(self, model: str, n_requests: int, latency: float, tokens: int,
+                ttfts=()) -> None:
         with self._lock:
             s = self.stats[model]
             s["requests"] += n_requests
             s["total_latency_s"] += latency
             s["total_tokens"] += tokens
+        self.histograms.observe("lsot_request_latency_seconds", latency, model=model)
+        for ttft in ttfts:
+            if ttft:
+                self.histograms.observe("lsot_ttft_seconds", ttft, model=model)
+
+    # ------------------------------------------------------------- lifecycle
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def health(self) -> Dict[str, object]:
+        """The /readyz payload. The port's backends have no supervisor
+        (ROADMAP A11), so there is no restarting or dead state to report:
+        a crashed scheduler answers 503 for each of its requests."""
+        return {"state": "ready", "draining": self._draining,
+                "models": self.models()}
+
+    def drain(self, deadline_s: Optional[float] = None) -> None:
+        """Graceful shutdown (SIGTERM): stop admitting — the HTTP drain
+        gate answers 503 + Retry-After from here on — then close every
+        backend. Without a supervisor (ROADMAP A11) nothing can finish in
+        flight within `deadline_s` or be journaled: a scheduler's requests
+        still in flight fail typed when its loop stops, as an unsupervised
+        scheduler's do in the JAX package."""
+        self._draining = True
+        self.close()
+
+    def close(self) -> None:
+        """Shut down owned backend resources (scheduler threads and their
+        caches). Idempotent; a backend shared by two names shuts down once."""
+        seen = set()
+        for e in self._entries():
+            shutdown = getattr(e.backend, "shutdown", None)
+            if shutdown is not None and id(e.backend) not in seen:
+                seen.add(id(e.backend))
+                shutdown()
+
+    # ------------------------------------------------------------ generation
+
+    @staticmethod
+    def _request_kwargs(entry: ModelEntry, constrain, deadline_s) -> Dict:
+        """A `constrain` spec raises (grammar-constrained decoding is not
+        ported, ROADMAP A8: a clear request-shape error, not a silently
+        unconstrained completion). A deadline goes only to backends that
+        can enforce one (`supports_deadline`); elsewhere it is a
+        best-effort hint and dropped, as in the JAX package."""
+        if constrain is not None:
+            raise ValueError(
+                f"model {entry.name!r}: constrained decoding is not ported "
+                f"(ROADMAP A8)")
+        if deadline_s is None or not getattr(entry.backend, "supports_deadline",
+                                             False):
+            return {}
+        return {"deadline_s": deadline_s}
 
     def generate(
         self,
@@ -82,20 +158,75 @@ class GenerationService:
         max_new_tokens: Optional[int] = None,
         sampling: Optional[SamplingParams] = None,
         seed: int = 0,
+        constrain=None,
+        deadline_s: Optional[float] = None,
+        idempotency_key: Optional[str] = None,
+        request_id: Optional[str] = None,
+        tenant: str = "",
+        qos: str = "",
     ) -> GenerateResult:
+        """One completion. `idempotency_key` needs a journal to dedupe
+        against and is dropped here, as the JAX package drops it for
+        backends without one; `tenant` and `qos` are carried, not charged
+        (ROADMAP A11)."""
         entry = self._entry(model)
+        kwargs = self._request_kwargs(entry, constrain, deadline_s)
         rendered = entry.template(system, prompt)
+        tr, own, rid = tracing.begin_or_ambient(request_id, model)
         t0 = time.perf_counter()
-        completion = entry.backend.complete(
-            rendered, max_new_tokens=max_new_tokens, sampling=sampling, seed=seed,
-        )
+        try:
+            with tracing.use(tr) if own is not None else contextlib.nullcontext():
+                with tracing.span("service.generate", model=model):
+                    completion = entry.backend.complete(
+                        rendered, max_new_tokens=max_new_tokens,
+                        sampling=sampling, seed=seed, **kwargs,
+                    )
+        finally:
+            TRACER.finish(own)
         latency = time.perf_counter() - t0
-        self._record(model, 1, latency, completion.output_tokens)
+        self._record(model, 1, latency, completion.output_tokens, [completion.ttft_s])
         return GenerateResult(
             response=completion.text, model=model, latency_s=latency,
             output_tokens=completion.output_tokens, ttft_s=completion.ttft_s,
-            prompt_tokens=completion.prompt_tokens,
+            prompt_tokens=completion.prompt_tokens, request_id=rid,
         )
+
+    def validate(self, model: str, prompt: str, system: str = "",
+                 max_new_tokens: Optional[int] = None, constrain=None) -> None:
+        """Raise the KeyError/ValueError generate() would raise for a bad
+        model name, a bad `constrain` spec or an oversize prompt, without
+        generating: streaming handlers call this while a 400 is still
+        possible."""
+        entry = self._entry(model)
+        self._request_kwargs(entry, constrain, None)
+        check = getattr(entry.backend, "check_budget", None)
+        if check is not None:
+            check(entry.template(system, prompt), max_new_tokens)
+
+    def generate_stream(
+        self,
+        model: str,
+        prompt: str,
+        system: str = "",
+        max_new_tokens: Optional[int] = None,
+        sampling: Optional[SamplingParams] = None,
+        seed: int = 0,
+        constrain=None,
+        deadline_s: Optional[float] = None,
+        request_id: Optional[str] = None,
+        tenant: str = "",
+        qos: str = "",
+    ):
+        """Yield the completion as text chunks (Ollama's `stream=true`
+        surface). The port's backends have no `complete_stream` seam yet, so
+        the whole completion is one chunk, as the JAX package serves it from
+        backends without one. Metrics record the request like generate()."""
+        res = self.generate(model, prompt, system=system,
+                            max_new_tokens=max_new_tokens, sampling=sampling,
+                            seed=seed, constrain=constrain, deadline_s=deadline_s,
+                            request_id=request_id, tenant=tenant, qos=qos)
+        if res.response:
+            yield res.response
 
     def generate_batch(
         self,
@@ -116,7 +247,8 @@ class GenerationService:
         )
         latency = time.perf_counter() - t0
         self._record(model, len(prompts), latency,
-                     sum(c.output_tokens for c in completions))
+                     sum(c.output_tokens for c in completions),
+                     [c.ttft_s for c in completions])
         return [
             GenerateResult(
                 response=c.text, model=model, latency_s=latency,

@@ -1,0 +1,358 @@
+"""The port's app, front to back, on the CPU: the JSON, redirect and status
+shapes of tests/test_app.py on the port's API and web frontends over
+`FakeBackend`; the health routes and the routes not served yet; the JAX app
+and the port's app over their tiny contiguous schedulers, with the same
+bridged weights, answering the same `POST /process-data/` with the same SQL
+and the same error text; and the entry point refusing every option it
+cannot honor."""
+
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from llm_based_apache_spark_optimization_tpu.app import AppConfig as JaxAppConfig
+from llm_based_apache_spark_optimization_tpu.app import create_api_app as jax_api
+from llm_based_apache_spark_optimization_tpu.app.__main__ import (
+    make_tiny_service as jax_tiny_service,
+)
+from llm_based_apache_spark_optimization_tpu.history import (
+    SQLiteHistory as JaxSQLiteHistory,
+)
+from llm_based_apache_spark_optimization_tpu.sql import SQLiteBackend as JaxSQLiteBackend
+from llm_based_apache_spark_optimization_tpu_torch.app import (
+    AppConfig,
+    create_api_app,
+    create_web_app,
+    secure_filename,
+)
+from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+from llm_based_apache_spark_optimization_tpu_torch.convert import params_from_jax
+from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
+from llm_based_apache_spark_optimization_tpu_torch.serve import (
+    FakeBackend,
+    GenerationService,
+)
+from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+
+CSV = "VendorID,passenger_count,total_amount\n1,2,12.5\n2,4,25.0\n1,3,18.0\n"
+GOOD_SQL = "SELECT VendorID, SUM(total_amount) AS Total_Fare FROM temp_view GROUP BY VendorID"
+BAD_SQL = "SELECT FROM nothing WHERE"
+EXPLAIN = "The table or column does not exist; check the schema."
+
+
+def make_service(sql=GOOD_SQL):
+    svc = GenerationService()
+    svc.register("duckdb-nsql", FakeBackend(lambda p: sql))
+    svc.register("llama3.2", FakeBackend(lambda p: EXPLAIN))
+    return svc
+
+
+@pytest.fixture()
+def cfg(tmp_path):
+    (tmp_path / "input").mkdir()
+    (tmp_path / "input" / "taxi.csv").write_text(CSV)
+    return AppConfig(input_dir=str(tmp_path / "input"),
+                     output_dir=str(tmp_path / "output"),
+                     history_db=":memory:", secret_key="test-secret")
+
+
+def api_client(cfg, sql=GOOD_SQL, history=None):
+    return create_api_app(make_service(sql), SQLiteBackend,
+                          history or SQLiteHistory(), cfg).test_client()
+
+
+def web_client(cfg, sql=GOOD_SQL, history=None):
+    return create_web_app(make_service(sql), SQLiteBackend,
+                          history or SQLiteHistory(), cfg).test_client()
+
+
+# ------------------------------------------------------------- API shapes
+
+API_CASES = {
+    "success": (GOOD_SQL, {"input_text": "total fare per vendor",
+                           "file_name": "taxi.csv"}, 200),
+    "missing_file": (GOOD_SQL, {"input_text": "q", "file_name": "nope.csv"}, 200),
+    "sql_failure": (BAD_SQL, {"input_text": "q", "file_name": "taxi.csv"}, 200),
+    "traversal_dotdot": (GOOD_SQL, {"input_text": "q", "file_name": "../secret.csv"}, 400),
+    "traversal_abs": (GOOD_SQL, {"input_text": "q", "file_name": "/etc/passwd"}, 400),
+    "traversal_nested": (GOOD_SQL, {"input_text": "q", "file_name": "a/../../b.csv"}, 400),
+    "empty_name": (GOOD_SQL, {"input_text": "q", "file_name": ""}, 400),
+}
+
+
+@pytest.mark.parametrize("case", sorted(API_CASES))
+def test_api_process_data_shapes(cfg, case):
+    """POST /process-data/ answers the §2.2 shape of each outcome."""
+    sql, payload, status = API_CASES[case]
+    hist = SQLiteHistory()
+    res = api_client(cfg, sql, hist).post_json("/process-data/", payload)
+    assert res.status == status
+    body = res.json()
+    if case == "success":
+        assert set(body) == {"message", "input_file_name", "input_data",
+                             "sql_query", "output_file"}
+        assert body["message"] == "Query executed successfully!"
+        assert body["input_file_name"] == "taxi.csv" and body["sql_query"] == GOOD_SQL
+        assert open(body["output_file"]).read().splitlines()[0] == "VendorID,Total_Fare"
+        assert hist.count() == 1 and hist.page(1)[0][0].sql_query == GOOD_SQL
+    elif case == "missing_file":
+        assert set(body) == {"error"}
+        assert body["error"].startswith("CSV file not found at ")
+        assert body["error"].endswith("nope.csv")
+    elif case == "sql_failure":
+        assert body["error"] == "SQL execution failed"
+        assert body["sql_query"] == BAD_SQL and body["error_details"] == EXPLAIN
+        assert hist.count() == 0
+    else:
+        assert body == {"error": "invalid file name"}
+
+
+@pytest.mark.parametrize("method,path,body,status", [
+    ("POST", "/process-data/", b"not json", 400),
+    ("GET", "/nope", b"", 404),
+    ("GET", "/process-data/", b"", 405),
+    # Not served until ROADMAP A12 brings what they read.
+    ("GET", "/metrics", b"", 404),
+    ("GET", "/debug/flightrecorder", b"", 404),
+    ("GET", "/debug/traces", b"", 404),
+])
+def test_api_status_codes(cfg, method, path, body, status):
+    res = api_client(cfg).request(method, path, body, "application/json")
+    assert res.status == status
+    assert res.headers.get("X-Request-Id")
+
+
+def test_api_generate_and_models(cfg):
+    client = api_client(cfg)
+    res = client.post_json("/api/generate", {"model": "duckdb-nsql", "prompt": "q"})
+    assert res.status == 200
+    assert res.json()["response"] == GOOD_SQL and res.json()["done"] is True
+    lines = client.post_json("/api/generate", {"model": "duckdb-nsql", "prompt": "q",
+                                               "stream": True}).text.splitlines()
+    assert '"done": true' in lines[-1] and GOOD_SQL in lines[0]
+    assert client.post_json("/api/generate", {"model": "x", "prompt": "q"}).status == 404
+    assert client.post_json("/api/generate", {"model": "duckdb-nsql", "prompt": "q",
+                                              "qos": "gold"}).status == 400
+    # A constrain spec is a request-shape error until ROADMAP A8.
+    res = client.post_json("/api/generate", {"model": "duckdb-nsql", "prompt": "q",
+                                             "constrain": "spark_sql"})
+    assert res.status == 400 and "A8" in res.json()["error"]
+    assert client.get("/models").json()["models"] == ["duckdb-nsql", "llama3.2"]
+
+
+def test_health_routes_and_drain_gate(cfg):
+    svc = make_service()
+    client = create_api_app(svc, SQLiteBackend, SQLiteHistory(), cfg).test_client()
+    assert client.get("/healthz").json() == {"status": "ok"}
+    ready = client.get("/readyz")
+    assert ready.status == 200 and ready.json()["state"] == "ready"
+    svc.drain(0)
+    assert client.get("/readyz").status == 503
+    res = client.post_json("/process-data/", {"input_text": "q", "file_name": "taxi.csv"})
+    assert res.status == 503 and res.headers["Retry-After"]
+
+
+def test_pipeline_runs_are_isolated_per_backend_factory(cfg):
+    calls = []
+
+    def factory():
+        calls.append(1)
+        return SQLiteBackend()
+
+    client = create_api_app(make_service(), factory, SQLiteHistory(), cfg).test_client()
+    for _ in range(2):
+        client.post_json("/process-data/", {"input_text": "q", "file_name": "taxi.csv"})
+    assert len(calls) == 2
+
+
+# ------------------------------------------------------------- web shapes
+
+def upload(client, content=CSV.encode()):
+    return client.post_multipart("/process-data/", fields={"input_text": "q"},
+                                 files={"file": ("taxi.csv", content)})
+
+
+def test_web_index_css_and_upload_flow(cfg):
+    web = web_client(cfg)
+    assert web.get("/").status == 200 and "<form" in web.get("/").text
+    css = web.get("/static/styles.css")
+    assert css.status == 200 and css.headers["Content-Type"] == "text/css"
+    assert web.get("/status").json() == {"status": "idle", "message": ""}
+    assert upload(web).json() == {"redirect": "/show"}
+    cookie = dict(web.cookies)
+    assert web.get("/status").json() == {"status": "done", "message": "done"}
+    assert web.cookies == cookie  # a read-only poll keeps the session
+    show = web.get("/show")
+    assert show.status == 200 and "taxi.csv" in show.text and "Total_Fare" in show.text
+    other = web_client(cfg)  # sessions do not share status
+    assert other.get("/status").json() == {"status": "idle", "message": ""}
+    missing = web.post_multipart("/process-data/", fields={"input_text": "q"}, files={})
+    assert missing.status == 400
+
+
+def test_web_error_path_redirects_to_err_sol(cfg):
+    client = web_client(cfg, BAD_SQL)
+    redirect = upload(client).json()["redirect"]
+    assert redirect.startswith("/err_sol?")
+    assert "error_message=" in redirect and "err=" in redirect
+    path, _, query = redirect.partition("?")
+    page = client.request("GET", path, query=query)
+    assert page.status == 200 and "Suggested solution" in page.text
+
+
+def test_web_history_pagination(cfg):
+    hist = SQLiteHistory()
+    for i in range(10):
+        hist.record(f"f{i}.csv", f"q{i}", f"SELECT {i};", f"o{i}.csv")
+    client = web_client(cfg, history=hist)
+    p1 = client.get("/history", query="page=1")
+    assert "f9.csv" in p1.text and "Next" in p1.text
+    p2 = client.get("/history", query="page=2")
+    assert "f0.csv" in p2.text and "Next" not in p2.text and "Prev" in p2.text
+
+
+def test_web_upload_reaches_the_backend_exactly(cfg):
+    content = CSV + "\n"
+    seen = {}
+
+    class Capturing(SQLiteBackend):
+        def load_csv(self, path, view_name="temp_view"):
+            seen["bytes"] = Path(path).read_bytes()
+            return super().load_csv(path, view_name)
+
+    client = create_web_app(make_service(), Capturing, SQLiteHistory(), cfg).test_client()
+    upload(client, content.encode())
+    assert seen["bytes"] == content.encode()
+    assert list(Path(cfg.input_dir).glob("*/*")) == []  # staging dir removed
+
+
+def test_secure_filename():
+    assert secure_filename("../../etc/passwd") == "etc_passwd"
+    assert secure_filename("taxi data.csv") == "taxi_data.csv"
+    assert secure_filename("") == "upload.csv"
+
+
+def test_schema_inference_matches_jax(tmp_path):
+    """The port's SQLite backend (Python inference pass only) gives the
+    JAX backend's schema, so both prompt the model with the same text."""
+    p = tmp_path / "t.csv"
+    p.write_text("a,b,c,d,e\n1,2.5,2024-01-02,x,3000000000\n2,,2024-01-03 10:00,y,1\n")
+    want = JaxSQLiteBackend().load_csv(str(p))
+    got = SQLiteBackend().load_csv(str(p))
+    assert got.prompt_lines() == want.prompt_lines()
+
+
+# ------------------------------------------------- parity with the JAX app
+
+def test_tiny_contiguous_app_matches_jax(tmp_path):
+    """Both apps over their tiny contiguous schedulers with the same weights:
+    random weights write failing SQL, so each request walks generate,
+    execute, two repair rounds and the 3B explanation. The same SQL and the
+    same error text come back, and both record no history row."""
+    jsvc = jax_tiny_service(8, scheduler=True, supervise=False)
+    try:
+        weights = tuple(
+            params_from_jax(jax.tree.map(np.asarray, jsvc._models[m].backend.scheduler.params),
+                            device="cpu")
+            for m in ("duckdb-nsql", "mistral"))
+        tsvc = entry.make_tiny_service(8, device="cpu", weights=weights)
+        try:
+            sched = tsvc._models["duckdb-nsql"].backend.scheduler
+            assert sched.kv_layout == "contiguous" and sched.num_slots == 8
+            bodies = []
+            for svc, app_fn, config, hist, sql in (
+                    (jsvc, jax_api, JaxAppConfig, JaxSQLiteHistory, JaxSQLiteBackend),
+                    (tsvc, create_api_app, AppConfig, SQLiteHistory, SQLiteBackend)):
+                root = tmp_path / type(svc).__module__.split(".")[0]
+                (root / "input").mkdir(parents=True)
+                (root / "input" / "taxi.csv").write_text(CSV)
+                c = config(input_dir=str(root / "input"), output_dir=str(root / "out"),
+                           history_db=":memory:", max_new_tokens=8)
+                history = hist()
+                client = app_fn(svc, sql, history, c).test_client()
+                bodies.append(client.post_json(
+                    "/process-data/", {"input_text": "total fare per vendor",
+                                       "file_name": "taxi.csv"}).json())
+                assert history.count() == 0
+            want, got = bodies
+            assert got["error"] == want["error"] == "SQL execution failed"
+            assert got["sql_query"] == want["sql_query"]
+            assert got["error_details"] == want["error_details"]
+        finally:
+            tsvc.close()
+    finally:
+        jsvc.close()
+
+
+# ------------------------------------------------------- the entry point
+
+def args_for(*argv):
+    return entry.build_parser().parse_args(list(argv))
+
+
+@pytest.mark.parametrize("argv,item", [
+    (("--backend", "checkpoint"), "A5"),
+    (("--supervise",), "A11"),
+    (("--tp", "2"), "A13"),
+    (("--dp", "2"), "A13"),
+    (("--sp", "2"), "A13"),
+    (("--speculative", "3"), "A9"),
+    (("--int8",), "A10"),
+    (("--int8-unembed",), "A10"),
+])
+def test_entry_point_refuses_unported_flags(argv, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        entry.build_service(args_for("--cpu", "--backend", "tiny", *argv), AppConfig())
+
+
+@pytest.mark.parametrize("knob,value,item", [
+    ("LSOT_MODELS", "duckdb-nsql=tiny", "A11"),
+    ("LSOT_TENANT_MODELS", "a=duckdb-nsql", "A11"),
+    ("LSOT_POOL_PHASES", "prefill:1,decode:1", "A11"),
+    ("LSOT_POOL_REMOTE", "1=localhost:9", "A11"),
+    ("LSOT_REPLICA_WEIGHTS", "2,1", "A11"),
+    ("LSOT_FLEET_WORKERS", "localhost:9", "A11"),
+    ("LSOT_JOURNAL_SPILL", "spill", "A11"),
+    ("LSOT_QOS", "1", "A11"),
+    ("LSOT_TENANT_RATE", "2", "A11"),
+    ("LSOT_TENANT_BURST", "4", "A11"),
+    ("LSOT_TENANT_WEIGHTS", "a=2", "A11"),
+    ("LSOT_MAX_QUEUE_DEPTH", "4", "A7.6"),
+    ("LSOT_CONSTRAIN_SQL", "1", "A8"),
+])
+def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, item):
+    monkeypatch.setenv(knob, value)
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        entry.build_service(args_for("--cpu"), cfg)
+        create_api_app(make_service(), SQLiteBackend, SQLiteHistory(), cfg)
+
+
+def test_entry_point_needs_a_card_without_cpu():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: this checks the refusal without one")
+    for argv in ((), ("--backend", "tiny")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry.build_service(args_for(*argv), AppConfig())
+
+
+def test_entry_point_defaults_match_the_reference_app():
+    """--scheduler on and --kv-layout contiguous, as in the JAX entry point;
+    --supervise off (its supervisor is ROADMAP A11), and said so in --help."""
+    args = args_for()
+    assert args.scheduler and args.kv_layout == "contiguous" and not args.supervise
+    assert args.backend == "fake"
+    assert "A11" in " ".join(entry.build_parser().format_help().split())
+    svc = entry.build_service(args_for("--cpu", "--backend", "tiny", "--kv-int8",
+                                       "--slots", "2"), AppConfig())
+    try:
+        sched = svc._models["llama3.2"].backend.scheduler
+        assert (sched.kv_layout, sched.kv_quant, sched.num_slots) == ("contiguous", "int8", 2)
+        assert svc._models["mistral"].backend.scheduler.cfg.sliding_window == 32
+    finally:
+        svc.close()

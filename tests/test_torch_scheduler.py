@@ -1,4 +1,4 @@
-"""The port's paged continuous-batching scheduler vs the JAX package's, on
+"""The port's continuous-batching scheduler vs the JAX package's, on
 the CPU in f32 (TINY, the same bridged params, `decode_chunk=4`,
 `prompt_bucket=8`): greedy tokens identical, the same zero-copy shares and
 copy-on-write copies on the prefix-sharing traffic of
@@ -7,9 +7,12 @@ page after drain; seeded sampling that replays whatever shares the batch,
 and a chi-square test of the runtime sampler against its target
 distribution. The quantized serving configuration (int4 block weights,
 int8 page pool) gives the JAX scheduler's tokens too, with multi-chunk
-prompts whose prefix hits end mid-page (scale pages copied on write)."""
+prompts whose prefix hits end mid-page (scale pages copied on write). The
+contiguous layout, both packages' default, gives JAX's tokens and prefix
+block hits in f32 and over the int8 cache."""
 
 import dataclasses
+import inspect
 import threading
 import time
 
@@ -187,9 +190,72 @@ def test_page_pressure_waits_and_completes(both):
 
 
 def test_only_the_paged_layout_is_ported(both):
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        ContinuousBatchingScheduler(TINY, both[1], kv_layout="contiguous",
-                                    device="cpu")
+    """Both layouts are ported now: any other raises with the JAX
+    scheduler's message, in both packages."""
+    for sched, cfg, params, kw in ((JaxScheduler, JAX_TINY, both[0], {}),
+                                   (ContinuousBatchingScheduler, TINY, both[1],
+                                    {"device": "cpu"})):
+        with pytest.raises(ValueError, match="kv_layout must be 'contiguous' or "
+                                             "'paged', got 'ragged'"):
+            sched(cfg, params, kv_layout="ragged", **kw)
+    sched = ContinuousBatchingScheduler(TINY, both[1], device="cpu")
+    assert sched.kv_layout == "contiguous" and sched.page_stats is None
+
+
+def test_kv_layout_defaults_match_jax():
+    """The same call builds the same layout in both packages."""
+    want = inspect.signature(JaxScheduler).parameters["kv_layout"].default
+    got = inspect.signature(ContinuousBatchingScheduler).parameters["kv_layout"].default
+    assert got == want == "contiguous"
+
+
+LONG = [1] + [(7 * i) % 200 + 3 for i in range(61)]  # 62 tokens: 8 chunks of 8
+
+
+def multichunk(s):
+    """One 62-token prompt in 8-token chunks beside three short prompts."""
+    return [f.result(timeout=300) for f in
+            [s.submit(p, max_new_tokens=6) for p in [LONG] + PROMPTS[:3]]]
+
+
+def staggered(s):
+    """Admissions while other slots decode: two requests, then, once the
+    first has streamed a token, four more (parked slots in every round)."""
+    started = threading.Event()
+    first = s.submit(PROMPTS[0], max_new_tokens=12, on_token=lambda t: started.set())
+    second = s.submit(SHARED[0], max_new_tokens=8)
+    assert started.wait(300)
+    later = [s.submit(p, max_new_tokens=5) for p in PROMPTS[1:] + [SHARED[1]]]
+    return [f.result(timeout=300) for f in [first, second] + later]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+@pytest.mark.parametrize("traffic", ["multichunk", "prefix", "staggered"])
+def test_contiguous_layout_matches_jax(both, kv_quant, traffic):
+    """The contiguous layout (the default of both packages) in f32 and over
+    the int8 cache: greedy tokens identical to the JAX scheduler's on a
+    multi-chunk prompt, a repeated schema prefix (prefix block hits equal
+    to JAX's, at least three) and staggered admissions with parked slots."""
+    run = {"multichunk": multichunk, "prefix": sequential(SHARED, 5),
+           "staggered": staggered}[traffic]
+    jp, tp = both
+    kw = dict(num_slots=3, decode_chunk=4, prompt_bucket=8, stop_ids=(-1,),
+              kv_quant=kv_quant)
+    res = []
+    for sched in (JaxScheduler(JAX_TINY, jp, **kw),
+                  ContinuousBatchingScheduler(TINY, tp, **kw, device="cpu")):
+        assert sched.kv_layout == "contiguous"
+        with sched:
+            outs = run(sched)
+        res.append((outs, sched.prefix_stats, sched.page_stats))
+    (want, jprefix, jpages), (got, prefix, pages) = res
+    assert got == want
+    assert pages is None and jpages is None
+    for key in ("hits", "misses", "blocks_reused", "reused_tokens", "evictions",
+                "cached_blocks"):
+        assert prefix[key] == jprefix[key], key
+    if traffic == "prefix":
+        assert prefix["hits"] >= 3 and prefix["blocks_reused"] >= 3
 
 
 def test_seeded_sampling_replays_whatever_shares_the_batch(both):

@@ -88,3 +88,84 @@ def test_registry_surface(services):
         tsvc.register("m", None, template="nope")
     assert sorted(TEMPLATES) == ["completion", "llama3-chat", "mistral-instruct"]
     assert trim_stop_texts("SELECT 1; -- x", [";"]) == "SELECT 1"
+
+
+def test_engine_deadline_clamp(services):
+    """The engine backend exchanges a request's remaining deadline for a
+    step budget at the measured seconds a token: a seeded rate of 10 ms a
+    token and a 45 ms deadline afford 4 tokens; a deadline that cannot
+    afford one token fails typed before any device work."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve import DeadlineExceeded
+
+    backend = services[1]._entry("completion").backend
+    clamped = EngineBackend(backend.engine, ByteTokenizer(), max_new_tokens=16,
+                            sec_per_tok_seed=0.01)
+    svc = GenerationService()
+    svc.register("m", clamped)
+    assert svc.generate("m", "count rows", system=SYSTEM,
+                        deadline_s=0.045).output_tokens <= 4
+    with pytest.raises(DeadlineExceeded, match="deadline"):
+        svc.generate("m", "count rows", system=SYSTEM, deadline_s=0.005)
+    hist = svc.histograms.snapshot()["lsot_request_latency_seconds"]
+    assert [h["count"] for h in hist] == [1]  # the refused request records nothing
+
+
+def test_scheduler_deadline_fails_typed(services):
+    """A request whose deadline passed while it queued fails with
+    DeadlineExceeded at admission, on both layouts; one with room
+    completes."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        DeadlineExceeded,
+        SchedulerBackend,
+    )
+
+    engine = services[1]._entry("completion").backend.engine
+    for layout in ("contiguous", "paged"):
+        sched = ContinuousBatchingScheduler(engine.cfg, engine.params, num_slots=2,
+                                            prompt_bucket=16, kv_layout=layout,
+                                            device="cpu")
+        backend = SchedulerBackend(sched, ByteTokenizer(), max_new_tokens=8)
+        try:
+            assert backend.complete("count rows", deadline_s=300).output_tokens > 0
+            with pytest.raises(DeadlineExceeded, match="deadline exceeded"):
+                backend.complete("count rows", deadline_s=1e-9)
+            with pytest.raises(ValueError, match="deadline_s must be positive"):
+                sched.submit([1, 2], deadline_s=0)
+        finally:
+            backend.shutdown()
+
+
+def test_reference_service_assembly(services):
+    """The error role reuses the SQL model's scheduler on the llama3 chat
+    template, without a second BOS; a separate source builds its own."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        SchedulerBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.factory import (
+        assemble_reference_service,
+    )
+
+    engine = services[1]._entry("completion").backend.engine
+    built = []
+
+    def build(src, add_bos):
+        built.append((src, add_bos))
+        if src == "engine":
+            return EngineBackend(engine, ByteTokenizer(), add_bos=add_bos)
+        return SchedulerBackend(ContinuousBatchingScheduler(
+            engine.cfg, engine.params, num_slots=2, device="cpu"),
+            ByteTokenizer(), add_bos=add_bos)
+
+    svc = assemble_reference_service(build, "sched", max_new_tokens=8)
+    try:
+        sql, err = (svc._entry(m).backend for m in ("duckdb-nsql", "llama3.2"))
+        assert err.scheduler is sql.scheduler and not err.add_bos and sql.add_bos
+        assert svc._entry("llama3.2").template is TEMPLATES["llama3-chat"]
+        assert svc.generate("llama3.2", "why", system=SYSTEM).output_tokens > 0
+    finally:
+        svc.close()
+    svc = assemble_reference_service(build, "engine", "engine", "engine")
+    assert svc.models() == ["duckdb-nsql", "llama3.2", "mistral"]
+    assert built[-3:] == [("engine", True), ("engine", False), ("engine", True)]
