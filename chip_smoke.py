@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                # the whole run (one card)
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
-    python3 chip_smoke.py --timing-only  # phases 1, 2 and 10 alone
+    python3 chip_smoke.py --timing-only  # phases 1, 2 and 11 alone
     python3 chip_smoke.py --sweep        # phases 1, 2, then the split sweep
 
 `--timing-only` times the package that sits beside this file, so a copy of
@@ -11,7 +11,7 @@ this file placed in an unpacked archive of another commit times that
 commit's kernels at the same shapes (for comparing two commits in one
 call, in turns). `--sweep` times each decode launch (T == 1, bf16 and int8
 caches, contiguous and paged) at every cluster size of SWEEP_SPLITS beside
-the split plan's pick, at phase 10's shapes.
+the split plan's pick, at phase 11's shapes.
 
 Phases, each fatal on failure:
 
@@ -137,7 +137,43 @@ Phases, each fatal on failure:
    cache hits, shares and leaks no page; the live int8 pool's decode step
    is checked as in phase 6, the live int8 cache's as in phase 7. With
    --profile, six concurrent requests under torch.profiler.
-10. Timing at the main paths' shapes (one CUDA graph of one call per layer,
+10. Checkpoints, over files written in a temporary directory (removed
+   afterwards) from the seed-0 bf16 trees:
+   (a) GGUF, the reference's deployment format, at full width and depth:
+   LLAMA32_3B (28 layers, tied embeddings, llama3 rope scaling, so
+   `rope_freqs.weight` is written) as a Q4_0 blob by the port's
+   `write_gguf`. `load_gguf_checkpoint` must give the direct q4_0 -> f32
+   -> bf16 round trip of the seed tree bit for bit (a second q4_0
+   implementation on the card, `q4_0_round_trip`), and
+   `SchedulerBackend.from_gguf(quantize_int4=True, kv_quant="int8",
+   supervise=True)` (contiguous, 8 slots, max_seq 8192) the int4 tree of
+   that round trip; three requests one after the other give the greedy
+   tokens of a scheduler built from the round trip in memory. Then phase
+   6's traffic, launch counts exact (int4 matmul, flash prefill,
+   quantized decode: rows 1, 3 and 8).
+   (b) HF safetensors at full width: DUCKDB_NSQL_7B cut to HF_LAYERS = 4
+   layers (f32 on disk: 27 GB at full depth, 4.3 GB at 4), written by the
+   port's `save_hf_checkpoint` after a free-disk check, loaded by
+   `SchedulerBackend.from_hf_checkpoint(supervise=True)` (bf16,
+   contiguous, 8 slots, max_seq 4096): the loaded tree must equal the seed
+   tree bit for bit; phase 6's traffic, launch counts exact (rows 1, 2).
+   (c) The supervisor on the card, over (b)'s backend: a burst of six
+   requests (prompts sharing no prefix with earlier traffic) whose first
+   streamed token arms `sched:crash` once (utils/faults.py), so the next
+   harvest kills the loop mid-batch. Every request completes; health()
+   goes restarting -> ready; restarts 1, replayed 6, lost 0; each token
+   streams once; each request's tokens equal those of the same burst on a
+   fresh scheduler without the fault. The bursts are submitted with a
+   0.5 s GIL switch interval, so each run admits all six at once and
+   prefills the same groups. Launch counts exact over both incarnations.
+   (d) The entry point: `python -m <package>.app --backend checkpoint
+   --api --sql-model-path <(b)'s directory> --error-model-path <(a)'s
+   blob>:<tokenizer directory>`, supervised by default, with a byte-level
+   BPE `tokenizer.json` trained here by the `tokenizers` package (where it
+   does not import, the line `checkpoint entry point: not run (no
+   tokenizers package on this machine)` is printed instead): `/readyz`
+   ready, `POST /process-data/` 200, exit 0 after SIGTERM.
+11. Timing at the main paths' shapes (one CUDA graph of one call per layer,
    each on its own layer so K/V and weights come from device memory,
    replayed between CUDA events): kernel, plain version and a PyTorch
    yardstick the port never calls (`scaled_dot_product_attention`, over
@@ -1537,13 +1573,13 @@ def app_serve(torch, scheds):
     return launches
 
 
-def entry_point(torch, device_args=()):
+def entry_point(torch, backend_args=("--backend", "tiny"), device_args=()):
     """The entry point as a user starts it, in a process of its own:
-    `python -m <package>.app --backend tiny --api` (contiguous schedulers
-    on the card) over a temporary input directory; wait for `/healthz`,
-    `POST /process-data/` once, then SIGTERM (the graceful drain), and the
-    process must exit 0. Its launches are its own process's, outside every
-    counted window."""
+    `python -m <package>.app <backend_args> --api` (supervised contiguous
+    schedulers on the card) over a temporary input directory; wait for
+    `/healthz`, `/readyz` must answer `ready`, `POST /process-data/` once,
+    then SIGTERM (the graceful drain), and the process must exit 0. Its
+    launches are its own process's, outside every counted window."""
     import signal
     import socket
     import tempfile
@@ -1558,7 +1594,7 @@ def entry_point(torch, device_args=()):
             port = s.getsockname()[1]
         env = dict(os.environ, LSOT_HISTORY_DB=":memory:",
                    PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-        cmd = [sys.executable, "-m", f"{PKG}.app", "--backend", "tiny", "--api",
+        cmd = [sys.executable, "-m", f"{PKG}.app", *backend_args, "--api",
                "--port", str(port), *device_args]
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
@@ -1567,7 +1603,7 @@ def entry_point(torch, device_args=()):
         try:
             while True:
                 assert proc.poll() is None, f"the app exited: {proc.stdout.read()}"
-                assert time.perf_counter() - t0 < 180, "the app did not come up"
+                assert time.perf_counter() - t0 < 300, "the app did not come up"
                 try:
                     with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
                         if json.loads(r.read()) == {"status": "ok"}:
@@ -1575,6 +1611,8 @@ def entry_point(torch, device_args=()):
                 except OSError:
                     time.sleep(0.5)
             t_up = time.perf_counter() - t0
+            with urllib.request.urlopen(f"{url}/readyz", timeout=5) as r:
+                ready = (r.status, json.loads(r.read()))
             req = urllib.request.Request(
                 f"{url}/process-data/", method="POST",
                 data=json.dumps({"input_text": APP_QUESTIONS[0],
@@ -1593,9 +1631,13 @@ def entry_point(torch, device_args=()):
                 proc.kill()
                 rc = proc.wait()
         log = proc.stdout.read()
-    print(f"  `python {' '.join(cmd[1:])}`: up in {t_up:.1f} s; POST /process-data/ "
-          f"{status} in {wall:.3f} s, keys {sorted(body)}; exit {rc} after SIGTERM",
-          flush=True)
+    print(f"  `python {' '.join(cmd[1:])}`: up in {t_up:.1f} s; /readyz {ready[0]} "
+          f"{ready[1]['state']} (restarts {ready[1].get('restarts')}, models "
+          f"{sorted(ready[1]['models'])}); POST /process-data/ {status} in {wall:.3f} s, "
+          f"keys {sorted(body)}; exit {rc} after SIGTERM", flush=True)
+    assert ready[0] == 200 and ready[1]["state"] == "ready", ready
+    assert {"duckdb-nsql", "llama3.2"} <= set(ready[1]["models"]), \
+        f"the schedulers are not supervised: {ready[1]}"
     assert status == 200 and (set(body) == {"error", "sql_query", "error_details"}
                               or body.get("message") == "Query executed successfully!"), body
     assert rc == 0 and "SIGTERM: draining" in log, log
@@ -1802,6 +1844,404 @@ def quantized_serve(torch, engines, profile=False):
     live_cache_logits(torch, sched)
     return {"engine": engine_launches, "scheduler": sched_launches,
             "contiguous": contig_launches}
+
+
+# ------------------------------------------------------------ checkpoints
+
+HF_LAYERS = 4  # DUCKDB_NSQL_7B's HF file in f32 is 27 GB at full depth
+BURST_SWITCH_S = 0.5  # GIL switch interval while a burst is submitted
+
+
+def leaves(tree, prefix=""):
+    """{dotted name: tensor} of a params tree (int4 packs included)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def assert_trees_equal(torch, got, want, label):
+    a, b = leaves(got), leaves(want)
+    assert sorted(a) == sorted(b), f"{label}: leaves {sorted(a)} != {sorted(b)}"
+    bad = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    assert not bad, f"{label}: {bad} differ"
+    return len(a)
+
+
+def q4_0_round_trip(torch, w, transpose):
+    """One parameter through q4_0 and back, on the card: the GGUF file's
+    layout (torch-Linear [out, in] when `transpose`), blocks of 32 along
+    its last axis, the llama.cpp q4_0 arithmetic of `write_gguf` (d = the
+    block's signed absmax / -8 in f16, q = round(x / d) + 8 in [0, 15]),
+    dequantized as the reader does (d * (q - 8) in f32), then bf16. A Q/K
+    row permutation moves whole rows, so it does not change the blocks."""
+    x = (w.transpose(-1, -2) if transpose else w).float().contiguous()
+    b = x.reshape(-1, 32)
+    m = b.gather(1, b.abs().argmax(dim=1, keepdim=True))  # first maximum
+    d = (m / -8.0).half().float()
+    q = torch.clamp(torch.round(b / torch.where(d == 0, torch.ones_like(d), d)) + 8, 0, 15)
+    out = (d * (q - 8)).reshape(x.shape)
+    return (out.transpose(-1, -2) if transpose else out).to(torch.bfloat16).contiguous()
+
+
+def q4_0_tree(torch, cfg, params):
+    """The direct q4_0 -> f32 -> bf16 round trip of a bf16 tree: every
+    matmul weight and the embedding quantized, norms kept (f32 in the file,
+    exact for bf16 values), one layer at a time."""
+    out = {"embed": q4_0_round_trip(torch, params["embed"], False),
+           "final_norm": params["final_norm"].clone(), "blocks": {}}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = q4_0_round_trip(torch, params["lm_head"], False)
+    for k, w in params["blocks"].items():
+        out["blocks"][k] = (w.clone() if k.startswith("ln_") else torch.stack(
+            [q4_0_round_trip(torch, w[i], True) for i in range(w.shape[0])]))
+    return out
+
+
+def sequential_tokens(scheduler, prompts):
+    """Greedy tokens of each prompt, submitted one after the other."""
+    return [scheduler.submit(p, max_new_tokens=MAX_NEW).result(timeout=300)
+            for p in prompts]
+
+
+def counted_traffic(torch, svc, incarnations, label, err_model=None, sql_model=None):
+    """Phase 6's traffic through `svc` in a counted window: launches zeroed
+    just before, read just after, and held to each scheduler incarnation's
+    arithmetic (`incarnations`: a callable returning the live inner
+    schedulers, whose counters are read before and after)."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+
+    torch.cuda.synchronize()
+    reset_launches()
+    start = {id(s): (s.rounds_issued, s.prefill_forwards) for s in incarnations()}
+    results, walls = send_traffic(svc, sql_model=sql_model or "duckdb-nsql",
+                                  err_model=err_model)
+    for s in incarnations():
+        wait_settled(s)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    expected = dict.fromkeys(LAUNCHES, 0)
+    for s in incarnations():
+        r0, p0 = start.get(id(s), (0, 0))
+        expect_contiguous(expected, s, s.rounds_issued - r0, s.prefill_forwards - p0)
+    report_traffic(results, walls, path=label)
+    print(f"  {label} launches {launches} expected {expected}", flush=True)
+    assert launches == expected, f"{label}: launch counts {launches} != {expected}"
+    for r in (r for _, _, r in results):
+        assert r.output_tokens > 0 and r.ttft_s > 0
+    return launches
+
+
+def gguf_serve(torch, engines, root):
+    """(a) GGUF, the reference's deployment format, at full width and depth:
+    LLAMA32_3B's seed-0 bf16 tree written as a Q4_0 blob by the port's
+    `write_gguf`, loaded by `SchedulerBackend.from_gguf(quantize_int4=True,
+    kv_quant="int8", supervise=True)` (contiguous, 8 slots, max_seq 8192).
+    The loaded tree must equal the direct round trip of the seed tree bit
+    for bit, and requests through the loaded backend the tokens of a
+    backend built from that round trip in memory. Returns (launches, blob)."""
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import (
+        load_gguf_checkpoint,
+        write_gguf,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.models.configs import (
+        RopeFreqFactors,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_params_int4,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        GenerationService,
+        SchedulerBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.supervisor import (
+        SupervisedScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    cfg, seed = engines["llama3.2"].cfg, engines["llama3.2"].params
+    path = os.path.join(root, "llama3.2-3b.q4_0.gguf")
+    t0 = time.perf_counter()
+    write_gguf(cfg, seed, path, quant="q4_0")
+    print(f"  {cfg.name}: {cfg.num_layers} layers written as Q4_0 in "
+          f"{time.perf_counter() - t0:.1f} s, {os.path.getsize(path) / 2**30:.2f} GiB",
+          flush=True)
+    t0 = time.perf_counter()
+    lcfg, loaded = load_gguf_checkpoint(path, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    assert isinstance(lcfg.rope_scaling, RopeFreqFactors) and lcfg.tie_embeddings
+    assert (lcfg.num_layers, lcfg.hidden_size, lcfg.vocab_size, lcfg.max_seq_len) == (
+        cfg.num_layers, cfg.hidden_size, cfg.vocab_size, cfg.max_seq_len)
+    ref = q4_0_tree(torch, cfg, seed)
+    n = assert_trees_equal(torch, loaded, ref, "GGUF load vs q4_0 round trip")
+    print(f"  loaded in {t_load:.1f} s; {n} leaves equal the direct q4_0 -> f32 -> "
+          f"bf16 round trip of the seed tree bit for bit", flush=True)
+    del loaded
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sb = SchedulerBackend.from_gguf(path, tok, quantize_int4=True, kv_quant="int8",
+                                    supervise=True, num_slots=8, decode_chunk=8,
+                                    device="cuda", max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    sup = sb.scheduler
+    assert isinstance(sup, SupervisedScheduler)
+    inner = sup._inner
+    assert (inner.kv_layout, inner.kv_quant, inner.num_slots, inner.max_seq) == (
+        "contiguous", "int8", 8, cfg.max_seq_len)
+    params4 = quantize_params_int4(ref)
+    del ref
+    assert_trees_equal(torch, inner.params, params4, "int4 trees of the loaded and "
+                       "the round-trip weights")
+    print(f"  from_gguf(quantize_int4, kv int8, supervised) in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB allocated", flush=True)
+    refsched = ContinuousBatchingScheduler(lcfg, params4, num_slots=8, decode_chunk=8,
+                                           stop_ids=inner.stop_ids, kv_quant="int8",
+                                           device="cuda").start()
+    prompts = [tok.encode(f"{SYSTEM_ERR}\n\n{ERROR_PROMPT}"),
+               tok.encode(f"{SYSTEM_SQL}\n\n{QUESTIONS[0]}"),
+               tok.encode(f"{SYSTEM_SQL}\n\n{QUESTIONS[1]}")]
+    want = sequential_tokens(refsched, prompts)
+    got = sequential_tokens(sup, prompts)
+    refsched.shutdown()
+    del refsched, params4
+    print(f"  greedy tokens through the loaded backend vs the in-memory round-trip "
+          f"backend: {[len(g) for g in got]} tokens, equal: {got == want}", flush=True)
+    assert got == want, "the GGUF-loaded backend's tokens differ from the round trip's"
+
+    svc = GenerationService()
+    svc.register("llama3.2", sb)
+    launches = counted_traffic(torch, svc, lambda: [sup._inner],
+                               "gguf_3b_int4_int8", sql_model="llama3.2")
+    for k in ("int4_matmul", "flash_gqa_prefill", "flash_gqa_decode_quantized"):
+        assert launches[k] > 0, f"the GGUF path never launched {k}"
+    assert sup.health()["state"] == "ready" and sup.health()["restarts"] == 0
+    sb.shutdown()
+    del svc, sb, sup, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, path
+
+
+def hf_serve(torch, engines, root):
+    """(b) HF safetensors at full width: DUCKDB_NSQL_7B cut to HF_LAYERS
+    layers, written in f32 by the port's `save_hf_checkpoint`, loaded by
+    `SchedulerBackend.from_hf_checkpoint(supervise=True)` (bf16,
+    contiguous, 8 slots, max_seq 4096). The loaded tree must equal the seed
+    tree bit for bit (bf16 -> f32 -> bf16 is exact). Returns (launches,
+    backend, directory)."""
+    import dataclasses
+    import shutil
+
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import (
+        save_hf_checkpoint,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        GenerationService,
+        SchedulerBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    base = engines["duckdb-nsql"]
+    cfg = dataclasses.replace(base.cfg, num_layers=HF_LAYERS)
+    seed = {**{k: v for k, v in base.params.items() if k != "blocks"},
+            "blocks": {k: v[:HF_LAYERS] for k, v in base.params["blocks"].items()}}
+    need = 4 * sum(t.numel() for t in leaves(seed).values())
+    free = shutil.disk_usage(root).free
+    print(f"  disk: {free / 2**30:.1f} GiB free under the temporary directory, "
+          f"{need / 2**30:.2f} GiB to write", flush=True)
+    assert free > 2 * need, "not enough disk for the HF checkpoint"
+    d = os.path.join(root, "duckdb-nsql-7b")
+    t0 = time.perf_counter()
+    save_hf_checkpoint(cfg, seed, d)
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"  {cfg.name} at {HF_LAYERS} of {base.cfg.num_layers} layers written as "
+          f"f32 safetensors in {time.perf_counter() - t0:.1f} s, {size / 2**30:.2f} GiB",
+          flush=True)
+    t0 = time.perf_counter()
+    sb = SchedulerBackend.from_hf_checkpoint(d, tok, supervise=True, num_slots=8,
+                                             decode_chunk=8, device="cuda",
+                                             max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    inner = sb.scheduler._inner
+    assert (inner.kv_layout, inner.kv_quant, inner.max_seq) == (
+        "contiguous", None, base.cfg.max_seq_len)
+    n = assert_trees_equal(torch, inner.params, seed, "HF load vs the seed tree")
+    print(f"  from_hf_checkpoint(supervised) in {time.perf_counter() - t0:.1f} s; "
+          f"{n} leaves equal the seed tree bit for bit", flush=True)
+    svc = GenerationService()
+    svc.register("duckdb-nsql", sb)
+    launches = counted_traffic(torch, svc, lambda: [sb.scheduler._inner], "hf_7b_bf16")
+    for k in ("flash_gqa_prefill", "flash_gqa_decode"):
+        assert launches[k] > 0, f"the HF path never launched {k}"
+    return launches, sb, d
+
+
+def supervised_crash(torch, sb):
+    """(c) The supervisor on the card, over (b)'s backend: a burst of six
+    requests, and `sched:crash` armed once by the first streamed token (the
+    next harvest kills the loop mid-batch). Every request must complete,
+    health() go restarting -> ready with restarts 1 and lost 0, each token
+    stream once, and each request's tokens equal those of the same burst on
+    a fresh scheduler without the fault. The burst is submitted with a long
+    GIL switch interval, so the worker admits all six at once in every run
+    (the supervisor's replay submits them the same way), and its prompts
+    share no prefix with earlier traffic: the three runs prefill the same
+    groups of rows."""
+    import threading
+
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    tok = ByteTokenizer()
+    sup = sb.scheduler
+    factory = sup._factory
+    incarnations = [sup._inner]
+
+    def rebuild():
+        FAULTS.clear()  # exactly one crash: the rebuilt loop runs clean
+        s = factory()
+        incarnations.append(s)
+        return s
+
+    sup._factory = rebuild
+    prompts = [tok.encode(f"Burst request {i}. {SYSTEM_SQL}\n\n{q}")
+               for i, q in enumerate(SCHED_SQL[2:])]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(BURST_SWITCH_S)
+    try:
+        ctl = factory().start()
+        futs = [ctl.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+        expected = [f.result(timeout=300) for f in futs]
+        ctl.shutdown()
+        del ctl
+
+        seen, stop = [], threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                st = sup.health()["state"]
+                if not seen or seen[-1] != st:
+                    seen.append(st)
+                time.sleep(0.002)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        streamed = [[] for _ in prompts]
+
+        def tap(i):
+            def on_token(tok_id):
+                # The burst's first streamed token arms the crash: the next
+                # harvest kills the loop before any request can finish.
+                if not any(streamed):
+                    FAULTS.configure("sched:crash:1", seed=0)
+                streamed[i].append(tok_id)
+            return on_token
+
+        torch.cuda.synchronize()
+        reset_launches()
+        inner1 = incarnations[0]
+        r0, p0 = inner1.rounds_issued, inner1.prefill_forwards
+        t0 = time.perf_counter()
+        futs = [sup.submit(p, max_new_tokens=MAX_NEW, idempotency_key=f"burst-{i}",
+                           on_token=tap(i))
+                for i, p in enumerate(prompts)]
+        poller.start()  # after the burst is queued: it takes the supervisor's lock
+        got = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+    finally:
+        sys.setswitchinterval(switch)
+        FAULTS.clear()
+    for s in incarnations[1:]:
+        wait_settled(s)
+    torch.cuda.synchronize()
+    stop.set()
+    poller.join(timeout=5)
+    launches = dict(LAUNCHES)
+    want = dict.fromkeys(LAUNCHES, 0)
+    expect_contiguous(want, inner1, inner1.rounds_issued - r0, inner1.prefill_forwards - p0)
+    for s in incarnations[1:]:
+        expect_contiguous(want, s, s.rounds_issued, s.prefill_forwards)
+    h = sup.health()
+    print(f"  burst of {len(prompts)} with one sched:crash: {wall:.3f} s; health states "
+          f"{seen}; restarts {h['restarts']}, replayed {h['replayed']}, lost {h['lost']}; "
+          f"incarnations {len(incarnations)}", flush=True)
+    print(f"  tokens {[len(g) for g in got]}; equal to the fault-free burst: "
+          f"{got == expected}; streamed once each: {streamed == got}", flush=True)
+    print(f"  supervised_crash launches {launches} expected {want}", flush=True)
+    assert h["restarts"] == 1 and h["lost"] == 0 and h["state"] == "ready", h
+    assert h["replayed"] == len(prompts), "a request finished before the crash"
+    assert "restarting" in seen and seen[-1] == "ready", seen
+    assert len(incarnations) == 2
+    assert got == expected, "the replayed burst's tokens differ from the fault-free run"
+    assert streamed == got, "a token was streamed twice or lost"
+    assert launches == want, f"launch counts {launches} != {want}"
+    return launches
+
+
+def checkpoints(torch, engines):
+    """Phases 10-13: the checkpoint paths, over files written in a temporary
+    directory that is removed afterwards. Returns the launch counts per
+    path."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="lsot-checkpoints-")
+    try:
+        phase("checkpoint (a): GGUF Q4_0 3B -> from_gguf, int4 + int8 KV, supervised")
+        gguf_launches, blob = gguf_serve(torch, engines, root)
+        phase("checkpoint (b): HF safetensors 7B -> from_hf_checkpoint, supervised")
+        hf_launches, backend, hf_dir = hf_serve(torch, engines, root)
+        phase("checkpoint (c): the supervisor, sched:crash mid-burst")
+        crash_launches = supervised_crash(torch, backend)
+        backend.shutdown()
+        del backend
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("checkpoint (d): the entry point, --backend checkpoint")
+        try:
+            import tokenizers  # noqa: F401
+        except ImportError:
+            print("checkpoint entry point: not run (no tokenizers package on this "
+                  "machine)", flush=True)
+        else:
+            write_tokenizer(hf_dir)
+            entry_point(torch, ("--backend", "checkpoint", "--sql-model-path", hf_dir,
+                                "--error-model-path", f"{blob}:{hf_dir}",
+                                "--max-new-tokens", str(MAX_NEW)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"gguf_3b_int4_int8": gguf_launches, "hf_7b_bf16": hf_launches,
+            "supervised_crash": crash_launches}
+
+
+def write_tokenizer(directory):
+    """A byte-level BPE `tokenizer.json` (512 ids, <s> and </s>), trained
+    on the phase prompts with the `tokenizers` package."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+
+    t = Tokenizer(models.BPE())
+    t.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    t.decoder = decoders.ByteLevel()
+    t.train_from_iterator(
+        [SYSTEM_SQL, SYSTEM_ERR, ERROR_PROMPT, *SCHED_SQL, *APP_QUESTIONS] * 4,
+        trainers.BpeTrainer(vocab_size=512, special_tokens=["<unk>", "<s>", "</s>"],
+                            initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    t.save(os.path.join(directory, "tokenizer.json"))
 
 
 # --------------------------------------------------------------- profile
@@ -2479,6 +2919,8 @@ def main() -> int:
     phase("serve (quantized path: int4 weights, int8 KV)")
     q_launches = quantized_serve(torch, engines, args.profile)
 
+    ckpt_launches = checkpoints(torch, engines)
+
     phase("timing")
     assert engines["duckdb-nsql"].cfg == DUCKDB_NSQL_7B
     del engines
@@ -2507,7 +2949,8 @@ def main() -> int:
              "contiguous_scheduler": contig_launches, "app": app_launches,
              "quantized_engine": q_launches["engine"],
              "quantized_scheduler": q_launches["scheduler"],
-             "quantized_contiguous_scheduler": q_launches["contiguous"]}
+             "quantized_contiguous_scheduler": q_launches["contiguous"],
+             **ckpt_launches}
     tolerance = {"write": {"bfloat16": 0.0, "float32": 0.0},
                  "write_q": {"bfloat16": 0.0, "float32": 0.0},
                  "int4": {f"{d}_over_max_abs_out": v for d, v in INT4_TOL.items()}}

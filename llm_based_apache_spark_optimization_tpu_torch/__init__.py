@@ -13,10 +13,12 @@ Subpackages (bottom-up):
   ops/kernels/ hand-written CUDA kernels, their plain versions, the dispatch
   csrc/        CUDA C++ sources, built with nvcc at first use
   engine/      KV cache, prefill + decode loop
-  tokenizer/   byte-level tokenizer
+  checkpoint/  HF safetensors and GGUF loaders and writers, the native cache
+  native/      the GGUF reader in C++, built with g++ at first use
+  tokenizer/   byte-level, trainable BPE and HF tokenizer.json tokenizers
   serve/       prompt templates, engine and scheduler backends, the
-               continuous-batching scheduler, generation service, typed
-               serving errors
+               continuous-batching scheduler, its crash supervisor and
+               watchdog, generation service, typed serving errors
   sql/         CSV -> temp_view -> SQL execution (SQLite, Spark)
   history/     query-results history store
   utils/       fault injection, request tracing, counters

@@ -7,19 +7,29 @@ service, as the JAX package's `app/__main__.py` does:
                    `llama3.2`, and `mistral` with a sliding window), random
                    weights from fixed seeds, byte tokenizer: the real
                    serving path end to end without checkpoint assets
+  --backend checkpoint
+                   real weights: `--sql-model-path DIR|X.gguf:TOKDIR`
+                   (duckdb-nsql) and optionally `--error-model-path`
+                   (llama3.2; without it the error role shares the SQL
+                   model's weights) and `--mistral-model-path`. An HF
+                   directory carries its `tokenizer.json`; a GGUF blob
+                   names the directory that holds one after a colon
 
 Serving backends default to the continuous-batching scheduler over the
 contiguous KV layout (`--scheduler`, `--kv-layout contiguous`), the
 reference app's defaults: concurrent HTTP requests share one decode batch
 on the device. `--no-scheduler` serves lock-serialised engines instead.
+Each scheduler runs under the crash supervisor by default (`--supervise`,
+as in the JAX entry point: journal, restart with backoff, replay;
+`/readyz` reports ready|restarting|degraded|dead); `--no-supervise` leaves
+a crashed scheduler answering 503 until the process restarts.
 
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
-every option it cannot honor yet, instead of ignoring it: `--backend
-checkpoint` (A5), `--supervise` (A11: the port's default is off, the JAX
-entry point's on), `--dp`/`--sp`/`--tp` > 1 (A13), `--speculative` (A9),
-`--int8` and `--int8-unembed` (A10), and the fleet, model-pool, QoS and
-admission-control environment knobs (A11, A7).
+every option it cannot honor yet, instead of ignoring it: `--dp`/`--sp`/
+`--tp` > 1 (A13), `--speculative` (A9), `--int8` and `--int8-unembed`
+(A10), and the fleet, model-pool, QoS, admission-control and KV-pressure
+environment knobs (A11, A7).
 """
 
 from __future__ import annotations
@@ -45,21 +55,43 @@ UNPORTED_KNOBS = {
     "pool_remote": "A11 (the fleet)",
     "replica_weights": "A11 (the fleet)",
     "fleet_workers": "A11 (the fleet)",
-    "journal_spill": "A11 (the supervisor)",
     "qos": "A11 (the QoS front door)",
     "tenant_rate": "A11 (the QoS front door)",
     "tenant_burst": "A11 (the QoS front door)",
     "tenant_weights": "A11 (the QoS front door)",
     "max_queue_depth": "A7.6 (scheduler admission control)",
+    "kv_overcommit": "A7.4 (overcommit, spill and watermarks)",
+    "kv_spill": "A7.4 (overcommit, spill and watermarks)",
+    "kv_watermark_low": "A7.4 (overcommit, spill and watermarks)",
+    "kv_watermark_high": "A7.4 (overcommit, spill and watermarks)",
 }
+
+#: Per-process spill-path disambiguation: the same source can build two
+#: supervisors (e.g. --error-model-path equal to --sql-model-path), and
+#: sharing one file would let the second drain clobber the first's journal.
+#: Construction order is fixed for a fixed command line, so the suffix is
+#: stable across restarts and recovery finds its file.
+_SPILL_TAGS: dict = {}
+
+
+def _spill_path(cfg: AppConfig, tag: str) -> Optional[str]:
+    """Per-model journal-spill path (None when LSOT_JOURNAL_SPILL is off):
+    one naming rule for every scheduler path, so drain and recovery agree
+    on the file."""
+    if not cfg.journal_spill:
+        return None
+    safe = tag.replace("/", "_").replace(":", "_")
+    n = _SPILL_TAGS.get(safe, 0) + 1
+    _SPILL_TAGS[safe] = n
+    if n > 1:
+        safe = f"{safe}.{n}"
+    return f"{cfg.journal_spill}.{safe}.jsonl"
+
 
 
 def refuse_unported(args, cfg: AppConfig) -> None:
     """Raise on the first option or knob the port cannot honor."""
     flags = [
-        (args.backend == "checkpoint", "--backend checkpoint",
-         "A5 (checkpoint loading)"),
-        (args.supervise, "--supervise", "A11 (the crash supervisor)"),
         (args.dp > 1 or args.sp > 1 or args.tp > 1, "--dp/--sp/--tp > 1",
          "A13 (parallelism)"),
         (args.speculative > 0, "--speculative", "A9 (speculative decoding)"),
@@ -86,6 +118,8 @@ def make_tiny_service(
     device=None,
     weights: Optional[Tuple[dict, dict]] = None,
     deadline_s: Optional[float] = None,
+    supervise: bool = True,
+    app_cfg: Optional[AppConfig] = None,
 ) -> GenerationService:
     """The JAX entry point's tiny service: TINY widened to a 2048-token
     context (`tiny-demo`), served as `duckdb-nsql` and `llama3.2`, and a
@@ -95,7 +129,10 @@ def make_tiny_service(
     mistral params), e.g. the JAX service's bridged through
     `convert.params_from_jax`. On CUDA the head dim is 64, the smallest the
     kernels take (the CPU keeps TINY's 8). `int4` quantizes the block
-    weights; `kv_quant="int8"` stores the KV cache in int8."""
+    weights; `kv_quant="int8"` stores the KV cache in int8. With
+    `supervise` (the default, as in the JAX entry point) each scheduler
+    runs under the crash supervisor with `app_cfg`'s knobs (default: the
+    environment's)."""
     import torch
 
     from .. import resolve_device
@@ -104,6 +141,7 @@ def make_tiny_service(
     from ..models.llama import init_params
     from ..ops.quant import quantize_params_int4
     from ..serve.scheduler import ContinuousBatchingScheduler, SchedulerBackend
+    from ..serve.supervisor import SupervisedScheduler
     from ..tokenizer import ByteTokenizer
 
     dev = resolve_device(device)
@@ -121,6 +159,7 @@ def make_tiny_service(
         params, mistral_params = (quantize_params_int4(params),
                                   quantize_params_int4(mistral_params))
     tok = ByteTokenizer()
+    app_cfg = app_cfg or AppConfig.from_env()
     svc = GenerationService()
     models = (
         ("duckdb-nsql", cfg, params, "completion"),
@@ -129,9 +168,19 @@ def make_tiny_service(
     )
     for name, mcfg, mparams, template in models:
         if scheduler:
-            sched = ContinuousBatchingScheduler(
-                mcfg, mparams, num_slots=num_slots, prompt_bucket=64,
-                kv_layout=kv_layout, kv_quant=kv_quant, device=dev)
+            def make_sched(mcfg=mcfg, mparams=mparams):
+                return ContinuousBatchingScheduler(
+                    mcfg, mparams, num_slots=num_slots, prompt_bucket=64,
+                    kv_layout=kv_layout, kv_quant=kv_quant, device=dev)
+
+            # The factory closes over the loaded params: a restart
+            # re-allocates the cache, never the weights.
+            sched = (SupervisedScheduler(
+                make_sched, max_restarts=app_cfg.max_restarts,
+                spill_path=_spill_path(app_cfg, name),
+                stall_factor=app_cfg.stall_factor, stall_min_s=app_cfg.stall_min_s,
+                warmup_grace_s=app_cfg.stall_warmup_s, name=f"scheduler:{name}")
+                if supervise else make_sched())
             backend = SchedulerBackend(sched, tok, max_new_tokens=max_new_tokens,
                                        deadline_s=deadline_s)
         else:
@@ -140,6 +189,63 @@ def make_tiny_service(
             backend = EngineBackend(eng, tok, max_new_tokens=max_new_tokens)
         svc.register(name, backend, template=template)
     return svc
+
+
+def resolve_kv_quant(args, cfg: AppConfig) -> Tuple[Optional[str], str]:
+    """--kv-int8, or the LSOT_KV_QUANT knob (the flag wins); returns
+    (kv_quant, the name of what set it)."""
+    if args.kv_int8:
+        return "int8", "--kv-int8"
+    env_q = cfg.kv_quant or None
+    if env_q not in (None, "int8"):
+        sys.exit(f"LSOT_KV_QUANT must be '' or 'int8', got {env_q!r}")
+    return env_q, "LSOT_KV_QUANT=int8"
+
+
+def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
+                            device=None) -> GenerationService:
+    """Real weights: duckdb-nsql (NL->SQL) and llama3.2 (error analysis)
+    from HF safetensors directories or GGUF blobs, each behind a
+    continuous-batching scheduler (supervised by default) or, with
+    `--no-scheduler`, a lock-serialised engine. The JAX entry point's
+    single-checkpoint branch; its dp pools (ROADMAP A13) and multi-model
+    `LSOT_MODELS` fleet (A11) are refused by `refuse_unported`."""
+    from ..serve.factory import assemble_reference_service
+    from ..serve.scheduler import SchedulerBackend
+    from ..tokenizer import HFTokenizer
+
+    kv_quant, _ = resolve_kv_quant(args, cfg)
+
+    def build(src: str, add_bos: bool = True):
+        path, tok_dir = (src.split(":", 1) if ":" in src else (src, None))
+        if path.endswith(".gguf") and tok_dir is None:
+            sys.exit(f"{path}: GGUF blobs carry no tokenizer.json — pass "
+                     "PATH.gguf:TOKDIR")
+        tok = HFTokenizer(tok_dir or path)
+        gguf = path.endswith(".gguf")
+        if args.scheduler:
+            common = dict(
+                max_new_tokens=max_new_tokens, add_bos=add_bos,
+                num_slots=args.slots, kv_quant=kv_quant,
+                kv_layout=args.kv_layout, quantize_int4=args.int4,
+                deadline_s=cfg.deadline_s or None, supervise=args.supervise,
+                max_restarts=cfg.max_restarts,
+                max_entry_replays=cfg.max_entry_replays,
+                journal_spill=_spill_path(cfg, src),
+                stall_factor=cfg.stall_factor, stall_min_s=cfg.stall_min_s,
+                stall_warmup_s=cfg.stall_warmup_s, device=device)
+            load = (SchedulerBackend.from_gguf if gguf
+                    else SchedulerBackend.from_hf_checkpoint)
+            return load(path, tok, **common)
+        # Deadline-clamp seconds-a-token seed: LSOT_STOK_SEED, else unseeded.
+        load = EngineBackend.from_gguf if gguf else EngineBackend.from_hf_checkpoint
+        return load(path, tok, max_new_tokens=max_new_tokens, add_bos=add_bos,
+                    kv_quant=kv_quant, quantize_int4=args.int4, device=device,
+                    sec_per_tok_seed=cfg.stok_seed or None)
+
+    return assemble_reference_service(
+        build, args.sql_model_path, args.error_model_path,
+        args.mistral_model_path, max_new_tokens=max_new_tokens)
 
 
 def make_fake_service() -> GenerationService:
@@ -165,8 +271,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="llm_based_apache_spark_optimization_tpu_torch.app")
     ap.add_argument("--api", action="store_true", help="headless JSON API instead of the web UI")
     ap.add_argument("--backend", choices=("tiny", "fake", "checkpoint"), default="fake",
-                    help="fake (canned answers) or tiny (random-weight models); "
-                         "checkpoint is not ported (ROADMAP A5) and raises")
+                    help="fake (canned answers), tiny (random-weight models) or "
+                         "checkpoint (real weights: --sql-model-path)")
+    ap.add_argument("--sql-model-path", metavar="DIR_OR_GGUF[:TOKDIR]",
+                    help="duckdb-nsql weights (HF dir or .gguf) for --backend "
+                         "checkpoint")
+    ap.add_argument("--error-model-path", metavar="DIR_OR_GGUF[:TOKDIR]",
+                    help="llama3.2 weights; defaults to --sql-model-path")
+    ap.add_argument("--mistral-model-path", metavar="DIR_OR_GGUF[:TOKDIR]",
+                    help="optional mistral weights (third comparison model)")
     ap.add_argument("--dp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
     ap.add_argument("--sp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
     ap.add_argument("--tp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
@@ -190,10 +303,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "--no-scheduler serves lock-serialised engines)")
     ap.add_argument("--slots", type=int, default=8,
                     help="scheduler sequence slots (concurrent decode lanes)")
-    ap.add_argument("--supervise", action=argparse.BooleanOptionalAction, default=False,
-                    help="crash supervision: default OFF in the port (on in the "
-                         "JAX entry point); the supervisor is ROADMAP A11 and "
-                         "--supervise raises. A crashed scheduler answers 503")
+    ap.add_argument("--supervise", action=argparse.BooleanOptionalAction, default=True,
+                    help="crash supervision for scheduler backends (default on): "
+                         "journal admitted requests, restart a crashed decode "
+                         "loop with backoff, and replay journaled work; /readyz "
+                         "reports ready|restarting|degraded|dead. --no-supervise "
+                         "restores crash-to-503 behavior")
     ap.add_argument("--max-new-tokens", type=int, default=256)
     ap.add_argument("--host", default=None)
     ap.add_argument("--port", type=int, default=None)
@@ -214,11 +329,17 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
 
             resolve_device(None)  # the port needs its card unless --cpu
         return make_fake_service()
+    if args.backend == "checkpoint":
+        if not args.sql_model_path:
+            sys.exit("--backend checkpoint requires --sql-model-path")
+        return make_checkpoint_service(args, cfg, args.max_new_tokens,
+                                       device=device)
     # max_new small for the tiny demo model: it babbles bytes, not SQL.
     return make_tiny_service(
         32, scheduler=args.scheduler, kv_layout=args.kv_layout,
-        kv_quant="int8" if args.kv_int8 else None, int4=args.int4,
-        num_slots=args.slots, device=device, deadline_s=cfg.deadline_s or None)
+        kv_quant=resolve_kv_quant(args, cfg)[0], int4=args.int4,
+        num_slots=args.slots, device=device, deadline_s=cfg.deadline_s or None,
+        supervise=args.supervise, app_cfg=cfg)
 
 
 def main(argv=None) -> None:

@@ -15,6 +15,13 @@ import torch
 from ..models.configs import RopeFreqFactors, RopeScalingLike
 
 
+def freq_factors_for(head_dim: int, theta: float,
+                     scaling: RopeScalingLike) -> torch.Tensor:
+    """The per-dim divisor tensor [head_dim/2] equivalent to `scaling`
+    (what llama.cpp stores as `rope_freqs.weight`)."""
+    return _inv_freq(head_dim, theta, None) / _inv_freq(head_dim, theta, scaling)
+
+
 def _inv_freq(
     head_dim: int, theta: float, scaling: Optional[RopeScalingLike],
     device=None,

@@ -3,9 +3,9 @@
 `EngineBackend` tokenizes, runs `engine.generate` and detokenizes; it is
 the counterpart of the JAX package's `serve/backends.EngineBackend` with its
 deadline clamp (a request's remaining deadline exchanged for a step budget
-at the measured seconds a token), without its grammar constraint (ROADMAP
-A8) and checkpoint loaders (A5). `FakeBackend` answers canned text (demos
-and tests).
+at the measured seconds a token) and its checkpoint constructors
+(`from_hf_checkpoint`, `from_gguf`), without its grammar constraint
+(ROADMAP A8). `FakeBackend` answers canned text (demos and tests).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import dataclasses
 import threading
 import time
 from typing import Callable, List, Optional, Sequence
+
+import torch
 
 from ..engine.generate import InferenceEngine
 from ..ops.sampling import SamplingParams
@@ -28,6 +30,24 @@ def resolve_stop_ids(cfg, tokenizer) -> tuple:
         if i not in ids:
             ids.append(i)
     return tuple(ids)
+
+
+def refuse_unported_load(mesh=None, quantize_int8=False, quantize_int4=False,
+                         quantize_unembed8=False, speculative_draft=0) -> None:
+    """Raise, naming the ROADMAP item, on a checkpoint-constructor option
+    the port cannot honor yet."""
+    if quantize_int8 and quantize_int4:
+        raise ValueError("pick one of quantize_int8 / quantize_int4")
+    refused = [
+        (mesh is not None, "mesh", "A13 (parallelism)"),
+        (quantize_int8, "quantize_int8", "A10 (int8 weights)"),
+        (quantize_unembed8, "quantize_unembed8", "A10 (int8 embeddings)"),
+        (speculative_draft > 0, "speculative_draft",
+         "A9 (speculative decoding)"),
+    ]
+    for on, name, item in refused:
+        if on:
+            raise NotImplementedError(f"{name} is not ported: ROADMAP {item}")
 
 
 @dataclasses.dataclass
@@ -87,6 +107,62 @@ class EngineBackend:
             float(sec_per_tok_seed)
             if sec_per_tok_seed is not None and sec_per_tok_seed > 0 else None)
         self._rate_warm_shapes: set = set()
+
+    @classmethod
+    def from_hf_checkpoint(cls, ckpt_dir: str, tokenizer: Tokenizer, **kwargs
+                           ) -> "EngineBackend":
+        """An engine backend straight from an HF safetensors directory,
+        its weights loaded onto `device` (default CUDA) one stacked
+        parameter at a time. `quantize_int4=True` packs the block weights
+        to int4 (served by the int4 matmul kernel); `kv_quant="int8"`
+        stores the KV cache in int8. The other arguments are those of the
+        JAX package's `EngineBackend.from_hf_checkpoint`; what the port
+        cannot honor yet raises and names its ROADMAP item."""
+        from ..checkpoint import load_hf_checkpoint
+
+        return cls._from_checkpoint(
+            lambda dtype, device: load_hf_checkpoint(
+                ckpt_dir, dtype=dtype or torch.bfloat16, device=device),
+            tokenizer, **kwargs)
+
+    @classmethod
+    def from_gguf(cls, gguf_path: str, tokenizer: Tokenizer, cfg=None,
+                  **kwargs) -> "EngineBackend":
+        """An engine backend from a GGUF blob, parsed and dequantized by
+        the port's C++ reader (checkpoint/gguf.py); otherwise as
+        `from_hf_checkpoint`."""
+        from ..checkpoint import load_gguf_checkpoint
+
+        return cls._from_checkpoint(
+            lambda dtype, device: load_gguf_checkpoint(
+                gguf_path, cfg=cfg, dtype=dtype, device=device),
+            tokenizer, **kwargs)
+
+    @classmethod
+    def _from_checkpoint(
+        cls, load, tokenizer: Tokenizer, mesh=None, dtype=None,
+        prompt_bucket: int = 128, stop_ids: Optional[Sequence[int]] = None,
+        quantize_int8: bool = False, quantize_int4: bool = False,
+        quantize_unembed8: bool = False, speculative_draft: int = 0,
+        kv_quant=None, device=None, **kwargs,
+    ) -> "EngineBackend":
+        from .. import resolve_device
+
+        refuse_unported_load(mesh, quantize_int8, quantize_int4,
+                             quantize_unembed8, speculative_draft)
+        dev = resolve_device(device)
+        cfg, params = load(dtype, dev)
+        if quantize_int4:
+            from ..ops.quant import quantize_params_int4
+
+            params = quantize_params_int4(params)
+        engine = InferenceEngine(
+            cfg, params, prompt_bucket=prompt_bucket, device=dev,
+            stop_ids=stop_ids if stop_ids is not None
+            else resolve_stop_ids(cfg, tokenizer),
+            kv_quant=kv_quant,
+        )
+        return cls(engine, tokenizer, **kwargs)
 
     def _room(self, n_prompt_tokens: int) -> int:
         """Context room left after the bucketed prompt."""

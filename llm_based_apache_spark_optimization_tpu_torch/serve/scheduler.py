@@ -72,16 +72,28 @@ third, and reuse stops on block boundaries.
 One worker thread owns all device work. It enters `torch.inference_mode`
 and the scheduler's device and stream itself: both are per-thread state.
 
+- Liveness and chaos seams: the event loop stamps `heartbeat`
+  (serve/watchdog.py) at the top of every iteration and ticks it at every
+  harvested round, which the crash supervisor's watchdog reads
+  (serve/supervisor.py). `sched:crash` (utils/faults.py) kills the loop at
+  the top of a harvest, mid-batch; `sched:hang` sleeps at a decode round's
+  issue.
+- Checkpoints: `SchedulerBackend.from_hf_checkpoint` and `from_gguf` load
+  weights onto the device and build the scheduler through a factory, so a
+  supervised restart rebuilds the cache without reading the checkpoint
+  again.
+
 Not ported yet (ROADMAP A7 follow-ups): mixed ragged rounds, speculation,
 grammar constraints, overcommit, preemption and spill, phase roles, QoS,
-profiling and the flight recorder, prefix telemetry, the heartbeat,
-`SchedulerPool`, meshes and the checkpoint constructors.
+profiling and the flight recorder, prefix telemetry, `SchedulerPool` and
+meshes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -106,8 +118,10 @@ from ..models.llama import Params, forward
 from ..ops.quant import quantize_kv
 from ..ops.sampling import SamplingParams, greedy, sample_runtime
 from .backends import Completion, trim_stop_texts
+from ..utils.faults import FAULTS
 from ..utils.observability import resilience
 from .resilience import Deadline, DeadlineExceeded, SchedulerCrashed
+from .watchdog import Heartbeat
 
 _M32 = 0xFFFFFFFF
 
@@ -291,6 +305,9 @@ class ContinuousBatchingScheduler:
         # queue drain in _close().
         self._submit_lock = threading.Lock()
         self._closed = False
+        #: Liveness stamp: the loop stamps it every iteration and ticks it
+        #: every harvested round; the supervisor's watchdog reads it.
+        self.heartbeat = Heartbeat()
 
     # ----------------------------------------------------- device helpers
 
@@ -510,6 +527,7 @@ class ContinuousBatchingScheduler:
         seed: int = 0,
         on_token: Optional[Callable[[int], None]] = None,
         deadline_s: Optional[float] = None,
+        constraint=None,
     ) -> "Future[List[int]]":
         """Queue a request; returns a Future of its generated ids. The
         request samples from its own (seed, index) stream, so (ids,
@@ -517,7 +535,11 @@ class ContinuousBatchingScheduler:
         is served. `on_token` gets each accepted token, in order, from the
         worker thread. With `deadline_s` the request fails with
         `DeadlineExceeded` once that many seconds have passed: at admission,
-        or at the next harvest once in flight."""
+        or at the next harvest once in flight. A grammar `constraint`
+        raises (ROADMAP A8)."""
+        if constraint is not None:
+            raise ValueError("grammar-constrained decoding is not ported: "
+                             "ROADMAP A8")
         if not ids:
             raise ValueError("empty prompt")
         if deadline_s is not None and deadline_s <= 0:
@@ -967,6 +989,10 @@ class ContinuousBatchingScheduler:
     def _issue_decode(self) -> None:
         """Enqueue one decode round; nothing synchronises here. Its tokens
         are harvested `_harvest_lag` rounds later."""
+        # Duration-valued hang seam: `sched:hang:p:secs` sleeps here, the
+        # wedge that never raises, which the supervisor's watchdog must
+        # detect from the stale heartbeat.
+        FAULTS.check("sched:hang")
         issue_reqs = [r if r is not None and r.ready else None
                       for r in self._slot_req]
         active = self._h2d([r is not None for r in issue_reqs], torch.bool)
@@ -1020,6 +1046,11 @@ class ContinuousBatchingScheduler:
         """Synchronise on the OLDEST in-flight round: one transfer brings
         its tokens and the prefill first tokens attached to it; retire
         finished requests and free their slots."""
+        # Chaos seam: `sched:crash` kills the loop mid-batch (rounds issued,
+        # tokens possibly streamed, slots occupied); a supervisor must
+        # restart it and replay every acknowledged request without
+        # duplicating delivered tokens.
+        FAULTS.check("sched:crash")
         issue_reqs, epochs, toks_dev, firsts = self._pending.popleft()
         flat = torch.cat([toks_dev.reshape(-1)]
                          + [tok.reshape(1) for _, _, tok, _ in firsts]).tolist()
@@ -1050,6 +1081,7 @@ class ContinuousBatchingScheduler:
                     break
             if done:
                 self._retire(i, req, req.generated)
+        self.heartbeat.round_done()
 
     def _harvest_firsts(self) -> None:
         """Drain path: ready slots whose first token never rode a round."""
@@ -1123,8 +1155,23 @@ class ContinuousBatchingScheduler:
                 keep.append(req)
         self._page_wait = keep
 
+    def _busy_now(self) -> bool:
+        """Work anywhere in the pipeline: the busy flag each iteration
+        stamps into the heartbeat."""
+        return bool(self._prefill_q or self._pending or self._page_wait
+                    or any(r is not None for r in self._slot_req)
+                    or not self._queue.empty())
+
+    @property
+    def watchdog_stats(self) -> Dict[str, object]:
+        """The loop's heartbeat (age, busy, rounds, measured cadence)."""
+        return {"heartbeat": self.heartbeat.snapshot()}
+
     def _loop(self) -> None:
         while not self._stop_evt.is_set():
+            # Liveness stamp first, so a wedge anywhere below leaves a
+            # stale busy stamp for the watchdog to age.
+            self.heartbeat.stamp(busy=self._busy_now())
             self._sweep_page_wait()
             # Admit pending requests into every free slot; page-starved
             # requests re-admit ahead of the queue, in arrival order.
@@ -1173,7 +1220,13 @@ class SchedulerBackend:
     the scheduler's decode batch; no lock serialises them. TTFT is the time
     from submit to the request's first accepted token. `deadline_s` is the
     default per-request deadline (None: none); a request's own overrides
-    it, and the scheduler retires an expired request typed."""
+    it, and the scheduler retires an expired request typed.
+
+    `scheduler` is a `ContinuousBatchingScheduler` or a
+    `SupervisedScheduler` wrapping one (serve/supervisor.py): with the
+    supervisor, the backend forwards idempotency keys to its journal,
+    reports its lifecycle through `health()`, drains through it, and
+    recovers a previous process's journal spill at construction."""
 
     #: GenerationService forwards a `deadline_s` to backends that set this.
     supports_deadline = True
@@ -1195,9 +1248,40 @@ class SchedulerBackend:
         self.stop_texts = tuple(stop_texts)
         self.add_bos = add_bos
         self.deadline_s = deadline_s
+        # Idempotency keys need a journal to dedupe against: only the
+        # supervised wrapper has one.
+        self.supports_idempotency = bool(
+            getattr(scheduler, "supports_idempotency", False))
+        # Journal-spill recovery happens here, the one seam every
+        # deployment path funnels through: a previous process's drained
+        # but unfinished requests resubmit, so retried idempotency keys
+        # find their results.
+        recover = getattr(scheduler, "recover", None)
+        if callable(recover) and getattr(scheduler, "spill_path", None):
+            recover()
 
     def shutdown(self) -> None:
         self.scheduler.shutdown()
+
+    def health(self) -> Optional[Dict[str, object]]:
+        """The supervisor's lifecycle (ready/restarting/degraded/dead and
+        its counters) for /readyz; None for a bare scheduler."""
+        h = getattr(self.scheduler, "health", None)
+        return h() if callable(h) else None
+
+    def drain(self, deadline_s: Optional[float] = None) -> None:
+        """SIGTERM seam: a supervised scheduler stops admitting, finishes
+        in-flight work up to the deadline and journals the rest; a bare
+        one just stops."""
+        d = getattr(self.scheduler, "drain", None)
+        if callable(d):
+            d(deadline_s)
+        else:
+            self.scheduler.shutdown()
+
+    def retry_after_hint(self) -> float:
+        hint = getattr(self.scheduler, "retry_after_hint", None)
+        return hint() if callable(hint) else 1.0
 
     def check_budget(self, prompt: str, max_new_tokens: Optional[int] = None) -> None:
         """Raise the ValueError `complete` would raise for a prompt that
@@ -1218,12 +1302,19 @@ class SchedulerBackend:
             )
         return min(max_new_tokens or self.max_new_tokens, room)
 
-    def _submit(self, ids, max_new_tokens, sampling, seed, deadline_s):
+    def _submit(self, ids, max_new_tokens, sampling, seed, deadline_s,
+                idempotency_key=None):
         on_tok, first_at = _first_token_timer()
+        kwargs = {}
+        if idempotency_key is not None:
+            # GenerationService forwards a key only when
+            # supports_idempotency is set.
+            kwargs["idempotency_key"] = idempotency_key
         fut = self.scheduler.submit(
             ids, max_new_tokens=self._budget(len(ids), max_new_tokens),
             sampling=sampling or self.sampling, seed=seed, on_token=on_tok,
-            deadline_s=deadline_s if deadline_s is not None else self.deadline_s)
+            deadline_s=deadline_s if deadline_s is not None else self.deadline_s,
+            **kwargs)
         return fut, first_at
 
     def _completion(self, ids, fut, first_at, t_submit) -> Completion:
@@ -1235,11 +1326,12 @@ class SchedulerBackend:
 
     def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
-                 deadline_s: Optional[float] = None) -> Completion:
+                 deadline_s: Optional[float] = None,
+                 idempotency_key: Optional[str] = None) -> Completion:
         ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
         t_submit = time.perf_counter()
         fut, first_at = self._submit(ids, max_new_tokens, sampling, seed,
-                                     deadline_s)
+                                     deadline_s, idempotency_key)
         return self._completion(ids, fut, first_at, t_submit)
 
     def complete_batch(
@@ -1256,3 +1348,124 @@ class SchedulerBackend:
                 for ids in ids_list]
         return [self._completion(ids, fut, first_at, t_submit)
                 for ids, (fut, first_at) in zip(ids_list, subs)]
+
+    # -------------------------------------------------------- checkpoints
+
+    @classmethod
+    def from_hf_checkpoint(cls, ckpt_dir: str, tokenizer, **kwargs
+                           ) -> "SchedulerBackend":
+        """HF safetensors directory -> a continuous-batching scheduler on
+        `device` (default CUDA). The arguments are those of the JAX
+        package's `SchedulerBackend.from_hf_checkpoint`: `dtype` (default
+        bf16), `quantize_int4` (int4 block weights), `kv_quant="int8"`,
+        the scheduler's shape arguments, and `supervise` with
+        `max_restarts`, `max_entry_replays`, `journal_spill` and `stall_*`
+        (serve/supervisor.py). What the port cannot honor yet raises and
+        names its ROADMAP item."""
+        from ..checkpoint import load_hf_checkpoint
+
+        return cls._from_checkpoint(
+            lambda dtype, device: load_hf_checkpoint(
+                ckpt_dir, dtype=dtype or torch.bfloat16, device=device),
+            os.path.basename(ckpt_dir.rstrip("/")), tokenizer, **kwargs)
+
+    @classmethod
+    def from_gguf(cls, gguf_path: str, tokenizer, cfg=None, **kwargs
+                  ) -> "SchedulerBackend":
+        """GGUF blob -> a continuous-batching scheduler, exactly like
+        `from_hf_checkpoint` (the blob is parsed and dequantized by the
+        port's C++ reader, checkpoint/gguf.py). A Q4 blob served with
+        `quantize_int4=True` stays 4-bit end to end."""
+        from ..checkpoint import load_gguf_checkpoint
+
+        return cls._from_checkpoint(
+            lambda dtype, device: load_gguf_checkpoint(
+                gguf_path, cfg=cfg, dtype=dtype, device=device),
+            os.path.basename(gguf_path), tokenizer, **kwargs)
+
+    @classmethod
+    def _from_checkpoint(
+        cls,
+        load,
+        tag: str,
+        tokenizer,
+        mesh=None,
+        dtype=None,
+        num_slots: int = 8,
+        prompt_bucket: int = 128,
+        stop_ids: Optional[Sequence[int]] = None,
+        quantize_int8: bool = False,
+        quantize_int4: bool = False,
+        quantize_unembed8: bool = False,
+        kv_quant: Optional[str] = None,
+        kv_layout: str = "contiguous",
+        kv_page_size: Optional[int] = None,
+        kv_pages: Optional[int] = None,
+        kv_hbm_budget_bytes: Optional[int] = None,
+        kv_overcommit: Optional[float] = None,
+        kv_spill: Optional[bool] = None,
+        kv_watermark_low: Optional[float] = None,
+        kv_watermark_high: Optional[float] = None,
+        max_seq: Optional[int] = None,
+        decode_chunk: int = 8,
+        speculative_draft: int = 0,
+        max_queue_depth: int = 0,
+        supervise: bool = False,
+        max_restarts: int = 5,
+        max_entry_replays: int = 0,
+        journal_spill: Optional[str] = None,
+        stall_factor: float = 16.0,
+        stall_min_s: float = 10.0,
+        stall_warmup_s: float = 0.0,
+        device=None,
+        **kwargs,
+    ) -> "SchedulerBackend":
+        from .backends import refuse_unported_load, resolve_stop_ids
+
+        refuse_unported_load(mesh, quantize_int8, quantize_int4,
+                             quantize_unembed8, speculative_draft)
+        unported = [
+            (kv_overcommit not in (None, 1.0), "kv_overcommit"),
+            (kv_spill, "kv_spill"), (kv_watermark_low, "kv_watermark_low"),
+            (kv_watermark_high, "kv_watermark_high"),
+        ]
+        for on, name in unported:
+            if on:
+                raise NotImplementedError(
+                    f"{name} is not ported: ROADMAP A7.4 (overcommit, "
+                    f"spill and watermarks)")
+        if max_queue_depth:
+            raise NotImplementedError(
+                "max_queue_depth is not ported: ROADMAP A7.6 (scheduler "
+                "admission control)")
+        cfg, params = load(dtype, resolve_device(device))
+        if quantize_int4:
+            from ..ops.quant import quantize_params_int4
+
+            params = quantize_params_int4(params)
+        stops = (tuple(stop_ids) if stop_ids is not None
+                 else resolve_stop_ids(cfg, tokenizer))
+
+        def make_sched():
+            # A factory, not an instance: the supervisor rebuilds from the
+            # SAME loaded (and quantized) params after a crash: one read
+            # of the checkpoint per process, not per restart.
+            return ContinuousBatchingScheduler(
+                cfg, params, num_slots=num_slots, max_seq=max_seq,
+                decode_chunk=decode_chunk, prompt_bucket=prompt_bucket,
+                stop_ids=stops, kv_quant=kv_quant, kv_layout=kv_layout,
+                kv_page_size=kv_page_size, kv_pages=kv_pages,
+                kv_hbm_budget_bytes=kv_hbm_budget_bytes,
+                device=params["final_norm"].device)
+
+        if supervise:
+            from .supervisor import SupervisedScheduler
+
+            return cls(SupervisedScheduler(
+                make_sched, max_restarts=max_restarts,
+                max_entry_replays=max_entry_replays,
+                spill_path=journal_spill,
+                stall_factor=stall_factor, stall_min_s=stall_min_s,
+                warmup_grace_s=stall_warmup_s, name=f"scheduler:{tag}",
+            ), tokenizer, **kwargs)
+        return cls(make_sched(), tokenizer, **kwargs)

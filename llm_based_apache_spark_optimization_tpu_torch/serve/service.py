@@ -5,10 +5,12 @@ Counterpart of the JAX package's `serve/service.py`: registry, templates,
 per-model stats, request tracing, deadlines and request ids, the lifecycle
 seams the app's health routes and drain gate read (`health`, `draining`,
 `drain`, `close`), `validate` and `generate_stream` for `/api/generate`.
-Not ported yet: constrained decoding (a `constrain` spec raises, ROADMAP
-A8), the QoS front door and tenant routing (`tenant`/`qos` are carried and
-not charged, A11), supervised health and idempotency journals (A11),
-Prometheus, SLOs and profiling (A12).
+`health()` aggregates the supervised schedulers' lifecycle
+(serve/supervisor.py) and `drain()` lets each backend finish or journal its
+in-flight work; idempotency keys reach backends with a journal. Not ported
+yet: constrained decoding (a `constrain` spec raises, ROADMAP A8), the QoS
+front door and tenant routing (`tenant`/`qos` are carried and not charged,
+A11), the fleet views (A11), Prometheus, SLOs and profiling (A12).
 """
 
 from __future__ import annotations
@@ -106,20 +108,74 @@ class GenerationService:
         return self._draining
 
     def health(self) -> Dict[str, object]:
-        """The /readyz payload. The port's backends have no supervisor
-        (ROADMAP A11), so there is no restarting or dead state to report:
-        a crashed scheduler answers 503 for each of its requests."""
-        return {"state": "ready", "draining": self._draining,
-                "models": self.models()}
+        """Aggregate lifecycle state for /readyz: the WORST state across
+        backends exposing a health() seam (the supervised scheduler's
+        ready | restarting | degraded | dead), per-model detail, and
+        summed restart counters. Backends without the seam (engines,
+        fakes, bare schedulers) are 'ready' by construction: their
+        failures are per-request, not lifecycle."""
+        order = {"ready": 0, "degraded": 1, "restarting": 2, "dead": 3}
+        worst = "ready"
+        models: Dict[str, Dict] = {}
+        totals = {"restarts": 0, "replayed": 0, "lost": 0, "stalls": 0}
+        seen = set()
+        for e in self._entries():
+            hfn = getattr(e.backend, "health", None)
+            h = hfn() if callable(hfn) else None
+            if not h:
+                continue
+            models[e.name] = h
+            state = h.get("state", "ready")
+            if order.get(state, 0) > order[worst]:
+                worst = state
+            # Dedupe by the underlying scheduler: the shared-weights alias
+            # (serve/factory.py) wraps one supervisor in two backends.
+            key = id(getattr(e.backend, "scheduler", e.backend))
+            if key not in seen:
+                seen.add(key)
+                for k in totals:
+                    totals[k] += int(h.get(k, 0) or 0)
+        return {"state": worst, "draining": self._draining,
+                "models": models, **totals}
+
+    def supports_idempotency(self, model: str) -> bool:
+        """Can `model`'s backend dedupe an idempotency key against a
+        journal? The drain gate lets such keyed requests through."""
+        with self._lock:
+            entry = self._models.get(model)
+        return bool(entry and getattr(entry.backend, "supports_idempotency",
+                                      False))
+
+    def retry_after_hint(self, default: float = 1.0) -> float:
+        """Backpressure hint for drain-mode and readiness 503s: the
+        largest estimate across backends exposing one."""
+        hints = [fn() for fn in (getattr(e.backend, "retry_after_hint", None)
+                                 for e in self._entries()) if callable(fn)]
+        return max(hints) if hints else default
 
     def drain(self, deadline_s: Optional[float] = None) -> None:
         """Graceful shutdown (SIGTERM): stop admitting — the HTTP drain
-        gate answers 503 + Retry-After from here on — then close every
-        backend. Without a supervisor (ROADMAP A11) nothing can finish in
-        flight within `deadline_s` or be journaled: a scheduler's requests
-        still in flight fail typed when its loop stops, as an unsupervised
-        scheduler's do in the JAX package."""
+        gate answers 503 + Retry-After from here on — then let each
+        backend finish in-flight work up to the shared deadline
+        (supervised schedulers journal what is left), then close
+        everything. `deadline_s <= 0` journals and exits at once."""
+        from .resilience import Deadline
+
         self._draining = True
+        deadline = (Deadline.after(deadline_s)
+                    if deadline_s is not None and deadline_s > 0 else None)
+        immediate = deadline_s is not None and deadline_s <= 0
+        seen = set()
+        for e in self._entries():
+            d = getattr(e.backend, "drain", None)
+            key = id(getattr(e.backend, "scheduler", e.backend))
+            if d is None or key in seen:
+                continue
+            seen.add(key)
+            remaining = deadline.remaining() if deadline is not None else None
+            if immediate or (remaining is not None and remaining <= 0):
+                remaining = 0.0
+            d(remaining)
         self.close()
 
     def close(self) -> None:
@@ -165,12 +221,15 @@ class GenerationService:
         tenant: str = "",
         qos: str = "",
     ) -> GenerateResult:
-        """One completion. `idempotency_key` needs a journal to dedupe
-        against and is dropped here, as the JAX package drops it for
-        backends without one; `tenant` and `qos` are carried, not charged
-        (ROADMAP A11)."""
+        """One completion. `idempotency_key` goes only to backends with a
+        journal to dedupe against (`supports_idempotency`: the supervised
+        scheduler) and is dropped elsewhere, as in the JAX package;
+        `tenant` and `qos` are carried, not charged (ROADMAP A11)."""
         entry = self._entry(model)
         kwargs = self._request_kwargs(entry, constrain, deadline_s)
+        if idempotency_key is not None and getattr(
+                entry.backend, "supports_idempotency", False):
+            kwargs["idempotency_key"] = idempotency_key
         rendered = entry.template(system, prompt)
         tr, own, rid = tracing.begin_or_ambient(request_id, model)
         t0 = time.perf_counter()

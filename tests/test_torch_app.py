@@ -257,7 +257,8 @@ def test_tiny_contiguous_app_matches_jax(tmp_path):
             params_from_jax(jax.tree.map(np.asarray, jsvc._models[m].backend.scheduler.params),
                             device="cpu")
             for m in ("duckdb-nsql", "mistral"))
-        tsvc = entry.make_tiny_service(8, device="cpu", weights=weights)
+        tsvc = entry.make_tiny_service(8, device="cpu", weights=weights,
+                                       supervise=False)
         try:
             sched = tsvc._models["duckdb-nsql"].backend.scheduler
             assert sched.kv_layout == "contiguous" and sched.num_slots == 8
@@ -293,8 +294,6 @@ def args_for(*argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (("--backend", "checkpoint"), "A5"),
-    (("--supervise",), "A11"),
     (("--tp", "2"), "A13"),
     (("--dp", "2"), "A13"),
     (("--sp", "2"), "A13"),
@@ -314,7 +313,7 @@ def test_entry_point_refuses_unported_flags(argv, item):
     ("LSOT_POOL_REMOTE", "1=localhost:9", "A11"),
     ("LSOT_REPLICA_WEIGHTS", "2,1", "A11"),
     ("LSOT_FLEET_WORKERS", "localhost:9", "A11"),
-    ("LSOT_JOURNAL_SPILL", "spill", "A11"),
+    ("LSOT_KV_OVERCOMMIT", "0.5", "A7.4"),
     ("LSOT_QOS", "1", "A11"),
     ("LSOT_TENANT_RATE", "2", "A11"),
     ("LSOT_TENANT_BURST", "4", "A11"),
@@ -342,17 +341,132 @@ def test_entry_point_needs_a_card_without_cpu():
 
 
 def test_entry_point_defaults_match_the_reference_app():
-    """--scheduler on and --kv-layout contiguous, as in the JAX entry point;
-    --supervise off (its supervisor is ROADMAP A11), and said so in --help."""
+    """--scheduler on, --kv-layout contiguous and --supervise on, as in the
+    JAX entry point: each tiny scheduler runs under the crash supervisor."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve.supervisor import (
+        SupervisedScheduler,
+    )
+
     args = args_for()
-    assert args.scheduler and args.kv_layout == "contiguous" and not args.supervise
+    assert args.scheduler and args.kv_layout == "contiguous" and args.supervise
     assert args.backend == "fake"
-    assert "A11" in " ".join(entry.build_parser().format_help().split())
     svc = entry.build_service(args_for("--cpu", "--backend", "tiny", "--kv-int8",
                                        "--slots", "2"), AppConfig())
     try:
-        sched = svc._models["llama3.2"].backend.scheduler
+        sup = svc._models["llama3.2"].backend.scheduler
+        assert isinstance(sup, SupervisedScheduler)
+        sched = sup._inner
         assert (sched.kv_layout, sched.kv_quant, sched.num_slots) == ("contiguous", "int8", 2)
         assert svc._models["mistral"].backend.scheduler.cfg.sliding_window == 32
+        assert svc.health()["state"] == "ready"
     finally:
         svc.close()
+    svc = entry.build_service(args_for("--cpu", "--backend", "tiny", "--no-supervise"),
+                              AppConfig())
+    try:
+        assert not isinstance(svc._models["llama3.2"].backend.scheduler,
+                              SupervisedScheduler)
+    finally:
+        svc.close()
+
+
+def test_entry_point_parser_defaults_equal_jax():
+    """The port's parser and the JAX entry point's agree on the serving
+    defaults: --supervise, --scheduler, --kv-layout and --slots."""
+    import argparse
+    from unittest import mock
+
+    from llm_based_apache_spark_optimization_tpu.app import __main__ as jax_entry
+
+    seen = {}
+    parse = argparse.ArgumentParser.parse_known_args
+
+    def capture(self, args=None, namespace=None):
+        seen["ns"] = parse(self, [], namespace)
+        raise SystemExit(0)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_known_args", capture):
+        with pytest.raises(SystemExit):
+            jax_entry.main([])
+    jax_args = seen["ns"][0]
+    port_args = args_for()
+    for name in ("supervise", "scheduler", "kv_layout", "slots", "backend",
+                 "max_new_tokens"):
+        assert getattr(port_args, name) == getattr(jax_args, name), name
+
+
+def test_journal_spill_knob_names_a_file_per_model(monkeypatch, tmp_path):
+    """LSOT_JOURNAL_SPILL is served now: each supervised tiny scheduler
+    spills to its own file, and a drain writes keyed in-flight work there."""
+    monkeypatch.setenv("LSOT_JOURNAL_SPILL", str(tmp_path / "spill"))
+    monkeypatch.setattr(entry, "_SPILL_TAGS", {})
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:")
+    svc = entry.build_service(args_for("--cpu", "--backend", "tiny"), cfg)
+    paths = {m: svc._models[m].backend.scheduler.spill_path
+             for m in ("duckdb-nsql", "llama3.2", "mistral")}
+    assert paths["duckdb-nsql"] == str(tmp_path / "spill") + ".duckdb-nsql.jsonl"
+    assert len(set(paths.values())) == 3
+    svc.drain(0)
+    assert svc.health()["draining"]
+
+
+@pytest.mark.parametrize("fmt", ["hf", "gguf"])
+def test_entry_point_serves_a_checkpoint_on_the_cpu(tmp_path, fmt):
+    """`--cpu --backend checkpoint --api` over an HF directory and over
+    `X.gguf:TOKDIR`: supervised schedulers by default, /readyz ready, and
+    `POST /process-data/` answers 200 through the reference pipeline."""
+    import dataclasses
+
+    import torch
+    from test_torch_tokenizer import write_tokenizer_json
+
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import (
+        save_hf_checkpoint,
+        write_gguf,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.models import TINY
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.serve.supervisor import (
+        SupervisedScheduler,
+    )
+
+    pytest.importorskip("tokenizers")
+    mcfg = dataclasses.replace(TINY, max_seq_len=2048)
+    params = init_params(mcfg, torch.Generator().manual_seed(0), torch.float32,
+                         device="cpu")
+    tokdir = tmp_path / "ckpt"
+    save_hf_checkpoint(mcfg, params, tokdir)
+    write_tokenizer_json(tokdir / "tokenizer.json", "wordlevel")
+    src = str(tokdir)
+    if fmt == "gguf":
+        write_gguf(mcfg, params, tmp_path / "m.gguf", quant="q8_0")
+        src = f"{tmp_path / 'm.gguf'}:{tokdir}"
+    (tmp_path / "input").mkdir()
+    (tmp_path / "input" / "taxi.csv").write_text(CSV)
+    cfg = AppConfig(input_dir=str(tmp_path / "input"), output_dir=str(tmp_path / "out"),
+                    history_db=":memory:", max_new_tokens=8)
+    svc = entry.build_service(args_for("--cpu", "--backend", "checkpoint", "--api",
+                                       "--sql-model-path", src,
+                                       "--max-new-tokens", "8"), cfg)
+    try:
+        sql = svc._models["duckdb-nsql"].backend
+        assert isinstance(sql.scheduler, SupervisedScheduler)
+        assert svc._models["llama3.2"].backend.scheduler is sql.scheduler
+        client = create_api_app(svc, SQLiteBackend, SQLiteHistory(), cfg).test_client()
+        ready = client.get("/readyz")
+        assert ready.status == 200 and ready.json()["state"] == "ready"
+        res = client.post_json("/process-data/", {"input_text": "total fare per vendor",
+                                                  "file_name": "taxi.csv"})
+        assert res.status == 200 and "sql_query" in res.json()
+    finally:
+        svc.close()
+
+
+def test_entry_point_gguf_needs_a_tokenizer_dir(tmp_path):
+    with pytest.raises(SystemExit):
+        entry.build_service(args_for("--cpu", "--backend", "checkpoint",
+                                     "--sql-model-path", str(tmp_path / "m.gguf")),
+                            AppConfig())
+    with pytest.raises(SystemExit):
+        entry.build_service(args_for("--cpu", "--backend", "checkpoint"), AppConfig())

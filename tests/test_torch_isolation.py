@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and its
-entry points never fall back to the CPU on their own."""
+"""The port stands alone: it imports neither jax nor the JAX package, its
+checkpoint and tokenizer modules import no `safetensors` either, its GGUF
+reader builds only from sources under its own tree, and its entry points
+never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -82,3 +84,59 @@ def test_no_source_file_names_jax_or_the_jax_package():
     bad = [(f, m) for f in files for m in _imports(f)
            if any(m == b or m.startswith(b + ".") for b in BANNED)]
     assert not bad
+
+
+def test_checkpoint_and_tokenizer_modules_need_no_safetensors():
+    """The checkpoint and tokenizer modules import neither `safetensors`
+    nor the JAX package: with both blocked they import and load a
+    checkpoint written by the port itself."""
+    child = textwrap.dedent(f"""
+        import importlib, importlib.abc, pkgutil, sys, tempfile
+
+        BANNED = {BANNED + ("safetensors", "ml_dtypes")!r}
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BANNED):
+                    raise ImportError(f"blocked import of {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import torch
+        import {PORT}.checkpoint as ck, {PORT}.tokenizer as tk
+        for pkg in (ck, tk):
+            for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+                importlib.import_module(m.name)
+        from {PORT}.models import TINY
+        from {PORT}.models.llama import init_params
+        p = init_params(TINY, device="cpu")
+        d = tempfile.mkdtemp()
+        ck.save_hf_checkpoint(TINY, p, d)
+        cfg, q = ck.load_hf_checkpoint(d, device="cpu")
+        assert torch.equal(q["blocks"]["wq"], p["blocks"]["wq"])
+        assert not [m for m in sys.modules if m.split(".")[0] in BANNED]
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", child], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_gguf_build_compiles_only_the_ports_sources():
+    """The g++ command of the GGUF reader names sources and include
+    directories under the port's tree only, and its header includes nothing
+    of the JAX package's native/ directory."""
+    from llm_based_apache_spark_optimization_tpu_torch import native
+
+    port = os.path.join(ROOT, PORT)
+    cmd = native.build_command(os.path.join(port, "build", "libgguf.so"))
+    paths = [a[2:] if a.startswith("-I") else a for a in cmd[1:]
+             if a.startswith("-I") or a.endswith((".cpp", ".so"))]
+    assert paths and all(os.path.abspath(p).startswith(port + os.sep) for p in paths)
+    for src in native.SOURCES:
+        assert os.path.abspath(src).startswith(port + os.sep)
+        text = open(src, encoding="utf-8").read()
+        assert "lsot_native.h" not in text
+        assert "llm_based_apache_spark_optimization_tpu/" not in text
