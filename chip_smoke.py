@@ -36,22 +36,32 @@ Phases, each fatal on failure:
      live length; and the prefill launch at the scheduler's chunked-prefill
      shapes (7B and 3B, groups of 6-8 rows, buckets of 128, 32 and 16 over
      S = 1024 row views, chunk starts after prefix reuse that end mid-page,
-     default kv_lens); the decode launch also at the contiguous scheduler's
+     default kv_lens), and the paged chunk's 128-token bucket over one
+     layer's view at the paged schedulers' default max_seq (7B: S = 4096,
+     3B: S = 8192, 8 rows up to the row's end); the decode launch also at the contiguous scheduler's
      8 slots over the whole cache (7B over 4096, 3B over 8192; six live
      rows, two parked at kv_lens = 0, NaN in every dead slot);
    - the ragged paged attention kernel at the 7B, 3B and 1B shapes, T = 1,
      B = 8 as the scheduler's slots, through permuted tables with sentinel
      entries, parked rows (all-sentinel, kv_lens = 0) and NaN planted in
      dead offsets and unmapped pages; windows T = 8 and 32 with ragged
-     q_lens, a G*T = 512 window, pages of 16 and 64, a Mistral window; and
-     T = 1 (the split-KV kernel) at its edges through tables, each T = 1
-     case launched twice and compared bit for bit;
+     q_lens, a G*T = 512 window, pages of 16 and 64, a Mistral window; the
+     ragged mixed round's windows (7B and 3B at their default max_seq,
+     tables of 64 and 128 pages, B = 8, T = 32 and 16, two rows carrying a
+     chunk, four decode rows at q_len 1 with their dead columns one past
+     the row, two parked rows); and T = 1 (the split-KV kernel) at its
+     edges through tables, each T = 1 case launched twice and compared bit
+     for bit;
    - the page write (one kernel for both pools, `page_write.cuh`),
      bit-exact, at WRITE_CASES: T = 1 at B = 8 into the 7B and 3B
      schedulers' pools (128 pages of 64, tables of 16 pages) at their last
      layer with parked rows, the same at 1B's H = 64, T = 4 with q_lens and
-     sentinel rows, and a 7B round in which every sliver drops (the pool
-     must be unchanged);
+     sentinel rows, a 7B round in which every sliver drops (the pool
+     must be unchanged), the mixed round's writes at the same shapes
+     (chunks of 32 and 16, decode rows' dead columns dropped), and the
+     paged prefill chunk's write-back (7B and 3B at their default max_seq,
+     tables of 64 and 128 pages, B = 8, T = 128, no q_lens, ragged starts,
+     columns past each row's mapped pages and past the row dropped);
    - the quantized serving path's four kernels: the quantized decode
      attention (the split-KV kernel over int8) at the decode cases
      above over an int8 cache (NaN in dead scales) and at the split kernel's
@@ -69,8 +79,11 @@ Phases, each fatal on failure:
 4. Small references, 2-layer f32 models (H = 64): greedy tokens through the
    kernels on the card must equal the plain versions' on the CPU, for the
    engine, the paged scheduler (page 16, shared prefixes) and the
-   contiguous scheduler (the same traffic); then the same with int4
-   weights and the int8 KV cache.
+   contiguous scheduler (the same traffic), the paged scheduler with
+   ragged mixed rounds, and an overcommitted pool of 9 pages of 8 under a
+   `kv:pressure` storm, resumed by recompute and by spill (preemptions >=
+   1; spilled == restored); then the same with int4 weights and the int8
+   KV cache.
 5. Engine serve: a GenerationService with EngineBackends for `duckdb-nsql`
    (DUCKDB_NSQL_7B, full width and depth) and `llama3.2` (LLAMA32_3B on the
    llama3-chat template), random bf16 weights from a seed, ByteTokenizer.
@@ -80,12 +93,17 @@ Phases, each fatal on failure:
    num_layers x (prefill calls + decode steps). Prefill logits through the
    kernel must agree with the plain version's.
 6. Scheduler serve: the same weights behind paged continuous-batching
-   schedulers (8 slots, pages of 64, decode_chunk 8, max_seq 1024) and
+   schedulers (8 slots, pages of 64, decode_chunk 8, max_seq at its
+   default: 4096 for 7B, 8192 for 3B, pools of 16 and 7 GiB) and
    SchedulerBackends. Two NL->SQL requests one after the other, then six at
    once from threads while a 3B error explanation runs. Launch counts are
-   zeroed just before and read just after: ragged paged attention and page
-   writes must number num_layers x decode_chunk x rounds issued, flash
-   prefill num_layers x prefill forwards. The prefix cache must hit, share
+   zeroed just before and read just after: ragged paged attention must
+   number num_layers x decode_chunk x rounds issued, flash prefill
+   num_layers x prefill forwards, page writes both (each chunk writes its
+   window back one layer at a time). The peak extra device memory of one
+   7B chunk of 8 rows ending at 4096 (two layers of the weights over a
+   pool of their own: the transient is one layer's views) is printed
+   beside the all-layer views' bytes. The prefix cache must hit, share
    pages and leak none; one decode step on the live pool through the
    kernels must agree with the plain versions, at full depth in bf16 and
    on an f32 copy of two layers, and a one-page fault planted on the plain
@@ -93,6 +111,23 @@ Phases, each fatal on failure:
    With --profile, one 7B engine request and six concurrent 7B scheduler
    requests run under torch.profiler: device busy share and device time
    by kernel group.
+   Then, each fatal and timed:
+   (a) ragged mixed rounds: the 7B paged scheduler with `ragged=True`
+   over the bf16 and the int8 pool, the SQL traffic; launch counts exact,
+   the attention's L launches at T in {16, 32} a mixed round or a ragged
+   prefill (a chunk issued while no slot decodes runs the mixed round's
+   first step alone; the rest at T = 1, recorded at the dispatch seam), no
+   flash prefill; the live pool's decode step kernel vs plain.
+   (b) overcommit: the 7B paged scheduler at its default max_seq (4096),
+   kv_overcommit 0.5, a burst of six 512-token requests over a pool that
+   holds their admissions (more than one max-length row's 64 pages) and
+   not their budgets: spill mode preempts, restores every
+   spilled page and gives the control's tokens; recompute mode preempts
+   and prints how many streams equal the control's and where the others
+   diverge.
+   (c) admission: max_queue_depth 2 sheds a burst of 12 with Overloaded
+   and 1 <= retry_after_s <= 60; `sched:slot_stall:1` retires one request
+   SlotStalled after 16 rounds while three beside it complete.
 7. Contiguous scheduler serve, the reference app's default: the same
    weights behind ContinuousBatchingSchedulers with `kv_layout` and
    `max_seq` left at their defaults (contiguous; 4096 for 7B, 8192 for 3B:
@@ -114,8 +149,11 @@ Phases, each fatal on failure:
    SQLite runs empty SQL as a success), so every request walks the failure
    path: generate, execute, two repair regenerations, the 3B explanation.
    Each body must have tests/test_app.py's failure shape; launch counts
-   exact; wall and TTFT per request. Then the entry point as a user starts
-   it, `python -m llm_based_apache_spark_optimization_tpu_torch.app
+   exact; wall and TTFT per request. Then `/api/generate` with
+   stream=true on the 7B scheduler: a 32-token completion in more than one
+   NDJSON chunk, timed as they arrive through the app's WSGI callable,
+   that join to the blocking text of the same prompt. Then the entry
+   point as a user starts it, `python -m llm_based_apache_spark_optimization_tpu_torch.app
    --backend tiny --api` in a process of its own on the card: one `POST
    /process-data/` over HTTP on localhost, then SIGTERM, and it must drain
    and exit 0.
@@ -189,7 +227,8 @@ Phases, each fatal on failure:
    concurrent requests' 334-460 tokens, two parked; 8 layers cycled);
    the paged reads and the page writes at the scheduler's 8 slots (live
    64-1024; each write also with every sliver dropped, its floor, and with
-   the table prefetch forced on and off); the int4 matmul for 7B's `wq` and `wd` at R =
+   the table prefetch forced on and off), and at the ragged mixed round's
+   first step (T = 32, tables of 64 pages, `mixed_rows`; 8 layers); the int4 matmul for 7B's `wq` and `wd` at R =
    1, 4, 8 (decode) and 1024 (a prefill chunk). The bound is the larger of the bytes over 3.35 TB/s
    and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
 
@@ -360,6 +399,14 @@ def cases():
             out.append(("prefill", f"{model}_sched_b{b}_t{t}",
                         dict(b=b, t=t, n=n, kh=kh, h=128, s=1024,
                              positions=run(b, t, starts), nan_dead=True)))
+    # The paged chunk at the paged schedulers' default max_seq: one layer's
+    # view of 4096 (7B) or 8192 (3B) positions, the 128-token bucket, rows
+    # ending at the view's end, mid-view and near its start.
+    for model, n, kh, s in (("7b", 32, 32, 4096), ("3b", 24, 8, 8192)):
+        starts = [0, 128, 208, s // 2 + 16, 1024, s - 128, s - 240, s // 4 + 336]
+        out.append(("prefill", f"{model}_paged_b8_t128_s{s}",
+                    dict(b=8, t=128, n=n, kh=kh, h=128, s=s,
+                         positions=run(8, 128, starts), nan_dead=True)))
     out += [
         ("decode", "7b_one", dict(b=1, t=1, n=32, kh=32, h=128, s=448,
                                   positions=[[300]])),
@@ -421,10 +468,12 @@ def check_kernels(torch, attn_mod):
     return worst
 
 
-def paged_case(torch, dtype, b, t, n, kh, h, ps, np_tab, rows, window=None):
+def paged_case(torch, dtype, b, t, n, kh, h, ps, np_tab, rows, window=None,
+               dead_pos=None):
     """A ragged paged attention case on the card. `rows` gives per row
     (start, q_len, kv_len): live columns sit at start + i, dead columns at
-    junk positions. Pages are a random permutation of the pool; entries
+    `dead_pos` (default the row's last position; the mixed round puts them
+    one past the row). Pages are a random permutation of the pool; entries
     past a row's live pages are the sentinel; NaN is planted in every
     page no table maps, in the live rows' dead pages and in the dead
     offsets of each last live page."""
@@ -436,7 +485,8 @@ def paged_case(torch, dtype, b, t, n, kh, h, ps, np_tab, rows, window=None):
     vp = torch.randn((pool_pages, kh, ps, h), generator=g, device=dev).to(dtype)
     perm = torch.randperm(pool_pages, generator=g, device=dev)
     tab = perm[: b * np_tab].reshape(b, np_tab).clone()
-    pos = torch.full((b, t), np_tab * ps - 1, dtype=torch.int32, device=dev)
+    pos = torch.full((b, t), np_tab * ps - 1 if dead_pos is None else dead_pos,
+                     dtype=torch.int32, device=dev)
     live = torch.zeros(pool_pages, dtype=torch.bool, device=dev)
     for i, (start, ql, kvl) in enumerate(rows):
         pos[i, :ql] = start + torch.arange(ql, device=dev)
@@ -484,6 +534,29 @@ def paged_cases():
         ("mistral_window", dict(t=1, n=32, kh=8, h=128, ps=64, np_tab=128,
                                 rows=[(7999, 1, 8000), (4999, 1, 5000)],
                                 window=4096)),
+    ] + mixed_cases()
+
+
+def mixed_rows(t, s_virt):
+    """(start, q_len, kv_len) of the 8 slots of a ragged mixed round (`t`
+    columns, rows of `s_virt` positions): two prefill rows carrying a
+    whole chunk (one mid-row, one ending at the row's end), four decode
+    rows at q_len 1 (mid-page, page boundary, one live slot, the row's last
+    slot) and two parked rows (all-sentinel tables, kv_lens 0)."""
+    return [(192, t, 192 + t), (s_virt - 1, 1, 0), (777, 1, 778), (s_virt - t, t, s_virt),
+            (255, 1, 256), (0, 1, 1), (s_virt - 1, 1, 0), (s_virt - 1, 1, s_virt)]
+
+
+def mixed_cases():
+    """The ragged mixed round's windows at the paged schedulers' default
+    max_seq (7B: 4096, tables of 64 pages; 3B: 8192, 128 pages; pages of
+    64): B = 8, T = 32 and 16, q_lens mixing 1 with T, dead columns one
+    past the row as the round places them."""
+    return [
+        (f"{m}_mixed_t{t}", dict(t=t, n=n, kh=kh, h=128, ps=64, np_tab=np_tab,
+                                 rows=mixed_rows(t, np_tab * 64), dead_pos=np_tab * 64))
+        for m, n, kh, np_tab in (("7b", 32, 32, 64), ("3b", 24, 8, 128))
+        for t in (32, 16)
     ]
 
 
@@ -527,7 +600,29 @@ WRITE_CASES = [("7b_t1_b8", 32, 32, 128, 64, 8, 1, 16, 128),
                ("3b_t1_b8", 28, 8, 128, 64, 8, 1, 16, 128),
                ("1b_t1_b8_h64", 16, 8, 64, 64, 8, 1, 16, 128),
                ("3b_t4_qlens", 28, 8, 128, 16, 4, 4, 16, 66),
-               ("7b_all_dropped", 32, 32, 128, 64, 8, 1, 16, 128)]
+               ("7b_all_dropped", 32, 32, 128, 64, 8, 1, 16, 128),
+               # The ragged mixed round at the default max_seq (two layers
+               # of the pool: the kernel's work does not depend on depth).
+               ("7b_mixed_t32", 2, 32, 128, 64, 8, 32, 64, 515),
+               ("7b_mixed_t16", 2, 32, 128, 64, 8, 16, 64, 515),
+               ("3b_mixed_t32", 2, 8, 128, 64, 8, 32, 128, 1027),
+               ("3b_mixed_t16", 2, 8, 128, 64, 8, 16, 128, 1027),
+               # The paged prefill chunk's write-back at the default
+               # max_seq: B = 8, the 128-token bucket, no q_lens.
+               ("7b_chunk_t128", 2, 32, 128, 64, 8, 128, 64, 515),
+               ("3b_chunk_t128", 2, 8, 128, 64, 8, 128, 128, 1027)]
+
+
+def chunk_rows(t, s_virt, ps):
+    """(start, mapped pages) of the 8 rows of a paged prefill chunk of `t`
+    tokens over rows of `s_virt` positions: starts at multiples of the
+    bucket and after prefix reuse (mid-page), envelopes ending on, before
+    and past the window's end, the last row's window running past the
+    row."""
+    return [(0, 2), (t, -(-(2 * t) // ps)), (208, -(-(208 + 50) // ps)),
+            (s_virt // 2 + 16, -(-(s_virt // 2 + 16 + t) // ps) + 1),
+            (1024, -(-(1024 + 40) // ps)), (s_virt - t, s_virt // ps),
+            (s_virt - 2 * t + 16, s_virt // ps), (s_virt - t + 48, s_virt // ps)]
 
 
 def write_case(torch, name, kh, h, ps, b, t, np_tab, pages, dtype, g):
@@ -541,7 +636,28 @@ def write_case(torch, name, kh, h, ps, b, t, np_tab, pages, dtype, g):
     starts = torch.randint(0, np_tab * ps - t, (b, 1), generator=g, device=dev)
     pos = (starts + torch.arange(t, device=dev)).int()
     q_lens = None
-    if t > 1:
+    if "mixed" in name:
+        # The mixed round's write: prefill rows write their whole chunk,
+        # decode rows column 0 (their dead columns one past the row), two
+        # parked rows behind all-sentinel tables.
+        rows = mixed_rows(t, np_tab * ps)
+        for i, (start, ql, kvl) in enumerate(rows):
+            pos[i] = np_tab * ps
+            pos[i, :ql] = start + torch.arange(ql, device=dev)
+            if kvl == 0:
+                tab[i] = pages
+        q_lens = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    elif "chunk" in name:
+        # The paged prefill chunk's write-back (`forward(span=...)`): every
+        # row writes its whole window, no q_lens; the table maps each row's
+        # pages up to its envelope's end, sentinel past it, so the columns
+        # past the mapped pages drop (a final chunk's bucket past its
+        # envelope), as do those past the row (the last row).
+        s_virt = np_tab * ps
+        for i, (start, mapped) in enumerate(chunk_rows(t, s_virt, ps)):
+            pos[i] = start + torch.arange(t, device=dev)
+            tab[i, mapped:] = pages
+    elif t > 1:
         tab[1] = pages           # a parked row: all sentinel
         pos[2, -1] = np_tab * ps  # past the row: dropped
         q_lens = torch.tensor([t, 1, t, 2], dtype=torch.int32, device=dev)
@@ -865,6 +981,58 @@ def small_reference(torch, quantized=False):
             f"[{label}] {layout} scheduler on the card != on the CPU")
         assert hits > 0, f"[{label}] the small {layout} scheduler's prefix cache never hit"
         assert layout != "paged" or cow > 0, f"[{label}] no page was copied on write"
+    small_variants(cfg, cpu_params, gpu_params, kv_quant, label, sched_prompts)
+
+
+def small_variants(cfg, cpu_params, gpu_params, kv_quant, label, sched_prompts):
+    """The small reference's ragged mixed rounds (the prefix-sharing
+    traffic in 8-token chunks) and an overcommitted pool of 9 pages of 8
+    under a `kv:pressure` storm withholding 3 (the settings of
+    tests/test_paged_kv.py), resumed by recompute and by spill: greedy
+    tokens on the card == on the CPU, and the storms preempt (spill: pages
+    spilled == restored)."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    storm = [[1, 17, 93, 5], [1, 40, 41], [1, 7], [1, 3, 4, 8, 10]]
+    pressure = dict(num_slots=2, max_seq=64, kv_page_size=8, kv_pages=9,
+                    kv_overcommit=0.25)
+    variants = {
+        "ragged": (dict(num_slots=4, kv_page_size=16, ragged=True), sched_prompts, 16,
+                   None),
+        "overcommit recompute": (pressure, storm, 24, "kv:pressure:1:3"),
+        "overcommit spill": (dict(pressure, kv_spill=True), storm, 24, "kv:pressure:1:3"),
+    }
+    for name, (kw, prompts, max_new, fault) in variants.items():
+        outs, stats = {}, {}
+        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            if fault:
+                FAULTS.configure(fault, 0)
+            try:
+                with ContinuousBatchingScheduler(
+                        cfg, params, decode_chunk=4, prompt_bucket=8, stop_ids=(-1,),
+                        kv_layout="paged", kv_quant=kv_quant, device=dev, **kw) as s:
+                    futs = [s.submit(p, max_new) for p in prompts]
+                    outs[dev] = [f.result(timeout=600) for f in futs]
+                    stats[dev] = dict(s.page_stats, mixed_rounds=s.mixed_rounds,
+                                      ragged_prefills=s.ragged_prefills)
+            finally:
+                FAULTS.clear()
+            st = stats[dev]
+            print(f"  [{label}] {name} {dev}: mixed rounds {st['mixed_rounds']}, ragged "
+                  f"prefills {st['ragged_prefills']}, "
+                  f"preemptions {st['preemptions']}, spilled {st['spilled_pages']}, "
+                  f"restored {st['restored_pages']}: {outs[dev]}", flush=True)
+        assert outs["cuda"] == outs["cpu"], f"[{label}] {name}: the card != the CPU"
+        for st in stats.values():
+            if fault:
+                assert st["preemptions"] >= 1, f"[{label}] {name}: no preemption"
+                assert st["spilled_pages"] == st["restored_pages"]
+                assert (st["spilled_pages"] > 0) == kw.get("kv_spill", False)
+            else:
+                assert st["mixed_rounds"] > 0, f"[{label}] {name}: no mixed round"
 
 
 # ----------------------------------------------------------------- serve
@@ -901,8 +1069,7 @@ MAX_NEW = 32
 # The scheduler phase: two NL->SQL requests one after the other, then the
 # other six at once (with one 3B error explanation beside them).
 SCHED_SQL = QUESTIONS + BATCH + ["Which payment type has the highest average fare?"]
-SCHED = dict(num_slots=8, max_seq=1024, decode_chunk=8, kv_layout="paged",
-             kv_page_size=64)
+SCHED = dict(num_slots=8, decode_chunk=8, kv_layout="paged", kv_page_size=64)
 
 
 def serve(torch):
@@ -1133,7 +1300,8 @@ def scheduler_serve(torch, engines, profile=False):
         st = sc.page_stats
         print(f"  {name}: pool of {st['pages_total']} pages x "
               f"{st['page_bytes'] / 2**20:.1f} MiB, {sc.num_slots} slots, "
-              f"max_seq {sc.max_seq}", flush=True)
+              f"max_seq {sc.max_seq}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated", flush=True)
 
     torch.cuda.synchronize()
     reset_launches()
@@ -1157,12 +1325,9 @@ def scheduler_serve(torch, engines, profile=False):
 
     expected = dict.fromkeys(LAUNCHES, 0)
     for n, sc in scheds.items():
-        n_layers = sc.cfg.num_layers
         rounds = sc.rounds_issued - start[n][0]
         prefills = sc.prefill_forwards - start[n][1]
-        for k in ("ragged_paged_attention", "fused_page_write"):
-            expected[k] += n_layers * sc.decode_chunk * rounds
-        expected["flash_gqa_prefill"] += n_layers * prefills
+        expect_paged(expected, sc, rounds, prefills)
         print(f"  {n}: {rounds} decode rounds, {prefills} prefill forwards; "
               f"pages {stats[n]}; prefix {sc.prefix_stats}", flush=True)
     for model, kind, r in results:
@@ -1185,6 +1350,9 @@ def scheduler_serve(torch, engines, profile=False):
     s7 = scheds["duckdb-nsql"]
     assert s7.prefix_stats["hits"] > 0, "the schema prefix never hit"
     assert stats["duckdb-nsql"]["zero_copy_shares"] > 0, "no page was shared"
+    for name, sc in scheds.items():
+        assert sc.max_seq == sc.cfg.max_seq_len, f"{name} is not at its default max_seq"
+    chunk_peak_memory(torch, s7.cfg, s7.params)
     if profile:
         def burst():
             with ThreadPoolExecutor(max_workers=6) as pool:
@@ -1215,6 +1383,337 @@ def scheduler_serve(torch, engines, profile=False):
     return launches
 
 
+def chunk_peak_memory(torch, cfg, params):
+    """Peak extra device memory of one paged prefill chunk at the 7B paged
+    scheduler's widest: 8 rows of the 128-token bucket ending at max_seq
+    4096 (views over all 64 pages of each row). Measured over the first two
+    layers of the 7B weights and a pool of their own, since the chunk's
+    transient is one layer's view at a time and does not grow with depth;
+    beside it the bytes of the all-layer K and V views the chunk built
+    before (computed for every layer, not run)."""
+    import dataclasses
+
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        init_page_pool,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = {k: ({n: w[:2] for n, w in v.items()} if k == "blocks" else v)
+          for k, v in params.items()}
+    ps, k, t = 64, 8, 128
+    np_tab = cfg.max_seq_len // ps
+    pool = init_page_pool(cfg2, k * np_tab, ps, torch.bfloat16, device="cuda")
+    tab = torch.arange(k * np_tab, dtype=torch.int32, device="cuda").reshape(k, np_tab)
+    start = cfg.max_seq_len - t
+    g = torch.Generator(device="cuda").manual_seed(9)
+    tokens = torch.randint(3, cfg.vocab_size, (k, t), generator=g, device="cuda",
+                           dtype=torch.int32)
+    pos = (start + torch.arange(t, device="cuda", dtype=torch.int32))[None].expand(k, t)
+    last = torch.full((k,), t - 1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        logits, _ = forward(cfg2, p2, tokens, pos, dict(pool, ptab=tab),
+                            logit_indices=last, span=start + t)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert logits.shape == (k, 1, cfg.vocab_size) and torch.isfinite(logits).all()
+    view = k * cfg.num_kv_heads * np_tab * ps * cfg.head_dim * 2  # one layer's K view
+    print(f"  7B paged chunk (8 rows x 128 tokens ending at {cfg.max_seq_len}): peak extra "
+          f"device memory {peak / 2**20:.0f} MiB with one layer's views "
+          f"({view / 2**20:.0f} MiB for K and again for V); the all-layer views "
+          f"were {cfg.num_layers * view / 2**30:.1f} GiB for K and again for V",
+          flush=True)
+    del pool, logits
+    return peak
+
+
+def spy_paged_windows(torch):
+    """Record the query window T of every paged attention launch: wraps
+    the two ragged paged attention wrappers the model's dispatch calls.
+    Returns (windows list, restore())."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import dispatch
+
+    windows, saved = [], {}
+    for name in ("ragged_paged_attention", "ragged_paged_attention_quantized"):
+        real = getattr(dispatch, name)
+        saved[name] = real
+
+        def spy(q, *a, real=real, **kw):
+            windows.append(q.shape[1])
+            return real(q, *a, **kw)
+
+        setattr(dispatch, name, spy)
+
+    def restore():
+        for name, real in saved.items():
+            setattr(dispatch, name, real)
+
+    return windows, restore
+
+
+def mixed_serve(torch, engines):
+    """Ragged mixed rounds at full width: the 7B paged scheduler with
+    `ragged=True` (max_seq 4096, 8 slots, pages of 64, chunks capped at 32)
+    over the bf16 and the int8 pool, phase 6's SQL traffic. Launch counts
+    exact: the ragged attention and the page write L x (decode_chunk x
+    rounds + ragged prefills), of which L a mixed round or a ragged prefill
+    (a chunk issued while no slot decodes: the mixed round's first step
+    alone) at T = its chunk bucket and the rest at T = 1; no flash prefill.
+    The live pool's decode step kernel vs plain. Returns the launches per
+    pool."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        GenerationService,
+        SchedulerBackend,
+        resolve_stop_ids,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    eng = engines["duckdb-nsql"]
+    n_layers = eng.cfg.num_layers
+    out = {}
+    for kv_quant in (None, "int8"):
+        sched = ContinuousBatchingScheduler(
+            eng.cfg, eng.params, stop_ids=resolve_stop_ids(eng.cfg, tok), ragged=True,
+            kv_quant=kv_quant, device="cuda", **SCHED)
+        assert sched._ragged and sched.prompt_bucket == 32
+        svc = GenerationService()
+        sb = SchedulerBackend(sched, tok, max_new_tokens=MAX_NEW)
+        svc.register("duckdb-nsql", sb)
+        windows, restore = spy_paged_windows(torch)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            results, walls = send_traffic(svc)
+            wait_idle(sched)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        finally:
+            restore()
+        rounds, mixed, alone = sched.rounds_issued, sched.mixed_rounds, sched.ragged_prefills
+        want = dict.fromkeys(LAUNCHES, 0)
+        expect_paged(want, sched, rounds, sched.prefill_forwards)
+        wide = [t for t in windows if t > 1]
+        label = kv_quant or "bf16"
+        report_traffic(results, walls, layout="paged", ragged=True, kv=label)
+        print(f"  {label} pool: {rounds} rounds, {mixed} mixed, {alone} ragged prefills; "
+              f"{len(wide)} launches at "
+              f"T in {sorted(set(wide))}, {len(windows) - len(wide)} at T = 1; prefix "
+              f"{sched.prefix_stats}", flush=True)
+        print(f"  launches {launches} expected {want}", flush=True)
+        assert launches == want, f"launch counts {launches} != {want}"
+        assert mixed > 0 and sched.prefill_forwards == 0
+        assert len(wide) == n_layers * (mixed + alone) and set(wide) <= {16, 32}
+        assert len(windows) - len(wide) == n_layers * (sched.decode_chunk * rounds - mixed)
+        assert all(r.output_tokens > 0 for _, _, r in results)
+        sb.shutdown()
+        sched._page_alloc.check()
+        live_pool_logits(torch, sched)
+        out[label] = launches
+        del svc, sb, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# Tokens each burst request decodes in the overcommit phase: at ratio 0.5
+# the six admissions then take more pages than one max-length row (64 at
+# max_seq 4096), the least pool the scheduler accepts.
+OVERCOMMIT_NEW = 512
+
+
+def burst(sched, prompts, max_new):
+    """Submit `prompts` at once (a long GIL switch interval keeps the worker
+    from admitting any before all are queued) and return their tokens."""
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(BURST_SWITCH_S)
+    try:
+        futs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
+    finally:
+        sys.setswitchinterval(switch)
+    return [f.result(timeout=600) for f in futs]
+
+
+def overcommit_serve(torch, engines):
+    """Overcommit at full width: the 7B paged bf16 scheduler (phase 6's
+    settings, max_seq 4096) with kv_overcommit 0.5 over a pool that holds the six burst
+    requests' admissions (prompt + half the 512-token budget) but not their
+    whole budgets, so top-ups fail and preempt. A control with the same
+    admissions over a pool big enough for every budget preempts nothing.
+    Spill mode: preemptions >= 1, pages spilled == restored, tokens equal to
+    the control's. Recompute mode: preemptions >= 1; the number of streams
+    equal to the control's and the first diverging token index are printed
+    (a re-prefill computes the K/V of generated positions with other matmul
+    shapes than the decode steps that wrote them). Launch counts exact over
+    the three runs. Returns them."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import bucket_len
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        pages_for_tokens,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        resolve_stop_ids,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    eng = engines["duckdb-nsql"]
+    cfg, n_layers = eng.cfg, eng.cfg.num_layers
+    prompts = [tok.encode(f"Overcommit request {i}. {SYSTEM_SQL}\n\n{q}")
+               for i, q in enumerate(SCHED_SQL[2:])]
+    ps, overshoot = SCHED["kv_page_size"], 2 * SCHED["decode_chunk"]
+    admit = sum(pages_for_tokens(bucket_len(len(p), 128) + OVERCOMMIT_NEW // 2 + overshoot,
+                                 ps) for p in prompts)
+    full = sum(pages_for_tokens(len(p) + OVERCOMMIT_NEW + overshoot, ps) for p in prompts)
+    # A pool must hold one max-length row: the admissions must exceed it.
+    assert admit + 2 >= pages_for_tokens(cfg.max_seq_len, ps) and full > admit + 2, \
+        (admit, full)
+    kw = dict(SCHED, stop_ids=resolve_stop_ids(cfg, tok), kv_overcommit=0.5,
+              device="cuda")
+    runs = {"control": dict(kv_pages=full + 16), "spill": dict(kv_pages=admit + 2,
+                                                                  kv_spill=True),
+            "recompute": dict(kv_pages=admit + 2, kv_spill=False)}
+    print(f"  six requests of {[len(p) for p in prompts]} prompt tokens x "
+          f"{OVERCOMMIT_NEW} new: admissions take {admit} pages of {ps}, whole budgets "
+          f"{full}; pools {({k: v['kv_pages'] for k, v in runs.items()})}", flush=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    want = dict.fromkeys(LAUNCHES, 0)
+    toks, stats = {}, {}
+    for name, extra in runs.items():
+        t0 = time.perf_counter()
+        with ContinuousBatchingScheduler(cfg, eng.params, **kw, **extra) as sched:
+            toks[name] = burst(sched, prompts, OVERCOMMIT_NEW)
+            st = wait_idle(sched)
+        wait_settled(sched)
+        sched._page_alloc.check()
+        stats[name] = st
+        expect_paged(want, sched, sched.rounds_issued, sched.prefill_forwards)
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s, {sched.rounds_issued} rounds, "
+              f"{sched.prefill_forwards} prefill forwards; preemptions "
+              f"{st['preemptions']}, spilled {st['spilled_pages']}, restored "
+              f"{st['restored_pages']}, page waits {st['page_waits']}, tokens "
+              f"{[len(t) for t in toks[name]]}", flush=True)
+        del sched
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    ctl = toks["control"]
+    for name in ("spill", "recompute"):
+        same = sum(a == b for a, b in zip(toks[name], ctl))
+        first = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                      None if len(a) == len(b) else min(len(a), len(b)))
+                 for a, b in zip(toks[name], ctl)]
+        print(f"  {name} resume vs control: {same} of {len(ctl)} streams equal; first "
+              f"diverging token index per stream {first}", flush=True)
+    print(f"  launches {launches} expected {want}", flush=True)
+    assert stats["control"]["preemptions"] == 0
+    for name in ("spill", "recompute"):
+        assert stats[name]["preemptions"] >= 1, f"{name}: the pool never preempted"
+    assert stats["spill"]["spilled_pages"] > 0
+    assert stats["spill"]["spilled_pages"] == stats["spill"]["restored_pages"]
+    assert toks["spill"] == ctl, "spill resumes changed the tokens"
+    assert launches == want, f"launch counts {launches} != {want}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def admission_serve(torch, engines):
+    """Admission control and slot stalls on the 7B paged scheduler (a pool
+    of 96 pages): with max_queue_depth 2, after one request seeds the
+    service-time estimate, a burst of 12 sheds Overloaded with 1 <=
+    retry_after_s <= 60 and the accepted requests complete; then one
+    request submitted under `sched:slot_stall:1` retires SlotStalled after
+    16 harvested rounds while the three beside it complete. Launch counts
+    exact. Returns them."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        Overloaded,
+        SlotStalled,
+        resolve_stop_ids,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    tok = ByteTokenizer()
+    eng = engines["duckdb-nsql"]
+    prompts = [tok.encode(f"Admission {i}. {SYSTEM_SQL}\n\n{SCHED_SQL[i % len(SCHED_SQL)]}")
+               for i in range(16)]
+    sched = ContinuousBatchingScheduler(
+        eng.cfg, eng.params, stop_ids=resolve_stop_ids(eng.cfg, tok), kv_pages=96,
+        max_queue_depth=2, device="cuda", **SCHED)
+    torch.cuda.synchronize()
+    reset_launches()
+    with sched:
+        sched.submit(prompts[0], max_new_tokens=MAX_NEW).result(timeout=300)
+        accepted, hints = [], []
+        switch = sys.getswitchinterval()
+        sys.setswitchinterval(BURST_SWITCH_S)
+        try:
+            for p in prompts[1:13]:
+                try:
+                    accepted.append(sched.submit(p, max_new_tokens=MAX_NEW))
+                except Overloaded as e:
+                    hints.append(e.retry_after_s)
+        finally:
+            sys.setswitchinterval(switch)
+        done = [f.result(timeout=300) for f in accepted]
+        sched.max_queue_depth = 0  # the stall check queues four at once
+        FAULTS.configure("sched:slot_stall:1", 0)
+        try:
+            stalled = sched.submit(prompts[13], max_new_tokens=MAX_NEW)
+        finally:
+            FAULTS.clear()
+        others = [sched.submit(p, max_new_tokens=MAX_NEW) for p in prompts[14:]]
+        others.append(sched.submit(prompts[0], max_new_tokens=MAX_NEW))
+        others_done = [f.result(timeout=300) for f in others]
+        try:
+            stalled.result(timeout=300)
+            stall_err = None
+        except SlotStalled as e:
+            stall_err = e
+        wait_idle(sched)
+    wait_settled(sched)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = dict.fromkeys(LAUNCHES, 0)
+    expect_paged(want, sched, sched.rounds_issued, sched.prefill_forwards)
+    print(f"  max_queue_depth 2, burst of 12: {len(accepted)} accepted "
+          f"({[len(d) for d in done]} tokens), {len(hints)} shed with retry_after_s "
+          f"{sorted(set(round(h, 3) for h in hints))} (service-time estimate "
+          f"{sched._svc_ewma:.3f} s)", flush=True)
+    print(f"  sched:slot_stall:1: {type(stall_err).__name__}: {stall_err}; beside it "
+          f"{[len(d) for d in others_done]} tokens; slots retired stalled "
+          f"{sched.watchdog_stats['slots_retired_stalled']}", flush=True)
+    print(f"  launches {launches} expected {want}", flush=True)
+    assert hints and all(1.0 <= h <= 60.0 for h in hints), hints
+    assert accepted and all(len(d) > 0 for d in done)
+    assert isinstance(stall_err, SlotStalled) and "no progress" in str(stall_err)
+    assert all(len(d) > 0 for d in others_done)
+    assert sched.watchdog_stats["slots_retired_stalled"] == 1
+    assert launches == want, f"launch counts {launches} != {want}"
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def wait_settled(sched, timeout=60.0):
     """Futures resolve before the worker releases the slot and drains its
     last round: poll until no slot is held and no round is in flight (the
@@ -1225,6 +1724,24 @@ def wait_settled(sched, timeout=60.0):
             return
         time.sleep(0.01)
     raise AssertionError("scheduler did not settle")
+
+
+def expect_paged(expected, sched, rounds, prefills):
+    """Add a paged scheduler's launches to `expected`: its ragged attention
+    (int8 pool: the quantized one) layers x (decode_chunk x rounds + ragged
+    prefills) (a mixed round's first step is one of the rounds' steps; a
+    ragged prefill is that step run alone), its page write as many plus one
+    a layer for each prefill forward (the chunk's window written back), the
+    flash prefill layers x prefill forwards, and over int4 weights the int4
+    matmul 7 x layers x forwards."""
+    n_layers = sched.cfg.num_layers
+    q = "_quantized" if sched.kv_quant else ""
+    steps = sched.decode_chunk * rounds + sched.ragged_prefills
+    expected["ragged_paged_attention" + q] += n_layers * steps
+    expected["fused_page_write" + q] += n_layers * (steps + prefills)
+    expected["flash_gqa_prefill"] += n_layers * prefills
+    if isinstance(sched.params["blocks"]["wq"], dict):
+        expected["int4_matmul"] += 7 * n_layers * (steps + prefills)
 
 
 def expect_contiguous(expected, sched, rounds, prefills):
@@ -1570,6 +2087,66 @@ def app_serve(torch, scheds):
     assert launches == expected, f"launch counts {launches} != {expected}"
     assert by_model.get("llama3.2", 0) == len(responses), "an explanation did not run"
     assert by_model["duckdb-nsql"] >= len(responses)
+    return launches, stream_generate(torch, svc, scheds, cfg)
+
+
+STREAM_PROMPT = "Write one Spark SQL query that counts the trips per payment type."
+
+
+def stream_generate(torch, svc, scheds, cfg):
+    """`/api/generate` with stream=true on the 7B contiguous scheduler: a
+    blocking request, then the same prompt streamed through the app's WSGI
+    callable, each NDJSON chunk timed as it arrives. Neither request finds
+    the prompt's blocks in the prefix cache (the first sighting publishes
+    nothing), so both prefill it alone and decode the same 32 tokens: the
+    stream must come in more than one chunk whose concatenation equals the
+    blocking text. Launch counts exact. Returns them."""
+    from llm_based_apache_spark_optimization_tpu_torch.app import create_api_app
+    from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+    import io
+
+    app = create_api_app(svc, SQLiteBackend, SQLiteHistory(":memory:"), cfg)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = {n: (sc.rounds_issued, sc.prefill_forwards) for n, sc in scheds.items()}
+    blocking = app.test_client().post_json(
+        "/api/generate", {"model": "duckdb-nsql", "prompt": STREAM_PROMPT,
+                          "stream": False}).json()
+    body = json.dumps({"model": "duckdb-nsql", "prompt": STREAM_PROMPT,
+                       "stream": True}).encode()
+    environ = {"REQUEST_METHOD": "POST", "PATH_INFO": "/api/generate", "QUERY_STRING": "",
+               "CONTENT_TYPE": "application/json", "CONTENT_LENGTH": str(len(body)),
+               "wsgi.input": io.BytesIO(body), "HTTP_COOKIE": ""}
+    status = {}
+    t0 = time.perf_counter()
+    lines, stamps = [], []
+    for chunk in app(environ, lambda st, headers: status.update(code=st)):
+        for line in chunk.decode().splitlines():
+            lines.append(json.loads(line))
+            stamps.append(time.perf_counter() - t0)
+    for sc in scheds.values():
+        wait_settled(sc)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = dict.fromkeys(LAUNCHES, 0)
+    for n, sc in scheds.items():
+        expect_contiguous(want, sc, sc.rounds_issued - start[n][0],
+                          sc.prefill_forwards - start[n][1])
+    pieces = [ln["response"] for ln in lines if not ln.get("done")]
+    print(f"  /api/generate stream=true: {status.get('code')}, {len(pieces)} chunks, first "
+          f"at {stamps[0]:.3f} s of {stamps[-1]:.3f} s; joined == blocking "
+          f"({len(blocking['response'])} chars): "
+          f"{''.join(pieces) == blocking['response']}", flush=True)
+    print(f"  launches {launches} expected {want}", flush=True)
+    assert status.get("code", "").startswith("200") and lines[-1]["done"] is True, lines[-1:]
+    assert len(pieces) > 1, "the completion came in one chunk"
+    assert "".join(pieces) == blocking["response"], "streamed text != blocking text"
+    assert launches == want, f"launch counts {launches} != {want}"
     return launches
 
 
@@ -1766,10 +2343,7 @@ def quantized_serve(torch, engines, profile=False):
     sched_launches = dict(LAUNCHES)
     rounds, prefills = sched.rounds_issued - r0, sched.prefill_forwards - p0
     want = dict.fromkeys(LAUNCHES, 0)
-    for k in ("ragged_paged_attention_quantized", "fused_page_write_quantized"):
-        want[k] = n_layers * sched.decode_chunk * rounds
-    want["flash_gqa_prefill"] = n_layers * prefills
-    want["int4_matmul"] = 7 * n_layers * (sched.decode_chunk * rounds + prefills)
+    expect_paged(want, sched, rounds, prefills)
     for kind, r in results:
         dec_s = r.latency_s - r.ttft_s
         rate = (r.output_tokens - 1) / dec_s if r.output_tokens > 1 and dec_s > 0 else 0.0
@@ -2603,6 +3177,129 @@ def time_paged_quantized(torch, pa_mod, pw_mod, cfg):
     return paged, write
 
 
+MIXED_TIMED_LAYERS = 8  # layers cycled when timing the mixed round's step
+
+
+def time_mixed(torch, pa_mod, pw_mod, cfg, quantized=False, t=32):
+    """The ragged mixed round's first step at 7B, one call per layer over
+    MIXED_TIMED_LAYERS layers of a pool (bf16, or int8 with scales): B = 8
+    slots through tables of 64 pages of 64 (max_seq 4096), T = `t`
+    columns, the rows of `mixed_rows` (two carrying a whole chunk, four
+    decode rows at q_len 1, two parked). Ragged paged attention (the tile
+    kernel): kernel, plain, and SDPA over K/V gathered (and dequantized)
+    in advance under the same mask. Page write of the round's slivers
+    (each chunk's t and each decode row's one): kernel, plain
+    (host-dispatched: it synchronises), and `index_put_` of the kept
+    slivers (quantized in advance) at precomputed coordinates. Bounds count
+    this data: the live K/V and the kept slivers."""
+    import torch.nn.functional as F
+
+    dev, dt, layers = "cuda", torch.bfloat16, MIXED_TIMED_LAYERS
+    ps, np_tab = 64, cfg.max_seq_len // 64
+    n, kh, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rows = mixed_rows(t, np_tab * ps)
+    b = len(rows)
+    need = [-(-kvl // ps) for _, _, kvl in rows]
+    pool_pages = sum(need) + 7
+    g = torch.Generator(device=dev).manual_seed(8)
+    shape = (layers, pool_pages, kh, ps, h)
+    kp = torch.randn(shape, generator=g, device=dev, dtype=dt)
+    vp = torch.randn(shape, generator=g, device=dev, dtype=dt)
+    if quantized:
+        (kp, kps), (vp, vps) = quantize(torch, kp), quantize(torch, vp)
+    perm = torch.randperm(pool_pages, generator=g, device=dev).tolist()
+    tab_rows, i = [], 0
+    for nd in need:
+        tab_rows.append(perm[i:i + nd] + [pool_pages] * (np_tab - nd))
+        i += nd
+    tab = torch.tensor(tab_rows, dtype=torch.int32, device=dev)
+    pos = torch.full((b, t), np_tab * ps, dtype=torch.int32, device=dev)
+    for r, (start, ql, _) in enumerate(rows):
+        pos[r, :ql] = start + torch.arange(ql, device=dev)
+    kvl = torch.tensor([r[2] for r in rows], dtype=torch.int32, device=dev)
+    qln = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    q = torch.randn((b, t, n, h), generator=g, device=dev, dtype=dt)
+    if quantized:
+        def attend(fn, l):
+            return fn(q, kp[l], kps[l], vp[l], vps[l], tab, pos, None, kvl, qln)
+        cuda_fn = pa_mod.ragged_paged_attention_quantized_cuda
+        plain_fn = pa_mod.ragged_paged_attention_quantized_plain
+    else:
+        def attend(fn, l):
+            return fn(q, kp[l], vp[l], tab, pos, None, kvl, qln)
+        cuda_fn = pa_mod.ragged_paged_attention_cuda
+        plain_fn = pa_mod.ragged_paged_attention_plain
+    ms = time_ms(torch, lambda l: attend(cuda_fn, l), layers)
+    plain = time_ms(torch, lambda l: attend(plain_fn, l), layers)
+
+    def rows_kv(pool, scales, l):
+        x = pa_mod.gather_pages(pool[l], tab)
+        if quantized:
+            x = pa_mod.dequantize_kv(x, pa_mod.gather_page_scales(scales[l], tab), dt)
+        return x.repeat_interleave(n // kh, dim=1)
+
+    kg = [rows_kv(kp, kps if quantized else None, l) for l in range(layers)]
+    vg = [rows_kv(vp, vps if quantized else None, l) for l in range(layers)]
+    idx = torch.arange(np_tab * ps, device=dev)
+    live_col = torch.arange(t, device=dev)[None, :] < qln[:, None]
+    mask = ((idx[None, None, :] <= pos[:, :, None].long())
+            & (idx[None, None, :] < kvl[:, None, None])
+            & live_col[:, :, None])[:, None]  # [B, 1, T, S]
+    qt = q.transpose(1, 2)
+    lib = time_ms(torch, lambda l: F.scaled_dot_product_attention(
+        qt, kg[l], vg[l], attn_mask=mask), layers)
+    del kg, vg
+    live = int(kvl.sum())
+    vis = int(mask.sum()) * n
+    kv_bytes = live * kh * (2 * h + 8) if quantized else 2 * live * kh * h * 2
+    q_bytes = int(live_col.sum()) * n * h * 2
+    b_ms, b_by = bound(2 * q_bytes + kv_bytes, 4 * h * vis)
+    label = "int8" if quantized else "bfloat16"
+    attn = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                shape=dict(B=b, T=t, N=n, K=kh, H=h, page=ps, np=np_tab,
+                           rows=[list(r) for r in rows], dtype="bfloat16", pool=label))
+
+    kn = torch.randn((b, t, kh, h), generator=g, device=dev, dtype=dt)
+    vn = torch.randn_like(kn)
+    pools = (kp, kps, vp, vps) if quantized else (kp, vp)
+    wfn = (pw_mod.fused_page_write_quantized_cuda if quantized
+           else pw_mod.fused_page_write_cuda)
+    wplain = (pw_mod.fused_page_write_quantized_plain if quantized
+              else pw_mod.fused_page_write_plain)
+    ms = time_ms(torch, lambda l: wfn(*pools, kn, vn, pos, tab, l, qln), layers)
+    plain = time_host(torch, lambda l: wplain(*pools, kn, vn, pos, tab, l, qln), layers)
+    pages, offs = pw_mod.page_coords(pos, tab, ps, pool_pages, qln)
+    bi, ti = (pages < pool_pages).nonzero(as_tuple=True)
+    pg, of = pages[bi, ti], offs[bi, ti]
+    kept = int(pg.numel())
+    if quantized:
+        k8n, ksn = quantize(torch, kn[bi, ti])
+        v8n, vsn = quantize(torch, vn[bi, ti])
+
+        def index_put(l):
+            kp[l][pg, :, of] = k8n
+            kps[l][pg, :, of] = ksn
+            vp[l][pg, :, of] = v8n
+            vps[l][pg, :, of] = vsn
+
+        nbytes = 2 * kept * kh * (2 * h + h + 4)
+    else:
+        ks_, vs_ = kn[bi, ti], vn[bi, ti]
+
+        def index_put(l):
+            kp[l][pg, :, of] = ks_
+            vp[l][pg, :, of] = vs_
+
+        nbytes = 2 * 2 * kept * kh * h * 2
+    lib = time_ms(torch, index_put, layers)
+    b_ms, b_by = bound(nbytes, 0)
+    write = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                 shape=dict(B=b, T=t, K=kh, H=h, page=ps, kept_slivers=kept,
+                            dtype="bfloat16", pool=label))
+    del kp, vp, pools
+    return attn, write
+
+
 INT4_TIME_ROWS = (1, 4, 8, 1024)
 
 
@@ -2747,6 +3444,12 @@ def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
     timed["decode_q"] = dict(decode_q["7b_one"], by_shape=decode_q)
     timed["paged"], timed["write"] = time_paged(torch, pa_mod, pw_mod, cfg)
     timed["paged_q"], timed["write_q"] = time_paged_quantized(torch, pa_mod, pw_mod, cfg)
+    # Rows 4-7 also at the ragged mixed round's T = 32 step (default max_seq).
+    for (a, w), quantized in (((timed["paged"], timed["write"]), False),
+                              ((timed["paged_q"], timed["write_q"]), True)):
+        ma, mw = time_mixed(torch, pa_mod, pw_mod, cfg, quantized)
+        a["by_shape"] = {"7b_b8_t1": dict(a), "7b_mixed_t32": ma}
+        w["by_shape"] = {"7b_b8_t1": dict(w), "7b_mixed_t32": mw}
     int4_times = time_int4(torch, mm_mod, cfg)
     timed["int4"] = dict(int4_times["wd_R8"], by_shape=int4_times)
     for launch, tm in timed.items():
@@ -2904,12 +3607,24 @@ def main() -> int:
 
     phase("serve (scheduler path)")
     sched_launches = scheduler_serve(torch, engines, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("serve (ragged mixed rounds)")
+    mixed_launches = mixed_serve(torch, engines)
+
+    phase("serve (overcommit: preemption, spill and recompute)")
+    overcommit_launches = overcommit_serve(torch, engines)
+
+    phase("serve (admission control and slot stalls)")
+    admission_launches = admission_serve(torch, engines)
 
     phase("serve (contiguous scheduler path)")
     contig_launches, contig_scheds = contiguous_serve(torch, engines)
 
-    phase("app (POST /process-data/ on the contiguous schedulers)")
-    app_launches = app_serve(torch, contig_scheds)
+    phase("app (POST /process-data/ and /api/generate streaming on the contiguous "
+          "schedulers)")
+    app_launches, stream_launches = app_serve(torch, contig_scheds)
     for sc in contig_scheds.values():
         sc.shutdown()
     del contig_scheds
@@ -2946,7 +3661,12 @@ def main() -> int:
                 "paged_q": "ragged_paged_attention_quantized",
                 "write_q": "fused_page_write_quantized", "int4": "int4_matmul"}
     paths = {"engine": launches, "scheduler": sched_launches,
+             "mixed_scheduler": mixed_launches["bf16"],
+             "mixed_scheduler_int8": mixed_launches["int8"],
+             "overcommit_scheduler": overcommit_launches,
+             "admission_scheduler": admission_launches,
              "contiguous_scheduler": contig_launches, "app": app_launches,
+             "app_streaming": stream_launches,
              "quantized_engine": q_launches["engine"],
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],

@@ -28,8 +28,12 @@ The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
 every option it cannot honor yet, instead of ignoring it: `--dp`/`--sp`/
 `--tp` > 1 (A13), `--speculative` (A9), `--int8` and `--int8-unembed`
-(A10), and the fleet, model-pool, QoS, admission-control and KV-pressure
-environment knobs (A11, A7).
+(A10), and the fleet, model-pool and QoS environment knobs (A11). The
+schedulers honor admission control (`LSOT_MAX_QUEUE_DEPTH`: a full queue
+sheds 429 with a Retry-After from the service-time estimate) and, over
+the paged layout, the page-pressure knobs (`LSOT_KV_OVERCOMMIT`,
+`LSOT_KV_SPILL`, `LSOT_KV_WATERMARK_LOW/HIGH`) and `LSOT_RAGGED`, which
+each scheduler reads from the environment as the JAX one does.
 """
 
 from __future__ import annotations
@@ -59,11 +63,6 @@ UNPORTED_KNOBS = {
     "tenant_rate": "A11 (the QoS front door)",
     "tenant_burst": "A11 (the QoS front door)",
     "tenant_weights": "A11 (the QoS front door)",
-    "max_queue_depth": "A7.6 (scheduler admission control)",
-    "kv_overcommit": "A7.4 (overcommit, spill and watermarks)",
-    "kv_spill": "A7.4 (overcommit, spill and watermarks)",
-    "kv_watermark_low": "A7.4 (overcommit, spill and watermarks)",
-    "kv_watermark_high": "A7.4 (overcommit, spill and watermarks)",
 }
 
 #: Per-process spill-path disambiguation: the same source can build two
@@ -171,7 +170,8 @@ def make_tiny_service(
             def make_sched(mcfg=mcfg, mparams=mparams):
                 return ContinuousBatchingScheduler(
                     mcfg, mparams, num_slots=num_slots, prompt_bucket=64,
-                    kv_layout=kv_layout, kv_quant=kv_quant, device=dev)
+                    kv_layout=kv_layout, kv_quant=kv_quant,
+                    max_queue_depth=app_cfg.max_queue_depth, device=dev)
 
             # The factory closes over the loaded params: a restart
             # re-allocates the cache, never the weights.
@@ -228,6 +228,10 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
                 max_new_tokens=max_new_tokens, add_bos=add_bos,
                 num_slots=args.slots, kv_quant=kv_quant,
                 kv_layout=args.kv_layout, quantize_int4=args.int4,
+                max_queue_depth=cfg.max_queue_depth,
+                kv_overcommit=cfg.kv_overcommit, kv_spill=cfg.kv_spill,
+                kv_watermark_low=cfg.kv_watermark_low,
+                kv_watermark_high=cfg.kv_watermark_high,
                 deadline_s=cfg.deadline_s or None, supervise=args.supervise,
                 max_restarts=cfg.max_restarts,
                 max_entry_replays=cfg.max_entry_replays,

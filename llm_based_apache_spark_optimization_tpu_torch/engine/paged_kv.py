@@ -1,7 +1,6 @@
 """Paged KV cache: a shared device page pool + host-side page allocator.
 
-Counterpart of the JAX package's `engine/paged_kv.py` (its page
-export/import and handoff blobs are not ported):
+Counterpart of the JAX package's `engine/paged_kv.py`:
 
     pool:        {"kp": [L, P, K, page_size, H], "vp": [L, P, K, page_size, H]}
                  int8 pool (kv_quant="int8"): int8 "kp"/"vp" plus f32
@@ -19,14 +18,19 @@ export/import and handoff blobs are not ported):
   kernel and its plain version drop writes through it, and the attention
   kernel never reads it (its plain version clips it to a real page whose
   content the mask hides).
+- `export_pages` copies pool pages into a host blob, one numpy stack per
+  pool array, scales included (the spill format of the scheduler's
+  preemption); `import_pages` writes a blob back into pool pages, bit for
+  bit. bf16 stacks travel as their 16-bit patterns (numpy has no bf16).
 """
 
 from __future__ import annotations
 
 import os
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -136,6 +140,71 @@ def pack_prefill_pages(
     return {"kp": pack(cache["k"]), "vp": pack(cache["v"]), "ptab": ptab}
 
 
+def export_pages(pool: Dict[str, torch.Tensor],
+                 page_ids: Sequence[int]) -> Tuple[np.ndarray, ...]:
+    """Copy pool pages into a host blob: one `[L, n, K, page_size(, H)]`
+    numpy array per pool array in the pool's own order ((kp, vp), or (kp,
+    kps, vp, vps) for the int8 pool, so the scales travel beside their
+    values and a restore is bit-exact). The arrays are copies: the blob
+    stays valid after the pages are freed or overwritten. On the card the
+    gather is enqueued on the current stream, after the rounds that wrote
+    the pages, and copied into pinned host buffers; the host then waits for
+    that copy alone (an event), not for the whole device."""
+    dev = next(iter(pool.values())).device
+    idx = torch.tensor(list(page_ids), dtype=torch.int64, device=dev)
+    stacks = [arr[:, idx] for arr in pool.values()]
+    if dev.type == "cuda":
+        host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in stacks]
+        for h, x in zip(host, stacks):
+            h.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        stacks = host
+    return tuple((x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+                 for x in stacks)
+
+
+def import_pages(pool: Dict[str, torch.Tensor], page_ids: Sequence[int],
+                 stacks: Sequence[np.ndarray]) -> None:
+    """Write an `export_pages` blob into pool pages `page_ids` (freshly
+    allocated, exclusive), in place: one indexed copy per pool array. On
+    the card the host arrays go through pinned buffers without a
+    synchronise, ordered on the current stream before any later round."""
+    dev = next(iter(pool.values())).device
+    idx = torch.tensor(list(page_ids), dtype=torch.int64, device=dev)
+    for arr, stack in zip(pool.values(), stacks):
+        src = torch.from_numpy(np.ascontiguousarray(stack))
+        if src.dtype != arr.dtype:
+            src = src.view(arr.dtype)  # bf16 from its 16-bit patterns
+        if dev.type == "cuda":
+            src = src.pin_memory().to(dev, non_blocking=True)
+        arr[:, idx] = src
+
+
+def handoff_bytes(stacks: Sequence[np.ndarray]) -> int:
+    """Host bytes of one `export_pages` blob."""
+    return int(sum(int(np.asarray(s).nbytes) for s in stacks))
+
+
+def blob_meta(stacks: Sequence[np.ndarray]) -> dict:
+    """Self-description of one `export_pages` blob: array count, pages and
+    page size read from its own geometry ([L, n, K, page_size(, H)]),
+    whether it carries int8 scales (4 arrays), and its bytes."""
+    arrs = [np.asarray(s) for s in stacks]
+    if not arrs:
+        return {"arrays": 0, "pages": 0, "page_size": 0, "nbytes": 0,
+                "quantized": False}
+    lead = arrs[0]
+    return {
+        "arrays": len(arrs),
+        "pages": int(lead.shape[1]) if lead.ndim >= 2 else 0,
+        "page_size": int(lead.shape[3]) if lead.ndim >= 4 else 0,
+        "nbytes": int(sum(a.nbytes for a in arrs)),
+        "quantized": len(arrs) == 4,
+    }
+
+
 class PageAllocator:
     """Host-side page accounting: free list + per-page refcounts.
 
@@ -163,9 +232,8 @@ class PageAllocator:
         self.cow_copies = 0
         #: Pages withheld from allocation (still free, refcount 0).
         self.withheld = 0
-        #: Pressure-relief counters of the reference's stats payload; the
-        #: port's scheduler has no preemption or spill yet, so they stay 0
-        #: unless a caller notes them.
+        #: Pressure-relief counters: victim preemptions, watermark
+        #: evictions, and pages spilled to and restored from the host.
         self.preemptions = 0
         self.evictions = 0
         self.spilled_pages = 0

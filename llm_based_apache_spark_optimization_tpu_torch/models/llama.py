@@ -41,6 +41,16 @@ onto the other.
   flash kernel, and writes only the chunk's window back into the cache
   (int8: quantized once, there). No all-layer view is built: at 7B, 8 rows
   of 4096 slots take 268 MiB a layer for K and again for V.
+- `span` with a paged cache is the scheduler's paged prefill chunk, any T:
+  `ptab` holds the chunk rows' table rows [k, NP], and layer l gathers
+  each row's first ceil(`span` / PS) pages through it into a contiguous
+  view [k, K, pages x PS, H] (an int8 pool dequantized the same way),
+  writes the chunk's K/V into the view, attends over it through the flash
+  kernel, and writes the chunk window back into the pool through the page
+  write kernel (int8: the quantizing one), every column of the window
+  that lands on a mapped page, as the JAX scheduler's scatter does. One
+  layer's view at a time: 256 MiB for K and again for V at 7B, 8 rows of
+  4096 slots, where a view of all layers took 8 GiB each.
 - Attention, page writes and int4 matmuls go through
   `ops.kernels.dispatch`: the hand-written kernels on CUDA, their plain
   versions on the CPU.
@@ -71,8 +81,9 @@ Params = Dict[str, object]
 
 # Paged forwards serve windows of at most this many tokens (decode steps,
 # verify windows, mixed rounds); longer prefill runs a contiguous cache and
-# packs or scatters its K/V into pool pages (engine/generate.py,
-# serve/scheduler.py). The JAX package's unrolled small-T bound.
+# packs its K/V into pool pages (engine/generate.py), or the paged chunk
+# over one layer's gathered view at a time (`span`, serve/scheduler.py).
+# The JAX package's unrolled small-T bound.
 _UNROLL_MAX_T = 32
 
 
@@ -152,6 +163,34 @@ def _write_rows(cache: Dict[str, torch.Tensor], name: str, layer: int,
         cache[name][layer][idx] = new.to(cache[name].dtype)
 
 
+def _page_view(cache: Dict[str, torch.Tensor], name: str, layer: int,
+               n_pages: int, dtype: torch.dtype) -> torch.Tensor:
+    """Layer `layer` of K or V (`name`) for the paged chunk's rows over
+    their first `n_pages` logical pages, gathered through `cache["ptab"]`
+    [k, NP]: [k, K, n_pages x PS, H] in `dtype`, a fresh tensor (an int8
+    pool dequantized: values and scales cast to `dtype`, then multiplied in
+    it, as the JAX scheduler does). Sentinel entries, and pages past the
+    table, clip to a real page whose content sits where the causal mask
+    hides it."""
+    pool = cache[f"{name}p"][layer]  # [P, K, PS(, H)]
+    num_pages, kh, ps = pool.shape[:3]
+    tab = cache["ptab"].long()[:, :n_pages]
+    if n_pages > tab.shape[1]:
+        tab = F.pad(tab, (0, n_pages - tab.shape[1]), value=num_pages - 1)
+    safe = tab.clamp(0, num_pages - 1)
+
+    def view(p):  # [P, K, PS(, H)] -> [k, K, n_pages x PS(, H)]
+        g = p[safe]
+        perm = (0, 2, 1, 3, 4) if p.dim() == 4 else (0, 2, 1, 3)
+        return g.permute(*perm).reshape(safe.shape[0], kh, n_pages * ps,
+                                        *p.shape[3:])
+
+    if f"{name}ps" in cache:
+        scales = cache[f"{name}ps"][layer]
+        return view(pool).to(dtype) * view(scales)[..., None].to(dtype)
+    return view(pool).to(dtype)
+
+
 def _at(w, layer: int):
     """Layer `layer` of a stacked weight: a tensor, or a q4 tree's arrays."""
     return {k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
@@ -183,6 +222,8 @@ def forward(
                                                       # cols (paged windows)
     rows: Optional[torch.Tensor] = None,              # [B] int — cache rows
     span: Optional[int] = None,                       # cache slots rows read
+                                                      # (paged: positions the
+                                                      # chunk's views cover)
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run T tokens through the stack; returns (logits f32, cache).
 
@@ -194,10 +235,14 @@ def forward(
     read zeros), then attention reads through it. `logit_indices` unembeds
     only those T-indices ([B, 1, V] logits). With `rows`, token row i runs
     over contiguous cache row rows[i], reading slots [0, span) (default:
-    the whole cache), one layer at a time; an int8 cache then serves any T."""
+    the whole cache), one layer at a time; an int8 cache then serves any T.
+    With a paged cache and `span`, row i is the chunk of the slot whose
+    table row is ptab[i], over views of positions [0, span) (span at least
+    the chunk's last position + 1), one layer at a time; any T."""
     b, t = tokens.shape
     paged = cache is not None and "kp" in cache
     quant = cache is not None and "k8" in cache
+    chunk = paged and span is not None
     if rows is not None:
         if cache is None or paged:
             raise ValueError("rows runs over a contiguous cache")
@@ -208,13 +253,14 @@ def forward(
             f"an int8 KV cache serves decode steps only (T == 1), got T={t}: "
             "prefill fills a compute-dtype cache, then quantize_cache converts "
             "it once (engine/generate.py)")
-    if paged and t > _UNROLL_MAX_T:
+    if paged and not chunk and t > _UNROLL_MAX_T:
         raise ValueError(
             "a paged KV cache serves the unrolled small-T path only "
             f"(T <= {_UNROLL_MAX_T}; decode, verify windows, and mixed "
             "ragged prefill+decode rounds): longer prefill runs a "
-            "contiguous transient/row cache and packs or scatters its K/V "
-            "into pool pages (engine/generate.py, serve/scheduler.py)."
+            "contiguous transient cache and packs its K/V into pool pages "
+            "(engine/generate.py), or passes `span` for the paged chunk "
+            "path (serve/scheduler.py)."
         )
     x = params["embed"][tokens.long()]  # [B, T, D]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
@@ -222,6 +268,8 @@ def forward(
     start = positions[:, 0]
     nh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     blocks = params["blocks"]
+    if chunk:
+        chunk_pages = -(-span // cache["kp"].shape[3])
 
     for l in range(cfg.num_layers):
         h = rms_norm(x, blocks["ln_attn"][l], cfg.norm_eps)
@@ -229,7 +277,22 @@ def forward(
         k = mm(h, _at(blocks["wk"], l)).reshape(b, t, kh, hd)
         v = mm(h, _at(blocks["wv"], l)).reshape(b, t, kh, hd)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        if paged and "kps" in cache:
+        if chunk:
+            views = []
+            for name, new in (("k", k), ("v", v)):
+                view = _page_view(cache, name, l, chunk_pages, x.dtype)
+                _write_cache(view, new, start)
+                views.append(view)
+            if "kps" in cache:
+                page_write_quantized(cache["kp"], cache["kps"], cache["vp"],
+                                     cache["vps"], k, v, positions,
+                                     cache["ptab"], l, q_lens)
+            else:
+                page_write(cache["kp"], cache["vp"], k, v, positions,
+                           cache["ptab"], l, q_lens)
+            attn = attention(q, views[0], views[1], positions, cfg.sliding_window,
+                             kv_lens)
+        elif paged and "kps" in cache:
             page_write_quantized(cache["kp"], cache["kps"], cache["vp"],
                                  cache["vps"], k, v, positions, cache["ptab"],
                                  l, q_lens)

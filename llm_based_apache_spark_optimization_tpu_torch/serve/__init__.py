@@ -9,6 +9,7 @@ from .resilience import (  # noqa: F401
     Draining,
     Overloaded,
     SchedulerCrashed,
+    SlotStalled,
 )
 from .scheduler import ContinuousBatchingScheduler, SchedulerBackend  # noqa: F401
 from .supervisor import SupervisedScheduler  # noqa: F401

@@ -25,12 +25,25 @@ In both, a block is published on its second sighting and hit from the
 third, and reuse stops on block boundaries.
 
 - Chunked prefill: one prompt chunk (a power-of-two bucket up to
-  `prompt_bucket`) for up to 8 same-bucket admissions per forward. The
-  contiguous layout runs the forward over the slots' own cache rows, one
-  layer at a time (`forward(rows=...)`: no view of all layers is built);
-  the paged layout over contiguous row views gathered from the pool, then
-  a windowed scatter of the chunk's K/V back through the slots' pages.
-  The final chunk samples the first token.
+  `prompt_bucket`) for up to 8 same-bucket admissions per forward, one
+  layer at a time (no view of all layers is built). The contiguous layout
+  runs it over the slots' own cache rows (`forward(rows=...)`); the paged
+  layout over each layer's view of the slots' pages below the chunk's end,
+  gathered through their table rows, the chunk's window written back
+  through the page-write kernel (`forward(span=...)`). The final chunk
+  samples the first token.
+- Ragged mixed rounds (`ragged=True`, or `LSOT_RAGGED=1`; paged only,
+  `prompt_bucket` capped at 32): a round's first step is one forward over
+  this iteration's prompt chunks and the decode slots together (per-row
+  `q_lens`: a chunk row's bucket, 1 for the others, whose dead columns
+  write nothing and read zeros), then the usual T=1 steps. While no slot
+  decodes, the chunks run that first step alone (a ragged prefill): the
+  same forward, none of the T=1 steps that no slot would read (the JAX
+  round runs them inside one compiled program; here each is dispatched
+  from the host, and a lone request paid them on every chunk). Each
+  request's tokens are the alternating scheduler's; only round boundaries
+  move (over an int8 pool a chunk then attends to its own K/V as stored,
+  in int8, whether or not a slot decodes beside it).
 - Decode rounds: `decode_chunk` T=1 steps of the whole slot batch, with
   `kv_lens = pos + 1` for active slots and 0 for parked ones (parked slots
   read nothing and write at the parking position, `max_seq - 1`, which no
@@ -40,6 +53,25 @@ third, and reuse stops on block boundaries.
 - Deadlines: a request submitted with `deadline_s` fails with
   `DeadlineExceeded` at admission if it expired while queued (or waiting
   for pages), or at the next harvest once in flight.
+- Admission control: past `max_queue_depth` queued requests a submit
+  sheds with `Overloaded`, its `retry_after_s` the queue's depth x the
+  service-time EWMA of completed requests / slots, in [1, 60] s. A slot
+  that appends nothing for `slot_stall_rounds` harvested rounds while the
+  loop is live retires with `SlotStalled` (`sched:slot_stall` seam).
+- Page pressure (paged; each knob defaults to its `LSOT_KV_*` variable):
+  `kv_overcommit` < 1 reserves part of a request's budget at admission
+  and tops pages up at each harvest; a top-up the pool cannot fund
+  preempts a victim (fewest generated tokens first), which resumes ahead
+  of the queue from its committed tokens: by re-prefilling prompt +
+  generated, or with `kv_spill` by restoring host copies of its pages
+  (`engine/paged_kv.export_pages`, scales included: bit-exact). Its
+  sample index is restored from the host mirror, so greedy and sampled
+  continuations are the unpreempted ones. Below `kv_watermark_low` x the
+  pool of grantable pages, prefix-cache entries are evicted up to the high
+  watermark. `kv:pressure` withholds pages (chaos seam). Pages freed by a
+  preemption may be written by the victim's rounds still in flight; those
+  writes run first in stream order and the next owner writes each
+  position before any query reads it.
 - int8 KV (`kv_quant="int8"`). Contiguous: int8 values plus one f32 scale
   a slot, `{"k8", "v8", "ks", "vs"}` with scales `[L, slots, K, S]`; decode
   writes quantize each fresh sliver and read through the quantized flash
@@ -83,10 +115,16 @@ and the scheduler's device and stream itself: both are per-thread state.
   supervised restart rebuilds the cache without reading the checkpoint
   again.
 
-Not ported yet (ROADMAP A7 follow-ups): mixed ragged rounds, speculation,
-grammar constraints, overcommit, preemption and spill, phase roles, QoS,
-profiling and the flight recorder, prefix telemetry, `SchedulerPool` and
-meshes.
+- Token streaming: `SchedulerBackend.complete_stream` yields text chunks
+  as tokens are harvested, joining to exactly the blocking text (partial
+  multi-byte sequences and a stop text's tail held back); closing it
+  cancels the request.
+
+Not ported yet: grammar constraints (ROADMAP A8, the mixed round's
+constrained variant with it), speculation (A9), phase roles and handoff
+(A7.5), `SchedulerPool` (A7.10), profiling and the flight recorder's
+rounds (A7.7), prefix telemetry (A7.8), tenant QoS (A11) and meshes
+(A7.12, A13).
 """
 
 from __future__ import annotations
@@ -108,32 +146,46 @@ from ..engine.kvcache import bucket_len, init_cache
 from ..engine.paged_kv import (
     PageAllocator,
     default_page_size,
+    export_pages,
+    import_pages,
     init_page_pool,
     page_bytes,
     pages_for_budget,
     pages_for_tokens,
 )
 from ..models.configs import LlamaConfig
-from ..models.llama import Params, forward
-from ..ops.quant import quantize_kv
+from ..models.llama import _UNROLL_MAX_T, Params, forward
 from ..ops.sampling import SamplingParams, greedy, sample_runtime
 from .backends import Completion, trim_stop_texts
-from ..utils.faults import FAULTS
+from ..utils.faults import FAULTS, InjectedFault
 from ..utils.observability import resilience
-from .resilience import Deadline, DeadlineExceeded, SchedulerCrashed
+from .resilience import (
+    Deadline,
+    DeadlineExceeded,
+    Overloaded,
+    SchedulerCrashed,
+    SlotStalled,
+)
 from .watchdog import Heartbeat
 
 _M32 = 0xFFFFFFFF
 
 
-def _first_token_timer():
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "0").strip().lower() in ("1", "true", "yes", "on")
+
+
+def _first_token_timer(then: Optional[Callable[[int], None]] = None):
     """(on_token, first_at): on_token records the worker-thread harvest time
-    of the request's first accepted token into first_at."""
+    of the request's first accepted token into first_at, then passes every
+    token on to `then`."""
     first_at: List[float] = []
 
     def on_tok(tok: int) -> None:
         if not first_at:
             first_at.append(time.perf_counter())
+        if then is not None:
+            then(tok)
 
     return on_tok, first_at
 
@@ -164,6 +216,32 @@ class _Request:
     # Already counted in page_waits (count requests, not retries).
     page_waited: bool = False
     deadline: Optional[Deadline] = None
+    # Submit wall clock: the service-time EWMA behind retry_after_hint.
+    submitted_at: float = 0.0
+    # Slot stall retirement: consecutive harvested rounds in which this
+    # slot appended nothing while the loop stayed live; `stall_inject` is
+    # the `sched:slot_stall` chaos seam (the harvest reads the slot's row
+    # as empty).
+    stall_rounds: int = 0
+    stall_inject: bool = False
+    # Preemption: `resume_pref` committed generated tokens join the prompt
+    # for the next admission (recompute resume re-prefills them);
+    # `rng_count` mirrors the slot's sample index at the last harvest (the
+    # resume restores it, so a sampled continuation draws what the
+    # unpreempted control draws); `spilled` holds the host page copies of
+    # a spill resume (`export_pages`).
+    resume_pref: int = 0
+    rng_count: int = 0
+    spilled: Optional[Tuple] = None
+
+    @property
+    def full_ids(self) -> List[int]:
+        """The prefill prefix: the prompt, plus after a preemption the
+        committed tokens a recompute resume re-runs (generated token j sits
+        at position len(ids) + j in both incarnations)."""
+        if not self.resume_pref:
+            return self.ids
+        return self.ids + self.generated[: self.resume_pref]
 
     def past_deadline(self) -> bool:
         return self.deadline is not None and self.deadline.expired()
@@ -205,6 +283,13 @@ class ContinuousBatchingScheduler:
         kv_pages: Optional[int] = None,
         kv_hbm_budget_bytes: Optional[int] = None,
         kv_quant: Optional[str] = None,
+        max_queue_depth: int = 0,
+        slot_stall_rounds: int = 16,
+        kv_overcommit: Optional[float] = None,
+        kv_spill: Optional[bool] = None,
+        kv_watermark_low: Optional[float] = None,
+        kv_watermark_high: Optional[float] = None,
+        ragged: Optional[bool] = None,
         device=None,
     ):
         self.kv_quant = kv_quant
@@ -217,6 +302,26 @@ class ContinuousBatchingScheduler:
             raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
         self.kv_layout = kv_layout
         self._paged = kv_layout == "paged"
+        # Admission control: a submit past this many queued requests sheds
+        # with a typed Overloaded (0: unbounded).
+        self.max_queue_depth = int(max_queue_depth)
+        # A slot that appends nothing for this many harvested rounds while
+        # the loop stays live retires with SlotStalled (0: never).
+        self.slot_stall_rounds = int(slot_stall_rounds)
+        self._slot_stalls = 0
+        # EWMAs of completed requests' submit->retire wall (the Retry-After
+        # estimate) and, paged, of their generation lengths (what overcommit
+        # admission reserves).
+        self._svc_ewma: Optional[float] = None
+        self._gen_ewma: Optional[float] = None
+        if ragged is None:
+            # The env opt-in degrades silently where the round cannot run.
+            ragged = _env_on("LSOT_RAGGED") and self._paged
+        elif ragged and not self._paged:
+            raise ValueError(
+                "ragged mixed rounds need kv_layout='paged' (prefill rows "
+                "scatter chunks through page tables)")
+        self._ragged = bool(ragged)
         self.cfg = cfg
         self.device = resolve_device(device)
         if params["final_norm"].device.type != self.device.type:
@@ -227,6 +332,10 @@ class ContinuousBatchingScheduler:
         self.max_seq = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
         self.decode_chunk = decode_chunk
         self.prompt_bucket = min(prompt_bucket, max(1, self.max_seq // 2))
+        if self._ragged:
+            # A mixed round runs its prompt chunks through the paged
+            # small-T path: chunks cap at its bound.
+            self.prompt_bucket = min(self.prompt_bucket, _UNROLL_MAX_T)
         self.stop_ids = tuple(stop_ids) if stop_ids is not None else cfg.stop_ids
         dtype = params["final_norm"].dtype
         self._dtype = dtype
@@ -235,6 +344,8 @@ class ContinuousBatchingScheduler:
         self._page_wait: "deque[_Request]" = deque()
         if self._paged:
             self._init_paged(kv_page_size, kv_pages, kv_hbm_budget_bytes)
+            self._init_pressure(kv_overcommit, kv_spill, kv_watermark_low,
+                                kv_watermark_high)
         else:
             # [L, slots, K, S, H], S rounded up to a multiple of 8 (int8:
             # values, and scales [L, slots, K, S]).
@@ -266,10 +377,19 @@ class ContinuousBatchingScheduler:
         self._first_pending: list = []
         self._harvest_lag = 1  # rounds kept in flight before syncing
         #: Decode rounds and prefill forwards issued (each round runs
-        #: decode_chunk paged forwards; each prefill forward one flash
-        #: prefill launch per layer on the card).
+        #: decode_chunk forwards; each prefill forward one flash prefill
+        #: launch per layer on the card). `mixed_rounds` counts the rounds
+        #: of `rounds_issued` that were ragged mixed rounds: their first
+        #: step is one forward over this round's prompt chunks and the
+        #: decode slots together (one ragged attention and one page write
+        #: a layer, at T = the chunk's bucket), the other decode_chunk - 1
+        #: steps are the usual T = 1 steps. `ragged_prefills` counts the
+        #: first steps a ragged scheduler ran alone, no slot decoding (not
+        #: rounds: no T = 1 step follows).
         self.rounds_issued = 0
         self.prefill_forwards = 0
+        self.mixed_rounds = 0
+        self.ragged_prefills = 0
 
         # Prompt-chunk buckets: powers of two up to prompt_bucket.
         b, buckets = min(16, self.prompt_bucket), []
@@ -326,17 +446,17 @@ class ContinuousBatchingScheduler:
         self._cur[slot] = self.cfg.pad_id
         self._pos[slot] = self._park
 
-    def _ready_slot(self, slot: int, req: _Request, tok: torch.Tensor) -> None:
-        """Arm a slot for decode: the first sampled token (still on the
-        device), its position, sampling knobs and RNG stream (index 1: the
-        prefill sample used index 0)."""
+    def _arm_slot(self, slot: int, req: _Request, tok, pos: int, count: int) -> None:
+        """Arm a slot for decode: its next input token `tok` (a device
+        scalar or an int) at position `pos`, its sampling knobs and its RNG
+        stream at index `count`."""
         self._cur[slot] = tok
-        self._pos[slot] = len(req.ids)
+        self._pos[slot] = pos
         self._temps[slot] = req.temperature
         self._topps[slot] = req.top_p
         self._topks[slot] = req.top_k
         self._seeds[slot] = req.seed & _M32
-        self._counts[slot] = 1
+        self._counts[slot] = count
 
     def _retire_slot(self, slot: int) -> None:
         """Reset a retired slot's sampling knobs."""
@@ -409,6 +529,38 @@ class ContinuousBatchingScheduler:
         self._ptab = torch.full((num_slots, self._pages_per_slot), num_pages,
                                 dtype=torch.int32, device=self.device)
 
+    def _init_pressure(self, kv_overcommit, kv_spill, kv_watermark_low,
+                       kv_watermark_high) -> None:
+        """Page-pressure relief, each knob defaulting to its environment
+        variable as in the JAX scheduler. `kv_overcommit` < 1 reserves
+        min(budget, max(ratio x budget, expected generation)) at admission
+        and tops pages up at each harvest; a failed top-up preempts a
+        victim, resumed by re-prefilling prompt + committed tokens, or with
+        `kv_spill` by restoring host copies of its pages. Below the low
+        watermark of free pages the loop evicts prefix-cache entries until
+        the high one (low 0: off)."""
+        if kv_overcommit is None:
+            kv_overcommit = float(os.environ.get("LSOT_KV_OVERCOMMIT", "1.0"))
+        if not 0.0 < kv_overcommit <= 1.0:
+            raise ValueError(f"kv_overcommit must be in (0, 1], got {kv_overcommit}")
+        self._kv_overcommit = float(kv_overcommit)
+        self._kv_spill = bool(_env_on("LSOT_KV_SPILL") if kv_spill is None
+                              else kv_spill)
+        if kv_watermark_low is None:
+            kv_watermark_low = float(os.environ.get("LSOT_KV_WATERMARK_LOW", "0.0"))
+        if kv_watermark_high is None:
+            kv_watermark_high = float(os.environ.get("LSOT_KV_WATERMARK_HIGH", "0.0"))
+        if not 0.0 <= kv_watermark_low <= 1.0 or \
+                not 0.0 <= kv_watermark_high <= 1.0 or \
+                kv_watermark_high < kv_watermark_low:
+            raise ValueError(
+                f"kv watermarks must satisfy 0 <= low <= high <= 1, "
+                f"got low={kv_watermark_low} high={kv_watermark_high}")
+        num_pages = self._page_alloc.num_pages
+        self._wm_low_pages = int(kv_watermark_low * num_pages)
+        self._wm_high_pages = max(self._wm_low_pages,
+                                  int(kv_watermark_high * num_pages))
+
     def _sync_ptab_row(self, slot: int) -> None:
         """Mirror a slot's host page list into the device table (unmapped
         tail entries carry the sentinel)."""
@@ -470,9 +622,140 @@ class ContinuousBatchingScheduler:
             self._sync_ptab_row(slot)
 
     def _reserve_new(self, req: _Request) -> int:
-        """Generation tokens admission reserves: the whole remaining budget
-        (the reference's exact mode; overcommit is not ported)."""
-        return max(0, req.max_new - len(req.generated))
+        """Generation tokens admission reserves. Exact mode (kv_overcommit
+        = 1.0, the default): the whole remaining budget. Overcommitted:
+        min(budget, max(ratio x budget, the EWMA of completed generation
+        lengths less what the request already generated)); decode tops up
+        at each harvest and a failed top-up preempts."""
+        remaining = max(0, req.max_new - len(req.generated))
+        r = self._kv_overcommit
+        if r >= 1.0 or remaining == 0:
+            return remaining
+        floor = -int(-remaining * r // 1)  # ceil
+        expect = 0
+        if self._gen_ewma is not None:
+            expect = max(0, -int(-self._gen_ewma // 1) - len(req.generated))
+        return min(remaining, max(1, floor, expect))
+
+    # ------------------------------------------------------ pressure relief
+
+    def _sample_pressure(self) -> None:
+        """Chaos seam: the value-valued `kv:pressure` site withholds part
+        of the pool (a fraction when the value < 1, a page count otherwise)
+        for every loop iteration it fires."""
+        if not FAULTS.active:
+            if self._page_alloc.withheld:
+                self._page_alloc.withhold(0)
+            return
+        v = FAULTS.value("kv:pressure")
+        if v is None:
+            self._page_alloc.withhold(0)
+            return
+        total = self._page_alloc.num_pages
+        self._page_alloc.withhold(int(v * total) if v < 1.0 else int(v))
+
+    def _watermark_sweep(self) -> None:
+        """Below the low watermark of grantable pages, evict LRU prefix
+        entries until the high one recovers (or the cache is empty)."""
+        if not self._wm_low_pages or \
+                self._page_alloc.pages_available >= self._wm_low_pages:
+            return
+        evicted = 0
+        while self._prefix_pages and \
+                self._page_alloc.pages_available < self._wm_high_pages:
+            self._prefix_evict(*self._prefix_pages.popitem(last=False))
+            evicted += 1
+        if evicted:
+            self._page_alloc.note_evictions(evicted)
+            resilience.inc("kv_evictions")
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Release a victim's slot and pages and queue it to resume first.
+        Spill mode copies its committed pages to the host first (the copy
+        waits for the rounds in flight, whose writes past the committed
+        positions ride along as garbage the resumed decode overwrites
+        before any read); recompute mode re-prefills prompt + committed
+        tokens at re-admission."""
+        req = self._slot_req[slot]
+        if self._kv_spill and req.generated:
+            plen = len(req.ids) + len(req.generated)
+            npg = min(pages_for_tokens(plen, self._page_size),
+                      len(self._slot_pages[slot]))
+            req.spilled = export_pages(self._pool, self._slot_pages[slot][:npg])
+            self._page_alloc.note_spill(npg)
+        req.resume_pref = len(req.generated)
+        req.ready = False
+        req.prefilled = 0
+        self._slot_req[slot] = None
+        self._slot_epoch[slot] += 1
+        # A queued chunk of the victim must not run for a later incarnation
+        # in the same slot.
+        self._prefill_q = deque((s, r) for s, r in self._prefill_q if r is not req)
+        self._retire_slot(slot)
+        self._free_slot_pages(slot)
+        self._page_alloc.note_preempt()
+        resilience.inc("kv_preemptions")
+        self._page_wait.appendleft(req)
+
+    def _preempt_for(self, n_pages: int, protect: int) -> Optional[List[int]]:
+        """Fund a failed allocation by preempting victims, fewest generated
+        tokens first, never slot `protect`, until it succeeds or no victim
+        is left."""
+        while True:
+            got = self._alloc_pages(n_pages)
+            if got is not None:
+                return got
+            victims = sorted((len(r.generated), i) for i, r in enumerate(self._slot_req)
+                             if r is not None and i != protect)
+            if not victims:
+                return None
+            self._preempt_slot(victims[0][1])
+
+    def _topup_pages(self) -> None:
+        """Keep each decoding slot's pages ahead of what the device can
+        write before the next harvest (committed position + overshoot), so
+        no decode write lands on an unmapped entry. Exact admission prepaid
+        the budget, so this allocates nothing there. A top-up the pool
+        cannot fund preempts a victim, or else the slot itself."""
+        overshoot, ps = self.overshoot, self._page_size
+        for i in range(self.num_slots):
+            req = self._slot_req[i]
+            if req is None or not req.ready:
+                continue
+            target = len(req.ids) + len(req.generated) + overshoot
+            need = pages_for_tokens(target, ps) - len(self._slot_pages[i])
+            if need <= 0:
+                continue
+            got = self._alloc_pages(need)
+            if got is None:
+                got = self._preempt_for(need, i)
+            if got is None:
+                self._preempt_slot(i)
+                continue
+            self._slot_pages[i].extend(got)
+            self._sync_ptab_row(i)
+            req.page_end = max(req.page_end, len(self._slot_pages[i]) * ps)
+
+    def _resume_ready(self, slot: int, req: _Request) -> None:
+        """Arm a resumed slot from its committed state: the last committed
+        token fed again at its own position (its K/V rewrite is the same
+        value), the sample index restored from the host mirror."""
+        plen = len(req.full_ids)
+        self._arm_slot(slot, req, req.generated[-1], plen - 1, req.rng_count)
+        req.ready = True
+        # Decode rewrites [plen - 1, page_end): copy any page the
+        # re-prefill's publish shared.
+        self._ensure_writable(slot, max(0, plen - 1), req.page_end)
+
+    def _restore_spilled(self, slot: int, req: _Request) -> None:
+        """Spill resume: write the host page copies (values and, in an int8
+        pool, scales) into the fresh pages and arm the slot; no forward."""
+        n = req.spilled[0].shape[1]
+        import_pages(self._pool, self._slot_pages[slot][:n], req.spilled)
+        self._page_alloc.note_restore(n)
+        req.spilled = None
+        req.prefilled = len(req.full_ids)
+        self._resume_ready(slot, req)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -560,6 +843,13 @@ class ContinuousBatchingScheduler:
             deadline=Deadline.after(deadline_s) if deadline_s is not None else None,
         )
         req.future._lsot_request = req  # cancel() handle
+        try:
+            # Chaos seam, on the submitting thread so a test can wedge
+            # exactly the requests it means to: this request's lane
+            # produces nothing (slot stall retirement).
+            FAULTS.check("sched:slot_stall")
+        except InjectedFault:
+            req.stall_inject = True
         with self._submit_lock:
             if self._closed:
                 if self._crash is not None:
@@ -569,6 +859,13 @@ class ContinuousBatchingScheduler:
                 raise RuntimeError(
                     "scheduler not started — call start() or use it as a "
                     "context manager (a queued Future would never resolve)")
+            # Admission control: shed instead of queueing without bound.
+            if self.max_queue_depth and self._queue.qsize() >= self.max_queue_depth:
+                resilience.inc("shed")
+                raise Overloaded(
+                    f"scheduler queue at capacity ({self.max_queue_depth} "
+                    f"waiting requests)", retry_after_s=self.retry_after_hint())
+            req.submitted_at = time.perf_counter()
             self._queue.put(req)
         return req.future
 
@@ -593,6 +890,17 @@ class ContinuousBatchingScheduler:
         if req is not None:
             req.cancelled = True
 
+    def retry_after_hint(self) -> float:
+        """Seconds a shed client should wait: the queue's depth (plus the
+        retry itself) x the recent per-request service time / slots,
+        clamped to [1, 60]; 1 until a completion seeds the estimate.
+        Lock-free: submit calls it holding the submit lock."""
+        ewma = self._svc_ewma
+        if ewma is None:
+            return 1.0
+        depth = self._queue.qsize() + 1
+        return float(min(60.0, max(1.0, depth * ewma / max(1, self.num_slots))))
+
     # ------------------------------------------------------------- stats
 
     @property
@@ -604,6 +912,10 @@ class ContinuousBatchingScheduler:
         out = self._page_alloc.stats()
         out["pages_per_slot"] = self._pages_per_slot
         out["page_waits"] = self._page_wait_events
+        out["overcommit"] = self._kv_overcommit
+        out["spill"] = int(self._kv_spill)
+        out["watermark_low_pages"] = self._wm_low_pages
+        out["watermark_high_pages"] = self._wm_high_pages
         out["kv_quant"] = self.kv_quant or ""
         out["page_bytes"] = page_bytes(self.cfg, self._page_size,
                                        self._dtype.itemsize, self.kv_quant)
@@ -636,11 +948,13 @@ class ContinuousBatchingScheduler:
         mid-page). Returns False, with no side effects, when the pool
         cannot fund the envelope now."""
         ps, pb = self._page_size, self._pblock
-        ids = req.ids
+        ids = req.full_ids  # prompt + committed tokens after a preemption
         plen = len(ids)
         s_virt = self._pages_per_slot * ps
         n = 0
-        if self._prefix_cache_blocks:
+        # A spill resume restores its pages' content into fresh exclusive
+        # pages: it maps no shared prefix.
+        if self._prefix_cache_blocks and req.spilled is None:
             max_blocks = (plen - 1) // pb
             while n < max_blocks and tuple(ids[: (n + 1) * pb]) in self._prefix_pages:
                 n += 1
@@ -649,6 +963,9 @@ class ContinuousBatchingScheduler:
             while n and self._chunk_end(n * pb, plen) > s_virt:
                 n -= 1
         reuse = n * pb
+        # Clamped to the slot's row: a resume's prompt re-rounds to the next
+        # bucket and can push the raw envelope past max_seq, though every
+        # real write stays below it.
         need_end = min(s_virt, max(
             self._chunk_end(reuse, plen),
             bucket_len(plen, self.prompt_bucket) + self._reserve_new(req)
@@ -690,7 +1007,7 @@ class ContinuousBatchingScheduler:
                 key = tuple(ids[: (j + 1) * pb])
                 if key in self._prefix_pages:
                     self._prefix_pages.move_to_end(key)
-        if self._prefix_cache_blocks:
+        if self._prefix_cache_blocks and req.spilled is None:
             self._note_prefix(plen, n)
         return True
 
@@ -742,13 +1059,17 @@ class ContinuousBatchingScheduler:
         self._slot_req[slot] = req
         self._slot_epoch[slot] += 1
         self._park_slot(slot)
+        if req.spilled is not None:
+            # Spill resume: restore the pages and arm the slot; no prefill.
+            self._restore_spilled(slot, req)
+            return True
         if not self._paged and self._prefix_cache_blocks:
             self._admit_blocks(slot, req)
         self._prefill_q.append((slot, req))
         return True
 
     def _next_bucket(self, req: _Request) -> int:
-        remaining = len(req.ids) - req.prefilled
+        remaining = len(req.full_ids) - req.prefilled
         return next((b for b in self._buckets if b >= remaining),
                     self.prompt_bucket)
 
@@ -766,26 +1087,61 @@ class ContinuousBatchingScheduler:
 
     # -------------------------------------------------------------- prefill
 
+    def _take_group(self) -> Tuple[List[Tuple[int, _Request]], int]:
+        """Up to `_prefill_kmax` queued prefill entries of one bucket, in
+        arrival order (entries of a slot since preempted or retired drop),
+        and that bucket."""
+        group: List[Tuple[int, _Request]] = []
+        deferred = []
+        t = 0
+        while self._prefill_q and len(group) < self._prefill_kmax:
+            s, r = self._prefill_q.popleft()
+            if self._slot_req[s] is not r:
+                continue
+            if not group:
+                t = self._next_bucket(r)
+                group.append((s, r))
+            elif self._next_bucket(r) == t:
+                group.append((s, r))
+            else:
+                deferred.append((s, r))
+        for item in reversed(deferred):  # keep arrival order for next passes
+            self._prefill_q.appendleft(item)
+        return group, t
+
+    def _chunk_rows(self, group, t: int):
+        """(tokens [k][t], live lengths, starts) of each row's next chunk."""
+        tokens, lengths, starts = [], [], []
+        for _, req in group:
+            chunk_ids = req.full_ids[req.prefilled: req.prefilled + t]
+            tokens.append(chunk_ids + [self.cfg.pad_id] * (t - len(chunk_ids)))
+            lengths.append(len(chunk_ids))
+            starts.append(req.prefilled)
+        return tokens, lengths, starts
+
     def _prefill_forward(self, group, t: int) -> torch.Tensor:
         """One prompt chunk for each (slot, req) of `group` in one forward.
         Returns the first-token samples [k] (used on final chunks)."""
         cfg = self.cfg
-        tokens, lengths, starts = [], [], []
-        for slot, req in group:
-            chunk_ids = req.ids[req.prefilled: req.prefilled + t]
-            tokens.append(chunk_ids + [cfg.pad_id] * (t - len(chunk_ids)))
-            lengths.append(len(chunk_ids))
-            starts.append(req.prefilled)
+        tokens, lengths, starts = self._chunk_rows(group, t)
         tokens_t = self._h2d(tokens, torch.int32)
         positions = (self._h2d(starts, torch.int32)[:, None]
                      + torch.arange(t, dtype=torch.int32, device=self.device))
         last = self._h2d(lengths, torch.int64) - 1
+        span = max(starts) + t
         if self._paged:
-            logits = self._prefill_paged(group, t, tokens_t, positions, last)
+            # One layer's view of the rows' pages at a time, over the
+            # positions below the chunks' end; the chunk window goes back
+            # into the pool through the page write.
+            num_pages = self._page_alloc.num_pages
+            rows = [self._slot_pages[s] + [num_pages] * (
+                self._pages_per_slot - len(self._slot_pages[s])) for s, _ in group]
+            cache = dict(self._pool, ptab=self._h2d(rows, torch.int32))
+            logits, _ = forward(cfg, self.params, tokens_t, positions, cache,
+                                logit_indices=last, span=span)
         else:
             # Over the slots' own cache rows, one layer at a time, reading
             # the slots below the chunks' end (rounded up to 64).
-            span = max(starts) + t
             logits, _ = forward(cfg, self.params, tokens_t, positions,
                                 self._cache, logit_indices=last,
                                 rows=self._h2d([s for s, _ in group], torch.int64),
@@ -803,110 +1159,49 @@ class ContinuousBatchingScheduler:
             torch.zeros(len(reqs), dtype=torch.int64, device=self.device),
         )
 
-    def _prefill_paged(self, group, t: int, tokens: torch.Tensor,
-                       positions: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
-        """The paged chunk forward, over contiguous row views gathered from
-        the pool; the chunk's K/V then scatter back through the slots' pages
-        (only this window: other pages of a row may be shared prefix
-        pages). Returns the logits [k, 1, V]."""
-        cfg, ps = self.cfg, self._page_size
-        np_tab, num_pages = self._pages_per_slot, self._page_alloc.num_pages
-        kp, vp = self._pool["kp"], self._pool["vp"]
-        n_layers, _, kh, _, hd = kp.shape
-        rows = []
-        w_row, w_pos, w_page, w_off = [], [], [], []
-        for i, (slot, req) in enumerate(group):
-            pages = self._slot_pages[slot]
-            rows.append(pages + [num_pages] * (np_tab - len(pages)))
-            # Window scatter coordinates, from the host mirror of the table:
-            # positions past the row's mapped pages are dropped.
-            for p in range(req.prefilled, req.prefilled + t):
-                if p // ps < len(pages):
-                    w_row.append(i)
-                    w_pos.append(p)
-                    w_page.append(pages[p // ps])
-                    w_off.append(p % ps)
-        k = len(group)
-        safe = self._h2d(rows, torch.int64).clamp(max=num_pages - 1)
-
-        def rowview(pool):  # [L, P, K, PS(, H)] -> [L, k, K, NP*PS(, H)]
-            g = pool[:, safe]
-            perm = (0, 1, 3, 2, 4, 5) if pool.dim() == 5 else (0, 1, 3, 2, 4)
-            return g.permute(*perm).reshape(n_layers, k, kh, np_tab * ps,
-                                            *pool.shape[4:])
-
-        if self.kv_quant:
-            dt = self._dtype
-            row_cache = {
-                "k": rowview(kp).to(dt) * rowview(self._pool["kps"])[..., None].to(dt),
-                "v": rowview(vp).to(dt) * rowview(self._pool["vps"])[..., None].to(dt),
-            }
-        else:
-            row_cache = {"k": rowview(kp), "v": rowview(vp)}
-        logits, _ = forward(cfg, self.params, tokens, positions, row_cache,
-                            logit_indices=last)
-        if w_row:
-            r, p = self._h2d(w_row, torch.int64), self._h2d(w_pos, torch.int64)
-            pg, of = self._h2d(w_page, torch.int64), self._h2d(w_off, torch.int64)
-            if self.kv_quant:
-                for name in ("k", "v"):
-                    qn = quantize_kv(row_cache[name][:, r, :, p])  # [n, L, K, H]
-                    self._pool[f"{name}p"][:, pg, :, of] = qn["q8"]
-                    self._pool[f"{name}ps"][:, pg, :, of] = qn["s"]
-            else:
-                kp[:, pg, :, of] = row_cache["k"][:, r, :, p]
-                vp[:, pg, :, of] = row_cache["v"][:, r, :, p]
-        return logits
-
     def _prefill_step(self) -> None:
         """Run ONE prompt chunk for up to `_prefill_kmax` waiting requests
         of the same bucket in a single forward (chunked prefill interleaves
         with decode rounds instead of stalling every active slot)."""
-        group: List[Tuple[int, _Request]] = []
-        deferred = []
-        t = 0
-        while self._prefill_q and len(group) < self._prefill_kmax:
-            s, r = self._prefill_q.popleft()
-            if self._slot_req[s] is not r:
-                continue
-            if not group:
-                t = self._next_bucket(r)
-                group.append((s, r))
-            elif self._next_bucket(r) == t:
-                group.append((s, r))
-            else:
-                deferred.append((s, r))
-        for item in reversed(deferred):  # keep arrival order for next passes
-            self._prefill_q.appendleft(item)
+        group, t = self._take_group()
         if not group:
             return
         if self._paged:  # copy-on-write sweep over each chunk's write window
             for slot, req in group:
                 self._ensure_writable(slot, req.prefilled, req.prefilled + t)
-        chunk_lens = [len(req.ids[req.prefilled: req.prefilled + t])
-                      for _, req in group]
-        toks = self._prefill_forward(group, t)
+        self._after_chunk(group, t, self._prefill_forward(group, t))
 
+    def _after_chunk(self, group, t: int, toks) -> None:
+        """The host side of a `t`-bucket chunk for each (slot, req) of
+        `group`: publish its prefix blocks, queue its next chunk, or arm the
+        slot: with the still-on-device first token `toks[i]`, attached to
+        the next harvest; a resume from its committed state instead."""
         for i, (slot, req) in enumerate(group):
             chunk_start = req.prefilled
-            req.prefilled += chunk_lens[i]
+            req.prefilled = min(chunk_start + t, len(req.full_ids))
             if self._prefix_cache_blocks:
                 if self._paged:
                     self._publish_blocks_paged(slot, req, chunk_start)
                 else:
                     self._publish_blocks(slot, req, chunk_start)
-            if req.prefilled < len(req.ids):
+            if req.prefilled < len(req.full_ids):
                 self._prefill_q.append((slot, req))
                 continue
-            # No sync: arm the slot with the still-on-device first token and
-            # attach it to the next round's harvest (stop/budget checks on
-            # it happen there, one round late).
+            if req.resume_pref:
+                # Recompute resume: the K/V is rebuilt; the chunk's sample
+                # is dropped and decode continues from the committed token.
+                self._resume_ready(slot, req)
+                continue
+            # No sync: stop/budget checks on the first token happen at the
+            # harvest it rides, one round late.
             req.ready = True
             if self._paged:
                 # Decode writes [len(ids), page_end): the final chunk's
                 # publish may have shared the page holding the prompt tail.
                 self._ensure_writable(slot, len(req.ids), req.page_end)
-            self._ready_slot(slot, req, toks[i])
+            # Index 1 of its stream: the prefill sample used index 0.
+            self._arm_slot(slot, req, toks[i], len(req.ids), 1)
+            req.rng_count = 1
             self._first_pending.append((slot, req, toks[i], self._slot_epoch[slot]))
 
     def _first_sighting(self, key: Tuple[int, ...]) -> bool:
@@ -944,8 +1239,9 @@ class ContinuousBatchingScheduler:
         REFERENCE to the publisher's pages (refcount++), gated on the
         block's second sighting."""
         pb, ps = self._pblock, self._page_size
+        ids = req.full_ids
         for b0 in range(chunk_start // pb, req.prefilled // pb):
-            key = tuple(req.ids[: (b0 + 1) * pb])
+            key = tuple(ids[: (b0 + 1) * pb])
             if key in self._prefix_pages:
                 self._prefix_pages.move_to_end(key)
                 continue
@@ -964,9 +1260,17 @@ class ContinuousBatchingScheduler:
     def _decode_round(self, active: torch.Tensor, sampled: bool) -> torch.Tensor:
         """`decode_chunk` T=1 steps of the whole slot batch over the cache
         or the pool; returns the tokens [slots, chunk] (device)."""
+        return self._decode_steps(active, sampled, self._cur, self._pos, 0, [])
+
+    def _decode_steps(self, active: torch.Tensor, sampled: bool, cur: torch.Tensor,
+                      pos: torch.Tensor, first: int, toks: List[torch.Tensor]
+                      ) -> torch.Tensor:
+        """T=1 steps `first`..decode_chunk-1 from (cur, pos), step i
+        sampling each active slot's stream at index counts + i; `toks`
+        holds the tokens of the steps before `first`. Returns [slots,
+        chunk]."""
         cache = dict(self._pool, ptab=self._ptab) if self._paged else self._cache
-        cur, pos, toks = self._cur, self._pos, []
-        for i in range(self.decode_chunk):
+        for i in range(first, self.decode_chunk):
             logits, _ = forward(
                 self.cfg, self.params, cur[:, None], pos[:, None], cache,
                 # Parked slots read nothing; live slots up to their position.
@@ -986,6 +1290,64 @@ class ContinuousBatchingScheduler:
                                    self._counts)
         return torch.stack(toks, dim=1)
 
+    def _mixed_step(self, group, t: int, active: torch.Tensor, sampled: bool
+                    ) -> torch.Tensor:
+        """Step 0 of a ragged mixed round: ONE forward at T = t over every
+        slot, the chunk rows of `group` carrying their chunk (q_lens t) and
+        the other rows their current token in column 0 (q_lens 1; dead
+        columns write nothing and read zeros). Chunk rows sample their
+        first token at index 0 of their stream, decode rows at counts, as
+        the alternating rounds do. Returns the samples [slots]."""
+        cfg, dev, num_slots = self.cfg, self.device, self.num_slots
+        pad = cfg.pad_id
+        s_virt = self._pages_per_slot * self._page_size
+        tokens, lengths, starts = self._chunk_rows(group, t)
+        p_tokens = [[pad] * t for _ in range(num_slots)]
+        p_lengths, p_starts = [1] * num_slots, [0] * num_slots
+        is_pref = [False] * num_slots
+        knobs = [[0.0] * num_slots, [1.0] * num_slots, [0] * num_slots, [0] * num_slots]
+        for i, (slot, req) in enumerate(group):
+            p_tokens[slot], p_lengths[slot], p_starts[slot] = tokens[i], lengths[i], starts[i]
+            is_pref[slot] = True
+            for row, v in zip(knobs, (req.temperature, req.top_p, req.top_k,
+                                      req.seed & _M32)):
+                row[slot] = v
+        pref = self._h2d(is_pref, torch.bool)
+        p_start = self._h2d(p_starts, torch.int32)
+        col = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+        cur, pos = self._cur, self._pos
+        tokens0 = torch.where(pref[:, None], self._h2d(p_tokens, torch.int32),
+                              torch.where(col == 0, cur[:, None], pad))
+        # Dead decode columns sit at the virtual row's end: their writes
+        # drop and the mask keeps their logits finite.
+        pos0 = torch.where(pref[:, None], p_start[:, None] + col,
+                           torch.where(col == 0, pos[:, None], s_virt))
+        kv0 = torch.where(pref, (p_start + t).clamp(0, s_virt),
+                          torch.where(active, pos + 1, 0))
+        q_lens = torch.where(pref, t, 1).to(torch.int32)
+        last = torch.where(pref, self._h2d(p_lengths, torch.int64) - 1, 0)
+        logits, _ = forward(cfg, self.params, tokens0, pos0,
+                            dict(self._pool, ptab=self._ptab),
+                            logit_indices=last, kv_lens=kv0, q_lens=q_lens)
+        if sampled:
+            temps, topps, topks, seeds = (
+                torch.where(pref, self._h2d(v, dt), cur_v) for v, dt, cur_v in zip(
+                    knobs, (torch.float32, torch.float32, torch.int32, torch.int64),
+                    (self._temps, self._topps, self._topks, self._seeds)))
+            return sample_runtime(logits[:, 0], temps, topps, topks, seeds,
+                                  torch.where(pref, 0, self._counts))
+        return greedy(logits[:, 0])
+
+    def _mixed_round(self, group, t: int, active: torch.Tensor, sampled: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A ragged mixed round: `_mixed_step`, then steps 1..chunk-1, the
+        usual T=1 steps, the chunk rows inactive. Returns (tokens [slots,
+        chunk], step 0's samples [slots])."""
+        firsts = self._mixed_step(group, t, active, sampled)
+        cur = torch.where(active, firsts, self.cfg.pad_id)
+        pos = torch.where(active, self._pos + 1, self._pos)
+        return self._decode_steps(active, sampled, cur, pos, 1, [cur]), firsts
+
     def _issue_decode(self) -> None:
         """Enqueue one decode round; nothing synchronises here. Its tokens
         are harvested `_harvest_lag` rounds later."""
@@ -1003,11 +1365,61 @@ class ContinuousBatchingScheduler:
                               self._first_pending))
         self._first_pending = []
 
+    def _issue_mixed(self) -> bool:
+        """Enqueue one ragged mixed round (`ragged=True`): this iteration's
+        prompt chunks (one bucket, arrival order, as `_prefill_step` picks
+        them) ride the decode round's first step. The chunk rows' host side
+        is `_prefill_step`'s; their first tokens ride this round's harvest.
+        With no slot decoding, the first step runs alone (a ragged prefill)
+        and the first tokens ride the next round, as a prefill chunk's do.
+        Returns False, issuing nothing, when every queued entry was stale."""
+        group, t = self._take_group()
+        if not group:
+            return False
+        FAULTS.check("sched:hang")
+        for slot, req in group:  # copy-on-write sweep over the windows
+            self._ensure_writable(slot, req.prefilled, req.prefilled + t)
+        issue_reqs = [r if r is not None and r.ready else None
+                      for r in self._slot_req]
+        active = self._h2d([r is not None for r in issue_reqs], torch.bool)
+        sampled = any(r.temperature > 0.0 for r in issue_reqs if r is not None) \
+            or any(req.temperature > 0.0 for _, req in group)
+        if all(r is None for r in issue_reqs):
+            firsts = self._mixed_step(group, t, active, sampled)
+            self.ragged_prefills += 1
+            self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
+            return True
+        toks, firsts = self._mixed_round(group, t, active, sampled)
+        self.rounds_issued += 1
+        self.mixed_rounds += 1
+        self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
+        self._pending.append((issue_reqs, list(self._slot_epoch), toks,
+                              self._first_pending))
+        self._first_pending = []
+        return True
+
     # --------------------------------------------------------------- retire
 
     def _retire(self, slot: int, req: _Request, result: List[int]) -> None:
+        self._record_service_time(req)
         req.future.set_result(result)
         self._release_slot(slot)
+
+    def _record_service_time(self, req: _Request) -> None:
+        """EWMAs (alpha 0.2) of completed requests' submit->retire wall and,
+        paged, generation length; a cancelled request says nothing about
+        either. Under the submit lock: retry_after_hint reads them from
+        other threads."""
+        if req.submitted_at <= 0.0 or req.cancelled:
+            return
+        wall = time.perf_counter() - req.submitted_at
+        with self._submit_lock:
+            prev = self._svc_ewma
+            self._svc_ewma = wall if prev is None else 0.2 * wall + 0.8 * prev
+            if self._paged:
+                g = float(len(req.generated))
+                prev_g = self._gen_ewma
+                self._gen_ewma = g if prev_g is None else 0.2 * g + 0.8 * prev_g
 
     def _fail_slot(self, slot: int, req: _Request, exc: Exception) -> None:
         """Retire a slot with a typed failure (deadline expiry)."""
@@ -1058,10 +1470,14 @@ class ContinuousBatchingScheduler:
         # Firsts precede the round's tokens in every stream.
         for j, (slot, req, _, fep) in enumerate(firsts):
             self._append_first(slot, req, flat[self.num_slots * chunk + j], fep)
+        stalled = []
         for i, req in enumerate(issue_reqs):
             if req is None or req is not self._slot_req[i] \
                     or epochs[i] != self._slot_epoch[i]:
-                continue  # inactive at issue, or retired since
+                continue  # inactive at issue, or retired or preempted since
+            # The host mirror of the slot's sample index for this committed
+            # round: what a preemption's resume restores.
+            req.rng_count += chunk
             if req.cancelled:
                 self._retire(i, req, req.generated)
                 continue
@@ -1069,8 +1485,11 @@ class ContinuousBatchingScheduler:
                 resilience.inc("deadline_expired")
                 self._fail_slot(i, req, req.deadline_error())
                 continue
+            # The `sched:slot_stall` seam: the lane produced nothing useful.
+            row = [] if req.stall_inject else flat[i * chunk: (i + 1) * chunk]
+            before = len(req.generated)
             done = False
-            for tok in flat[i * chunk: (i + 1) * chunk]:
+            for tok in row:
                 if tok in self.stop_ids:
                     done = True
                     break
@@ -1081,6 +1500,29 @@ class ContinuousBatchingScheduler:
                     break
             if done:
                 self._retire(i, req, req.generated)
+            elif len(req.generated) > before:
+                req.stall_rounds = 0
+            else:
+                stalled.append((i, req))
+        if self.slot_stall_rounds:
+            # A slot that appended nothing in a harvested round (the loop is
+            # live: a wedged loop is the watchdog's case) accrues a stall
+            # round; at slot_stall_rounds it retires typed.
+            for i, req in stalled:
+                req.stall_rounds += 1
+                if req.stall_rounds >= self.slot_stall_rounds:
+                    self._slot_stalls += 1
+                    resilience.inc("slot_stalls")
+                    self._fail_slot(i, req, SlotStalled(
+                        f"slot {i} made no progress for {req.stall_rounds} "
+                        f"harvested decode rounds while the loop stayed live "
+                        f"({len(req.generated)} of {req.max_new} tokens "
+                        f"generated before the lane wedged)"))
+        if self._paged:
+            # Retirements above freed pages: extend every live slot's pages
+            # past its committed position + overshoot before the next round
+            # can write there (a failed top-up preempts).
+            self._topup_pages()
         self.heartbeat.round_done()
 
     def _harvest_firsts(self) -> None:
@@ -1164,14 +1606,20 @@ class ContinuousBatchingScheduler:
 
     @property
     def watchdog_stats(self) -> Dict[str, object]:
-        """The loop's heartbeat (age, busy, rounds, measured cadence)."""
-        return {"heartbeat": self.heartbeat.snapshot()}
+        """The loop's heartbeat (age, busy, rounds, measured cadence) and
+        the slots retired as stalled."""
+        return {"heartbeat": self.heartbeat.snapshot(),
+                "slots_retired_stalled": self._slot_stalls}
 
     def _loop(self) -> None:
         while not self._stop_evt.is_set():
             # Liveness stamp first, so a wedge anywhere below leaves a
             # stale busy stamp for the watchdog to age.
             self.heartbeat.stamp(busy=self._busy_now())
+            if self._paged:
+                # Pressure upkeep: the kv:pressure seam, the watermark sweep.
+                self._sample_pressure()
+                self._watermark_sweep()
             self._sweep_page_wait()
             # Admit pending requests into every free slot; page-starved
             # requests re-admit ahead of the queue, in arrival order.
@@ -1190,6 +1638,12 @@ class ContinuousBatchingScheduler:
                     # retire: park it at the front of the line.
                     self._page_wait.appendleft(req)
                     break
+            # A ragged mixed round folds this iteration's prompt chunks into
+            # the decode round's first step (run alone while no slot decodes).
+            if self._ragged and self._prefill_q and self._issue_mixed():
+                if len(self._pending) > self._harvest_lag:
+                    self._harvest_round()
+                continue
             # Fair interleave: at most one prompt chunk per decode round.
             if self._prefill_q:
                 self._prefill_step()
@@ -1324,6 +1778,66 @@ class SchedulerBackend:
                           prompt_tokens=len(ids),
                           ttft_s=(first_at[0] - t_submit) if first_at else 0.0)
 
+    def complete_stream(self, prompt: str, max_new_tokens: Optional[int] = None,
+                        sampling: Optional[SamplingParams] = None, seed: int = 0,
+                        stats_out: Optional[dict] = None,
+                        deadline_s: Optional[float] = None):
+        """Yield the completion as text chunks while it decodes. Each token
+        re-decodes the ids so far and emits the new text, holding back a
+        trailing partial multi-byte sequence (U+FFFD) and the last
+        (longest stop text - 1) characters, so the chunks join to exactly
+        the blocking text. A stop text ends the stream and cancels the
+        request (the scheduler knows stop ids, not strings); closing the
+        generator cancels it too. `stats_out` receives prompt_tokens,
+        output_tokens and ttft_s."""
+        ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
+        if stats_out is not None:
+            stats_out["prompt_tokens"] = len(ids)
+        toks: "queue.Queue[int]" = queue.Queue()
+        t_submit = time.perf_counter()
+        on_tok, first_at = _first_token_timer(toks.put)
+        fut = self.scheduler.submit(
+            ids, max_new_tokens=self._budget(len(ids), max_new_tokens),
+            sampling=sampling or self.sampling, seed=seed, on_token=on_tok,
+            deadline_s=deadline_s if deadline_s is not None else self.deadline_s)
+        out_ids: List[int] = []
+        emitted = ""
+        hold = max((len(t) for t in self.stop_texts), default=1) - 1
+        try:
+            done = False
+            while not done:
+                try:
+                    out_ids.append(toks.get(timeout=0.05))
+                except queue.Empty:
+                    done = fut.done()
+                    continue
+                text = self.tokenizer.decode(out_ids)
+                trimmed = trim_stop_texts(text, self.stop_texts)
+                if trimmed != text:  # a stop text landed: flush and end
+                    if len(trimmed) > len(emitted):
+                        yield trimmed[len(emitted):]
+                    self.scheduler.cancel(fut)
+                    fut.result()
+                    return
+                safe = text[: len(text) - hold if hold else len(text)]
+                delta = safe[len(emitted):]
+                if delta and not delta.endswith("\ufffd"):
+                    emitted += delta
+                    yield delta
+            fut.result()  # errors surface here
+            while not toks.empty():
+                out_ids.append(toks.get_nowait())
+            text = trim_stop_texts(self.tokenizer.decode(out_ids), self.stop_texts)
+            if len(text) > len(emitted):
+                yield text[len(emitted):]
+        finally:
+            if not fut.done():  # consumer gone mid-stream
+                self.scheduler.cancel(fut)
+            if stats_out is not None:
+                stats_out["output_tokens"] = len(out_ids)
+                if first_at:
+                    stats_out["ttft_s"] = first_at[0] - t_submit
+
     def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  deadline_s: Optional[float] = None,
@@ -1358,7 +1872,9 @@ class SchedulerBackend:
         `device` (default CUDA). The arguments are those of the JAX
         package's `SchedulerBackend.from_hf_checkpoint`: `dtype` (default
         bf16), `quantize_int4` (int4 block weights), `kv_quant="int8"`,
-        the scheduler's shape arguments, and `supervise` with
+        the scheduler's shape arguments, the page-pressure knobs
+        (`kv_overcommit`, `kv_spill`, `kv_watermark_low/high`),
+        `max_queue_depth`, and `supervise` with
         `max_restarts`, `max_entry_replays`, `journal_spill` and `stall_*`
         (serve/supervisor.py). What the port cannot honor yet raises and
         names its ROADMAP item."""
@@ -1424,20 +1940,6 @@ class SchedulerBackend:
 
         refuse_unported_load(mesh, quantize_int8, quantize_int4,
                              quantize_unembed8, speculative_draft)
-        unported = [
-            (kv_overcommit not in (None, 1.0), "kv_overcommit"),
-            (kv_spill, "kv_spill"), (kv_watermark_low, "kv_watermark_low"),
-            (kv_watermark_high, "kv_watermark_high"),
-        ]
-        for on, name in unported:
-            if on:
-                raise NotImplementedError(
-                    f"{name} is not ported: ROADMAP A7.4 (overcommit, "
-                    f"spill and watermarks)")
-        if max_queue_depth:
-            raise NotImplementedError(
-                "max_queue_depth is not ported: ROADMAP A7.6 (scheduler "
-                "admission control)")
         cfg, params = load(dtype, resolve_device(device))
         if quantize_int4:
             from ..ops.quant import quantize_params_int4
@@ -1456,6 +1958,10 @@ class SchedulerBackend:
                 stop_ids=stops, kv_quant=kv_quant, kv_layout=kv_layout,
                 kv_page_size=kv_page_size, kv_pages=kv_pages,
                 kv_hbm_budget_bytes=kv_hbm_budget_bytes,
+                kv_overcommit=kv_overcommit, kv_spill=kv_spill,
+                kv_watermark_low=kv_watermark_low,
+                kv_watermark_high=kv_watermark_high,
+                max_queue_depth=max_queue_depth,
                 device=params["final_norm"].device)
 
         if supervise:

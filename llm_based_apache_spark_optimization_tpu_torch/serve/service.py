@@ -4,7 +4,8 @@ shape of `ollama.generate(model=..., system=..., prompt=...)`.
 Counterpart of the JAX package's `serve/service.py`: registry, templates,
 per-model stats, request tracing, deadlines and request ids, the lifecycle
 seams the app's health routes and drain gate read (`health`, `draining`,
-`drain`, `close`), `validate` and `generate_stream` for `/api/generate`.
+`drain`, `close`), `validate` and `generate_stream` for `/api/generate`
+(token streaming through the scheduler backend's `complete_stream`).
 `health()` aggregates the supervised schedulers' lifecycle
 (serve/supervisor.py) and `drain()` lets each backend finish or journal its
 in-flight work; idempotency keys reach backends with a journal. Not ported
@@ -276,16 +277,39 @@ class GenerationService:
         tenant: str = "",
         qos: str = "",
     ):
-        """Yield the completion as text chunks (Ollama's `stream=true`
-        surface). The port's backends have no `complete_stream` seam yet, so
-        the whole completion is one chunk, as the JAX package serves it from
-        backends without one. Metrics record the request like generate()."""
-        res = self.generate(model, prompt, system=system,
-                            max_new_tokens=max_new_tokens, sampling=sampling,
-                            seed=seed, constrain=constrain, deadline_s=deadline_s,
-                            request_id=request_id, tenant=tenant, qos=qos)
-        if res.response:
-            yield res.response
+        """Yield the completion as text chunks while it decodes (Ollama's
+        `stream=true` surface): through the backend's `complete_stream`
+        (the scheduler backend's), or as one chunk from a backend without
+        that seam (engines, fakes), as the JAX package does. Metrics record
+        the request like generate(), also when the consumer closes the
+        stream early; closing it cancels the request."""
+        entry = self._entry(model)
+        streamer = getattr(entry.backend, "complete_stream", None)
+        if streamer is None:
+            res = self.generate(model, prompt, system=system,
+                                max_new_tokens=max_new_tokens, sampling=sampling,
+                                seed=seed, constrain=constrain,
+                                deadline_s=deadline_s, request_id=request_id,
+                                tenant=tenant, qos=qos)
+            if res.response:
+                yield res.response
+            return
+        kwargs = self._request_kwargs(entry, constrain, deadline_s)
+        rendered = entry.template(system, prompt)
+        tr, own, _ = tracing.begin_or_ambient(request_id, model)
+        stats: dict = {}
+        t0 = time.perf_counter()
+        inner = streamer(rendered, max_new_tokens=max_new_tokens,
+                         sampling=sampling, seed=seed, stats_out=stats, **kwargs)
+        try:
+            # The backend advances under the trace context, never held
+            # across our own yields (the generator/contextvar hazard).
+            yield from (tracing.stepwise(inner, tr) if own is not None else inner)
+        finally:
+            inner.close()  # its finally cancels the request and fills stats
+            TRACER.finish(own)
+            self._record(model, 1, time.perf_counter() - t0,
+                         stats.get("output_tokens", 0), [stats.get("ttft_s", 0.0)])
 
     def generate_batch(
         self,

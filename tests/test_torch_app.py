@@ -313,12 +313,10 @@ def test_entry_point_refuses_unported_flags(argv, item):
     ("LSOT_POOL_REMOTE", "1=localhost:9", "A11"),
     ("LSOT_REPLICA_WEIGHTS", "2,1", "A11"),
     ("LSOT_FLEET_WORKERS", "localhost:9", "A11"),
-    ("LSOT_KV_OVERCOMMIT", "0.5", "A7.4"),
     ("LSOT_QOS", "1", "A11"),
     ("LSOT_TENANT_RATE", "2", "A11"),
     ("LSOT_TENANT_BURST", "4", "A11"),
     ("LSOT_TENANT_WEIGHTS", "a=2", "A11"),
-    ("LSOT_MAX_QUEUE_DEPTH", "4", "A7.6"),
     ("LSOT_CONSTRAIN_SQL", "1", "A8"),
 ])
 def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, item):
@@ -328,6 +326,35 @@ def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, 
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         entry.build_service(args_for("--cpu"), cfg)
         create_api_app(make_service(), SQLiteBackend, SQLiteHistory(), cfg)
+
+
+@pytest.mark.parametrize("env,attr,want", [
+    ({"LSOT_KV_OVERCOMMIT": "0.5"}, "_kv_overcommit", 0.5),
+    ({"LSOT_KV_SPILL": "1"}, "_kv_spill", True),
+    ({"LSOT_KV_WATERMARK_LOW": "0.25", "LSOT_KV_WATERMARK_HIGH": "0.5"},
+     "_wm_low_pages", 0.25),
+    ({"LSOT_KV_WATERMARK_HIGH": "0.5"}, "_wm_high_pages", 0.5),
+    ({"LSOT_MAX_QUEUE_DEPTH": "4"}, "max_queue_depth", 4),
+    ({"LSOT_RAGGED": "1"}, "_ragged", True),
+], ids=["overcommit", "spill", "watermark_low", "watermark_high", "queue_depth",
+        "ragged"])
+def test_entry_point_honours_scheduler_knobs(monkeypatch, tmp_path, env, attr, want):
+    """The knobs of ROADMAP A7.3, A7.4 and A7.6 build a scheduler now: each
+    tiny paged scheduler carries the value (a watermark as that share of
+    its pool's pages), as the JAX entry point's does."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:")
+    svc = entry.build_service(args_for("--cpu", "--backend", "tiny", "--kv-layout",
+                                       "paged", "--slots", "2", "--no-supervise"), cfg)
+    try:
+        sched = svc._models["duckdb-nsql"].backend.scheduler
+        if attr.startswith("_wm_"):
+            want = int(want * sched.page_stats["pages_total"])
+        assert getattr(sched, attr) == want and want
+    finally:
+        svc.close()
 
 
 def test_entry_point_needs_a_card_without_cpu():

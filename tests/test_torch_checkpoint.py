@@ -282,11 +282,31 @@ def test_backends_from_hf_checkpoint_serve_jax_tokens(tmp_path):
     ({"quantize_unembed8": True}, "A10"),
     ({"speculative_draft": 2}, "A9"),
     ({"mesh": object()}, "A13"),
-    ({"kv_overcommit": 0.5}, "A7.4"),
-    ({"kv_spill": True}, "A7.4"),
-    ({"max_queue_depth": 4}, "A7.6"),
 ])
 def test_scheduler_from_hf_refuses_unported(tmp_path, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         SchedulerBackend.from_hf_checkpoint(str(tmp_path), ByteTokenizer(),
                                             device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,attr,want", [
+    ({"kv_overcommit": 0.5}, "_kv_overcommit", 0.5),
+    ({"kv_spill": True}, "_kv_spill", True),
+    ({"kv_watermark_low": 0.25, "kv_watermark_high": 0.5}, "_wm_high_pages", 8),
+    ({"max_queue_depth": 4}, "max_queue_depth", 4),
+], ids=["overcommit", "spill", "watermarks", "queue_depth"])
+def test_scheduler_from_hf_honours_pressure_and_admission_knobs(tmp_path, kwargs,
+                                                                 attr, want):
+    """The page-pressure knobs (ROADMAP A7.4) and max_queue_depth (A7.6)
+    reach the paged scheduler a checkpoint backend builds, which serves."""
+    jcfg = dataclasses.replace(JAX_TINY, max_seq_len=128)
+    jax_save_hf(jcfg, jax_init(jcfg, jax.random.key(10), dtype=jnp.float32), tmp_path)
+    sb = SchedulerBackend.from_hf_checkpoint(
+        str(tmp_path), ByteTokenizer(), dtype=torch.float32, device="cpu",
+        stop_ids=(-1,), num_slots=2, prompt_bucket=16, decode_chunk=4,
+        kv_layout="paged", kv_page_size=16, kv_pages=16, max_new_tokens=6, **kwargs)
+    try:
+        assert getattr(sb.scheduler, attr) == want
+        assert sb.complete("SELECT").output_tokens == 6
+    finally:
+        sb.shutdown()

@@ -385,3 +385,242 @@ def test_scheduler_backend_text_matches_jax(both):
         tb.shutdown()
         for entry in jsvc._models.values():
             entry.backend.shutdown()
+
+
+# ------------------------------------------------- admission and slot stalls
+
+ADMIT = dict(num_slots=2, decode_chunk=4, prompt_bucket=8, stop_ids=(-1,))
+
+
+def test_admission_defaults_match_jax():
+    """max_queue_depth (0: unbounded) and slot_stall_rounds (16) default as
+    in the JAX scheduler."""
+    for name in ("max_queue_depth", "slot_stall_rounds", "kv_overcommit", "kv_spill",
+                 "kv_watermark_low", "kv_watermark_high", "ragged"):
+        want = inspect.signature(JaxScheduler).parameters[name].default
+        assert inspect.signature(ContinuousBatchingScheduler).parameters[name].default \
+            == want, name
+
+
+def test_overload_sheds_typed(both):
+    """max_queue_depth=1: a burst of 10 sheds Overloaded with a Retry-After
+    in [1, 60] while every accepted request completes in full."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve import Overloaded
+    from llm_based_apache_spark_optimization_tpu_torch.utils.observability import (
+        resilience,
+    )
+
+    accepted, shed = [], 0
+    before = resilience.get("shed")
+    with ContinuousBatchingScheduler(TINY, both[1], **ADMIT, max_queue_depth=1,
+                                     device="cpu") as s:
+        for i in range(10):
+            try:
+                accepted.append(s.submit([1, 5 + i], max_new_tokens=40))
+            except Overloaded as e:
+                assert 1.0 <= e.retry_after_s <= 60.0
+                shed += 1
+        outs = [f.result(timeout=120) for f in accepted]
+    assert shed >= 1 and accepted and all(len(o) == 40 for o in outs)
+    assert resilience.get("shed") == before + shed
+
+
+def test_retry_after_hint_equals_jax(both):
+    """The hint is queue depth (+ the retry) x the service-time EWMA /
+    slots, clamped to [1, 60], as JAX's: the same value at each state."""
+    jax_s = JaxScheduler(JAX_TINY, both[0], **ADMIT)
+    port = ContinuousBatchingScheduler(TINY, both[1], **ADMIT, device="cpu")
+    for s in (jax_s, port):
+        assert s.retry_after_hint() == 1.0  # no EWMA yet
+        for _ in range(4):
+            s._queue.put(None)
+    for ewma, want in ((2.0, 5.0), (1000.0, 60.0), (0.001, 1.0), (3.3, 8.25)):
+        jax_s._svc_ewma = port._svc_ewma = ewma
+        assert port.retry_after_hint() == jax_s.retry_after_hint() == want
+
+
+def test_completion_seeds_service_time_ewma(both):
+    with ContinuousBatchingScheduler(TINY, both[1], **ADMIT, kv_layout="paged",
+                                     kv_page_size=16, device="cpu") as s:
+        assert s._svc_ewma is None and s._gen_ewma is None
+        s.submit([1, 5], max_new_tokens=4).result(timeout=120)
+        assert s._svc_ewma > 0 and s._gen_ewma == 4.0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_slot_stall_retired_typed_batch_unaffected(both, layout):
+    """`sched:slot_stall:1` wedges the one request submitted under it: it
+    retires SlotStalled after slot_stall_rounds harvested rounds, the
+    same loop keeps serving, and its neighbours' tokens are the JAX
+    scheduler's control tokens."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve import SlotStalled
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    kw = dict(ADMIT, num_slots=3, kv_layout=layout, kv_page_size=16)
+    with JaxScheduler(JAX_TINY, both[0], **kw) as ctl:
+        expected = ctl.generate([[1, 6], [1, 7]], max_new_tokens=8)
+    s = ContinuousBatchingScheduler(TINY, both[1], **kw, slot_stall_rounds=3,
+                                    device="cpu")
+    try:
+        with s:
+            FAULTS.configure("sched:slot_stall:1", 0)
+            stalled = s.submit([1, 5], max_new_tokens=8)
+            FAULTS.clear()
+            others = [s.submit([1, 6], max_new_tokens=8), s.submit([1, 7], max_new_tokens=8)]
+            outs = [f.result(timeout=120) for f in others]
+            with pytest.raises(SlotStalled, match="no progress"):
+                stalled.result(timeout=120)
+            assert len(s.generate([[1, 9]], max_new_tokens=4)[0]) == 4
+        assert outs == expected
+        assert s.watchdog_stats["slots_retired_stalled"] == 1
+    finally:
+        FAULTS.clear()
+
+
+# ------------------------------------------- the paged chunk, layer by layer
+
+
+def test_paged_chunk_gathers_one_layer_at_a_time(both, monkeypatch):
+    """Every view the paged prefill chunk builds is one layer's [k, K, S, H]
+    (no leading layer axis), covering only the pages below the chunk's
+    end; no all-layer view is built."""
+    from llm_based_apache_spark_optimization_tpu_torch.models import llama
+
+    shapes = []
+    real = llama._page_view
+
+    def spy(cache, name, layer, n_pages, dtype):
+        out = real(cache, name, layer, n_pages, dtype)
+        shapes.append((layer, tuple(out.shape), cache["kp"].dim()))
+        return out
+
+    monkeypatch.setattr(llama, "_page_view", spy)
+    with ContinuousBatchingScheduler(TINY, both[1], **ADMIT, kv_layout="paged",
+                                     kv_page_size=16, max_seq=128, device="cpu") as s:
+        s.generate([LONG, PROMPTS[0]], max_new_tokens=2)
+        prefills = s.prefill_forwards
+    assert prefills > 0 and len(shapes) == 2 * TINY.num_layers * prefills
+    for layer, shape, pool_dim in shapes:
+        assert pool_dim == 5 and len(shape) == 4  # [k, K, S, H]: one layer
+        assert shape[1:] == (TINY.num_kv_heads, shape[2], TINY.head_dim)
+        assert shape[2] % 16 == 0 and shape[2] <= 64 + 16  # below the chunk's end
+    assert [l for l, _, _ in shapes[:4]] == [0, 0, 1, 1]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_paged_chunk_writes_what_the_all_layer_scatter_writes(both, kv_quant):
+    """The per-layer chunk (views layer by layer, the window written back
+    through the page write) leaves the pool bit for bit as the JAX
+    scheduler's algorithm does it (every layer's view at once, then one
+    advanced-index scatter of the window), with the same logits: two
+    chunks of two rows, the second row's chunk past its mapped pages."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        init_page_pool,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_kv
+
+    cfg, params, ps, np_tab, num_pages, t = TINY, both[1], 8, 6, 12, 16
+    g = torch.Generator().manual_seed(0)
+    pool = init_page_pool(cfg, num_pages, ps, torch.float32, device="cpu",
+                          kv_quant=kv_quant)
+    for arr in pool.values():  # earlier content the chunk attends to
+        if arr.dtype == torch.int8:
+            arr.copy_(torch.randint(-127, 128, arr.shape, generator=g, dtype=torch.int8))
+        else:
+            arr.copy_(torch.rand(arr.shape, generator=g) + 0.5 if arr.dim() == 4
+                      else torch.randn(arr.shape, generator=g))
+    tab = torch.tensor([[3, 7, 1, 0, 12, 12], [5, 2, 12, 12, 12, 12]])
+    starts = torch.tensor([16, 8])
+    tokens = torch.randint(3, 300, (2, t), generator=g, dtype=torch.int32)
+    positions = (starts[:, None] + torch.arange(t)).int()
+    last = torch.tensor([t - 1, 5])
+    ref = {k: v.clone() for k, v in pool.items()}
+
+    got_logits, _ = forward(cfg, params, tokens, positions, dict(pool, ptab=tab),
+                            logit_indices=last, span=int(starts.max()) + t)
+
+    # The all-layer algorithm (the JAX scheduler's `_build_prefill`).
+    safe = tab.clamp(max=num_pages - 1)
+
+    def rowview(p):
+        gth = p[:, safe]
+        perm = (0, 1, 3, 2, 4, 5) if p.dim() == 5 else (0, 1, 3, 2, 4)
+        return gth.permute(*perm).reshape(p.shape[0], 2, p.shape[2], np_tab * ps,
+                                          *p.shape[4:])
+
+    if kv_quant:
+        rows = {n: rowview(ref[f"{n}p"]) * rowview(ref[f"{n}ps"])[..., None]
+                for n in ("k", "v")}
+    else:
+        rows = {n: rowview(ref[f"{n}p"]) for n in ("k", "v")}
+    want_logits, new = forward(cfg, params, tokens, positions, rows, logit_indices=last)
+    r = torch.arange(2)[:, None].expand(2, t)
+    page_idx = positions.long() // ps
+    pages = torch.gather(tab, 1, page_idx.clamp(max=np_tab - 1))
+    keep = (page_idx < np_tab) & (pages < num_pages)
+    pg, of, rr, pp = pages[keep], positions.long()[keep] % ps, r[keep], positions.long()[keep]
+    for n in ("k", "v"):
+        win = new[n][:, rr, :, pp]  # [n, L, K, H]
+        if kv_quant:
+            q = quantize_kv(win)
+            ref[f"{n}p"][:, pg, :, of] = q["q8"]
+            ref[f"{n}ps"][:, pg, :, of] = q["s"]
+        else:
+            ref[f"{n}p"][:, pg, :, of] = win
+    for name in pool:
+        assert torch.equal(pool[name], ref[name]), name
+    assert torch.equal(got_logits, want_logits)
+
+
+def test_submit_storm_under_pressure_accounts_every_request(both):
+    """16 threads submit at once (GIL switch interval 10 us) into a paged
+    scheduler with max_queue_depth 4, kv_overcommit 0.25 and a
+    `kv:pressure` storm: every submit is either shed (Overloaded, counted
+    once) or completes its whole budget with the tokens of the same prompt
+    served alone; no page leaks."""
+    import sys
+
+    from llm_based_apache_spark_optimization_tpu_torch.serve import Overloaded
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+    from llm_based_apache_spark_optimization_tpu_torch.utils.observability import (
+        resilience,
+    )
+
+    kw = dict(ADMIT, kv_layout="paged", kv_page_size=8, max_seq=64)
+    prompts = [[1, 5 + i % 4, 9] for i in range(16)]
+    with ContinuousBatchingScheduler(TINY, both[1], **kw, device="cpu") as ctl:
+        want = {tuple(p): ctl.submit(p, max_new_tokens=12).result(timeout=120)
+                for p in prompts[:4]}
+    outcomes, lock = [], threading.Lock()
+    before = resilience.get("shed")
+    switch = sys.getswitchinterval()
+    FAULTS.configure("kv:pressure:1:3", 0)
+    sys.setswitchinterval(1e-5)
+    try:
+        with ContinuousBatchingScheduler(TINY, both[1], **kw, kv_pages=9,
+                                         kv_overcommit=0.25, max_queue_depth=4,
+                                         device="cpu") as s:
+            def one(p):
+                try:
+                    got = ("done", p, s.submit(p, max_new_tokens=12).result(timeout=120))
+                except Overloaded:
+                    got = ("shed", p, None)
+                with lock:
+                    outcomes.append(got)
+
+            threads = [threading.Thread(target=one, args=(p,)) for p in prompts]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            assert not any(th.is_alive() for th in threads)
+            stats = wait_drained(s)
+    finally:
+        sys.setswitchinterval(switch)
+        FAULTS.clear()
+    assert len(outcomes) == 16
+    shed = [o for o in outcomes if o[0] == "shed"]
+    assert resilience.get("shed") - before == len(shed)
+    assert all(out == want[tuple(p)] for kind, p, out in outcomes if kind == "done")
+    assert len(shed) < 16 and stats["pages_in_use"] == stats["prefix_resident_pages"]
