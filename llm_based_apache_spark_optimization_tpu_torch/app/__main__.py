@@ -28,7 +28,9 @@ The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
 every option it cannot honor yet, instead of ignoring it: `--dp`/`--sp`/
 `--tp` > 1 (A13), `--speculative` (A9), `--int8` and `--int8-unembed`
-(A10), and the fleet, model-pool and QoS environment knobs (A11). The
+(A10), and the environment knobs of `UNPORTED_KNOBS`: the fleet, model-pool
+and QoS knobs (A11), the SLO, tracing, request-log and bench-seed knobs
+(A12), the profile hook's (A7.7) and prefix telemetry's (A7.8). The
 schedulers honor admission control (`LSOT_MAX_QUEUE_DEPTH`: a full queue
 sheds 429 with a Retry-After from the service-time estimate) and, over
 the paged layout, the page-pressure knobs (`LSOT_KV_OVERCOMMIT`,
@@ -59,10 +61,40 @@ UNPORTED_KNOBS = {
     "pool_remote": "A11 (the fleet)",
     "replica_weights": "A11 (the fleet)",
     "fleet_workers": "A11 (the fleet)",
+    "replica_max_restarts": "A11 (the fleet)",
+    "pool_router": "A11 (the fleet)",
+    "pool_affinity": "A11 (the fleet)",
+    "pool_models": "A11 (the fleet)",
+    "lease_s": "A11 (the fleet)",
+    "lease_misses": "A11 (the fleet)",
+    "fleet_min": "A11 (the fleet)",
+    "fleet_max": "A11 (the fleet)",
+    "scale_up_q": "A11 (the fleet)",
+    "scale_down_q": "A11 (the fleet)",
+    "scale_hold_s": "A11 (the fleet)",
+    "scale_interval_s": "A11 (the fleet)",
+    "pump_depth": "A11 (the fleet)",
     "qos": "A11 (the QoS front door)",
     "tenant_rate": "A11 (the QoS front door)",
     "tenant_burst": "A11 (the QoS front door)",
     "tenant_weights": "A11 (the QoS front door)",
+    "prefix_tenant_ns": "A11 (the QoS front door)",
+    "qos_deadline_interactive": "A11 (the QoS front door)",
+    "qos_deadline_batch": "A11 (the QoS front door)",
+    "qos_deadline_replay": "A11 (the QoS front door)",
+    "slo_ttft_ms": "A12 (SLOs)",
+    "slo_tpot_ms": "A12 (SLOs)",
+    "slo_queue_wait_ms": "A12 (SLOs)",
+    "slo_window_s": "A12 (SLOs)",
+    "slo_target": "A12 (SLOs)",
+    "request_log": "A12 (the request log)",
+    "trace_sample": "A12 (request tracing)",
+    "trace_export": "A12 (request tracing)",
+    "stok_seed_bench": "A12 (the bench artifact)",
+    "profile_rounds": "A7.7 (the profile hook)",
+    "profile_dir": "A7.7 (the profile hook)",
+    "prefix_topk": "A7.8 (prefix telemetry)",
+    "prefix_ring": "A7.8 (prefix telemetry)",
 }
 
 #: Per-process spill-path disambiguation: the same source can build two
@@ -238,6 +270,8 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
                 journal_spill=_spill_path(cfg, src),
                 stall_factor=cfg.stall_factor, stall_min_s=cfg.stall_min_s,
                 stall_warmup_s=cfg.stall_warmup_s, device=device)
+            if args.kv_hbm_gb:
+                common["kv_hbm_budget_bytes"] = int(args.kv_hbm_gb * 2**30)
             load = (SchedulerBackend.from_gguf if gguf
                     else SchedulerBackend.from_hf_checkpoint)
             return load(path, tok, **common)
@@ -295,7 +329,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-layout", choices=("contiguous", "paged"), default="contiguous",
                     help="KV layout of the scheduler backends (default contiguous, "
                          "the reference app's): one cache row a slot, or a shared "
-                         "page pool with per-slot page tables")
+                         "page pool with per-slot page tables (pool size: "
+                         "--kv-hbm-gb)")
+    ap.add_argument("--kv-hbm-gb", type=float, default=0.0, metavar="GB",
+                    help="device-memory budget of a checkpoint scheduler's paged KV "
+                         "pool (0 = slots x max_seq pages, the contiguous layout's "
+                         "footprint)")
     ap.add_argument("--int8-unembed", action="store_true",
                     help="raises: int8 embeddings are ROADMAP A10")
     ap.add_argument("--int4", action="store_true",

@@ -398,8 +398,9 @@ def test_entry_point_defaults_match_the_reference_app():
 
 
 def test_entry_point_parser_defaults_equal_jax():
-    """The port's parser and the JAX entry point's agree on the serving
-    defaults: --supervise, --scheduler, --kv-layout and --slots."""
+    """The port's parser has every option of the JAX entry point's, each
+    with the JAX default (--supervise, --scheduler, --kv-layout, --slots,
+    --kv-hbm-gb, ...)."""
     import argparse
     from unittest import mock
 
@@ -415,11 +416,95 @@ def test_entry_point_parser_defaults_equal_jax():
     with mock.patch.object(argparse.ArgumentParser, "parse_known_args", capture):
         with pytest.raises(SystemExit):
             jax_entry.main([])
-    jax_args = seen["ns"][0]
-    port_args = args_for()
-    for name in ("supervise", "scheduler", "kv_layout", "slots", "backend",
-                 "max_new_tokens"):
-        assert getattr(port_args, name) == getattr(jax_args, name), name
+    jax_args = vars(seen["ns"][0])
+    port_args = vars(args_for())
+    assert {"supervise", "scheduler", "kv_layout", "slots", "backend",
+            "max_new_tokens", "kv_hbm_gb"} <= set(jax_args)
+    for name, default in jax_args.items():
+        assert name in port_args, f"the port's parser lacks --{name.replace('_', '-')}"
+        assert port_args[name] == default, name
+
+
+def test_entry_point_kv_hbm_gb_sizes_the_checkpoint_pool(monkeypatch):
+    """`--kv-layout paged --kv-hbm-gb 1` parses, and the checkpoint
+    scheduler is built with a budget of 2**30 bytes (as JAX passes it);
+    without the flag no budget is passed (the pool defaults to slots x
+    max_seq pages)."""
+    from llm_based_apache_spark_optimization_tpu_torch import tokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        SchedulerBackend,
+    )
+
+    seen = []
+
+    class Built(Exception):
+        pass
+
+    def from_checkpoint(cls, load, tag, tok, **kwargs):
+        seen.append(kwargs)
+        raise Built
+
+    monkeypatch.setattr(tokenizer, "HFTokenizer", lambda path: None)
+    monkeypatch.setattr(SchedulerBackend, "_from_checkpoint",
+                        classmethod(from_checkpoint))
+    base = ("--cpu", "--backend", "checkpoint", "--sql-model-path", "ckpt",
+            "--kv-layout", "paged")
+    for extra in (("--kv-hbm-gb", "1"), ()):
+        args = args_for(*base, *extra)
+        assert args.kv_hbm_gb == (1.0 if extra else 0.0)
+        with pytest.raises(Built):
+            entry.build_service(args, AppConfig())
+    assert seen[0]["kv_hbm_budget_bytes"] == 2**30
+    assert seen[0]["kv_layout"] == "paged"
+    assert "kv_hbm_budget_bytes" not in seen[1]
+
+
+def _read_by_port():
+    """AppConfig fields some module of the port reads (`.field`), the
+    config module itself aside."""
+    import re
+
+    root = Path(entry.__file__).resolve().parents[1]
+    src = "".join(p.read_text() for p in root.rglob("*.py")
+                  if p != root / "app" / "config.py")
+    return {f for f in AppConfig.__dataclass_fields__
+            if re.search(rf"\.{f}\b", src)}
+
+
+@pytest.mark.parametrize("field", sorted(AppConfig.__dataclass_fields__))
+def test_every_app_config_field_is_read_or_refused(field):
+    """Each AppConfig knob is honoured by the port (some module reads it)
+    or listed in UNPORTED_KNOBS, whose knobs the entry point refuses by
+    name; none is read into AppConfig and then ignored."""
+    assert field in _read_by_port() or field in entry.UNPORTED_KNOBS
+    if field in entry.UNPORTED_KNOBS:
+        assert entry.UNPORTED_KNOBS[field].split()[0] in {
+            "A7.7", "A7.8", "A11", "A12"}
+
+
+@pytest.mark.parametrize("knob,value,item", [
+    ("LSOT_SLO_TTFT_MS", "250", "A12"),
+    ("LSOT_SLO_TPOT_MS", "40", "A12"),
+    ("LSOT_SLO_QUEUE_WAIT_MS", "100", "A12"),
+    ("LSOT_SLO_WINDOW_S", "60", "A12"),
+    ("LSOT_SLO_TARGET", "0.9", "A12"),
+    ("LSOT_REQUEST_LOG", "0", "A12"),
+    ("LSOT_STOK_SEED_BENCH", "bench.jsonl", "A12"),
+    ("LSOT_PROFILE_ROUNDS", "4", "A7.7"),
+    ("LSOT_PROFILE_DIR", "prof", "A7.7"),
+    ("LSOT_PREFIX_TOPK", "8", "A7.8"),
+    ("LSOT_PREFIX_RING", "64", "A7.8"),
+    ("LSOT_QOS_DEADLINE_INTERACTIVE", "2", "A11"),
+    ("LSOT_QOS_DEADLINE_BATCH", "20", "A11"),
+    ("LSOT_QOS_DEADLINE_REPLAY", "30", "A11"),
+])
+def test_entry_point_refuses_inert_knobs(monkeypatch, tmp_path, knob, value, item):
+    """The knobs the port read and then ignored are refused by name."""
+    monkeypatch.setenv(knob, value)
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:")
+    with pytest.raises(NotImplementedError, match=f"{knob} is not ported: ROADMAP {item}"):
+        entry.build_service(args_for("--cpu"), cfg)
 
 
 def test_journal_spill_knob_names_a_file_per_model(monkeypatch, tmp_path):
