@@ -266,15 +266,18 @@ REF = "llm_based_apache_spark_optimization_tpu/ops/pallas"
 SOURCES = {
     "prefill": f"{PKG}/csrc/flash_prefill.cuh",  # bf16; built by flash_gqa_attention.cu
     # Every decode launch (T == 1) runs the split-KV kernel of
-    # decode_split.cuh, built by the four attention sources; the paged
-    # query windows (T > 1) run gqa_tile.cuh.
+    # decode_split.cuh, built by the four attention sources; the bf16 paged
+    # query windows (T > 1) run window_split.cuh, built by the two paged
+    # sources (f32 windows: gqa_tile.cuh).
     "decode": f"{PKG}/csrc/decode_split.cuh",
     "paged": f"{PKG}/csrc/decode_split.cuh",
+    "paged_window": f"{PKG}/csrc/window_split.cuh",
     # Both page writes run the kernel of page_write.cuh, built by
     # fused_page_write.cu and fused_page_write_quantized.cu.
     "write": f"{PKG}/csrc/page_write.cuh",
     "decode_q": f"{PKG}/csrc/decode_split.cuh",
     "paged_q": f"{PKG}/csrc/decode_split.cuh",
+    "paged_q_window": f"{PKG}/csrc/window_split.cuh",
     "write_q": f"{PKG}/csrc/page_write.cuh",
     "int4": f"{PKG}/csrc/int4_matmul.cu",
 }
@@ -282,11 +285,13 @@ REPLACES = {
     "prefill": f"{REF}/attention.py:428",
     "decode": f"{REF}/attention.py:313",
     "paged": f"{REF}/paged_attention.py:225",
+    "paged_window": f"{REF}/paged_attention.py:225",
     "write": f"{REF}/paged_write.py:191",
     # The quantized twins share their pallas_call lines with rows 2 and 4
     # (attention.py:313, paged_attention.py:225): their wrappers name them.
     "decode_q": f"{REF}/attention.py:453",
     "paged_q": f"{REF}/paged_attention.py:304",
+    "paged_q_window": f"{REF}/paged_attention.py:304",
     "write_q": f"{REF}/paged_write.py:249",
     "int4": f"{REF}/int4mm.py:171",
 }
@@ -534,7 +539,34 @@ def paged_cases():
         ("mistral_window", dict(t=1, n=32, kh=8, h=128, ps=64, np_tab=128,
                                 rows=[(7999, 1, 8000), (4999, 1, 5000)],
                                 window=4096)),
-    ] + mixed_cases()
+    ] + mixed_cases() + window_stress_cases()
+
+
+def window_stress_cases():
+    """Query windows that stress the window kernel's split: all 8 rows as
+    32-token chunks ending at 4096 (every cluster rank busy); a window of
+    4096 over rows of 8192 (the live range starts mid-row, and a chunk's
+    rows see different first slots); pages of 16, a 64-slot tile across
+    four pages, rows ending mid-page with sentinel pages in the last live
+    tile's dead tail; and 1B's head dim 64 over pages of 8. NaN sits in
+    every unmapped page and dead offset (`paged_case`), and in the int8
+    pools' dead scales."""
+    return [
+        ("7b_chunks_all_4096", dict(t=32, n=32, kh=32, h=128, ps=64, np_tab=64,
+                                    rows=[(4064, 32, 4096)] * 8, dead_pos=4096)),
+        ("3b_w4096_s8192", dict(t=32, n=24, kh=8, h=128, ps=64, np_tab=128,
+                                rows=[(8160, 32, 8192), (8191, 1, 8192), (5000, 32, 5032),
+                                      (4100, 17, 4117), (100, 32, 132), (0, 0, 0),
+                                      (4095, 1, 4096), (6000, 9, 6009)],
+                                window=4096, dead_pos=8192)),
+        ("7b_p16_t32", dict(t=32, n=32, kh=32, h=128, ps=16, np_tab=64,
+                            rows=[(936, 32, 968), (1023, 1, 1024), (0, 32, 32),
+                                  (500, 5, 505), (961, 1, 962), (0, 0, 0),
+                                  (700, 32, 732), (40, 1, 41)], dead_pos=1024)),
+        ("1b_p8_t16", dict(t=16, n=32, kh=8, h=64, ps=8, np_tab=64,
+                           rows=[(496, 16, 512), (300, 7, 307), (0, 1, 1), (0, 0, 0)],
+                           dead_pos=512)),
+    ]
 
 
 def mixed_rows(t, s_virt):
@@ -562,31 +594,33 @@ def mixed_cases():
 
 def check_paged(torch, pa_mod):
     """Ragged paged attention kernel vs plain on every case of
-    `paged_cases()` and `paged_edge_cases()` and each dtype; each T = 1
-    case (the split-KV kernel) is launched twice and compared bit for bit.
-    Returns the worst error per dtype."""
-    worst = {d: 0.0 for d in TOL}
+    `paged_cases()` and `paged_edge_cases()` and each dtype; each case (the
+    split-KV kernel at T = 1, the window kernel or, in f32, the tile kernel
+    at T > 1) is launched twice and compared bit for bit. Returns the worst
+    error per launch ("paged": T = 1, "paged_window": T > 1) and dtype."""
+    worst = {l: {d: 0.0 for d in TOL} for l in ("paged", "paged_window")}
     for name, kw in paged_cases() + paged_edge_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             args = paged_case(torch, dtype, b=len(kw["rows"]), **kw)
             out = pa_mod.ragged_paged_attention_cuda(*args)
-            decode = kw["t"] == 1
-            same = not decode or torch.equal(out, pa_mod.ragged_paged_attention_cuda(*args))
+            again = pa_mod.ragged_paged_attention_cuda(*args)
             ref = pa_mod.ragged_paged_attention_plain(*args)
             torch.cuda.synchronize()
             assert out.shape == ref.shape and out.dtype == ref.dtype
             assert torch.isfinite(out).all(), f"paged/{name}/{dname}: non-finite"
             err = (out.float() - ref.float()).abs().max().item()
+            same = torch.equal(out, again)
             ok = err <= TOL[dname] and same
-            twice = " bit-identical-twice=True" if decode and same else ""
             print(f"  paged   {name:16s} {dname:8s} max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]:.0e}{twice} {'ok' if ok else 'FAIL'}", flush=True)
+                  f"tol={TOL[dname]:.0e} bit-identical-twice={same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             assert ok, f"paged/{name}/{dname}: {err} > {TOL[dname]} or not repeatable"
             for i, (_, ql, kvl) in enumerate(kw["rows"]):
                 dead = out[i] if kvl == 0 else out[i, ql:]
                 assert (dead == 0).all(), f"paged/{name}: row {i} not exact zeros"
-            worst[dname] = max(worst[dname], err)
+            launch = "paged" if kw["t"] == 1 else "paged_window"
+            worst[launch][dname] = max(worst[launch][dname], err)
     return worst
 
 
@@ -791,8 +825,8 @@ def check_paged_quantized(torch, pa_mod):
     case and on `paged_edge_cases()`, the pools quantized after the NaN was
     planted (so the dead offsets and unmapped pages carry NaN scales), each
     launched twice and compared bit for bit; returns the worst error per
-    dtype."""
-    worst = {d: 0.0 for d in TOL}
+    launch ("paged_q": T = 1, "paged_q_window": T > 1) and dtype."""
+    worst = {l: {d: 0.0 for d in TOL} for l in ("paged_q", "paged_q_window")}
     for name, kw in paged_cases() + paged_edge_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
@@ -818,7 +852,8 @@ def check_paged_quantized(torch, pa_mod):
             for i, (_, ql, kvl_i) in enumerate(kw["rows"]):
                 dead = out[i] if kvl_i == 0 else out[i, ql:]
                 assert (dead == 0).all(), f"paged_q/{name}: row {i} not exact zeros"
-            worst[dname] = max(worst[dname], err)
+            launch = "paged_q" if kw["t"] == 1 else "paged_q_window"
+            worst[launch][dname] = max(worst[launch][dname], err)
     return worst
 
 
@@ -1072,16 +1107,34 @@ SCHED_SQL = QUESTIONS + BATCH + ["Which payment type has the highest average far
 SCHED = dict(num_slots=8, decode_chunk=8, kv_layout="paged", kv_page_size=64)
 
 
-def serve(torch):
+def make_engines(torch, models):
+    """An InferenceEngine per (name, config) of `models`, over random bf16
+    weights made on the card from seed 0."""
     from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.serve import resolve_stop_ids
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    t0 = time.perf_counter()
+    engines = {}
+    for name, cfg in models:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(cfg, gen, torch.bfloat16, device="cuda")
+        engines[name] = InferenceEngine(cfg, params, device="cuda",
+                                        stop_ids=resolve_stop_ids(cfg, tok))
+    torch.cuda.synchronize()
+    print(f"  weights made on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    return engines
+
+
+def serve(torch):
     from llm_based_apache_spark_optimization_tpu_torch.models import (
         DUCKDB_NSQL_7B,
         LLAMA32_3B,
     )
-    from llm_based_apache_spark_optimization_tpu_torch.models.llama import (
-        forward,
-        init_params,
-    )
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
         LAUNCHES,
         reset_launches,
@@ -1090,21 +1143,11 @@ def serve(torch):
     from llm_based_apache_spark_optimization_tpu_torch.serve import (
         EngineBackend,
         GenerationService,
-        resolve_stop_ids,
     )
     from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
-    t0 = time.perf_counter()
-    engines = {}
-    for name, cfg in (("duckdb-nsql", DUCKDB_NSQL_7B), ("llama3.2", LLAMA32_3B)):
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        params = init_params(cfg, gen, torch.bfloat16, device="cuda")
-        engines[name] = InferenceEngine(cfg, params, device="cuda",
-                                        stop_ids=resolve_stop_ids(cfg, tok))
-    torch.cuda.synchronize()
-    print(f"  weights made on the card in {time.perf_counter() - t0:.1f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B), ("llama3.2", LLAMA32_3B)))
 
     svc = GenerationService()
     svc.register("duckdb-nsql", EngineBackend(engines["duckdb-nsql"], tok,
@@ -1730,14 +1773,21 @@ def expect_paged(expected, sched, rounds, prefills):
     """Add a paged scheduler's launches to `expected`: its ragged attention
     (int8 pool: the quantized one) layers x (decode_chunk x rounds + ragged
     prefills) (a mixed round's first step is one of the rounds' steps; a
-    ragged prefill is that step run alone), its page write as many plus one
-    a layer for each prefill forward (the chunk's window written back), the
-    flash prefill layers x prefill forwards, and over int4 weights the int4
+    ragged prefill is that step run alone), of which layers x (mixed rounds
+    + ragged prefills) are query windows (T > 1, counted apart where the
+    package counts them apart), its page write as many plus one a layer
+    for each prefill forward (the chunk's window written back), the flash
+    prefill layers x prefill forwards, and over int4 weights the int4
     matmul 7 x layers x forwards."""
     n_layers = sched.cfg.num_layers
     q = "_quantized" if sched.kv_quant else ""
     steps = sched.decode_chunk * rounds + sched.ragged_prefills
-    expected["ragged_paged_attention" + q] += n_layers * steps
+    windows = sched.mixed_rounds + sched.ragged_prefills
+    window_key = "ragged_paged_window" + q
+    if window_key not in expected:  # a package that counts them together
+        window_key = "ragged_paged_attention" + q
+    expected["ragged_paged_attention" + q] += n_layers * (steps - windows)
+    expected[window_key] += n_layers * windows
     expected["fused_page_write" + q] += n_layers * (steps + prefills)
     expected["flash_gqa_prefill"] += n_layers * prefills
     if isinstance(sched.params["blocks"]["wq"], dict):
@@ -2865,6 +2915,25 @@ def profile_device(torch, label, send):
 # ---------------------------------------------------------------- timing
 
 
+def prefill_digests(torch, attn_mod):
+    """sha256 (first 16 hex digits) of the bf16 flash prefill's output at
+    each prefill case of `cases()`: two commits whose kernels compute the
+    same bits print the same digests."""
+    import hashlib
+
+    out = {}
+    for launch, name, kw in cases():
+        if launch != "prefill":
+            continue
+        c = make_case(torch, torch.bfloat16, **kw)
+        o = attn_mod.flash_gqa_attention_cuda(c["q"], c["k"], c["v"], c["pos"],
+                                              c["window"], c["kv_lens"])
+        torch.cuda.synchronize()
+        out[name] = hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+    print(f"  prefill digests {json.dumps(out)}", flush=True)
+    return out
+
+
 def time_ms(torch, fn, calls, reps=20):
     """Device ms per call of `fn(i)`: `calls` calls (one per layer) captured
     in one CUDA graph, replayed `reps` times between CUDA events, so the
@@ -3178,20 +3247,27 @@ def time_paged_quantized(torch, pa_mod, pw_mod, cfg):
 
 
 MIXED_TIMED_LAYERS = 8  # layers cycled when timing the mixed round's step
+# The mixed round's first steps timed: (label, model, T); the first is each
+# window entry's headline.
+MIXED_SHAPES = (("7b_mixed_t32", "7b", 32), ("7b_mixed_t16", "7b", 16),
+                ("3b_mixed_t32", "3b", 32), ("3b_mixed_t16", "3b", 16))
 
 
-def time_mixed(torch, pa_mod, pw_mod, cfg, quantized=False, t=32):
-    """The ragged mixed round's first step at 7B, one call per layer over
-    MIXED_TIMED_LAYERS layers of a pool (bf16, or int8 with scales): B = 8
-    slots through tables of 64 pages of 64 (max_seq 4096), T = `t`
-    columns, the rows of `mixed_rows` (two carrying a whole chunk, four
-    decode rows at q_len 1, two parked). Ragged paged attention (the tile
-    kernel): kernel, plain, and SDPA over K/V gathered (and dequantized)
-    in advance under the same mask. Page write of the round's slivers
-    (each chunk's t and each decode row's one): kernel, plain
-    (host-dispatched: it synchronises), and `index_put_` of the kept
-    slivers (quantized in advance) at precomputed coordinates. Bounds count
-    this data: the live K/V and the kept slivers."""
+def time_mixed(torch, pa_mod, pw_mod, cfg, quantized=False, t=32, writes=True,
+               sweep_splits=None):
+    """The ragged mixed round's first step at `cfg` (7B or 3B), one call per
+    layer over MIXED_TIMED_LAYERS layers of a pool (bf16, or int8 with
+    scales): B = 8 slots through tables of max_seq / 64 pages of 64, T =
+    `t` columns, the rows of `mixed_rows` (two carrying a whole chunk,
+    four decode rows at q_len 1, two parked). Ragged paged attention (the
+    query-window kernel): kernel, plain, and SDPA over K/V gathered (and
+    dequantized) in advance under the same mask. With `writes`, the page
+    write of the round's slivers (each chunk's t and each decode row's
+    one): kernel, plain (host-dispatched: it synchronises), and
+    `index_put_` of the kept slivers (quantized in advance) at precomputed
+    coordinates. Bounds count this data: the live K/V and the kept
+    slivers. With `sweep_splits`, only the kernel's time at each cluster
+    size, forced through `window_split_plan`: {splits: ms}."""
     import torch.nn.functional as F
 
     dev, dt, layers = "cuda", torch.bfloat16, MIXED_TIMED_LAYERS
@@ -3229,6 +3305,15 @@ def time_mixed(torch, pa_mod, pw_mod, cfg, quantized=False, t=32):
             return fn(q, kp[l], vp[l], tab, pos, None, kvl, qln)
         cuda_fn = pa_mod.ragged_paged_attention_cuda
         plain_fn = pa_mod.ragged_paged_attention_plain
+    if sweep_splits is not None:
+        plan, swept = pa_mod.window_split_plan, {}
+        try:
+            for sp in sweep_splits:
+                pa_mod.window_split_plan = lambda *a, sp=sp: sp
+                swept[sp] = time_ms(torch, lambda l: attend(cuda_fn, l), layers)
+        finally:
+            pa_mod.window_split_plan = plan
+        return swept
     ms = time_ms(torch, lambda l: attend(cuda_fn, l), layers)
     plain = time_ms(torch, lambda l: attend(plain_fn, l), layers)
 
@@ -3258,6 +3343,9 @@ def time_mixed(torch, pa_mod, pw_mod, cfg, quantized=False, t=32):
     attn = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                 shape=dict(B=b, T=t, N=n, K=kh, H=h, page=ps, np=np_tab,
                            rows=[list(r) for r in rows], dtype="bfloat16", pool=label))
+    if not writes:
+        del kp, vp
+        return attn, None
 
     kn = torch.randn((b, t, kh, h), generator=g, device=dev, dtype=dt)
     vn = torch.randn_like(kn)
@@ -3444,12 +3532,20 @@ def timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
     timed["decode_q"] = dict(decode_q["7b_one"], by_shape=decode_q)
     timed["paged"], timed["write"] = time_paged(torch, pa_mod, pw_mod, cfg)
     timed["paged_q"], timed["write_q"] = time_paged_quantized(torch, pa_mod, pw_mod, cfg)
-    # Rows 4-7 also at the ragged mixed round's T = 32 step (default max_seq).
-    for (a, w), quantized in (((timed["paged"], timed["write"]), False),
-                              ((timed["paged_q"], timed["write_q"]), True)):
-        ma, mw = time_mixed(torch, pa_mod, pw_mod, cfg, quantized)
-        a["by_shape"] = {"7b_b8_t1": dict(a), "7b_mixed_t32": ma}
-        w["by_shape"] = {"7b_b8_t1": dict(w), "7b_mixed_t32": mw}
+    # Rows 4-5's query windows (T > 1) and rows 6-7 at the ragged mixed
+    # round's first step (default max_seq): 7B and 3B, T = 32 and 16.
+    from llm_based_apache_spark_optimization_tpu_torch.models import LLAMA32_3B
+
+    for key, w, quantized in (("paged", timed["write"], False),
+                              ("paged_q", timed["write_q"], True)):
+        shapes = {}
+        for label, mcfg, t_ in MIXED_SHAPES:
+            shapes[label], mw = time_mixed(torch, pa_mod, pw_mod,
+                                           LLAMA32_3B if mcfg == "3b" else cfg,
+                                           quantized, t_, writes=label == "7b_mixed_t32")
+            if mw is not None:
+                w["by_shape"] = {"7b_b8_t1": dict(w), label: mw}
+        timed[key + "_window"] = dict(shapes["7b_mixed_t32"], by_shape=shapes)
     int4_times = time_int4(torch, mm_mod, cfg)
     timed["int4"] = dict(int4_times["wd_R8"], by_shape=int4_times)
     for launch, tm in timed.items():
@@ -3472,7 +3568,9 @@ def sweep(torch, attn_mod, pa_mod, pw_mod, cfg):
     shapes (the engine's B = 1 and batch of four, the scheduler's 8 slots;
     bf16 and int8 caches) and at the 3B scheduler's 8 slots (K = 8) with
     the cluster size forced to each of SWEEP_SPLITS, beside the size
-    `decode_split_plan` picks there. Returns {shape: {"plan": splits, "ms":
+    `decode_split_plan` picks there; then each paged query window at the
+    mixed round's shapes (MIXED_SHAPES, bf16 and int8 pools) beside the
+    size `window_split_plan` picks. Returns {shape: {"plan": splits, "ms":
     {splits: ms}}}."""
     from llm_based_apache_spark_optimization_tpu_torch.models import LLAMA32_3B
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.launches import sm_count
@@ -3498,20 +3596,36 @@ def sweep(torch, attn_mod, pa_mod, pw_mod, cfg):
             torch, pa_mod, pw_mod, LLAMA32_3B)[0]),
     }
     plan = attn_mod.decode_split_plan
+    sms = sm_count(torch.device("cuda"))
     out = {}
+
+    def report(name, row):
+        out[name] = row
+        print(f"  sweep {name:24s} plan {row['plan']}: " + ", ".join(
+            f"{sp} splits {ms:.4f} ms" for sp, ms in row["ms"].items()), flush=True)
+
     try:
         for name, (b, kv, s_virt, fn) in shapes.items():
-            row = {"plan": plan(b, kv, s_virt, 1, sm_count(torch.device("cuda"))), "ms": {}}
+            row = {"plan": plan(b, kv, s_virt, 1, sms), "ms": {}}
             for sp in SWEEP_SPLITS:
                 def forced(b_, kh_, s_, t, sms, sp=sp):
                     return sp if t == 1 else 0
                 attn_mod.decode_split_plan = pa_mod.decode_split_plan = forced
                 row["ms"][sp] = fn()["ms"]
-            out[name] = row
-            print(f"  sweep {name:18s} plan {row['plan']}: " + ", ".join(
-                f"{sp} splits {ms:.4f} ms" for sp, ms in row["ms"].items()), flush=True)
+            report(name, row)
     finally:
         attn_mod.decode_split_plan = pa_mod.decode_split_plan = plan
+    # The query windows (T > 1) at the mixed round's shapes, the cluster
+    # size forced through `window_split_plan`.
+    for label, model, t in MIXED_SHAPES:
+        mcfg = LLAMA32_3B if model == "3b" else cfg
+        for quantized in (False, True):
+            rows = mcfg.num_heads // mcfg.num_kv_heads * t
+            row = {"plan": pa_mod.window_split_plan(
+                8, mcfg.num_kv_heads, mcfg.max_seq_len, rows, sms),
+                "ms": time_mixed(torch, pa_mod, pw_mod, mcfg, quantized, t,
+                                 sweep_splits=SWEEP_SPLITS)}
+            report(f"{'paged_q' if quantized else 'paged'}_window {label}", row)
     return out
 
 
@@ -3527,8 +3641,12 @@ def main() -> int:
                     help="build and run the timing phase alone (no checks; "
                          "prints the times and no ok line)")
     ap.add_argument("--sweep", action="store_true",
-                    help="build and time each decode launch at every cluster size "
-                         "of SWEEP_SPLITS (no checks; prints the times and no ok line)")
+                    help="build and time each decode launch and each paged query "
+                         "window at every cluster size of SWEEP_SPLITS (no checks; "
+                         "prints the times and no ok line)")
+    ap.add_argument("--mixed-only", action="store_true",
+                    help="build and run the ragged mixed rounds' serve phase alone "
+                         "on the 7B weights (prints its requests and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3572,10 +3690,18 @@ def main() -> int:
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int4mm as mm_mod
 
     if args.timing_only:
+        phase("prefill digests")
+        digests = prefill_digests(torch, attn_mod)
         phase("timing")
         timed = timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
         phase(None)
-        print(json.dumps({"timing": timed, "device": smi}))
+        print(json.dumps({"timing": timed, "prefill_digests": digests, "device": smi}))
+        return 0
+    if args.mixed_only:
+        phase("serve (ragged mixed rounds)")
+        mixed_serve(torch, make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),)))
+        phase(None)
+        print(json.dumps({"phase_seconds": _PHASE["seconds"], "device": smi}))
         return 0
     if args.sweep:
         phase("split sweep")
@@ -3589,7 +3715,7 @@ def main() -> int:
     worst_paged = check_paged(torch, pa_mod)
     write_err = check_write(torch, pw_mod)
     errors_q = {"decode_q": check_kernels_quantized(torch, attn_mod),
-                "paged_q": check_paged_quantized(torch, pa_mod),
+                **check_paged_quantized(torch, pa_mod),
                 "write_q": check_write_quantized(torch, pw_mod)}
     int4_err = check_int4(torch, mm_mod)
 
@@ -3644,21 +3770,26 @@ def main() -> int:
     errors = {
         "prefill": {d: worst[("prefill", d)] for d in TOL},
         "decode": {d: worst[("decode", d)] for d in TOL},
-        "paged": worst_paged,
+        **worst_paged,
         "write": write_err,
         **errors_q,
         "int4": {d: int4_err[d][0] for d in TOL},
     }
     names = {"prefill": "flash_gqa_attention_prefill",
              "decode": "flash_gqa_attention_decode",
-             "paged": "ragged_paged_attention", "write": "fused_page_write",
+             "paged": "ragged_paged_attention",
+             "paged_window": "ragged_paged_attention_window",
+             "write": "fused_page_write",
              "decode_q": "flash_gqa_attention_quantized",
              "paged_q": "ragged_paged_attention_quantized",
+             "paged_q_window": "ragged_paged_attention_quantized_window",
              "write_q": "fused_page_write_quantized", "int4": "int4_matmul"}
     counters = {"prefill": "flash_gqa_prefill", "decode": "flash_gqa_decode",
-                "paged": "ragged_paged_attention", "write": "fused_page_write",
+                "paged": "ragged_paged_attention", "paged_window": "ragged_paged_window",
+                "write": "fused_page_write",
                 "decode_q": "flash_gqa_decode_quantized",
                 "paged_q": "ragged_paged_attention_quantized",
+                "paged_q_window": "ragged_paged_window_quantized",
                 "write_q": "fused_page_write_quantized", "int4": "int4_matmul"}
     paths = {"engine": launches, "scheduler": sched_launches,
              "mixed_scheduler": mixed_launches["bf16"],
@@ -3695,6 +3826,7 @@ def main() -> int:
             "library_ms": tm["library_ms"],
             "shape": tm["shape"],
         }
+        assert entry["launches"] > 0, f"{names[launch]} was launched no time on the paths"
         for k in WRITE_VARIANTS:
             if k in tm:
                 entry[k] = tm[k]

@@ -69,6 +69,108 @@ struct Layout {
   static constexpr size_t bytes = q_off + sizeof(bf16) * kRows * kRow;
 };
 
+// One warp's FlashAttention-2 step over NKEYS (64 or 32) key slots from s0
+// in shared memory (K at `kt`, V at `vt`, rows of HD + 8 bf16), for the
+// warp's 16 query rows whose A fragments are `qf`: S = Q K^T on the tensor
+// cores,
+// each score masked with `visible()` (the lane's two rows at positions
+// pos_a, pos_b), the online softmax in registers (row max and sum over a
+// quad), P rounded to bf16 and O += P V. m and l are the lane's running
+// max (log2 domain) and partial sum of its two rows; o the accumulators
+// (o[n][e]: row gid + 8 (e / 2), column 8n + 2 tig + e % 2). Shared by the
+// contiguous bf16 prefill and the paged query windows (`window_split.cuh`).
+template <int HD, int NKEYS = kBlockKV>
+__device__ __forceinline__ void warp_tile_step(const uint32_t (&qf)[HD / 16][4],
+                                               const bf16* kt, const bf16* vt, int s0,
+                                               int pos_a, int pos_b, int kvl, int window,
+                                               float scale_log2, float& m_a, float& m_b,
+                                               float& l_a, float& l_b,
+                                               float (&o)[HD / 8][4], int lane) {
+  constexpr int ROW = HD + 8;
+  constexpr int KS = HD / 16;
+  constexpr int NJ = NKEYS / 8;  // key tiles of 8
+  static_assert(NKEYS == 64 || NKEYS == 32, "64 or 32 keys a step");
+  const int tig = lane % 4;
+  // S = Q K^T: NJ tiles of 8 keys; ldmatrix.x4 gives two key tiles' B.
+  float s[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NJ / 2; ++np) {
+      uint32_t kb[4];
+      hopper::ldsm_x4(kb, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ROW +
+                              kk * 16 + ((lane >> 3) & 1) * 8);
+      hopper::mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+      hopper::mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+    }
+  }
+
+  // Mask and scale; s[j][e] is (row gid + 8 * (e / 2), key 8j + 2tig + e % 2).
+  uint32_t vis = 0u;
+  float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = s0 + 8 * j + 2 * tig + (e & 1);
+      const bool ok = visible(key, e < 2 ? pos_a : pos_b, kvl, window);
+      s[j][e] = ok ? s[j][e] * scale_log2 : kNegInf;
+      vis |= (ok ? 1u : 0u) << (4 * j + e);
+      if (e < 2) mx_a = fmaxf(mx_a, s[j][e]);
+      else mx_b = fmaxf(mx_b, s[j][e]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+  const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+
+  // P: masked entries exactly 0 (a row masked so far keeps m = NEG_INF,
+  // and exp(NEG_INF - NEG_INF) = 1 would pollute l), rounded to bf16 as
+  // the A fragments of P V: tile 2kk + h gives a[2h] (row gid), a[2h+1].
+  uint32_t pf[NJ / 2][4];
+  float ls_a = 0.f, ls_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[e] = (vis >> (4 * j + e)) & 1u ? exp2f(s[j][e] - (e < 2 ? m_a : m_b)) : 0.f;
+    ls_a += p[0] + p[1];
+    ls_b += p[2] + p[3];
+    pf[j / 2][2 * (j % 2)] = hopper::pack_bf16(p[0], p[1]);
+    pf[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(p[2], p[3]);
+  }
+  l_a = alpha_a * l_a + ls_a;
+  l_b = alpha_b * l_b + ls_b;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    o[n][0] *= alpha_a;
+    o[n][1] *= alpha_a;
+    o[n][2] *= alpha_b;
+    o[n][3] *= alpha_b;
+  }
+
+  // O += P V: ldmatrix.trans gives two column tiles' B per 16 keys.
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+#pragma unroll
+    for (int np = 0; np < KS; ++np) {
+      uint32_t vb[4];
+      hopper::ldsm_x4_trans(vb, vt + (kk * 16 + (lane & 15)) * ROW + np * 16 + (lane >> 4) * 8);
+      hopper::mma_bf16(o[2 * np], pf[kk], vb[0], vb[1]);
+      hopper::mma_bf16(o[2 * np + 1], pf[kk], vb[2], vb[3]);
+    }
+  }
+}
+
 template <int HD, typename Src>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -175,84 +277,8 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* kt = Ks + stage * kBlockKV * ROW;
     const bf16* vt = Vs + stage * kBlockKV * ROW;
 
-    // S = Q K^T: 8 tiles of 8 keys; ldmatrix.x4 gives two key tiles' B.
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb[4];
-        hopper::ldsm_x4(kb, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ROW +
-                                kk * 16 + ((lane >> 3) & 1) * 8);
-        hopper::mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        hopper::mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
-      }
-    }
-
-    // Mask and scale; s[j][e] is (row gid + 8 * (e / 2), key 8j + 2tig + e % 2).
-    uint32_t vis = 0u;
-    float mx_a = kNegInf, mx_b = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = s0 + 8 * j + 2 * tig + (e & 1);
-        const bool ok = visible(key, e < 2 ? pos_a : pos_b, kvl, window);
-        s[j][e] = ok ? s[j][e] * scale_log2 : kNegInf;
-        vis |= (ok ? 1u : 0u) << (4 * j + e);
-        if (e < 2) mx_a = fmaxf(mx_a, s[j][e]);
-        else mx_b = fmaxf(mx_b, s[j][e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-
-    // P: masked entries exactly 0 (a row masked so far keeps m = NEG_INF,
-    // and exp(NEG_INF - NEG_INF) = 1 would pollute l), rounded to bf16 as
-    // the A fragments of P V: tile 2kk + h gives a[2h] (row gid), a[2h+1].
-    uint32_t pf[4][4];
-    float ls_a = 0.f, ls_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[e] = (vis >> (4 * j + e)) & 1u ? exp2f(s[j][e] - (e < 2 ? m_a : m_b)) : 0.f;
-      ls_a += p[0] + p[1];
-      ls_b += p[2] + p[3];
-      pf[j / 2][2 * (j % 2)] = hopper::pack_bf16(p[0], p[1]);
-      pf[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(p[2], p[3]);
-    }
-    l_a = alpha_a * l_a + ls_a;
-    l_b = alpha_b * l_b + ls_b;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha_a;
-      o[n][1] *= alpha_a;
-      o[n][2] *= alpha_b;
-      o[n][3] *= alpha_b;
-    }
-
-    // O += P V: ldmatrix.trans gives two column tiles' B per 16 keys.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < KS; ++np) {
-        uint32_t vb[4];
-        hopper::ldsm_x4_trans(vb, vt + (kk * 16 + (lane & 15)) * ROW + np * 16 + (lane >> 4) * 8);
-        hopper::mma_bf16(o[2 * np], pf[kk], vb[0], vb[1]);
-        hopper::mma_bf16(o[2 * np + 1], pf[kk], vb[2], vb[3]);
-      }
-    }
+    warp_tile_step<HD>(qf, kt, vt, s0, pos_a, pos_b, kvl, window, scale_log2, m_a, m_b, l_a,
+                       l_b, o, lane);
     __syncthreads();  // this stage is free for the copies two tiles on
   }
   hopper::cp_async_wait<0>();

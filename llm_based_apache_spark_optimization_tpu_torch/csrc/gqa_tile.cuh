@@ -1,10 +1,11 @@
 // The flash GQA tile kernel shared by the contiguous-cache and the paged
 // attention kernels, over a compute-type or an int8 cache, for Hopper
-// (sm_90a): the f32 prefill of flash_gqa_attention.cu and the query windows
-// (T > 1) of ragged_paged_attention.cu and
+// (sm_90a): the f32 prefill of flash_gqa_attention.cu and the f32 query
+// windows (T > 1) of ragged_paged_attention.cu and
 // ragged_paged_attention_quantized.cu. Every decode launch (T == 1) runs the
 // split kernel of decode_split.cuh; the bf16 prefill runs flash_prefill.cuh,
-// which reuses `load_tile` and `visible`.
+// which reuses `load_tile` and `visible`, and the bf16 query windows
+// window_split.cuh.
 //
 // Contract, per batch row b:
 //   q [B, T, N, H] (strided, head dim contiguous), q_positions [B, T] i32,
@@ -475,21 +476,6 @@ int launch(const Args& a, const Src& src) {
       static_cast<T*>(a.out), a.t, a.n, a.kh, a.q_sb, a.q_st, a.q_sn,
       a.o_sb, a.o_st, a.o_sn, a.window, a.scale);
   return (int)cudaGetLastError();
-}
-
-// Dispatch on element type and head dim; `Quant` reads an int8 cache with
-// per-slot scales (a.k_scale, a.v_scale). Returns cudaGetLastError() after
-// the launch (0 = launched).
-template <bool Quant, typename Src>
-int launch_any(const Args& a, const Src& src, int h, int is_bf16) {
-  using B = __nv_bfloat16;
-  using KB = typename std::conditional<Quant, int8_t, B>::type;
-  using KF = typename std::conditional<Quant, int8_t, float>::type;
-  if (h != 64 && h != 128) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    return h == 64 ? launch<B, KB, 64>(a, src) : launch<B, KB, 128>(a, src);
-  }
-  return h == 64 ? launch<float, KF, 64>(a, src) : launch<float, KF, 128>(a, src);
 }
 
 }  // namespace gqa_tile

@@ -32,22 +32,29 @@
 //     blocks (the wrapper's `decode_split_plan`), K/V read into registers,
 //     a lane reading the table once per page it enters, the partial
 //     softmaxes merged in the cluster.
-//   * Query windows (T > 1, `splits` = 0): the tile kernel of `gqa_tile.cuh`
-//     (shared with the contiguous f32 prefill), one block per (row b, KV
-//     head, tile of 16 folded rows r = g * T + t, the JAX fold), walking
-//     tiles of 64 slots from the first slot its rows' window can see to
-//     min(kv_lens[b], the tile's max live position + 1), each [H] row
-//     loaded with a zero-filling cp.async; a tile may span several pages,
-//     or part of one.
+//   * Query windows (T > 1), bf16 (`splits` >= 1): the kernel of
+//     `window_split.cuh`, FlashAttention-2 on the tensor cores (mma.sync),
+//     16 to 64 folded rows r = g * T + t a block (the JAX fold), each row
+//     tile's live KV range split in whole 64-slot tiles over a cluster of
+//     `splits` blocks (the wrapper's `window_split_plan`), the table read
+//     once per page a tile spans, the partials merged in the cluster.
+//   * Query windows (T > 1), f32 (`splits` = 0): the tile kernel of
+//     `gqa_tile.cuh` (shared with the contiguous f32 prefill), one block per
+//     (row b, KV head, tile of 16 folded rows), walking tiles of 64 slots
+//     from the first slot its rows' window can see to min(kv_lens[b], the
+//     tile's max live position + 1). f32 stays off the tensor cores: TF32
+//     would miss the 1e-4 tolerance.
 
 #include "decode_split.cuh"
 #include "gqa_tile.cuh"
 #include "kv_source.cuh"
+#include "window_split.cuh"
 
 // Returns the launch's error or cudaGetLastError() after it (0 = launched).
 // Strides are in elements; the head dim of q and out is contiguous.
-// `splits` (1..8, T == 1 only) is the decode kernel's cluster size; 0 for a
-// query window (T > 1), which the tile kernel serves.
+// `splits` (1..8) is the cluster size of the decode kernel (T == 1) or of
+// a bf16 query window's kernel (T > 1); 0 for an f32 query window, which
+// the tile kernel serves.
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* q_positions, const void* kv_lens, const void* q_lens, void* out,
@@ -58,13 +65,22 @@ extern "C" int ragged_paged_attention(
   const kv_source::PagedSrc src{static_cast<const int*>(table), num_pages, kh, page_size,
                                 np_tab};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((splits > 0) != (t == 1)) return (int)cudaErrorInvalidValue;
-  if (splits > 0) {
+  if ((splits > 0) != (t == 1 || is_bf16)) return (int)cudaErrorInvalidValue;
+  if (t == 1) {
     decode_split::Args a{q, k_pool, v_pool, nullptr, nullptr, q_positions, kv_lens, q_lens,
                          out, b, n, kh, q_sb, q_sn, o_sb, o_sn, window, scale, st};
     return decode_split::launch_any<false>(a, src, h, is_bf16, splits);
   }
+  if (is_bf16) {
+    const window_split::Pages pg{static_cast<const int*>(table), num_pages, kh, page_size,
+                                 np_tab};
+    window_split::Args a{q, k_pool, v_pool, nullptr, nullptr, q_positions, kv_lens, q_lens,
+                         out, b, t, n, q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale, st};
+    return window_split::launch_any<false>(a, pg, h, splits);
+  }
   gqa_tile::Args a{q, k_pool, v_pool, nullptr, nullptr, q_positions, kv_lens, q_lens,
                    out, b, t, n, kh, q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale, st};
-  return gqa_tile::launch_any<false>(a, src, h, is_bf16);
+  if (h == 64) return gqa_tile::launch<float, float, 64>(a, src);  // f32 window
+  if (h == 128) return gqa_tile::launch<float, float, 128>(a, src);
+  return (int)cudaErrorInvalidValue;
 }

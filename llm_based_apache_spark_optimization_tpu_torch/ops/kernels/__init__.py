@@ -7,6 +7,7 @@ from .attention import (  # noqa: F401
     flash_gqa_attention_plain,
     flash_gqa_attention_quantized,
     flash_gqa_attention_quantized_plain,
+    window_split_plan,
 )
 from .dispatch import set_attention_impl  # noqa: F401
 from .int4mm import int4_matmul, int4_matmul_plain  # noqa: F401

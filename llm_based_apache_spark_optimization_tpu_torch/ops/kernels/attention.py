@@ -34,6 +34,9 @@ HEAD_DIMS = (64, 128)
 _MAX_SPLITS = 8     # blocks of a portable thread-block cluster (csrc kMaxSplits)
 _SPLIT_RUN = 16     # slots: a split covers whole runs of this many (csrc kRun)
 _SPLIT_WAVE_PER_SM = 3  # split-kernel blocks an SM takes in one wave of clusters
+_WINDOW_TILE = 64   # slots: a window split covers whole tiles (csrc kBlockKV)
+_WINDOW_ROWS = 64   # folded rows of a window block at most (16 a warp, 4 warps)
+_WINDOW_BLOCKS_PER_SM = 6  # window blocks a launch aims at per SM (swept)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _LL, _LL, _LL, _LL, _LL, _LL, _I, ctypes.c_float, _I, _I, _P]
@@ -107,6 +110,39 @@ def decode_split_plan(b: int, kh: int, s_virt: int, t: int, sms: int) -> int:
     rows = max(b * kh, 1)
     by_len = -(-max(s_virt, 1) // _SPLIT_RUN)
     by_blocks = (2 * _SPLIT_WAVE_PER_SM * sms + rows) // (2 * rows)  # nearest
+    return max(1, min(_MAX_SPLITS, by_len, by_blocks))
+
+
+def window_split_plan(b: int, kh: int, s_virt: int, rows: int, sms: int) -> int:
+    """Cluster size of a bf16 paged query window (T > 1): the number of
+    blocks each (b, kv head, row tile) splits its live KV range over in the
+    kernel of `csrc/window_split.cuh` (row tiles of at most 64 folded rows,
+    `rows` = G * T). At most 8 (one portable cluster), no more than the
+    64-slot tiles of the longest row the table can hold (S_virt), and the
+    whole number nearest to _WINDOW_BLOCKS_PER_SM blocks an SM of the
+    card's `sms`; 1 where the unsplit launch already reaches that.
+
+    The plan cannot see the rows' live lengths, and a mixed round's are
+    ragged: two 32-token chunks and decode rows of up to 4096 slots beside
+    rows of one slot and parked rows. A long row walks ~2.6 us a 64-slot
+    tile in one block, so it wants many splits; a block whose share is
+    empty costs its setup and two cluster barriers, and a row tile that
+    sees nothing exits at once. On an H100 (`chip_smoke.py --sweep`, bf16 /
+    int8 pool, ms at 1, 2, 3, 4, 6, 8 splits): 7B T = 32 (256 blocks
+    unsplit) 0.169, 0.114, 0.111, 0.117, 0.128, 0.164 / 0.226, 0.141,
+    0.133, 0.139, 0.147, 0.181; 7B T = 16 (256) 0.158, 0.114, 0.100,
+    0.096, 0.104, 0.114 / 0.240, 0.180, 0.155, 0.155, 0.152, 0.189; 3B T =
+    32 (128) 0.381, 0.243, 0.184, 0.158, 0.148, 0.157 / 0.450, 0.297, 0.223,
+    0.188, 0.170, 0.179; 3B T = 16 (64) 0.403, 0.212, 0.168, 0.134, 0.117,
+    0.107 / 0.511, 0.264, 0.213, 0.171, 0.144, 0.125. The best counts put
+    512-1024 blocks on the 132 SMs; the rule's 6 an SM picks 3, 3, 6 and 8,
+    within 5% of the best at each. Pure: the device finds each row tile's
+    live range itself, so the plan reads no tensor and the launch needs no
+    host sync."""
+    row_tiles = -(-max(rows, 1) // _WINDOW_ROWS)
+    blocks = max(b * kh * row_tiles, 1)
+    by_len = -(-max(s_virt, 1) // _WINDOW_TILE)
+    by_blocks = (2 * _WINDOW_BLOCKS_PER_SM * sms + blocks) // (2 * blocks)  # nearest
     return max(1, min(_MAX_SPLITS, by_len, by_blocks))
 
 

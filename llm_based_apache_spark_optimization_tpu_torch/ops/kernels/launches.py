@@ -3,7 +3,8 @@ sizes their split launches.
 
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else, so a run can show that its main path went through the
-kernels (`chip_smoke.py` zeroes the counts before a path and reads them
+kernels (ragged paged attention counts its decode launches, T == 1, apart
+from its query windows, T > 1, which run another kernel) (`chip_smoke.py` zeroes the counts before a path and reads them
 after). Counting takes a lock: schedulers launch from their own worker
 threads at once."""
 
@@ -21,9 +22,11 @@ LAUNCHES: Dict[str, int] = {
     "flash_gqa_prefill": 0,
     "flash_gqa_decode": 0,
     "ragged_paged_attention": 0,
+    "ragged_paged_window": 0,
     "fused_page_write": 0,
     "flash_gqa_decode_quantized": 0,
     "ragged_paged_attention_quantized": 0,
+    "ragged_paged_window_quantized": 0,
     "fused_page_write_quantized": 0,
     "int4_matmul": 0,
 }

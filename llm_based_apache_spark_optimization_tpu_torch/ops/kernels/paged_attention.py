@@ -14,8 +14,12 @@ parks a row (zeros). The int8 pool holds int8 values and one f32 scale per
 built with nvcc at first use and called through ctypes; see their headers
 for the design. Decode (T == 1), over either pool, runs the split-KV kernel
 of `csrc/decode_split.cuh` over a thread-block cluster of
-`decode_split_plan` blocks a row; query windows (T > 1) the tile kernel of
-`csrc/gqa_tile.cuh`, 16 folded rows a block.
+`decode_split_plan` blocks a row; bf16 query windows (T > 1) the
+tensor-core kernel of `csrc/window_split.cuh`, each row tile's KV range
+split over a cluster of `window_split_plan` blocks; f32 query windows the
+tile kernel of `csrc/gqa_tile.cuh`, 16 folded rows a block. The decode
+launches count as "ragged_paged_attention" (and "_quantized"), the windows
+as "ragged_paged_window" (and "_quantized").
 
 A tensor on the CPU goes to the `_plain` version; a CUDA tensor launches the
 kernel or raises. There is no fallback between the two.
@@ -34,6 +38,7 @@ from .attention import (
     decode_split_plan,
     dequantize_kv,
     flash_gqa_attention_plain,
+    window_split_plan,
 )
 from .launches import count, sm_count
 
@@ -58,6 +63,23 @@ def validate_window(q: torch.Tensor, kv_heads: int) -> None:
             f"1 <= T*G <= {MAX_QROWS} folded rows, got T={t} (G={g}); "
             f"larger windows take paged_attention_reference"
         )
+
+
+def launch_splits(b: int, kh: int, s_virt: int, t: int, g: int, bf16: bool,
+                  sms: int) -> int:
+    """The C entry points' `splits` argument: the decode kernel's cluster
+    size at T == 1 (`decode_split_plan`), the bf16 window kernel's at T > 1
+    (`window_split_plan` over G * T folded rows), and 0 for an f32 window,
+    which the tile kernel serves (TF32 tensor cores would miss f32's
+    tolerance)."""
+    if t == 1:
+        return decode_split_plan(b, kh, s_virt, t, sms)
+    return window_split_plan(b, kh, s_virt, g * t, sms) if bf16 else 0
+
+
+def _counter(name: str, t: int) -> str:
+    """The launch count of a call: decode (T == 1) or query window."""
+    return name if t == 1 else name.replace("attention", "window")
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -128,8 +150,8 @@ def ragged_paged_attention_cuda(q, k_pool, v_pool, page_table, q_positions,
                                 sliding_window=None, kv_lens=None,
                                 q_lens=None) -> torch.Tensor:
     """Launch the CUDA kernel (T == 1: the split-KV decode kernel; T > 1:
-    the tile kernel), one launch a call; raises on anything it does not
-    take, and on a refused cluster launch."""
+    the window kernel in bf16, the tile kernel in f32), one launch a call;
+    raises on anything it does not take, and on a refused cluster launch."""
     b, t, n, h = q.shape
     num_pages, kh, ps = k_pool.shape[:3]
     np_tab = page_table.shape[1]
@@ -174,12 +196,13 @@ def ragged_paged_attention_cuda(q, k_pool, v_pool, page_table, q_positions,
         b, t, n, kh, num_pages, ps, np_tab, h,
         *q.stride()[:3], *out.stride()[:3],
         int(sliding_window or 0), h ** -0.5, int(q.dtype == torch.bfloat16),
-        decode_split_plan(b, kh, np_tab * ps, t, sm_count(q.device)),
+        launch_splits(b, kh, np_tab * ps, t, n // kh, q.dtype == torch.bfloat16,
+                      sm_count(q.device)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA error {err}")
-    count("ragged_paged_attention")
+    count(_counter("ragged_paged_attention", t))
     return out
 
 
@@ -237,8 +260,9 @@ def ragged_paged_attention_quantized_cuda(q, k_pool, k_scale, v_pool, v_scale,
                                           page_table, q_positions, sliding_window=None,
                                           kv_lens=None, q_lens=None) -> torch.Tensor:
     """Launch the quantized CUDA kernel (T == 1: the split-KV decode kernel;
-    T > 1: the tile kernel), one launch a call; raises on anything it does
-    not take, and on a refused cluster launch."""
+    T > 1: the window kernel in bf16, the tile kernel in f32), one launch a
+    call; raises on anything it does not take, and on a refused cluster
+    launch."""
     b, t, n, h = q.shape
     num_pages, kh, ps = k_pool.shape[:3]
     np_tab = page_table.shape[1]
@@ -287,13 +311,14 @@ def ragged_paged_attention_quantized_cuda(q, k_pool, k_scale, v_pool, v_scale,
         ql.data_ptr(), out.data_ptr(), b, t, n, kh, num_pages, ps, np_tab, h,
         *q.stride()[:3], *out.stride()[:3],
         int(sliding_window or 0), h ** -0.5, int(q.dtype == torch.bfloat16),
-        decode_split_plan(b, kh, np_tab * ps, t, sm_count(q.device)),
+        launch_splits(b, kh, np_tab * ps, t, n // kh, q.dtype == torch.bfloat16,
+                      sm_count(q.device)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"ragged_paged_attention_quantized launch failed: CUDA error {err}")
-    count("ragged_paged_attention_quantized")
+    count(_counter("ragged_paged_attention_quantized", t))
     return out
 
 

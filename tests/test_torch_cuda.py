@@ -1,11 +1,12 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
 flash GQA attention (the split-KV decode kernel, the scalar tile kernel and
 the bf16 tensor-core prefill), ragged paged attention (the split-KV decode
-kernel and the tile kernel's query windows) and the page write (one kernel
-for both pools, also behind its producer in a CUDA graph), their
-int8-cache twins (the split-KV decode kernel at its edges, and every decode
-launch bit-identical from launch to launch), and the int4 matmul (decode,
-prefill and f32 rows kernels).
+kernel, the bf16 query windows' split tensor-core kernel and the f32 ones'
+tile kernel, every launch bit-identical from launch to launch) and the
+page write (one kernel for both pools, also behind its producer in a CUDA
+graph), their int8-cache twins (the split-KV decode kernel at its edges,
+and every decode launch bit-identical from launch to launch), and the int4
+matmul (decode, prefill and f32 rows kernels).
 
 Needs a card (marker `cuda`); skips elsewhere. On the card:
 `python -m pytest tests/test_torch_cuda.py -q`. Tolerances as in
@@ -128,8 +129,9 @@ def test_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, window):
     0) beside a full row, ragged q_lens, NaN on every page no table maps and
     in the dead offsets of each row's last live page: within TOL of the
     plain version, exact zeros for the parked row and the dead columns, one
-    launch a call; a decode launch (the split kernel) is bit-identical over
-    two launches."""
+    launch a call (a decode launch counted as such, a window apart), and
+    bit-identical over two launches (the split kernel at T = 1, the window
+    kernel's cluster merge in bf16 at T > 1)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     b, np_tab = 4, 8
     pages = b * np_tab + 2
@@ -155,14 +157,14 @@ def test_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, window):
     args = (q, kp, vp, tab, pos, window, kvl, qln)
     before = dict(LAUNCHES)
     out = pa.ragged_paged_attention(*args)
-    assert LAUNCHES == dict(before, ragged_paged_attention=before["ragged_paged_attention"] + 1)
+    counter = "ragged_paged_attention" if t == 1 else "ragged_paged_window"
+    assert LAUNCHES == dict(before, **{counter: before[counter] + 1})
     ref = pa.ragged_paged_attention_plain(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
     assert (out[2] == 0).all() and (out[1, int(qln[1]):] == 0).all()
-    if t == 1:
-        assert torch.equal(out, pa.ragged_paged_attention(*args))
+    assert torch.equal(out, pa.ragged_paged_attention(*args))
 
 
 # Page-write cases: (name, B, T, table pages). "t1_b8" is a decode round of
@@ -350,8 +352,10 @@ def test_quantized_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, wind
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
     assert (out[0] == 0).all() and (out[1, int(qln[1]):] == 0).all()
-    assert (LAUNCHES["ragged_paged_attention_quantized"]
-            == before["ragged_paged_attention_quantized"] + 1)
+    counter = ("ragged_paged_attention_quantized" if t == 1
+               else "ragged_paged_window_quantized")
+    assert LAUNCHES == dict(before, **{counter: before[counter] + 1})
+    assert torch.equal(out, pa.ragged_paged_attention_quantized(*args))
 
 
 def _decode_edges(cuda, dtype, g, h, s, seed):
