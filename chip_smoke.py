@@ -5,13 +5,18 @@
     python3 chip_smoke.py --profile      # plus a torch.profiler breakdown
     python3 chip_smoke.py --timing-only  # phases 1, 2 and 11 alone
     python3 chip_smoke.py --sweep        # phases 1, 2, then the split sweep
+    python3 chip_smoke.py --mixed-only   # phases 1, 2, then phase 6 (a) alone
 
-`--timing-only` times the package that sits beside this file, so a copy of
-this file placed in an unpacked archive of another commit times that
-commit's kernels at the same shapes (for comparing two commits in one
-call, in turns). `--sweep` times each decode launch (T == 1, bf16 and int8
-caches, contiguous and paged) at every cluster size of SWEEP_SPLITS beside
-the split plan's pick, at phase 11's shapes.
+`--timing-only` times the package that sits beside this file (and prints
+the bf16 prefill's output digests), so a copy of this file placed in an
+unpacked archive of another commit times that commit's kernels at the same
+shapes (for comparing two commits in one call, in turns); `--mixed-only`
+does the same for the ragged mixed rounds' serve phase on the 7B weights.
+`--sweep` times each decode launch (T == 1, bf16 and int8 caches,
+contiguous and paged) at every cluster size of SWEEP_SPLITS beside the
+split plan's pick, at phase 11's shapes, then each paged query window
+(T > 1) at the mixed round's shapes (MIXED_SHAPES) beside
+`window_split_plan`'s pick.
 
 Phases, each fatal on failure:
 
@@ -49,9 +54,13 @@ Phases, each fatal on failure:
      ragged mixed round's windows (7B and 3B at their default max_seq,
      tables of 64 and 128 pages, B = 8, T = 32 and 16, two rows carrying a
      chunk, four decode rows at q_len 1 with their dead columns one past
-     the row, two parked rows); and T = 1 (the split-KV kernel) at its
-     edges through tables, each T = 1 case launched twice and compared bit
-     for bit;
+     the row, two parked rows); windows that stress the window kernel's
+     split (`window_stress_cases`: 8 chunks ending at 4096, a window of
+     4096 over rows of 8192, pages of 16 and 8 with sentinel pages in a
+     live tile's dead tail); and T = 1 (the split-KV kernel) at its edges
+     through tables; every case launched twice and compared bit for bit
+     (bf16 windows run the split tensor-core kernel of
+     `window_split.cuh`, f32 windows the tile kernel);
    - the page write (one kernel for both pools, `page_write.cuh`),
      bit-exact, at WRITE_CASES: T = 1 at B = 8 into the 7B and 3B
      schedulers' pools (128 pages of 64, tables of 16 pages) at their last
@@ -68,7 +77,8 @@ Phases, each fatal on failure:
      edges (G = 1, 3, 4, 16 at H = 128 and 64; live lengths of 1 and 7
      slots; kv_lens = 0 beside a full row; a window of 3), the quantized
      ragged paged attention at the paged cases above over int8 pools and at
-     the same edges through tables (T > 1 windows on the tile kernel), each
+     the same edges through tables (T > 1 bf16 windows on the window kernel,
+     f32 on the tile kernel), each
      int8 attention case launched twice and compared bit for bit, the
      page write into an int8 pool bit-exact (values and scales) at
      WRITE_CASES, and the int4 matmul at every 7B
@@ -227,8 +237,10 @@ Phases, each fatal on failure:
    concurrent requests' 334-460 tokens, two parked; 8 layers cycled);
    the paged reads and the page writes at the scheduler's 8 slots (live
    64-1024; each write also with every sliver dropped, its floor, and with
-   the table prefetch forced on and off), and at the ragged mixed round's
-   first step (T = 32, tables of 64 pages, `mixed_rows`; 8 layers); the int4 matmul for 7B's `wq` and `wd` at R =
+   the table prefetch forced on and off), and the paged reads at the ragged
+   mixed round's first step (MIXED_SHAPES: 7B and 3B at their default
+   max_seq, T = 32 and 16, `mixed_rows`; 8 layers; the writes at 7B T = 32);
+   the int4 matmul for 7B's `wq` and `wd` at R =
    1, 4, 8 (decode) and 1024 (a prefill chunk). The bound is the larger of the bytes over 3.35 TB/s
    and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
 

@@ -22,11 +22,12 @@
 //   live length, unmapped) are never read: zeros stand in, so garbage or
 //   NaN there cannot leak through 0 * NaN.
 //
-// Element types: bf16 in and out, or f32 in and out. Head dims 64 and 128.
-// The cache is in that type (KV = T), or int8 (KV = int8_t) with one f32
-// scale per slot for K and for V, indexed by the same row as the slot's
-// values: slot s of (b, kh) stands for T(float(k8[row, h]) * ks[row]), the
-// TPU kernels' dequantize (`_dequant_streams`, `_dequant_page_streams`).
+// Element types: f32 in and out (T = float). Head dims 64 and 128. The
+// cache is in that type (KV = T), or int8 (KV = int8_t) with one f32 scale
+// per slot for K and for V, indexed by the same row as the slot's values:
+// slot s of (b, kh) stands for T(float(k8[row, h]) * ks[row]), the TPU
+// kernels' dequantize (`_dequant_streams`, `_dequant_page_streams`).
+// `Layout` and `load_tile` also serve flash_prefill.cuh's bf16 tiles.
 //
 // Design (a first, simple kernel: scalar FMA in f32, no tensor cores, no
 // TMA, no wgmma):
@@ -48,8 +49,6 @@
 //     one warp per row does the max / exp / sum of the online softmax
 //     (masked probabilities are zeroed, never exp(NEG_INF - NEG_INF));
 //     each thread then accumulates one output column for all rows.
-//   * With bf16 inputs the probabilities are rounded to bf16 before the PV
-//     product, as the TPU kernels do (p.astype(v.dtype)).
 //   * int8 cache: the copies bring each slot's H int8 values (16-byte
 //     cp.async) and its 4-byte f32 scale (4-byte cp.async) into double-
 //     buffered staging, half the bytes of a bf16 tile; once a tile has
@@ -76,29 +75,19 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;  // folded query rows a block (BR)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // Four consecutive elements of shared memory as floats.
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
+// The kernel's compute type is f32 (the bf16 launches run
+// flash_prefill.cuh and window_split.cuh): outputs and probabilities as
+// they are.
 template <typename T> struct Cvt;
 template <> struct Cvt<float> {
   static __device__ __forceinline__ float out(float x) { return x; }
   static __device__ __forceinline__ float round_p(float x) { return x; }
-};
-template <> struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 out(float x) { return __float2bfloat16(x); }
-  static __device__ __forceinline__ float round_p(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
 };
 
 using hopper::cp_async16;

@@ -1,6 +1,7 @@
 // Where key slot s of (batch row b, kv head kh) lives: the two K/V sources
-// of the attention kernels (`gqa_tile.cuh`, `flash_prefill.cuh` and
-// `decode_split.cuh`), shared by every attention source of the port.
+// of the attention kernels (`gqa_tile.cuh`, `flash_prefill.cuh`,
+// `decode_split.cuh` and, the paged one's `base` once a page,
+// `window_split.cuh`), shared by every attention source of the port.
 //
 // A source gives the row of the slot's [H] values in the K and V arrays
 // (and of its scale in an int8 cache's scale arrays), or -1 when no row

@@ -72,11 +72,9 @@ extern "C" int ragged_paged_attention(
     return decode_split::launch_any<false>(a, src, h, is_bf16, splits);
   }
   if (is_bf16) {
-    const window_split::Pages pg{static_cast<const int*>(table), num_pages, kh, page_size,
-                                 np_tab};
     window_split::Args a{q, k_pool, v_pool, nullptr, nullptr, q_positions, kv_lens, q_lens,
                          out, b, t, n, q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale, st};
-    return window_split::launch_any<false>(a, pg, h, splits);
+    return window_split::launch_any<false>(a, src, h, splits);
   }
   gqa_tile::Args a{q, k_pool, v_pool, nullptr, nullptr, q_positions, kv_lens, q_lens,
                    out, b, t, n, kh, q_sb, q_st, q_sn, o_sb, o_st, o_sn, window, scale, st};

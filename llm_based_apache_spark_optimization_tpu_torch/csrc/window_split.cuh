@@ -40,8 +40,8 @@
 //     in registers with quad shuffles: the warp step is
 //     `flash_prefill::warp_tile_step`, the contiguous bf16 prefill's own.
 //     Q's A fragments are read from shared memory at each tile (ldmatrix),
-//     not held across the loop: that keeps the kernel near 170 registers,
-//     against 252 with spills, and measured 8-14% faster.
+//     not held across the loop: held, they took the kernel to the
+//     255-register cap with spills; read, it stays under 190 with none.
 //   * Row tiles sized to the window: a block holds 16 * WARPS rows, WARPS =
 //     min(4, ceil(G * T / 16)) (7B T = 32: 2 row groups; 3B T = 16, G = 3:
 //     3), so no row group is empty; longer windows take several 64-row
@@ -65,6 +65,14 @@
 //     zeros and no block waits at a barrier; a rank with an empty share
 //     waits at the two cluster barriers only. Both keep the cost of a
 //     split low where most rows are short, which the plan cannot see.
+//   * Longest rows first. Blocks reach the SMs roughly in index order, and
+//     a mixed round's long rows (chunks and decode rows near the end of a
+//     4096-slot row) sit anywhere in the batch: each block ranks the rows
+//     by kv_lens (descending, ties by index) and the j-th group of blocks
+//     takes the j-th longest row, so the long rows start in the first wave
+//     and the short ones fill in behind them (7B T = 32 at 3 splits: 0.1115
+//     ms before, 0.092 after, `chip_smoke.py`). Which block computes a row
+//     does not change its bits.
 //   * One page-table read per page a tile spans: warp 0 reads a tile's
 //     entries one lane a page, a tile ahead (the load issued at the top of
 //     an iteration, used at its end), and spreads each slot's row to shared
@@ -75,16 +83,17 @@
 //     stages of int8 values and f32 scales (4-byte cp.async), so two tiles'
 //     copies are in flight while one tile is dequantized (byte_perm
 //     widening, one product, one rounding to bf16) into the bf16 tile the
-//     products read. A third bf16 stage measured no faster: a lone block is
-//     bound by its step's latency, and with every row long the launch
-//     already streams 2.8 TB/s (`chip_smoke.py --sweep`, H100 SXM).
+//     products read. A lone block walking a long row is bound by its
+//     step's latency, not by its copies: more warps on the row (key
+//     halves, splits) shorten it, more stages would not.
 //
-// Registers a thread (ptxas -v, sm_90a), no spills:
+// Registers a thread (ptxas -v for sm_90a; `chip_smoke.py`'s build phase
+// prints them), no spills:
 //   pool   H    WARPS = 1    2    3    4
-//   bf16   128        168  167  182  181
-//          64         136  136  148  158
-//   int8   128        168  168  179  184
-//          64         104  106  141  139
+//   bf16   128        167  166  182  189
+//          64         128  128  148  158
+//   int8   128        154  152  177  186
+//          64         108  110  147  152
 
 #pragma once
 
@@ -146,28 +155,21 @@ struct Layout {
   static_assert(merge_off + merge_bytes <= q_off, "partials fit the tiles");
 };
 
-// The pool read through the table, a tile at a time.
-struct Pages {
-  const int* table;  // [B, NP]
-  int num_pages, kv_heads, page_size, np_tab;
-};
+using kv_source::PagedSrc;
 
 // Warp 0's lane `lane`: the first row of the lane-th page tile `s0` spans
 // inside [lo, hi) (-1: unmapped, or no such page), one table read.
-__device__ __forceinline__ long long page_base(const Pages& pg, int b, int kh, int s0,
+__device__ __forceinline__ long long page_base(const PagedSrc& pg, int b, int kh, int s0,
                                                int lo, int hi, int lane) {
   const int a = max(s0, lo), e = min(s0 + kBlockKV, hi);
   if (a >= e) return -1;
   const int pi = a / pg.page_size + lane;
-  if (pi > (e - 1) / pg.page_size) return -1;
-  const int page = __ldg(pg.table + (long long)b * pg.np_tab + pi);
-  if (page < 0 || page >= pg.num_pages) return -1;
-  return ((long long)page * pg.kv_heads + kh) * pg.page_size;
+  return pi > (e - 1) / pg.page_size ? -1 : pg.base(b, kh, pi);
 }
 
 // Warp 0: each slot of tile `s0` -> its row (-1 outside [lo, hi) or on an
 // unmapped page), from the page bases of `page_base` held one a lane.
-__device__ __forceinline__ void spread_rows(long long* rows, const Pages& pg, int s0,
+__device__ __forceinline__ void spread_rows(long long* rows, const PagedSrc& pg, int s0,
                                             int lo, int hi, long long base, int lane) {
   const int first = max(s0, lo) / pg.page_size;
 #pragma unroll
@@ -266,10 +268,10 @@ template <int HD, typename KV, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS * key_warps(WARPS))
 window_split_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
                     const KV* __restrict__ v, const float* __restrict__ kscale,
-                    const float* __restrict__ vscale, const Pages pg,
+                    const float* __restrict__ vscale, const PagedSrc pg,
                     const int* __restrict__ qpos, const int* __restrict__ kv_lens,
-                    const int* __restrict__ q_lens, bf16* __restrict__ out, int t_len,
-                    int n_heads, long long q_sb, long long q_st, long long q_sn,
+                    const int* __restrict__ q_lens, bf16* __restrict__ out, int batch,
+                    int t_len, int n_heads, long long q_sb, long long q_st, long long q_sn,
                     long long o_sb, long long o_st, long long o_sn, int window,
                     float scale_log2) {
   using L = Layout<HD, KV, WARPS>;
@@ -288,7 +290,7 @@ window_split_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
   const bf16* Vs = reinterpret_cast<const bf16*>(smem + L::v_off);
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
   long long* Rows = reinterpret_cast<long long*>(smem + L::rows_off);  // [NS][64]
-  __shared__ int s_min[NW], s_max[NW];
+  __shared__ int s_min[NW], s_max[NW], s_row;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = (int)cluster.num_blocks();
@@ -297,10 +299,25 @@ window_split_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
   const int g_size = n_heads / kv_heads;
   const int rows = g_size * t_len;
   const int row_tiles = (rows + BR - 1) / BR;
-  const int b = blockIdx.x / (kv_heads * row_tiles);
   const int kh = blockIdx.x / row_tiles % kv_heads;
   const int row0 = blockIdx.x % row_tiles * BR;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // Longest rows first: the blocks come to the SMs roughly in index order,
+  // so the j-th group of blocks takes the row whose kv_lens ranks j-th
+  // (descending, ties by index). Long rows then start in the first wave,
+  // and the short ones fill in behind them. Which block computes a row
+  // does not change its bits.
+  for (int r = tid; r < batch; r += NT) {
+    const int key = kv_lens[r];
+    int j = 0;
+    for (int x = 0; x < batch; ++x) {
+      const int kx = kv_lens[x];
+      j += kx > key || (kx == key && x < r);
+    }
+    if (j == (int)(blockIdx.x / (kv_heads * row_tiles))) s_row = r;
+  }
+  __syncthreads();
+  const int b = s_row;
   const int rg = warp % WARPS, kw = warp / WARPS;  // row group, key half
   const int gid = lane / 4, tig = lane % 4;
   const int q_live = q_lens ? q_lens[b] : t_len;
@@ -587,7 +604,7 @@ struct Args {
 };
 
 template <int HD, typename KV, int WARPS>
-int launch(const Args& a, const Pages& pg, int splits) {
+int launch(const Args& a, const PagedSrc& pg, int splits) {
   constexpr int smem = (int)Layout<HD, KV, WARPS>::bytes;
   auto kernel = window_split_kernel<HD, KV, WARPS>;
   static bool opted_in = false;  // above 48 KB, opt in once
@@ -606,12 +623,12 @@ int launch(const Args& a, const Pages& pg, int splits) {
       static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
       static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale), pg,
       static_cast<const int*>(a.qpos), static_cast<const int*>(a.kv_lens),
-      static_cast<const int*>(a.q_lens), static_cast<bf16*>(a.out), a.t, a.n, a.q_sb,
+      static_cast<const int*>(a.q_lens), static_cast<bf16*>(a.out), a.b, a.t, a.n, a.q_sb,
       a.q_st, a.q_sn, a.o_sb, a.o_st, a.o_sn, a.window, a.scale * 1.4426950408889634f);
 }
 
 template <int HD, typename KV>
-int launch_rows(const Args& a, const Pages& pg, int splits) {
+int launch_rows(const Args& a, const PagedSrc& pg, int splits) {
   const int warps = min(4, ((a.n / pg.kv_heads) * a.t + 15) / 16);
   if (warps == 1) return launch<HD, KV, 1>(a, pg, splits);
   if (warps == 2) return launch<HD, KV, 2>(a, pg, splits);
@@ -624,7 +641,7 @@ int launch_rows(const Args& a, const Pages& pg, int splits) {
 // (1..8) is the cluster's size. Returns the launch's error or
 // cudaGetLastError() after it (0 = launched).
 template <bool Quant>
-int launch_any(const Args& a, const Pages& pg, int h, int splits) {
+int launch_any(const Args& a, const PagedSrc& pg, int h, int splits) {
   using KV = typename std::conditional<Quant, int8_t, bf16>::type;
   if ((h != 64 && h != 128) || splits < 1 || splits > kMaxSplits || a.t < 2 ||
       pg.kv_heads < 1 || a.n % pg.kv_heads || pg.page_size % 8)

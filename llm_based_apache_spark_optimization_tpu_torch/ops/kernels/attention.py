@@ -124,21 +124,21 @@ def window_split_plan(b: int, kh: int, s_virt: int, rows: int, sms: int) -> int:
 
     The plan cannot see the rows' live lengths, and a mixed round's are
     ragged: two 32-token chunks and decode rows of up to 4096 slots beside
-    rows of one slot and parked rows. A long row walks ~2.6 us a 64-slot
-    tile in one block, so it wants many splits; a block whose share is
+    rows of one slot and parked rows. A long row walks its tiles one after
+    another in a block, so it wants many splits; a block whose share is
     empty costs its setup and two cluster barriers, and a row tile that
     sees nothing exits at once. On an H100 (`chip_smoke.py --sweep`, bf16 /
     int8 pool, ms at 1, 2, 3, 4, 6, 8 splits): 7B T = 32 (256 blocks
-    unsplit) 0.169, 0.114, 0.111, 0.117, 0.128, 0.164 / 0.226, 0.141,
-    0.133, 0.139, 0.147, 0.181; 7B T = 16 (256) 0.158, 0.114, 0.100,
-    0.096, 0.104, 0.114 / 0.240, 0.180, 0.155, 0.155, 0.152, 0.189; 3B T =
-    32 (128) 0.381, 0.243, 0.184, 0.158, 0.148, 0.157 / 0.450, 0.297, 0.223,
-    0.188, 0.170, 0.179; 3B T = 16 (64) 0.403, 0.212, 0.168, 0.134, 0.117,
-    0.107 / 0.511, 0.264, 0.213, 0.171, 0.144, 0.125. The best counts put
-    512-1024 blocks on the 132 SMs; the rule's 6 an SM picks 3, 3, 6 and 8,
-    within 5% of the best at each. Pure: the device finds each row tile's
-    live range itself, so the plan reads no tensor and the launch needs no
-    host sync."""
+    unsplit) 0.141, 0.087, 0.092, 0.105, 0.126, 0.146 / 0.219, 0.120,
+    0.117, 0.140, 0.154, 0.171; 7B T = 16 (256) 0.165, 0.095, 0.080,
+    0.081, 0.100, 0.113 / 0.273, 0.152, 0.129, 0.163, 0.160, 0.171; 3B T =
+    32 (128) 0.391, 0.203, 0.147, 0.135, 0.120, 0.142 / 0.475, 0.247, 0.173,
+    0.165, 0.137, 0.162; 3B T = 16 (64) 0.406, 0.224, 0.157, 0.120, 0.094,
+    0.081 / 0.503, 0.267, 0.191, 0.148, 0.111, 0.098. The best counts put
+    512-768 blocks on the 132 SMs; the rule's 6 an SM picks 3, 3, 6 and 8:
+    the best at seven of the eight, 6% over it at 7B T = 32 in bf16. Pure:
+    the device finds each row tile's live range itself, so the plan reads
+    no tensor and the launch needs no host sync."""
     row_tiles = -(-max(rows, 1) // _WINDOW_ROWS)
     blocks = max(b * kh * row_tiles, 1)
     by_len = -(-max(s_virt, 1) // _WINDOW_TILE)

@@ -3,10 +3,10 @@ sizes their split launches.
 
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else, so a run can show that its main path went through the
-kernels (ragged paged attention counts its decode launches, T == 1, apart
-from its query windows, T > 1, which run another kernel) (`chip_smoke.py` zeroes the counts before a path and reads them
-after). Counting takes a lock: schedulers launch from their own worker
-threads at once."""
+kernels (`chip_smoke.py` zeroes the counts before a path and reads them
+after). Ragged paged attention counts its decode launches (T == 1) apart
+from its query windows (T > 1), which run another kernel. Counting takes a
+lock: schedulers launch from their own worker threads at once."""
 
 from __future__ import annotations
 
