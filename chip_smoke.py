@@ -560,7 +560,8 @@ def window_stress_cases():
     4096 over rows of 8192 (the live range starts mid-row, and a chunk's
     rows see different first slots); pages of 16, a 64-slot tile across
     four pages, rows ending mid-page with sentinel pages in the last live
-    tile's dead tail; and 1B's head dim 64 over pages of 8. NaN sits in
+    tile's dead tail; and 1B's head dim 64 over pages of 8 and 16 (1, 3 and
+    4 row groups of 16 folded rows). NaN sits in
     every unmapped page and dead offset (`paged_case`), and in the int8
     pools' dead scales."""
     return [
@@ -578,6 +579,14 @@ def window_stress_cases():
         ("1b_p8_t16", dict(t=16, n=32, kh=8, h=64, ps=8, np_tab=64,
                            rows=[(496, 16, 512), (300, 7, 307), (0, 1, 1), (0, 0, 0)],
                            dead_pos=512)),
+        # 1B windows of 4 and 12 columns: 16 and 48 folded rows (1 and 3
+        # row groups) at H = 64.
+        ("1b_p16_t4", dict(t=4, n=32, kh=8, h=64, ps=16, np_tab=32,
+                           rows=[(508, 4, 512), (200, 2, 202), (0, 0, 0), (63, 1, 64)],
+                           dead_pos=512)),
+        ("1b_p16_t12", dict(t=12, n=32, kh=8, h=64, ps=16, np_tab=32,
+                            rows=[(500, 12, 512), (90, 5, 95), (0, 0, 0), (511, 1, 512)],
+                            dead_pos=512)),
     ]
 
 
