@@ -60,7 +60,10 @@ Phases, each fatal on failure:
      live tile's dead tail); and T = 1 (the split-KV kernel) at its edges
      through tables; every case launched twice and compared bit for bit
      (bf16 windows run the split tensor-core kernel of
-     `window_split.cuh`, f32 windows the tile kernel);
+     `window_split.cuh`, f32 windows the tile kernel); bf16 windows also
+     per query row (WINDOW_ROW_TOL), a limit that a planted fault (the
+     plain version without one 64-slot tile of the longest row, at
+     WINDOW_CONTROLS) must fail;
    - the page write (one kernel for both pools, `page_write.cuh`),
      bit-exact, at WRITE_CASES: T = 1 at B = 8 into the 7B and 3B
      schedulers' pools (128 pages of 64, tables of 16 pages) at their last
@@ -267,6 +270,16 @@ TOL = {"bfloat16": 3e-2, "float32": 1e-4}  # kernel vs plain, max abs error
 # bf16: outputs are rounded to bf16 (1 ulp = 1.6e-2 at |x| in [2, 4]) and
 # probabilities are rounded at a different running max than the plain
 # version's global max. f32: only the order of the f32 sums differs.
+# bf16 query windows (T > 1) are also held per query row (b, t, head): the
+# largest |kernel - plain| over the row's H outputs over its largest
+# |plain|. A row that sees ~4096 keys has outputs of RMS ~0.026, so TOL
+# alone misses a 64-slot tile of keys left out (~2e-2 at the max); that
+# fault reads 0.2-0.4 per row (the WINDOW_CONTROLS below), where one bf16
+# ulp of a row's largest output is at most 2**-7 of it.
+WINDOW_ROW_TOL = 5e-2
+# Window cases whose control drops the longest row's middle tile from the
+# plain version's inputs and must come out above WINDOW_ROW_TOL.
+WINDOW_CONTROLS = ("7b_chunks_all_4096", "7b_mixed_t32")
 LOGIT_TOL = 5e-2  # 7B bf16 logits, kernel vs plain path, over max |logit|
 F32_LOGIT_TOL = 1e-4  # the same for 2 layers of 7B in f32
 # int4 matmul vs plain, max |diff| over max |out|: only the order of the f32
@@ -600,6 +613,50 @@ def mixed_rows(t, s_virt):
             (255, 1, 256), (0, 1, 1), (s_virt - 1, 1, 0), (s_virt - 1, 1, s_virt)]
 
 
+def row_rel_err(out, ref):
+    """Largest over query rows (the last axis is H) of max |out - ref| over
+    the row's max |ref|; a row whose reference is all zeros counts its
+    absolute error."""
+    d = (out.float() - ref.float()).abs().amax(-1)
+    s = ref.float().abs().amax(-1)
+    return (d / s.clamp_min(1e-30)).where(s > 0, d).max().item()
+
+
+def drop_tile(torch, tab, pos, kv_lens, ps, sentinel):
+    """(table, positions, kv_lens, row) of a planted fault: the longest
+    row's middle 64-slot tile left out, its pages cut from the table and
+    the later ones shifted down, the row's positions and kv_lens one tile
+    less, so the row sees every key but that tile's."""
+    row = int(kv_lens.argmax())
+    per = max(1, 64 // ps)
+    j = int(kv_lens[row]) // ps // 2 // per * per
+    tab, pos, kv_lens = tab.clone(), pos.clone(), kv_lens.clone()
+    tab[row] = torch.cat([tab[row, :j], tab[row, j + per:], tab.new_full((per,), sentinel)])
+    pos[row] -= per * ps
+    kv_lens[row] -= per * ps
+    return tab, pos, kv_lens, row
+
+
+def window_control(torch, plain, args, ti, ref, label):
+    """The planted fault against the per-row limit: `plain` over `args`
+    (table, positions and kv_lens at ti, ti + 1 and ti + 3; the K pool at
+    1) with `drop_tile`'s tile left out, compared with `ref` on that row.
+    Fails unless the limit catches it."""
+    args = list(args)
+    sentinel, ps = args[1].shape[0], args[1].shape[2]
+    args[ti], args[ti + 1], args[ti + 3], row = drop_tile(
+        torch, args[ti], args[ti + 1], args[ti + 3], ps, sentinel)
+    fault = plain(*args)[row]
+    err = (fault.float() - ref[row].float()).abs().max().item()
+    rel = row_rel_err(fault, ref[row])
+    caught = rel > WINDOW_ROW_TOL
+    print(f"  {label} control: row {row} without its middle tile "
+          f"max_abs_err={err:.3e} (tol {TOL['bfloat16']:.0e}) max_row_rel_err={rel:.3e} "
+          f"(tol {WINDOW_ROW_TOL:.0e}) {'FAIL as planted' if caught else 'NOT CAUGHT'}",
+          flush=True)
+    assert caught, f"{label}: a dropped tile passes the per-row limit"
+
+
 def mixed_cases():
     """The ragged mixed round's windows at the paged schedulers' default
     max_seq (7B: 4096, tables of 64 pages; 3B: 8192, 128 pages; pages of
@@ -617,9 +674,14 @@ def check_paged(torch, pa_mod):
     """Ragged paged attention kernel vs plain on every case of
     `paged_cases()` and `paged_edge_cases()` and each dtype; each case (the
     split-KV kernel at T = 1, the window kernel or, in f32, the tile kernel
-    at T > 1) is launched twice and compared bit for bit. Returns the worst
-    error per launch ("paged": T = 1, "paged_window": T > 1) and dtype."""
-    worst = {l: {d: 0.0 for d in TOL} for l in ("paged", "paged_window")}
+    at T > 1) is launched twice and compared bit for bit; bf16 windows are
+    also held per query row (WINDOW_ROW_TOL), and on WINDOW_CONTROLS a
+    planted fault must fail that limit. Returns the worst error per launch
+    ("paged": T = 1; "paged_window": bf16 T > 1, with "_rel" its worst per
+    row error; "paged_window_tile": f32 T > 1, the tile kernel) and
+    dtype."""
+    worst = {"paged": {d: 0.0 for d in TOL}, "paged_window": {"bfloat16": 0.0},
+             "paged_window_rel": {"bfloat16": 0.0}, "paged_window_tile": {"float32": 0.0}}
     for name, kw in paged_cases() + paged_edge_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
@@ -632,16 +694,25 @@ def check_paged(torch, pa_mod):
             assert torch.isfinite(out).all(), f"paged/{name}/{dname}: non-finite"
             err = (out.float() - ref.float()).abs().max().item()
             same = torch.equal(out, again)
-            ok = err <= TOL[dname] and same
+            window = kw["t"] > 1 and dtype == torch.bfloat16
+            rel = row_rel_err(out, ref) if window else 0.0
+            ok = err <= TOL[dname] and same and rel <= WINDOW_ROW_TOL
+            by_row = f" max_row_rel_err={rel:.3e} tol={WINDOW_ROW_TOL:.0e}" if window else ""
             print(f"  paged   {name:16s} {dname:8s} max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]:.0e} bit-identical-twice={same} "
+                  f"tol={TOL[dname]:.0e}{by_row} bit-identical-twice={same} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
-            assert ok, f"paged/{name}/{dname}: {err} > {TOL[dname]} or not repeatable"
+            assert ok, f"paged/{name}/{dname}: {err} or {rel} over its limit or not repeatable"
             for i, (_, ql, kvl) in enumerate(kw["rows"]):
                 dead = out[i] if kvl == 0 else out[i, ql:]
                 assert (dead == 0).all(), f"paged/{name}: row {i} not exact zeros"
-            launch = "paged" if kw["t"] == 1 else "paged_window"
+            if window and name in WINDOW_CONTROLS:
+                window_control(torch, pa_mod.ragged_paged_attention_plain, args, 3, ref,
+                               f"paged   {name}")
+            launch = ("paged" if kw["t"] == 1 else
+                      "paged_window" if window else "paged_window_tile")
             worst[launch][dname] = max(worst[launch][dname], err)
+            if window:
+                worst[launch + "_rel"][dname] = max(worst[launch + "_rel"][dname], rel)
     return worst
 
 
@@ -845,9 +916,13 @@ def check_paged_quantized(torch, pa_mod):
     """The quantized ragged paged attention kernel vs plain on every paged
     case and on `paged_edge_cases()`, the pools quantized after the NaN was
     planted (so the dead offsets and unmapped pages carry NaN scales), each
-    launched twice and compared bit for bit; returns the worst error per
-    launch ("paged_q": T = 1, "paged_q_window": T > 1) and dtype."""
-    worst = {l: {d: 0.0 for d in TOL} for l in ("paged_q", "paged_q_window")}
+    launched twice and compared bit for bit, bf16 windows also per query
+    row with a planted-fault control, as in `check_paged`; returns the
+    worst error per launch ("paged_q", "paged_q_window", "_rel",
+    "paged_q_window_tile") and dtype."""
+    worst = {"paged_q": {d: 0.0 for d in TOL}, "paged_q_window": {"bfloat16": 0.0},
+             "paged_q_window_rel": {"bfloat16": 0.0},
+             "paged_q_window_tile": {"float32": 0.0}}
     for name, kw in paged_cases() + paged_edge_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
@@ -865,16 +940,25 @@ def check_paged_quantized(torch, pa_mod):
             assert torch.isfinite(out).all(), f"paged_q/{name}/{dname}: non-finite"
             err = (out.float() - ref.float()).abs().max().item()
             same = torch.equal(out, again)
-            ok = err <= TOL[dname] and same
+            window = kw["t"] > 1 and dtype == torch.bfloat16
+            rel = row_rel_err(out, ref) if window else 0.0
+            ok = err <= TOL[dname] and same and rel <= WINDOW_ROW_TOL
+            by_row = f" max_row_rel_err={rel:.3e} tol={WINDOW_ROW_TOL:.0e}" if window else ""
             print(f"  paged_q {name:16s} {dname:8s} max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]:.0e} bit-identical-twice={same} "
+                  f"tol={TOL[dname]:.0e}{by_row} bit-identical-twice={same} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
-            assert ok, f"paged_q/{name}/{dname}: {err} > {TOL[dname]} or not repeatable"
+            assert ok, f"paged_q/{name}/{dname}: {err} or {rel} over its limit or not repeatable"
             for i, (_, ql, kvl_i) in enumerate(kw["rows"]):
                 dead = out[i] if kvl_i == 0 else out[i, ql:]
                 assert (dead == 0).all(), f"paged_q/{name}: row {i} not exact zeros"
-            launch = "paged_q" if kw["t"] == 1 else "paged_q_window"
+            if window and name in WINDOW_CONTROLS:
+                window_control(torch, pa_mod.ragged_paged_attention_quantized_plain, args,
+                               5, ref, f"paged_q {name}")
+            launch = ("paged_q" if kw["t"] == 1 else
+                      "paged_q_window" if window else "paged_q_window_tile")
             worst[launch][dname] = max(worst[launch][dname], err)
+            if window:
+                worst[launch + "_rel"][dname] = max(worst[launch + "_rel"][dname], rel)
     return worst
 
 
@@ -1795,20 +1879,16 @@ def expect_paged(expected, sched, rounds, prefills):
     (int8 pool: the quantized one) layers x (decode_chunk x rounds + ragged
     prefills) (a mixed round's first step is one of the rounds' steps; a
     ragged prefill is that step run alone), of which layers x (mixed rounds
-    + ragged prefills) are query windows (T > 1, counted apart where the
-    package counts them apart), its page write as many plus one a layer
-    for each prefill forward (the chunk's window written back), the flash
-    prefill layers x prefill forwards, and over int4 weights the int4
-    matmul 7 x layers x forwards."""
+    + ragged prefills) are query windows (T > 1, counted apart), its page
+    write as many plus one a layer for each prefill forward (the chunk's
+    window written back), the flash prefill layers x prefill forwards, and
+    over int4 weights the int4 matmul 7 x layers x forwards."""
     n_layers = sched.cfg.num_layers
     q = "_quantized" if sched.kv_quant else ""
     steps = sched.decode_chunk * rounds + sched.ragged_prefills
     windows = sched.mixed_rounds + sched.ragged_prefills
-    window_key = "ragged_paged_window" + q
-    if window_key not in expected:  # a package that counts them together
-        window_key = "ragged_paged_attention" + q
     expected["ragged_paged_attention" + q] += n_layers * (steps - windows)
-    expected[window_key] += n_layers * windows
+    expected["ragged_paged_window" + q] += n_layers * windows
     expected["fused_page_write" + q] += n_layers * (steps + prefills)
     expected["flash_gqa_prefill"] += n_layers * prefills
     if isinstance(sched.params["blocks"]["wq"], dict):
@@ -3823,7 +3903,9 @@ def main() -> int:
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
              **ckpt_launches}
-    tolerance = {"write": {"bfloat16": 0.0, "float32": 0.0},
+    window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
+    tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
+                 "write": {"bfloat16": 0.0, "float32": 0.0},
                  "write_q": {"bfloat16": 0.0, "float32": 0.0},
                  "int4": {f"{d}_over_max_abs_out": v for d, v in INT4_TOL.items()}}
     kernels = []
@@ -3855,6 +3937,11 @@ def main() -> int:
             entry["max_rel_err_by_dtype"] = {d: int4_err[d][1] for d in TOL}
         if "by_shape" in tm:
             entry["by_shape"] = tm["by_shape"]
+        if launch.endswith("_window"):
+            # bf16 only: f32 windows run the tile kernel, recorded apart.
+            entry["max_row_rel_err_by_dtype"] = errors[launch + "_rel"]
+            entry["float32_windows"] = {"source": f"{PKG}/csrc/gqa_tile.cuh",
+                                        "max_abs_err": errors[launch + "_tile"]["float32"]}
         kernels.append(entry)
     phase(None)
     print(f"  phase seconds: {json.dumps(_PHASE['seconds'])}", flush=True)

@@ -91,6 +91,7 @@ UNPORTED_KNOBS = {
     "trace_sample": "A12 (request tracing)",
     "trace_export": "A12 (request tracing)",
     "stok_seed_bench": "A12 (the bench artifact)",
+    "flight_rounds": "A7.7 (the scheduler's flight recorder)",
     "profile_rounds": "A7.7 (the profile hook)",
     "profile_dir": "A7.7 (the profile hook)",
     "prefix_topk": "A7.8 (prefix telemetry)",

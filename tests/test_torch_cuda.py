@@ -12,7 +12,8 @@ Needs a card (marker `cuda`); skips elsewhere. On the card:
 `python -m pytest tests/test_torch_cuda.py -q`. Tolerances as in
 chip_smoke.py: attention max abs error 1e-4 in f32, 3e-2 in bf16 (bf16
 outputs are rounded to bf16 and the probabilities are rounded at a
-different running max than the plain version's); the page writes are
+different running max than the plain version's), and bf16 query windows
+also within 5e-2 of each query row's largest output; the page writes are
 bit-exact; the int4 matmul within 1e-5 (f32) and 1e-2 (bf16: one bf16 ulp
 is up to 2**-7 of the largest output) of max |out|, since only the order of
 the f32 sums differs."""
@@ -29,6 +30,16 @@ from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_writ
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# bf16 query windows (T > 1), per query row as in chip_smoke.py: max |out -
+# ref| over the row's max |ref|, which a 64-slot tile of keys left out of a
+# long row exceeds where the absolute TOL does not.
+WINDOW_ROW_TOL = 5e-2
+
+
+def row_rel_err(out, ref):
+    d = (out.float() - ref.float()).abs().amax(-1)
+    s = ref.float().abs().amax(-1)
+    return (d / s.clamp_min(1e-30)).where(s > 0, d).max().item()
 
 
 @pytest.fixture
@@ -163,6 +174,8 @@ def test_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, window):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    if t > 1 and dtype == torch.bfloat16:
+        assert row_rel_err(out, ref) <= WINDOW_ROW_TOL
     assert (out[2] == 0).all() and (out[1, int(qln[1]):] == 0).all()
     assert torch.equal(out, pa.ragged_paged_attention(*args))
 
@@ -351,6 +364,8 @@ def test_quantized_paged_kernel_matches_plain(cuda, dtype, t, n, kh, h, ps, wind
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    if t > 1 and dtype == torch.bfloat16:
+        assert row_rel_err(out, ref) <= WINDOW_ROW_TOL
     assert (out[0] == 0).all() and (out[1, int(qln[1]):] == 0).all()
     counter = ("ragged_paged_attention_quantized" if t == 1
                else "ragged_paged_window_quantized")

@@ -5,7 +5,8 @@ the CPU never launches: a bf16 window (T > 1) passes a cluster size of 1..8
 and counts as a window launch, an f32 window passes 0 (the tile kernel), a
 decode step (T == 1) the decode kernel's plan. The kernel itself is held
 against its plain version on the card (`tests/test_torch_cuda.py`,
-`chip_smoke.py`)."""
+`chip_smoke.py`); here the per-row limit chip_smoke.py holds it to is
+checked against a planted fault in the plain version."""
 
 from types import SimpleNamespace
 
@@ -135,3 +136,55 @@ def test_wrappers_pass_the_split_and_count_windows_apart(fake_launch, quantized,
     assert splits == pa.launch_splits(b, kh, np_tab * ps, t, 1, dtype == torch.bfloat16, 132)
     assert (splits == 0) == (t > 1 and dtype == torch.float32)
     assert counted == [name if t == 1 else name.replace("attention", "window")]
+
+
+def _window_case(rows, quantized):
+    """A bf16 mixed-round window on the CPU (T = 32, one KV head, H = 128,
+    pages of 64 in a shuffled pool, sentinel past each row's live pages):
+    the plain version's arguments, the table at index 3 (5 over the int8
+    pool)."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_kv
+
+    g = torch.Generator().manual_seed(2)
+    b, t, h, ps, np_tab = len(rows), 32, 128, 64, 64
+    pages = b * np_tab + 3
+    q = torch.randn((b, t, 1, h), generator=g).bfloat16()
+    kp = torch.randn((pages, 1, ps, h), generator=g).bfloat16()
+    vp = torch.randn((pages, 1, ps, h), generator=g).bfloat16()
+    tab = torch.randperm(pages, generator=g)[: b * np_tab].reshape(b, np_tab).int()
+    pos = torch.full((b, t), np_tab * ps, dtype=torch.int32)
+    for i, (start, ql, kvl) in enumerate(rows):
+        pos[i, :ql] = start + torch.arange(ql)
+        tab[i, -(-kvl // ps):] = pages
+    kvl = torch.tensor([r[2] for r in rows], dtype=torch.int32)
+    qln = torch.tensor([r[1] for r in rows], dtype=torch.int32)
+    if not quantized:
+        return (q, kp, vp, tab, pos, None, kvl, qln), 3
+    k8, v8 = quantize_kv(kp), quantize_kv(vp)
+    return (q, k8["q8"], k8["s"], v8["q8"], v8["s"], tab, pos, None, kvl, qln), 5
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("shape", ["chunks_4096", "mixed_t32"])
+def test_window_row_limit_catches_a_dropped_tile(quantized, shape):
+    """chip_smoke.py's per-row limit on the bf16 windows: the plain version
+    with the longest row's middle 64-slot tile left out stays within the
+    absolute bf16 limit but fails the per-row one (`window_control`), while
+    the plain version computed in f32 and rounded to bf16 (rounding alone)
+    passes it."""
+    import chip_smoke as cs
+
+    rows = ([(4064, 32, 4096)] * 2 if shape == "chunks_4096"
+            else cs.mixed_rows(32, 4096))
+    args, ti = _window_case(rows, quantized)
+    plain = (pa.ragged_paged_attention_quantized_plain if quantized
+             else pa.ragged_paged_attention_plain)
+    ref = plain(*args)
+    cs.window_control(torch, plain, args, ti, ref, shape)
+    wide = tuple(x.float() if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16
+                 else x for x in args)
+    assert cs.row_rel_err(plain(*wide).bfloat16(), ref) <= cs.WINDOW_ROW_TOL
+    tab, pos, kvl, row = cs.drop_tile(torch, args[ti], args[ti + 1], args[ti + 3],
+                                      64, args[1].shape[0])
+    fault = plain(*args[:ti], tab, pos, args[ti + 2], kvl, *args[ti + 4:])
+    assert (fault[row].float() - ref[row].float()).abs().max() <= cs.TOL["bfloat16"]
