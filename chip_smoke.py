@@ -6,6 +6,7 @@
     python3 chip_smoke.py --timing-only  # phases 1, 2 and 11 alone
     python3 chip_smoke.py --sweep        # phases 1, 2, then the split sweep
     python3 chip_smoke.py --mixed-only   # phases 1, 2, then phase 6 (a) alone
+    python3 chip_smoke.py --constrained-only  # phases 1, 2, 12, 7 and 8 (b)
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -16,7 +17,9 @@ does the same for the ragged mixed rounds' serve phase on the 7B weights.
 contiguous and paged) at every cluster size of SWEEP_SPLITS beside the
 split plan's pick, at phase 11's shapes, then each paged query window
 (T > 1) at the mixed round's shapes (MIXED_SHAPES) beside
-`window_split_plan`'s pick.
+`window_split_plan`'s pick. `--constrained-only` runs the grammar-constrained
+paths of phases 12 and 8 (b) (with phase 7's schedulers under them) on the
+7B and 3B weights, phase 6 (b)'s overcommit included.
 
 Phases, each fatal on failure:
 
@@ -132,12 +135,15 @@ Phases, each fatal on failure:
    first step alone; the rest at T = 1, recorded at the dispatch seam), no
    flash prefill; the live pool's decode step kernel vs plain.
    (b) overcommit: the 7B paged scheduler at its default max_seq (4096),
-   kv_overcommit 0.5, a burst of six 512-token requests over a pool that
+   kv_overcommit 0.5, a burst of six 512-token requests, the last three
+   under the generic grammar, over a pool that
    holds their admissions (more than one max-length row's 64 pages) and
-   not their budgets: spill mode preempts, restores every
+   not their budgets: spill mode preempts (a constrained request among the
+   victims), restores every
    spilled page and gives the control's tokens; recompute mode preempts
-   and prints how many streams equal the control's and where the others
-   diverge.
+   (a constrained victim too) and prints how many streams equal the
+   control's and where the others diverge; every constrained stream of
+   the three runs passes phase 12's grammar checks.
    (c) admission: max_queue_depth 2 sheds a burst of 12 with Overloaded
    and 1 <= retry_after_s <= 60; `sched:slot_stall:1` retires one request
    SlotStalled after 16 rounds while three beside it complete.
@@ -165,7 +171,15 @@ Phases, each fatal on failure:
    exact; wall and TTFT per request. Then `/api/generate` with
    stream=true on the 7B scheduler: a 32-token completion in more than one
    NDJSON chunk, timed as they arrive through the app's WSGI callable,
-   that join to the blocking text of the same prompt. Then the entry
+   that join to the blocking text of the same prompt.
+   (b) `LSOT_CONSTRAIN_SQL=1`: the app over the same schedulers (the SQL
+   model behind a ByteTokenizer backend) compiles the CSV's columns and
+   the view into the SQL model's grammar; two `POST /process-data/` in
+   turn and two from threads, every SQL generate (the repair loop's
+   included) held to the grammar checks of phase 12 against the CSV's
+   schema, each body the success or the failure shape; `/api/generate`
+   with `constrain: "spark_sql"` answers 200 with SQL that parses; launch
+   counts exact. Then the entry
    point as a user starts it, `python -m llm_based_apache_spark_optimization_tpu_torch.app
    --backend tiny --api` in a process of its own on the card: one `POST
    /process-data/` over HTTP on localhost, then SIGTERM, and it must drain
@@ -246,6 +260,26 @@ Phases, each fatal on failure:
    the int4 matmul for 7B's `wq` and `wd` at R =
    1, 4, 8 (decode) and 1024 (a prefill chunk). The bound is the larger of the bytes over 3.35 TB/s
    and the FLOPs over 989 TFLOP/s (H100 SXM, bf16 dense).
+
+12. Constrained decoding, run after phase 9 (grammar masks over the ported kernels; the
+   grammars, generic `spark_sql` and the prompts' `trips` schema, are
+   compiled over the ByteTokenizer before phase 5, their device table
+   bytes printed beside the card):
+   (a) the 7B engine: the three NL->SQL prompts as one batch under each
+   grammar and unconstrained (the control; the decode step walls of the
+   three printed beside the card), one schema request at max_new_tokens
+   == min_new_tokens, one over the int8 cache;
+   (b) the 7B paged scheduler with ragged mixed rounds over the bf16 pool:
+   six requests at once, two generic, one free, two schema, one free, so
+   the schema pair waits for the generic pair to drain and the tables swap
+   (grammar swaps == grammar changes == 2);
+   (c) the same with int4 weights over the int8 pool.
+   Every constrained completion of phases 6 (b), 8 (b) and 12 must end at
+   a stop id within its budget, walk the grammar token by token, parse
+   under the port's `parse_spark_sql` and, under a schema grammar, name
+   only its columns and table; the unconstrained controls must parse
+   below 100%. Launch counts exact on every path, and the constrained
+   paths together launch every kernel of the `kernels` line.
 
 Every phase prints its seconds.
 
@@ -1177,14 +1211,19 @@ def small_variants(cfg, cpu_params, gpu_params, kv_quant, label, sched_prompts):
 
 # ----------------------------------------------------------------- serve
 
-SCHEMA = "\n".join(f"{c} ({t})" for c, t in [
+SCHEMA_COLUMNS = [
     ("trip_id", "bigint"), ("pickup_datetime", "timestamp"),
     ("dropoff_datetime", "timestamp"), ("passenger_count", "int"),
     ("trip_distance", "double"), ("pickup_zone", "string"),
     ("dropoff_zone", "string"), ("payment_type", "string"),
     ("fare_amount", "double"), ("tip_amount", "double"),
     ("total_amount", "double"),
-])
+]
+SCHEMA = "\n".join(f"{c} ({t})" for c, t in SCHEMA_COLUMNS)
+# The grammars of the constrained phases: the generic Spark-SQL grammar and
+# the prompts' own schema (table `trips`).
+GRAMMAR_SPECS = {"generic": "spark_sql",
+                 "schema": {"table": "trips", "columns": [c for c, _ in SCHEMA_COLUMNS]}}
 SYSTEM_SQL = f"Table name is trips. The structure of the table is:\n{SCHEMA}"
 QUESTIONS = [
     "What is the average fare amount for each passenger count?",
@@ -1678,29 +1717,36 @@ def mixed_serve(torch, engines):
 OVERCOMMIT_NEW = 512
 
 
-def burst(sched, prompts, max_new):
+def burst(sched, prompts, max_new, constraints=None):
     """Submit `prompts` at once (a long GIL switch interval keeps the worker
-    from admitting any before all are queued) and return their tokens."""
+    from admitting any before all are queued), request i under grammar
+    `constraints[i]` when given, and return their tokens."""
+    constraints = constraints or [None] * len(prompts)
     switch = sys.getswitchinterval()
     sys.setswitchinterval(BURST_SWITCH_S)
     try:
-        futs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
+        futs = [sched.submit(p, max_new_tokens=max_new, constraint=c)
+                for p, c in zip(prompts, constraints)]
     finally:
         sys.setswitchinterval(switch)
     return [f.result(timeout=600) for f in futs]
 
 
-def overcommit_serve(torch, engines):
+def overcommit_serve(torch, engines, tally):
     """Overcommit at full width: the 7B paged bf16 scheduler (phase 6's
     settings, max_seq 4096) with kv_overcommit 0.5 over a pool that holds the six burst
     requests' admissions (prompt + half the 512-token budget) but not their
-    whole budgets, so top-ups fail and preempt. A control with the same
-    admissions over a pool big enough for every budget preempts nothing.
-    Spill mode: preemptions >= 1, pages spilled == restored, tokens equal to
-    the control's. Recompute mode: preemptions >= 1; the number of streams
+    whole budgets, so top-ups fail and preempt. The last three requests of
+    the burst decode under the generic grammar (admitted last, they have
+    the fewest tokens when a top-up fails: victims first). A control with
+    the same admissions over a pool big enough for every budget preempts
+    nothing. Spill mode: preemptions >= 1, a constrained victim among them,
+    pages spilled == restored, tokens equal to the control's. Recompute
+    mode: preemptions >= 1, a constrained victim; the number of streams
     equal to the control's and the first diverging token index are printed
     (a re-prefill computes the K/V of generated positions with other matmul
-    shapes than the decode steps that wrote them). Launch counts exact over
+    shapes than the decode steps that wrote them). Every constrained stream
+    of the three runs passes the grammar checks. Launch counts exact over
     the three runs. Returns them."""
     from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import bucket_len
     from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
@@ -1721,6 +1767,9 @@ def overcommit_serve(torch, engines):
     cfg, n_layers = eng.cfg, eng.cfg.num_layers
     prompts = [tok.encode(f"Overcommit request {i}. {SYSTEM_SQL}\n\n{q}")
                for i, q in enumerate(SCHED_SQL[2:])]
+    stops = resolve_stop_ids(cfg, tok)
+    generic = grammar("generic", tok, stops)
+    constraints = [None, None, None, generic, generic, generic]
     ps, overshoot = SCHED["kv_page_size"], 2 * SCHED["decode_chunk"]
     admit = sum(pages_for_tokens(bucket_len(len(p), 128) + OVERCOMMIT_NEW // 2 + overshoot,
                                  ps) for p in prompts)
@@ -1728,33 +1777,49 @@ def overcommit_serve(torch, engines):
     # A pool must hold one max-length row: the admissions must exceed it.
     assert admit + 2 >= pages_for_tokens(cfg.max_seq_len, ps) and full > admit + 2, \
         (admit, full)
-    kw = dict(SCHED, stop_ids=resolve_stop_ids(cfg, tok), kv_overcommit=0.5,
-              device="cuda")
+    kw = dict(SCHED, stop_ids=stops, kv_overcommit=0.5, device="cuda")
     runs = {"control": dict(kv_pages=full + 16), "spill": dict(kv_pages=admit + 2,
                                                                   kv_spill=True),
             "recompute": dict(kv_pages=admit + 2, kv_spill=False)}
     print(f"  six requests of {[len(p) for p in prompts]} prompt tokens x "
           f"{OVERCOMMIT_NEW} new: admissions take {admit} pages of {ps}, whole budgets "
           f"{full}; pools {({k: v['kv_pages'] for k, v in runs.items()})}", flush=True)
+    victims = {}
+    preempt = ContinuousBatchingScheduler._preempt_slot
+
+    def spy(self, slot):  # records whether each victim was constrained
+        victims[name].append(self._slot_req[slot].constraint is not None)
+        preempt(self, slot)
+
     torch.cuda.synchronize()
     reset_launches()
     want = dict.fromkeys(LAUNCHES, 0)
     toks, stats = {}, {}
-    for name, extra in runs.items():
-        t0 = time.perf_counter()
-        with ContinuousBatchingScheduler(cfg, eng.params, **kw, **extra) as sched:
-            toks[name] = burst(sched, prompts, OVERCOMMIT_NEW)
-            st = wait_idle(sched)
-        wait_settled(sched)
-        sched._page_alloc.check()
-        stats[name] = st
-        expect_paged(want, sched, sched.rounds_issued, sched.prefill_forwards)
-        print(f"  {name}: {time.perf_counter() - t0:.1f} s, {sched.rounds_issued} rounds, "
-              f"{sched.prefill_forwards} prefill forwards; preemptions "
-              f"{st['preemptions']}, spilled {st['spilled_pages']}, restored "
-              f"{st['restored_pages']}, page waits {st['page_waits']}, tokens "
-              f"{[len(t) for t in toks[name]]}", flush=True)
-        del sched
+    ContinuousBatchingScheduler._preempt_slot = spy
+    try:
+        for name, extra in runs.items():
+            victims[name] = []
+            t0 = time.perf_counter()
+            with ContinuousBatchingScheduler(cfg, eng.params, **kw, **extra) as sched:
+                toks[name] = burst(sched, prompts, OVERCOMMIT_NEW, constraints)
+                st = wait_idle(sched)
+            wait_settled(sched)
+            sched._page_alloc.check()
+            stats[name] = st
+            expect_paged(want, sched, sched.rounds_issued, sched.prefill_forwards)
+            print(f"  {name}: {time.perf_counter() - t0:.1f} s, {sched.rounds_issued} "
+                  f"rounds, {sched.prefill_forwards} prefill forwards; preemptions "
+                  f"{st['preemptions']} (constrained victims {sum(victims[name])}), "
+                  f"spilled {st['spilled_pages']}, restored {st['restored_pages']}, page "
+                  f"waits {st['page_waits']}, tokens {[len(t) for t in toks[name]]}",
+                  flush=True)
+            for c, out in zip(constraints, toks[name]):
+                if c is not None:
+                    check_constrained(tally, f"overcommit_{name}", c, "spark_sql", out,
+                                      OVERCOMMIT_NEW, stops, tok)
+            del sched
+    finally:
+        ContinuousBatchingScheduler._preempt_slot = preempt
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     ctl = toks["control"]
@@ -1769,6 +1834,7 @@ def overcommit_serve(torch, engines):
     assert stats["control"]["preemptions"] == 0
     for name in ("spill", "recompute"):
         assert stats[name]["preemptions"] >= 1, f"{name}: the pool never preempted"
+        assert any(victims[name]), f"{name}: no constrained request was preempted"
     assert stats["spill"]["spilled_pages"] > 0
     assert stats["spill"]["spilled_pages"] == stats["spill"]["restored_pages"]
     assert toks["spill"] == ctl, "spill resumes changed the tokens"
@@ -2377,7 +2443,7 @@ def quantized_serve(torch, engines, profile=False):
     and the int8 KV cache, behind an EngineBackend and a paged
     SchedulerBackend. Exact launch counts, prefill logits kernel vs plain,
     prefix sharing with no leaked page, the live int8 pool's decode step.
-    Returns the launch counts per path."""
+    Returns the launch counts per path and the int4 tree."""
     from concurrent.futures import ThreadPoolExecutor
 
     from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
@@ -2568,7 +2634,397 @@ def quantized_serve(torch, engines, profile=False):
     sb.shutdown()
     live_cache_logits(torch, sched)
     return {"engine": engine_launches, "scheduler": sched_launches,
-            "contiguous": contig_launches}
+            "contiguous": contig_launches}, params4
+
+
+# ------------------------------------------------------ constrained decoding
+
+
+def grammar(name, tok, stop_ids):
+    """The compiled grammar `name` of GRAMMAR_SPECS over `tok` and
+    `stop_ids` (compiled once a process, by constrain's cache)."""
+    from llm_based_apache_spark_optimization_tpu_torch.constrain import get_constraint
+
+    return get_constraint(GRAMMAR_SPECS[name], tok, stop_ids)
+
+
+def compile_grammars(torch, cfg, smi):
+    """Compile GRAMMAR_SPECS over the ByteTokenizer and the 7B stop ids,
+    move their tables to the card, and print their sizes beside the card."""
+    from llm_based_apache_spark_optimization_tpu_torch.constrain import table_bytes
+    from llm_based_apache_spark_optimization_tpu_torch.serve import resolve_stop_ids
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    stops = resolve_stop_ids(cfg, tok)
+    for name in GRAMMAR_SPECS:
+        t0 = time.perf_counter()
+        c = grammar(name, tok, stops)
+        secs = time.perf_counter() - t0
+        nbytes = table_bytes(c.device_tables(cfg.vocab_size, "cuda"))
+        print(f"  grammar {name}: {c.num_states} states x {c.tok_vocab} ids, "
+              f"min_new_tokens {c.min_new_tokens}, compiled on the host in {secs:.1f} s; "
+              f"device tables (next, need) {nbytes} bytes = {nbytes / 2**20:.1f} MiB "
+              f"on {smi}", flush=True)
+
+
+class GrammarTally:
+    """Every constrained completion the run checked (label, ok) and every
+    unconstrained control completion (label, parses): the summary holds the
+    first at 100% and the second below it."""
+
+    def __init__(self):
+        self.constrained = []
+        self.control = []
+
+    def control_text(self, label, text):
+        from llm_based_apache_spark_optimization_tpu_torch.constrain import (
+            is_valid_spark_sql,
+        )
+
+        self.control.append((label, is_valid_spark_sql(text)))
+
+    def summary(self):
+        n, ok = len(self.constrained), sum(v for _, v in self.constrained)
+        m, parsed = len(self.control), sum(v for _, v in self.control)
+        labels = sorted({lb for lb, _ in self.constrained})
+        print(f"  constrained completions parsing: {ok} of {n} ({100.0 * ok / max(1, n):.1f}%) "
+              f"over {labels}; unconstrained control parsing: {parsed} of {m} "
+              f"({100.0 * parsed / max(1, m):.1f}%)", flush=True)
+        assert n and ok == n, "a constrained completion failed its grammar checks"
+        assert m and parsed < m, "the unconstrained control parsed at 100%"
+
+
+def schema_names(text, spec):
+    """The identifiers of `text` outside string literals that are neither
+    reserved words nor aliases (the word after AS) nor `spec`'s columns or
+    table, case-insensitively: empty for a schema-constrained completion."""
+    import re
+
+    from llm_based_apache_spark_optimization_tpu_torch.constrain import RESERVED
+
+    allowed = {c.lower() for c in spec["columns"]} | {spec["table"].lower()}
+    reserved = {w.lower() for w in RESERVED}
+    words = re.findall(r"[A-Za-z_][A-Za-z0-9_]*", re.sub(r"'[^']*'", "''", text))
+    return [w for i, w in enumerate(words)
+            if w.lower() not in reserved | allowed
+            and not (i and words[i - 1].lower() == "as")]
+
+
+def check_constrained(tally, label, c, spec, out, budget, stop_ids, tok):
+    """Hold one constrained completion `out` (token ids, its stop id kept
+    by the engine or stripped by the scheduler) to its grammar: it ends at
+    a stop id within `budget`, every token stays in the language (`walk`
+    over the tokens and the stop id), the text parses under the port's
+    `parse_spark_sql`, and under a schema grammar it names only the
+    schema's columns and table. Fatal on failure. Returns the text."""
+    from llm_based_apache_spark_optimization_tpu_torch.constrain import parse_spark_sql
+
+    body = out[:-1] if out and out[-1] in stop_ids else out
+    used = len(body) + 1  # the stop id is spent from the budget too
+    text = tok.decode(body)
+    walked = c.walk(list(body) + [c.eos_ids[0]]) is not None
+    try:
+        parse_spark_sql(text)
+        parsed = True
+    except ValueError:
+        parsed = False
+    strays = schema_names(text, spec) if isinstance(spec, dict) else []
+    ok = used <= budget and walked and parsed and not strays
+    tally.constrained.append((label, ok))
+    assert ok, (f"{label}: constrained completion {text!r} ({len(body)} tokens, budget "
+                f"{budget}): stop within budget {used <= budget}, walk {walked}, parses "
+                f"{parsed}, names outside the schema {strays}")
+    return text
+
+
+def constrained_engine(torch, engines, tally, smi):
+    """Phase 12 (a): the 7B engine (bf16 weights, contiguous cache) under
+    each grammar: the three NL->SQL prompts as one batch, greedy, MAX_NEW
+    new tokens; the same batch unconstrained (the control, and the
+    unconstrained step wall of the same call); one schema request at
+    max_new_tokens == min_new_tokens; one schema request over the int8
+    cache; the unconstrained batch again (its step wall beside the first).
+    Launch counts exact. Returns them."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    eng = engines["duckdb-nsql"]
+    cfg, n_layers, stops = eng.cfg, eng.cfg.num_layers, eng.stop_ids
+    eng8 = InferenceEngine(cfg, eng.params, device="cuda", stop_ids=stops, kv_quant="int8")
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in QUESTIONS]
+    expected = dict.fromkeys(LAUNCHES, 0)
+
+    def run(engine, ps, budget, c):
+        t0 = time.perf_counter()
+        out = engine.generate(ps, max_new_tokens=budget, constraint=c)
+        wall = time.perf_counter() - t0
+        st = engine.last_stats
+        expected["flash_gqa_prefill"] += n_layers
+        decode = "flash_gqa_decode_quantized" if engine.kv_quant else "flash_gqa_decode"
+        expected[decode] += n_layers * st["decode_steps"]
+        step_ms = 1e3 * (wall - st["ttft_s"]) / max(1, st["decode_steps"])
+        return out, step_ms, st["decode_steps"]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    walls = {}
+    free, walls["unconstrained"], steps = run(eng, prompts, MAX_NEW, None)
+    walls["unconstrained"] = (walls["unconstrained"], steps)
+    for out in free:
+        tally.control_text("engine", tok.decode(out))
+    for name, spec in GRAMMAR_SPECS.items():
+        c = grammar(name, tok, stops)
+        outs, ms, steps = run(eng, prompts, MAX_NEW, c)
+        walls[name] = (ms, steps)
+        for out in outs:
+            text = check_constrained(tally, "engine", c, spec, out, MAX_NEW, stops, tok)
+            print(f"    engine {name}: {text!r}", flush=True)
+    c = grammar("schema", tok, stops)
+    (out,), _, _ = run(eng, prompts[:1], c.min_new_tokens, c)
+    text = check_constrained(tally, "engine_min_new", c, GRAMMAR_SPECS["schema"], out,
+                             c.min_new_tokens, stops, tok)
+    print(f"    engine schema at max_new_tokens == min_new_tokens == {c.min_new_tokens}: "
+          f"{text!r}", flush=True)
+    (out,), _, _ = run(eng8, prompts[1:2], MAX_NEW, c)
+    text = check_constrained(tally, "engine_int8", c, GRAMMAR_SPECS["schema"], out,
+                             MAX_NEW, stops, tok)
+    print(f"    engine schema over the int8 cache: {text!r}", flush=True)
+    _, ms, steps = run(eng, prompts, MAX_NEW, None)  # the free batch again, last
+    walls["unconstrained, again"] = (ms, steps)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print("  engine decode step wall, batch of 3, 7B bf16: " + ", ".join(
+        f"{k} {ms:.3f} ms ({n} steps)" for k, (ms, n) in walls.items()) + f" on {smi}",
+        flush=True)
+    print(f"  launches {launches} expected {expected}", flush=True)
+    assert launches == expected, f"launch counts {launches} != {expected}"
+    return launches
+
+
+def constrained_scheduler(torch, cfg, params, tally, kv_quant=None):
+    """Phase 12 (b) and (c): the 7B paged scheduler with ragged mixed rounds
+    (phase 6's settings; bf16 weights over the bf16 pool, or int4 weights
+    over the int8 pool) serves six requests at once: two under the generic
+    grammar, one free, two under the schema grammar, one free. The schema
+    requests wait for the generic ones to drain, then the tables swap: the
+    swap count must equal the grammar changes of the submission order (2).
+    Launch counts exact; no leaked page. Returns the launches."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        resolve_stop_ids,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    stops = resolve_stop_ids(cfg, tok)
+    plan = ["generic", "generic", None, "schema", "schema", None]
+    changes = sum(1 for i, g in enumerate(plan)
+                  if g and g != next((h for h in reversed(plan[:i]) if h), None))
+    constraints = [grammar(g, tok, stops) if g else None for g in plan]
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in SCHED_SQL[2:]]
+    sched = ContinuousBatchingScheduler(cfg, params, stop_ids=stops, ragged=True,
+                                        kv_quant=kv_quant, device="cuda", **SCHED).start()
+    label = "scheduler_int4_int8" if kv_quant else "scheduler"
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = burst(sched, prompts, MAX_NEW, constraints)
+        wall = time.perf_counter() - t0
+        stats = wait_idle(sched)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        sched.shutdown()
+    want = dict.fromkeys(LAUNCHES, 0)
+    expect_paged(want, sched, sched.rounds_issued, sched.prefill_forwards)
+    for g, c, out in zip(plan, constraints, outs):
+        if c is None:
+            tally.control_text(label, tok.decode(out))
+            continue
+        text = check_constrained(tally, label, c, GRAMMAR_SPECS[g], out, MAX_NEW, stops, tok)
+        print(f"    {label} {g}: {text!r}", flush=True)
+    print(f"  {label}: six requests in {wall:.3f} s, {sched.rounds_issued} rounds "
+          f"({sched.mixed_rounds} mixed, {sched.ragged_prefills} ragged prefills); "
+          f"grammar swaps {sched.grammar_swaps} for {changes} grammar changes; tokens "
+          f"{[len(o) for o in outs]}; pages {stats}", flush=True)
+    print(f"  launches {launches} expected {want}", flush=True)
+    assert launches == want, f"launch counts {launches} != {want}"
+    assert sched.grammar_swaps == changes == 2, "grammar swaps != grammar changes"
+    sched._page_alloc.check()
+    st = sched.page_stats
+    assert st["pages_in_use"] == st["prefix_resident_pages"], f"leaked pages: {st}"
+    return launches
+
+
+def constrained_app(torch, scheds, tally, smi):
+    """Phase 8 (b): `LSOT_CONSTRAIN_SQL=1`: the port's app over the
+    contiguous schedulers compiles the uploaded CSV's columns and the view
+    into the SQL model's grammar (the SQL model behind a ByteTokenizer
+    backend: the grammar's tables are the tokenizer's width). Two
+    `POST /process-data/` one after the other under `sql:schema:1` (every
+    execution fails typed, so each request runs the repair loop's two
+    regenerations through the grammar, then the 3B explanation), then two
+    from threads without it; each SQL generate must pass the grammar
+    checks against the CSV's schema; a body is the success or the failure
+    shape of tests/test_app.py. Then `/api/generate` with
+    `constrain: "spark_sql"` answers 200 with SQL that parses. Launch
+    counts exact. Returns them."""
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_based_apache_spark_optimization_tpu_torch.app import AppConfig, create_api_app
+    from llm_based_apache_spark_optimization_tpu_torch.constrain import (
+        is_valid_spark_sql,
+        table_bytes,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        GenerationService,
+        SchedulerBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    generated = []
+    lock = threading.Lock()
+    tok = ByteTokenizer()
+    sql_backend = SchedulerBackend(scheds["duckdb-nsql"], tok, max_new_tokens=MAX_NEW)
+
+    class RecordingService(GenerationService):
+        def generate(self, model, prompt, *a, **kw):
+            res = super().generate(model, prompt, *a, **kw)
+            with lock:
+                generated.append((model, kw.get("constrain"), res))
+            return res
+
+    svc = RecordingService()
+    svc.register("duckdb-nsql", sql_backend)
+    svc.register("llama3.2", SchedulerBackend(scheds["llama3.2"], ByteModTokenizer(),
+                                              max_new_tokens=MAX_NEW, add_bos=False),
+                 template="llama3-chat")
+    before = os.environ.get("LSOT_CONSTRAIN_SQL")
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "input"))
+        with open(os.path.join(root, "input", "taxi.csv"), "w") as f:
+            f.write(CSV)
+        os.environ["LSOT_CONSTRAIN_SQL"] = "1"
+        try:
+            cfg = AppConfig.from_env(input_dir=os.path.join(root, "input"),
+                                     output_dir=os.path.join(root, "output"),
+                                     history_db=":memory:", max_new_tokens=MAX_NEW)
+        finally:
+            if before is None:
+                os.environ.pop("LSOT_CONSTRAIN_SQL")
+            else:
+                os.environ["LSOT_CONSTRAIN_SQL"] = before
+        assert cfg.constrain_sql
+        client = create_api_app(svc, SQLiteBackend, SQLiteHistory(":memory:"),
+                                cfg).test_client()
+
+        def post(qn):
+            t = time.perf_counter()
+            res = client.post_json("/process-data/", {"input_text": qn, "file_name": "taxi.csv"})
+            return res, time.perf_counter() - t
+
+        torch.cuda.synchronize()
+        reset_launches()
+        start = {n: (sc.rounds_issued, sc.prefill_forwards) for n, sc in scheds.items()}
+        FAULTS.configure("sql:schema:1", 0)
+        try:
+            responses = [post(qn) for qn in APP_QUESTIONS[:2]]
+        finally:
+            FAULTS.clear()
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            responses += list(pool.map(post, APP_QUESTIONS[2:4]))
+        gen = client.post_json("/api/generate", {"model": "duckdb-nsql",
+                                                 "prompt": STREAM_PROMPT,
+                                                 "constrain": "spark_sql"})
+        for sc in scheds.values():
+            wait_settled(sc)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    expected = dict.fromkeys(LAUNCHES, 0)
+    for n, sc in scheds.items():
+        expect_contiguous(expected, sc, sc.rounds_issued - start[n][0],
+                          sc.prefill_forwards - start[n][1])
+    columns = CSV.splitlines()[0].split(",")
+    spec = {"table": cfg.view_name, "columns": columns}
+    c = sql_backend._resolve_constraint(spec)
+    nbytes = table_bytes(c.device_tables(scheds["duckdb-nsql"].cfg.vocab_size, "cuda"))
+    print(f"  the CSV's grammar: {c.num_states} states x {c.tok_vocab} ids, min_new_tokens "
+          f"{c.min_new_tokens}; installed device tables {nbytes} bytes = "
+          f"{nbytes / 2**20:.1f} MiB on {smi}", flush=True)
+    sql_gens = [(con, r) for m, con, r in generated if m == "duckdb-nsql"]
+    for con, r in sql_gens:
+        assert con in (spec, "spark_sql"), f"an SQL generate ran with constrain={con!r}"
+        cc = c if con == spec else sql_backend._resolve_constraint(con)
+        # The backend strips the stop id: the text re-encodes to the tokens.
+        check_constrained(tally, "app", cc, con, tok.encode(r.response, add_bos=False),
+                          MAX_NEW, cc.eos_ids, tok)
+    for i, (res, t) in enumerate(responses):
+        body = res.json()
+        print("  " + json.dumps(dict(status=res.status, wall_s=round(t, 4),
+                                     sql=body.get("sql_query"), keys=sorted(body))),
+              flush=True)
+        assert res.status == 200, body
+        if i < 2:  # under sql:schema:1 every execution failed
+            assert body.get("error") == "SQL execution failed", body
+        assert set(body) in ({"error", "sql_query", "error_details"},
+                             {"message", "input_file_name", "input_data", "sql_query",
+                              "output_file"}), body
+    reply = gen.json()
+    print(f"  /api/generate constrain=spark_sql: {gen.status} {reply.get('response')!r}",
+          flush=True)
+    assert gen.status == 200 and is_valid_spark_sql(reply["response"]), reply
+    repairs = sum(con == spec for con, _ in sql_gens) - len(responses)
+    print(f"  {len(sql_gens)} constrained SQL generates ({len(responses)} requests, "
+          f"{repairs} repair regenerations, one /api/generate); launches {launches} "
+          f"expected {expected}", flush=True)
+    assert repairs >= 4, "the repair loop did not regenerate through the grammar"
+    assert launches == expected, f"launch counts {launches} != {expected}"
+    return launches
+
+
+def constrained_paths(torch, engines, params4, tally, smi):
+    """Phase 12: (a) the 7B engine, (b) the 7B paged ragged scheduler over
+    the bf16 pool and, given the int4 tree `params4`, (c) the same over the
+    int8 pool with int4 weights, each under the grammars. Returns the
+    launches per path."""
+    cfg = engines["duckdb-nsql"].cfg
+    phase("constrained decoding (a): the engine, bf16 and int8 cache")
+    out = {"constrained_engine": constrained_engine(torch, engines, tally, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("constrained decoding (b): the paged ragged scheduler, bf16 pool")
+    out["constrained_scheduler"] = constrained_scheduler(
+        torch, cfg, engines["duckdb-nsql"].params, tally)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if params4 is not None:
+        phase("constrained decoding (c): the paged ragged scheduler, int4 weights, "
+              "int8 pool")
+        out["constrained_scheduler_int4_int8"] = constrained_scheduler(
+            torch, cfg, params4, tally, kv_quant="int8")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ checkpoints
@@ -3748,6 +4204,10 @@ def main() -> int:
     ap.add_argument("--mixed-only", action="store_true",
                     help="build and run the ragged mixed rounds' serve phase alone "
                          "on the 7B weights (prints its requests and no ok line)")
+    ap.add_argument("--constrained-only", action="store_true",
+                    help="build and run phase 12 and phase 8 (b), the constrained "
+                         "paths, alone on the 7B and 3B weights (prints their checks "
+                         "and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -3804,6 +4264,29 @@ def main() -> int:
         phase(None)
         print(json.dumps({"phase_seconds": _PHASE["seconds"], "device": smi}))
         return 0
+    if args.constrained_only:
+        phase("constrained decoding (grammar tables)")
+        compile_grammars(torch, DUCKDB_NSQL_7B, smi)
+        tally = GrammarTally()
+        from llm_based_apache_spark_optimization_tpu_torch.models import LLAMA32_3B
+
+        from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+            quantize_params_int4,
+        )
+
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),
+                                       ("llama3.2", LLAMA32_3B)))
+        constrained_paths(torch, engines,
+                          quantize_params_int4(engines["duckdb-nsql"].params), tally, smi)
+        phase("serve (overcommit: preemption, spill and recompute)")
+        overcommit_serve(torch, engines, tally)
+        phase("constrained app (phase 8 (b))")
+        _, scheds = contiguous_serve(torch, engines)
+        constrained_app(torch, scheds, tally, smi)
+        tally.summary()
+        phase(None)
+        print(json.dumps({"phase_seconds": _PHASE["seconds"], "device": smi}))
+        return 0
     if args.sweep:
         phase("split sweep")
         swept = sweep(torch, attn_mod, pa_mod, pw_mod, DUCKDB_NSQL_7B)
@@ -3824,6 +4307,10 @@ def main() -> int:
     small_reference(torch)
     small_reference(torch, quantized=True)
 
+    phase("constrained decoding (grammar tables)")
+    compile_grammars(torch, DUCKDB_NSQL_7B, smi)
+    tally = GrammarTally()
+
     phase("serve (engine path)")
     launches, engines, svc = serve(torch)
     if args.profile:
@@ -3841,7 +4328,7 @@ def main() -> int:
     mixed_launches = mixed_serve(torch, engines)
 
     phase("serve (overcommit: preemption, spill and recompute)")
-    overcommit_launches = overcommit_serve(torch, engines)
+    overcommit_launches = overcommit_serve(torch, engines, tally)
 
     phase("serve (admission control and slot stalls)")
     admission_launches = admission_serve(torch, engines)
@@ -3852,6 +4339,8 @@ def main() -> int:
     phase("app (POST /process-data/ and /api/generate streaming on the contiguous "
           "schedulers)")
     app_launches, stream_launches = app_serve(torch, contig_scheds)
+    phase("app under LSOT_CONSTRAIN_SQL=1 (phase 8 (b))")
+    constrained_app_launches = constrained_app(torch, contig_scheds, tally, smi)
     for sc in contig_scheds.values():
         sc.shutdown()
     del contig_scheds
@@ -3859,7 +4348,12 @@ def main() -> int:
     entry_point(torch)
 
     phase("serve (quantized path: int4 weights, int8 KV)")
-    q_launches = quantized_serve(torch, engines, args.profile)
+    q_launches, params4 = quantized_serve(torch, engines, args.profile)
+
+    constrained_launches = constrained_paths(torch, engines, params4, tally, smi)
+    del params4
+    constrained_launches["constrained_app"] = constrained_app_launches
+    tally.summary()
 
     ckpt_launches = checkpoints(torch, engines)
 
@@ -3902,12 +4396,16 @@ def main() -> int:
              "quantized_engine": q_launches["engine"],
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
-             **ckpt_launches}
+             **ckpt_launches, **constrained_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
                  "write": {"bfloat16": 0.0, "float32": 0.0},
                  "write_q": {"bfloat16": 0.0, "float32": 0.0},
                  "int4": {f"{d}_over_max_abs_out": v for d, v in INT4_TOL.items()}}
+    for launch in names:  # the constrained paths ran every kernel of the table
+        assert any(c[counters[launch]] for c in (*constrained_launches.values(),
+                                                 overcommit_launches)), \
+            f"no constrained path launched {names[launch]}"
     kernels = []
     for launch in names:
         tm = timed[launch]

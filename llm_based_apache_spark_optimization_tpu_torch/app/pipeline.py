@@ -16,8 +16,10 @@ shapes kept):
     (same user-facing behavior, without unbound-variable crashes).
 
 A copy of the JAX package's `app/pipeline.py` over the port's serving
-stack. Schema-constrained generation (`constrain_sql`) raises: grammar
-constraint is not ported (ROADMAP A8).
+stack, schema-constrained generation (`constrain_sql`) included: the
+uploaded CSV's identifier-shaped columns and the view name are compiled
+into the SQL model's grammar, and the repair loop regenerates through the
+same grammar.
 """
 
 from __future__ import annotations
@@ -85,10 +87,6 @@ class Pipeline:
         SparkSession-wide view across all users, `Flask/app.py:16,113`)."""
         from ..sql.backend import ResilientSQLBackend
 
-        if config.constrain_sql:
-            raise NotImplementedError(
-                "constrain_sql (LSOT_CONSTRAIN_SQL) needs grammar-constrained "
-                "decoding, which is not ported (ROADMAP A8)")
         self.service = service
         raw_factory = (
             sql_backend if callable(sql_backend) else (lambda: sql_backend)
@@ -161,8 +159,49 @@ class Pipeline:
         result.table_schema = schema.prompt_lines()
 
         status("processing", ST_GEN)
-        # Unconstrained: the constructor refuses constrain_sql.
+        # Schema-aware constrained decoding (opt-in, constrain/): the SAME
+        # schema string that seeds the prompt is compiled into the
+        # decoder's identifier grammar — the model cannot hallucinate a
+        # column that is not in the uploaded table, and the L3
+        # error-diagnosis path stops being the only defense against
+        # unparseable SQL.
         constrain = None
+        if cfg.constrain_sql:
+            from ..constrain.grammar import is_constrainable_identifier
+
+            # Only identifier-shaped headers can enter the grammar (a CSV
+            # column like "Trip Distance" is quoted by the SQL backend but
+            # cannot be emitted unambiguously by the decoder); with no
+            # usable column the run degrades to unconstrained rather than
+            # failing the request.
+            # The view name enters the grammar's table branch exactly like
+            # columns enter the identifier branch — same shape rule, same
+            # degrade-to-unconstrained policy (LSOT_VIEW_NAME is
+            # env-settable; a reserved or quoted-only name must not turn
+            # every upload into a deep compile error).
+            if not is_constrainable_identifier(cfg.view_name):
+                log.warning(
+                    "constrain_sql: view name %r is not identifier-shaped; "
+                    "generating unconstrained", cfg.view_name,
+                )
+            else:
+                cols = [c for c in schema.columns
+                        if is_constrainable_identifier(c)]
+                dropped = [c for c in schema.columns if c not in cols]
+                if dropped:
+                    # Loud either way: a dropped column is UNSPELLABLE
+                    # under the grammar, so questions about it will be
+                    # answered with confidently wrong SQL over the
+                    # remaining columns.
+                    log.warning(
+                        "constrain_sql: column(s) %s in %s are not "
+                        "identifier-shaped and cannot enter the grammar — "
+                        "the model cannot reference them%s",
+                        dropped, file_name,
+                        "" if cols else "; generating unconstrained",
+                    )
+                if cols:
+                    constrain = {"table": cfg.view_name, "columns": cols}
         # §2.2 NL→SQL system prompt, verbatim (FastAPI/app.py:85-89).
         res = self.service.generate(
             model=cfg.sql_model,

@@ -18,6 +18,13 @@ With `kv_quant="int8"` the prefill fills the compute-dtype cache, then
 `quantize_cache` converts it once to the int8 cache (int8 values plus one
 f32 scale per slot), and every decode step writes and reads that cache (the
 quantized flash decode kernel on the card).
+
+With a grammar `constraint` (a compiled `constrain.CompiledMask`), the first
+token is masked to the tokens whose completion fits the whole budget
+(`need[init] <= budget`) and every step to `need[state] <= budget - step`;
+each row's FSM state advances with its token and freezes once the row has
+stopped, so every completion parses whenever the budget is at least the
+grammar's `min_new_tokens`.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from .. import resolve_device
 from ..models.configs import LlamaConfig
 from ..models.llama import Params, forward
 from ..ops.quant import quantize_cache
-from ..ops.sampling import SamplingParams, sample
+from ..ops.sampling import SamplingParams, apply_token_mask, sample
 from .kvcache import bucket_len, init_cache
 from .paged_kv import default_page_size, pack_prefill_pages
 
@@ -104,9 +111,16 @@ class InferenceEngine:
         max_new_tokens: int = 256,
         sampling: SamplingParams = SamplingParams(),
         seed: int = 0,
+        constraint=None,
     ) -> List[List[int]]:
         if not prompts or not all(prompts):
             raise ValueError("generate needs at least one non-empty prompt")
+        if constraint is not None and max_new_tokens < constraint.min_new_tokens:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} cannot hold a complete "
+                f"constrained parse (grammar needs >= "
+                f"{constraint.min_new_tokens} tokens incl. the stop id)"
+            )
         cfg, dev = self.cfg, self.device
         t0 = time.perf_counter()
         b = len(prompts)
@@ -138,7 +152,22 @@ class InferenceEngine:
 
         logits, cache = forward(cfg, self.params, tokens, positions, cache,
                                 logit_indices=lengths - 1)
-        cur = sample(logits[:, 0], sampling, gen)
+        first_logits = logits[:, 0]
+        if constraint is not None:
+            from ..constrain import advance_states, allowed_tokens
+
+            tabs = constraint.device_tables(cfg.vocab_size, dev)
+            cstate = torch.full((b,), constraint.init_state, dtype=torch.int32,
+                                device=dev)
+            # The first token is constrained too: allowed iff the tokens it
+            # commits to (itself, the shortest completion after it, the
+            # stop id) fit the whole budget.
+            first_logits = apply_token_mask(first_logits, allowed_tokens(
+                tabs["need"], cstate, torch.full_like(cstate, budget),
+                cfg.vocab_size))
+        cur = sample(first_logits, sampling, gen)
+        if constraint is not None:
+            cstate = advance_states(tabs["next"], cstate, cur)
         done = _is_stop(cur, self.stop_ids)
         out = [cur]
         finished = bool(done.all())  # synchronises: the first token exists
@@ -154,8 +183,20 @@ class InferenceEngine:
         while step < budget and not finished:
             logits, cache = forward(cfg, self.params, cur[:, None], pos[:, None],
                                     cache)
-            nxt = sample(logits[:, 0], sampling, gen)
+            step_logits = logits[:, 0]
+            if constraint is not None:
+                # Allowed iff its completion still fits the remaining
+                # budget: a gather and a compare a step.
+                step_logits = apply_token_mask(step_logits, allowed_tokens(
+                    tabs["need"], cstate, torch.full_like(cstate, budget - step),
+                    cfg.vocab_size))
+            nxt = sample(step_logits, sampling, gen)
             nxt = torch.where(done, pad, nxt)
+            if constraint is not None:
+                # Finished rows freeze their state: their pad fill must not
+                # walk the FSM.
+                cstate = torch.where(done, cstate,
+                                     advance_states(tabs["next"], cstate, nxt))
             done = done | _is_stop(nxt, self.stop_ids)
             out.append(nxt)
             cur, pos, step = nxt, pos + 1, step + 1

@@ -3,9 +3,11 @@
 `EngineBackend` tokenizes, runs `engine.generate` and detokenizes; it is
 the counterpart of the JAX package's `serve/backends.EngineBackend` with its
 deadline clamp (a request's remaining deadline exchanged for a step budget
-at the measured seconds a token) and its checkpoint constructors
-(`from_hf_checkpoint`, `from_gguf`), without its grammar constraint
-(ROADMAP A8). `FakeBackend` answers canned text (demos and tests).
+at the measured seconds a token), its grammar constraint (a `constrain=`
+spec, "spark_sql" or a {"table", "columns"} schema, compiled once per
+tokenizer through `resolve_constraint`) and its checkpoint constructors
+(`from_hf_checkpoint`, `from_gguf`). `FakeBackend` answers canned text
+(demos and tests) and takes no constraint.
 """
 
 from __future__ import annotations
@@ -30,6 +32,19 @@ def resolve_stop_ids(cfg, tokenizer) -> tuple:
         if i not in ids:
             ids.append(i)
     return tuple(ids)
+
+
+def resolve_constraint(constrain, tokenizer, stop_ids):
+    """Spec ("spark_sql" / {"table", "columns"} / CompiledMask) -> the
+    compiled grammar tables for a backend's tokenizer and stop ids; None
+    passes through. `get_constraint` caches per (tokenizer, grammar, stop
+    ids), so repeated requests reuse the same tables. Shared by
+    EngineBackend and SchedulerBackend."""
+    if constrain is None:
+        return None
+    from ..constrain import get_constraint
+
+    return get_constraint(constrain, tokenizer, stop_ids)
 
 
 def refuse_unported_load(mesh=None, quantize_int8=False, quantize_int4=False,
@@ -82,6 +97,9 @@ class EngineBackend:
     #: the step budget at issue time and fails an expired one before any
     #: device work.
     supports_deadline = True
+    #: GenerationService forwards a `constrain=` spec only to backends that
+    #: set this.
+    supports_constrain = True
 
     def __init__(
         self,
@@ -180,6 +198,23 @@ class EngineBackend:
         backend degrades to a shorter completion instead of erroring)."""
         return min(max_new_tokens or self.max_new_tokens, self._room(n_prompt_tokens))
 
+    def check_budget(self, prompt: str, max_new_tokens: Optional[int] = None,
+                     constraint=None) -> None:
+        """Raise the ValueError `complete` would raise for a prompt that
+        leaves no decode room, without generating; with a compiled
+        `constraint`, also when the clamped budget cannot hold the
+        grammar's shortest complete parse."""
+        budget = self._budget(len(self.tokenizer.encode(prompt, add_bos=self.add_bos)),
+                              max_new_tokens)
+        if constraint is not None and budget < constraint.min_new_tokens:
+            raise ValueError(
+                f"decode budget {budget} (after the context-room clamp) "
+                f"cannot hold a complete constrained parse (grammar needs "
+                f">= {constraint.min_new_tokens} tokens)")
+
+    def _resolve_constraint(self, constrain):
+        return resolve_constraint(constrain, self.tokenizer, self.engine.stop_ids)
+
     @staticmethod
     def _make_deadline(deadline_s: Optional[float]):
         """Stamp the deadline at request entry, so time queued behind
@@ -241,16 +276,20 @@ class EngineBackend:
 
     def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
-                 deadline_s: Optional[float] = None) -> Completion:
+                 deadline_s: Optional[float] = None, constrain=None) -> Completion:
         deadline = self._make_deadline(deadline_s)
         ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
         budget = self._budget(len(ids), max_new_tokens)
+        # Compiled (once per grammar) outside the timed window: a one-off
+        # precompute inside it would poison the deadline's s/token rate.
+        constraint = self._resolve_constraint(constrain)
         with self._lock:
             budget = self._deadline_budget(budget, deadline)
             t0 = time.perf_counter()
             out = self.engine.generate(
                 [ids], max_new_tokens=budget,
                 sampling=sampling or self.sampling, seed=seed,
+                constraint=constraint,
             )[0]
             self._record_rate(time.perf_counter() - t0, len(out),
                               (1, self.engine.padded_prompt_len(len(ids))))
@@ -259,7 +298,7 @@ class EngineBackend:
     def complete_batch(
         self, prompts: Sequence[str], max_new_tokens: Optional[int] = None,
         sampling: Optional[SamplingParams] = None, seed: int = 0,
-        deadline_s: Optional[float] = None,
+        deadline_s: Optional[float] = None, constrain=None,
     ) -> List[Completion]:
         """One batched prefill and decode loop for all prompts; a deadline
         clamps the shared step budget."""
@@ -267,12 +306,14 @@ class EngineBackend:
         ids = [self.tokenizer.encode(p, add_bos=self.add_bos) for p in prompts]
         longest = max(len(i) for i in ids)
         budget = self._budget(longest, max_new_tokens)
+        constraint = self._resolve_constraint(constrain)  # outside the timer
         with self._lock:
             budget = self._deadline_budget(budget, deadline)
             t0 = time.perf_counter()
             outs = self.engine.generate(
                 ids, max_new_tokens=budget,
                 sampling=sampling or self.sampling, seed=seed,
+                constraint=constraint,
             )
             self._record_rate(time.perf_counter() - t0,
                               max((len(o) for o in outs), default=0),

@@ -120,8 +120,22 @@ and the scheduler's device and stream itself: both are per-thread state.
   multi-byte sequences and a stop text's tail held back); closing it
   cancels the request.
 
-Not ported yet: grammar constraints (ROADMAP A8, the mixed round's
-constrained variant with it), speculation (A9), phase roles and handoff
+- Grammar constraints (`submit(constraint=...)`, a compiled
+  `constrain.CompiledMask`): each slot carries its FSM state and remaining
+  budget on the device (`_cstates`, `_crem`; state 0 is the grammar's
+  all-allowed sentinel, where unconstrained slots sit). A round with a
+  constrained slot masks each step's logits to `need[state] <= remaining`
+  and advances the states of the active slots; a final prefill chunk
+  masks a constrained request's first token to `need[init] <= budget`
+  (chunk rows of a mixed round likewise, decode rows at their state).
+  One grammar's tables are installed at a time: a request with another
+  grammar waits in `_constraint_wait` until the constrained slots drain,
+  then the tables swap (`grammar_swaps`), one swap per grammar change.
+  A resumed request re-derives its state by walking its committed
+  tokens. Rounds without a constrained slot run no grammar op.
+
+Not ported yet: speculation (A9, with its grammar-threaded verify
+window; `constrain.fsm_advance_chain` is its primitive), phase roles and handoff
 (A7.5), `SchedulerPool` (A7.10), profiling and the flight recorder's
 rounds (A7.7), prefix telemetry (A7.8), tenant QoS (A11) and meshes
 (A7.12, A13).
@@ -155,7 +169,12 @@ from ..engine.paged_kv import (
 )
 from ..models.configs import LlamaConfig
 from ..models.llama import _UNROLL_MAX_T, Params, forward
-from ..ops.sampling import SamplingParams, greedy, sample_runtime
+from ..constrain.masks import (
+    advance_states,
+    allowed_tokens,
+    trivial_tables,
+)
+from ..ops.sampling import SamplingParams, apply_token_mask, greedy, sample_runtime
 from .backends import Completion, trim_stop_texts
 from ..utils.faults import FAULTS, InjectedFault
 from ..utils.observability import resilience
@@ -216,6 +235,8 @@ class _Request:
     # Already counted in page_waits (count requests, not retries).
     page_waited: bool = False
     deadline: Optional[Deadline] = None
+    # Grammar constraint (constrain.CompiledMask); None: free decoding.
+    constraint: Optional[object] = None
     # Submit wall clock: the service-time EWMA behind retry_after_hint.
     submitted_at: float = 0.0
     # Slot stall retirement: consecutive harvested rounds in which this
@@ -367,6 +388,19 @@ class ContinuousBatchingScheduler:
         self._topks = torch.zeros(num_slots, dtype=torch.int32, device=dev)
         self._seeds = torch.zeros(num_slots, dtype=torch.int64, device=dev)
         self._counts = torch.zeros(num_slots, dtype=torch.int64, device=dev)
+        # Per-slot grammar FSM state and remaining budget. crem rests at 1
+        # on parked slots: the sentinel row's need is 1, so `need <= crem`
+        # allows everything there.
+        self._cstates = torch.zeros(num_slots, dtype=torch.int32, device=dev)
+        self._crem = torch.ones(num_slots, dtype=torch.int32, device=dev)
+        # The installed grammar and its device tables (the one-row sentinel
+        # tables while none is installed); requests with another grammar
+        # wait in `_constraint_wait` for the constrained slots to drain.
+        self._constraint = None
+        self._ctables = trivial_tables(dev)
+        self._constraint_wait: "deque[_Request]" = deque()
+        #: Grammar table installs (one per grammar change).
+        self.grammar_swaps = 0
         self._slot_req: List[Optional[_Request]] = [None] * num_slots
         # Per-slot occupancy epoch, bumped at admission and retirement; the
         # harvest drops firsts issued under a stale epoch.
@@ -445,12 +479,18 @@ class ContinuousBatchingScheduler:
         position before its prompt starts streaming in."""
         self._cur[slot] = self.cfg.pad_id
         self._pos[slot] = self._park
+        self._cstates[slot] = 0
+        self._crem[slot] = 1
 
-    def _arm_slot(self, slot: int, req: _Request, tok, pos: int, count: int) -> None:
+    def _arm_slot(self, slot: int, req: _Request, tok, pos: int, count: int,
+                  cstate, crem: int) -> None:
         """Arm a slot for decode: its next input token `tok` (a device
-        scalar or an int) at position `pos`, its sampling knobs and its RNG
-        stream at index `count`."""
+        scalar or an int) at position `pos`, its sampling knobs, its RNG
+        stream at index `count`, its grammar state `cstate` (a device scalar
+        or an int) and its remaining grammar budget `crem`."""
         self._cur[slot] = tok
+        self._cstates[slot] = cstate
+        self._crem[slot] = crem
         self._pos[slot] = pos
         self._temps[slot] = req.temperature
         self._topps[slot] = req.top_p
@@ -459,10 +499,11 @@ class ContinuousBatchingScheduler:
         self._counts[slot] = count
 
     def _retire_slot(self, slot: int) -> None:
-        """Reset a retired slot's sampling knobs."""
+        """Reset a retired slot's sampling knobs and grammar state."""
         self._temps[slot] = 0.0
         self._topps[slot] = 1.0
         self._topks[slot] = 0
+        self._cstates[slot] = 0
 
     def _set_row(self, slot: int, row: List[int]) -> None:
         self._ptab[slot] = self._h2d(row, torch.int32)
@@ -739,9 +780,20 @@ class ContinuousBatchingScheduler:
     def _resume_ready(self, slot: int, req: _Request) -> None:
         """Arm a resumed slot from its committed state: the last committed
         token fed again at its own position (its K/V rewrite is the same
-        value), the sample index restored from the host mirror."""
+        value), the sample index restored from the host mirror, the grammar
+        state re-derived by walking the committed tokens."""
         plen = len(req.full_ids)
-        self._arm_slot(slot, req, req.generated[-1], plen - 1, req.rng_count)
+        cstate0 = 0
+        if req.constraint is not None:
+            cstate0 = req.constraint.walk(req.generated)
+            if cstate0 is None:
+                # Committed tokens came out of the masked decode: a dead
+                # walk means corrupted state, never resume into a wrong row.
+                raise RuntimeError(
+                    f"resume FSM replay left the grammar after "
+                    f"{len(req.generated)} committed tokens")
+        self._arm_slot(slot, req, req.generated[-1], plen - 1, req.rng_count,
+                       cstate0, max(0, req.max_new - len(req.generated)))
         req.ready = True
         # Decode rewrites [plen - 1, page_end): copy any page the
         # re-prefill's publish shared.
@@ -818,11 +870,15 @@ class ContinuousBatchingScheduler:
         is served. `on_token` gets each accepted token, in order, from the
         worker thread. With `deadline_s` the request fails with
         `DeadlineExceeded` once that many seconds have passed: at admission,
-        or at the next harvest once in flight. A grammar `constraint`
-        raises (ROADMAP A8)."""
-        if constraint is not None:
-            raise ValueError("grammar-constrained decoding is not ported: "
-                             "ROADMAP A8")
+        or at the next harvest once in flight. With a grammar `constraint`
+        (constrain.CompiledMask) every token is masked to the compiled
+        language and the completion parses; a request with another grammar
+        than the installed one waits for the constrained slots to drain."""
+        if constraint is not None and max_new_tokens < constraint.min_new_tokens:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} cannot hold a complete "
+                f"constrained parse (grammar needs >= "
+                f"{constraint.min_new_tokens} tokens incl. the stop id)")
         if not ids:
             raise ValueError("empty prompt")
         if deadline_s is not None and deadline_s <= 0:
@@ -839,7 +895,7 @@ class ContinuousBatchingScheduler:
             ids=list(ids), max_new=max_new_tokens,
             temperature=sampling.temperature, top_p=sampling.top_p,
             top_k=sampling.top_k, seed=seed, future=Future(),
-            on_token=on_token,
+            on_token=on_token, constraint=constraint,
             deadline=Deadline.after(deadline_s) if deadline_s is not None else None,
         )
         req.future._lsot_request = req  # cancel() handle
@@ -941,6 +997,27 @@ class ContinuousBatchingScheduler:
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self._slot_req) if r is None]
+
+    def _constrained_busy(self) -> bool:
+        return any(r is not None and r.constraint is not None for r in self._slot_req)
+
+    def _grammar_matches(self, c) -> bool:
+        """Can the installed tables serve `c`? Content identity (fingerprint
+        and stop ids), not object identity: the compile cache is an LRU, so
+        the same grammar can come back as a fresh object after an eviction."""
+        inst = self._constraint
+        return inst is not None and (
+            c is inst or (c.fingerprint == inst.fingerprint
+                          and c.eos_ids == inst.eos_ids))
+
+    def _install_constraint(self, compiled) -> None:
+        """Swap in a grammar's device tables (worker thread only; callers
+        guarantee no constrained slot is live, so no FSM state indexes the
+        wrong table; rounds in flight keep the tables they were issued
+        with)."""
+        self._constraint = compiled
+        self._ctables = compiled.device_tables(self.cfg.vocab_size, self.device)
+        self.grammar_swaps += 1
 
     def _admit_paged(self, slot: int, req: _Request) -> bool:
         """Allocate the request's page envelope and map any cached prefix
@@ -1119,9 +1196,33 @@ class ContinuousBatchingScheduler:
             starts.append(req.prefilled)
         return tokens, lengths, starts
 
+    @staticmethod
+    def _chunk_grammar(group, lengths) -> Tuple[List[int], List[int]]:
+        """Per row of `group` (chunks of `lengths` tokens), the grammar
+        state and budget its first token is masked under: the grammar's
+        start state and the request's budget on a constrained request's
+        final chunk, the sentinel (0, 1) elsewhere, a resume's final chunk
+        included (its sample is dropped)."""
+        cinits, cbudgets = [], []
+        for (_, req), n in zip(group, lengths):
+            con = (req.constraint is not None and not req.resume_pref
+                   and req.prefilled + n >= len(req.full_ids))
+            cinits.append(req.constraint.init_state if con else 0)
+            cbudgets.append(req.max_new if con else 1)
+        return cinits, cbudgets
+
+    def _grammar_step(self, active: torch.Tensor, cstates: torch.Tensor,
+                      crem: torch.Tensor, tok: torch.Tensor):
+        """Advance the active slots' grammar states by their tokens and
+        spend one unit of their budgets; parked slots keep theirs."""
+        return (torch.where(active, advance_states(self._ctables["next"], cstates, tok),
+                            cstates),
+                torch.where(active, crem - 1, crem))
+
     def _prefill_forward(self, group, t: int) -> torch.Tensor:
         """One prompt chunk for each (slot, req) of `group` in one forward.
-        Returns the first-token samples [k] (used on final chunks)."""
+        Returns the first-token samples [k] (used on final chunks), a
+        constrained request's masked to its grammar."""
         cfg = self.cfg
         tokens, lengths, starts = self._chunk_rows(group, t)
         tokens_t = self._h2d(tokens, torch.int32)
@@ -1147,11 +1248,17 @@ class ContinuousBatchingScheduler:
                                 rows=self._h2d([s for s, _ in group], torch.int64),
                                 span=span + -span % 64)
         self.prefill_forwards += 1
+        first = logits[:, 0]
+        cinits, cbudgets = self._chunk_grammar(group, lengths)
+        if any(cinits):
+            first = apply_token_mask(first, allowed_tokens(
+                self._ctables["need"], self._h2d(cinits, torch.int32),
+                self._h2d(cbudgets, torch.int32), first.shape[-1]))
         reqs = [req for _, req in group]
         if all(r.temperature <= 0.0 for r in reqs):
-            return greedy(logits[:, 0])
+            return greedy(first)
         return sample_runtime(
-            logits[:, 0],
+            first,
             self._h2d([r.temperature for r in reqs], torch.float32),
             self._h2d([r.top_p for r in reqs], torch.float32),
             self._h2d([r.top_k for r in reqs], torch.int32),
@@ -1199,8 +1306,18 @@ class ContinuousBatchingScheduler:
                 # Decode writes [len(ids), page_end): the final chunk's
                 # publish may have shared the page holding the prompt tail.
                 self._ensure_writable(slot, len(req.ids), req.page_end)
-            # Index 1 of its stream: the prefill sample used index 0.
-            self._arm_slot(slot, req, toks[i], len(req.ids), 1)
+            # Index 1 of its stream: the prefill sample used index 0. The
+            # first token advances a constrained request's FSM from the
+            # grammar's start state and spends one unit of its budget.
+            cstate = 0
+            if req.constraint is not None:
+                cstate = advance_states(
+                    self._ctables["next"],
+                    torch.full((1,), req.constraint.init_state,
+                               dtype=torch.int32, device=self.device),
+                    toks[i].reshape(1))[0]
+            self._arm_slot(slot, req, toks[i], len(req.ids), 1, cstate,
+                           req.max_new - 1)
             req.rng_count = 1
             self._first_pending.append((slot, req, toks[i], self._slot_epoch[slot]))
 
@@ -1257,18 +1374,22 @@ class ContinuousBatchingScheduler:
 
     # --------------------------------------------------------------- decode
 
-    def _decode_round(self, active: torch.Tensor, sampled: bool) -> torch.Tensor:
+    def _decode_round(self, active: torch.Tensor, sampled: bool,
+                      grammar: bool) -> torch.Tensor:
         """`decode_chunk` T=1 steps of the whole slot batch over the cache
         or the pool; returns the tokens [slots, chunk] (device)."""
-        return self._decode_steps(active, sampled, self._cur, self._pos, 0, [])
+        return self._decode_steps(active, sampled, grammar, self._cur, self._pos,
+                                  self._cstates, self._crem, 0, [])
 
-    def _decode_steps(self, active: torch.Tensor, sampled: bool, cur: torch.Tensor,
-                      pos: torch.Tensor, first: int, toks: List[torch.Tensor]
+    def _decode_steps(self, active: torch.Tensor, sampled: bool, grammar: bool,
+                      cur: torch.Tensor, pos: torch.Tensor, cstates: torch.Tensor,
+                      crem: torch.Tensor, first: int, toks: List[torch.Tensor]
                       ) -> torch.Tensor:
         """T=1 steps `first`..decode_chunk-1 from (cur, pos), step i
         sampling each active slot's stream at index counts + i; `toks`
-        holds the tokens of the steps before `first`. Returns [slots,
-        chunk]."""
+        holds the tokens of the steps before `first`. With `grammar` each
+        step's logits are masked to `need[cstates] <= crem` and the active
+        slots' states advance. Returns [slots, chunk]."""
         cache = dict(self._pool, ptab=self._ptab) if self._paged else self._cache
         for i in range(first, self.decode_chunk):
             logits, _ = forward(
@@ -1276,28 +1397,37 @@ class ContinuousBatchingScheduler:
                 # Parked slots read nothing; live slots up to their position.
                 kv_lens=torch.where(active, pos + 1, 0),
             )
+            step = logits[:, 0]
+            if grammar:
+                step = apply_token_mask(step, allowed_tokens(
+                    self._ctables["need"], cstates, crem, step.shape[-1]))
             if sampled:
-                nxt = sample_runtime(logits[:, 0], self._temps, self._topps,
+                nxt = sample_runtime(step, self._temps, self._topps,
                                      self._topks, self._seeds, self._counts + i)
             else:
-                nxt = greedy(logits[:, 0])
+                nxt = greedy(step)
             cur = torch.where(active, nxt, self.cfg.pad_id)
             pos = torch.where(active, pos + 1, pos)
+            if grammar:
+                cstates, crem = self._grammar_step(active, cstates, crem, cur)
             toks.append(cur)
         self._cur, self._pos = cur, pos
+        self._cstates, self._crem = cstates, crem
         # Every active slot consumed `chunk` samples of its stream.
         self._counts = torch.where(active, self._counts + self.decode_chunk,
                                    self._counts)
         return torch.stack(toks, dim=1)
 
-    def _mixed_step(self, group, t: int, active: torch.Tensor, sampled: bool
-                    ) -> torch.Tensor:
+    def _mixed_step(self, group, t: int, active: torch.Tensor, sampled: bool,
+                    grammar: bool) -> torch.Tensor:
         """Step 0 of a ragged mixed round: ONE forward at T = t over every
         slot, the chunk rows of `group` carrying their chunk (q_lens t) and
         the other rows their current token in column 0 (q_lens 1; dead
         columns write nothing and read zeros). Chunk rows sample their
         first token at index 0 of their stream, decode rows at counts, as
-        the alternating rounds do. Returns the samples [slots]."""
+        the alternating rounds do; with `grammar`, chunk rows under their
+        `_chunk_grammar` state and budget, decode rows under their own.
+        Returns the samples [slots]."""
         cfg, dev, num_slots = self.cfg, self.device, self.num_slots
         pad = cfg.pad_id
         s_virt = self._pages_per_slot * self._page_size
@@ -1329,24 +1459,37 @@ class ContinuousBatchingScheduler:
         logits, _ = forward(cfg, self.params, tokens0, pos0,
                             dict(self._pool, ptab=self._ptab),
                             logit_indices=last, kv_lens=kv0, q_lens=q_lens)
+        first = logits[:, 0]
+        if grammar:
+            p_cinits, p_cbudgets = [0] * num_slots, [1] * num_slots
+            for (slot, _), ci, cb in zip(group, *self._chunk_grammar(group, lengths)):
+                p_cinits[slot], p_cbudgets[slot] = ci, cb
+            m_states = torch.where(pref, self._h2d(p_cinits, torch.int32), self._cstates)
+            m_rem = torch.where(pref, self._h2d(p_cbudgets, torch.int32), self._crem)
+            first = apply_token_mask(first, allowed_tokens(
+                self._ctables["need"], m_states, m_rem, first.shape[-1]))
         if sampled:
             temps, topps, topks, seeds = (
                 torch.where(pref, self._h2d(v, dt), cur_v) for v, dt, cur_v in zip(
                     knobs, (torch.float32, torch.float32, torch.int32, torch.int64),
                     (self._temps, self._topps, self._topks, self._seeds)))
-            return sample_runtime(logits[:, 0], temps, topps, topks, seeds,
+            return sample_runtime(first, temps, topps, topks, seeds,
                                   torch.where(pref, 0, self._counts))
-        return greedy(logits[:, 0])
+        return greedy(first)
 
-    def _mixed_round(self, group, t: int, active: torch.Tensor, sampled: bool
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _mixed_round(self, group, t: int, active: torch.Tensor, sampled: bool,
+                     grammar: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         """A ragged mixed round: `_mixed_step`, then steps 1..chunk-1, the
         usual T=1 steps, the chunk rows inactive. Returns (tokens [slots,
         chunk], step 0's samples [slots])."""
-        firsts = self._mixed_step(group, t, active, sampled)
+        firsts = self._mixed_step(group, t, active, sampled, grammar)
         cur = torch.where(active, firsts, self.cfg.pad_id)
         pos = torch.where(active, self._pos + 1, self._pos)
-        return self._decode_steps(active, sampled, cur, pos, 1, [cur]), firsts
+        cstates, crem = self._cstates, self._crem
+        if grammar:  # decode rows commit step 0's token
+            cstates, crem = self._grammar_step(active, cstates, crem, cur)
+        return self._decode_steps(active, sampled, grammar, cur, pos, cstates, crem,
+                                  1, [cur]), firsts
 
     def _issue_decode(self) -> None:
         """Enqueue one decode round; nothing synchronises here. Its tokens
@@ -1359,7 +1502,8 @@ class ContinuousBatchingScheduler:
                       for r in self._slot_req]
         active = self._h2d([r is not None for r in issue_reqs], torch.bool)
         sampled = any(r is not None and r.temperature > 0.0 for r in issue_reqs)
-        toks = self._decode_round(active, sampled)
+        grammar = any(r is not None and r.constraint is not None for r in issue_reqs)
+        toks = self._decode_round(active, sampled, grammar)
         self.rounds_issued += 1
         self._pending.append((issue_reqs, list(self._slot_epoch), toks,
                               self._first_pending))
@@ -1384,12 +1528,14 @@ class ContinuousBatchingScheduler:
         active = self._h2d([r is not None for r in issue_reqs], torch.bool)
         sampled = any(r.temperature > 0.0 for r in issue_reqs if r is not None) \
             or any(req.temperature > 0.0 for _, req in group)
+        grammar = any(r.constraint is not None for r in issue_reqs if r is not None) \
+            or any(req.constraint is not None for _, req in group)
         if all(r is None for r in issue_reqs):
-            firsts = self._mixed_step(group, t, active, sampled)
+            firsts = self._mixed_step(group, t, active, sampled, grammar)
             self.ragged_prefills += 1
             self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
             return True
-        toks, firsts = self._mixed_round(group, t, active, sampled)
+        toks, firsts = self._mixed_round(group, t, active, sampled, grammar)
         self.rounds_issued += 1
         self.mixed_rounds += 1
         self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
@@ -1567,6 +1713,9 @@ class ContinuousBatchingScheduler:
         for req in self._page_wait:
             req.future.set_exception(exc)
         self._page_wait.clear()
+        for req in self._constraint_wait:  # waiting on a grammar swap
+            req.future.set_exception(exc)
+        self._constraint_wait.clear()
         for i, req in enumerate(self._slot_req):
             if req is not None:
                 req.future.set_exception(exc)
@@ -1601,6 +1750,7 @@ class ContinuousBatchingScheduler:
         """Work anywhere in the pipeline: the busy flag each iteration
         stamps into the heartbeat."""
         return bool(self._prefill_q or self._pending or self._page_wait
+                    or self._constraint_wait
                     or any(r is not None for r in self._slot_req)
                     or not self._queue.empty())
 
@@ -1623,16 +1773,37 @@ class ContinuousBatchingScheduler:
             self._sweep_page_wait()
             # Admit pending requests into every free slot; page-starved
             # requests re-admit ahead of the queue, in arrival order.
+            # Requests whose grammar differs from the installed one wait in
+            # `_constraint_wait` until the constrained slots drain (a swap
+            # must not move live FSM states between grammars), then install
+            # and admit in arrival order. While waiters exist, new
+            # constrained requests queue behind them too (a steady stream of
+            # the installed grammar would starve them otherwise); waiters
+            # of the installed grammar admit at once, and unconstrained
+            # requests always flow.
             while self._free_slots():
-                if self._page_wait:
-                    req = self._page_wait.popleft()
+                wait = self._constraint_wait
+                if wait and self._grammar_matches(wait[0].constraint):
+                    req = wait.popleft()
+                elif wait and not self._constrained_busy():
+                    req = wait.popleft()
+                    self._install_constraint(req.constraint)
                 else:
-                    try:
-                        req = self._queue.get_nowait()
-                    except queue.Empty:
-                        break
-                    if req is None:
-                        continue
+                    if self._page_wait:
+                        req = self._page_wait.popleft()
+                    else:
+                        try:
+                            req = self._queue.get_nowait()
+                        except queue.Empty:
+                            break
+                        if req is None:
+                            continue
+                    c = req.constraint
+                    if c is not None and (not self._grammar_matches(c) or wait):
+                        if self._constrained_busy() or wait:
+                            wait.append(req)
+                            continue
+                        self._install_constraint(c)
                 if not self._admit(self._free_slots()[0], req):
                     # The pool cannot hold this envelope until live slots
                     # retire: park it at the front of the line.
@@ -1657,13 +1828,18 @@ class ContinuousBatchingScheduler:
                 while self._pending:
                     self._harvest_round()
                 self._harvest_firsts()
-                if self._prefill_q or self._page_wait or any(
-                        r is not None for r in self._slot_req):
+                if self._prefill_q or self._page_wait or self._constraint_wait \
+                        or any(r is not None for r in self._slot_req):
                     continue
                 try:
                     req = self._queue.get(timeout=0.05)
-                    if req is not None and not self._admit(self._free_slots()[0], req):
-                        self._page_wait.appendleft(req)
+                    if req is not None:
+                        # Fully idle: a new grammar installs at once.
+                        c = req.constraint
+                        if c is not None and not self._grammar_matches(c):
+                            self._install_constraint(c)
+                        if not self._admit(self._free_slots()[0], req):
+                            self._page_wait.appendleft(req)
                 except queue.Empty:
                     pass
 
@@ -1682,8 +1858,10 @@ class SchedulerBackend:
     reports its lifecycle through `health()`, drains through it, and
     recovers a previous process's journal spill at construction."""
 
-    #: GenerationService forwards a `deadline_s` to backends that set this.
+    #: GenerationService forwards a `deadline_s` to backends that set this,
+    #: and a `constrain` spec to backends that set `supports_constrain`.
     supports_deadline = True
+    supports_constrain = True
 
     def __init__(
         self,
@@ -1709,7 +1887,11 @@ class SchedulerBackend:
         # Journal-spill recovery happens here, the one seam every
         # deployment path funnels through: a previous process's drained
         # but unfinished requests resubmit, so retried idempotency keys
-        # find their results.
+        # find their results. The backend owns the tokenizer, so it is the
+        # one that recompiles a journaled constraint spec: point the
+        # supervisor's resolver here before recovery runs.
+        if hasattr(scheduler, "constraint_resolver"):
+            scheduler.constraint_resolver = self._resolve_constraint
         recover = getattr(scheduler, "recover", None)
         if callable(recover) and getattr(scheduler, "spill_path", None):
             recover()
@@ -1737,11 +1919,34 @@ class SchedulerBackend:
         hint = getattr(self.scheduler, "retry_after_hint", None)
         return hint() if callable(hint) else 1.0
 
-    def check_budget(self, prompt: str, max_new_tokens: Optional[int] = None) -> None:
+    def check_budget(self, prompt: str, max_new_tokens: Optional[int] = None,
+                     constraint=None) -> None:
         """Raise the ValueError `complete` would raise for a prompt that
-        leaves no decode room, without submitting."""
-        self._budget(len(self.tokenizer.encode(prompt, add_bos=self.add_bos)),
-                     max_new_tokens)
+        leaves no decode room, without submitting; with a compiled
+        `constraint`, also when the clamped budget cannot hold a complete
+        parse."""
+        budget = self._budget(len(self.tokenizer.encode(prompt, add_bos=self.add_bos)),
+                              max_new_tokens)
+        if constraint is not None and budget < constraint.min_new_tokens:
+            raise ValueError(
+                f"decode budget {budget} (after the serving-window clamp) "
+                f"cannot hold a complete constrained parse (grammar needs "
+                f">= {constraint.min_new_tokens} tokens incl. the stop id)")
+
+    def _resolve_constraint(self, constrain):
+        from .backends import resolve_constraint
+
+        return resolve_constraint(constrain, self.tokenizer, self.scheduler.stop_ids)
+
+    def _constraint_kwargs(self, constrain) -> Dict[str, object]:
+        """submit() kwargs for a constraint: the compiled tables always,
+        and the serializable spec too when the scheduler is supervised (its
+        journal recompiles the spec at recovery; a bare scheduler takes no
+        `constraint_spec`)."""
+        kwargs: Dict[str, object] = {"constraint": self._resolve_constraint(constrain)}
+        if constrain is not None and hasattr(self.scheduler, "constraint_resolver"):
+            kwargs["constraint_spec"] = constrain
+        return kwargs
 
     def _budget(self, n_prompt_tokens: int, max_new_tokens: Optional[int]) -> int:
         """The requested budget, clamped to the room the scheduler window
@@ -1757,9 +1962,9 @@ class SchedulerBackend:
         return min(max_new_tokens or self.max_new_tokens, room)
 
     def _submit(self, ids, max_new_tokens, sampling, seed, deadline_s,
-                idempotency_key=None):
+                idempotency_key=None, constraint_kwargs=None):
         on_tok, first_at = _first_token_timer()
-        kwargs = {}
+        kwargs = dict(constraint_kwargs or {})
         if idempotency_key is not None:
             # GenerationService forwards a key only when
             # supports_idempotency is set.
@@ -1781,7 +1986,7 @@ class SchedulerBackend:
     def complete_stream(self, prompt: str, max_new_tokens: Optional[int] = None,
                         sampling: Optional[SamplingParams] = None, seed: int = 0,
                         stats_out: Optional[dict] = None,
-                        deadline_s: Optional[float] = None):
+                        deadline_s: Optional[float] = None, constrain=None):
         """Yield the completion as text chunks while it decodes. Each token
         re-decodes the ids so far and emits the new text, holding back a
         trailing partial multi-byte sequence (U+FFFD) and the last
@@ -1799,7 +2004,8 @@ class SchedulerBackend:
         fut = self.scheduler.submit(
             ids, max_new_tokens=self._budget(len(ids), max_new_tokens),
             sampling=sampling or self.sampling, seed=seed, on_token=on_tok,
-            deadline_s=deadline_s if deadline_s is not None else self.deadline_s)
+            deadline_s=deadline_s if deadline_s is not None else self.deadline_s,
+            **self._constraint_kwargs(constrain))
         out_ids: List[int] = []
         emitted = ""
         hold = max((len(t) for t in self.stop_texts), default=1) - 1
@@ -1841,24 +2047,28 @@ class SchedulerBackend:
     def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  deadline_s: Optional[float] = None,
-                 idempotency_key: Optional[str] = None) -> Completion:
+                 idempotency_key: Optional[str] = None,
+                 constrain=None) -> Completion:
         ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
         t_submit = time.perf_counter()
         fut, first_at = self._submit(ids, max_new_tokens, sampling, seed,
-                                     deadline_s, idempotency_key)
+                                     deadline_s, idempotency_key,
+                                     self._constraint_kwargs(constrain))
         return self._completion(ids, fut, first_at, t_submit)
 
     def complete_batch(
         self, prompts: Sequence[str], max_new_tokens: Optional[int] = None,
         sampling: Optional[SamplingParams] = None, seed: int = 0,
-        deadline_s: Optional[float] = None,
+        deadline_s: Optional[float] = None, constrain=None,
     ) -> List[Completion]:
         """Submit the whole batch at once: the scheduler interleaves the
         prompts through its slots (continuous batching)."""
+        ckw = self._constraint_kwargs(constrain)
         ids_list = [self.tokenizer.encode(p, add_bos=self.add_bos)
                     for p in prompts]
         t_submit = time.perf_counter()
-        subs = [self._submit(ids, max_new_tokens, sampling, seed, deadline_s)
+        subs = [self._submit(ids, max_new_tokens, sampling, seed, deadline_s,
+                             constraint_kwargs=ckw)
                 for ids in ids_list]
         return [self._completion(ids, fut, first_at, t_submit)
                 for ids, (fut, first_at) in zip(ids_list, subs)]

@@ -8,9 +8,10 @@ seams the app's health routes and drain gate read (`health`, `draining`,
 (token streaming through the scheduler backend's `complete_stream`).
 `health()` aggregates the supervised schedulers' lifecycle
 (serve/supervisor.py) and `drain()` lets each backend finish or journal its
-in-flight work; idempotency keys reach backends with a journal. Not ported
-yet: constrained decoding (a `constrain` spec raises, ROADMAP A8), the QoS
-front door and tenant routing (`tenant`/`qos` are carried and not charged,
+in-flight work; idempotency keys reach backends with a journal; a
+`constrain` spec reaches backends that declare `supports_constrain` (the
+engine and scheduler backends) and is a request-shape error elsewhere.
+Not ported yet: the QoS front door and tenant routing (`tenant`/`qos` are carried and not charged,
 A11), the fleet views (A11), Prometheus, SLOs and profiling (A12).
 """
 
@@ -192,20 +193,29 @@ class GenerationService:
     # ------------------------------------------------------------ generation
 
     @staticmethod
-    def _request_kwargs(entry: ModelEntry, constrain, deadline_s) -> Dict:
-        """A `constrain` spec raises (grammar-constrained decoding is not
-        ported, ROADMAP A8: a clear request-shape error, not a silently
-        unconstrained completion). A deadline goes only to backends that
-        can enforce one (`supports_deadline`); elsewhere it is a
-        best-effort hint and dropped, as in the JAX package."""
-        if constrain is not None:
-            raise ValueError(
-                f"model {entry.name!r}: constrained decoding is not ported "
-                f"(ROADMAP A8)")
-        if deadline_s is None or not getattr(entry.backend, "supports_deadline",
-                                             False):
+    def _constrain_kwargs(entry: ModelEntry, constrain) -> Dict:
+        """`constrain` is opt-in per request ("spark_sql", or a schema dict
+        {"table", "columns"}): forwarded only to backends that declare
+        `supports_constrain`; anything else is a clear request-shape error
+        rather than a silently unconstrained completion."""
+        if constrain is None:
             return {}
-        return {"deadline_s": deadline_s}
+        if not getattr(entry.backend, "supports_constrain", False):
+            raise ValueError(
+                f"model {entry.name!r} backend does not support "
+                f"constrained decoding")
+        return {"constrain": constrain}
+
+    @classmethod
+    def _request_kwargs(cls, entry: ModelEntry, constrain, deadline_s) -> Dict:
+        """The constrain kwargs, and a deadline for backends that can
+        enforce one (`supports_deadline`); elsewhere a deadline is a
+        best-effort hint and dropped, as in the JAX package."""
+        kwargs = cls._constrain_kwargs(entry, constrain)
+        if deadline_s is not None and getattr(entry.backend, "supports_deadline",
+                                              False):
+            kwargs["deadline_s"] = deadline_s
+        return kwargs
 
     def generate(
         self,
@@ -256,12 +266,20 @@ class GenerationService:
         """Raise the KeyError/ValueError generate() would raise for a bad
         model name, a bad `constrain` spec or an oversize prompt, without
         generating: streaming handlers call this while a 400 is still
-        possible."""
+        possible. A `constrain` spec is compiled here (errors become 400s;
+        the compile is cached for the request itself) and the backend
+        checks its clamped budget against the grammar's shortest parse."""
         entry = self._entry(model)
-        self._request_kwargs(entry, constrain, None)
+        self._constrain_kwargs(entry, constrain)  # supports check
+        compiled = None
+        if constrain is not None:
+            resolve = getattr(entry.backend, "_resolve_constraint", None)
+            if resolve is not None:
+                compiled = resolve(constrain)
         check = getattr(entry.backend, "check_budget", None)
         if check is not None:
-            check(entry.template(system, prompt), max_new_tokens)
+            check(entry.template(system, prompt), max_new_tokens,
+                  constraint=compiled)
 
     def generate_stream(
         self,
@@ -319,6 +337,7 @@ class GenerationService:
         max_new_tokens: Optional[int] = None,
         sampling: Optional[SamplingParams] = None,
         seed: int = 0,
+        constrain=None,
     ) -> List[GenerateResult]:
         """Batched twin of generate(): one device program for all prompts.
         Each result's latency is the batch's wall clock."""
@@ -327,6 +346,7 @@ class GenerationService:
         t0 = time.perf_counter()
         completions = entry.backend.complete_batch(
             rendered, max_new_tokens=max_new_tokens, sampling=sampling, seed=seed,
+            **self._constrain_kwargs(entry, constrain),
         )
         latency = time.perf_counter() - t0
         self._record(model, len(prompts), latency,

@@ -42,8 +42,11 @@ and treats its event loop as a crash-only component:
 The fleet hooks (`_fleet_inner`, `_wire_fleet`, the `*_replica` methods,
 `fleet_stats`) reach the inner object only through `getattr` and do
 nothing over one scheduler; the port has no replica pool yet (ROADMAP
-A11). Grammar constraints are ROADMAP A8: the port's scheduler refuses a
-`constraint`, so a constrained entry never gets journaled here.
+A11). A constrained entry carries its compiled tables (`constraint`) and
+its serializable spec (`constraint_spec`, the grammar name or schema
+dict): a replay after a crash resubmits the same tables, and `recover()`
+recompiles a spilled spec through `constraint_resolver`, which
+`SchedulerBackend` points at its tokenizer's compile.
 """
 
 from __future__ import annotations

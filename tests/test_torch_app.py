@@ -6,11 +6,13 @@ bridged weights, answering the same `POST /process-data/` with the same SQL
 and the same error text; and the entry point refusing every option it
 cannot honor."""
 
+import json
 from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from llm_based_apache_spark_optimization_tpu.app import AppConfig as JaxAppConfig
 from llm_based_apache_spark_optimization_tpu.app import create_api_app as jax_api
@@ -28,13 +30,19 @@ from llm_based_apache_spark_optimization_tpu_torch.app import (
     secure_filename,
 )
 from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+from llm_based_apache_spark_optimization_tpu_torch.constrain import is_valid_spark_sql
 from llm_based_apache_spark_optimization_tpu_torch.convert import params_from_jax
+from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
 from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
+from llm_based_apache_spark_optimization_tpu_torch.models import TINY
+from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
 from llm_based_apache_spark_optimization_tpu_torch.serve import (
+    EngineBackend,
     FakeBackend,
     GenerationService,
 )
 from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
 
 CSV = "VendorID,passenger_count,total_amount\n1,2,12.5\n2,4,25.0\n1,3,18.0\n"
 GOOD_SQL = "SELECT VendorID, SUM(total_amount) AS Total_Fare FROM temp_view GROUP BY VendorID"
@@ -135,11 +143,24 @@ def test_api_generate_and_models(cfg):
     assert client.post_json("/api/generate", {"model": "x", "prompt": "q"}).status == 404
     assert client.post_json("/api/generate", {"model": "duckdb-nsql", "prompt": "q",
                                               "qos": "gold"}).status == 400
-    # A constrain spec is a request-shape error until ROADMAP A8.
+    # A constrain spec is served by a backend that supports it (a tiny
+    # engine: the completion parses) and refused, 400, by a canned one.
     res = client.post_json("/api/generate", {"model": "duckdb-nsql", "prompt": "q",
                                              "constrain": "spark_sql"})
-    assert res.status == 400 and "A8" in res.json()["error"]
+    assert res.status == 400 and "constrained decoding" in res.json()["error"]
     assert client.get("/models").json()["models"] == ["duckdb-nsql", "llama3.2"]
+    svc = make_service()
+    svc.register("tiny", EngineBackend(
+        InferenceEngine(TINY, init_params(TINY, dtype=torch.float32, device="cpu"), stop_ids=(2,),
+                        prompt_bucket=8, device="cpu"), ByteTokenizer(), max_new_tokens=40))
+    tiny = create_api_app(svc, SQLiteBackend, SQLiteHistory(), cfg).test_client()
+    for stream in (False, True):
+        res = tiny.post_json("/api/generate", {
+            "model": "tiny", "prompt": "q", "stream": stream,
+            "constrain": {"table": "temp_view", "columns": ["VendorID"]}})
+        assert res.status == 200
+        text = "".join(json.loads(line).get("response", "") for line in res.text.splitlines())
+        assert is_valid_spark_sql(text), text
 
 
 def test_health_routes_and_drain_gate(cfg):
@@ -317,7 +338,6 @@ def test_entry_point_refuses_unported_flags(argv, item):
     ("LSOT_TENANT_RATE", "2", "A11"),
     ("LSOT_TENANT_BURST", "4", "A11"),
     ("LSOT_TENANT_WEIGHTS", "a=2", "A11"),
-    ("LSOT_CONSTRAIN_SQL", "1", "A8"),
 ])
 def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, item):
     monkeypatch.setenv(knob, value)
@@ -326,6 +346,29 @@ def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, 
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         entry.build_service(args_for("--cpu"), cfg)
         create_api_app(make_service(), SQLiteBackend, SQLiteHistory(), cfg)
+
+
+def test_entry_point_honours_constrain_sql(monkeypatch, tmp_path):
+    """`LSOT_CONSTRAIN_SQL=1` builds an app whose pipeline compiles the
+    uploaded CSV's schema into the SQL model's grammar: over the tiny CPU
+    scheduler, `POST /process-data/` answers with SQL that parses and names
+    only the view."""
+    monkeypatch.setenv("LSOT_CONSTRAIN_SQL", "1")
+    monkeypatch.setenv("LSOT_MAX_NEW_TOKENS", "40")
+    (tmp_path / "in").mkdir()
+    (tmp_path / "in" / "taxi.csv").write_text(CSV)
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:")
+    assert cfg.constrain_sql
+    svc = entry.build_service(args_for("--cpu", "--backend", "tiny", "--no-supervise"), cfg)
+    try:
+        client = create_api_app(svc, SQLiteBackend, SQLiteHistory(), cfg).test_client()
+        body = client.post_json("/process-data/", {"input_text": "total fare per vendor",
+                                                   "file_name": "taxi.csv"}).json()
+        assert is_valid_spark_sql(body["sql_query"]), body
+        assert "temp_view" in body["sql_query"].lower()
+    finally:
+        svc.close()
 
 
 @pytest.mark.parametrize("env,attr,want", [

@@ -25,6 +25,7 @@ from llm_based_apache_spark_optimization_tpu_torch.app import (
     AppConfig,
     create_api_app,
 )
+from llm_based_apache_spark_optimization_tpu_torch.constrain import get_constraint
 from llm_based_apache_spark_optimization_tpu_torch.convert import params_from_jax
 from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
 from llm_based_apache_spark_optimization_tpu_torch.models import TINY
@@ -51,6 +52,7 @@ from llm_based_apache_spark_optimization_tpu_torch.serve.watchdog import (
     stall_threshold,
 )
 from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
 from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
 from llm_based_apache_spark_optimization_tpu_torch.utils.observability import (
     resilience,
@@ -644,8 +646,16 @@ def test_scheduler_heartbeat_and_fault_seams(tiny_params):
             s.submit(PROMPTS[0], max_new_tokens=6).result(timeout=30)
     finally:
         s.shutdown(timeout=5)
-    with pytest.raises(ValueError, match="A8"):
-        port_sched(tp).submit([1, 2], constraint=object())
+    # A grammar constraint is served: below its shortest parse it raises,
+    # at it the tokens walk the grammar.
+    FAULTS.clear()
+    cm = get_constraint({"table": "t", "columns": ["a"]}, ByteTokenizer(), (2,))
+    with pytest.raises(ValueError, match="complete constrained parse"):
+        port_sched(tp).submit([1, 2], max_new_tokens=cm.min_new_tokens - 1, constraint=cm)
+    with port_sched(tp) as s:
+        out = s.submit([1, 2], max_new_tokens=cm.min_new_tokens,
+                       constraint=cm).result(timeout=30)
+    assert len(out) == cm.min_new_tokens and cm.walk(out) is not None
 
 
 # ---------------------------------------------------- the app's lifecycle
