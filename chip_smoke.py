@@ -7,6 +7,8 @@
     python3 chip_smoke.py --sweep        # phases 1, 2, then the split sweep
     python3 chip_smoke.py --mixed-only   # phases 1, 2, then phase 6 (a) alone
     python3 chip_smoke.py --constrained-only  # phases 1, 2, 12, 7 and 8 (b)
+    python3 chip_smoke.py --speculative-only  # phases 1, 2, 3 and 11 at the
+                                              # verify shapes, the cost anchor, 13
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -19,7 +21,10 @@ split plan's pick, at phase 11's shapes, then each paged query window
 (T > 1) at the mixed round's shapes (MIXED_SHAPES) beside
 `window_split_plan`'s pick. `--constrained-only` runs the grammar-constrained
 paths of phases 12 and 8 (b) (with phase 7's schedulers under them) on the
-7B and 3B weights, phase 6 (b)'s overcommit included.
+7B and 3B weights, phase 6 (b)'s overcommit included. `--speculative-only`
+runs phase 3's cases at the speculative verify shapes (`SPEC_CASE_NAMES`),
+the verify cost anchor, phase 13 on the 7B weights and phase 11's
+verify-shape timing.
 
 Phases, each fatal on failure:
 
@@ -281,6 +286,45 @@ Phases, each fatal on failure:
    below 100%. Launch counts exact on every path, and the constrained
    paths together launch every kernel of the `kernels` line.
 
+13. Speculative decoding, run after phase 12, D = SPEC_DRAFT = 8 (phase
+   3 also holds every kernel at the verify shapes: row 1 at T = 9 over the
+   engine's cache and the contiguous schedulers' 8 slots with parked rows
+   past the cache, rows 4-5 at the paged rounds with parked rows at q_len
+   0 and at PS = 4096 (one page a row), rows 6-7 writing 9-wide windows,
+   row 8 at R = 72, and row 5 through the contiguous int8 cache's one-page
+   view as `forward` calls it (`check_int8_view`); phase 11 times them,
+   `time_verify`, and measures the verify cost anchor, `verify_cost_anchor`:
+   the median of five readings of the median wall of a T = 9 over a T = 1
+   forward at bench-1b, B = 8). It first measures how far the verify
+   window's logits sit from the decode step's over the same prefixes on the
+   7B weights (`logit_drift`: bf16 and int8 caches, int4 weights) and the
+   verify cost at 7B beside the model's estimate (`verify_cost_7b`), then:
+   (a) the 7B engine, the three NL->SQL prompts as one batch, contiguous
+   bf16, paged bf16 and paged int8, each beside the vanilla engine of its
+   layout;
+   (b) the copying variant (every block's `wo` and `wd` zeroed, lm_head :=
+   embed; premise: vanilla greedy repeats the prompt's last token): the
+   engine (contiguous, paged int8) and the contiguous scheduler equal
+   vanilla outright at >= D tokens a round;
+   (c) the contiguous and the paged scheduler in bf16, int8 KV and
+   int4/int8: six requests at once (one sampled), then the sampled one
+   again in another batch mix (its tokens repeat), greedy streams beside
+   the vanilla scheduler's; every verify round under sync debug mode
+   "error" (no host synchronisation inside a round);
+   (d) a constrained burst (three generic, three free) held to phase 12's
+   checks; (e) ragged mixed rounds at D = 4 (mixed rounds > 0); (f) the
+   overcommit burst (spill equal to the control, recompute equal or at a
+   near-tie, preemptions >= 1 both; the sampled request equal to the
+   control up to its first recompute resume, which restores the stream
+   index the control's rounds reached there and its history row); (g) `POST /process-data/` over a
+   speculative 7B scheduler, then the entry point with `--speculative 8`.
+   Every speculative stream equals the vanilla stream of its layout or
+   first leaves it where the two tokens' logits lie within twice the top
+   ids' drift measured for its weight and cache types, the drift over
+   every id within DRIFT_ULPS bf16 ulps (each divergence printed with its position and gap);
+   `speculation_stats`' delivered tokens equal what the requests received;
+   launch counts exact; tokens per verify round printed per path.
+
 Every phase prints its seconds.
 
 Prints a `{"kernels": [...]}` line, then as its last line
@@ -497,10 +541,10 @@ def cases():
             b=8, t=1, n=n, kh=kh, h=128, s=s,
             positions=[[p - 1] for p in live] + [[s - 1], [s - 1]],
             kv_lens=live + [0, 0], nan_dead=True)))
-    return out
+    return out + spec_kernel_cases()
 
 
-def check_kernels(torch, attn_mod):
+def check_kernels(torch, attn_mod, only=None):
     """Kernel vs plain on every case of `cases()` and, for the decode
     launch, of `decode_edge_cases()`, in each dtype; each decode case is
     launched twice and compared bit for bit. Returns the worst error per
@@ -508,6 +552,8 @@ def check_kernels(torch, attn_mod):
     worst = {(l, d): 0.0 for l in ("prefill", "decode") for d in TOL}
     edges = [("decode", name, kw) for name, kw in decode_edge_cases()]
     for launch, name, kw in cases() + edges:
+        if only is not None and name not in only:
+            continue
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             c = make_case(torch, dtype, **kw)
@@ -598,7 +644,7 @@ def paged_cases():
         ("mistral_window", dict(t=1, n=32, kh=8, h=128, ps=64, np_tab=128,
                                 rows=[(7999, 1, 8000), (4999, 1, 5000)],
                                 window=4096)),
-    ] + mixed_cases() + window_stress_cases()
+    ] + mixed_cases() + window_stress_cases() + spec_paged_cases()
 
 
 def window_stress_cases():
@@ -704,7 +750,7 @@ def mixed_cases():
     ]
 
 
-def check_paged(torch, pa_mod):
+def check_paged(torch, pa_mod, only=None):
     """Ragged paged attention kernel vs plain on every case of
     `paged_cases()` and `paged_edge_cases()` and each dtype; each case (the
     split-KV kernel at T = 1, the window kernel or, in f32, the tile kernel
@@ -717,6 +763,8 @@ def check_paged(torch, pa_mod):
     worst = {"paged": {d: 0.0 for d in TOL}, "paged_window": {"bfloat16": 0.0},
              "paged_window_rel": {"bfloat16": 0.0}, "paged_window_tile": {"float32": 0.0}}
     for name, kw in paged_cases() + paged_edge_cases():
+        if only is not None and name not in only:
+            continue
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             args = paged_case(torch, dtype, b=len(kw["rows"]), **kw)
@@ -770,7 +818,12 @@ WRITE_CASES = [("7b_t1_b8", 32, 32, 128, 64, 8, 1, 16, 128),
                # The paged prefill chunk's write-back at the default
                # max_seq: B = 8, the 128-token bucket, no q_lens.
                ("7b_chunk_t128", 2, 32, 128, 64, 8, 128, 64, 515),
-               ("3b_chunk_t128", 2, 8, 128, 64, 8, 128, 128, 1027)]
+               ("3b_chunk_t128", 2, 8, 128, 64, 8, 128, 128, 1027),
+               # A speculative verify round (D = 8): six live windows of 9,
+               # a mid-prefill slot (its table mapped) and a free one, both
+               # at q_len 0 from the parking position.
+               ("7b_verify_t9", 2, 32, 128, 64, 8, 9, 64, 515),
+               ("3b_verify_t9", 2, 8, 128, 64, 8, 9, 128, 1027)]
 
 
 def chunk_rows(t, s_virt, ps):
@@ -796,7 +849,13 @@ def write_case(torch, name, kh, h, ps, b, t, np_tab, pages, dtype, g):
     starts = torch.randint(0, np_tab * ps - t, (b, 1), generator=g, device=dev)
     pos = (starts + torch.arange(t, device=dev)).int()
     q_lens = None
-    if "mixed" in name:
+    if "verify" in name:
+        rows = spec_rows(np_tab * ps, 0)
+        for i, (start, ql, _) in enumerate(rows):
+            pos[i] = start + torch.arange(t, device=dev)
+        tab[7] = pages  # the free slot: all sentinel
+        q_lens = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    elif "mixed" in name:
         # The mixed round's write: prefill rows write their whole chunk,
         # decode rows column 0 (their dead columns one past the row), two
         # parked rows behind all-sentinel tables.
@@ -833,13 +892,15 @@ def write_case(torch, name, kh, h, ps, b, t, np_tab, pages, dtype, g):
     return k_new, v_new, pos, tab, q_lens
 
 
-def check_write(torch, pw_mod):
+def check_write(torch, pw_mod, only=None):
     """Page write kernel into a bf16 or f32 pool vs plain, bit for bit, at
     every WRITE_CASES entry; the all-dropped round must leave the pools as
     they were, every other case must write."""
     dev = "cuda"
     worst = {d: 0.0 for d in TOL}
     for name, n_layers, kh, h, ps, b, t, np_tab, pages in WRITE_CASES:
+        if only is not None and name not in only:
+            continue
         layer = n_layers - 1
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device=dev).manual_seed(3)
@@ -946,7 +1007,7 @@ def paged_edge_cases():
     return out
 
 
-def check_paged_quantized(torch, pa_mod):
+def check_paged_quantized(torch, pa_mod, only=None):
     """The quantized ragged paged attention kernel vs plain on every paged
     case and on `paged_edge_cases()`, the pools quantized after the NaN was
     planted (so the dead offsets and unmapped pages carry NaN scales), each
@@ -958,6 +1019,8 @@ def check_paged_quantized(torch, pa_mod):
              "paged_q_window_rel": {"bfloat16": 0.0},
              "paged_q_window_tile": {"float32": 0.0}}
     for name, kw in paged_cases() + paged_edge_cases():
+        if only is not None and name not in only:
+            continue
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             q, kp, vp, tab, pos, window, kvl, qln = paged_case(
@@ -996,7 +1059,7 @@ def check_paged_quantized(torch, pa_mod):
     return worst
 
 
-def check_write_quantized(torch, pw_mod):
+def check_write_quantized(torch, pw_mod, only=None):
     """The page write kernel into an int8 pool vs plain, bit for bit in
     values and scales, at every WRITE_CASES entry (bf16 and f32 slivers; the
     all-dropped round writes nothing). Returns the worst error (0 when
@@ -1004,6 +1067,8 @@ def check_write_quantized(torch, pw_mod):
     dev = "cuda"
     worst = {d: 0.0 for d in TOL}
     for name, n_layers, kh, h, ps, b, t, np_tab, pages in WRITE_CASES:
+        if only is not None and name not in only:
+            continue
         layer = n_layers - 1
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device=dev).manual_seed(3)
@@ -1043,10 +1108,10 @@ INT4_SHAPES = [("7b", "wq/wk/wv/wo", 4096, 4096), ("7b", "wg/wu", 4096, 11008),
                ("7b", "wd", 11008, 4096), ("3b", "wq/wo", 3072, 3072),
                ("3b", "wk/wv", 3072, 1024), ("3b", "wg/wu", 3072, 8192),
                ("3b", "wd", 8192, 3072), ("edge", "OUT 400", 688, 400)]
-INT4_ROWS = (1, 4, 8, 9, 16, 131, 384, 1024, 2048)
+INT4_ROWS = (1, 4, 8, 9, 16, 72, 131, 384, 1024, 2048)
 
 
-def check_int4(torch, mm_mod):
+def check_int4(torch, mm_mod, only=None):
     """The int4 matmul kernel vs plain at every shape of INT4_SHAPES (the
     group `tp_safe_group` gives: 86 for 7B's wd and the edge, 128
     elsewhere) and R in INT4_ROWS, in bf16 (the decode kernel up to 8 rows,
@@ -1064,7 +1129,7 @@ def check_int4(torch, mm_mod):
         group = tp_safe_group(n_in)
         w = quantize_weight_int4(
             torch.randn((n_in, n_out), generator=g, device=dev) * n_in ** -0.5, group)
-        for rows in INT4_ROWS:
+        for rows in INT4_ROWS if only is None else [r for r in INT4_ROWS if r in only]:
             for dtype in (torch.bfloat16, torch.float32):
                 dname = str(dtype).split(".")[1]
                 x = torch.randn((rows, n_in), generator=g, device=dev).to(dtype)
@@ -3811,7 +3876,7 @@ MIXED_SHAPES = (("7b_mixed_t32", "7b", 32), ("7b_mixed_t16", "7b", 16),
 
 
 def time_mixed(torch, pa_mod, pw_mod, cfg, quantized=False, t=32, writes=True,
-               sweep_splits=None):
+               sweep_splits=None, rows=None):
     """The ragged mixed round's first step at `cfg` (7B or 3B), one call per
     layer over MIXED_TIMED_LAYERS layers of a pool (bf16, or int8 with
     scales): B = 8 slots through tables of max_seq / 64 pages of 64, T =
@@ -3824,13 +3889,14 @@ def time_mixed(torch, pa_mod, pw_mod, cfg, quantized=False, t=32, writes=True,
     `index_put_` of the kept slivers (quantized in advance) at precomputed
     coordinates. Bounds count this data: the live K/V and the kept
     slivers. With `sweep_splits`, only the kernel's time at each cluster
-    size, forced through `window_split_plan`: {splits: ms}."""
+    size, forced through `window_split_plan`: {splits: ms}. `rows`
+    replaces `mixed_rows` (the speculative verify round's, `spec_rows`)."""
     import torch.nn.functional as F
 
     dev, dt, layers = "cuda", torch.bfloat16, MIXED_TIMED_LAYERS
     ps, np_tab = 64, cfg.max_seq_len // 64
     n, kh, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    rows = mixed_rows(t, np_tab * ps)
+    rows = rows or mixed_rows(t, np_tab * ps)
     b = len(rows)
     need = [-(-kvl // ps) for _, _, kvl in rows]
     pool_pages = sum(need) + 7
@@ -3948,7 +4014,7 @@ def time_mixed(torch, pa_mod, pw_mod, cfg, quantized=False, t=32, writes=True,
 INT4_TIME_ROWS = (1, 4, 8, 1024)
 
 
-def time_int4(torch, mm_mod, cfg):
+def time_int4(torch, mm_mod, cfg, rows_list=INT4_TIME_ROWS):
     """The int4 matmul at 7B for `wq` (4096 -> 4096) and `wd` (11008 -> 4096,
     group 86) at R in INT4_TIME_ROWS: the engine's decode of one request
     and of its batch of four, the scheduler's decode over 8 slots, a
@@ -3973,7 +4039,7 @@ def time_int4(torch, mm_mod, cfg):
         ws = [quantize_weight_int4(torch.randn((n_in, n_out), generator=g, device=dev)
                                    * n_in ** -0.5, group) for _ in range(n_layers)]
         wb = [dequantize_weight_int4(w, dt) for w in ws]
-        for rows in INT4_TIME_ROWS:
+        for rows in rows_list:
             x = torch.randn((rows, n_in), generator=g, device=dev).to(dt)
             ms = time_ms(torch, lambda l: mm_mod.int4_matmul_cuda(x, ws[l]["q4"], ws[l]["s4"]),
                          n_layers)
@@ -4189,6 +4255,1104 @@ def sweep(torch, attn_mod, pa_mod, pw_mod, cfg):
 # ------------------------------------------------------------------ main
 
 
+# ---------------------------------------------------------- speculation
+
+SPEC_DRAFT = 8  # D of the speculative phases: verify windows of T = 9
+# Window starts of the six live slots of a verify round (the contiguous
+# scheduler's concurrent requests), beside two parked slots.
+SPEC_LIVE = [317, 356, 389, 411, 443, 999]
+# A speculative stream may leave the vanilla stream of its layout only at a
+# near-tie. The verify window and the decode step reach their logits
+# through other kernels and other matmul shapes; `logit_drift` measures, in
+# this run on the 7B weights, how far apart the two (and a cache-free
+# prefill, the third path `pair_gap` reads gaps on) put the same logits over
+# the same prefixes, for each weight and KV cache type. The two tokens of a
+# divergence are the top tokens of two paths, so ids among the top two of
+# some path; over such ids the paths differ by at most `eps_top`, so the
+# two tokens' gap on the third path is at most twice it: the bound. The drift over every id must stay within DRIFT_ULPS bf16 ulps of
+# the row's largest |logit| (the worst an H100 showed is 5.18, PERF.md): a
+# window that read a stale or shifted K/V slot moves the logits by far more.
+DRIFT_ULPS = 6
+_DRIFT: dict = {}  # drift class -> logit_drift's reading, for compare_streams
+
+
+def spec_rows(s_virt, parked_q):
+    """(start, q_len, kv_len) of a verify round's 8 slots: six live windows
+    of D + 1 columns at SPEC_LIVE and two parked slots at the parking
+    position (kv_lens 0; q_len `parked_q`: 0 on the paged layout, whose
+    round drops their writes, D + 1 through the contiguous int8 view)."""
+    d1 = SPEC_DRAFT + 1
+    return ([(st, d1, st + d1) for st in SPEC_LIVE]
+            + [(s_virt - 1, parked_q, 0)] * 2)
+
+
+def spec_contiguous_positions(s):
+    """(positions, kv_lens) of the contiguous scheduler's verify round over
+    a cache of `s` slots: the live windows, and the parked slots' windows
+    from s - 1 on, past the cache, with kv_lens 0."""
+    rows = spec_rows(s, SPEC_DRAFT + 1)
+    return ([[st + j for j in range(SPEC_DRAFT + 1)] for st, _, _ in rows],
+            [kvl for _, _, kvl in rows])
+
+
+def spec_kernel_cases():
+    """Row 1's verify windows for `cases()`: the engine's batch of three
+    over its cache (bucketed prompt 384 + budget 64 + one window: 457 slots,
+    rounded to 464) and the contiguous schedulers' 8 slots (7B over 4096, 3B
+    over 8192) with two parked rows, NaN past every live length."""
+    out = [("prefill", "7b_engine_verify_b3", dict(
+        b=3, t=SPEC_DRAFT + 1, n=32, kh=32, h=128, s=464,
+        positions=[[st + j for j in range(SPEC_DRAFT + 1)] for st in (360, 371, 440)],
+        nan_dead=True))]
+    for model, n, kh, s in (("7b", 32, 32, 4096), ("3b", 24, 8, 8192)):
+        pos, kvl = spec_contiguous_positions(s)
+        out.append(("prefill", f"{model}_contig_verify_b8", dict(
+            b=8, t=SPEC_DRAFT + 1, n=n, kh=kh, h=128, s=s, positions=pos, kv_lens=kvl,
+            nan_dead=True)))
+    return out
+
+
+def spec_paged_cases():
+    """Rows 4-5's verify windows for `paged_cases()`: the paged schedulers'
+    rounds at their default max_seq (7B: tables of 64 pages, 3B: 128, pages
+    of 64; parked slots at q_len 0), the engine's paged batch of three, and
+    the contiguous int8 cache seen as a pool of one page of S = 4096 slots
+    a row (parked rows with all columns live and kv_lens 0)."""
+    d1 = SPEC_DRAFT + 1
+    return [
+        ("7b_verify_d8", dict(t=d1, n=32, kh=32, h=128, ps=64, np_tab=64,
+                              rows=spec_rows(4096, 0), dead_pos=4095)),
+        ("3b_verify_d8", dict(t=d1, n=24, kh=8, h=128, ps=64, np_tab=128,
+                              rows=spec_rows(8192, 0), dead_pos=8191)),
+        ("7b_engine_verify", dict(t=d1, n=32, kh=32, h=128, ps=64, np_tab=8,
+                                  rows=[(360, d1, 360 + d1), (371, d1, 371 + d1),
+                                        (440, d1, 440 + d1)])),
+        ("7b_view_s4096", dict(t=d1, n=32, kh=32, h=128, ps=4096, np_tab=1,
+                               rows=spec_rows(4096, d1), dead_pos=4095)),
+    ]
+
+
+def check_int8_view(torch, pa_mod):
+    """Row 5 through the contiguous int8 cache's one-page-a-row view, as
+    `models.llama.forward` calls it for a verify window: one layer of a
+    7B int8 cache [B = 8, K, S = 4096, H] with its scales as the pool, the
+    table arange(8)[:, None], q_lens left to default (every column live),
+    two parked rows at the parking position with kv_lens 0, NaN in every
+    dead slot's values and scales; kernel vs plain in bf16 (TOL and
+    WINDOW_ROW_TOL), twice bit for bit. Returns the worst error."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import dispatch
+
+    dev, d1 = "cuda", SPEC_DRAFT + 1
+    pos, kvl = spec_contiguous_positions(4096)
+    c = make_case(torch, torch.bfloat16, b=8, t=d1, n=32, kh=32, h=128, s=4096,
+                  positions=pos, kv_lens=kvl, nan_dead=True)
+    k8, ks = quantize(torch, c["k"])
+    v8, vs = quantize(torch, c["v"])
+    one_page = torch.arange(8, dtype=torch.int32, device=dev)[:, None]
+    args = (c["q"], k8, ks, v8, vs, one_page, c["pos"], None, c["kv_lens"])
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import LAUNCHES
+
+    before = LAUNCHES["ragged_paged_window_quantized"]
+    out = dispatch.paged_attention_quantized(*args)
+    assert LAUNCHES["ragged_paged_window_quantized"] == before + 1, \
+        "the contiguous int8 view did not launch the window kernel"
+    again = pa_mod.ragged_paged_attention_quantized_cuda(*args)
+    ref = pa_mod.ragged_paged_attention_quantized_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = row_rel_err(out, ref)
+    same = torch.equal(out, again)
+    ok = err <= TOL["bfloat16"] and rel <= WINDOW_ROW_TOL and same \
+        and bool(torch.isfinite(out).all()) and bool((out[6:] == 0).all())
+    print(f"  int8 view 7b_contig_verify_b8 bfloat16 max_abs_err={err:.3e} "
+          f"tol={TOL['bfloat16']:.0e} max_row_rel_err={rel:.3e} tol={WINDOW_ROW_TOL:.0e} "
+          f"bit-identical-twice={same} {'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, f"int8 view: {err} or {rel} over its limit, not repeatable or not zeros"
+    return err, rel
+
+
+def time_int8_view(torch, pa_mod, cfg):
+    """Row 5 through the contiguous int8 view at the contiguous scheduler's
+    verify round (7B, B = 8, S = 4096, `spec_contiguous_positions`), one
+    call a layer over CONTIG_TIMED_LAYERS layers: kernel, plain, and SDPA
+    over K/V dequantized in advance. Bound: q and out, the live int8 K/V
+    with their scales."""
+    import torch.nn.functional as F
+
+    dev, dt, layers, s = "cuda", torch.bfloat16, CONTIG_TIMED_LAYERS, cfg.max_seq_len
+    n, kh, h, d1 = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, SPEC_DRAFT + 1
+    g = torch.Generator(device=dev).manual_seed(9)
+    pos_l, kvl_l = spec_contiguous_positions(s)
+    b = len(pos_l)
+    shape = (layers, b, kh, s, h)
+    kc8, kcs = quantize(torch, torch.randn(shape, generator=g, device=dev, dtype=dt))
+    vc8, vcs = quantize(torch, torch.randn(shape, generator=g, device=dev, dtype=dt))
+    q = torch.randn((b, d1, n, h), generator=g, device=dev, dtype=dt)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    kvl = torch.tensor(kvl_l, dtype=torch.int32, device=dev)
+    one_page = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+
+    def attend(fn, l):
+        return fn(q, kc8[l], kcs[l], vc8[l], vcs[l], one_page, pos, None, kvl)
+
+    ms = time_ms(torch, lambda l: attend(pa_mod.ragged_paged_attention_quantized_cuda, l),
+                 layers)
+    plain = time_ms(torch, lambda l: attend(pa_mod.ragged_paged_attention_quantized_plain,
+                                            l), layers)
+    grp = n // kh
+    kd = [pa_mod.dequantize_kv(kc8[l], kcs[l], dt).repeat_interleave(grp, dim=1)
+          for l in range(layers)]
+    vd = [pa_mod.dequantize_kv(vc8[l], vcs[l], dt).repeat_interleave(grp, dim=1)
+          for l in range(layers)]
+    idx = torch.arange(s, device=dev)
+    mask = ((idx[None, None, :] <= pos[:, :, None].long())
+            & (idx[None, None, :] < kvl[:, None, None]))[:, None]
+    qt = q.transpose(1, 2)
+    lib = time_ms(torch, lambda l: F.scaled_dot_product_attention(
+        qt, kd[l], vd[l], attn_mask=mask), layers)
+    del kd, vd
+    live = int(kvl.sum())
+    b_ms, b_by = bound(2 * q.numel() * 2 + live * kh * (2 * h + 8),
+                       4 * h * int(mask.sum()) * n)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                shape=dict(B=b, T=d1, N=n, K=kh, H=h, page=s, np=1, kv_lens=kvl_l,
+                           dtype="bfloat16", pool="int8 contiguous cache as one page a row"))
+
+
+def time_verify(torch, attn_mod, pa_mod, pw_mod, mm_mod, cfg):
+    """Each kernel at the speculative verify round's shapes (7B, D = 8, T =
+    9): row 1 over the contiguous scheduler's 8 slots (S = 4096, two
+    parked), rows 4-7 at the paged scheduler's round (tables of 64 pages of
+    64, two parked slots at q_len 0), row 5 also through the contiguous int8
+    view, row 8 at R = slots x (D + 1) = 72 for `wq` and `wd` (the
+    dispatcher's route printed). Times, bounds and library calls as in
+    `timing`. Returns {launch: {label: times}}."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.int4mm import int4_route
+
+    n, kh, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d1 = SPEC_DRAFT + 1
+    pos, kvl = spec_contiguous_positions(cfg.max_seq_len)
+    out = {"prefill": {"7b_contig_verify_b8": time_launch(
+        torch, attn_mod, n, kh, h, CONTIG_TIMED_LAYERS, len(pos), d1, cfg.max_seq_len,
+        pos, kvl)}}
+    rows = spec_rows(cfg.max_seq_len, 0)
+    for key, wkey, quantized in (("paged_window", "write", False),
+                                 ("paged_q_window", "write_q", True)):
+        attn, write = time_mixed(torch, pa_mod, pw_mod, cfg, quantized, d1, rows=rows)
+        out[key] = {"7b_verify_b8": attn}
+        out[wkey] = {"7b_verify_b8": write}
+    out["paged_q_window"]["7b_int8_view_b8"] = time_int8_view(torch, pa_mod, cfg)
+    r = 8 * d1
+    print(f"  int4 matmul at R = {r}: route {int4_route(r, torch.bfloat16)!r}", flush=True)
+    out["int4"] = time_int4(torch, mm_mod, cfg, rows_list=(r,))
+    for launch, shapes in out.items():
+        for label, t_ in shapes.items():
+            print(f"  verify {launch} {label}: kernel {t_['ms']:.4f} ms, plain "
+                  f"{t_['plain_ms']:.4f} ms, library {t_['library_ms']:.4f} ms, bound "
+                  f"{t_['bound_ms']:.5f} ms ({t_['bound_by']}) at {t_['shape']}", flush=True)
+    return out
+
+
+def verify_cost_readings(torch, cfg, params, readings, reps):
+    """`readings` ratios of the median wall (host clock around the forward
+    and a synchronise) of one T = D + 1 verify forward over that of one T =
+    1 decode forward at B = 8 over a contiguous cache of 1024 slots (rows at
+    positions 400-659), each from `reps` of each in turns after a warm-up.
+    Returns (ratios, the T = 1 and T = D + 1 medians in ms of the last)."""
+    import statistics
+
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import init_cache
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+
+    dev, b = "cuda", 8
+    cache = init_cache(cfg, b, 1024, torch.bfloat16, dev)
+    pos = torch.tensor([400 + 37 * i for i in range(b)], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def run(t):
+        tokens = torch.randint(3, cfg.vocab_size, (b, t), generator=g, device=dev,
+                               dtype=torch.int32)
+        positions = pos[:, None] + torch.arange(t, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(cfg, params, tokens, positions, cache, kv_lens=pos + t)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ratios = []
+    with torch.inference_mode():
+        for _ in range(5):
+            for t in (1, SPEC_DRAFT + 1):
+                run(t)
+        for _ in range(readings):
+            walls = {1: [], SPEC_DRAFT + 1: []}
+            for _ in range(reps):
+                for t in walls:
+                    walls[t].append(run(t))
+            med = {t: statistics.median(w) * 1e3 for t, w in walls.items()}
+            ratios.append(med[SPEC_DRAFT + 1] / med[1])
+    del cache
+    torch.cuda.empty_cache()
+    return ratios, med[1], med[SPEC_DRAFT + 1]
+
+
+def verify_cost_anchor(torch, smi, readings=5, reps=30):
+    """The verify cost model's D = 8 anchor on this card: at BENCH_1B, B = 8,
+    bf16 (random seed-0 weights), the median of `readings` readings of
+    `verify_cost_readings`. Prints each reading and the value
+    `engine/speculative.py` carries. Returns (the median, the readings)."""
+    import statistics
+
+    from llm_based_apache_spark_optimization_tpu_torch.engine import speculative
+    from llm_based_apache_spark_optimization_tpu_torch.models import BENCH_1B
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+
+    params = init_params(BENCH_1B, torch.Generator(device="cuda").manual_seed(0),
+                         torch.bfloat16, device="cuda")
+    ratios, t1, t9 = verify_cost_readings(torch, BENCH_1B, params, readings, reps)
+    ratio = statistics.median(ratios)
+    print(f"  verify cost anchor (bench-1b, B = 8, bf16): readings "
+          f"{[round(r, 4) for r in ratios]} (each the ratio of medians of {reps} forwards; "
+          f"the last T = 1 {t1:.3f} ms, T = {SPEC_DRAFT + 1} {t9:.3f} ms); median "
+          f"{ratio:.4f} on {smi}; engine/speculative.py carries "
+          f"{speculative.VERIFY_COST_ANCHORS[1][1]}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return ratio, [round(r, 4) for r in ratios]
+
+
+def verify_cost_7b(torch, eng, params4, smi):
+    """The verify cost model away from its anchor: at DUCKDB_NSQL_7B, B = 8,
+    bf16 and int4 weights, the median of three `verify_cost_readings`
+    beside what `verify_cost_ratio` scales the anchor to. Printed, not held
+    (the scaling is an estimate; `speculation_stats` says so). Returns
+    {weights: {measured, modelled}}."""
+    import statistics
+
+    from llm_based_apache_spark_optimization_tpu_torch.engine.speculative import (
+        verify_cost_ratio,
+    )
+
+    out = {}
+    for name, params, bits in (("bf16", eng.params, 16), ("int4", params4, 4)):
+        ratios, t1, t9 = verify_cost_readings(torch, eng.cfg, params, 3, 20)
+        out[name] = dict(measured=round(statistics.median(ratios), 4),
+                         modelled=round(verify_cost_ratio(SPEC_DRAFT, eng.cfg, bits), 4))
+        print(f"  verify cost at 7B, {name} weights: readings "
+              f"{[round(r, 4) for r in ratios]} (the last T = 1 {t1:.3f} ms, T = "
+              f"{SPEC_DRAFT + 1} {t9:.3f} ms), median {out[name]['measured']}; "
+              f"verify_cost_ratio models {out[name]['modelled']} on {smi}", flush=True)
+    return out
+
+
+def drift_class(label):
+    """The weight and KV cache types of a speculative path's label."""
+    return "int4_int8" if "int4" in label else "int8" if "int8" in label else "bf16"
+
+
+def logit_drift(torch, cfg, params, kv_quant, n_new=63):
+    """How far the verify window's logits sit from the decode step's over
+    the same prefix: the eight SQL prompts (SCHED_SQL) cut to one length as
+    B = 8 rows over a contiguous cache (bf16, or quantized after the
+    prefill as the engine does), `n_new` greedy tokens decoded at T = 1,
+    then the same tokens fed again as verify windows of T = D + 1 after the
+    same prefill, and once more as one cache-free prefill of prompt +
+    tokens. Returns the largest |difference| between any two of the three
+    paths' logits, over every position and id (`eps`), the same in bf16
+    ulps of the row's largest |logit| (`ulps`), and over the ids among the
+    top two of any path at each position (`eps_top`)."""
+    import math
+
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import init_cache
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_cache
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    rows = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in SCHED_SQL]
+    n, b, d1, dev = min(len(r) for r in rows), len(rows), SPEC_DRAFT + 1, "cuda"
+    n_new = n_new // d1 * d1
+    prompt = torch.tensor([r[:n] for r in rows], dtype=torch.int32, device=dev)
+    pos = torch.arange(n + n_new, dtype=torch.int32, device=dev)[None].expand(b, -1)
+
+    def prefilled():
+        cache = init_cache(cfg, b, n + n_new + d1, torch.bfloat16, dev)
+        logits, cache = forward(cfg, params, prompt, pos[:, :n], cache,
+                                logit_indices=torch.full((b,), n - 1, device=dev))
+        if kv_quant:
+            cache = quantize_cache(cache["k"], cache["v"])
+        return logits[:, 0], cache
+
+    with torch.inference_mode():
+        first, cache = prefilled()
+        gen, dec = [torch.argmax(first, dim=-1).to(torch.int32)], []
+        for i in range(n_new):
+            logits, cache = forward(cfg, params, gen[-1][:, None], pos[:, n + i:n + i + 1],
+                                    cache)
+            dec.append(logits[:, 0])
+            gen.append(torch.argmax(logits[:, 0], dim=-1).to(torch.int32))
+        dec, gen = torch.stack(dec, 1), torch.stack(gen[:-1], 1)
+        _, cache = prefilled()
+        win = []
+        for k in range(0, n_new, d1):
+            logits, cache = forward(cfg, params, gen[:, k:k + d1], pos[:, n + k:n + k + d1],
+                                    cache)
+            win.append(logits)
+        win = torch.cat(win, 1)
+        full = forward(cfg, params, torch.cat([prompt, gen], 1), pos, None)[0][:, n:]
+        del cache
+        assert bool(torch.isfinite(dec).all() & torch.isfinite(win).all()
+                    & torch.isfinite(full).all())
+        diff = torch.stack([(win - dec).abs().amax(-1), (full - dec).abs().amax(-1),
+                            (full - win).abs().amax(-1)])          # [3, B, n_new]
+        ids = torch.cat([x.topk(2, dim=-1).indices for x in (dec, win, full)], -1)
+        dec_t, win_t, full_t = (torch.gather(x, -1, ids) for x in (dec, win, full))
+        eps_top = max(float((x - y).abs().max())
+                      for x, y in ((win_t, dec_t), (full_t, dec_t), (full_t, win_t)))
+        top = dec.abs().amax(-1)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    worst = diff.amax(0)
+    out = dict(eps=float(worst.max()), ulps=float((worst / ulp).max()), eps_top=eps_top,
+               window_vs_decode=float(diff[0].max()), prefill_vs_decode=float(diff[1].max()),
+               prefill_vs_window=float(diff[2].max()), rows=b, prompt_len=n,
+               positions=n_new, max_abs_logit=float(top.max()))
+    assert math.isfinite(out["eps"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def logit_drifts(torch, eng, params4, smi):
+    """`logit_drift` for each drift class of phase 13's paths, recorded for
+    `compare_streams`: bf16 weights over a bf16 and an int8 cache, int4
+    weights over an int8 cache. Fatal past DRIFT_ULPS."""
+    for cls, params, kv_quant in (("bf16", eng.params, None), ("int8", eng.params, "int8"),
+                                  ("int4_int8", params4, "int8")):
+        d = logit_drift(torch, eng.cfg, params, kv_quant)
+        _DRIFT[cls] = d
+        print(f"  logit drift, {cls}: {json.dumps(d)}; near-tie bound 2 x eps_top = "
+              f"{2 * d['eps_top']:.5f} on {smi}", flush=True)
+        assert d["ulps"] <= DRIFT_ULPS, \
+            f"{cls}: the paths' logits drift {d['ulps']:.2f} ulps > {DRIFT_ULPS}"
+    return dict(_DRIFT)
+
+
+def pair_gap(torch, cfg, params, prompt, prefix, a, b):
+    """|logit[a] - logit[b]| at the position after `prompt + prefix`,
+    recomputed by a cache-free forward of `params` (a third path)."""
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+
+    ids = list(prompt) + list(prefix)
+    toks = torch.tensor([ids], dtype=torch.int32, device="cuda")
+    pos = torch.arange(len(ids), dtype=torch.int32, device="cuda")[None]
+    with torch.inference_mode():
+        logits = forward(cfg, params, toks, pos, None,
+                         logit_indices=torch.tensor([len(ids) - 1], device="cuda"))[0][0, 0]
+    return abs(float(logits[a]) - float(logits[b]))
+
+
+def compare_streams(torch, eng, label, prompts, got, want, tally_div, params=None):
+    """Hold speculative streams `got` to vanilla streams `want` of the same
+    layout: equal, or, at the first diverging token, the two tokens' logits
+    (`pair_gap` over the path's weights `params`, the engine's by default)
+    within twice the top ids' drift `logit_drift` measured for the path's
+    weight and cache types. Prints and records every divergence; fatal past
+    the bound."""
+    limit = 2 * _DRIFT[drift_class(label)]["eps_top"]
+    same = 0
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            assert len(a) == len(b) or any(t in eng.stop_ids for t in (a + b)), \
+                f"{label}[{i}]: lengths {len(a)} != {len(b)} without a stop"
+            same += len(a) == len(b)
+            continue
+        gap = pair_gap(torch, eng.cfg, params if params is not None else eng.params, p,
+                       b[:j], b[j], a[j])
+        tally_div.append(dict(path=label, stream=i, position=j, gap=round(gap, 5),
+                              bound=round(limit, 5)))
+        print(f"    {label}[{i}]: first divergence at token {j} (vanilla {b[j]}, "
+              f"speculative {a[j]}): logit gap {gap:.5f}, bound {limit:.5f}", flush=True)
+        assert gap <= limit, f"{label}[{i}]: divergence at {j} with gap {gap} > {limit}"
+    return same
+
+
+def spec_report(label, stats, outs, rounds=None):
+    """Print a speculative path's acceptance: a scheduler's
+    `speculation_stats` (tokens a slot's verify round), whose delivered
+    tokens must equal what its requests received (every token after the
+    first, which comes from the prefill); or an engine's batch `rounds`
+    (tokens a row's round: what the rows received over rounds x rows)."""
+    received = sum(max(len(o) - 1, 0) for o in outs)
+    if stats is not None:
+        print(f"  {label}: speculation_stats {json.dumps(stats)}", flush=True)
+        assert stats["tokens_delivered"] == received, \
+            f"{label}: delivered {stats['tokens_delivered']} != received {received}"
+        assert stats["tokens_emitted"] >= received and stats["verify_rounds"] >= 1
+        return round(stats["tokens_emitted"] / stats["verify_rounds"], 3)
+    tpr = round(received / max(1, rounds * len(outs)), 3)
+    print(f"  {label}: {rounds} verify rounds of {len(outs)} rows for {received} tokens "
+          f"after the first: {tpr} tokens a row's round", flush=True)
+    return tpr
+
+
+def expect_spec(expected, sched, rounds, prefills, extra_windows=0):
+    """A speculative scheduler's launches: each verify round (a ragged
+    mixed round included) is one forward of T > 1 a layer: contiguous bf16
+    the flash prefill kernel, contiguous int8 the quantized window through
+    the one-page view, paged the window and the page write (int8 pool: the
+    quantized twins); a prefill forward the flash prefill a layer (paged:
+    and the chunk's page write); a ragged prefill one window and one page
+    write a layer; int4 weights 7 int4 matmuls a layer a forward."""
+    n_layers = sched.cfg.num_layers
+    q = "_quantized" if sched.kv_quant else ""
+    windows = rounds + sched.ragged_prefills + extra_windows
+    if sched._paged:
+        expected["ragged_paged_window" + q] += n_layers * windows
+        expected["fused_page_write" + q] += n_layers * (windows + prefills)
+    elif q:
+        expected["ragged_paged_window_quantized"] += n_layers * windows
+    else:
+        expected["flash_gqa_prefill"] += n_layers * windows
+    expected["flash_gqa_prefill"] += n_layers * prefills
+    if isinstance(sched.params["blocks"]["wq"], dict):
+        expected["int4_matmul"] += 7 * n_layers * (windows + prefills)
+
+
+def no_sync_rounds(torch, cls):
+    """Context: every speculative round method of the scheduler class runs
+    under torch's sync debug mode "error", so a host synchronisation inside
+    a round raises (and fails the phase)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {m: getattr(cls, m) for m in ("_spec_round", "_mixed_spec_round")}
+
+        def guard(fn):
+            def wrapped(self, *a, **kw):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(self, *a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            return wrapped
+
+        for m, fn in saved.items():
+            setattr(cls, m, guard(fn))
+        try:
+            yield
+        finally:
+            for m, fn in saved.items():
+                setattr(cls, m, fn)
+    return ctx()
+
+
+SPEC_SAMPLED = dict(temperature=0.8, top_p=0.95)
+
+
+def spec_engine(torch, eng, tally_div):
+    """(a) The 7B engine, D = 8: the three NL->SQL prompts as one batch,
+    greedy, in the contiguous bf16, paged bf16 and paged int8 layouts, each
+    beside the vanilla engine of its layout (streams held by
+    `compare_streams`); launch counts exact (contiguous: the flash prefill
+    a layer per forward, the verify windows included; paged: window and
+    page write a layer a round). Returns {layout: (launches, tokens a
+    round)}."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in QUESTIONS]
+    n_layers = eng.cfg.num_layers
+    out = {}
+    for layout, kv_quant in (("contiguous", None), ("paged", None), ("paged", "int8")):
+        label = f"engine_{layout}" + (f"_{kv_quant}" if kv_quant else "")
+        kw = dict(device="cuda", stop_ids=eng.stop_ids, kv_layout=layout, kv_quant=kv_quant)
+        vanilla = InferenceEngine(eng.cfg, eng.params, **kw)
+        spec = InferenceEngine(eng.cfg, eng.params, speculative_draft=SPEC_DRAFT, **kw)
+        want = vanilla.generate(prompts, max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = spec.generate(prompts, max_new_tokens=MAX_NEW)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        rounds = spec.last_spec_rounds
+        exp = dict.fromkeys(LAUNCHES, 0)
+        exp["flash_gqa_prefill"] = n_layers
+        q = "_quantized" if kv_quant else ""
+        if layout == "paged":
+            exp["ragged_paged_window" + q] = exp["fused_page_write" + q] = n_layers * rounds
+        else:
+            exp["flash_gqa_prefill"] += n_layers * rounds
+        same = compare_streams(torch, eng, label, prompts, got, want, tally_div)
+        tpr = spec_report(label, None, got, rounds)
+        print(f"  {label}: {wall:.3f} s; {same} of {len(got)} streams equal to vanilla; "
+              f"tokens {[len(o) for o in got]}; launches {launches} expected {exp}",
+              flush=True)
+        assert launches == exp, f"{label}: launch counts {launches} != {exp}"
+        out[label] = (launches, tpr)
+        del vanilla, spec
+    return out
+
+
+def spec_copying(torch, eng):
+    """(b) The copying variant: the 7B seed-0 weights with every block's
+    `wo` and `wd` zeroed and lm_head := embed, so the residual stream stays
+    embed[token] and the logits are rms(embed[tok]) @ embed.T while the
+    attention kernels still run on real K/V. Premise first: vanilla greedy
+    repeats the prompt's last token. The prompts are the NL->SQL prompts
+    with their last character repeated 12 times, so a draft window (n-gram
+    3 + D = 11) finds a whole match from the first round, as JAX's
+    test_acceptance_on_copying_model's prompt does. Then the speculative
+    engine (contiguous and paged int8) and the speculative contiguous
+    scheduler, D = 8, 256 new tokens: streams equal vanilla's outright, and
+    each takes at least D tokens a round (D + 1 but for the round the
+    budget cuts). Returns ({path: launches}, {path: tokens a round})."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    blocks = dict(eng.params["blocks"], wo=torch.zeros_like(eng.params["blocks"]["wo"]),
+                  wd=torch.zeros_like(eng.params["blocks"]["wd"]))
+    params = dict(eng.params, blocks=blocks, lm_head=eng.params["embed"])
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}{q[-1] * 12}") for q in QUESTIONS]
+    new = 256
+    vanilla = InferenceEngine(eng.cfg, params, device="cuda", stop_ids=(-1,))
+    want = vanilla.generate(prompts, max_new_tokens=new)
+    assert all(o == [p[-1]] * new for p, o in zip(prompts, want)), \
+        f"premise: vanilla does not repeat the last token: {[o[:4] for o in want]}"
+    launches, tprs = {}, {}
+    for layout, kv_quant in (("contiguous", None), ("paged", "int8")):
+        label = f"copying_engine_{layout}"
+        spec = InferenceEngine(eng.cfg, params, device="cuda", stop_ids=(-1,),
+                               kv_layout=layout, kv_quant=kv_quant,
+                               speculative_draft=SPEC_DRAFT)
+        torch.cuda.synchronize()
+        reset_launches()
+        got = spec.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        assert got == want, f"{label}: the copying variant's streams differ"
+        tprs[label] = spec_report(label, None, got, spec.last_spec_rounds)
+        assert tprs[label] >= SPEC_DRAFT, f"{label}: {tprs[label]} tokens a round"
+    sched = ContinuousBatchingScheduler(eng.cfg, params, num_slots=8, stop_ids=(-1,),
+                                        speculative_draft=SPEC_DRAFT, device="cuda")
+    with sched:
+        torch.cuda.synchronize()
+        reset_launches()
+        got = burst(sched, prompts, new)
+        wait_settled(sched)
+        torch.cuda.synchronize()
+    launches["copying_scheduler"] = dict(LAUNCHES)
+    assert got == want, "copying_scheduler: streams differ"
+    st = sched.speculation_stats
+    tprs["copying_scheduler"] = spec_report("copying_scheduler", st, got)
+    assert st["tokens_per_round"] >= SPEC_DRAFT, st
+    del params, blocks, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, tprs
+
+
+def spec_schedulers(torch, engines, params4, tally_div):
+    """(c) The contiguous scheduler (the app's default) and the paged one,
+    each in bf16, over the int8 KV cache and with int4 weights over it, D =
+    8, 8 slots at the default max_seq: six requests at once (five greedy
+    NL->SQL prompts, one sampled), then the sampled request again beside two
+    other greedy ones (another batch mix): its tokens must repeat. The five
+    greedy streams are held to the vanilla scheduler of the same
+    configuration (`compare_streams`). In bf16 both layouts then serve one
+    request at the window's edge: a prompt bucketed to the largest bucket
+    that leaves MAX_NEW tokens and the speculative overshoot, (lag + 1)(D +
+    1) + D, below max_seq, its verify windows writing up to the parking
+    position; its stream too is held to vanilla's. Every verify round runs
+    with host synchronisation forbidden (`no_sync_rounds`). Launch counts
+    exact.
+    Returns ({path: launches}, {path: tokens a round}, {label: scheduler
+    kept for (d) and (g)})."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.sampling import SamplingParams
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    eng = engines["duckdb-nsql"]
+    cfg = eng.cfg
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in SCHED_SQL[2:]]
+    # The edge request: the largest 128-token bucket that leaves MAX_NEW and
+    # the overshoot below max_seq, less a few tokens.
+    room = cfg.max_seq_len - 1 - MAX_NEW - (2 * (SPEC_DRAFT + 1) + SPEC_DRAFT)
+    edge = tok.encode(f"{SYSTEM_SQL}\n" * (cfg.max_seq_len // 64))[:room // 128 * 128 - 10]
+    sp = SamplingParams(**SPEC_SAMPLED)
+    launches, tprs = {}, {}
+    for layout in ("contiguous", "paged"):
+        for wname, kv_quant in (("bf16", None), ("int8", "int8"), ("int4_int8", "int8")):
+            label = f"spec_{layout}_scheduler_{wname}"
+            params = params4 if wname == "int4_int8" else eng.params
+            kw = dict(num_slots=8, stop_ids=eng.stop_ids, kv_layout=layout,
+                      kv_quant=kv_quant, device="cuda")
+            if layout == "paged":
+                kw["kv_page_size"] = SCHED["kv_page_size"]
+            with ContinuousBatchingScheduler(cfg, params, **kw) as vs:
+                want = burst(vs, prompts[:5], MAX_NEW)
+                if wname == "bf16":
+                    want.append(vs.submit(edge, max_new_tokens=MAX_NEW).result(timeout=600))
+            del vs
+            sched = ContinuousBatchingScheduler(cfg, params, speculative_draft=SPEC_DRAFT,
+                                                **kw)
+            t0 = time.perf_counter()
+            with sched, no_sync_rounds(torch, ContinuousBatchingScheduler):
+                torch.cuda.synchronize()
+                reset_launches()
+                switch = sys.getswitchinterval()
+                sys.setswitchinterval(BURST_SWITCH_S)
+                try:
+                    futs = [sched.submit(p, max_new_tokens=MAX_NEW) for p in prompts[:5]]
+                    futs.append(sched.submit(prompts[5], max_new_tokens=MAX_NEW,
+                                             sampling=sp, seed=11))
+                finally:
+                    sys.setswitchinterval(switch)
+                outs = [f.result(timeout=600) for f in futs]
+                futs = [sched.submit(prompts[5], max_new_tokens=MAX_NEW, sampling=sp,
+                                     seed=11),
+                        sched.submit(prompts[0], max_new_tokens=MAX_NEW // 2),
+                        sched.submit(prompts[3], max_new_tokens=MAX_NEW)]
+                again = [f.result(timeout=600) for f in futs]
+                if wname == "bf16":
+                    outs.append(sched.submit(edge, max_new_tokens=MAX_NEW).result(timeout=600))
+                wait_settled(sched)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches[label] = dict(LAUNCHES)
+            exp = dict.fromkeys(LAUNCHES, 0)
+            expect_spec(exp, sched, sched.rounds_issued, sched.prefill_forwards)
+            greedy = [0, 1, 2, 3, 4] + ([6] if wname == "bf16" else [])
+            same = compare_streams(torch, eng, label, [(prompts[:5] + [None, edge])[i]
+                                                       for i in greedy],
+                                   [outs[i] for i in greedy], want, tally_div,
+                                   params=params)
+            st = sched.speculation_stats
+            tprs[label] = spec_report(label, st, outs + again)
+            print(f"  {label}: {wall:.3f} s, {sched.rounds_issued} rounds, "
+                  f"{sched.prefill_forwards} prefill forwards; {same} of {len(greedy)} greedy "
+                  f"streams equal to vanilla"
+                  f"{f' (the {len(edge)}-token edge prompt among them)' if 6 in greedy else ''}"
+                  f"; the sampled request repeats in another batch mix: "
+                  f"{again[0] == outs[5]}; launches {launches[label]} expected {exp}",
+                  flush=True)
+            assert again[0] == outs[5], f"{label}: the sampled request did not repeat"
+            assert launches[label] == exp, f"{label}: launch counts {launches[label]} != {exp}"
+            if layout == "paged":
+                sched._page_alloc.check()
+            del sched
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches, tprs
+
+
+def spec_constrained(torch, eng, tally, tally_div):
+    """(d) One constrained burst on the speculative contiguous scheduler
+    (7B bf16, D = 8): six requests at once, three under the generic grammar
+    and three free; every constrained completion passes phase 12's checks
+    (`check_constrained`), the free ones join the unconstrained control.
+    Launch counts exact. Returns (launches, tokens a round)."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    generic = grammar("generic", tok, eng.stop_ids)
+    constraints = [generic, None, generic, None, generic, None]
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in SCHED_SQL[2:]]
+    sched = ContinuousBatchingScheduler(eng.cfg, eng.params, num_slots=8,
+                                        stop_ids=eng.stop_ids, device="cuda",
+                                        speculative_draft=SPEC_DRAFT)
+    with sched, no_sync_rounds(torch, ContinuousBatchingScheduler):
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = burst(sched, prompts, MAX_NEW, constraints)
+        wait_settled(sched)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    exp = dict.fromkeys(LAUNCHES, 0)
+    expect_spec(exp, sched, sched.rounds_issued, sched.prefill_forwards)
+    for c, out in zip(constraints, outs):
+        if c is None:
+            tally.control_text("spec_scheduler", tok.decode(out))
+            continue
+        text = check_constrained(tally, "spec_scheduler", c, "spark_sql", out, MAX_NEW,
+                                 eng.stop_ids, tok)
+        print(f"    spec_scheduler generic: {text!r}", flush=True)
+    st = sched.speculation_stats
+    tpr = spec_report("spec_constrained_scheduler", st, outs)
+    print(f"  constrained speculative burst: by_class {json.dumps(st['by_class'])}; "
+          f"launches {launches} expected {exp}", flush=True)
+    assert st["by_class"]["constrained"]["verify_rounds"] >= 1
+    assert launches == exp, f"launch counts {launches} != {exp}"
+    return launches, tpr
+
+
+def spec_mixed(torch, eng, tally_div):
+    """(e) Ragged mixed rounds under speculation, D = 4: the 7B paged
+    scheduler with `ragged=True` (chunks of at most 32, so a round's window
+    is max(32, 5) = 32 wide) over the bf16 pool, the six SQL requests at
+    once with staggered budgets, so chunks ride verify rounds: mixed
+    rounds > 0; every attention launch at T > 1 (windows = rounds + ragged
+    prefills, a layer each); streams held to the vanilla ragged scheduler's.
+    Returns (launches, tokens a round)."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in SCHED_SQL[2:]]
+    budgets = [MAX_NEW // 4, MAX_NEW, MAX_NEW // 2, MAX_NEW, MAX_NEW // 4, MAX_NEW // 2]
+    kw = dict(SCHED, stop_ids=eng.stop_ids, ragged=True, device="cuda")
+    outs = {}
+    for name, extra in (("vanilla", {}), ("spec", dict(speculative_draft=4))):
+        sched = ContinuousBatchingScheduler(eng.cfg, eng.params, **kw, **extra)
+        with sched, no_sync_rounds(torch, ContinuousBatchingScheduler):
+            torch.cuda.synchronize()
+            reset_launches()
+            switch = sys.getswitchinterval()
+            sys.setswitchinterval(BURST_SWITCH_S)
+            try:
+                futs = [sched.submit(p, max_new_tokens=m) for p, m in zip(prompts, budgets)]
+            finally:
+                sys.setswitchinterval(switch)
+            outs[name] = [f.result(timeout=600) for f in futs]
+            wait_idle(sched)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        if name == "spec":
+            exp = dict.fromkeys(LAUNCHES, 0)
+            expect_spec(exp, sched, sched.rounds_issued, sched.prefill_forwards)
+            st = sched.speculation_stats
+            print(f"  ragged speculative: {sched.rounds_issued} rounds ({sched.mixed_rounds} "
+                  f"mixed, {sched.ragged_prefills} ragged prefills), {sched.prefill_forwards} "
+                  f"prefill forwards; launches {launches} expected {exp}", flush=True)
+            assert sched.mixed_rounds > 0, "no chunk rode a verify round"
+            assert launches == exp, f"launch counts {launches} != {exp}"
+            sched._page_alloc.check()
+    compare_streams(torch, eng, "spec_mixed_scheduler", prompts, outs["spec"], outs["vanilla"],
+                    tally_div)
+    return launches, spec_report("spec_mixed_scheduler", st, outs["spec"])
+
+
+def spec_overcommit(torch, eng, tally, tally_div):
+    """(f) The overcommit burst under speculation (D = 8): `overcommit_serve`'s
+    six requests at OVERCOMMIT_NEW new tokens (the last three under the
+    generic grammar; the first one sampled) over the 7B paged scheduler with
+    kv_overcommit 0.5:
+    a control pool that holds every budget, and a pool that holds the
+    admissions only, in spill and in recompute mode (preemptions >= 1 in
+    both). Spill streams equal the control's; recompute streams equal it or
+    diverge at a near-tie (`compare_streams`: a re-prefill rebuilds K/V
+    with other matmul shapes). The sampled request (`sampled_resumes`):
+    equal to the control up to its first recompute resume, which must
+    restore the stream index the control's rounds had reached there (one a
+    harvested round, after the prefill's one) and the history row (prompt
+    + committed tokens); equal outright if it was never preempted. Every
+    constrained stream passes the grammar checks. Launch counts exact.
+    Returns (launches, tokens a round of the control)."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import bucket_len
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        pages_for_tokens,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.sampling import SamplingParams
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    cfg = eng.cfg
+    prompts = [tok.encode(f"Overcommit request {i}. {SYSTEM_SQL}\n\n{q}")
+               for i, q in enumerate(SCHED_SQL[2:])]
+    generic = grammar("generic", tok, eng.stop_ids)
+    constraints = [None, None, None, generic, generic, generic]
+    ps = SCHED["kv_page_size"]
+    overshoot = 2 * (SPEC_DRAFT + 1) + SPEC_DRAFT
+    new = OVERCOMMIT_NEW
+    admit = sum(pages_for_tokens(bucket_len(len(p), 128) + new // 2 + overshoot, ps)
+                for p in prompts)
+    full = sum(pages_for_tokens(len(p) + new + overshoot, ps) for p in prompts)
+    print(f"  six requests of {[len(p) for p in prompts]} prompt tokens x {new} new: "
+          f"admissions take {admit} pages of {ps}, whole budgets {full}", flush=True)
+    assert admit + 2 >= pages_for_tokens(cfg.max_seq_len, ps) and full > admit + 2
+    kw = dict(SCHED, stop_ids=eng.stop_ids, kv_overcommit=0.5, device="cuda",
+              speculative_draft=SPEC_DRAFT)
+    runs = {"control": dict(kv_pages=full + 16),
+            "spill": dict(kv_pages=admit + 2, kv_spill=True),
+            "recompute": dict(kv_pages=admit + 2, kv_spill=False)}
+    sp = SamplingParams(**SPEC_SAMPLED)
+    torch.cuda.synchronize()
+    reset_launches()
+    want = dict.fromkeys(LAUNCHES, 0)
+    toks, stats, watch = {}, {}, {}
+    for name, extra in runs.items():
+        t0 = time.perf_counter()
+        with ContinuousBatchingScheduler(cfg, eng.params, **kw, **extra) as sched:
+            watch[name] = sampled_resumes(torch, sched)
+            switch = sys.getswitchinterval()
+            sys.setswitchinterval(BURST_SWITCH_S)
+            try:
+                futs = [sched.submit(p, max_new_tokens=new, constraint=c,
+                                     sampling=sp if i == 0 else SamplingParams(), seed=21)
+                        for i, (p, c) in enumerate(zip(prompts, constraints))]
+            finally:
+                sys.setswitchinterval(switch)
+            toks[name] = [f.result(timeout=600) for f in futs]
+            st = wait_idle(sched)
+        wait_settled(sched)
+        sched._page_alloc.check()
+        stats[name] = st
+        expect_spec(want, sched, sched.rounds_issued, sched.prefill_forwards)
+        spec_report(f"spec_overcommit_{name}", sched.speculation_stats, toks[name])
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s, {sched.rounds_issued} rounds; "
+              f"preemptions {st['preemptions']}, spilled {st['spilled_pages']}, restored "
+              f"{st['restored_pages']}; tokens {[len(t) for t in toks[name]]}", flush=True)
+        for c, out in zip(constraints, toks[name]):
+            if c is not None:
+                check_constrained(tally, f"spec_overcommit_{name}", c, "spark_sql", out,
+                                  new, eng.stop_ids, tok)
+        if name == "control":
+            tpr = round(sched.speculation_stats["tokens_per_round"], 3)
+        del sched
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"  launches {launches} expected {want}", flush=True)
+    assert stats["control"]["preemptions"] == 0
+    for name in ("spill", "recompute"):
+        assert stats[name]["preemptions"] >= 1, f"{name}: the pool never preempted"
+    assert stats["spill"]["spilled_pages"] == stats["spill"]["restored_pages"] > 0
+    assert toks["spill"] == toks["control"], "spill resumes changed the tokens"
+    # The sampled stream (request 0): before its first resume it ran as in
+    # the control; the resume must restore the control's stream index and
+    # history. Past it a draw may flip where the perturbed scores tie.
+    a, b = toks["recompute"][0], toks["control"][0]
+    rounds, resumes = watch["control"]["rounds"], watch["recompute"]["resumes"]
+    j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    print(f"  recompute: sampled stream equal to the control: {a == b} (first diverging "
+          f"token {j}); its resumes (committed tokens, stream index, history row "
+          f"intact): {resumes}; the control's committed tokens after each round "
+          f"{rounds}", flush=True)
+    if not resumes:
+        assert a == b, "the sampled request was never preempted, yet changed"
+    else:
+        g0, count, _ = resumes[0]
+        want_count = 1 + sum(r <= g0 for r in rounds)
+        assert a[:g0] == b[:g0], f"sampled stream changed before its resume at {g0}"
+        assert g0 == 1 or g0 in rounds, \
+            f"resume at {g0} committed tokens, where no round of the control ended"
+        assert count == want_count, \
+            f"resume restored stream index {count}, the control's was {want_count}"
+        assert all(ok for _, _, ok in resumes), "a resume left a wrong history row"
+    compare_streams(torch, eng, "spec_overcommit_recompute", prompts[1:],
+                    toks["recompute"][1:], toks["control"][1:], tally_div)
+    assert launches == want, f"launch counts {launches} != {want}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, tpr
+
+
+def sampled_resumes(torch, sched):
+    """Watch the sampled requests of `sched` (temperature > 0): `rounds`, the
+    committed tokens after each of their harvested verify rounds, and
+    `resumes`, at each resume (committed tokens, the stream index and
+    whether the history row holds prompt + committed tokens, pad beyond).
+    Wraps the instance's `_count_spec` and `_resume_ready`."""
+    seen = {"rounds": [], "resumes": []}
+    count_spec, resume_ready = sched._count_spec, sched._resume_ready
+
+    def counted(req, emitted, delivered):
+        if req.temperature > 0.0:
+            seen["rounds"].append(len(req.generated))
+        return count_spec(req, emitted, delivered)
+
+    def resumed(slot, req):
+        resume_ready(slot, req)
+        if req.temperature > 0.0:
+            ids = req.full_ids
+            row = sched._hist[slot].tolist()
+            ok = (row[:len(ids)] == ids and int(sched._hlen[slot]) == len(ids)
+                  and set(row[len(ids):]) <= {sched.cfg.pad_id})
+            seen["resumes"].append((len(req.generated), int(sched._counts[slot]), ok))
+
+    sched._count_spec, sched._resume_ready = counted, resumed
+    return seen
+
+
+def spec_app(torch, eng):
+    """(g) `POST /process-data/` over a speculative 7B scheduler: the
+    contiguous scheduler with D = 8 serves both roles (the SQL model and,
+    as a checkpoint service without --error-model-path does, the error
+    explanation) through `create_api_app`; two requests, each the failure
+    shape (random weights), launch counts exact, speculation_stats
+    printed. Then the entry point as a user starts it with
+    `--speculative 8` (`entry_point`). Returns (launches, tokens a
+    round)."""
+    import tempfile
+
+    from llm_based_apache_spark_optimization_tpu_torch.app import (
+        AppConfig,
+        create_api_app,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        GenerationService,
+        SchedulerBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+
+    tok = ByteModTokenizer()
+    sched = ContinuousBatchingScheduler(eng.cfg, eng.params, num_slots=8,
+                                        stop_ids=eng.stop_ids, device="cuda",
+                                        speculative_draft=SPEC_DRAFT)
+    svc = GenerationService()
+    svc.register("duckdb-nsql", SchedulerBackend(sched, tok, max_new_tokens=MAX_NEW))
+    svc.register("llama3.2", SchedulerBackend(sched, tok, max_new_tokens=MAX_NEW,
+                                              add_bos=False), template="llama3-chat")
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            os.makedirs(os.path.join(root, "input"))
+            with open(os.path.join(root, "input", "taxi.csv"), "w") as f:
+                f.write(CSV)
+            cfg = AppConfig(input_dir=os.path.join(root, "input"),
+                            output_dir=os.path.join(root, "output"),
+                            history_db=":memory:", max_new_tokens=MAX_NEW)
+            client = create_api_app(svc, SQLiteBackend, SQLiteHistory(":memory:"),
+                                    cfg).test_client()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            bodies = [client.post_json("/process-data/", {"input_text": qn,
+                                                          "file_name": "taxi.csv"})
+                      for qn in APP_QUESTIONS[:2]]
+            wall = time.perf_counter() - t0
+            wait_settled(sched)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        exp = dict.fromkeys(LAUNCHES, 0)
+        expect_spec(exp, sched, sched.rounds_issued, sched.prefill_forwards)
+        for res in bodies:
+            body = res.json()
+            assert res.status == 200 and set(body) == {"error", "sql_query",
+                                                       "error_details"}, body
+        st = sched.speculation_stats
+        print(f"  app over the speculative scheduler: two POST /process-data/ in "
+              f"{wall:.3f} s; speculation_stats {json.dumps(st)}; launches {launches} "
+              f"expected {exp}", flush=True)
+        assert launches == exp, f"launch counts {launches} != {exp}"
+        assert st["verify_rounds"] >= 1
+        tpr = st["tokens_per_round"]
+    finally:
+        sched.shutdown()
+    entry_point(torch, backend_args=("--backend", "tiny", "--speculative", str(SPEC_DRAFT)))
+    return launches, tpr
+
+
+def speculative_paths(torch, engines, tally, smi):
+    """Phase 13, speculative decoding at D = 8 on the 7B weights: (a) the
+    engine in three layouts, (b) the copying variant, (c) both scheduler
+    layouts in bf16, int8 KV and int4/int8, (d) a constrained burst, (e)
+    ragged mixed rounds at D = 4, (f) the overcommit burst, (g) the app,
+    after the logit drift of each weight and cache type and the verify cost
+    at 7B. Every speculative stream equals the vanilla stream of its layout
+    or leaves it at a reported near-tie within twice its class's top ids' drift.
+    Returns ({path: launches}, {path: tokens a round}, divergences,
+    {"logit_drift": ..., "verify_cost_7b": ...})."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_params_int4
+
+    eng = engines["duckdb-nsql"]
+    div, launches, tprs = [], {}, {}
+    phase("speculative logit drift and verify cost at 7B")
+    params4 = quantize_params_int4(eng.params)
+    calib = {"logit_drift": logit_drifts(torch, eng, params4, smi),
+             "verify_cost_7b": verify_cost_7b(torch, eng, params4, smi)}
+    phase("speculative engine (a) and the copying variant (b)")
+    for label, (la, tpr) in spec_engine(torch, eng, div).items():
+        launches[label], tprs[label] = la, tpr
+    la, tp = spec_copying(torch, eng)
+    launches.update(la)
+    tprs.update(tp)
+    phase("speculative schedulers (c), both layouts, bf16, int8 KV, int4/int8")
+    la, tp = spec_schedulers(torch, engines, params4, div)
+    del params4
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(la)
+    tprs.update(tp)
+    phase("speculative constrained burst (d) and ragged mixed rounds (e)")
+    launches["spec_constrained_scheduler"], tprs["spec_constrained_scheduler"] = \
+        spec_constrained(torch, eng, tally, div)
+    launches["spec_mixed_scheduler"], tprs["spec_mixed_scheduler"] = \
+        spec_mixed(torch, eng, div)
+    phase("speculative overcommit (f)")
+    launches["spec_overcommit_scheduler"], tprs["spec_overcommit_scheduler"] = \
+        spec_overcommit(torch, eng, tally, div)
+    phase("speculative app (g)")
+    launches["spec_app"], tprs["spec_app"] = spec_app(torch, eng)
+    print(f"  tokens per verify round by path: {json.dumps(tprs)}", flush=True)
+    print(f"  divergences from vanilla ({len(div)}): {json.dumps(div)}", flush=True)
+    return launches, tprs, div, calib
+
+
+SPEC_CASE_NAMES = {name for _, name, _ in spec_kernel_cases()} | {
+    name for name, _ in spec_paged_cases()} | {"7b_verify_t9", "3b_verify_t9"}
+
+
+def spec_kernels(torch, attn_mod, pa_mod, pw_mod, mm_mod):
+    """Phase 3's checks at the verify shapes alone (`--speculative-only`):
+    rows 1, 4, 5 at T = 9 with parked rows and NaN in dead slots, row 5
+    through the contiguous int8 view, rows 6-7 writing 9-wide windows, row
+    8 at R = 72."""
+    check_kernels(torch, attn_mod, SPEC_CASE_NAMES)
+    check_paged(torch, pa_mod, SPEC_CASE_NAMES)
+    check_write(torch, pw_mod, SPEC_CASE_NAMES)
+    check_paged_quantized(torch, pa_mod, SPEC_CASE_NAMES)
+    check_write_quantized(torch, pw_mod, SPEC_CASE_NAMES)
+    check_int4(torch, mm_mod, {8 * (SPEC_DRAFT + 1)})
+    check_int8_view(torch, pa_mod)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4208,6 +5372,11 @@ def main() -> int:
                     help="build and run phase 12 and phase 8 (b), the constrained "
                          "paths, alone on the 7B and 3B weights (prints their checks "
                          "and no ok line)")
+    ap.add_argument("--speculative-only", action="store_true",
+                    help="build and run the speculative phases alone: the kernels at "
+                         "the verify shapes against their plain versions, the verify "
+                         "cost anchor, phase 13 on the 7B weights and the verify-shape "
+                         "timing (prints their checks and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -4287,6 +5456,30 @@ def main() -> int:
         phase(None)
         print(json.dumps({"phase_seconds": _PHASE["seconds"], "device": smi}))
         return 0
+    if args.speculative_only:
+        phase("kernels vs plain at the verify shapes")
+        spec_kernels(torch, attn_mod, pa_mod, pw_mod, mm_mod)
+        phase("verify cost anchor")
+        anchor, readings = verify_cost_anchor(torch, smi)
+        phase("constrained decoding (grammar tables)")
+        compile_grammars(torch, DUCKDB_NSQL_7B, smi)
+        tally = GrammarTally()
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
+        _, tprs, div, calib = speculative_paths(torch, engines, tally, smi)
+        tally.summary()
+        phase("timing at the verify shapes")
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+        verify = time_verify(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
+        phase(None)
+        print(json.dumps({"speculative": {"verify_cost_anchor_d8": anchor,
+                                          "anchor_readings": readings,
+                                          "tokens_per_round": tprs, "divergences": div,
+                                          **calib},
+                          "verify_timing": verify, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.sweep:
         phase("split sweep")
         swept = sweep(torch, attn_mod, pa_mod, pw_mod, DUCKDB_NSQL_7B)
@@ -4302,6 +5495,11 @@ def main() -> int:
                 **check_paged_quantized(torch, pa_mod),
                 "write_q": check_write_quantized(torch, pw_mod)}
     int4_err = check_int4(torch, mm_mod)
+    view_err = check_int8_view(torch, pa_mod)
+    errors_q["paged_q_window"]["bfloat16"] = max(errors_q["paged_q_window"]["bfloat16"],
+                                                 view_err[0])
+    errors_q["paged_q_window_rel"]["bfloat16"] = max(
+        errors_q["paged_q_window_rel"]["bfloat16"], view_err[1])
 
     phase("small reference")
     small_reference(torch)
@@ -4353,6 +5551,9 @@ def main() -> int:
     constrained_launches = constrained_paths(torch, engines, params4, tally, smi)
     del params4
     constrained_launches["constrained_app"] = constrained_app_launches
+
+    spec_launches, spec_tprs, spec_div, spec_calib = speculative_paths(torch, engines,
+                                                                       tally, smi)
     tally.summary()
 
     ckpt_launches = checkpoints(torch, engines)
@@ -4362,6 +5563,9 @@ def main() -> int:
     del engines
     torch.cuda.empty_cache()
     timed = timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
+    phase("timing at the verify shapes, verify cost anchor")
+    verify = time_verify(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
+    anchor, readings = verify_cost_anchor(torch, smi)
     errors = {
         "prefill": {d: worst[("prefill", d)] for d in TOL},
         "decode": {d: worst[("decode", d)] for d in TOL},
@@ -4396,7 +5600,7 @@ def main() -> int:
              "quantized_engine": q_launches["engine"],
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
-             **ckpt_launches, **constrained_launches}
+             **ckpt_launches, **constrained_launches, **spec_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
                  "write": {"bfloat16": 0.0, "float32": 0.0},
@@ -4435,6 +5639,9 @@ def main() -> int:
             entry["max_rel_err_by_dtype"] = {d: int4_err[d][1] for d in TOL}
         if "by_shape" in tm:
             entry["by_shape"] = tm["by_shape"]
+        if launch in verify:
+            # The speculative verify round's shapes (D = 8, T = 9).
+            entry["verify_d8"] = verify[launch]
         if launch.endswith("_window"):
             # bf16 only: f32 windows run the tile kernel, recorded apart.
             entry["max_row_rel_err_by_dtype"] = errors[launch + "_rel"]
@@ -4444,6 +5651,10 @@ def main() -> int:
     phase(None)
     print(f"  phase seconds: {json.dumps(_PHASE['seconds'])}", flush=True)
 
+    print(json.dumps({"speculative": {"verify_cost_anchor_d8": anchor,
+                                      "anchor_readings": readings,
+                                      "tokens_per_round": spec_tprs,
+                                      "divergences": spec_div, **spec_calib}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

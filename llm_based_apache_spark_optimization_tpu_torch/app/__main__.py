@@ -24,10 +24,15 @@ as in the JAX entry point: journal, restart with backoff, replay;
 `/readyz` reports ready|restarting|degraded|dead); `--no-supervise` leaves
 a crashed scheduler answering 503 until the process restarts.
 
+`--speculative N` turns on prompt-lookup speculative decoding (N drafts
+verified a round) on both serving paths, schedulers and engines; int8 KV
+with it on an engine's contiguous cache is refused, as in the JAX entry
+point.
+
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
 every option it cannot honor yet, instead of ignoring it: `--dp`/`--sp`/
-`--tp` > 1 (A13), `--speculative` (A9), `--int8` and `--int8-unembed`
+`--tp` > 1 (A13), `--int8` and `--int8-unembed`
 (A10), and the environment knobs of `UNPORTED_KNOBS`: the fleet, model-pool
 and QoS knobs (A11), the SLO, tracing, request-log and bench-seed knobs
 (A12), the profile hook's (A7.7) and prefix telemetry's (A7.8). The
@@ -126,7 +131,6 @@ def refuse_unported(args, cfg: AppConfig) -> None:
     flags = [
         (args.dp > 1 or args.sp > 1 or args.tp > 1, "--dp/--sp/--tp > 1",
          "A13 (parallelism)"),
-        (args.speculative > 0, "--speculative", "A9 (speculative decoding)"),
         (args.int8, "--int8", "A10 (int8 weights)"),
         (args.int8_unembed, "--int8-unembed", "A10 (int8 embeddings)"),
     ]
@@ -152,6 +156,7 @@ def make_tiny_service(
     deadline_s: Optional[float] = None,
     supervise: bool = True,
     app_cfg: Optional[AppConfig] = None,
+    speculative: int = 0,
 ) -> GenerationService:
     """The JAX entry point's tiny service: TINY widened to a 2048-token
     context (`tiny-demo`), served as `duckdb-nsql` and `llama3.2`, and a
@@ -161,7 +166,8 @@ def make_tiny_service(
     mistral params), e.g. the JAX service's bridged through
     `convert.params_from_jax`. On CUDA the head dim is 64, the smallest the
     kernels take (the CPU keeps TINY's 8). `int4` quantizes the block
-    weights; `kv_quant="int8"` stores the KV cache in int8. With
+    weights; `kv_quant="int8"` stores the KV cache in int8; `speculative`
+    > 0 verifies that many prompt-lookup drafts a round. With
     `supervise` (the default, as in the JAX entry point) each scheduler
     runs under the crash supervisor with `app_cfg`'s knobs (default: the
     environment's)."""
@@ -204,7 +210,8 @@ def make_tiny_service(
                 return ContinuousBatchingScheduler(
                     mcfg, mparams, num_slots=num_slots, prompt_bucket=64,
                     kv_layout=kv_layout, kv_quant=kv_quant,
-                    max_queue_depth=app_cfg.max_queue_depth, device=dev)
+                    max_queue_depth=app_cfg.max_queue_depth,
+                    speculative_draft=speculative, device=dev)
 
             # The factory closes over the loaded params: a restart
             # re-allocates the cache, never the weights.
@@ -218,7 +225,8 @@ def make_tiny_service(
                                        deadline_s=deadline_s)
         else:
             eng = InferenceEngine(mcfg, mparams, stop_ids=(mcfg.eos_id,),
-                                  prompt_bucket=64, device=dev, kv_quant=kv_quant)
+                                  prompt_bucket=64, device=dev, kv_quant=kv_quant,
+                                  speculative_draft=speculative)
             backend = EngineBackend(eng, tok, max_new_tokens=max_new_tokens)
         svc.register(name, backend, template=template)
     return svc
@@ -233,6 +241,18 @@ def resolve_kv_quant(args, cfg: AppConfig) -> Tuple[Optional[str], str]:
     if env_q not in (None, "int8"):
         sys.exit(f"LSOT_KV_QUANT must be '' or 'int8', got {env_q!r}")
     return env_q, "LSOT_KV_QUANT=int8"
+
+
+def refuse_int8_speculation(args, cfg: AppConfig) -> None:
+    """The JAX entry point's refusal: int8 KV with --speculative on an
+    engine backend, whose verify loop streams a compute-dtype contiguous
+    cache."""
+    kv_quant, src = resolve_kv_quant(args, cfg)
+    if kv_quant and args.speculative > 0 and not args.scheduler \
+            and args.kv_layout != "paged":
+        sys.exit(f"{src} cannot combine with --speculative on the contiguous "
+                 "layout: the speculative verify loop streams the bf16 cache "
+                 "(use --kv-layout=paged)")
 
 
 def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
@@ -270,7 +290,8 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
                 max_entry_replays=cfg.max_entry_replays,
                 journal_spill=_spill_path(cfg, src),
                 stall_factor=cfg.stall_factor, stall_min_s=cfg.stall_min_s,
-                stall_warmup_s=cfg.stall_warmup_s, device=device)
+                stall_warmup_s=cfg.stall_warmup_s,
+                speculative_draft=args.speculative, device=device)
             if args.kv_hbm_gb:
                 common["kv_hbm_budget_bytes"] = int(args.kv_hbm_gb * 2**30)
             load = (SchedulerBackend.from_gguf if gguf
@@ -280,6 +301,7 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
         load = EngineBackend.from_gguf if gguf else EngineBackend.from_hf_checkpoint
         return load(path, tok, max_new_tokens=max_new_tokens, add_bos=add_bos,
                     kv_quant=kv_quant, quantize_int4=args.int4, device=device,
+                    speculative_draft=args.speculative,
                     sec_per_tok_seed=cfg.stok_seed or None)
 
     return assemble_reference_service(
@@ -323,7 +345,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
     ap.add_argument("--tp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
     ap.add_argument("--speculative", type=int, default=0, metavar="N",
-                    help="> 0 raises: speculative decoding is ROADMAP A9")
+                    help="prompt-lookup speculative decoding: draft N tokens a "
+                         "round from the prompt and the text so far, verified in "
+                         "one forward, on both the scheduler (default) and engine "
+                         "serving paths; greedy output is vanilla decode's token "
+                         "for token, sampled output vanilla's in distribution, and "
+                         "grammar-constrained requests are masked at every draft "
+                         "position. Acceptance: the scheduler's "
+                         "speculation_stats")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache with one f32 scale a slot (scheduler and "
                          "engine backends)")
@@ -366,6 +395,7 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
     """The service the flags ask for, after refusing what the port cannot
     honor."""
     refuse_unported(args, cfg)
+    refuse_int8_speculation(args, cfg)
     device = "cpu" if args.cpu else None
     if args.backend == "fake":
         if not args.cpu:
@@ -383,7 +413,7 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
         32, scheduler=args.scheduler, kv_layout=args.kv_layout,
         kv_quant=resolve_kv_quant(args, cfg)[0], int4=args.int4,
         num_slots=args.slots, device=device, deadline_s=cfg.deadline_s or None,
-        supervise=args.supervise, app_cfg=cfg)
+        supervise=args.supervise, app_cfg=cfg, speculative=args.speculative)
 
 
 def main(argv=None) -> None:

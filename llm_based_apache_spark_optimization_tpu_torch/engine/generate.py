@@ -17,7 +17,20 @@ kernels on the card).
 With `kv_quant="int8"` the prefill fills the compute-dtype cache, then
 `quantize_cache` converts it once to the int8 cache (int8 values plus one
 f32 scale per slot), and every decode step writes and reads that cache (the
-quantized flash decode kernel on the card).
+quantized flash decode kernel on the card); with the paged layout
+`pack_prefill_pages(kv_quant="int8")` quantizes into the int8 pool.
+
+With `speculative_draft=D` (engine/speculative.py) each round drafts D
+tokens a row by prompt lookup over the row's history (prompt + generated)
+and verifies them with one forward of T = D + 1 over the cache (any
+layout; the contiguous int8 cache is refused, as in the JAX package):
+greedy rows accept the longest prefix of drafts equal to the argmax chain,
+sampled rows verify by rejection sampling with draws from the request's
+generator, and each row emits 1..D+1 tokens a round. Under a grammar the
+drafts advance the FSM position by position (`fsm_advance_chain`), every
+window position is masked with its own state and budget, acceptance stops
+at the grammar-valid prefix, and the committed state is the one after the
+accepted prefix. `last_spec_rounds` counts the verify forwards.
 
 With a grammar `constraint` (a compiled `constrain.CompiledMask`), the first
 token is masked to the tokens whose completion fits the whole budget
@@ -36,11 +49,16 @@ import torch
 
 from .. import resolve_device
 from ..models.configs import LlamaConfig
-from ..models.llama import Params, forward
+from ..models.llama import _UNROLL_MAX_T, Params, forward
 from ..ops.quant import quantize_cache
-from ..ops.sampling import SamplingParams, apply_token_mask, sample
+from ..ops.sampling import (
+    SamplingParams,
+    apply_token_mask,
+    sample,
+)
 from .kvcache import bucket_len, init_cache
 from .paged_kv import default_page_size, pack_prefill_pages
+from .speculative import NGRAM, ngram_draft, verify_commit
 
 
 def _is_stop(tok: torch.Tensor, stop_ids: Tuple[int, ...]) -> torch.Tensor:
@@ -56,7 +74,10 @@ class InferenceEngine:
     `device` defaults to CUDA and must hold `params`. `last_stats` describes
     the last `generate`: seconds to the first token (`ttft_s`, prefill and
     first sample, synchronised), the number of forward calls (one prefill
-    plus the decode steps), the padded prompt length and the batch."""
+    plus the decode steps or verify rounds), the padded prompt length and
+    the batch. `speculative_draft` > 0 verifies that many prompt-lookup
+    drafts a round (`speculative_ngram`-token lookups); `last_spec_rounds`
+    is then the last call's number of verify rounds (None without)."""
 
     def __init__(
         self,
@@ -69,6 +90,8 @@ class InferenceEngine:
         kv_layout: str = "contiguous",
         kv_page_size: Optional[int] = None,
         kv_quant: Optional[str] = None,
+        speculative_draft: int = 0,
+        speculative_ngram: int = NGRAM,
     ):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
@@ -76,11 +99,21 @@ class InferenceEngine:
             )
         if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant must be None or 'int8', got {kv_quant!r}")
-        if kv_quant and kv_layout == "paged":
+        if kv_quant and speculative_draft and kv_layout != "paged":
             raise ValueError(
-                "kv_quant with the engine's paged layout is not ported (ROADMAP "
-                "A10; the layout itself is queued for removal, A4): the int8 "
-                "paged pool serves through the scheduler")
+                "kv_quant and speculative_draft cannot combine on the "
+                "contiguous layout: the speculative verify loop streams "
+                "the bf16 cache (use kv_layout='paged')")
+        if speculative_draft and not 1 <= speculative_draft <= _UNROLL_MAX_T - 1:
+            raise ValueError(
+                f"draft_len must be in [1, {_UNROLL_MAX_T - 1}] (the verify "
+                f"window T = draft_len + 1 must take the small-T path), got "
+                f"{speculative_draft}")
+        if speculative_ngram < 1:
+            raise ValueError(f"ngram must be >= 1, got {speculative_ngram}")
+        self.speculative_draft = int(speculative_draft)
+        self.speculative_ngram = int(speculative_ngram)
+        self.last_spec_rounds: Optional[int] = None
         self.kv_layout = kv_layout
         self.kv_quant = kv_quant
         self.kv_page_size = (int(kv_page_size or default_page_size())
@@ -142,8 +175,10 @@ class InferenceEngine:
                   cfg.max_seq_len - t)
         budget = min(int(max_new_tokens), cap)
         paged = self.kv_layout == "paged"
-        # Paged: a prompt-sized transient cache, packed into pages below.
-        cache = init_cache(cfg, b, t if paged else t + cap,
+        d1 = self.speculative_draft + 1 if self.speculative_draft else 0
+        # Paged: a prompt-sized transient cache, packed into pages below. A
+        # speculative loop's cache spans one verify window more.
+        cache = init_cache(cfg, b, t if paged else t + cap + d1,
                            dtype=self.params["final_norm"].dtype, device=dev)
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t)
         gen = None
@@ -153,6 +188,7 @@ class InferenceEngine:
         logits, cache = forward(cfg, self.params, tokens, positions, cache,
                                 logit_indices=lengths - 1)
         first_logits = logits[:, 0]
+        tabs = cstate = None
         if constraint is not None:
             from ..constrain import advance_states, allowed_tokens
 
@@ -169,40 +205,24 @@ class InferenceEngine:
         if constraint is not None:
             cstate = advance_states(tabs["next"], cstate, cur)
         done = _is_stop(cur, self.stop_ids)
-        out = [cur]
         finished = bool(done.all())  # synchronises: the first token exists
         ttft = time.perf_counter() - t0
         if paged:
             ps = self.kv_page_size
-            cache = pack_prefill_pages(cache, ps, -(-(t + cap) // ps))
+            cache = pack_prefill_pages(cache, ps, -(-(t + cap + d1) // ps),
+                                       kv_quant=self.kv_quant)
         elif self.kv_quant:
             cache = quantize_cache(cache["k"], cache["v"])
-        pos = lengths.clone()
-        pad = torch.tensor(cfg.pad_id, dtype=torch.int32, device=dev)
-        step = 1
-        while step < budget and not finished:
-            logits, cache = forward(cfg, self.params, cur[:, None], pos[:, None],
-                                    cache)
-            step_logits = logits[:, 0]
-            if constraint is not None:
-                # Allowed iff its completion still fits the remaining
-                # budget: a gather and a compare a step.
-                step_logits = apply_token_mask(step_logits, allowed_tokens(
-                    tabs["need"], cstate, torch.full_like(cstate, budget - step),
-                    cfg.vocab_size))
-            nxt = sample(step_logits, sampling, gen)
-            nxt = torch.where(done, pad, nxt)
-            if constraint is not None:
-                # Finished rows freeze their state: their pad fill must not
-                # walk the FSM.
-                cstate = torch.where(done, cstate,
-                                     advance_states(tabs["next"], cstate, nxt))
-            done = done | _is_stop(nxt, self.stop_ids)
-            out.append(nxt)
-            cur, pos, step = nxt, pos + 1, step + 1
-            finished = bool(done.all())
-
-        out_t = torch.stack(out, dim=1)  # [B, steps]
+        if self.speculative_draft:
+            out_t, forwards = self._speculative_loop(
+                cache, tokens, lengths, cur, done, cstate, tabs, budget, cap,
+                sampling, gen)
+            self.last_spec_rounds = forwards - 1
+        else:
+            out_t, forwards = self._decode_loop(
+                cache, lengths, cur, done, finished, cstate, tabs, budget,
+                sampling, gen)
+            self.last_spec_rounds = None
         stops = _is_stop(out_t, self.stop_ids)
         gen_lens = torch.where(
             stops.any(dim=1),
@@ -212,9 +232,94 @@ class InferenceEngine:
         out_l, lens_l = out_t.tolist(), gen_lens.tolist()
         self.last_stats = {
             "ttft_s": ttft,
-            "forward_calls": step,
-            "decode_steps": step - 1,
+            "forward_calls": forwards,
+            "decode_steps": forwards - 1,
             "prompt_len": t,
             "batch": b,
         }
         return [out_l[i][: lens_l[i]] for i in range(b)]
+
+    def _decode_loop(self, cache, lengths, cur, done, finished, cstate, tabs,
+                     budget, sampling, gen):
+        """One T = 1 forward a step until every row stopped or the budget
+        is spent. Returns (tokens [B, steps], forward calls)."""
+        cfg = self.cfg
+        if tabs is not None:
+            from ..constrain import advance_states, allowed_tokens
+        out = [cur]
+        pos = lengths.clone()
+        pad = torch.tensor(cfg.pad_id, dtype=torch.int32, device=cur.device)
+        step = 1
+        while step < budget and not finished:
+            logits, cache = forward(cfg, self.params, cur[:, None], pos[:, None],
+                                    cache)
+            step_logits = logits[:, 0]
+            if tabs is not None:
+                # Allowed iff its completion still fits the remaining
+                # budget: a gather and a compare a step.
+                step_logits = apply_token_mask(step_logits, allowed_tokens(
+                    tabs["need"], cstate, torch.full_like(cstate, budget - step),
+                    cfg.vocab_size))
+            nxt = sample(step_logits, sampling, gen)
+            nxt = torch.where(done, pad, nxt)
+            if tabs is not None:
+                # Finished rows freeze their state: their pad fill must not
+                # walk the FSM.
+                cstate = torch.where(done, cstate,
+                                     advance_states(tabs["next"], cstate, nxt))
+            done = done | _is_stop(nxt, self.stop_ids)
+            out.append(nxt)
+            cur, pos, step = nxt, pos + 1, step + 1
+            finished = bool(done.all())
+        return torch.stack(out, dim=1), step
+
+    def _speculative_loop(self, cache, tokens, lengths, cur, done, cstate, tabs,
+                          budget, cap, sampling, gen):
+        """Verify rounds (JAX `make_speculative_generate_fn`'s loop body, one
+        host-dispatched forward a round, accepted and committed by
+        `verify_commit`) until every row stopped or spent its budget.
+        Returns (tokens [B, cap], forward calls: the prefill plus the verify
+        rounds)."""
+        cfg, dev = self.cfg, self.device
+        D, pad_id = self.speculative_draft, cfg.pad_id
+        d1 = D + 1
+        b = tokens.shape[0]
+        # History: prompt + generated per row, generated tokens landing
+        # right after the row's real prompt (the pad gap to the bucket sits
+        # in no n-gram window a draft can win).
+        rows = torch.arange(b, device=dev)
+        hist = torch.cat([tokens, torch.full((b, cap + d1), pad_id,
+                                             dtype=torch.int32, device=dev)], 1)
+        hist[rows, lengths.long()] = cur
+        out = torch.full((b, cap + d1), pad_id, dtype=torch.int32, device=dev)
+        out[:, 0] = cur
+        done = done | (budget <= 1)
+        glen = torch.ones(b, dtype=torch.int64, device=dev)
+        hlen = lengths.long() + 1
+        pos = lengths.long()
+        jd = torch.arange(d1, device=dev)[None, :]
+        knobs = None
+        if not sampling.is_greedy:
+            knobs = tuple(torch.full((b,), x, device=dev) for x in (
+                sampling.temperature, sampling.top_p, sampling.top_k))
+        rounds = 0
+        while not bool(done.all()):
+            drafts = ngram_draft(hist, hlen, D, self.speculative_ngram)   # [B, D]
+            verify = torch.cat([cur[:, None], drafts], dim=1)             # [B, D+1]
+            logits, cache = forward(cfg, self.params, verify,
+                                    (pos[:, None] + jd).to(torch.int32), cache)
+            draws = None
+            if knobs is not None:
+                draws = (torch.rand((b, D), generator=gen, device=dev),
+                         torch.rand((b, logits.shape[-1]), generator=gen, device=dev))
+            emitted, n_emit, cur, cstate = verify_commit(
+                logits, drafts, cur, budget - glen, torch.where(done, 0, budget - glen),
+                pad_id, stop_ids=self.stop_ids, tables=tabs, cstates=cstate,
+                knobs=knobs, draws=draws)
+            out.scatter_(1, glen[:, None] + jd, emitted)
+            hist.scatter_(1, hlen[:, None] + jd, emitted)
+            glen, hlen, pos = glen + n_emit, hlen + n_emit, pos + n_emit
+            # A row that kept a stop id kept it last.
+            done = done | ((n_emit > 0) & _is_stop(cur, self.stop_ids)) | (glen >= budget)
+            rounds += 1
+        return out[:, :cap], rounds + 1

@@ -112,10 +112,15 @@ def init_page_pool(
 
 def pack_prefill_pages(
     cache: Dict[str, torch.Tensor], page_size: int, pages_per_row: int,
+    kv_quant: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Contiguous prefill cache {"k","v"} [L, B, K, S, H] -> paged cache
     {"kp","vp","ptab"} with identity per-row tables (row b owns pool pages
-    [b*ppr, (b+1)*ppr)). The engine's prefill -> paged decode handoff."""
+    [b*ppr, (b+1)*ppr)). The engine's prefill -> paged decode handoff.
+    `kv_quant="int8"` quantizes on the way (`ops.quant.quantize_kv`: int8
+    values and one f32 scale a position) into the int8 pool {"kp", "kps",
+    "vp", "vps", "ptab"}; pool scales the cache does not cover stay 1."""
+    _check_kv_quant(kv_quant)
     k = cache["k"]
     n_layers, b, kh, s, h = k.shape
     ppr = int(pages_per_row)
@@ -129,14 +134,23 @@ def pack_prefill_pages(
     ptab = (torch.arange(b, dtype=torch.int32, device=k.device)[:, None] * ppr
             + torch.arange(ppr, dtype=torch.int32, device=k.device)[None, :])
 
-    def pack(arr):
-        a = torch.nn.functional.pad(arr, (0, 0, 0, s_pad - s))
-        a = a.reshape(n_layers, b, kh, np0, page_size, h).permute(0, 1, 3, 2, 4, 5)
-        pool = torch.zeros((n_layers, b, ppr, kh, page_size, h), dtype=arr.dtype,
-                           device=arr.device)
+    def pack(arr, fill=0.0):
+        # Values [L, B, K, S, H], or scales [L, B, K, S] (no H axis).
+        tail = arr.shape[4:]
+        a = torch.nn.functional.pad(arr, (0, 0) * len(tail) + (0, s_pad - s),
+                                    value=fill)
+        a = a.reshape(n_layers, b, kh, np0, page_size, *tail).transpose(2, 3)
+        pool = torch.full((n_layers, b, ppr, kh, page_size, *tail), fill,
+                          dtype=arr.dtype, device=arr.device)
         pool[:, :, :np0] = a  # [L, B, ppr, ...] is the identity-table layout
-        return pool.reshape(n_layers, b * ppr, kh, page_size, h)
+        return pool.reshape(n_layers, b * ppr, kh, page_size, *tail)
 
+    if kv_quant:
+        from ..ops.quant import quantize_kv
+
+        kq, vq = quantize_kv(cache["k"]), quantize_kv(cache["v"])
+        return {"kp": pack(kq["q8"]), "kps": pack(kq["s"], 1.0),
+                "vp": pack(vq["q8"]), "vps": pack(vq["s"], 1.0), "ptab": ptab}
     return {"kp": pack(cache["k"]), "vp": pack(cache["v"]), "ptab": ptab}
 
 

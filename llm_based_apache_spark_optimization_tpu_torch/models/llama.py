@@ -27,9 +27,13 @@ onto the other.
   ragged paged attention kernel).
 - Or the int8 caches. The contiguous `{"k8", "v8": [L, B, K, S, H] int8,
   "ks", "vs": [L, B, K, S] f32}` (`ops.quant.quantize_cache`) serves decode
-  steps (T == 1): each layer quantizes its fresh sliver (one scale per
-  slot, absmax over H), writes values and scales in place, then attends
-  through the quantized flash kernel, which dequantizes in its tile. The
+  steps (T == 1) and windows of T <= `_UNROLL_MAX_T` (speculative verify
+  rounds): each layer quantizes its fresh sliver (one scale per slot,
+  absmax over H), writes values and scales in place, then attends through
+  the quantized flash kernel at T == 1, which dequantizes in its tile, and
+  at T > 1 through the quantized ragged paged attention kernel over the
+  layer viewed as a pool of one page a row (P = B pages of S slots, row b
+  mapping page b). The
   paged pool with scales `{"kp", "vp": int8, "kps", "vps": [L, P, K, PS]
   f32, "ptab"}` writes through the quantizing page-write kernel and reads
   through the quantized ragged paged attention kernel.
@@ -130,10 +134,14 @@ def _write_cache(layer_cache: torch.Tensor, new: torch.Tensor,
                  start: torch.Tensor) -> None:
     """Write `new` [B, T, K, H] into `layer_cache` [B, K, S, H] (a view of
     one layer of the stacked cache) at slots start[b] + t, in place; the
-    same for per-slot scales [B, T, K] into [B, K, S]."""
+    same for per-slot scales [B, T, K] into [B, K, S]. A start past S - T
+    is clamped to it, as JAX's dynamic_update_slice clamps: a parked row's
+    verify window at the parking position lands in its own row's tail,
+    which no live query reads before rewriting it."""
     b, t = new.shape[:2]
     rows = torch.arange(b, device=new.device)[:, None]
-    slots = start.long()[:, None] + torch.arange(t, device=new.device)[None, :]
+    start = start.long().clamp(0, layer_cache.shape[2] - t)
+    slots = start[:, None] + torch.arange(t, device=new.device)[None, :]
     layer_cache[rows, :, slots] = new.to(layer_cache.dtype)
 
 
@@ -230,7 +238,7 @@ def forward(
     With `cache=None` the layer's own K/V are the keys (prefill-only
     scoring). With a cache, K/V are written at `positions[:, 0] + t` and
     attention reads the layer's whole cache, masked by position (an int8
-    cache: T == 1 only). With a paged cache, K/V are written at `positions`
+    cache: T <= `_UNROLL_MAX_T`). With a paged cache, K/V are written at `positions`
     through the page table (dead columns past `q_lens` write nothing and
     read zeros), then attention reads through it. `logit_indices` unembeds
     only those T-indices ([B, 1, V] logits). With `rows`, token row i runs
@@ -248,11 +256,11 @@ def forward(
             raise ValueError("rows runs over a contiguous cache")
         s_cache = cache["k8" if quant else "k"].shape[3]
         span = s_cache if span is None else min(span, s_cache)
-    elif quant and t != 1:
+    elif quant and t > _UNROLL_MAX_T:
         raise ValueError(
-            f"an int8 KV cache serves decode steps only (T == 1), got T={t}: "
-            "prefill fills a compute-dtype cache, then quantize_cache converts "
-            "it once (engine/generate.py)")
+            f"an int8 KV cache serves decode steps and windows of T <= "
+            f"{_UNROLL_MAX_T} only, got T={t}: prefill fills a compute-dtype "
+            "cache, then quantize_cache converts it once (engine/generate.py)")
     if paged and not chunk and t > _UNROLL_MAX_T:
         raise ValueError(
             "a paged KV cache serves the unrolled small-T path only "
@@ -270,6 +278,9 @@ def forward(
     blocks = params["blocks"]
     if chunk:
         chunk_pages = -(-span // cache["kp"].shape[3])
+    if quant and rows is None and t > 1:
+        # Each layer of the int8 cache is a page pool of one page a row.
+        one_page = torch.arange(b, dtype=torch.int32, device=tokens.device)[:, None]
 
     for l in range(cfg.num_layers):
         h = rms_norm(x, blocks["ln_attn"][l], cfg.norm_eps)
@@ -320,9 +331,18 @@ def forward(
                 qn = quantize_kv(new)
                 _write_cache(cache[f"{name}8"][l], qn["q8"], start)
                 _write_cache(cache[f"{name}s"][l], qn["s"], start)
-            attn = attention_quantized(q, cache["k8"][l], cache["ks"][l],
-                                       cache["v8"][l], cache["vs"][l], positions,
-                                       cfg.sliding_window, kv_lens)
+            if t == 1:
+                attn = attention_quantized(q, cache["k8"][l], cache["ks"][l],
+                                           cache["v8"][l], cache["vs"][l],
+                                           positions, cfg.sliding_window, kv_lens)
+            else:
+                # A window (a verify round): the quantized paged attention
+                # over the layer as a pool [P = B, K, PS = S, H] whose row b
+                # maps its one page b.
+                attn = paged_attention_quantized(
+                    q, cache["k8"][l], cache["ks"][l], cache["v8"][l],
+                    cache["vs"][l], one_page, positions, cfg.sliding_window,
+                    kv_lens)
         else:
             if cache is None:
                 k_full = k.transpose(1, 2).contiguous()  # cache layout [B, K, T, H]

@@ -12,6 +12,8 @@ same (seed, index) gives the same token on the CPU and on the card, and a
 row's tokens do not depend on what else shares the batch. The JAX
 package's stream is `fold_in(key(seed), index)`; the two give different
 tokens, so sampled output is compared with JAX only in distribution.
+`verify_draws` takes a sampled speculative round's draws from the same
+stream, one index a round.
 """
 
 from __future__ import annotations
@@ -134,6 +136,20 @@ def stream_uniform(seeds: torch.Tensor, counts: torch.Tensor,
     ids = torch.arange(1, vocab + 1, dtype=torch.int64, device=seeds.device)
     bits = _mix32((row[:, None] + _mul32(ids, 0x9E3779B9)[None, :]) & _M32)
     return ((bits >> 8).float() + 0.5) / 16777216.0
+
+
+def verify_draws(seeds: torch.Tensor, counts: torch.Tensor, draft_len: int,
+                 vocab: int):
+    """The draws of one sampled speculative verify round (engine/
+    speculative.rejection_sample_chain) at stream index counts[b] of row
+    b: (u [B, D] for the D accept tests, noise [B, V] for the
+    residual/bonus Gumbel-max draw). Both come from one `stream_uniform`
+    call over V + D columns, each element its own hash of (seed, index,
+    column), so the D accept draws and the categorical draw are
+    independent of each other, and a round consumes one stream index
+    whatever it accepts."""
+    x = stream_uniform(seeds, counts, vocab + draft_len)
+    return x[:, vocab:], x[:, :vocab]
 
 
 def sample_runtime(

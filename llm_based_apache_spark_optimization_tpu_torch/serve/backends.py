@@ -48,7 +48,7 @@ def resolve_constraint(constrain, tokenizer, stop_ids):
 
 
 def refuse_unported_load(mesh=None, quantize_int8=False, quantize_int4=False,
-                         quantize_unembed8=False, speculative_draft=0) -> None:
+                         quantize_unembed8=False) -> None:
     """Raise, naming the ROADMAP item, on a checkpoint-constructor option
     the port cannot honor yet."""
     if quantize_int8 and quantize_int4:
@@ -57,8 +57,6 @@ def refuse_unported_load(mesh=None, quantize_int8=False, quantize_int4=False,
         (mesh is not None, "mesh", "A13 (parallelism)"),
         (quantize_int8, "quantize_int8", "A10 (int8 weights)"),
         (quantize_unembed8, "quantize_unembed8", "A10 (int8 embeddings)"),
-        (speculative_draft > 0, "speculative_draft",
-         "A9 (speculative decoding)"),
     ]
     for on, name, item in refused:
         if on:
@@ -133,7 +131,9 @@ class EngineBackend:
         its weights loaded onto `device` (default CUDA) one stacked
         parameter at a time. `quantize_int4=True` packs the block weights
         to int4 (served by the int4 matmul kernel); `kv_quant="int8"`
-        stores the KV cache in int8. The other arguments are those of the
+        stores the KV cache in int8; `speculative_draft=N` verifies N
+        prompt-lookup drafts a round (engine/speculative.py; with the
+        int8 cache the engine refuses it, as JAX's does). The other arguments are those of the
         JAX package's `EngineBackend.from_hf_checkpoint`; what the port
         cannot honor yet raises and names its ROADMAP item."""
         from ..checkpoint import load_hf_checkpoint
@@ -167,7 +167,7 @@ class EngineBackend:
         from .. import resolve_device
 
         refuse_unported_load(mesh, quantize_int8, quantize_int4,
-                             quantize_unembed8, speculative_draft)
+                             quantize_unembed8)
         dev = resolve_device(device)
         cfg, params = load(dtype, dev)
         if quantize_int4:
@@ -178,7 +178,7 @@ class EngineBackend:
             cfg, params, prompt_bucket=prompt_bucket, device=dev,
             stop_ids=stop_ids if stop_ids is not None
             else resolve_stop_ids(cfg, tokenizer),
-            kv_quant=kv_quant,
+            kv_quant=kv_quant, speculative_draft=speculative_draft,
         )
         return cls(engine, tokenizer, **kwargs)
 

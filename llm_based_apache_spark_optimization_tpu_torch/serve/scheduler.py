@@ -134,11 +134,29 @@ and the scheduler's device and stream itself: both are per-thread state.
   A resumed request re-derives its state by walking its committed
   tokens. Rounds without a constrained slot run no grammar op.
 
-Not ported yet: speculation (A9, with its grammar-threaded verify
-window; `constrain.fsm_advance_chain` is its primitive), phase roles and handoff
-(A7.5), `SchedulerPool` (A7.10), profiling and the flight recorder's
-rounds (A7.7), prefix telemetry (A7.8), tenant QoS (A11) and meshes
-(A7.12, A13).
+- Prompt-lookup speculative decoding (`speculative_draft=D`,
+  engine/speculative.py), both layouts: a decode round is one forward of
+  T = D + 1 over the whole slot batch. Each slot drafts D tokens from its
+  on-device history `_hist` [slots, max_seq + D + 1] (prompt chunks are
+  written into it, the first token at arming, a resume rewrites the whole
+  row) and emits 1..D+1 tokens: greedy slots the longest prefix of drafts
+  equal to the argmax chain (token-identical to vanilla decode), sampled
+  slots by rejection sampling with draws at one stream index a sampled
+  round (`ops.sampling.verify_draws`), constrained slots under per-position
+  masks from `fsm_advance_chain`, accepted up to the grammar-valid prefix.
+  History, position, current token, grammar state, budget and stream index
+  advance on the device; the harvest takes (emitted [slots, D+1], n_emit
+  [slots]) a lag late. Inactive slots emit nothing: their history writes
+  land past max_seq, their cache writes in their own row's tail
+  (contiguous) or nowhere (paged, `q_lens` 0). Rounds where every slot is
+  greedy skip the window's sort. A ragged mixed round verifies the decode
+  slots in the same forward as the prompt chunks, T = max(bucket, D + 1).
+  Prefix reuse is off (reused blocks would never reach the history).
+  `speculation_stats` reports rounds and tokens by class.
+
+Not ported yet: phase roles and handoff (A7.5), `SchedulerPool` (A7.10),
+profiling and the flight recorder's rounds (A7.7), prefix telemetry
+(A7.8), tenant QoS (A11) and meshes (A7.12, A13).
 """
 
 from __future__ import annotations
@@ -174,7 +192,14 @@ from ..constrain.masks import (
     allowed_tokens,
     trivial_tables,
 )
-from ..ops.sampling import SamplingParams, apply_token_mask, greedy, sample_runtime
+from ..engine.speculative import NGRAM, infer_weight_bits, ngram_draft, verify_commit
+from ..ops.sampling import (
+    SamplingParams,
+    apply_token_mask,
+    greedy,
+    sample_runtime,
+    verify_draws,
+)
 from .backends import Completion, trim_stop_texts
 from ..utils.faults import FAULTS, InjectedFault
 from ..utils.observability import resilience
@@ -311,9 +336,20 @@ class ContinuousBatchingScheduler:
         kv_watermark_low: Optional[float] = None,
         kv_watermark_high: Optional[float] = None,
         ragged: Optional[bool] = None,
+        speculative_draft: int = 0,
         device=None,
     ):
         self.kv_quant = kv_quant
+        self._spec_draft = int(speculative_draft or 0)
+        if self._spec_draft:
+            if not 1 <= self._spec_draft <= _UNROLL_MAX_T - 1:
+                raise ValueError(
+                    f"speculative_draft must be in [1, {_UNROLL_MAX_T - 1}] "
+                    f"(verify window T = draft+1 must take the small-T path), "
+                    f"got {self._spec_draft}")
+            # Reused prefix blocks skip the prefill that writes the draft
+            # history: reuse is off under speculation.
+            prefix_cache_blocks = 0
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be 'contiguous' or 'paged', got "
@@ -401,12 +437,29 @@ class ContinuousBatchingScheduler:
         self._constraint_wait: "deque[_Request]" = deque()
         #: Grammar table installs (one per grammar change).
         self.grammar_swaps = 0
+        if self._spec_draft:
+            # The draft history, one row a slot, D + 1 columns past max_seq:
+            # a round writes its D + 1 window at hlen, and inactive slots
+            # write into that spare tail.
+            self._hist = torch.full((num_slots, self.max_seq + self._spec_draft + 1),
+                                    cfg.pad_id, dtype=torch.int32, device=dev)
+            self._hlen = torch.zeros(num_slots, dtype=torch.int64, device=dev)
+            self._weight_bits = infer_weight_bits(params)
+            # Acceptance counters (`speculation_stats`), moved as a group
+            # under the submit lock: verify rounds and the tokens they
+            # emitted, their constrained and sampled subsets, and the
+            # tokens the requests received from them.
+            self._spec_rounds = self._spec_tokens = 0
+            self._spec_rounds_con = self._spec_tokens_con = 0
+            self._spec_rounds_samp = self._spec_tokens_samp = 0
+            self._spec_delivered = 0
         self._slot_req: List[Optional[_Request]] = [None] * num_slots
         # Per-slot occupancy epoch, bumped at admission and retirement; the
         # harvest drops firsts issued under a stale epoch.
         self._slot_epoch: List[int] = [0] * num_slots
         # In-flight rounds: (issue-time slot->req list, epochs, toks [S,
-        # chunk] device tensor, firsts [(slot, req, tok, epoch)]).
+        # chunk] device tensor, firsts [(slot, req, tok, epoch)], and under
+        # speculation n_emit [S]: the leading toks of each row it emitted).
         self._pending: "deque[tuple]" = deque()
         self._first_pending: list = []
         self._harvest_lag = 1  # rounds kept in flight before syncing
@@ -794,6 +847,13 @@ class ContinuousBatchingScheduler:
                     f"{len(req.generated)} committed tokens")
         self._arm_slot(slot, req, req.generated[-1], plen - 1, req.rng_count,
                        cstate0, max(0, req.max_new - len(req.generated)))
+        if self._spec_draft:
+            # The whole history row: prompt + committed tokens, pad beyond
+            # (a previous occupant's tail scrubbed), so the drafts are the
+            # unpreempted control's after a recompute and a spill alike.
+            row = req.full_ids + [self.cfg.pad_id] * (self._hist.shape[1] - plen)
+            self._hist[slot] = self._h2d(row, torch.int32)
+            self._hlen[slot] = plen
         req.ready = True
         # Decode rewrites [plen - 1, page_end): copy any page the
         # re-prefill's publish shared.
@@ -851,7 +911,11 @@ class ContinuousBatchingScheduler:
     @property
     def overshoot(self) -> int:
         """Max positions the device can run past a budget or stop token
-        before the host notices: pending rounds x tokens per round."""
+        before the host notices: pending rounds x tokens per round, plus
+        under speculation one verify window of cache writes past the last
+        emitted position."""
+        if self._spec_draft:
+            return (self._harvest_lag + 1) * (self._spec_draft + 1) + self._spec_draft
         return (self._harvest_lag + 1) * self.decode_chunk
 
     def submit(
@@ -991,6 +1055,50 @@ class ContinuousBatchingScheduler:
             "evictions": self._prefix_evictions,
             "cached_blocks": len(self._prefix_pages if self._paged
                                  else self._prefix_cache),
+        }
+
+    @property
+    def speculation_stats(self) -> Optional[Dict[str, object]]:
+        """Speculative acceptance (None with speculation off): verify rounds
+        and the tokens they emitted (rounds in which a slot emitted
+        something, each counted once a slot; a round's tokens past a stop
+        id or the budget included, as in the JAX scheduler), tokens a
+        round, and the estimated speedup over vanilla decode at this
+        configuration's verify cost (`verify_cost_ratio`); split by
+        constrained vs free requests (`by_class`) and greedy vs sampled
+        (`by_sampling`). `tokens_delivered` is what the requests received
+        from verify rounds (stop ids and tokens past a budget left out)."""
+        if not self._spec_draft:
+            return None
+        from ..engine.speculative import VERIFY_COST_CALIBRATION, verify_cost_ratio
+
+        with self._submit_lock:
+            rounds, toks = self._spec_rounds, self._spec_tokens
+            rounds_con, toks_con = self._spec_rounds_con, self._spec_tokens_con
+            rounds_samp, toks_samp = self._spec_rounds_samp, self._spec_tokens_samp
+            delivered = self._spec_delivered
+        ratio = verify_cost_ratio(self._spec_draft, cfg=self.cfg,
+                                  weight_bits=self._weight_bits)
+
+        def acceptance(r: int, t: int) -> Dict[str, float]:
+            tpr = t / r if r else 0.0
+            return {"verify_rounds": r, "tokens_emitted": t,
+                    "tokens_per_round": round(tpr, 3),
+                    "est_speedup_vs_vanilla": round(tpr / ratio, 3) if r else 0.0}
+
+        return {
+            **acceptance(rounds, toks),
+            "tokens_delivered": delivered,
+            "verify_cost_ratio": round(ratio, 3),
+            "est_speedup_calibration": VERIFY_COST_CALIBRATION,
+            "by_class": {
+                "constrained": acceptance(rounds_con, toks_con),
+                "unconstrained": acceptance(rounds - rounds_con, toks - toks_con),
+            },
+            "by_sampling": {
+                "greedy": acceptance(rounds - rounds_samp, toks - toks_samp),
+                "sampled": acceptance(rounds_samp, toks_samp),
+            },
         }
 
     # ------------------------------------------------------------ admission
@@ -1282,7 +1390,15 @@ class ContinuousBatchingScheduler:
         """The host side of a `t`-bucket chunk for each (slot, req) of
         `group`: publish its prefix blocks, queue its next chunk, or arm the
         slot: with the still-on-device first token `toks[i]`, attached to
-        the next harvest; a resume from its committed state instead."""
+        the next harvest; a resume from its committed state instead. Under
+        speculation the chunks' tokens go into the draft history first."""
+        if self._spec_draft:
+            tokens, _, starts = self._chunk_rows(group, t)
+            cols = (self._h2d(starts, torch.int64)[:, None]
+                    + torch.arange(t, device=self.device)).clamp(
+                        max=self._hist.shape[1] - 1)
+            self._hist[self._h2d([sl for sl, _ in group], torch.int64)[:, None],
+                       cols] = self._h2d(tokens, torch.int32)
         for i, (slot, req) in enumerate(group):
             chunk_start = req.prefilled
             req.prefilled = min(chunk_start + t, len(req.full_ids))
@@ -1319,6 +1435,9 @@ class ContinuousBatchingScheduler:
             self._arm_slot(slot, req, toks[i], len(req.ids), 1, cstate,
                            req.max_new - 1)
             req.rng_count = 1
+            if self._spec_draft:  # the first token joins the draft history
+                self._hist[slot, len(req.ids)] = toks[i]
+                self._hlen[slot] = len(req.ids) + 1
             self._first_pending.append((slot, req, toks[i], self._slot_epoch[slot]))
 
     def _first_sighting(self, key: Tuple[int, ...]) -> bool:
@@ -1418,48 +1537,75 @@ class ContinuousBatchingScheduler:
                                    self._counts)
         return torch.stack(toks, dim=1)
 
-    def _mixed_step(self, group, t: int, active: torch.Tensor, sampled: bool,
-                    grammar: bool) -> torch.Tensor:
-        """Step 0 of a ragged mixed round: ONE forward at T = t over every
-        slot, the chunk rows of `group` carrying their chunk (q_lens t) and
-        the other rows their current token in column 0 (q_lens 1; dead
-        columns write nothing and read zeros). Chunk rows sample their
-        first token at index 0 of their stream, decode rows at counts, as
-        the alternating rounds do; with `grammar`, chunk rows under their
-        `_chunk_grammar` state and budget, decode rows under their own.
-        Returns the samples [slots]."""
-        cfg, dev, num_slots = self.cfg, self.device, self.num_slots
-        pad = cfg.pad_id
-        s_virt = self._pages_per_slot * self._page_size
+    def _mixed_slots(self, group, t: int, width: int):
+        """The slot-wide rows of a mixed round's chunk rows (`group`, chunks
+        of `t` tokens padded to `width` columns); other slots carry inert
+        defaults. Returns (lengths of the group's chunks, chunk tokens [S,
+        width] (device), is_pref [S] (device), starts [S] (device), chunk
+        lengths [S] (host), the knobs [temps, topps, topks, seeds] (host
+        lists))."""
+        pad, num_slots = self.cfg.pad_id, self.num_slots
         tokens, lengths, starts = self._chunk_rows(group, t)
-        p_tokens = [[pad] * t for _ in range(num_slots)]
+        p_tokens = [[pad] * width for _ in range(num_slots)]
         p_lengths, p_starts = [1] * num_slots, [0] * num_slots
         is_pref = [False] * num_slots
         knobs = [[0.0] * num_slots, [1.0] * num_slots, [0] * num_slots, [0] * num_slots]
         for i, (slot, req) in enumerate(group):
-            p_tokens[slot], p_lengths[slot], p_starts[slot] = tokens[i], lengths[i], starts[i]
+            p_tokens[slot] = tokens[i] + [pad] * (width - t)
+            p_lengths[slot], p_starts[slot] = lengths[i], starts[i]
             is_pref[slot] = True
             for row, v in zip(knobs, (req.temperature, req.top_p, req.top_k,
                                       req.seed & _M32)):
                 row[slot] = v
-        pref = self._h2d(is_pref, torch.bool)
-        p_start = self._h2d(p_starts, torch.int32)
-        col = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
-        cur, pos = self._cur, self._pos
-        tokens0 = torch.where(pref[:, None], self._h2d(p_tokens, torch.int32),
-                              torch.where(col == 0, cur[:, None], pad))
-        # Dead decode columns sit at the virtual row's end: their writes
-        # drop and the mask keeps their logits finite.
-        pos0 = torch.where(pref[:, None], p_start[:, None] + col,
-                           torch.where(col == 0, pos[:, None], s_virt))
+        return (lengths, self._h2d(p_tokens, torch.int32), self._h2d(is_pref, torch.bool),
+                self._h2d(p_starts, torch.int32), p_lengths, knobs)
+
+    def _mixed_forward(self, group, t: int, active: torch.Tensor, sampled: bool,
+                       grammar: bool, window=None):
+        """ONE forward over every slot (JAX `_build_mixed`, `_build_mixed_spec`):
+        the chunk rows of `group` carry their chunk (q_lens t) and the decode
+        slots `window`, (tokens, positions) [slots, w], their current token
+        (w = 1) without one, in max(t, w) columns; dead columns sit at the
+        virtual row's end, where their writes drop and the mask keeps their
+        logits finite. Chunk rows sample their first token from their last
+        real column at index 0 of their stream, decode rows from column 0
+        at counts, as the alternating rounds do; with `grammar`, chunk rows
+        under their `_chunk_grammar` state and budget, decode rows under
+        their own. Returns (the decode rows' window logits [slots, w, V],
+        the samples [slots])."""
+        cfg, dev, num_slots = self.cfg, self.device, self.num_slots
+        pad = cfg.pad_id
+        s_virt = self._pages_per_slot * self._page_size
+        w_tok, w_pos = window or (self._cur[:, None], self._pos[:, None])
+        w = w_tok.shape[1]
+        width = max(t, w)
+        lengths, p_tok, pref, p_start, p_lengths, knobs = self._mixed_slots(group, t, width)
+        if width > w:
+            dead = (num_slots, width - w)
+            w_tok = torch.cat([w_tok, torch.full(dead, pad, dtype=torch.int32, device=dev)], 1)
+            w_pos = torch.cat([w_pos, torch.full(dead, s_virt, dtype=torch.int32,
+                                                 device=dev)], 1)
+        col = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+        tokens0 = torch.where(pref[:, None], p_tok, w_tok)
+        pos0 = torch.where(pref[:, None],
+                           torch.where(col < t, p_start[:, None] + col, s_virt), w_pos)
         kv0 = torch.where(pref, (p_start + t).clamp(0, s_virt),
-                          torch.where(active, pos + 1, 0))
-        q_lens = torch.where(pref, t, 1).to(torch.int32)
+                          torch.where(active, self._pos + w, 0))
+        # A parked slot's one column writes at its park position, as the
+        # alternating rounds' steps do; a verify window from there would
+        # run past it, so its columns are dead.
+        q_lens = torch.where(pref, t, torch.where(active, w, int(w == 1)))
         last = torch.where(pref, self._h2d(p_lengths, torch.int64) - 1, 0)
-        logits, _ = forward(cfg, self.params, tokens0, pos0,
-                            dict(self._pool, ptab=self._ptab),
-                            logit_indices=last, kv_lens=kv0, q_lens=q_lens)
-        first = logits[:, 0]
+        cache = dict(self._pool, ptab=self._ptab)
+        if w == 1:  # one column a row: unembed it alone
+            logits, _ = forward(cfg, self.params, tokens0, pos0, cache,
+                                logit_indices=last, kv_lens=kv0,
+                                q_lens=q_lens.to(torch.int32))
+            first = logits[:, 0]
+        else:
+            logits, _ = forward(cfg, self.params, tokens0, pos0, cache, kv_lens=kv0,
+                                q_lens=q_lens.to(torch.int32))
+            first = logits[torch.arange(num_slots, device=dev), last]
         if grammar:
             p_cinits, p_cbudgets = [0] * num_slots, [1] * num_slots
             for (slot, _), ci, cb in zip(group, *self._chunk_grammar(group, lengths)):
@@ -1473,16 +1619,18 @@ class ContinuousBatchingScheduler:
                 torch.where(pref, self._h2d(v, dt), cur_v) for v, dt, cur_v in zip(
                     knobs, (torch.float32, torch.float32, torch.int32, torch.int64),
                     (self._temps, self._topps, self._topks, self._seeds)))
-            return sample_runtime(first, temps, topps, topks, seeds,
-                                  torch.where(pref, 0, self._counts))
-        return greedy(first)
+            firsts = sample_runtime(first, temps, topps, topks, seeds,
+                                    torch.where(pref, 0, self._counts))
+        else:
+            firsts = greedy(first)
+        return logits[:, :w], firsts
 
     def _mixed_round(self, group, t: int, active: torch.Tensor, sampled: bool,
                      grammar: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A ragged mixed round: `_mixed_step`, then steps 1..chunk-1, the
+        """A ragged mixed round: `_mixed_forward`, then steps 1..chunk-1, the
         usual T=1 steps, the chunk rows inactive. Returns (tokens [slots,
         chunk], step 0's samples [slots])."""
-        firsts = self._mixed_step(group, t, active, sampled, grammar)
+        _, firsts = self._mixed_forward(group, t, active, sampled, grammar)
         cur = torch.where(active, firsts, self.cfg.pad_id)
         pos = torch.where(active, self._pos + 1, self._pos)
         cstates, crem = self._cstates, self._crem
@@ -1490,6 +1638,79 @@ class ContinuousBatchingScheduler:
             cstates, crem = self._grammar_step(active, cstates, crem, cur)
         return self._decode_steps(active, sampled, grammar, cur, pos, cstates, crem,
                                   1, [cur]), firsts
+
+    # ---------------------------------------------------------- speculation
+
+    def _spec_window(self):
+        """This round's drafts [S, D] (prompt lookup over each slot's
+        history) and verify window: tokens [S, D+1] (the current token, then
+        the drafts) at positions [S, D+1]."""
+        drafts = ngram_draft(self._hist, self._hlen, self._spec_draft, NGRAM)
+        jd = torch.arange(self._spec_draft + 1, dtype=torch.int32, device=self.device)
+        return (drafts, torch.cat([self._cur[:, None], drafts], dim=1),
+                self._pos[:, None] + jd)
+
+    def _spec_round(self, active: torch.Tensor, sampled: bool, grammar: bool):
+        """One speculative round of the whole slot batch: one forward of T =
+        D + 1 (parked slots read nothing; contiguous, their writes land in
+        their own row's tail, `_write_cache`; paged, `q_lens` 0 drops them),
+        then `_commit_verify`. Returns (emitted [S, D+1], n_emit [S])."""
+        d1 = self._spec_draft + 1
+        drafts, verify, vpos = self._spec_window()
+        kv_lens = torch.where(active, self._pos + d1, 0)
+        if self._paged:
+            logits, _ = forward(self.cfg, self.params, verify, vpos,
+                                dict(self._pool, ptab=self._ptab), kv_lens=kv_lens,
+                                q_lens=torch.where(active, d1, 0).to(torch.int32))
+        else:
+            logits, _ = forward(self.cfg, self.params, verify, vpos, self._cache,
+                                kv_lens=kv_lens)
+        return self._commit_verify(logits, drafts, active, sampled, grammar)
+
+    def _commit_verify(self, logits: torch.Tensor, drafts: torch.Tensor,
+                       active: torch.Tensor, sampled: bool, grammar: bool):
+        """Acceptance and commit of a verify window's logits [S, D+1, V]
+        (`verify_commit`) under each slot's budget, with `grammar` its FSM
+        state; sampled slots (only when `sampled`) accept by rejection
+        sampling at their stream index, which then advances by one. Active
+        slots emit acc + 1 tokens and advance history, position, current
+        token and grammar state past them, on the device. Returns (emitted
+        [S, D+1], pad past n_emit; n_emit [S], 0 when inactive)."""
+        d1 = self._spec_draft + 1
+        knobs = draws = None
+        if sampled:
+            knobs = (self._temps, self._topps, self._topks)
+            draws = verify_draws(self._seeds, self._counts, self._spec_draft,
+                                 logits.shape[-1])
+            # One stream index a sampled round, whatever it accepted.
+            self._counts = torch.where(active & (self._temps > 0.0), self._counts + 1,
+                                       self._counts)
+        emitted, n_emit, self._cur, cstates = verify_commit(
+            logits, drafts, self._cur, self._crem, torch.where(active, d1, 0),
+            self.cfg.pad_id, tables=self._ctables if grammar else None,
+            cstates=self._cstates, knobs=knobs, draws=draws)
+        if grammar:
+            self._cstates = cstates
+        width = self._hist.shape[1]
+        jd = torch.arange(d1, device=self.device)[None, :]
+        at = torch.where(active, self._hlen, width).clamp(max=width - d1)
+        self._hist.scatter_(1, at[:, None] + jd, emitted)
+        self._crem = self._crem - n_emit.to(self._crem.dtype)
+        self._pos = self._pos + n_emit.to(self._pos.dtype)
+        self._hlen = self._hlen + n_emit
+        return emitted, n_emit.to(torch.int32)
+
+    def _mixed_spec_round(self, group, t: int, active: torch.Tensor, sampled: bool,
+                          grammar: bool):
+        """The speculative ragged mixed round (JAX `_build_mixed_spec`):
+        `_mixed_forward` with the decode slots' verify windows (q_lens D+1;
+        parked slots 0), whose logits go through `_commit_verify`. Returns
+        (emitted, n_emit, the chunk rows' first tokens)."""
+        drafts, verify, vpos = self._spec_window()
+        logits, firsts = self._mixed_forward(group, t, active, sampled, grammar,
+                                             (verify, vpos))
+        emitted, n_emit = self._commit_verify(logits, drafts, active, sampled, grammar)
+        return emitted, n_emit, firsts
 
     def _issue_decode(self) -> None:
         """Enqueue one decode round; nothing synchronises here. Its tokens
@@ -1503,10 +1724,14 @@ class ContinuousBatchingScheduler:
         active = self._h2d([r is not None for r in issue_reqs], torch.bool)
         sampled = any(r is not None and r.temperature > 0.0 for r in issue_reqs)
         grammar = any(r is not None and r.constraint is not None for r in issue_reqs)
-        toks = self._decode_round(active, sampled, grammar)
+        n_emit = None
+        if self._spec_draft:
+            toks, n_emit = self._spec_round(active, sampled, grammar)
+        else:
+            toks = self._decode_round(active, sampled, grammar)
         self.rounds_issued += 1
         self._pending.append((issue_reqs, list(self._slot_epoch), toks,
-                              self._first_pending))
+                              self._first_pending, n_emit))
         self._first_pending = []
 
     def _issue_mixed(self) -> bool:
@@ -1531,16 +1756,21 @@ class ContinuousBatchingScheduler:
         grammar = any(r.constraint is not None for r in issue_reqs if r is not None) \
             or any(req.constraint is not None for _, req in group)
         if all(r is None for r in issue_reqs):
-            firsts = self._mixed_step(group, t, active, sampled, grammar)
+            _, firsts = self._mixed_forward(group, t, active, sampled, grammar)
             self.ragged_prefills += 1
             self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
             return True
-        toks, firsts = self._mixed_round(group, t, active, sampled, grammar)
+        n_emit = None
+        if self._spec_draft:
+            toks, n_emit, firsts = self._mixed_spec_round(group, t, active, sampled,
+                                                          grammar)
+        else:
+            toks, firsts = self._mixed_round(group, t, active, sampled, grammar)
         self.rounds_issued += 1
         self.mixed_rounds += 1
         self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
         self._pending.append((issue_reqs, list(self._slot_epoch), toks,
-                              self._first_pending))
+                              self._first_pending, n_emit))
         self._first_pending = []
         return True
 
@@ -1609,21 +1839,32 @@ class ContinuousBatchingScheduler:
         # restart it and replay every acknowledged request without
         # duplicating delivered tokens.
         FAULTS.check("sched:crash")
-        issue_reqs, epochs, toks_dev, firsts = self._pending.popleft()
+        issue_reqs, epochs, toks_dev, firsts, n_emit_dev = self._pending.popleft()
+        width = toks_dev.shape[1]  # decode_chunk, or D + 1 under speculation
+        spec = n_emit_dev is not None
         flat = torch.cat([toks_dev.reshape(-1)]
-                         + [tok.reshape(1) for _, _, tok, _ in firsts]).tolist()
-        chunk = self.decode_chunk
+                         + ([n_emit_dev.to(toks_dev.dtype)] if spec else [])
+                         + [tok.reshape(1).to(toks_dev.dtype)
+                            for _, _, tok, _ in firsts]).tolist()
+        n_tok = self.num_slots * width
+        n_emit = flat[n_tok: n_tok + self.num_slots] if spec else None
+        first_at = n_tok + (self.num_slots if spec else 0)
         # Firsts precede the round's tokens in every stream.
         for j, (slot, req, _, fep) in enumerate(firsts):
-            self._append_first(slot, req, flat[self.num_slots * chunk + j], fep)
+            self._append_first(slot, req, flat[first_at + j], fep)
         stalled = []
         for i, req in enumerate(issue_reqs):
             if req is None or req is not self._slot_req[i] \
                     or epochs[i] != self._slot_epoch[i]:
                 continue  # inactive at issue, or retired or preempted since
             # The host mirror of the slot's sample index for this committed
-            # round: what a preemption's resume restores.
-            req.rng_count += chunk
+            # round: what a preemption's resume restores (a speculative
+            # round takes one index from a sampled slot, none from a greedy
+            # one).
+            if not spec:
+                req.rng_count += width
+            elif req.temperature > 0.0:
+                req.rng_count += 1
             if req.cancelled:
                 self._retire(i, req, req.generated)
                 continue
@@ -1632,7 +1873,8 @@ class ContinuousBatchingScheduler:
                 self._fail_slot(i, req, req.deadline_error())
                 continue
             # The `sched:slot_stall` seam: the lane produced nothing useful.
-            row = [] if req.stall_inject else flat[i * chunk: (i + 1) * chunk]
+            ne = n_emit[i] if spec else width
+            row = [] if req.stall_inject else flat[i * width: i * width + ne]
             before = len(req.generated)
             done = False
             for tok in row:
@@ -1644,6 +1886,8 @@ class ContinuousBatchingScheduler:
                 if len(req.generated) >= req.max_new:
                     done = True
                     break
+            if spec and ne:
+                self._count_spec(req, ne, len(req.generated) - before)
             if done:
                 self._retire(i, req, req.generated)
             elif len(req.generated) > before:
@@ -1670,6 +1914,20 @@ class ContinuousBatchingScheduler:
             # can write there (a failed top-up preempts).
             self._topup_pages()
         self.heartbeat.round_done()
+
+    def _count_spec(self, req: _Request, emitted: int, delivered: int) -> None:
+        """One slot's harvested verify round in `speculation_stats`, the
+        counters moving together under the submit lock."""
+        with self._submit_lock:
+            self._spec_rounds += 1
+            self._spec_tokens += emitted
+            self._spec_delivered += delivered
+            if req.constraint is not None:
+                self._spec_rounds_con += 1
+                self._spec_tokens_con += emitted
+            if req.temperature > 0.0:
+                self._spec_rounds_samp += 1
+                self._spec_tokens_samp += emitted
 
     def _harvest_firsts(self) -> None:
         """Drain path: ready slots whose first token never rode a round."""
@@ -2084,7 +2342,7 @@ class SchedulerBackend:
         bf16), `quantize_int4` (int4 block weights), `kv_quant="int8"`,
         the scheduler's shape arguments, the page-pressure knobs
         (`kv_overcommit`, `kv_spill`, `kv_watermark_low/high`),
-        `max_queue_depth`, and `supervise` with
+        `max_queue_depth`, `speculative_draft`, and `supervise` with
         `max_restarts`, `max_entry_replays`, `journal_spill` and `stall_*`
         (serve/supervisor.py). What the port cannot honor yet raises and
         names its ROADMAP item."""
@@ -2149,7 +2407,7 @@ class SchedulerBackend:
         from .backends import refuse_unported_load, resolve_stop_ids
 
         refuse_unported_load(mesh, quantize_int8, quantize_int4,
-                             quantize_unembed8, speculative_draft)
+                             quantize_unembed8)
         cfg, params = load(dtype, resolve_device(device))
         if quantize_int4:
             from ..ops.quant import quantize_params_int4
@@ -2172,6 +2430,7 @@ class SchedulerBackend:
                 kv_watermark_low=kv_watermark_low,
                 kv_watermark_high=kv_watermark_high,
                 max_queue_depth=max_queue_depth,
+                speculative_draft=speculative_draft,
                 device=params["final_norm"].device)
 
         if supervise:

@@ -410,12 +410,22 @@ class SupervisedScheduler:
         return self._inner.overshoot
 
     @property
+    def _spec_draft(self):
+        return getattr(self._inner, "_spec_draft", 0)
+
+    @property
     def _harvest_lag(self):
         return getattr(self._inner, "_harvest_lag", 1)
 
     @property
     def prefix_stats(self):
         return getattr(self._inner, "prefix_stats", {})
+
+    @property
+    def speculation_stats(self):
+        """The current incarnation's speculative acceptance (None with
+        speculation off)."""
+        return getattr(self._inner, "speculation_stats", None)
 
     @property
     def page_stats(self):

@@ -318,7 +318,6 @@ def args_for(*argv):
     (("--tp", "2"), "A13"),
     (("--dp", "2"), "A13"),
     (("--sp", "2"), "A13"),
-    (("--speculative", "3"), "A9"),
     (("--int8",), "A10"),
     (("--int8-unembed",), "A10"),
 ])
@@ -396,6 +395,50 @@ def test_entry_point_honours_scheduler_knobs(monkeypatch, tmp_path, env, attr, w
         if attr.startswith("_wm_"):
             want = int(want * sched.page_stats["pages_total"])
         assert getattr(sched, attr) == want and want
+    finally:
+        svc.close()
+
+
+@pytest.mark.parametrize("path", ["scheduler", "engine"])
+def test_entry_point_serves_speculative(path):
+    """`--speculative 3` builds speculative backends on both serving paths,
+    each tiny scheduler (under the supervisor) or engine verifying 3 drafts
+    a round, and a greedy completion equals the vanilla service's."""
+    flags = ("--cpu", "--backend", "tiny", "--slots", "2") + (
+        ("--no-scheduler",) if path == "engine" else ())
+    texts = []
+    for extra in (("--speculative", "3"), ()):
+        svc = entry.build_service(args_for(*flags, *extra), AppConfig())
+        try:
+            backend = svc._models["duckdb-nsql"].backend
+            if path == "scheduler":
+                assert backend.scheduler._spec_draft == (3 if extra else 0)
+            else:
+                assert backend.engine.speculative_draft == (3 if extra else 0)
+            texts.append(backend.complete("SELECT a FROM t", max_new_tokens=12).text)
+            if extra and path == "scheduler":
+                stats = backend.scheduler.speculation_stats
+                assert stats["verify_rounds"] >= 1 and stats["tokens_delivered"] >= 1
+            elif extra:
+                assert backend.engine.last_spec_rounds >= 1
+        finally:
+            svc.close()
+    assert texts[0] == texts[1]
+
+
+def test_entry_point_refuses_int8_speculation_on_engines():
+    """int8 KV with --speculative on an engine backend's contiguous cache
+    exits, as the JAX entry point does; on the scheduler it serves."""
+    with pytest.raises(SystemExit, match="cannot combine with --speculative"):
+        entry.build_service(args_for("--cpu", "--backend", "tiny", "--no-scheduler",
+                                     "--kv-int8", "--speculative", "3"), AppConfig())
+    svc = entry.build_service(args_for("--cpu", "--backend", "tiny", "--kv-int8",
+                                       "--speculative", "3", "--slots", "2"), AppConfig())
+    try:
+        sched = svc._models["duckdb-nsql"].backend.scheduler
+        assert sched._spec_draft == 3 and sched._inner.kv_quant == "int8"
+        assert svc._models["duckdb-nsql"].backend.complete(
+            "SELECT", max_new_tokens=6).output_tokens >= 1
     finally:
         svc.close()
 

@@ -277,10 +277,40 @@ def test_backends_from_hf_checkpoint_serve_jax_tokens(tmp_path):
         sb.shutdown()
 
 
+@pytest.mark.parametrize("backend", ["scheduler", "engine"])
+def test_backends_from_hf_checkpoint_serve_speculative(tmp_path, backend):
+    """`speculative_draft=2` reaches the scheduler (supervised) and the
+    engine a checkpoint backend builds, which serve JAX's speculative
+    engine's greedy tokens over verify rounds."""
+    jcfg = dataclasses.replace(JAX_TINY, max_seq_len=128)
+    jax_save_hf(jcfg, jax_init(jcfg, jax.random.key(10), dtype=jnp.float32), tmp_path)
+    jc, ja = jax_load_hf(tmp_path, dtype=jnp.float32)
+    tok = ByteTokenizer()
+    ids = tok.encode("SELECT a FROM t")
+    want = JaxEngine(jc, ja, stop_ids=(-1,), speculative_draft=2).generate(
+        [ids], max_new_tokens=8)[0]
+    common = dict(dtype=torch.float32, device="cpu", stop_ids=(-1,), max_new_tokens=8,
+                  prompt_bucket=16, speculative_draft=2)
+    if backend == "engine":
+        eng = EngineBackend.from_hf_checkpoint(str(tmp_path), tok, **common)
+        assert eng.engine.speculative_draft == 2
+        assert eng.engine.generate([ids], max_new_tokens=8)[0] == want
+        assert eng.engine.last_spec_rounds >= 1
+        return
+    sb = SchedulerBackend.from_hf_checkpoint(str(tmp_path), tok, num_slots=2,
+                                             max_seq=128, supervise=True,
+                                             stall_min_s=0.0, **common)
+    try:
+        assert sb.scheduler._spec_draft == 2
+        assert sb.scheduler.submit(ids, max_new_tokens=8).result(timeout=60) == want
+        assert sb.scheduler.speculation_stats["verify_rounds"] >= 1
+    finally:
+        sb.shutdown()
+
+
 @pytest.mark.parametrize("kwargs,item", [
     ({"quantize_int8": True}, "A10"),
     ({"quantize_unembed8": True}, "A10"),
-    ({"speculative_draft": 2}, "A9"),
     ({"mesh": object()}, "A13"),
 ])
 def test_scheduler_from_hf_refuses_unported(tmp_path, kwargs, item):

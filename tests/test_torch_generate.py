@@ -138,9 +138,19 @@ def test_int8_cache_forward_logits_match_jax(both4):
         np.testing.assert_allclose(tq8[name].numpy().astype(np.float32),
                                    np.asarray(jq8[name]).astype(np.float32),
                                    atol=tol, rtol=0)
-    with pytest.raises(ValueError, match="T == 1"):
-        forward(TINY, tp, torch.zeros((2, 2), dtype=torch.int32),
-                torch.zeros((2, 2), dtype=torch.int32), tq8)
+    # A window over the int8 cache (a speculative verify round: the
+    # quantized paged attention over the one-page-a-row view) against JAX's
+    # einsum path at T = 3; past the small-T bound it raises.
+    win = np.asarray([[3, 4, 5], [6, 7, 8]])
+    wpos = step + 1 + np.arange(3)[None, :]
+    want, _ = jax_forward(JAX_TINY, jp, jnp.asarray(win, jnp.int32),
+                          jnp.asarray(wpos, jnp.int32), jq8, attn_impl="xla")
+    got, _ = forward(TINY, tp, torch.from_numpy(win).int(), torch.from_numpy(wpos).int(),
+                     tq8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    with pytest.raises(ValueError, match="T <= 32"):
+        forward(TINY, tp, torch.zeros((2, 33), dtype=torch.int32),
+                torch.zeros((2, 33), dtype=torch.int32), tq8)
 
 
 @pytest.mark.parametrize("stop_ids", [(-1,), (2, 182, 264)])
@@ -157,5 +167,9 @@ def test_int4_int8_engine_greedy_matches_jax(both4, stop_ids):
     assert eng.generate(prompts, max_new_tokens=10) == want
     with pytest.raises(ValueError, match="kv_quant"):
         InferenceEngine(TINY, tp, kv_quant="int4", device="cpu")
-    with pytest.raises(ValueError, match="paged layout"):
-        InferenceEngine(TINY, tp, kv_quant="int8", kv_layout="paged", device="cpu")
+    # The engine's paged layout over the int8 pool (quantized in the pack).
+    want = JaxEngine(JAX_TINY, jp, stop_ids=stop_ids, prompt_bucket=8, kv_quant="int8",
+                     kv_layout="paged").generate(prompts, max_new_tokens=10)
+    eng = InferenceEngine(TINY, tp, stop_ids=stop_ids, prompt_bucket=8, kv_quant="int8",
+                          kv_layout="paged", device="cpu")
+    assert eng.generate(prompts, max_new_tokens=10) == want
