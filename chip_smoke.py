@@ -9,6 +9,7 @@
     python3 chip_smoke.py --constrained-only  # phases 1, 2, 12, 7 and 8 (b)
     python3 chip_smoke.py --speculative-only  # phases 1, 2, 3 and 11 at the
                                               # verify shapes, the cost anchor, 13
+    python3 chip_smoke.py --int8-only    # phases 1, 2, then 14 (a), (b) and (f)
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -325,6 +326,35 @@ Phases, each fatal on failure:
    `speculation_stats`' delivered tokens equal what the requests received;
    launch counts exact; tokens per verify round printed per path.
 
+14. int8 weights and the fused trees (ROADMAP A10): (a) in phase 3, the
+   int8 matmul (`csrc/int8_matmul.cu`, no TPU counterpart: the JAX package
+   leaves the int8 product to XLA) against its plain version at every
+   shape of INT8_SHAPES (7B wq, wg, wd, the fused wqkv and wgu, the [V, D]
+   unembed; 3B wq, wk, wg, wd, the fused wkv and wgu, unembed) at R = 1, 3, 4, 8, 9, 72, 384, 1024 in
+   bf16 and at INT8_F32: bf16 block outputs within one bf16 ulp of the
+   plain value element by element (`bf16_ulps`), f32 logits within
+   INT8_LOGIT_TOL, f32 outputs within INT8_F32_TOL of max |plain|, every
+   call launched twice and bit-identical; (b) in phase 3, row 8 at the
+   stacked widths (INT4_STACKED) within INT4_TOL; (c) after phase 13, the
+   7B engine over `quantize_params` + `quantize_unembed` of the seed-0 tree,
+   unfused and fused, and the 3B engine fused: launch counts exact (7 x 32 +
+   1, 4 x 32 + 1, 5 x 28 + 1 `int8_matmul` a forward), fused streams held
+   to unfused ones and the unfused 7B streams to the same weights through
+   the plain versions by the near-tie rule (`logit_drift` on these
+   weights), a generic-grammar batch held to phase 12's checks (with
+   --profile, the batch on the bf16, the int8 and the fused int8 7B
+   engines under torch.profiler); (d) both
+   schedulers with the int8 tree: the paged one fused, ragged, over the
+   int8 pool and the contiguous one, phase 6's traffic and a burst with
+   staggered budgets, then a speculative burst (D = 8) on the paged one,
+   every burst's streams held by the near-tie rule to an unfused engine's
+   over the same weights and cache type through the plain versions; launch
+   counts exact, no page leaked; (e) in phase 10, the entry point with
+   `--backend checkpoint --int8 --int8-unembed` over the 3B Q4_0 blob
+   serves `POST /process-data/`; (f) in phase 11, each int8 shape and row
+   8's stacked shapes at R = 1, 8, 72, 1024 against their bounds, their
+   plain versions and cuBLAS bf16 on the weight dequantized in advance.
+
 Every phase prints its seconds.
 
 Prints a `{"kernels": [...]}` line, then as its last line
@@ -383,6 +413,7 @@ SOURCES = {
     "paged_q_window": f"{PKG}/csrc/window_split.cuh",
     "write_q": f"{PKG}/csrc/page_write.cuh",
     "int4": f"{PKG}/csrc/int4_matmul.cu",
+    "int8": f"{PKG}/csrc/int8_matmul.cu",
 }
 REPLACES = {
     "prefill": f"{REF}/attention.py:428",
@@ -397,6 +428,9 @@ REPLACES = {
     "paged_q_window": f"{REF}/paged_attention.py:304",
     "write_q": f"{REF}/paged_write.py:249",
     "int4": f"{REF}/int4mm.py:171",
+    # No Pallas kernel: the JAX package leaves the int8 product to XLA.
+    "int8": "none (XLA's dot_general, llm_based_apache_spark_optimization_tpu/ops/"
+            "quant.py:294, and the unembed einsum, models/llama.py:626)",
 }
 
 
@@ -1784,14 +1818,16 @@ OVERCOMMIT_NEW = 512
 
 def burst(sched, prompts, max_new, constraints=None):
     """Submit `prompts` at once (a long GIL switch interval keeps the worker
-    from admitting any before all are queued), request i under grammar
+    from admitting any before all are queued), request i with budget
+    `max_new[i]` when `max_new` is a list and under grammar
     `constraints[i]` when given, and return their tokens."""
     constraints = constraints or [None] * len(prompts)
+    budgets = max_new if isinstance(max_new, list) else [max_new] * len(prompts)
     switch = sys.getswitchinterval()
     sys.setswitchinterval(BURST_SWITCH_S)
     try:
-        futs = [sched.submit(p, max_new_tokens=max_new, constraint=c)
-                for p, c in zip(prompts, constraints)]
+        futs = [sched.submit(p, max_new_tokens=m, constraint=c)
+                for p, m, c in zip(prompts, budgets, constraints)]
     finally:
         sys.setswitchinterval(switch)
     return [f.result(timeout=600) for f in futs]
@@ -2005,6 +2041,35 @@ def wait_settled(sched, timeout=60.0):
     raise AssertionError("scheduler did not settle")
 
 
+def matmul_launches(params, n_layers):
+    """The weight-matmul kernel launches of one forward over `params`, by
+    counter: int4 or int8 block weights launch their kernel once a block
+    matmul (7 a layer; a fused tree 4 with wqkv, 5 with wkv), and an int8
+    unembed table the int8 kernel once a forward; bf16 weights none."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        is_q4tensor,
+        is_qtensor,
+    )
+
+    blocks = params["blocks"]
+    per_layer = 7 - 2 * ("wqkv" in blocks) - ("wkv" in blocks) - ("wgu" in blocks)
+    w = blocks["wd"]
+    out = dict.fromkeys(("int4_matmul", "int8_matmul"), 0)
+    if is_q4tensor(w):
+        out["int4_matmul"] += per_layer * n_layers
+    elif is_qtensor(w):
+        out["int8_matmul"] += per_layer * n_layers
+    if is_qtensor(params.get("lm_head", params["embed"])):
+        out["int8_matmul"] += 1
+    return out
+
+
+def add_matmuls(expected, params, n_layers, forwards):
+    """Add `forwards` forwards' weight-matmul launches to `expected`."""
+    for name, n in matmul_launches(params, n_layers).items():
+        expected[name] += n * forwards
+
+
 def expect_paged(expected, sched, rounds, prefills):
     """Add a paged scheduler's launches to `expected`: its ragged attention
     (int8 pool: the quantized one) layers x (decode_chunk x rounds + ragged
@@ -2013,7 +2078,7 @@ def expect_paged(expected, sched, rounds, prefills):
     + ragged prefills) are query windows (T > 1, counted apart), its page
     write as many plus one a layer for each prefill forward (the chunk's
     window written back), the flash prefill layers x prefill forwards, and
-    over int4 weights the int4 matmul 7 x layers x forwards."""
+    the weight matmuls of every forward (`matmul_launches`)."""
     n_layers = sched.cfg.num_layers
     q = "_quantized" if sched.kv_quant else ""
     steps = sched.decode_chunk * rounds + sched.ragged_prefills
@@ -2022,21 +2087,19 @@ def expect_paged(expected, sched, rounds, prefills):
     expected["ragged_paged_window" + q] += n_layers * windows
     expected["fused_page_write" + q] += n_layers * (steps + prefills)
     expected["flash_gqa_prefill"] += n_layers * prefills
-    if isinstance(sched.params["blocks"]["wq"], dict):
-        expected["int4_matmul"] += 7 * n_layers * (steps + prefills)
+    add_matmuls(expected, sched.params, n_layers, steps + prefills)
 
 
 def expect_contiguous(expected, sched, rounds, prefills):
     """Add a contiguous scheduler's launches to `expected`: its decode
     kernel (int8 cache: the quantized one) layers x decode_chunk x rounds,
-    the flash prefill layers x prefill forwards, and over int4 weights the
-    int4 matmul 7 x layers x forwards."""
+    the flash prefill layers x prefill forwards, and the weight matmuls of
+    every forward (`matmul_launches`)."""
     n_layers = sched.cfg.num_layers
     decode = "flash_gqa_decode_quantized" if sched.kv_quant else "flash_gqa_decode"
     expected[decode] += n_layers * sched.decode_chunk * rounds
     expected["flash_gqa_prefill"] += n_layers * prefills
-    if isinstance(sched.params["blocks"]["wq"], dict):
-        expected["int4_matmul"] += 7 * n_layers * (sched.decode_chunk * rounds + prefills)
+    add_matmuls(expected, sched.params, n_layers, sched.decode_chunk * rounds + prefills)
 
 
 def live_cache_logits(torch, sched):
@@ -2554,7 +2617,7 @@ def quantized_serve(torch, engines, profile=False):
 
     def account(results, kind):
         st = eng.last_stats
-        expected["int4_matmul"] += 7 * n_layers * st["forward_calls"]
+        add_matmuls(expected, params4, n_layers, st["forward_calls"])
         expected["flash_gqa_prefill"] += n_layers
         expected["flash_gqa_decode_quantized"] += n_layers * st["decode_steps"]
         for r in results:
@@ -3440,9 +3503,9 @@ def supervised_crash(torch, sb):
 
 
 def checkpoints(torch, engines):
-    """Phases 10-13: the checkpoint paths, over files written in a temporary
-    directory that is removed afterwards. Returns the launch counts per
-    path."""
+    """Phase 10 and 14 (e): the checkpoint paths, over files written in a
+    temporary directory that is removed afterwards. Returns the launch
+    counts per path."""
     import shutil
     import tempfile
 
@@ -3468,6 +3531,11 @@ def checkpoints(torch, engines):
             write_tokenizer(hf_dir)
             entry_point(torch, ("--backend", "checkpoint", "--sql-model-path", hf_dir,
                                 "--error-model-path", f"{blob}:{hf_dir}",
+                                "--max-new-tokens", str(MAX_NEW)))
+            phase("checkpoint (e), phase 14 (e): the entry point, --int8 --int8-unembed "
+                  "over the 3B Q4_0 blob")
+            entry_point(torch, ("--backend", "checkpoint", "--sql-model-path",
+                                f"{blob}:{hf_dir}", "--int8", "--int8-unembed",
                                 "--max-new-tokens", str(MAX_NEW)))
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3511,10 +3579,12 @@ def profile_device(torch, label, send):
     rows.sort(key=lambda x: -x[1])
     busy_us = sum(x[1] for x in rows)
     groups = {"flash attention": 0.0, "paged attention": 0.0, "page write": 0.0,
-              "int4 matmul": 0.0, "matmul": 0.0, "other": 0.0}
+              "int4 matmul": 0.0, "int8 matmul": 0.0, "matmul": 0.0, "other": 0.0}
     for key, us, _ in rows:
         if "int4_" in key:
             groups["int4 matmul"] += us
+        elif "int8_gemv" in key or "int8_mma" in key:
+            groups["int8 matmul"] += us
         elif "PagedSrc" in key:
             groups["paged attention"] += us
         elif any(w in key for w in ("gqa_tile", "flash_prefill", "decode_split")):
@@ -4546,7 +4616,11 @@ def verify_cost_7b(torch, eng, params4, smi):
 
 
 def drift_class(label):
-    """The weight and KV cache types of a speculative path's label."""
+    """The weight and KV cache types of a path's label (phase 14's int8
+    weights: labels that start with "q8", the 3B's with "q8_3b")."""
+    if label.startswith("q8"):
+        return "q8_3b" if label.startswith("q8_3b") else (
+            "q8_int8" if "int8kv" in label else "q8")
     return "int4_int8" if "int4" in label else "int8" if "int8" in label else "bf16"
 
 
@@ -4702,7 +4776,7 @@ def expect_spec(expected, sched, rounds, prefills, extra_windows=0):
     the one-page view, paged the window and the page write (int8 pool: the
     quantized twins); a prefill forward the flash prefill a layer (paged:
     and the chunk's page write); a ragged prefill one window and one page
-    write a layer; int4 weights 7 int4 matmuls a layer a forward."""
+    write a layer; the weight matmuls of every forward (`matmul_launches`)."""
     n_layers = sched.cfg.num_layers
     q = "_quantized" if sched.kv_quant else ""
     windows = rounds + sched.ragged_prefills + extra_windows
@@ -4714,8 +4788,7 @@ def expect_spec(expected, sched, rounds, prefills, extra_windows=0):
     else:
         expected["flash_gqa_prefill"] += n_layers * windows
     expected["flash_gqa_prefill"] += n_layers * prefills
-    if isinstance(sched.params["blocks"]["wq"], dict):
-        expected["int4_matmul"] += 7 * n_layers * (windows + prefills)
+    add_matmuls(expected, sched.params, n_layers, windows + prefills)
 
 
 def no_sync_rounds(torch, cls):
@@ -5353,11 +5426,491 @@ def spec_kernels(torch, attn_mod, pa_mod, pw_mod, mm_mod):
     check_int8_view(torch, pa_mod)
 
 
+# ------------------------------------------- int8 weights and fused trees
+
+
+def q8_tree(torch, cfg, params):
+    """`params` with int8 block weights and int8 embed/unembed tables,
+    quantized on the card (`quantize_params`, then `quantize_unembed`)."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_params,
+        quantize_unembed,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = quantize_unembed(quantize_params(params))
+    torch.cuda.synchronize()
+    nbytes = sum(v.numel() * v.element_size() for w in (*tree["blocks"].values(),
+                                                        tree["embed"])
+                 if isinstance(w, dict) for v in w.values())
+    print(f"  {cfg.name}: block weights and the unembed table quantized to int8 on the "
+          f"card in {time.perf_counter() - t0:.1f} s ({nbytes / 2**30:.2f} GiB of codes and "
+          f"scales); {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    return tree
+
+
+def q8_engine_run(torch, eng, prompts, label, constraint=None):
+    """One batch through `eng` (under `constraint` when given) in a counted
+    window: the greedy tokens and the launches, held to the expected ones
+    (flash prefill and decode a layer a forward, the weight matmuls of
+    every forward, `matmul_launches`)."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=MAX_NEW, constraint=constraint)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(LAUNCHES)
+    st, n_layers = eng.last_stats, eng.cfg.num_layers
+    want = dict.fromkeys(LAUNCHES, 0)
+    want["flash_gqa_prefill"] = n_layers
+    want["flash_gqa_decode"] = n_layers * st["decode_steps"]
+    add_matmuls(want, eng.params, n_layers, st["forward_calls"])
+    per = matmul_launches(eng.params, n_layers)["int8_matmul"]
+    dec = max(wall - st["ttft_s"], 1e-9)
+    print(f"  {label}: batch {st['batch']}, prompt {st['prompt_len']}, "
+          f"{st['decode_steps']} decode steps in {wall:.3f} s (TTFT {st['ttft_s']:.4f} s, "
+          f"{st['decode_steps'] / dec:.1f} steps/s); {per} int8_matmul a forward; "
+          f"launches {got} expected {want}", flush=True)
+    assert got == want, f"{label}: launch counts {got} != {want}"
+    assert got["int8_matmul"] > 0
+    return outs, got
+
+
+def int8_engines(torch, engines, smi, tally, tally_div, profile=False):
+    """Phase 14 (c): the 7B engine over int8 block weights and an int8
+    unembed table (`quantize_params` + `quantize_unembed` of the seed-0
+    bf16 tree), unfused and fused, and the 3B engine fused, the three
+    NL->SQL prompts as one batch. Launch counts exact (7 x 32 + 1, 4 x 32 +
+    1 and 5 x 28 + 1 `int8_matmul` a forward). The fused streams are held
+    to the unfused ones, and the unfused 7B streams to the same weights
+    through the plain versions (the reference function: int8 x bf16 summed
+    in f32 by PyTorch), by the near-tie rule over `logit_drift` measured on
+    these weights; agreement with the bf16 weights' streams is printed. The
+    fused 7B engine also serves the batch under the generic grammar, held
+    to phase 12's checks. With `profile`, the batch runs once more under
+    torch.profiler on the bf16 7B engine, the unfused and the fused int8
+    one. Returns ({path: launches}, the 7B int8 tree)."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import set_attention_impl
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    eng7, eng3 = engines["duckdb-nsql"], engines["llama3.2"]
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in QUESTIONS]
+    launches = {}
+    params8 = q8_tree(torch, eng7.cfg, eng7.params)
+    for cls, kv in (("q8", None), ("q8_int8", "int8")):
+        _DRIFT[cls] = logit_drift(torch, eng7.cfg, params8, kv)
+        print(f"  logit drift, {cls}: {json.dumps(_DRIFT[cls])}; near-tie bound 2 x eps_top = "
+              f"{2 * _DRIFT[cls]['eps_top']:.5f} on {smi}", flush=True)
+        assert _DRIFT[cls]["ulps"] <= DRIFT_ULPS, f"{cls}: drift {_DRIFT[cls]['ulps']:.2f} ulps"
+    e8 = InferenceEngine(eng7.cfg, params8, stop_ids=eng7.stop_ids, device="cuda")
+    unfused, launches["q8_engine_7b"] = q8_engine_run(torch, e8, prompts, "q8 7B engine")
+    set_attention_impl("plain")
+    try:
+        plain = e8.generate(prompts, max_new_tokens=MAX_NEW)
+    finally:
+        set_attention_impl("auto")
+    compare_streams(torch, e8, "q8_engine_plain", prompts, unfused, plain, tally_div,
+                    params=params8)
+    ef = InferenceEngine(eng7.cfg, params8, stop_ids=eng7.stop_ids, device="cuda",
+                         fuse_matmuls=True)
+    assert "wqkv" in ef.params["blocks"] and "wgu" in ef.params["blocks"]
+    fused, launches["q8_engine_7b_fused"] = q8_engine_run(torch, ef, prompts,
+                                                          "q8 7B engine, fused")
+    compare_streams(torch, e8, "q8_engine_fused", prompts, fused, unfused, tally_div,
+                    params=params8)
+    c = grammar("generic", tok, eng7.stop_ids)
+    outs, launches["constrained_q8_engine_fused"] = q8_engine_run(
+        torch, ef, prompts, "q8 7B engine, fused, generic grammar", constraint=c)
+    for out in outs:
+        text = check_constrained(tally, "q8_engine_fused", c, GRAMMAR_SPECS["generic"], out,
+                                 MAX_NEW, eng7.stop_ids, tok)
+        print(f"    q8 engine generic: {text!r}", flush=True)
+    bf16 = eng7.generate(prompts, max_new_tokens=MAX_NEW)
+    if profile:
+        for name, e in (("bf16", eng7), ("int8, unfused", e8), ("int8, fused", ef)):
+            profile_device(torch, f"7B engine, {name}, batch of {len(prompts)}", lambda e=e: sum(
+                map(len, e.generate(prompts, max_new_tokens=MAX_NEW))))
+            print(f"    decode steps {e.last_stats['decode_steps']}", flush=True)
+    agree = sum(a == b for x, y in zip(unfused, bf16) for a, b in zip(x, y))
+    print(f"  q8 7B vs bf16 weights: {agree} of {sum(map(len, bf16))} greedy tokens equal "
+          f"(other weights: printed, not held)", flush=True)
+    del ef, e8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params3 = q8_tree(torch, eng3.cfg, eng3.params)
+    _DRIFT["q8_3b"] = logit_drift(torch, eng3.cfg, params3, None)
+    print(f"  logit drift, q8_3b: {json.dumps(_DRIFT['q8_3b'])}", flush=True)
+    assert _DRIFT["q8_3b"]["ulps"] <= DRIFT_ULPS
+    e3 = InferenceEngine(eng3.cfg, params3, stop_ids=eng3.stop_ids, device="cuda")
+    with torch.inference_mode():
+        unfused3 = e3.generate(prompts, max_new_tokens=MAX_NEW)
+    e3f = InferenceEngine(eng3.cfg, params3, stop_ids=eng3.stop_ids, device="cuda",
+                          fuse_matmuls=True)
+    assert "wkv" in e3f.params["blocks"] and "wq" in e3f.params["blocks"]
+    fused3, launches["q8_engine_3b_fused"] = q8_engine_run(torch, e3f, prompts,
+                                                           "q8 3B engine, fused")
+    compare_streams(torch, e3, "q8_3b_engine_fused", prompts, fused3, unfused3, tally_div,
+                    params=params3)
+    del e3, e3f, params3
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, params8
+
+
+def q8_plain_streams(torch, cfg, params8, stop_ids, prompts, kv_quant):
+    """The greedy streams of `prompts` (MAX_NEW tokens) through an unfused
+    engine over `params8` with every kernel's plain version: the paged
+    engine over an int8 pool of SCHED's page size when `kv_quant`, else the
+    contiguous engine over the bf16 cache."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import set_attention_impl
+
+    kw = (dict(kv_layout="paged", kv_page_size=SCHED["kv_page_size"], kv_quant=kv_quant)
+          if kv_quant else {})
+    eng = InferenceEngine(cfg, params8, stop_ids=stop_ids, device="cuda", **kw)
+    set_attention_impl("plain")
+    try:
+        return eng.generate(prompts, max_new_tokens=MAX_NEW)
+    finally:
+        set_attention_impl("auto")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def int8_schedulers(torch, cfg, params8, stop_ids, tally_div):
+    """Phase 14 (d): q8 weights and tables behind both schedulers, 8 slots:
+    the paged one fused over the int8 pool with ragged mixed rounds, and the
+    contiguous one (the app's default) unfused over the bf16 cache, each
+    under phase 6's traffic as SchedulerBackends, then the six SQL prompts
+    at once with staggered budgets (chunks ride decode rounds); then a
+    speculative burst (D = 8) on the paged fused one over the int8 pool.
+    Every greedy stream of the bursts is held by the near-tie rule to the
+    same prompt's stream through an unfused engine over the same weights
+    and cache type with every kernel's plain version (`q8_plain_streams`).
+    Launch counts exact; the paged pools leak no page. Returns {path:
+    launches}."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        GenerationService,
+        SchedulerBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in SCHED_SQL[2:]]
+    budgets = [MAX_NEW // 4, MAX_NEW, MAX_NEW // 2, MAX_NEW, MAX_NEW // 4, MAX_NEW // 2]
+    plain = {kv: q8_plain_streams(torch, cfg, params8, stop_ids, prompts, kv)
+             for kv in ("int8", None)}
+    launches = {}
+    for label, kw in (("q8_paged_ragged_int8kv_fused",
+                       dict(SCHED, kv_quant="int8", ragged=True, fuse_matmuls=True)),
+                      ("q8_contiguous", dict(num_slots=8, decode_chunk=8))):
+        sched = ContinuousBatchingScheduler(cfg, params8, stop_ids=stop_ids, device="cuda",
+                                            **kw)
+        sb = SchedulerBackend(sched, tok, max_new_tokens=MAX_NEW)
+        svc = GenerationService()
+        svc.register("duckdb-nsql", sb)
+        torch.cuda.synchronize()
+        reset_launches()
+        r0, p0 = sched.rounds_issued, sched.prefill_forwards
+        results, walls = send_traffic(svc)
+        if sched._paged:
+            stats = wait_idle(sched)
+        wait_settled(sched)
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        rounds, prefills = sched.rounds_issued - r0, sched.prefill_forwards - p0
+        want = dict.fromkeys(LAUNCHES, 0)
+        (expect_paged if sched._paged else expect_contiguous)(want, sched, rounds, prefills)
+        report_traffic(results, walls, weights="int8", layout=sched.kv_layout,
+                       kv=sched.kv_quant or "bf16")
+        extra = (f"; mixed rounds {sched.mixed_rounds}, ragged prefills "
+                 f"{sched.ragged_prefills}; pages {stats}" if sched._paged else "")
+        print(f"  {label}: {rounds} decode rounds, {prefills} prefill forwards{extra}; "
+              f"launches {launches[label]} expected {want}", flush=True)
+        assert launches[label] == want, f"{label}: launch counts {launches[label]} != {want}"
+        assert launches[label]["int8_matmul"] > 0
+        outs = burst(sched, prompts, budgets)
+        same = compare_streams(torch, sched, label, prompts, outs,
+                               [r[:m] for r, m in zip(plain[sched.kv_quant], budgets)],
+                               tally_div, params=params8)
+        print(f"  {label}: {same} of {len(prompts)} staggered burst streams equal to the "
+              f"plain engine's", flush=True)
+        if sched._paged:
+            wait_idle(sched)
+            sb.shutdown()
+            sched._page_alloc.check()
+            st = sched.page_stats
+            assert st["pages_in_use"] == st["prefix_resident_pages"], f"leaked pages: {st}"
+            assert sched.mixed_rounds > 0, f"{label}: no ragged mixed round ran"
+        else:
+            wait_settled(sched)
+            sb.shutdown()
+        del svc, sb, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    label = "q8_spec_paged_int8kv_fused"
+    sched = ContinuousBatchingScheduler(cfg, params8, stop_ids=stop_ids, device="cuda",
+                                        speculative_draft=SPEC_DRAFT, **dict(
+                                            SCHED, kv_quant="int8", fuse_matmuls=True))
+    with sched:
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = burst(sched, prompts, MAX_NEW)
+        wait_settled(sched)
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        stats = wait_idle(sched)
+    want = dict.fromkeys(LAUNCHES, 0)
+    expect_spec(want, sched, sched.rounds_issued, sched.prefill_forwards)
+    tpr = spec_report(label, sched.speculation_stats, outs)
+    same = compare_streams(torch, sched, label, prompts, outs, plain["int8"], tally_div,
+                           params=params8)
+    print(f"  {label}: {sched.rounds_issued} verify rounds, {tpr} tokens a round; {same} of "
+          f"{len(prompts)} streams equal to the plain engine's; pages {stats}; launches "
+          f"{launches[label]} expected {want}", flush=True)
+    assert launches[label] == want, f"{label}: launch counts {launches[label]} != {want}"
+    sched._page_alloc.check()
+    st = sched.page_stats
+    assert st["pages_in_use"] == st["prefix_resident_pages"], f"leaked pages: {st}"
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# Phase 14 (a): the int8 matmul at every weight shape the int8 paths give
+# it: (model, name, layout, IN, OUT). io weights are [IN, OUT]; the unembed
+# ("vd") reads the [V, D] table as it is stored (OUT = V).
+INT8_SHAPES = [("7b", "wq/wk/wv/wo", "io", 4096, 4096), ("7b", "wg/wu", "io", 4096, 11008),
+               ("7b", "wd", "io", 11008, 4096), ("7b", "wqkv", "io", 4096, 3 * 4096),
+               ("7b", "wgu", "io", 4096, 2 * 11008), ("7b", "unembed", "vd", 4096, 32000),
+               ("3b", "wq/wo", "io", 3072, 3072), ("3b", "wk/wv", "io", 3072, 1024),
+               ("3b", "wg/wu", "io", 3072, 8192), ("3b", "wd", "io", 8192, 3072),
+               ("3b", "wkv", "io", 3072, 2 * 1024), ("3b", "wgu", "io", 3072, 2 * 8192),
+               ("3b", "unembed", "vd", 3072, 128256)]
+INT8_ROWS = (1, 3, 4, 8, 9, 72, 384, 1024)
+# The small f32 case: (name, layout, IN, OUT, rows).
+INT8_F32 = [("wq f32", "io", 4096, 4096, (1, 9)), ("unembed f32", "vd", 4096, 32000, (3,))]
+# int8 matmul vs plain: bf16 block outputs within one bf16 ulp of the plain
+# value, element by element (`bf16_ulps`); f32 logits and f32 outputs
+# within these fractions of max |plain| (only the order of the f32 sums
+# differs: the products of bf16 or f32 x and int8 weights are exact in
+# f32 for bf16 x, and the scale multiplies the sum in both).
+INT8_LOGIT_TOL = 1e-4
+INT8_F32_TOL = 1e-5
+# Phase 14 (b): row 8 at the fused trees' stacked widths, (model, name, IN,
+# C, OUT), and the rows it is held at.
+INT4_STACKED = [("7b", "wqkv", 4096, 3, 4096), ("7b", "wgu", 4096, 2, 11008),
+                ("3b", "wkv", 3072, 2, 1024), ("3b", "wgu", 3072, 2, 8192)]
+INT4_STACKED_ROWS = (1, 8, 72, 384)
+
+
+def bf16_ulps(out, ref):
+    """The largest |out - ref| in units of ref's bf16 ulp, element by
+    element; an element's ulp is floored at 2**-8 of the ulp of the largest
+    |ref| (an output that cancels to near zero carries the f32 sum order's
+    error, ~1e-6 of the largest, which is more than its own ulp)."""
+    import torch
+
+    r = ref.float()
+    top = r.abs().max().clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    floor = torch.exp2(torch.floor(torch.log2(top)) - 15)
+    return float(((out.float() - r).abs() / torch.maximum(ulp, floor)).max())
+
+
+def int8_weight(torch, g, layout, n_in, n_out):
+    """A random int8 weight of `layout` and its scales, as
+    `quantize_params` / `quantize_unembed` give them for weights of
+    init_params' magnitude: codes over the whole range, scales
+    fan_in ** -0.5 / 127 times a factor in (0.5, 1)."""
+    shape = (n_in, n_out) if layout == "io" else (n_out, n_in)
+    q8 = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8, device="cuda")
+    s = (torch.rand((n_out,), generator=g, device="cuda") * 0.5 + 0.5) * n_in ** -0.5 / 127
+    return q8, s
+
+
+def check_int8(torch, mm8):
+    """Phase 14 (a): the int8 matmul kernel vs its plain version at every
+    shape of INT8_SHAPES and R in INT8_ROWS in bf16 (the GEMV up to 8 rows,
+    the tensor cores above), and the f32 cases; every call launched twice
+    and compared bit for bit. Returns the worst errors: bf16 block outputs
+    in ulps, logits and f32 outputs over max |plain|, absolute by dtype."""
+    worst = {"bf16_ulps": 0.0, "logits_rel": 0.0, "float32_rel": 0.0,
+             "abs": {"bfloat16": 0.0, "float32": 0.0}}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(m, n, lay, i, o, INT8_ROWS, torch.bfloat16) for m, n, lay, i, o in INT8_SHAPES]
+    cases += [("7b", n, lay, i, o, rows, torch.float32) for n, lay, i, o, rows in INT8_F32]
+    for model, name, layout, n_in, n_out, rows_list, dtype in cases:
+        q8, s = int8_weight(torch, g, layout, n_in, n_out)
+        for rows in rows_list:
+            x = torch.randn((rows, n_in), generator=g, device="cuda").to(dtype)
+            out = mm8.int8_matmul_cuda(x, q8, s, layout)
+            again = mm8.int8_matmul_cuda(x, q8, s, layout)
+            ref = mm8.int8_matmul_plain(x, q8, s, layout)
+            torch.cuda.synchronize()
+            dname = str(dtype).split(".")[1]
+            assert out.shape == ref.shape and out.dtype == ref.dtype
+            assert torch.isfinite(out).all(), f"int8/{model} {name} R={rows}: non-finite"
+            same = torch.equal(out, again)
+            err = float((out.float() - ref.float()).abs().max())
+            rel = err / float(ref.float().abs().max())
+            if layout == "vd":
+                key, val, tol = "logits_rel", rel, INT8_LOGIT_TOL
+            elif dtype == torch.float32:
+                key, val, tol = "float32_rel", rel, INT8_F32_TOL
+            else:
+                key, val, tol = "bf16_ulps", bf16_ulps(out, ref), 1.0
+            ok = val <= tol and same
+            route = mm8.int8_route(rows, dtype)
+            print(f"  int8    {model:4s} {name:12s} {layout} {route:4s} R={rows:5d} "
+                  f"{dname:8s} max_abs_err={err:.3e} {key}={val:.3e} tol={tol:.0e} "
+                  f"bit-identical twice: {same} {'ok' if ok else 'FAIL'}", flush=True)
+            assert ok, f"int8/{model} {name} R={rows} {dname}: {key} {val}, same {same}"
+            worst[key] = max(worst[key], val)
+            worst["abs"][dname] = max(worst["abs"][dname], err)
+        del q8, s
+    return worst
+
+
+def check_int4_stacked(torch, mm_mod):
+    """Phase 14 (b): row 8 at the fused trees' stacked widths (q4 [IN/2, C,
+    OUT], s4 [G, C, OUT], flattened by the wrapper) vs its plain version at
+    INT4_TOL, R in INT4_STACKED_ROWS. Returns the worst error over max
+    |out| in bf16."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_weight_int4,
+        tp_safe_group,
+    )
+
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for model, name, n_in, c, n_out in INT4_STACKED:
+        # Stacked as `fuse_blocks` stacks C projections' trees, on axis -2.
+        parts = [quantize_weight_int4(torch.randn((n_in, n_out), generator=g, device="cuda")
+                                      * n_in ** -0.5, tp_safe_group(n_in)) for _ in range(c)]
+        q4 = torch.stack([p["q4"] for p in parts], dim=-2)
+        s4 = torch.stack([p["s4"] for p in parts], dim=-2)
+        for rows in INT4_STACKED_ROWS:
+            x = torch.randn((rows, n_in), generator=g, device="cuda").bfloat16()
+            out = mm_mod.int4_matmul_cuda(x, q4, s4)
+            ref = mm_mod.int4_matmul_plain(x, q4, s4)
+            torch.cuda.synchronize()
+            assert out.shape == (rows, c * n_out) and torch.isfinite(out).all()
+            rel = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+            ok = rel <= INT4_TOL["bfloat16"]
+            print(f"  int4 stacked {model:4s} {name:5s} [{n_in // 2}, {c}, {n_out}] R={rows:5d} "
+                  f"rel={rel:.3e} tol={INT4_TOL['bfloat16']:.0e} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            assert ok, f"int4 stacked {model} {name} R={rows}: {rel}"
+            worst = max(worst, rel)
+    return worst
+
+
+INT8_TIME_ROWS = (1, 8, 72, 1024)
+INT8_HEADLINE = "7b_wd_R8"  # the kernels line's `ms`: 7B's wd at the 8 slots' decode  # decode (engine, 8 slots), verify (D = 8), prefill
+L2_FLUSH_BYTES = 256 << 20         # the weights one timing cycles through
+
+
+def time_int8(torch, mm8, mm_mod):
+    """Phase 14 (f): the int8 matmul at every shape of INT8_SHAPES and row
+    8 at INT4_STACKED, R in INT8_TIME_ROWS (bf16): kernel, plain, and
+    cuBLAS bf16 against the weight dequantized to bf16 in advance (the
+    yardstick only: it moves 2x the int8 bytes, and its weight is not the
+    int8 function's). Each call on its own copy of the weight, copies
+    cycled past L2 (at least 256 MB). Bound: x, the weight, its scales and
+    out once each over 3.35 TB/s, or 2 R IN OUT operations over 989
+    TFLOP/s (the products are bf16 x int8 in bf16 on the tensor cores)."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        dequantize_weight_int4,
+        quantize_weight_int4,
+        tp_safe_group,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {"int8": {}, "int4_stacked": {}}
+    for model, name, layout, n_in, n_out in INT8_SHAPES:
+        copies = max(2, min(32, -(-L2_FLUSH_BYTES // (n_in * n_out))))
+        ws = [int8_weight(torch, g, layout, n_in, n_out) for _ in range(copies)]
+        wb = [(q.float() * (s[None, :] if layout == "io" else s[:, None])).bfloat16()
+              for q, s in ws]
+        for rows in INT8_TIME_ROWS:
+            x = torch.randn((rows, n_in), generator=g, device="cuda").bfloat16()
+            ms = time_ms(torch, lambda i: mm8.int8_matmul_cuda(x, *ws[i % copies], layout),
+                         copies)
+            plain = time_ms(torch, lambda i: mm8.int8_matmul_plain(x, *ws[i % copies], layout),
+                            copies, reps=3)
+            if layout == "io":
+                lib = time_ms(torch, lambda i: torch.matmul(x, wb[i % copies]), copies)
+            else:
+                lib = time_ms(torch, lambda i: torch.mm(x, wb[i % copies].t(),
+                                                        out_dtype=torch.float32), copies)
+            nbytes = (x.numel() * 2 + n_in * n_out + n_out * 4
+                      + rows * n_out * (4 if layout == "vd" else 2))
+            b_ms, b_by = bound(nbytes, 2 * rows * n_in * n_out)
+            key = f"{model}_{name.split('/')[0]}_R{rows}"
+            out["int8"][key] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                                    bound_by=b_by, route=mm8.int8_route(rows, x.dtype),
+                                    shape=dict(R=rows, IN=n_in, OUT=n_out, layout=layout,
+                                               dtype="bfloat16"))
+            print(f"  int8 {key:22s} {ms:.4f} ms (bound {b_ms:.4f} {b_by}, cuBLAS bf16 "
+                  f"{lib:.4f}, plain {plain:.4f})", flush=True)
+        del ws, wb
+    for model, name, n_in, c, n_out in INT4_STACKED:
+        copies = max(2, min(32, -(-L2_FLUSH_BYTES // (n_in * c * n_out // 2))))
+        group = tp_safe_group(n_in)
+        ws = []
+        for _ in range(copies):
+            w = quantize_weight_int4(torch.randn((n_in, c * n_out), generator=g,
+                                                 device="cuda") * n_in ** -0.5, group)
+            ws.append((w["q4"].view(n_in // 2, c, n_out), w["s4"].view(-1, c, n_out)))
+        wb = [dequantize_weight_int4({"q4": q.reshape(n_in // 2, -1),
+                                      "s4": s.reshape(s.shape[0], -1)}, torch.bfloat16)
+              for q, s in ws]
+        for rows in INT8_TIME_ROWS:
+            x = torch.randn((rows, n_in), generator=g, device="cuda").bfloat16()
+            ms = time_ms(torch, lambda i: mm_mod.int4_matmul_cuda(x, *ws[i % copies]), copies)
+            plain = time_ms(torch, lambda i: mm_mod.int4_matmul_plain(x, *ws[i % copies]),
+                            copies, reps=3)
+            lib = time_ms(torch, lambda i: torch.matmul(x, wb[i % copies]), copies)
+            nbytes = (x.numel() * 2 + n_in // 2 * c * n_out + ws[0][1].numel() * 4
+                      + rows * c * n_out * 2)
+            b_ms, b_by = bound(nbytes, 2 * rows * n_in * c * n_out)
+            key = f"{model}_{name}_R{rows}"
+            out["int4_stacked"][key] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                route=mm_mod.int4_route(rows, x.dtype),
+                shape=dict(R=rows, IN=n_in, C=c, OUT=n_out, group=group, dtype="bfloat16"))
+            print(f"  int4 stacked {key:16s} {ms:.4f} ms (bound {b_ms:.4f} {b_by}, cuBLAS "
+                  f"bf16 {lib:.4f}, plain {plain:.4f})", flush=True)
+        del ws, wb
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one 7B engine request and a burst of 7B "
-                         "scheduler requests with torch.profiler")
+                    help="also trace one 7B engine request, a burst of 7B "
+                         "scheduler requests and a batch on the bf16 and int8 7B "
+                         "engines with torch.profiler")
     ap.add_argument("--timing-only", action="store_true",
                     help="build and run the timing phase alone (no checks; "
                          "prints the times and no ok line)")
@@ -5377,6 +5930,10 @@ def main() -> int:
                          "the verify shapes against their plain versions, the verify "
                          "cost anchor, phase 13 on the 7B weights and the verify-shape "
                          "timing (prints their checks and no ok line)")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="build and run phase 14's kernel parts alone: the int8 matmul "
+                         "and row 8 at the stacked widths against their plain versions, "
+                         "then their timing (prints their checks and no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -5480,6 +6037,19 @@ def main() -> int:
                           "verify_timing": verify, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int8mm as mm8
+
+    if args.int8_only:
+        phase("int8 matmul and stacked int4 vs plain (phase 14 (a), (b))")
+        int8_err = check_int8(torch, mm8)
+        stacked_err = check_int4_stacked(torch, mm_mod)
+        phase("int8 and stacked int4 timing (phase 14 (f))")
+        timed8 = time_int8(torch, mm8, mm_mod)
+        phase(None)
+        print(json.dumps({"int8_errors": int8_err, "int4_stacked_rel": stacked_err,
+                          "int8_timing": timed8, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.sweep:
         phase("split sweep")
         swept = sweep(torch, attn_mod, pa_mod, pw_mod, DUCKDB_NSQL_7B)
@@ -5495,6 +6065,8 @@ def main() -> int:
                 **check_paged_quantized(torch, pa_mod),
                 "write_q": check_write_quantized(torch, pw_mod)}
     int4_err = check_int4(torch, mm_mod)
+    int8_err = check_int8(torch, mm8)
+    stacked_err = check_int4_stacked(torch, mm_mod)
     view_err = check_int8_view(torch, pa_mod)
     errors_q["paged_q_window"]["bfloat16"] = max(errors_q["paged_q_window"]["bfloat16"],
                                                  view_err[0])
@@ -5554,6 +6126,19 @@ def main() -> int:
 
     spec_launches, spec_tprs, spec_div, spec_calib = speculative_paths(torch, engines,
                                                                        tally, smi)
+
+    phase("int8 weights and fused trees (phase 14 (c)): the 7B and 3B engines")
+    q8_div = []
+    q8_launches, params8 = int8_engines(torch, engines, smi, tally, q8_div, args.profile)
+    constrained_launches["constrained_q8_engine_fused"] = q8_launches.pop(
+        "constrained_q8_engine_fused")
+    phase("int8 weights and fused trees (phase 14 (d)): both schedulers, ragged, "
+          "speculative")
+    eng7 = engines["duckdb-nsql"]
+    q8_launches.update(int8_schedulers(torch, eng7.cfg, params8, eng7.stop_ids, q8_div))
+    del params8
+    gc.collect()
+    torch.cuda.empty_cache()
     tally.summary()
 
     ckpt_launches = checkpoints(torch, engines)
@@ -5563,6 +6148,8 @@ def main() -> int:
     del engines
     torch.cuda.empty_cache()
     timed = timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
+    phase("int8 and stacked int4 timing (phase 14 (f))")
+    timed8 = time_int8(torch, mm8, mm_mod)
     phase("timing at the verify shapes, verify cost anchor")
     verify = time_verify(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
     anchor, readings = verify_cost_anchor(torch, smi)
@@ -5573,7 +6160,11 @@ def main() -> int:
         "write": write_err,
         **errors_q,
         "int4": {d: int4_err[d][0] for d in TOL},
+        "int8": int8_err["abs"],
     }
+    timed["int8"] = dict(timed8["int8"][INT8_HEADLINE],
+                         by_shape=timed8["int8"])
+    timed["int4"]["by_shape_stacked"] = timed8["int4_stacked"]
     names = {"prefill": "flash_gqa_attention_prefill",
              "decode": "flash_gqa_attention_decode",
              "paged": "ragged_paged_attention",
@@ -5582,14 +6173,16 @@ def main() -> int:
              "decode_q": "flash_gqa_attention_quantized",
              "paged_q": "ragged_paged_attention_quantized",
              "paged_q_window": "ragged_paged_attention_quantized_window",
-             "write_q": "fused_page_write_quantized", "int4": "int4_matmul"}
+             "write_q": "fused_page_write_quantized", "int4": "int4_matmul",
+             "int8": "int8_matmul"}
     counters = {"prefill": "flash_gqa_prefill", "decode": "flash_gqa_decode",
                 "paged": "ragged_paged_attention", "paged_window": "ragged_paged_window",
                 "write": "fused_page_write",
                 "decode_q": "flash_gqa_decode_quantized",
                 "paged_q": "ragged_paged_attention_quantized",
                 "paged_q_window": "ragged_paged_window_quantized",
-                "write_q": "fused_page_write_quantized", "int4": "int4_matmul"}
+                "write_q": "fused_page_write_quantized", "int4": "int4_matmul",
+                "int8": "int8_matmul"}
     paths = {"engine": launches, "scheduler": sched_launches,
              "mixed_scheduler": mixed_launches["bf16"],
              "mixed_scheduler_int8": mixed_launches["int8"],
@@ -5600,12 +6193,15 @@ def main() -> int:
              "quantized_engine": q_launches["engine"],
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
-             **ckpt_launches, **constrained_launches, **spec_launches}
+             **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
                  "write": {"bfloat16": 0.0, "float32": 0.0},
                  "write_q": {"bfloat16": 0.0, "float32": 0.0},
-                 "int4": {f"{d}_over_max_abs_out": v for d, v in INT4_TOL.items()}}
+                 "int4": {f"{d}_over_max_abs_out": v for d, v in INT4_TOL.items()},
+                 "int8": {"bfloat16_ulps_of_plain": 1.0,
+                          "float32_logits_over_max_abs_out": INT8_LOGIT_TOL,
+                          "float32_over_max_abs_out": INT8_F32_TOL}}
     for launch in names:  # the constrained paths ran every kernel of the table
         assert any(c[counters[launch]] for c in (*constrained_launches.values(),
                                                  overcommit_launches)), \
@@ -5637,6 +6233,9 @@ def main() -> int:
                 entry[k] = tm[k]
         if launch == "int4":
             entry["max_rel_err_by_dtype"] = {d: int4_err[d][1] for d in TOL}
+            entry["stacked_max_rel_err"] = stacked_err
+        if launch == "int8":
+            entry["max_err"] = {k: v for k, v in int8_err.items() if k != "abs"}
         if "by_shape" in tm:
             entry["by_shape"] = tm["by_shape"]
         if launch in verify:
@@ -5651,6 +6250,9 @@ def main() -> int:
     phase(None)
     print(f"  phase seconds: {json.dumps(_PHASE['seconds'])}", flush=True)
 
+    print(json.dumps({"int8_weights": {"divergences": q8_div,
+                                       "drift": {k: v for k, v in _DRIFT.items()
+                                                 if k.startswith("q8")}}}))
     print(json.dumps({"speculative": {"verify_cost_anchor_d8": anchor,
                                       "anchor_readings": readings,
                                       "tokens_per_round": spec_tprs,

@@ -29,13 +29,18 @@ verified a round) on both serving paths, schedulers and engines; int8 KV
 with it on an engine's contiguous cache is refused, as in the JAX entry
 point.
 
+`--int8` (int8 block weights, the int8 matmul kernel) or `--int4` (int4
+block weights), and `--int8-unembed` (int8 embed/unembed tables, composing
+with either) quantize a checkpoint's tree after it is loaded, on the
+checkpoint backends, as the JAX entry point does; `--int8 --int4` exits.
+
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
 every option it cannot honor yet, instead of ignoring it: `--dp`/`--sp`/
-`--tp` > 1 (A13), `--int8` and `--int8-unembed`
-(A10), and the environment knobs of `UNPORTED_KNOBS`: the fleet, model-pool
-and QoS knobs (A11), the SLO, tracing, request-log and bench-seed knobs
-(A12), the profile hook's (A7.7) and prefix telemetry's (A7.8). The
+`--tp` > 1 (A13), and the environment knobs of `UNPORTED_KNOBS`: the
+fleet, model-pool and QoS knobs (A11), the SLO, tracing, request-log and
+bench-seed knobs (A12), the profile hook's (A7.7) and prefix telemetry's
+(A7.8). The
 schedulers honor admission control (`LSOT_MAX_QUEUE_DEPTH`: a full queue
 sheds 429 with a Retry-After from the service-time estimate) and, over
 the paged layout, the page-pressure knobs (`LSOT_KV_OVERCOMMIT`,
@@ -128,15 +133,9 @@ def _spill_path(cfg: AppConfig, tag: str) -> Optional[str]:
 
 def refuse_unported(args, cfg: AppConfig) -> None:
     """Raise on the first option or knob the port cannot honor."""
-    flags = [
-        (args.dp > 1 or args.sp > 1 or args.tp > 1, "--dp/--sp/--tp > 1",
-         "A13 (parallelism)"),
-        (args.int8, "--int8", "A10 (int8 weights)"),
-        (args.int8_unembed, "--int8-unembed", "A10 (int8 embeddings)"),
-    ]
-    for on, flag, item in flags:
-        if on:
-            raise NotImplementedError(f"{flag} is not ported: ROADMAP {item}")
+    if args.dp > 1 or args.sp > 1 or args.tp > 1:
+        raise NotImplementedError("--dp/--sp/--tp > 1 is not ported: ROADMAP A13 "
+                                  "(parallelism)")
     defaults = AppConfig()
     for name, item in UNPORTED_KNOBS.items():
         if getattr(cfg, name) != getattr(defaults, name):
@@ -280,7 +279,8 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
             common = dict(
                 max_new_tokens=max_new_tokens, add_bos=add_bos,
                 num_slots=args.slots, kv_quant=kv_quant,
-                kv_layout=args.kv_layout, quantize_int4=args.int4,
+                kv_layout=args.kv_layout, quantize_int8=args.int8,
+                quantize_int4=args.int4, quantize_unembed8=args.int8_unembed,
                 max_queue_depth=cfg.max_queue_depth,
                 kv_overcommit=cfg.kv_overcommit, kv_spill=cfg.kv_spill,
                 kv_watermark_low=cfg.kv_watermark_low,
@@ -300,7 +300,9 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
         # Deadline-clamp seconds-a-token seed: LSOT_STOK_SEED, else unseeded.
         load = EngineBackend.from_gguf if gguf else EngineBackend.from_hf_checkpoint
         return load(path, tok, max_new_tokens=max_new_tokens, add_bos=add_bos,
-                    kv_quant=kv_quant, quantize_int4=args.int4, device=device,
+                    kv_quant=kv_quant, quantize_int8=args.int8,
+                    quantize_int4=args.int4,
+                    quantize_unembed8=args.int8_unembed, device=device,
                     speculative_draft=args.speculative,
                     sec_per_tok_seed=cfg.stok_seed or None)
 
@@ -366,11 +368,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "pool (0 = slots x max_seq pages, the contiguous layout's "
                          "footprint)")
     ap.add_argument("--int8-unembed", action="store_true",
-                    help="raises: int8 embeddings are ROADMAP A10")
+                    help="per-row int8 embedding/unembedding tables — the "
+                         "largest remaining bf16 decode stream after block "
+                         "quantization (composes with --int8/--int4)")
     ap.add_argument("--int4", action="store_true",
                     help="4-bit block weights served by the int4 matmul kernel")
     ap.add_argument("--int8", action="store_true",
-                    help="raises: int8 weights are ROADMAP A10")
+                    help="int8 weight-only quantization (HF checkpoints)")
     ap.add_argument("--scheduler", action=argparse.BooleanOptionalAction, default=True,
                     help="continuous-batching scheduler backends (default on; "
                          "--no-scheduler serves lock-serialised engines)")
@@ -395,6 +399,8 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
     """The service the flags ask for, after refusing what the port cannot
     honor."""
     refuse_unported(args, cfg)
+    if args.int4 and args.int8:
+        sys.exit("pick one of --int8 / --int4")
     refuse_int8_speculation(args, cfg)
     device = "cpu" if args.cpu else None
     if args.backend == "fake":

@@ -49,7 +49,7 @@ import torch
 
 from .. import resolve_device
 from ..models.configs import LlamaConfig
-from ..models.llama import _UNROLL_MAX_T, Params, forward
+from ..models.llama import _UNROLL_MAX_T, Params, forward, fuse_blocks
 from ..ops.quant import quantize_cache
 from ..ops.sampling import (
     SamplingParams,
@@ -77,7 +77,9 @@ class InferenceEngine:
     plus the decode steps or verify rounds), the padded prompt length and
     the batch. `speculative_draft` > 0 verifies that many prompt-lookup
     drafts a round (`speculative_ngram`-token lookups); `last_spec_rounds`
-    is then the last call's number of verify rounds (None without)."""
+    is then the last call's number of verify rounds (None without).
+    `fuse_matmuls=True` runs the fused tree (`models/llama.fuse_blocks`):
+    one matmul for Q|K|V (MHA) or K|V (GQA) and one for gate|up."""
 
     def __init__(
         self,
@@ -92,6 +94,7 @@ class InferenceEngine:
         kv_quant: Optional[str] = None,
         speculative_draft: int = 0,
         speculative_ngram: int = NGRAM,
+        fuse_matmuls: bool = False,
     ):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
@@ -125,6 +128,10 @@ class InferenceEngine:
                 f"params are on {params['final_norm'].device}, engine on "
                 f"{self.device}"
             )
+        if fuse_matmuls:
+            # One stacked matmul for the projections sharing an input
+            # (models/llama.fuse_blocks); `self.params` is the fused tree.
+            params = fuse_blocks(params)
         self.params = params
         self.stop_ids = tuple(stop_ids) if stop_ids is not None else cfg.stop_ids
         # A bucket as large as the whole context would leave no decode room

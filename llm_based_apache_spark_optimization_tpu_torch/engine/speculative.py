@@ -75,12 +75,14 @@ def _param_count(cfg) -> int:
 
 
 def infer_weight_bits(params) -> int:
-    """Weight bits a parameter: 4 for an int4 tree (q4 block weights),
-    else the width of the params dtype."""
+    """Weight bits a parameter: 4 for an int4 tree (q4 block weights), 8
+    for an int8 tree (q8 block weights), else the width of the params
+    dtype."""
     blocks = params.get("blocks", params)
-    if isinstance(blocks, dict) and any(
-            isinstance(v, dict) and "q4" in v for v in blocks.values()):
-        return 4
+    if isinstance(blocks, dict):
+        for key, bits in (("q4", 4), ("q8", 8)):
+            if any(isinstance(v, dict) and key in v for v in blocks.values()):
+                return bits
     return params["final_norm"].element_size() * 8
 
 

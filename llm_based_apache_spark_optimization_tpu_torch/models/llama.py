@@ -10,12 +10,22 @@ onto the other.
 - Matmuls run in the params dtype (bf16 on the card); norms, rope, softmax
   and the SiLU gate run in f32; logits come back in f32.
 - Every block matmul goes through `ops.quant.mm`: a plain `@` for a weight
-  tensor, the int4 matmul kernel for a 4-bit tree {"q4", "s4"}
-  (`quantize_params_int4`; the params dtype is then that of the norms and
-  embeddings).
+  tensor, the int8 matmul kernel for an int8 tree {"q8", "s"}
+  (`quantize_params`, `init_params_quantized`), the int4 matmul kernel for
+  a 4-bit tree {"q4", "s4"} (`quantize_params_int4`); the params dtype is
+  then that of the norms and embeddings.
+- Fused trees (`fuse_blocks`, the engines' `fuse_matmuls=True`) stack
+  projections that share an input on a new axis -2: "wqkv" [L, D, 3, O]
+  for MHA, "wkv" [L, D, 2, KO] beside its own "wq" for GQA, and "wgu"
+  [L, D, 2, F] always, in bf16, q8 or q4; `ops.quant.mm_stacked` runs each
+  as one matmul over its contiguous (C, O) tail, every forward branch below
+  included. Each output column is the same dot product as unfused.
 - The unembed accumulates in f32: for bf16 on CUDA it is one bf16 matmul
   with an f32 output (`torch.mm(..., out_dtype=torch.float32)`), elsewhere
-  `x.float() @ w.float().T`.
+  `x.float() @ w.float().T`. An int8 table {"q8": [V, D], "s": [V]}
+  (`ops.quant.quantize_unembed`) unembeds through the int8 matmul kernel's
+  [V, D] layout (f32 logits, the scale after the sum) and embeds by
+  dequantizing only the looked-up rows into `final_norm`'s dtype.
 - The KV cache is `{"k", "v"}: [L, B, K, S, H]`, updated in place: each
   layer writes its fresh [B, T, K, H] sliver at per-row offsets of its own
   layer, and attention reads that layer's [B, K, S, H] view. Nothing
@@ -71,13 +81,14 @@ from .. import resolve_device
 from ..ops.kernels.dispatch import (
     attention,
     attention_quantized,
+    int8_mm,
     page_write,
     page_write_quantized,
     paged_attention,
     paged_attention_quantized,
 )
 from ..ops.norm import rms_norm
-from ..ops.quant import mm, quantize_kv
+from ..ops.quant import is_q4tensor, is_qtensor, mm, mm_stacked, quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 from .configs import LlamaConfig
 
@@ -128,6 +139,40 @@ def init_params(
     if not cfg.tie_embeddings:
         params["lm_head"] = w((cfg.vocab_size, d), d)
     return params
+
+
+def fuse_blocks(params: Params) -> Params:
+    """A params variant with the projections that share an input fused:
+    wq|wk|wv -> "wqkv" for MHA (equal out dims), wk|wv -> "wkv" for GQA
+    (wq, wider, stays its own matmul), and wg|wu -> "wgu". Each fused weight
+    stacks its projections on a new axis -2, [L, D, C, O], as the JAX
+    package's does: a bf16 tensor, a q8 tree (s [L, C, O]) or a q4 tree (q4
+    [L, D/2, C, O], s4 [L, G, C, O]). One wider matmul replaces two or
+    three; the tree takes new memory for the stacked copies, so drop the
+    unfused tree once it is fused."""
+    blocks = dict(params["blocks"])
+
+    def out_dim(w):
+        if is_qtensor(w):
+            return w["q8"].shape[-1]
+        if is_q4tensor(w):
+            return w["q4"].shape[-1]
+        return w.shape[-1]
+
+    def stack(names):
+        ws = [blocks.pop(n) for n in names]
+        if isinstance(ws[0], dict):
+            return {k: torch.stack([w[k] for w in ws], dim=-2) for k in ws[0]}
+        return torch.stack(ws, dim=-2)
+
+    if out_dim(blocks["wq"]) == out_dim(blocks["wk"]):  # MHA: one 3-stack
+        blocks["wqkv"] = stack(("wq", "wk", "wv"))
+    else:  # GQA: K and V share a shape, Q stays its own matmul
+        blocks["wkv"] = stack(("wk", "wv"))
+    blocks["wgu"] = stack(("wg", "wu"))
+    out = dict(params)
+    out["blocks"] = blocks
+    return out
 
 
 def _write_cache(layer_cache: torch.Tensor, new: torch.Tensor,
@@ -200,15 +245,31 @@ def _page_view(cache: Dict[str, torch.Tensor], name: str, layer: int,
 
 
 def _at(w, layer: int):
-    """Layer `layer` of a stacked weight: a tensor, or a q4 tree's arrays."""
+    """Layer `layer` of a stacked weight: a tensor, or a q8 or q4 tree's
+    arrays."""
     return {k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
 
 
-def _unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[B, T, D] x [V, D] -> [B, T, V] f32 logits, accumulated in f32."""
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """[B, T] token ids -> [B, T, D]: the table's rows; an int8 table's
+    rows dequantized in f32 (value x the row's scale), then cast to
+    `final_norm`'s dtype."""
+    emb = params["embed"]
+    if is_qtensor(emb):
+        idx = tokens.long()
+        rows = emb["q8"][idx].float() * emb["s"][idx][..., None]
+        return rows.to(params["final_norm"].dtype)
+    return emb[tokens.long()]
+
+
+def _unembed(x: torch.Tensor, w) -> torch.Tensor:
+    """[B, T, D] x [V, D] -> [B, T, V] f32 logits, accumulated in f32; an
+    int8 table through the int8 matmul kernel's [V, D] layout."""
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
-    if x.is_cuda and x.dtype == torch.bfloat16:
+    if is_qtensor(w):
+        logits = int8_mm(x2, w["q8"], w["s"], "vd")
+    elif x.is_cuda and x.dtype == torch.bfloat16:
         logits = torch.mm(x2, w.t(), out_dtype=torch.float32)
     else:
         logits = x2.float() @ w.float().t()
@@ -270,7 +331,7 @@ def forward(
             "(engine/generate.py), or passes `span` for the paged chunk "
             "path (serve/scheduler.py)."
         )
-    x = params["embed"][tokens.long()]  # [B, T, D]
+    x = _embed(params, tokens)  # [B, T, D]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     start = positions[:, 0]
@@ -284,9 +345,18 @@ def forward(
 
     for l in range(cfg.num_layers):
         h = rms_norm(x, blocks["ln_attn"][l], cfg.norm_eps)
-        q = mm(h, _at(blocks["wq"], l)).reshape(b, t, nh, hd)
-        k = mm(h, _at(blocks["wk"], l)).reshape(b, t, kh, hd)
-        v = mm(h, _at(blocks["wv"], l)).reshape(b, t, kh, hd)
+        if "wqkv" in blocks:  # fused MHA: one [D, 3, O] matmul
+            fused = mm_stacked(h, _at(blocks["wqkv"], l))
+            q, k, v = (fused[..., i, :] for i in range(3))
+        else:
+            q = mm(h, _at(blocks["wq"], l))
+            if "wkv" in blocks:  # fused GQA: Q alone, K|V one [D, 2, KO] matmul
+                kv = mm_stacked(h, _at(blocks["wkv"], l))
+                k, v = kv[..., 0, :], kv[..., 1, :]
+            else:
+                k, v = mm(h, _at(blocks["wk"], l)), mm(h, _at(blocks["wv"], l))
+        q, k = q.reshape(b, t, nh, hd), k.reshape(b, t, kh, hd)
+        v = v.reshape(b, t, kh, hd)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         if chunk:
             views = []
@@ -355,8 +425,14 @@ def forward(
                              kv_lens)
         x = x + mm(attn.reshape(b, t, nh * hd), _at(blocks["wo"], l))
         h2 = rms_norm(x, blocks["ln_mlp"][l], cfg.norm_eps)
-        gate = F.silu(mm(h2, _at(blocks["wg"], l)).float()).to(x.dtype)
-        x = x + mm(gate * mm(h2, _at(blocks["wu"], l)), _at(blocks["wd"], l))
+        if "wgu" in blocks:  # fused: gate|up one [D, 2, F] matmul
+            gu = mm_stacked(h2, _at(blocks["wgu"], l))
+            g_out, u_out = gu[..., 0, :], gu[..., 1, :]
+        else:
+            g_out = mm(h2, _at(blocks["wg"], l))
+            u_out = mm(h2, _at(blocks["wu"], l))
+        gate = F.silu(g_out.float()).to(x.dtype)
+        x = x + mm(gate * u_out, _at(blocks["wd"], l))
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logit_indices is not None:

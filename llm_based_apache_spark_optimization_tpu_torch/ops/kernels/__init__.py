@@ -11,6 +11,7 @@ from .attention import (  # noqa: F401
 )
 from .dispatch import set_attention_impl  # noqa: F401
 from .int4mm import int4_matmul, int4_matmul_plain  # noqa: F401
+from .int8mm import int8_matmul, int8_matmul_plain  # noqa: F401
 from .launches import LAUNCHES, reset_launches  # noqa: F401
 from .paged_attention import (  # noqa: F401
     gather_page_scales,

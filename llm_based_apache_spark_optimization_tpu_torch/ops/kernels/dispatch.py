@@ -1,5 +1,5 @@
 """Kernel implementation selection for the model's attention, page writes
-and int4 matmuls.
+and int4 and int8 matmuls.
 
 Modes:
 - "auto"  (default) — the hand-written CUDA kernel for a CUDA tensor, its
@@ -22,6 +22,7 @@ from .attention import (
     flash_gqa_attention_quantized_plain,
 )
 from .int4mm import int4_matmul, int4_matmul_plain
+from .int8mm import int8_matmul, int8_matmul_plain
 from .paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_plain,
@@ -142,3 +143,9 @@ def page_write_quantized(
 def int4_mm(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
     fn = int4_matmul_plain if _mode == "plain" else int4_matmul
     return fn(x, q4, s4)
+
+
+def int8_mm(x: torch.Tensor, q8: torch.Tensor, s: torch.Tensor,
+            layout: str = "io") -> torch.Tensor:
+    fn = int8_matmul_plain if _mode == "plain" else int8_matmul
+    return fn(x, q8, s, layout)

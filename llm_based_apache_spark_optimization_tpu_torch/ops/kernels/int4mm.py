@@ -10,6 +10,11 @@ tensor-core decode kernel, bf16 above 8 rows (prefill) the tensor-core
 prefill kernel, f32 the scalar rows kernel. Every call is one launch: a
 split of the contraction axis is added up inside a thread-block cluster.
 
+A stacked fused weight (`models/llama.fuse_blocks`), q4 [IN/2, C, OUT] and
+s4 [G, C, OUT], is taken as the 2-D weight of C * OUT columns over its
+contiguous (C, OUT) tail, as the JAX kernel takes it; the result is [R, C *
+OUT].
+
 A tensor on the CPU goes to `int4_matmul_plain`; a CUDA tensor launches the
 kernel or raises. There is no fallback between the two.
 """
@@ -33,10 +38,22 @@ _MAX_SPLITS = 8          # blocks of a portable thread-block cluster
 _MIN_SPLIT_ROWS = 64    # packed rows one split covers at least (a decode stage)
 
 
+def flatten_stacked(q4: torch.Tensor, s4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A stacked weight's q4 [IN/2, C, OUT] and s4 [G, C, OUT] as 2-D
+    [IN/2, C * OUT] and [G, C * OUT] (views: the tail is contiguous); 2-D
+    ones as they are."""
+    if q4.dim() == 3:
+        q4 = q4.reshape(q4.shape[0], -1)
+    if s4.dim() == 3:
+        s4 = s4.reshape(s4.shape[0], -1)
+    return q4, s4
+
+
 def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
     """The kernel's contract in eager PyTorch: the weight dequantized to x's
     dtype (`dequantize_weight_int4`), then an f32 product; [R, OUT] in x's
     dtype."""
+    q4, s4 = flatten_stacked(q4, s4)
     w = dequantize_weight_int4({"q4": q4, "s4": s4}, x.dtype)
     return (x.float() @ w.float()).to(x.dtype)
 
@@ -74,6 +91,7 @@ def split_plan(rows: int, n_in: int, n_out: int, blocks: int) -> Tuple[int, int]
 
 def int4_matmul_cuda(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel; raises on anything it does not take."""
+    q4, s4 = flatten_stacked(q4, s4)
     for name, t in (("q4", q4), ("s4", s4)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -115,8 +133,9 @@ def int4_matmul_cuda(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> tor
 
 
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
-    """x [R, IN] @ the int4 weight (q4, s4), [R, OUT] in x's dtype. A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel."""
+    """x [R, IN] @ the int4 weight (q4, s4), [R, OUT] in x's dtype (a
+    stacked weight: [R, C * OUT]). A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q4, s4)
     if x.device.type != "cuda":

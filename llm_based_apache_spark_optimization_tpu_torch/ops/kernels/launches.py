@@ -29,6 +29,7 @@ LAUNCHES: Dict[str, int] = {
     "ragged_paged_window_quantized": 0,
     "fused_page_write_quantized": 0,
     "int4_matmul": 0,
+    "int8_matmul": 0,
 }
 
 

@@ -1,38 +1,56 @@
-"""Quantized storage: int4 block weights and the int8 KV cache.
+"""Quantized storage: int8 and int4 block weights, int8 embed/unembed
+tables and the int8 KV cache.
 
-Counterpart of the JAX package's `ops/quant.py` for the formats the
-quantized serving configuration uses (4-bit weights, int8 KV), the way the
-reference's users run these models: Q4 GGUF blobs with a q8 KV cache.
+Counterpart of the JAX package's `ops/quant.py`: the formats the quantized
+serving configurations use, the way the reference's users run these models
+(Q4/Q8 GGUF blobs with a q8 KV cache).
 
+- int8 weights ("q8" trees): symmetric absmax over the contraction axis,
+  one scale per out channel, stored as {"q8": int8 [..., in, out], "s": f32
+  [..., out]} (`quantize_weight`, `quantize_params`). The matmul feeds the
+  raw int8 weight to the products and applies the scale after the f32 sum:
+  the int8 matmul kernel (`ops/kernels/int8mm.py`); no bf16 copy of a
+  weight is ever made on the card.
 - int4 weights: symmetric absmax over each (contraction group, out channel),
   stored as {"q4": uint8 [..., in/2, out] packed nibbles, "s4": f32
   [..., in/group, out]}. Byte b of q4 packs contraction rows 2b (low
-  nibble) and 2b+1 (high), biased by +8 (value = nibble - 8). Only the seven
-  block matmuls quantize; embeddings, unembedding and norms stay in the
-  compute dtype.
+  nibble) and 2b+1 (high), biased by +8 (value = nibble - 8).
+- Only the seven block matmuls quantize; `quantize_unembed` also stores the
+  embed/unembed tables in int8 with one scale per vocab row, {"q8": int8
+  [V, D], "s": f32 [V]} (a tied tree keeps one table). The forward gathers
+  and dequantizes only the looked-up rows and unembeds through the int8
+  kernel's [V, D] layout, f32 logits.
+- `init_params_quantized` samples an int8 or int4 tree at its final size on
+  the device, with JAX's structure and constant scales.
+- The fused matmul trees (`models/llama.fuse_blocks`) stack projections on
+  a new axis -2: a weight [D, C, O], q8 with s [C, O], q4 with q4 [D/2, C,
+  O] and s4 [G, C, O]; `mm_stacked` runs each as one matmul over the
+  contiguous (C, O) tail.
 - int8 KV: one f32 scale per cache slot (absmax over the head dim), int8
   values. `quantize_cache` gives the contiguous cache layout
   {"k8", "ks", "v8", "vs"}.
-- `mm(x, w)`: a plain `@` for a bf16/f32 weight, the int4 matmul kernel
-  (`ops/kernels/int4mm.py`) for a q4 tree.
+- `mm(x, w)`: a plain `@` for a bf16/f32 weight, the int8 matmul kernel for
+  a q8 tree, the int4 matmul kernel (`ops/kernels/int4mm.py`) for a q4
+  tree; on the CPU the kernels' plain versions.
 
 Rounding is `torch.round` (half to even, as `jnp.round`) and every division
 is a true tensor-by-tensor division (PyTorch turns a division by a Python
 scalar into a product with its reciprocal on the card, which can differ in
 the last bit), so the quantizers are bit-exact against the JAX ones and
 against the quantizing kernel.
-
-Not ported yet (ROADMAP A10): int8 weights ("q8" trees), `quantize_unembed`,
-`init_params_quantized` and the stacked 3-D trees of the fused matmuls.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+def is_qtensor(w: Any) -> bool:
+    return isinstance(w, dict) and "q8" in w
 
 
 def is_q4tensor(w: Any) -> bool:
@@ -108,6 +126,125 @@ def quantize_params_int4(params: Dict[str, Any], group: int = 128) -> Dict[str, 
     return out
 
 
+def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[..., in, out] float -> {"q8": int8 [..., in, out], "s": f32
+    [..., out]}: absmax over the contraction axis / 127 (1 where a column is
+    all zeros)."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=-2)                        # [..., out]
+    s = amax / torch.full_like(amax, 127.0)
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    q8 = torch.clamp(torch.round(w32 / s[..., None, :]), -127, 127).to(torch.int8)
+    return {"q8": q8, "s": s}
+
+
+def dequantize_weight(w: Dict[str, torch.Tensor],
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The [..., in, out] weight a q8 tree stands for, q8 x s in f32, then
+    cast to `dtype`. For tests and yardsticks: `mm` never makes it."""
+    return (w["q8"].float() * w["s"][..., None, :]).to(dtype)
+
+
+def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """int8-quantize the block matmul weights of a params tree. Layer by
+    layer, so a 7B tree quantizes on the card without a full-size f32 copy;
+    the result is the same as quantizing the stacked weight at once."""
+    out = dict(params)
+    blocks = {}
+    for k, v in params["blocks"].items():
+        if k not in QUANT_KEYS:
+            blocks[k] = v
+            continue
+        per = [quantize_weight(v[i]) for i in range(v.shape[0])]
+        blocks[k] = {"q8": torch.stack([p["q8"] for p in per]),
+                     "s": torch.stack([p["s"] for p in per])}
+    out["blocks"] = blocks
+    return out
+
+
+def init_params_quantized(cfg, generator: Optional[torch.Generator] = None,
+                          dtype: torch.dtype = torch.bfloat16, bits: int = 8,
+                          device=None) -> Dict[str, Any]:
+    """A random int8 (`bits=8`) or int4 (`bits=4`) params tree made at its
+    final size on `device` (default CUDA) from `generator` (default: seed 0
+    on that device), with no full-precision block weights on the way: a 7B
+    int8 tree is 6.5 GB where the bf16 tree it would be quantized from is
+    13 GB. The seven block matmuls are uniform over the whole code range
+    (int8 -127..127, every nibble) with constant scales that give
+    `init_params`' 1/sqrt(fan_in) magnitude, `fan_in ** -0.5 / 127` (int8)
+    and `/ 7` per group of `tp_safe_group(fan_in)` (int4), as the JAX
+    package's; embeddings, unembedding and norms stay in `dtype`."""
+    from .. import resolve_device
+
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    nh, kh, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    shapes = {
+        "wq": (L, d, nh * hd), "wk": (L, d, kh * hd), "wv": (L, d, kh * hd),
+        "wo": (L, nh * hd, d), "wg": (L, d, f), "wu": (L, d, f),
+        "wd": (L, f, d),
+    }
+    blocks: Dict[str, Any] = {}
+    for name, shape in shapes.items():
+        fan_in = shape[-2]
+        if bits == 8:
+            q8 = torch.randint(-127, 128, shape, generator=generator,
+                               dtype=torch.int8, device=dev)
+            s = torch.full(shape[:-2] + shape[-1:], fan_in ** -0.5 / 127.0,
+                           dtype=torch.float32, device=dev)
+            blocks[name] = {"q8": q8, "s": s}
+        else:
+            group = tp_safe_group(fan_in)
+            q4 = torch.randint(0, 256, shape[:-2] + (fan_in // 2, shape[-1]),
+                               generator=generator, dtype=torch.uint8, device=dev)
+            s4 = torch.full(shape[:-2] + (fan_in // group, shape[-1]),
+                            fan_in ** -0.5 / 7.0, dtype=torch.float32, device=dev)
+            blocks[name] = {"q4": q4, "s4": s4}
+    blocks["ln_attn"] = torch.ones((L, d), dtype=dtype, device=dev)
+    blocks["ln_mlp"] = torch.ones((L, d), dtype=dtype, device=dev)
+
+    def emb():
+        x = torch.randn((cfg.vocab_size, d), generator=generator,
+                        dtype=torch.float32, device=dev)
+        return x.mul_(d ** -0.5).to(dtype)
+
+    params: Dict[str, Any] = {
+        "embed": emb(),
+        "blocks": blocks,
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = emb()
+    return params
+
+
+def quantize_unembed(params: Dict[str, Any]) -> Dict[str, Any]:
+    """int8-quantize the embedding and unembedding tables with one scale a
+    vocab row (absmax over the hidden axis / 127): {"q8": int8 [V, D], "s":
+    f32 [V]}. A tied tree keeps its one table; a table already quantized
+    stays as it is. The forward gathers and dequantizes only the looked-up
+    rows, and unembeds through the int8 matmul kernel's [V, D] layout with
+    the scale applied to each logit after the f32 sum."""
+    def q(t: torch.Tensor) -> Dict[str, torch.Tensor]:
+        t32 = t.float()
+        amax = t32.abs().amax(dim=-1)                    # [V]
+        s = amax / torch.full_like(amax, 127.0)
+        s = torch.where(s == 0.0, torch.ones_like(s), s)
+        q8 = torch.clamp(torch.round(t32 / s[:, None]), -127, 127).to(torch.int8)
+        return {"q8": q8, "s": s}
+
+    out = dict(params)
+    if not is_qtensor(params["embed"]):
+        out["embed"] = q(params["embed"])
+    if "lm_head" in params and not is_qtensor(params["lm_head"]):
+        out["lm_head"] = q(params["lm_head"])
+    return out
+
+
 def quantize_kv(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """K or V [..., H] -> {"q8": int8 [..., H], "s": f32 [...]}: one scale
     per slot, absmax over the head dim / 127 (1 where the slot is all
@@ -127,16 +264,50 @@ def quantize_cache(k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def mm(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x [..., IN] @ w: a plain matmul for a tensor, the int4 matmul kernel
-    (its plain version on the CPU) for a q4 tree; in x's dtype."""
+    """x [..., IN] @ w: a plain matmul for a tensor; for a q8 tree the int8
+    matmul kernel, for a q4 tree the int4 matmul kernel (their plain
+    versions on the CPU); in x's dtype."""
     if isinstance(w, torch.Tensor):
         return x @ w
+    if is_qtensor(w):
+        from .kernels.dispatch import int8_mm
+
+        return _rows(x, lambda x2: int8_mm(x2, w["q8"], w["s"]))
     if is_q4tensor(w):
         from .kernels.dispatch import int4_mm
 
-        lead = x.shape[:-1]
-        out = int4_mm(x.reshape(-1, x.shape[-1]), w["q4"], w["s4"])
-        return out.reshape(*lead, out.shape[-1])
-    if isinstance(w, dict) and "q8" in w:
-        raise NotImplementedError("int8 weights (q8 trees) are not ported (ROADMAP A10)")
-    raise TypeError(f"mm takes a tensor or a q4 tree, got {type(w).__name__}")
+        return _rows(x, lambda x2: int4_mm(x2, w["q4"], w["s4"]))
+    raise TypeError(f"mm takes a tensor, a q8 or a q4 tree, got {type(w).__name__}")
+
+
+def mm_stacked(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """x [..., D] @ a stacked fused weight [D, C, O] -> [..., C, O]
+    (`models/llama.fuse_blocks`): one matmul over the contiguous (C, O)
+    tail, so each output column is the same dot product as unfused. A
+    tensor, a q8 tree (s [C, O]) or a q4 tree (q4 [D/2, C, O], s4 [G, C,
+    O]: the int4 kernel flattens the tail)."""
+    if isinstance(w, torch.Tensor):
+        c, o = w.shape[-2:]
+        out = x @ w.reshape(w.shape[0], c * o)
+    elif is_qtensor(w):
+        from .kernels.dispatch import int8_mm
+
+        c, o = w["q8"].shape[-2:]
+        q8 = w["q8"].reshape(w["q8"].shape[0], c * o)
+        out = _rows(x, lambda x2: int8_mm(x2, q8, w["s"].reshape(c * o)))
+    elif is_q4tensor(w):
+        from .kernels.dispatch import int4_mm
+
+        c, o = w["q4"].shape[-2:]
+        out = _rows(x, lambda x2: int4_mm(x2, w["q4"], w["s4"]))
+    else:
+        raise TypeError(f"mm_stacked takes a tensor, a q8 or a q4 tree, got "
+                        f"{type(w).__name__}")
+    return out.reshape(*x.shape[:-1], c, o)
+
+
+def _rows(x: torch.Tensor, fn) -> torch.Tensor:
+    """`fn` over x's leading axes flattened into rows: [..., IN] -> [...,
+    OUT]."""
+    out = fn(x.reshape(-1, x.shape[-1]))
+    return out.reshape(*x.shape[:-1], out.shape[-1])

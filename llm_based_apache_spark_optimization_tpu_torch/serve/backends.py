@@ -47,20 +47,31 @@ def resolve_constraint(constrain, tokenizer, stop_ids):
     return get_constraint(constrain, tokenizer, stop_ids)
 
 
-def refuse_unported_load(mesh=None, quantize_int8=False, quantize_int4=False,
-                         quantize_unembed8=False) -> None:
-    """Raise, naming the ROADMAP item, on a checkpoint-constructor option
-    the port cannot honor yet."""
+def refuse_unported_load(mesh=None, quantize_int8=False, quantize_int4=False) -> None:
+    """Raise on checkpoint-constructor options that do not combine, and,
+    naming the ROADMAP item, on one the port cannot honor yet."""
     if quantize_int8 and quantize_int4:
         raise ValueError("pick one of quantize_int8 / quantize_int4")
-    refused = [
-        (mesh is not None, "mesh", "A13 (parallelism)"),
-        (quantize_int8, "quantize_int8", "A10 (int8 weights)"),
-        (quantize_unembed8, "quantize_unembed8", "A10 (int8 embeddings)"),
-    ]
-    for on, name, item in refused:
-        if on:
-            raise NotImplementedError(f"{name} is not ported: ROADMAP {item}")
+    if mesh is not None:
+        raise NotImplementedError("mesh is not ported: ROADMAP A13 (parallelism)")
+
+
+def quantize_loaded(params, quantize_int8=False, quantize_int4=False,
+                    quantize_unembed8=False):
+    """A loaded tree in the serving format the checkpoint constructors ask
+    for, in the JAX package's order: int4 or int8 block weights first
+    (`quantize_params_int4`, `quantize_params`), then the int8 embed /
+    unembed tables (`quantize_unembed`), which compose with either or
+    none."""
+    from ..ops.quant import quantize_params, quantize_params_int4, quantize_unembed
+
+    if quantize_int4:
+        params = quantize_params_int4(params)
+    elif quantize_int8:
+        params = quantize_params(params)
+    if quantize_unembed8:
+        params = quantize_unembed(params)
+    return params
 
 
 @dataclasses.dataclass
@@ -130,7 +141,9 @@ class EngineBackend:
         """An engine backend straight from an HF safetensors directory,
         its weights loaded onto `device` (default CUDA) one stacked
         parameter at a time. `quantize_int4=True` packs the block weights
-        to int4 (served by the int4 matmul kernel); `kv_quant="int8"`
+        to int4 (served by the int4 matmul kernel), `quantize_int8=True`
+        to int8 (the int8 matmul kernel), and `quantize_unembed8=True`
+        stores the embed/unembed tables in int8; `kv_quant="int8"`
         stores the KV cache in int8; `speculative_draft=N` verifies N
         prompt-lookup drafts a round (engine/speculative.py; with the
         int8 cache the engine refuses it, as JAX's does). The other arguments are those of the
@@ -166,14 +179,11 @@ class EngineBackend:
     ) -> "EngineBackend":
         from .. import resolve_device
 
-        refuse_unported_load(mesh, quantize_int8, quantize_int4,
-                             quantize_unembed8)
+        refuse_unported_load(mesh, quantize_int8, quantize_int4)
         dev = resolve_device(device)
         cfg, params = load(dtype, dev)
-        if quantize_int4:
-            from ..ops.quant import quantize_params_int4
-
-            params = quantize_params_int4(params)
+        params = quantize_loaded(params, quantize_int8, quantize_int4,
+                                 quantize_unembed8)
         engine = InferenceEngine(
             cfg, params, prompt_bucket=prompt_bucket, device=dev,
             stop_ids=stop_ids if stop_ids is not None

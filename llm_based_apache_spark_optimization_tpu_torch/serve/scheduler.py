@@ -87,8 +87,11 @@ third, and reuse stops on block boundaries.
   and requantizes only its own window on the way back, so every entry is
   quantized exactly once. Copy-on-write copies the scale pages with the
   values.
-- Weights may be int4 trees (`ops.quant.quantize_params_int4`): every
-  block matmul then runs the int4 matmul kernel on the card.
+- Weights may be int8 trees (`ops.quant.quantize_params`, with int8
+  embed/unembed tables by `quantize_unembed`) or int4 trees
+  (`quantize_params_int4`): every block matmul then runs the int8 or the
+  int4 matmul kernel on the card. `fuse_matmuls=True` serves the fused
+  tree (`models/llama.fuse_blocks`) in either layout.
 - Per-row sampling knobs and per-request streams (ops/sampling
   `sample_runtime`): slot s samples its i-th token from (seed, i), so a
   request replays the same tokens whatever shares the batch.
@@ -186,7 +189,7 @@ from ..engine.paged_kv import (
     pages_for_tokens,
 )
 from ..models.configs import LlamaConfig
-from ..models.llama import _UNROLL_MAX_T, Params, forward
+from ..models.llama import _UNROLL_MAX_T, Params, forward, fuse_blocks
 from ..constrain.masks import (
     advance_states,
     allowed_tokens,
@@ -337,6 +340,7 @@ class ContinuousBatchingScheduler:
         kv_watermark_high: Optional[float] = None,
         ragged: Optional[bool] = None,
         speculative_draft: int = 0,
+        fuse_matmuls: bool = False,
         device=None,
     ):
         self.kv_quant = kv_quant
@@ -384,6 +388,10 @@ class ContinuousBatchingScheduler:
         if params["final_norm"].device.type != self.device.type:
             raise ValueError(f"params are on {params['final_norm'].device}, "
                              f"scheduler on {self.device}")
+        if fuse_matmuls:
+            # One stacked matmul for the projections sharing an input
+            # (models/llama.fuse_blocks); `self.params` is the fused tree.
+            params = fuse_blocks(params)
         self.params = params
         self.num_slots = num_slots
         self.max_seq = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
@@ -2339,7 +2347,9 @@ class SchedulerBackend:
         """HF safetensors directory -> a continuous-batching scheduler on
         `device` (default CUDA). The arguments are those of the JAX
         package's `SchedulerBackend.from_hf_checkpoint`: `dtype` (default
-        bf16), `quantize_int4` (int4 block weights), `kv_quant="int8"`,
+        bf16), `quantize_int8` or `quantize_int4` (int8 or int4 block
+        weights), `quantize_unembed8` (int8 embed/unembed tables),
+        `kv_quant="int8"`,
         the scheduler's shape arguments, the page-pressure knobs
         (`kv_overcommit`, `kv_spill`, `kv_watermark_low/high`),
         `max_queue_depth`, `speculative_draft`, and `supervise` with
@@ -2358,8 +2368,9 @@ class SchedulerBackend:
                   ) -> "SchedulerBackend":
         """GGUF blob -> a continuous-batching scheduler, exactly like
         `from_hf_checkpoint` (the blob is parsed and dequantized by the
-        port's C++ reader, checkpoint/gguf.py). A Q4 blob served with
-        `quantize_int4=True` stays 4-bit end to end."""
+        port's C++ reader, checkpoint/gguf.py; the options then quantize
+        the dequantized tree). A Q4 blob served with `quantize_int4=True`
+        stays 4-bit end to end."""
         from ..checkpoint import load_gguf_checkpoint
 
         return cls._from_checkpoint(
@@ -2404,15 +2415,12 @@ class SchedulerBackend:
         device=None,
         **kwargs,
     ) -> "SchedulerBackend":
-        from .backends import refuse_unported_load, resolve_stop_ids
+        from .backends import quantize_loaded, refuse_unported_load, resolve_stop_ids
 
-        refuse_unported_load(mesh, quantize_int8, quantize_int4,
-                             quantize_unembed8)
+        refuse_unported_load(mesh, quantize_int8, quantize_int4)
         cfg, params = load(dtype, resolve_device(device))
-        if quantize_int4:
-            from ..ops.quant import quantize_params_int4
-
-            params = quantize_params_int4(params)
+        params = quantize_loaded(params, quantize_int8, quantize_int4,
+                                 quantize_unembed8)
         stops = (tuple(stop_ids) if stop_ids is not None
                  else resolve_stop_ids(cfg, tokenizer))
 

@@ -318,8 +318,6 @@ def args_for(*argv):
     (("--tp", "2"), "A13"),
     (("--dp", "2"), "A13"),
     (("--sp", "2"), "A13"),
-    (("--int8",), "A10"),
-    (("--int8-unembed",), "A10"),
 ])
 def test_entry_point_refuses_unported_flags(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -669,6 +667,111 @@ def test_entry_point_serves_a_checkpoint_on_the_cpu(tmp_path, fmt):
         assert res.status == 200 and "sql_query" in res.json()
     finally:
         svc.close()
+
+
+@pytest.mark.parametrize("serving", ["scheduler", "engine"])
+def test_entry_point_serves_int8_weights_and_tables(tmp_path, serving):
+    """`--cpu --backend checkpoint --api --int8 --int8-unembed` over a TINY
+    HF checkpoint: the model's tree holds int8 block weights and an int8
+    table, /readyz is ready (scheduler) and `POST /process-data/` answers
+    200 through the reference pipeline."""
+    import dataclasses
+
+    import torch
+    from test_torch_tokenizer import write_tokenizer_json
+
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import save_hf_checkpoint
+    from llm_based_apache_spark_optimization_tpu_torch.models import TINY
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import is_qtensor
+
+    pytest.importorskip("tokenizers")
+    mcfg = dataclasses.replace(TINY, max_seq_len=2048)
+    params = init_params(mcfg, torch.Generator().manual_seed(0), torch.float32,
+                         device="cpu")
+    tokdir = tmp_path / "ckpt"
+    save_hf_checkpoint(mcfg, params, tokdir)
+    write_tokenizer_json(tokdir / "tokenizer.json", "wordlevel")
+    (tmp_path / "input").mkdir()
+    (tmp_path / "input" / "taxi.csv").write_text(CSV)
+    cfg = AppConfig(input_dir=str(tmp_path / "input"), output_dir=str(tmp_path / "out"),
+                    history_db=":memory:", max_new_tokens=8)
+    extra = () if serving == "scheduler" else ("--no-scheduler",)
+    svc = entry.build_service(args_for("--cpu", "--backend", "checkpoint", "--api",
+                                       "--int8", "--int8-unembed", *extra,
+                                       "--sql-model-path", str(tokdir),
+                                       "--max-new-tokens", "8"), cfg)
+    try:
+        sql = svc._models["duckdb-nsql"].backend
+        tree = (sql.scheduler._inner.params if serving == "scheduler"  # supervised
+                else sql.engine.params)
+        assert is_qtensor(tree["blocks"]["wq"]) and is_qtensor(tree["blocks"]["wd"])
+        assert is_qtensor(tree["embed"])
+        client = create_api_app(svc, SQLiteBackend, SQLiteHistory(), cfg).test_client()
+        if serving == "scheduler":
+            ready = client.get("/readyz")
+            assert ready.status == 200 and ready.json()["state"] == "ready"
+        res = client.post_json("/process-data/", {"input_text": "total fare per vendor",
+                                                  "file_name": "taxi.csv"})
+        assert res.status == 200 and "sql_query" in res.json()
+    finally:
+        svc.close()
+
+
+def test_entry_point_int8_with_int4_exits_as_jax():
+    """`--int8 --int4` exits with the JAX entry point's message."""
+    import inspect
+
+    from llm_based_apache_spark_optimization_tpu.app import __main__ as jax_entry
+
+    msg = "pick one of --int8 / --int4"
+    assert f'sys.exit("{msg}")' in inspect.getsource(jax_entry)
+    with pytest.raises(SystemExit, match=msg):
+        entry.build_service(args_for("--cpu", "--backend", "checkpoint", "--int8",
+                                     "--int4", "--sql-model-path", "ckpt"), AppConfig())
+
+
+@pytest.mark.parametrize("argv,want", [
+    ((), dict(quantize_int8=False, quantize_int4=False, quantize_unembed8=False)),
+    (("--int8", "--int8-unembed"),
+     dict(quantize_int8=True, quantize_int4=False, quantize_unembed8=True)),
+    (("--int4", "--int8-unembed"),
+     dict(quantize_int8=False, quantize_int4=True, quantize_unembed8=True)),
+], ids=["bf16", "int8", "int4"])
+@pytest.mark.parametrize("serving", ["scheduler", "engine"])
+def test_entry_point_passes_weight_formats_to_the_loaders(monkeypatch, argv, want,
+                                                           serving):
+    """The weight-format flags reach the checkpoint constructors of both
+    serving paths as JAX passes them."""
+    from llm_based_apache_spark_optimization_tpu_torch import tokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        SchedulerBackend,
+    )
+
+    seen = []
+
+    class Built(Exception):
+        pass
+
+    def sched_from_checkpoint(cls, load, tag, tok, **kwargs):
+        seen.append(kwargs)
+        raise Built
+
+    def engine_from_checkpoint(cls, load, tok, **kwargs):
+        seen.append(kwargs)
+        raise Built
+
+    monkeypatch.setattr(tokenizer, "HFTokenizer", lambda path: None)
+    monkeypatch.setattr(SchedulerBackend, "_from_checkpoint",
+                        classmethod(sched_from_checkpoint))
+    monkeypatch.setattr(EngineBackend, "_from_checkpoint",
+                        classmethod(engine_from_checkpoint))
+    extra = () if serving == "scheduler" else ("--no-scheduler",)
+    with pytest.raises(Built):
+        entry.build_service(args_for("--cpu", "--backend", "checkpoint",
+                                     "--sql-model-path", "ckpt", *extra, *argv),
+                            AppConfig())
+    assert {k: seen[0][k] for k in want} == want
 
 
 def test_entry_point_gguf_needs_a_tokenizer_dir(tmp_path):

@@ -15,6 +15,7 @@ import pytest
 
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import attention
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int4mm
+from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int8mm
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_attention
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_write
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels._build import CSRC, sources
@@ -27,6 +28,7 @@ BINDINGS = {
     "fused_page_write": paged_write._ARGTYPES,
     "fused_page_write_quantized": paged_write._Q_ARGTYPES,
     "int4_matmul": int4mm._ARGTYPES,
+    "int8_matmul": int8mm._ARGTYPES,
 }
 C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
            "long long": ctypes.c_longlong, "float": ctypes.c_float}
@@ -69,3 +71,17 @@ def test_table_prefetch_limit_matches_the_kernel():
     rule = paged_write.table_prefetch
     assert rule(16, False) and rule(limit, False) and not rule(limit + 1, False)
     assert not rule(16, True) and not rule(limit, True)
+
+
+def test_int8_matmul_constants_match_the_kernel():
+    """The wrapper's routes, layouts and GEMV tile sizes are the kernel's."""
+    with open(os.path.join(CSRC, "int8_matmul.cu"), encoding="utf-8") as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+    assert int8mm.GEMV_MAX_ROWS == const("kMaxRows") == 8
+    assert int8mm._GEMV_COLS == const("kGemvBN")
+    assert int8mm.LAYOUTS == {"io": const("kIO"), "vd": const("kVD")}
+    assert int8mm._ROUTES == {"gemv": const("kRouteGemv"), "mma": const("kRouteMma")}

@@ -309,14 +309,77 @@ def test_backends_from_hf_checkpoint_serve_speculative(tmp_path, backend):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"quantize_int8": True}, "A10"),
-    ({"quantize_unembed8": True}, "A10"),
     ({"mesh": object()}, "A13"),
 ])
 def test_scheduler_from_hf_refuses_unported(tmp_path, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         SchedulerBackend.from_hf_checkpoint(str(tmp_path), ByteTokenizer(),
                                             device="cpu", **kwargs)
+
+
+def int8_tokens_of_jax(jtree, jcfg, ids):
+    """JAX's engine on JAX's int8 serving tree (int8 blocks first, then the
+    int8 embed/unembed tables, the constructors' order): greedy tokens."""
+    from llm_based_apache_spark_optimization_tpu.ops.quant import (
+        quantize_params as jax_quantize_params,
+    )
+    from llm_based_apache_spark_optimization_tpu.ops.quant import (
+        quantize_unembed as jax_quantize_unembed,
+    )
+
+    tree = jax_quantize_unembed(jax_quantize_params(jtree))
+    return JaxEngine(jcfg, tree, stop_ids=(-1,)).generate([ids], max_new_tokens=6)[0]
+
+
+def assert_serves_int8(backend_cls, load, ids, want):
+    """`load(cls, **kwargs)` with quantize_int8 and quantize_unembed8 gives
+    a backend whose tree holds q8 block weights and a q8 table, and whose
+    request completes with `want`'s greedy tokens."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import is_qtensor
+
+    common = dict(dtype=torch.float32, device="cpu", stop_ids=(-1,), max_new_tokens=6,
+                  quantize_int8=True, quantize_unembed8=True)
+    if backend_cls is EngineBackend:
+        be = load(backend_cls, **common)
+        tree = be.engine.params
+        assert be.engine.generate([ids], max_new_tokens=6)[0] == want
+        assert be.complete("SELECT").output_tokens >= 1
+    else:
+        be = load(backend_cls, num_slots=2, prompt_bucket=16, decode_chunk=4,
+                  supervise=True, stall_min_s=0.0, **common)
+        try:
+            tree = be.scheduler._inner.params  # the supervised scheduler's
+            assert be.scheduler.submit(ids, max_new_tokens=6).result(timeout=60) == want
+            assert be.complete("SELECT").output_tokens >= 1
+        finally:
+            be.shutdown()
+    assert all(is_qtensor(tree["blocks"][k]) for k in ("wq", "wk", "wv", "wo", "wg",
+                                                        "wu", "wd"))
+    assert is_qtensor(tree["embed"]) and tree["embed"]["q8"].dtype == torch.int8
+
+
+@pytest.mark.parametrize("backend", ["scheduler", "engine"])
+def test_backends_from_hf_checkpoint_serve_int8(tmp_path, backend):
+    """`quantize_int8=True, quantize_unembed8=True` through the HF
+    constructors (the scheduler supervised): q8 trees in place, and JAX's
+    greedy tokens on JAX's int8 tree of the same checkpoint."""
+    jcfg = dataclasses.replace(JAX_TINY, max_seq_len=128)
+    jp = jax_init(jcfg, jax.random.key(12), dtype=jnp.float32)
+    jax_save_hf(jcfg, jp, tmp_path)
+    jc, ja = jax_load_hf(tmp_path, dtype=jnp.float32)
+    ids = ByteTokenizer().encode("SELECT")
+    want = int8_tokens_of_jax(ja, jc, ids)
+    cls = SchedulerBackend if backend == "scheduler" else EngineBackend
+    assert_serves_int8(cls, lambda c, **kw: c.from_hf_checkpoint(
+        str(tmp_path), ByteTokenizer(), **kw), ids, want)
+
+
+@pytest.mark.parametrize("cls", [SchedulerBackend, EngineBackend],
+                         ids=["scheduler", "engine"])
+def test_from_hf_checkpoint_picks_one_weight_format(tmp_path, cls):
+    with pytest.raises(ValueError, match="pick one of quantize_int8 / quantize_int4"):
+        cls.from_hf_checkpoint(str(tmp_path), ByteTokenizer(), device="cpu",
+                               quantize_int8=True, quantize_int4=True)
 
 
 @pytest.mark.parametrize("kwargs,attr,want", [

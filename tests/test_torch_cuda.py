@@ -5,8 +5,9 @@ kernel, the bf16 query windows' split tensor-core kernel and the f32 ones'
 tile kernel, every launch bit-identical from launch to launch) and the
 page write (one kernel for both pools, also behind its producer in a CUDA
 graph), their int8-cache twins (the split-KV decode kernel at its edges,
-and every decode launch bit-identical from launch to launch), and the int4
-matmul (decode, prefill and f32 rows kernels).
+and every decode launch bit-identical from launch to launch), the int4
+matmul (decode, prefill and f32 rows kernels) and the int8 matmul (GEMV and
+tensor-core kernels, both weight layouts).
 
 Needs a card (marker `cuda`); skips elsewhere. On the card:
 `python -m pytest tests/test_torch_cuda.py -q`. Tolerances as in
@@ -16,7 +17,11 @@ different running max than the plain version's), and bf16 query windows
 also within 5e-2 of each query row's largest output; the page writes are
 bit-exact; the int4 matmul within 1e-5 (f32) and 1e-2 (bf16: one bf16 ulp
 is up to 2**-7 of the largest output) of max |out|, since only the order of
-the f32 sums differs."""
+the f32 sums differs. The int8 matmul's bf16 outputs within one bf16 ulp of
+the plain value, element by element (an element's ulp floored at 2**-8 of
+the largest output's: outputs that cancel to near zero carry the f32 sum
+order's error), its f32 outputs within 1e-5 and its f32 logits within 1e-4
+of max |out|, every launch bit-identical to the one before."""
 
 import pytest
 import torch
@@ -25,6 +30,7 @@ from llm_based_apache_spark_optimization_tpu_torch.ops import quant
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import LAUNCHES
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import attention as k
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int4mm
+from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int8mm
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_attention as pa
 from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import paged_write as pw
 
@@ -555,3 +561,61 @@ def test_int4_kernel_matches_plain(cuda, dtype, rows, n_in, n_out, group):
     assert rel <= (1e-5 if dtype == torch.float32 else 1e-2), rel
     # One call is one launch, whatever the split: the cluster adds the splits.
     assert LAUNCHES == dict(before, int4_matmul=before["int4_matmul"] + 1)
+
+
+def bf16_ulps(out, ref):
+    """Largest |out - ref| in units of ref's bf16 ulp, the ulp floored at
+    2**-8 of the largest |ref|'s."""
+    r = ref.float()
+    top = r.abs().max().clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    floor = torch.exp2(torch.floor(torch.log2(top)) - 15)
+    return ((out.float() - r).abs() / torch.maximum(ulp, floor)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 72, 131, 1024])
+@pytest.mark.parametrize("layout,n_in,n_out", [
+    ("io", 4096, 4096), ("io", 4096, 11008), ("io", 11008, 4096),   # 7B
+    ("io", 4096, 3 * 4096), ("io", 3072, 2 * 1024),                 # fused wqkv, wkv
+    ("io", 256, 400),                              # OUT no multiple of a column tile
+    ("vd", 4096, 32000), ("vd", 256, 400),         # the unembed's [V, D] table
+])
+def test_int8_kernel_matches_plain(cuda, dtype, rows, layout, n_in, n_out):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (n_in, n_out) if layout == "io" else (n_out, n_in)
+    q8 = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8, device=cuda)
+    s = torch.rand((n_out,), generator=g, device=cuda) * n_in ** -0.5 / 127
+    x = torch.randn((rows, n_in), generator=g, device=cuda).to(dtype)
+    before = dict(LAUNCHES)
+    out = int8mm.int8_matmul(x, q8, s, layout)
+    again = int8mm.int8_matmul(x, q8, s, layout)
+    ref = int8mm.int8_matmul_plain(x, q8, s, layout)
+    torch.cuda.synchronize()
+    want_dtype = torch.float32 if layout == "vd" else dtype
+    assert out.shape == (rows, n_out) and out.dtype == want_dtype
+    assert torch.equal(out, again)
+    if layout == "io" and dtype == torch.bfloat16:
+        assert bf16_ulps(out, ref) <= 1.0
+    else:
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= (1e-4 if layout == "vd" else 1e-5), rel
+    assert LAUNCHES == dict(before, int8_matmul=before["int8_matmul"] + 2)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 72])
+def test_int4_kernel_takes_stacked_weights(cuda, rows):
+    """A fused tree's q4 [IN/2, C, OUT] and s4 [G, C, OUT] run as the 2-D
+    weight of C * OUT columns: the same as the concatenated projections."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    ws = [quant.quantize_weight_int4(torch.randn((4096, 4096), generator=g, device=cuda)
+                                     * 4096 ** -0.5, 128) for _ in range(3)]
+    q4 = torch.stack([w["q4"] for w in ws], dim=-2)
+    s4 = torch.stack([w["s4"] for w in ws], dim=-2)
+    x = torch.randn((rows, 4096), generator=g, device=cuda).bfloat16()
+    out = int4mm.int4_matmul(x, q4, s4)
+    ref = int4mm.int4_matmul_plain(x, q4, s4)
+    torch.cuda.synchronize()
+    assert out.shape == (rows, 3 * 4096)
+    rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    assert rel <= 1e-2, rel

@@ -43,7 +43,14 @@ from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
     SchedulerBackend,
 )
 from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
-from test_torch_checkpoint import assert_same_arrays, cfg_fields, jax_logits, port_logits
+from test_torch_checkpoint import (
+    assert_same_arrays,
+    assert_serves_int8,
+    cfg_fields,
+    int8_tokens_of_jax,
+    jax_logits,
+    port_logits,
+)
 
 QUANTS = ["f32", "f16", "q8_0", "q4_0", "q6_k"]
 PROMPTS = [[1, 17, 93, 5], [1, 40, 41]]
@@ -177,3 +184,19 @@ def test_backends_from_gguf_serve_jax_tokens(tmp_path):
         assert sb.scheduler.submit(ids, max_new_tokens=6).result(timeout=60) == want
     finally:
         sb.shutdown()
+
+
+@pytest.mark.parametrize("backend", ["scheduler", "engine"])
+def test_backends_from_gguf_serve_int8(tmp_path, backend):
+    """`quantize_int8=True, quantize_unembed8=True` through the GGUF
+    constructors over a JAX-written q4_0 blob (the reference's format):
+    the dequantized tree requantized to int8, q8 trees in place, JAX's
+    greedy tokens on JAX's int8 tree of JAX's load of the blob."""
+    jcfg, jp, _, _ = both_trees(16)
+    jax_write_gguf(jcfg, jp, tmp_path / "m.gguf", quant="q4_0")
+    jc, ja = jax_load_gguf(tmp_path / "m.gguf", dtype=jnp.float32)
+    ids = ByteTokenizer().encode("SELECT")
+    want = int8_tokens_of_jax(ja, jc, ids)
+    cls = SchedulerBackend if backend == "scheduler" else EngineBackend
+    assert_serves_int8(cls, lambda c, **kw: c.from_gguf(
+        str(tmp_path / "m.gguf"), ByteTokenizer(), **kw), ids, want)

@@ -76,6 +76,7 @@ from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
     gather_page_scales,
     int4_matmul,
     int4_matmul_plain,
+    int8_matmul_plain,
     ragged_paged_attention_quantized,
     ragged_paged_attention_quantized_plain,
 )
@@ -291,8 +292,13 @@ def test_mm_routes_tensors_and_q4_trees(rng):
     np.testing.assert_array_equal(
         quant.mm(x, w4).numpy(),
         int4_matmul_plain(x.reshape(6, 64), w4["q4"], w4["s4"]).reshape(2, 3, 32).numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        quant.mm(x, {"q8": w.to(torch.int8), "s": torch.ones(32)})
+    # A q8 tree now routes to the int8 matmul (its plain version here).
+    w8 = quant.quantize_weight(w)
+    np.testing.assert_array_equal(
+        quant.mm(x, w8).numpy(),
+        int8_matmul_plain(x.reshape(6, 64), w8["q8"], w8["s"]).reshape(2, 3, 32).numpy())
+    with pytest.raises(TypeError):
+        quant.mm(x, {"q3": w})
 
 
 def test_quantized_decode_attention_matches_jax(rng):
