@@ -330,7 +330,9 @@ Phases, each fatal on failure:
    int8 matmul (`csrc/int8_matmul.cu`, no TPU counterpart: the JAX package
    leaves the int8 product to XLA) against its plain version at every
    shape of INT8_SHAPES (7B wq, wg, wd, the fused wqkv and wgu, the [V, D]
-   unembed; 3B wq, wk, wg, wd, the fused wkv and wgu, unembed) at R = 1, 3, 4, 8, 9, 72, 384, 1024 in
+   unembed; 3B wq, wk, wg, wd, the fused wkv and wgu, unembed) at every R
+   of INT8_ROWS (each route's first and last row count: the decode kernel
+   up to 8, the wgmma kernel's tiles N above) in
    bf16 and at INT8_F32: bf16 block outputs within one bf16 ulp of the
    plain value element by element (`bf16_ulps`), f32 logits within
    INT8_LOGIT_TOL, f32 outputs within INT8_F32_TOL of max |plain|, every
@@ -353,7 +355,11 @@ Phases, each fatal on failure:
    `--backend checkpoint --int8 --int8-unembed` over the 3B Q4_0 blob
    serves `POST /process-data/`; (f) in phase 11, each int8 shape and row
    8's stacked shapes at R = 1, 8, 72, 1024 against their bounds, their
-   plain versions and cuBLAS bf16 on the weight dequantized in advance.
+   plain versions and cuBLAS bf16 on the weight dequantized in advance,
+   with each int8 call's route, tile, splits and blocks, the int8 kernels'
+   ptxas registers, shared memory and spills, and the host us a call of
+   the int8 and int4 wrappers and a bf16 `torch.matmul` dispatch.
+   `--int8-only --profile` adds (c)'s profiled batch on the 7B engines.
 
 Every phase prints its seconds.
 
@@ -368,6 +374,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3564,7 +3571,7 @@ def write_tokenizer(directory):
 def profile_device(torch, label, send):
     """Device time by kernel group over `send()` (`--profile`), which
     returns the tokens it generated, and the device's busy share of its
-    wall time under the profiler."""
+    wall time under the profiler. Returns the device ms by group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3583,7 +3590,7 @@ def profile_device(torch, label, send):
     for key, us, _ in rows:
         if "int4_" in key:
             groups["int4 matmul"] += us
-        elif "int8_gemv" in key or "int8_mma" in key:
+        elif any(w in key for w in ("int8_gemv", "int8_decode", "int8_wgmma")):
             groups["int8 matmul"] += us
         elif "PagedSrc" in key:
             groups["paged attention"] += us
@@ -3602,6 +3609,7 @@ def profile_device(torch, label, send):
         f"{k} {v / 1e3:.2f}" for k, v in groups.items()), flush=True)
     for key, us, n in rows[:15]:
         print(f"    {us / 1e3:9.3f} ms  x{n:<6d} {key[:110]}", flush=True)
+    return {k: v / 1e3 for k, v in groups.items()}
 
 
 # ---------------------------------------------------------------- timing
@@ -5536,10 +5544,8 @@ def int8_engines(torch, engines, smi, tally, tally_div, profile=False):
         print(f"    q8 engine generic: {text!r}", flush=True)
     bf16 = eng7.generate(prompts, max_new_tokens=MAX_NEW)
     if profile:
-        for name, e in (("bf16", eng7), ("int8, unfused", e8), ("int8, fused", ef)):
-            profile_device(torch, f"7B engine, {name}, batch of {len(prompts)}", lambda e=e: sum(
-                map(len, e.generate(prompts, max_new_tokens=MAX_NEW))))
-            print(f"    decode steps {e.last_stats['decode_steps']}", flush=True)
+        profile_int8_engines(torch, {"bf16": eng7, "int8, unfused": e8, "int8, fused": ef},
+                             prompts)
     agree = sum(a == b for x, y in zip(unfused, bf16) for a, b in zip(x, y))
     print(f"  q8 7B vs bf16 weights: {agree} of {sum(map(len, bf16))} greedy tokens equal "
           f"(other weights: printed, not held)", flush=True)
@@ -5565,6 +5571,43 @@ def int8_engines(torch, engines, smi, tally, tally_div, profile=False):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, params8
+
+
+def profile_int8_engines(torch, engines, prompts):
+    """`--profile` of phase 14 (c): the batch once more under torch.profiler
+    on each 7B engine of `engines` ({label: engine}), with the int8 and
+    the bf16 matmuls' device ms a decode step (a group's ms over the
+    batch's decode steps)."""
+    for name, e in engines.items():
+        groups = profile_device(torch, f"7B engine, {name}, batch of {len(prompts)}",
+                                lambda e=e: sum(map(len, e.generate(prompts,
+                                                                    max_new_tokens=MAX_NEW))))
+        steps = e.last_stats["decode_steps"]
+        print(f"    decode steps {steps}; a step: int8 matmul "
+              f"{groups['int8 matmul'] / steps:.3f} ms, cuBLAS matmul "
+              f"{groups['matmul'] / steps:.3f} ms", flush=True)
+
+
+def int8_profile(torch):
+    """`--int8-only --profile`: phase 14 (c)'s batch of three NL->SQL
+    prompts on the 7B engine over the seed-0 bf16 weights, their int8 tree
+    unfused and fused, each once to warm up and once under torch.profiler
+    (`profile_int8_engines`)."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.models import DUCKDB_NSQL_7B
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    eng7 = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))["duckdb-nsql"]
+    prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in QUESTIONS]
+    params8 = q8_tree(torch, eng7.cfg, eng7.params)
+    engines = {"bf16": eng7}
+    for name, fuse in (("int8, unfused", False), ("int8, fused", True)):
+        engines[name] = InferenceEngine(eng7.cfg, params8, stop_ids=eng7.stop_ids,
+                                        device="cuda", fuse_matmuls=fuse)
+    for e in engines.values():
+        e.generate(prompts, max_new_tokens=MAX_NEW)
+    profile_int8_engines(torch, engines, prompts)
 
 
 def q8_plain_streams(torch, cfg, params8, stop_ids, prompts, kv_quant):
@@ -5705,7 +5748,10 @@ INT8_SHAPES = [("7b", "wq/wk/wv/wo", "io", 4096, 4096), ("7b", "wg/wu", "io", 40
                ("3b", "wg/wu", "io", 3072, 8192), ("3b", "wd", "io", 8192, 3072),
                ("3b", "wkv", "io", 3072, 2 * 1024), ("3b", "wgu", "io", 3072, 2 * 8192),
                ("3b", "unembed", "vd", 3072, 128256)]
-INT8_ROWS = (1, 3, 4, 8, 9, 72, 384, 1024)
+# Rows: each bf16 route's first and last count (decode 1..8, then the wgmma
+# kernel's tiles N of 16, 32, 64, 80, 128 and 256 rows; tiles of 256 above)
+# and the counts the paths give it.
+INT8_ROWS = (1, 3, 4, 8, 9, 16, 17, 32, 33, 64, 65, 72, 80, 81, 128, 129, 256, 257, 384, 1024)
 # The small f32 case: (name, layout, IN, OUT, rows).
 INT8_F32 = [("wq f32", "io", 4096, 4096, (1, 9)), ("unembed f32", "vd", 4096, 32000, (3,))]
 # int8 matmul vs plain: bf16 block outputs within one bf16 ulp of the plain
@@ -5749,10 +5795,11 @@ def int8_weight(torch, g, layout, n_in, n_out):
 
 def check_int8(torch, mm8):
     """Phase 14 (a): the int8 matmul kernel vs its plain version at every
-    shape of INT8_SHAPES and R in INT8_ROWS in bf16 (the GEMV up to 8 rows,
-    the tensor cores above), and the f32 cases; every call launched twice
-    and compared bit for bit. Returns the worst errors: bf16 block outputs
-    in ulps, logits and f32 outputs over max |plain|, absolute by dtype."""
+    shape of INT8_SHAPES and R in INT8_ROWS in bf16 (the decode kernel up
+    to 8 rows, the wgmma kernel above), and the f32 cases (the GEMV); every
+    call launched twice and compared bit for bit. Returns the worst errors:
+    bf16 block outputs in ulps, logits and f32 outputs over max |plain|,
+    absolute by dtype."""
     worst = {"bf16_ulps": 0.0, "logits_rel": 0.0, "float32_rel": 0.0,
              "abs": {"bfloat16": 0.0, "float32": 0.0}}
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -5780,7 +5827,7 @@ def check_int8(torch, mm8):
                 key, val, tol = "bf16_ulps", bf16_ulps(out, ref), 1.0
             ok = val <= tol and same
             route = mm8.int8_route(rows, dtype)
-            print(f"  int8    {model:4s} {name:12s} {layout} {route:4s} R={rows:5d} "
+            print(f"  int8    {model:4s} {name:12s} {layout} {route:6s} R={rows:5d} "
                   f"{dname:8s} max_abs_err={err:.3e} {key}={val:.3e} tol={tol:.0e} "
                   f"bit-identical twice: {same} {'ok' if ok else 'FAIL'}", flush=True)
             assert ok, f"int8/{model} {name} R={rows} {dname}: {key} {val}, same {same}"
@@ -5829,15 +5876,104 @@ INT8_HEADLINE = "7b_wd_R8"  # the kernels line's `ms`: 7B's wd at the 8 slots' d
 L2_FLUSH_BYTES = 256 << 20         # the weights one timing cycles through
 
 
-def time_int8(torch, mm8, mm_mod):
+def int8_launch(mm8, rows, n_in, n_out, layout):
+    """(route, tile, splits, blocks) of one bf16 int8 matmul launch on this
+    card, by the wrapper's own rules."""
+    import torch
+
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.launches import sm_count
+
+    route = mm8.int8_route(rows, torch.bfloat16)
+    tile, splits, _ = mm8.split_plan(route, rows, n_in, n_out, layout,
+                                     sm_count(torch.device("cuda", 0)))
+    if route == "decode":
+        blocks = -(-n_out // tile) * splits
+    else:
+        blocks = -(-n_out // mm8._WGMMA_COLS) * splits * -(-rows // tile)
+    return route, tile, splits, blocks
+
+
+def int8_ptxas(report):
+    """Phase 14 (f): `nvcc -Xptxas -v`'s registers, shared memory and
+    spills of every int8_matmul kernel (template arguments as ptxas names
+    them: layout and column slices, or layout and N, then the output
+    type). Returns {kernel: (registers, smem bytes, spill stores, spill
+    loads)}."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(int8_\w+?_kernel)I(.*?E)Ev", line)
+            if m:
+                args = re.findall(r"Li(\d+)E", m.group(2))
+                kind = "bf16" if "bfloat16" in m.group(2) else "f32"
+                name = f"{m.group(1)}<{', '.join(args + [kind])}>"
+            else:
+                name = line.split("'")[1][:60]
+            out[name] = [None, None, 0, 0]
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[name][2:] = [int(m.group(1)), int(m.group(2))]
+        elif name and "Used" in line:
+            reg = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name][0] = int(reg.group(1)) if reg else None
+            out[name][1] = int(smem.group(1)) if smem else 0
+    for k, (reg, smem, st, ld) in out.items():
+        print(f"  ptxas {k:44s} {reg} registers, {smem} bytes static smem, spills "
+              f"{st} / {ld} bytes", flush=True)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def wrapper_host_us(torch, mm8, mm_mod, calls=200, reps=5):
+    """Phase 14 (f): host us a call of the int8 wrapper (`int8_matmul`, the
+    entry the model calls) at 7B wq, R = 1, beside row 8's wrapper at the
+    same shape and a bf16 `torch.matmul` dispatch: host clocks around
+    `calls` enqueues (no synchronise inside them; the queue never fills),
+    the median of `reps` runs."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_weight_int4,
+        tp_safe_group,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((1, 4096), generator=g, device="cuda").bfloat16()
+    q8, s = int8_weight(torch, g, "io", 4096, 4096)
+    w4 = quantize_weight_int4(torch.randn((4096, 4096), generator=g, device="cuda")
+                              * 4096 ** -0.5, tp_safe_group(4096))
+    wb = (q8.float() * s[None, :]).bfloat16()
+    fns = {"int8_matmul": lambda: mm8.int8_matmul(x, q8, s),
+           "int4_matmul": lambda: mm_mod.int4_matmul(x, w4["q4"], w4["s4"]),
+           "torch.matmul bf16": lambda: torch.matmul(x, wb)}
+    out = {}
+    for name, fn in fns.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            runs.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        out[name] = sorted(runs)[reps // 2]
+    print("  host us a call, 7B wq R=1: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def time_int8(torch, mm8, mm_mod, report=""):
     """Phase 14 (f): the int8 matmul at every shape of INT8_SHAPES and row
     8 at INT4_STACKED, R in INT8_TIME_ROWS (bf16): kernel, plain, and
     cuBLAS bf16 against the weight dequantized to bf16 in advance (the
     yardstick only: it moves 2x the int8 bytes, and its weight is not the
-    int8 function's). Each call on its own copy of the weight, copies
-    cycled past L2 (at least 256 MB). Bound: x, the weight, its scales and
-    out once each over 3.35 TB/s, or 2 R IN OUT operations over 989
-    TFLOP/s (the products are bf16 x int8 in bf16 on the tensor cores)."""
+    int8 function's), with each int8 call's route, tile, splits and blocks.
+    Each call on its own copy of the weight, copies cycled past L2 (at
+    least 256 MB). Bound: x, the weight, its scales and out once each over
+    3.35 TB/s, or 2 R IN OUT operations over 989 TFLOP/s (the products are
+    bf16 x int8 in bf16 on the tensor cores). Then the int8 kernels' ptxas
+    report (`int8_ptxas` of the build's `report`) and the wrappers' host
+    time (`wrapper_host_us`)."""
     from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
         dequantize_weight_int4,
         quantize_weight_int4,
@@ -5866,12 +6002,15 @@ def time_int8(torch, mm8, mm_mod):
                       + rows * n_out * (4 if layout == "vd" else 2))
             b_ms, b_by = bound(nbytes, 2 * rows * n_in * n_out)
             key = f"{model}_{name.split('/')[0]}_R{rows}"
+            route, tile, splits, blocks = int8_launch(mm8, rows, n_in, n_out, layout)
             out["int8"][key] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                                    bound_by=b_by, route=mm8.int8_route(rows, x.dtype),
+                                    bound_by=b_by, route=route, tile=tile, splits=splits,
+                                    blocks=blocks,
                                     shape=dict(R=rows, IN=n_in, OUT=n_out, layout=layout,
                                                dtype="bfloat16"))
             print(f"  int8 {key:22s} {ms:.4f} ms (bound {b_ms:.4f} {b_by}, cuBLAS bf16 "
-                  f"{lib:.4f}, plain {plain:.4f})", flush=True)
+                  f"{lib:.4f}, plain {plain:.4f}) {route} tile {tile} splits {splits} "
+                  f"blocks {blocks}", flush=True)
         del ws, wb
     for model, name, n_in, c, n_out in INT4_STACKED:
         copies = max(2, min(32, -(-L2_FLUSH_BYTES // (n_in * c * n_out // 2))))
@@ -5902,6 +6041,8 @@ def time_int8(torch, mm8, mm_mod):
                   f"bf16 {lib:.4f}, plain {plain:.4f})", flush=True)
         del ws, wb
     torch.cuda.empty_cache()
+    out["int8_ptxas"] = int8_ptxas(report)
+    out["host_us"] = wrapper_host_us(torch, mm8, mm_mod)
     return out
 
 
@@ -5910,7 +6051,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one 7B engine request, a burst of 7B "
                          "scheduler requests and a batch on the bf16 and int8 7B "
-                         "engines with torch.profiler")
+                         "engines with torch.profiler (with --int8-only: the batch "
+                         "on the 7B engines alone)")
     ap.add_argument("--timing-only", action="store_true",
                     help="build and run the timing phase alone (no checks; "
                          "prints the times and no ok line)")
@@ -6044,7 +6186,10 @@ def main() -> int:
         int8_err = check_int8(torch, mm8)
         stacked_err = check_int4_stacked(torch, mm_mod)
         phase("int8 and stacked int4 timing (phase 14 (f))")
-        timed8 = time_int8(torch, mm8, mm_mod)
+        timed8 = time_int8(torch, mm8, mm_mod, reports.get("int8_matmul", ""))
+        if args.profile:
+            phase("profile (phase 14 (c)'s batch on the 7B engines)")
+            int8_profile(torch)
         phase(None)
         print(json.dumps({"int8_errors": int8_err, "int4_stacked_rel": stacked_err,
                           "int8_timing": timed8, "phase_seconds": _PHASE["seconds"],
@@ -6149,7 +6294,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed = timing(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
     phase("int8 and stacked int4 timing (phase 14 (f))")
-    timed8 = time_int8(torch, mm8, mm_mod)
+    timed8 = time_int8(torch, mm8, mm_mod, reports.get("int8_matmul", ""))
     phase("timing at the verify shapes, verify cost anchor")
     verify = time_verify(torch, attn_mod, pa_mod, pw_mod, mm_mod, DUCKDB_NSQL_7B)
     anchor, readings = verify_cost_anchor(torch, smi)
@@ -6236,6 +6381,7 @@ def main() -> int:
             entry["stacked_max_rel_err"] = stacked_err
         if launch == "int8":
             entry["max_err"] = {k: v for k, v in int8_err.items() if k != "abs"}
+            entry["host_us"] = timed8["host_us"]
         if "by_shape" in tm:
             entry["by_shape"] = tm["by_shape"]
         if launch in verify:

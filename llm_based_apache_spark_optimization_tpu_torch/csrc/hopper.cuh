@@ -1,8 +1,9 @@
 // Asynchronous copies and tensor-core helpers shared by the port's kernels,
 // for Hopper (sm_90a): 16- and 4-byte `cp.async` with zero-fill,
 // `mma.sync.m16n8k16` bf16 with f32 accumulators, `ldmatrix` (plain and
-// transposed), `wgmma` with A in registers and B in shared memory, the
-// launch of a thread-block cluster, and the programmatic dependent launch.
+// transposed), `wgmma` with A in registers and B in shared memory (N = 16
+// to 256), the launch of a thread-block cluster, and the programmatic
+// dependent launch.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * gid + tig, gid = lane / 4,
 // tig = lane % 4; each register holds two bf16, the lower index in the low
@@ -136,55 +137,192 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-// ---- thread-block clusters
+// The same product at narrower widths N of B (x rows in the int8 matmul's
+// transposed product): d[N / 2], d[4j + e] as above for j < N / 8.
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float* d, const uint32_t* a,
+                                                    uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a,
+                                                    uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
+                                                    uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float* d, const uint32_t* a,
+                                                    uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
+                                                    uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
 
-// Launch `kernel` over `grid` with clusters of (1, splits, 1) blocks (grid.y
-// a multiple of `splits`, splits <= 8). Returns the launch's error, or
-// cudaGetLastError() after it (0 = launched).
+
+// wgmma_rs<N> picks the helper of width N (16, 32, 64, 80, 128 or 256).
+template <int N> struct Wgmma;
+template <> struct Wgmma<16> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+    wgmma_m64n16k16_rs(d, a, desc, accumulate);
+  }
+};
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+    wgmma_m64n32k16_rs(d, a, desc, accumulate);
+  }
+};
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+    wgmma_m64n64k16_rs(d, a, desc, accumulate);
+  }
+};
+template <> struct Wgmma<80> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+    wgmma_m64n80k16_rs(d, a, desc, accumulate);
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+    wgmma_m64n128k16_rs(d, a, desc, accumulate);
+  }
+};
+template <> struct Wgmma<256> {
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+    wgmma_m64n256k16_rs(d, a, desc, accumulate);
+  }
+};
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc,
+                                         int accumulate) {
+  Wgmma<N>::rs(d, a, desc, accumulate);
+}
+
+// ---- thread-block clusters and programmatic dependent launch
+
+// Launch `kernel` over `grid`, with clusters of (1, splits, 1) blocks when
+// splits > 0 (grid.y a multiple of `splits`, splits <= 8), with
+// programmatic stream serialization when `pdl`. Returns the launch's error,
+// or cudaGetLastError() after it (0 = launched).
 template <typename... Params, typename... Args>
-int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int smem, int splits,
-                   cudaStream_t st, Args... args) {
+int launch_ex(void (*kernel)(Params...), dim3 grid, int threads, int smem, int splits, bool pdl,
+              cudaStream_t st, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = splits;
-  attr[0].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (splits > 0) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = 1;
+    attr[n].val.clusterDim.y = splits;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = n;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// ---- programmatic dependent launch
+// A launch in clusters of (1, splits, 1) blocks.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int smem, int splits,
+                   cudaStream_t st, Args... args) {
+  return launch_ex(kernel, grid, threads, smem, splits, false, st, args...);
+}
 
-// Launch `kernel` over `grid` with programmatic stream serialization: its
-// blocks may be scheduled while the kernel before it in the stream is still
-// running, so the launch overlaps that kernel's tail. The kernel must call
-// grid_dependency_wait() before it reads global memory. A stream capture
-// records the launch as a programmatic edge. Returns the launch's error, or
-// cudaGetLastError() after it (0 = launched).
+// A programmatic launch: its blocks may be scheduled while the kernel before
+// it in the stream is still running, so the launch overlaps that kernel's
+// tail. The kernel must call grid_dependency_wait() before it reads global
+// memory that kernel may write. A stream capture records the launch as a
+// programmatic edge.
 template <typename... Params, typename... Args>
 int launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, int smem, cudaStream_t st,
                Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_ex(kernel, grid, threads, smem, 0, true, st, args...);
+}
+
+// Both: a programmatic launch in clusters of (1, splits, 1) blocks.
+template <typename... Params, typename... Args>
+int launch_cluster_pdl(void (*kernel)(Params...), dim3 grid, int threads, int smem, int splits,
+                       cudaStream_t st, Args... args) {
+  return launch_ex(kernel, grid, threads, smem, splits, true, st, args...);
 }
 
 // Waits until the grids this one depends on have finished and their writes

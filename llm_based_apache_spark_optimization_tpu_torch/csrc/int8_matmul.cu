@@ -22,40 +22,64 @@
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16):
 //   decode (R <= 8): the weight bytes, IN * OUT + OUT * 4, read once (7B's
-//     wg: 45.1 MB, 13.5 us; the 7B unembed 131 MB, 39 us);
-//   prefill (R in the hundreds): 2 * R * IN * OUT operations over the
-//     tensor cores (wg at R = 1024: 92 GFLOP, 93 us), which mma.sync reaches
-//     only in part; the conversion of each weight to bf16, once per 64 rows
-//     of x, competes with the products for issue slots.
+//     wg: 45.1 MB, 13.5 us; the 7B unembed 131 MB, 39 us). Reaching that
+//     rate takes about 3.4 MB in flight across the card (3.35 TB/s times
+//     about 1 us of latency), and, per weight, few enough instructions for
+//     an SM to turn ~15 weights a cycle into products.
+//   verify and prefill (R > 8): the weight bytes up to R of about 100,
+//     then 2 * R * IN * OUT operations over the tensor cores (wg at R =
+//     1024: 92 GFLOP, 93 us), which only wgmma reaches.
 //
 // Design. Three kernels; the Python wrapper picks one by a single rule
-// (`int8mm.int8_route`) and passes it as `route`:
-//   * GEMV, io layout (bf16 x of R <= 8, f32 x over blocks of 8 rows): a
-//     block owns 256 output columns, a lane 8 adjacent columns (one 8-byte
-//     load a contraction row: a warp reads 256 contiguous bytes of a row),
-//     the eight warps interleave the contraction rows, four rows' loads in
-//     flight before their products. An int8 byte becomes an exact f32 with
-//     two instructions (a byte_perm into the mantissa of 2**23 + q + 128,
-//     one subtraction); x is staged in shared memory as f32 [k][8 rows] and
-//     read as broadcast float4s. The warps' partial sums are added in a
-//     fixed order; the contraction axis is split over a thread-block cluster
-//     of up to 8 blocks (cluster dims (1, splits, 1)), whose partial tiles
-//     are added through distributed shared memory in cluster-rank order,
-//     then scaled and written. One launch; no f32 scratch in device memory.
-//   * GEMV, vd layout (the unembed at decode): a warp owns 4 table rows, its
-//     lanes walk the hidden axis in 4-byte words (each warp load is 128
-//     contiguous bytes of a row), x staged as f32 [8 rows][512] and read as
-//     conflict-free float4s; a butterfly of shuffles adds the lanes (every
-//     lane ends with the same sum) and lane 4 * row + r writes logit (r,
-//     row). 32 table rows a block fill the card without a split.
-//   * Tensor cores (bf16 x, R > 8): mma.sync.m16n8k16, tiles of 64 rows of x
-//     x 128 output columns x 32 contraction rows, four warps of 32 x 64. x
-//     arrives by 16-byte cp.async; the int8 weight tile is loaded into
-//     registers one tile ahead of the products, converted to bf16 (exact)
-//     and stored into the other of two shared-memory stages; ldmatrix reads
-//     the fragments (transposed for the io layout's [k][n] tile, plainly for
-//     the vd layout's [n][k] one). f32 accumulators; the epilogue scales and
-//     stores two adjacent columns a lane. No split: deterministic.
+// (`int8mm.int8_route`), sizes it by another (`int8mm.split_plan`) and
+// passes the route, the tile and the split:
+//   * The conversion (both tensor-core routes): two int8 values, bytes 0
+//     and 2 of a word, become one exact bf16x2 register in three
+//     instructions: the low 7 bits go into the mantissa of 2**7 (128 + (q &
+//     127), a bf16 with 7 mantissa bits), the sign bit picks -128 or -256,
+//     and one bf16x2 FMA adds the two (every value is an integer of at most
+//     8 significant bits: exact). One byte_perm puts the pair in place.
+//   * Decode (bf16, R <= 8): the operands swapped, as the int4 decode
+//     kernel does: the converted weight is the A operand of
+//     mma.sync.m16n8k16 (16 outputs x 16 contraction values) and x^T is B
+//     (n = 8), so R = 8 costs the instructions of R = 1. A block owns BN =
+//     16 C output columns (io, C = 8, 4, 2 or 1, picked so the grid fills
+//     the card) or 64 table rows (vd), and streams its share of the
+//     contraction through a 6-stage ring of 8 KB stages of 16-byte cp.async
+//     copies, five stages (40 KB) in flight behind the math; x is staged
+//     once per block. Eight warps, each taking 16 outputs x 64 contraction
+//     values of every stage. The k order inside a 32-value step is permuted
+//     alike in A and B so that a lane's x is one 16-byte read: vd takes
+//     values 8 tig + j of a table row (one 8-byte read a row), io takes
+//     rows tig + 4 j, so that the four tig read four adjacent rows, 2 bytes
+//     a lane, at offsets fixed at compile time (rows padded to spread the
+//     banks), and x is staged permuted to match. The io contraction axis is
+//     split over a thread-block cluster of up to 8 blocks; the warps' and
+//     then the blocks' partial tiles are added in a fixed order, the latter
+//     through distributed shared memory in cluster-rank order. One launch,
+//     no atomics: the same bits from launch to launch.
+//   * Verify and prefill (bf16, R > 8): wgmma on the transposed product
+//     out^T = W^T x^T. The converted weight is the register A operand (two
+//     warpgroups of 64 output columns a block, each lane converting 8
+//     weights a 16-value step while up to three earlier products run); x^T
+//     is B, read by wgmma from the 128-byte swizzle in shared memory. N,
+//     the tile of x's rows, follows R (16, 32, 64, 80, 128 or 256), so R =
+//     72 runs as one tile of 80 and each weight is read and converted once
+//     per up to 256 rows of x. A cp.async ring of 4 to 8 stages (what 112 KB
+//     hold, two blocks an SM; 224 KB at N = 256) brings the weight and x
+//     tiles stages - 2 ahead of the math. Where the output tiles do not
+//     fill the card, the contraction is split over a cluster, summed as in
+//     decode; unsplit, each lane scales and stores its own sums.
+//   * Both tensor-core kernels are programmatic launches: the weight and
+//     its scales, which no kernel of the forward writes, start streaming
+//     before the kernel ahead in the stream has finished; x is read after
+//     `griddepcontrol.wait`. The epilogue scales the f32 sum (the scales
+//     staged with the first copies) and writes x's type (io) or f32 (vd).
+//   * f32 x (the tests' small f32 reference; not on a served path): the
+//     scalar GEMV in f32 FMA (TF32 would miss the 1e-5 tolerance): io, a
+//     block of 256 columns, a lane 8 adjacent columns, split over a cluster
+//     as decode is; vd, a warp 4 table rows; blocks of 8 rows of x over
+//     grid.z.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -72,11 +96,13 @@ using bf16 = __nv_bfloat16;
 using hopper::cp_async16;
 
 enum Layout { kIO = 0, kVD = 1 };
-enum Route { kRouteGemv = 0, kRouteMma = 1 };
+enum Route { kRouteGemv = 0, kRouteDecode = 1, kRouteWgmma = 2 };
 
-constexpr int kMaxRows = 8;    // rows of x a GEMV block covers
-constexpr int kThreads = 256;  // GEMV blocks: eight warps
+constexpr int kMaxRows = 8;    // rows of x a GEMV or decode block covers
+constexpr int kThreads = 256;  // every block: eight warps
 constexpr int kWarps = kThreads / 32;
+constexpr int kKStep = 64;     // a split's contraction is a multiple of this
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may take
 constexpr uint32_t kBias = 0x80808080u;  // int8 q -> byte q + 128
 
 // Element j of a word of four int8 values, already XORed with kBias, as an
@@ -85,19 +111,523 @@ __device__ __forceinline__ float i8f(uint32_t wb, int j) {
   return __fsub_rn(__uint_as_float(__byte_perm(wb, 0x4B000000u, 0x7440 | j)), 8388736.f);
 }
 
-template <typename T> struct Cvt;
-template <> struct Cvt<float> {
-  static __device__ __forceinline__ float in(float x) { return x; }
-  static __device__ __forceinline__ float out(float x) { return x; }
-};
-template <> struct Cvt<bf16> {
-  static __device__ __forceinline__ float in(bf16 x) { return __bfloat162float(x); }
-  static __device__ __forceinline__ bf16 out(float x) { return __float2bfloat16(x); }
+// (a & b) | c in one instruction (the compiler splits two constant
+// operands into two).
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Bytes 0 and 2 of t (two int8 values) as an exact bf16x2, byte 0 in the
+// low half: bf16 128 + (q & 127) plus -128, or -256 when the sign bit is
+// set.
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t t) {
+  const uint32_t m = and_or(t, 0x007F007Fu, 0x43004300u);
+  const uint32_t b = and_or(t, 0x00800080u, 0xC300C300u);
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(m), "r"(0x3F803F80u), "r"(b));
+  return r;
+}
+
+// Four adjacent outputs in one store.
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(hopper::pack_bf16(a, b), hopper::pack_bf16(c, d));
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// The cluster epilogue of the tensor-core routes: `P` (pitch floats a row,
+// `tr` x `tc` f32, tc a multiple of 4) holds this block's partial tile in
+// shared memory, `sc` the tile's tc scales (staged with the first copies,
+// so no read of device memory waits here). After a cluster barrier, rank q
+// of S blocks adds every S-th group of four columns over the ranks in rank
+// order (the ranks' reads issued together), scales it and writes rows < nr
+// of `out` (already at the tile's first row), columns c0 + c < n_out; a
+// second barrier keeps every tile alive until all reads are done. A launch
+// of one block a cluster adds nothing.
+template <typename OutT>
+__device__ __forceinline__ void cluster_sum_store(float* P, int pitch, int tr, int tc,
+                                                  OutT* out, const float* sc, int nr,
+                                                  int n_out, int c0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int q4 = tc / 4;
+  for (int e = rank * kThreads + (int)threadIdx.x; e < tr * q4; e += splits * kThreads) {
+    const int r = e / q4, c = (e % q4) * 4;
+    if (r < nr && c0 + c < n_out) {
+      float4 v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (q < splits)
+          v[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(P, q) + r * pitch + c);
+      }
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (q < splits) sum.x += v[q].x, sum.y += v[q].y, sum.z += v[q].z, sum.w += v[q].w;
+      }
+      const float4 f = *reinterpret_cast<const float4*>(sc + c);
+      store4(out + (long long)r * n_out + c0 + c, sum.x * f.x, sum.y * f.y, sum.z * f.z,
+             sum.w * f.w);
+    }
+  }
+  cluster.sync();
+}
+
+// ------------------------------------------------------- decode (bf16)
+
+constexpr int kDecCols[] = {128, 64, 32, 16};  // io output columns a block (C = BN / 16)
+constexpr int kDecVdCols = 64;                  // table rows a vd block (C = 4)
+constexpr int kDecStages = 6;
+constexpr int kDecStageBytes = 8192;            // int8 weight bytes a stage
+constexpr int kDecSliceK = kDecStageBytes / 128;  // contraction a warp takes of each stage
+constexpr int kDecCopies = kDecStageBytes / 16 / kThreads;  // 16-byte copies a thread a stage
+
+// The stage geometry of a block of BN = 16 C outputs of layout L: BK
+// contraction values of them a stage. io: BK = 512 / C rows of BN bytes,
+// padded by 16 where BN is 64 or 128 (rows 1, 2 and 3 after a row then
+// start in other banks); vd: 64 table rows of BK = 128 bytes, 16-byte
+// chunk (v, c) at v BK / 16 + (c ^ 2 (v % 4)).
+template <int L, int C> struct Dec {
+  static constexpr int BN = 16 * C;
+  static constexpr int BK = kDecStageBytes / BN;
+  static constexpr int kPitch = L == kVD ? BK : BN <= 32 ? BN : BN + 16;  // bytes a row
+  static constexpr int kStage = L == kIO ? BK * kPitch : kDecStageBytes;
 };
 
-// ------------------------------------------------------------ GEMV, io
+// x staged once: `rows` rows of the split's contraction, padded to a
+// multiple of kDecSliceK with zeros, plus 32 values of row pitch (a lane's
+// 16-byte reads of rows gid and gid + 1 then fall in other banks); then the
+// block's scales (at most 128).
+__host__ __device__ inline int dec_x_pitch(int k_len) {
+  return (k_len + kDecSliceK - 1) / kDecSliceK * kDecSliceK + 32;
+}
+template <int L, int C> int dec_smem_bytes(int rows, int k_len) {
+  return kDecStages * Dec<L, C>::kStage + rows * dec_x_pitch(k_len) * 2 + 128 * 4;
+}
 
-constexpr int kGemvBN = 256;  // output columns of a block: 8 a lane
+// Warp w takes the outputs 16 (w % C) .. + 15 and kDecSliceK contraction
+// values from kDecSliceK (w / C) of every stage, 32 a step. In a step lane
+// tig holds 8 contraction values: io rows tig + 4 j (j < 8), so that for
+// each j the four tig read four adjacent padded rows at an offset known at
+// compile time, with x staged permuted to match (the values of rows tig +
+// 4 j at 8 tig + j); vd values 8 tig + j, one 8-byte read a table row, x
+// as it is. The first m16n8k16 takes j = 0, 1 (k slots 2 tig, + 1) and 2,
+// 3 (slots 2 tig + 8, + 9), the second j = 4 .. 7, in A and in B alike.
+template <int L, int C, typename OutT>
+__global__ void __launch_bounds__(kThreads, L == kIO ? 3 : 2)
+int8_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ s, OutT* __restrict__ out, int rows, int n_in,
+                   int n_out, long long ldx, int k_split) {
+  using G = Dec<L, C>;
+  constexpr int BN = G::BN, BK = G::BK, RP = G::kPitch;
+  static_assert(L == kIO || C == kDecVdCols / 16, "a vd block is 64 table rows");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int cs = warp % C, kw = (warp / C) * kDecSliceK;
+  const int c0 = blockIdx.x * BN;
+  const int split = (int)cg::this_cluster().block_rank();
+  const int k_beg = split * k_split, k_len = min(k_split, n_in - k_beg);
+  const int n_tiles = (k_len + BK - 1) / BK;
+  const int xp = dec_x_pitch(k_len);
+  bf16* xs = reinterpret_cast<bf16*>(smem + kDecStages * G::kStage);
+  float* ss = reinterpret_cast<float*>(xs + rows * xp);
+
+  // Weight tile t into its stage, 16-byte chunks, zeros past the split's
+  // contraction or the last output. A thread's copies are chunks tid + 256
+  // j of every stage: their source moves by a tile's rows (io) or values
+  // (vd) from tile to tile, the destination and the bound stay; tiles go in
+  // order.
+  const int8_t* src[kDecCopies];
+  int dst[kDecCopies], lim[kDecCopies];
+#pragma unroll
+  for (int j = 0; j < kDecCopies; ++j) {
+    const int i = tid + kThreads * j;
+    if (L == kIO) {
+      const int r = i / C, c = i % C;
+      src[j] = w + (long long)(k_beg + r) * n_out + c0 + 16 * c;
+      dst[j] = r * RP + 16 * c;
+      lim[j] = c0 + 16 * c < n_out ? k_len - r : 0;  // copies while k0 < lim
+    } else {
+      const int v = i / (BK / 16), c = i % (BK / 16);
+      src[j] = w + (long long)(c0 + v) * n_in + k_beg + 16 * c;
+      dst[j] = (v * (BK / 16) + (c ^ ((v & 3) << 1))) * 16;
+      lim[j] = c0 + v < n_out ? k_len - 16 * c : 0;
+    }
+  }
+  const long long step = L == kIO ? (long long)BK * n_out : BK;
+  int slot = 0;  // the stage of the next tile issued
+  auto issue = [&](int t) {
+    unsigned char* st = smem + slot * G::kStage;
+    slot = slot + 1 == kDecStages ? 0 : slot + 1;
+#pragma unroll
+    for (int j = 0; j < kDecCopies; ++j) {
+      const bool ok = t * BK < lim[j];
+      cp_async16(st + dst[j], ok ? src[j] : w, ok);
+      src[j] += step;
+    }
+  };
+  // The scales and the first five stages, read before the kernel ahead in
+  // the stream has finished (a programmatic launch); then x (8 values a
+  // chunk, zeros past k_len), which that kernel may write, once: vd by
+  // cp.async, io by plain loads (they wait for x alone, not for the stages
+  // ahead of them).
+  if (tid < BN / 4) cp_async16(ss + 4 * tid, s + c0 + 4 * tid, c0 + 4 * tid < n_out);
+#pragma unroll
+  for (int t = 0; t < kDecStages - 1; ++t) {
+    if (t < n_tiles) issue(t);
+    hopper::cp_async_commit();
+  }
+  hopper::grid_dependency_wait();
+  const int xc = (xp - 32) / 8;
+  if (L == kVD) {
+    for (int i = tid; i < rows * xc; i += kThreads) {
+      const int r = i / xc, k = (i % xc) * 8;
+      const bool ok = k < k_len;
+      cp_async16(xs + r * xp + k, ok ? x + r * ldx + k_beg + k : x, ok);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<0>();
+  } else {
+    // io: permuted within each 32 values as it is staged, value 8 m + i to
+    // 8 (i % 4) + 2 m + i / 4 (the pair i, i + 4 one 4-byte store); the
+    // loop's first barrier publishes it.
+    for (int i = tid; i < rows * xc; i += kThreads) {
+      const int r = i / xc, k = (i % xc) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < k_len) v = *reinterpret_cast<const uint4*>(x + r * ldx + k_beg + k);
+      uint32_t* d = reinterpret_cast<uint32_t*>(xs + r * xp + (k & ~31) + (k & 31) / 4);
+      d[0] = __byte_perm(v.x, v.z, 0x5410);
+      d[4] = __byte_perm(v.x, v.z, 0x7632);
+      d[8] = __byte_perm(v.y, v.w, 0x5410);
+      d[12] = __byte_perm(v.y, v.w, 0x7632);
+    }
+  }
+
+  // acc: A row gid is output 2 gid (io) or gid (vd) of the warp's 16, row
+  // gid + 8 output 2 gid + 1 or gid + 8; column n is x row n.
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const bool x_row = gid < rows;
+  for (int t = 0; t < n_tiles; ++t) {
+    hopper::cp_async_wait<kDecStages - 2>();
+    // Tile t landed for every thread (and x is in place), and every warp is
+    // done with tile t - 1, whose stage takes tile t + 5.
+    __syncthreads();
+    if (t + kDecStages - 1 < n_tiles) issue(t + kDecStages - 1);
+    hopper::cp_async_commit();
+    const unsigned char* st = smem + (t % kDecStages) * G::kStage;
+    if (t * BK + kw >= k_len) continue;  // past the split's end: zeros only
+#pragma unroll
+    for (int h = 0; h < kDecSliceK / 32; ++h) {
+      const int kr = kw + 32 * h;
+      uint4 xv = make_uint4(0u, 0u, 0u, 0u);
+      if (x_row) xv = *reinterpret_cast<const uint4*>(xs + gid * xp + t * BK + kr + 8 * tig);
+      uint32_t a[2][4];
+      if (L == kIO) {
+        // Rows kr + tig + 4 j, columns 2 gid and 2 gid + 1 of the warp's 16.
+        const unsigned char* wp = st + (kr + tig) * RP + cs * 16 + 2 * gid;
+        uint32_t hw[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) hw[j] = *reinterpret_cast<const uint16_t*>(wp + 4 * j * RP);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t lo = __byte_perm(hw[4 * p], hw[4 * p + 1], 0x5410);
+          const uint32_t hi = __byte_perm(hw[4 * p + 2], hw[4 * p + 3], 0x5410);
+          a[p][0] = i8x2_bf16(lo);
+          a[p][1] = i8x2_bf16(lo >> 8);
+          a[p][2] = i8x2_bf16(hi);
+          a[p][3] = i8x2_bf16(hi >> 8);
+        }
+      } else {
+        const int v = cs * 16 + gid, c = (kr + 8 * tig) / 16, off = (8 * tig) % 16;
+        const int sw = c ^ ((v & 3) << 1);  // rows v and v + 8 swizzle alike
+        const uint2 wa = *reinterpret_cast<const uint2*>(st + (v * (BK / 16) + sw) * 16 + off);
+        const uint2 wb =
+            *reinterpret_cast<const uint2*>(st + ((v + 8) * (BK / 16) + sw) * 16 + off);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const uint32_t ta = __byte_perm(p ? wa.y : wa.x, 0u, 0x3120);
+          const uint32_t tb = __byte_perm(p ? wb.y : wb.x, 0u, 0x3120);
+          a[p][0] = i8x2_bf16(ta);
+          a[p][1] = i8x2_bf16(tb);
+          a[p][2] = i8x2_bf16(ta >> 8);
+          a[p][3] = i8x2_bf16(tb >> 8);
+        }
+      }
+      hopper::mma_bf16(acc, a[0], xv.x, xv.y);
+      hopper::mma_bf16(acc, a[1], xv.z, xv.w);
+    }
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial tiles reuse it
+
+  // The warps' tiles red[warp][x row][16 outputs], added over the
+  // contraction slices in slice order into P [8][BN].
+  float* red = reinterpret_cast<float*>(smem);
+  float* P = red + kWarps * kMaxRows * 16;
+  {
+    const int m0 = L == kIO ? 2 * gid : gid, m1 = L == kIO ? 2 * gid + 1 : gid + 8;
+    float* rw = red + warp * kMaxRows * 16;
+    rw[(2 * tig) * 16 + m0] = acc[0];
+    rw[(2 * tig + 1) * 16 + m0] = acc[1];
+    rw[(2 * tig) * 16 + m1] = acc[2];
+    rw[(2 * tig + 1) * 16 + m1] = acc[3];
+  }
+  __syncthreads();
+  for (int e = tid; e < kMaxRows * BN; e += kThreads) {
+    const int r = e / BN, c = e % BN;
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps / C; ++k)
+      sum += red[((k * C + c / 16) * kMaxRows + r) * 16 + c % 16];
+    P[r * BN + c] = sum;
+  }
+  cluster_sum_store<OutT>(P, BN, kMaxRows, BN, out, ss, rows, n_out, c0);
+}
+
+// ------------------------------------------------ verify, prefill (bf16)
+
+constexpr int kWgRows[] = {16, 32, 64, 80, 128, 256};  // N: x rows a block
+constexpr int kWgBN = 128;                  // output columns a block: two warpgroups of 64
+constexpr int kWgBK = 64;                   // contraction a stage
+constexpr int kWgRing = 112 * 1024;         // ring bytes of a block, two blocks an SM
+constexpr int kWgRowIO = kWgBN + 16;        // bytes a staged io weight row
+constexpr int kWgRowVD = kWgBK + 16;        // bytes a staged vd table row
+constexpr int kWgPitchP = kWgBN + 4;        // f32 a row of the partial tile
+
+template <int L> __host__ __device__ constexpr int wg_w_bytes() {
+  return L == kIO ? kWgBK * kWgRowIO : kWgBN * kWgRowVD;
+}
+// A stage: the x tile (N rows of 64 values, 128 bytes, in the 128-byte
+// swizzle), then the weight tile; 1024-byte aligned.
+template <int L, int N> __host__ __device__ constexpr int wg_stage_bytes() {
+  return (N * 128 + wg_w_bytes<L>() + 1023) / 1024 * 1024;
+}
+// Stages: as many as fit the ring's bytes (twice them at N = 256, one
+// block an SM), 4 to 8; the copies run stages - 2 tiles ahead of the math.
+template <int L, int N> __host__ __device__ constexpr int wg_stages() {
+  return (N <= 128 ? 1 : 2) * kWgRing / wg_stage_bytes<L, N>() < 4 ? 4
+       : (N <= 128 ? 1 : 2) * kWgRing / wg_stage_bytes<L, N>() > 8 ? 8
+       : (N <= 128 ? 1 : 2) * kWgRing / wg_stage_bytes<L, N>();
+}
+// The ring (then the partial tile), the scales, 1024 bytes to align.
+template <int L, int N> __host__ __device__ constexpr int wg_smem_bytes() {
+  return (wg_stages<L, N>() * wg_stage_bytes<L, N>() > N * kWgPitchP * 4
+              ? wg_stages<L, N>() * wg_stage_bytes<L, N>() : N * kWgPitchP * 4) +
+         kWgBN * 4 + 1024;
+}
+
+// Block (column tile, split, row tile). Warp w = 4 g + l of warpgroup g
+// holds A rows 16 l .. + 15 of the group's 64 outputs: row gid is output 64
+// g + 16 l + 2 gid (io) or + gid (vd), row gid + 8 output + 2 gid + 1 or +
+// gid + 8. io stage rows are padded to 144 bytes and vd rows to 80, so a
+// warp's 2-byte reads hit distinct banks.
+template <int L, int N, typename OutT>
+__global__ void __launch_bounds__(kThreads, N <= 128 ? 2 : 1)
+int8_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                  const float* __restrict__ s, OutT* __restrict__ out, int rows, int n_in,
+                  int n_out, long long ldx, int k_split) {
+  constexpr int SB = wg_stage_bytes<L, N>();
+  constexpr int S = wg_stages<L, N>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (1024 - static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) % 1024) % 1024;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wo = (warp / 4) * 64 + (warp % 4) * 16;  // the warp's 16 outputs
+  const int c0 = blockIdx.x * kWgBN, r0 = blockIdx.z * N;
+  const int nr = min(N, rows - r0);
+  const int split = (int)cg::this_cluster().block_rank();
+  const int k_beg = split * k_split, k_len = min(k_split, n_in - k_beg);
+  const int n_tiles = (k_len + kWgBK - 1) / kWgBK;
+
+  // Tile t's copies into its stage: the x tile (N rows x 8 chunks, up to
+  // XC a thread; rows past R zero), and the weight tile (2 chunks a
+  // thread). A copy's source moves by 64 contraction values from tile to
+  // tile, its destination and bound stay; each kind goes through the tiles
+  // in order.
+  constexpr int XC = (N * 8 + kThreads - 1) / kThreads;
+  const bf16* xsrc[XC];
+  int xdst[XC], xlim[XC];
+#pragma unroll
+  for (int m = 0; m < XC; ++m) {
+    const int i = tid + kThreads * m, r = i / 8, c = i % 8;
+    xsrc[m] = x + (long long)(r0 + r) * ldx + k_beg + 8 * c;
+    xdst[m] = i < N * 8 ? r * 128 + ((c ^ (r & 7)) * 16) : -1;  // -1: no chunk
+    xlim[m] = r < nr ? k_len - 8 * c : 0;  // copies while k0 < xlim
+  }
+  const int8_t* wsrc[2];
+  int wdst[2], wlim[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = tid + kThreads * j;
+    if (L == kIO) {
+      const int r = i / 8, c = i % 8;
+      wsrc[j] = w + (long long)(k_beg + r) * n_out + c0 + 16 * c;
+      wdst[j] = N * 128 + r * kWgRowIO + 16 * c;
+      wlim[j] = c0 + 16 * c < n_out ? k_len - r : 0;
+    } else {
+      const int v = i / 4, c = i % 4;
+      wsrc[j] = w + (long long)(c0 + v) * n_in + k_beg + 16 * c;
+      wdst[j] = N * 128 + v * kWgRowVD + 16 * c;
+      wlim[j] = c0 + v < n_out ? k_len - 16 * c : 0;
+    }
+  }
+  const long long wstep = L == kIO ? (long long)kWgBK * n_out : kWgBK;
+  int xslot = 0, wslot = 0;
+  auto issue_x = [&](int t) {
+    unsigned char* st = smem + xslot * SB;
+    xslot = xslot + 1 == S ? 0 : xslot + 1;
+#pragma unroll
+    for (int m = 0; m < XC; ++m) {
+      const bool ok = t * kWgBK < xlim[m];
+      if (xdst[m] >= 0) cp_async16(st + xdst[m], ok ? xsrc[m] : x, ok);
+      xsrc[m] += kWgBK;
+    }
+  };
+  auto issue_w = [&](int t) {
+    unsigned char* st = smem + wslot * SB;
+    wslot = wslot + 1 == S ? 0 : wslot + 1;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool ok = t * kWgBK < wlim[j];
+      cp_async16(st + wdst[j], ok ? wsrc[j] : w, ok);
+      wsrc[j] += wstep;
+    }
+  };
+
+  // acc: this warpgroup's out^T tile, 64 outputs x N rows of x. The first
+  // product overwrites it (a zeroing store would serialize the wgmmas).
+  float acc[N / 2];
+  // A of the four 16-value steps of a tile, each in registers of its own.
+  uint32_t a[4][4] = {};
+  // The scales and the weight tiles of the first S - 2 stages, read before
+  // the kernel ahead in the stream has finished (a programmatic launch);
+  // then their x tiles, which that kernel may write, a copy group a tile.
+  float* ss = reinterpret_cast<float*>(smem + (wg_smem_bytes<L, N>() - 1024 - kWgBN * 4));
+  if (tid < kWgBN / 4) cp_async16(ss + 4 * tid, s + c0 + 4 * tid, c0 + 4 * tid < n_out);
+#pragma unroll
+  for (int t = 0; t < S - 2; ++t) {
+    if (t < n_tiles) issue_w(t);
+  }
+  hopper::grid_dependency_wait();
+#pragma unroll
+  for (int t = 0; t < S - 2; ++t) {
+    if (t < n_tiles) issue_x(t);
+    hopper::cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    hopper::cp_async_wait<S - 3>();  // this thread's copies of tile it
+    hopper::fence_async_shared();
+    // Every thread's copies of tile it have landed, and every warpgroup's
+    // products of tile it - 2 are done (each waits for all but its last
+    // three groups, all of tile it - 1), so its stage takes the copies of
+    // tile it + S - 2.
+    __syncthreads();
+    if (it + S - 2 < n_tiles) {
+      issue_x(it + S - 2);
+      issue_w(it + S - 2);
+    }
+    hopper::cp_async_commit();
+    const unsigned char* st = smem + (it % S) * SB;
+    const uint64_t desc = hopper::desc_sw128(st);
+    const unsigned char* W = st + N * 128;
+#pragma unroll
+    for (int ks = 0; ks < kWgBK / 16; ++ks) {
+      // A of this 16-value step, converted while the previous steps'
+      // products run. Up to four products are in flight, each reading the
+      // A registers of its step: a step's registers are written again four
+      // steps later, after the wait that retires the product reading them
+      // (the empty asm after the wait keeps the compiler from reusing them
+      // sooner).
+      uint32_t* ak = a[ks];
+      if (L == kIO) {
+        // Rows 16 ks + 2 tig, + 1 (a0, a1) and + 8, + 9 (a2, a3), the
+        // lane's two columns' bytes each.
+        const unsigned char* p = W + (ks * 16 + 2 * tig) * kWgRowIO + wo + 2 * gid;
+        const uint32_t h0 = *reinterpret_cast<const uint16_t*>(p);
+        const uint32_t h1 = *reinterpret_cast<const uint16_t*>(p + kWgRowIO);
+        const uint32_t h8 = *reinterpret_cast<const uint16_t*>(p + 8 * kWgRowIO);
+        const uint32_t h9 = *reinterpret_cast<const uint16_t*>(p + 9 * kWgRowIO);
+        const uint32_t lo = __byte_perm(h0, h1, 0x5410), hi = __byte_perm(h8, h9, 0x5410);
+        ak[0] = i8x2_bf16(lo);
+        ak[1] = i8x2_bf16(lo >> 8);
+        ak[2] = i8x2_bf16(hi);
+        ak[3] = i8x2_bf16(hi >> 8);
+      } else {
+        // Table rows gid and gid + 8 of the warp's 16, values 16 ks + 2 tig,
+        // + 1 and + 8, + 9.
+        const unsigned char* p = W + (wo + gid) * kWgRowVD + ks * 16 + 2 * tig;
+        const uint32_t tg = __byte_perm(*reinterpret_cast<const uint16_t*>(p),
+                                        *reinterpret_cast<const uint16_t*>(p + 8), 0x5140);
+        const uint32_t th = __byte_perm(*reinterpret_cast<const uint16_t*>(p + 8 * kWgRowVD),
+                                        *reinterpret_cast<const uint16_t*>(p + 8 * kWgRowVD + 8),
+                                        0x5140);
+        ak[0] = i8x2_bf16(tg);
+        ak[1] = i8x2_bf16(th);
+        ak[2] = i8x2_bf16(tg >> 8);
+        ak[3] = i8x2_bf16(th >> 8);
+      }
+      hopper::wgmma_fence();
+      hopper::wgmma_rs<N>(acc, ak, desc + 2 * ks, it > 0 || ks > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<3>();
+      const uint32_t* done = a[(ks + 1) % 4];  // the step four before the next
+      asm volatile("" :: "r"(done[0]), "r"(done[1]), "r"(done[2]), "r"(done[3]));
+    }
+  }
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) hopper::fence_operand(acc[i]);
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial tile reuses it
+
+  // acc[4j + e]: output row gid + 8 (e / 2) of the warp's A, x row 8j + 2
+  // tig + e % 2. Unsplit, the lane scales and stores its sums (io: the
+  // adjacent outputs m0, m1 one 4-byte store); split, they go to P [N]
+  // [kWgBN] (pitch kWgPitchP) for the cluster's sum.
+  const int m0 = wo + (L == kIO ? 2 * gid : gid), m1 = wo + (L == kIO ? 2 * gid + 1 : gid + 8);
+  if (cg::this_cluster().num_blocks() == 1) {
+    const float s0 = ss[m0], s1 = ss[m1];
+    OutT* o = out + (long long)r0 * n_out + c0;
+    if (c0 + m0 < n_out) {  // m0 and m1 in the same 16 outputs: both in or out
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = 8 * j + 2 * tig + h;
+          if (n < nr) {
+            if constexpr (L == kIO) {
+              *reinterpret_cast<uint32_t*>(o + (long long)n * n_out + m0) =
+                  hopper::pack_bf16(acc[4 * j + h] * s0, acc[4 * j + 2 + h] * s1);
+            } else {
+              o[(long long)n * n_out + m0] = acc[4 * j + h] * s0;
+              o[(long long)n * n_out + m1] = acc[4 * j + 2 + h] * s1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  float* P = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      P[(8 * j + 2 * tig + (e & 1)) * kWgPitchP + (e < 2 ? m0 : m1)] = acc[4 * j + e];
+  }
+  cluster_sum_store<OutT>(P, kWgPitchP, N, kWgBN, out + (long long)r0 * n_out, ss, nr, n_out,
+                          c0);
+}
+
+// ------------------------------------------------------------ GEMV (f32)
+
+constexpr int kGemvBN = 256;  // output columns of an io block: 8 a lane
 constexpr int kGemvKC = 256;  // contraction rows of x staged a pass
 
 // acc[r][j] += x[r] * q[j] for the 8 columns of one contraction row: `wv`
@@ -125,10 +655,10 @@ __device__ __forceinline__ void fma_row(float (&acc)[RB][8], uint2 wv, const flo
   }
 }
 
-template <typename T, int RB>
+template <int RB>
 __global__ void __launch_bounds__(kThreads)
-int8_gemv_io_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ s, T* __restrict__ out, int rows, int n_in,
+int8_gemv_io_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                    const float* __restrict__ s, float* __restrict__ out, int rows, int n_in,
                     int n_out, long long ldx, int k_split) {
   __shared__ __align__(16) float xs[kGemvKC][kMaxRows];
   __shared__ __align__(16) float red[kWarps][kGemvBN];
@@ -152,7 +682,7 @@ int8_gemv_io_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();  // the previous pass's readers are done
     for (int i = tid; i < kGemvKC * kMaxRows; i += kThreads) {
       const int k = i % kGemvKC, r = i / kGemvKC;
-      xs[k][r] = (r < nr && k < n) ? Cvt<T>::in(x[(long long)(r0 + r) * ldx + p0 + k]) : 0.f;
+      xs[k][r] = (r < nr && k < n) ? x[(long long)(r0 + r) * ldx + p0 + k] : 0.f;
     }
     __syncthreads();
     if (!col_ok) continue;
@@ -193,21 +723,19 @@ int8_gemv_io_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     if (r < nr && c < n_out) {
       float sum = 0.f;
       for (int q = 0; q < splits; ++q) sum += cluster.map_shared_rank(P, q)[e];
-      out[(long long)(r0 + r) * n_out + c] = Cvt<T>::out(sum * s[c]);
+      out[(long long)(r0 + r) * n_out + c] = sum * s[c];
     }
   }
   cluster.sync();  // every tile stays alive until all reads are done
 }
 
-// ------------------------------------------------------------ GEMV, vd
-
 constexpr int kVdRowsW = 4;                  // table rows a warp
 constexpr int kVdBV = kWarps * kVdRowsW;     // table rows a block
 constexpr int kVdDC = 512;                   // hidden values of x staged a pass
 
-template <typename T, int RB>
+template <int RB>
 __global__ void __launch_bounds__(kThreads)
-int8_gemv_vd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+int8_gemv_vd_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
                     const float* __restrict__ s, float* __restrict__ out, int rows, int n_in,
                     int n_out, long long ldx) {
   __shared__ __align__(16) float xs[kMaxRows][kVdDC];
@@ -226,7 +754,7 @@ int8_gemv_vd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     __syncthreads();
     for (int i = tid; i < RB * kVdDC; i += kThreads) {
       const int r = i / kVdDC, d = i % kVdDC;
-      xs[r][d] = (r < nr && d < n) ? Cvt<T>::in(x[(long long)(r0 + r) * ldx + d0 + d]) : 0.f;
+      xs[r][d] = (r < nr && d < n) ? x[(long long)(r0 + r) * ldx + d0 + d] : 0.f;
     }
     __syncthreads();
     // Lane l reads hidden values 128 q + 4 l .. + 3 of each of its rows.
@@ -274,202 +802,104 @@ int8_gemv_vd_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// ------------------------------------------------------ tensor cores
+// ------------------------------------------------------------- launches
 
-constexpr int kMmaThreads = 128;                 // four warps of 32 x 64
-constexpr int kBM = 64, kBN = 128, kBK = 32;
-constexpr int kXS = kBK + 8;                     // bf16 a staged x row (80 bytes)
-constexpr int kWSio = kBN + 8;                   // io: a staged [k] row of 128 columns
-constexpr int kWSvd = kBK + 8;                   // vd: a staged table row of 32 values
-template <int L> struct WTile {
-  static constexpr int kElems = L == kIO ? kBK * kWSio : kBN * kWSvd;
-};
+// Opt a kernel into the most dynamic shared memory a block may take, once
+// (`done` is the flag of its launch function's instantiation).
+int opt_in(const void* kernel, bool* done) {
+  if (*done) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return (int)err;
+  *done = true;
+  return 0;
+}
 
-template <typename OutT> struct Store2;
-template <> struct Store2<bf16> {
-  static __device__ __forceinline__ void st(bf16* p, float a, float b) {
-    *reinterpret_cast<uint32_t*>(p) = hopper::pack_bf16(a, b);
+template <int L, int C, typename OutT>
+int launch_decode(const bf16* x, const int8_t* w, const float* s, void* out, int rows,
+                  int n_in, int n_out, long long ldx, int splits, int k_split, cudaStream_t st) {
+  const auto kernel = int8_decode_kernel<L, C, OutT>;
+  const int smem = dec_smem_bytes<L, C>(rows, k_split < n_in ? k_split : n_in);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  static bool done = false;
+  if (int err = opt_in((const void*)kernel, &done)) return err;
+  const dim3 grid((n_out + 16 * C - 1) / (16 * C), splits);
+  return hopper::launch_cluster_pdl(kernel, grid, kThreads, smem, splits, st, x, w, s,
+                                    static_cast<OutT*>(out), rows, n_in, n_out, ldx, k_split);
+}
+
+int decode(int layout, int tile, const bf16* x, const int8_t* w, const float* s, void* out,
+           int rows, int n_in, int n_out, long long ldx, int splits, int k_split,
+           cudaStream_t st) {
+  if (layout == kVD) {
+    if (tile != kDecVdCols || splits != 1) return (int)cudaErrorInvalidValue;
+    return launch_decode<kVD, kDecVdCols / 16, float>(x, w, s, out, rows, n_in, n_out, ldx, 1,
+                                                      k_split, st);
   }
-};
-template <> struct Store2<float> {
-  static __device__ __forceinline__ void st(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
-
-template <int L, typename OutT>
-__global__ void __launch_bounds__(kMmaThreads)
-int8_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ s, OutT* __restrict__ out, int rows, int n_in,
-                int n_out, long long ldx) {
-  __shared__ __align__(16) bf16 Xs[2][kBM * kXS];
-  __shared__ __align__(16) bf16 Ws[2][WTile<L>::kElems];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int wm = warp % 2, wn = warp / 2;  // 32 rows x 64 columns a warp
-  const int r0 = blockIdx.y * kBM, c0 = blockIdx.x * kBN;
-  const int n_tiles = (n_in + kBK - 1) / kBK;
-
-  // Stage copies, two 16-byte chunks a thread: x chunk c = row c / 4,
-  // values 8 (c % 4); weight chunk c (16 int8) = io: contraction row c / 8,
-  // columns 16 (c % 8); vd: table row c / 2, values 16 (c % 2).
-  auto load_x = [&](int it, int buf) {
-    const int k0 = it * kBK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kMmaThreads * i, row = c / 4, kc = (c % 4) * 8;
-      const bool ok = r0 + row < rows && k0 + kc < n_in;
-      cp_async16(&Xs[buf][row * kXS + kc], ok ? x + (long long)(r0 + row) * ldx + k0 + kc : x,
-                 ok);
-    }
-  };
-  auto load_w = [&](int it, uint4 (&reg)[2]) {
-    const int k0 = it * kBK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kMmaThreads * i;
-      bool ok;
-      const int8_t* src;
-      if (L == kIO) {
-        const int kr = c / 8, nc = (c % 8) * 16;
-        ok = k0 + kr < n_in && c0 + nc < n_out;
-        src = w + (long long)(k0 + kr) * n_out + c0 + nc;
-      } else {
-        const int vr = c / 2, kc = (c % 2) * 16;
-        ok = c0 + vr < n_out && k0 + kc < n_in;
-        src = w + (long long)(c0 + vr) * n_in + k0 + kc;
-      }
-      reg[i] = ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto store_w = [&](const uint4 (&reg)[2], int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kMmaThreads * i;
-      bf16* dst = L == kIO ? &Ws[buf][(c / 8) * kWSio + (c % 8) * 16]
-                           : &Ws[buf][(c / 2) * kWSvd + (c % 2) * 16];
-      const uint32_t wd[4] = {reg[i].x ^ kBias, reg[i].y ^ kBias, reg[i].z ^ kBias,
-                              reg[i].w ^ kBias};
-      uint32_t h[8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        h[2 * j] = hopper::pack_bf16(i8f(wd[j], 0), i8f(wd[j], 1));
-        h[2 * j + 1] = hopper::pack_bf16(i8f(wd[j], 2), i8f(wd[j], 3));
-      }
-      reinterpret_cast<uint4*>(dst)[0] = make_uint4(h[0], h[1], h[2], h[3]);
-      reinterpret_cast<uint4*>(dst)[1] = make_uint4(h[4], h[5], h[6], h[7]);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < 8; ++nj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-    }
-  }
-  uint4 reg[2];
-  load_x(0, 0);
-  hopper::cp_async_commit();
-  load_w(0, reg);
-  store_w(reg, 0);
-  for (int it = 0; it < n_tiles; ++it) {
-    hopper::cp_async_wait<0>();
-    // Tile it is in stage it % 2 (x copied, the weight stored by every
-    // thread), and every warp's products of tile it - 1 are done, so the
-    // other stage takes tile it + 1.
-    __syncthreads();
-    const int buf = it & 1;
-    const bool next = it + 1 < n_tiles;
-    if (next) {
-      load_x(it + 1, buf ^ 1);
-      hopper::cp_async_commit();
-      load_w(it + 1, reg);  // in flight behind this tile's products
-    }
-    const bf16* X = Xs[buf];
-    const bf16* W = Ws[buf];
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        hopper::ldsm_x4(a[mi], X + (wm * 32 + mi * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kXS +
-                                   ks * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        // b[0], b[1]: columns 16 p .. + 7 of the warp's 64; b[2], b[3]: the
-        // next 8.
-        uint32_t b[4];
-        if (L == kIO) {
-          hopper::ldsm_x4_trans(b, W + (ks * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kWSio +
-                                       wn * 64 + p * 16 + (lane / 16) * 8);
-        } else {
-          hopper::ldsm_x4(b, W + (wn * 64 + p * 16 + lane % 8 + (lane / 16) * 8) * kWSvd +
-                                 ks * 16 + ((lane / 8) % 2) * 8);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          hopper::mma_bf16(acc[mi][2 * p], a[mi], b[0], b[1]);
-          hopper::mma_bf16(acc[mi][2 * p + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-    if (next) store_w(reg, buf ^ 1);
-  }
-
-  // acc[mi][nj]: rows 16 mi + gid (+ 8 for e >= 2) of the warp's 32,
-  // columns 8 nj + 2 tig, + 1 of its 64.
-#pragma unroll
-  for (int nj = 0; nj < 8; ++nj) {
-    const int col = c0 + wn * 64 + nj * 8 + 2 * tig;
-    if (col >= n_out) continue;
-    const float s0 = s[col], s1 = s[col + 1];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + wm * 32 + mi * 16 + gid + 8 * h;
-        if (row < rows)
-          Store2<OutT>::st(out + (long long)row * n_out + col, acc[mi][nj][2 * h] * s0,
-                           acc[mi][nj][2 * h + 1] * s1);
-      }
-    }
+  switch (tile) {
+    case kDecCols[0]: return launch_decode<kIO, kDecCols[0] / 16, bf16>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kDecCols[1]: return launch_decode<kIO, kDecCols[1] / 16, bf16>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kDecCols[2]: return launch_decode<kIO, kDecCols[2] / 16, bf16>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kDecCols[3]: return launch_decode<kIO, kDecCols[3] / 16, bf16>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// ------------------------------------------------------------- launches
+template <int L, int N, typename OutT>
+int launch_wgmma(const bf16* x, const int8_t* w, const float* s, void* out, int rows, int n_in,
+                 int n_out, long long ldx, int splits, int k_split, cudaStream_t st) {
+  const auto kernel = int8_wgmma_kernel<L, N, OutT>;
+  static_assert(wg_smem_bytes<L, N>() <= kMaxSmem, "the ring fits a block");
+  static bool done = false;
+  if (int err = opt_in((const void*)kernel, &done)) return err;
+  const dim3 grid((n_out + kWgBN - 1) / kWgBN, splits, (rows + N - 1) / N);
+  return hopper::launch_cluster_pdl(kernel, grid, kThreads, wg_smem_bytes<L, N>(), splits, st,
+                                    x, w, s, static_cast<OutT*>(out), rows, n_in, n_out, ldx,
+                                    k_split);
+}
 
-template <typename T, int RB>
-int launch_gemv(int layout, const void* x, const int8_t* w, const float* s, void* out,
+template <int L, typename OutT>
+int wgmma_rows(int tile, const bf16* x, const int8_t* w, const float* s, void* out, int rows,
+               int n_in, int n_out, long long ldx, int splits, int k_split, cudaStream_t st) {
+  switch (tile) {
+    case kWgRows[0]: return launch_wgmma<L, kWgRows[0], OutT>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kWgRows[1]: return launch_wgmma<L, kWgRows[1], OutT>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kWgRows[2]: return launch_wgmma<L, kWgRows[2], OutT>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kWgRows[3]: return launch_wgmma<L, kWgRows[3], OutT>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kWgRows[4]: return launch_wgmma<L, kWgRows[4], OutT>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kWgRows[5]: return launch_wgmma<L, kWgRows[5], OutT>(x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int RB>
+int launch_gemv(int layout, const float* x, const int8_t* w, const float* s, void* out,
                 int rows, int n_in, int n_out, long long ldx, int splits, int k_split,
                 cudaStream_t st) {
   const int zb = (rows + kMaxRows - 1) / kMaxRows;
   if (layout == kIO) {
     const dim3 grid((n_out + kGemvBN - 1) / kGemvBN, splits, zb);
-    return hopper::launch_cluster(int8_gemv_io_kernel<T, RB>, grid, kThreads, 0, splits, st,
-                                  static_cast<const T*>(x), w, s, static_cast<T*>(out), rows,
-                                  n_in, n_out, ldx, k_split);
+    return hopper::launch_cluster(int8_gemv_io_kernel<RB>, grid, kThreads, 0, splits,
+                                  st, x, w, s, static_cast<float*>(out), rows, n_in, n_out, ldx,
+                                  k_split);
   }
   const dim3 grid((n_out + kVdBV - 1) / kVdBV, 1, zb);
-  int8_gemv_vd_kernel<T, RB><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), w, s, static_cast<float*>(out), rows, n_in, n_out, ldx);
+  int8_gemv_vd_kernel<RB><<<grid, kThreads, 0, st>>>(
+      x, w, s, static_cast<float*>(out), rows, n_in, n_out, ldx);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int gemv_rows(int layout, const void* x, const int8_t* w, const float* s, void* out, int rows,
+int gemv_rows(int layout, const float* x, const int8_t* w, const float* s, void* out, int rows,
               int n_in, int n_out, long long ldx, int splits, int k_split, cudaStream_t st) {
   switch (rows < kMaxRows ? rows : kMaxRows) {
-    case 1: return launch_gemv<T, 1>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
-    case 2: return launch_gemv<T, 2>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
-    case 3: return launch_gemv<T, 3>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
-    case 4: return launch_gemv<T, 4>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
-    case 5: return launch_gemv<T, 5>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
-    case 6: return launch_gemv<T, 6>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
-    case 7: return launch_gemv<T, 7>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
-    default: return launch_gemv<T, 8>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case 1: return launch_gemv<1>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case 2: return launch_gemv<2>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case 3: return launch_gemv<3>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case 4: return launch_gemv<4>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case 5: return launch_gemv<5>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case 6: return launch_gemv<6>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case 7: return launch_gemv<7>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    default: return launch_gemv<8>(layout, x, w, s, out, rows, n_in, n_out, ldx, splits, k_split, st);
   }
 }
 
@@ -478,38 +908,41 @@ int gemv_rows(int layout, const void* x, const int8_t* w, const float* s, void* 
 // Returns cudaGetLastError() after the launch (0 = launched). x rows are
 // `ldx` elements apart; n_in % 16 == 0 and n_out % 16 == 0 (n_out is V for
 // the vd layout); `x_f32` says x (and the io output) is f32, else bf16; the
-// vd output is f32. `route` 0 is the GEMV (f32 x, or bf16 x of at most 8
-// rows), 1 the tensor cores (bf16 x). With `splits` > 1 (the io GEMV only)
-// the contraction axis is split over a cluster of `splits` <= 8 blocks, each
-// covering `k_split` contraction rows.
+// vd output is f32. `route` 0 is the f32 GEMV, 1 the bf16 decode kernel (R
+// <= 8; `tile` its output columns: kDecCols for io, kDecVdCols for vd), 2
+// the bf16 wgmma kernel (`tile` its rows of x, one of kWgRows). The
+// contraction axis is split over a cluster of `splits` <= 8 blocks (the
+// GEMV and decode kernels: io only), each covering `k_split` contraction
+// values (a multiple of kKStep for the tensor-core routes when split),
+// none empty.
 extern "C" int int8_matmul(const void* x, const void* q8, const void* s, void* out, int rows,
                            int n_in, int n_out, long long ldx, int x_f32, int layout,
-                           int route, int splits, int k_split, void* stream) {
+                           int route, int tile, int splits, int k_split, void* stream) {
   if (rows <= 0 || n_out <= 0) return 0;
   if (n_in <= 0 || n_in % 16 || n_out % 16 || (layout != kIO && layout != kVD) ||
-      splits < 1 || splits > 8 || (splits > 1 && (layout != kIO || route != kRouteGemv)) ||
-      k_split <= 0 || (long long)splits * k_split < n_in)
+      splits < 1 || splits > 8 || (splits > 1 && layout != kIO && route != kRouteWgmma) ||
+      k_split <= 0 ||
+      (long long)splits * k_split < n_in || (long long)(splits - 1) * k_split >= n_in ||
+      (x_f32 != 0) != (route == kRouteGemv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* w = static_cast<const int8_t*>(q8);
   const float* sc = static_cast<const float*>(s);
+  if (route == kRouteGemv)
+    return gemv_rows(layout, static_cast<const float*>(x), w, sc, out, rows, n_in, n_out, ldx,
+                     splits, k_split, st);
+  if (splits > 1 && k_split % kKStep) return (int)cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
   switch (route) {
-    case kRouteGemv:
-      if (x_f32) return gemv_rows<float>(layout, x, w, sc, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kRouteDecode:
       if (rows > kMaxRows) return (int)cudaErrorInvalidValue;
-      return gemv_rows<bf16>(layout, x, w, sc, out, rows, n_in, n_out, ldx, splits, k_split, st);
-    case kRouteMma: {
-      if (x_f32) return (int)cudaErrorInvalidValue;
-      const dim3 grid((n_out + kBN - 1) / kBN, (rows + kBM - 1) / kBM);
-      const bf16* xb = static_cast<const bf16*>(x);
+      return decode(layout, tile, xb, w, sc, out, rows, n_in, n_out, ldx, splits, k_split, st);
+    case kRouteWgmma:
       if (layout == kIO)
-        int8_mma_kernel<kIO, bf16><<<grid, kMmaThreads, 0, st>>>(
-            xb, w, sc, static_cast<bf16*>(out), rows, n_in, n_out, ldx);
-      else
-        int8_mma_kernel<kVD, float><<<grid, kMmaThreads, 0, st>>>(
-            xb, w, sc, static_cast<float*>(out), rows, n_in, n_out, ldx);
-      return (int)cudaGetLastError();
-    }
+        return wgmma_rows<kIO, bf16>(tile, xb, w, sc, out, rows, n_in, n_out, ldx, splits,
+                                     k_split, st);
+      return wgmma_rows<kVD, float>(tile, xb, w, sc, out, rows, n_in, n_out, ldx, splits,
+                                    k_split, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -15,11 +15,19 @@ first use and called through ctypes. The contract is JAX's:
           out[r, v] = (sum_d x[r, d] * q8[v, d]) * s[v], f32 logits.
 
 The sum runs in f32 and the scale is applied to it, never to the weight.
-One rule, `int8_route`, picks the kernel: bf16 x of at most 8 rows (decode)
-the GEMV kernel of its layout, bf16 above 8 rows the tensor-core kernel, f32
-x the GEMV kernel over blocks of 8 rows. Every call is one launch; the io
-GEMV's split of the contraction axis is added up inside a thread-block
-cluster, in rank order, so results are the same from launch to launch.
+One rule, `int8_route`, picks the kernel: bf16 x of at most 8 rows the
+decode kernel (`mma.sync` with the converted weight as A and x^T as B, the
+weight streamed through a 6-stage cp.async ring), bf16 above 8 rows the
+`wgmma` kernel of the transposed product (its tile of x's rows N follows
+R), f32 x the scalar GEMV over blocks of 8 rows. Another, `split_plan`,
+sizes the launch: the decode kernel's column tile and every route's split
+of the contraction axis over a thread-block cluster. Every call is one
+launch; the splits are added up inside the cluster in rank order, so
+results are the same from launch to launch. The launch is programmatic:
+the kernel starts streaming q8 and s before the kernel ahead of it in the
+stream has finished (it reads x only after that one's writes are
+visible), so q8 and s must not be written by the kernel launched just
+before it; weights never are.
 
 A tensor on the CPU goes to `int8_matmul_plain`; a CUDA tensor launches the
 kernel or raises. There is no fallback between the two.
@@ -28,6 +36,7 @@ kernel or raises. There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -35,13 +44,21 @@ import torch
 from .launches import count, sm_count
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_I] * 3 + [_LL] + [_I] * 5 + [_P]
-LAYOUTS = {"io": 0, "vd": 1}     # csrc Layout
-_ROUTES = {"gemv": 0, "mma": 1}  # csrc Route
-GEMV_MAX_ROWS = 8    # rows of a GEMV block (csrc kMaxRows)
-_GEMV_COLS = 256     # output columns of an io GEMV block (csrc kGemvBN)
-_MAX_SPLITS = 8      # blocks of a portable thread-block cluster
-_MIN_SPLIT_ROWS = 256  # contraction rows one split covers at least
+_ARGTYPES = [_P] * 4 + [_I] * 3 + [_LL] + [_I] * 6 + [_P]
+LAYOUTS = {"io": 0, "vd": 1}                  # csrc Layout
+_ROUTES = {"gemv": 0, "decode": 1, "wgmma": 2}  # csrc Route
+# Rows of bf16 x each tensor-core route takes (last None: no limit).
+ROUTE_ROWS = {"decode": (1, 8), "wgmma": (9, None)}
+GEMV_MAX_ROWS = 8          # rows of a GEMV or decode block (csrc kMaxRows)
+_GEMV_COLS = 256           # output columns of an f32 io GEMV block (csrc kGemvBN)
+DECODE_COLS = (128, 64, 32, 16)  # io decode column tiles, widest first (csrc kDecCols)
+_DECODE_VD_COLS = 64       # table rows of a vd decode block (csrc kDecVdCols)
+_DECODE_MAX_K = 8192       # contraction a decode block stages x for at most
+WGMMA_ROWS = (16, 32, 64, 80, 128, 256)  # the wgmma kernel's tiles N (csrc kWgRows)
+_WGMMA_COLS = 128          # output columns of a wgmma block (csrc kWgBN)
+K_STEP = {"gemv": 32, "decode": 64, "wgmma": 64}  # csrc kKStep for both tensor-core routes
+_MAX_SPLITS = 8            # blocks of a portable thread-block cluster
+_MIN_SPLIT_ROWS = 256      # contraction rows an f32 GEMV split covers at least
 
 
 def int8_matmul_plain(x: torch.Tensor, q8: torch.Tensor, s: torch.Tensor,
@@ -54,27 +71,68 @@ def int8_matmul_plain(x: torch.Tensor, q8: torch.Tensor, s: torch.Tensor,
 
 
 def int8_route(rows: int, dtype: torch.dtype) -> str:
-    """The kernel of one call: "gemv" for f32 x or bf16 x of at most 8
-    rows, "mma" (tensor cores) for bf16 above."""
-    if dtype == torch.float32 or rows <= GEMV_MAX_ROWS:
+    """The kernel of one call: "gemv" for f32 x, else the tensor-core route
+    whose ROUTE_ROWS hold `rows`: "decode" up to 8 rows, "wgmma" above."""
+    if dtype == torch.float32:
         return "gemv"
-    return "mma"
+    return "decode" if rows <= ROUTE_ROWS["decode"][1] else "wgmma"
 
 
-def split_plan(rows: int, n_in: int, n_out: int, layout: str,
-               blocks: int) -> Tuple[int, int]:
-    """(splits, contraction rows per split) of a GEMV launch: for the io
-    layout enough splits to fill about `blocks` blocks over its 256-column
-    tiles and 8-row blocks, at most 8 (one cluster), each covering at least
-    256 contraction rows, a multiple of 32; the vd GEMV does not split (1,
-    IN): its 32-row tiles of the table already fill the card."""
-    if layout != "io":
-        return 1, n_in
-    tiles = -(-n_out // _GEMV_COLS) * -(-rows // GEMV_MAX_ROWS)
-    splits = max(1, min(_MAX_SPLITS, -(-blocks // tiles), n_in // _MIN_SPLIT_ROWS))
+def _cover(n_in: int, splits: int, step: int) -> Tuple[int, int]:
+    """(splits, per): `splits` cut to cover n_in in pieces of `per`, a
+    multiple of `step`, none empty."""
     per = -(-n_in // splits)
-    per = -(-per // 32) * 32
+    per = -(-per // step) * step
     return -(-n_in // per), per
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(route: str, rows: int, n_in: int, n_out: int, layout: str,
+               sms: int) -> Tuple[int, int, int]:
+    """(tile, splits, contraction values per split) of one launch on a card
+    of `sms` SMs; the splits (at most 8, one cluster) cover IN, each a
+    multiple of K_STEP[route]; only the wgmma kernel splits the vd layout.
+
+    - "decode": the vd layout 64 table rows a block, no split (its blocks
+      fill the card); io the widest column tile of DECODE_COLS whose
+      tiles times splits reach 2 blocks an SM (splits as many as that
+      takes), else the narrowest at the most splits.
+    - "wgmma": N the smallest of WGMMA_ROWS that holds R (256 above), and
+      as many splits as the card holds beside the output tiles (two
+      blocks an SM up to N = 128, one at 256), none if they fill it.
+    - "gemv" (f32): 256-column tiles over blocks of 8 rows, enough splits
+      to fill about 2 blocks an SM, each at least 256 rows; vd no split."""
+    step = K_STEP[route]
+    if route == "decode":
+        if layout == "vd":
+            return (_DECODE_VD_COLS,) + _cover(n_in, 1, step)
+        target = 2 * sms
+        least = max(1, -(-n_in // _DECODE_MAX_K))
+        for cols in DECODE_COLS:
+            tiles = -(-n_out // cols)
+            want = min(_MAX_SPLITS, max(1, n_in // step), -(-target // tiles))
+            splits, per = _cover(n_in, max(least, want), step)
+            if tiles * splits >= target:
+                break
+        return (cols, splits, per)
+    if route == "wgmma":
+        n = next((t for t in WGMMA_ROWS if t >= rows), WGMMA_ROWS[-1])
+        tiles = -(-n_out // _WGMMA_COLS) * -(-rows // n)
+        room = (2 if n <= 128 else 1) * sms
+        splits = max(1, min(_MAX_SPLITS, room // tiles, n_in // step))
+        return (n,) + _cover(n_in, splits, step)
+    if layout != "io":
+        return (_GEMV_COLS,) + _cover(n_in, 1, step)
+    tiles = -(-n_out // _GEMV_COLS) * -(-rows // GEMV_MAX_ROWS)
+    splits = max(1, min(_MAX_SPLITS, -(-2 * sms // tiles), n_in // _MIN_SPLIT_ROWS))
+    return (_GEMV_COLS,) + _cover(n_in, splits, step)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    from ._build import kernel_fn
+
+    return kernel_fn("int8_matmul", _ARGTYPES)
 
 
 def int8_matmul_cuda(x: torch.Tensor, q8: torch.Tensor, s: torch.Tensor,
@@ -108,14 +166,11 @@ def int8_matmul_cuda(x: torch.Tensor, q8: torch.Tensor, s: torch.Tensor,
     out_dtype = torch.float32 if layout == "vd" else x.dtype
     out = torch.empty((rows, n_out), dtype=out_dtype, device=x.device)
     route = int8_route(rows, x.dtype)
-    splits, per = (split_plan(rows, n_in, n_out, layout, 2 * sm_count(x.device))
-                   if route == "gemv" else (1, n_in))
-    from ._build import kernel_fn
-
-    err = kernel_fn("int8_matmul", _ARGTYPES)(
+    tile, splits, per = split_plan(route, rows, n_in, n_out, layout, sm_count(x.device))
+    err = _kernel()(
         x.data_ptr(), q8.data_ptr(), s.data_ptr(), out.data_ptr(),
         rows, n_in, n_out, n_in, int(x.dtype == torch.float32), LAYOUTS[layout],
-        _ROUTES[route], splits, per,
+        _ROUTES[route], tile, splits, per,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

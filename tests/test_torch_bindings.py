@@ -74,14 +74,27 @@ def test_table_prefetch_limit_matches_the_kernel():
 
 
 def test_int8_matmul_constants_match_the_kernel():
-    """The wrapper's routes, layouts and GEMV tile sizes are the kernel's."""
+    """The wrapper's routes, layouts and tile sizes are the kernel's: the
+    decode column tiles and the vd decode block, the wgmma kernel's row
+    tiles N and column tile, the split's k step, the f32 GEMV's tile."""
     with open(os.path.join(CSRC, "int8_matmul.cu"), encoding="utf-8") as f:
         src = f.read()
 
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)", src).group(1))
 
+    def array(name):
+        body = re.search(rf"\b{name}\[\] = \{{([\d, ]+)\}};", src).group(1)
+        return tuple(int(v) for v in body.split(","))
+
     assert int8mm.GEMV_MAX_ROWS == const("kMaxRows") == 8
+    assert int8mm.ROUTE_ROWS["decode"][1] == const("kMaxRows")
     assert int8mm._GEMV_COLS == const("kGemvBN")
     assert int8mm.LAYOUTS == {"io": const("kIO"), "vd": const("kVD")}
-    assert int8mm._ROUTES == {"gemv": const("kRouteGemv"), "mma": const("kRouteMma")}
+    assert int8mm._ROUTES == {"gemv": const("kRouteGemv"), "decode": const("kRouteDecode"),
+                              "wgmma": const("kRouteWgmma")}
+    assert int8mm.DECODE_COLS == array("kDecCols")
+    assert int8mm._DECODE_VD_COLS == const("kDecVdCols")
+    assert int8mm.WGMMA_ROWS == array("kWgRows")
+    assert int8mm._WGMMA_COLS == const("kWgBN")
+    assert int8mm.K_STEP["decode"] == int8mm.K_STEP["wgmma"] == const("kKStep")

@@ -6,8 +6,9 @@ tile kernel, every launch bit-identical from launch to launch) and the
 page write (one kernel for both pools, also behind its producer in a CUDA
 graph), their int8-cache twins (the split-KV decode kernel at its edges,
 and every decode launch bit-identical from launch to launch), the int4
-matmul (decode, prefill and f32 rows kernels) and the int8 matmul (GEMV and
-tensor-core kernels, both weight layouts).
+matmul (decode, prefill and f32 rows kernels) and the int8 matmul (the
+decode and wgmma kernels at each route's boundary row counts and the f32
+GEMV, both weight layouts).
 
 Needs a card (marker `cuda`); skips elsewhere. On the card:
 `python -m pytest tests/test_torch_cuda.py -q`. Tolerances as in
@@ -573,11 +574,18 @@ def bf16_ulps(out, ref):
     return ((out.float() - r).abs() / torch.maximum(ulp, floor)).max().item()
 
 
+# Each bf16 route's first and last row count: decode 1..8, then the wgmma
+# kernel's tiles N of 16, 32, 64, 80, 128 and 256 rows (above 256, tiles of
+# 256); between them, the counts the paths give it.
+INT8_ROWS = [1, 3, 8, 9, 16, 17, 32, 33, 64, 65, 72, 80, 81, 128, 129, 131, 256, 257, 1024]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 3, 8, 9, 72, 131, 1024])
+@pytest.mark.parametrize("rows", INT8_ROWS)
 @pytest.mark.parametrize("layout,n_in,n_out", [
     ("io", 4096, 4096), ("io", 4096, 11008), ("io", 11008, 4096),   # 7B
     ("io", 4096, 3 * 4096), ("io", 3072, 2 * 1024),                 # fused wqkv, wkv
+    ("io", 3072, 1024),                                             # 3B wk/wv
     ("io", 256, 400),                              # OUT no multiple of a column tile
     ("vd", 4096, 32000), ("vd", 256, 400),         # the unembed's [V, D] table
 ])

@@ -14,7 +14,9 @@ vs the JAX package's, on the CPU in f32 (TINY).
 - greedy tokens identical to JAX's: the engine in the contiguous, paged and
   int8-KV layouts, speculative (D = 4) included, and both scheduler layouts,
   with q8 weights, q8 tables and `fuse_matmuls=True`;
-- `infer_weight_bits` / `verify_cost_ratio` for q8 trees equal to JAX's.
+- `infer_weight_bits` / `verify_cost_ratio` for q8 trees equal to JAX's;
+- the int8 kernel's route and split rules at the 7B and 3B shapes (no
+  JAX: the plan of a launch on an H100's 132 SMs).
 Inputs come from numpy seeds and pass between the packages as numpy."""
 
 import dataclasses
@@ -44,6 +46,7 @@ from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
     LAUNCHES,
     int8_matmul,
     int8_matmul_plain,
+    int8mm,
 )
 from llm_based_apache_spark_optimization_tpu_torch.serve import ContinuousBatchingScheduler
 
@@ -215,6 +218,43 @@ def test_int8_matmul_plain_contract():
     assert torch.equal(vd, (x.bfloat16().float() @ table["q8"].float().t()) * table["s"])
     assert torch.equal(vd, int8_matmul_plain(x.bfloat16(), table["q8"], table["s"], "vd"))
     assert LAUNCHES == before
+
+
+# The 7B and 3B weight shapes the int8 paths give the kernel (layout, IN,
+# OUT), as chip_smoke.py's phase 14 (a) holds them on the card.
+KERNEL_SHAPES = [("io", 4096, 4096), ("io", 4096, 11008), ("io", 11008, 4096),
+                 ("io", 4096, 3 * 4096), ("io", 4096, 2 * 11008), ("vd", 4096, 32000),
+                 ("io", 3072, 3072), ("io", 3072, 1024), ("io", 3072, 8192),
+                 ("io", 8192, 3072), ("io", 3072, 2 * 1024), ("io", 3072, 2 * 8192),
+                 ("vd", 3072, 128256)]
+
+
+@pytest.mark.parametrize("layout,n_in,n_out", KERNEL_SHAPES)
+def test_int8_route_and_split_rules(layout, n_in, n_out):
+    """The wrapper's two rules at the served shapes, on an H100's 132 SMs
+    passed in: the bf16 routes' row ranges meet with no gap; every plan's
+    splits (at most 8) cover IN exactly in pieces that are multiples of
+    the route's k step; the decode grid reaches 2 blocks an SM; the wgmma
+    tile N is the smallest that holds R (256 above)."""
+    sms = 132
+    lo, hi = int8mm.ROUTE_ROWS["decode"]
+    nxt, top = int8mm.ROUTE_ROWS["wgmma"]
+    assert lo == 1 and nxt == hi + 1 and top is None
+    for rows in (1, 3, 8, 9, 72, 384, 1024):
+        route = int8mm.int8_route(rows, torch.bfloat16)
+        assert route == ("decode" if rows <= hi else "wgmma")
+        assert int8mm.int8_route(rows, torch.float32) == "gemv"
+        for r in (route, "gemv"):
+            tile, splits, per = int8mm.split_plan(r, rows, n_in, n_out, layout, sms)
+            assert 1 <= splits <= 8 and per % int8mm.K_STEP[r] == 0, (r, rows, splits, per)
+            assert (splits - 1) * per < n_in <= splits * per, (r, rows, splits, per)
+            assert splits == 1 or layout == "io" or r == "wgmma"
+        tile, splits, per = int8mm.split_plan(route, rows, n_in, n_out, layout, sms)
+        if route == "decode":
+            assert tile in (int8mm.DECODE_COLS if layout == "io" else (64,))
+            assert -(-n_out // tile) * splits >= 2 * sms, (rows, tile, splits)
+        else:
+            assert tile == min(t for t in int8mm.WGMMA_ROWS if t >= min(rows, 256))
 
 
 @pytest.mark.parametrize("kind", ["bf16", "q8", "q4"])
