@@ -10,6 +10,8 @@
     python3 chip_smoke.py --speculative-only  # phases 1, 2, 3 and 11 at the
                                               # verify shapes, the cost anchor, 13
     python3 chip_smoke.py --int8-only    # phases 1, 2, then 14 (a), (b) and (f)
+    python3 chip_smoke.py --observability-only  # phases 1, 2, then 15 on the
+                                                # 7B weights alone
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -213,9 +215,9 @@ Phases, each fatal on failure:
    (a) GGUF, the reference's deployment format, at full width and depth:
    LLAMA32_3B (28 layers, tied embeddings, llama3 rope scaling, so
    `rope_freqs.weight` is written) as a Q4_0 blob by the port's
-   `write_gguf`. `load_gguf_checkpoint` must give the direct q4_0 -> f32
-   -> bf16 round trip of the seed tree bit for bit (a second q4_0
-   implementation on the card, `q4_0_round_trip`), and
+   `write_gguf` (quantized on the card). `load_gguf_checkpoint` must give
+   the direct q4_0 -> f32 -> bf16 round trip of the seed tree bit for bit
+   (a second q4_0 implementation on the card, `q4_0_round_trip`), and
    `SchedulerBackend.from_gguf(quantize_int4=True, kv_quant="int8",
    supervise=True)` (contiguous, 8 slots, max_seq 8192) the int4 tree of
    that round trip; three requests one after the other give the greedy
@@ -361,6 +363,35 @@ Phases, each fatal on failure:
    the int8 and int4 wrappers and a bf16 `torch.matmul` dispatch.
    `--int8-only --profile` adds (c)'s profiled batch on the 7B engines.
 
+15. Observability (the flight recorder's rounds, the roofline ledger, the
+   metrics registry, `/metrics` and `/debug/*`), each part fatal and timed:
+   (a) after phase 8 (b), on phase 7's 7B contiguous bf16 scheduler behind
+   the app of phase 8 (its registry holds phase 8's requests); (b) after
+   phase 9, on a 7B paged scheduler with phase 9's int4 tree over the int8
+   pool (phase 6's settings). Each over one burst of six requests: three
+   of OBS_LONG tokens, then `GET /debug/profile?rounds=4&model=duckdb-nsql`
+   once they decode (a second arm must answer 409), then three more that
+   arrive inside the capture, which is polled through `GET /debug/profile`
+   until done. The burst's flight records must number consecutive rounds,
+   emit the requests' output tokens, admit and retire the same rids and
+   carry mfu and hbm_util in (0, 1.05] (the ledger must price the H100
+   row: 989 TFLOP/s, 3350 GB/s); paged, the last record's pages equal the
+   idle pool's prefix pages. The torch.profiler artifact must hold the
+   hand-written kernels of OBS_KERNELS by name (rows 1 and 2; rows 1, 5, 7
+   and 8), and `traceprof.Trace` reads the device busy share: the
+   captured decode rounds' median hbm_util may not exceed it, their walls
+   (each round's span on the card, CUDA events) must fit in the capture's
+   span, and their roofline time (max(mfu, hbm_util) x wall) in its busy
+   time. Each decode record's bytes a step (hbm_util x wall x 3350 GB/s /
+   decode_chunk) must lie between the weights' bytes on the card and those
+   plus the whole KV cache's. Then the host us of a
+   round's `flight.record` + `perf.observe`; then `/metrics` (JSON with the
+   `serving.perf`, `serving.flight_recorder` and registry blocks, and the
+   Prometheus text, parsed) and `/debug/flightrecorder`, `/debug/traces`,
+   `/debug/slo`, `/debug/prefixcache`. Prints the registry's queue wait
+   and TTFT percentiles, and an `{"observability": ...}` line before the
+   kernels line.
+
 Every phase prints its seconds.
 
 Prints a `{"kernels": [...]}` line, then as its last line
@@ -371,6 +402,7 @@ Exits non-zero, printing no result, without CUDA or without the package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -2344,7 +2376,8 @@ def app_serve(torch, scheds):
     the reference's `query_results`), so it must hold none, and the web
     app's `GET /history` over it must answer. Launch counts exact over the
     phase; wall and TTFT (of the NL->SQL generate) per request. Returns the
-    launches."""
+    launches, those of the streaming step and the service (its registry
+    holds the phase's requests)."""
     import tempfile
     import threading
     from concurrent.futures import ThreadPoolExecutor
@@ -2439,7 +2472,7 @@ def app_serve(torch, scheds):
     assert launches == expected, f"launch counts {launches} != {expected}"
     assert by_model.get("llama3.2", 0) == len(responses), "an explanation did not run"
     assert by_model["duckdb-nsql"] >= len(responses)
-    return launches, stream_generate(torch, svc, scheds, cfg)
+    return launches, stream_generate(torch, svc, scheds, cfg), svc
 
 
 STREAM_PROMPT = "Write one Spark SQL query that counts the trips per payment type."
@@ -2570,6 +2603,343 @@ def entry_point(torch, backend_args=("--backend", "tiny"), device_args=()):
     assert status == 200 and (set(body) == {"error", "sql_query", "error_details"}
                               or body.get("message") == "Query executed successfully!"), body
     assert rc == 0 and "SIGTERM: draining" in log, log
+
+
+# --------------------------------------------------------- observability
+
+# The hand-written kernels each profile capture must hold, by a substring
+# of the kernel's name in the trace (the kernel functions of csrc/; paged
+# attention's source template is `PagedSrc`).
+OBS_KERNELS = {
+    "contiguous_bf16": {
+        "row 1 flash prefill": ("flash_prefill_kernel",),
+        "row 2 decode attention": ("decode_split_kernel", "ContigSrc"),
+    },
+    "paged_int4_int8": {
+        "row 1 flash prefill": ("flash_prefill_kernel",),
+        "row 5 quantized paged attention": ("decode_split_kernel", "PagedSrc"),
+        "row 7 quantized page write": ("page_write_kernel",),
+        "row 8 int4 matmul": ("int4_",),
+    },
+}
+OBS_ROUNDS = 4  # rounds a profile capture brackets
+# The captured rounds' walls must fit in the capture's kernel span; the
+# slack covers the host's enqueue of a round's first op, which its start
+# event precedes and which may fall before the capture's first kernel.
+OBS_SPAN_SLACK = 1.05
+
+
+def tree_nbytes(tree):
+    """Bytes of the tensors of a params tree or a cache (nested dicts,
+    lists and tuples)."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_nbytes(v) for v in tree)
+    return tree.nbytes
+OBS_LONG = 64   # tokens of the burst's first three requests (8 rounds)
+
+
+def obs_settled(sched, timeout=60.0):
+    """wait_settled, and the last harvested round's record in the ring (a
+    harvest writes its record after retiring its requests)."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if not sched._pending and not sched._prefill_q and \
+                all(r is None for r in sched._slot_req):
+            rounds = [r for r in sched.flight.snapshot() if "round" in r]
+            if not rounds or rounds[-1]["round"] == sched.heartbeat.rounds:
+                return
+        time.sleep(0.01)
+    raise AssertionError("scheduler did not settle")
+
+
+def prometheus_families(text):
+    """The families of an exposition text, after checking that every line
+    is a comment or a `name{labels} value` sample of a declared family."""
+    families = set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            m = re.match(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$', line)
+            assert m, f"unparseable sample line {line!r}"
+            float(m.group(3))
+            base = re.sub(r"_(bucket|sum|count)$", "", m.group(1))
+            assert m.group(1) in families or base in families, f"{m.group(1)} before its TYPE"
+    return families
+
+
+def record_cost_us(sched, rec, calls=2000):
+    """Host us a round spends in `flight.record` + `perf.observe`, on a
+    recorder and a ledger built like the scheduler's (its live ring and
+    EWMAs untouched), at the fields of `rec`."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve.flightrecorder import (
+        FlightRecorder,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.utils.perfmodel import PerfModel
+
+    pm = sched.perf
+    ledger = PerfModel(sched.cfg, param_bytes=pm.param_bytes, weight_bits=pm.weight_bits,
+                       kv_itemsize=pm.kv_itemsize, kv_quant=pm.kv_quant,
+                       kv_layout=pm.kv_layout, page_size=pm.page_size,
+                       device_kind=pm.device_kind)
+    ring = FlightRecorder(capacity=sched.flight.capacity)
+    fields = {k: v for k, v in rec.items() if k not in ("ts", "replica", "seq")}
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        ledger.observe(rec["phase"], rows=sched.num_slots, tokens=sched.decode_chunk,
+                       ctx=rec["perf_ctx"], wall_s=rec["round_wall_s"])
+        ring.record(**fields)
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def observability(torch, svc, model, sched, label):
+    """The observability phase on one 7B scheduler behind the app
+    (`create_api_app` over `svc`), over one burst: three requests of
+    OBS_LONG tokens, a `/debug/profile` capture of OBS_ROUNDS rounds armed
+    through the app once they decode (a second arm must answer 409), then
+    three more requests that arrive inside the capture (their prefills
+    land in it). The burst's flight records must number consecutive
+    rounds, emit the requests' output tokens, admit and retire the same
+    rids, leave the page pool at its idle value (paged) and carry mfu and
+    hbm_util in (0, 1.05] priced at the H100 row. The capture, polled
+    through `GET /debug/profile` until done, must hold the hand-written
+    kernels of OBS_KERNELS[label]; `traceprof.Trace` gives its device busy
+    share, printed beside the captured decode rounds' median hbm_util.
+    Then the host us of a round's record and ledger stamp, `/metrics` in
+    both formats and the four read-only `/debug/*` routes. Returns the
+    phase's numbers."""
+    import statistics
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_based_apache_spark_optimization_tpu_torch.app import AppConfig, create_api_app
+    from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
+    from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+    from llm_based_apache_spark_optimization_tpu_torch.utils.traceprof import Trace
+
+    paged = sched.kv_layout == "paged"
+    perf = sched.perf_stats
+    print(f"  {label}: ledger {perf['device_kind']}, {perf['peak_tflops']} TFLOP/s, "
+          f"{perf['peak_hbm_gbs']} GB/s, weights {perf['param_bytes'] / 2**30:.2f} GiB "
+          f"at {perf['weight_bits']} bits, kv {perf['kv_layout']} {perf['kv_quant'] or 'bf16'}",
+          flush=True)
+    assert (perf["peak_tflops"], perf["peak_hbm_gbs"]) == (989.0, 3350.0), \
+        f"the ledger does not price the H100 row: {perf}"
+    with tempfile.TemporaryDirectory() as root:
+        cfg = AppConfig(input_dir=root, output_dir=root, history_db=":memory:",
+                        max_new_tokens=MAX_NEW)
+        client = create_api_app(svc, SQLiteBackend, SQLiteHistory(":memory:"),
+                                cfg).test_client()
+        obs_settled(sched)
+        mark, last = sched.flight.stats()["total"], sched.heartbeat.rounds
+        pool = ThreadPoolExecutor(max_workers=6)
+        try:
+            long = [pool.submit(svc.generate, model, qn, SYSTEM_SQL, OBS_LONG)
+                    for qn in SCHED_SQL[:3]]
+            deadline = time.time() + 120
+            while not any(r is not None and r.ready for r in sched._slot_req):
+                assert time.time() < deadline, "the burst never reached decode"
+                time.sleep(0.002)
+            res = client.request("GET", "/debug/profile",
+                                 query=f"rounds={OBS_ROUNDS}&model={model}")
+            assert res.status == 200 and res.json()["state"] == "armed", res.json()
+            again = client.request("GET", "/debug/profile",
+                                   query=f"rounds={OBS_ROUNDS}&model={model}")
+            assert again.status == 409, f"a second capture answered {again.status}"
+            while client.get("/debug/profile").json()["captures"][model]["state"] == "armed":
+                assert time.time() < deadline, "the capture never started"
+                time.sleep(0.002)
+            late = [pool.submit(svc.generate, model, qn, SYSTEM_SQL)
+                    for qn in SCHED_SQL[3:6]]
+            while True:
+                cap = client.get("/debug/profile").json()["captures"][model]
+                if cap.get("last", {}).get("state") in ("done", "error", "aborted") \
+                        and cap["state"] == "idle":
+                    break
+                assert time.time() < deadline, f"the capture never finished: {cap}"
+                time.sleep(0.01)
+            results = [f.result() for f in long + late]
+        finally:
+            pool.shutdown()
+        obs_settled(sched)
+
+        # The ring over the burst.
+        snap = sched.flight.snapshot()
+        rounds = [r for r in snap if r["seq"] >= mark and "round" in r]
+        nums = [r["round"] for r in rounds]
+        assert nums == list(range(last + 1, last + 1 + len(nums))), f"rounds {nums}"
+        emitted, out_tokens = sum(r["emitted"] for r in rounds), sum(
+            r.output_tokens for r in results)
+        assert emitted == out_tokens, f"emitted {emitted} != output tokens {out_tokens}"
+        admitted = sorted(x for r in rounds for x in r["admitted"])
+        retired = sorted(x for r in rounds for x in r["retired"])
+        assert admitted == retired and len(admitted) == len(results), (admitted, retired)
+        outside = [(r["round"], r["mfu"], r["hbm_util"]) for r in rounds
+                   if not (0.0 < r["mfu"] <= 1.05 and 0.0 < r["hbm_util"] <= 1.05)]
+        assert not outside, f"rounds with mfu or hbm_util outside (0, 1.05]: {outside}"
+        if paged:
+            st = sched.page_stats
+            assert rounds[-1]["kv_pages"] == st["pages_in_use"] == \
+                st["prefix_resident_pages"], f"pages leaked: {rounds[-1]} {st}"
+        # The ledger's bytes a decode step, read back from each decode
+        # record (the rounding of hbm_util and of the wall bounds the
+        # error), against the bytes on the card: every weight read once a
+        # step, at most the whole KV cache besides.
+        weights, kv = tree_nbytes(sched.params), tree_nbytes(
+            sched._pool if paged else sched._cache)
+        assert perf["param_bytes"] == weights, (perf["param_bytes"], weights)
+        for r in (r for r in rounds if r["phase"] == "decode"):
+            step = r["hbm_util"] * r["round_wall_s"] * perf["peak_hbm_gbs"] * 1e9 \
+                / sched.decode_chunk
+            tol = 0.5e-6 / r["hbm_util"] + 0.5e-6 / r["round_wall_s"]
+            assert weights * (1 - tol) <= step <= (weights + kv) * (1 + tol), \
+                f"round {r['round']}: {step:.4g} bytes a step, weights {weights}, kv {kv}"
+        walls = [r["round_wall_s"] for r in rounds]
+        cost_us = record_cost_us(sched, rounds[-1])
+        print(f"  {label}: {len(rounds)} rounds {nums[0]}-{nums[-1]}, {emitted} tokens "
+              f"emitted = the requests' output tokens, rids {admitted} admitted and "
+              f"retired; mfu {min(r['mfu'] for r in rounds):.4f}-"
+              f"{max(r['mfu'] for r in rounds):.4f}, hbm_util "
+              f"{min(r['hbm_util'] for r in rounds):.4f}-"
+              f"{max(r['hbm_util'] for r in rounds):.4f}", flush=True)
+        print(f"  {label}: flight.record + perf.observe {cost_us:.2f} us a round, "
+              f"{100 * cost_us * 1e-6 / statistics.median(walls):.4f}% of the median "
+              f"round wall {statistics.median(walls) * 1e3:.2f} ms", flush=True)
+
+        # The capture.
+        last_cap = cap["last"]
+        assert last_cap["state"] == "done", f"profile capture failed: {last_cap}"
+        tr = Trace().load_dir(last_cap["dir"])
+        missing = [row for row, parts in OBS_KERNELS[label].items()
+                   if not any(all(p in name for p in parts) for name in tr.ops)]
+        assert not missing, f"capture without {missing}: {sorted(tr.ops)[:20]}"
+        # The rounds the capture counted: its last `rounds` round records
+        # (a round in flight when it started was issued outside it).
+        start = max(r["seq"] for r in snap if r.get("kind") == "profile_start")
+        done = max(r["seq"] for r in snap if r.get("kind") == "profile_done")
+        captured = [r for r in snap if start < r["seq"] < done and "round" in r]
+        captured = captured[-last_cap["rounds"]:]
+        assert len(captured) == last_cap["rounds"], f"captured rounds {captured}"
+        decode_util = [r["hbm_util"] for r in captured if r["phase"] == "decode"]
+        assert decode_util, f"no decode round in the capture: {captured}"
+        busy, dev_s, span_s = tr.busy_share(), tr.device_time_s(), tr.span_s()
+        hbm_med = statistics.median(decode_util)
+        walls_s = sum(r["round_wall_s"] for r in captured)
+        least_s = sum(max(r["mfu"], r["hbm_util"]) * r["round_wall_s"] for r in captured)
+        print(f"  {label}: capture of {last_cap['rounds']} rounds, "
+              f"{last_cap['artifact_bytes']} bytes, {len(tr.ops)} kernels; held "
+              f"{sorted(OBS_KERNELS[label])}; device busy {dev_s * 1e3:.2f} ms "
+              f"of a {span_s * 1e3:.2f} ms span = {100 * busy:.1f}%; decode "
+              f"hbm_util median {hbm_med:.4f} over {len(decode_util)} captured rounds "
+              f"({'<=' if hbm_med <= busy else '>'} the busy share); the captured "
+              f"rounds' walls {walls_s * 1e3:.2f} ms (<= the span: "
+              f"{walls_s <= OBS_SPAN_SLACK * span_s}), their roofline time "
+              f"{least_s * 1e3:.2f} ms = {least_s / dev_s:.3f} of the busy time",
+              flush=True)
+        for name, secs, n in tr.top_ops(6):
+            print(f"    {secs * 1e3:9.3f} ms  x{n:<5d} {name[:100]}", flush=True)
+        assert walls_s <= OBS_SPAN_SLACK * span_s, \
+            f"the captured rounds' walls overlap: {walls_s} s in a {span_s} s capture"
+        assert least_s <= dev_s, \
+            f"the ledger's least time {least_s} s exceeds the card's busy {dev_s} s"
+        assert hbm_med <= busy, f"decode hbm_util {hbm_med} above the busy share {busy}"
+
+        # The scrapes.
+        body = client.get("/metrics").json()
+        reg = body[model]
+        assert {"perf", "flight_recorder", "prefix", "watchdog"} <= set(reg["serving"]), \
+            sorted(reg["serving"])
+        assert reg["requests"] > 0 and {"ttft_p50_s", "queue_wait_p50_s"} <= set(reg), \
+            sorted(reg)
+        prom = client.request("GET", "/metrics", query="format=prometheus")
+        families = prometheus_families(prom.text)
+        want = {"lsot_mfu", "lsot_hbm_util", "lsot_requests_total", "lsot_ttft_seconds",
+                "lsot_queue_wait_seconds", "lsot_prefix_hits_total"}
+        assert prom.status == 200 and want <= families, sorted(want - families)
+        for path in ("/debug/flightrecorder", "/debug/traces", "/debug/slo",
+                     "/debug/prefixcache"):
+            r = client.get(path)
+            assert r.status == 200, f"{path}: {r.status}"
+            r.json()
+        assert client.get("/debug/flightrecorder").json()["models"][model]
+        assert client.get("/debug/prefixcache").json()["models"][model]["entries"]
+        print(f"  {label}: /metrics {len(prom.text)} bytes of exposition text, "
+              f"{len(families)} families; registry of {model}: {reg['requests']} requests, "
+              f"queue wait p50 {reg['queue_wait_p50_s'] * 1e3:.2f} ms p95 "
+              f"{reg['queue_wait_p95_s'] * 1e3:.2f} ms, TTFT p50 "
+              f"{reg['ttft_p50_s'] * 1e3:.2f} ms p95 {reg['ttft_p95_s'] * 1e3:.2f} ms",
+              flush=True)
+    return {"rounds": len(rounds), "record_us": round(cost_us, 3),
+            "round_wall_ms_median": round(statistics.median(walls) * 1e3, 3),
+            "busy_share": round(busy, 4), "decode_hbm_util_median": round(hbm_med, 4),
+            "mfu_max": max(r["mfu"] for r in rounds),
+            "hbm_util_max": max(r["hbm_util"] for r in rounds),
+            "queue_wait_p50_ms": round(reg["queue_wait_p50_s"] * 1e3, 3),
+            "ttft_p50_ms": round(reg["ttft_p50_s"] * 1e3, 3),
+            "kernels": sorted(OBS_KERNELS[label])}
+
+
+def observability_only(torch, cfg):
+    """`--observability-only`: phase 15 on the 7B weights alone, (a) over a
+    contiguous scheduler of phase 7's settings behind a service of its own
+    (no app traffic before it), (b) as in the whole run."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_params_int4,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        GenerationService,
+        SchedulerBackend,
+        resolve_stop_ids,
+    )
+
+    engines = make_engines(torch, (("duckdb-nsql", cfg),))
+    eng = engines["duckdb-nsql"]
+    tok = ByteModTokenizer()
+    sched = ContinuousBatchingScheduler(eng.cfg, eng.params, num_slots=8, decode_chunk=8,
+                                        stop_ids=resolve_stop_ids(eng.cfg, tok),
+                                        device="cuda")
+    svc = GenerationService()
+    svc.register("duckdb-nsql", SchedulerBackend(sched, tok, max_new_tokens=MAX_NEW))
+    try:
+        obs = {"contiguous_bf16": observability(torch, svc, "duckdb-nsql", sched,
+                                                "contiguous_bf16")}
+    finally:
+        svc.close()
+        del sched
+        torch.cuda.empty_cache()
+    phase("observability (b): the paged int4 7B scheduler over the int8 pool")
+    obs["paged_int4_int8"] = observability_paged(
+        torch, engines, quantize_params_int4(eng.params))
+    return obs
+
+
+def observability_paged(torch, engines, params4):
+    """Observability (b): the 7B paged scheduler with int4 block weights
+    over the int8 pool (phase 9's settings and tree) behind a service of
+    its own."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        GenerationService,
+        SchedulerBackend,
+        resolve_stop_ids,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    cfg = engines["duckdb-nsql"].cfg
+    sched = ContinuousBatchingScheduler(cfg, params4, stop_ids=resolve_stop_ids(cfg, tok),
+                                        kv_quant="int8", device="cuda", **SCHED)
+    svc = GenerationService()
+    svc.register("duckdb-nsql", SchedulerBackend(sched, tok, max_new_tokens=MAX_NEW))
+    try:
+        return observability(torch, svc, "duckdb-nsql", sched, "paged_int4_int8")
+    finally:
+        svc.close()
+        del sched
+        torch.cuda.empty_cache()
 
 
 def quantized_serve(torch, engines, profile=False):
@@ -5283,8 +5653,8 @@ def sampled_resumes(torch, sched):
             seen["rounds"].append(len(req.generated))
         return count_spec(req, emitted, delivered)
 
-    def resumed(slot, req):
-        resume_ready(slot, req)
+    def resumed(slot, req, **kw):
+        resume_ready(slot, req, **kw)
         if req.temperature > 0.0:
             ids = req.full_ids
             row = sched._hist[slot].tolist()
@@ -6072,6 +6442,10 @@ def main() -> int:
                          "the verify shapes against their plain versions, the verify "
                          "cost anchor, phase 13 on the 7B weights and the verify-shape "
                          "timing (prints their checks and no ok line)")
+    ap.add_argument("--observability-only", action="store_true",
+                    help="build and run phase 15 alone: the observability checks and "
+                         "captures on a contiguous bf16 and a paged int4 + int8-pool 7B "
+                         "scheduler (prints their numbers and no ok line)")
     ap.add_argument("--int8-only", action="store_true",
                     help="build and run phase 14's kernel parts alone: the int8 matmul "
                          "and row 8 at the stacked widths against their plain versions, "
@@ -6195,6 +6569,13 @@ def main() -> int:
                           "int8_timing": timed8, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.observability_only:
+        phase("observability (a): the contiguous bf16 7B scheduler behind the app")
+        obs = observability_only(torch, DUCKDB_NSQL_7B)
+        phase(None)
+        print(json.dumps({"observability": obs, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.sweep:
         phase("split sweep")
         swept = sweep(torch, attn_mod, pa_mod, pw_mod, DUCKDB_NSQL_7B)
@@ -6253,17 +6634,25 @@ def main() -> int:
 
     phase("app (POST /process-data/ and /api/generate streaming on the contiguous "
           "schedulers)")
-    app_launches, stream_launches = app_serve(torch, contig_scheds)
+    app_launches, stream_launches, app_svc = app_serve(torch, contig_scheds)
     phase("app under LSOT_CONSTRAIN_SQL=1 (phase 8 (b))")
     constrained_app_launches = constrained_app(torch, contig_scheds, tally, smi)
+    phase("observability (a): the contiguous bf16 7B scheduler behind the app")
+    obs = {"contiguous_bf16": observability(torch, app_svc, "duckdb-nsql",
+                                            contig_scheds["duckdb-nsql"],
+                                            "contiguous_bf16")}
+    del app_svc
     for sc in contig_scheds.values():
         sc.shutdown()
     del contig_scheds
     gc.collect()  # the app's reference cycles hold the caches until collected
+    phase("entry point: the tiny app as a process")
     entry_point(torch)
 
     phase("serve (quantized path: int4 weights, int8 KV)")
     q_launches, params4 = quantized_serve(torch, engines, args.profile)
+    phase("observability (b): the paged int4 7B scheduler over the int8 pool")
+    obs["paged_int4_int8"] = observability_paged(torch, engines, params4)
 
     constrained_launches = constrained_paths(torch, engines, params4, tally, smi)
     del params4
@@ -6403,6 +6792,7 @@ def main() -> int:
                                       "anchor_readings": readings,
                                       "tokens_per_round": spec_tprs,
                                       "divergences": spec_div, **spec_calib}}))
+    print(json.dumps({"observability": obs, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

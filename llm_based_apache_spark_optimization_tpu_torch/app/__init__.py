@@ -8,8 +8,9 @@ backends (SURVEY.md §4).
 
 Copies of the JAX package's `app/` modules over the port's serving stack;
 `__main__` is the port's own entry point (`python -m
-llm_based_apache_spark_optimization_tpu_torch.app --help`). `/metrics` and
-`/debug/*` are not served yet (ROADMAP A12).
+llm_based_apache_spark_optimization_tpu_torch.app --help`). Both serve
+`/metrics` (JSON and `?format=prometheus`) and the `/debug/*` routes
+(app/health.py).
 """
 
 from .api import create_api_app  # noqa: F401

@@ -38,9 +38,16 @@ The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
 every option it cannot honor yet, instead of ignoring it: `--dp`/`--sp`/
 `--tp` > 1 (A13), and the environment knobs of `UNPORTED_KNOBS`: the
-fleet, model-pool and QoS knobs (A11), the SLO, tracing, request-log and
-bench-seed knobs (A12), the profile hook's (A7.7) and prefix telemetry's
-(A7.8). The
+fleet, model-pool and QoS knobs (A11) and the bench seed (A12's bench).
+
+Observability (`configure_observability`, before any service or scheduler
+is built): request-trace sampling and export (`LSOT_TRACE_SAMPLE`,
+`LSOT_TRACE_EXPORT`), the flight recorder's ring (`LSOT_FLIGHT_ROUNDS`),
+request-log sampling (`LSOT_REQUEST_LOG`), the prefix registry's bounds
+(`LSOT_PREFIX_TOPK`, `LSOT_PREFIX_RING`), the SLO objectives
+(`LSOT_SLO_*`) and the `/debug/profile` capture defaults
+(`LSOT_PROFILE_ROUNDS`, `LSOT_PROFILE_DIR`). Both frontends serve
+`/metrics` and `/debug/*`. The
 schedulers honor admission control (`LSOT_MAX_QUEUE_DEPTH`: a full queue
 sheds 429 with a Retry-After from the service-time estimate) and, over
 the paged layout, the page-pressure knobs (`LSOT_KV_OVERCOMMIT`,
@@ -92,20 +99,7 @@ UNPORTED_KNOBS = {
     "qos_deadline_interactive": "A11 (the QoS front door)",
     "qos_deadline_batch": "A11 (the QoS front door)",
     "qos_deadline_replay": "A11 (the QoS front door)",
-    "slo_ttft_ms": "A12 (SLOs)",
-    "slo_tpot_ms": "A12 (SLOs)",
-    "slo_queue_wait_ms": "A12 (SLOs)",
-    "slo_window_s": "A12 (SLOs)",
-    "slo_target": "A12 (SLOs)",
-    "request_log": "A12 (the request log)",
-    "trace_sample": "A12 (request tracing)",
-    "trace_export": "A12 (request tracing)",
     "stok_seed_bench": "A12 (the bench artifact)",
-    "flight_rounds": "A7.7 (the scheduler's flight recorder)",
-    "profile_rounds": "A7.7 (the profile hook)",
-    "profile_dir": "A7.7 (the profile hook)",
-    "prefix_topk": "A7.8 (prefix telemetry)",
-    "prefix_ring": "A7.8 (prefix telemetry)",
 }
 
 #: Per-process spill-path disambiguation: the same source can build two
@@ -141,6 +135,26 @@ def refuse_unported(args, cfg: AppConfig) -> None:
         if getattr(cfg, name) != getattr(defaults, name):
             raise NotImplementedError(
                 f"LSOT_{name.upper()} is not ported: ROADMAP {item}")
+
+
+def configure_observability(cfg: AppConfig) -> None:
+    """Wire the observability knobs through their reconfigure seams, as
+    the JAX entry point does: every recorder, registry and scheduler built
+    after this call reads them."""
+    from ..serve import flightrecorder
+    from ..serve.scheduler import reconfigure_prefix_telemetry
+    from ..utils import observability, slo, traceprof
+    from ..utils.tracing import TRACER
+
+    TRACER.reconfigure(sample=cfg.trace_sample, export_dir=cfg.trace_export)
+    flightrecorder.reconfigure(rounds=cfg.flight_rounds)
+    observability.reconfigure_request_log(cfg.request_log)
+    reconfigure_prefix_telemetry(top_k=cfg.prefix_topk, ring=cfg.prefix_ring)
+    slo.reconfigure(ttft_ms=cfg.slo_ttft_ms, tpot_ms=cfg.slo_tpot_ms,
+                    queue_wait_ms=cfg.slo_queue_wait_ms,
+                    window_s=cfg.slo_window_s, target=cfg.slo_target)
+    traceprof.reconfigure_profile(profile_dir=cfg.profile_dir or None,
+                                  rounds=cfg.profile_rounds)
 
 
 def make_tiny_service(
@@ -402,6 +416,7 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
     if args.int4 and args.int8:
         sys.exit("pick one of --int8 / --int4")
     refuse_int8_speculation(args, cfg)
+    configure_observability(cfg)
     device = "cpu" if args.cpu else None
     if args.backend == "fake":
         if not args.cpu:

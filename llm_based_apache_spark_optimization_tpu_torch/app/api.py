@@ -11,10 +11,9 @@ file must already exist in the input dir (no upload — reference
 
 (`FastAPI/app.py:72-73,112-116,138-144`.)
 
-A copy of the JAX package's `app/api.py` over the port's serving stack,
-without `/metrics` and the `/debug/*` routes (ROADMAP A12). Tenant and qos
-labels are checked and carried; the port has no QoS front door to charge
-them to (ROADMAP A11).
+A copy of the JAX package's `app/api.py` over the port's serving stack.
+Tenant and qos labels are checked and carried; the port has no QoS front
+door to charge them to (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -35,7 +34,12 @@ from ..sql.backend import SQLBackend
 from ..utils import tracing
 from ..utils.tracing import TRACER
 from .config import AppConfig
-from .health import add_health_routes, install_drain_gate
+from .health import (
+    add_debug_routes,
+    add_health_routes,
+    install_drain_gate,
+    metrics_response,
+)
 from .pipeline import Pipeline
 from .wsgi import App, Request, Response
 
@@ -109,9 +113,10 @@ def create_api_app(
     # a handler cannot forget the header).
     app = App(secret_key=cfg.secret_key,
               request_id_factory=tracing.new_request_id)
-    # Lifecycle surface: /healthz (liveness), /readyz (readiness) and the
-    # SIGTERM drain gate — app/health.py.
+    # Lifecycle surface: /healthz (liveness), /readyz (readiness), the
+    # SIGTERM drain gate and the observability debug routes — app/health.py.
     add_health_routes(app, service)
+    add_debug_routes(app, service)
     install_drain_gate(app, service)
 
     def _rid(req: Request) -> str:
@@ -404,5 +409,14 @@ def create_api_app(
             "models": service.models(),
             "stats": service.stats,
         })
+
+    @app.route("/metrics")
+    def metrics(req: Request) -> Response:
+        """Per-model serving aggregates (p50/p95 latency, decode tok/s,
+        TTFT, queue wait) and the scheduler layer's stats (prefix cache,
+        speculation, page pool, roofline ledger, watchdog, flight
+        recorder); `?format=prometheus` renders the same payload and the
+        fixed-bucket histograms in the exposition text format."""
+        return metrics_response(service, req)
 
     return app

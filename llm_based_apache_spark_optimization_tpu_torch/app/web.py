@@ -12,8 +12,7 @@ per-browser-session (the reference mutates one process-global dict —
 `Flask/app.py:59-72` — so concurrent users see each other's progress), and
 the upload path is sanitized.
 
-A copy of the JAX package's `app/web.py` over the port's serving stack,
-without `/metrics` and the `/debug/*` routes (ROADMAP A12).
+A copy of the JAX package's `app/web.py` over the port's serving stack.
 """
 
 from __future__ import annotations
@@ -35,7 +34,12 @@ from ..serve.service import GenerationService
 from ..sql.backend import SQLBackend
 from ..utils import tracing
 from .config import AppConfig
-from .health import add_health_routes, install_drain_gate
+from .health import (
+    add_debug_routes,
+    add_health_routes,
+    install_drain_gate,
+    metrics_response,
+)
 from .pipeline import ST_UPLOAD, Pipeline
 from .wsgi import App, Request, Response
 
@@ -91,6 +95,7 @@ def create_web_app(
     # Same lifecycle surface as the headless API (app/health.py): probes
     # and the SIGTERM drain gate are frontend-independent.
     add_health_routes(app, service)
+    add_debug_routes(app, service)
     install_drain_gate(app, service)
     board = StatusBoard()
     env = Environment(
@@ -116,6 +121,12 @@ def create_web_app(
     @app.route("/status")
     def status(req: Request) -> Response:
         return Response.json(board.get(session_id(req)))
+
+    @app.route("/metrics")
+    def metrics(req: Request) -> Response:
+        """Per-model serving aggregates and the scheduler layer's stats;
+        `?format=prometheus` renders the exposition text."""
+        return metrics_response(service, req)
 
     @app.route("/static/styles.css")
     def styles(req: Request) -> Response:

@@ -27,8 +27,10 @@ head from HF's split-half rope layout to GGML's interleaved pairs;
 (and forward on export). Without it the model runs with degraded attention.
 
 `write_gguf` is the inverse (f32 / f16 / q8_0 / q4_0 / q6_k). Its quantizers
-are the JAX package's arithmetic vectorized over blocks with numpy, and
-write the same bytes; the file is written one tensor at a time.
+are the JAX package's arithmetic vectorized over blocks and write the same
+bytes: q8_0 and q4_0 in torch on the device the tensor lives on (the card,
+in serving), q6_k with numpy on the host. The file is written one tensor at
+a time.
 """
 
 from __future__ import annotations
@@ -175,10 +177,40 @@ def _f16_bytes(a: np.ndarray) -> np.ndarray:
     return a.astype("<f2").view(np.uint8).reshape(-1, 2)
 
 
-def _quantize(a: np.ndarray, quant: str) -> bytes:
-    """Serialize a float array in the given GGML dtype's data layout: the
+def _quantize_q(t: torch.Tensor, quant: str) -> bytes:
+    """q8_0 / q4_0 blocks of 32 on `t`'s device (f32 arithmetic, IEEE
+    division, round half to even, as numpy's), moved to the host as bytes."""
+    blocks = t.reshape(-1, 32)
+    if quant == "q8_0":
+        # Per-block absmax/127 scale, stored f16; dequant uses the f16
+        # value, so quantize against the rounded scale.
+        scale16 = (blocks.abs().amax(dim=1) / 127.0).half()
+        s = scale16.float()
+        s = torch.where(s == 0, torch.ones_like(s), s)
+        q = torch.clamp(torch.round(blocks / s[:, None]), -127, 127).to(torch.int8)
+        out = torch.cat([scale16.view(torch.uint8).reshape(-1, 2),
+                         q.view(torch.uint8)], dim=1)
+    else:
+        # d = signed-max / -8, q = round(x/d) + 8 in [0, 15]; low nibbles
+        # hold elements 0..15, high nibbles 16..31.
+        m = blocks.gather(1, blocks.abs().argmax(dim=1, keepdim=True))[:, 0]
+        d16 = (m / -8.0).half()
+        df = d16.float()
+        df = torch.where(df == 0, torch.ones_like(df), df)
+        q = torch.clamp(torch.round(blocks / df[:, None]) + 8, 0, 15).to(torch.uint8)
+        out = torch.cat([d16.view(torch.uint8).reshape(-1, 2),
+                         q[:, :16] | (q[:, 16:] << 4)], dim=1)
+    return out.cpu().numpy().tobytes()
+
+
+def _quantize(t: torch.Tensor, quant: str) -> bytes:
+    """Serialize an f32 tensor in the given GGML dtype's data layout: the
     JAX package's per-block arithmetic, run over all blocks at once."""
-    flat = np.ascontiguousarray(a, np.float32).reshape(-1)
+    if quant in ("q8_0", "q4_0"):
+        if t.numel() % 32:
+            raise ValueError(f"{quant} needs a multiple of 32 elements")
+        return _quantize_q(t.contiguous(), quant)
+    flat = t.reshape(-1).cpu().numpy()
     if quant == "f32":
         return flat.astype("<f4").tobytes()
     if quant == "f16":
@@ -186,28 +218,6 @@ def _quantize(a: np.ndarray, quant: str) -> bytes:
     nbytes, per = _BLOCK[quant]
     if flat.size % per:
         raise ValueError(f"{quant} needs a multiple of {per} elements")
-    if quant == "q8_0":
-        # Per-block absmax/127 scale, stored f16; dequant uses the f16
-        # value, so quantize against the rounded scale.
-        blocks = flat.reshape(-1, 32)
-        scale16 = (np.abs(blocks).max(axis=1) / 127.0).astype(np.float16)
-        s = scale16.astype(np.float32)
-        s[s == 0] = 1.0
-        q = np.clip(np.rint(blocks / s[:, None]), -127, 127).astype(np.int8)
-        return np.concatenate([_f16_bytes(scale16), q.view(np.uint8)],
-                              axis=1).tobytes()
-    if quant == "q4_0":
-        # d = signed-max / -8, q = round(x/d) + 8 in [0, 15]; low nibbles
-        # hold elements 0..15, high nibbles 16..31.
-        blocks = flat.reshape(-1, 32)
-        idx = np.abs(blocks).argmax(axis=1)
-        m = blocks[np.arange(blocks.shape[0]), idx]
-        d16 = (m / -8.0).astype(np.float16)
-        df = d16.astype(np.float32)
-        df[df == 0] = 1.0
-        q = np.clip(np.rint(blocks / df[:, None]) + 8, 0, 15).astype(np.uint8)
-        packed = (q[:, :16] | (q[:, 16:] << 4)).astype(np.uint8)
-        return np.concatenate([_f16_bytes(d16), packed], axis=1).tobytes()
     # q6_k: 256-element super-blocks of 16 sub-blocks: ql[128] low nibbles,
     # qh[64] high 2-bit planes, 16 int8 sub-block scales, f16 super scale;
     # element e = d * sc8[e // 16] * (q6 - 32), q6 in [0, 63].
@@ -263,21 +273,21 @@ def write_gguf(cfg: LlamaConfig, params: Dict[str, Any], path,
 
     `quant` applies to the 2-D matmul weights and the embeddings; norms stay
     f32 (llama.cpp convention). The tensor directory is computed from the
-    shapes first; each tensor then moves to the host, is quantized and
-    written on its own."""
+    shapes first; each tensor is then quantized where it lives, moved to
+    the host and written on its own."""
     if quant not in _QUANT_IDS:
         raise ValueError(f"quant must be one of {sorted(_QUANT_IDS)}")
 
     def host(x: torch.Tensor, transpose=False, permute_heads=0):
-        def get() -> np.ndarray:
-            # Transpose and permute where the tensor lives (the card, in
-            # serving), so the host only quantizes.
+        def get() -> torch.Tensor:
+            # Transpose, permute and quantize where the tensor lives (the
+            # card, in serving).
             t = x.detach().to(torch.float32)
             if transpose:
                 t = t.T
             if permute_heads:
                 t = _permute_qk(t, permute_heads)
-            return t.contiguous().cpu().numpy()
+            return t.contiguous()
         shape = tuple(x.shape[::-1]) if transpose else tuple(x.shape)
         return shape, get
 

@@ -81,6 +81,20 @@ class Completion:
     prompt_tokens: int = 0
     # Seconds from the engine call to its first sampled token.
     ttft_s: float = 0.0
+    # Queue wait (submit -> slot admission) on the scheduler path: the
+    # backlog share of latency. 0.0 = not measured.
+    queue_wait_s: float = 0.0
+    # Request class ("constrained"/"speculative"/both/"") and serving
+    # replica: the label set the Prometheus histograms slice by.
+    rclass: str = ""
+    replica: str = ""
+
+
+def request_class(constrained: bool, speculative: bool) -> str:
+    """The request-class label of the metrics histograms: grammar
+    constraining and speculation have their own latency profiles."""
+    return "+".join(name for name, on in (("constrained", constrained),
+                                          ("speculative", speculative)) if on)
 
 
 def trim_stop_texts(text: str, stop_texts: Sequence[str]) -> str:
@@ -276,13 +290,16 @@ class EngineBackend:
         prev = self._sec_per_tok
         self._sec_per_tok = rate if prev is None else 0.2 * rate + 0.8 * prev
 
-    def _completion(self, prompt_ids: List[int], out: List[int]) -> Completion:
+    def _completion(self, prompt_ids: List[int], out: List[int],
+                    constrained: bool) -> Completion:
         if out and out[-1] in self.engine.stop_ids:
             out = out[:-1]  # strip the stop token itself from the text
         text = trim_stop_texts(self.tokenizer.decode(out), self.stop_texts)
         return Completion(text=text, output_tokens=len(out),
                           prompt_tokens=len(prompt_ids),
-                          ttft_s=self.engine.last_stats.get("ttft_s", 0.0))
+                          ttft_s=self.engine.last_stats.get("ttft_s", 0.0),
+                          rclass=request_class(constrained,
+                                               bool(self.engine.speculative_draft)))
 
     def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
@@ -303,7 +320,7 @@ class EngineBackend:
             )[0]
             self._record_rate(time.perf_counter() - t0, len(out),
                               (1, self.engine.padded_prompt_len(len(ids))))
-            return self._completion(ids, out)
+            return self._completion(ids, out, constrain is not None)
 
     def complete_batch(
         self, prompts: Sequence[str], max_new_tokens: Optional[int] = None,
@@ -328,7 +345,8 @@ class EngineBackend:
             self._record_rate(time.perf_counter() - t0,
                               max((len(o) for o in outs), default=0),
                               (len(ids), self.engine.padded_prompt_len(longest)))
-            return [self._completion(i, o) for i, o in zip(ids, outs)]
+            return [self._completion(i, o, constrain is not None)
+                    for i, o in zip(ids, outs)]
 
 
 class FakeBackend:

@@ -157,15 +157,36 @@ and the scheduler's device and stream itself: both are per-thread state.
   Prefix reuse is off (reused blocks would never reach the history).
   `speculation_stats` reports rounds and tokens by class.
 
+- Observability: the flight recorder (serve/flightrecorder.py) gets one
+  record per harvested round (occupancy, queue depth, admitted and retired
+  rids, tokens emitted, the round's span on the device, cadence, page-pool
+  occupancy) with its roofline columns: the round's phase (decode, verify
+  or mixed), its mean context and the MFU, HBM-bandwidth utilization and
+  binding roof the per-round ledger (`self.perf`, utils/perfmodel.py,
+  priced for the card from `torch.cuda.get_device_name`) gives it; prefill chunks are banked
+  and attributed over the inter-harvest wall. Events: `kv_evict`,
+  `preempt`, `resume`, `grammar_swap`, `crash`, `profile_start`/`done`.
+  Each request carries a scheduler rid and its queue wait (admission less
+  submit, on the future for `Completion.queue_wait_s`), and a traced
+  request gets `sched.*` spans. `profile_rounds(N)` arms a bounded
+  torch.profiler capture (CUDA activity on the card) of the next N rounds,
+  one at a time process-wide (utils/traceprof.py), written as a gzipped
+  Chrome trace. Prefix telemetry: each cache entry's content digest
+  (blake2b), hit count and rounds, the eviction churn, a reuse-distance
+  histogram over a bounded ring of admissions (`LSOT_PREFIX_RING`), and
+  the priced prefill the hits saved; `prefix_telemetry`,
+  `resident_digests` and `prefix_registry` (top `LSOT_PREFIX_TOPK`) read
+  them.
+
 Not ported yet: phase roles and handoff (A7.5), `SchedulerPool` (A7.10),
-profiling and the flight recorder's rounds (A7.7), prefix telemetry
-(A7.8), tenant QoS (A11) and meshes (A7.12, A13).
+tenant QoS (A11) and meshes (A7.12, A13).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import os
 import queue
 import threading
@@ -174,6 +195,7 @@ from collections import OrderedDict, deque
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -203,9 +225,12 @@ from ..ops.sampling import (
     sample_runtime,
     verify_draws,
 )
-from .backends import Completion, trim_stop_texts
+from .backends import Completion, request_class, trim_stop_texts
+from .flightrecorder import FlightRecorder, merge_snapshots
+from ..utils import traceprof
 from ..utils.faults import FAULTS, InjectedFault
 from ..utils.observability import resilience
+from ..utils.perfmodel import PerfModel
 from .resilience import (
     Deadline,
     DeadlineExceeded,
@@ -218,8 +243,76 @@ from .watchdog import Heartbeat
 _M32 = 0xFFFFFFFF
 
 
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a params tree (dicts, lists and tuples of tensors)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, (list, tuple)) else ())
+    return [t for v in items for t in _leaves(v)]
+
+
 def _env_on(name: str) -> bool:
     return os.environ.get(name, "0").strip().lower() in ("1", "true", "yes", "on")
+
+
+#: Prefix-cache telemetry bounds: how many registry entries
+#: /debug/prefixcache returns per scheduler (top-K by token mass) and how
+#: many recent admissions the reuse-distance ring remembers. App-startup
+#: overrides via `reconfigure_prefix_telemetry` (AppConfig.prefix_topk /
+#: prefix_ring); None falls through to the LSOT_PREFIX_TOPK /
+#: LSOT_PREFIX_RING env reads.
+_PREFIX_TOPK: Optional[int] = None
+_PREFIX_RING: Optional[int] = None
+
+
+def reconfigure_prefix_telemetry(top_k: Optional[int] = None,
+                                 ring: Optional[int] = None) -> None:
+    """Set the prefix-registry bounds schedulers constructed AFTER this
+    call will use (app/__main__ wires AppConfig.prefix_topk/prefix_ring
+    through here)."""
+    global _PREFIX_TOPK, _PREFIX_RING
+    _PREFIX_TOPK = int(top_k) if top_k else None
+    _PREFIX_RING = int(ring) if ring else None
+
+
+def _prefix_bound(configured: Optional[int], env: str, default: int) -> int:
+    if configured is not None:
+        return max(1, configured)
+    try:
+        n = int(os.environ.get(env, str(default)))
+    except ValueError:
+        n = default
+    return max(1, n)
+
+
+def prefix_digest(ids: Sequence[int]) -> str:
+    """Stable content address of a token prefix: blake2b over the int32
+    token ids, 16 hex chars — the same digest the JAX package computes for
+    the same prefix, in any process."""
+    return hashlib.blake2b(
+        np.asarray(ids, np.int32).tobytes(), digest_size=8
+    ).hexdigest()
+
+
+def _rd_buckets(ring_cap: int) -> Tuple[int, ...]:
+    """Reuse-distance histogram buckets (admissions between consecutive
+    sightings of the same prefix digest): powers of two up to the ring
+    cap, so a wider ring still buckets its whole window."""
+    b, buckets = 1, []
+    while b < ring_cap:
+        buckets.append(b)
+        b *= 2
+    buckets.append(ring_cap)
+    return tuple(buckets)
+
+
+def _device_kind(device: torch.device) -> str:
+    """The name the roofline ledger's peak table matches (utils/perfmodel
+    `PEAKS`); "" on the CPU, which prices at the host fallback."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return ""
 
 
 def _first_token_timer(then: Optional[Callable[[int], None]] = None):
@@ -280,8 +373,26 @@ class _Request:
     # unpreempted control draws); `spilled` holds the host page copies of
     # a spill resume (`export_pages`).
     resume_pref: int = 0
+    preempted: int = 0
     rng_count: int = 0
     spilled: Optional[Tuple] = None
+    # Observability: a scheduler-scope request id (the flight records'
+    # admitted/retired columns), the request's trace when it was sampled
+    # (utils/tracing.py; the worker records sched.* spans into it), the
+    # wall stamps those spans are cut from, and the preempted intervals
+    # [t_preempt, t_resume or 0.0].
+    rid: int = 0
+    trace: Optional[object] = None
+    admitted_at: float = 0.0
+    ready_at: float = 0.0
+    parked: List[List[float]] = dataclasses.field(default_factory=list)
+    # Prefix reuse, stamped at admission: the matched chain entry's digest
+    # on a hit (the longest whole-block prompt prefix's on a miss; "" for
+    # a prompt shorter than one block or with the cache off), the prompt
+    # tokens the hit skipped and the prefill seconds that priced at.
+    prefix_digest: str = ""
+    tokens_reused: int = 0
+    prefill_s_saved: float = 0.0
 
     @property
     def full_ids(self) -> List[int]:
@@ -291,6 +402,40 @@ class _Request:
         if not self.resume_pref:
             return self.ids
         return self.ids + self.generated[: self.resume_pref]
+
+    def flush_spans(self, now: float) -> None:
+        """Record the request's scheduler spans into its trace at terminal
+        time: queue wait (submit -> slot), prefill (slot -> decode
+        eligible), decode (eligible -> terminal) and one span per preempted
+        interval. Only traced requests pay anything."""
+        tr = self.trace
+        if tr is None:
+            return
+        try:
+            if self.submitted_at and self.admitted_at:
+                tr.add_span("sched.queue_wait", self.submitted_at,
+                            self.admitted_at, rid=self.rid)
+            elif self.submitted_at:
+                # Never admitted: its whole life was queue wait.
+                tr.add_span("sched.queue_wait", self.submitted_at, now,
+                            rid=self.rid)
+            if self.admitted_at:
+                attrs = {"prompt_tokens": len(self.ids)}
+                if self.prefix_digest:
+                    attrs["prefix_digest"] = self.prefix_digest
+                    attrs["tokens_reused"] = self.tokens_reused
+                    attrs["tokens_prefilled"] = len(self.ids) - self.tokens_reused
+                tr.add_span("sched.prefill", self.admitted_at,
+                            self.ready_at or now, **attrs)
+            if self.ready_at:
+                tr.add_span("sched.decode", self.ready_at, now,
+                            output_tokens=len(self.generated),
+                            constrained=self.constraint is not None)
+            for t0, t1 in self.parked:
+                tr.add_span("sched.preempted", t0, t1 or now, rid=self.rid,
+                            resumed=bool(t1), preemptions=self.preempted)
+        except Exception:  # noqa: BLE001 — tracing must never kill the loop
+            self.trace = None
 
     def past_deadline(self) -> bool:
         return self.deadline is not None and self.deadline.expired()
@@ -393,6 +538,7 @@ class ContinuousBatchingScheduler:
             # (models/llama.fuse_blocks); `self.params` is the fused tree.
             params = fuse_blocks(params)
         self.params = params
+        self._weight_bits = infer_weight_bits(params)
         self.num_slots = num_slots
         self.max_seq = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
         self.decode_chunk = decode_chunk
@@ -452,7 +598,6 @@ class ContinuousBatchingScheduler:
             self._hist = torch.full((num_slots, self.max_seq + self._spec_draft + 1),
                                     cfg.pad_id, dtype=torch.int32, device=dev)
             self._hlen = torch.zeros(num_slots, dtype=torch.int64, device=dev)
-            self._weight_bits = infer_weight_bits(params)
             # Acceptance counters (`speculation_stats`), moved as a group
             # under the submit lock: verify rounds and the tokens they
             # emitted, their constrained and sampled subsets, and the
@@ -466,8 +611,10 @@ class ContinuousBatchingScheduler:
         # harvest drops firsts issued under a stale epoch.
         self._slot_epoch: List[int] = [0] * num_slots
         # In-flight rounds: (issue-time slot->req list, epochs, toks [S,
-        # chunk] device tensor, firsts [(slot, req, tok, epoch)], and under
-        # speculation n_emit [S]: the leading toks of each row it emitted).
+        # chunk] device tensor, firsts [(slot, req, tok, epoch)], under
+        # speculation n_emit [S] (the leading toks of each row it emitted),
+        # the wall stamp taken before it was enqueued, and a ragged mixed
+        # round's chunk rows {pre_rows, pre_tokens, pre_ctx} for the ledger).
         self._pending: "deque[tuple]" = deque()
         self._first_pending: list = []
         self._harvest_lag = 1  # rounds kept in flight before syncing
@@ -508,6 +655,38 @@ class ContinuousBatchingScheduler:
         self._prefix_blocks_reused = 0
         self._prefix_reused_tokens = 0
         self._prefix_evictions = 0
+        # Prefix telemetry, moved as a group under the submit lock (the
+        # worker thread is the only writer; /metrics readers take one
+        # snapshot): re-publishes of evicted keys, the priced prefill the
+        # hits saved, the hit-rate EWMA over cacheable admissions.
+        self._prefix_reinserts = 0
+        self._prefix_flops_saved = 0.0
+        self._prefix_s_saved = 0.0
+        self._prefix_hit_ewma: Optional[float] = None
+        # The registry: per-entry metadata keyed like the caches (digest,
+        # tokens, hits, insert/last-hit round), and the evicted keys (a
+        # publish that finds its key here is a reinsertion: the cache was
+        # too small for the working set).
+        self._prefix_meta: Dict[Tuple[int, ...], Dict[str, object]] = {}
+        self._prefix_evicted_ghost: "OrderedDict[Tuple[int, ...], None]" = (
+            OrderedDict())
+        # Reuse-distance ring: admissions since a digest's last sighting,
+        # from a digest -> admission-seq map swept when it doubles;
+        # powers-of-two buckets plus "inf" (unseen inside the window).
+        self._prefix_ring_cap = _prefix_bound(_PREFIX_RING, "LSOT_PREFIX_RING", 256)
+        self._prefix_topk = _prefix_bound(_PREFIX_TOPK, "LSOT_PREFIX_TOPK", 32)
+        self._prefix_adm_seq = 0
+        self._prefix_ring_seq: Dict[str, int] = {}
+        self._prefix_rd_buckets = _rd_buckets(self._prefix_ring_cap)
+        self._prefix_rd_hist: Dict[str, int] = {}
+        # Chain key -> digest, LRU-bounded: traffic repeats the same
+        # schema prefix, so blake2b runs once per distinct prefix.
+        self._prefix_digest_memo: "OrderedDict[Tuple[int, ...], str]" = OrderedDict()
+        # Reuse rows ({rid, digest, reused, prefilled}) for the next
+        # flight record.
+        self._round_prefix: List[Dict[str, object]] = []
+        # One contiguous cache entry's device bytes (from the first one).
+        self._prefix_block_bytes = 0
 
         self._stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
                         else None)
@@ -523,6 +702,36 @@ class ContinuousBatchingScheduler:
         #: Liveness stamp: the loop stamps it every iteration and ticks it
         #: every harvested round; the supervisor's watchdog reads it.
         self.heartbeat = Heartbeat()
+        #: One record per harvested round in a bounded ring, beside the
+        #: scheduler's events (serve/flightrecorder.py): the postmortem
+        #: black box, live at /debug/flightrecorder.
+        self.flight = FlightRecorder()
+        # Scheduler-scope request ids, and the rids admitted and retired
+        # since the last record.
+        self._rid_seq = 0
+        self._round_admitted: List[int] = []
+        self._round_retired: List[int] = []
+        #: The per-round roofline ledger (utils/perfmodel.py): weight bytes
+        #: as stored (what a decode step streams), the KV layout's pricing,
+        #: the card's peaks.
+        self.perf = PerfModel(
+            cfg,
+            param_bytes=sum(t.nbytes for t in _leaves(params)),
+            weight_bits=self._weight_bits,
+            kv_itemsize=dtype.itemsize,
+            kv_quant=kv_quant,
+            kv_layout=kv_layout,
+            page_size=self._page_size if self._paged else None,
+            device_kind=_device_kind(dev),
+        )
+        self._last_harvest_t: Optional[float] = None
+        # On-demand profiling (/debug/profile): an armed capture starts on
+        # the worker thread at the next issued round and stops after N
+        # harvested rounds; utils/traceprof's guard allows one at a time.
+        self._profile_lock = threading.Lock()
+        self._profile_arm: Optional[Dict[str, object]] = None
+        self._profile_active: Optional[Dict[str, object]] = None
+        self._profile_last: Optional[Dict[str, object]] = None
 
     # ----------------------------------------------------- device helpers
 
@@ -671,9 +880,8 @@ class ContinuousBatchingScheduler:
                       * (self._pages_per_slot - len(pages)))
 
     def _prefix_evict(self, key: Tuple[int, ...], pages: Tuple[int, ...]) -> None:
-        self._page_alloc.prefix_drop(list(pages))
+        self._prefix_note_evict(key, pages)
         self._page_alloc.release(list(pages))
-        self._prefix_evictions += 1
 
     def _alloc_pages(self, n: int) -> Optional[List[int]]:
         """All-or-nothing page grab, evicting LRU prefix-cache entries
@@ -770,6 +978,8 @@ class ContinuousBatchingScheduler:
         if evicted:
             self._page_alloc.note_evictions(evicted)
             resilience.inc("kv_evictions")
+            self.flight.event("kv_evict", entries=evicted,
+                              free=self._page_alloc.pages_free)
 
     def _preempt_slot(self, slot: int) -> None:
         """Release a victim's slot and pages and queue it to resume first.
@@ -786,6 +996,7 @@ class ContinuousBatchingScheduler:
             req.spilled = export_pages(self._pool, self._slot_pages[slot][:npg])
             self._page_alloc.note_spill(npg)
         req.resume_pref = len(req.generated)
+        req.preempted += 1
         req.ready = False
         req.prefilled = 0
         self._slot_req[slot] = None
@@ -797,6 +1008,11 @@ class ContinuousBatchingScheduler:
         self._free_slot_pages(slot)
         self._page_alloc.note_preempt()
         resilience.inc("kv_preemptions")
+        # A preempted interval for the request's trace, closed at resume.
+        req.parked.append([time.perf_counter(), 0.0])
+        self.flight.event("preempt", slot=slot, rid=req.rid,
+                          generated=len(req.generated),
+                          spill=req.spilled is not None)
         self._page_wait.appendleft(req)
 
     def _preempt_for(self, n_pages: int, protect: int) -> Optional[List[int]]:
@@ -838,7 +1054,7 @@ class ContinuousBatchingScheduler:
             self._sync_ptab_row(i)
             req.page_end = max(req.page_end, len(self._slot_pages[i]) * ps)
 
-    def _resume_ready(self, slot: int, req: _Request) -> None:
+    def _resume_ready(self, slot: int, req: _Request, mode: str = "recompute") -> None:
         """Arm a resumed slot from its committed state: the last committed
         token fed again at its own position (its K/V rewrite is the same
         value), the sample index restored from the host mirror, the grammar
@@ -863,9 +1079,14 @@ class ContinuousBatchingScheduler:
             self._hist[slot] = self._h2d(row, torch.int32)
             self._hlen[slot] = plen
         req.ready = True
+        req.ready_at = time.perf_counter()
+        if req.parked and not req.parked[-1][1]:
+            req.parked[-1][1] = req.ready_at
         # Decode rewrites [plen - 1, page_end): copy any page the
         # re-prefill's publish shared.
         self._ensure_writable(slot, max(0, plen - 1), req.page_end)
+        self.flight.event("resume", slot=slot, rid=req.rid,
+                          generated=len(req.generated), mode=mode)
 
     def _restore_spilled(self, slot: int, req: _Request) -> None:
         """Spill resume: write the host page copies (values and, in an int8
@@ -875,7 +1096,7 @@ class ContinuousBatchingScheduler:
         self._page_alloc.note_restore(n)
         req.spilled = None
         req.prefilled = len(req.full_ids)
-        self._resume_ready(slot, req)
+        self._resume_ready(slot, req, mode="spill")
 
     # ------------------------------------------------------------ lifecycle
 
@@ -935,6 +1156,7 @@ class ContinuousBatchingScheduler:
         on_token: Optional[Callable[[int], None]] = None,
         deadline_s: Optional[float] = None,
         constraint=None,
+        trace=None,
     ) -> "Future[List[int]]":
         """Queue a request; returns a Future of its generated ids. The
         request samples from its own (seed, index) stream, so (ids,
@@ -945,7 +1167,9 @@ class ContinuousBatchingScheduler:
         or at the next harvest once in flight. With a grammar `constraint`
         (constrain.CompiledMask) every token is masked to the compiled
         language and the completion parses; a request with another grammar
-        than the installed one waits for the constrained slots to drain."""
+        than the installed one waits for the constrained slots to drain.
+        A sampled `trace` (utils/tracing.RequestTrace) gets the request's
+        sched.* spans."""
         if constraint is not None and max_new_tokens < constraint.min_new_tokens:
             raise ValueError(
                 f"max_new_tokens={max_new_tokens} cannot hold a complete "
@@ -967,7 +1191,7 @@ class ContinuousBatchingScheduler:
             ids=list(ids), max_new=max_new_tokens,
             temperature=sampling.temperature, top_p=sampling.top_p,
             top_k=sampling.top_k, seed=seed, future=Future(),
-            on_token=on_token, constraint=constraint,
+            on_token=on_token, constraint=constraint, trace=trace,
             deadline=Deadline.after(deadline_s) if deadline_s is not None else None,
         )
         req.future._lsot_request = req  # cancel() handle
@@ -993,6 +1217,9 @@ class ContinuousBatchingScheduler:
                 raise Overloaded(
                     f"scheduler queue at capacity ({self.max_queue_depth} "
                     f"waiting requests)", retry_after_s=self.retry_after_hint())
+            self._rid_seq += 1
+            req.rid = self._rid_seq
+            req.future._lsot_replica = self.flight.replica
             req.submitted_at = time.perf_counter()
             self._queue.put(req)
         return req.future
@@ -1049,21 +1276,390 @@ class ContinuousBatchingScheduler:
                                        self._dtype.itemsize, self.kv_quant)
         return out
 
+    def _cached_blocks(self) -> int:
+        return len(self._prefix_pages if self._paged else self._prefix_cache)
+
     @property
     def prefix_stats(self) -> Dict[str, object]:
         """Prefix-cache counters: admissions that reused blocks (hits) vs
-        cacheable admissions that found none (misses)."""
-        total = self._prefix_hits + self._prefix_misses
+        cacheable admissions that found none (misses), read in one
+        snapshot."""
+        return {**self._prefix_stats_from(self._prefix_snapshot()),
+                "cached_blocks": self._cached_blocks()}
+
+    def _prefix_snapshot(self) -> Dict[str, object]:
+        """The telemetry counter group, copied in one lock acquisition so
+        no reader pairs fields across a concurrent admission."""
+        with self._submit_lock:
+            return {
+                "hits": self._prefix_hits,
+                "misses": self._prefix_misses,
+                "blocks_reused": self._prefix_blocks_reused,
+                "reused_tokens": self._prefix_reused_tokens,
+                "evictions": self._prefix_evictions,
+                "reinserts": self._prefix_reinserts,
+                "flops_saved": self._prefix_flops_saved,
+                "s_saved": self._prefix_s_saved,
+                "hit_ewma": self._prefix_hit_ewma,
+                "resident_entries": len(self._prefix_meta),
+            }
+
+    @staticmethod
+    def _prefix_stats_from(snap: Dict[str, object]) -> Dict[str, object]:
+        total = int(snap["hits"]) + int(snap["misses"])
         return {
-            "hits": self._prefix_hits,
-            "misses": self._prefix_misses,
-            "hit_rate": round(self._prefix_hits / total, 4) if total else 0.0,
-            "blocks_reused": self._prefix_blocks_reused,
-            "reused_tokens": self._prefix_reused_tokens,
-            "evictions": self._prefix_evictions,
-            "cached_blocks": len(self._prefix_pages if self._paged
-                                 else self._prefix_cache),
+            "hits": snap["hits"],
+            "misses": snap["misses"],
+            "hit_rate": round(int(snap["hits"]) / total, 4) if total else 0.0,
+            "blocks_reused": snap["blocks_reused"],
+            "reused_tokens": snap["reused_tokens"],
+            "evictions": snap["evictions"],
         }
+
+    def _resident_page_bytes(self) -> int:
+        return page_bytes(self.cfg, self._page_size, self._dtype.itemsize,
+                          self.kv_quant)
+
+    @property
+    def prefix_telemetry(self) -> Optional[Dict[str, object]]:
+        """The `serving.prefix` /metrics block: the counter group, churn
+        (reinserts), the hit-rate EWMA, the priced value of the hits
+        (prefill FLOPs and seconds saved, utils/perfmodel.prefill_saved)
+        and what the cache holds (entries, tokens, device bytes; paged
+        residency from the allocator's unique pages, a contiguous entry
+        one block). None with the cache off (speculative schedulers
+        included)."""
+        if not self._prefix_cache_blocks:
+            return None
+        snap = self._prefix_snapshot()
+        entries = int(snap["resident_entries"])
+        if self._paged:
+            pages = self._page_alloc.prefix_resident_pages
+            tokens = pages * self._page_size
+            resident_bytes = pages * self._resident_page_bytes()
+        else:
+            tokens = entries * self._pblock
+            resident_bytes = entries * self._prefix_block_bytes
+        ewma = snap["hit_ewma"]
+        return {
+            "replica": self.flight.replica,
+            **self._prefix_stats_from(snap),
+            "cached_blocks": self._cached_blocks(),
+            "reinserts": snap["reinserts"],
+            "hit_rate_ewma": round(ewma, 4) if ewma is not None else 0.0,
+            "prefill_flops_saved": round(float(snap["flops_saved"]), 1),
+            "prefill_s_saved": round(float(snap["s_saved"]), 6),
+            "resident_entries": entries,
+            "resident_tokens": tokens,
+            "resident_bytes": resident_bytes,
+        }
+
+    def resident_digests(self, limit: Optional[int] = None) -> List[str]:
+        """The hottest resident prefix digests (by hits, then tokens)."""
+        k = limit if limit and limit > 0 else self._prefix_topk
+        with self._submit_lock:
+            metas = sorted(self._prefix_meta.values(),
+                           key=lambda m: (int(m["hits"]), int(m["tokens"])),
+                           reverse=True)[:k]
+        return [str(m["digest"]) for m in metas]
+
+    def prefix_registry(self, top_k: Optional[int] = None) -> Dict[str, object]:
+        """The /debug/prefixcache payload: the top-K resident entries by
+        token mass (digest, tokens, hits, insert/last-hit round; paged:
+        pages, bytes and the live share count of the chain's deepest page;
+        contiguous: one block and its bytes), the reuse-distance histogram
+        and the telemetry block. Entries carry digests, never token ids."""
+        k = top_k if top_k and top_k > 0 else self._prefix_topk
+        tel = self.prefix_telemetry
+        # Metadata, page tuples and refcounts in one acquisition: read
+        # piecemeal, an entry evicted mid-read could report a reused
+        # page's refcount.
+        with self._submit_lock:
+            rd = dict(self._prefix_rd_hist)
+            metas = []
+            for key, m in self._prefix_meta.items():
+                pages = self._prefix_pages.get(key) if self._paged else None
+                metas.append((m, pages, self._page_alloc.refcount(pages[-1])
+                              if pages else None))
+        entries: List[Dict[str, object]] = []
+        for m, pages, shares in metas:
+            e: Dict[str, object] = {
+                "digest": m["digest"], "tokens": m["tokens"], "hits": m["hits"],
+                "insert_round": m["insert_round"],
+                "last_hit_round": m["last_hit_round"],
+            }
+            if self._paged:
+                if pages is None:
+                    continue  # evicted between its meta pop and page pop
+                e["pages"] = len(pages)
+                e["bytes"] = len(pages) * self._resident_page_bytes()
+                e["shares"] = shares
+            else:
+                e["blocks"] = 1
+                e["bytes"] = self._prefix_block_bytes
+            entries.append(e)
+        entries.sort(key=lambda e: (int(e["tokens"]), int(e["hits"])), reverse=True)
+        return {
+            "replica": self.flight.replica,
+            "enabled": bool(self._prefix_cache_blocks),
+            "block_tokens": self._pblock,
+            "capacity": self._prefix_cache_blocks,
+            "ring": self._prefix_ring_cap,
+            "top_k": k,
+            "entries": entries[:k],
+            "reuse_distance": rd,
+            **({k2: v for k2, v in tel.items() if k2 != "replica"} if tel else {}),
+        }
+
+    @property
+    def perf_stats(self) -> Dict[str, object]:
+        """The `serving.perf` /metrics payload: the ledger's pricing
+        assumptions and per-phase EWMAs of the live roofline position."""
+        return {"replica": self.flight.replica, **self.perf.stats()}
+
+    # ------------------------------------------------- prefix telemetry
+
+    def _digest_for(self, key: Tuple[int, ...]) -> str:
+        """Memoized content digest of a chain key (worker thread only)."""
+        memo = self._prefix_digest_memo
+        d = memo.get(key)
+        if d is None:
+            d = memo[key] = prefix_digest(key)
+            bound = 4 * max(self._prefix_topk, self._prefix_cache_blocks or 1)
+            while len(memo) > bound:
+                memo.popitem(last=False)
+        else:
+            memo.move_to_end(key)
+        return d
+
+    def _prefix_note_publish(self, key: Tuple[int, ...]) -> None:
+        """Register a published entry: its digest and metadata, and a
+        reinsertion when the key was evicted before."""
+        digest = self._digest_for(key)
+        with self._submit_lock:
+            if key in self._prefix_evicted_ghost:
+                del self._prefix_evicted_ghost[key]
+                self._prefix_reinserts += 1
+            self._prefix_meta[key] = {
+                "digest": digest, "tokens": len(key), "hits": 0,
+                "insert_round": self.heartbeat.rounds, "last_hit_round": None,
+            }
+
+    def _prefix_note_evict(self, key: Tuple[int, ...],
+                           pages: Optional[Tuple[int, ...]] = None) -> None:
+        """An entry left the cache: count it, drop its metadata, remember
+        the key for the reinsertion check, and drop the allocator's
+        resident-prefix accounting of its pages (paged)."""
+        if pages is not None:
+            self._page_alloc.prefix_drop(list(pages))
+        with self._submit_lock:
+            self._prefix_evictions += 1
+            self._prefix_meta.pop(key, None)
+            self._prefix_evicted_ghost[key] = None
+            while len(self._prefix_evicted_ghost) > 4 * self._prefix_cache_blocks:
+                self._prefix_evicted_ghost.popitem(last=False)
+
+    def _prefix_note_admission(self, req: _Request, ids: Sequence[int],
+                               reuse: int, blocks: int) -> None:
+        """Reuse attribution at admission: stamp the request (digest,
+        tokens reused, prefill seconds saved), move the hit/miss group,
+        feed the reuse-distance ring, and queue the {rid, digest, reused,
+        prefilled} row for the next flight record. A hit's digest is the
+        matched entry's; a miss's the longest whole-block prompt prefix's;
+        a prompt shorter than one block is not cacheable and counts
+        nowhere."""
+        pb = self._pblock
+        max_blocks = (len(ids) - 1) // pb
+        hit = reuse > 0
+        if hit:
+            digest = self._digest_for(tuple(ids[:reuse]))
+        elif max_blocks:
+            digest = self._digest_for(tuple(ids[: max_blocks * pb]))
+        else:
+            digest = ""
+        flops = secs = 0.0
+        if hit:
+            flops, secs = self.perf.prefill_saved(reuse)
+        req.prefix_digest = digest
+        req.tokens_reused = reuse
+        req.prefill_s_saved = secs
+        bucket = None
+        if digest:
+            seq = self._prefix_adm_seq
+            last = self._prefix_ring_seq.get(digest)
+            dist = (seq - last if last is not None
+                    and seq - last <= self._prefix_ring_cap else None)
+            bucket = "inf" if dist is None else str(
+                next(b for b in self._prefix_rd_buckets if dist <= b))
+        with self._submit_lock:
+            if hit:
+                self._prefix_hits += 1
+                self._prefix_blocks_reused += blocks
+                self._prefix_reused_tokens += reuse
+                self._prefix_flops_saved += flops
+                self._prefix_s_saved += secs
+                meta = self._prefix_meta.get(tuple(ids[:reuse]))
+                if meta is not None:
+                    meta["hits"] += 1
+                    meta["last_hit_round"] = self.heartbeat.rounds
+            elif digest:
+                self._prefix_misses += 1
+            if digest:
+                x = 1.0 if hit else 0.0
+                prev = self._prefix_hit_ewma
+                self._prefix_hit_ewma = x if prev is None else 0.2 * x + 0.8 * prev
+                self._prefix_rd_hist[bucket] = self._prefix_rd_hist.get(bucket, 0) + 1
+                self._prefix_ring_seq[digest] = self._prefix_adm_seq
+                self._prefix_adm_seq += 1
+                if len(self._prefix_ring_seq) > 2 * self._prefix_ring_cap:
+                    cutoff = self._prefix_adm_seq - self._prefix_ring_cap
+                    self._prefix_ring_seq = {d: q for d, q in self._prefix_ring_seq.items()
+                                             if q >= cutoff}
+        if digest:
+            self._round_prefix.append({"rid": req.rid, "digest": digest,
+                                       "reused": reuse,
+                                       "prefilled": len(ids) - reuse})
+
+    # ------------------------------------------------ on-demand profiling
+
+    def _profile_owner(self) -> str:
+        return f"sched:{self.flight.replica}:{id(self):x}"
+
+    def profile_rounds(self, rounds: Optional[int] = None,
+                       out_dir: Optional[str] = None) -> Dict[str, object]:
+        """Arm a bounded torch.profiler capture of the next `rounds`
+        scheduler rounds (the /debug/profile seam): it starts on the worker
+        thread at the next issued round and stops after N harvested
+        rounds, written as a gzipped Chrome trace under `out_dir` (default:
+        utils/traceprof.profile_defaults, else a temporary directory).
+        Raises ValueError for rounds < 1 and RuntimeError while any capture
+        is in flight in the process."""
+        import tempfile
+
+        d_def, r_def = traceprof.profile_defaults()
+        n = r_def if rounds is None else int(rounds)
+        if n < 1:
+            raise ValueError(f"rounds must be >= 1, got {n}")
+        owner = self._profile_owner()
+        if not traceprof.try_acquire_capture(owner):
+            raise RuntimeError(
+                f"a device profile capture is already in flight (owner "
+                f"{traceprof.capture_owner()}); one at a time per process")
+        base = out_dir or d_def
+        try:
+            if base:
+                d = os.path.join(base, f"profile-{int(time.time() * 1000)}-"
+                                       f"{self.flight.replica}")
+                os.makedirs(d, exist_ok=True)
+            else:
+                d = tempfile.mkdtemp(prefix="lsot_profile_")
+        except OSError:
+            traceprof.release_capture(owner)
+            raise
+        with self._profile_lock:
+            self._profile_arm = {"rounds": n, "dir": d, "owner": owner,
+                                 "armed_at": time.time()}
+        return {"state": "armed", "rounds": n, "dir": d,
+                "replica": self.flight.replica}
+
+    def profile_status(self) -> Dict[str, object]:
+        """Capture state: armed, capturing (rounds left) or idle, and the
+        last finished capture's artifacts."""
+        with self._profile_lock:
+            arm, active, last = (self._profile_arm, self._profile_active,
+                                 self._profile_last)
+            out: Dict[str, object] = {"replica": self.flight.replica}
+            if active is not None:
+                out.update({"state": "capturing",
+                            "rounds_left": active["rounds_left"],
+                            "dir": active["dir"]})
+            elif arm is not None:
+                out.update({"state": "armed", "rounds": arm["rounds"],
+                            "dir": arm["dir"]})
+            else:
+                out["state"] = "idle"
+            if last is not None:
+                out["last"] = dict(last)
+        return out
+
+    def _maybe_start_profile(self) -> None:
+        """Worker thread: start the armed capture so the next issued round
+        is inside it."""
+        with self._profile_lock:
+            arm = self._profile_arm
+            if arm is None or self._profile_active is not None:
+                return
+            self._profile_arm = None
+        try:
+            prof = traceprof.start_capture(self.device.type == "cuda")
+        except Exception as e:  # noqa: BLE001 — profiling must not kill serving
+            traceprof.release_capture(arm["owner"])
+            with self._profile_lock:
+                self._profile_last = {"state": "error", "error": str(e)[:200],
+                                      "dir": arm["dir"]}
+            return
+        with self._profile_lock:
+            self._profile_active = {
+                "rounds_left": arm["rounds"], "rounds": arm["rounds"],
+                # Rounds already in flight were issued before the capture
+                # started: their harvests do not count toward it.
+                "skip": len(self._pending),
+                "dir": arm["dir"], "owner": arm["owner"],
+                "started": time.time(), "prof": prof,
+            }
+        self.flight.event("profile_start", rounds=arm["rounds"], dir=arm["dir"])
+
+    def _profile_round_done(self) -> None:
+        with self._profile_lock:
+            st = self._profile_active
+            if st is None:
+                return
+            if st["skip"] > 0:
+                st["skip"] -= 1
+                return
+            st["rounds_left"] -= 1
+            if st["rounds_left"] > 0:
+                return
+            self._profile_active = None
+        self._finish_profile(st)
+
+    def _finish_profile(self, st: Dict[str, object],
+                        error: Optional[str] = None) -> None:
+        try:
+            traceprof.stop_capture(st["prof"], str(st["dir"]))
+        except Exception as e:  # noqa: BLE001 — a failed stop is still a finish
+            error = error or str(e)[:200]
+        arts = traceprof.find_profile_artifacts(str(st["dir"]))
+        out: Dict[str, object] = {
+            "state": "done" if arts else "error",
+            "dir": st["dir"],
+            "rounds": st["rounds"],
+            "artifacts": arts,
+            "artifact_bytes": sum(os.path.getsize(a) for a in arts
+                                  if os.path.exists(a)),
+            "wall_s": round(time.time() - float(st["started"]), 3),
+        }
+        if error:
+            out["error"] = error
+            out["state"] = "error"
+        with self._profile_lock:
+            self._profile_last = out
+        traceprof.release_capture(str(st["owner"]))
+        self.flight.event("profile_done", state=out["state"], artifacts=len(arts))
+
+    def _abort_profile(self, reason: str) -> None:
+        """An armed or running capture must not hold the process-wide slot
+        (or a profiler session) past the loop that owned it."""
+        with self._profile_lock:
+            arm, self._profile_arm = self._profile_arm, None
+            active, self._profile_active = self._profile_active, None
+        if arm is not None:
+            traceprof.release_capture(str(arm["owner"]))
+            with self._profile_lock:
+                self._profile_last = {"state": "aborted", "error": reason,
+                                      "dir": arm["dir"]}
+        if active is not None:
+            self._finish_profile(active, error=reason)
 
     @property
     def speculation_stats(self) -> Optional[Dict[str, object]]:
@@ -1134,6 +1730,8 @@ class ContinuousBatchingScheduler:
         self._constraint = compiled
         self._ctables = compiled.device_tables(self.cfg.vocab_size, self.device)
         self.grammar_swaps += 1
+        self.flight.event("grammar_swap",
+                          fingerprint=str(getattr(compiled, "fingerprint", ""))[:16])
 
     def _admit_paged(self, slot: int, req: _Request) -> bool:
         """Allocate the request's page envelope and map any cached prefix
@@ -1201,7 +1799,7 @@ class ContinuousBatchingScheduler:
                 if key in self._prefix_pages:
                     self._prefix_pages.move_to_end(key)
         if self._prefix_cache_blocks and req.spilled is None:
-            self._note_prefix(plen, n)
+            self._prefix_note_admission(req, ids, reuse, n)
         return True
 
     def _admit_blocks(self, slot: int, req: _Request) -> None:
@@ -1224,31 +1822,28 @@ class ContinuousBatchingScheduler:
             self._prefix_cache.move_to_end(key)  # LRU touch
             self._restore_block(self._prefix_cache[key], slot, j * pb)
         req.prefilled = n * pb
-        self._note_prefix(len(ids), n)
-
-    def _note_prefix(self, plen: int, n: int) -> None:
-        """Count an admission that reused `n` blocks (a hit), or a cacheable
-        one that found none (a miss)."""
-        if n:
-            self._prefix_hits += 1
-            self._prefix_blocks_reused += n
-            self._prefix_reused_tokens += n * self._pblock
-        elif (plen - 1) // self._pblock:
-            self._prefix_misses += 1
+        self._prefix_note_admission(req, ids, n * pb, n)
 
     def _admit(self, slot: int, req: _Request) -> bool:
         """Reserve `slot` and queue the prompt for chunked prefill, reusing
         any cached prefix first. Returns False only when the page pool
         cannot hold the request yet."""
         if req.cancelled:  # cancelled while queued: never occupy a slot
+            self._observe_terminal(req)
             req.future.set_result(req.generated)
             return True
         if req.past_deadline():  # expired while queued: fail fast, typed
             resilience.inc("deadline_expired")
+            self._observe_terminal(req, error="DeadlineExceeded")
             req.future.set_exception(req.deadline_error())
             return True
         if self._paged and not self._admit_paged(slot, req):
             return False
+        if not req.admitted_at:
+            # A resume keeps its first admission: queue wait is submit ->
+            # first slot.
+            req.admitted_at = time.perf_counter()
+        self._round_admitted.append(req.rid)
         self._slot_req[slot] = req
         self._slot_epoch[slot] += 1
         self._park_slot(slot)
@@ -1364,6 +1959,7 @@ class ContinuousBatchingScheduler:
                                 rows=self._h2d([s for s, _ in group], torch.int64),
                                 span=span + -span % 64)
         self.prefill_forwards += 1
+        self._note_prefill(starts, t)
         first = logits[:, 0]
         cinits, cbudgets = self._chunk_grammar(group, lengths)
         if any(cinits):
@@ -1381,6 +1977,14 @@ class ContinuousBatchingScheduler:
             self._h2d([r.seed & _M32 for r in reqs], torch.int64),
             torch.zeros(len(reqs), dtype=torch.int64, device=self.device),
         )
+
+    def _note_prefill(self, starts: List[int], t: int) -> None:
+        """Bank a prefill forward's work in the ledger (its rows at their
+        mean chunk start); the next harvest attributes the pile over the
+        inter-harvest wall. The rows are the group as it is: the forward
+        pads no group to a k-bucket."""
+        self.perf.note_prefill(rows=len(starts), tokens=t,
+                               ctx=sum(starts) // len(starts) + t // 2)
 
     def _prefill_step(self) -> None:
         """Run ONE prompt chunk for up to `_prefill_kmax` waiting requests
@@ -1426,6 +2030,7 @@ class ContinuousBatchingScheduler:
             # No sync: stop/budget checks on the first token happen at the
             # harvest it rides, one round late.
             req.ready = True
+            req.ready_at = time.perf_counter()
             if self._paged:
                 # Decode writes [len(ids), page_end): the final chunk's
                 # publish may have shared the page holding the prompt tail.
@@ -1472,10 +2077,12 @@ class ContinuousBatchingScheduler:
                 continue
             if self._first_sighting(key):
                 continue
-            self._prefix_cache[key] = self._slice_block(slot, b0 * pb)
+            entry = self._prefix_cache[key] = self._slice_block(slot, b0 * pb)
+            if not self._prefix_block_bytes:
+                self._prefix_block_bytes = sum(b.nbytes for b in entry.values())
+            self._prefix_note_publish(key)
             while len(self._prefix_cache) > self._prefix_cache_blocks:
-                self._prefix_cache.popitem(last=False)
-                self._prefix_evictions += 1
+                self._prefix_note_evict(self._prefix_cache.popitem(last=False)[0])
 
     def _publish_blocks_paged(self, slot: int, req: _Request,
                               chunk_start: int) -> None:
@@ -1496,6 +2103,7 @@ class ContinuousBatchingScheduler:
             self._page_alloc.share(list(pages))
             self._page_alloc.prefix_hold(list(pages))
             self._prefix_pages[key] = pages
+            self._prefix_note_publish(key)
             while len(self._prefix_pages) > self._prefix_cache_blocks:
                 self._prefix_evict(*self._prefix_pages.popitem(last=False))
 
@@ -1727,6 +2335,8 @@ class ContinuousBatchingScheduler:
         # wedge that never raises, which the supervisor's watchdog must
         # detect from the stale heartbeat.
         FAULTS.check("sched:hang")
+        t_issue = time.perf_counter()
+        start = self._device_mark()
         issue_reqs = [r if r is not None and r.ready else None
                       for r in self._slot_req]
         active = self._h2d([r is not None for r in issue_reqs], torch.bool)
@@ -1739,7 +2349,8 @@ class ContinuousBatchingScheduler:
             toks = self._decode_round(active, sampled, grammar)
         self.rounds_issued += 1
         self._pending.append((issue_reqs, list(self._slot_epoch), toks,
-                              self._first_pending, n_emit))
+                              self._first_pending, n_emit, t_issue,
+                              (start, self._device_mark()), None))
         self._first_pending = []
 
     def _issue_mixed(self) -> bool:
@@ -1754,6 +2365,8 @@ class ContinuousBatchingScheduler:
         if not group:
             return False
         FAULTS.check("sched:hang")
+        t_issue = time.perf_counter()
+        start = self._device_mark()
         for slot, req in group:  # copy-on-write sweep over the windows
             self._ensure_writable(slot, req.prefilled, req.prefilled + t)
         issue_reqs = [r if r is not None and r.ready else None
@@ -1763,9 +2376,12 @@ class ContinuousBatchingScheduler:
             or any(req.temperature > 0.0 for _, req in group)
         grammar = any(r.constraint is not None for r in issue_reqs if r is not None) \
             or any(req.constraint is not None for _, req in group)
+        starts = [req.prefilled for _, req in group]
         if all(r is None for r in issue_reqs):
             _, firsts = self._mixed_forward(group, t, active, sampled, grammar)
             self.ragged_prefills += 1
+            # Not a round: banked like a prefill forward.
+            self._note_prefill(starts, t)
             self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
             return True
         n_emit = None
@@ -1777,8 +2393,12 @@ class ContinuousBatchingScheduler:
         self.rounds_issued += 1
         self.mixed_rounds += 1
         self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
+        # Both phases' work attributes over this round's wall at harvest.
+        mixed_meta = {"pre_rows": len(group), "pre_tokens": t,
+                      "pre_ctx": sum(starts) // len(starts) + t // 2}
         self._pending.append((issue_reqs, list(self._slot_epoch), toks,
-                              self._first_pending, n_emit))
+                              self._first_pending, n_emit, t_issue,
+                              (start, self._device_mark()), mixed_meta))
         self._first_pending = []
         return True
 
@@ -1786,8 +2406,25 @@ class ContinuousBatchingScheduler:
 
     def _retire(self, slot: int, req: _Request, result: List[int]) -> None:
         self._record_service_time(req)
+        self._observe_terminal(req)
         req.future.set_result(result)
         self._release_slot(slot)
+
+    def _observe_terminal(self, req: _Request,
+                          error: Optional[str] = None) -> None:
+        """Terminal bookkeeping before the future resolves: the trace's
+        sched.* spans, the queue wait on the future (admission less submit;
+        a never-admitted request's whole life), and the rid in this
+        round's retired column."""
+        now = time.perf_counter()
+        req.flush_spans(now)
+        if req.trace is not None and error is not None:
+            req.trace.event("sched.error", error=error, rid=req.rid)
+        if req.admitted_at and req.submitted_at:
+            req.future._lsot_queue_wait = req.admitted_at - req.submitted_at
+        elif req.submitted_at:
+            req.future._lsot_queue_wait = now - req.submitted_at
+        self._round_retired.append(req.rid)
 
     def _record_service_time(self, req: _Request) -> None:
         """EWMAs (alpha 0.2) of completed requests' submit->retire wall and,
@@ -1807,6 +2444,7 @@ class ContinuousBatchingScheduler:
 
     def _fail_slot(self, slot: int, req: _Request, exc: Exception) -> None:
         """Retire a slot with a typed failure (deadline expiry)."""
+        self._observe_terminal(req, error=type(exc).__name__)
         req.future.set_exception(exc)
         self._release_slot(slot)
 
@@ -1821,22 +2459,23 @@ class ContinuousBatchingScheduler:
             self._free_slot_pages(slot)
 
     def _append_first(self, slot: int, req: _Request, first: int,
-                      epoch: int) -> None:
+                      epoch: int) -> int:
         """Apply a harvested prefill first token: stop/budget checks run
-        here, one round late."""
+        here, one round late. Returns the tokens appended (0 or 1)."""
         if req is not self._slot_req[slot] or epoch != self._slot_epoch[slot]:
-            return
+            return 0
         if req.past_deadline():
             resilience.inc("deadline_expired")
             self._fail_slot(slot, req, req.deadline_error())
-            return
+            return 0
         if req.cancelled or first in self.stop_ids or req.max_new < 1:
             self._retire(slot, req, req.generated)
-            return
+            return 0
         req.generated.append(first)
         req.emit(first)
         if len(req.generated) >= req.max_new:
             self._retire(slot, req, req.generated)
+        return 1
 
     def _harvest_round(self) -> None:
         """Synchronise on the OLDEST in-flight round: one transfer brings
@@ -1847,19 +2486,27 @@ class ContinuousBatchingScheduler:
         # restart it and replay every acknowledged request without
         # duplicating delivered tokens.
         FAULTS.check("sched:crash")
-        issue_reqs, epochs, toks_dev, firsts, n_emit_dev = self._pending.popleft()
+        (issue_reqs, epochs, toks_dev, firsts, n_emit_dev, t_issue, marks,
+         mixed_meta) = self._pending.popleft()
         width = toks_dev.shape[1]  # decode_chunk, or D + 1 under speculation
         spec = n_emit_dev is not None
         flat = torch.cat([toks_dev.reshape(-1)]
                          + ([n_emit_dev.to(toks_dev.dtype)] if spec else [])
                          + [tok.reshape(1).to(toks_dev.dtype)
                             for _, _, tok, _ in firsts]).tolist()
+        t_harvest = time.perf_counter()
         n_tok = self.num_slots * width
         n_emit = flat[n_tok: n_tok + self.num_slots] if spec else None
         first_at = n_tok + (self.num_slots if spec else 0)
+        occupancy = sum(1 for r in issue_reqs if r is not None)
+        # Tokens the requests received this round, and under speculation
+        # the emitted tokens by grammar class and by sampling class.
+        round_emitted = 0
+        spec_emitted = {"constrained": 0, "unconstrained": 0,
+                        "greedy": 0, "sampled": 0}
         # Firsts precede the round's tokens in every stream.
         for j, (slot, req, _, fep) in enumerate(firsts):
-            self._append_first(slot, req, flat[first_at + j], fep)
+            round_emitted += self._append_first(slot, req, flat[first_at + j], fep)
         stalled = []
         for i, req in enumerate(issue_reqs):
             if req is None or req is not self._slot_req[i] \
@@ -1894,8 +2541,22 @@ class ContinuousBatchingScheduler:
                 if len(req.generated) >= req.max_new:
                     done = True
                     break
-            if spec and ne:
-                self._count_spec(req, ne, len(req.generated) - before)
+            appended = len(req.generated) - before
+            round_emitted += appended
+            if spec:
+                spec_emitted["constrained" if req.constraint is not None
+                             else "unconstrained"] += ne
+                spec_emitted["sampled" if req.temperature > 0.0 else "greedy"] += ne
+                if ne:
+                    self._count_spec(req, ne, appended)
+            if req.trace is not None:
+                # One span a harvested round for a traced request.
+                attrs = {"emitted": appended, "rid": req.rid}
+                if req.constraint is not None:
+                    attrs["grammar_mask"] = True
+                if spec:
+                    attrs["spec_accepted"] = ne
+                req.trace.add_span("sched.round", t_issue, t_harvest, **attrs)
             if done:
                 self._retire(i, req, req.generated)
             elif len(req.generated) > before:
@@ -1922,6 +2583,106 @@ class ContinuousBatchingScheduler:
             # can write there (a failed top-up preempts).
             self._topup_pages()
         self.heartbeat.round_done()
+        self._record_round(issue_reqs, occupancy, round_emitted,
+                           spec_emitted if spec else None, t_issue, t_harvest,
+                           self._device_span(*marks), mixed_meta)
+        if self._profile_active is not None:
+            self._profile_round_done()
+
+    def _device_mark(self):
+        """A mark in the device's stream of work: a timed CUDA event
+        recorded on the current stream, or on the CPU, where ops run as
+        they are issued, the host clock."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    @staticmethod
+    def _device_span(start, end) -> float:
+        """Seconds the device took from `start` to `end` (`_device_mark`s
+        that have completed: a harvest has synchronised past them)."""
+        if isinstance(start, float):
+            return end - start
+        return start.elapsed_time(end) / 1e3
+
+    def _record_round(self, issue_reqs, occupancy: int, emitted: int,
+                      spec_emitted: Optional[Dict[str, int]], t_issue: float,
+                      t_harvest: float, span_s: float,
+                      mixed_meta: Optional[Dict[str, int]]) -> None:
+        """The round's flight record: occupancy at issue, queue depth,
+        admission and retirement churn since the last record, tokens
+        emitted (by class under speculation), the prefix-reuse rows of the
+        admissions since the last record, the round's wall and cadence, and
+        its ledger columns. The wall is the round's span on the device
+        (`span_s`: from its first op to its last, CUDA events on the card):
+        rounds run one after another on the scheduler's stream, so their
+        walls do not overlap, and neither the harvest lag nor a prefill
+        forward between two rounds counts toward one. `rows` is every slot
+        (the device computes parked rows too) and `perf_ctx` the active
+        rows' mean committed context; the ledger reads the rounded wall the
+        record carries. Speculative
+        rounds are the verify phase, their draft gather ledgered apart; a
+        ragged mixed round prices its decode rows and its prompt chunks
+        over one wall. Prefill forwards banked since the last harvest
+        attribute over the inter-harvest interval."""
+        ewma = self.heartbeat.expected_round_s()
+        round_wall = round(span_s, 6)
+        rec = {
+            "round": self.heartbeat.rounds,
+            "occupancy": occupancy,
+            "queued": self._queue.qsize(),
+            "admitted": self._round_admitted,
+            "retired": self._round_retired,
+            "emitted": emitted,
+            "round_wall_s": round_wall,
+            "cadence_s": round(ewma, 6) if ewma is not None else None,
+        }
+        if spec_emitted is not None:
+            rec["spec_emitted"] = spec_emitted
+        if self._round_prefix:
+            rec["prefix_reuse"] = self._round_prefix
+            self._round_prefix = []
+        phase = "decode" if spec_emitted is None else "verify"
+        tokens = self.decode_chunk if spec_emitted is None else self._spec_draft + 1
+        ctx_sum = sum(len(r.ids) + len(r.generated) for r in issue_reqs if r is not None)
+        perf_ctx = max(1, ctx_sum // max(1, occupancy))
+        if mixed_meta is not None:
+            phase = "mixed"
+            att = self.perf.observe_mixed(
+                rows=self.num_slots, dec_tokens=tokens, dec_ctx=perf_ctx,
+                pre_rows=mixed_meta["pre_rows"], pre_tokens=mixed_meta["pre_tokens"],
+                pre_ctx=mixed_meta["pre_ctx"], wall_s=round_wall)
+            rec.update(mixed_meta)
+        else:
+            att = self.perf.observe(phase, rows=self.num_slots, tokens=tokens,
+                                    ctx=perf_ctx, wall_s=round_wall)
+        rec["phase"] = phase
+        rec["perf_ctx"] = perf_ctx
+        rec["mfu"] = att["mfu"]
+        rec["hbm_util"] = att["hbm_util"]
+        rec["bound"] = att["bound"]
+        if spec_emitted is not None:
+            self.perf.observe("draft", rows=self.num_slots, tokens=self._spec_draft,
+                              ctx=int(self._hist.shape[1]), wall_s=round_wall)
+        interval = round(t_harvest - (self._last_harvest_t
+                                      if self._last_harvest_t is not None
+                                      else t_issue), 6)
+        self._last_harvest_t = t_harvest
+        pre = self.perf.flush_prefill(interval)
+        if pre is not None:
+            rec["prefill_mfu"] = pre["mfu"]
+            rec["prefill_hbm_util"] = pre["hbm_util"]
+        if self._paged:
+            # A leaked page shows as kv_pages that never drains while
+            # occupancy does; kv_pressure is the kv:pressure seam's reserve.
+            rec["kv_pages"] = self._page_alloc.pages_in_use
+            rec["kv_pages_free"] = self._page_alloc.pages_free
+            rec["kv_pressure"] = self._page_alloc.withheld
+        self.flight.record(**rec)
+        self._round_admitted = []
+        self._round_retired = []
 
     def _count_spec(self, req: _Request, emitted: int, delivered: int) -> None:
         """One slot's harvested verify round in `speculation_stats`, the
@@ -1966,11 +2727,15 @@ class ContinuousBatchingScheduler:
         except BaseException as exc:  # noqa: BLE001 — a dead loop must not hang clients
             wrapped = SchedulerCrashed.from_exception(exc)
             self._crash = wrapped
+            # The black box shows the crash beside the rounds before it.
+            self.flight.event("crash", error=str(exc)[:200],
+                              error_type=type(exc).__name__)
             self._close(wrapped)
             raise
 
     def _close(self, exc: BaseException) -> None:
         """Fail every in-flight and queued request; reject future submits."""
+        self._abort_profile(f"scheduler closed: {type(exc).__name__}")
         with self._submit_lock:
             self._closed = True
         self._prefill_q.clear()
@@ -2004,9 +2769,11 @@ class ContinuousBatchingScheduler:
         keep: "deque[_Request]" = deque()
         for req in self._page_wait:
             if req.cancelled:
+                self._observe_terminal(req)
                 req.future.set_result(req.generated)
             elif req.past_deadline():
                 resilience.inc("deadline_expired")
+                self._observe_terminal(req, error="DeadlineExceeded")
                 req.future.set_exception(req.deadline_error())
             else:
                 keep.append(req)
@@ -2019,6 +2786,10 @@ class ContinuousBatchingScheduler:
                     or self._constraint_wait
                     or any(r is not None for r in self._slot_req)
                     or not self._queue.empty())
+
+    def flight_stats(self) -> Dict[str, object]:
+        """The round ring's occupancy for /metrics."""
+        return self.flight.stats()
 
     @property
     def watchdog_stats(self) -> Dict[str, object]:
@@ -2077,14 +2848,21 @@ class ContinuousBatchingScheduler:
                     break
             # A ragged mixed round folds this iteration's prompt chunks into
             # the decode round's first step (run alone while no slot decodes).
-            if self._ragged and self._prefill_q and self._issue_mixed():
-                if len(self._pending) > self._harvest_lag:
-                    self._harvest_round()
-                continue
+            if self._ragged and self._prefill_q:
+                if self._profile_arm is not None:
+                    self._maybe_start_profile()
+                if self._issue_mixed():
+                    if len(self._pending) > self._harvest_lag:
+                        self._harvest_round()
+                    continue
             # Fair interleave: at most one prompt chunk per decode round.
             if self._prefill_q:
                 self._prefill_step()
             if any(r is not None and r.ready for r in self._slot_req):
+                if self._profile_arm is not None:
+                    # An armed /debug/profile capture starts on this
+                    # thread, around the next N rounds.
+                    self._maybe_start_profile()
                 self._issue_decode()
                 if len(self._pending) > self._harvest_lag:
                     self._harvest_round()
@@ -2185,6 +2963,46 @@ class SchedulerBackend:
         hint = getattr(self.scheduler, "retry_after_hint", None)
         return hint() if callable(hint) else 1.0
 
+    def stats(self) -> Dict[str, object]:
+        """The serving layer's /metrics block for this model: prefix-cache
+        reuse (`prefix_cache`) and its telemetry (`prefix`), speculative
+        acceptance, the page pool (paged), the roofline ledger (`perf`),
+        the loop's liveness (`watchdog`) and the flight recorder's ring
+        occupancy (the records live at /debug/flightrecorder; a supervised
+        scheduler reports its lifecycle ring and the inner round ring
+        apart)."""
+        sched = self.scheduler
+        out: Dict[str, object] = {"prefix_cache": sched.prefix_stats}
+        for key, val in (("prefix", sched.prefix_telemetry),
+                         ("speculation", sched.speculation_stats),
+                         ("kv_pages", sched.page_stats), ("perf", sched.perf_stats)):
+            if val:
+                out[key] = val
+        out["watchdog"] = sched.watchdog_stats
+        out["flight_recorder"] = sched.flight_stats()
+        return out
+
+    def flight_snapshot(self, last: Optional[int] = None):
+        """The flight recorder's records (supervised: merged with the
+        supervisor's lifecycle events) — the /debug/flightrecorder payload."""
+        return merge_snapshots([self.scheduler], last)
+
+    def prefix_registry(self, top_k: Optional[int] = None) -> Dict[str, object]:
+        """The /debug/prefixcache payload."""
+        return self.scheduler.prefix_registry(top_k)
+
+    def profile_rounds(self, rounds: Optional[int] = None,
+                       out_dir: Optional[str] = None) -> Dict[str, object]:
+        """Arm a bounded torch.profiler capture of the scheduler's next N
+        rounds (/debug/profile)."""
+        return self.scheduler.profile_rounds(rounds, out_dir)
+
+    def profile_status(self) -> Dict[str, object]:
+        return self.scheduler.profile_status()
+
+    def _rclass(self, constrain) -> str:
+        return request_class(constrain is not None, bool(self.scheduler._spec_draft))
+
     def check_budget(self, prompt: str, max_new_tokens: Optional[int] = None,
                      constraint=None) -> None:
         """Raise the ValueError `complete` would raise for a prompt that
@@ -2228,7 +3046,7 @@ class SchedulerBackend:
         return min(max_new_tokens or self.max_new_tokens, room)
 
     def _submit(self, ids, max_new_tokens, sampling, seed, deadline_s,
-                idempotency_key=None, constraint_kwargs=None):
+                idempotency_key=None, constraint_kwargs=None, trace=None):
         on_tok, first_at = _first_token_timer()
         kwargs = dict(constraint_kwargs or {})
         if idempotency_key is not None:
@@ -2239,15 +3057,18 @@ class SchedulerBackend:
             ids, max_new_tokens=self._budget(len(ids), max_new_tokens),
             sampling=sampling or self.sampling, seed=seed, on_token=on_tok,
             deadline_s=deadline_s if deadline_s is not None else self.deadline_s,
-            **kwargs)
+            trace=trace, **kwargs)
         return fut, first_at
 
-    def _completion(self, ids, fut, first_at, t_submit) -> Completion:
+    def _completion(self, ids, fut, first_at, t_submit, constrain) -> Completion:
         out = fut.result()
         text = trim_stop_texts(self.tokenizer.decode(out), self.stop_texts)
         return Completion(text=text, output_tokens=len(out),
                           prompt_tokens=len(ids),
-                          ttft_s=(first_at[0] - t_submit) if first_at else 0.0)
+                          ttft_s=(first_at[0] - t_submit) if first_at else 0.0,
+                          queue_wait_s=getattr(fut, "_lsot_queue_wait", 0.0),
+                          rclass=self._rclass(constrain),
+                          replica=getattr(fut, "_lsot_replica", ""))
 
     def complete_stream(self, prompt: str, max_new_tokens: Optional[int] = None,
                         sampling: Optional[SamplingParams] = None, seed: int = 0,
@@ -2260,7 +3081,9 @@ class SchedulerBackend:
         the blocking text. A stop text ends the stream and cancels the
         request (the scheduler knows stop ids, not strings); closing the
         generator cancels it too. `stats_out` receives prompt_tokens,
-        output_tokens and ttft_s."""
+        output_tokens, ttft_s, queue_wait_s, rclass and replica."""
+        from ..utils import tracing
+
         ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
         if stats_out is not None:
             stats_out["prompt_tokens"] = len(ids)
@@ -2271,7 +3094,7 @@ class SchedulerBackend:
             ids, max_new_tokens=self._budget(len(ids), max_new_tokens),
             sampling=sampling or self.sampling, seed=seed, on_token=on_tok,
             deadline_s=deadline_s if deadline_s is not None else self.deadline_s,
-            **self._constraint_kwargs(constrain))
+            trace=tracing.current(), **self._constraint_kwargs(constrain))
         out_ids: List[int] = []
         emitted = ""
         hold = max((len(t) for t in self.stop_texts), default=1) - 1
@@ -2309,18 +3132,26 @@ class SchedulerBackend:
                 stats_out["output_tokens"] = len(out_ids)
                 if first_at:
                     stats_out["ttft_s"] = first_at[0] - t_submit
+                qw = getattr(fut, "_lsot_queue_wait", 0.0)
+                if qw:
+                    stats_out["queue_wait_s"] = qw
+                stats_out["rclass"] = self._rclass(constrain)
+                stats_out["replica"] = getattr(fut, "_lsot_replica", "")
 
     def complete(self, prompt: str, max_new_tokens: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  deadline_s: Optional[float] = None,
                  idempotency_key: Optional[str] = None,
                  constrain=None) -> Completion:
+        from ..utils import tracing
+
         ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
         t_submit = time.perf_counter()
         fut, first_at = self._submit(ids, max_new_tokens, sampling, seed,
                                      deadline_s, idempotency_key,
-                                     self._constraint_kwargs(constrain))
-        return self._completion(ids, fut, first_at, t_submit)
+                                     self._constraint_kwargs(constrain),
+                                     trace=tracing.current())
+        return self._completion(ids, fut, first_at, t_submit, constrain)
 
     def complete_batch(
         self, prompts: Sequence[str], max_new_tokens: Optional[int] = None,
@@ -2336,7 +3167,7 @@ class SchedulerBackend:
         subs = [self._submit(ids, max_new_tokens, sampling, seed, deadline_s,
                              constraint_kwargs=ckw)
                 for ids in ids_list]
-        return [self._completion(ids, fut, first_at, t_submit)
+        return [self._completion(ids, fut, first_at, t_submit, constrain)
                 for ids, (fut, first_at) in zip(ids_list, subs)]
 
     # -------------------------------------------------------- checkpoints

@@ -11,8 +11,20 @@ seams the app's health routes and drain gate read (`health`, `draining`,
 in-flight work; idempotency keys reach backends with a journal; a
 `constrain` spec reaches backends that declare `supports_constrain` (the
 engine and scheduler backends) and is a request-shape error elsewhere.
-Not ported yet: the QoS front door and tenant routing (`tenant`/`qos` are carried and not charged,
-A11), the fleet views (A11), Prometheus, SLOs and profiling (A12).
+
+Observability: every request is recorded in the service's
+`MetricsRegistry` (utils/observability.py: latency, TTFT, queue wait,
+request class and replica; windowed percentiles, fixed-bucket histograms,
+the SLO engine's sketches and the sampled request log), and the service
+answers the app's scrapes: `metrics_snapshot` (JSON `/metrics`, with each
+backend's serving stats and the `resilience`, `slo` and `repair` blocks),
+`metrics_prometheus`, `flight_snapshot`, `recent_traces`,
+`prefix_registry`, `slo_report`, `profile_capture` and `profile_status`
+(the `/debug/*` routes).
+
+Not ported yet: the QoS front door and tenant routing (`tenant`/`qos` are
+carried and not charged, and the `qos` metrics block is absent: A11), and
+the fleet views (A11).
 """
 
 from __future__ import annotations
@@ -25,7 +37,12 @@ from typing import Dict, List, Optional
 
 from ..ops.sampling import SamplingParams
 from ..utils import tracing
-from ..utils.observability import HistogramSet
+from ..utils.observability import (
+    MetricsRegistry,
+    RequestMetrics,
+    resilience,
+    trace_capture,
+)
 from ..utils.tracing import TRACER
 from .templates import TEMPLATES, Template
 
@@ -38,6 +55,9 @@ class GenerateResult:
     output_tokens: int
     ttft_s: float = 0.0
     prompt_tokens: int = 0
+    # Queue wait (submit -> slot admission) on the scheduler path; 0.0 =
+    # not measured.
+    queue_wait_s: float = 0.0
     # Trace-correlation id when the request ran under one.
     request_id: str = ""
 
@@ -60,9 +80,9 @@ class GenerationService:
         self._models: Dict[str, ModelEntry] = {}
         self._lock = threading.Lock()
         self.stats: Dict[str, Dict[str, float]] = {}
-        # Fixed-bucket latency and TTFT histograms per model (the JAX
-        # package's Prometheus feed; /metrics is ROADMAP A12).
-        self.histograms = HistogramSet()
+        #: Per-request records: windowed percentiles and the fixed-bucket
+        #: latency/TTFT/TPOT/queue-wait histograms /metrics renders.
+        self.metrics = MetricsRegistry()
         # Drain mode (SIGTERM path): once set, the HTTP layers answer new
         # work with 503 + Retry-After while in-flight requests finish.
         self._draining = False
@@ -91,17 +111,122 @@ class GenerationService:
         with self._lock:
             return list(self._models.values())
 
-    def _record(self, model: str, n_requests: int, latency: float, tokens: int,
-                ttfts=()) -> None:
+    def _record(self, model: str, latency: float, metrics: List[RequestMetrics]) -> None:
+        """Per-model totals (the batch wall counts once) and one registry
+        record a request."""
         with self._lock:
             s = self.stats[model]
-            s["requests"] += n_requests
+            s["requests"] += len(metrics)
             s["total_latency_s"] += latency
-            s["total_tokens"] += tokens
-        self.histograms.observe("lsot_request_latency_seconds", latency, model=model)
-        for ttft in ttfts:
-            if ttft:
-                self.histograms.observe("lsot_ttft_seconds", ttft, model=model)
+            s["total_tokens"] += sum(m.output_tokens for m in metrics)
+        for m in metrics:
+            self.metrics.record(m)
+
+    # --------------------------------------------------------- observability
+
+    def backend_stats(self) -> Dict[str, Dict]:
+        """Per-model serving-layer stats from backends exposing .stats()
+        (the scheduler backend's prefix cache, speculation, page pool,
+        ledger, watchdog and flight-recorder blocks)."""
+        out: Dict[str, Dict] = {}
+        for e in self._entries():
+            fn = getattr(e.backend, "stats", None)
+            if callable(fn):
+                out[e.name] = fn()
+        return out
+
+    def metrics_snapshot(self) -> Dict[str, Dict]:
+        """The /metrics payload: per-model request aggregates, each model's
+        serving-layer stats under "serving", and the reserved blocks:
+        "resilience" (process-wide counters and live breakers) whenever a
+        counter fired or a breaker is registered, "slo" when objectives
+        are configured, "repair" once the SQL repair loop ran."""
+        from ..app.repair import repair_metrics_block
+        from ..utils import slo as slo_mod
+        from .resilience import breaker_states
+
+        snap = self.metrics.snapshot()
+        for model, extra in self.backend_stats().items():
+            snap.setdefault(model, {})["serving"] = extra
+        counters = resilience.snapshot()
+        breakers = breaker_states()
+        if any(counters.values()) or breakers:
+            snap["resilience"] = dict(counters)
+            if breakers:
+                snap["resilience"]["breakers"] = breakers
+        if slo_mod.ENGINE.enabled:
+            snap["slo"] = slo_mod.ENGINE.report()
+        repair_block = repair_metrics_block()
+        if repair_block:
+            snap["repair"] = repair_block
+        return snap
+
+    def metrics_prometheus(self) -> str:
+        """The same payload in Prometheus exposition text
+        (`/metrics?format=prometheus`), plus the registry's histograms."""
+        from ..utils.prometheus import render_prometheus
+
+        return render_prometheus(self.metrics_snapshot(), self.metrics.histograms)
+
+    def _per_scheduler(self, seam: str, entries=None):
+        """(model name, bound seam) for each backend exposing `seam`, one a
+        scheduler (two names over one scheduler report it once)."""
+        seen = set()
+        for e in self._entries() if entries is None else entries:
+            fn = getattr(e.backend, seam, None)
+            key = id(getattr(e.backend, "scheduler", e.backend))
+            if callable(fn) and key not in seen:
+                seen.add(key)
+                yield e.name, fn
+
+    def flight_snapshot(self, last: Optional[int] = None) -> Dict[str, list]:
+        """Per-model flight-recorder records (supervised schedulers merged
+        with their lifecycle events) — the /debug/flightrecorder payload."""
+        return {name: fn(last) for name, fn in self._per_scheduler("flight_snapshot")}
+
+    def recent_traces(self, n: Optional[int] = None) -> list:
+        """Last head-sampled request traces (the /debug/traces payload)."""
+        return TRACER.recent(n)
+
+    def prefix_registry(self, top_k: Optional[int] = None) -> Dict[str, Dict]:
+        """Per-model prefix-cache registries — the /debug/prefixcache
+        payload (backends without the seam, and empty registries, left
+        out)."""
+        out: Dict[str, Dict] = {}
+        for name, fn in self._per_scheduler("prefix_registry"):
+            reg = fn(top_k)
+            if reg:
+                out[name] = reg
+        return out
+
+    def slo_report(self) -> Dict[str, object]:
+        """The /debug/slo payload: the SLO engine's rolling report (its
+        sketches are there with no objective configured too)."""
+        from ..utils import slo as slo_mod
+
+        return slo_mod.ENGINE.report()
+
+    def profile_capture(self, rounds: Optional[int] = None,
+                        model: Optional[str] = None) -> Dict[str, object]:
+        """Arm a device-trace capture (/debug/profile) on the first backend
+        exposing the seam, or `model`'s. Raises LookupError when no backend
+        can profile, RuntimeError while a capture is in flight, ValueError
+        for a bad `rounds`."""
+        entries = [e for e in self._entries() if model is None or e.name == model]
+        for name, fn in self._per_scheduler("profile_rounds", entries):
+            return {**fn(rounds), "model": name}
+        raise LookupError(
+            f"no {'backend for model ' + repr(model) if model else 'registered backend'}"
+            f" supports device profiling")
+
+    def profile_status(self) -> Dict[str, object]:
+        """Per-model capture state (armed/capturing/last artifact)."""
+        out: Dict[str, object] = {}
+        for name, fn in self._per_scheduler("profile_status"):
+            st = fn()
+            if st:
+                out[name] = st
+        return out
 
     # ------------------------------------------------------------- lifecycle
 
@@ -137,8 +262,19 @@ class GenerationService:
                 seen.add(key)
                 for k in totals:
                     totals[k] += int(h.get(k, 0) or 0)
-        return {"state": worst, "draining": self._draining,
-                "models": models, **totals}
+        out: Dict[str, object] = {"state": worst, "draining": self._draining,
+                                  "models": models, **totals}
+        # A replica burning a configured SLO (utils/slo.py: both burn-rate
+        # arms above 1) marks the instance degraded: still serving, flagged.
+        # One report a probe, so `burning` and `state` agree.
+        from ..utils import slo as slo_mod
+
+        if slo_mod.ENGINE.enabled:
+            rep = slo_mod.ENGINE.report()
+            out["slo"] = {"state": rep["state"], "burning": rep["burning"]}
+            if rep["burning"] and out["state"] == "ready":
+                out["state"] = "degraded"
+        return out
 
     def supports_idempotency(self, model: str) -> bool:
         """Can `model`'s backend dedupe an idempotency key against a
@@ -246,19 +382,28 @@ class GenerationService:
         t0 = time.perf_counter()
         try:
             with tracing.use(tr) if own is not None else contextlib.nullcontext():
-                with tracing.span("service.generate", model=model):
-                    completion = entry.backend.complete(
-                        rendered, max_new_tokens=max_new_tokens,
-                        sampling=sampling, seed=seed, **kwargs,
-                    )
+                with tracing.span("service.generate", model=model,
+                                  constrained=constrain is not None):
+                    with trace_capture(f"generate-{model}"):
+                        completion = entry.backend.complete(
+                            rendered, max_new_tokens=max_new_tokens,
+                            sampling=sampling, seed=seed, **kwargs,
+                        )
         finally:
             TRACER.finish(own)
         latency = time.perf_counter() - t0
-        self._record(model, 1, latency, completion.output_tokens, [completion.ttft_s])
+        self._record(model, latency, [RequestMetrics(
+            model=model, prompt_tokens=completion.prompt_tokens,
+            output_tokens=completion.output_tokens, latency_s=latency,
+            ttft_s=completion.ttft_s,
+            queue_wait_s=getattr(completion, "queue_wait_s", 0.0),
+            rclass=getattr(completion, "rclass", ""),
+            replica=getattr(completion, "replica", ""), request_id=rid)])
         return GenerateResult(
             response=completion.text, model=model, latency_s=latency,
             output_tokens=completion.output_tokens, ttft_s=completion.ttft_s,
-            prompt_tokens=completion.prompt_tokens, request_id=rid,
+            prompt_tokens=completion.prompt_tokens,
+            queue_wait_s=getattr(completion, "queue_wait_s", 0.0), request_id=rid,
         )
 
     def validate(self, model: str, prompt: str, system: str = "",
@@ -314,20 +459,27 @@ class GenerationService:
             return
         kwargs = self._request_kwargs(entry, constrain, deadline_s)
         rendered = entry.template(system, prompt)
-        tr, own, _ = tracing.begin_or_ambient(request_id, model)
+        tr, own, rid = tracing.begin_or_ambient(request_id, model)
         stats: dict = {}
         t0 = time.perf_counter()
         inner = streamer(rendered, max_new_tokens=max_new_tokens,
                          sampling=sampling, seed=seed, stats_out=stats, **kwargs)
         try:
-            # The backend advances under the trace context, never held
-            # across our own yields (the generator/contextvar hazard).
-            yield from (tracing.stepwise(inner, tr) if own is not None else inner)
+            with trace_capture(f"generate-{model}"):
+                # The backend advances under the trace context, never held
+                # across our own yields (the generator/contextvar hazard).
+                yield from (tracing.stepwise(inner, tr) if own is not None else inner)
         finally:
             inner.close()  # its finally cancels the request and fills stats
             TRACER.finish(own)
-            self._record(model, 1, time.perf_counter() - t0,
-                         stats.get("output_tokens", 0), [stats.get("ttft_s", 0.0)])
+            latency = time.perf_counter() - t0
+            self._record(model, latency, [RequestMetrics(
+                model=model, prompt_tokens=stats.get("prompt_tokens", 0),
+                output_tokens=stats.get("output_tokens", 0), latency_s=latency,
+                ttft_s=stats.get("ttft_s", 0.0),
+                queue_wait_s=stats.get("queue_wait_s", 0.0),
+                rclass=stats.get("rclass", ""), replica=stats.get("replica", ""),
+                request_id=rid)])
 
     def generate_batch(
         self,
@@ -344,19 +496,25 @@ class GenerationService:
         entry = self._entry(model)
         rendered = [entry.template(system, p) for p in prompts]
         t0 = time.perf_counter()
-        completions = entry.backend.complete_batch(
-            rendered, max_new_tokens=max_new_tokens, sampling=sampling, seed=seed,
-            **self._constrain_kwargs(entry, constrain),
-        )
+        with trace_capture(f"generate-batch-{model}"):
+            completions = entry.backend.complete_batch(
+                rendered, max_new_tokens=max_new_tokens, sampling=sampling, seed=seed,
+                **self._constrain_kwargs(entry, constrain),
+            )
         latency = time.perf_counter() - t0
-        self._record(model, len(prompts), latency,
-                     sum(c.output_tokens for c in completions),
-                     [c.ttft_s for c in completions])
+        # Each member's latency is the batch wall; its share of distinct
+        # wall is wall / B, so aggregate tok/s is not understated.
+        self._record(model, latency, [RequestMetrics(
+            model=model, prompt_tokens=c.prompt_tokens,
+            output_tokens=c.output_tokens, latency_s=latency,
+            wall_share_s=latency / len(completions), ttft_s=c.ttft_s)
+            for c in completions])
         return [
             GenerateResult(
                 response=c.text, model=model, latency_s=latency,
                 output_tokens=c.output_tokens, ttft_s=c.ttft_s,
                 prompt_tokens=c.prompt_tokens,
+                queue_wait_s=getattr(c, "queue_wait_s", 0.0),
             )
             for c in completions
         ]

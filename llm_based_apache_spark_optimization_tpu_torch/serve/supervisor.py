@@ -428,10 +428,38 @@ class SupervisedScheduler:
         return getattr(self._inner, "speculation_stats", None)
 
     @property
+    def prefix_telemetry(self):
+        """Prefix-cache telemetry passthrough: the serving.prefix block
+        survives supervision (None for a cache that is off)."""
+        return self._inner.prefix_telemetry
+
+    def prefix_registry(self, top_k=None):
+        """The /debug/prefixcache payload survives supervision."""
+        return self._inner.prefix_registry(top_k)
+
+    def resident_digests(self, limit=None):
+        return self._inner.resident_digests(limit)
+
+    @property
     def page_stats(self):
         """Paged-KV pool stats passthrough (None for contiguous inner
         schedulers) — the /metrics kv_pages gauges survive supervision."""
         return getattr(self._inner, "page_stats", None)
+
+    @property
+    def perf_stats(self):
+        """Roofline-ledger passthrough (utils/perfmodel.py): the
+        serving.perf view survives supervision."""
+        return self._inner.perf_stats
+
+    def profile_rounds(self, rounds=None, out_dir=None):
+        """On-demand capture passthrough (/debug/profile): the inner loop
+        owns the device, so it owns the capture; the process-wide
+        single-capture guard lives below this seam."""
+        return self._inner.profile_rounds(rounds, out_dir)
+
+    def profile_status(self):
+        return self._inner.profile_status()
 
     def qos_stats(self):
         """The inner's per-tenant counters (none yet: QoS is ROADMAP

@@ -1,6 +1,6 @@
 """The port's app, front to back, on the CPU: the JSON, redirect and status
 shapes of tests/test_app.py on the port's API and web frontends over
-`FakeBackend`; the health routes and the routes not served yet; the JAX app
+`FakeBackend`; the health, metrics and debug routes; the JAX app
 and the port's app over their tiny contiguous schedulers, with the same
 bridged weights, answering the same `POST /process-data/` with the same SQL
 and the same error text; and the entry point refusing every option it
@@ -121,10 +121,10 @@ def test_api_process_data_shapes(cfg, case):
     ("POST", "/process-data/", b"not json", 400),
     ("GET", "/nope", b"", 404),
     ("GET", "/process-data/", b"", 405),
-    # Not served until ROADMAP A12 brings what they read.
-    ("GET", "/metrics", b"", 404),
-    ("GET", "/debug/flightrecorder", b"", 404),
-    ("GET", "/debug/traces", b"", 404),
+    # Served since the metrics layer was ported (ROADMAP A12).
+    ("GET", "/metrics", b"", 200),
+    ("GET", "/debug/flightrecorder", b"", 200),
+    ("GET", "/debug/traces", b"", 200),
 ])
 def test_api_status_codes(cfg, method, path, body, status):
     res = api_client(cfg).request(method, path, body, "application/json")
@@ -576,29 +576,45 @@ def test_every_app_config_field_is_read_or_refused(field):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("LSOT_SLO_TTFT_MS", "250", "A12"),
-    ("LSOT_SLO_TPOT_MS", "40", "A12"),
-    ("LSOT_SLO_QUEUE_WAIT_MS", "100", "A12"),
-    ("LSOT_SLO_WINDOW_S", "60", "A12"),
-    ("LSOT_SLO_TARGET", "0.9", "A12"),
-    ("LSOT_REQUEST_LOG", "0", "A12"),
     ("LSOT_STOK_SEED_BENCH", "bench.jsonl", "A12"),
-    ("LSOT_FLIGHT_ROUNDS", "1024", "A7.7"),
-    ("LSOT_PROFILE_ROUNDS", "4", "A7.7"),
-    ("LSOT_PROFILE_DIR", "prof", "A7.7"),
-    ("LSOT_PREFIX_TOPK", "8", "A7.8"),
-    ("LSOT_PREFIX_RING", "64", "A7.8"),
     ("LSOT_QOS_DEADLINE_INTERACTIVE", "2", "A11"),
     ("LSOT_QOS_DEADLINE_BATCH", "20", "A11"),
     ("LSOT_QOS_DEADLINE_REPLAY", "30", "A11"),
 ])
 def test_entry_point_refuses_inert_knobs(monkeypatch, tmp_path, knob, value, item):
-    """The knobs the port read and then ignored are refused by name."""
+    """The knobs the port read and then ignored are refused by name: the
+    bench seed (A12's bench half) and the QoS deadlines (A11)."""
     monkeypatch.setenv(knob, value)
     cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
                              output_dir=str(tmp_path / "out"), history_db=":memory:")
     with pytest.raises(NotImplementedError, match=f"{knob} is not ported: ROADMAP {item}"):
         entry.build_service(args_for("--cpu"), cfg)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("LSOT_SLO_TTFT_MS", "250"),
+    ("LSOT_SLO_TPOT_MS", "40"),
+    ("LSOT_SLO_QUEUE_WAIT_MS", "100"),
+    ("LSOT_SLO_WINDOW_S", "60"),
+    ("LSOT_SLO_TARGET", "0.9"),
+    ("LSOT_REQUEST_LOG", "0"),
+    ("LSOT_FLIGHT_ROUNDS", "1024"),
+    ("LSOT_PROFILE_ROUNDS", "4"),
+    ("LSOT_PROFILE_DIR", "prof"),
+    ("LSOT_PREFIX_TOPK", "8"),
+    ("LSOT_PREFIX_RING", "64"),
+])
+def test_entry_point_honours_observability_knobs(monkeypatch, tmp_path, knob, value):
+    """The observability knobs (ROADMAP A7.7, A7.8 and A12's metrics
+    layer) are honoured: the service builds with each one set (each one's
+    effect is checked in tests/test_torch_observability.py)."""
+    monkeypatch.setenv(knob, value)
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:")
+    try:
+        entry.build_service(args_for("--cpu"), cfg).close()
+    finally:
+        entry.configure_observability(AppConfig())
 
 
 def test_journal_spill_knob_names_a_file_per_model(monkeypatch, tmp_path):

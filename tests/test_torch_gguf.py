@@ -95,6 +95,34 @@ def test_write_gguf_same_bytes_as_jax(tmp_path, quant, variant):
     assert (tmp_path / "port.gguf").read_bytes() == (tmp_path / "jax.gguf").read_bytes()
 
 
+def edge_blocks(seed):
+    """Blocks of 32 that take each branch of the block quantizers: all
+    zeros, a signed tie for the largest magnitude (+a before -a and -a
+    before +a), f16-subnormal and f32-subnormal scales, huge values, and
+    random rows."""
+    rng = np.random.default_rng(seed)
+    rows = [np.zeros(32), np.r_[0.5, -0.5, rng.uniform(-0.4, 0.4, 30)],
+            np.r_[-0.5, 0.5, rng.uniform(-0.4, 0.4, 30)],
+            rng.uniform(-1e-6, 1e-6, 32), rng.uniform(-1e-40, 1e-40, 32),
+            rng.uniform(-6e4, 6e4, 32), -np.abs(rng.standard_normal(32)),
+            np.r_[np.zeros(31), -3.0]]
+    rows += list(rng.standard_normal((24, 32)) * rng.uniform(1e-3, 10, (24, 1)))
+    return np.stack(rows).astype(np.float32)
+
+
+@pytest.mark.parametrize("quant", ["q8_0", "q4_0"])
+def test_block_quantizers_same_bytes_as_jax_on_edge_blocks(quant):
+    """The port's torch block quantizers write JAX's numpy bytes on the
+    blocks where rounding, ties and zero scales decide them."""
+    from llm_based_apache_spark_optimization_tpu.checkpoint.gguf import (
+        _quantize as jax_quantize,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint.gguf import _quantize
+
+    a = edge_blocks(3)
+    assert _quantize(torch.from_numpy(a), quant) == jax_quantize(a, quant)
+
+
 def test_rope_freqs_load_as_freq_factors(tmp_path):
     """TINY's llama3 rope scaling ships as `rope_freqs.weight` and comes back
     as RopeFreqFactors with JAX's factors; the logits of the reloaded tree

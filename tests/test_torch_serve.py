@@ -106,7 +106,7 @@ def test_engine_deadline_clamp(services):
                         deadline_s=0.045).output_tokens <= 4
     with pytest.raises(DeadlineExceeded, match="deadline"):
         svc.generate("m", "count rows", system=SYSTEM, deadline_s=0.005)
-    hist = svc.histograms.snapshot()["lsot_request_latency_seconds"]
+    hist = svc.metrics.histograms.snapshot()["lsot_request_latency_seconds"]
     assert [h["count"] for h in hist] == [1]  # the refused request records nothing
 
 
