@@ -12,6 +12,8 @@
     python3 chip_smoke.py --int8-only    # phases 1, 2, then 14 (a), (b) and (f)
     python3 chip_smoke.py --observability-only  # phases 1, 2, then 15 on the
                                                 # 7B weights alone
+    python3 chip_smoke.py --fleet-only   # phases 1, 2, then 16 (a) on the 7B
+                                         # and 3B weights alone
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -143,7 +145,7 @@ Phases, each fatal on failure:
    first step alone; the rest at T = 1, recorded at the dispatch seam), no
    flash prefill; the live pool's decode step kernel vs plain.
    (b) overcommit: the 7B paged scheduler at its default max_seq (4096),
-   kv_overcommit 0.5, a burst of six 512-token requests, the last three
+   kv_overcommit 0.5, a burst of six OVERCOMMIT_NEW-token requests, the last three
    under the generic grammar, over a pool that
    holds their admissions (more than one max-length row's 64 pages) and
    not their budgets: spill mode preempts (a constrained request among the
@@ -240,8 +242,11 @@ Phases, each fatal on failure:
    0.5 s GIL switch interval, so each run admits all six at once and
    prefills the same groups. Launch counts exact over both incarnations.
    (d) The entry point: `python -m <package>.app --backend checkpoint
-   --api --sql-model-path <(b)'s directory> --error-model-path <(a)'s
-   blob>:<tokenizer directory>`, supervised by default, with a byte-level
+   --api --sql-model-path <(b)'s directory> --error-model-path <the 3B
+   blob cut to ENTRY_3B_LAYERS = 4 layers, written beside (a)'s for the
+   entry points of (d), 14 (e) and 16 (b), for the run's time
+   budget>:<tokenizer directory>`,
+   supervised by default, with a byte-level
    BPE `tokenizer.json` trained here by the `tokenizers` package (where it
    does not import, the line `checkpoint entry point: not run (no
    tokenizers package on this machine)` is printed instead): `/readyz`
@@ -354,8 +359,8 @@ Phases, each fatal on failure:
    every burst's streams held by the near-tie rule to an unfused engine's
    over the same weights and cache type through the plain versions; launch
    counts exact, no page leaked; (e) in phase 10, the entry point with
-   `--backend checkpoint --int8 --int8-unembed` over the 3B Q4_0 blob
-   serves `POST /process-data/`; (f) in phase 11, each int8 shape and row
+   `--backend checkpoint --int8 --int8-unembed` over the 3B Q4_0 blob cut
+   to ENTRY_3B_LAYERS layers serves `POST /process-data/`; (f) in phase 11, each int8 shape and row
    8's stacked shapes at R = 1, 8, 72, 1024 against their bounds, their
    plain versions and cuBLAS bf16 on the weight dequantized in advance,
    with each int8 call's route, tile, splits and blocks, the int8 kernels'
@@ -391,6 +396,41 @@ Phases, each fatal on failure:
    `/debug/slo`, `/debug/prefixcache`. Prints the registry's queue wait
    and TTFT percentiles, and an `{"observability": ...}` line before the
    kernels line.
+
+16. The co-resident fleet (ROADMAP A7.10, A7.6's tenant half, A11's front
+   door and model pool): (a) after phase 15 (a), phase 7's schedulers
+   freed, one `SchedulerPool` built by the entry point's
+   `make_model_pool_service` over phase 7's 7B and 3B bf16 trees at full
+   width and depth: `duckdb-nsql` on two replicas sharing the 7B tree,
+   `llama3.2` on one, paged, FLEET_SLOTS slots a replica, FLEET_HBM_GB GiB
+   of KV split 0.75 / 0.25, under the crash supervisor, QoS on with
+   LSOT_TENANT_WEIGHTS FLEET_WEIGHTS, behind the service and the JSON API
+   (`fleet_serve`). Burst A in flight together: 12 SQL requests of tenant
+   `storm` (batch), then 3 of `quiet` (interactive) and 3 explanations on
+   `llama3.2`: every placement on a replica of its model and both 7B
+   replicas used, `quiet`'s queue-wait p50 below `storm`'s. Under
+   LSOT_TENANT_RATE FLEET_SHED_RATE the app sheds `storm` 429 with
+   Retry-After and serves `quiet`. Burst B: 8 SQL requests and 2
+   explanations with `restart_replica` of the 7B replica holding the most
+   slots (prefix affinity may route the whole burst to one): it alone is
+   rebuilt (the others' restart counts 0, no pool restart), its entries
+   replayed, none lost. Launch counts exact over both bursts (every
+   replica object, the rebuilt one included); no replica leaks a page;
+   `/metrics` carries lsot_model_replicas 2 and 1, each model's partitioned
+   pages and the lsot_tenant_* families; `/healthz` carries `fleet`. Each
+   greedy stream equals a lone scheduler's of its model (built by its
+   replica's own factory: FLEET_SLOTS slots, the replica's KV share) fed
+   the model's prompts in the pool's admission order, or leaves it at a
+   near-tie: the first diverging tokens' logit gap within twice the
+   model's top-id drift (`logit_drift`, phase 13's measure). Prints
+   placements per replica, queue-wait p50 per tenant, the shed count, the
+   restart's seconds and the streams equal exactly per model, and a
+   `{"fleet": ...}` line before the kernels line. (b) in phase 10, after (e): the entry point's
+   `LSOT_MODELS` checkpoint branch over the 3B Q4_0 blob cut to
+   ENTRY_3B_LAYERS layers and (b)'s 4-layer 7B HF directory, co-resident in one supervised pool in a
+   process of its own (`--kv-layout paged --kv-hbm-gb 4`): one `POST
+   /process-data/`, one explanation on `/api/generate`, `/healthz`'s
+   `fleet` (`fleet_entry_point`).
 
 Every phase prints its seconds.
 
@@ -1849,10 +1889,12 @@ def mixed_serve(torch, engines):
     return out
 
 
-# Tokens each burst request decodes in the overcommit phase: at ratio 0.5
-# the six admissions then take more pages than one max-length row (64 at
-# max_seq 4096), the least pool the scheduler accepts.
-OVERCOMMIT_NEW = 512
+# Tokens each burst request decodes in the overcommit phases (6 (b), 13
+# (f)): at ratio 0.5 the six admissions then take more pages than one
+# max-length row (64 at max_seq 4096), the least pool the scheduler
+# accepts (66 pages, in a pool of 68), and their budgets 77. 384, not 512:
+# the run's time budget.
+OVERCOMMIT_NEW = 384
 
 
 def burst(sched, prompts, max_new, constraints=None):
@@ -1875,7 +1917,7 @@ def burst(sched, prompts, max_new, constraints=None):
 def overcommit_serve(torch, engines, tally):
     """Overcommit at full width: the 7B paged bf16 scheduler (phase 6's
     settings, max_seq 4096) with kv_overcommit 0.5 over a pool that holds the six burst
-    requests' admissions (prompt + half the 512-token budget) but not their
+    requests' admissions (prompt + half the OVERCOMMIT_NEW budget) but not their
     whole budgets, so top-ups fail and preempt. The last three requests of
     the burst decode under the generic grammar (admitted last, they have
     the fewest tokens when a top-up fails: victims first). A control with
@@ -2535,13 +2577,16 @@ def stream_generate(torch, svc, scheds, cfg):
     return launches
 
 
-def entry_point(torch, backend_args=("--backend", "tiny"), device_args=()):
+def entry_point(torch, backend_args=("--backend", "tiny"), device_args=(), env_extra=None,
+                explain=None):
     """The entry point as a user starts it, in a process of its own:
-    `python -m <package>.app <backend_args> --api` (supervised contiguous
-    schedulers on the card) over a temporary input directory; wait for
-    `/healthz`, `/readyz` must answer `ready`, `POST /process-data/` once,
-    then SIGTERM (the graceful drain), and the process must exit 0. Its
-    launches are its own process's, outside every counted window."""
+    `python -m <package>.app <backend_args> --api` (supervised schedulers on
+    the card) over a temporary input directory, with `env_extra` in its
+    environment; wait for `/healthz`, `/readyz` must answer `ready`, `POST
+    /process-data/` once, with `explain` one `/api/generate` of that body
+    (and /healthz must then carry the pool's `fleet`), then SIGTERM (the
+    graceful drain), and the process must exit 0. Its launches are its own
+    process's, outside every counted window."""
     import signal
     import socket
     import tempfile
@@ -2555,7 +2600,7 @@ def entry_point(torch, backend_args=("--backend", "tiny"), device_args=()):
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
         env = dict(os.environ, LSOT_HISTORY_DB=":memory:",
-                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)), **(env_extra or {}))
         cmd = [sys.executable, "-m", f"{PKG}.app", *backend_args, "--api",
                "--port", str(port), *device_args]
         t0 = time.perf_counter()
@@ -2568,7 +2613,8 @@ def entry_point(torch, backend_args=("--backend", "tiny"), device_args=()):
                 assert time.perf_counter() - t0 < 300, "the app did not come up"
                 try:
                     with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
-                        if json.loads(r.read()) == {"status": "ok"}:
+                        health = json.loads(r.read())
+                        if health["status"] == "ok":
                             break
                 except OSError:
                     time.sleep(0.5)
@@ -2584,6 +2630,24 @@ def entry_point(torch, backend_args=("--backend", "tiny"), device_args=()):
             with urllib.request.urlopen(req, timeout=120) as r:
                 status, body = r.status, json.loads(r.read())
             wall = time.perf_counter() - t1
+            if explain is not None:
+                req = urllib.request.Request(
+                    f"{url}/api/generate", method="POST", data=json.dumps(explain).encode(),
+                    headers={"Content-Type": "application/json"})
+                t1 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    explained = (r.status, json.loads(r.read()), time.perf_counter() - t1)
+                print(f"  /api/generate {explain['model']}: {explained[0]} in "
+                      f"{explained[2]:.3f} s, {len(explained[1]['response'])} chars",
+                      flush=True)
+                assert explained[0] == 200 and explained[1]["done"], explained
+                with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
+                    health = json.loads(r.read())
+                fleet = {m: [(x["replica"], x["model_id"], x["state"]) for x in reps]
+                         for m, reps in health["fleet"].items()}
+                print(f"  /healthz fleet {fleet}", flush=True)
+                assert {x[1] for reps in fleet.values() for x in reps} >= {
+                    explain["model"]}, fleet
         finally:
             if proc.poll() is None:
                 proc.send_signal(signal.SIGTERM)
@@ -3906,18 +3970,46 @@ def checkpoints(torch, engines):
                   "machine)", flush=True)
         else:
             write_tokenizer(hf_dir)
+            cut = cut_gguf(engines, root)
             entry_point(torch, ("--backend", "checkpoint", "--sql-model-path", hf_dir,
-                                "--error-model-path", f"{blob}:{hf_dir}",
+                                "--error-model-path", f"{cut}:{hf_dir}",
                                 "--max-new-tokens", str(MAX_NEW)))
             phase("checkpoint (e), phase 14 (e): the entry point, --int8 --int8-unembed "
-                  "over the 3B Q4_0 blob")
+                  f"over the 3B Q4_0 blob at {ENTRY_3B_LAYERS} layers")
             entry_point(torch, ("--backend", "checkpoint", "--sql-model-path",
-                                f"{blob}:{hf_dir}", "--int8", "--int8-unembed",
+                                f"{cut}:{hf_dir}", "--int8", "--int8-unembed",
                                 "--max-new-tokens", str(MAX_NEW)))
+            phase("fleet (b), phase 16: the entry point's LSOT_MODELS checkpoint branch "
+                  f"over the 7B HF directory and the 3B Q4_0 blob at {ENTRY_3B_LAYERS} "
+                  "layers")
+            fleet_entry_point(torch, hf_dir, cut)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"gguf_3b_int4_int8": gguf_launches, "hf_7b_bf16": hf_launches,
             "supervised_crash": crash_launches}
+
+
+#: Layers of the 3B Q4_0 blob the entry points of phase 10 (d), 14 (e) and
+#: 16 (b) load: the whole blob costs ~15 s a process (the run's budget).
+ENTRY_3B_LAYERS = 4
+
+
+def cut_gguf(engines, root):
+    """LLAMA32_3B's seed-0 tree cut to ENTRY_3B_LAYERS layers at full width,
+    written as a Q4_0 blob by the port's `write_gguf`, for the entry-point
+    processes. Returns its path."""
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import write_gguf
+
+    base = engines["llama3.2"]
+    cfg = dataclasses.replace(base.cfg, num_layers=ENTRY_3B_LAYERS)
+    seed = {**{k: v for k, v in base.params.items() if k != "blocks"},
+            "blocks": {k: v[:ENTRY_3B_LAYERS] for k, v in base.params["blocks"].items()}}
+    path = os.path.join(root, f"llama3.2-3b-{ENTRY_3B_LAYERS}-layers.q4_0.gguf")
+    write_gguf(cfg, seed, path, quant="q4_0")
+    print(f"  {cfg.name} at {ENTRY_3B_LAYERS} of {base.cfg.num_layers} layers written "
+          f"as Q4_0 for the entry points, {os.path.getsize(path) / 2**30:.2f} GiB",
+          flush=True)
+    return path
 
 
 def write_tokenizer(directory):
@@ -3933,6 +4025,340 @@ def write_tokenizer(directory):
         trainers.BpeTrainer(vocab_size=512, special_tokens=["<unk>", "<s>", "</s>"],
                             initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
     t.save(os.path.join(directory, "tokenizer.json"))
+
+
+# ------------------------------------------------------------------- fleet
+
+FLEET_SLOTS = 2      # slots a replica: the storm outnumbers the fleet's slots
+FLEET_HBM_GB = 16    # the pool's KV budget, split 0.75 / 0.25 between the models
+FLEET_WEIGHTS = "quiet=4"  # LSOT_TENANT_WEIGHTS of phase 16
+FLEET_SHED_RATE = "batch=0.5"   # LSOT_TENANT_RATE of the shed check
+FLEET_SHED_BURST = "batch=2"    # LSOT_TENANT_BURST of the shed check
+
+
+def recording_tokenizer():
+    """A ByteTokenizer that remembers, per thread, the ids it last encoded
+    and decoded: a backend encodes the prompt and decodes the completion on
+    the caller's thread, so the caller reads back its request's token ids."""
+    import threading
+
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    class RecordingTokenizer(ByteTokenizer):
+        def __init__(self):
+            super().__init__()
+            self.local = threading.local()
+
+        def encode(self, text, add_bos=True):
+            self.local.prompt = super().encode(text, add_bos=add_bos)
+            return self.local.prompt
+
+        def decode(self, ids):
+            self.local.out = list(ids)
+            return super().decode(ids)
+
+    return RecordingTokenizer()
+
+
+def fleet_compare(torch, label, cfg, params, stop_ids, streams, got, want, bounds):
+    """Hold the pool's greedy streams `got` to a lone scheduler's `want` over
+    the same prompts: equal, or, at the first diverging token, the two
+    tokens' logits (`pair_gap`) within twice the model's top-id drift,
+    measured by `logit_drift` as phase 13 measures it (once a model, on the
+    first divergence). Returns the divergences."""
+    out = []
+    for i, (p, a, b) in enumerate(zip(streams, got, want)):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            assert len(a) == len(b) or any(t in stop_ids for t in a + b), \
+                f"{label}[{i}]: lengths {len(a)} != {len(b)} without a stop"
+            continue
+        if label not in bounds:
+            bounds[label] = 2 * logit_drift(torch, cfg, params, None)["eps_top"]
+        gap = pair_gap(torch, cfg, params, p, b[:j], b[j], a[j])
+        out.append(dict(path=label, stream=i, position=j, gap=round(gap, 5),
+                        bound=round(bounds[label], 5)))
+        print(f"    {label}[{i}]: first divergence at token {j} (lone {b[j]}, pool "
+              f"{a[j]}): logit gap {gap:.5f}, bound {bounds[label]:.5f}", flush=True)
+        assert gap <= bounds[label], f"{label}[{i}]: divergence at {j}, gap {gap}"
+    return out
+
+
+def fleet_serve(torch, engines, smi):
+    """Phase 16 (a): the co-resident fleet through the entry point's pool
+    assembly (`app/__main__.make_model_pool_service`) over phase 7's 7B and
+    3B bf16 trees: `duckdb-nsql` on two replicas sharing the 7B tree,
+    `llama3.2` on one, paged, FLEET_SLOTS slots a replica, a KV budget of
+    FLEET_HBM_GB GiB split 0.75 / 0.25, under the crash supervisor, QoS on
+    with tenant weights FLEET_WEIGHTS, behind the service and the JSON API.
+    Burst A, all in flight together: 12 SQL requests of tenant `storm`
+    (batch), then 3 of `quiet` (interactive) and 3 error explanations. Burst
+    B: 8 SQL requests and 2 explanations with a `restart_replica` of the 7B
+    replica holding the most slots. Checks: every placement on a replica of its
+    model, both 7B replicas used; `quiet`'s queue-wait p50 below `storm`'s;
+    under FLEET_SHED_RATE the app sheds `storm` 429 with Retry-After and
+    serves `quiet`; the restart rebuilds that replica alone, its entries
+    replay, nothing is lost, the
+    supervisor never restarts the pool; no replica leaks a page; /metrics
+    carries lsot_model_replicas 2 and 1, each model's partitioned pages
+    and the lsot_tenant_* families; /healthz carries `fleet`; launch counts
+    exact over both bursts (every replica object, the rebuilt one
+    included); each greedy stream equals that of a lone scheduler built by
+    its replica's factory, fed the same prompts in the pool's admission
+    order, or leaves it only at a near-tie. Returns (launches, numbers)."""
+    import statistics
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from llm_based_apache_spark_optimization_tpu_torch.app import AppConfig, create_api_app
+    from llm_based_apache_spark_optimization_tpu_torch.app.__main__ import (
+        make_model_pool_service,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.history import SQLiteHistory
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.modelpool import ModelSpec
+    from llm_based_apache_spark_optimization_tpu_torch.serve.qos import ADMISSION
+    from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
+
+    tok = recording_tokenizer()
+    e7, e3 = engines["duckdb-nsql"], engines["llama3.2"]
+    specs = [ModelSpec("duckdb-nsql", hbm_fraction=0.75, replicas=2),
+             ModelSpec("llama3.2", hbm_fraction=0.25, template="llama3-chat",
+                       add_bos=False)]
+    budget = FLEET_HBM_GB * 2**30
+    ADMISSION.reconfigure(enabled=True, rate="", burst="")
+    numbers = {}
+    with tempfile.TemporaryDirectory() as root:
+        cfg = AppConfig(input_dir=root, output_dir=root, history_db=":memory:",
+                        max_new_tokens=MAX_NEW, tenant_weights=FLEET_WEIGHTS)
+        t_build = time.perf_counter()
+        svc = make_model_pool_service(
+            [(specs[0], e7.cfg, e7.params, tok), (specs[1], e3.cfg, e3.params, tok)],
+            cfg, max_new_tokens=MAX_NEW, num_slots=FLEET_SLOTS, kv_layout="paged",
+            kv_hbm_budget_bytes=budget, supervise=True)
+        sup = svc._models["duckdb-nsql"].backend.scheduler
+        pool = sup._inner
+        assert svc._models["llama3.2"].backend.scheduler is sup
+        models = {st.label: st.model_id for st in pool._states}
+        assert models == {"r0": "duckdb-nsql", "r1": "duckdb-nsql", "r2": "llama3.2"}
+        for st, sc in zip(pool._states, pool.schedulers):
+            ps = sc.page_stats
+            print(f"  {st.label} ({st.model_id}): {sc.num_slots} slots, pool of "
+                  f"{ps['pages_total']} pages x {ps['page_bytes'] / 2**20:.1f} MiB, "
+                  f"max_seq {sc.max_seq}, WFQ weights {sc._tenant_weights}", flush=True)
+        print(f"  pool built in {time.perf_counter() - t_build:.2f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+        client = create_api_app(svc, SQLiteBackend, SQLiteHistory(":memory:"),
+                                cfg).test_client()
+
+        def ask(model, question, tenant, qos):
+            system, prompt = ((SYSTEM_SQL, question) if model == "duckdb-nsql"
+                              else (SYSTEM_ERR, question))
+            t_submit = time.perf_counter()
+            res = svc.generate(model, prompt, system=system, tenant=tenant, qos=qos)
+            return dict(model=model, tenant=tenant, res=res, prompt=tok.local.prompt,
+                        out=tok.local.out, admitted=t_submit + res.queue_wait_s)
+
+        objects = {}  # every replica object the bursts ran on, and its start counters
+
+        def track():
+            for sc in pool.schedulers:
+                objects.setdefault(id(sc), (sc, sc.rounds_issued, sc.prefill_forwards))
+
+        torch.cuda.synchronize()
+        reset_launches()
+        track()
+        # Burst A: the storm first, then the quiet tenant and the explanations.
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=18) as ex:
+            storm = [ex.submit(ask, "duckdb-nsql", q, "storm", "batch")
+                     for q in (SCHED_SQL + SCHED_SQL)[:12]]
+            deadline = time.time() + 60
+            while sup._next_rid <= 12:  # every storm request journaled
+                assert time.time() < deadline, "the storm did not reach the journal"
+                time.sleep(0.001)
+            quiet = [ex.submit(ask, "duckdb-nsql", q, "quiet", "interactive")
+                     for q in QUESTIONS]
+            explain = [ex.submit(ask, "llama3.2", ERROR_PROMPT, "support", "interactive")
+                       for _ in range(3)]
+            burst_a = [f.result() for f in storm + quiet + explain]
+        numbers["burst_a_s"] = round(time.perf_counter() - t0, 4)
+        for sc in pool.schedulers:
+            wait_idle(sc)
+        waits = {t: [r["res"].queue_wait_s for r in burst_a
+                     if r["tenant"] == t and r["model"] == "duckdb-nsql"]
+                 for t in ("storm", "quiet")}
+        p50 = {t: round(statistics.median(w), 4) for t, w in waits.items()}
+        numbers["queue_wait_p50_s"] = p50
+        print(f"  burst A: 18 requests in {numbers['burst_a_s']} s; queue wait p50 "
+              f"{p50}; storm {sorted(round(w, 3) for w in waits['storm'])}, quiet "
+              f"{sorted(round(w, 3) for w in waits['quiet'])}", flush=True)
+        assert p50["quiet"] < p50["storm"], f"WFQ did not put quiet first: {p50}"
+        place = [r for r in pool.flight_snapshot() if r.get("kind") == "placement"]
+        assert len(place) == 18 and all(models[r["to"]] == r["model"] for r in place), \
+            place
+        by_replica = {lb: sum(r["to"] == lb for r in place) for lb in models}
+        assert by_replica["r0"] > 0 and by_replica["r1"] > 0, by_replica
+        assert by_replica["r2"] == 3, by_replica
+        numbers["placements_burst_a"] = by_replica
+
+        # The front door: `storm` over its bucket is shed, `quiet` served.
+        ADMISSION.reconfigure(enabled=True, rate=FLEET_SHED_RATE, burst=FLEET_SHED_BURST)
+        shed = []
+        for tenant, qos in [("storm", "batch")] * 4 + [("quiet", "interactive")]:
+            r = client.post_json("/api/generate", {
+                "model": "duckdb-nsql", "prompt": QUESTIONS[0], "system": SYSTEM_SQL,
+                "max_new_tokens": 8}, headers={"X-Lsot-Tenant": tenant, "X-Lsot-Qos": qos})
+            shed.append((tenant, r.status, r.headers.get("Retry-After")))
+        print(f"  shed check ({FLEET_SHED_RATE}, {FLEET_SHED_BURST}): {shed}", flush=True)
+        assert [s for _, s, _ in shed] == [200, 200, 429, 429, 200], shed
+        assert all(int(ra) >= 1 for _, s, ra in shed if s == 429), shed
+        numbers["shed"] = sum(s == 429 for _, s, _ in shed)
+        # The front door's and the WFQ's tenant families (the front door's
+        # counters restart with its next reconfigure).
+        lines = set(client.get("/metrics", query="format=prometheus").text.splitlines())
+        families = sorted({ln.split("{")[0] for ln in lines if ln.startswith("lsot_tenant_")})
+        assert {"lsot_tenant_admitted_total", "lsot_tenant_shed_total",
+                "lsot_tenant_bucket_level", "lsot_tenant_submitted_total"} <= set(families), \
+            families
+        assert 'lsot_tenant_shed_total{qos="batch",tenant="storm"} 2' in lines
+        ADMISSION.reconfigure(enabled=True, rate="", burst="")
+        for sc in pool.schedulers:
+            wait_idle(sc)
+
+        # Burst B: a targeted restart of r0 while it holds a slot.
+        track()
+        h0 = sup.health()
+        with ThreadPoolExecutor(max_workers=10) as ex:
+            futs = [ex.submit(ask, "duckdb-nsql", q, "storm", "batch") for q in SCHED_SQL]
+            futs += [ex.submit(ask, "llama3.2", ERROR_PROMPT, "support", "interactive")
+                     for _ in range(2)]
+            # The victim: the 7B replica holding the most slots (prefix
+            # affinity may route the whole burst to one of them).
+            deadline = time.time() + 60
+            while True:
+                held, victim = max((sum(r is not None for r in sc._slot_req), st.label)
+                                   for st, sc in zip(pool._states, pool.schedulers)
+                                   if st.model_id == "duckdb-nsql")
+                if held:
+                    break
+                assert time.time() < deadline, "no 7B replica took a request"
+                time.sleep(0.001)
+            old = pool.schedulers[pool._resolve_idx(victim)]
+            t_restart = time.perf_counter()
+            assert sup.restart_replica(victim) is True
+            while True:
+                reps = {r["replica"]: r for r in pool.replica_health()}
+                if reps[victim]["restarts"] == 1 and reps[victim]["state"] in (
+                        "ready", "degraded"):
+                    break
+                assert time.perf_counter() - t_restart < 120, reps
+                time.sleep(0.005)
+            numbers["restart_s"] = round(time.perf_counter() - t_restart, 4)
+            numbers["restarted"] = victim
+            track()
+            burst_b = [f.result() for f in futs]
+        for sc in pool.schedulers:
+            wait_idle(sc)
+        h = sup.health()
+        reps = {r["replica"]: r for r in h["replicas"]}
+        print(f"  restart of {victim} ({held} slots held) in {numbers['restart_s']} s; "
+              f"supervisor restarts "
+              f"{h['restarts']}, replayed {h['replayed'] - h0['replayed']}, lost "
+              f"{h['lost']}; replicas {[(k, v['state'], v['restarts']) for k, v in reps.items()]}",
+              flush=True)
+        assert old is not pool.schedulers[pool._resolve_idx(victim)], "not rebuilt"
+        assert [lb for lb, r in reps.items() if r["restarts"]] == [victim], reps
+        assert h["restarts"] == 0 and h["lost"] == 0, h
+        assert h["replayed"] > h0["replayed"], "no entry of r0 was replayed"
+        assert all(r["res"].output_tokens > 0 for r in burst_a + burst_b)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        expected = dict.fromkeys(LAUNCHES, 0)
+        for sc, rounds0, prefills0 in objects.values():
+            expect_paged(expected, sc, sc.rounds_issued - rounds0,
+                         sc.prefill_forwards - prefills0)
+        print(f"  launches {launches} expected {expected}", flush=True)
+        assert launches == expected, f"launch counts {launches} != {expected}"
+        objects.clear()  # the rebuilt replica's predecessor, and its page pool
+        del old
+
+        # The scrapes.
+        text = client.get("/metrics", query="format=prometheus").text
+        want = {'lsot_model_replicas{model="duckdb-nsql",served_model="duckdb-nsql"} 2',
+                'lsot_model_replicas{model="duckdb-nsql",served_model="llama3.2"} 1'}
+        pages = {m: sum(sc.page_stats["pages_total"] for st, sc in
+                        zip(pool._states, pool.schedulers) if st.model_id == m)
+                 for m in ("duckdb-nsql", "llama3.2")}
+        want |= {f'lsot_model_kv_pages_total{{model="duckdb-nsql",served_model="{m}"}} {n}'
+                 for m, n in pages.items()}
+        lines = set(text.splitlines())
+        assert want <= lines, sorted(want - lines)
+        health = client.get("/healthz").json()
+        fleet = {m: [(r["replica"], r["model_id"], r["state"]) for r in reps]
+                 for m, reps in health["fleet"].items()}
+        print(f"  /metrics: model pages {pages}, tenant families {families}; "
+              f"/healthz fleet {fleet['duckdb-nsql']}, membership "
+              f"{health['fleet_membership']['duckdb-nsql']}", flush=True)
+        assert [x[:2] for x in fleet["duckdb-nsql"]] == [
+            ("r0", "duckdb-nsql"), ("r1", "duckdb-nsql"), ("r2", "llama3.2")]
+        assert pages["duckdb-nsql"] == 2 * pool.schedulers[1].page_stats["pages_total"]
+        numbers["placements"] = {st.label: st.placements for st in pool._states}
+        # No page leaked: only the prefix cache holds pages.
+        for st, sc in zip(pool._states, pool.schedulers):
+            ps = wait_idle(sc)
+            assert ps["pages_in_use"] == ps["prefix_resident_pages"], (st.label, ps)
+        make_replica = pool._factory
+        svc.close()
+    del svc, sup, pool, client
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Each greedy stream against a lone scheduler built by its replica's
+    # own factory (FLEET_SLOTS slots, the replica's KV share, QoS on), fed
+    # the model's prompts in the pool's admission order, burst by burst.
+    divergences, bounds, equal = [], {}, {}
+    for model, eng, idx in (("duckdb-nsql", e7, 0), ("llama3.2", e3, 2)):
+        recs = [r for burst in (burst_a, burst_b)
+                for r in sorted(burst, key=lambda r: r["admitted"]) if r["model"] == model]
+        lone = make_replica(idx)
+        assert lone.num_slots == FLEET_SLOTS and lone.model_id == model
+        with lone:
+            want = [lone.submit(r["prompt"], max_new_tokens=MAX_NEW) for r in recs]
+            want = [f.result(timeout=300) for f in want]
+        div = fleet_compare(torch, f"fleet_{model}", eng.cfg, eng.params,
+                            lone.stop_ids, [r["prompt"] for r in recs],
+                            [r["out"] for r in recs], want, bounds)
+        equal[model] = f"{len(recs) - len(div)} of {len(recs)}"
+        divergences += div
+        del lone
+        torch.cuda.empty_cache()
+    numbers["divergences"] = divergences
+    numbers["streams"] = len(burst_a) + len(burst_b)
+    numbers["streams_equal"] = equal
+    print(f"  {numbers['streams']} streams vs lone schedulers: equal exactly {equal}, "
+          f"{len(divergences)} near-tie divergences; on {smi}", flush=True)
+    return launches, numbers
+
+
+def fleet_entry_point(torch, hf_dir, blob):
+    """Phase 16 (b): the entry point's `LSOT_MODELS` checkpoint branch over
+    phase 10's files: `duckdb-nsql` from the 7B HF directory (HF_LAYERS
+    layers) and `llama3.2` from the 3B Q4_0 blob cut to ENTRY_3B_LAYERS
+    layers, co-resident in
+    one supervised pool (paged, 4 GiB of KV split 0.75 / 0.25) in a process
+    of its own; one `POST /process-data/` and one explanation on
+    `/api/generate`, /healthz carrying `fleet`."""
+    spec = (f"duckdb-nsql=hf:{hf_dir},hbm=0.75;"
+            f"llama3.2=gguf:{blob}:{hf_dir},hbm=0.25,template=llama3-chat,add_bos=0")
+    entry_point(torch, ("--backend", "checkpoint", "--sql-model-path", hf_dir,
+                        "--kv-layout", "paged", "--kv-hbm-gb", "4",
+                        "--max-new-tokens", str(MAX_NEW)),
+                env_extra={"LSOT_MODELS": spec},
+                explain={"model": "llama3.2", "prompt": ERROR_PROMPT, "system": SYSTEM_ERR})
 
 
 # --------------------------------------------------------------- profile
@@ -6446,6 +6872,9 @@ def main() -> int:
                     help="build and run phase 15 alone: the observability checks and "
                          "captures on a contiguous bf16 and a paged int4 + int8-pool 7B "
                          "scheduler (prints their numbers and no ok line)")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build and run phase 16 (a) alone: the co-resident 7B x 2 + 3B "
+                         "pool under QoS (prints its numbers and no ok line)")
     ap.add_argument("--int8-only", action="store_true",
                     help="build and run phase 14's kernel parts alone: the int8 matmul "
                          "and row 8 at the stacked widths against their plain versions, "
@@ -6576,6 +7005,17 @@ def main() -> int:
         print(json.dumps({"observability": obs, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.fleet_only:
+        from llm_based_apache_spark_optimization_tpu_torch.models import LLAMA32_3B
+
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),
+                                       ("llama3.2", LLAMA32_3B)))
+        phase("fleet (a), phase 16: the co-resident 7B x 2 + 3B pool under QoS")
+        _, fleet = fleet_serve(torch, engines, smi)
+        phase(None)
+        print(json.dumps({"fleet": fleet, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.sweep:
         phase("split sweep")
         swept = sweep(torch, attn_mod, pa_mod, pw_mod, DUCKDB_NSQL_7B)
@@ -6646,6 +7086,8 @@ def main() -> int:
         sc.shutdown()
     del contig_scheds
     gc.collect()  # the app's reference cycles hold the caches until collected
+    phase("fleet (a), phase 16: the co-resident 7B x 2 + 3B pool under QoS")
+    fleet_launches, fleet = fleet_serve(torch, engines, smi)
     phase("entry point: the tiny app as a process")
     entry_point(torch)
 
@@ -6727,6 +7169,7 @@ def main() -> int:
              "quantized_engine": q_launches["engine"],
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
+             "fleet_pool": fleet_launches,
              **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
@@ -6793,6 +7236,7 @@ def main() -> int:
                                       "tokens_per_round": spec_tprs,
                                       "divergences": spec_div, **spec_calib}}))
     print(json.dumps({"observability": obs, "device": smi}))
+    print(json.dumps({"fleet": fleet, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,9 @@ Subpackages (bottom-up):
   native/      the GGUF reader in C++, built with g++ at first use
   tokenizer/   byte-level, trainable BPE and HF tokenizer.json tokenizers
   serve/       prompt templates, engine and scheduler backends, the
-               continuous-batching scheduler, its crash supervisor and
-               watchdog, generation service, typed serving errors
+               continuous-batching scheduler and its replica pool, the
+               crash supervisor and watchdog, generation service, the QoS
+               front door, the model registry, typed serving errors
   sql/         CSV -> temp_view -> SQL execution (SQLite, Spark)
   history/     query-results history store
   utils/       fault injection, request tracing, counters

@@ -34,11 +34,27 @@ block weights), and `--int8-unembed` (int8 embed/unembed tables, composing
 with either) quantize a checkpoint's tree after it is loaded, on the
 checkpoint backends, as the JAX entry point does; `--int8 --int4` exits.
 
+The multi-tenant front door (serve/qos.py) is on by default, as in the JAX
+entry point (`LSOT_QOS`): `ADMISSION.reconfigure` takes the token buckets
+(`LSOT_TENANT_RATE`, `LSOT_TENANT_BURST`) and the per-class default
+deadlines (`LSOT_QOS_DEADLINE_*`); every scheduler built here takes the WFQ
+switch, `LSOT_TENANT_WEIGHTS` and `LSOT_PREFIX_TENANT_NS` from the config
+(`scheduler_qos`); `LSOT_TENANT_MODELS` pins tenants to models.
+
+`LSOT_MODELS` serves several checkpoints co-resident in one model-routing
+`SchedulerPool` (serve/modelpool.py): with `--backend checkpoint` each spec
+loads its own hf directory or gguf blob (`make_multimodel_checkpoint_service`,
+`--int8` as in JAX, `--int4` refused as there), sized to its `hbm` share of
+`--kv-hbm-gb`; with `--backend tiny` the tiny fleet. The pool's knobs:
+`LSOT_REPLICA_MAX_RESTARTS`, `LSOT_POOL_ROUTER`, `LSOT_POOL_AFFINITY`,
+`LSOT_POOL_MODELS`, `LSOT_REPLICA_WEIGHTS`.
+
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
 every option it cannot honor yet, instead of ignoring it: `--dp`/`--sp`/
-`--tp` > 1 (A13), and the environment knobs of `UNPORTED_KNOBS`: the
-fleet, model-pool and QoS knobs (A11) and the bench seed (A12's bench).
+`--tp` > 1 (A13), and the environment knobs of `UNPORTED_KNOBS`: phase
+roles and the handoff pump (A7.5), remote replicas and the autoscaler
+(A11's remote half) and the bench seed (A12's bench).
 
 Observability (`configure_observability`, before any service or scheduler
 is built): request-trace sampling and export (`LSOT_TRACE_SAMPLE`,
@@ -72,33 +88,18 @@ from .web import create_web_app
 #: Environment knobs of layers the port does not have yet: AppConfig field
 #: -> the ROADMAP item that brings it.
 UNPORTED_KNOBS = {
-    "models": "A11 (multi-model pools)",
-    "tenant_models": "A11 (multi-model pools)",
-    "pool_phases": "A11 (the fleet)",
-    "pool_remote": "A11 (the fleet)",
-    "replica_weights": "A11 (the fleet)",
-    "fleet_workers": "A11 (the fleet)",
-    "replica_max_restarts": "A11 (the fleet)",
-    "pool_router": "A11 (the fleet)",
-    "pool_affinity": "A11 (the fleet)",
-    "pool_models": "A11 (the fleet)",
-    "lease_s": "A11 (the fleet)",
-    "lease_misses": "A11 (the fleet)",
-    "fleet_min": "A11 (the fleet)",
-    "fleet_max": "A11 (the fleet)",
-    "scale_up_q": "A11 (the fleet)",
-    "scale_down_q": "A11 (the fleet)",
-    "scale_hold_s": "A11 (the fleet)",
-    "scale_interval_s": "A11 (the fleet)",
-    "pump_depth": "A11 (the fleet)",
-    "qos": "A11 (the QoS front door)",
-    "tenant_rate": "A11 (the QoS front door)",
-    "tenant_burst": "A11 (the QoS front door)",
-    "tenant_weights": "A11 (the QoS front door)",
-    "prefix_tenant_ns": "A11 (the QoS front door)",
-    "qos_deadline_interactive": "A11 (the QoS front door)",
-    "qos_deadline_batch": "A11 (the QoS front door)",
-    "qos_deadline_replay": "A11 (the QoS front door)",
+    "pool_phases": "A7.5 (phase roles and the prefill-to-decode handoff)",
+    "pump_depth": "A7.5 (phase roles and the prefill-to-decode handoff)",
+    "pool_remote": "A11 (remote replicas, serve/remote.py)",
+    "fleet_workers": "A11 (remote replicas, serve/remote.py)",
+    "lease_s": "A11 (remote replicas, serve/remote.py)",
+    "lease_misses": "A11 (remote replicas, serve/remote.py)",
+    "fleet_min": "A11 (the autoscaler, serve/elastic.py)",
+    "fleet_max": "A11 (the autoscaler, serve/elastic.py)",
+    "scale_up_q": "A11 (the autoscaler, serve/elastic.py)",
+    "scale_down_q": "A11 (the autoscaler, serve/elastic.py)",
+    "scale_hold_s": "A11 (the autoscaler, serve/elastic.py)",
+    "scale_interval_s": "A11 (the autoscaler, serve/elastic.py)",
     "stok_seed_bench": "A12 (the bench artifact)",
 }
 
@@ -138,10 +139,11 @@ def refuse_unported(args, cfg: AppConfig) -> None:
 
 
 def configure_observability(cfg: AppConfig) -> None:
-    """Wire the observability knobs through their reconfigure seams, as
-    the JAX entry point does: every recorder, registry and scheduler built
-    after this call reads them."""
+    """Wire the observability and front-door knobs through their
+    reconfigure seams, as the JAX entry point does: every recorder,
+    registry, scheduler and service built after this call reads them."""
     from ..serve import flightrecorder
+    from ..serve.qos import ADMISSION
     from ..serve.scheduler import reconfigure_prefix_telemetry
     from ..utils import observability, slo, traceprof
     from ..utils.tracing import TRACER
@@ -155,6 +157,29 @@ def configure_observability(cfg: AppConfig) -> None:
                     window_s=cfg.slo_window_s, target=cfg.slo_target)
     traceprof.reconfigure_profile(profile_dir=cfg.profile_dir or None,
                                   rounds=cfg.profile_rounds)
+    # The front door: buckets and per-class deadlines (the schedulers take
+    # their WFQ settings from `scheduler_qos`).
+    ADMISSION.reconfigure(
+        enabled=cfg.qos, rate=cfg.tenant_rate, burst=cfg.tenant_burst,
+        deadlines={"interactive": cfg.qos_deadline_interactive,
+                   "batch": cfg.qos_deadline_batch,
+                   "replay": cfg.qos_deadline_replay})
+
+
+def scheduler_qos(cfg: AppConfig) -> dict:
+    """The scheduler-side QoS settings of `cfg`: WFQ on or off, the
+    tenants' weights, the tenant prefix namespaces."""
+    return dict(qos=cfg.qos, tenant_weights=cfg.tenant_weights,
+                prefix_tenant_ns=cfg.prefix_tenant_ns)
+
+
+def pool_options(cfg: AppConfig, replicas: int) -> dict:
+    """`SchedulerPool` arguments from `cfg`'s pool knobs."""
+    from ..serve.scheduler import parse_replica_weights
+
+    return dict(max_restarts=cfg.replica_max_restarts, router=cfg.pool_router,
+                affinity_routing=cfg.pool_affinity, model_routing=cfg.pool_models,
+                weights=parse_replica_weights(cfg.replica_weights, replicas))
 
 
 def make_tiny_service(
@@ -224,7 +249,8 @@ def make_tiny_service(
                     mcfg, mparams, num_slots=num_slots, prompt_bucket=64,
                     kv_layout=kv_layout, kv_quant=kv_quant,
                     max_queue_depth=app_cfg.max_queue_depth,
-                    speculative_draft=speculative, device=dev)
+                    speculative_draft=speculative, device=dev,
+                    **scheduler_qos(app_cfg))
 
             # The factory closes over the loaded params: a restart
             # re-allocates the cache, never the weights.
@@ -274,8 +300,9 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
     from HF safetensors directories or GGUF blobs, each behind a
     continuous-batching scheduler (supervised by default) or, with
     `--no-scheduler`, a lock-serialised engine. The JAX entry point's
-    single-checkpoint branch; its dp pools (ROADMAP A13) and multi-model
-    `LSOT_MODELS` fleet (A11) are refused by `refuse_unported`."""
+    single-checkpoint branch (`LSOT_MODELS` takes
+    `make_multimodel_checkpoint_service`; its dp pools, ROADMAP A13, are
+    refused by `refuse_unported`)."""
     from ..serve.factory import assemble_reference_service
     from ..serve.scheduler import SchedulerBackend
     from ..tokenizer import HFTokenizer
@@ -305,7 +332,8 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
                 journal_spill=_spill_path(cfg, src),
                 stall_factor=cfg.stall_factor, stall_min_s=cfg.stall_min_s,
                 stall_warmup_s=cfg.stall_warmup_s,
-                speculative_draft=args.speculative, device=device)
+                speculative_draft=args.speculative, device=device,
+                **scheduler_qos(cfg))
             if args.kv_hbm_gb:
                 common["kv_hbm_budget_bytes"] = int(args.kv_hbm_gb * 2**30)
             load = (SchedulerBackend.from_gguf if gguf
@@ -323,6 +351,122 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
     return assemble_reference_service(
         build, args.sql_model_path, args.error_model_path,
         args.mistral_model_path, max_new_tokens=max_new_tokens)
+
+
+def make_model_pool_service(models, cfg: AppConfig, *, max_new_tokens: int,
+                            num_slots: int = 8, kv_layout: str = "contiguous",
+                            kv_quant: Optional[str] = None,
+                            kv_hbm_budget_bytes: int = 0, speculative: int = 0,
+                            supervise: bool = True) -> GenerationService:
+    """Co-resident models in one model-routing `SchedulerPool`: `models` is
+    [(ModelSpec, LlamaConfig, params, tokenizer)], each params tree already
+    on its device. Every (model, replica) scheduler is stamped with its
+    model_id and sized to its `hbm` share of `kv_hbm_budget_bytes` (0: each
+    sizes itself); a replica restart rebuilds from the same tree, never
+    reloading it. Under `supervise` the pool runs in a
+    `SupervisedScheduler`. One `SchedulerBackend` a model (its tokenizer,
+    template and BOS rule) submits through the shared pool."""
+    from ..serve.backends import resolve_stop_ids
+    from ..serve.scheduler import (
+        ContinuousBatchingScheduler,
+        SchedulerBackend,
+        SchedulerPool,
+    )
+
+    factories, toks = [], {}
+    for spec, mcfg, params, tok in models:
+        budget = int(kv_hbm_budget_bytes * spec.hbm_fraction) or None
+
+        def mk(mcfg=mcfg, params=params, tok=tok, budget=budget, mid=spec.model_id):
+            return ContinuousBatchingScheduler(
+                mcfg, params, num_slots=num_slots,
+                stop_ids=resolve_stop_ids(mcfg, tok), kv_quant=kv_quant,
+                kv_layout=kv_layout, kv_hbm_budget_bytes=budget,
+                kv_overcommit=cfg.kv_overcommit, kv_spill=cfg.kv_spill,
+                kv_watermark_low=cfg.kv_watermark_low,
+                kv_watermark_high=cfg.kv_watermark_high,
+                speculative_draft=speculative,
+                max_queue_depth=cfg.max_queue_depth, model_id=mid,
+                device=params["final_norm"].device, **scheduler_qos(cfg))
+
+        factories += [mk] * spec.replicas
+        toks[spec.model_id] = tok
+
+    def make_replica(i):
+        return factories[i]()
+
+    def make_pool():
+        return SchedulerPool([make_replica(i) for i in range(len(factories))],
+                             factory=make_replica, **pool_options(cfg, len(factories)))
+
+    if supervise:
+        from ..serve.supervisor import SupervisedScheduler
+
+        pool = SupervisedScheduler(
+            make_pool, max_restarts=cfg.max_restarts,
+            max_entry_replays=cfg.max_entry_replays,
+            spill_path=_spill_path(cfg, "multimodel"),
+            stall_factor=cfg.stall_factor, stall_min_s=cfg.stall_min_s,
+            warmup_grace_s=cfg.stall_warmup_s, name="scheduler-pool:multimodel")
+    else:
+        pool = make_pool()
+    svc = GenerationService()
+    for spec, *_ in models:
+        svc.register(spec.model_id, SchedulerBackend(
+            pool, toks[spec.model_id], max_new_tokens=max_new_tokens,
+            add_bos=spec.add_bos, deadline_s=cfg.deadline_s or None,
+            model_id=spec.model_id), template=spec.template or "completion")
+    return svc
+
+
+def make_multimodel_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
+                                       device=None) -> GenerationService:
+    """`LSOT_MODELS` with `--backend checkpoint`: each spec loads its own
+    checkpoint (an hf directory or `X.gguf:TOKDIR`) onto the device once,
+    `--int8` (and `--int8-unembed`) quantize it, and all of them serve from
+    one pool (`make_model_pool_service`) sized to `--kv-hbm-gb`. `--int4`
+    is refused, as in the JAX entry point."""
+    from ..checkpoint import load_gguf_checkpoint, load_hf_checkpoint
+    from ..serve.backends import quantize_loaded
+    from ..serve.modelpool import parse_models_spec
+    from ..tokenizer import HFTokenizer
+
+    try:
+        specs = parse_models_spec(cfg.models)
+    except ValueError as e:
+        sys.exit(f"LSOT_MODELS: {e}")
+    if not args.scheduler:
+        sys.exit("LSOT_MODELS needs --scheduler (model routing is a "
+                 "scheduler-pool property)")
+    tiny = [m.model_id for m in specs if m.source == "tiny"]
+    if tiny:
+        sys.exit(f"LSOT_MODELS: {tiny} have source 'tiny' — the random-weight "
+                 f"fleet serves under --backend tiny; checkpoint assembly needs "
+                 f"hf/gguf paths")
+    if args.int4:
+        sys.exit("LSOT_MODELS does not combine with --int4 yet (the int4 pack "
+                 "path is single-checkpoint)")
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    models = []
+    for m in specs:
+        path, tok_dir = m.path.split(":", 1) if ":" in m.path else (m.path, None)
+        if path.endswith(".gguf") and tok_dir is None:
+            sys.exit(f"LSOT_MODELS {m.model_id}: GGUF blobs carry no tokenizer.json "
+                     f"— use gguf:PATH.gguf:TOKDIR")
+        tok = HFTokenizer(tok_dir or path)
+        if path.endswith(".gguf"):
+            mcfg, params = load_gguf_checkpoint(path, device=dev)
+        else:
+            mcfg, params = load_hf_checkpoint(path, device=dev)
+        params = quantize_loaded(params, args.int8, False, args.int8_unembed)
+        models.append((m, mcfg, params, tok))
+    return make_model_pool_service(
+        models, cfg, max_new_tokens=max_new_tokens, num_slots=args.slots,
+        kv_layout=args.kv_layout, kv_quant=resolve_kv_quant(args, cfg)[0],
+        kv_hbm_budget_bytes=int(args.kv_hbm_gb * 2**30),
+        speculative=args.speculative, supervise=args.supervise)
 
 
 def make_fake_service() -> GenerationService:
@@ -423,18 +567,40 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
             from .. import resolve_device
 
             resolve_device(None)  # the port needs its card unless --cpu
-        return make_fake_service()
-    if args.backend == "checkpoint":
+        service = make_fake_service()
+    elif args.backend == "checkpoint":
         if not args.sql_model_path:
             sys.exit("--backend checkpoint requires --sql-model-path")
-        return make_checkpoint_service(args, cfg, args.max_new_tokens,
-                                       device=device)
-    # max_new small for the tiny demo model: it babbles bytes, not SQL.
-    return make_tiny_service(
-        32, scheduler=args.scheduler, kv_layout=args.kv_layout,
-        kv_quant=resolve_kv_quant(args, cfg)[0], int4=args.int4,
-        num_slots=args.slots, device=device, deadline_s=cfg.deadline_s or None,
-        supervise=args.supervise, app_cfg=cfg, speculative=args.speculative)
+        service = (make_multimodel_checkpoint_service(args, cfg, args.max_new_tokens,
+                                                      device=device)
+                   if cfg.models else
+                   make_checkpoint_service(args, cfg, args.max_new_tokens,
+                                           device=device))
+    elif cfg.models:
+        # The tiny fleet: co-resident random-weight models in one
+        # model-routing pool.
+        from ..serve.factory import assemble_multimodel_service
+        from ..serve.modelpool import parse_models_spec
+
+        try:
+            specs = parse_models_spec(cfg.models)
+            service, _pool, _registry = assemble_multimodel_service(
+                specs, max_new_tokens=32, supervise=args.supervise,
+                num_slots=args.slots, device=device,
+                pool_options=pool_options(cfg, sum(m.replicas for m in specs)),
+                scheduler_options=scheduler_qos(cfg))
+        except ValueError as e:
+            sys.exit(f"LSOT_MODELS: {e}")
+    else:
+        # max_new small for the tiny demo model: it babbles bytes, not SQL.
+        service = make_tiny_service(
+            32, scheduler=args.scheduler, kv_layout=args.kv_layout,
+            kv_quant=resolve_kv_quant(args, cfg)[0], int4=args.int4,
+            num_slots=args.slots, device=device, deadline_s=cfg.deadline_s or None,
+            supervise=args.supervise, app_cfg=cfg, speculative=args.speculative)
+    # Per-tenant model routing (LSOT_TENANT_MODELS), as the config says.
+    service.set_tenant_models(cfg.tenant_models)
+    return service
 
 
 def main(argv=None) -> None:

@@ -12,8 +12,10 @@ file must already exist in the input dir (no upload — reference
 (`FastAPI/app.py:72-73,112-116,138-144`.)
 
 A copy of the JAX package's `app/api.py` over the port's serving stack.
-Tenant and qos labels are checked and carried; the port has no QoS front
-door to charge them to (ROADMAP A11).
+Tenant and qos labels (`X-Lsot-Tenant` / `X-Lsot-Qos` headers, which win
+over the JSON fields) reach the QoS front door (serve/qos.py): an unknown
+class is a 400, a shed tenant a 429 with Retry-After (before the headers of
+a stream), an unregistered model a typed 4xx.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..serve.resilience import (
     Overloaded,
     SchedulerCrashed,
 )
+from ..serve.qos import normalize_qos
 from ..serve.service import GenerationService
 from ..sql.backend import SQLBackend
 from ..utils import tracing
@@ -42,21 +45,6 @@ from .health import (
 )
 from .pipeline import Pipeline
 from .wsgi import App, Request, Response
-
-
-#: Service classes a request may name (the JAX package's
-#: `serve/qos.QOS_CLASSES`).
-QOS_CLASSES = ("interactive", "batch", "replay")
-
-
-def normalize_qos(qos: str) -> str:
-    """Lower-cased class name, "" for unlabeled. Raises ValueError for an
-    unknown class — the HTTP layer turns that into a 400."""
-    q = (qos or "").strip().lower()
-    if q and q not in QOS_CLASSES:
-        raise ValueError(
-            f"unknown qos class {qos!r}; choices {list(QOS_CLASSES)}")
-    return q
 
 
 def _retry_after_headers(exc) -> list:

@@ -7,9 +7,9 @@ Here they live in one frozen dataclass, overridable from the environment with
 the `LSOT_` prefix.
 
 A copy of the JAX package's `app/config.py`. The port's entry point
-(`app/__main__.py`) refuses the knobs of layers it does not have yet (the
-fleet, multi-model pools, the QoS front door: ROADMAP A11), so `qos` is off
-by default here.
+(`app/__main__.py`) refuses, by name, the knobs of layers it does not have
+yet (phase roles, remote replicas and the autoscaler: ROADMAP A7.5 and
+A11's remote half).
 """
 
 from __future__ import annotations
@@ -260,7 +260,7 @@ class AppConfig:
     # JSON fields. qos=False reproduces the single-tenant admission
     # order bit for bit (no buckets, FIFO page-wait, shared prefix
     # registry).
-    qos: bool = False
+    qos: bool = True
     # Per-(tenant, class) token-bucket budgets: "2" = 2 req/s for every
     # class, "2,interactive=4" overrides per class. "" = no rate
     # ceiling (WFQ fairness still applies). Burst defaults to 2s of

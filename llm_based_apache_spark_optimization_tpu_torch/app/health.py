@@ -5,7 +5,10 @@ web UI register the same routes — one definition, app/api.py + app/web.py):
 
 - `GET /healthz` — LIVENESS: the process is up and the WSGI loop answers.
   Always 200 while the process serves; a dead supervisor does not fail
-  liveness (readiness already pulls the instance out of rotation).
+  liveness (readiness already pulls the instance out of rotation). A fleet
+  (SchedulerPool) also carries each replica's lifecycle (`fleet`: {model:
+  [{replica, state, restarts, stalls, ...}]}) and its membership counters
+  (`fleet_membership`).
 - `GET /readyz` — READINESS: should this instance receive traffic?
   Aggregates the supervised schedulers' lifecycle
   (`ready | restarting | degraded | dead`, serve/supervisor.py) through
@@ -31,8 +34,7 @@ web UI register the same routes — one definition, app/api.py + app/web.py):
 Also here, for both frontends: the `/metrics` body (`metrics_response`)
 and the observability debug routes (`add_debug_routes`).
 
-Counterpart of the JAX package's `app/health.py` without the fleet views
-on `/healthz` (ROADMAP A11).
+Counterpart of the JAX package's `app/health.py`.
 """
 
 from __future__ import annotations
@@ -79,7 +81,16 @@ def add_health_routes(app: App, service: GenerationService) -> None:
 
     @app.route("/healthz")
     def healthz(req: Request) -> Response:
-        return Response.json({"status": "ok"})
+        # Liveness stays 200; a fleet also carries each replica's
+        # lifecycle and the membership counters, per model.
+        body: dict = {"status": "ok"}
+        fleet = service.fleet_health()
+        if fleet:
+            body["fleet"] = fleet
+        membership = service.fleet_membership()
+        if membership:
+            body["fleet_membership"] = membership
+        return Response.json(body)
 
     @app.route("/readyz")
     def readyz(req: Request) -> Response:

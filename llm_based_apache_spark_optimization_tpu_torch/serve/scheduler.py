@@ -106,6 +106,9 @@ third, and reuse stops on block boundaries.
 
 One worker thread owns all device work. It enters `torch.inference_mode`
 and the scheduler's device and stream itself: both are per-thread state.
+On a card, the schedulers of a process issue their rounds and prefill
+chunks one at a time, under the device's dispatch lock (`dispatch_lock`);
+the fault seams run before it is taken.
 
 - Liveness and chaos seams: the event loop stamps `heartbeat`
   (serve/watchdog.py) at the top of every iteration and ticks it at every
@@ -178,8 +181,27 @@ and the scheduler's device and stream itself: both are per-thread state.
   `resident_digests` and `prefix_registry` (top `LSOT_PREFIX_TOPK`) read
   them.
 
-Not ported yet: phase roles and handoff (A7.5), `SchedulerPool` (A7.10),
-tenant QoS (A11) and meshes (A7.12, A13).
+- Multi-tenant QoS (serve/qos.py; `LSOT_QOS`, default on): a submit's
+  `tenant` and `qos` class ride the request. With QoS on the loop moves
+  the submit queue into a ready pool and admits the smallest virtual
+  finish time: vft = max(global virtual time, the tenant's last vft) +
+  (prompt + budget tokens) / weight (`LSOT_TENANT_WEIGHTS`), start-time
+  fair queueing, so a storm tenant's backlog advances only its own clock.
+  Page waiters re-admit preempted victims first, then by vft; a
+  preemption prefers the tenant holding the largest weighted slot share.
+  A labeled request's prefix-cache keys and digests are salted with its
+  tenant (`LSOT_PREFIX_TENANT_NS`, default on); unlabeled traffic keeps
+  the shared keys. `qos_stats` reports the virtual time, the ready pool
+  and the per-tenant counters. `LSOT_QOS=0` is the FIFO scheduler.
+- Fleets: a scheduler carries the `model_id` of the checkpoint it holds
+  (a submit naming another fails typed `UnknownModel`), a token-weighted
+  `backlog_score`, and the `extract_queued` / `requeue` seams a pool's
+  drain re-places through. `SchedulerPool` puts local replicas behind one
+  `submit()`: placement by model, prefix affinity, page and SLO pressure
+  and weighted least-loaded backlog, per-replica targeted restart, drain,
+  remove, add and retire, and merged stats views. Phase roles and the
+  prefill-to-decode handoff (ROADMAP A7.5), remote replicas and their
+  leases (A11's remote half) and meshes (A7.12, A13) are not ported.
 """
 
 from __future__ import annotations
@@ -187,7 +209,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import inspect
+import logging
 import os
+import random
 import queue
 import threading
 import time
@@ -238,9 +263,29 @@ from .resilience import (
     SchedulerCrashed,
     SlotStalled,
 )
-from .watchdog import Heartbeat
+from .watchdog import CombinedHeartbeat, Heartbeat
 
 _M32 = 0xFFFFFFFF
+_log = logging.getLogger("lsot.scheduler")
+
+#: One dispatcher at a time on a card: the schedulers of a process (a
+#: pool's replicas, the app's per-model schedulers) issue their rounds and
+#: prefill chunks under their device's lock. A round is hundreds of small
+#: eager ops, each of which releases and retakes the GIL, so dispatch
+#: threads issuing together hand the GIL back and forth at every op and
+#: run several times slower than one after the other
+#: (`scripts/torch_dispatch_contention.py` times both on the card). The
+#: device still runs one scheduler's round while the next one issues. Only
+#: the issue of device work runs under the lock: the fault seams and every
+#: host wait come before it, so a wedged scheduler holds no lock.
+_DISPATCH_LOCKS: Dict[str, threading.Lock] = {}
+_DISPATCH_LOCKS_GUARD = threading.Lock()
+
+
+def dispatch_lock(device: torch.device) -> threading.Lock:
+    """The process-wide dispatch lock of `device`."""
+    with _DISPATCH_LOCKS_GUARD:
+        return _DISPATCH_LOCKS.setdefault(str(device), threading.Lock())
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -293,6 +338,47 @@ def prefix_digest(ids: Sequence[int]) -> str:
     return hashlib.blake2b(
         np.asarray(ids, np.int32).tobytes(), digest_size=8
     ).hexdigest()
+
+
+def prefix_chain_digests(ids: Sequence[int], block: int,
+                         ns: Sequence[int] = ()) -> List[str]:
+    """Digests of every whole-block prefix of a prompt (the chain keys'
+    content addresses), salted with the tenant namespace `ns` as admission
+    salts its keys: what a pool's affinity lookup matches against each
+    replica's resident digests."""
+    base = tuple(ns)
+    return [prefix_digest(base + tuple(ids[: (j + 1) * block]))
+            for j in range(max(0, (len(ids) - 1) // block))]
+
+
+def normalize_replica_weights(values: Sequence[float], replicas: int,
+                              label: str = "replica weights") -> List[float]:
+    """One pad/validate policy for replica capacity weights: positive
+    floats, at most one a replica (more raises), padded with 1.0."""
+    out = [float(w) for w in values]
+    for w in out:
+        if w <= 0:
+            raise ValueError(f"replica weights must be positive, got {w} in {label}")
+    if len(out) > replicas:
+        raise ValueError(f"{label} name {len(out)} replica(s) but the pool has "
+                         f"{replicas}")
+    return out + [1.0] * (replicas - len(out))
+
+
+def parse_replica_weights(spec: str, replicas: int) -> List[float]:
+    """`LSOT_REPLICA_WEIGHTS` ("4,1,1": a capacity multiplier a replica
+    index) as a list of `replicas` weights, padded with 1.0. Placement
+    orders on backlog / weight; deadline feasibility stays wall-clock. An
+    empty spec is all 1.0, the unweighted order."""
+    if not spec:
+        return [1.0] * replicas
+    out: List[float] = []
+    for entry in filter(None, (x.strip() for x in spec.split(","))):
+        try:
+            out.append(float(entry))
+        except ValueError:
+            raise ValueError(f"bad replica weight {entry!r} in {spec!r}") from None
+    return normalize_replica_weights(out, replicas, label=f"replica weights {spec!r}")
 
 
 def _rd_buckets(ring_cap: int) -> Tuple[int, ...]:
@@ -393,6 +479,16 @@ class _Request:
     prefix_digest: str = ""
     tokens_reused: int = 0
     prefill_s_saved: float = 0.0
+    # The registered model the request names ("" model-blind).
+    model_id: str = ""
+    # Multi-tenant QoS: the tenant the request bills to and its service
+    # class ("" unlabeled), its WFQ virtual finish time (stamped at submit)
+    # and its tenant's prefix-cache salt (two int32s prepended to every
+    # cache key and digest; () for unlabeled traffic, the shared keys).
+    tenant: str = ""
+    qos: str = ""
+    vft: float = 0.0
+    ns: Tuple[int, ...] = ()
 
     @property
     def full_ids(self) -> List[int]:
@@ -462,6 +558,10 @@ class ContinuousBatchingScheduler:
     defaults to CUDA and must hold `params`; pass `device="cpu"` to run on
     the CPU (the kernels' plain versions)."""
 
+    #: Callers (SchedulerBackend, the supervisor, a pool) forward tenant and
+    #: qos only to schedulers that set this.
+    supports_qos = True
+
     def __init__(
         self,
         cfg: LlamaConfig,
@@ -486,9 +586,20 @@ class ContinuousBatchingScheduler:
         ragged: Optional[bool] = None,
         speculative_draft: int = 0,
         fuse_matmuls: bool = False,
+        model_id: str = "",
+        qos: Optional[bool] = None,
+        tenant_weights: Optional[str] = None,
+        prefix_tenant_ns: Optional[bool] = None,
         device=None,
     ):
         self.kv_quant = kv_quant
+        # The registered checkpoint this scheduler holds ("" the
+        # single-model fleet): a pool routes on it, and a submit naming
+        # another model fails typed.
+        self.model_id = str(model_id or "")
+        # Accepted tokens over the scheduler's lifetime (per-model
+        # throughput: `SchedulerPool.model_stats`).
+        self._tokens_emitted_total = 0
         self._spec_draft = int(speculative_draft or 0)
         if self._spec_draft:
             if not 1 <= self._spec_draft <= _UNROLL_MAX_T - 1:
@@ -520,6 +631,31 @@ class ContinuousBatchingScheduler:
         # admission reserves).
         self._svc_ewma: Optional[float] = None
         self._gen_ewma: Optional[float] = None
+        # Token-weighted backlog (a pool's placement score): outstanding
+        # requests' budgets (+= at submit and requeue, -= at terminal) and
+        # an EWMA of completed requests' seconds a generated token.
+        self._pending_new_tokens = 0
+        self._stok_ewma: Optional[float] = None
+        # Multi-tenant QoS (serve/qos.py): the WFQ state. `qos`,
+        # `tenant_weights` and `prefix_tenant_ns` default to LSOT_QOS,
+        # LSOT_TENANT_WEIGHTS and LSOT_PREFIX_TENANT_NS. `_ready` and the
+        # ledgers change only under `_submit_lock` (extract_queued races
+        # the worker during a drain).
+        from .qos import parse_tenant_weights, prefix_tenant_ns_enabled, qos_enabled
+
+        self._qos = qos_enabled() if qos is None else bool(qos)
+        if tenant_weights is None:
+            tenant_weights = os.environ.get("LSOT_TENANT_WEIGHTS", "")
+        self._tenant_weights: Dict[str, float] = (
+            parse_tenant_weights(tenant_weights) if self._qos else {})
+        if prefix_tenant_ns is None:
+            prefix_tenant_ns = prefix_tenant_ns_enabled()
+        self._prefix_tenant_ns = self._qos and bool(prefix_tenant_ns)
+        self._wfq_vt = 0.0
+        self._wfq_last: Dict[str, float] = {}
+        self._ready: List[_Request] = []
+        self._tenant_submitted: Dict[str, float] = {}
+        self._tenant_preempted: Dict[str, float] = {}
         if ragged is None:
             # The env opt-in degrades silently where the round cannot run.
             ragged = _env_on("LSOT_RAGGED") and self._paged
@@ -690,6 +826,9 @@ class ContinuousBatchingScheduler:
 
         self._stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
                         else None)
+        # On the CPU ops run as they are issued: nothing to serialize.
+        self._dispatch_lock = (dispatch_lock(dev) if dev.type == "cuda"
+                               else contextlib.nullcontext())
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._prefill_q: "deque[Tuple[int, _Request]]" = deque()
         self._thread: Optional[threading.Thread] = None
@@ -1008,6 +1147,11 @@ class ContinuousBatchingScheduler:
         self._free_slot_pages(slot)
         self._page_alloc.note_preempt()
         resilience.inc("kv_preemptions")
+        if self._qos:
+            from .qos import bounded_bump
+
+            with self._submit_lock:
+                bounded_bump(self._tenant_preempted, req.tenant)
         # A preempted interval for the request's trace, closed at resume.
         req.parked.append([time.perf_counter(), 0.0])
         self.flight.event("preempt", slot=slot, rid=req.rid,
@@ -1016,17 +1160,28 @@ class ContinuousBatchingScheduler:
         self._page_wait.appendleft(req)
 
     def _preempt_for(self, n_pages: int, protect: int) -> Optional[List[int]]:
-        """Fund a failed allocation by preempting victims, fewest generated
-        tokens first, never slot `protect`, until it succeeds or no victim
-        is left."""
+        """Fund a failed allocation by preempting victims, never slot
+        `protect`, until it succeeds or no victim is left: fewest generated
+        tokens first, and under QoS the tenant holding the largest weighted
+        slot share (the one over its fair allocation) before that."""
         while True:
             got = self._alloc_pages(n_pages)
             if got is not None:
                 return got
-            victims = sorted((len(r.generated), i) for i, r in enumerate(self._slot_req)
-                             if r is not None and i != protect)
+            victims = [(len(r.generated), i) for i, r in enumerate(self._slot_req)
+                       if r is not None and i != protect]
             if not victims:
                 return None
+            if self._qos:
+                share: Dict[str, float] = {}
+                for r in self._slot_req:
+                    if r is not None:
+                        share[r.tenant] = (share.get(r.tenant, 0.0)
+                                           + 1.0 / self._wfq_weight(r.tenant))
+                victims.sort(key=lambda v: (
+                    -share.get(self._slot_req[v[1]].tenant, 0.0), v[0], v[1]))
+            else:
+                victims.sort()
             self._preempt_slot(victims[0][1])
 
     def _topup_pages(self) -> None:
@@ -1157,6 +1312,9 @@ class ContinuousBatchingScheduler:
         deadline_s: Optional[float] = None,
         constraint=None,
         trace=None,
+        model_id: str = "",
+        tenant: str = "",
+        qos: str = "",
     ) -> "Future[List[int]]":
         """Queue a request; returns a Future of its generated ids. The
         request samples from its own (seed, index) stream, so (ids,
@@ -1169,7 +1327,15 @@ class ContinuousBatchingScheduler:
         language and the completion parses; a request with another grammar
         than the installed one waits for the constrained slots to drain.
         A sampled `trace` (utils/tracing.RequestTrace) gets the request's
-        sched.* spans."""
+        sched.* spans. A non-empty `model_id` must be this scheduler's
+        (`UnknownModel` otherwise); `tenant` and `qos` order admission
+        under QoS and are carried but never read with it off."""
+        if model_id and model_id != self.model_id:
+            from .modelpool import UnknownModel
+
+            raise UnknownModel(
+                f"request names model {model_id!r} but this replica "
+                f"serves {self.model_id or '<unset>'!r}")
         if constraint is not None and max_new_tokens < constraint.min_new_tokens:
             raise ValueError(
                 f"max_new_tokens={max_new_tokens} cannot hold a complete "
@@ -1193,6 +1359,8 @@ class ContinuousBatchingScheduler:
             top_k=sampling.top_k, seed=seed, future=Future(),
             on_token=on_token, constraint=constraint, trace=trace,
             deadline=Deadline.after(deadline_s) if deadline_s is not None else None,
+            model_id=model_id or self.model_id,
+            tenant=str(tenant or ""), qos=str(qos or ""),
         )
         req.future._lsot_request = req  # cancel() handle
         try:
@@ -1211,8 +1379,11 @@ class ContinuousBatchingScheduler:
                 raise RuntimeError(
                     "scheduler not started — call start() or use it as a "
                     "context manager (a queued Future would never resolve)")
-            # Admission control: shed instead of queueing without bound.
-            if self.max_queue_depth and self._queue.qsize() >= self.max_queue_depth:
+            # Admission control: shed instead of queueing without bound
+            # (under QoS the ready pool is backlog the queue no longer
+            # counts).
+            if self.max_queue_depth and \
+                    self._queue.qsize() + len(self._ready) >= self.max_queue_depth:
                 resilience.inc("shed")
                 raise Overloaded(
                     f"scheduler queue at capacity ({self.max_queue_depth} "
@@ -1221,6 +1392,9 @@ class ContinuousBatchingScheduler:
             req.rid = self._rid_seq
             req.future._lsot_replica = self.flight.replica
             req.submitted_at = time.perf_counter()
+            if self._qos:
+                self._stamp_qos_locked(req)
+            self._pending_new_tokens += req.max_new
             self._queue.put(req)
         return req.future
 
@@ -1245,16 +1419,161 @@ class ContinuousBatchingScheduler:
         if req is not None:
             req.cancelled = True
 
+    # ------------------------------------------------------ multi-tenant WFQ
+
+    def _wfq_weight(self, tenant: str) -> float:
+        """A tenant's WFQ weight (`LSOT_TENANT_WEIGHTS`; 1.0 by default,
+        the unlabeled "" tenant included, which competes as one tenant)."""
+        w = self._tenant_weights.get(tenant, 1.0)
+        return w if w > 0 else 1.0
+
+    def _stamp_qos_locked(self, req: _Request) -> None:
+        """Stamp the request's virtual finish time and its tenant's prefix
+        salt (callers hold the submit lock; QoS on). Start-time fair
+        queueing: a request starts at max(global virtual time, its
+        tenant's last finish) and finishes (prompt + budget) / weight
+        later, so a storm only advances its own tenant's clock."""
+        from .qos import bounded_bump, tenant_salt
+
+        cost = (len(req.ids) + req.max_new) / self._wfq_weight(req.tenant)
+        req.vft = max(self._wfq_vt, self._wfq_last.get(req.tenant, 0.0)) + cost
+        self._wfq_last[req.tenant] = req.vft
+        if len(self._wfq_last) > 128:
+            # A finish time at or behind the global clock orders nothing.
+            self._wfq_last = {t: v for t, v in self._wfq_last.items()
+                              if v > self._wfq_vt}
+        if self._prefix_tenant_ns and req.tenant:
+            req.ns = tenant_salt(req.tenant)
+        bounded_bump(self._tenant_submitted, req.tenant)
+
+    def _drain_ready(self) -> None:
+        """Move every queued submit into the WFQ ready pool (worker thread,
+        QoS on). The queue hands each item to one consumer, so nothing is
+        both drained here and extracted by `extract_queued`."""
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if req is None:
+                continue
+            with self._submit_lock:
+                self._ready.append(req)
+
+    def _ready_pop(self) -> Optional[_Request]:
+        """The smallest virtual finish time (rid breaks ties: same-tenant
+        FIFO), advancing the global virtual clock to it."""
+        with self._submit_lock:
+            if not self._ready:
+                return None
+            i = min(range(len(self._ready)),
+                    key=lambda j: (self._ready[j].vft, self._ready[j].rid))
+            req = self._ready.pop(i)
+            self._wfq_vt = max(self._wfq_vt, req.vft)
+            return req
+
+    def _page_wait_pop(self) -> _Request:
+        """The next page waiter to retry admission: FIFO with QoS off;
+        with it on, preempted victims first (they hold delivered tokens),
+        then the smallest virtual finish time."""
+        pw = self._page_wait
+        if not self._qos or len(pw) == 1:
+            return pw.popleft()
+        best = min(range(len(pw)),
+                   key=lambda i: (0 if pw[i].preempted else 1, pw[i].vft, i))
+        pw.rotate(-best)
+        req = pw.popleft()
+        pw.rotate(best)
+        self._wfq_vt = max(self._wfq_vt, req.vft)
+        return req
+
+    def qos_stats(self) -> Optional[Dict[str, object]]:
+        """Per-tenant WFQ counters for /metrics (the lsot_tenant_*
+        families): None with QoS off."""
+        if not self._qos:
+            return None
+        with self._submit_lock:
+            backlog: Dict[str, int] = {}
+            for r in self._ready:
+                key = r.tenant or "default"
+                backlog[key] = backlog.get(key, 0) + 1
+            out: Dict[str, object] = {
+                "virtual_time": round(self._wfq_vt, 3),
+                "ready": len(self._ready),
+                "page_wait": len(self._page_wait),
+                "submitted": dict(self._tenant_submitted),
+                "preempted": dict(self._tenant_preempted),
+            }
+            if self._tenant_weights:
+                out["weights"] = dict(self._tenant_weights)
+            if backlog:
+                out["backlog"] = backlog
+            return out
+
     def retry_after_hint(self) -> float:
-        """Seconds a shed client should wait: the queue's depth (plus the
-        retry itself) x the recent per-request service time / slots,
-        clamped to [1, 60]; 1 until a completion seeds the estimate.
-        Lock-free: submit calls it holding the submit lock."""
+        """Seconds a shed client should wait: the backlog (queue and WFQ
+        ready pool, plus the retry itself) x the recent per-request service
+        time / slots, clamped to [1, 60]; 1 until a completion seeds the
+        estimate. Lock-free: submit calls it holding the submit lock."""
         ewma = self._svc_ewma
         if ewma is None:
             return 1.0
-        depth = self._queue.qsize() + 1
+        depth = self._queue.qsize() + len(self._ready) + 1
         return float(min(60.0, max(1.0, depth * ewma / max(1, self.num_slots))))
+
+    def backlog_score(self) -> Tuple[float, int]:
+        """A pool's placement score, compared lexicographically: (backlog
+        seconds, pending new tokens). The seconds are outstanding budget
+        tokens x the measured seconds a token / slots, unclamped (0.0 until
+        a completion seeds the EWMA, the token count then decides).
+        Lock-free, like retry_after_hint."""
+        stok = self._stok_ewma
+        toks = int(self._pending_new_tokens)
+        secs = toks * stok / max(1, self.num_slots) if stok is not None else 0.0
+        return float(secs), toks
+
+    def extract_queued(self) -> List[_Request]:
+        """Take every queued, not yet admitted request out of this
+        scheduler (a pool's drain re-places them). The queue hands each
+        item to one consumer, so a request is extracted here or admitted
+        by the worker, never both; the WFQ ready pool leaves too."""
+        out: List[_Request] = []
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if req is not None:
+                out.append(req)
+        with self._submit_lock:
+            if self._ready:
+                out.extend(self._ready)
+                self._ready.clear()
+            if out:
+                self._pending_new_tokens = max(
+                    0, self._pending_new_tokens - sum(r.max_new for r in out))
+        return out
+
+    def requeue(self, req: _Request) -> None:
+        """Accept a request extracted from a sibling replica: a fresh rid
+        and replica stamp, then the queue. Past `max_queue_depth` on
+        purpose: the request was acknowledged once, and a drain must not
+        shed it."""
+        with self._submit_lock:
+            if self._closed:
+                if self._crash is not None:
+                    raise self._crash_error()
+                raise RuntimeError("scheduler has shut down")
+            if self._thread is None:
+                raise RuntimeError("scheduler not started")
+            self._rid_seq += 1
+            req.rid = self._rid_seq
+            req.future._lsot_replica = self.flight.replica
+            if self._qos:
+                # Another replica's virtual clock means nothing here.
+                self._stamp_qos_locked(req)
+            self._pending_new_tokens += req.max_new
+            self._queue.put(req)
 
     # ------------------------------------------------------------- stats
 
@@ -1471,10 +1790,12 @@ class ContinuousBatchingScheduler:
         pb = self._pblock
         max_blocks = (len(ids) - 1) // pb
         hit = reuse > 0
+        # The tenant salt (`req.ns`) prefixes every key and digest, as at
+        # the cache-key sites: () for unlabeled traffic.
         if hit:
-            digest = self._digest_for(tuple(ids[:reuse]))
+            digest = self._digest_for(req.ns + tuple(ids[:reuse]))
         elif max_blocks:
-            digest = self._digest_for(tuple(ids[: max_blocks * pb]))
+            digest = self._digest_for(req.ns + tuple(ids[: max_blocks * pb]))
         else:
             digest = ""
         flops = secs = 0.0
@@ -1498,7 +1819,7 @@ class ContinuousBatchingScheduler:
                 self._prefix_reused_tokens += reuse
                 self._prefix_flops_saved += flops
                 self._prefix_s_saved += secs
-                meta = self._prefix_meta.get(tuple(ids[:reuse]))
+                meta = self._prefix_meta.get(req.ns + tuple(ids[:reuse]))
                 if meta is not None:
                     meta["hits"] += 1
                     meta["last_hit_round"] = self.heartbeat.rounds
@@ -1747,7 +2068,10 @@ class ContinuousBatchingScheduler:
         # pages: it maps no shared prefix.
         if self._prefix_cache_blocks and req.spilled is None:
             max_blocks = (plen - 1) // pb
-            while n < max_blocks and tuple(ids[: (n + 1) * pb]) in self._prefix_pages:
+            # Keys carry the request's tenant salt: a tenant matches (and
+            # evicts) only entries its own admissions published.
+            while n < max_blocks and \
+                    req.ns + tuple(ids[: (n + 1) * pb]) in self._prefix_pages:
                 n += 1
             # A reuse offset shifts every chunk start; the final chunk's
             # bucket must still land inside the virtual row.
@@ -1764,7 +2088,7 @@ class ContinuousBatchingScheduler:
         ))
         need_pages = pages_for_tokens(need_end, ps)
         full = reuse // ps
-        entry = self._prefix_pages.get(tuple(ids[:reuse])) if reuse else None
+        entry = self._prefix_pages.get(req.ns + tuple(ids[:reuse])) if reuse else None
         shared = list(entry[:full]) if entry else []
         boundary_src = entry[full] if (entry and reuse % ps) else None
         # Take the refs BEFORE allocating: _alloc_pages evicts LRU entries
@@ -1795,7 +2119,7 @@ class ContinuousBatchingScheduler:
         if reuse:
             req.prefilled = reuse
             for j in range(n):  # LRU touch along the matched chain
-                key = tuple(ids[: (j + 1) * pb])
+                key = req.ns + tuple(ids[: (j + 1) * pb])
                 if key in self._prefix_pages:
                     self._prefix_pages.move_to_end(key)
         if self._prefix_cache_blocks and req.spilled is None:
@@ -1810,7 +2134,7 @@ class ContinuousBatchingScheduler:
         pb, ids = self._pblock, req.ids
         max_blocks = (len(ids) - 1) // pb
         n = 0
-        while n < max_blocks and tuple(ids[: (n + 1) * pb]) in self._prefix_cache:
+        while n < max_blocks and req.ns + tuple(ids[: (n + 1) * pb]) in self._prefix_cache:
             n += 1
         # A reuse offset shifts every chunk start; the final chunk's bucket
         # must still land inside the cache.
@@ -1818,7 +2142,7 @@ class ContinuousBatchingScheduler:
         while n and self._chunk_end(n * pb, len(ids)) > s_cache:
             n -= 1
         for j in range(n):
-            key = tuple(ids[: (j + 1) * pb])
+            key = req.ns + tuple(ids[: (j + 1) * pb])
             self._prefix_cache.move_to_end(key)  # LRU touch
             self._restore_block(self._prefix_cache[key], slot, j * pb)
         req.prefilled = n * pb
@@ -1993,10 +2317,11 @@ class ContinuousBatchingScheduler:
         group, t = self._take_group()
         if not group:
             return
-        if self._paged:  # copy-on-write sweep over each chunk's write window
-            for slot, req in group:
-                self._ensure_writable(slot, req.prefilled, req.prefilled + t)
-        self._after_chunk(group, t, self._prefill_forward(group, t))
+        with self._dispatch_lock:
+            if self._paged:  # copy-on-write sweep over each chunk's write window
+                for slot, req in group:
+                    self._ensure_writable(slot, req.prefilled, req.prefilled + t)
+            self._after_chunk(group, t, self._prefill_forward(group, t))
 
     def _after_chunk(self, group, t: int, toks) -> None:
         """The host side of a `t`-bucket chunk for each (slot, req) of
@@ -2071,7 +2396,7 @@ class ContinuousBatchingScheduler:
         `prefix_cache_blocks`."""
         pb = self._pblock
         for b0 in range(chunk_start // pb, req.prefilled // pb):
-            key = tuple(req.ids[: (b0 + 1) * pb])
+            key = req.ns + tuple(req.ids[: (b0 + 1) * pb])
             if key in self._prefix_cache:
                 self._prefix_cache.move_to_end(key)
                 continue
@@ -2092,7 +2417,7 @@ class ContinuousBatchingScheduler:
         pb, ps = self._pblock, self._page_size
         ids = req.full_ids
         for b0 in range(chunk_start // pb, req.prefilled // pb):
-            key = tuple(ids[: (b0 + 1) * pb])
+            key = req.ns + tuple(ids[: (b0 + 1) * pb])
             if key in self._prefix_pages:
                 self._prefix_pages.move_to_end(key)
                 continue
@@ -2335,22 +2660,29 @@ class ContinuousBatchingScheduler:
         # wedge that never raises, which the supervisor's watchdog must
         # detect from the stale heartbeat.
         FAULTS.check("sched:hang")
-        t_issue = time.perf_counter()
-        start = self._device_mark()
-        issue_reqs = [r if r is not None and r.ready else None
-                      for r in self._slot_req]
-        active = self._h2d([r is not None for r in issue_reqs], torch.bool)
-        sampled = any(r is not None and r.temperature > 0.0 for r in issue_reqs)
-        grammar = any(r is not None and r.constraint is not None for r in issue_reqs)
-        n_emit = None
-        if self._spec_draft:
-            toks, n_emit = self._spec_round(active, sampled, grammar)
-        else:
-            toks = self._decode_round(active, sampled, grammar)
+        if FAULTS.active:
+            # Replica-addressable seam (`sched:wedge_r1:p[:secs]`): wedge
+            # (duration form) or crash (raising form) one pool replica by
+            # its label, its siblings untouched.
+            FAULTS.check(f"sched:wedge_{self.flight.replica}")
+        with self._dispatch_lock:  # after the seams: a wedge holds no lock
+            t_issue = time.perf_counter()
+            start = self._device_mark()
+            issue_reqs = [r if r is not None and r.ready else None
+                          for r in self._slot_req]
+            active = self._h2d([r is not None for r in issue_reqs], torch.bool)
+            sampled = any(r is not None and r.temperature > 0.0 for r in issue_reqs)
+            grammar = any(r is not None and r.constraint is not None
+                          for r in issue_reqs)
+            n_emit = None
+            if self._spec_draft:
+                toks, n_emit = self._spec_round(active, sampled, grammar)
+            else:
+                toks = self._decode_round(active, sampled, grammar)
+            end = self._device_mark()
         self.rounds_issued += 1
         self._pending.append((issue_reqs, list(self._slot_epoch), toks,
-                              self._first_pending, n_emit, t_issue,
-                              (start, self._device_mark()), None))
+                              self._first_pending, n_emit, t_issue, (start, end), None))
         self._first_pending = []
 
     def _issue_mixed(self) -> bool:
@@ -2365,42 +2697,43 @@ class ContinuousBatchingScheduler:
         if not group:
             return False
         FAULTS.check("sched:hang")
-        t_issue = time.perf_counter()
-        start = self._device_mark()
-        for slot, req in group:  # copy-on-write sweep over the windows
-            self._ensure_writable(slot, req.prefilled, req.prefilled + t)
-        issue_reqs = [r if r is not None and r.ready else None
-                      for r in self._slot_req]
-        active = self._h2d([r is not None for r in issue_reqs], torch.bool)
-        sampled = any(r.temperature > 0.0 for r in issue_reqs if r is not None) \
-            or any(req.temperature > 0.0 for _, req in group)
-        grammar = any(r.constraint is not None for r in issue_reqs if r is not None) \
-            or any(req.constraint is not None for _, req in group)
-        starts = [req.prefilled for _, req in group]
-        if all(r is None for r in issue_reqs):
-            _, firsts = self._mixed_forward(group, t, active, sampled, grammar)
-            self.ragged_prefills += 1
-            # Not a round: banked like a prefill forward.
-            self._note_prefill(starts, t)
+        with self._dispatch_lock:  # after the seam: a wedge holds no lock
+            t_issue = time.perf_counter()
+            start = self._device_mark()
+            for slot, req in group:  # copy-on-write sweep over the windows
+                self._ensure_writable(slot, req.prefilled, req.prefilled + t)
+            issue_reqs = [r if r is not None and r.ready else None
+                          for r in self._slot_req]
+            active = self._h2d([r is not None for r in issue_reqs], torch.bool)
+            sampled = any(r.temperature > 0.0 for r in issue_reqs if r is not None) \
+                or any(req.temperature > 0.0 for _, req in group)
+            grammar = any(r.constraint is not None for r in issue_reqs if r is not None) \
+                or any(req.constraint is not None for _, req in group)
+            starts = [req.prefilled for _, req in group]
+            if all(r is None for r in issue_reqs):
+                _, firsts = self._mixed_forward(group, t, active, sampled, grammar)
+                self.ragged_prefills += 1
+                # Not a round: banked like a prefill forward.
+                self._note_prefill(starts, t)
+                self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
+                return True
+            n_emit = None
+            if self._spec_draft:
+                toks, n_emit, firsts = self._mixed_spec_round(group, t, active, sampled,
+                                                              grammar)
+            else:
+                toks, firsts = self._mixed_round(group, t, active, sampled, grammar)
+            self.rounds_issued += 1
+            self.mixed_rounds += 1
             self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
+            # Both phases' work attributes over this round's wall at harvest.
+            mixed_meta = {"pre_rows": len(group), "pre_tokens": t,
+                          "pre_ctx": sum(starts) // len(starts) + t // 2}
+            self._pending.append((issue_reqs, list(self._slot_epoch), toks,
+                                  self._first_pending, n_emit, t_issue,
+                                  (start, self._device_mark()), mixed_meta))
+            self._first_pending = []
             return True
-        n_emit = None
-        if self._spec_draft:
-            toks, n_emit, firsts = self._mixed_spec_round(group, t, active, sampled,
-                                                          grammar)
-        else:
-            toks, firsts = self._mixed_round(group, t, active, sampled, grammar)
-        self.rounds_issued += 1
-        self.mixed_rounds += 1
-        self._after_chunk(group, t, [firsts[slot] for slot, _ in group])
-        # Both phases' work attributes over this round's wall at harvest.
-        mixed_meta = {"pre_rows": len(group), "pre_tokens": t,
-                      "pre_ctx": sum(starts) // len(starts) + t // 2}
-        self._pending.append((issue_reqs, list(self._slot_epoch), toks,
-                              self._first_pending, n_emit, t_issue,
-                              (start, self._device_mark()), mixed_meta))
-        self._first_pending = []
-        return True
 
     # --------------------------------------------------------------- retire
 
@@ -2425,18 +2758,23 @@ class ContinuousBatchingScheduler:
         elif req.submitted_at:
             req.future._lsot_queue_wait = now - req.submitted_at
         self._round_retired.append(req.rid)
+        with self._submit_lock:
+            self._pending_new_tokens = max(0, self._pending_new_tokens - req.max_new)
 
     def _record_service_time(self, req: _Request) -> None:
-        """EWMAs (alpha 0.2) of completed requests' submit->retire wall and,
-        paged, generation length; a cancelled request says nothing about
-        either. Under the submit lock: retry_after_hint reads them from
-        other threads."""
+        """EWMAs (alpha 0.2) of completed requests' submit->retire wall, of
+        its seconds a generated token and, paged, of the generation length;
+        a cancelled request says nothing about any. Under the submit lock:
+        retry_after_hint and backlog_score read them from other threads."""
         if req.submitted_at <= 0.0 or req.cancelled:
             return
         wall = time.perf_counter() - req.submitted_at
+        stok = wall / max(1, len(req.generated))
         with self._submit_lock:
             prev = self._svc_ewma
             self._svc_ewma = wall if prev is None else 0.2 * wall + 0.8 * prev
+            prev_t = self._stok_ewma
+            self._stok_ewma = stok if prev_t is None else 0.2 * stok + 0.8 * prev_t
             if self._paged:
                 g = float(len(req.generated))
                 prev_g = self._gen_ewma
@@ -2577,6 +2915,7 @@ class ContinuousBatchingScheduler:
                         f"harvested decode rounds while the loop stayed live "
                         f"({len(req.generated)} of {req.max_new} tokens "
                         f"generated before the lane wedged)"))
+        self._tokens_emitted_total += round_emitted
         if self._paged:
             # Retirements above freed pages: extend every live slot's pages
             # past its committed position + overshoot before the next round
@@ -2738,6 +3077,10 @@ class ContinuousBatchingScheduler:
         self._abort_profile(f"scheduler closed: {type(exc).__name__}")
         with self._submit_lock:
             self._closed = True
+            self._pending_new_tokens = 0
+            ready, self._ready = self._ready, []
+        for req in ready:  # staged in the WFQ pool when the loop died
+            req.future.set_exception(exc)
         self._prefill_q.clear()
         self._pending.clear()
         self._first_pending = []
@@ -2765,25 +3108,32 @@ class ContinuousBatchingScheduler:
 
     def _sweep_page_wait(self) -> None:
         """Cancelled page-starved waiters resolve with what they have;
-        expired ones fail typed."""
+        expired ones fail typed, in deadline order (under QoS the waiters
+        are in service order, not deadline order)."""
+        if not self._page_wait:
+            return
         keep: "deque[_Request]" = deque()
+        expired: List[_Request] = []
         for req in self._page_wait:
             if req.cancelled:
                 self._observe_terminal(req)
                 req.future.set_result(req.generated)
             elif req.past_deadline():
-                resilience.inc("deadline_expired")
-                self._observe_terminal(req, error="DeadlineExceeded")
-                req.future.set_exception(req.deadline_error())
+                expired.append(req)
             else:
                 keep.append(req)
         self._page_wait = keep
+        expired.sort(key=lambda r: r.deadline.expires_at)
+        for req in expired:
+            resilience.inc("deadline_expired")
+            self._observe_terminal(req, error="DeadlineExceeded")
+            req.future.set_exception(req.deadline_error())
 
     def _busy_now(self) -> bool:
         """Work anywhere in the pipeline: the busy flag each iteration
         stamps into the heartbeat."""
         return bool(self._prefill_q or self._pending or self._page_wait
-                    or self._constraint_wait
+                    or self._constraint_wait or self._ready
                     or any(r is not None for r in self._slot_req)
                     or not self._queue.empty())
 
@@ -2809,7 +3159,9 @@ class ContinuousBatchingScheduler:
                 self._watermark_sweep()
             self._sweep_page_wait()
             # Admit pending requests into every free slot; page-starved
-            # requests re-admit ahead of the queue, in arrival order.
+            # requests re-admit ahead of the queue (in arrival order, or
+            # with QoS on victims first, then by virtual finish time), and
+            # the queue admits FIFO, or with QoS on in WFQ order.
             # Requests whose grammar differs from the installed one wait in
             # `_constraint_wait` until the constrained slots drain (a swap
             # must not move live FSM states between grammars), then install
@@ -2827,7 +3179,14 @@ class ContinuousBatchingScheduler:
                     self._install_constraint(req.constraint)
                 else:
                     if self._page_wait:
-                        req = self._page_wait.popleft()
+                        req = self._page_wait_pop()
+                    elif self._qos:
+                        # WFQ admission: stage the queue in the ready pool,
+                        # serve the smallest virtual finish time.
+                        self._drain_ready()
+                        req = self._ready_pop()
+                        if req is None:
+                            break
                     else:
                         try:
                             req = self._queue.get_nowait()
@@ -2851,7 +3210,8 @@ class ContinuousBatchingScheduler:
             if self._ragged and self._prefill_q:
                 if self._profile_arm is not None:
                     self._maybe_start_profile()
-                if self._issue_mixed():
+                issued = self._issue_mixed()
+                if issued:
                     if len(self._pending) > self._harvest_lag:
                         self._harvest_round()
                     continue
@@ -2873,7 +3233,7 @@ class ContinuousBatchingScheduler:
                     self._harvest_round()
                 self._harvest_firsts()
                 if self._prefill_q or self._page_wait or self._constraint_wait \
-                        or any(r is not None for r in self._slot_req):
+                        or self._ready or any(r is not None for r in self._slot_req):
                     continue
                 try:
                     req = self._queue.get(timeout=0.05)
@@ -2888,6 +3248,1201 @@ class ContinuousBatchingScheduler:
                     pass
 
 
+@dataclasses.dataclass
+class _ReplicaState:
+    """One replica's supervision state inside a `SchedulerPool`.
+
+    `state`: ready -> (crash or stall) -> restarting -> ready | degraded |
+    dead, and the runtime states draining / drained (restartable) / removed
+    (out of the fleet for good). Placement considers ready and degraded
+    replicas; `degraded` is a restarted replica not yet proven by a clean
+    completion. `model_id` is captured at wiring time, so placement can
+    filter on it while the replica is mid-restart."""
+
+    label: str
+    state: str = "ready"
+    restarts: int = 0
+    stalls: int = 0
+    placements: int = 0
+    restart_eta: Optional[float] = None
+    last_crash: Optional[str] = None
+    model_id: str = ""
+
+    #: States a replica takes new work in.
+    PLACEABLE = ("ready", "degraded")
+
+
+class SchedulerPool:
+    """A supervised fleet of local scheduler replicas behind one `submit()`.
+
+    - **Placement.** A request naming a `model_id` considers only the
+      replicas carrying that checkpoint (`UnknownModel` when none does).
+      Among them: replicas holding the request's chain-prefix digests
+      first (`affinity_routing`, `LSOT_POOL_AFFINITY`, default on), then
+      replicas without withheld pages or a burning SLO, then the least
+      weighted backlog (`backlog_score()` / weight, `weights` or
+      `LSOT_REPLICA_WEIGHTS`), then the index. `router="round_robin"` is
+      the blind rotation. A replica whose raw backlog would blow the
+      request's deadline is skipped. A request is shed typed only when no
+      replica can serve it: `Overloaded` with the fleet's minimum
+      Retry-After, `DeadlineExceeded` when every backlog exceeds the
+      deadline, `Overloaded` while the fleet (or the model's replicas) is
+      restarting or draining, `SchedulerCrashed` when it is gone.
+    - **Per-replica lifecycle.** With a `factory` (index -> fresh
+      replica), a crashed or stalled replica is rebuilt alone, with
+      bounded backoff under its own restart budget, while its siblings
+      serve; budget exhausted marks only it dead. `on_replica_restart` /
+      `on_replica_drained` are the supervisor's replay seams.
+    - **Runtime drain, remove, add, retire.** `drain_replica` re-places its
+      queued requests on same-model siblings, gives in-flight work a
+      bounded grace and shuts it down; `add_replica` joins a live fleet;
+      `retire_replica` drains and removes a replica `add_replica` added.
+    - **Observable.** Placements and lifecycle events go to a pool flight
+      recorder merged into `flight_snapshot()`; per-replica loads, health
+      and stalls, per-model aggregation (`model_stats`), the summed page,
+      prefix and perf views.
+
+    Replicas are local schedulers on the device their factory names. A
+    replica with a phase role or a remote transport raises
+    `NotImplementedError`: the prefill-to-decode handoff is ROADMAP A7.5,
+    remote replicas and their leases A11's remote half."""
+
+    #: Callers forward a model_id only to schedulers that route on it, and
+    #: tenant/qos only to those that set `supports_qos`.
+    supports_model_routing = True
+    supports_qos = True
+
+    @property
+    def supports_replica_restart(self) -> bool:
+        """The supervisor keys targeted restart and replay on this."""
+        return self._factory is not None
+
+    def __init__(
+        self,
+        schedulers: Sequence[ContinuousBatchingScheduler],
+        factory: Optional[Callable] = None,
+        max_restarts: int = 5,
+        restart_policy=None,
+        rng=None,
+        sleep: Callable[[float], None] = time.sleep,
+        router: str = "least_loaded",
+        replica_join_s: float = 1.0,
+        affinity_routing: Optional[bool] = None,
+        weights: Optional[Sequence[float]] = None,
+        model_routing: Optional[bool] = None,
+    ):
+        if not schedulers:
+            raise ValueError("SchedulerPool needs at least one scheduler")
+        if router not in ("least_loaded", "round_robin"):
+            raise ValueError(f"router must be 'least_loaded' or 'round_robin', "
+                             f"got {router!r}")
+        from .resilience import RetryPolicy
+
+        for s in schedulers:
+            self._refuse_unported(s)
+        self.schedulers = list(schedulers)
+        self._rr = 0
+        self._lock = threading.Lock()
+        self._closed = False
+        self.router = router
+        # `factory(i)` (or `factory()` when it takes no required argument)
+        # builds replacement replica i; None: a crashed replica is dead.
+        self._factory = factory
+        self._factory_takes_index = False
+        if factory is not None:
+            try:
+                self._factory_takes_index = any(
+                    p.default is inspect.Parameter.empty
+                    and p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+                    for p in inspect.signature(factory).parameters.values())
+            except (TypeError, ValueError):
+                self._factory_takes_index = False
+        self.max_restarts = int(max_restarts)
+        self._restart_policy = restart_policy or RetryPolicy(
+            max_attempts=self.max_restarts + 1, base_delay_s=0.1, max_delay_s=5.0)
+        self._rng = rng if rng is not None else random.Random()
+        self._sleep = sleep
+        # Bounded join for a wedged replica's teardown (the abandoned
+        # daemon exits when it unwedges).
+        self._replica_join_s = float(replica_join_s)
+        self.on_replica_restart: Optional[Callable[[str], None]] = None
+        self.on_replica_drained: Optional[Callable[[str], None]] = None
+        # "r{i}" labels: each replica's flight records, the Prometheus
+        # replica label and the supervisor's replay attribution.
+        self._states: List[_ReplicaState] = []
+        for i, s in enumerate(self.schedulers):
+            label = f"r{i}"
+            fl = getattr(s, "flight", None)
+            if fl is not None:
+                fl.replica = label
+            self._states.append(_ReplicaState(label=label, model_id=self._model_id(s)))
+        # Placement decisions and replica lifecycle events.
+        self._pool_flight = FlightRecorder(capacity=256, replica="pool")
+        if affinity_routing is None:
+            affinity_routing = os.environ.get("LSOT_POOL_AFFINITY", "1").strip().lower() \
+                not in ("0", "false", "no", "off")
+        self._affinity = bool(affinity_routing)
+        self._aff_checked = 0
+        self._aff_hits = 0
+        # Model routing is inert until a request names a model;
+        # LSOT_POOL_MODELS=0 makes named requests model-blind too.
+        if model_routing is None:
+            model_routing = os.environ.get("LSOT_POOL_MODELS", "1").strip().lower() \
+                not in ("0", "false", "no", "off")
+        self._model_routing = bool(model_routing)
+        # Per-model (wall, tokens_total) at the last `model_stats` read.
+        self._model_rate: Dict[str, Tuple[float, int]] = {}
+        if weights is None:
+            self._weights = parse_replica_weights(
+                os.environ.get("LSOT_REPLICA_WEIGHTS", ""), len(self.schedulers))
+        else:
+            self._weights = normalize_replica_weights(list(weights), len(self.schedulers))
+        # Live restart threads, joined at shutdown.
+        self._restart_threads: List[threading.Thread] = []
+        # Membership counters (`fleet_stats`) and the indices add_replica
+        # joined with elastic=True (the only ones retire_replica takes).
+        self._fleet_joins = 0
+        self._fleet_retires = 0
+        self._fleet_drain_s_sum = 0.0
+        self._fleet_drain_count = 0
+        self._elastic: set = set()
+
+    @staticmethod
+    def _refuse_unported(s) -> None:
+        if SchedulerPool._phase_role(s) != "mixed":
+            raise NotImplementedError(
+                "a replica with a phase role needs the prefill-to-decode "
+                "handoff, which is not ported: ROADMAP A7.5")
+        if getattr(s, "is_remote", False) or callable(getattr(s, "ping", None)):
+            raise NotImplementedError(
+                "remote replicas and their leases are not ported: ROADMAP A11 "
+                "(the fleet's remote half)")
+
+    # Admission arithmetic, so SchedulerBackend wraps a pool as it wraps a
+    # scheduler (replicas of one model share cfg, window and chunking; a
+    # multi-model pool's backends clamp against the first replica's window
+    # and submit() re-validates on the chosen replica).
+    @property
+    def cfg(self):
+        return self.schedulers[0].cfg
+
+    @property
+    def max_seq(self) -> int:
+        return self.schedulers[0].max_seq
+
+    @property
+    def decode_chunk(self) -> int:
+        return self.schedulers[0].decode_chunk
+
+    @property
+    def stop_ids(self):
+        return self.schedulers[0].stop_ids
+
+    @property
+    def _spec_draft(self) -> int:
+        return self.schedulers[0]._spec_draft
+
+    @property
+    def prompt_bucket(self) -> int:
+        return self.schedulers[0].prompt_bucket
+
+    @property
+    def _harvest_lag(self) -> int:
+        return self.schedulers[0]._harvest_lag
+
+    @property
+    def overshoot(self) -> int:
+        return self.schedulers[0].overshoot
+
+    def retry_after_hint(self) -> float:
+        """The soonest replica's hint: min over placeable replicas'
+        estimates, a restarting replica contributing its backoff remaining
+        instead of its stale estimate; draining, dead and removed replicas
+        contribute nothing. Clamped to [1, 60] s."""
+        now = time.monotonic()
+        hints: List[float] = []
+        for st, s in self._replica_items():
+            if st.state in _ReplicaState.PLACEABLE:
+                if getattr(s, "_crash", None) is not None:
+                    continue
+                hint = getattr(s, "retry_after_hint", None)
+                try:
+                    hints.append(hint() if callable(hint) else 1.0)
+                except Exception:  # noqa: BLE001 — a dying replica mid-read
+                    hints.append(1.0)
+            elif st.state == "restarting":
+                eta = st.restart_eta
+                rem = (eta - now) if eta is not None else 1.0
+                hints.append(float(min(60.0, max(1.0, rem))))
+        if not hints:
+            return 1.0
+        return float(min(60.0, max(1.0, min(hints))))
+
+    @property
+    def heartbeat(self) -> Optional[CombinedHeartbeat]:
+        """The replicas' heartbeats as one monitor view, labeled: one
+        wedged replica reads stale while its siblings stamp, and
+        `verdicts()` names it (the targeted-restart feed)."""
+        hbs, labels = [], []
+        for st, s in zip(self._states, self.schedulers):
+            hb = getattr(s, "heartbeat", None)
+            if hb is not None:
+                hbs.append(hb)
+                labels.append(st.label)
+        if not hbs:
+            return None
+        return CombinedHeartbeat(hbs, labels=labels)
+
+    @property
+    def watchdog_stats(self) -> Dict[str, object]:
+        hb = self.heartbeat
+        return {
+            "heartbeat": hb.snapshot() if hb is not None else None,
+            "slots_retired_stalled": sum(getattr(s, "_slot_stalls", 0)
+                                         for s in self.schedulers),
+        }
+
+    @property
+    def page_stats(self) -> Optional[Dict[str, int]]:
+        """Summed page-pool stats across paged replicas (each owns a
+        pool); sizes, knobs and thresholds are the first replica's (the
+        per-replica values are in replica_loads)."""
+        per = [s.page_stats for s in self.schedulers if getattr(s, "page_stats", None)]
+        if not per:
+            return None
+        out: Dict[str, int] = {}
+        for st in per:
+            for k, v in st.items():
+                if isinstance(v, str):
+                    continue
+                out[k] = out.get(k, 0) + int(v)
+        for k in ("page_size", "overcommit", "spill", "kv_quant", "page_bytes",
+                  "watermark_low_pages", "watermark_high_pages"):
+            if k in per[0]:
+                out[k] = per[0][k]
+        return out
+
+    @property
+    def perf_stats(self) -> Optional[Dict[str, object]]:
+        """Per-replica roofline ledgers, labeled (the lsot_mfu /
+        lsot_hbm_util gauges render phase x replica from this list)."""
+        per = []
+        for st, s in self._replica_items():
+            p = getattr(s, "perf_stats", None)
+            if isinstance(p, dict):
+                rec = dict(p)
+                rec["replica"] = st.label
+                per.append(rec)
+        return {"replicas": per} if per else None
+
+    def profile_rounds(self, rounds: Optional[int] = None,
+                       out_dir: Optional[str] = None,
+                       replica: Optional[str] = None) -> Dict[str, object]:
+        """Arm a device capture on one replica (the named one, else the
+        first placeable); utils/traceprof allows one capture at a time."""
+        for st, s in self._replica_items():
+            if replica is not None and st.label != replica:
+                continue
+            fn = getattr(s, "profile_rounds", None)
+            if callable(fn) and (replica is not None
+                                 or st.state in _ReplicaState.PLACEABLE):
+                return fn(rounds, out_dir)
+        raise ValueError(
+            f"no {'replica ' + replica if replica else 'placeable replica'}"
+            f" exposes device profiling")
+
+    def profile_status(self) -> Dict[str, object]:
+        out: Dict[str, object] = {}
+        for st, s in self._replica_items():
+            fn = getattr(s, "profile_status", None)
+            if callable(fn):
+                out[st.label] = fn()
+        return out
+
+    @property
+    def flight(self):
+        """The first replica's recorder; flight_snapshot() is the merged
+        pool view."""
+        return self.schedulers[0].flight
+
+    def flight_snapshot(self, last: Optional[int] = None) -> List[Dict]:
+        """Every replica's records and the pool's own (placements, replica
+        lifecycle, under "pool") merged in time order."""
+        return merge_snapshots([self._pool_flight, *self.schedulers], last)
+
+    def flight_stats(self) -> Dict[str, Dict]:
+        """Each replica's ring occupancy, by label."""
+        out: Dict[str, Dict] = {}
+        for i, s in enumerate(self.schedulers):
+            fl = getattr(s, "flight", None)
+            if fl is not None:
+                out[getattr(fl, "replica", f"r{i}")] = fl.stats()
+        return out
+
+    def replica_loads(self) -> List[Dict[str, object]]:
+        """Per-replica load and lifecycle (queue depth, live slots, round
+        cadence, state, restart/stall/placement counters, the placement
+        score, page pressure, prefix residency, decode roofline, SLO burn,
+        the model it holds): the router's feed, exported per replica (the
+        numeric fields become Prometheus gauges)."""
+        out = []
+        for st, s in self._replica_items():
+            hb = getattr(s, "heartbeat", None)
+            hb_snap = hb.snapshot() if hb is not None else {}
+            secs, toks = self._score(s)
+            q = getattr(s, "_queue", None)
+            slot_req = getattr(s, "_slot_req", None) or []
+            rec: Dict[str, object] = {
+                "replica": st.label,
+                "state": st.state,
+                "num_slots": getattr(s, "num_slots", 0),
+                "expected_round_s": hb_snap.get("expected_round_s"),
+                "crashed": getattr(s, "_crash", None) is not None,
+                "restarts": st.restarts,
+                "stalls": st.stalls,
+                "placements": st.placements,
+                "backlog_s": round(secs, 4),
+                "pending_new_tokens": toks,
+            }
+            if q is not None:
+                rec["queued"] = q.qsize()
+            if slot_req:
+                rec["active_slots"] = sum(1 for r in slot_req if r is not None)
+            hint = getattr(s, "retry_after_hint", None)
+            if callable(hint) and st.state in _ReplicaState.PLACEABLE:
+                try:
+                    rec["retry_after_s"] = round(hint(), 3)
+                except Exception:  # noqa: BLE001 — a dying replica mid-read
+                    pass
+            pstats = getattr(s, "page_stats", None)
+            if pstats:
+                rec["kv_pages_free"] = pstats["pages_free"]
+                rec["kv_pages_withheld"] = pstats["pages_withheld"]
+                rec["kv_preemptions"] = pstats["preemptions"]
+                rec["kv_evictions"] = pstats["evictions"]
+                rec["kv_spilled_pages"] = pstats["spilled_pages"]
+                rec["kv_watermark_low_pages"] = pstats["watermark_low_pages"]
+                rec["kv_watermark_high_pages"] = pstats["watermark_high_pages"]
+            ptel = getattr(s, "prefix_telemetry", None)
+            if isinstance(ptel, dict):
+                rec["prefix_hit_rate"] = ptel.get("hit_rate_ewma", 0.0)
+                rec["prefix_resident_entries"] = ptel.get("resident_entries", 0)
+            digs = getattr(s, "resident_digests", None)
+            if callable(digs):
+                try:
+                    rec["resident_digests"] = digs()
+                except Exception:  # noqa: BLE001 — a dying replica mid-read
+                    pass
+            rec["phase_role"] = self._phase_role(s)
+            rec["model_id"] = st.model_id or self._model_id(s)
+            perf = getattr(s, "perf_stats", None)
+            if isinstance(perf, dict):
+                dec = (perf.get("phases") or {}).get("decode")
+                if dec:
+                    rec["decode_mfu"] = dec.get("mfu")
+                    rec["decode_hbm_util"] = dec.get("hbm_util")
+            from ..utils import slo as _slo
+
+            if _slo.ENGINE.enabled:
+                rec["slo_burning"] = bool(_slo.ENGINE.replica_burning(st.label))
+            rec.setdefault("queued", 0)
+            rec.setdefault("active_slots", 0)
+            idx = next((j for j, x in enumerate(self._states) if x is st), -1)
+            if 0 <= idx < len(self._weights) and self._weights[idx] != 1.0:
+                rec["weight"] = self._weights[idx]
+            out.append(rec)
+        return out
+
+    def start(self) -> "SchedulerPool":
+        with self._lock:
+            self._closed = False
+        for st, s in zip(self._states, self.schedulers):
+            if st.state != "removed":
+                s.start()
+        return self
+
+    def shutdown(self, timeout: Optional[float] = None) -> None:
+        # _closed stops an in-flight restart from swapping a fresh replica
+        # into a pool that is going away.
+        with self._lock:
+            self._closed = True
+        for st, s in zip(self._states, self.schedulers):
+            if s is None:
+                continue
+            try:
+                s.shutdown(timeout=timeout)
+            except Exception:  # noqa: BLE001 — one corpse must not wedge the rest
+                _log.exception("replica %s shutdown failed", st.label)
+        # Join the restart threads: a rebuild abandoned mid-way would leave
+        # a daemon thread inside device work when the process exits.
+        with self._lock:
+            episodes = list(self._restart_threads)
+        for t in episodes:
+            if t is not threading.current_thread():
+                t.join(timeout)
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.shutdown()
+
+    # ------------------------------------------------------------ placement
+
+    @staticmethod
+    def _score(s) -> Tuple[float, int]:
+        """(backlog seconds, pending tokens): the replica's
+        `backlog_score()`, or its queue depth for a replica without one."""
+        fn = getattr(s, "backlog_score", None)
+        if callable(fn):
+            try:
+                secs, toks = fn()
+                return float(secs), int(toks)
+            except Exception:  # noqa: BLE001 — a dying replica mid-read
+                return 0.0, 0
+        q = getattr(s, "_queue", None)
+        return 0.0, (q.qsize() if q is not None else 0)
+
+    def _wscore(self, i: int, s) -> Tuple[float, float]:
+        """The ordering score: backlog / replica i's capacity weight (weight
+        1.0 returns `_score` unchanged). Deadline feasibility and hints
+        compare the raw seconds."""
+        secs, toks = self._score(s)
+        return self._wkey(i, secs, toks)
+
+    def _wkey(self, i: int, secs: float, toks):
+        w = self._weights[i] if i < len(self._weights) else 1.0
+        if w == 1.0:
+            return secs, toks
+        return secs / w, toks / w
+
+    def _affinity_scores(self, ids, tenant: str = "") -> Dict[str, int]:
+        """Replica label -> how many of the request's chain-prefix digests
+        it holds (salted with the tenant as admission salts its keys when
+        tenant namespacing is on). Empty when the prompt is shorter than
+        one block or nobody holds any."""
+        block = int(getattr(self.schedulers[0], "_pblock", 0) or 0)
+        if not block:
+            return {}
+        ns: Tuple[int, ...] = ()
+        if tenant:
+            from .qos import prefix_tenant_ns_enabled, qos_enabled, tenant_salt
+
+            if qos_enabled() and prefix_tenant_ns_enabled():
+                ns = tenant_salt(tenant)
+        digests = prefix_chain_digests(ids, block, ns)
+        if not digests:
+            return {}
+        scored = self.prefix_affinity(digests)
+        if not scored:
+            return {}
+        with self._lock:
+            self._aff_checked += 1
+        return {str(r["replica"]): int(r["score"]) for r in scored}
+
+    def routing_stats(self) -> Dict[str, object]:
+        """The placement layer's counters: submits with a non-empty
+        affinity lookup, and how many landed on a best-affinity holder."""
+        with self._lock:
+            return {
+                "router": self.router,
+                "affinity_routing": self._affinity,
+                "model_routing": self._model_routing,
+                "weights": list(self._weights),
+                "placements": sum(st.placements for st in self._states),
+                "affinity_checked": self._aff_checked,
+                "affinity_hits": self._aff_hits,
+            }
+
+    def model_stats(self) -> Optional[Dict[str, object]]:
+        """Per-model aggregation over the replicas carrying each model_id
+        (queue depth, live slots, backlog, placements, accepted tokens and
+        their rate between reads, KV pages held and in use): the
+        `serving.models` payload of the lsot_model_* families. None when
+        no replica carries an id."""
+        per: Dict[str, Dict[str, object]] = {}
+        for st, s in self._replica_items():
+            mid = st.model_id or self._model_id(s)
+            if not mid:
+                continue
+            rec = per.setdefault(mid, {
+                "model": mid, "replicas": 0, "placeable": 0,
+                "queued": 0, "active_slots": 0,
+                "pending_new_tokens": 0, "backlog_s": 0.0,
+                "placements": 0, "tokens_total": 0,
+                "kv_pages_total": 0, "kv_pages_in_use": 0,
+            })
+            rec["replicas"] += 1
+            if st.state in _ReplicaState.PLACEABLE:
+                rec["placeable"] += 1
+            secs, toks = self._score(s)
+            rec["backlog_s"] = round(rec["backlog_s"] + secs, 4)
+            rec["pending_new_tokens"] += toks
+            q = getattr(s, "_queue", None)
+            rec["queued"] += q.qsize() if q is not None else 0
+            slot_req = getattr(s, "_slot_req", None) or []
+            rec["active_slots"] += sum(1 for r in slot_req if r is not None)
+            rec["placements"] += st.placements
+            rec["tokens_total"] += int(getattr(s, "_tokens_emitted_total", 0) or 0)
+            pstats = getattr(s, "page_stats", None)
+            if isinstance(pstats, dict):
+                rec["kv_pages_total"] += int(pstats.get("pages_total", 0) or 0)
+                rec["kv_pages_in_use"] += int(pstats.get("pages_in_use", 0) or 0)
+        if not per:
+            return None
+        now = time.monotonic()
+        with self._lock:
+            for mid, rec in per.items():
+                prev = self._model_rate.get(mid)
+                total = int(rec["tokens_total"])
+                tok_s = 0.0
+                if prev is not None and now > prev[0]:
+                    tok_s = max(0.0, (total - prev[1]) / (now - prev[0]))
+                self._model_rate[mid] = (now, total)
+                rec["tok_s"] = round(tok_s, 3)
+        return {"models": sorted(per.values(), key=lambda r: r["model"])}
+
+    def _replica_items(self, states: Optional[Sequence[str]] = None
+                       ) -> List[Tuple[_ReplicaState, object]]:
+        """A locked (state, scheduler) snapshot of the fleet, optionally
+        filtered by lifecycle state."""
+        with self._lock:
+            return [(st, self.schedulers[i]) for i, st in enumerate(self._states)
+                    if states is None or st.state in states]
+
+    def _placeable(self, exclude: Optional[set] = None
+                   ) -> List[Tuple[int, _ReplicaState, object]]:
+        """Replicas that take new work now: ready or degraded and not
+        crashed. A crash seen here kicks that replica's targeted restart
+        (or marks it dead without a factory)."""
+        out = []
+        with self._lock:
+            items = [(i, st) for i, st in enumerate(self._states)
+                     if st.state in _ReplicaState.PLACEABLE
+                     and (exclude is None or i not in exclude)]
+            scheds = list(self.schedulers)
+        for i, st in items:
+            s = scheds[i]
+            crash = getattr(s, "_crash", None)
+            if crash is not None:
+                self._note_replica_crash(i, crash)
+                continue
+            out.append((i, st, s))
+        return out
+
+    @staticmethod
+    def _phase_role(s) -> str:
+        return getattr(s, "phase_role", "mixed") or "mixed"
+
+    @staticmethod
+    def _model_id(s) -> str:
+        return str(getattr(s, "model_id", "") or "")
+
+    def _carries(self, c, model: str) -> bool:
+        """Does placeable candidate `c` = (i, state, scheduler) hold `model`?"""
+        return (c[1].model_id or self._model_id(c[2])) == model
+
+    def _penalty(self, st: _ReplicaState, s) -> int:
+        """Pressure-aware placement: +1 for a replica with withheld pool
+        pages, +1 for one whose rolling SLO is burning; 0 in a healthy
+        fleet, which leaves the backlog order as it is."""
+        pen = 0
+        pstats = getattr(s, "page_stats", None)
+        if pstats and int(pstats.get("pages_withheld", 0) or 0) > 0:
+            pen += 1
+        from ..utils import slo as _slo
+
+        if _slo.ENGINE.enabled and _slo.ENGINE.replica_burning(st.label):
+            pen += 1
+        return pen
+
+    def qos_stats(self) -> Optional[Dict[str, object]]:
+        """Each replica's WFQ counters, labeled; None when no replica runs
+        QoS."""
+        per = []
+        for st, s in self._replica_items():
+            fn = getattr(s, "qos_stats", None)
+            if not callable(fn):
+                continue
+            qs = fn()
+            if qs:
+                rec = dict(qs)
+                rec["replica"] = st.label
+                per.append(rec)
+        return {"replicas": per} if per else None
+
+    def submit(self, ids, max_new_tokens: int = 256,
+               sampling: SamplingParams = SamplingParams(), seed: int = 0,
+               on_token=None, constraint=None, deadline_s=None, trace=None,
+               model_id: str = "", tenant: str = "", qos: str = ""):
+        """Place one request (see the class docstring for the order) and
+        return the chosen replica's future, failing over on Overloaded and
+        on a crash that landed between the placeable check and the submit.
+        `model_id=""` (or model routing off) skips every model check."""
+        want_model = model_id if (self._model_routing and model_id) else ""
+        if want_model:
+            with self._lock:
+                carriers = [st.state for st in self._states if st.model_id == want_model]
+                known = sorted({st.model_id for st in self._states if st.model_id})
+            if not carriers:
+                from .modelpool import UnknownModel
+
+                raise UnknownModel(
+                    f"no replica in the fleet serves model {want_model!r} "
+                    f"(models: {known or ['<unset>']})")
+        last_overloaded: Optional[Overloaded] = None
+        deadline_blocked: Optional[float] = None
+        tried: set = set()
+        while True:
+            cands = self._placeable(exclude=tried)
+            if want_model:
+                cands = [c for c in cands if self._carries(c, want_model)]
+            if not cands:
+                break
+            if self.router == "round_robin":
+                aff: Dict[str, int] = {}
+                with self._lock:
+                    pick = self._rr % len(cands)
+                    self._rr += 1
+                order = cands[pick:] + cands[:pick]
+                scored = [(self._score(s), i, st, s) for (i, st, s) in order]
+            else:
+                aff = self._affinity_scores(ids, tenant) if self._affinity else {}
+                scored = sorted(
+                    ((self._score(s), i, st, s) for (i, st, s) in cands),
+                    key=lambda t: (-aff.get(t[2].label, 0),
+                                   self._penalty(t[2], t[3]),
+                                   *self._wkey(t[1], t[0][0], t[0][1]),
+                                   t[1]))
+            if deadline_s is not None:
+                feasible = [t for t in scored if t[0][0] < deadline_s]
+                if not feasible:
+                    # Every backlog already exceeds the budget: shed 504.
+                    deadline_blocked = min(t[0][0] for t in scored)
+                    break
+                scored = feasible
+            (secs, toks), i, st, sched = scored[0]
+            try:
+                extra = {"model_id": want_model} if want_model else {}
+                if (tenant or qos) and getattr(sched, "supports_qos", False):
+                    extra["tenant"] = tenant
+                    extra["qos"] = qos
+                fut = sched.submit(
+                    ids, max_new_tokens=max_new_tokens, sampling=sampling,
+                    seed=seed, on_token=on_token, constraint=constraint,
+                    deadline_s=deadline_s, trace=trace, **extra)
+            except ValueError:
+                raise  # a request-shape rejection holds on every replica
+            except Overloaded as e:
+                if (last_overloaded is None
+                        or e.retry_after_s < last_overloaded.retry_after_s):
+                    last_overloaded = e
+                tried.add(i)
+                continue
+            except RuntimeError:
+                # Fail over only for a genuine crash; lifecycle misuse
+                # ("not started") is the caller's error.
+                crash = getattr(sched, "_crash", None)
+                if crash is None:
+                    raise
+                self._note_replica_crash(i, crash)
+                tried.add(i)
+                continue
+            if getattr(fut, "_lsot_replica", None) is None:
+                fut._lsot_replica = st.label
+            with self._lock:
+                st.placements += 1
+                if aff and aff.get(st.label, 0) > 0 \
+                        and aff[st.label] == max(aff.values()):
+                    self._aff_hits += 1
+            if st.state == "degraded":
+                def _prove(f, st=st):
+                    # A clean completion proves a restarted replica.
+                    if f.exception() is None:
+                        with self._lock:
+                            if st.state == "degraded":
+                                st.state = "ready"
+                fut.add_done_callback(_prove)
+            ev: Dict[str, object] = dict(
+                to=st.label, router=self.router, backlog_s=round(secs, 4),
+                pending_new_tokens=toks, considered=len(cands))
+            if aff:
+                ev["affinity"] = aff.get(st.label, 0)
+            if want_model:
+                ev["model"] = want_model
+            self._pool_flight.event("placement", **ev)
+            return fut
+        if want_model and last_overloaded is None and deadline_blocked is None:
+            # The model is registered but none of its replicas is
+            # placeable: a drain or restart is retryable backpressure.
+            with self._lock:
+                carriers = [st.state for st in self._states if st.model_id == want_model]
+            if any(x in ("restarting", "draining", "drained") for x in carriers):
+                raise Overloaded(
+                    f"every replica serving model {want_model!r} is draining "
+                    f"or restarting", retry_after_s=self.retry_after_hint())
+            raise SchedulerCrashed(
+                f"every replica serving model {want_model!r} has crashed or "
+                f"left the fleet")
+        if last_overloaded is not None:
+            raise Overloaded(
+                "every scheduler replica is at capacity",
+                retry_after_s=min(last_overloaded.retry_after_s,
+                                  self.retry_after_hint()))
+        if deadline_blocked is not None:
+            resilience.inc("deadline_infeasible")
+            raise DeadlineExceeded(
+                f"no replica can serve within the {deadline_s:.3f}s deadline: "
+                f"minimum fleet backlog estimate {deadline_blocked:.3f}s")
+        with self._lock:
+            restarting = any(st.state == "restarting" for st in self._states)
+        if restarting:
+            # Retryable backpressure, not a crash: the supervisor must not
+            # tear the pool down while its replicas are being rebuilt.
+            raise Overloaded("every scheduler replica is restarting",
+                             retry_after_s=self.retry_after_hint())
+        raise SchedulerCrashed("all scheduler replicas have crashed or left the fleet")
+
+    cancel = staticmethod(ContinuousBatchingScheduler.cancel)
+
+    # --------------------------------------------------- replica lifecycle
+
+    def _resolve_idx(self, replica) -> int:
+        if isinstance(replica, int):
+            if not 0 <= replica < len(self._states):
+                raise ValueError(f"no replica index {replica}")
+            return replica
+        for i, st in enumerate(self._states):
+            if st.label == replica:
+                return i
+        raise ValueError(f"unknown replica {replica!r}")
+
+    def _note_replica_crash(self, idx: int, exc: BaseException) -> None:
+        """A replica's loop died: start its targeted restart, or mark it
+        dead without a factory. Once per episode."""
+        with self._lock:
+            st = self._states[idx]
+            if self._closed or st.state not in _ReplicaState.PLACEABLE:
+                return
+            st.last_crash = str(exc)[:200]
+            if self._factory is None:
+                st.state = "dead"
+                self._pool_flight.event("replica_dead", replica=st.label,
+                                        error=st.last_crash)
+                return
+            st.state = "restarting"
+        resilience.inc("replica_crashes")
+        self._pool_flight.event("replica_crash", replica=st.label, error=st.last_crash)
+        _log.warning("replica %s crashed; pool restarting it: %s", st.label, exc)
+        self._spawn_restart(idx)
+
+    def notice_replica_crash(self, replica, exc: BaseException) -> None:
+        """The supervisor's crash notice (a journaled request's inner future
+        failed with a crash): starts the replica's targeted restart."""
+        try:
+            idx = self._resolve_idx(replica)
+        except ValueError:
+            return
+        self._note_replica_crash(idx, exc)
+
+    def restart_replica(self, replica, reason: str = "manual") -> bool:
+        """Targeted restart of one replica (the watchdog's stall escalation
+        and the operator's kick): a bounded-join teardown, then a rebuild
+        from the factory under the replica's own restart budget, while its
+        siblings serve. A drained replica restarts back into the fleet.
+        False when it is already restarting, draining or removed, the pool
+        is closed, or there is no factory."""
+        idx = self._resolve_idx(replica)
+        with self._lock:
+            st = self._states[idx]
+            if (self._closed or self._factory is None
+                    or st.state in ("restarting", "draining", "removed")):
+                return False
+            st.state = "restarting"
+            if reason == "stalled":
+                st.stalls += 1
+            st.last_crash = reason
+        if reason == "stalled":
+            resilience.inc("replica_stalls")
+        self._pool_flight.event("replica_restart_requested", replica=st.label,
+                                reason=reason)
+        _log.warning("replica %s restart requested (%s)", st.label, reason)
+        self._spawn_restart(idx)
+        return True
+
+    def _spawn_restart(self, idx: int) -> None:
+        t = threading.Thread(target=self._restart_episode, args=(idx,), daemon=True,
+                             name=f"lsot-pool-restart-{self._states[idx].label}")
+        with self._lock:
+            self._restart_threads = [x for x in self._restart_threads if x.is_alive()]
+            self._restart_threads.append(t)
+        t.start()
+
+    def _build_replica(self, idx: int):
+        return self._factory(idx) if self._factory_takes_index else self._factory()
+
+    def _restart_episode(self, idx: int) -> None:
+        """One thread a restart episode: bounded teardown of the corpse,
+        backoff under the replica's budget, rebuild, start, swap.
+        Budget exhausted marks only this replica dead."""
+        st = self._states[idx]
+        while True:
+            old = self.schedulers[idx]
+            try:
+                if old is not None:
+                    old.shutdown(timeout=self._replica_join_s)
+            except Exception:  # noqa: BLE001 — a broken corpse must not stop the rebuild
+                _log.exception("replica %s teardown failed; continuing", st.label)
+            with self._lock:
+                if self._closed:
+                    return
+                if st.restarts >= self.max_restarts:
+                    st.state = "dead"
+                    st.restart_eta = None
+                    self._pool_flight.event("replica_dead", replica=st.label,
+                                            restarts=st.restarts)
+                    _log.error("replica %s dead: restart budget exhausted (%d/%d)",
+                               st.label, st.restarts, self.max_restarts)
+                    return
+                attempt = st.restarts
+                st.restarts += 1
+            resilience.inc("replica_restarts")
+            delay = self._restart_policy.delay_s(attempt, self._rng)
+            with self._lock:
+                # Hints quoted while this replica is down promise at least
+                # the backoff remaining.
+                st.restart_eta = time.monotonic() + delay
+            self._sleep(delay)
+            with self._lock:
+                if self._closed:
+                    return
+            try:
+                fresh = self._build_replica(idx)
+                fresh.start()
+            except Exception:  # noqa: BLE001 — a failed rebuild burns one credit
+                _log.exception("replica %s rebuild failed (restart %d/%d)",
+                               st.label, attempt + 1, self.max_restarts)
+                continue
+            with self._lock:
+                if self._closed or st.state != "restarting":
+                    # The pool is going away, or a drain or remove owns the
+                    # replica now.
+                    fresh.shutdown()
+                    return
+                fl = getattr(fresh, "flight", None)
+                if fl is not None:
+                    fl.replica = st.label
+                self.schedulers[idx] = fresh
+                # The factory may rebuild with another checkpoint id.
+                st.model_id = self._model_id(fresh)
+                # Degraded until a clean completion lands on it.
+                st.state = "degraded"
+                st.restart_eta = None
+            self._pool_flight.event("replica_restart", replica=st.label,
+                                    attempt=st.restarts)
+            _log.info("replica %s restarted (%d/%d)", st.label, st.restarts,
+                      self.max_restarts)
+            cb = self.on_replica_restart
+            if cb is not None:
+                try:
+                    cb(st.label)
+                except Exception:  # noqa: BLE001 — the replay hook must not end the episode
+                    _log.exception("on_replica_restart(%s) failed", st.label)
+            return
+
+    def drain_replica(self, replica, deadline_s: Optional[float] = None,
+                      remove: bool = False) -> Dict[str, object]:
+        """Runtime drain of one replica: stop placing on it, re-place its
+        queued requests on the least-loaded siblings carrying the same
+        model (a lone replica of its model keeps them), give in-flight work
+        up to `deadline_s` (None: wait; <= 0: none), then shut it down with
+        a bounded join. `remove=True` takes it out of the fleet for good;
+        otherwise it parks `drained` and `restart_replica()` brings it
+        back."""
+        idx = self._resolve_idx(replica)
+        t_drain0 = time.perf_counter()
+        with self._lock:
+            st = self._states[idx]
+            if st.state in ("draining", "removed"):
+                return {"replica": st.label, "state": st.state, "replaced": 0}
+            st.state = "draining"
+            sched = self.schedulers[idx]
+        self._pool_flight.event("replica_drain", replica=st.label,
+                                deadline_s=deadline_s, remove=remove)
+        # Re-place queued work before waiting on in-flight work.
+        replaced = 0
+        extract = getattr(sched, "extract_queued", None)
+        pulls = list(extract()) if callable(extract) else []
+        drain_model = st.model_id or self._model_id(sched)
+        for req in pulls:
+            target = None
+            cands = self._placeable()
+            if self._model_routing and drain_model:
+                cands = [c for c in cands if self._carries(c, drain_model)]
+            if cands:
+                target = min(((self._wscore(i, s), self._penalty(_st, s), i, s)
+                              for (i, _st, s) in cands),
+                             key=lambda t: (t[1], t[0][0], t[0][1], t[2]))[3]
+            if target is not None and callable(getattr(target, "requeue", None)):
+                try:
+                    target.requeue(req)
+                    replaced += 1
+                    continue
+                except Exception:  # noqa: BLE001 — an incompatible or racing target
+                    pass
+            # No sibling can take it: it serves out on the draining replica.
+            sched.requeue(req)
+        if replaced:
+            self._pool_flight.event("replica_drain_replaced", replica=st.label,
+                                    replaced=replaced)
+        busy = getattr(sched, "_busy_now", None)
+        deadline = (Deadline.after(deadline_s)
+                    if deadline_s is not None and deadline_s > 0 else None)
+        wait_all = deadline_s is None
+        finished = True
+        while callable(busy):
+            try:
+                if not busy():
+                    break
+            except Exception:  # noqa: BLE001 — a dying replica mid-read
+                break
+            if not wait_all and (deadline is None or deadline.remaining() <= 0):
+                finished = False
+                break
+            time.sleep(0.01)
+        try:
+            sched.shutdown(timeout=self._replica_join_s)
+        except Exception:  # noqa: BLE001 — a wedged corpse must not fail the drain
+            _log.exception("replica %s drain shutdown failed", st.label)
+        with self._lock:
+            # Only if the drain still owns the slot (a racing restart is
+            # refused while draining).
+            if st.state == "draining":
+                st.state = "removed" if remove else "drained"
+            self._fleet_drain_s_sum += time.perf_counter() - t_drain0
+            self._fleet_drain_count += 1
+        self._pool_flight.event("replica_drained", replica=st.label,
+                                replaced=replaced, finished=finished, removed=remove)
+        cb = self.on_replica_drained
+        if cb is not None:
+            try:
+                # The supervisor re-places the journaled requests still
+                # attributed to this replica.
+                cb(st.label)
+            except Exception:  # noqa: BLE001 — the replay hook is best effort
+                _log.exception("on_replica_drained(%s) failed", st.label)
+        return {"replica": st.label, "state": "removed" if remove else "drained",
+                "replaced": replaced, "finished": finished}
+
+    def remove_replica(self, replica,
+                       deadline_s: Optional[float] = None) -> Dict[str, object]:
+        """Drain and remove one replica for good."""
+        return self.drain_replica(replica, deadline_s=deadline_s, remove=True)
+
+    def add_replica(self, scheduler, label: Optional[str] = None,
+                    weight: float = 1.0, elastic: bool = True) -> str:
+        """Join one local replica to a live fleet; returns its label.
+        `elastic=True` makes it retirable by `retire_replica`."""
+        self._refuse_unported(scheduler)
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("cannot add a replica to a closed pool")
+            idx = len(self.schedulers)
+            lbl = label or f"r{idx}"
+            fl = getattr(scheduler, "flight", None)
+            if fl is not None:
+                fl.replica = lbl
+            self.schedulers.append(scheduler)
+            self._states.append(_ReplicaState(label=lbl,
+                                              model_id=self._model_id(scheduler)))
+            self._weights.append(max(1e-9, float(weight)))
+            if elastic:
+                self._elastic.add(idx)
+            self._fleet_joins += 1
+        self._pool_flight.event("replica_join", replica=lbl, elastic=bool(elastic),
+                                accepted=True, phase_role=self._phase_role(scheduler))
+        return lbl
+
+    def retire_replica(self, replica=None, deadline_s: Optional[float] = None
+                       ) -> Optional[Dict[str, object]]:
+        """Drain and remove one replica `add_replica` joined elastically
+        (with `replica=None`, the least-loaded serving one): its queued work
+        re-places on siblings. None when nothing is retirable."""
+        if replica is not None:
+            idx = self._resolve_idx(replica)
+            if idx not in self._elastic:
+                return None
+        else:
+            with self._lock:
+                cands = [i for i in self._elastic
+                         if self._states[i].state in _ReplicaState.PLACEABLE]
+            if not cands:
+                return None
+            idx = min(cands, key=lambda i: (self._wscore(i, self.schedulers[i]), i))
+        out = self.drain_replica(idx, deadline_s=deadline_s, remove=True)
+        with self._lock:
+            self._elastic.discard(idx)
+            self._fleet_retires += 1
+        self._pool_flight.event("replica_retire", replica=out.get("replica"),
+                                replaced=out.get("replaced"))
+        return out
+
+    def fleet_stats(self) -> Dict[str, object]:
+        """The `fleet` block of /healthz and /metrics (lsot_fleet_*): live
+        membership and the join/retire/drain counters. The pushed-handoff
+        columns are zero: the prefill-to-decode pump is ROADMAP A7.5."""
+        with self._lock:
+            states = [st.state for st in self._states]
+            out: Dict[str, object] = {
+                "size": len(states),
+                "serving": sum(1 for x in states if x in _ReplicaState.PLACEABLE),
+                "elastic": len(self._elastic),
+                "joins": self._fleet_joins,
+                "retires": self._fleet_retires,
+                "drain_s_sum": round(self._fleet_drain_s_sum, 6),
+                "drain_count": self._fleet_drain_count,
+            }
+        out.update({"pushed": 0, "push_bytes": 0, "pump_depth": 0, "push_placed": 0})
+        return out
+
+    def stalled_replicas(self, factor: float, floor_s: float) -> List[str]:
+        """Serving replicas whose busy heartbeat is older than their stall
+        threshold: the supervisor's targeted-restart feed."""
+        from .watchdog import stall_threshold
+
+        out: List[str] = []
+        for st, s in self._replica_items(_ReplicaState.PLACEABLE):
+            hb = getattr(s, "heartbeat", None)
+            if hb is None or not hb.busy:
+                continue
+            if hb.age() > stall_threshold(hb, factor, floor_s):
+                out.append(st.label)
+        return out
+
+    # ----------------------------------------------------------- health
+
+    def replica_health(self) -> List[Dict[str, object]]:
+        """Per-replica lifecycle for /healthz, /readyz and /metrics."""
+        now = time.monotonic()
+        out = []
+        for st, s in self._replica_items():
+            rec: Dict[str, object] = {
+                "replica": st.label,
+                "state": st.state,
+                "phase_role": self._phase_role(s),
+                "model_id": st.model_id or self._model_id(s),
+                "restarts": st.restarts,
+                "max_restarts": self.max_restarts,
+                "stalls": st.stalls,
+                "crashed": getattr(s, "_crash", None) is not None,
+            }
+            if st.last_crash:
+                rec["last_crash"] = st.last_crash
+            if st.restart_eta is not None:
+                rec["restart_eta_s"] = round(max(0.0, st.restart_eta - now), 3)
+            out.append(rec)
+        return out
+
+    def health(self) -> Dict[str, object]:
+        """The fleet's state, shaped like the supervisor's: `ready` (every
+        replica serving clean), `degraded` (serving, but a replica is
+        restarting, drained, dead or unproven), `restarting` (none serving,
+        a rebuild in flight), `dead`; removed replicas stay listed but do
+        not degrade it."""
+        reps = self.replica_health()
+        states = [r["state"] for r in reps if r["state"] != "removed"]
+        serving = [x for x in states if x in _ReplicaState.PLACEABLE]
+        if serving:
+            state = "ready" if all(x == "ready" for x in states) else "degraded"
+        elif "restarting" in states:
+            state = "restarting"
+        else:
+            state = "dead"
+        return {
+            "state": state,
+            "replicas": reps,
+            "restarts": sum(int(r["restarts"]) for r in reps),
+            "stalls": sum(int(r["stalls"]) for r in reps),
+            "fleet": self.fleet_stats(),
+        }
+
+    @property
+    def prefix_stats(self) -> Dict[str, object]:
+        """Summed prefix-cache counters; `hit_rate` from the summed
+        hits and misses."""
+        out: Dict[str, object] = {"hits": 0, "misses": 0, "blocks_reused": 0,
+                                  "reused_tokens": 0, "evictions": 0,
+                                  "cached_blocks": 0}
+        for s in self.schedulers:
+            st = getattr(s, "prefix_stats", None)
+            if isinstance(st, dict):
+                for k in out:
+                    out[k] += int(st.get(k, 0))
+        total = out["hits"] + out["misses"]
+        out["hit_rate"] = round(out["hits"] / total, 4) if total else 0.0
+        return out
+
+    @property
+    def prefix_telemetry(self) -> Optional[Dict[str, object]]:
+        """Per-replica prefix telemetry, labeled; None when no replica has
+        a cache on."""
+        per = []
+        for st, s in self._replica_items():
+            t = getattr(s, "prefix_telemetry", None)
+            if isinstance(t, dict):
+                rec = dict(t)
+                rec["replica"] = st.label
+                per.append(rec)
+        return {"replicas": per} if per else None
+
+    def prefix_registry(self, top_k: Optional[int] = None) -> Dict[str, object]:
+        """Per-replica prefix registries, labeled (/debug/prefixcache)."""
+        per = []
+        for st, s in self._replica_items():
+            fn = getattr(s, "prefix_registry", None)
+            if not callable(fn):
+                continue
+            reg = fn(top_k)
+            if isinstance(reg, dict):
+                reg = dict(reg)
+                reg["replica"] = st.label
+                per.append(reg)
+        return {"replicas": per}
+
+    def prefix_affinity(self, digests: Sequence[str]) -> List[Dict[str, object]]:
+        """Score every placeable replica by how many of `digests` it holds
+        resident; [{replica, score}] best first, scoring replicas only. A
+        non-empty lookup leaves a `prefix_affinity` event."""
+        want = {d for d in digests if d}
+        if not want:
+            return []
+        scored: List[Dict[str, object]] = []
+        for _i, st, s in self._placeable():
+            fn = getattr(s, "resident_digests", None)
+            if not callable(fn):
+                continue
+            score = len(want & set(fn()))
+            if score:
+                scored.append({"replica": st.label, "score": score})
+        scored.sort(key=lambda r: -int(r["score"]))
+        if scored:
+            self._pool_flight.event("prefix_affinity", best=scored[0]["replica"],
+                                    score=scored[0]["score"], digests=len(want),
+                                    holders=len(scored))
+        return scored
+
+    @property
+    def speculation_stats(self) -> Optional[Dict[str, float]]:
+        """The first replica's acceptance view (None with speculation off)."""
+        return getattr(self.schedulers[0], "speculation_stats", None)
+
+    def generate(self, prompts, max_new_tokens: int = 256,
+                 sampling: SamplingParams = SamplingParams(), seed: int = 0):
+        futs = [self.submit(p, max_new_tokens=max_new_tokens, sampling=sampling,
+                            seed=seed) for p in prompts]
+        return [f.result() for f in futs]
+
+
 class SchedulerBackend:
     """Tokenize -> scheduler.submit -> detokenize: the continuous-batching
     twin of `EngineBackend` (serve/backends.py). Concurrent callers share
@@ -2900,7 +4455,13 @@ class SchedulerBackend:
     `SupervisedScheduler` wrapping one (serve/supervisor.py): with the
     supervisor, the backend forwards idempotency keys to its journal,
     reports its lifecycle through `health()`, drains through it, and
-    recovers a previous process's journal spill at construction."""
+    recovers a previous process's journal spill at construction.
+
+    `scheduler` may also be a `SchedulerPool` (or a supervisor over one):
+    with `model_id` set and a pool that routes on models, every submit
+    names the model, so one pool serves several backends' checkpoints.
+    Labeled requests' `tenant` and `qos` reach schedulers that declare
+    `supports_qos`."""
 
     #: GenerationService forwards a `deadline_s` to backends that set this,
     #: and a `constrain` spec to backends that set `supports_constrain`.
@@ -2916,6 +4477,7 @@ class SchedulerBackend:
         stop_texts: Sequence[str] = (),
         add_bos: bool = True,
         deadline_s: Optional[float] = None,
+        model_id: str = "",
     ):
         self.scheduler = scheduler.start()
         self.tokenizer = tokenizer
@@ -2924,10 +4486,16 @@ class SchedulerBackend:
         self.stop_texts = tuple(stop_texts)
         self.add_bos = add_bos
         self.deadline_s = deadline_s
+        # The registered model every submit names, forwarded only to a
+        # scheduler that routes on models ("" model-blind).
+        self.model_id = str(model_id or "")
+        self._routes_models = bool(
+            getattr(scheduler, "supports_model_routing", False)) and bool(self.model_id)
         # Idempotency keys need a journal to dedupe against: only the
         # supervised wrapper has one.
         self.supports_idempotency = bool(
             getattr(scheduler, "supports_idempotency", False))
+        self.supports_qos = bool(getattr(scheduler, "supports_qos", False))
         # Journal-spill recovery happens here, the one seam every
         # deployment path funnels through: a previous process's drained
         # but unfinished requests resubmit, so retried idempotency keys
@@ -2970,7 +4538,11 @@ class SchedulerBackend:
         the loop's liveness (`watchdog`) and the flight recorder's ring
         occupancy (the records live at /debug/flightrecorder; a supervised
         scheduler reports its lifecycle ring and the inner round ring
-        apart)."""
+        apart). Over a pool, also the placement counters (`routing`), the
+        per-replica loads (`replicas`), the per-model aggregation
+        (`models`, the lsot_model_* families) and the fleet membership
+        (`fleet`); with QoS on, the per-tenant WFQ counters (`qos`); under
+        a supervisor its lifecycle (`supervisor`)."""
         sched = self.scheduler
         out: Dict[str, object] = {"prefix_cache": sched.prefix_stats}
         for key, val in (("prefix", sched.prefix_telemetry),
@@ -2978,8 +4550,24 @@ class SchedulerBackend:
                          ("kv_pages", sched.page_stats), ("perf", sched.perf_stats)):
             if val:
                 out[key] = val
+        rt = getattr(sched, "routing_stats", None)
+        routing = rt() if callable(rt) else None
+        if routing:
+            out["routing"] = routing
         out["watchdog"] = sched.watchdog_stats
         out["flight_recorder"] = sched.flight_stats()
+        loads = getattr(sched, "replica_loads", None)
+        if callable(loads):
+            out["replicas"] = loads()
+        for key, seam in (("models", "model_stats"), ("qos", "qos_stats"),
+                          ("fleet", "fleet_stats")):
+            fn = getattr(sched, seam, None)
+            val = fn() if callable(fn) else None
+            if val:
+                out[key] = val
+        sup = self.health()
+        if sup is not None:
+            out["supervisor"] = sup
         return out
 
     def flight_snapshot(self, last: Optional[int] = None):
@@ -3032,6 +4620,18 @@ class SchedulerBackend:
             kwargs["constraint_spec"] = constrain
         return kwargs
 
+    def _model_kwargs(self) -> Dict[str, object]:
+        """submit() kwargs for the model axis: only when this backend is
+        model-scoped and the scheduler routes on models."""
+        return {"model_id": self.model_id} if self._routes_models else {}
+
+    def _qos_kwargs(self, tenant: str, qos: str) -> Dict[str, object]:
+        """submit() kwargs for the tenant axis: only for a labeled request
+        on a QoS-capable scheduler."""
+        if (tenant or qos) and self.supports_qos:
+            return {"tenant": tenant, "qos": qos}
+        return {}
+
     def _budget(self, n_prompt_tokens: int, max_new_tokens: Optional[int]) -> int:
         """The requested budget, clamped to the room the scheduler window
         leaves after the bucketed prompt and the overshoot."""
@@ -3046,9 +4646,12 @@ class SchedulerBackend:
         return min(max_new_tokens or self.max_new_tokens, room)
 
     def _submit(self, ids, max_new_tokens, sampling, seed, deadline_s,
-                idempotency_key=None, constraint_kwargs=None, trace=None):
+                idempotency_key=None, constraint_kwargs=None, trace=None,
+                tenant="", qos=""):
         on_tok, first_at = _first_token_timer()
         kwargs = dict(constraint_kwargs or {})
+        kwargs.update(self._model_kwargs())
+        kwargs.update(self._qos_kwargs(tenant, qos))
         if idempotency_key is not None:
             # GenerationService forwards a key only when
             # supports_idempotency is set.
@@ -3073,7 +4676,8 @@ class SchedulerBackend:
     def complete_stream(self, prompt: str, max_new_tokens: Optional[int] = None,
                         sampling: Optional[SamplingParams] = None, seed: int = 0,
                         stats_out: Optional[dict] = None,
-                        deadline_s: Optional[float] = None, constrain=None):
+                        deadline_s: Optional[float] = None, constrain=None,
+                        tenant: str = "", qos: str = ""):
         """Yield the completion as text chunks while it decodes. Each token
         re-decodes the ids so far and emits the new text, holding back a
         trailing partial multi-byte sequence (U+FFFD) and the last
@@ -3094,7 +4698,8 @@ class SchedulerBackend:
             ids, max_new_tokens=self._budget(len(ids), max_new_tokens),
             sampling=sampling or self.sampling, seed=seed, on_token=on_tok,
             deadline_s=deadline_s if deadline_s is not None else self.deadline_s,
-            trace=tracing.current(), **self._constraint_kwargs(constrain))
+            trace=tracing.current(), **self._constraint_kwargs(constrain),
+            **self._model_kwargs(), **self._qos_kwargs(tenant, qos))
         out_ids: List[int] = []
         emitted = ""
         hold = max((len(t) for t in self.stop_texts), default=1) - 1
@@ -3142,7 +4747,7 @@ class SchedulerBackend:
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  deadline_s: Optional[float] = None,
                  idempotency_key: Optional[str] = None,
-                 constrain=None) -> Completion:
+                 constrain=None, tenant: str = "", qos: str = "") -> Completion:
         from ..utils import tracing
 
         ids = self.tokenizer.encode(prompt, add_bos=self.add_bos)
@@ -3150,13 +4755,14 @@ class SchedulerBackend:
         fut, first_at = self._submit(ids, max_new_tokens, sampling, seed,
                                      deadline_s, idempotency_key,
                                      self._constraint_kwargs(constrain),
-                                     trace=tracing.current())
+                                     trace=tracing.current(), tenant=tenant, qos=qos)
         return self._completion(ids, fut, first_at, t_submit, constrain)
 
     def complete_batch(
         self, prompts: Sequence[str], max_new_tokens: Optional[int] = None,
         sampling: Optional[SamplingParams] = None, seed: int = 0,
         deadline_s: Optional[float] = None, constrain=None,
+        tenant: str = "", qos: str = "",
     ) -> List[Completion]:
         """Submit the whole batch at once: the scheduler interleaves the
         prompts through its slots (continuous batching)."""
@@ -3165,7 +4771,7 @@ class SchedulerBackend:
                     for p in prompts]
         t_submit = time.perf_counter()
         subs = [self._submit(ids, max_new_tokens, sampling, seed, deadline_s,
-                             constraint_kwargs=ckw)
+                             constraint_kwargs=ckw, tenant=tenant, qos=qos)
                 for ids in ids_list]
         return [self._completion(ids, fut, first_at, t_submit, constrain)
                 for ids, (fut, first_at) in zip(ids_list, subs)]
@@ -3183,7 +4789,8 @@ class SchedulerBackend:
         `kv_quant="int8"`,
         the scheduler's shape arguments, the page-pressure knobs
         (`kv_overcommit`, `kv_spill`, `kv_watermark_low/high`),
-        `max_queue_depth`, `speculative_draft`, and `supervise` with
+        `max_queue_depth`, `speculative_draft`, the QoS settings (`qos`,
+        `tenant_weights`, `prefix_tenant_ns`), and `supervise` with
         `max_restarts`, `max_entry_replays`, `journal_spill` and `stall_*`
         (serve/supervisor.py). What the port cannot honor yet raises and
         names its ROADMAP item."""
@@ -3236,6 +4843,9 @@ class SchedulerBackend:
         decode_chunk: int = 8,
         speculative_draft: int = 0,
         max_queue_depth: int = 0,
+        qos: Optional[bool] = None,
+        tenant_weights: Optional[str] = None,
+        prefix_tenant_ns: Optional[bool] = None,
         supervise: bool = False,
         max_restarts: int = 5,
         max_entry_replays: int = 0,
@@ -3269,7 +4879,8 @@ class SchedulerBackend:
                 kv_watermark_low=kv_watermark_low,
                 kv_watermark_high=kv_watermark_high,
                 max_queue_depth=max_queue_depth,
-                speculative_draft=speculative_draft,
+                speculative_draft=speculative_draft, qos=qos,
+                tenant_weights=tenant_weights, prefix_tenant_ns=prefix_tenant_ns,
                 device=params["final_norm"].device)
 
         if supervise:

@@ -22,15 +22,25 @@ backend's serving stats and the `resilience`, `slo` and `repair` blocks),
 `prefix_registry`, `slo_report`, `profile_capture` and `profile_status`
 (the `/debug/*` routes).
 
-Not ported yet: the QoS front door and tenant routing (`tenant`/`qos` are
-carried and not charged, and the `qos` metrics block is absent: A11), and
-the fleet views (A11).
+Multi-tenant front door (serve/qos.py): every generate charges one token
+of its (tenant, class) bucket to the process-wide `ADMISSION` controller
+(a `TenantShed`, an `Overloaded`, when the bucket is empty; HTTP 429 with
+a bucket-aware Retry-After), applies the class's default deadline to a
+request without one, and forwards the labels to backends that declare
+`supports_qos` (the scheduler's WFQ order and tenant prefix namespaces).
+`set_tenant_models` / `resolve_model` pin a tenant to a registered model
+(`LSOT_TENANT_MODELS`). The admission counters are the `qos` block of
+/metrics. Fleets: `fleet_health` and `fleet_membership` are the
+per-replica lifecycle and the membership counters of backends serving
+from a `SchedulerPool`, for /healthz.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
+import os
 import threading
 import time
 from typing import Dict, List, Optional
@@ -44,8 +54,10 @@ from ..utils.observability import (
     trace_capture,
 )
 from ..utils.tracing import TRACER
+from .qos import ADMISSION, parse_tenant_models
 from .templates import TEMPLATES, Template
 
+log = logging.getLogger("lsot.service")
 
 @dataclasses.dataclass(frozen=True)
 class GenerateResult:
@@ -86,6 +98,38 @@ class GenerationService:
         # Drain mode (SIGTERM path): once set, the HTTP layers answer new
         # work with 503 + Retry-After while in-flight requests finish.
         self._draining = False
+        # Per-tenant model routing (LSOT_TENANT_MODELS): tenant ->
+        # model_id, resolved at every generate. Unlisted tenants, and
+        # tenants pinned to a model that is not registered, keep the
+        # request's own model (warned once a tenant).
+        self._tenant_models: Dict[str, str] = parse_tenant_models(
+            os.environ.get("LSOT_TENANT_MODELS", ""))
+        self._tenant_model_warned: set = set()
+
+    def set_tenant_models(self, spec: str) -> None:
+        """Install a tenant -> model_id map from its spec string (replaces
+        the environment's)."""
+        with self._lock:
+            self._tenant_models = parse_tenant_models(spec)
+            self._tenant_model_warned = set()
+
+    def resolve_model(self, model: str, tenant: str) -> str:
+        """The model a request runs on: its tenant's pinned model when that
+        is registered, else `model`."""
+        if not tenant:
+            return model
+        with self._lock:
+            pinned = self._tenant_models.get(tenant)
+            if pinned is None:
+                return model
+            if pinned not in self._models:
+                if tenant not in self._tenant_model_warned:
+                    self._tenant_model_warned.add(tenant)
+                    log.warning("tenant %r pins model %r which is not registered "
+                                "(available: %s); falling through to %r",
+                                tenant, pinned, sorted(self._models), model)
+                return model
+        return pinned
 
     def register(self, name: str, backend, template: str = "completion") -> None:
         if template not in TEMPLATES:
@@ -140,7 +184,8 @@ class GenerationService:
         serving-layer stats under "serving", and the reserved blocks:
         "resilience" (process-wide counters and live breakers) whenever a
         counter fired or a breaker is registered, "slo" when objectives
-        are configured, "repair" once the SQL repair loop ran."""
+        are configured, "qos" once the front door admitted or shed a
+        labeled request, "repair" once the SQL repair loop ran."""
         from ..app.repair import repair_metrics_block
         from ..utils import slo as slo_mod
         from .resilience import breaker_states
@@ -156,6 +201,9 @@ class GenerationService:
                 snap["resilience"]["breakers"] = breakers
         if slo_mod.ENGINE.enabled:
             snap["slo"] = slo_mod.ENGINE.report()
+        qos_block = ADMISSION.snapshot()
+        if qos_block:
+            snap["qos"] = qos_block
         repair_block = repair_metrics_block()
         if repair_block:
             snap["repair"] = repair_block
@@ -276,6 +324,29 @@ class GenerationService:
                 out["state"] = "degraded"
         return out
 
+    def _per_fleet(self, seam: str) -> Dict[str, object]:
+        """{model: the backend scheduler's `seam()`} for backends serving
+        from a fleet (empty or None results left out)."""
+        out: Dict[str, object] = {}
+        for e in self._entries():
+            fn = getattr(getattr(e.backend, "scheduler", None), seam, None)
+            val = fn() if callable(fn) else None
+            if val:
+                out[e.name] = val
+        return out
+
+    def fleet_health(self) -> Dict[str, list]:
+        """Per-replica lifecycle per model, for backends serving from a
+        `SchedulerPool` (or a supervisor over one): {model: [{replica,
+        state, phase_role, model_id, restarts, ...}]}. Empty for single
+        schedulers and engines. /healthz carries it."""
+        return self._per_fleet("replica_health")
+
+    def fleet_membership(self) -> Dict[str, Dict[str, object]]:
+        """The pool's membership counters per model (`fleet_stats`: size,
+        serving, joins, retires, drains). /healthz carries it."""
+        return self._per_fleet("fleet_stats")
+
     def supports_idempotency(self, model: str) -> bool:
         """Can `model`'s backend dedupe an idempotency key against a
         journal? The drain gate lets such keyed requests through."""
@@ -343,15 +414,33 @@ class GenerationService:
         return {"constrain": constrain}
 
     @classmethod
-    def _request_kwargs(cls, entry: ModelEntry, constrain, deadline_s) -> Dict:
-        """The constrain kwargs, and a deadline for backends that can
-        enforce one (`supports_deadline`); elsewhere a deadline is a
-        best-effort hint and dropped, as in the JAX package."""
+    def _request_kwargs(cls, entry: ModelEntry, constrain, deadline_s,
+                        tenant: str = "", qos: str = "") -> Dict:
+        """The constrain kwargs, a deadline for backends that can enforce
+        one (`supports_deadline`; elsewhere a best-effort hint, dropped, as
+        in the JAX package), and the tenant labels for backends that
+        declare `supports_qos` (elsewhere they were charged at admission
+        and go no further)."""
         kwargs = cls._constrain_kwargs(entry, constrain)
         if deadline_s is not None and getattr(entry.backend, "supports_deadline",
                                               False):
             kwargs["deadline_s"] = deadline_s
+        if (tenant or qos) and getattr(entry.backend, "supports_qos", False):
+            kwargs.update(tenant=tenant, qos=qos)
         return kwargs
+
+    def _admit_qos(self, tenant: str, qos: str,
+                   deadline_s: Optional[float]) -> Optional[float]:
+        """Front-door admission: take one token of the (tenant, class)
+        bucket (raises `TenantShed`, HTTP 429, when it is empty) and give
+        a request without a deadline its class's default. A no-op with
+        QoS off."""
+        if not ADMISSION.enabled:
+            return deadline_s
+        ADMISSION.admit(tenant, qos, fleet_hint=self.retry_after_hint())
+        if deadline_s is None:
+            return ADMISSION.default_deadline(qos)
+        return deadline_s
 
     def generate(
         self,
@@ -370,10 +459,13 @@ class GenerationService:
     ) -> GenerateResult:
         """One completion. `idempotency_key` goes only to backends with a
         journal to dedupe against (`supports_idempotency`: the supervised
-        scheduler) and is dropped elsewhere, as in the JAX package;
-        `tenant` and `qos` are carried, not charged (ROADMAP A11)."""
+        scheduler) and is dropped elsewhere, as in the JAX package. The
+        request passes the front door first (`_admit_qos`), on its
+        tenant's pinned model (`resolve_model`)."""
+        model = self.resolve_model(model, tenant)
         entry = self._entry(model)
-        kwargs = self._request_kwargs(entry, constrain, deadline_s)
+        deadline_s = self._admit_qos(tenant, qos, deadline_s)
+        kwargs = self._request_kwargs(entry, constrain, deadline_s, tenant, qos)
         if idempotency_key is not None and getattr(
                 entry.backend, "supports_idempotency", False):
             kwargs["idempotency_key"] = idempotency_key
@@ -445,7 +537,10 @@ class GenerationService:
         (the scheduler backend's), or as one chunk from a backend without
         that seam (engines, fakes), as the JAX package does. Metrics record
         the request like generate(), also when the consumer closes the
-        stream early; closing it cancels the request."""
+        stream early; closing it cancels the request. The front door runs
+        at the generator's first step: the HTTP layer primes the stream
+        before it sends headers, so a shed is still a real 429."""
+        model = self.resolve_model(model, tenant)
         entry = self._entry(model)
         streamer = getattr(entry.backend, "complete_stream", None)
         if streamer is None:
@@ -457,7 +552,8 @@ class GenerationService:
             if res.response:
                 yield res.response
             return
-        kwargs = self._request_kwargs(entry, constrain, deadline_s)
+        deadline_s = self._admit_qos(tenant, qos, deadline_s)
+        kwargs = self._request_kwargs(entry, constrain, deadline_s, tenant, qos)
         rendered = entry.template(system, prompt)
         tr, own, rid = tracing.begin_or_ambient(request_id, model)
         stats: dict = {}
@@ -490,16 +586,23 @@ class GenerationService:
         sampling: Optional[SamplingParams] = None,
         seed: int = 0,
         constrain=None,
+        tenant: str = "",
+        qos: str = "",
     ) -> List[GenerateResult]:
         """Batched twin of generate(): one device program for all prompts.
-        Each result's latency is the batch's wall clock."""
+        Each result's latency is the batch's wall clock. The front door
+        charges one token a member: a storm cannot fold itself into one
+        batch call."""
+        model = self.resolve_model(model, tenant)
         entry = self._entry(model)
+        for _ in prompts:
+            self._admit_qos(tenant, qos, None)
         rendered = [entry.template(system, p) for p in prompts]
         t0 = time.perf_counter()
         with trace_capture(f"generate-batch-{model}"):
             completions = entry.backend.complete_batch(
                 rendered, max_new_tokens=max_new_tokens, sampling=sampling, seed=seed,
-                **self._constrain_kwargs(entry, constrain),
+                **self._request_kwargs(entry, constrain, None, tenant, qos),
             )
         latency = time.perf_counter() - t0
         # Each member's latency is the batch wall; its share of distinct

@@ -1,8 +1,8 @@
 """Supervised scheduler lifecycle: crash-only serving with journal + replay.
 
 A copy of the JAX package's `serve/supervisor.py`. `SupervisedScheduler`
-wraps a `ContinuousBatchingScheduler` (or anything with its submit surface)
-and treats its event loop as a crash-only component:
+wraps a `ContinuousBatchingScheduler` or a `SchedulerPool` (anything with
+its submit surface) and treats its event loop as a crash-only component:
 
 - **Write-ahead journal.** Every admitted request gets a monotonic request
   id and a journal entry (prompt ids, params, deadline, and a
@@ -39,10 +39,17 @@ and treats its event loop as a crash-only component:
   `recover()` resubmits a spill file at the next start, so retried
   idempotency keys find their results.
 
-The fleet hooks (`_fleet_inner`, `_wire_fleet`, the `*_replica` methods,
-`fleet_stats`) reach the inner object only through `getattr` and do
-nothing over one scheduler; the port has no replica pool yet (ROADMAP
-A11). A constrained entry carries its compiled tables (`constraint`) and
+- **Fleets.** Over a `SchedulerPool` with a replica factory, one
+  replica's crash or stall is a targeted restart of that replica alone
+  (the pool's `on_replica_restart` / `on_replica_drained` call back into
+  this journal), and only that replica's journaled requests re-place on
+  the fleet, each at most max(2, replicas + 1) times before the
+  whole-pool restart takes over; the `*_replica` methods, the per-replica
+  loads and health, and the pool's model, routing and tenant views pass
+  through. A journaled entry keeps its `model_id`, `tenant` and `qos` over
+  replays and the spill. Over one scheduler these hooks do nothing.
+
+A constrained entry carries its compiled tables (`constraint`) and
 its serializable spec (`constraint_spec`, the grammar name or schema
 dict): a replay after a crash resubmits the same tables, and `recover()`
 recompiles a spilled spec through `constraint_resolver`, which
@@ -78,26 +85,12 @@ from .resilience import (
     SchedulerCrashed,
     SchedulerStalled,
 )
+from .qos import DEFAULT_TENANT, bounded_bump
 from .watchdog import stall_threshold
 
 _log = logging.getLogger("lsot.supervisor")
 
 __all__ = ["JournalEntry", "SupervisedScheduler"]
-
-#: The JAX package's `serve/qos.py` tenant label and label-cardinality
-#: bound, for the quarantine counter's tenant axis (the QoS front door
-#: itself is ROADMAP A11).
-_DEFAULT_TENANT = "default"
-_TENANT_TOPK = 32
-
-
-def _bounded_bump(counters: Dict[str, float], tenant: str) -> None:
-    """Increment `counters[tenant]`, folding tenants beyond the top-K into
-    `_other` (bounded label cardinality)."""
-    key = tenant or _DEFAULT_TENANT
-    if key not in counters and len(counters) >= _TENANT_TOPK:
-        key = "_other"
-    counters[key] = counters.get(key, 0) + 1
 
 
 @dataclasses.dataclass
@@ -461,10 +454,29 @@ class SupervisedScheduler:
     def profile_status(self):
         return self._inner.profile_status()
 
+    @property
+    def supports_model_routing(self):
+        """Callers forward a model_id through supervision only when the
+        inner routes on it (a pool)."""
+        return bool(getattr(self._inner, "supports_model_routing", False))
+
+    @property
+    def supports_qos(self):
+        return bool(getattr(self._inner, "supports_qos", False))
+
+    def model_stats(self):
+        """The inner pool's per-model aggregation (None elsewhere)."""
+        fn = getattr(self._inner, "model_stats", None)
+        return fn() if callable(fn) else None
+
+    def routing_stats(self):
+        """The inner pool's placement counters (None elsewhere)."""
+        fn = getattr(self._inner, "routing_stats", None)
+        return fn() if callable(fn) else None
+
     def qos_stats(self):
-        """The inner's per-tenant counters (none yet: QoS is ROADMAP
-        A11) with the supervisor's own per-tenant quarantine axis folded
-        in."""
+        """The inner's per-tenant WFQ counters with the supervisor's own
+        per-tenant quarantine axis folded in."""
         fn = getattr(self._inner, "qos_stats", None)
         out = fn() if callable(fn) else None
         with self._lock:
@@ -1353,8 +1365,7 @@ class SupervisedScheduler:
         if self.max_entry_replays and \
                 e.crash_replays > self.max_entry_replays:
             self._quarantined += 1
-            _bounded_bump(self._quarantined_by_tenant,
-                          e.tenant or _DEFAULT_TENANT)
+            bounded_bump(self._quarantined_by_tenant, e.tenant or DEFAULT_TENANT)
             resilience.inc("quarantined")
             self.flight.event("quarantine", rid=e.rid,
                               replays=e.crash_replays - 1)

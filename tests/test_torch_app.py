@@ -325,16 +325,12 @@ def test_entry_point_refuses_unported_flags(argv, item):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("LSOT_MODELS", "duckdb-nsql=tiny", "A11"),
-    ("LSOT_TENANT_MODELS", "a=duckdb-nsql", "A11"),
-    ("LSOT_POOL_PHASES", "prefill:1,decode:1", "A11"),
+    ("LSOT_POOL_PHASES", "prefill:1,decode:1", "A7.5"),
     ("LSOT_POOL_REMOTE", "1=localhost:9", "A11"),
-    ("LSOT_REPLICA_WEIGHTS", "2,1", "A11"),
     ("LSOT_FLEET_WORKERS", "localhost:9", "A11"),
-    ("LSOT_QOS", "1", "A11"),
-    ("LSOT_TENANT_RATE", "2", "A11"),
-    ("LSOT_TENANT_BURST", "4", "A11"),
-    ("LSOT_TENANT_WEIGHTS", "a=2", "A11"),
+    ("LSOT_LEASE_S", "5", "A11"),
+    ("LSOT_FLEET_MIN", "2", "A11"),
+    ("LSOT_PUMP_DEPTH", "4", "A7.5"),
 ])
 def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, item):
     monkeypatch.setenv(knob, value)
@@ -572,18 +568,19 @@ def test_every_app_config_field_is_read_or_refused(field):
     assert field in _read_by_port() or field in entry.UNPORTED_KNOBS
     if field in entry.UNPORTED_KNOBS:
         assert entry.UNPORTED_KNOBS[field].split()[0] in {
-            "A7.7", "A7.8", "A11", "A12"}
+            "A7.5", "A7.7", "A7.8", "A11", "A12"}
 
 
 @pytest.mark.parametrize("knob,value,item", [
     ("LSOT_STOK_SEED_BENCH", "bench.jsonl", "A12"),
-    ("LSOT_QOS_DEADLINE_INTERACTIVE", "2", "A11"),
-    ("LSOT_QOS_DEADLINE_BATCH", "20", "A11"),
-    ("LSOT_QOS_DEADLINE_REPLAY", "30", "A11"),
+    ("LSOT_SCALE_UP_Q", "8", "A11"),
+    ("LSOT_LEASE_MISSES", "5", "A11"),
+    ("LSOT_FLEET_MAX", "4", "A11"),
 ])
 def test_entry_point_refuses_inert_knobs(monkeypatch, tmp_path, knob, value, item):
-    """The knobs the port read and then ignored are refused by name: the
-    bench seed (A12's bench half) and the QoS deadlines (A11)."""
+    """The knobs of layers the port does not have are refused by name: the
+    bench seed (A12's bench half), the autoscaler's and the remote lease's
+    (A11's remote half)."""
     monkeypatch.setenv(knob, value)
     cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
                              output_dir=str(tmp_path / "out"), history_db=":memory:")
@@ -615,6 +612,192 @@ def test_entry_point_honours_observability_knobs(monkeypatch, tmp_path, knob, va
         entry.build_service(args_for("--cpu"), cfg).close()
     finally:
         entry.configure_observability(AppConfig())
+
+
+TWO_TINY = "duckdb-nsql=tiny,hbm=0.75;llama3.2=tiny,hbm=0.25,template=llama3-chat,add_bos=0"
+
+
+def _jax_fleet():
+    from llm_based_apache_spark_optimization_tpu.serve.factory import (
+        assemble_multimodel_service,
+    )
+
+    return assemble_multimodel_service(JaxAppConfig.from_env().models,
+                                       max_new_tokens=32, num_slots=8)
+
+
+def _admission_view(adm):
+    return (adm.enabled, adm.buckets.rate_base, adm.buckets.burst_base,
+            {c: adm.default_deadline(c) for c in ("interactive", "batch", "replay")})
+
+
+def _knob_effect(knob, svc, jax_side):
+    """What `knob` changed, read from the port's service `svc` or (with
+    `jax_side`) from the JAX package's objects built from the same
+    environment, as the JAX entry point builds them."""
+    from llm_based_apache_spark_optimization_tpu.serve import qos as jax_qos
+    from llm_based_apache_spark_optimization_tpu.serve.scheduler import (
+        ContinuousBatchingScheduler as JaxScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu.serve.service import (
+        GenerationService as JaxService,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.qos import ADMISSION
+
+    if knob in ("LSOT_MODELS", "LSOT_REPLICA_WEIGHTS"):
+        if jax_side:
+            svc, pool, _ = _jax_fleet()
+        else:
+            pool = svc._models["duckdb-nsql"].backend.scheduler
+        try:
+            pages = {r["model"]: r["kv_pages_total"] for r in pool.model_stats()["models"]}
+            return svc.models(), pages, pool.routing_stats()["weights"]
+        finally:
+            if jax_side:
+                svc.close()
+    if knob == "LSOT_TENANT_MODELS":
+        if jax_side:
+            svc = JaxService()
+            for m in ("duckdb-nsql", "llama3.2", "mistral"):
+                svc.register(m, FakeBackend(lambda p: ""))
+        return svc.resolve_model("duckdb-nsql", "a"), svc.resolve_model("duckdb-nsql", "b")
+    if knob in ("LSOT_QOS", "LSOT_TENANT_WEIGHTS"):
+        if jax_side:
+            from llm_based_apache_spark_optimization_tpu.models import TINY as JAX_TINY
+            from llm_based_apache_spark_optimization_tpu.models import init_params as jinit
+
+            sched = JaxScheduler(JAX_TINY, jinit(JAX_TINY, jax.random.key(0)))
+            jax_qos.ADMISSION.reconfigure()
+            adm = jax_qos.ADMISSION
+        else:
+            sched, adm = svc._models["duckdb-nsql"].backend.scheduler, ADMISSION
+        return sched._qos, sched._tenant_weights, adm.enabled
+    if jax_side:
+        jax_qos.ADMISSION.reconfigure()
+        return _admission_view(jax_qos.ADMISSION)
+    return _admission_view(ADMISSION)
+
+
+@pytest.fixture()
+def restore_admission():
+    """Both packages' front doors back to the environment's settings once
+    the test's own environment is undone (request this before
+    `monkeypatch`)."""
+    from llm_based_apache_spark_optimization_tpu.serve import qos as jax_qos
+    from llm_based_apache_spark_optimization_tpu_torch.serve.qos import ADMISSION
+
+    yield
+    ADMISSION.reconfigure()
+    jax_qos.ADMISSION.reconfigure()
+
+
+@pytest.mark.parametrize("knob,value,effect", [
+    ("LSOT_MODELS", TWO_TINY,
+     lambda g: g[0] == ["duckdb-nsql", "llama3.2"]
+     and g[1]["duckdb-nsql"] == 3 * g[1]["llama3.2"]),
+    ("LSOT_TENANT_MODELS", "a=llama3.2,b=nope",
+     lambda g: g == ("llama3.2", "duckdb-nsql")),
+    ("LSOT_REPLICA_WEIGHTS", "2,1", lambda g: g[2] == [2.0, 1.0]),
+    ("LSOT_QOS", "0", lambda g: g == (False, {}, False)),
+    ("LSOT_TENANT_RATE", "2,interactive=4", lambda g: g[1] == 2.0),
+    ("LSOT_TENANT_BURST", "4", lambda g: g[2] == 4.0),
+    ("LSOT_TENANT_WEIGHTS", "a=2,b=0.5", lambda g: g[1] == {"a": 2.0, "b": 0.5}),
+    ("LSOT_QOS_DEADLINE_INTERACTIVE", "2", lambda g: g[3]["interactive"] == 2.0),
+    ("LSOT_QOS_DEADLINE_BATCH", "20", lambda g: g[3]["batch"] == 20.0),
+    ("LSOT_QOS_DEADLINE_REPLAY", "30", lambda g: g[3]["replay"] == 30.0),
+], ids=lambda x: x if isinstance(x, str) and x.startswith("LSOT_") else "")
+def test_entry_point_honours_fleet_and_qos_knobs(restore_admission, monkeypatch,
+                                                 tmp_path, knob, value, effect):
+    """The multi-model pool's and the QoS front door's knobs are honoured,
+    with the effect the JAX entry point gives them: the models registered
+    over one pool and its partition of the arena (`LSOT_MODELS`, with
+    `LSOT_REPLICA_WEIGHTS` the pool's weights), a tenant's pinned model,
+    the schedulers' WFQ switch and weights, and the front door's buckets
+    and per-class deadlines."""
+    monkeypatch.setenv(knob, value)
+    if knob == "LSOT_REPLICA_WEIGHTS":
+        monkeypatch.setenv("LSOT_MODELS", TWO_TINY)
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:")
+    svc = entry.build_service(args_for("--cpu", "--backend", "tiny", "--no-supervise"), cfg)
+    try:
+        got = _knob_effect(knob, svc, jax_side=False)
+    finally:
+        svc.close()
+    assert effect(got), got
+    assert got == _knob_effect(knob, None, jax_side=True)
+
+
+def test_app_config_qos_defaults_on_as_jax():
+    assert AppConfig().qos is True and JaxAppConfig().qos is True
+
+
+def test_healthz_fleet_keys_equal_jax(tmp_path, monkeypatch):
+    """/healthz over the two-model tiny fleet carries `fleet` (each
+    replica's lifecycle) and `fleet_membership` with JAX's keys."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve.factory import (
+        assemble_multimodel_service,
+    )
+
+    monkeypatch.setenv("LSOT_MODELS", TWO_TINY)
+    cfg = AppConfig(input_dir=str(tmp_path), output_dir=str(tmp_path), history_db=":memory:")
+    jcfg = JaxAppConfig(input_dir=str(tmp_path), output_dir=str(tmp_path), history_db=":memory:")
+    tsvc = assemble_multimodel_service(TWO_TINY, num_slots=2, device="cpu")[0]
+    jsvc = _jax_fleet()[0]
+    try:
+        bodies = [create_api_app(tsvc, SQLiteBackend, SQLiteHistory(), cfg).test_client()
+                  .get("/healthz").json(),
+                  jax_api(jsvc, JaxSQLiteBackend, JaxSQLiteHistory(), jcfg).test_client()
+                  .get("/healthz").json()]
+    finally:
+        tsvc.close()
+        jsvc.close()
+
+    def keys(body):
+        return ({m: [sorted(r) for r in reps] for m, reps in body["fleet"].items()},
+                {m: sorted(v) for m, v in body["fleet_membership"].items()},
+                {m: [(r["replica"], r["state"], r["model_id"]) for r in reps]
+                 for m, reps in body["fleet"].items()})
+
+    assert keys(bodies[0]) == keys(bodies[1])
+    assert bodies[0]["fleet"]["duckdb-nsql"][1]["model_id"] == "llama3.2"
+
+
+def test_prometheus_text_of_a_two_model_two_tenant_snapshot_equals_jax(restore_admission):
+    """The port's /metrics snapshot after two tenants' requests on the
+    two-model tiny fleet, rendered by the port and by the JAX package: the
+    same text byte for byte, with the lsot_model_* and lsot_tenant_*
+    families and each model's partitioned pages."""
+    from llm_based_apache_spark_optimization_tpu.utils.prometheus import (
+        render_prometheus as jax_render,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.factory import (
+        assemble_multimodel_service,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.qos import ADMISSION
+    from llm_based_apache_spark_optimization_tpu_torch.utils.prometheus import (
+        render_prometheus,
+    )
+
+    ADMISSION.reconfigure(enabled=True, rate="batch=100", burst="")
+    svc, pool, _ = assemble_multimodel_service(TWO_TINY, num_slots=2, device="cpu")
+    try:
+        for model, tenant, qos in (("duckdb-nsql", "storm", "batch"),
+                                   ("duckdb-nsql", "quiet", "interactive"),
+                                   ("llama3.2", "storm", "batch")):
+            svc.generate(model, "total fare per vendor", max_new_tokens=6,
+                         tenant=tenant, qos=qos)
+        snap = svc.metrics_snapshot()
+    finally:
+        svc.close()
+    text = render_prometheus(snap)
+    assert text == jax_render(snap)
+    assert 'lsot_model_replicas{model="duckdb-nsql",served_model="llama3.2"} 1' in text
+    assert 'lsot_tenant_admitted_total{qos="interactive",tenant="quiet"} 1' in text
+    assert 'lsot_tenant_submitted_total{' in text
+    pages = {r["model"]: r["kv_pages_total"]
+             for r in snap["duckdb-nsql"]["serving"]["models"]["models"]}
+    assert pages["duckdb-nsql"] == 3 * pages["llama3.2"]
 
 
 def test_journal_spill_knob_names_a_file_per_model(monkeypatch, tmp_path):
@@ -683,6 +866,79 @@ def test_entry_point_serves_a_checkpoint_on_the_cpu(tmp_path, fmt):
         assert res.status == 200 and "sql_query" in res.json()
     finally:
         svc.close()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_entry_point_serves_the_lsot_models_checkpoint_fleet(tmp_path, monkeypatch, int8):
+    """`LSOT_MODELS` with `--cpu --backend checkpoint`: `duckdb-nsql` from an
+    HF directory on two replicas and `llama3.2` from a GGUF blob, one
+    supervised pool sized by `--kv-hbm-gb` and split by the specs' `hbm`
+    shares (`--int8` quantizes both trees): /readyz ready, `POST
+    /process-data/` and an explanation on `/api/generate` answer 200,
+    /healthz carries the three replicas and their models. `--int4` and
+    `tiny` sources exit, as in the JAX entry point."""
+    import dataclasses
+
+    import torch
+    from test_torch_tokenizer import write_tokenizer_json
+
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import (
+        save_hf_checkpoint,
+        write_gguf,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import is_qtensor
+
+    pytest.importorskip("tokenizers")
+    mcfg = dataclasses.replace(TINY, max_seq_len=2048)
+    trees = [init_params(mcfg, torch.Generator().manual_seed(s), torch.float32,
+                         device="cpu") for s in (0, 1)]
+    tokdir = tmp_path / "ckpt"
+    save_hf_checkpoint(mcfg, trees[0], tokdir)
+    write_tokenizer_json(tokdir / "tokenizer.json", "wordlevel")
+    write_gguf(mcfg, trees[1], tmp_path / "m.gguf", quant="q8_0")
+    monkeypatch.setenv("LSOT_MODELS", (
+        f"duckdb-nsql=hf:{tokdir},hbm=0.75,replicas=2;"
+        f"llama3.2=gguf:{tmp_path / 'm.gguf'}:{tokdir},hbm=0.25,template=llama3-chat,"
+        f"add_bos=0"))
+    (tmp_path / "input").mkdir()
+    (tmp_path / "input" / "taxi.csv").write_text(CSV)
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "input"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:",
+                             max_new_tokens=8)
+    argv = ["--cpu", "--backend", "checkpoint", "--api", "--sql-model-path", str(tokdir),
+            "--kv-layout", "paged", "--kv-hbm-gb", "0.001", "--max-new-tokens", "8"]
+    svc = entry.build_service(args_for(*argv, *(["--int8"] if int8 else [])), cfg)
+    try:
+        sup = svc._models["duckdb-nsql"].backend.scheduler
+        assert svc._models["llama3.2"].backend.scheduler is sup
+        pool = sup._inner
+        assert [s.model_id for s in pool.schedulers] == ["duckdb-nsql", "duckdb-nsql",
+                                                          "llama3.2"]
+        assert pool.schedulers[0].params is pool.schedulers[1].params
+        assert is_qtensor(pool.schedulers[2].params["blocks"]["wd"]) == int8
+        pages = [s.page_stats["pages_total"] * s.page_stats["page_bytes"]
+                 for s in pool.schedulers]
+        assert pages[0] == pages[1] and pages[2] < pages[0] <= 0.75 * 2**30 * 0.001
+        client = create_api_app(svc, SQLiteBackend, SQLiteHistory(), cfg).test_client()
+        assert client.get("/readyz").json()["state"] == "ready"
+        res = client.post_json("/process-data/", {"input_text": "total fare per vendor",
+                                                  "file_name": "taxi.csv"})
+        assert res.status == 200 and "sql_query" in res.json()
+        explained = client.post_json("/api/generate", {"model": "llama3.2",
+                                                       "prompt": "why did it fail?"})
+        assert explained.status == 200 and explained.json()["done"]
+        fleet = client.get("/healthz").json()["fleet"]
+        assert [(r["replica"], r["model_id"]) for r in fleet["llama3.2"]] == [
+            ("r0", "duckdb-nsql"), ("r1", "duckdb-nsql"), ("r2", "llama3.2")]
+        assert {p["to"] for p in pool.flight_snapshot() if p.get("kind") == "placement"
+                and p.get("model") == "llama3.2"} == {"r2"}
+    finally:
+        svc.close()
+    with pytest.raises(SystemExit, match="--int4"):
+        entry.build_service(args_for(*argv, "--int4"), cfg)
+    monkeypatch.setenv("LSOT_MODELS", "duckdb-nsql=tiny")
+    with pytest.raises(SystemExit, match="source 'tiny'"):
+        entry.build_service(args_for(*argv), AppConfig.from_env(history_db=":memory:"))
 
 
 @pytest.mark.parametrize("serving", ["scheduler", "engine"])

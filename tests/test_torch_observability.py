@@ -574,12 +574,12 @@ def test_metrics_and_debug_payloads_match_jax_over_tiny_schedulers(tmp_path):
                                                         "file_name": "taxi.csv"})
                 scrapes.append(_scrape(client))
             want, got = scrapes
-            # The JAX schedulers report their tenant QoS block
+            # Both packages' schedulers report their tenant QoS block
             # (`serving.qos`, rendered in the lsot_qos_* and lsot_tenant_*
-            # families) with QoS off; the port has no QoS layer yet
-            # (ROADMAP A11).
+            # families): QoS is on by default in both.
             for m in ("duckdb-nsql", "llama3.2", "mistral"):
-                assert want["metrics"][m]["serving"].pop("qos") is not None
+                for scrape in (want, got):
+                    assert scrape["metrics"][m]["serving"]["qos"] is not None
             assert _shapes(got) == _shapes(want)
             serving = got["metrics"]["duckdb-nsql"]["serving"]
             assert {"prefix_cache", "prefix", "perf", "watchdog",
