@@ -14,6 +14,8 @@
                                                 # 7B weights alone
     python3 chip_smoke.py --fleet-only   # phases 1, 2, then 16 (a) on the 7B
                                          # and 3B weights alone
+    python3 chip_smoke.py --disagg-only  # phases 1, 2, then 17 on the 7B
+                                         # weights alone
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -220,9 +222,10 @@ Phases, each fatal on failure:
    `write_gguf` (quantized on the card). `load_gguf_checkpoint` must give
    the direct q4_0 -> f32 -> bf16 round trip of the seed tree bit for bit
    (a second q4_0 implementation on the card, `q4_0_round_trip`), and
-   `SchedulerBackend.from_gguf(quantize_int4=True, kv_quant="int8",
-   supervise=True)` (contiguous, 8 slots, max_seq 8192) the int4 tree of
-   that round trip; three requests one after the other give the greedy
+   the constructor `SchedulerBackend.from_gguf` calls, over that one load
+   (`_from_checkpoint(quantize_int4=True, kv_quant="int8",
+   supervise=True)`: contiguous, 8 slots, max_seq 8192; the blob is read
+   once, for the run's time), the int4 tree of that round trip; three requests one after the other give the greedy
    tokens of a scheduler built from the round trip in memory. Then phase
    6's traffic, launch counts exact (int4 matmul, flash prefill,
    quantized decode: rows 1, 3 and 8).
@@ -314,8 +317,9 @@ Phases, each fatal on failure:
    embed; premise: vanilla greedy repeats the prompt's last token): the
    engine (contiguous, paged int8) and the contiguous scheduler equal
    vanilla outright at >= D tokens a round;
-   (c) the contiguous and the paged scheduler in bf16, int8 KV and
-   int4/int8: six requests at once (one sampled), then the sampled one
+   (c) the contiguous and the paged scheduler in bf16 and the contiguous
+   one with int4 weights over the int8 cache (SPEC_SCHED_VARIANTS: the
+   paged int8 pool's verify rounds run in phase 14 (d)): six requests at once (one sampled), then the sampled one
    again in another batch mix (its tokens repeat), greedy streams beside
    the vanilla scheduler's; every verify round under sync debug mode
    "error" (no host synchronisation inside a round);
@@ -431,6 +435,35 @@ Phases, each fatal on failure:
    process of its own (`--kv-layout paged --kv-hbm-gb 4`): one `POST
    /process-data/`, one explanation on `/api/generate`, `/healthz`'s
    `fleet` (`fleet_entry_point`).
+
+17. The phase-split fleet (ROADMAP A7.5: phase roles and the prefill ->
+   decode KV handoff), after phase 16 (a), on phase 7's 7B bf16 tree at
+   full width and depth (`disagg_serve`). First the entry point's `--dp N
+   --scheduler`, N one more than the cards, exits with the JAX entry
+   point's device-count message before any checkpoint is read. Then a
+   supervised `SchedulerPool` built through a per-replica factory (one
+   card cannot take the entry point's `--dp 2`): r0 `prefill`, r1
+   `decode`, sharing the tree, paged, pages of 64, DISAGG_SLOTS slots and
+   DISAGG_HBM_GB GiB of KV each, behind a SchedulerBackend: (a) over the
+   bf16 pool, 12 NL->SQL requests in flight together, the prefill
+   replica's second pack pass holding a request killed by `sched:handoff`
+   (no blob of that pass exported, its first tokens streamed); (b) over
+   the int8 pool (`kv_quant="int8"`), 6 requests. Every request is
+   imported by r1, decoded in place for backpressure or prefilled again
+   by r1 after the fault; exports equal imports over every replica
+   object; each export's bytes are its pages x the pool's page bytes (7B
+   bf16: 32 MiB a page) and its pages cover prompt + first token; nothing
+   lost, only r0 restarted, every stream equal to its result (a replayed
+   request's first token may leave its replay's only at a near-tie); no
+   page leaked; launch counts exact over every replica object (the faulted
+   r0 and its rebuild included); `handoff_stats`, the decode records'
+   pages_migrated / handoff_wait_s and the lsot_handoff_* families agree;
+   a blob's round trip between the two pools bit for bit; each greedy
+   stream equal to a lone mixed scheduler's of the same factory fed the
+   same prompts at once, or leaving it at a near-tie (`fleet_compare`).
+   Prints export seconds, import waits, bytes a request, the split
+   fleet's and the mixed control's TTFT p50 and decode tok/s, and a
+   `{"disagg": ...}` line before the kernels line.
 
 Every phase prints its seconds.
 
@@ -3691,11 +3724,14 @@ def counted_traffic(torch, svc, incarnations, label, err_model=None, sql_model=N
 def gguf_serve(torch, engines, root):
     """(a) GGUF, the reference's deployment format, at full width and depth:
     LLAMA32_3B's seed-0 bf16 tree written as a Q4_0 blob by the port's
-    `write_gguf`, loaded by `SchedulerBackend.from_gguf(quantize_int4=True,
-    kv_quant="int8", supervise=True)` (contiguous, 8 slots, max_seq 8192).
-    The loaded tree must equal the direct round trip of the seed tree bit
-    for bit, and requests through the loaded backend the tokens of a
-    backend built from that round trip in memory. Returns (launches, blob)."""
+    `write_gguf` and read once by `load_gguf_checkpoint`: the loaded tree
+    must equal the direct round trip of the seed tree bit for bit. The
+    backend is built over that tree by the constructor `from_gguf` calls
+    (`SchedulerBackend._from_checkpoint(quantize_int4=True,
+    kv_quant="int8", supervise=True)`: contiguous, 8 slots, max_seq 8192;
+    `from_gguf`'s read of a blob runs in (d), 14 (e) and 16 (b)), and
+    requests through it must give the tokens of a backend built from the
+    round trip in memory. Returns (launches, blob)."""
     from llm_based_apache_spark_optimization_tpu_torch.checkpoint import (
         load_gguf_checkpoint,
         write_gguf,
@@ -3735,13 +3771,13 @@ def gguf_serve(torch, engines, root):
     n = assert_trees_equal(torch, loaded, ref, "GGUF load vs q4_0 round trip")
     print(f"  loaded in {t_load:.1f} s; {n} leaves equal the direct q4_0 -> f32 -> "
           f"bf16 round trip of the seed tree bit for bit", flush=True)
-    del loaded
-    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    sb = SchedulerBackend.from_gguf(path, tok, quantize_int4=True, kv_quant="int8",
-                                    supervise=True, num_slots=8, decode_chunk=8,
-                                    device="cuda", max_new_tokens=MAX_NEW)
+    sb = SchedulerBackend._from_checkpoint(
+        lambda dtype, device: (lcfg, loaded), os.path.basename(path), tok,
+        quantize_int4=True, kv_quant="int8", supervise=True, num_slots=8,
+        decode_chunk=8, device="cuda", max_new_tokens=MAX_NEW)
+    del loaded
     torch.cuda.synchronize()
     sup = sb.scheduler
     assert isinstance(sup, SupervisedScheduler)
@@ -3752,7 +3788,7 @@ def gguf_serve(torch, engines, root):
     del ref
     assert_trees_equal(torch, inner.params, params4, "int4 trees of the loaded and "
                        "the round-trip weights")
-    print(f"  from_gguf(quantize_int4, kv int8, supervised) in "
+    print(f"  the backend (quantize_int4, kv int8, supervised) over the loaded tree in "
           f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB allocated", flush=True)
     refsched = ContinuousBatchingScheduler(lcfg, params4, num_slots=8, decode_chunk=8,
@@ -3952,7 +3988,7 @@ def checkpoints(torch, engines):
 
     root = tempfile.mkdtemp(prefix="lsot-checkpoints-")
     try:
-        phase("checkpoint (a): GGUF Q4_0 3B -> from_gguf, int4 + int8 KV, supervised")
+        phase("checkpoint (a): GGUF Q4_0 3B -> one load, int4 + int8 KV, supervised")
         gguf_launches, blob = gguf_serve(torch, engines, root)
         phase("checkpoint (b): HF safetensors 7B -> from_hf_checkpoint, supervised")
         hf_launches, backend, hf_dir = hf_serve(torch, engines, root)
@@ -4060,12 +4096,14 @@ def recording_tokenizer():
     return RecordingTokenizer()
 
 
-def fleet_compare(torch, label, cfg, params, stop_ids, streams, got, want, bounds):
+def fleet_compare(torch, label, cfg, params, stop_ids, streams, got, want, bounds,
+                  kv_quant=None):
     """Hold the pool's greedy streams `got` to a lone scheduler's `want` over
     the same prompts: equal, or, at the first diverging token, the two
-    tokens' logits (`pair_gap`) within twice the model's top-id drift,
-    measured by `logit_drift` as phase 13 measures it (once a model, on the
-    first divergence). Returns the divergences."""
+    tokens' logits (`pair_gap`) within twice the top-id drift of the model
+    and its KV cache type (`kv_quant`), measured by `logit_drift` as phase
+    13 measures it (once a label, on the first divergence). Returns the
+    divergences."""
     out = []
     for i, (p, a, b) in enumerate(zip(streams, got, want)):
         j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -4074,7 +4112,7 @@ def fleet_compare(torch, label, cfg, params, stop_ids, streams, got, want, bound
                 f"{label}[{i}]: lengths {len(a)} != {len(b)} without a stop"
             continue
         if label not in bounds:
-            bounds[label] = 2 * logit_drift(torch, cfg, params, None)["eps_top"]
+            bounds[label] = 2 * logit_drift(torch, cfg, params, kv_quant)["eps_top"]
         gap = pair_gap(torch, cfg, params, p, b[:j], b[j], a[j])
         out.append(dict(path=label, stream=i, position=j, gap=round(gap, 5),
                         bound=round(bounds[label], 5)))
@@ -4359,6 +4397,351 @@ def fleet_entry_point(torch, hf_dir, blob):
                         "--max-new-tokens", str(MAX_NEW)),
                 env_extra={"LSOT_MODELS": spec},
                 explain={"model": "llama3.2", "prompt": ERROR_PROMPT, "system": SYSTEM_ERR})
+
+
+# ------------------------------------------------------------ disaggregated
+
+DISAGG_SLOTS = 8      # slots a replica of phase 17
+DISAGG_HBM_GB = 8     # KV a replica of phase 17
+# (label, kv_quant, requests in flight together, whether a handoff faults)
+DISAGG_VARIANTS = (("bf16", None, 12, True), ("int8", "int8", 6, False))
+
+
+def dp_entry_refusal(torch):
+    """`--dp N --scheduler` through the entry point, N one more than the
+    cards: the JAX entry point's device-count message, before any
+    checkpoint is read (the path does not exist)."""
+    from llm_based_apache_spark_optimization_tpu_torch.app.__main__ import main as app_main
+
+    n = torch.cuda.device_count()
+    try:
+        app_main(["--backend", "checkpoint", "--api", "--sql-model-path",
+                  "/nonexistent/checkpoint", "--dp", str(n + 1)])
+    except SystemExit as e:
+        msg = str(e.code)
+    else:
+        raise AssertionError("--dp past the card count did not exit")
+    want = f"--dp {n + 1} --tp 1 needs {n + 1} devices, found {n}"
+    print(f"  entry point --dp {n + 1} --scheduler: {msg!r}", flush=True)
+    assert msg == want, f"{msg!r} != {want!r}"
+    return msg
+
+
+def blob_round_trip(torch, src, dst, npg):
+    """npg free pages of `src`'s pool filled at random, exported to a host
+    blob, imported into npg free pages of `dst`'s pool and exported again:
+    bit for bit. Returns (export s, import s, bytes) of the first leg."""
+    import numpy as np
+
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        export_pages,
+        handoff_bytes,
+        import_pages,
+    )
+
+    a, b = src._page_alloc.alloc(npg), dst._page_alloc.alloc(npg)
+    assert a is not None and b is not None, "no free pages for the round trip"
+    g = torch.Generator(device="cuda").manual_seed(17)
+    with torch.inference_mode():
+        for arr in src._pool.values():
+            shape = arr[:, a].shape
+            arr[:, a] = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                       dtype=torch.int8) if arr.dtype == torch.int8
+                         else torch.randn(shape, generator=g, device="cuda").to(arr.dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = export_pages(src._pool, a)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        import_pages(dst._pool, b, blob)
+        torch.cuda.synchronize()
+        t_import = time.perf_counter() - t0
+        back = export_pages(dst._pool, b)
+    assert all(np.array_equal(x, y) for x, y in zip(blob, back)), "blob round trip differs"
+    src._page_alloc.release(a)
+    dst._page_alloc.release(b)
+    return t_export, t_import, handoff_bytes(blob)
+
+
+def disagg_serve(torch, engines, smi):
+    """Phase 17: the phase-split fleet. The entry point's `--dp` past the
+    card count exits with the JAX entry point's message first. Then, for
+    each DISAGG_VARIANTS entry, a supervised `SchedulerPool` built through
+    a per-replica factory over phase 7's 7B bf16 tree (full width and
+    depth): replica r0 `prefill`, r1 `decode`, paged, pages of 64,
+    DISAGG_SLOTS slots and DISAGG_HBM_GB GiB of KV each, (a) over the bf16
+    pool, (b) over the int8 pool, behind a SchedulerBackend and a
+    GenerationService; the NL->SQL requests in flight together. In (a) the
+    prefill replica's second pack pass that holds a request faults
+    (`sched:handoff`): it dies before that pass exports a blob, its
+    requests (their first tokens streamed) re-prefill on a sibling with
+    the delivered token suppressed, and only r0 is rebuilt. Checks: every
+    request is imported by r1, decoded in place for backpressure, or
+    prefilled again by r1 after the fault; exports equal imports over
+    every replica object; each export's bytes are its pages x the pool's
+    page bytes and its pages cover prompt + first token; no request lost,
+    each stream equal to its result (a replayed request's first token may
+    leave the replay's only at a near-tie); no page leaked; launch counts
+    exact over every replica object; the flight records' pages_migrated
+    and handoff_wait_s, `handoff_stats` and the lsot_handoff_* families
+    non-zero and equal; a blob round trip between the two pools bit for
+    bit; each greedy stream equal to that of a lone mixed scheduler built
+    by the same factory and fed the same prompts, or leaving it only at a
+    near-tie (`fleet_compare`). Returns (launches by path, numbers)."""
+    import statistics
+
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        page_bytes,
+        pages_for_tokens,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import (
+        GenerationService,
+        SchedulerBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+        SchedulerPool,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.supervisor import (
+        SupervisedScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    numbers = {"entry_point_dp": dp_entry_refusal(torch)}
+    e7 = engines["duckdb-nsql"]
+    cfg, params = e7.cfg, e7.params
+    tok = ByteTokenizer()
+    roles = ("prefill", "decode")
+    launches, bounds = {}, {}
+
+    def p50(xs):
+        return round(statistics.median(xs), 6) if xs else None
+
+    def timed_burst(submit, prompts):
+        """Submit every prompt at once through `submit(ids, on_token)`.
+        Returns the results (None for a lost request), the streams, and the
+        p50s of TTFT, decode tok/s from the first token ((n - 1) / (last -
+        first): the client's rate, the split fleet's handoff inside), the
+        gap from the first to the second token (split: the handoff) and
+        the decode leg's tok/s from the second token ((n - 2) / (last -
+        second))."""
+        streams = [[] for _ in prompts]
+        stamps = [[0.0, 0.0, 0.0, 0.0] for _ in prompts]  # submit, first, second, last
+
+        def tap(i):
+            def on_token(t):
+                now = time.perf_counter()
+                streams[i].append(t)
+                if len(streams[i]) <= 2:
+                    stamps[i][len(streams[i])] = now
+                stamps[i][3] = now
+            return on_token
+
+        futs = []
+        for i, p in enumerate(prompts):
+            stamps[i][0] = time.perf_counter()
+            futs.append(submit(p, tap(i)))
+        outs = []
+        for f in futs:
+            try:
+                outs.append(f.result(timeout=600))
+            except Exception as e:  # noqa: BLE001 — a lost request, counted
+                print(f"    lost: {type(e).__name__}: {e}", flush=True)
+                outs.append(None)
+        ttft = [s[1] - s[0] for s in stamps if s[1]]
+        tok_s = [(len(o) - 1) / (s[3] - s[1]) for o, s in zip(outs, stamps)
+                 if o and len(o) > 1 and s[3] > s[1]]
+        gap = [s[2] - s[1] for s in stamps if s[2]]
+        leg = [(len(o) - 2) / (s[3] - s[2]) for o, s in zip(outs, stamps)
+               if o and len(o) > 2 and s[3] > s[2]]
+        return outs, streams, {"ttft_p50_s": p50(ttft), "decode_tok_s_p50": p50(tok_s),
+                               "second_token_gap_s_p50": p50(gap),
+                               "decode_leg_tok_s_p50": p50(leg)}
+
+    for name, kv_quant, n, fault in DISAGG_VARIANTS:
+        label = f"disagg_{name}"
+        prompts = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in (SCHED_SQL * 2)[:n]]
+
+        def make(role, kv_quant=kv_quant):
+            return ContinuousBatchingScheduler(
+                cfg, params, num_slots=DISAGG_SLOTS, stop_ids=e7.stop_ids,
+                kv_layout="paged", kv_page_size=SCHED["kv_page_size"],
+                kv_hbm_budget_bytes=DISAGG_HBM_GB * 2**30, kv_quant=kv_quant,
+                phase_role=role, device="cuda")
+
+        def make_replica(i):
+            if i == 0:
+                FAULTS.clear()  # one crash episode: the rebuilt r0 runs clean
+            return make(roles[i])
+
+        t_build = time.perf_counter()
+        sup = SupervisedScheduler(
+            lambda: SchedulerPool([make_replica(0), make_replica(1)], factory=make_replica),
+            name=f"scheduler-pool:{label}")
+        svc = GenerationService()
+        svc.register("duckdb-nsql", SchedulerBackend(sup, tok, max_new_tokens=MAX_NEW))
+        pool = sup._inner
+        pre, dec = pool.schedulers
+        assert [s.phase_role for s in pool.schedulers] == list(roles)
+        assert pre.on_handoff is not None and dec.on_handoff is None
+        print(f"  {label}: pool built in {time.perf_counter() - t_build:.2f} s, "
+              f"{pre.page_stats['pages_total']} pages of "
+              f"{pre.page_stats['page_bytes'] / 2**20:.1f} MiB a replica; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+        armed = []
+        if fault:
+            pack = pre._pack_handoffs
+
+            def pack_then_fault():
+                # The second pack pass that holds a request dies at its first
+                # live request's handoff: its first token streamed, no blob of
+                # that pass exported.
+                if pre._handoff_pending and pre._ho_exports and not armed:
+                    armed.append(pre._ho_exports)
+                    FAULTS.configure("sched:handoff:1", 0)
+                pack()
+
+            pre._pack_handoffs = pack_then_fault
+        objects = {id(sc): (sc, sc.rounds_issued, sc.prefill_forwards)
+                   for sc in pool.schedulers}
+        h0 = sup.health()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            outs, streams, split = timed_burst(
+                lambda p, on: sup.submit(p, max_new_tokens=MAX_NEW, on_token=on), prompts)
+        finally:
+            FAULTS.clear()
+        numbers_v = {"requests": n, "burst_s": round(time.perf_counter() - t0, 4)}
+        for sc in pool.schedulers:  # a rebuilt replica started after the reset
+            objects.setdefault(id(sc), (sc, 0, 0))
+        for sc in pool.schedulers:
+            wait_idle(sc)
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        expected = dict.fromkeys(LAUNCHES, 0)
+        for sc, rounds0, prefills0 in objects.values():
+            expect_paged(expected, sc, sc.rounds_issued - rounds0,
+                         sc.prefill_forwards - prefills0)
+        health = sup.health()
+        replayed = health["replayed"] - h0["replayed"]
+        objs = [sc for sc, _, _ in objects.values()]
+        ho = {k: sum(getattr(sc, f"_ho_{k}") for sc in objs)
+              for k in ("exports", "imports", "inplace", "backpressure")}
+        direct = sum(sc._rid_seq - sc._ho_imports for sc in objs if sc.phase_role == "decode")
+        reps = {r["replica"]: r for r in pool.replica_health()}
+        print(f"  {label}: {n} requests in {numbers_v['burst_s']} s; exports {ho['exports']}, "
+              f"imports {ho['imports']}, in place {ho['inplace']} (backpressure "
+              f"{ho['backpressure']}), prefilled by r1 after the fault {direct}; supervisor "
+              f"replayed {replayed}, lost {health['lost']}, restarts {health['restarts']}; "
+              f"replicas {[(k, v['state'], v['restarts']) for k, v in reps.items()]}; "
+              f"launches {launches[label]} expected {expected}", flush=True)
+        assert all(o is not None for o in outs), f"{label}: a request was lost"
+        assert health["lost"] == 0 and health["restarts"] == 0, health
+        assert ho["exports"] == ho["imports"] > 0, ho
+        assert ho["inplace"] == ho["backpressure"], ho
+        assert ho["imports"] + ho["inplace"] + direct == n, (ho, direct, n)
+        assert launches[label] == expected, f"{label}: launch counts {launches[label]} != {expected}"
+        if fault:
+            assert armed and reps["r0"]["restarts"] == 1 and reps["r1"]["restarts"] == 0, reps
+            assert replayed >= 1 and direct <= replayed, (replayed, direct)
+        else:
+            assert not replayed and not direct and all(
+                r["restarts"] == 0 for r in reps.values()), reps
+        # Each stream is its result: a token delivered once. A replayed
+        # request's first token came from the faulted prefill; its replay may
+        # leave it only at a near-tie.
+        first_ties = []
+        for i, (s, o) in enumerate(zip(streams, outs)):
+            assert len(s) == len(o) and s[1:] == o[1:], f"{label}[{i}]: stream {s} != {o}"
+            if s[:1] != o[:1]:
+                bound = bounds.setdefault(f"disagg_{name}", 2 * logit_drift(
+                    torch, cfg, params, kv_quant)["eps_top"])
+                gap = pair_gap(torch, cfg, params, prompts[i], [], o[0], s[0])
+                first_ties.append(dict(stream=i, gap=round(gap, 5), bound=round(bound, 5)))
+                assert fault and gap <= bound, f"{label}[{i}]: first token {s[0]} != {o[0]}"
+        # Every blob: its pages cover prompt + first token, its bytes the
+        # pages at the pool's page bytes.
+        pb = page_bytes(cfg, SCHED["kv_page_size"], params["final_norm"].dtype.itemsize,
+                        kv_quant)
+        want_pages = {pages_for_tokens(len(p) + 1, SCHED["kv_page_size"]) for p in prompts}
+        exports = [r for sc in objs for r in sc.flight.snapshot()
+                   if r.get("kind") == "handoff_export"]
+        imports = [r for r in dec.flight.snapshot() if r.get("kind") == "handoff_import"]
+        assert len(exports) == ho["exports"] and len(imports) == ho["imports"]
+        assert all(r["pages"] in want_pages and r["bytes"] == r["pages"] * pb
+                   for r in exports), (want_pages, pb, exports[:2])
+        # The three views of the handoffs agree.
+        hs = {r["replica"]: r for r in pool.handoff_stats["replicas"]}
+        mig = [r for r in dec.flight.snapshot() if "pages_migrated" in r]
+        text = svc.metrics_prometheus()
+
+        def family(fam, replica):
+            for ln in text.splitlines():
+                if ln.startswith(fam + "{") and f'replica="{replica}"' in ln:
+                    return float(ln.rsplit(" ", 1)[1])
+            raise AssertionError(f"{fam} for {replica} missing from /metrics")
+
+        assert sum(r["pages_migrated"] for r in mig) == hs["r1"]["pages_in"] > 0
+        assert abs(sum(r["handoff_wait_s"] for r in mig) - hs["r1"]["wait_s_sum"]) \
+            <= 1e-5 * (len(mig) + 1)
+        assert hs["r1"]["wait_count"] == hs["r1"]["imports"] == len(imports)
+        assert family("lsot_handoff_imports_total", "r1") == hs["r1"]["imports"] > 0
+        assert family("lsot_handoff_pages_in_total", "r1") == hs["r1"]["pages_in"]
+        # (a)'s rebuilt r0 may export nothing: the fault's replays can all
+        # land on r1 while it restarts.
+        assert family("lsot_handoff_exports_total", "r0") == hs["r0"]["exports"]
+        assert family("lsot_handoff_bytes_out_total", "r0") == hs["r0"]["bytes_out"]
+        place = [r for r in pool.flight_snapshot() if r.get("kind") == "handoff_place"]
+        assert len(place) == ho["exports"] and all(r["to"] == "r1" for r in place), place[:3]
+        # A blob's round trip between the two pools on the card.
+        npg = max(want_pages)
+        t_exp, t_imp, blob_bytes = blob_round_trip(torch, pool.schedulers[0], dec, npg)
+        for sc in pool.schedulers:
+            ps = wait_idle(sc)
+            assert ps["pages_in_use"] == ps["prefix_resident_pages"], ps
+        svc.close()
+        del svc, sup, pool, pre, dec, objects, objs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The control: a lone mixed scheduler of the same factory, the same
+        # prompts at once.
+        lone = make("mixed")
+        with lone:
+            want, _, mixed = timed_burst(
+                lambda p, on: lone.submit(p, max_new_tokens=MAX_NEW, on_token=on), prompts)
+        del lone
+        torch.cuda.empty_cache()
+        div = fleet_compare(torch, f"disagg_{name}", cfg, params, e7.stop_ids, prompts,
+                            outs, want, bounds, kv_quant=kv_quant)
+        export_s = [r["export_s"] for r in exports]
+        wait_s = [r["wait_s"] for r in imports]
+        numbers_v.update(
+            exports=ho["exports"], imports=ho["imports"], inplace=ho["inplace"],
+            backpressure=ho["backpressure"], reprefilled=direct, replayed=replayed,
+            fault_after_exports=armed[0] if armed else None,
+            export_s={"p50": p50(export_s), "max": round(max(export_s), 6)},
+            import_wait_s={"p50": p50(wait_s), "max": round(max(wait_s), 6)},
+            bytes_per_request=sorted({r["bytes"] for r in exports}),
+            pages_per_request=sorted({r["pages"] for r in exports}),
+            round_trip={"pages": npg, "bytes": blob_bytes, "export_s": round(t_exp, 6),
+                        "import_s": round(t_imp, 6)},
+            split=split, mixed=mixed, first_token_ties=first_ties,
+            streams_equal=f"{n - len(div)} of {n}", divergences=div)
+        numbers[name] = numbers_v
+        print(f"  {label}: export s p50 {numbers_v['export_s']}, import wait s "
+              f"{numbers_v['import_wait_s']}, bytes a request "
+              f"{numbers_v['bytes_per_request']}; round trip {numbers_v['round_trip']}; "
+              f"split {split} vs mixed {mixed}; {numbers_v['streams_equal']} streams equal "
+              f"to the lone mixed scheduler, {len(div)} near-ties; on {smi}", flush=True)
+    return launches, numbers
 
 
 # --------------------------------------------------------------- profile
@@ -5744,9 +6127,21 @@ def spec_copying(torch, eng):
     return launches, tprs
 
 
+#: Phase 13 (c)'s scheduler variants: (layout, weights, KV cache). Only
+#: those whose kernels and layouts no other phase launches at the verify
+#: shapes: the contiguous and the paged bf16 schedulers (and their edge
+#: request), and int4 weights over the contiguous int8 cache (row 8 at R =
+#: 72, row 5 through the cache's one-page view). The paged int8 pool's
+#: verify rounds run in phase 14 (d) and the contiguous int8 cache's in the
+#: int4 variant; the paged int4 variant's kernels are the other two's.
+SPEC_SCHED_VARIANTS = (("contiguous", "bf16", None), ("contiguous", "int4_int8", "int8"),
+                       ("paged", "bf16", None))
+
+
 def spec_schedulers(torch, engines, params4, tally_div):
-    """(c) The contiguous scheduler (the app's default) and the paged one,
-    each in bf16, over the int8 KV cache and with int4 weights over it, D =
+    """(c) The SPEC_SCHED_VARIANTS: the contiguous scheduler (the app's
+    default) and the paged one in bf16, and the contiguous one with int4
+    weights over the int8 KV cache, D =
     8, 8 slots at the default max_seq: six requests at once (five greedy
     NL->SQL prompts, one sampled), then the sampled request again beside two
     other greedy ones (another batch mix): its tokens must repeat. The five
@@ -5780,68 +6175,67 @@ def spec_schedulers(torch, engines, params4, tally_div):
     edge = tok.encode(f"{SYSTEM_SQL}\n" * (cfg.max_seq_len // 64))[:room // 128 * 128 - 10]
     sp = SamplingParams(**SPEC_SAMPLED)
     launches, tprs = {}, {}
-    for layout in ("contiguous", "paged"):
-        for wname, kv_quant in (("bf16", None), ("int8", "int8"), ("int4_int8", "int8")):
-            label = f"spec_{layout}_scheduler_{wname}"
-            params = params4 if wname == "int4_int8" else eng.params
-            kw = dict(num_slots=8, stop_ids=eng.stop_ids, kv_layout=layout,
-                      kv_quant=kv_quant, device="cuda")
-            if layout == "paged":
-                kw["kv_page_size"] = SCHED["kv_page_size"]
-            with ContinuousBatchingScheduler(cfg, params, **kw) as vs:
-                want = burst(vs, prompts[:5], MAX_NEW)
-                if wname == "bf16":
-                    want.append(vs.submit(edge, max_new_tokens=MAX_NEW).result(timeout=600))
-            del vs
-            sched = ContinuousBatchingScheduler(cfg, params, speculative_draft=SPEC_DRAFT,
-                                                **kw)
-            t0 = time.perf_counter()
-            with sched, no_sync_rounds(torch, ContinuousBatchingScheduler):
-                torch.cuda.synchronize()
-                reset_launches()
-                switch = sys.getswitchinterval()
-                sys.setswitchinterval(BURST_SWITCH_S)
-                try:
-                    futs = [sched.submit(p, max_new_tokens=MAX_NEW) for p in prompts[:5]]
-                    futs.append(sched.submit(prompts[5], max_new_tokens=MAX_NEW,
-                                             sampling=sp, seed=11))
-                finally:
-                    sys.setswitchinterval(switch)
-                outs = [f.result(timeout=600) for f in futs]
-                futs = [sched.submit(prompts[5], max_new_tokens=MAX_NEW, sampling=sp,
-                                     seed=11),
-                        sched.submit(prompts[0], max_new_tokens=MAX_NEW // 2),
-                        sched.submit(prompts[3], max_new_tokens=MAX_NEW)]
-                again = [f.result(timeout=600) for f in futs]
-                if wname == "bf16":
-                    outs.append(sched.submit(edge, max_new_tokens=MAX_NEW).result(timeout=600))
-                wait_settled(sched)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                launches[label] = dict(LAUNCHES)
-            exp = dict.fromkeys(LAUNCHES, 0)
-            expect_spec(exp, sched, sched.rounds_issued, sched.prefill_forwards)
-            greedy = [0, 1, 2, 3, 4] + ([6] if wname == "bf16" else [])
-            same = compare_streams(torch, eng, label, [(prompts[:5] + [None, edge])[i]
-                                                       for i in greedy],
-                                   [outs[i] for i in greedy], want, tally_div,
-                                   params=params)
-            st = sched.speculation_stats
-            tprs[label] = spec_report(label, st, outs + again)
-            print(f"  {label}: {wall:.3f} s, {sched.rounds_issued} rounds, "
-                  f"{sched.prefill_forwards} prefill forwards; {same} of {len(greedy)} greedy "
-                  f"streams equal to vanilla"
-                  f"{f' (the {len(edge)}-token edge prompt among them)' if 6 in greedy else ''}"
-                  f"; the sampled request repeats in another batch mix: "
-                  f"{again[0] == outs[5]}; launches {launches[label]} expected {exp}",
-                  flush=True)
-            assert again[0] == outs[5], f"{label}: the sampled request did not repeat"
-            assert launches[label] == exp, f"{label}: launch counts {launches[label]} != {exp}"
-            if layout == "paged":
-                sched._page_alloc.check()
-            del sched
-            gc.collect()
-            torch.cuda.empty_cache()
+    for layout, wname, kv_quant in SPEC_SCHED_VARIANTS:
+        label = f"spec_{layout}_scheduler_{wname}"
+        params = params4 if wname == "int4_int8" else eng.params
+        kw = dict(num_slots=8, stop_ids=eng.stop_ids, kv_layout=layout,
+                  kv_quant=kv_quant, device="cuda")
+        if layout == "paged":
+            kw["kv_page_size"] = SCHED["kv_page_size"]
+        with ContinuousBatchingScheduler(cfg, params, **kw) as vs:
+            want = burst(vs, prompts[:5], MAX_NEW)
+            if wname == "bf16":
+                want.append(vs.submit(edge, max_new_tokens=MAX_NEW).result(timeout=600))
+        del vs
+        sched = ContinuousBatchingScheduler(cfg, params, speculative_draft=SPEC_DRAFT,
+                                            **kw)
+        t0 = time.perf_counter()
+        with sched, no_sync_rounds(torch, ContinuousBatchingScheduler):
+            torch.cuda.synchronize()
+            reset_launches()
+            switch = sys.getswitchinterval()
+            sys.setswitchinterval(BURST_SWITCH_S)
+            try:
+                futs = [sched.submit(p, max_new_tokens=MAX_NEW) for p in prompts[:5]]
+                futs.append(sched.submit(prompts[5], max_new_tokens=MAX_NEW,
+                                         sampling=sp, seed=11))
+            finally:
+                sys.setswitchinterval(switch)
+            outs = [f.result(timeout=600) for f in futs]
+            futs = [sched.submit(prompts[5], max_new_tokens=MAX_NEW, sampling=sp,
+                                 seed=11),
+                    sched.submit(prompts[0], max_new_tokens=MAX_NEW // 2),
+                    sched.submit(prompts[3], max_new_tokens=MAX_NEW)]
+            again = [f.result(timeout=600) for f in futs]
+            if wname == "bf16":
+                outs.append(sched.submit(edge, max_new_tokens=MAX_NEW).result(timeout=600))
+            wait_settled(sched)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[label] = dict(LAUNCHES)
+        exp = dict.fromkeys(LAUNCHES, 0)
+        expect_spec(exp, sched, sched.rounds_issued, sched.prefill_forwards)
+        greedy = [0, 1, 2, 3, 4] + ([6] if wname == "bf16" else [])
+        same = compare_streams(torch, eng, label, [(prompts[:5] + [None, edge])[i]
+                                                   for i in greedy],
+                               [outs[i] for i in greedy], want, tally_div,
+                               params=params)
+        st = sched.speculation_stats
+        tprs[label] = spec_report(label, st, outs + again)
+        print(f"  {label}: {wall:.3f} s, {sched.rounds_issued} rounds, "
+              f"{sched.prefill_forwards} prefill forwards; {same} of {len(greedy)} greedy "
+              f"streams equal to vanilla"
+              f"{f' (the {len(edge)}-token edge prompt among them)' if 6 in greedy else ''}"
+              f"; the sampled request repeats in another batch mix: "
+              f"{again[0] == outs[5]}; launches {launches[label]} expected {exp}",
+              flush=True)
+        assert again[0] == outs[5], f"{label}: the sampled request did not repeat"
+        assert launches[label] == exp, f"{label}: launch counts {launches[label]} != {exp}"
+        if layout == "paged":
+            sched._page_alloc.check()
+        del sched
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches, tprs
 
 
@@ -6190,7 +6584,7 @@ def speculative_paths(torch, engines, tally, smi):
     la, tp = spec_copying(torch, eng)
     launches.update(la)
     tprs.update(tp)
-    phase("speculative schedulers (c), both layouts, bf16, int8 KV, int4/int8")
+    phase("speculative schedulers (c): contiguous and paged bf16, contiguous int4/int8")
     la, tp = spec_schedulers(torch, engines, params4, div)
     del params4
     gc.collect()
@@ -6875,6 +7269,9 @@ def main() -> int:
     ap.add_argument("--fleet-only", action="store_true",
                     help="build and run phase 16 (a) alone: the co-resident 7B x 2 + 3B "
                          "pool under QoS (prints its numbers and no ok line)")
+    ap.add_argument("--disagg-only", action="store_true",
+                    help="build and run phase 17 alone: the phase-split 7B fleet over "
+                         "the bf16 and the int8 pool (prints its numbers and no ok line)")
     ap.add_argument("--int8-only", action="store_true",
                     help="build and run phase 14's kernel parts alone: the int8 matmul "
                          "and row 8 at the stacked widths against their plain versions, "
@@ -7016,6 +7413,14 @@ def main() -> int:
         print(json.dumps({"fleet": fleet, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.disagg_only:
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
+        phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
+        _, disagg = disagg_serve(torch, engines, smi)
+        phase(None)
+        print(json.dumps({"disagg": disagg, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.sweep:
         phase("split sweep")
         swept = sweep(torch, attn_mod, pa_mod, pw_mod, DUCKDB_NSQL_7B)
@@ -7088,6 +7493,8 @@ def main() -> int:
     gc.collect()  # the app's reference cycles hold the caches until collected
     phase("fleet (a), phase 16: the co-resident 7B x 2 + 3B pool under QoS")
     fleet_launches, fleet = fleet_serve(torch, engines, smi)
+    phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
+    disagg_launches, disagg = disagg_serve(torch, engines, smi)
     phase("entry point: the tiny app as a process")
     entry_point(torch)
 
@@ -7169,7 +7576,7 @@ def main() -> int:
              "quantized_engine": q_launches["engine"],
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
-             "fleet_pool": fleet_launches,
+             "fleet_pool": fleet_launches, **disagg_launches,
              **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
@@ -7237,6 +7644,7 @@ def main() -> int:
                                       "divergences": spec_div, **spec_calib}}))
     print(json.dumps({"observability": obs, "device": smi}))
     print(json.dumps({"fleet": fleet, "device": smi}))
+    print(json.dumps({"disagg": disagg, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,12 +49,21 @@ loads its own hf directory or gguf blob (`make_multimodel_checkpoint_service`,
 `LSOT_REPLICA_MAX_RESTARTS`, `LSOT_POOL_ROUTER`, `LSOT_POOL_AFFINITY`,
 `LSOT_POOL_MODELS`, `LSOT_REPLICA_WEIGHTS`.
 
+`--dp N --scheduler` with `--backend checkpoint` serves each model from N
+replicas behind one `SchedulerPool` (`make_dp_pool_backend`): one host-side
+load and quantization, replica i on `cuda:i` (under `--cpu` all on the CPU),
+each rebuilt alone after a crash, the crash supervisor around the pool.
+`LSOT_POOL_PHASES` ("prefill:1,decode:1") gives the replicas phase roles
+(paged only): a prefill replica hands each request's KV pages to a decode
+replica after its first token; `LSOT_PUMP_DEPTH` bounds the handoffs a
+prefill replica holds packed.
+
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
-every option it cannot honor yet, instead of ignoring it: `--dp`/`--sp`/
-`--tp` > 1 (A13), and the environment knobs of `UNPORTED_KNOBS`: phase
-roles and the handoff pump (A7.5), remote replicas and the autoscaler
-(A11's remote half) and the bench seed (A12's bench).
+every option it cannot honor yet, instead of ignoring it: `--sp`/`--tp` > 1
+and `--dp` > 1 without `--scheduler` (A13), and the environment knobs of
+`UNPORTED_KNOBS`: remote replicas and the autoscaler (A11's remote half)
+and the bench seed (A12's bench).
 
 Observability (`configure_observability`, before any service or scheduler
 is built): request-trace sampling and export (`LSOT_TRACE_SAMPLE`,
@@ -88,8 +97,6 @@ from .web import create_web_app
 #: Environment knobs of layers the port does not have yet: AppConfig field
 #: -> the ROADMAP item that brings it.
 UNPORTED_KNOBS = {
-    "pool_phases": "A7.5 (phase roles and the prefill-to-decode handoff)",
-    "pump_depth": "A7.5 (phase roles and the prefill-to-decode handoff)",
     "pool_remote": "A11 (remote replicas, serve/remote.py)",
     "fleet_workers": "A11 (remote replicas, serve/remote.py)",
     "lease_s": "A11 (remote replicas, serve/remote.py)",
@@ -127,10 +134,15 @@ def _spill_path(cfg: AppConfig, tag: str) -> Optional[str]:
 
 
 def refuse_unported(args, cfg: AppConfig) -> None:
-    """Raise on the first option or knob the port cannot honor."""
-    if args.dp > 1 or args.sp > 1 or args.tp > 1:
-        raise NotImplementedError("--dp/--sp/--tp > 1 is not ported: ROADMAP A13 "
+    """Raise on the first option or knob the port cannot honor: meshes
+    (`--sp`/`--tp` > 1, and `--dp` > 1 without `--scheduler`, the engine's
+    dp mesh) and the knobs of `UNPORTED_KNOBS`."""
+    if args.sp > 1 or args.tp > 1:
+        raise NotImplementedError("--sp/--tp > 1 is not ported: ROADMAP A13 "
                                   "(parallelism)")
+    if args.dp > 1 and not args.scheduler:
+        raise NotImplementedError("--dp > 1 without --scheduler (the engine's dp "
+                                  "mesh) is not ported: ROADMAP A13 (parallelism)")
     defaults = AppConfig()
     for name, item in UNPORTED_KNOBS.items():
         if getattr(cfg, name) != getattr(defaults, name):
@@ -180,6 +192,107 @@ def pool_options(cfg: AppConfig, replicas: int) -> dict:
     return dict(max_restarts=cfg.replica_max_restarts, router=cfg.pool_router,
                 affinity_routing=cfg.pool_affinity, model_routing=cfg.pool_models,
                 weights=parse_replica_weights(cfg.replica_weights, replicas))
+
+
+def refuse_dp_pool(args, cfg: AppConfig) -> None:
+    """The checks of `--dp N --scheduler` that need no checkpoint, with the
+    JAX entry point's messages: N devices (replica i on `cuda:i`; under
+    `--cpu` every replica on the CPU), the checkpoint backend, and
+    `LSOT_POOL_PHASES` only on such a pool."""
+    if args.dp > 1 and not args.cpu:
+        import torch
+
+        found = torch.cuda.device_count()
+        if found < args.dp * args.tp:
+            sys.exit(f"--dp {args.dp} --tp {args.tp} needs {args.dp * args.tp} "
+                     f"devices, found {found}")
+    if args.dp > 1 and args.backend != "checkpoint":
+        sys.exit("--dp N --scheduler builds a replica pool over --backend "
+                 "checkpoint (the tiny and fake backends serve one scheduler a "
+                 "model)")
+    if cfg.pool_phases and not (args.scheduler and args.dp > 1):
+        sys.exit("LSOT_POOL_PHASES needs --scheduler with --dp > 1 "
+                 "(phase roles are per pool replica)")
+
+
+def _tree_to(tree, device):
+    """A params tree (dicts and lists of tensors) copied to `device`."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def make_dp_pool_backend(args, cfg: AppConfig, src: str, tok, add_bos: bool,
+                         max_new_tokens: int, kv_quant: Optional[str]):
+    """`--dp N --scheduler` (`--tp 1`): N scheduler replicas of one
+    checkpoint behind a `SchedulerPool`, the JAX entry point's dp pool.
+    The checkpoint is read and quantized once on the host, then copied to
+    each replica's device (replica i on `cuda:i`; all on the CPU under
+    `--cpu`, sharing the tree). A per-replica factory rebuilds a crashed
+    replica from that tree; `LSOT_POOL_PHASES` gives each replica its phase
+    role, `LSOT_PUMP_DEPTH` a prefill replica's bound on packed handoffs,
+    `LSOT_REPLICA_WEIGHTS` its capacity weight, and the crash supervisor
+    wraps the pool (`--supervise`)."""
+    from ..checkpoint import load_gguf_checkpoint, load_hf_checkpoint
+    from ..serve.backends import quantize_loaded, resolve_stop_ids
+    from ..serve.scheduler import (
+        ContinuousBatchingScheduler,
+        SchedulerBackend,
+        SchedulerPool,
+        parse_pool_phases,
+    )
+
+    try:
+        roles = parse_pool_phases(cfg.pool_phases, args.dp)
+    except ValueError as e:
+        sys.exit(f"LSOT_POOL_PHASES: {e}")
+    if any(r != "mixed" for r in roles) and args.kv_layout != "paged":
+        sys.exit("LSOT_POOL_PHASES with prefill/decode roles needs "
+                 "--kv-layout=paged (the prefill→decode handoff ships KV pool "
+                 "pages)")
+    try:
+        options = pool_options(cfg, args.dp)
+    except ValueError as e:
+        sys.exit(f"LSOT_REPLICA_WEIGHTS: {e}")
+    path = src.split(":", 1)[0]
+    load = load_gguf_checkpoint if path.endswith(".gguf") else load_hf_checkpoint
+    mcfg, params = load(path, device="cpu")
+    params = quantize_loaded(params, args.int8, args.int4, args.int8_unembed)
+    devices = ["cpu"] * args.dp if args.cpu else [f"cuda:{i}" for i in range(args.dp)]
+    trees = {d: params if d == "cpu" else _tree_to(params, d) for d in set(devices)}
+    stops = resolve_stop_ids(mcfg, tok)
+
+    def make_replica(i):
+        return ContinuousBatchingScheduler(
+            mcfg, trees[devices[i]], num_slots=args.slots, stop_ids=stops,
+            kv_quant=kv_quant, kv_layout=args.kv_layout,
+            kv_hbm_budget_bytes=int(args.kv_hbm_gb * 2**30) or None,
+            kv_overcommit=cfg.kv_overcommit, kv_spill=cfg.kv_spill,
+            kv_watermark_low=cfg.kv_watermark_low,
+            kv_watermark_high=cfg.kv_watermark_high,
+            speculative_draft=args.speculative, max_queue_depth=cfg.max_queue_depth,
+            phase_role=roles[i], pump_depth=cfg.pump_depth, device=devices[i],
+            **scheduler_qos(cfg))
+
+    def make_pool():
+        return SchedulerPool([make_replica(i) for i in range(args.dp)],
+                             factory=make_replica, **options)
+
+    if args.supervise:
+        from ..serve.supervisor import SupervisedScheduler
+
+        pool = SupervisedScheduler(
+            make_pool, max_restarts=cfg.max_restarts,
+            max_entry_replays=cfg.max_entry_replays,
+            spill_path=_spill_path(cfg, src), stall_factor=cfg.stall_factor,
+            stall_min_s=cfg.stall_min_s, warmup_grace_s=cfg.stall_warmup_s,
+            name=f"scheduler-pool:{src}")
+    else:
+        pool = make_pool()
+    return SchedulerBackend(pool, tok, max_new_tokens=max_new_tokens, add_bos=add_bos,
+                            deadline_s=cfg.deadline_s or None)
 
 
 def make_tiny_service(
@@ -301,8 +414,8 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
     continuous-batching scheduler (supervised by default) or, with
     `--no-scheduler`, a lock-serialised engine. The JAX entry point's
     single-checkpoint branch (`LSOT_MODELS` takes
-    `make_multimodel_checkpoint_service`; its dp pools, ROADMAP A13, are
-    refused by `refuse_unported`)."""
+    `make_multimodel_checkpoint_service`). With `--dp N` each model is a
+    replica pool (`make_dp_pool_backend`)."""
     from ..serve.factory import assemble_reference_service
     from ..serve.scheduler import SchedulerBackend
     from ..tokenizer import HFTokenizer
@@ -316,6 +429,9 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
                      "PATH.gguf:TOKDIR")
         tok = HFTokenizer(tok_dir or path)
         gguf = path.endswith(".gguf")
+        if args.scheduler and args.dp > 1:
+            return make_dp_pool_backend(args, cfg, src, tok, add_bos, max_new_tokens,
+                                        kv_quant)
         if args.scheduler:
             common = dict(
                 max_new_tokens=max_new_tokens, add_bos=add_bos,
@@ -438,6 +554,10 @@ def make_multimodel_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int
     if not args.scheduler:
         sys.exit("LSOT_MODELS needs --scheduler (model routing is a "
                  "scheduler-pool property)")
+    if cfg.pool_phases:
+        sys.exit("LSOT_MODELS does not combine with LSOT_POOL_PHASES/LSOT_POOL_REMOTE "
+                 "yet (phase roles and remote slots are indexed per replica, not per "
+                 "model)")
     tiny = [m.model_id for m in specs if m.source == "tiny"]
     if tiny:
         sys.exit(f"LSOT_MODELS: {tiny} have source 'tiny' — the random-weight "
@@ -501,7 +621,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="llama3.2 weights; defaults to --sql-model-path")
     ap.add_argument("--mistral-model-path", metavar="DIR_OR_GGUF[:TOKDIR]",
                     help="optional mistral weights (third comparison model)")
-    ap.add_argument("--dp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="with --scheduler and --backend checkpoint: that many "
+                         "scheduler replicas behind one pool, replica i on cuda:i "
+                         "(LSOT_POOL_PHASES gives their phase roles); without "
+                         "--scheduler > 1 raises (ROADMAP A13)")
     ap.add_argument("--sp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
     ap.add_argument("--tp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
     ap.add_argument("--speculative", type=int, default=0, metavar="N",
@@ -557,6 +681,7 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
     """The service the flags ask for, after refusing what the port cannot
     honor."""
     refuse_unported(args, cfg)
+    refuse_dp_pool(args, cfg)
     if args.int4 and args.int8:
         sys.exit("pick one of --int8 / --int4")
     refuse_int8_speculation(args, cfg)

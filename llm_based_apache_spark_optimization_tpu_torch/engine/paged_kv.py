@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import os
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -164,19 +164,34 @@ def export_pages(pool: Dict[str, torch.Tensor],
     gather is enqueued on the current stream, after the rounds that wrote
     the pages, and copied into pinned host buffers; the host then waits for
     that copy alone (an event), not for the whole device."""
+    return export_pages_start(pool, page_ids)()
+
+
+def export_pages_start(pool: Dict[str, torch.Tensor],
+                       page_ids: Sequence[int]) -> Callable[[], Tuple[np.ndarray, ...]]:
+    """`export_pages` in two halves: this call enqueues the gather and the
+    copy to pinned host buffers; the function it returns waits for that
+    copy and returns the blob. A caller issuing under a dispatch lock waits
+    outside it."""
     dev = next(iter(pool.values())).device
     idx = torch.tensor(list(page_ids), dtype=torch.int64, device=dev)
     stacks = [arr[:, idx] for arr in pool.values()]
+    done = None
     if dev.type == "cuda":
         host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in stacks]
         for h, x in zip(host, stacks):
             h.copy_(x, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        done.synchronize()
         stacks = host
-    return tuple((x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
-                 for x in stacks)
+
+    def finish() -> Tuple[np.ndarray, ...]:
+        if done is not None:
+            done.synchronize()
+        return tuple((x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy()
+                     for x in stacks)
+
+    return finish
 
 
 def import_pages(pool: Dict[str, torch.Tensor], page_ids: Sequence[int],

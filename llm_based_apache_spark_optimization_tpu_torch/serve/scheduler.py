@@ -199,9 +199,21 @@ the fault seams run before it is taken.
   drain re-places through. `SchedulerPool` puts local replicas behind one
   `submit()`: placement by model, prefix affinity, page and SLO pressure
   and weighted least-loaded backlog, per-replica targeted restart, drain,
-  remove, add and retire, and merged stats views. Phase roles and the
-  prefill-to-decode handoff (ROADMAP A7.5), remote replicas and their
-  leases (A11's remote half) and meshes (A7.12, A13) are not ported.
+  remove, add and retire, and merged stats views. Remote replicas and
+  their leases (A11's remote half) and meshes (A7.12, A13) are not ported.
+- Phase roles (`phase_role`, paged only; a pool's `LSOT_POOL_PHASES`): a
+  "prefill" replica's final chunk parks its first token on the device
+  (`_handoff_pending`); `_pack_handoffs` commits and streams it, exports
+  the request's pages (prompt + first token) into a host blob
+  (`export_pages`, the spill format, scales included) and queues it in
+  `_handoff` for the pool, whose pump places it on a "decode" replica
+  (then a mixed one, then the source). The importer restores the blob
+  through the spill resume: the first token at its own position, stream
+  index 1, the grammar replayed, the draft history rebuilt, so a split
+  fleet's tokens are a mixed replica's. With no consumer, or past
+  `LSOT_PUMP_DEPTH` packed blobs, the prefill replica decodes in place.
+  `handoff_stats`, the `handoff_*` flight events, the `pages_migrated` /
+  `handoff_wait_s` columns and the `sched.handoff` span record it.
 """
 
 from __future__ import annotations
@@ -218,6 +230,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -229,6 +242,8 @@ from ..engine.paged_kv import (
     PageAllocator,
     default_page_size,
     export_pages,
+    export_pages_start,
+    handoff_bytes,
     import_pages,
     init_page_pool,
     page_bytes,
@@ -381,6 +396,46 @@ def parse_replica_weights(spec: str, replicas: int) -> List[float]:
     return normalize_replica_weights(out, replicas, label=f"replica weights {spec!r}")
 
 
+#: A replica's phase role. "mixed" prefills and decodes (every scheduler
+#: before phase roles); a "prefill" replica exports each request's KV pages
+#: into a handoff blob after its first token instead of decoding it; a
+#: "decode" replica has full capability, but a pool feeds it the handoffs
+#: and keeps fresh prompts off it.
+PHASE_ROLES = ("mixed", "prefill", "decode")
+
+
+def parse_pool_phases(spec: str, replicas: int) -> List[str]:
+    """`LSOT_POOL_PHASES` ("prefill:1,decode:3") as a role a replica index.
+    An empty spec is an all-"mixed" fleet. The counts must add up to
+    `replicas`, and a fleet with a prefill replica needs a decode or mixed
+    one to hand off to (a prefill-only fleet would decode every request in
+    place: a misconfiguration)."""
+    if not spec:
+        return ["mixed"] * replicas
+    roles: List[str] = []
+    for entry in filter(None, (s.strip() for s in spec.split(","))):
+        parts = entry.split(":")
+        if len(parts) != 2:
+            raise ValueError(f"bad pool-phases entry {entry!r} (want role:count)")
+        role, n = parts[0].strip(), parts[1].strip()
+        if role not in PHASE_ROLES:
+            raise ValueError(f"bad phase role {role!r} (want one of {PHASE_ROLES})")
+        try:
+            count = int(n)
+        except ValueError:
+            raise ValueError(f"bad replica count in {entry!r}") from None
+        if count < 1:
+            raise ValueError(f"replica count must be >= 1 in {entry!r}")
+        roles.extend([role] * count)
+    if len(roles) != replicas:
+        raise ValueError(f"pool phases {spec!r} describe {len(roles)} replica(s) but "
+                         f"the pool has {replicas}")
+    if "prefill" in roles and not any(r in ("decode", "mixed") for r in roles):
+        raise ValueError(f"pool phases {spec!r} have prefill replicas but no decode/"
+                         f"mixed replica to hand off to")
+    return roles
+
+
 def _rd_buckets(ring_cap: int) -> Tuple[int, ...]:
     """Reuse-distance histogram buckets (admissions between consecutive
     sightings of the same prefix digest): powers of two up to the ring
@@ -462,6 +517,12 @@ class _Request:
     preempted: int = 0
     rng_count: int = 0
     spilled: Optional[Tuple] = None
+    # A prefill replica's handoff: {t_pack, export_s, pages, bytes, src},
+    # set with `spilled` when the request's pages were exported for another
+    # replica, cleared by the importing replica's resume (the sched.handoff
+    # span and the pages_migrated / handoff_wait_s flight columns). None
+    # tells a preemption spill from a migrated blob.
+    handoff: Optional[Dict] = None
     # Observability: a scheduler-scope request id (the flight records'
     # admitted/retired columns), the request's trace when it was sampled
     # (utils/tracing.py; the worker records sched.* spans into it), the
@@ -583,6 +644,7 @@ class ContinuousBatchingScheduler:
         kv_spill: Optional[bool] = None,
         kv_watermark_low: Optional[float] = None,
         kv_watermark_high: Optional[float] = None,
+        phase_role: str = "mixed",
         ragged: Optional[bool] = None,
         speculative_draft: int = 0,
         fuse_matmuls: bool = False,
@@ -590,8 +652,47 @@ class ContinuousBatchingScheduler:
         qos: Optional[bool] = None,
         tenant_weights: Optional[str] = None,
         prefix_tenant_ns: Optional[bool] = None,
+        pump_depth: Optional[int] = None,
         device=None,
     ):
+        # Phase role (PHASE_ROLES): "mixed", the default, is the scheduler
+        # without roles. A "prefill" replica commits and streams each
+        # request's first token, exports its KV pages into a host blob
+        # (`export_pages`, the spill format) and parks it in `_handoff` for
+        # the pool, which `on_handoff` wakes; with no consumer wired it
+        # decodes in place. The handoff ships pool pages: paged only.
+        if phase_role not in PHASE_ROLES:
+            raise ValueError(f"phase_role must be one of {PHASE_ROLES}, got "
+                             f"{phase_role!r}")
+        if phase_role != "mixed" and kv_layout != "paged":
+            raise ValueError(f"phase_role={phase_role!r} needs kv_layout='paged': the "
+                             f"prefill→decode handoff ships KV pool pages")
+        self.phase_role = phase_role
+        # `_handoff_pending`: (slot, req, first token on the device, epoch)
+        # of final chunks not yet committed; `_handoff`: the packed blobs
+        # the pool drains. The counters feed `handoff_stats`.
+        self._handoff: "deque[_Request]" = deque()
+        self._handoff_pending: list = []
+        self.on_handoff: Optional[Callable[[], None]] = None
+        # Packed blobs held at most (`LSOT_PUMP_DEPTH`): past it a handoff
+        # decodes in place rather than pin another blob's host memory.
+        if pump_depth is None:
+            pump_depth = int(os.environ.get("LSOT_PUMP_DEPTH", "32") or 32)
+        self._pump_depth = int(pump_depth)
+        self._ho_backpressure = 0
+        self._ho_exports = self._ho_imports = self._ho_inplace = 0
+        self._ho_pages_out = self._ho_pages_in = 0
+        self._ho_bytes_out = self._ho_bytes_in = 0
+        self._ho_wait_sum = 0.0
+        self._ho_wait_count = 0
+        # Imported pages and their waits since the last flight record.
+        self._mig_pages = 0
+        self._mig_wait = 0.0
+        # A prefill replica's backlog: outstanding prompt tokens, priced by
+        # an EWMA of the submit -> export wall a prompt token.
+        self._pending_prompt_tokens = 0
+        self._pref_stok_ewma: Optional[float] = None
+        self._last_pack_t: Optional[float] = None
         self.kv_quant = kv_quant
         # The registered checkpoint this scheduler holds ("" the
         # single-model fleet): a pool routes on it, and a submit naming
@@ -658,11 +759,12 @@ class ContinuousBatchingScheduler:
         self._tenant_preempted: Dict[str, float] = {}
         if ragged is None:
             # The env opt-in degrades silently where the round cannot run.
-            ragged = _env_on("LSOT_RAGGED") and self._paged
-        elif ragged and not self._paged:
+            ragged = _env_on("LSOT_RAGGED") and self._paged and phase_role == "mixed"
+        elif ragged and not (self._paged and phase_role == "mixed"):
             raise ValueError(
                 "ragged mixed rounds need kv_layout='paged' (prefill rows "
-                "scatter chunks through page tables)")
+                "scatter chunks through page tables) and phase_role='mixed' "
+                "(a phase-split replica has no mixed rounds to unify)")
         self._ragged = bool(ragged)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -1237,6 +1339,30 @@ class ContinuousBatchingScheduler:
         req.ready_at = time.perf_counter()
         if req.parked and not req.parked[-1][1]:
             req.parked[-1][1] = req.ready_at
+        ho = req.handoff
+        if ho is not None:
+            # A migrated request is armed: close its handoff interval (pack
+            # to armed, the wait for a decode slot included) into the trace's
+            # sched.handoff span, the next flight record's columns and the
+            # counters.
+            wait = max(0.0, req.ready_at - float(ho["t_pack"]))
+            self._ho_wait_sum += wait
+            self._ho_wait_count += 1
+            self._mig_pages += int(ho["pages"])
+            self._mig_wait += wait
+            if req.trace is not None:
+                try:
+                    req.trace.add_span(
+                        "sched.handoff", float(ho["t_pack"]), req.ready_at,
+                        rid=req.rid, pages=int(ho["pages"]), bytes=int(ho["bytes"]),
+                        export_s=float(ho["export_s"]), wait_s=round(wait, 6),
+                        src=ho.get("src", ""))
+                except Exception:  # noqa: BLE001 — tracing must never kill the loop
+                    req.trace = None
+            self.flight.event("handoff_import", slot=slot, rid=req.rid,
+                              pages=int(ho["pages"]), wait_s=round(wait, 6),
+                              src=ho.get("src", ""))
+            req.handoff = None
         # Decode rewrites [plen - 1, page_end): copy any page the
         # re-prefill's publish shared.
         self._ensure_writable(slot, max(0, plen - 1), req.page_end)
@@ -1244,14 +1370,23 @@ class ContinuousBatchingScheduler:
                           generated=len(req.generated), mode=mode)
 
     def _restore_spilled(self, slot: int, req: _Request) -> None:
-        """Spill resume: write the host page copies (values and, in an int8
-        pool, scales) into the fresh pages and arm the slot; no forward."""
-        n = req.spilled[0].shape[1]
-        import_pages(self._pool, self._slot_pages[slot][:n], req.spilled)
-        self._page_alloc.note_restore(n)
+        """Spill resume and handoff import: write the host page copies
+        (values and, in an int8 pool, scales) into the fresh pages and arm
+        the slot; no forward. A migrated blob counts in the handoff
+        counters, so a pool's spilled == restored stays exact."""
+        parts = req.spilled
+        n = parts[0].shape[1]
+        import_pages(self._pool, self._slot_pages[slot][:n], parts)
+        if req.handoff is None:
+            self._page_alloc.note_restore(n)
+        else:
+            self._ho_imports += 1
+            self._ho_pages_in += int(n)
+            self._ho_bytes_in += handoff_bytes(parts)
+        mode = "import" if req.handoff is not None else "spill"
         req.spilled = None
         req.prefilled = len(req.full_ids)
-        self._resume_ready(slot, req, mode="spill")
+        self._resume_ready(slot, req, mode=mode)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -1395,6 +1530,7 @@ class ContinuousBatchingScheduler:
             if self._qos:
                 self._stamp_qos_locked(req)
             self._pending_new_tokens += req.max_new
+            self._pending_prompt_tokens += len(req.ids)
             self._queue.put(req)
         return req.future
 
@@ -1526,7 +1662,14 @@ class ContinuousBatchingScheduler:
         seconds, pending new tokens). The seconds are outstanding budget
         tokens x the measured seconds a token / slots, unclamped (0.0 until
         a completion seeds the EWMA, the token count then decides).
-        Lock-free, like retry_after_hint."""
+        Lock-free, like retry_after_hint. A prefill replica's backlog is
+        prompt tokens priced by its submit -> export EWMA: the decode
+        budgets it never spends say nothing about a new prompt's wait."""
+        if self.phase_role == "prefill":
+            toks = int(self._pending_prompt_tokens)
+            stok = self._pref_stok_ewma
+            secs = toks * stok / max(1, self.num_slots) if stok is not None else 0.0
+            return float(secs), toks
         stok = self._stok_ewma
         toks = int(self._pending_new_tokens)
         secs = toks * stok / max(1, self.num_slots) if stok is not None else 0.0
@@ -1552,13 +1695,37 @@ class ContinuousBatchingScheduler:
             if out:
                 self._pending_new_tokens = max(
                     0, self._pending_new_tokens - sum(r.max_new for r in out))
+                self._pending_prompt_tokens = max(
+                    0, self._pending_prompt_tokens - sum(len(r.ids) for r in out))
         return out
+
+    def extract_handoffs(self) -> List[_Request]:
+        """Take every packed handoff out of this replica (the pool's
+        placement pump and a drain). Each request carries its KV blob
+        (`spilled`, `handoff`), so a paged sibling's `requeue` resumes its
+        decode without a prefill. Its backlog left this replica at pack
+        time."""
+        out: List[_Request] = []
+        while True:
+            try:
+                out.append(self._handoff.popleft())
+            except IndexError:
+                return out
 
     def requeue(self, req: _Request) -> None:
         """Accept a request extracted from a sibling replica: a fresh rid
         and replica stamp, then the queue. Past `max_queue_depth` on
         purpose: the request was acknowledged once, and a drain must not
-        shed it."""
+        shed it. A request carrying a KV blob needs a paged pool of the
+        blob's page size: `ValueError` otherwise, which a pool's handoff
+        placement reads as "try the next sibling"."""
+        if req.spilled is not None:
+            if not self._paged:
+                raise ValueError("cannot requeue a KV-page blob onto a contiguous "
+                                 "scheduler")
+            if req.spilled[0].shape[3] != self._page_size:
+                raise ValueError(f"handoff blob page size {req.spilled[0].shape[3]} "
+                                 f"!= this pool's {self._page_size}")
         with self._submit_lock:
             if self._closed:
                 if self._crash is not None:
@@ -1573,6 +1740,7 @@ class ContinuousBatchingScheduler:
                 # Another replica's virtual clock means nothing here.
                 self._stamp_qos_locked(req)
             self._pending_new_tokens += req.max_new
+            self._pending_prompt_tokens += len(req.ids)
             self._queue.put(req)
 
     # ------------------------------------------------------------- stats
@@ -2352,6 +2520,12 @@ class ContinuousBatchingScheduler:
                 # is dropped and decode continues from the committed token.
                 self._resume_ready(slot, req)
                 continue
+            if self.phase_role == "prefill":
+                # Not armed for decode: `_pack_handoffs`, right after this
+                # step, commits the first token and exports the slot's
+                # pages; the importing replica arms it through the resume.
+                self._handoff_pending.append((slot, req, toks[i], self._slot_epoch[slot]))
+                continue
             # No sync: stop/budget checks on the first token happen at the
             # harvest it rides, one round late.
             req.ready = True
@@ -2760,6 +2934,8 @@ class ContinuousBatchingScheduler:
         self._round_retired.append(req.rid)
         with self._submit_lock:
             self._pending_new_tokens = max(0, self._pending_new_tokens - req.max_new)
+            self._pending_prompt_tokens = max(0, self._pending_prompt_tokens
+                                              - len(req.ids))
 
     def _record_service_time(self, req: _Request) -> None:
         """EWMAs (alpha 0.2) of completed requests' submit->retire wall, of
@@ -3019,6 +3195,14 @@ class ContinuousBatchingScheduler:
             rec["kv_pages"] = self._page_alloc.pages_in_use
             rec["kv_pages_free"] = self._page_alloc.pages_free
             rec["kv_pressure"] = self._page_alloc.withheld
+        if self._mig_pages:
+            # Pages imported since the last record and their waits for a
+            # slot, only on rounds after an import: a mixed replica's
+            # records keep their columns.
+            rec["pages_migrated"] = self._mig_pages
+            rec["handoff_wait_s"] = round(self._mig_wait, 6)
+            self._mig_pages = 0
+            self._mig_wait = 0.0
         self.flight.record(**rec)
         self._round_admitted = []
         self._round_retired = []
@@ -3045,6 +3229,173 @@ class ContinuousBatchingScheduler:
         vals = torch.cat([tok.reshape(1) for _, _, tok, _ in firsts]).tolist()
         for (slot, req, _, fep), v in zip(firsts, vals):
             self._append_first(slot, req, v, fep)
+
+    # ------------------------------------------- prefill -> decode handoff
+
+    def _pack_handoffs(self) -> None:
+        """A prefill replica's terminal step for the prompts its last chunk
+        completed: one transfer brings their first tokens (outside the
+        dispatch lock), `_append_first` commits and streams each as a
+        harvest would, then each request still live is exported for the
+        pool (`on_handoff` wired) or decodes here: with no consumer, or
+        with `_pump_depth` blobs already packed (backpressure)."""
+        if not self._handoff_pending:
+            return
+        pending, self._handoff_pending = self._handoff_pending, []
+        vals = torch.cat([tok.reshape(1) for _, _, tok, _ in pending]).tolist()
+        emitted = packed = 0
+        for (slot, req, _, epoch), first in zip(pending, vals):
+            emitted += self._append_first(slot, req, first, epoch)
+            if req is not self._slot_req[slot]:
+                continue  # retired: a stop id, its budget, a cancel or its deadline
+            # Chaos seam: `sched:handoff` kills the loop here, the first
+            # token committed and maybe streamed, the blob never shipped;
+            # the supervisor re-prefills the request on a sibling with the
+            # delivered token suppressed.
+            FAULTS.check("sched:handoff")
+            if self.on_handoff is None:
+                self._arm_inplace(slot, req)
+                continue
+            if self._pump_depth and len(self._handoff) >= self._pump_depth:
+                self._ho_backpressure += 1
+                self._arm_inplace(slot, req)
+                continue
+            self._export_handoff(slot, req)
+            packed += 1
+        self._tokens_emitted_total += emitted
+        if packed:
+            try:
+                self.on_handoff()
+            except Exception:  # noqa: BLE001 — a broken pump must not strand work
+                _log.exception("on_handoff pump failed; decoding in place")
+                # What the pump left behind comes back here: re-admission
+                # restores the blob and decodes it on this replica.
+                for req in self.extract_handoffs():
+                    self.requeue(req)
+        self._record_prefill_round(emitted, packed)
+
+    def _export_handoff(self, slot: int, req: _Request) -> None:
+        """Export one request's committed pages (prompt + first token,
+        whose K/V the importer's first decode step writes, as a resume
+        rewrites its last committed token) into a host blob, stage its
+        resume state (`resume_pref`, `rng_count`) so the importer arms a
+        slot as a mixed replica's final chunk would, release the slot and
+        park the request in `_handoff`."""
+        t0 = time.perf_counter()
+        committed = len(req.ids) + len(req.generated)
+        npg = min(pages_for_tokens(committed, self._page_size),
+                  len(self._slot_pages[slot]))
+        # The gather and the copy's issue take the dispatch lock; the wait
+        # for the copy does not, so a sibling on the card issues meanwhile.
+        with self._dispatch_lock:
+            finish = export_pages_start(self._pool, self._slot_pages[slot][:npg])
+        blob = finish()
+        wall = time.perf_counter() - t0
+        nbytes = handoff_bytes(blob)
+        req.spilled = blob
+        req.resume_pref = len(req.generated)
+        req.rng_count = 1  # the prefill sample used index 0 of its stream
+        req.handoff = {"t_pack": time.perf_counter(), "export_s": round(wall, 6),
+                       "pages": int(npg), "bytes": nbytes, "src": self.flight.replica}
+        self._ho_exports += 1
+        self._ho_pages_out += int(npg)
+        self._ho_bytes_out += nbytes
+        if req.submitted_at > 0.0:
+            pstok = (time.perf_counter() - req.submitted_at) / max(1, len(req.ids))
+            prev = self._pref_stok_ewma
+            self._pref_stok_ewma = pstok if prev is None else 0.2 * pstok + 0.8 * prev
+        # The request leaves this replica's backlog (the importer's requeue
+        # adds it there) and reads as retired in its flight records.
+        with self._submit_lock:
+            self._pending_new_tokens = max(0, self._pending_new_tokens - req.max_new)
+            self._pending_prompt_tokens = max(0, self._pending_prompt_tokens
+                                              - len(req.ids))
+        self._round_retired.append(req.rid)
+        if req.trace is not None:
+            try:
+                req.trace.event("sched.handoff_export", rid=req.rid, pages=int(npg),
+                                bytes=nbytes)
+            except Exception:  # noqa: BLE001 — tracing must never kill the loop
+                req.trace = None
+        self.flight.event("handoff_export", slot=slot, rid=req.rid, pages=int(npg),
+                          bytes=nbytes, export_s=round(wall, 6))
+        self._release_slot(slot)
+        self._handoff.append(req)
+
+    def _arm_inplace(self, slot: int, req: _Request) -> None:
+        """Decode a prefill replica's request in place (no consumer, the
+        pump full or failed): the resume arms the slot as a mixed replica's
+        final chunk does (the committed first token at its own position,
+        stream index 1, the grammar replayed), so the tokens are the same."""
+        self._ho_inplace += 1
+        req.resume_pref = len(req.generated)
+        req.rng_count = 1
+        req.prefilled = len(req.full_ids)
+        self.flight.event("handoff_inplace", slot=slot, rid=req.rid)
+        self._resume_ready(slot, req, mode="inplace")
+
+    def _record_prefill_round(self, emitted: int, handoffs: int) -> None:
+        """A prefill replica's flight record: it harvests no decode round,
+        so each pack pass that concluded a request (a handoff, an in-place
+        arm or a retirement) records one, ticks the heartbeat and
+        attributes the banked prefill work over the interval since the
+        previous pass (none on the first: no origin)."""
+        if not (emitted or handoffs or self._round_retired or self._round_admitted):
+            return
+        self.heartbeat.round_done()
+        now = time.perf_counter()
+        prev, self._last_pack_t = self._last_pack_t, now
+        interval = round(now - prev, 6) if prev is not None else 0.0
+        ewma = self.heartbeat.expected_round_s()
+        rec = {
+            "round": self.heartbeat.rounds,
+            "occupancy": sum(1 for r in self._slot_req if r is not None),
+            "queued": self._queue.qsize(),
+            "admitted": self._round_admitted,
+            "retired": self._round_retired,
+            "emitted": emitted,
+            "handoffs": handoffs,
+            "round_wall_s": interval,
+            "cadence_s": round(ewma, 6) if ewma is not None else None,
+            "phase": "prefill",
+        }
+        if prev is not None:
+            pre = self.perf.flush_prefill(interval)
+            if pre is not None:
+                rec["prefill_mfu"] = pre["mfu"]
+                rec["prefill_hbm_util"] = pre["hbm_util"]
+        rec["kv_pages"] = self._page_alloc.pages_in_use
+        rec["kv_pages_free"] = self._page_alloc.pages_free
+        rec["kv_pressure"] = self._page_alloc.withheld
+        self.flight.record(**rec)
+        self._round_admitted = []
+        self._round_retired = []
+
+    @property
+    def handoff_stats(self) -> Optional[Dict[str, object]]:
+        """Handoff counters (the lsot_handoff_* families and /metrics'
+        `serving.handoff`): exports, imports, in-place decodes, pages and
+        bytes each way, the summed wait for a decode slot, the packed queue
+        and the backpressure count. None for a mixed replica that never
+        touched a handoff."""
+        if self.phase_role == "mixed" and not (
+                self._ho_exports or self._ho_imports or self._ho_inplace):
+            return None
+        return {
+            "replica": self.flight.replica,
+            "phase_role": self.phase_role,
+            "exports": self._ho_exports,
+            "imports": self._ho_imports,
+            "inplace_fallbacks": self._ho_inplace,
+            "pages_out": self._ho_pages_out,
+            "pages_in": self._ho_pages_in,
+            "bytes_out": self._ho_bytes_out,
+            "bytes_in": self._ho_bytes_in,
+            "wait_s_sum": round(self._ho_wait_sum, 6),
+            "wait_count": self._ho_wait_count,
+            "queued_handoffs": len(self._handoff),
+            "backpressure": self._ho_backpressure,
+        }
 
     # ----------------------------------------------------------------- loop
 
@@ -3084,6 +3435,12 @@ class ContinuousBatchingScheduler:
         self._prefill_q.clear()
         self._pending.clear()
         self._first_pending = []
+        self._handoff_pending = []  # still slot-held: the slot sweep fails them
+        for req in self._handoff:
+            # Packed when the loop died: the blob dies with this replica, and
+            # the typed failure lets the supervisor re-prefill the request.
+            req.future.set_exception(exc)
+        self._handoff.clear()
         for req in self._page_wait:
             req.future.set_exception(exc)
         self._page_wait.clear()
@@ -3134,6 +3491,7 @@ class ContinuousBatchingScheduler:
         stamps into the heartbeat."""
         return bool(self._prefill_q or self._pending or self._page_wait
                     or self._constraint_wait or self._ready
+                    or self._handoff or self._handoff_pending
                     or any(r is not None for r in self._slot_req)
                     or not self._queue.empty())
 
@@ -3218,6 +3576,10 @@ class ContinuousBatchingScheduler:
             # Fair interleave: at most one prompt chunk per decode round.
             if self._prefill_q:
                 self._prefill_step()
+            if self._handoff_pending:
+                # A prefill replica's completed prompts: commit their first
+                # tokens, pack their blobs, wake the pool's pump.
+                self._pack_handoffs()
             if any(r is not None and r.ready for r in self._slot_req):
                 if self._profile_arm is not None:
                     # An armed /debug/profile capture starts on this
@@ -3302,10 +3664,17 @@ class SchedulerPool:
       and stalls, per-model aggregation (`model_stats`), the summed page,
       prefix and perf views.
 
+    - **Phase roles.** Fresh prompts go to prefill and mixed replicas
+      while one can take them (decode replicas are the deadline spillover,
+      and serve alone if they are all that is left). A prefill replica's
+      packed handoffs are placed by `_place_handoff` from its own worker
+      thread: a decode replica first (the pressure penalty, then the
+      lowest decode-phase HBM utilization, then the backlog), then a mixed
+      one, then the source itself, which decodes in place.
+
     Replicas are local schedulers on the device their factory names. A
-    replica with a phase role or a remote transport raises
-    `NotImplementedError`: the prefill-to-decode handoff is ROADMAP A7.5,
-    remote replicas and their leases A11's remote half."""
+    remote transport raises `NotImplementedError`: remote replicas and
+    their leases are A11's remote half."""
 
     #: Callers forward a model_id only to schedulers that route on it, and
     #: tenant/qos only to those that set `supports_qos`.
@@ -3376,6 +3745,7 @@ class SchedulerPool:
             if fl is not None:
                 fl.replica = label
             self._states.append(_ReplicaState(label=label, model_id=self._model_id(s)))
+            self._wire_handoff(i, s)
         # Placement decisions and replica lifecycle events.
         self._pool_flight = FlightRecorder(capacity=256, replica="pool")
         if affinity_routing is None:
@@ -3409,10 +3779,6 @@ class SchedulerPool:
 
     @staticmethod
     def _refuse_unported(s) -> None:
-        if SchedulerPool._phase_role(s) != "mixed":
-            raise NotImplementedError(
-                "a replica with a phase role needs the prefill-to-decode "
-                "handoff, which is not ported: ROADMAP A7.5")
         if getattr(s, "is_remote", False) or callable(getattr(s, "ping", None)):
             raise NotImplementedError(
                 "remote replicas and their leases are not ported: ROADMAP A11 "
@@ -3635,6 +4001,11 @@ class SchedulerPool:
                     pass
             rec["phase_role"] = self._phase_role(s)
             rec["model_id"] = st.model_id or self._model_id(s)
+            ho = getattr(s, "handoff_stats", None)
+            if isinstance(ho, dict):
+                rec["handoff_exports"] = ho["exports"]
+                rec["handoff_imports"] = ho["imports"]
+                rec["handoff_queued"] = ho["queued_handoffs"]
             perf = getattr(s, "perf_stats", None)
             if isinstance(perf, dict):
                 dec = (perf.get("phases") or {}).get("decode")
@@ -3856,6 +4227,122 @@ class SchedulerPool:
             pen += 1
         return pen
 
+    # ------------------------------------------------- phase-role handoffs
+
+    def _wire_handoff(self, idx: int, s) -> None:
+        """Point a prefill replica's handoff queue at the pool's placement
+        pump (at construction, after a restart's swap, on a join)."""
+        if self._phase_role(s) == "prefill" and hasattr(s, "on_handoff"):
+            s.on_handoff = partial(self._pump_handoffs, idx)
+
+    @staticmethod
+    def _decode_pressure(s) -> float:
+        """A replica's decode-phase HBM utilization EWMA from its roofline
+        ledger (0.0 without one): the nearer the roof, the less room a
+        migrated request's decode has there."""
+        try:
+            perf = getattr(s, "perf_stats", None)
+            if isinstance(perf, dict):
+                dec = (perf.get("phases") or {}).get("decode")
+                if dec and dec.get("hbm_util") is not None:
+                    return float(dec["hbm_util"])
+        except Exception:  # noqa: BLE001 — a dying replica mid-read
+            pass
+        return 0.0
+
+    def _pump_handoffs(self, src_idx: int) -> None:
+        """Place every packed handoff of prefill replica `src_idx` (its
+        `on_handoff`, on its worker thread: placement is a lock and a queue
+        put)."""
+        ex = getattr(self.schedulers[src_idx], "extract_handoffs", None)
+        if callable(ex):
+            for req in ex():
+                self._place_handoff(req, src_idx)
+
+    def _place_handoff(self, req, src_idx: int) -> None:
+        """Place one migrated request: decode replicas first (pressure
+        penalty, decode HBM utilization, weighted backlog, index), then
+        mixed ones, then the source (decode in place: a placement failure
+        never loses the request). Same-model targets only under model
+        routing. A target whose backlog already exceeds the remaining
+        deadline, or whose pool has no free page, is skipped; a target
+        whose `requeue` raises (a contiguous pool, another page size, a
+        crash) is passed over."""
+        src = self.schedulers[src_idx]
+        remaining = req.deadline.remaining() if req.deadline is not None else None
+        cands = self._placeable()
+        src_model = self._model_id(src)
+        if self._model_routing and src_model:
+            cands = [c for c in cands if self._carries(c, src_model)]
+
+        def ordered(role):
+            decorated = []
+            for i, st, s in cands:
+                if self._phase_role(s) != role or s is src:
+                    continue
+                secs, toks = self._wscore(i, s)
+                decorated.append((self._penalty(st, s), self._decode_pressure(s),
+                                  secs, toks, i, st, s))
+            decorated.sort(key=lambda t: t[:5])
+            return [(i, st, s) for (*_k, i, st, s) in decorated]
+
+        targets = ordered("decode") + ordered("mixed") + [
+            (src_idx, self._states[src_idx], src)]
+        # Read before a target can race: its worker clears `handoff` at the
+        # import, and requeue gives the request a new rid.
+        pages = (req.handoff or {}).get("pages", 0)
+        rid = req.rid
+        starved = 0
+        for i, st, s in targets:
+            if s is not src:
+                if remaining is not None and self._score(s)[0] >= remaining:
+                    continue  # its backlog alone would burn the deadline
+                try:
+                    pstats = getattr(s, "page_stats", None)
+                    if pstats and int(pstats.get("pages_free", 1) or 0) <= 0:
+                        starved += 1
+                        continue
+                except Exception:  # noqa: BLE001 — a dying replica mid-read
+                    pass
+            rq = getattr(s, "requeue", None)
+            if not callable(rq):
+                continue
+            try:
+                rq(req)
+            except Exception:  # noqa: BLE001 — a crashed or incompatible target
+                continue
+            with self._lock:
+                st.placements += 1
+            self._pool_flight.event("handoff_place", to=st.label,
+                                    src=self._states[src_idx].label, rid=rid,
+                                    pages=pages, inplace=s is src)
+            return
+        if starved:
+            # Every decode target page-waits and the source refused it back:
+            # retryable backpressure, not a crash.
+            req.future.set_exception(Overloaded(
+                "every decode target is page-waiting; prefill→decode handoff "
+                "rejected under KV pressure"))
+            return
+        # Not even the source took it back: fail typed, so the supervisor's
+        # journal replays it.
+        req.future.set_exception(SchedulerCrashed(
+            "no replica could accept a prefill→decode handoff"))
+
+    @property
+    def handoff_stats(self) -> Optional[Dict[str, object]]:
+        """Each replica's handoff counters, labeled (/metrics'
+        `serving.handoff`, the lsot_handoff_* families); None when no
+        replica has any."""
+        per = []
+        for st, s in self._replica_items():
+            h = getattr(s, "handoff_stats", None)
+            if isinstance(h, dict):
+                rec = dict(h)
+                rec["replica"] = st.label
+                per.append(rec)
+        return {"replicas": per} if per else None
+
     def qos_stats(self) -> Optional[Dict[str, object]]:
         """Each replica's WFQ counters, labeled; None when no replica runs
         QoS."""
@@ -3899,6 +4386,15 @@ class SchedulerPool:
                 cands = [c for c in cands if self._carries(c, want_model)]
             if not cands:
                 break
+            # Fresh prompts are prefill work: off decode replicas while a
+            # prefill or mixed one can take them (roles are policy, not
+            # capability); the decode replicas set aside are the deadline's
+            # spillover below.
+            spill: List = []
+            front = [c for c in cands if self._phase_role(c[2]) != "decode"]
+            if front and len(front) < len(cands):
+                spill = [c for c in cands if self._phase_role(c[2]) == "decode"]
+                cands = front
             if self.router == "round_robin":
                 aff: Dict[str, int] = {}
                 with self._lock:
@@ -3908,14 +4404,17 @@ class SchedulerPool:
                 scored = [(self._score(s), i, st, s) for (i, st, s) in order]
             else:
                 aff = self._affinity_scores(ids, tenant) if self._affinity else {}
-                scored = sorted(
-                    ((self._score(s), i, st, s) for (i, st, s) in cands),
-                    key=lambda t: (-aff.get(t[2].label, 0),
-                                   self._penalty(t[2], t[3]),
-                                   *self._wkey(t[1], t[0][0], t[0][1]),
-                                   t[1]))
+                scored = sorted(((self._score(s), i, st, s) for (i, st, s) in cands),
+                                key=lambda t: self._order_key(t, aff))
             if deadline_s is not None:
                 feasible = [t for t in scored if t[0][0] < deadline_s]
+                if not feasible and spill:
+                    # The prefill and mixed tier cannot meet the deadline:
+                    # an idle decode replica (full capability) beats a 504.
+                    spilled = sorted(((self._score(s), i, st, s) for (i, st, s) in spill),
+                                     key=lambda t: self._order_key(t, aff))
+                    feasible = [t for t in spilled if t[0][0] < deadline_s]
+                    scored = scored + spilled
                 if not feasible:
                     # Every backlog already exceeds the budget: shed 504.
                     deadline_blocked = min(t[0][0] for t in scored)
@@ -4002,6 +4501,13 @@ class SchedulerPool:
             raise Overloaded("every scheduler replica is restarting",
                              retry_after_s=self.retry_after_hint())
         raise SchedulerCrashed("all scheduler replicas have crashed or left the fleet")
+
+    def _order_key(self, t, aff: Dict[str, int]):
+        """The least-loaded order of a scored candidate t = ((secs, toks),
+        i, state, scheduler): affinity, pressure penalty, weighted backlog,
+        index."""
+        return (-aff.get(t[2].label, 0), self._penalty(t[2], t[3]),
+                *self._wkey(t[1], t[0][0], t[0][1]), t[1])
 
     cancel = staticmethod(ContinuousBatchingScheduler.cancel)
 
@@ -4133,6 +4639,8 @@ class SchedulerPool:
                 if fl is not None:
                     fl.replica = st.label
                 self.schedulers[idx] = fresh
+                # A rebuilt prefill replica's pump: the corpse took the wiring.
+                self._wire_handoff(idx, fresh)
                 # The factory may rebuild with another checkpoint id.
                 st.model_id = self._model_id(fresh)
                 # Degraded until a clean completion lands on it.
@@ -4173,6 +4681,11 @@ class SchedulerPool:
         replaced = 0
         extract = getattr(sched, "extract_queued", None)
         pulls = list(extract()) if callable(extract) else []
+        # Packed handoffs drain too: each carries its KV blob, so a sibling
+        # restores and decodes it without a prefill.
+        exh = getattr(sched, "extract_handoffs", None)
+        if callable(exh):
+            pulls.extend(exh())
         drain_model = st.model_id or self._model_id(sched)
         for req in pulls:
             target = None
@@ -4259,6 +4772,7 @@ class SchedulerPool:
             if elastic:
                 self._elastic.add(idx)
             self._fleet_joins += 1
+        self._wire_handoff(idx, scheduler)
         self._pool_flight.event("replica_join", replica=lbl, elastic=bool(elastic),
                                 accepted=True, phase_role=self._phase_role(scheduler))
         return lbl
@@ -4290,7 +4804,8 @@ class SchedulerPool:
     def fleet_stats(self) -> Dict[str, object]:
         """The `fleet` block of /healthz and /metrics (lsot_fleet_*): live
         membership and the join/retire/drain counters. The pushed-handoff
-        columns are zero: the prefill-to-decode pump is ROADMAP A7.5."""
+        columns are zero: handoffs pushed over a remote transport are
+        ROADMAP A11; local replicas' handoffs are in `handoff_stats`."""
         with self._lock:
             states = [st.state for st in self._states]
             out: Dict[str, object] = {
@@ -4535,7 +5050,8 @@ class SchedulerBackend:
         """The serving layer's /metrics block for this model: prefix-cache
         reuse (`prefix_cache`) and its telemetry (`prefix`), speculative
         acceptance, the page pool (paged), the roofline ledger (`perf`),
-        the loop's liveness (`watchdog`) and the flight recorder's ring
+        the prefill→decode handoffs (`handoff`, the lsot_handoff_*
+        families), the loop's liveness (`watchdog`) and the flight recorder's ring
         occupancy (the records live at /debug/flightrecorder; a supervised
         scheduler reports its lifecycle ring and the inner round ring
         apart). Over a pool, also the placement counters (`routing`), the
@@ -4547,7 +5063,8 @@ class SchedulerBackend:
         out: Dict[str, object] = {"prefix_cache": sched.prefix_stats}
         for key, val in (("prefix", sched.prefix_telemetry),
                          ("speculation", sched.speculation_stats),
-                         ("kv_pages", sched.page_stats), ("perf", sched.perf_stats)):
+                         ("kv_pages", sched.page_stats), ("perf", sched.perf_stats),
+                         ("handoff", getattr(sched, "handoff_stats", None))):
             if val:
                 out[key] = val
         rt = getattr(sched, "routing_stats", None)

@@ -48,6 +48,10 @@ its submit surface) and treats its event loop as a crash-only component:
   loads and health, and the pool's model, routing and tenant views pass
   through. A journaled entry keeps its `model_id`, `tenant` and `qos` over
   replays and the spill. Over one scheduler these hooks do nothing.
+  Phase-split fleets: a prefill replica that dies mid-handoff (its first
+  token already streamed, the blob never shipped) fails the request typed;
+  the entry re-prefills on a sibling with the delivered token suppressed.
+  `handoff_stats` and `phase_role` pass through.
 
 A constrained entry carries its compiled tables (`constraint`) and
 its serializable spec (`constraint_spec`, the grammar name or schema
@@ -444,6 +448,17 @@ class SupervisedScheduler:
         """Roofline-ledger passthrough (utils/perfmodel.py): the
         serving.perf view survives supervision."""
         return self._inner.perf_stats
+
+    @property
+    def handoff_stats(self):
+        """Prefill→decode handoff passthrough: the serving.handoff view
+        and the lsot_handoff_* families survive supervision (None for a
+        mixed or duck-typed inner)."""
+        return getattr(self._inner, "handoff_stats", None)
+
+    @property
+    def phase_role(self):
+        return getattr(self._inner, "phase_role", "mixed")
 
     def profile_rounds(self, rounds=None, out_dir=None):
         """On-demand capture passthrough (/debug/profile): the inner loop

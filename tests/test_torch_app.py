@@ -316,21 +316,21 @@ def args_for(*argv):
 
 @pytest.mark.parametrize("argv,item", [
     (("--tp", "2"), "A13"),
-    (("--dp", "2"), "A13"),
+    (("--dp", "2", "--no-scheduler"), "A13"),
     (("--sp", "2"), "A13"),
 ])
 def test_entry_point_refuses_unported_flags(argv, item):
+    """Meshes are A13: `--tp`/`--sp` > 1, and `--dp` > 1 without
+    `--scheduler` (the engine's dp mesh; with it, a replica pool)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         entry.build_service(args_for("--cpu", "--backend", "tiny", *argv), AppConfig())
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("LSOT_POOL_PHASES", "prefill:1,decode:1", "A7.5"),
     ("LSOT_POOL_REMOTE", "1=localhost:9", "A11"),
     ("LSOT_FLEET_WORKERS", "localhost:9", "A11"),
     ("LSOT_LEASE_S", "5", "A11"),
     ("LSOT_FLEET_MIN", "2", "A11"),
-    ("LSOT_PUMP_DEPTH", "4", "A7.5"),
 ])
 def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, item):
     monkeypatch.setenv(knob, value)
@@ -568,7 +568,7 @@ def test_every_app_config_field_is_read_or_refused(field):
     assert field in _read_by_port() or field in entry.UNPORTED_KNOBS
     if field in entry.UNPORTED_KNOBS:
         assert entry.UNPORTED_KNOBS[field].split()[0] in {
-            "A7.5", "A7.7", "A7.8", "A11", "A12"}
+            "A7.7", "A7.8", "A11", "A12"}
 
 
 @pytest.mark.parametrize("knob,value,item", [
@@ -1053,3 +1053,191 @@ def test_entry_point_gguf_needs_a_tokenizer_dir(tmp_path):
                             AppConfig())
     with pytest.raises(SystemExit):
         entry.build_service(args_for("--cpu", "--backend", "checkpoint"), AppConfig())
+
+
+# ------------------------------------- the dp pool and LSOT_POOL_PHASES
+
+@pytest.fixture()
+def tiny_hf_dir(tmp_path):
+    """A TINY HF checkpoint (f32 on disk, a 2048-token context) with a
+    WordLevel tokenizer.json, written by the port's writer: both entry
+    points load it."""
+    import dataclasses
+
+    from test_torch_tokenizer import write_tokenizer_json
+
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import save_hf_checkpoint
+
+    pytest.importorskip("tokenizers")
+    mcfg = dataclasses.replace(TINY, max_seq_len=2048)
+    params = init_params(mcfg, torch.Generator().manual_seed(0), torch.float32,
+                         device="cpu")
+    ckpt = tmp_path / "ckpt"
+    save_hf_checkpoint(mcfg, params, ckpt)
+    write_tokenizer_json(ckpt / "tokenizer.json", "wordlevel")
+    return ckpt
+
+
+def dp_argv(ckpt, *extra):
+    return ("--cpu", "--backend", "checkpoint", "--sql-model-path", str(ckpt), "--dp",
+            "2", "--slots", "2", "--max-new-tokens", "8", *extra)
+
+
+def port_exit(argv, cfg=None):
+    """The port entry point's SystemExit message for `argv`."""
+    with pytest.raises(SystemExit) as e:
+        entry.build_service(args_for(*argv),
+                            cfg or AppConfig.from_env(history_db=":memory:"))
+    return str(e.value)
+
+
+def jax_exit(argv):
+    """The JAX entry point's message for the same options (its checkpoint
+    service reads the same environment)."""
+    import argparse
+
+    from llm_based_apache_spark_optimization_tpu.app import __main__ as jax_entry
+
+    with pytest.raises(SystemExit) as e:
+        jax_entry.make_checkpoint_service(argparse.Namespace(**vars(args_for(*argv))), 8)
+    return str(e.value)
+
+
+def test_entry_point_dp_pool_phase_split_matches_jax(tiny_hf_dir, monkeypatch):
+    """`--dp 2 --scheduler --kv-layout paged` with
+    `LSOT_POOL_PHASES=prefill:1,decode:1` over one HF checkpoint: each
+    entry point builds a supervised pool of a prefill and a decode
+    replica from one load; the same requests, one at a time, land on the
+    prefill replica and hand off to the decode one in both, with the same
+    handoff counts and the same greedy text and tokens."""
+    import argparse
+
+    from llm_based_apache_spark_optimization_tpu.app import __main__ as jax_entry
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        SchedulerPool,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.supervisor import (
+        SupervisedScheduler,
+    )
+
+    monkeypatch.setenv("LSOT_POOL_PHASES", "prefill:1,decode:1")
+    argv = dp_argv(tiny_hf_dir, "--kv-layout", "paged")
+    questions = ["select vendor", "select fare from vendor", "select count"]
+    seen = {}
+    for side in ("jax", "torch"):
+        if side == "jax":
+            svc = jax_entry.make_checkpoint_service(
+                argparse.Namespace(**vars(args_for(*argv))), 8)
+        else:
+            svc = entry.build_service(args_for(*argv),
+                                      AppConfig.from_env(history_db=":memory:"))
+        try:
+            sup = svc._models["duckdb-nsql"].backend.scheduler
+            pool = sup._inner
+            assert svc._models["llama3.2"].backend.scheduler is sup
+            if side == "torch":
+                assert isinstance(sup, SupervisedScheduler)
+                assert isinstance(pool, SchedulerPool)
+                assert pool.schedulers[0].params is pool.schedulers[1].params
+                assert [s.device.type for s in pool.schedulers] == ["cpu", "cpu"]
+            outs = [svc.generate("duckdb-nsql", q, system="from fare") for q in questions]
+            snap = pool.flight_snapshot()
+            seen[side] = dict(
+                roles=[s.phase_role for s in pool.schedulers],
+                placements=[r["to"] for r in snap if r.get("kind") == "placement"],
+                handoffs=[(r["to"], r["src"]) for r in snap
+                          if r.get("kind") == "handoff_place"],
+                counts={r["replica"]: (r["exports"], r["imports"], r["inplace_fallbacks"],
+                                       r["pages_out"], r["pages_in"])
+                        for r in pool.handoff_stats["replicas"]},
+                outs=[(o.response, o.output_tokens) for o in outs],
+                # /metrics' serving.handoff block and /healthz's fleet rows.
+                served={r["replica"]: (r["phase_role"], r["exports"], r["imports"])
+                        for r in svc.metrics_snapshot()["duckdb-nsql"]["serving"]
+                        ["handoff"]["replicas"]},
+                fleet=[(r["replica"], r["phase_role"], r["state"])
+                       for r in svc.fleet_health()["duckdb-nsql"]],
+                membership=sorted(svc.fleet_membership()["duckdb-nsql"]))
+        finally:
+            svc.close()
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"]["roles"] == ["prefill", "decode"]
+    assert seen["torch"]["placements"] == ["r0"] * 3
+    assert seen["torch"]["handoffs"] == [("r1", "r0")] * 3
+
+
+@pytest.mark.parametrize("env,extra", [
+    ({"LSOT_POOL_PHASES": "prefill:1,decode:1"}, ("--dp", "1")),
+    ({"LSOT_POOL_PHASES": "prefill:1,decode:1"}, ("--kv-layout", "contiguous")),
+    ({"LSOT_POOL_PHASES": "prefil:1,decode:1"}, ("--kv-layout", "paged")),
+    ({"LSOT_POOL_PHASES": "prefill:1,decode:2"}, ("--kv-layout", "paged")),
+    ({"LSOT_POOL_PHASES": "prefill:2"}, ("--kv-layout", "paged")),
+    ({"LSOT_POOL_PHASES": "prefill:1,decode:1", "LSOT_MODELS": "duckdb-nsql=hf:{ckpt}"},
+     ("--kv-layout", "paged")),
+], ids=["no-dp", "contiguous", "bad-role", "bad-count", "prefill-only", "with-models"])
+def test_entry_point_pool_phases_refusals_as_jax(tiny_hf_dir, monkeypatch, env, extra):
+    """Each misuse of `LSOT_POOL_PHASES` exits with the JAX entry point's
+    message, before a checkpoint is read: without `--dp > 1`, on the
+    contiguous layout, a bad spec, and combined with `LSOT_MODELS`."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v.format(ckpt=tiny_hf_dir))
+    argv = dp_argv(tiny_hf_dir, *extra)
+    msg = port_exit(argv)
+    assert msg == jax_exit(argv)
+    assert "LSOT_POOL_PHASES" in msg
+
+
+def test_entry_point_dp_pool_device_rule_and_backends(tiny_hf_dir, monkeypatch):
+    """Without `--cpu` the pool needs one card a replica and exits with the
+    JAX entry point's message before any load (no card here: found 0);
+    the tiny and fake backends have no dp pool."""
+    import torch as _torch
+
+    monkeypatch.setattr(_torch.cuda, "device_count", lambda: 1)
+    argv = [a for a in dp_argv(tiny_hf_dir) if a != "--cpu"]
+    assert port_exit(argv) == "--dp 2 --tp 1 needs 2 devices, found 1"
+    for backend in ("tiny", "fake"):
+        assert "--backend checkpoint" in port_exit(
+            ("--cpu", "--backend", backend, "--dp", "2"))
+
+
+def test_entry_point_pump_depth_one_decodes_in_place(tiny_hf_dir, monkeypatch):
+    """`LSOT_PUMP_DEPTH=1` reaches every replica of the dp pool: two
+    prompts whose final chunks complete in one prefill forward export one
+    blob and decode the other in place (backpressure), with the same
+    text."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    monkeypatch.setenv("LSOT_POOL_PHASES", "prefill:1,decode:1")
+    monkeypatch.setenv("LSOT_PUMP_DEPTH", "1")
+    svc = entry.build_service(args_for(*dp_argv(tiny_hf_dir, "--kv-layout", "paged")),
+                              AppConfig.from_env(history_db=":memory:"))
+    try:
+        pool = svc._models["duckdb-nsql"].backend.scheduler._inner
+        pre = pool.schedulers[0]
+        assert [s._pump_depth for s in pool.schedulers] == [1, 1]
+        # Hold the prefill replica's first admission until both requests
+        # have reached it, so both prefill in one group.
+        gate, admit = threading.Event(), pre._admit
+
+        def gated(slot, req):
+            assert gate.wait(60)
+            return admit(slot, req)
+
+        pre._admit = gated
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            futs = [ex.submit(svc.generate, "duckdb-nsql", "select vendor",
+                              system="from fare") for _ in range(2)]
+            for _ in range(6000):
+                if pre._rid_seq >= 2:
+                    break
+                threading.Event().wait(0.01)
+            gate.set()
+            outs = [f.result(timeout=120) for f in futs]
+        hs = {r["replica"]: r for r in pool.handoff_stats["replicas"]}
+    finally:
+        svc.close()
+    assert outs[0].response == outs[1].response
+    assert (hs["r0"]["exports"], hs["r0"]["inplace_fallbacks"],
+            hs["r0"]["backpressure"], hs["r1"]["imports"]) == (1, 1, 1, 1)

@@ -299,13 +299,16 @@ def test_weights_scale_the_backlog_comparison_as_jax():
 
 
 def test_phase_roles_and_remote_replicas_are_refused():
-    """The handoff (ROADMAP A7.5) and remote replicas (A11) are not ported:
-    a pool refuses such a replica by name."""
+    """Remote replicas (A11) are not ported: a pool refuses one by name. A
+    replica with a phase role is no longer refused: the pool wires a
+    prefill replica's handoff pump (tests/test_torch_disagg.py)."""
     pkg = PKGS["torch"]
     role = FakeReplica(pkg)
     role.phase_role = "prefill"
-    with pytest.raises(NotImplementedError, match="A7.5"):
-        t_sched.SchedulerPool([role])
+    role.on_handoff = None
+    pool = t_sched.SchedulerPool([role, FakeReplica(pkg)])
+    assert role.on_handoff.func == pool._pump_handoffs and role.on_handoff.args == (0,)
+    assert [r["phase_role"] for r in pool.replica_health()] == ["prefill", "mixed"]
     remote = FakeReplica(pkg)
     remote.is_remote = True
     pool = t_sched.SchedulerPool([FakeReplica(pkg)])
