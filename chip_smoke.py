@@ -16,6 +16,8 @@
                                          # and 3B weights alone
     python3 chip_smoke.py --disagg-only  # phases 1, 2, then 17 on the 7B
                                          # weights alone
+    python3 chip_smoke.py --remote-only  # phases 1, 2, then 18 (a) and (b)
+                                         # on the 7B weights alone
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -414,8 +416,8 @@ Phases, each fatal on failure:
    `llama3.2`: every placement on a replica of its model and both 7B
    replicas used, `quiet`'s queue-wait p50 below `storm`'s. Under
    LSOT_TENANT_RATE FLEET_SHED_RATE the app sheds `storm` 429 with
-   Retry-After and serves `quiet`. Burst B: 8 SQL requests and 2
-   explanations with `restart_replica` of the 7B replica holding the most
+   Retry-After and serves `quiet`. Burst B: FLEET_BURST_B SQL requests and
+   2 explanations with `restart_replica` of the 7B replica holding the most
    slots (prefix affinity may route the whole burst to one): it alone is
    rebuilt (the others' restart counts 0, no pool restart), its entries
    replayed, none lost. Launch counts exact over both bursts (every
@@ -464,6 +466,46 @@ Phases, each fatal on failure:
    Prints export seconds, import waits, bytes a request, the split
    fleet's and the mixed control's TTFT p50 and decode tok/s, and a
    `{"disagg": ...}` line before the kernels line.
+
+18. The remote fleet (ROADMAP A11's remote half: serve/remote.py), after
+   phase 17, on phase 7's 7B bf16 tree at full width and depth
+   (`remote_serve`). Its replicas live in worker processes this file
+   starts (`--remote-worker ROLE`, `remote_worker`): each rebuilds the
+   tree on the card from seed 0 and prints its checksum, which must equal
+   this process's, builds a paged scheduler of phase 17's shape (pages of
+   64, DISAGG_SLOTS slots, DISAGG_HBM_GB GiB of KV), warms it up, zeroes
+   its launch counts and serves it with the port's `ReplicaServer`; on
+   SIGTERM it prints its launch counts beside those its rounds imply, and
+   they must be equal. A supervised `SchedulerPool` keeps each
+   `SocketTransport` under a lease of REMOTE_LEASE_S x REMOTE_LEASE_MISSES.
+   (a) r0 a local prefill replica, r1 a remote decode worker, REMOTE_REQUESTS
+   NL->SQL requests at once, every blob crossing in a requeue frame:
+   exports equal imports (r1's read through the loads digest), each blob
+   its pages x 32 MiB, each frame's wire bytes its raw bytes x the
+   encoding's overhead, streams once, nothing lost, no page leaked in
+   either process. (b) r0 a remote prefill worker pushing its handoffs,
+   r1 a local decode replica: a wave of REMOTE_WAVE requests all through
+   pushes (`fleet_stats().pushed`, no pull rpc), then a second wave during
+   which the worker is killed with SIGKILL once a push of the wave has
+   arrived; the lease expires, only r0 restarts, against a replacement
+   worker (started before the kill when the card holds a third 7B process,
+   else at the kill: a worker starts only when the card has room for it,
+   and (b)'s first worker as soon as (a)'s local pool is freed), the
+   journal replays the lost work with
+   the delivered prefixes suppressed (a replayed request's first token may
+   leave its replay's only at a near-tie), nothing is lost; two more
+   requests go through the replacement. Each greedy stream equals a lone
+   mixed scheduler's fed the same prompts or leaves it at a near-tie
+   (`fleet_compare`). (c) in phase 10, after 16 (b): the worker's command
+   line (`python -m <package>.serve.remote --from-hf DIR --kv-layout paged
+   --kv-page-size 64`) over phase 10's 4-layer 7B HF directory: its hello
+   digest, two requests equal to an in-process scheduler's over the same
+   directory, and the same command with no card visible exiting non-zero,
+   naming the card (`remote_cli`). Prints the frame encoding, per blob
+   frame its raw and wire bytes and encode and decode seconds, push ->
+   placed p50 / p95, SIGKILL -> lease expiry and the restart's seconds,
+   TTFT p50 and decode tok/s beside phase 17's split fleet and the lone
+   controls, and a `{"remote": ...}` line before the kernels line.
 
 Every phase prints its seconds.
 
@@ -4019,6 +4061,9 @@ def checkpoints(torch, engines):
                   f"over the 7B HF directory and the 3B Q4_0 blob at {ENTRY_3B_LAYERS} "
                   "layers")
             fleet_entry_point(torch, hf_dir, cut)
+            phase("remote worker (c), phase 18: `python -m ...serve.remote --from-hf` "
+                  "over the 7B HF directory")
+            _REMOTE["cli"] = remote_cli(torch, hf_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"gguf_3b_int4_int8": gguf_launches, "hf_7b_bf16": hf_launches,
@@ -4068,8 +4113,14 @@ def write_tokenizer(directory):
 FLEET_SLOTS = 2      # slots a replica: the storm outnumbers the fleet's slots
 FLEET_HBM_GB = 16    # the pool's KV budget, split 0.75 / 0.25 between the models
 FLEET_WEIGHTS = "quiet=4"  # LSOT_TENANT_WEIGHTS of phase 16
-FLEET_SHED_RATE = "batch=0.5"   # LSOT_TENANT_RATE of the shed check
+# LSOT_TENANT_RATE of the shed check: one token in 20 s, so the two requests
+# the burst admits never refill the bucket for a third, however slow the host
+# (at 0.5 a host whose two requests took over 2 s admitted the third).
+FLEET_SHED_RATE = "batch=0.05"
 FLEET_SHED_BURST = "batch=2"    # LSOT_TENANT_BURST of the shed check
+# SQL requests of burst B (cut from 8 to 4 for the run's time: four fill the
+# two 7B replicas' slots, so the restarted one holds work to replay)
+FLEET_BURST_B = 4
 
 
 def recording_tokenizer():
@@ -4131,7 +4182,7 @@ def fleet_serve(torch, engines, smi):
     with tenant weights FLEET_WEIGHTS, behind the service and the JSON API.
     Burst A, all in flight together: 12 SQL requests of tenant `storm`
     (batch), then 3 of `quiet` (interactive) and 3 error explanations. Burst
-    B: 8 SQL requests and 2 explanations with a `restart_replica` of the 7B
+    B: FLEET_BURST_B SQL requests and 2 explanations with a `restart_replica` of the 7B
     replica holding the most slots. Checks: every placement on a replica of its
     model, both 7B replicas used; `quiet`'s queue-wait p50 below `storm`'s;
     under FLEET_SHED_RATE the app sheds `storm` 429 with Retry-After and
@@ -4271,7 +4322,8 @@ def fleet_serve(torch, engines, smi):
         track()
         h0 = sup.health()
         with ThreadPoolExecutor(max_workers=10) as ex:
-            futs = [ex.submit(ask, "duckdb-nsql", q, "storm", "batch") for q in SCHED_SQL]
+            futs = [ex.submit(ask, "duckdb-nsql", q, "storm", "batch")
+                    for q in SCHED_SQL[:FLEET_BURST_B]]
             futs += [ex.submit(ask, "llama3.2", ERROR_PROMPT, "support", "interactive")
                      for _ in range(2)]
             # The victim: the 7B replica holding the most slots (prefix
@@ -4463,6 +4515,55 @@ def blob_round_trip(torch, src, dst, npg):
     return t_export, t_import, handoff_bytes(blob)
 
 
+def p50(xs):
+    """The median of `xs`, rounded; None when empty."""
+    import statistics
+
+    return round(statistics.median(xs), 6) if xs else None
+
+
+def timed_burst(submit, prompts):
+    """Submit every prompt at once through `submit(ids, on_token)`.
+    Returns the results (None for a lost request), the streams, and the
+    p50s of TTFT, decode tok/s from the first token ((n - 1) / (last -
+    first): the client's rate, the split fleet's handoff inside), the
+    gap from the first to the second token (split: the handoff) and
+    the decode leg's tok/s from the second token ((n - 2) / (last -
+    second))."""
+    streams = [[] for _ in prompts]
+    stamps = [[0.0, 0.0, 0.0, 0.0] for _ in prompts]  # submit, first, second, last
+
+    def tap(i):
+        def on_token(t):
+            now = time.perf_counter()
+            streams[i].append(t)
+            if len(streams[i]) <= 2:
+                stamps[i][len(streams[i])] = now
+            stamps[i][3] = now
+        return on_token
+
+    futs = []
+    for i, p in enumerate(prompts):
+        stamps[i][0] = time.perf_counter()
+        futs.append(submit(p, tap(i)))
+    outs = []
+    for f in futs:
+        try:
+            outs.append(f.result(timeout=600))
+        except Exception as e:  # noqa: BLE001 — a lost request, counted
+            print(f"    lost: {type(e).__name__}: {e}", flush=True)
+            outs.append(None)
+    ttft = [s[1] - s[0] for s in stamps if s[1]]
+    tok_s = [(len(o) - 1) / (s[3] - s[1]) for o, s in zip(outs, stamps)
+             if o and len(o) > 1 and s[3] > s[1]]
+    gap = [s[2] - s[1] for s in stamps if s[2]]
+    leg = [(len(o) - 2) / (s[3] - s[2]) for o, s in zip(outs, stamps)
+           if o and len(o) > 2 and s[3] > s[2]]
+    return outs, streams, {"ttft_p50_s": p50(ttft), "decode_tok_s_p50": p50(tok_s),
+                           "second_token_gap_s_p50": p50(gap),
+                           "decode_leg_tok_s_p50": p50(leg)}
+
+
 def disagg_serve(torch, engines, smi):
     """Phase 17: the phase-split fleet. The entry point's `--dp` past the
     card count exits with the JAX entry point's message first. Then, for
@@ -4488,8 +4589,6 @@ def disagg_serve(torch, engines, smi):
     bit; each greedy stream equal to that of a lone mixed scheduler built
     by the same factory and fed the same prompts, or leaving it only at a
     near-tie (`fleet_compare`). Returns (launches by path, numbers)."""
-    import statistics
-
     from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
         page_bytes,
         pages_for_tokens,
@@ -4518,50 +4617,6 @@ def disagg_serve(torch, engines, smi):
     tok = ByteTokenizer()
     roles = ("prefill", "decode")
     launches, bounds = {}, {}
-
-    def p50(xs):
-        return round(statistics.median(xs), 6) if xs else None
-
-    def timed_burst(submit, prompts):
-        """Submit every prompt at once through `submit(ids, on_token)`.
-        Returns the results (None for a lost request), the streams, and the
-        p50s of TTFT, decode tok/s from the first token ((n - 1) / (last -
-        first): the client's rate, the split fleet's handoff inside), the
-        gap from the first to the second token (split: the handoff) and
-        the decode leg's tok/s from the second token ((n - 2) / (last -
-        second))."""
-        streams = [[] for _ in prompts]
-        stamps = [[0.0, 0.0, 0.0, 0.0] for _ in prompts]  # submit, first, second, last
-
-        def tap(i):
-            def on_token(t):
-                now = time.perf_counter()
-                streams[i].append(t)
-                if len(streams[i]) <= 2:
-                    stamps[i][len(streams[i])] = now
-                stamps[i][3] = now
-            return on_token
-
-        futs = []
-        for i, p in enumerate(prompts):
-            stamps[i][0] = time.perf_counter()
-            futs.append(submit(p, tap(i)))
-        outs = []
-        for f in futs:
-            try:
-                outs.append(f.result(timeout=600))
-            except Exception as e:  # noqa: BLE001 — a lost request, counted
-                print(f"    lost: {type(e).__name__}: {e}", flush=True)
-                outs.append(None)
-        ttft = [s[1] - s[0] for s in stamps if s[1]]
-        tok_s = [(len(o) - 1) / (s[3] - s[1]) for o, s in zip(outs, stamps)
-                 if o and len(o) > 1 and s[3] > s[1]]
-        gap = [s[2] - s[1] for s in stamps if s[2]]
-        leg = [(len(o) - 2) / (s[3] - s[2]) for o, s in zip(outs, stamps)
-               if o and len(o) > 2 and s[3] > s[2]]
-        return outs, streams, {"ttft_p50_s": p50(ttft), "decode_tok_s_p50": p50(tok_s),
-                               "second_token_gap_s_p50": p50(gap),
-                               "decode_leg_tok_s_p50": p50(leg)}
 
     for name, kv_quant, n, fault in DISAGG_VARIANTS:
         label = f"disagg_{name}"
@@ -4742,6 +4797,767 @@ def disagg_serve(torch, engines, smi):
               f"split {split} vs mixed {mixed}; {numbers_v['streams_equal']} streams equal "
               f"to the lone mixed scheduler, {len(div)} near-ties; on {smi}", flush=True)
     return launches, numbers
+
+
+# ------------------------------------------------------------------ remote
+
+REMOTE_REQUESTS = 8    # (a): requests in flight together over the remote decode worker
+REMOTE_WAVE = 6        # (b): requests a wave over the remote prefill worker
+# The pool's lease over the workers of phase 18: a beat of 2 s (the
+# default) and 6 misses. A ping and its ack share the worker's one
+# connection with the 7B blobs (160-224 MiB a frame, about 1 s each to
+# encode, send and decode), so an ack can wait behind a pass of pushes:
+# 1 s x 3 expired a live prefill worker on the card.
+REMOTE_LEASE_S = 2.0
+REMOTE_LEASE_MISSES = 6
+REMOTE_RPC_S = 60.0    # an rpc's budget: a 7B blob is encoded and decoded on the way
+# The supervisors' stall floor in phase 18: a local prefill replica's pump
+# ships its pass's blobs to the remote decode worker on the replica's own
+# loop thread, one requeue round trip each (encode, send, decode, ack), and
+# its heartbeat waits for the whole pass (10 s, the default, flagged a
+# stall on the card).
+REMOTE_STALL_MIN_S = 120.0
+_REMOTE = {}           # phase 18 (c)'s numbers, taken in phase 10
+
+
+def tree_checksum(torch, params):
+    """A checksum of a params tree's bits: for each leaf, in slices of 2^24
+    elements (so the int64 copies stay small), the sum and the sum of
+    squares of its 16-bit (or 8-bit, 32-bit) patterns, hashed in the
+    leaves' order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    step = 1 << 24
+    for name, x in sorted(leaves(params).items()):
+        bits = x.contiguous().view(-1)
+        if bits.element_size() == 2:
+            bits = bits.view(torch.int16)
+        elif bits.element_size() == 4:
+            bits = bits.view(torch.int32)
+        for i in range(0, bits.numel(), step):
+            v = bits[i:i + step].to(torch.int64)
+            h.update(f"{name}:{i}:{int(v.sum())}:{int((v * v).sum())};".encode())
+    return h.hexdigest()[:16]
+
+
+class WireProbe:
+    """Times the blob frames of this process's transports: `encode_frame`
+    and `FrameDecoder.feed` of `serve.remote` wrapped while installed. A
+    frame carrying a request with a KV blob (a requeue rpc or a pushed
+    handoff) records its raw blob bytes, its wire bytes and the seconds of
+    its encode or of the feed call that decoded it; `emit(record)` is called
+    with each record (a worker prints it)."""
+
+    def __init__(self, emit=None):
+        from llm_based_apache_spark_optimization_tpu_torch.serve import remote
+
+        self.remote = remote
+        self.records = []
+        self.emit = emit
+        self._encode, self._decoder = remote.encode_frame, remote.FrameDecoder
+        probe = self
+
+        def encode_frame(obj, encoding=None):
+            t0 = time.perf_counter()
+            frame = probe._encode(obj, encoding)
+            raw = probe.blob_bytes(obj)
+            if raw:
+                probe.add(dict(side="encode", kind=obj.get("op") or obj.get("ev"),
+                               raw=raw, wire=len(frame),
+                               s=round(time.perf_counter() - t0, 6)))
+            return frame
+
+        class FrameDecoder(probe._decoder):
+            def feed(self, data):
+                t0 = time.perf_counter()
+                out = super().feed(data)
+                for msg in out:
+                    raw = probe.blob_bytes(msg)
+                    if raw:
+                        probe.add(dict(side="decode", kind=msg.get("op") or msg.get("ev"),
+                                       raw=raw, wire=None,
+                                       s=round(time.perf_counter() - t0, 6)))
+                return out
+
+        self._patched = (encode_frame, FrameDecoder)
+
+    @staticmethod
+    def blob_bytes(msg):
+        req = msg.get("req") if isinstance(msg, dict) else None
+        blob = req.get("spilled") if isinstance(req, dict) else None
+        if not blob:
+            return 0
+        import numpy as np
+
+        return int(sum(np.asarray(a).nbytes for a in blob
+                       if isinstance(a, np.ndarray)))
+
+    def add(self, rec):
+        self.records.append(rec)
+        if self.emit is not None:
+            self.emit(rec)
+
+    def __enter__(self):
+        self.remote.encode_frame, self.remote.FrameDecoder = self._patched
+        return self
+
+    def __exit__(self, *exc):
+        self.remote.encode_frame, self.remote.FrameDecoder = self._encode, self._decoder
+
+
+def worker_command(role):
+    """The command of one phase 18 worker process (this file in worker mode)."""
+    return [sys.executable, os.path.abspath(__file__), "--remote-worker", role]
+
+
+def remote_worker(role) -> int:
+    """`--remote-worker ROLE`: one worker process of phase 18. Rebuilds the
+    7B bf16 tree on the card from seed 0 (`make_engines`' recipe) and prints
+    its checksum, builds a paged scheduler of phase 17's shape with phase
+    role ROLE, warms it up with one request, zeroes the launch counts and
+    serves it with the port's `ReplicaServer` (printing its listening line
+    and, as a JSON line, each blob frame it encodes or decodes). On SIGTERM
+    it prints its launch counts beside the counts its rounds imply
+    (`expect_paged`) as one JSON line and exits 0; on any failure it prints
+    the traceback and exits 1 at once."""
+    try:
+        return _remote_worker(role)
+    except BaseException:  # noqa: BLE001 — a worker must not linger half-built
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+
+
+def _remote_worker(role) -> int:
+    import signal
+    import threading
+    import types
+
+    import torch
+
+    from llm_based_apache_spark_optimization_tpu_torch.models import DUCKDB_NSQL_7B
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import resolve_stop_ids
+    from llm_based_apache_spark_optimization_tpu_torch.serve.remote import ReplicaServer
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    t0 = time.perf_counter()
+    cfg = DUCKDB_NSQL_7B
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16, device="cuda")
+    tok = ByteTokenizer()
+    print(json.dumps({"tree_checksum": tree_checksum(torch, params)}), flush=True)
+    torch.cuda.empty_cache()
+    sched = ContinuousBatchingScheduler(
+        cfg, params, num_slots=DISAGG_SLOTS, stop_ids=resolve_stop_ids(cfg, tok),
+        kv_layout="paged", kv_page_size=SCHED["kv_page_size"],
+        kv_hbm_budget_bytes=DISAGG_HBM_GB * 2**30, phase_role=role, device="cuda")
+    sched.start()
+    sched.submit(tok.encode(QUESTIONS[0]), max_new_tokens=4).result(timeout=300)
+    wait_idle(sched)
+    torch.cuda.synchronize()
+    base = dict(rounds=sched.rounds_issued, prefills=sched.prefill_forwards,
+                mixed=sched.mixed_rounds, ragged=sched.ragged_prefills)
+    reset_launches()
+    probe = WireProbe(emit=lambda rec: print(json.dumps({"wire": rec}), flush=True))
+    with probe:
+        srv = ReplicaServer(sched)
+        print(json.dumps({"ready_s": round(time.perf_counter() - t0, 3), "role": role,
+                          "allocated_gib": round(torch.cuda.memory_allocated() / 2**30, 2),
+                          "reserved_gib": round(torch.cuda.memory_reserved() / 2**30, 2)}),
+              flush=True)
+        print(f"lsot-remote-worker listening on {srv.address}", flush=True)
+        while not stop.wait(0.2):
+            pass
+        srv.close()
+        wait_idle(sched)
+        torch.cuda.synchronize()
+    # The counts the rounds since the reset imply, on a view of the
+    # scheduler whose cumulative counters start at the reset.
+    view = types.SimpleNamespace(
+        cfg=sched.cfg, kv_quant=sched.kv_quant, decode_chunk=sched.decode_chunk,
+        params=sched.params, mixed_rounds=sched.mixed_rounds - base["mixed"],
+        ragged_prefills=sched.ragged_prefills - base["ragged"])
+    expected = dict.fromkeys(LAUNCHES, 0)
+    expect_paged(expected, view, sched.rounds_issued - base["rounds"],
+                 sched.prefill_forwards - base["prefills"])
+    print(json.dumps({"worker_launches": dict(LAUNCHES), "expected": expected,
+                      "handoff": {k: v for k, v in (sched.handoff_stats or {}).items()
+                                  if isinstance(v, (int, float))}}), flush=True)
+    sched.shutdown()
+    return 0
+
+
+class Worker:
+    """One phase 18 worker process: started with `cmd`, its output read by a
+    thread into `lines` (JSON lines parsed into `records`), every wait
+    bounded."""
+
+    def __init__(self, cmd, name, env=None):
+        import queue
+        import threading
+
+        self.name = name
+        self.lines = queue.Queue()
+        self.records = []
+        self.log = []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            cmd, env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+                          **(env or {})),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def read():
+            for line in self.proc.stdout:
+                line = line.rstrip("\n")
+                self.log.append(line)
+                if line.startswith("{"):
+                    try:
+                        self.records.append(json.loads(line))
+                    except ValueError:
+                        pass
+                self.lines.put(line)
+            self.lines.put(None)
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+
+    def wait_for(self, pred, timeout):
+        """The first line (from now) for which `pred(line)` holds."""
+        import queue
+
+        deadline = time.perf_counter() + timeout
+        while True:
+            left = deadline - time.perf_counter()
+            try:
+                line = self.lines.get(timeout=max(0.01, left))
+            except queue.Empty:
+                line = ""
+            if line is None or left <= 0:
+                ended = "its output ended" if line is None else f"none in {timeout} s"
+                raise AssertionError(f"worker {self.name}: no such line ({ended}); "
+                                     f"output {self.log[-30:]}")
+            if pred(line):
+                return line
+
+    def ready(self, timeout=300):
+        """(checksum, address, seconds to ready) once it listens."""
+        checksum = json.loads(self.wait_for(lambda x: x.startswith('{"tree_checksum"'),
+                                            timeout))["tree_checksum"]
+        line = self.wait_for(lambda x: x.startswith("lsot-remote-worker listening on "),
+                             timeout)
+        return checksum, line.split()[-1], round(time.perf_counter() - self.t0, 3)
+
+    def record(self, key):
+        return [r[key] for r in self.records if key in r]
+
+    def stop(self, timeout=120):
+        """SIGTERM, then the exit code and the launch line (None if the
+        worker printed none)."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(timeout=60)
+        self.reader.join(timeout=30)
+        done = [r for r in self.records if "worker_launches" in r]
+        return rc, done[-1] if done else None
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def wire_summary(records):
+    """Per blob frame: raw and wire bytes (MiB), encode and decode seconds,
+    and their ranges."""
+    enc = [r for r in records if r["side"] == "encode"]
+    dec = [r for r in records if r["side"] == "decode"]
+
+    def rng(xs):
+        return [round(min(xs), 6), round(max(xs), 6)] if xs else None
+
+    return {"frames_encoded": len(enc), "frames_decoded": len(dec),
+            "raw_mib": rng([r["raw"] / 2**20 for r in enc + dec]),
+            "wire_mib": rng([r["wire"] / 2**20 for r in enc]),
+            "wire_over_raw": rng([r["wire"] / r["raw"] for r in enc]),
+            "encode_s": rng([r["s"] for r in enc]), "encode_s_p50": p50([r["s"] for r in enc]),
+            "decode_s": rng([r["s"] for r in dec]), "decode_s_p50": p50([r["s"] for r in dec])}
+
+
+def card_memory(torch):
+    """The card's free memory (every process's use counted) and this
+    process's allocated and reserved memory, in GiB."""
+    free, total = torch.cuda.mem_get_info()
+    return (f"card free {free / 2**30:.2f} of {total / 2**30:.2f} GiB; here allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f}, reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f}")
+
+
+def check_worker_launches(label, line):
+    """A cleanly stopped worker's launch line: its counts equal those its
+    rounds imply, and it wrote pages (every paged forward does)."""
+    assert line is not None, f"{label}: the worker printed no launch line"
+    got, want = line["worker_launches"], line["expected"]
+    print(f"  {label}: worker launches {got} expected {want}", flush=True)
+    assert got == want, f"{label}: worker launch counts {got} != {want}"
+    assert got["fused_page_write"] > 0, got
+    return got
+
+
+def remote_serve(torch, engines, smi, split=None):
+    """Phase 18: the remote fleet over phase 7's 7B bf16 tree (full width
+    and depth), paged, pages of 64, DISAGG_SLOTS slots and DISAGG_HBM_GB
+    GiB of KV a replica, the workers processes of this file
+    (`remote_worker`, `Worker`) serving the port's `ReplicaServer`; the
+    supervised `SchedulerPool` keeps each `SocketTransport` under a lease of
+    REMOTE_LEASE_S x REMOTE_LEASE_MISSES. (a): r0 a local prefill replica,
+    r1 a remote decode worker; REMOTE_REQUESTS requests at once, each blob
+    crossing in a requeue frame. (b): r0 a remote prefill worker pushing its
+    handoffs, r1 a local decode replica; a wave of REMOTE_WAVE requests all
+    through pushes (none pulled), then a second wave during which the worker
+    is killed with SIGKILL once a push of that wave has arrived: the lease
+    expires, only r0 restarts (against a replacement worker, started before
+    the kill when the card has room for it, else at the kill) and the
+    journal replays the lost work with the delivered
+    prefixes suppressed. Checks: every worker's tree checksum equals this
+    process's; exports equal imports (r1's side read through the loads
+    digest); each blob's bytes are its pages x the pool's page bytes and its
+    frame's wire bytes its raw bytes x the encoding's overhead; nothing lost;
+    each stream delivered once (a replayed request's first token may leave
+    its replay's only at a near-tie); no page leaked in a local replica or
+    a worker; launch counts exact in this process and in each worker that
+    exits cleanly; each greedy stream equal to a lone mixed scheduler's of
+    the same prompts or leaving it at a near-tie (`fleet_compare`). Returns
+    (launches by path, numbers)."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        page_bytes,
+        pages_for_tokens,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import remote
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+        SchedulerPool,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.supervisor import (
+        SupervisedScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    e7 = engines["duckdb-nsql"]
+    cfg, params = e7.cfg, e7.params
+    tok = ByteTokenizer()
+    enc = "msgpack" if remote.HAVE_MSGPACK else "json"
+    checksum = tree_checksum(torch, params)
+    print(f"  frame encoding {enc}; this process's 7B tree checksum {checksum}", flush=True)
+    pb = page_bytes(cfg, SCHED["kv_page_size"], params["final_norm"].dtype.itemsize, None)
+    overhead = (1.0, 1.01) if enc == "msgpack" else (4 / 3, 4 / 3 * 1.01)
+    numbers = {"encoding": enc, "tree_checksum": checksum, "device": smi}
+    launches, bounds = {}, {}
+    prompts_a = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in (SCHED_SQL * 2)[:REMOTE_REQUESTS]]
+    prompts_b = [tok.encode(f"{SYSTEM_SQL}\n\n{q}")
+                 for q in (SCHED_SQL * 2)[REMOTE_REQUESTS - 2:][:REMOTE_WAVE]]
+
+    def make(role):
+        return ContinuousBatchingScheduler(
+            cfg, params, num_slots=DISAGG_SLOTS, stop_ids=e7.stop_ids,
+            kv_layout="paged", kv_page_size=SCHED["kv_page_size"],
+            kv_hbm_budget_bytes=DISAGG_HBM_GB * 2**30, phase_role=role, device="cuda")
+
+    def transport(addr, label):
+        return remote.SocketTransport(addr, label=label, rpc_timeout_s=REMOTE_RPC_S,
+                                      connect_timeout_s=30.0)
+
+    def supervised(make_replica, label):
+        return SupervisedScheduler(
+            lambda: SchedulerPool([make_replica(0), make_replica(1)], factory=make_replica,
+                                  lease_s=REMOTE_LEASE_S, lease_misses=REMOTE_LEASE_MISSES),
+            stall_min_s=REMOTE_STALL_MIN_S, name=f"scheduler-pool:{label}").start()
+
+    def control(prompts):
+        lone = make("mixed")
+        with lone:
+            want, _, mixed = timed_burst(
+                lambda p, on: lone.submit(p, max_new_tokens=MAX_NEW, on_token=on), prompts)
+        del lone
+        gc.collect()
+        torch.cuda.empty_cache()
+        return want, mixed
+
+    def blob_checks(label, probe_records, exports):
+        """Each export's bytes its pages x the page bytes (its pages covering
+        prompt + first token); each blob frame's wire bytes its raw bytes x
+        the encoding's overhead."""
+        for r in exports:
+            assert r["bytes"] == r["pages"] * pb, (label, r, pb)
+        for r in probe_records:
+            if r["side"] == "encode":
+                ratio = r["wire"] / r["raw"]
+                assert r["raw"] % pb == 0 and overhead[0] <= ratio <= overhead[1], \
+                    (label, r, pb, overhead)
+
+    def streams_once(label, prompts, streams, outs, replayed):
+        ties = []
+        for i, (s, o) in enumerate(zip(streams, outs)):
+            assert len(s) == len(o) and s[1:] == o[1:], f"{label}[{i}]: stream {s} != {o}"
+            if s[:1] != o[:1]:
+                bound = bounds.setdefault(label, 2 * logit_drift(
+                    torch, cfg, params, None)["eps_top"])
+                gap = pair_gap(torch, cfg, params, prompts[i], [], o[0], s[0])
+                ties.append(dict(stream=i, gap=round(gap, 5), bound=round(bound, 5)))
+                assert replayed and gap <= bound, f"{label}[{i}]: first token {s[0]} != {o[0]}"
+        return ties
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  before the workers: {card_memory(torch)}", flush=True)
+    workers = {"a": Worker(worker_command("decode"), "a-decode")}
+    overlapped = {}
+
+    def room_for_worker():
+        """Whether the card holds one more worker (the first worker's
+        footprint, read off the card, and 1 GiB to spare)."""
+        return torch.cuda.mem_get_info()[0] / 2**30 >= footprint + 1.0
+
+    try:
+        free0 = torch.cuda.mem_get_info()[0] / 2**30
+        # The controls run while the first worker builds its tree.
+        want_a, mixed_a = control(prompts_a)
+        want_b, mixed_b = control(prompts_b)
+
+        # (a) a local prefill replica, a remote decode worker.
+        label = "remote_decode"
+        sum_a, addr_a, ready_a = workers["a"].ready()
+        assert sum_a == checksum, f"{label}: worker tree {sum_a} != {checksum}"
+        footprint = free0 - torch.cuda.mem_get_info()[0] / 2**30
+        print(f"  {label}: worker ready in {ready_a} s at {addr_a}, tree checksum equal; "
+              f"a worker takes {footprint:.2f} GiB of the card; {card_memory(torch)}",
+              flush=True)
+        with WireProbe() as probe:
+            sup = supervised(lambda i: make("prefill") if i == 0 else transport(addr_a, "r1"),
+                             label)
+            pool = sup._inner
+            pre, tr = pool.schedulers
+            assert tr.phase_role == "decode" and tr._page_size == SCHED["kv_page_size"]
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            outs, streams, fleet_a = timed_burst(
+                lambda p, on: sup.submit(p, max_new_tokens=MAX_NEW, on_token=on), prompts_a)
+            burst_a = round(time.perf_counter() - t0, 4)
+        wait_idle(pre)
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        expected = dict.fromkeys(LAUNCHES, 0)
+        expect_paged(expected, pre, pre.rounds_issued, pre.prefill_forwards)
+        tr.ping()  # refresh the loads digest
+        loads = {r["replica"]: r for r in pool.replica_loads()}
+        health = sup.health()
+        exports = [r for r in pre.flight.snapshot() if r.get("kind") == "handoff_export"]
+        ho = dict(exports=pre.handoff_stats["exports"], imports=loads["r1"]["handoff_imports"],
+                  inplace=pre.handoff_stats["inplace_fallbacks"])
+        remote_pages = loads["r1"]["page_stats"]
+        print(f"  {label}: {REMOTE_REQUESTS} requests in {burst_a} s; {ho}; lost "
+              f"{health['lost']}, restarts {health['restarts']}; transport "
+              f"{loads['r1']['transport']}; local launches {launches[label]} expected "
+              f"{expected}", flush=True)
+        assert all(o is not None for o in outs) and health["lost"] == 0, health
+        assert ho["exports"] == ho["imports"] == REMOTE_REQUESTS and not ho["inplace"], ho
+        assert launches[label] == expected, f"{label}: {launches[label]} != {expected}"
+        assert remote_pages["pages_in_use"] == remote_pages["prefix_resident_pages"], \
+            remote_pages
+        ps = pre.page_stats
+        assert ps["pages_in_use"] == ps["prefix_resident_pages"], ps
+        want_pages = {pages_for_tokens(len(p) + 1, SCHED["kv_page_size"]) for p in prompts_a}
+        assert {r["pages"] for r in exports} <= want_pages, (want_pages, exports[:2])
+        sent = [r for r in probe.records if r["kind"] == "requeue"]
+        assert len(sent) == REMOTE_REQUESTS, sent
+        blob_checks(label, sent, exports)
+        ties_a = streams_once(label, prompts_a, streams, outs, False)
+        sup.shutdown()
+        del sup, pool, pre, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b)'s worker builds while (a)'s is stopped and checked, when the
+        # card holds both; else after (a)'s stops.
+        overlapped["b"] = room_for_worker()
+        if overlapped["b"]:
+            workers["b"] = Worker(worker_command("prefill"), "b-prefill")
+        rc, line = workers["a"].stop()
+        assert rc == 0, f"{label}: the worker exited {rc}"
+        wl = check_worker_launches(label, line)
+        launches[label] = {k: v + wl[k] for k, v in launches[label].items()}
+        wire_a = wire_summary(sent + [r["wire"] for r in workers["a"].records if "wire" in r])
+        div_a = fleet_compare(torch, label, cfg, params, e7.stop_ids, prompts_a, outs,
+                              want_a, bounds)
+        numbers["a"] = dict(requests=REMOTE_REQUESTS, burst_s=burst_a, worker_ready_s=ready_a,
+                            handoffs=ho, wire=wire_a, fleet=fleet_a, mixed_control=mixed_a,
+                            split_local=(split or {}).get("split"), first_token_ties=ties_a,
+                            streams_equal=f"{REMOTE_REQUESTS - len(div_a)} of "
+                                          f"{REMOTE_REQUESTS}", divergences=div_a)
+        print(f"  {label}: wire {wire_a}; TTFT p50 / decode tok/s p50: remote "
+              f"{fleet_a['ttft_p50_s']} / {fleet_a['decode_tok_s_p50']}, phase 17's local "
+              f"split {numbers['a']['split_local']}, lone mixed {mixed_a}; "
+              f"{numbers['a']['streams_equal']} streams equal; on {smi}", flush=True)
+
+        # (b) a remote prefill worker pushing its handoffs, a local decode
+        # replica; the worker killed mid-traffic.
+        label = "remote_prefill"
+        if "b" not in workers:
+            workers["b"] = Worker(worker_command("prefill"), "b-prefill")
+        sum_b, addr_b, ready_b = workers["b"].ready()
+        assert sum_b == checksum, f"{label}: worker tree {sum_b} != {checksum}"
+        print(f"  {label}: worker ready in {ready_b} s at {addr_b}, tree checksum equal; "
+              f"{card_memory(torch)}", flush=True)
+        addrs, killed, ready_c = [addr_b], [], {}
+
+        def replacement():
+            """Start the replacement worker unless it runs, wait until it
+            listens, and make it r0's address."""
+            if "c" not in workers:
+                workers["c"] = Worker(worker_command("prefill"), "b-replacement")
+            sum_c, addr_c, ready_c["s"] = workers["c"].ready()
+            assert sum_c == checksum, f"{label}: replacement tree {sum_c} != {checksum}"
+            addrs.append(addr_c)
+
+        def r0_address():
+            # A restart after the kill connects to the replacement, waiting
+            # for it when it could not build before the kill.
+            if killed and len(addrs) == 1:
+                replacement()
+            return addrs[-1]
+
+        with WireProbe() as probe:
+            sup = supervised(lambda i: transport(r0_address(), "r0") if i == 0
+                             else make("decode"), label)
+            pool = sup._inner
+            tr, dec = pool.schedulers
+            assert tr.phase_role == "prefill" and tr._dig("push_handoffs") is True
+            torch.cuda.synchronize()
+            reset_launches()
+            h0 = sup.health()
+            outs1, streams1, fleet_b = timed_burst(
+                lambda p, on: sup.submit(p, max_new_tokens=MAX_NEW, on_token=on), prompts_b)
+            fl1 = pool.fleet_stats()
+            pulls = tr.transport_stats()["endpoints"].get("extract_handoffs", {}).get("rpcs", 0)
+            beats_missed = sum(r.get("kind") == "lease_miss" for r in pool.flight_snapshot())
+            print(f"  {label}: wave 1, {REMOTE_WAVE} requests: fleet {fl1}; pulled {pulls}; "
+                  f"lease beats missed while pushing {beats_missed}", flush=True)
+            assert all(o is not None for o in outs1), f"{label}: wave 1 lost a request"
+            assert fl1["pushed"] >= REMOTE_WAVE and fl1["push_placed"] >= REMOTE_WAVE, fl1
+            assert pulls == 0, f"{label}: the pull path ran {pulls} times"
+            ties_b = streams_once(label, prompts_b, streams1, outs1, False)
+            # The replacement builds before the kill when the card holds it
+            # beside the live worker; else the restart waits for its build.
+            overlapped["c"] = room_for_worker()
+            if overlapped["c"]:
+                replacement()
+            print(f"  {label}: the replacement worker built "
+                  f"{'before' if overlapped['c'] else 'after'} the kill; "
+                  f"{card_memory(torch)}", flush=True)
+            pushed0 = fl1["pushed"]
+            streams2 = [[] for _ in prompts_b]
+            futs2 = [sup.submit(p, max_new_tokens=MAX_NEW, on_token=streams2[i].append)
+                     for i, p in enumerate(prompts_b)]
+            deadline = time.perf_counter() + 300
+            while pool.fleet_stats()["pushed"] == pushed0:
+                assert time.perf_counter() < deadline, f"{label}: no push of wave 2"
+                time.sleep(0.002)
+            pushed_at_kill = pool.fleet_stats()["pushed"] - pushed0
+            workers["b"].proc.kill()  # SIGKILL
+            t_kill = time.perf_counter()
+            killed.append(t_kill)
+            workers["b"].proc.wait(timeout=60)
+            if "c" not in workers:
+                # Its build overlaps the lease's expiry.
+                workers["c"] = Worker(worker_command("prefill"), "b-replacement")
+            while tr._crash is None:
+                assert time.perf_counter() - t_kill < 120, f"{label}: the lease never expired"
+                time.sleep(0.002)
+            t_expired = time.perf_counter()
+            while not (pool.schedulers[0] is not tr
+                       and pool._states[0].state in ("ready", "degraded")):
+                assert time.perf_counter() - t_expired < 300, f"{label}: r0 never restarted"
+                time.sleep(0.005)
+            t_restarted = time.perf_counter()
+            outs2 = []
+            for f in futs2:
+                try:
+                    outs2.append(f.result(timeout=600))
+                except Exception as e:  # noqa: BLE001 — a lost request, counted
+                    print(f"    lost: {type(e).__name__}: {e}", flush=True)
+                    outs2.append(None)
+            # The healed fleet prefills through the replacement worker.
+            fresh = pool.schedulers[0]
+            healed = [sup.submit(p, max_new_tokens=MAX_NEW).result(timeout=600)
+                      for p in prompts_b[:2]]
+            healed_pushes = fresh.push_pump_stats["pushed"]
+        wait_idle(dec)
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        expected = dict.fromkeys(LAUNCHES, 0)
+        expect_paged(expected, dec, dec.rounds_issued, dec.prefill_forwards)
+        health = sup.health()
+        reps = {r["replica"]: r for r in pool.replica_health()}
+        fl2 = pool.fleet_stats()
+        replayed = health["replayed"] - h0["replayed"]
+        lease_s = round(t_expired - t_kill, 4)
+        restart_s = round(t_restarted - t_expired, 4)
+        print(f"  {label}: wave 2: SIGKILL after {pushed_at_kill} push(es) of the wave; "
+              f"lease expired {lease_s} s after it, r0 restarted {restart_s} s later; "
+              f"replayed {replayed}, lost {health['lost']}; healed fleet: "
+              f"{healed_pushes} push(es) through the replacement; replicas "
+              f"{[(k, v['state'], v['restarts']) for k, v in reps.items()]}; fleet {fl2}; "
+              f"local launches {launches[label]} expected {expected}", flush=True)
+        assert all(o is not None for o in outs2) and health["lost"] == 0, health
+        assert reps["r0"]["restarts"] == 1 and reps["r1"]["restarts"] == 0, reps
+        assert replayed >= 1, f"{label}: nothing replayed after the kill"
+        assert pushed_at_kill >= 1 and healed_pushes == 2, (pushed_at_kill, healed_pushes)
+        assert launches[label] == expected, f"{label}: {launches[label]} != {expected}"
+        ties_b += streams_once(label, prompts_b, streams2, outs2, True)
+        assert dec.handoff_stats["imports"] == fl2["push_placed"], \
+            (dec.handoff_stats, fl2)
+        ps = dec.page_stats
+        assert ps["pages_in_use"] == ps["prefix_resident_pages"], ps
+        fresh.ping()
+        assert fresh.page_stats["pages_in_use"] == fresh.page_stats["prefix_resident_pages"], \
+            fresh.page_stats
+        recv = [r for r in probe.records if r["kind"] == "handoff"]
+        pushed_frames = [r["wire"] for k in ("b", "c") for r in workers[k].records
+                         if "wire" in r]
+        blob_checks(label, pushed_frames, [])
+        assert len(recv) >= fl1["pushed"] + pushed_at_kill + healed_pushes, len(recv)
+        sup.shutdown()
+        del sup, pool, tr, dec, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        rc, line = workers["c"].stop()
+        assert rc == 0, f"{label}: the replacement worker exited {rc}"
+        wl = check_worker_launches(label, line)
+        launches[label] = {k: v + wl[k] for k, v in launches[label].items()}
+        div_b = fleet_compare(torch, label, cfg, params, e7.stop_ids,
+                              prompts_b * 2 + prompts_b[:2], outs1 + outs2 + healed,
+                              want_b * 2 + want_b[:2], bounds)
+        wire_b = wire_summary(recv + pushed_frames)
+        numbers["b"] = dict(
+            requests=2 * REMOTE_WAVE + 2, worker_ready_s=ready_b,
+            replacement_ready_s=ready_c.get("s"), worker_footprint_gib=round(footprint, 2),
+            built_during={"b_before_a_stopped": overlapped["b"],
+                          "c_before_kill": overlapped["c"]},
+            pushed={"wave1": fl1["pushed"], "wave2_before_sigkill": pushed_at_kill,
+                    "healed": healed_pushes}, push_bytes_wave1=fl1["push_bytes"],
+            push_place_ms={"p50": fl2.get("push_place_p50_ms"),
+                           "p95": fl2.get("push_place_p95_ms")},
+            lease_beats_missed_wave1=beats_missed, sigkill_to_lease_expiry_s=lease_s,
+            restart_s=restart_s, replayed=replayed, healed_pushes=healed_pushes,
+            wire=wire_b, fleet=fleet_b, mixed_control=mixed_b, first_token_ties=ties_b,
+            streams_equal=f"{2 * REMOTE_WAVE + 2 - len(div_b)} of {2 * REMOTE_WAVE + 2}",
+            divergences=div_b)
+        print(f"  {label}: push -> placed ms p50 {fl2.get('push_place_p50_ms')} p95 "
+              f"{fl2.get('push_place_p95_ms')}; wire {wire_b}; TTFT p50 / decode tok/s p50 "
+              f"remote {fleet_b['ttft_p50_s']} / {fleet_b['decode_tok_s_p50']}, lone mixed "
+              f"{mixed_b}; {numbers['b']['streams_equal']} streams equal; on {smi}",
+              flush=True)
+    finally:
+        for w in workers.values():
+            w.kill()
+    return launches, numbers
+
+
+def remote_cli(torch, hf_dir, device_args=()):
+    """Phase 18 (c): the worker's real command line on the card, `python -m
+    <package>.serve.remote --from-hf DIR --kv-layout paged --kv-page-size
+    64`, over phase 10's 4-layer 7B HF directory: its hello digest (config,
+    page geometry, model id, role), two requests whose tokens equal an
+    in-process scheduler's over the same directory (each request alone on
+    both sides), a clean stop on SIGINT; then the same command with no card
+    visible and no `--cpu` exits non-zero, naming the card. `device_args`
+    go to the served command only."""
+    import signal
+
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import load_hf_checkpoint
+    from llm_based_apache_spark_optimization_tpu_torch.serve import resolve_stop_ids
+    from llm_based_apache_spark_optimization_tpu_torch.serve.remote import SocketTransport
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import HFTokenizer
+
+    cmd = [sys.executable, "-m", f"{PKG}.serve.remote", "--from-hf", hf_dir,
+           "--kv-layout", "paged", "--kv-page-size", "64"]
+    torch.cuda.empty_cache()
+    w = Worker([*cmd, *device_args], "cli")
+    # The same command with no card visible, run meanwhile.
+    no_card = subprocess.Popen(
+        cmd, env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                      PYTHONPATH=os.path.dirname(os.path.abspath(__file__))),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cfg, params = load_hf_checkpoint(hf_dir, dtype=torch.bfloat16, device="cuda")
+        tok = HFTokenizer(hf_dir)
+        stops = resolve_stop_ids(cfg, tok)
+        line = w.wait_for(lambda x: x.startswith("lsot-remote-worker listening on "), 300)
+        up = round(time.perf_counter() - w.t0, 3)
+        tr = SocketTransport(line.split()[-1], label="cli", rpc_timeout_s=REMOTE_RPC_S)
+        digest = (dataclasses.replace(tr.cfg, rope_scaling=cfg.rope_scaling) == cfg,
+                  tr._paged, tr._page_size, tr.model_id, tr.phase_role, tr.num_slots,
+                  tr.max_seq)
+        print(f"  `python {' '.join(cmd[1:])}`: listening in {up} s; hello digest (config "
+              f"equal, paged, page size, model id, role, slots, max_seq) {digest}",
+              flush=True)
+        assert digest == (True, True, 64, "", "mixed", 2, 96), digest
+        prompts = [tok.encode(q) for q in QUESTIONS[:2]]
+        got = [tr.submit(p, max_new_tokens=16).result(timeout=300) for p in prompts]
+        tr.shutdown()
+        sched = ContinuousBatchingScheduler(cfg, params, num_slots=2, decode_chunk=4,
+                                            prompt_bucket=8, stop_ids=stops, max_seq=96,
+                                            kv_layout="paged", kv_page_size=64,
+                                            device="cuda")
+        with sched:
+            want = [sched.submit(p, max_new_tokens=16).result(timeout=300) for p in prompts]
+        del sched, params
+        print(f"  two requests over the wire {[len(x) for x in got]} tokens, equal to the "
+              f"in-process scheduler's: {got == want}", flush=True)
+        assert got == want, (got, want)
+        w.proc.send_signal(signal.SIGINT)
+        rc = w.proc.wait(timeout=60)
+        assert rc == 0, f"the worker exited {rc} on SIGINT: {w.log[-5:]}"
+    finally:
+        w.kill()
+        try:
+            out, errs = no_card.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            no_card.kill()
+            out, errs = no_card.communicate()
+    err = errs.strip().splitlines()[-1] if errs.strip() else ""
+    print(f"  with no card visible and no --cpu: exit {no_card.returncode}, {err!r}",
+          flush=True)
+    assert no_card.returncode != 0 and "CUDA" in err and "listening" not in out, \
+        (no_card.returncode, errs[-500:])
+    torch.cuda.empty_cache()
+    return {"up_s": up, "digest_ok": True, "tokens_equal": True,
+            "no_card_exit": no_card.returncode}
 
 
 # --------------------------------------------------------------- profile
@@ -7272,11 +8088,20 @@ def main() -> int:
     ap.add_argument("--disagg-only", action="store_true",
                     help="build and run phase 17 alone: the phase-split 7B fleet over "
                          "the bf16 and the int8 pool (prints its numbers and no ok line)")
+    ap.add_argument("--remote-only", action="store_true",
+                    help="build and run phase 18 (a) and (b) alone: the remote fleets "
+                         "over worker processes on the 7B weights (prints their numbers "
+                         "and no ok line)")
+    ap.add_argument("--remote-worker", default="", choices=["", "prefill", "decode"],
+                    help=argparse.SUPPRESS)  # one worker process of phase 18
     ap.add_argument("--int8-only", action="store_true",
                     help="build and run phase 14's kernel parts alone: the int8 matmul "
                          "and row 8 at the stacked widths against their plain versions, "
                          "then their timing (prints their checks and no ok line)")
     args = ap.parse_args()
+    if args.remote_worker:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return remote_worker(args.remote_worker)
 
     import torch
 
@@ -7413,6 +8238,14 @@ def main() -> int:
         print(json.dumps({"fleet": fleet, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.remote_only:
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
+        phase("remote fleet, phase 18 (a), (b): worker processes over the 7B tree")
+        _, remote_numbers = remote_serve(torch, engines, smi)
+        phase(None)
+        print(json.dumps({"remote": remote_numbers, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.disagg_only:
         engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
         phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
@@ -7495,6 +8328,9 @@ def main() -> int:
     fleet_launches, fleet = fleet_serve(torch, engines, smi)
     phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
     disagg_launches, disagg = disagg_serve(torch, engines, smi)
+    phase("remote fleet, phase 18 (a), (b): worker processes over the 7B tree")
+    remote_launches, remote_numbers = remote_serve(torch, engines, smi,
+                                                   split=disagg.get("bf16"))
     phase("entry point: the tiny app as a process")
     entry_point(torch)
 
@@ -7576,7 +8412,7 @@ def main() -> int:
              "quantized_engine": q_launches["engine"],
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
-             "fleet_pool": fleet_launches, **disagg_launches,
+             "fleet_pool": fleet_launches, **disagg_launches, **remote_launches,
              **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
@@ -7645,6 +8481,8 @@ def main() -> int:
     print(json.dumps({"observability": obs, "device": smi}))
     print(json.dumps({"fleet": fleet, "device": smi}))
     print(json.dumps({"disagg": disagg, "device": smi}))
+    print(json.dumps({"remote": {**remote_numbers, "cli": _REMOTE.get("cli")},
+                      "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

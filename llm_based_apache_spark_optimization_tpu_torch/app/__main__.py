@@ -56,14 +56,19 @@ each rebuilt alone after a crash, the crash supervisor around the pool.
 `LSOT_POOL_PHASES` ("prefill:1,decode:1") gives the replicas phase roles
 (paged only): a prefill replica hands each request's KV pages to a decode
 replica after its first token; `LSOT_PUMP_DEPTH` bounds the handoffs a
-prefill replica holds packed.
+prefill replica holds packed. `LSOT_POOL_REMOTE` ("1=host:port,...") makes
+those pool slots `SocketTransport`s to `python -m
+llm_based_apache_spark_optimization_tpu_torch.serve.remote` workers (a
+targeted restart reconnects); the pool keeps each under a heartbeat lease
+(`LSOT_LEASE_S`, `LSOT_LEASE_MISSES`). As in the JAX entry point `--dp N`
+counts the remote slots too: N devices, so one card serves `--dp 1` only.
 
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
 every option it cannot honor yet, instead of ignoring it: `--sp`/`--tp` > 1
 and `--dp` > 1 without `--scheduler` (A13), and the environment knobs of
-`UNPORTED_KNOBS`: remote replicas and the autoscaler (A11's remote half)
-and the bench seed (A12's bench).
+`UNPORTED_KNOBS`: the standby workers and the autoscaler (A11) and the
+bench seed (A12's bench).
 
 Observability (`configure_observability`, before any service or scheduler
 is built): request-trace sampling and export (`LSOT_TRACE_SAMPLE`,
@@ -96,17 +101,15 @@ from .web import create_web_app
 
 #: Environment knobs of layers the port does not have yet: AppConfig field
 #: -> the ROADMAP item that brings it.
+_ELASTIC = "A11 (standby workers and the autoscaler, serve/elastic.py)"
 UNPORTED_KNOBS = {
-    "pool_remote": "A11 (remote replicas, serve/remote.py)",
-    "fleet_workers": "A11 (remote replicas, serve/remote.py)",
-    "lease_s": "A11 (remote replicas, serve/remote.py)",
-    "lease_misses": "A11 (remote replicas, serve/remote.py)",
-    "fleet_min": "A11 (the autoscaler, serve/elastic.py)",
-    "fleet_max": "A11 (the autoscaler, serve/elastic.py)",
-    "scale_up_q": "A11 (the autoscaler, serve/elastic.py)",
-    "scale_down_q": "A11 (the autoscaler, serve/elastic.py)",
-    "scale_hold_s": "A11 (the autoscaler, serve/elastic.py)",
-    "scale_interval_s": "A11 (the autoscaler, serve/elastic.py)",
+    "fleet_workers": _ELASTIC,
+    "fleet_min": _ELASTIC,
+    "fleet_max": _ELASTIC,
+    "scale_up_q": _ELASTIC,
+    "scale_down_q": _ELASTIC,
+    "scale_hold_s": _ELASTIC,
+    "scale_interval_s": _ELASTIC,
     "stok_seed_bench": "A12 (the bench artifact)",
 }
 
@@ -194,11 +197,29 @@ def pool_options(cfg: AppConfig, replicas: int) -> dict:
                 weights=parse_replica_weights(cfg.replica_weights, replicas))
 
 
+def parse_pool_remote(spec: str, replicas: int) -> dict:
+    """`LSOT_POOL_REMOTE` ("index=host:port,...") -> {index: address},
+    exiting with the JAX entry point's messages on a bad entry or an index
+    past the pool."""
+    out = {}
+    for entry in filter(None, (s.strip() for s in spec.split(","))):
+        idx_s, _, addr = entry.partition("=")
+        if not idx_s.isdigit() or not addr:
+            sys.exit(f"LSOT_POOL_REMOTE: bad entry {entry!r} (want index=host:port)")
+        if int(idx_s) >= replicas:
+            sys.exit(f"LSOT_POOL_REMOTE: replica index {idx_s} out of range for "
+                     f"--dp {replicas}")
+        out[int(idx_s)] = addr
+    return out
+
+
 def refuse_dp_pool(args, cfg: AppConfig) -> None:
     """The checks of `--dp N --scheduler` that need no checkpoint, with the
-    JAX entry point's messages: N devices (replica i on `cuda:i`; under
-    `--cpu` every replica on the CPU), the checkpoint backend, and
-    `LSOT_POOL_PHASES` only on such a pool."""
+    JAX entry point's messages: N devices (replica i on `cuda:i`, remote
+    slots counted; under `--cpu` every local replica on the CPU), the
+    checkpoint backend, `LSOT_POOL_PHASES` and `LSOT_POOL_REMOTE` only on
+    such a pool, and the remote entries (`LSOT_MODELS` is refused beside
+    them later, as in JAX)."""
     if args.dp > 1 and not args.cpu:
         import torch
 
@@ -213,6 +234,11 @@ def refuse_dp_pool(args, cfg: AppConfig) -> None:
     if cfg.pool_phases and not (args.scheduler and args.dp > 1):
         sys.exit("LSOT_POOL_PHASES needs --scheduler with --dp > 1 "
                  "(phase roles are per pool replica)")
+    if cfg.pool_remote and not (args.scheduler and args.dp > 1):
+        sys.exit("LSOT_POOL_REMOTE needs --scheduler with --dp > 1 "
+                 "(remote replicas are pool slots)")
+    if cfg.pool_remote and not cfg.models:
+        parse_pool_remote(cfg.pool_remote, args.dp)
 
 
 def _tree_to(tree, device):
@@ -234,7 +260,9 @@ def make_dp_pool_backend(args, cfg: AppConfig, src: str, tok, add_bos: bool,
     replica from that tree; `LSOT_POOL_PHASES` gives each replica its phase
     role, `LSOT_PUMP_DEPTH` a prefill replica's bound on packed handoffs,
     `LSOT_REPLICA_WEIGHTS` its capacity weight, and the crash supervisor
-    wraps the pool (`--supervise`)."""
+    wraps the pool (`--supervise`). A slot of `LSOT_POOL_REMOTE` is a
+    `SocketTransport` to its worker instead (its factory entry connects
+    afresh), under the lease of `LSOT_LEASE_S` / `LSOT_LEASE_MISSES`."""
     from ..checkpoint import load_gguf_checkpoint, load_hf_checkpoint
     from ..serve.backends import quantize_loaded, resolve_stop_ids
     from ..serve.scheduler import (
@@ -256,15 +284,21 @@ def make_dp_pool_backend(args, cfg: AppConfig, src: str, tok, add_bos: bool,
         options = pool_options(cfg, args.dp)
     except ValueError as e:
         sys.exit(f"LSOT_REPLICA_WEIGHTS: {e}")
+    remote = parse_pool_remote(cfg.pool_remote, args.dp)
     path = src.split(":", 1)[0]
     load = load_gguf_checkpoint if path.endswith(".gguf") else load_hf_checkpoint
     mcfg, params = load(path, device="cpu")
     params = quantize_loaded(params, args.int8, args.int4, args.int8_unembed)
     devices = ["cpu"] * args.dp if args.cpu else [f"cuda:{i}" for i in range(args.dp)]
-    trees = {d: params if d == "cpu" else _tree_to(params, d) for d in set(devices)}
+    trees = {d: params if d == "cpu" else _tree_to(params, d)
+             for i, d in enumerate(devices) if i not in remote}
     stops = resolve_stop_ids(mcfg, tok)
 
     def make_replica(i):
+        if i in remote:
+            from ..serve.remote import SocketTransport
+
+            return SocketTransport(remote[i], label=f"r{i}")
         return ContinuousBatchingScheduler(
             mcfg, trees[devices[i]], num_slots=args.slots, stop_ids=stops,
             kv_quant=kv_quant, kv_layout=args.kv_layout,
@@ -278,7 +312,8 @@ def make_dp_pool_backend(args, cfg: AppConfig, src: str, tok, add_bos: bool,
 
     def make_pool():
         return SchedulerPool([make_replica(i) for i in range(args.dp)],
-                             factory=make_replica, **options)
+                             factory=make_replica, lease_s=cfg.lease_s,
+                             lease_misses=cfg.lease_misses, **options)
 
     if args.supervise:
         from ..serve.supervisor import SupervisedScheduler
@@ -554,7 +589,7 @@ def make_multimodel_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int
     if not args.scheduler:
         sys.exit("LSOT_MODELS needs --scheduler (model routing is a "
                  "scheduler-pool property)")
-    if cfg.pool_phases:
+    if cfg.pool_phases or cfg.pool_remote:
         sys.exit("LSOT_MODELS does not combine with LSOT_POOL_PHASES/LSOT_POOL_REMOTE "
                  "yet (phase roles and remote slots are indexed per replica, not per "
                  "model)")

@@ -8,8 +8,8 @@ the `LSOT_` prefix.
 
 A copy of the JAX package's `app/config.py`. The port's entry point
 (`app/__main__.py`) refuses, by name, the knobs of layers it does not have
-yet (phase roles, remote replicas and the autoscaler: ROADMAP A7.5 and
-A11's remote half).
+yet (the standby workers and the autoscaler, ROADMAP A11; the bench seed,
+A12).
 """
 
 from __future__ import annotations

@@ -4,8 +4,11 @@ completion, `llama3.2` error analysis on the llama3 chat template, optional
 `mistral` on [INST]) with its shared-weights aliasing rule.
 
 Counterpart of the JAX package's `serve/factory.py`
-(`assemble_multimodel_service`, `assemble_reference_service`); its standby
-fleet spawner waits for remote replicas (ROADMAP A11's remote half).
+(`assemble_multimodel_service`, `assemble_reference_service`). Its standby
+fleet spawner (`standby_spawner`, `LSOT_FLEET_WORKERS`: worker processes
+started as the autoscaler asks) is not ported: ROADMAP A11 (standby
+workers and the autoscaler, serve/elastic.py). Remote replicas themselves
+are (serve/remote.py, `LSOT_POOL_REMOTE`).
 """
 
 from __future__ import annotations

@@ -199,8 +199,10 @@ the fault seams run before it is taken.
   drain re-places through. `SchedulerPool` puts local replicas behind one
   `submit()`: placement by model, prefix affinity, page and SLO pressure
   and weighted least-loaded backlog, per-replica targeted restart, drain,
-  remove, add and retire, and merged stats views. Remote replicas and
-  their leases (A11's remote half) and meshes (A7.12, A13) are not ported.
+  remove, add and retire, and merged stats views. A replica may be a
+  transport (serve/remote.py): a `SocketTransport` to a worker process or a
+  `LoopbackTransport`, kept under a heartbeat lease. Meshes (A7.12, A13)
+  are not ported.
 - Phase roles (`phase_role`, paged only; a pool's `LSOT_POOL_PHASES`): a
   "prefill" replica's final chunk parks its first token on the device
   (`_handoff_pending`); `_pack_handoffs` commits and streams it, exports
@@ -1550,10 +1552,20 @@ class ContinuousBatchingScheduler:
     def cancel(future: "Future[List[int]]") -> None:
         """Cooperatively cancel a submitted request: the worker retires it
         (resolving the future with what was generated) at its next
-        harvest. A no-op on finished or foreign futures."""
+        harvest. A no-op on finished or foreign futures. A remote request's
+        `_Request` lives in another process: its future carries an
+        `_lsot_cancel` callable instead (serve/remote.py), which ships the
+        cancel over the wire."""
         req = getattr(future, "_lsot_request", None)
         if req is not None:
             req.cancelled = True
+            return
+        cb = getattr(future, "_lsot_cancel", None)
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — cancelling the unreachable is moot
+                pass
 
     # ------------------------------------------------------ multi-tenant WFQ
 
@@ -3672,9 +3684,16 @@ class SchedulerPool:
       lowest decode-phase HBM utilization, then the backlog), then a mixed
       one, then the source itself, which decodes in place.
 
-    Replicas are local schedulers on the device their factory names. A
-    remote transport raises `NotImplementedError`: remote replicas and
-    their leases are A11's remote half."""
+    - **Remote replicas.** A replica may be a transport (serve/remote.py):
+      a `SocketTransport` to a worker process, or a `LoopbackTransport`.
+      The pool pings each one every `lease_s` (`LSOT_LEASE_S`);
+      `lease_misses` (`LSOT_LEASE_MISSES`) missed beats in a row expire the
+      lease: the transport is declared unreachable and the replica's
+      targeted restart (with the supervisor's journal replay) follows. A
+      remote prefill worker pushes its handoffs; `_pump_handoffs` drains
+      them from the transport's buffer and closes the push-to-placement
+      latency ledger of `fleet_stats`. A remote joiner whose page geometry
+      or model no local sibling shares is marked dead at the join."""
 
     #: Callers forward a model_id only to schedulers that route on it, and
     #: tenant/qos only to those that set `supports_qos`.
@@ -3699,6 +3718,8 @@ class SchedulerPool:
         affinity_routing: Optional[bool] = None,
         weights: Optional[Sequence[float]] = None,
         model_routing: Optional[bool] = None,
+        lease_s: Optional[float] = None,
+        lease_misses: Optional[int] = None,
     ):
         if not schedulers:
             raise ValueError("SchedulerPool needs at least one scheduler")
@@ -3707,8 +3728,6 @@ class SchedulerPool:
                              f"got {router!r}")
         from .resilience import RetryPolicy
 
-        for s in schedulers:
-            self._refuse_unported(s)
         self.schedulers = list(schedulers)
         self._rr = 0
         self._lock = threading.Lock()
@@ -3776,13 +3795,25 @@ class SchedulerPool:
         self._fleet_drain_s_sum = 0.0
         self._fleet_drain_count = 0
         self._elastic: set = set()
-
-    @staticmethod
-    def _refuse_unported(s) -> None:
-        if getattr(s, "is_remote", False) or callable(getattr(s, "ping", None)):
-            raise NotImplementedError(
-                "remote replicas and their leases are not ported: ROADMAP A11 "
-                "(the fleet's remote half)")
+        # The remote-replica lease monitor, started at start() when a
+        # replica exposes the lease surface. None reads LSOT_LEASE_S /
+        # LSOT_LEASE_MISSES; lease_s <= 0 disables it.
+        self._lease_s = (float(os.environ.get("LSOT_LEASE_S", "2.0"))
+                         if lease_s is None else float(lease_s))
+        self._lease_misses = (int(os.environ.get("LSOT_LEASE_MISSES", "3"))
+                              if lease_misses is None else int(lease_misses))
+        self._lease_stop = threading.Event()
+        self._lease_thread: Optional[threading.Thread] = None
+        # Pushed handoffs: the receive-to-placement latencies behind
+        # fleet_stats' push columns, and the resolver a pushed constrained
+        # handoff needs (the wire carries the spec; SchedulerBackend or the
+        # supervisor installs it).
+        self.constraint_resolver: Optional[Callable] = None
+        self._push_lat: deque = deque(maxlen=4096)
+        # The join handshake: a remote replica whose page geometry or model
+        # cannot co-serve this fleet is marked dead before placement sees it.
+        for i, s in enumerate(self.schedulers):
+            self._validate_join(i, s)
 
     # Admission arithmetic, so SchedulerBackend wraps a pool as it wraps a
     # scheduler (replicas of one model share cfg, window and chunking; a
@@ -4016,13 +4047,65 @@ class SchedulerPool:
 
             if _slo.ENGINE.enabled:
                 rec["slo_burning"] = bool(_slo.ENGINE.replica_burning(st.label))
+            # A remote replica has no in-process attributes: merge its
+            # cached loads digest (refreshed by every ping and ack) under
+            # what was read above.
+            ld = getattr(s, "loads_digest", None)
+            if callable(ld):
+                try:
+                    for k, v in ld().items():
+                        rec.setdefault(k, v)
+                except Exception:  # noqa: BLE001 — a dying replica mid-read
+                    pass
             rec.setdefault("queued", 0)
             rec.setdefault("active_slots", 0)
+            # Which wire the replica is behind and how it behaves.
+            ts = getattr(s, "transport_stats", None)
+            if callable(ts):
+                try:
+                    rec["transport"] = self._transport_summary(ts())
+                except Exception:  # noqa: BLE001 — a dying replica mid-read
+                    pass
             idx = next((j for j, x in enumerate(self._states) if x is st), -1)
             if 0 <= idx < len(self._weights) and self._weights[idx] != 1.0:
                 rec["weight"] = self._weights[idx]
             out.append(rec)
         return out
+
+    @staticmethod
+    def _transport_summary(t: Dict[str, object]) -> Dict[str, object]:
+        """One transport's stats flattened into the per-replica block of
+        replica_loads, replica_health and /healthz."""
+        total = {"rpcs": 0, "retries": 0, "timeouts": 0, "errors": 0}
+        for rec in (t.get("endpoints") or {}).values():
+            for k in total:
+                total[k] += int(rec.get(k, 0))
+        return {
+            "kind": t.get("kind", "transport"),
+            "unreachable": bool(t.get("unreachable", False)),
+            "lease_misses": int(t.get("lease_misses", 0)),
+            "lease_expiries": int(t.get("lease_expiries", 0)),
+            "reconnects": int(t.get("reconnects", 0)),
+            **total,
+        }
+
+    @property
+    def transport_stats(self) -> Optional[Dict[str, object]]:
+        """Each transport replica's counters, labeled (`serving.transport`,
+        the lsot_transport_* families); None when no replica is behind a
+        transport."""
+        per = []
+        for st, s in self._replica_items():
+            fn = getattr(s, "transport_stats", None)
+            if not callable(fn):
+                continue
+            try:
+                rec = dict(fn())
+            except Exception:  # noqa: BLE001 — a dying replica mid-read
+                continue
+            rec["replica"] = st.label
+            per.append(rec)
+        return {"replicas": per} if per else None
 
     def start(self) -> "SchedulerPool":
         with self._lock:
@@ -4030,13 +4113,80 @@ class SchedulerPool:
         for st, s in zip(self._states, self.schedulers):
             if st.state != "removed":
                 s.start()
+        self._maybe_start_lease()
         return self
+
+    # ------------------------------------------------ remote-replica lease
+
+    @staticmethod
+    def _leaseable(s) -> bool:
+        return bool(getattr(s, "supports_lease", False)) and callable(
+            getattr(s, "ping", None))
+
+    def _maybe_start_lease(self) -> None:
+        """Start the lease monitor if a replica is a transport; local
+        fleets have the watchdog's heartbeat and pay nothing here."""
+        if self._lease_s <= 0 or self._lease_thread is not None:
+            return
+        if not any(self._leaseable(s) for s in self.schedulers):
+            return
+        self._lease_stop = threading.Event()
+        self._lease_thread = threading.Thread(target=self._lease_loop, daemon=True,
+                                              name="lsot-pool-lease")
+        self._lease_thread.start()
+
+    def _lease_loop(self) -> None:
+        """Ping each placeable transport replica every `lease_s`;
+        `lease_misses` failures in a row expire its lease: the transport is
+        marked unreachable (pending futures fail typed, streams gate shut)
+        and `_note_replica_crash` starts its targeted restart, whose
+        `on_replica_restart` re-places the journaled work on siblings."""
+        while not self._lease_stop.wait(self._lease_s):
+            with self._lock:
+                if self._closed:
+                    return
+                items = [(i, st, self.schedulers[i])
+                         for i, st in enumerate(self._states)
+                         if st.state in _ReplicaState.PLACEABLE]
+            for i, st, s in items:
+                if not self._leaseable(s):
+                    continue
+                try:
+                    s.ping(timeout=self._lease_s)
+                except Exception as e:  # noqa: BLE001 — any failure is a miss
+                    miss_fn = getattr(s, "lease_miss", None)
+                    misses = miss_fn() if callable(miss_fn) else self._lease_misses
+                    self._pool_flight.event("lease_miss", replica=st.label,
+                                            misses=misses)
+                    if misses < self._lease_misses:
+                        continue
+                    exc = None
+                    mark = getattr(s, "mark_unreachable", None)
+                    if callable(mark):
+                        exc = mark(f"lease expired after {misses} missed beat(s): {e}")
+                    if exc is None:
+                        from .remote import ReplicaUnreachable
+
+                        exc = ReplicaUnreachable(
+                            f"replica {st.label} lease expired after {misses} "
+                            f"missed beat(s): {e}")
+                    resilience.inc("lease_expiries")
+                    self._pool_flight.event("lease_expired", replica=st.label,
+                                            misses=misses)
+                    _log.warning("replica %s lease expired (%d misses)", st.label,
+                                 misses)
+                    self._note_replica_crash(i, exc)
+                else:
+                    ok_fn = getattr(s, "lease_ok", None)
+                    if callable(ok_fn):
+                        ok_fn()
 
     def shutdown(self, timeout: Optional[float] = None) -> None:
         # _closed stops an in-flight restart from swapping a fresh replica
         # into a pool that is going away.
         with self._lock:
             self._closed = True
+        self._lease_stop.set()
         for st, s in zip(self._states, self.schedulers):
             if s is None:
                 continue
@@ -4044,6 +4194,9 @@ class SchedulerPool:
                 s.shutdown(timeout=timeout)
             except Exception:  # noqa: BLE001 — one corpse must not wedge the rest
                 _log.exception("replica %s shutdown failed", st.label)
+        lease = self._lease_thread
+        if lease is not None and lease is not threading.current_thread():
+            lease.join(timeout)  # a beat ends within lease_s
         # Join the restart threads: a rebuild abandoned mid-way would leave
         # a daemon thread inside device work when the process exits.
         with self._lock:
@@ -4159,6 +4312,17 @@ class SchedulerPool:
             if isinstance(pstats, dict):
                 rec["kv_pages_total"] += int(pstats.get("pages_total", 0) or 0)
                 rec["kv_pages_in_use"] += int(pstats.get("pages_in_use", 0) or 0)
+            # A remote carrier: its cached loads digest stands in for the
+            # attribute reads a socket transport cannot offer.
+            ld = getattr(s, "loads_digest", None)
+            if callable(ld):
+                try:
+                    d = ld()
+                    rec["queued"] += int(d.get("queued", 0) or 0)
+                    rec["active_slots"] += int(d.get("active_slots", 0) or 0)
+                    rec["tokens_total"] += int(d.get("tokens_total", 0) or 0)
+                except Exception:  # noqa: BLE001 — a dying replica mid-read
+                    pass
         if not per:
             return None
         now = time.monotonic()
@@ -4234,6 +4398,66 @@ class SchedulerPool:
         pump (at construction, after a restart's swap, on a join)."""
         if self._phase_role(s) == "prefill" and hasattr(s, "on_handoff"):
             s.on_handoff = partial(self._pump_handoffs, idx)
+        # A pushed constrained handoff carries only its spec: the receiving
+        # transport rebuilds the matcher through the pool's resolver seam.
+        if (getattr(s, "is_remote", False)
+                and getattr(s, "constraint_resolver", "absent") is None):
+            s.constraint_resolver = self._fleet_constraint
+
+    def _fleet_constraint(self, spec):
+        """Resolve a constraint spec re-made from the wire (a pushed
+        handoff) through whatever the owning backend installed."""
+        fn = self.constraint_resolver
+        if fn is None:
+            raise ValueError(
+                "pushed constrained handoff needs a constraint resolver: "
+                "set pool.constraint_resolver (SchedulerBackend does this "
+                "automatically)")
+        return fn(spec)
+
+    def _join_compat(self, s) -> Optional[str]:
+        """The join handshake of a remote replica: a pushed blob's pages
+        must import into every decode target, so a joiner whose page
+        geometry disagrees with the fleet's, or whose model no sibling
+        carries, cannot be placeable. Returns the reason, or None. Local
+        replicas are trusted (the fleet's factory built them)."""
+        if not getattr(s, "is_remote", False):
+            return None
+        try:
+            ref = next((o for o in self.schedulers
+                        if o is not s and not getattr(o, "is_remote", False)), None)
+            if ref is None:
+                return None  # an all-remote fleet: nothing to disagree with
+            r_paged = bool(getattr(s, "_paged", False))
+            l_paged = bool(getattr(ref, "_paged", False))
+            if r_paged != l_paged:
+                return f"paged={r_paged} vs fleet paged={l_paged}"
+            r_ps = int(getattr(s, "_page_size", 0) or 0)
+            l_ps = int(getattr(ref, "_page_size", 0) or 0)
+            if r_paged and r_ps and l_ps and r_ps != l_ps:
+                return f"page_size={r_ps} vs fleet page_size={l_ps}"
+            want = str(getattr(s, "model_id", "") or "")
+            have = {self._model_id(o) for o in self.schedulers if o is not s}
+            have.discard("")
+            if want and have and want not in have:
+                return f"model_id={want!r} not served by this fleet ({sorted(have)})"
+        except Exception as e:  # noqa: BLE001 — an unreachable joiner
+            return f"handshake read failed: {e!r}"
+        return None
+
+    def _validate_join(self, idx: int, s) -> bool:
+        """Run the join handshake for replica `idx`; an incompatible
+        joiner is marked dead (never placeable) with the reason and a
+        flight event, and the pool serves on the rest."""
+        reason = self._join_compat(s)
+        if reason is None:
+            return True
+        st = self._states[idx]
+        with self._lock:
+            st.state = "dead"
+            st.last_crash = f"join rejected: {reason}"
+        self._pool_flight.event("replica_join_rejected", replica=st.label, reason=reason)
+        return False
 
     @staticmethod
     def _decode_pressure(s) -> float:
@@ -4253,8 +4477,13 @@ class SchedulerPool:
     def _pump_handoffs(self, src_idx: int) -> None:
         """Place every packed handoff of prefill replica `src_idx` (its
         `on_handoff`, on its worker thread: placement is a lock and a queue
-        put)."""
-        ex = getattr(self.schedulers[src_idx], "extract_handoffs", None)
+        put). A push-capable transport drains the blobs its worker pushed
+        (no rpc); `extract_handoffs` is the pull path of local replicas and
+        pre-push workers."""
+        src = self.schedulers[src_idx]
+        ex = getattr(src, "drain_pushed_handoffs", None)
+        if not callable(ex):
+            ex = getattr(src, "extract_handoffs", None)
         if callable(ex):
             for req in ex():
                 self._place_handoff(req, src_idx)
@@ -4291,6 +4520,7 @@ class SchedulerPool:
         # Read before a target can race: its worker clears `handoff` at the
         # import, and requeue gives the request a new rid.
         pages = (req.handoff or {}).get("pages", 0)
+        t_recv = (req.handoff or {}).get("t_recv")
         rid = req.rid
         starved = 0
         for i, st, s in targets:
@@ -4313,6 +4543,14 @@ class SchedulerPool:
                 continue
             with self._lock:
                 st.placements += 1
+                # A pushed handoff's transport stamped its receipt: placement
+                # closes the window of fleet_stats' push latencies.
+                if t_recv is not None:
+                    try:
+                        self._push_lat.append(max(0.0, time.perf_counter()
+                                                  - float(t_recv)))
+                    except (TypeError, ValueError):
+                        pass
             self._pool_flight.event("handoff_place", to=st.label,
                                     src=self._states[src_idx].label, rid=rid,
                                     pages=pages, inplace=s is src)
@@ -4754,9 +4992,10 @@ class SchedulerPool:
 
     def add_replica(self, scheduler, label: Optional[str] = None,
                     weight: float = 1.0, elastic: bool = True) -> str:
-        """Join one local replica to a live fleet; returns its label.
+        """Join one replica to a live fleet; returns its label. A remote
+        joiner runs the join handshake (a failure leaves it listed dead
+        with the reason, never placeable) and arms the lease monitor.
         `elastic=True` makes it retirable by `retire_replica`."""
-        self._refuse_unported(scheduler)
         with self._lock:
             if self._closed:
                 raise RuntimeError("cannot add a replica to a closed pool")
@@ -4773,8 +5012,10 @@ class SchedulerPool:
                 self._elastic.add(idx)
             self._fleet_joins += 1
         self._wire_handoff(idx, scheduler)
+        ok = self._validate_join(idx, scheduler)
         self._pool_flight.event("replica_join", replica=lbl, elastic=bool(elastic),
-                                accepted=True, phase_role=self._phase_role(scheduler))
+                                accepted=ok, phase_role=self._phase_role(scheduler))
+        self._maybe_start_lease()
         return lbl
 
     def retire_replica(self, replica=None, deadline_s: Optional[float] = None
@@ -4803,9 +5044,11 @@ class SchedulerPool:
 
     def fleet_stats(self) -> Dict[str, object]:
         """The `fleet` block of /healthz and /metrics (lsot_fleet_*): live
-        membership and the join/retire/drain counters. The pushed-handoff
-        columns are zero: handoffs pushed over a remote transport are
-        ROADMAP A11; local replicas' handoffs are in `handoff_stats`."""
+        membership, the join/retire/drain counters and the pushed-handoff
+        ledger: pushes and bytes received from remote prefill workers, the
+        pump depth (buffered here and unacked on the workers) and the
+        receive-to-placement latency. Local replicas' handoffs are in
+        `handoff_stats`."""
         with self._lock:
             states = [st.state for st in self._states]
             out: Dict[str, object] = {
@@ -4817,7 +5060,21 @@ class SchedulerPool:
                 "drain_s_sum": round(self._fleet_drain_s_sum, 6),
                 "drain_count": self._fleet_drain_count,
             }
-        out.update({"pushed": 0, "push_bytes": 0, "pump_depth": 0, "push_placed": 0})
+            lat = sorted(self._push_lat)
+        out.update({"pushed": 0, "push_bytes": 0, "pump_depth": 0,
+                    "push_placed": len(lat)})
+        if lat:
+            out["push_place_p50_ms"] = round(lat[int(0.50 * (len(lat) - 1))] * 1e3, 3)
+            out["push_place_p95_ms"] = round(lat[int(0.95 * (len(lat) - 1))] * 1e3, 3)
+        for s in self.schedulers:
+            pp = getattr(s, "push_pump_stats", None)
+            if isinstance(pp, dict):
+                out["pushed"] += int(pp.get("pushed", 0) or 0)
+                out["push_bytes"] += int(pp.get("push_bytes", 0) or 0)
+                out["pump_depth"] += int(pp.get("depth", 0) or 0)
+                w = pp.get("worker")
+                if isinstance(w, dict):
+                    out["pump_depth"] += int(w.get("window", 0) or 0)
         return out
 
     def stalled_replicas(self, factor: float, floor_s: float) -> List[str]:
@@ -4851,6 +5108,13 @@ class SchedulerPool:
                 "stalls": st.stalls,
                 "crashed": getattr(s, "_crash", None) is not None,
             }
+            # A transport replica: which wire, and whether its lease holds.
+            ts = getattr(s, "transport_stats", None)
+            if callable(ts):
+                try:
+                    rec["transport"] = self._transport_summary(ts())
+                except Exception:  # noqa: BLE001 — a dying replica mid-read
+                    pass
             if st.last_crash:
                 rec["last_crash"] = st.last_crash
             if st.restart_eta is not None:
@@ -5051,7 +5315,8 @@ class SchedulerBackend:
         reuse (`prefix_cache`) and its telemetry (`prefix`), speculative
         acceptance, the page pool (paged), the roofline ledger (`perf`),
         the prefill→decode handoffs (`handoff`, the lsot_handoff_*
-        families), the loop's liveness (`watchdog`) and the flight recorder's ring
+        families), the remote replicas' transports (`transport`, the
+        lsot_transport_* families), the loop's liveness (`watchdog`) and the flight recorder's ring
         occupancy (the records live at /debug/flightrecorder; a supervised
         scheduler reports its lifecycle ring and the inner round ring
         apart). Over a pool, also the placement counters (`routing`), the
@@ -5064,7 +5329,8 @@ class SchedulerBackend:
         for key, val in (("prefix", sched.prefix_telemetry),
                          ("speculation", sched.speculation_stats),
                          ("kv_pages", sched.page_stats), ("perf", sched.perf_stats),
-                         ("handoff", getattr(sched, "handoff_stats", None))):
+                         ("handoff", getattr(sched, "handoff_stats", None)),
+                         ("transport", getattr(sched, "transport_stats", None))):
             if val:
                 out[key] = val
         rt = getattr(sched, "routing_stats", None)
@@ -5130,10 +5396,12 @@ class SchedulerBackend:
     def _constraint_kwargs(self, constrain) -> Dict[str, object]:
         """submit() kwargs for a constraint: the compiled tables always,
         and the serializable spec too when the scheduler is supervised (its
-        journal recompiles the spec at recovery; a bare scheduler takes no
-        `constraint_spec`)."""
+        journal recompiles the spec at recovery; a bare scheduler or pool
+        takes no `constraint_spec`, though a pool has a resolver for the
+        pushed handoffs)."""
         kwargs: Dict[str, object] = {"constraint": self._resolve_constraint(constrain)}
-        if constrain is not None and hasattr(self.scheduler, "constraint_resolver"):
+        if (constrain is not None and hasattr(self.scheduler, "constraint_resolver")
+                and self.supports_idempotency):
             kwargs["constraint_spec"] = constrain
         return kwargs
 

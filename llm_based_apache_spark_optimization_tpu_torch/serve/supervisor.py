@@ -51,7 +51,10 @@ its submit surface) and treats its event loop as a crash-only component:
   Phase-split fleets: a prefill replica that dies mid-handoff (its first
   token already streamed, the blob never shipped) fails the request typed;
   the entry re-prefills on a sibling with the delivered token suppressed.
-  `handoff_stats` and `phase_role` pass through.
+  `handoff_stats` and `phase_role` pass through. A remote replica whose
+  lease expired (serve/remote.py) fails its requests with
+  `ReplicaUnreachable`, a `SchedulerCrashed`: the same targeted replay;
+  `transport_stats` passes through.
 
 A constrained entry carries its compiled tables (`constraint`) and
 its serializable spec (`constraint_spec`, the grammar name or schema
@@ -455,6 +458,13 @@ class SupervisedScheduler:
         and the lsot_handoff_* families survive supervision (None for a
         mixed or duck-typed inner)."""
         return getattr(self._inner, "handoff_stats", None)
+
+    @property
+    def transport_stats(self):
+        """Replica-transport passthrough: the serving.transport view and
+        the lsot_transport_* families survive supervision (None for a
+        fleet of local replicas)."""
+        return getattr(self._inner, "transport_stats", None)
 
     @property
     def phase_role(self):

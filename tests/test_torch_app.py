@@ -327,9 +327,9 @@ def test_entry_point_refuses_unported_flags(argv, item):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("LSOT_POOL_REMOTE", "1=localhost:9", "A11"),
+    ("LSOT_SCALE_DOWN_Q", "1", "A11"),
     ("LSOT_FLEET_WORKERS", "localhost:9", "A11"),
-    ("LSOT_LEASE_S", "5", "A11"),
+    ("LSOT_SCALE_HOLD_S", "5", "A11"),
     ("LSOT_FLEET_MIN", "2", "A11"),
 ])
 def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, item):
@@ -574,13 +574,14 @@ def test_every_app_config_field_is_read_or_refused(field):
 @pytest.mark.parametrize("knob,value,item", [
     ("LSOT_STOK_SEED_BENCH", "bench.jsonl", "A12"),
     ("LSOT_SCALE_UP_Q", "8", "A11"),
-    ("LSOT_LEASE_MISSES", "5", "A11"),
+    ("LSOT_SCALE_INTERVAL_S", "9", "A11"),
     ("LSOT_FLEET_MAX", "4", "A11"),
 ])
 def test_entry_point_refuses_inert_knobs(monkeypatch, tmp_path, knob, value, item):
     """The knobs of layers the port does not have are refused by name: the
-    bench seed (A12's bench half), the autoscaler's and the remote lease's
-    (A11's remote half)."""
+    bench seed (A12's bench half), the standby workers' and the
+    autoscaler's (A11). The remote replicas' knobs are honoured
+    (`test_entry_point_pool_remote_*`)."""
     monkeypatch.setenv(knob, value)
     cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
                              output_dir=str(tmp_path / "out"), history_db=":memory:")
@@ -1241,3 +1242,83 @@ def test_entry_point_pump_depth_one_decodes_in_place(tiny_hf_dir, monkeypatch):
     assert outs[0].response == outs[1].response
     assert (hs["r0"]["exports"], hs["r0"]["inplace_fallbacks"],
             hs["r0"]["backpressure"], hs["r1"]["imports"]) == (1, 1, 1, 1)
+
+
+# ------------------------------------------------------ LSOT_POOL_REMOTE
+
+@pytest.mark.parametrize("env,extra", [
+    ({"LSOT_POOL_REMOTE": "1=localhost:9"}, ("--dp", "1")),
+    ({"LSOT_POOL_REMOTE": "x=localhost:9"}, ()),
+    ({"LSOT_POOL_REMOTE": "2=localhost:9"}, ()),
+    ({"LSOT_POOL_REMOTE": "1=localhost:9", "LSOT_MODELS": "duckdb-nsql=hf:{ckpt}"}, ()),
+], ids=["no-dp", "bad-entry", "out-of-range", "with-models"])
+def test_entry_point_pool_remote_refusals_as_jax(tiny_hf_dir, monkeypatch, env, extra):
+    """Each misuse of `LSOT_POOL_REMOTE` exits with the JAX entry point's
+    message: without `--dp > 1`, an entry that is not index=host:port, an
+    index past the pool, and combined with `LSOT_MODELS`."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v.format(ckpt=tiny_hf_dir))
+    argv = dp_argv(tiny_hf_dir, *extra)
+    msg = port_exit(argv)
+    assert msg == jax_exit(argv)
+    assert "LSOT_POOL_REMOTE" in msg
+
+
+def test_entry_point_pool_remote_serves_with_r1_remote(tiny_hf_dir, monkeypatch, tmp_path):
+    """`--cpu --dp 2 --scheduler` with `LSOT_POOL_REMOTE=1=<address>` of a
+    `ReplicaServer` over the same checkpoint: r1 is a `SocketTransport`
+    under the lease knobs (`LSOT_LEASE_S`, `LSOT_LEASE_MISSES`), and
+    `POST /process-data/` is served on both replicas (round robin) with the
+    same SQL; the loads and /healthz carry r1's socket block. The three
+    remote knobs left `UNPORTED_KNOBS`."""
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import load_hf_checkpoint
+    from llm_based_apache_spark_optimization_tpu_torch.serve import resolve_stop_ids
+    from llm_based_apache_spark_optimization_tpu_torch.serve.remote import (
+        ReplicaServer,
+        SocketTransport,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import HFTokenizer
+
+    assert not {"pool_remote", "lease_s", "lease_misses"} & set(entry.UNPORTED_KNOBS)
+    mcfg, params = load_hf_checkpoint(tiny_hf_dir, device="cpu")
+    worker = ContinuousBatchingScheduler(
+        mcfg, params, num_slots=2,
+        stop_ids=resolve_stop_ids(mcfg, HFTokenizer(str(tiny_hf_dir))), device="cpu")
+    worker.start()
+    srv = ReplicaServer(worker)
+    monkeypatch.setenv("LSOT_POOL_REMOTE", f"1={srv.address}")
+    monkeypatch.setenv("LSOT_POOL_ROUTER", "round_robin")
+    monkeypatch.setenv("LSOT_LEASE_S", "0.5")
+    monkeypatch.setenv("LSOT_LEASE_MISSES", "4")
+    (tmp_path / "in").mkdir()
+    (tmp_path / "in" / "taxi.csv").write_text(CSV)
+    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                             output_dir=str(tmp_path / "out"), history_db=":memory:",
+                             max_new_tokens=8)
+    svc = entry.build_service(args_for(*dp_argv(tiny_hf_dir, "--api")), cfg)
+    try:
+        pool = svc._models["duckdb-nsql"].backend.scheduler._inner
+        assert isinstance(pool.schedulers[1], SocketTransport)
+        assert not isinstance(pool.schedulers[0], SocketTransport)
+        assert (pool._lease_s, pool._lease_misses) == (0.5, 4)
+        client = create_api_app(svc, SQLiteBackend, SQLiteHistory(), cfg).test_client()
+        answers = []
+        for _ in range(2):
+            res = client.post_json("/process-data/", {"input_text": "total fare per vendor",
+                                                      "file_name": "taxi.csv"})
+            assert res.status == 200
+            answers.append(res.json()["sql_query"])
+        assert answers[0] == answers[1]
+        placed = [r["to"] for r in pool.flight_snapshot() if r.get("kind") == "placement"]
+        assert "r1" in placed and "r0" in placed
+        tr = {r["replica"]: r for r in pool.replica_loads()}["r1"]["transport"]
+        assert tr["kind"] == "socket" and tr["rpcs"] >= 2 and not tr["unreachable"]
+        fleet = client.get("/healthz").json()["fleet"]["duckdb-nsql"]
+        assert fleet[1]["transport"]["kind"] == "socket" and "transport" not in fleet[0]
+    finally:
+        svc.close()
+        srv.close()
+        worker.shutdown()

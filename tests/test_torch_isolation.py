@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither jax nor the JAX package, its
 checkpoint and tokenizer modules import no `safetensors` either, its GGUF
-reader builds only from sources under its own tree, and its entry points
-never fall back to the CPU on their own."""
+reader builds only from sources under its own tree, its remote worker's
+entry point (`python -m ...serve.remote --help`) runs without them, and its
+entry points never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -65,6 +66,39 @@ def test_port_imports_without_jax_and_needs_an_explicit_cpu():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
     assert int(res.stdout.split()[1]) >= 30  # every module was walked
+
+
+def test_remote_worker_help_imports_without_jax():
+    """`python -m ...serve.remote --help`, the worker's entry point, runs
+    under the import block: its parser and the modules it imports need
+    neither jax nor the JAX package."""
+    child = textwrap.dedent(f"""
+        import importlib.abc, runpy, sys
+
+        BANNED = {BANNED!r}
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BANNED):
+                    raise ImportError(f"blocked import of {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.argv = ["remote", "--help"]
+        try:
+            runpy.run_module("{PORT}.serve.remote", run_name="__main__")
+        except SystemExit as e:
+            assert e.code in (0, None), e.code
+        assert not [m for m in sys.modules if m.split(".")[0] in BANNED]
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", child], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "lsot-remote-worker" not in res.stdout  # --help serves nothing
+    assert "--from-hf" in res.stdout and "--cpu" in res.stdout
+    assert res.stdout.strip().endswith("ok")
 
 
 def _imports(path):

@@ -299,9 +299,12 @@ def test_weights_scale_the_backlog_comparison_as_jax():
 
 
 def test_phase_roles_and_remote_replicas_are_refused():
-    """Remote replicas (A11) are not ported: a pool refuses one by name. A
-    replica with a phase role is no longer refused: the pool wires a
-    prefill replica's handoff pump (tests/test_torch_disagg.py)."""
+    """A replica with a phase role is not refused: the pool wires a prefill
+    replica's handoff pump (tests/test_torch_disagg.py). A remote replica
+    (serve/remote.py) is refused only when it cannot co-serve the fleet:
+    the join handshake marks a joiner whose page geometry differs from the
+    local siblings' dead with the reason, as JAX's pool does, and a
+    compatible one joins placeable (tests/test_torch_remote.py)."""
     pkg = PKGS["torch"]
     role = FakeReplica(pkg)
     role.phase_role = "prefill"
@@ -309,13 +312,26 @@ def test_phase_roles_and_remote_replicas_are_refused():
     pool = t_sched.SchedulerPool([role, FakeReplica(pkg)])
     assert role.on_handoff.func == pool._pump_handoffs and role.on_handoff.args == (0,)
     assert [r["phase_role"] for r in pool.replica_health()] == ["prefill", "mixed"]
-    remote = FakeReplica(pkg)
-    remote.is_remote = True
-    pool = t_sched.SchedulerPool([FakeReplica(pkg)])
-    with pytest.raises(NotImplementedError, match="A11"):
-        pool.add_replica(remote)
-    assert pool.add_replica(FakeReplica(pkg)) == "r1"
-    assert pool.fleet_stats()["joins"] == 1 and pool.fleet_stats()["elastic"] == 1
+
+    def scenario(pkg):
+        pool = pkg["sched"].SchedulerPool([FakeReplica(pkg)])
+        bad = FakeReplica(pkg)
+        bad.is_remote, bad._paged = True, True
+        good = FakeReplica(pkg)
+        good.is_remote = True
+        labels = [pool.add_replica(bad), pool.add_replica(good),
+                  pool.add_replica(FakeReplica(pkg))]
+        fut = pool.submit([1, 2])
+        stats = pool.fleet_stats()
+        return (labels, [(r["state"], r.get("last_crash")) for r in pool.replica_health()],
+                [r["kind"] for r in pool.flight_snapshot()], stats["joins"],
+                fut.result(), bad.submitted, stats["elastic"])
+
+    got = twin(scenario)
+    assert got[0] == ["r1", "r2", "r3"]
+    assert got[1][1] == ("dead", "join rejected: paged=True vs fleet paged=False")
+    assert got[1][2] == ("ready", None) and got[1][3] == ("ready", None)
+    assert got[3] == 3 and got[6] == 3 and got[5] == []
 
 
 # ------------------------------------------------- real tiny schedulers
