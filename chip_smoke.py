@@ -18,6 +18,8 @@
                                          # weights alone
     python3 chip_smoke.py --remote-only  # phases 1, 2, then 18 (a) and (b)
                                          # on the 7B weights alone
+    python3 chip_smoke.py --elastic-only # phases 1, 2, then 19 on the 7B
+                                         # weights alone
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -506,6 +508,31 @@ Phases, each fatal on failure:
    placed p50 / p95, SIGKILL -> lease expiry and the restart's seconds,
    TTFT p50 and decode tok/s beside phase 17's split fleet and the lone
    controls, and a `{"remote": ...}` line before the kernels line.
+
+19. The elastic fleet and the eval harness (serve/elastic.py,
+   `serve/factory.standby_spawner`, evalh/), after phase 18, on phase 7's
+   7B bf16 tree (`elastic_serve`). (a) A supervised `SchedulerPool` of one
+   local mixed replica of phase 17's shape, a standby worker process of
+   this file (`--remote-worker mixed`) that `standby_spawner` points at,
+   and `FleetAutoscaler(...).run()` with ELASTIC_KNOBS (fleet 1..2, up at
+   2 queued a replica, down at 0.5, hold 1 s, interval 2 s); `fleet:spawn`
+   armed for the first attempt. ELASTIC_WAVE requests at once, the load
+   held until the standby joins and takes a placement: one counted spawn
+   failure with the fleet unchanged, then the join; once idle, a retire by
+   drain (fleet 1), then ELASTIC_WAVE2 requests on the shrunk fleet.
+   Nothing lost, streams once, each stream equal to a lone mixed
+   scheduler's or leaving it at a near-tie, launch counts exact here and
+   in the worker. (b) `evaluate_models` on the four-query suite and
+   `run_repair_leg` on the Spider smoke cases (injection off and on) over
+   that pool: every case terminal. (c) `python -m <package>.evalh --chaos`
+   with its schedulers on the card, beside (a)-(b): nothing hung or lost,
+   nothing mismatched, stage 8 with a join and a pushed handoff. (d)
+   `evalh --backend oracle` at 100% exact and execution match, and the
+   oracle report naming the card and its power limit. Prints the
+   autoscaler's stats, burst -> join -> first placement seconds,
+   placements per replica, the drain seconds, the lsot_fleet_* families,
+   the harness's summaries with latency p50 and tok/s, each chaos stage's
+   seconds, and an `{"elastic": ...}` line before the kernels line.
 
 Every phase prints its seconds.
 
@@ -5560,6 +5587,413 @@ def remote_cli(torch, hf_dir, device_args=()):
             "no_card_exit": no_card.returncode}
 
 
+# ----------------------------------------------------------------- elastic
+
+ELASTIC_WAVE = 16        # (a): wave 1's requests, submitted at once
+ELASTIC_WAVE2 = 6        # (a): wave 2's, on the shrunk fleet
+ELASTIC_LOAD_S = 120.0   # (a): the longest wave 1 keeps its load up for the join
+# (a)'s autoscaler: a fleet of 1 to 2, up at 2 queued requests a serving
+# replica, down at 0.5, a signal held 1 s, actions at least 2 s apart. A
+# retire's drain waits for a remote replica's work by its last load digest,
+# which its lease stops refreshing once it drains: a worker whose last
+# request's "done" frame counted a live slot waits out the deadline, 5 s here.
+ELASTIC_KNOBS = dict(fleet_min=1, fleet_max=2, scale_up_q=2.0, scale_down_q=0.5,
+                     hold_s=1.0, interval_s=2.0, drain_deadline_s=5.0)
+ELASTIC_HARNESS_NEW = 32  # (b): the harness's --max-new-tokens
+
+
+class Background:
+    """A command run beside the phase, its output in files (the chaos run
+    logs more than a pipe holds); `wait` bounds it and returns (exit code,
+    stdout, the tail of stderr, the seconds the command ran)."""
+
+    def __init__(self, cmd, name):
+        import tempfile
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.t_end = None
+        d = tempfile.mkdtemp(prefix=f"lsot-{name}-")
+        self.out = open(os.path.join(d, "out"), "w+")
+        self.err = open(os.path.join(d, "err"), "w+")
+        self.proc = subprocess.Popen(
+            cmd, stdout=self.out, stderr=self.err, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
+
+        def stamp():
+            self.proc.wait()
+            self.t_end = time.perf_counter()
+
+        threading.Thread(target=stamp, daemon=True).start()
+
+    def wait(self, timeout):
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(timeout=60)
+        seconds = round((self.t_end or time.perf_counter()) - self.t0, 3)
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        self.out.close()
+        self.err.close()
+        return rc, out, err[-4000:], seconds
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def prometheus_fleet(text):
+    """The `lsot_fleet_*` samples of a Prometheus page."""
+    return [ln for ln in text.splitlines() if ln.startswith("lsot_fleet_")]
+
+
+def evalh_command(*args, module="evalh"):
+    """`python -m <package>.<module> ARGS`: the eval harness's entry points."""
+    return [sys.executable, "-m", f"{PKG}.{module}", *args]
+
+
+def chaos_checks(out):
+    """Phase 19 (c): the chaos run's report (the JSON object its stdout
+    ends with): nothing hung, every stage's loss count and `mismatched` 0,
+    stage 8's streams exactly once with a join and a pushed handoff."""
+    rep = json.loads(out[out.index("{"):])
+    assert rep["hung"] == 0, rep["hung"]
+    for key in ("scheduler", "watchdog", "fleet"):
+        assert rep[key]["lost"] == rep[key]["unresolved"] == rep[key]["mismatched"] == 0, \
+            (key, rep[key])
+    for key in ("kv_pressure", "disagg", "elastic", "qos", "repair"):
+        assert rep[key]["lost"] == 0, (key, rep[key])
+    for key in ("kv_pressure", "disagg", "elastic", "qos"):
+        assert rep[key]["mismatched"] == 0, (key, rep[key])
+    net = rep["transport"]
+    assert net["lost_total"] == 0, net
+    for tag, w in net["waves"].items():
+        assert w["lost"] == w["mismatched"] == w["stream_violations"] == 0, (tag, w)
+    el = rep["elastic"]
+    assert el["stream_violations"] == 0 and el["joins"] >= 1 and el["pushed_handoffs"] >= 1, el
+    return rep
+
+
+def elastic_serve(torch, engines, smi):
+    """Phase 19: the elastic fleet and the eval harness on the card.
+
+    (a) An autoscaled 7B fleet through the pool API: a supervised
+    `SchedulerPool` of one local mixed replica of phase 7's 7B bf16 tree
+    (phase 17's shape: paged, pages of 64, DISAGG_SLOTS slots, DISAGG_HBM_GB
+    GiB of KV), a standby `serve.remote` worker of the same tree (a process
+    of this file, `--remote-worker mixed`, building while the lone control
+    runs) that `standby_spawner` points at, and `FleetAutoscaler(...).run()`
+    with ELASTIC_KNOBS. `fleet:spawn` is armed for the first scale-up attempt
+    only. Wave 1: ELASTIC_WAVE requests at once, the load then held at
+    ELASTIC_WAVE outstanding (each finished request replaced) until the
+    standby has joined and taken a placement: the first attempt must count
+    one spawn failure with the fleet unchanged, a later one joins the standby
+    through the handshake. Once idle, the autoscaler retires the joined
+    replica by drain (downs 1, fleet 1), and wave 2, ELASTIC_WAVE2 requests,
+    runs on the shrunk fleet. Every stream is delivered once and held to a
+    lone mixed scheduler from the same factory (`fleet_compare`'s near-tie
+    rule); nothing is lost; launch counts are exact here and in the worker.
+
+    (b) The harness at 7B over a `GenerationService` registering (a)'s pool
+    as `duckdb-nsql`: `evaluate_models` on FOUR_QUERY_SUITE against the taxi
+    fixture, `run_repair_leg` on SPIDER_SMOKE with injection off and on,
+    ELASTIC_HARNESS_NEW new tokens; every case terminal, the row counts the
+    suites'.
+
+    (c) `python -m ...evalh --chaos`, its schedulers on the card, run beside
+    (a)-(b) (`chaos_checks`), its stages' seconds printed.
+
+    (d) Host only, beside them: `...evalh --backend oracle` reads 100% exact
+    and execution match; `...evalh.report --backend oracle -o -` names the
+    card and its power limit in its header.
+
+    Returns (launches by path, numbers)."""
+    from llm_based_apache_spark_optimization_tpu_torch.evalh.fixtures import (
+        FOUR_QUERY_SUITE,
+        TAXI_DDL_SYSTEM,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.evalh.harness import (
+        evaluate_models,
+        format_summary,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.evalh.repair import (
+        format_repair_summary,
+        run_repair_leg,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.evalh.report import (
+        make_taxi_exec_backend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.evalh.spider import SPIDER_SMOKE
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve import GenerationService
+    from llm_based_apache_spark_optimization_tpu_torch.serve.elastic import FleetAutoscaler
+    from llm_based_apache_spark_optimization_tpu_torch.serve.factory import standby_spawner
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+        SchedulerBackend,
+        SchedulerPool,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.supervisor import (
+        SupervisedScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    e7 = engines["duckdb-nsql"]
+    cfg, params = e7.cfg, e7.params
+    tok = ByteTokenizer()
+    label = "elastic_pool"
+    checksum = tree_checksum(torch, params)
+    distinct = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in SCHED_SQL]
+    background = {
+        "chaos": Background(evalh_command("--chaos"), "chaos"),
+        "oracle": Background(evalh_command("--backend", "oracle"), "oracle"),
+        "report": Background(evalh_command("--backend", "oracle", "-o", "-",
+                                           module="evalh.report"), "report"),
+    }
+    worker = Worker(worker_command("mixed"), "standby")
+    numbers = {"device": smi}
+    launches, bounds = {}, {}
+
+    def make():
+        # FIFO admission (`qos=False`): under WFQ the loop moves the submit
+        # queue into its ready pool every round, and `replica_loads`'
+        # `queued`, the autoscaler's signal, counts the submit queue alone.
+        return ContinuousBatchingScheduler(
+            cfg, params, num_slots=DISAGG_SLOTS, stop_ids=e7.stop_ids,
+            kv_layout="paged", kv_page_size=SCHED["kv_page_size"],
+            kv_hbm_budget_bytes=DISAGG_HBM_GB * 2**30, qos=False, device="cuda")
+
+    def placements():
+        """Placements per replica in the pool's flight ring."""
+        out = {}
+        for r in sup._inner.flight_snapshot():
+            if r.get("kind") == "placement":
+                out[r["to"]] = out.get(r["to"], 0) + 1
+        return out
+
+    try:
+        # The lone control of every distinct prompt, while the standby builds.
+        lone = make()
+        with lone:
+            want, _, mixed = timed_burst(
+                lambda p, on: lone.submit(p, max_new_tokens=MAX_NEW, on_token=on), distinct)
+        del lone
+        gc.collect()
+        torch.cuda.empty_cache()
+        sum_w, addr, ready_s = worker.ready()
+        assert sum_w == checksum, f"{label}: standby tree {sum_w} != {checksum}"
+        print(f"  {label}: standby worker ready in {ready_s} s at {addr}, tree checksum "
+              f"equal; {card_memory(torch)}", flush=True)
+
+        # (a) the autoscaled fleet.
+        torch.cuda.synchronize()
+        reset_launches()
+        # Placement by load (`affinity_routing=False`): prefix affinity comes
+        # first in the pool's order, and every request here shares the schema
+        # prefix resident on r0, so a joined replica would take none.
+        sup = SupervisedScheduler(
+            lambda: SchedulerPool([make()], factory=lambda i: make(),
+                                  affinity_routing=False, lease_s=REMOTE_LEASE_S,
+                                  lease_misses=REMOTE_LEASE_MISSES),
+            stall_min_s=REMOTE_STALL_MIN_S, name=f"scheduler-pool:{label}").start()
+        r0 = sup._inner.schedulers[0]
+        svc = GenerationService()
+        svc.register("duckdb-nsql", SchedulerBackend(sup, tok, max_new_tokens=MAX_NEW))
+        auto = FleetAutoscaler(sup, standby_spawner(addr, connect_timeout_s=30.0),
+                               **ELASTIC_KNOBS)
+        FAULTS.configure("fleet:spawn:1", 0)
+        auto.run()
+        which, streams, futs = [], [], []
+
+        def submit():
+            i = len(futs) % len(distinct)
+            which.append(i)
+            streams.append([])
+            futs.append(sup.submit(distinct[i], max_new_tokens=MAX_NEW,
+                                   on_token=streams[-1].append))
+
+        t_burst = time.perf_counter()
+        for _ in range(ELASTIC_WAVE):
+            submit()
+        pending = set(range(ELASTIC_WAVE))
+        t_fail = t_join = t_placed = size_at_fail = None
+        while t_placed is None:
+            assert time.perf_counter() - t_burst < ELASTIC_LOAD_S, \
+                (f"{label}: no join with a placement in {ELASTIC_LOAD_S} s: "
+                 f"{auto.stats()}; placements {placements()}; done "
+                 f"{sum(f.done() for f in futs)} of {len(futs)}; replicas "
+                 f"{[(r['replica'], r['state']) for r in sup.replica_loads()]}; events "
+                 f"{[r for r in sup._inner.flight_snapshot() if r.get('kind', '').startswith('replica_')]}")
+            st = auto.stats()
+            if t_fail is None and st["spawn_failures"]:
+                FAULTS.clear()  # armed for the first attempt only
+                t_fail = time.perf_counter()
+                size_at_fail = int(sup.fleet_stats()["size"])
+            if t_join is None and st["ups"]:
+                t_join = time.perf_counter()
+            if t_join is not None and placements().get("r1"):
+                t_placed = time.perf_counter()
+                break
+            for k in [k for k in pending if futs[k].done()]:
+                assert futs[k].exception() is None, f"{label}[{k}]: {futs[k].exception()!r}"
+                pending.discard(k)
+                submit()
+                pending.add(len(futs) - 1)
+            time.sleep(0.005)
+        FAULTS.clear()
+        outs = []
+        for f in futs:
+            try:
+                outs.append(f.result(timeout=600))
+            except Exception as e:  # noqa: BLE001 — a lost request, counted
+                print(f"    lost: {type(e).__name__}: {e}", flush=True)
+                outs.append(None)
+        wave1_s = round(time.perf_counter() - t_burst, 4)
+        placed1 = placements()
+        stats_up = auto.stats()
+        print(f"  {label}: wave 1: {len(futs)} requests ({ELASTIC_WAVE} at once, the load "
+              f"held until the join) in {wave1_s} s; spawn failure "
+              f"{round(t_fail - t_burst, 4)} s after the burst (fleet size {size_at_fail}), "
+              f"join {round(t_join - t_burst, 4)} s after it, first placement on r1 "
+              f"{round(t_placed - t_join, 4)} s after the join; placements {placed1}; "
+              f"autoscaler {stats_up}", flush=True)
+        assert size_at_fail == 1 and stats_up["spawn_failures"] == 1, stats_up
+        assert stats_up["ups"] == 1 and placed1.get("r1", 0) >= 1, (stats_up, placed1)
+
+        # The idle fleet shrinks: the autoscaler retires r1 by drain.
+        deadline = time.perf_counter() + 60
+        while auto.stats()["downs"] < 1:
+            assert time.perf_counter() < deadline, f"{label}: no retire: {auto.stats()}"
+            time.sleep(0.02)
+        t_retired = time.perf_counter()
+        fl_retired = sup.fleet_stats()
+        print(f"  {label}: retired {round(t_retired - t_burst - wave1_s, 4)} s after wave 1 "
+              f"ended; drain {fl_retired['drain_s_sum']} s; fleet {fl_retired}", flush=True)
+        assert fl_retired["serving"] == 1 and fl_retired["retires"] == 1, fl_retired
+
+        # Wave 2 on the shrunk fleet.
+        before2 = placements()
+        prompts2 = distinct[:ELASTIC_WAVE2]
+        outs2, streams2, wave2 = timed_burst(
+            lambda p, on: sup.submit(p, max_new_tokens=MAX_NEW, on_token=on), prompts2)
+        placed2 = {k: v - before2.get(k, 0) for k, v in placements().items()}
+        families = prometheus_fleet(svc.metrics_prometheus())
+        auto.stop()
+        stats = auto.stats()
+        health = sup.health()
+        print(f"  {label}: wave 2: {ELASTIC_WAVE2} requests, placements {placed2}, "
+              f"TTFT p50 {wave2['ttft_p50_s']} s; autoscaler {stats}; lost "
+              f"{health['lost']}; on {smi}", flush=True)
+        for ln in families:
+            print(f"    {ln}", flush=True)
+        assert stats["downs"] == 1 and stats["ups"] == 1, stats
+        assert placed2.get("r0", 0) == ELASTIC_WAVE2 and not placed2.get("r1"), placed2
+        assert all(o is not None for o in outs + outs2) and health["lost"] == 0, health
+        for i, (s, o) in enumerate(zip(streams + streams2, outs + outs2)):
+            assert s == o, f"{label}[{i}]: stream {s} != result {o}"
+        assert any(ln.startswith("lsot_fleet_joins_total") for ln in families), families
+
+        # (b) the harness over the same pool (fleet of one now).
+        t0 = time.perf_counter()
+        reports = evaluate_models(svc, ["duckdb-nsql"], FOUR_QUERY_SUITE, TAXI_DDL_SYSTEM,
+                                  max_new_tokens=ELASTIC_HARNESS_NEW,
+                                  exec_backend=make_taxi_exec_backend())
+        rep = reports["duckdb-nsql"]
+        legs = [run_repair_leg(svc, "duckdb-nsql", cases=SPIDER_SMOKE, inject=inject,
+                               max_new_tokens=ELASTIC_HARNESS_NEW)
+                for inject in (False, True)]
+        harness_s = round(time.perf_counter() - t0, 4)
+        print(format_summary(reports), flush=True)
+        for leg in legs:
+            print(format_repair_summary(leg), flush=True)
+        lat = p50([c.latency_s for c in rep.cases])
+        print(f"  {label}: harness in {harness_s} s: latency p50 {lat} s, aggregate "
+              f"{rep.aggregate_tok_per_s:.3f} tok/s, on {smi}", flush=True)
+        assert len(rep.cases) == len(FOUR_QUERY_SUITE), len(rep.cases)
+        assert all(c.executable is not None and c.grammar_valid is not None
+                   for c in rep.cases), rep.cases
+        for leg in legs:
+            assert leg["cases"] == len(SPIDER_SMOKE) == len(leg["per_case"]), leg["cases"]
+            assert all(r["success_round"] is not None or r["error_class"]
+                       for r in leg["per_case"]), leg["per_case"]
+
+        # Launch counts: this process's replica, then the worker's.
+        wait_idle(r0)
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        expected = dict.fromkeys(LAUNCHES, 0)
+        expect_paged(expected, r0, r0.rounds_issued, r0.prefill_forwards)
+        print(f"  {label}: local launches {launches[label]} expected {expected}", flush=True)
+        assert launches[label] == expected, f"{label}: {launches[label]} != {expected}"
+        sup.shutdown()
+        del sup, r0, svc, auto
+        gc.collect()
+        torch.cuda.empty_cache()
+        rc, line = worker.stop()
+        assert rc == 0, f"{label}: the standby worker exited {rc}"
+        wl = check_worker_launches(label, line)
+        launches[label] = {k: v + wl[k] for k, v in launches[label].items()}
+        div = fleet_compare(torch, label, cfg, params, e7.stop_ids,
+                            [distinct[i] for i in which] + prompts2, outs + outs2,
+                            [want[i] for i in which] + want[:ELASTIC_WAVE2], bounds)
+        n = len(outs) + len(outs2)
+        numbers["a"] = dict(
+            knobs=ELASTIC_KNOBS, standby_ready_s=ready_s, wave1_requests=len(futs),
+            wave1_s=wave1_s, burst_to_spawn_failure_s=round(t_fail - t_burst, 4),
+            burst_to_join_s=round(t_join - t_burst, 4),
+            join_to_first_placement_s=round(t_placed - t_join, 4),
+            placements_wave1=placed1, placements_wave2=placed2,
+            retire_drain_s=fl_retired["drain_s_sum"],
+            wave1_end_to_retire_s=round(t_retired - t_burst - wave1_s, 4),
+            autoscaler=stats, fleet_after_retire=fl_retired, fleet_families=families,
+            wave2=wave2, lone_mixed=mixed, streams_equal=f"{n - len(div)} of {n}",
+            divergences=div)
+        numbers["b"] = dict(
+            seconds=harness_s, cases=len(rep.cases), latency_p50_s=lat,
+            aggregate_tok_s=round(rep.aggregate_tok_per_s, 3),
+            exact_match_rate=rep.exact_match_rate, executable_rate=rep.executable_rate,
+            repair={leg["suite"]: leg["executable_after"] for leg in legs})
+
+        # (c) and (d): the runs beside the phase.
+        rc, out, err, secs = background["chaos"].wait(600)
+        assert rc == 0, f"chaos run exited {rc}: {err}"
+        chaos = chaos_checks(out)
+        print(f"  chaos (c): {secs} s on the card; hung {chaos['hung']}; stage seconds "
+              f"{chaos['stage_seconds']}; elastic joins {chaos['elastic']['joins']}, "
+              f"pushed {chaos['elastic']['pushed_handoffs']}", flush=True)
+        numbers["c"] = dict(seconds=secs, stage_seconds=chaos["stage_seconds"],
+                            hung=chaos["hung"], outcomes=chaos["outcomes"],
+                            elastic={k: chaos["elastic"][k] for k in (
+                                "joins", "pushed_handoffs", "scale_ups", "spawn_failures",
+                                "retires", "stream_violations")})
+        rc, out, err, secs = background["oracle"].wait(300)
+        assert rc == 0, f"oracle run exited {rc}: {err}"
+        assert out.count("Exact Match Rate: 100.00%") == 3, out
+        assert out.count("Execution Match Rate: 100.00%") == 3, out
+        rc, out2, err, secs2 = background["report"].wait(300)
+        assert rc == 0, f"oracle report exited {rc}: {err}"
+        header = next(ln for ln in out2.splitlines() if ln.startswith("Backend:"))
+        assert f"platform: **cuda: {smi}**" in header, (header, smi)
+        print(f"  host (d): oracle 100% exact and execution match ({secs} s); report "
+              f"header: {header[header.index('platform'):]}", flush=True)
+        numbers["d"] = dict(oracle_s=secs, report_s=secs2,
+                            report_platform=header[header.index("platform"):])
+    finally:
+        FAULTS.clear()
+        worker.kill()
+        for b in background.values():
+            b.kill()
+    return launches, numbers
+
+
 # --------------------------------------------------------------- profile
 
 
@@ -8092,8 +8526,12 @@ def main() -> int:
                     help="build and run phase 18 (a) and (b) alone: the remote fleets "
                          "over worker processes on the 7B weights (prints their numbers "
                          "and no ok line)")
-    ap.add_argument("--remote-worker", default="", choices=["", "prefill", "decode"],
-                    help=argparse.SUPPRESS)  # one worker process of phase 18
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="build and run phase 19 alone: the autoscaled 7B fleet, the "
+                         "harness over it, the chaos run and the host checks (prints "
+                         "their numbers and no ok line)")
+    ap.add_argument("--remote-worker", default="", choices=["", "prefill", "decode", "mixed"],
+                    help=argparse.SUPPRESS)  # one worker process of phases 18-19
     ap.add_argument("--int8-only", action="store_true",
                     help="build and run phase 14's kernel parts alone: the int8 matmul "
                          "and row 8 at the stacked widths against their plain versions, "
@@ -8246,6 +8684,14 @@ def main() -> int:
         print(json.dumps({"remote": remote_numbers, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.elastic_only:
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
+        phase("elastic fleet and eval harness, phase 19: the autoscaled 7B pool")
+        _, elastic = elastic_serve(torch, engines, smi)
+        phase(None)
+        print(json.dumps({"elastic": elastic, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.disagg_only:
         engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
         phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
@@ -8331,6 +8777,8 @@ def main() -> int:
     phase("remote fleet, phase 18 (a), (b): worker processes over the 7B tree")
     remote_launches, remote_numbers = remote_serve(torch, engines, smi,
                                                    split=disagg.get("bf16"))
+    phase("elastic fleet and eval harness, phase 19: the autoscaled 7B pool")
+    elastic_launches, elastic = elastic_serve(torch, engines, smi)
     phase("entry point: the tiny app as a process")
     entry_point(torch)
 
@@ -8413,6 +8861,7 @@ def main() -> int:
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
              "fleet_pool": fleet_launches, **disagg_launches, **remote_launches,
+             **elastic_launches,
              **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
@@ -8483,6 +8932,7 @@ def main() -> int:
     print(json.dumps({"disagg": disagg, "device": smi}))
     print(json.dumps({"remote": {**remote_numbers, "cli": _REMOTE.get("cli")},
                       "device": smi}))
+    print(json.dumps({"elastic": elastic, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,13 +62,23 @@ llm_based_apache_spark_optimization_tpu_torch.serve.remote` workers (a
 targeted restart reconnects); the pool keeps each under a heartbeat lease
 (`LSOT_LEASE_S`, `LSOT_LEASE_MISSES`). As in the JAX entry point `--dp N`
 counts the remote slots too: N devices, so one card serves `--dp 1` only.
+`LSOT_FLEET_WORKERS` ("host:port,...") names standby workers that the
+pool's `FleetAutoscaler` (serve/elastic.py) joins and retires within
+`LSOT_FLEET_MIN` / `LSOT_FLEET_MAX` (default: the `--dp` replicas, and those
+plus the standbys) on `LSOT_SCALE_UP_Q`, `LSOT_SCALE_DOWN_Q`,
+`LSOT_SCALE_HOLD_S` and `LSOT_SCALE_INTERVAL_S`; as in the JAX entry point
+the autoscaler runs on this pool alone, and elsewhere the knobs are read and
+have no effect.
 
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
 every option it cannot honor yet, instead of ignoring it: `--sp`/`--tp` > 1
-and `--dp` > 1 without `--scheduler` (A13), and the environment knobs of
-`UNPORTED_KNOBS`: the standby workers and the autoscaler (A11) and the
-bench seed (A12's bench).
+and `--dp` > 1 without `--scheduler` (A13), and the environment knob of
+`UNPORTED_KNOBS`, the bench seed (A12's bench).
+
+`make_oracle_service` answers every eval case with its expected SQL: the
+eval harness's self-proof (`python -m ...evalh --backend oracle` reads
+100% exact and execution match).
 
 Observability (`configure_observability`, before any service or scheduler
 is built): request-trace sampling and export (`LSOT_TRACE_SAMPLE`,
@@ -101,15 +111,7 @@ from .web import create_web_app
 
 #: Environment knobs of layers the port does not have yet: AppConfig field
 #: -> the ROADMAP item that brings it.
-_ELASTIC = "A11 (standby workers and the autoscaler, serve/elastic.py)"
 UNPORTED_KNOBS = {
-    "fleet_workers": _ELASTIC,
-    "fleet_min": _ELASTIC,
-    "fleet_max": _ELASTIC,
-    "scale_up_q": _ELASTIC,
-    "scale_down_q": _ELASTIC,
-    "scale_hold_s": _ELASTIC,
-    "scale_interval_s": _ELASTIC,
     "stok_seed_bench": "A12 (the bench artifact)",
 }
 
@@ -326,8 +328,29 @@ def make_dp_pool_backend(args, cfg: AppConfig, src: str, tok, add_bos: bool,
             name=f"scheduler-pool:{src}")
     else:
         pool = make_pool()
-    return SchedulerBackend(pool, tok, max_new_tokens=max_new_tokens, add_bos=add_bos,
-                            deadline_s=cfg.deadline_s or None)
+    backend = SchedulerBackend(pool, tok, max_new_tokens=max_new_tokens, add_bos=add_bos,
+                               deadline_s=cfg.deadline_s or None)
+    # Elastic membership (`LSOT_FLEET_WORKERS`): standby `serve.remote`
+    # workers join as `SocketTransport` replicas when the queue EWMA, SLO
+    # burn or KV-pressure signal holds past the hysteresis window;
+    # scale-down drains and removes only the replicas the autoscaler added.
+    # The control loop is a daemon thread: it dies with the process, and a
+    # failed step never takes serving down with it.
+    if cfg.fleet_workers:
+        from ..serve.elastic import FleetAutoscaler
+        from ..serve.factory import standby_spawner
+
+        spawn = standby_spawner(cfg.fleet_workers)
+        backend.autoscaler = FleetAutoscaler(
+            pool, spawn,
+            fleet_min=None if cfg.fleet_min < 0 else cfg.fleet_min,
+            fleet_max=(cfg.fleet_max if cfg.fleet_max >= 0
+                       else args.dp + len(spawn.addresses)),
+            scale_up_q=cfg.scale_up_q, scale_down_q=cfg.scale_down_q,
+            hold_s=cfg.scale_hold_s, interval_s=cfg.scale_interval_s,
+            drain_deadline_s=cfg.drain_deadline_s,
+        ).run()
+    return backend
 
 
 def make_tiny_service(
@@ -622,6 +645,31 @@ def make_multimodel_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int
         kv_layout=args.kv_layout, kv_quant=resolve_kv_quant(args, cfg)[0],
         kv_hbm_budget_bytes=int(args.kv_hbm_gb * 2**30),
         speculative=args.speculative, supervise=args.supervise)
+
+
+def make_oracle_service() -> GenerationService:
+    """A canned service that answers every known eval case with its
+    expected SQL (keyed by the NL question inside the rendered prompt).
+
+    The eval harness's self-proof: a run over it must read 100% exact match
+    and 100% execution match, showing end to end that the scorer can score
+    a hit. Any number below 100 on this backend is a harness bug, never a
+    model property."""
+    from ..evalh.configs import sql_case_base
+
+    cases = sql_case_base()
+
+    def oracle(prompt: str) -> str:
+        for case in cases:
+            if case.nl and case.nl in prompt:
+                return case.expected_sql
+        return "SELECT * FROM temp_view LIMIT 10"
+
+    svc = GenerationService()
+    svc.register("duckdb-nsql", FakeBackend(oracle))
+    svc.register("llama3.2", FakeBackend(oracle))
+    svc.register("mistral", FakeBackend(oracle), template="mistral-instruct")
+    return svc
 
 
 def make_fake_service() -> GenerationService:

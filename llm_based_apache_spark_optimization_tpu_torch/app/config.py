@@ -7,9 +7,8 @@ Here they live in one frozen dataclass, overridable from the environment with
 the `LSOT_` prefix.
 
 A copy of the JAX package's `app/config.py`. The port's entry point
-(`app/__main__.py`) refuses, by name, the knobs of layers it does not have
-yet (the standby workers and the autoscaler, ROADMAP A11; the bench seed,
-A12).
+(`app/__main__.py`) refuses, by name, the knob of the layer it does not
+have yet (the bench seed, ROADMAP A12).
 """
 
 from __future__ import annotations

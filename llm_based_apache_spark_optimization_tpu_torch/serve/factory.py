@@ -4,11 +4,9 @@ completion, `llama3.2` error analysis on the llama3 chat template, optional
 `mistral` on [INST]) with its shared-weights aliasing rule.
 
 Counterpart of the JAX package's `serve/factory.py`
-(`assemble_multimodel_service`, `assemble_reference_service`). Its standby
-fleet spawner (`standby_spawner`, `LSOT_FLEET_WORKERS`: worker processes
-started as the autoscaler asks) is not ported: ROADMAP A11 (standby
-workers and the autoscaler, serve/elastic.py). Remote replicas themselves
-are (serve/remote.py, `LSOT_POOL_REMOTE`).
+(`assemble_multimodel_service`, `assemble_reference_service`, `standby_spawner`): the last turns
+`LSOT_FLEET_WORKERS`, the addresses of standby `serve.remote` workers, into
+the spawn source of the elastic fleet's autoscaler (serve/elastic.py).
 """
 
 from __future__ import annotations
@@ -97,3 +95,45 @@ def assemble_reference_service(
         svc.register("mistral", build(mistral_src, True),
                      template="mistral-instruct")
     return svc
+
+
+def standby_spawner(spec=None, *, label_prefix: str = "standby",
+                    connect_timeout_s: float = 5.0):
+    """The elastic fleet's spawn source: turn `LSOT_FLEET_WORKERS`, a
+    comma-separated list of standby `serve.remote` worker addresses
+    ("host:port,host:port"), into the `spawn` callable a `FleetAutoscaler`
+    pops from on scale-up.
+
+    Each call connects a `SocketTransport` to the next unclaimed address
+    and returns it (the pool's `add_replica` then runs the page-geometry
+    and model join handshake); `None` once every standby is claimed, which
+    the autoscaler counts as `spawn_empty` while the fleet stays at its
+    size. A standby that refuses the connection raises, which the
+    autoscaler (and its `fleet:spawn` chaos seam) degrades to a counted
+    spawn failure. Addresses are claimed for good: a retired worker was
+    told to drain, so its address is not silently reused. The callable's
+    `addresses` attribute lists them all."""
+    import os
+    import threading
+
+    from .remote import SocketTransport
+
+    raw = spec if spec is not None else os.environ.get("LSOT_FLEET_WORKERS", "")
+    if isinstance(raw, str):
+        addrs = [a.strip() for a in raw.split(",") if a.strip()]
+    else:
+        addrs = [str(a) for a in raw]
+    lock = threading.Lock()
+    state = {"next": 0}
+
+    def spawn():
+        with lock:
+            i = state["next"]
+            if i >= len(addrs):
+                return None
+            state["next"] = i + 1
+        return SocketTransport(addrs[i], label=f"{label_prefix}{i}",
+                               connect_timeout_s=connect_timeout_s)
+
+    spawn.addresses = tuple(addrs)
+    return spawn

@@ -7,8 +7,8 @@ a local Ollama daemon (reference `Model_Evaluation_&_Comparision.py:69,83`;
 duck-typed service surface the eval harness and BASELINE configs consume
 (`generate` / `generate_batch` / `models` — serve/service.py), so an
 operator with the reference's exact setup can score the reference engine
-in the same report tables as the in-tree engine (the eval harness, `evalh`,
-is ROADMAP A14 in this package).
+in the same report tables as the in-tree engine (the eval harness,
+`evalh`, with `--backend ollama`).
 
 A copy of the JAX package's `serve/ollama_client.py` (host code: an HTTP
 client, no device).

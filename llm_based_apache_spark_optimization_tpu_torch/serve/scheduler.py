@@ -201,8 +201,10 @@ the fault seams run before it is taken.
   and weighted least-loaded backlog, per-replica targeted restart, drain,
   remove, add and retire, and merged stats views. A replica may be a
   transport (serve/remote.py): a `SocketTransport` to a worker process or a
-  `LoopbackTransport`, kept under a heartbeat lease. Meshes (A7.12, A13)
-  are not ported.
+  `LoopbackTransport`, kept under a heartbeat lease. The elastic fleet's
+  `FleetAutoscaler` (serve/elastic.py) joins standbys through `add_replica`
+  and retires them through `retire_replica`. Meshes (A7.12, A13) are not
+  ported.
 - Phase roles (`phase_role`, paged only; a pool's `LSOT_POOL_PHASES`): a
   "prefill" replica's final chunk parks its first token on the device
   (`_handoff_pending`); `_pack_handoffs` commits and streams it, exports

@@ -333,12 +333,20 @@ def test_entry_point_refuses_unported_flags(argv, item):
     ("LSOT_FLEET_MIN", "2", "A11"),
 ])
 def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, item):
+    """The elastic fleet's knobs (A11, serve/elastic.py) are ported: as in
+    the JAX entry point they drive the autoscaler of the `--dp N
+    --scheduler` pool (tests/test_torch_elastic.py) and are read without
+    effect on the fake backend, which builds no pool, so they are no longer
+    refused."""
     monkeypatch.setenv(knob, value)
     cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
                              output_dir=str(tmp_path / "out"), history_db=":memory:")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        entry.build_service(args_for("--cpu"), cfg)
-        create_api_app(make_service(), SQLiteBackend, SQLiteHistory(), cfg)
+    field = knob[len("LSOT_"):].lower()
+    assert item == "A11" and field not in entry.UNPORTED_KNOBS
+    assert str(getattr(cfg, field)) != str(getattr(AppConfig(), field))
+    svc = entry.build_service(args_for("--cpu"), cfg)
+    assert not any(hasattr(e.backend, "autoscaler") for e in svc._models.values())
+    create_api_app(svc, SQLiteBackend, SQLiteHistory(), cfg)
 
 
 def test_entry_point_honours_constrain_sql(monkeypatch, tmp_path):
@@ -578,13 +586,18 @@ def test_every_app_config_field_is_read_or_refused(field):
     ("LSOT_FLEET_MAX", "4", "A11"),
 ])
 def test_entry_point_refuses_inert_knobs(monkeypatch, tmp_path, knob, value, item):
-    """The knobs of layers the port does not have are refused by name: the
-    bench seed (A12's bench half), the standby workers' and the
-    autoscaler's (A11). The remote replicas' knobs are honoured
+    """The knob of the layer the port does not have is refused by name: the
+    bench seed (A12's bench half). The autoscaler's (A11) are honoured on
+    the dp pool and, as in the JAX entry point, read without effect
+    elsewhere; the remote replicas' are honoured
     (`test_entry_point_pool_remote_*`)."""
     monkeypatch.setenv(knob, value)
     cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
                              output_dir=str(tmp_path / "out"), history_db=":memory:")
+    if item == "A11":
+        assert set(entry.UNPORTED_KNOBS) == {"stok_seed_bench"}
+        entry.build_service(args_for("--cpu"), cfg)
+        return
     with pytest.raises(NotImplementedError, match=f"{knob} is not ported: ROADMAP {item}"):
         entry.build_service(args_for("--cpu"), cfg)
 
