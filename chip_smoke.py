@@ -20,6 +20,8 @@
                                          # on the 7B weights alone
     python3 chip_smoke.py --elastic-only # phases 1, 2, then 19 on the 7B
                                          # weights alone
+    python3 chip_smoke.py --mesh-only    # phases 1, 2, then 20 on the 7B
+                                         # and 3B weights alone
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -220,8 +222,9 @@ Phases, each fatal on failure:
    --profile, six concurrent requests under torch.profiler.
 10. Checkpoints, over files written in a temporary directory (removed
    afterwards) from the seed-0 bf16 trees:
-   (a) GGUF, the reference's deployment format, at full width and depth:
-   LLAMA32_3B (28 layers, tied embeddings, llama3 rope scaling, so
+   (a) GGUF, the reference's deployment format, at full width, cut to
+   GGUF_LAYERS = 14 of its 28 layers for the run's time:
+   LLAMA32_3B (tied embeddings, llama3 rope scaling, so
    `rope_freqs.weight` is written) as a Q4_0 blob by the port's
    `write_gguf` (quantized on the card). `load_gguf_checkpoint` must give
    the direct q4_0 -> f32 -> bf16 round trip of the seed tree bit for bit
@@ -533,6 +536,24 @@ Phases, each fatal on failure:
    placements per replica, the drain seconds, the lsot_fleet_* families,
    the harness's summaries with latency p50 and tok/s, each chaos stage's
    seconds, and an `{"elastic": ...}` line before the kernels line.
+20. Meshes (parallel/, `mesh_serve`), inside phase 10 while its HF
+   directory exists: two ranks, processes of this file (`--mesh-rank R`)
+   on cuda:0 joined over gloo (NCCL refuses two ranks on one card), every
+   collective staged through host memory. (a) tp=2 DUCKDB_NSQL_7B, bf16,
+   paged scheduler (pages of 64, 8 slots, 8 GiB of KV in all): six SQL
+   requests at once, then two in turn; rank 0 drives, rank 1 replays its
+   steps; rows 1, 4 and 6 against their plain versions at the per-rank
+   shapes (16 heads), launch counts exact on each rank. (b) tp=2
+   LLAMA32_3B int4 engine (12 query and 4 KV heads a rank), bf16 and int8
+   cache, rows 2, 3 and 8 at the per-rank shapes. (c) sp=2: a 2048-token
+   prompt through ring attention, then 16 decode steps on the sp-sharded
+   cache (plain PyTorch, as JAX's; no kernel launched). (d) the runbook as
+   one command twice (convert, then restore, equal reports) over the HF
+   directory, then `runbook.build_service` at tp=2 on the ranks. Each held
+   to its tp=1 reference in this process: streams equal or near-ties under
+   `fleet_compare`'s rule, ring logits within LOGIT_TOL. Prints an
+   `{"mesh": ...}` line before the kernels line; the ranks' launches join
+   it per rank (`mesh_*_rank0`, `mesh_*_rank1`).
 
 Every phase prints its seconds.
 
@@ -3790,8 +3811,14 @@ def counted_traffic(torch, svc, incarnations, label, err_model=None, sql_model=N
     return launches
 
 
+#: Layers of phase 10 (a)'s 3B Q4_0 blob (of 28): cut for the run's time
+#: when phase 20 came.
+GGUF_LAYERS = 14
+
+
 def gguf_serve(torch, engines, root):
-    """(a) GGUF, the reference's deployment format, at full width and depth:
+    """(a) GGUF, the reference's deployment format, at full width and
+    GGUF_LAYERS of its 28 layers:
     LLAMA32_3B's seed-0 bf16 tree written as a Q4_0 blob by the port's
     `write_gguf` and read once by `load_gguf_checkpoint`: the loaded tree
     must equal the direct round trip of the seed tree bit for bit. The
@@ -3822,7 +3849,10 @@ def gguf_serve(torch, engines, root):
     from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
-    cfg, seed = engines["llama3.2"].cfg, engines["llama3.2"].params
+    base = engines["llama3.2"]
+    cfg = dataclasses.replace(base.cfg, num_layers=GGUF_LAYERS)
+    seed = {**{k: v for k, v in base.params.items() if k != "blocks"},
+            "blocks": {k: v[:GGUF_LAYERS] for k, v in base.params["blocks"].items()}}
     path = os.path.join(root, "llama3.2-3b.q4_0.gguf")
     t0 = time.perf_counter()
     write_gguf(cfg, seed, path, quant="q4_0")
@@ -4048,10 +4078,11 @@ def supervised_crash(torch, sb):
     return launches
 
 
-def checkpoints(torch, engines):
+def checkpoints(torch, engines, after_hf=None):
     """Phase 10 and 14 (e): the checkpoint paths, over files written in a
-    temporary directory that is removed afterwards. Returns the launch
-    counts per path."""
+    temporary directory that is removed afterwards; `after_hf(hf_dir)`
+    runs while the 4-layer 7B HF directory (with its tokenizer) exists.
+    Returns the launch counts per path."""
     import shutil
     import tempfile
 
@@ -4091,6 +4122,8 @@ def checkpoints(torch, engines):
             phase("remote worker (c), phase 18: `python -m ...serve.remote --from-hf` "
                   "over the 7B HF directory")
             _REMOTE["cli"] = remote_cli(torch, hf_dir)
+            if after_hf is not None:
+                after_hf(hf_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"gguf_3b_int4_int8": gguf_launches, "hf_7b_bf16": hf_launches,
@@ -5599,7 +5632,7 @@ ELASTIC_LOAD_S = 120.0   # (a): the longest wave 1 keeps its load up for the joi
 # request's "done" frame counted a live slot waits out the deadline, 5 s here.
 ELASTIC_KNOBS = dict(fleet_min=1, fleet_max=2, scale_up_q=2.0, scale_down_q=0.5,
                      hold_s=1.0, interval_s=2.0, drain_deadline_s=5.0)
-ELASTIC_HARNESS_NEW = 32  # (b): the harness's --max-new-tokens
+ELASTIC_HARNESS_NEW = 16  # (b): the harness's --max-new-tokens (32 until phase 20 came)
 
 
 class Background:
@@ -8486,6 +8519,596 @@ def time_int8(torch, mm8, mm_mod, report=""):
     return out
 
 
+# ------------------------------------------------------------- phase 20: meshes
+
+MESH_SLOTS = 8        # (a): slots of the tp=2 paged scheduler, as phase 17's replica
+MESH_PAGE = 64        # (a): its page size
+MESH_KV_GB = 8        # (a): KV of the pool in all (each rank holds half the heads)
+MESH_B_PROMPTS = 4    # (b): prompts of the 3B int4 engine batch
+MESH_RING_T = 2048    # (c): the ring prefill's prompt
+MESH_RING_DECODE = 16  # (c): decode steps on the sp-sharded cache
+MESH_TIMEOUT_S = 600  # a rank that has not finished by then is stuck
+MESH_NEW = 16         # (d): the runbook's --max-new-tokens
+# Rows of PERF.md's table checked at the per-rank shapes (`rank_kernel_checks`).
+MESH_ROWS = {"prefill": "row1", "decode": "row2", "decode_q": "row3", "paged": "row4",
+             "write": "row6", "int4": "row8"}
+
+
+def mesh_hf_dir(engines, root):
+    """`--mesh-only`'s stand-in for phase 10's HF directory: the 7B seed tree
+    cut to HF_LAYERS layers in f32 safetensors, with the phase tokenizer."""
+    from llm_based_apache_spark_optimization_tpu_torch.checkpoint import save_hf_checkpoint
+
+    base = engines["duckdb-nsql"]
+    cfg = dataclasses.replace(base.cfg, num_layers=HF_LAYERS)
+    seed = {**{k: v for k, v in base.params.items() if k != "blocks"},
+            "blocks": {k: v[:HF_LAYERS] for k, v in base.params["blocks"].items()}}
+    d = os.path.join(root, "duckdb-nsql-7b")
+    save_hf_checkpoint(cfg, seed, d)
+    write_tokenizer(d)
+    return d
+
+
+def mesh_prompts(tok):
+    return [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in (SCHED_SQL * 2)[:MESH_SLOTS]]
+
+
+def mesh_norm(text):
+    """A report without its wall-clock fields (latencies, tok/s, the
+    roofline shares, TTFT and queue-wait lines, the timestamp, platform)."""
+    out = []
+    for line in text.splitlines():
+        if re.search(r"TTFT|queue wait|platform|generated \d", line, re.I):
+            continue
+        if re.search(r"latency|tok/s|Throughput|cadence|MFU", line, re.I) or " s |" in line:
+            line = re.sub(r"\d+\.\d+", "#", line)
+            line = re.sub(r"\*\*[^*]+\*\* \(avg #", "** (avg #", line)
+        out.append(line)
+    return "\n".join(out)
+
+
+def mesh_inputs(torch, engines):
+    """What phase 20's ranks and references take: the SQL prompts, the
+    pool's pages (MESH_KV_GB of the whole 7B's KV), the stop ids and the
+    ring's 2048-token prompt (seed 7)."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        pages_for_budget,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    e7, e3 = engines["duckdb-nsql"], engines["llama3.2"]
+    g = torch.Generator().manual_seed(7)
+    ring = torch.randint(3, e7.cfg.vocab_size, (MESH_RING_T,), generator=g)
+    return {"prompts": mesh_prompts(ByteTokenizer()),
+            "pages": pages_for_budget(e7.cfg, MESH_KV_GB * 2**30, MESH_PAGE),
+            "stop7": list(e7.stop_ids), "stop3": list(e3.stop_ids),
+            "ring_prompt": ring.tolist()}
+
+
+def mesh_references(torch, engines, inp):
+    """Phase 20's tp=1 side, in this process: (a) a lone paged scheduler of
+    the 7B weights with the mesh's pool, six requests at once then two in
+    turn; (b) the 3B int4 engine over a bf16 and an int8 cache; (c) the 7B
+    prefill of the 2048-token prompt and 16 greedy decode steps. Returns
+    what the ranks are held to."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import init_cache
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_params_int4,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+
+    e7, e3 = engines["duckdb-nsql"], engines["llama3.2"]
+    cfg7 = e7.cfg
+    prompts, pages = inp["prompts"], inp["pages"]
+    ref = {}
+    t0 = time.perf_counter()
+    with ContinuousBatchingScheduler(cfg7, e7.params, num_slots=MESH_SLOTS,
+                                     decode_chunk=8, kv_layout="paged",
+                                     kv_page_size=MESH_PAGE, kv_pages=pages,
+                                     stop_ids=e7.stop_ids, device="cuda") as s:
+        futs = [s.submit(p, max_new_tokens=MAX_NEW) for p in prompts[:6]]
+        want = [f.result(timeout=300) for f in futs]
+        want += [s.submit(p, max_new_tokens=MAX_NEW).result(timeout=300)
+                 for p in prompts[6:]]
+    ref["a"] = want
+    print(f"  (a) tp=1 paged scheduler, {pages} pages of {MESH_PAGE} "
+          f"({MESH_KV_GB} GiB): {sum(map(len, want))} tokens in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    q4 = quantize_params_int4(e3.params)
+    b_prompts = prompts[:MESH_B_PROMPTS]
+    ref["b"] = {}
+    for kvq in (None, "int8"):
+        eng = InferenceEngine(e3.cfg, q4, stop_ids=e3.stop_ids, device="cuda",
+                              kv_quant=kvq)
+        ref["b"][str(kvq)] = eng.generate(b_prompts, max_new_tokens=MAX_NEW)
+    ring = torch.tensor([inp["ring_prompt"]], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        cache = init_cache(cfg7, 1, MESH_RING_T + MESH_RING_DECODE,
+                           dtype=torch.bfloat16, device="cuda")
+        pos = torch.arange(MESH_RING_T, dtype=torch.int32, device="cuda")[None]
+        logits, cache = forward(cfg7, e7.params, ring, pos, cache,
+                                logit_indices=torch.tensor([MESH_RING_T - 1],
+                                                           device="cuda"))
+        ref["ring_logits"] = logits[0, 0].float().cpu()
+        toks, cur = [], logits[0, 0].argmax().int()
+        for i in range(MESH_RING_DECODE):
+            toks.append(int(cur))
+            p = torch.tensor([[MESH_RING_T + i]], dtype=torch.int32, device="cuda")
+            logits, cache = forward(cfg7, e7.params, cur.view(1, 1), p, cache)
+            cur = logits[0, 0].argmax().int()
+        ref["ring_tokens"] = toks
+    del cache
+    return ref, q4
+
+
+def start_ranks(torch, root, argv_extra=()):
+    """The two rank processes of phase 20, both on cuda:0, joined over a
+    localhost coordinator; their output goes to files under `root`."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, LSOT_COORDINATOR=f"127.0.0.1:{port}",
+                   LSOT_NUM_PROCESSES="2", LSOT_PROCESS_ID=str(rank),
+                   LSOT_MESH_ROOT=root)
+        log = open(os.path.join(root, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(rank),
+             *argv_extra], env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_ranks(procs, root):
+    """Wait for both ranks; a failed or stuck rank fails the phase with the
+    tail of its log."""
+    deadline = time.time() + MESH_TIMEOUT_S
+    for p, log in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            for q, _ in procs:
+                q.kill()
+                q.wait()
+        log.close()
+    for rank, (p, _) in enumerate(procs):
+        with open(os.path.join(root, f"rank{rank}.log")) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith("  ") or line.startswith("mesh "):
+                print(f"  [rank {rank}] {line.strip()}", flush=True)
+        assert p.returncode == 0, f"mesh rank {rank} failed ({p.returncode}):\n{text[-4000:]}"
+    out = []
+    for rank in range(2):
+        with open(os.path.join(root, f"rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_serve(torch, engines, smi, hf_dir=None):
+    """Phase 20: tensor and sequence parallelism on two ranks, both
+    processes on cuda:0 over gloo (NCCL refuses two ranks on one card), so
+    every collective stages through host memory. While the ranks run
+    (a)-(d) (`mesh_rank`), this process computes the tp=1 references
+    (`mesh_references`), then runs (d)'s runbook as one command twice
+    (convert, then restore) when phase 10's HF directory is given, whose
+    cache (d)'s ranks restore; then it holds the ranks' results and launch
+    counts to the references. Returns (launches by path, numbers)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # three more processes share the card
+    print(f"  this process: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
+    root = tempfile.mkdtemp(prefix="lsot-mesh-")
+    try:
+        inp = mesh_inputs(torch, engines)
+        inp["hf_dir"] = hf_dir
+        torch.save(inp, os.path.join(root, "inputs.pt"))
+        numbers = {"device": smi}
+        # The ranks run while this process computes the references (done
+        # before the ranks load (c)'s two whole 7B trees) and then runs
+        # (d)'s tp=1 commands, whose cache (d)'s ranks restore.
+        t0 = time.perf_counter()
+        procs = start_ranks(torch, root)
+        try:
+            ref, q4 = mesh_references(torch, engines, inp)
+            ref.update(inp)
+            gc.collect()
+            torch.cuda.empty_cache()  # (c)'s ranks need what the references freed
+            try:
+                if hf_dir is not None:
+                    numbers["runbook_tp1"] = mesh_runbook_cli(torch, hf_dir, root)
+            finally:
+                open(os.path.join(root, "runbook.done"), "w").close()
+            ranks = wait_ranks(procs, root)
+        finally:
+            for p, _ in procs:  # stop a rank left running by a failure here
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        numbers["ranks_s"] = round(time.perf_counter() - t0, 1)
+        r0, r1 = ranks
+        e7, e3 = engines["duckdb-nsql"], engines["llama3.2"]
+        bounds, div = {}, []
+        # (a) every stream equals the lone tp=1 scheduler's, or diverges at a
+        # near-tie within twice the 7B bf16 top-id drift.
+        div += fleet_compare(torch, "mesh_tp2_scheduler", e7.cfg, e7.params, e7.stop_ids,
+                             ref["prompts"], r0["a"]["streams"], ref["a"], bounds)
+        # (b) greedy tokens of the tp=2 int4 engine against tp=1's.
+        for kvq in ("None", "int8"):
+            div += fleet_compare(torch, f"mesh_tp2_3b_int4_kv{kvq}", e3.cfg, q4,
+                                 e3.stop_ids, ref["prompts"][:MESH_B_PROMPTS],
+                                 r0["b"][kvq], ref["b"][kvq], bounds,
+                                 kv_quant=None if kvq == "None" else "int8")
+            assert r1["b"][kvq] == r0["b"][kvq], f"(b) ranks disagree, kv {kvq}"
+        # (c) ring prefill logits within LOGIT_TOL of the tp=1 flash prefill;
+        # decode tokens equal or near-ties.
+        want = ref["ring_logits"]
+        rel = max(((torch.load(os.path.join(root, f"ring{r}.pt")) - want).abs().max()
+                   / want.abs().max()).item() for r in range(2))
+        print(f"  (c) ring prefill logits vs the tp=1 flash prefill: max |diff| / "
+              f"max |logit| {rel:.3e} (tol {LOGIT_TOL:.0e})", flush=True)
+        assert rel <= LOGIT_TOL, f"(c) ring prefill logits: {rel} > {LOGIT_TOL}"
+        div += fleet_compare(torch, "mesh_sp2_ring", e7.cfg, e7.params, e7.stop_ids,
+                             [ref["ring_prompt"]], [r0["c"]["tokens"]],
+                             [ref["ring_tokens"]], bounds)
+        assert r1["c"]["tokens"] == r0["c"]["tokens"], "(c) ranks disagree"
+        numbers.update(
+            a={"streams": len(ref["a"]), "tokens": sum(map(len, r0["a"]["streams"])),
+               "equal": sum(a == b for a, b in zip(r0["a"]["streams"], ref["a"])),
+               "seconds": r0["a"]["seconds"], "pages": ref["pages"]},
+            b={kvq: {"equal": sum(a == b for a, b in zip(r0["b"][kvq], ref["b"][kvq])),
+                     "seconds": r0["b"]["seconds"][kvq]} for kvq in ("None", "int8")},
+            c={"prefill_rel_err": rel, "prefill_s": r0["c"]["prefill_s"],
+               "decode_s": r0["c"]["decode_s"],
+               "tokens_equal": r0["c"]["tokens"] == ref["ring_tokens"]},
+            d=r0.get("d"), kernels_per_rank=r0["kernels"], divergences=div,
+            staged=r0["staged"])
+        launches = {}
+        for rank, r in enumerate(ranks):
+            for path, counts in r["launches"].items():
+                launches[f"{path}_rank{rank}"] = counts
+        numbers["seconds"] = round(time.perf_counter() - t_phase, 1)
+        print(f"  phase 20: {json.dumps(numbers)}", flush=True)
+        return launches, numbers
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mesh_runbook_cli(torch, hf_dir, root):
+    """(d), tp=1: `python -m ...runbook` as one command over phase 10's
+    4-layer 7B HF directory, twice: the first run converts and fills the
+    cache, the second restores it; the two reports are equal apart from
+    wall-clock fields."""
+    cache = os.path.join(root, "runbook-cache")
+    texts, logs = [], []
+    for i in range(2):
+        out = os.path.join(root, f"runbook{i}.md")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.runbook", "--sql-model", hf_dir,
+             "--cache-dir", cache, "--limit-cases", "1", "--max-new-tokens",
+             str(MESH_NEW), "-o", out],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        assert proc.returncode == 0, f"runbook run {i}: {proc.stderr[-3000:]}"
+        logs.append(proc.stdout + proc.stderr)
+        with open(out) as f:
+            texts.append(f.read())
+        print(f"  (d) runbook run {i + 1}: {time.perf_counter() - t0:.1f} s", flush=True)
+    assert "converted + cached" in logs[0], logs[0][-2000:]
+    assert "restored native cache" in logs[1], logs[1][-2000:]
+    assert "Four-query suite" in texts[0] and mesh_norm(texts[0]) == mesh_norm(texts[1])
+    return {"reports_equal": True, "cache": cache}
+
+
+def rank_kernel_checks(torch, part):
+    """Rows of PERF.md's table at the per-rank shapes of phase 20 against
+    their plain versions: (a) the 7B's 16 heads a rank, row 1 (the flash
+    prefill at the scheduler's chunk), row 4 (the paged decode) and row 6
+    (the page write); (b) the 3B's 12 query and 4 KV heads a rank (G = 3),
+    rows 2 and 3 (the decode over a bf16 and an int8 cache) and row 8 (the
+    int4 product at the row-parallel wd's half contraction and at the
+    column-parallel halves). Returns the worst error per row."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        attention as attn_mod,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        int4mm as mm_mod,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        paged_attention as pa_mod,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        paged_write as pw_mod,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_weight_int4,
+        tp_safe_group,
+    )
+
+    bf16 = torch.bfloat16
+    tol = TOL["bfloat16"]
+    worst = {}
+
+    def note(row, label, err, limit):
+        print(f"  {row:8s} {label:28s} max_err={err:.3e} tol={limit:.0e} "
+              f"{'ok' if err <= limit else 'FAIL'}", flush=True)
+        assert err <= limit, f"{row}/{label}: {err} > {limit}"
+        worst[row] = max(worst.get(row, 0.0), err)
+
+    def run(starts, t):
+        return [[st + i for i in range(t)] for st in starts]
+
+    if part == "a":
+        c = make_case(torch, bf16, b=6, t=128, n=16, kh=16, h=128, s=512,
+                      positions=run([0, 128, 256, 0, 208, 384], 128), nan_dead=True)
+        args = (c["q"], c["k"], c["v"], c["pos"], c["window"], c["kv_lens"])
+        out = attn_mod.flash_gqa_attention_cuda(*args)
+        ref = attn_mod.flash_gqa_attention_plain(*args)
+        note("row1", "prefill 7b/tp2 b6 t128 s512", (out.float() - ref.float()).abs().max().item(), tol)
+        rows = [(p, 1, p + 1) for p in (318, 357, 390, 412, 444, 1000, 64, 5)]
+        args = paged_case(torch, bf16, b=8, t=1, n=16, kh=16, h=128, ps=64,
+                          np_tab=16, rows=rows)
+        out = pa_mod.ragged_paged_attention_cuda(*args)
+        ref = pa_mod.ragged_paged_attention_plain(*args)
+        note("row4", "paged decode 7b/tp2 b8", (out.float() - ref.float()).abs().max().item(), tol)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        shape = (2, 160, 16, 64, 128)
+        kk = torch.randn(shape, generator=g, device="cuda", dtype=bf16)
+        vk = torch.randn(shape, generator=g, device="cuda", dtype=bf16)
+        kr, vr = kk.clone(), vk.clone()
+        k_new, v_new, pos, tab, q_lens = write_case(torch, "7b_tp2_t1_b8", 16, 128, 64,
+                                                    8, 1, 16, 160, bf16, g)
+        pw_mod.fused_page_write_cuda(kk, vk, k_new, v_new, pos, tab, 1, q_lens)
+        pw_mod.fused_page_write_plain(kr, vr, k_new, v_new, pos, tab, 1, q_lens)
+        torch.cuda.synchronize()
+        same = torch.equal(kk, kr) and torch.equal(vk, vr)
+        note("row6", "page write 7b/tp2 b8 (bit-exact)", 0.0 if same else 1.0, 0.0)
+        return worst
+    for label, kw in (("decode 3b/tp2 G=3 b4", dict(b=4, t=1, n=12, kh=4, h=128, s=448,
+                                                     positions=[[130], [200], [260], [383]])),
+                      ("decode 3b/tp2 G=3 contig b8", dict(
+                          b=8, t=1, n=12, kh=4, h=128, s=1024,
+                          positions=[[317], [356], [389], [411], [443], [999], [1023], [1023]],
+                          kv_lens=[318, 357, 390, 412, 444, 1000, 0, 0], nan_dead=True))):
+        c = make_case(torch, bf16, **kw)
+        args = (c["q"], c["k"], c["v"], c["pos"], c["window"], c["kv_lens"])
+        out = attn_mod.flash_gqa_attention_cuda(*args)
+        ref = attn_mod.flash_gqa_attention_plain(*args)
+        note("row2", label, (out.float() - ref.float()).abs().max().item(), tol)
+        k8, ks = quantize(torch, c["k"])
+        v8, vs = quantize(torch, c["v"])
+        args = (c["q"], k8, ks, v8, vs, c["pos"], c["window"], c["kv_lens"])
+        out = attn_mod.flash_gqa_attention_quantized_cuda(*args)
+        ref = attn_mod.flash_gqa_attention_quantized_plain(*args)
+        note("row3", label, (out.float() - ref.float()).abs().max().item(), tol)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for name, n_full, n_in, n_out in (("wd row half", 8192, 4096, 3072),
+                                      ("wq col half", 3072, 3072, 1536),
+                                      ("wg col half", 3072, 3072, 4096)):
+        w = quantize_weight_int4(torch.randn((n_in, n_out), generator=g, device="cuda")
+                                 * n_full ** -0.5, tp_safe_group(n_full))
+        for rows in (1, 8, 384):
+            x = torch.randn((rows, n_in), generator=g, device="cuda").to(bf16)
+            out = mm_mod.int4_matmul_cuda(x, w["q4"], w["s4"])
+            ref = mm_mod.int4_matmul_plain(x, w["q4"], w["s4"])
+            rel = (out.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+            note("row8", f"int4 3b/tp2 {name} R={rows}", rel, INT4_TOL["bfloat16"])
+    return worst
+
+
+def _launch_snapshot():
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.launches import (
+        LAUNCHES,
+    )
+
+    return dict(LAUNCHES)
+
+
+def mesh_rank(rank) -> int:
+    """One rank of phase 20 (a process `mesh_serve` starts): joins the group
+    from LSOT_COORDINATOR, runs (a)-(d) on its shard, and writes its checks
+    and launch counts to LSOT_MESH_ROOT/rank{rank}.json."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(MESH_TIMEOUT_S - 30, exit=True)
+    import torch
+
+    from llm_based_apache_spark_optimization_tpu_torch.models import (
+        DUCKDB_NSQL_7B,
+        LLAMA32_3B,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.common import broadcast_object
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.launches import (
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        spmd,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.environ["LSOT_MESH_ROOT"]
+    ref = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+    assert init_distributed()
+    mesh = make_mesh(tp=2, devices=["cuda:0", "cuda:0"])
+    print(f"  {mesh.describe()}", flush=True)
+    assert mesh.backend == "gloo" and mesh.staged
+    out = {"staged": mesh.describe(), "launches": {}, "kernels": {}}
+    inf = torch.inference_mode()
+
+    # (a) tp=2 7B bf16 paged scheduler: rank 0 submits, rank 1 follows.
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+
+    out["kernels"].update(rank_kernel_checks(torch, "a"))
+    with inf:
+        params = init_params(DUCKDB_NSQL_7B, torch.Generator(device="cuda").manual_seed(0),
+                             torch.bfloat16, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    sched = ContinuousBatchingScheduler(
+        DUCKDB_NSQL_7B, params, num_slots=MESH_SLOTS, decode_chunk=8, kv_layout="paged",
+        kv_page_size=MESH_PAGE, kv_pages=ref["pages"], stop_ids=ref["stop7"], mesh=mesh)
+    with sched:
+        if mesh.is_primary:
+            futs = [sched.submit(p, max_new_tokens=MAX_NEW) for p in ref["prompts"][:6]]
+            streams = [f.result(timeout=300) for f in futs]
+            streams += [sched.submit(p, max_new_tokens=MAX_NEW).result(timeout=300)
+                        for p in ref["prompts"][6:]]
+    torch.cuda.synchronize()
+    seconds = round(time.perf_counter() - t0, 2)
+    got = _launch_snapshot()
+    expected = None
+    if mesh.is_primary:
+        expected = dict.fromkeys(got, 0)
+        expect_paged(expected, sched, sched.rounds_issued, sched.prefill_forwards)
+        out["a"] = {"streams": streams, "seconds": seconds}
+    expected = broadcast_object(expected, mesh)
+    assert got == expected, f"(a) rank {rank}: launches {got} != {expected}"
+    out["launches"]["mesh_tp2_scheduler"] = got
+    print(f"  (a) rank {rank}: launches equal the expected {expected} in {seconds} s",
+          flush=True)
+    del sched, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) tp=2 3B int4 engine (12 query and 4 KV heads a rank), SPMD.
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
+        quantize_params_int4,
+    )
+
+    out["kernels"].update(rank_kernel_checks(torch, "b"))
+    with inf:
+        q4 = quantize_params_int4(init_params(
+            LLAMA32_3B, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+            mesh=mesh), mesh=mesh)
+    out["b"] = {"seconds": {}}
+    for kvq in (None, "int8"):
+        reset_launches()
+        eng = InferenceEngine(LLAMA32_3B, q4, stop_ids=ref["stop3"], kv_quant=kvq,
+                              mesh=mesh)
+        t0 = time.perf_counter()
+        toks = eng.generate(ref["prompts"][:MESH_B_PROMPTS], max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+        out["b"]["seconds"][str(kvq)] = round(time.perf_counter() - t0, 2)
+        out["b"][str(kvq)] = toks
+        got = _launch_snapshot()
+        f, L = eng.last_stats["forward_calls"], LLAMA32_3B.num_layers
+        want = dict.fromkeys(got, 0)
+        want["flash_gqa_prefill"] = L
+        want["flash_gqa_decode_quantized" if kvq else "flash_gqa_decode"] = L * (f - 1)
+        want["int4_matmul"] = 7 * L * f
+        assert got == want, f"(b) rank {rank} kv {kvq}: launches {got} != {want}"
+        out["launches"][f"mesh_tp2_3b_int4_kv{kvq}"] = got
+    del q4, eng
+    # Drop (a)'s mesh: its recipes hold this rank's 7B block for a rebuild.
+    spmd.close(mesh)
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) sp=2 ring prefill of one 2048-token prompt on the 7B, then decode
+    # steps on the sp-sharded cache through the sp combine.
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import init_cache
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+
+    smesh = make_mesh(sp=2, devices=["cuda:0", "cuda:0"])
+    with inf:
+        params = init_params(DUCKDB_NSQL_7B, torch.Generator(device="cuda").manual_seed(0),
+                             torch.bfloat16, device="cuda")
+        s_total = MESH_RING_T + MESH_RING_DECODE
+        cache = init_cache(DUCKDB_NSQL_7B, 1, -(-(s_total + -s_total % 8) // 2),
+                           dtype=torch.bfloat16, device="cuda")
+        toks = torch.tensor([ref["ring_prompt"]], dtype=torch.int32, device="cuda")
+        pos = torch.arange(MESH_RING_T, dtype=torch.int32, device="cuda")[None]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = forward(DUCKDB_NSQL_7B, params, toks, pos, cache,
+                                logit_indices=torch.tensor([MESH_RING_T - 1], device="cuda"),
+                                mesh=smesh, attn_impl="ring")
+        torch.cuda.synchronize()
+        prefill_s = round(time.perf_counter() - t0, 2)
+        torch.save(logits[0, 0].float().cpu(), os.path.join(root, f"ring{rank}.pt"))
+        cur, stream = logits[0, 0].argmax().int(), []
+        t0 = time.perf_counter()
+        for i in range(MESH_RING_DECODE):
+            stream.append(int(cur))
+            p = torch.tensor([[MESH_RING_T + i]], dtype=torch.int32, device="cuda")
+            logits, cache = forward(DUCKDB_NSQL_7B, params, cur.view(1, 1), p, cache,
+                                    mesh=smesh)
+            cur = logits[0, 0].argmax().int()
+        torch.cuda.synchronize()
+        got = _launch_snapshot()
+    assert not any(got.values()), f"(c): the sp path launched kernels {got}"
+    out["c"] = {"tokens": stream, "prefill_s": prefill_s,
+                "decode_s": round(time.perf_counter() - t0, 2)}
+    out["launches"]["mesh_sp2_ring"] = got
+    print(f"  (c) rank {rank}: ring prefill of {MESH_RING_T} tokens in {prefill_s} s; "
+          f"{MESH_RING_DECODE} sp decode steps", flush=True)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    spmd.close(smesh)
+
+    # (d) the runbook's build_service at tp=2 over (a)'s two-rank layout,
+    # restoring each rank's block from the cache (d)'s tp=1 runs filled.
+    mesh = make_mesh(tp=2, devices=["cuda:0", "cuda:0"])
+    if ref.get("hf_dir"):
+        from llm_based_apache_spark_optimization_tpu_torch import runbook
+
+        # The main process's tp=1 commands fill the cache first.
+        while not os.path.exists(os.path.join(root, "runbook.done")):
+            time.sleep(0.5)
+        from llm_based_apache_spark_optimization_tpu_torch.evalh import report
+
+        args = runbook.build_parser().parse_args(
+            ["--sql-model", ref["hf_dir"], "--cache-dir",
+             os.path.join(root, "runbook-cache"), "--tp", "2", "--limit-cases", "1",
+             "--max-new-tokens", str(MESH_NEW)])
+        reset_launches()
+        svc = runbook.build_service(args, mesh=mesh)
+        if mesh.is_primary:
+            spmd.drive(mesh)
+            text = report.generate(svc, backend_desc="runbook tp=2 (phase 20 (d))",
+                                   max_new_tokens=MESH_NEW, quality_meaningful=True,
+                                   service_mesh="tp=2", limit_cases=1,
+                                   with_configs=False)
+            svc.close()
+            assert "Four-query suite" in text
+            out["d"] = {"report_lines": len(text.splitlines())}
+        spmd.close(mesh)
+        torch.cuda.synchronize()
+        got = _launch_snapshot()
+        assert got["flash_gqa_prefill"] > 0 and got["flash_gqa_decode"] > 0, got
+        out["launches"]["mesh_tp2_runbook"] = got
+    else:
+        spmd.close(mesh)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -8532,6 +9155,12 @@ def main() -> int:
                          "their numbers and no ok line)")
     ap.add_argument("--remote-worker", default="", choices=["", "prefill", "decode", "mixed"],
                     help=argparse.SUPPRESS)  # one worker process of phases 18-19
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # one rank process of phase 20
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build and run phase 20 alone: tp=2 and sp=2 on two ranks of "
+                         "one card over the 7B and 3B weights, and the runbook over a "
+                         "4-layer 7B HF directory (prints its numbers and no ok line)")
     ap.add_argument("--int8-only", action="store_true",
                     help="build and run phase 14's kernel parts alone: the int8 matmul "
                          "and row 8 at the stacked widths against their plain versions, "
@@ -8540,6 +9169,9 @@ def main() -> int:
     if args.remote_worker:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return remote_worker(args.remote_worker)
+    if args.mesh_rank is not None:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return mesh_rank(args.mesh_rank)
 
     import torch
 
@@ -8692,6 +9324,24 @@ def main() -> int:
         print(json.dumps({"elastic": elastic, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.mesh_only:
+        from llm_based_apache_spark_optimization_tpu_torch.models import LLAMA32_3B
+
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),
+                                       ("llama3.2", LLAMA32_3B)))
+        phase("meshes, phase 20: tp=2 and sp=2 on two ranks of cuda:0, the runbook")
+        import shutil
+        import tempfile
+
+        root = tempfile.mkdtemp(prefix="lsot-mesh-hf-")
+        try:
+            _, mesh_numbers = mesh_serve(torch, engines, smi, mesh_hf_dir(engines, root))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        phase(None)
+        print(json.dumps({"mesh": mesh_numbers, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.disagg_only:
         engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
         phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
@@ -8808,7 +9458,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     tally.summary()
 
-    ckpt_launches = checkpoints(torch, engines)
+    mesh_out = {}
+
+    def phase20(hf_dir):
+        phase("meshes, phase 20: tp=2 and sp=2 on two ranks of cuda:0 (gloo), the runbook "
+              "at tp=1 and tp=2")
+        mesh_out["launches"], mesh_out["numbers"] = mesh_serve(torch, engines, smi, hf_dir)
+
+    ckpt_launches = checkpoints(torch, engines, after_hf=phase20)
+    if not mesh_out:  # no tokenizers package: phase 20 without the runbook's (d)
+        phase20(None)
 
     phase("timing")
     assert engines["duckdb-nsql"].cfg == DUCKDB_NSQL_7B
@@ -8861,7 +9520,7 @@ def main() -> int:
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
              "fleet_pool": fleet_launches, **disagg_launches, **remote_launches,
-             **elastic_launches,
+             **elastic_launches, **mesh_out["launches"],
              **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
@@ -8911,6 +9570,11 @@ def main() -> int:
         if launch in verify:
             # The speculative verify round's shapes (D = 8, T = 9).
             entry["verify_d8"] = verify[launch]
+        if launch in MESH_ROWS:
+            # Phase 20: the row held against its plain version at the
+            # per-rank shapes of the tp=2 meshes, on each rank.
+            entry["mesh_per_rank_max_err"] = mesh_out["numbers"]["kernels_per_rank"][
+                MESH_ROWS[launch]]
         if launch.endswith("_window"):
             # bf16 only: f32 windows run the tile kernel, recorded apart.
             entry["max_row_rel_err_by_dtype"] = errors[launch + "_rel"]
@@ -8933,6 +9597,7 @@ def main() -> int:
     print(json.dumps({"remote": {**remote_numbers, "cli": _REMOTE.get("cli")},
                       "device": smi}))
     print(json.dumps({"elastic": elastic, "device": smi}))
+    print(json.dumps({"mesh": mesh_out["numbers"], "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

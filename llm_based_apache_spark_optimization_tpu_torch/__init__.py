@@ -23,8 +23,11 @@ Subpackages (bottom-up):
   sql/         CSV -> temp_view -> SQL execution (SQLite, Spark)
   history/     query-results history store
   utils/       fault injection, request tracing, counters
+  parallel/    meshes over torch.distributed (one process a rank), the
+               sharding rules, the step channel rank 0 drives the others by
   app/         the studio's web UI and JSON API, and its entry point
                (`python -m llm_based_apache_spark_optimization_tpu_torch.app`)
+  runbook.py   weights in, comparison report out, in one command
   convert.py   JAX params tree (as numpy) -> this package's params
 
 Entry points take an explicit `device`. They default to CUDA and raise when

@@ -71,10 +71,17 @@ the autoscaler runs on this pool alone, and elsewhere the knobs are read and
 have no effect.
 
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
-CPU (the kernels' plain versions). It refuses, naming the ROADMAP item,
-every option it cannot honor yet, instead of ignoring it: `--sp`/`--tp` > 1
-and `--dp` > 1 without `--scheduler` (A13), and the environment knob of
-`UNPORTED_KNOBS`, the bench seed (A12's bench).
+CPU (the kernels' plain versions). `--tp`/`--sp` > 1, and `--dp` > 1
+without `--scheduler` (the engine's dp mesh), serve the tiny or checkpoint
+models on a mesh of dp*sp*tp ranks (parallel/): the command starts the
+other ranks itself (parallel/launch.py), every rank loads its own block of
+the weights, rank 0 serves HTTP and drives, and the others follow its
+device steps. One rank a card over NCCL, or LSOT_MESH_DEVICES to place
+ranks (two on one card run over gloo, staged through host memory). It
+refuses, naming the ROADMAP item, every option it cannot honor yet, instead
+of ignoring it: a mesh beside `--dp N --scheduler` or `LSOT_MODELS`
+(A13.4), and the environment knob of `UNPORTED_KNOBS`, the bench seed
+(A12's bench).
 
 `make_oracle_service` answers every eval case with its expected SQL: the
 eval harness's self-proof (`python -m ...evalh --backend oracle` reads
@@ -138,16 +145,33 @@ def _spill_path(cfg: AppConfig, tag: str) -> Optional[str]:
 
 
 
+def mesh_ranks(args, cfg: AppConfig) -> int:
+    """Ranks of the mesh the flags ask for: dp*sp*tp for the tiny and
+    checkpoint models, 1 (no mesh) for the fake backend and for the `--dp N
+    --scheduler` replica pool at `--tp 1`. Raises on a combination the port
+    cannot shard yet, as JAX exits on `--scheduler` with sp."""
+    n = args.dp * args.sp * args.tp
+    if n == 1 or args.backend == "fake":
+        return 1
+    if args.scheduler and args.sp > 1:
+        sys.exit("--scheduler has no sp axis (decode's T=1 has no sequence "
+                 "to shard); use sp with --no-scheduler")
+    if args.scheduler and args.dp > 1:
+        if args.tp == 1:
+            return 1  # the replica pool, one scheduler a card
+        raise NotImplementedError(
+            "--dp N --scheduler with --tp > 1 (a replica pool of tp meshes) "
+            "is not ported: ROADMAP A13.4")
+    if cfg.models:
+        raise NotImplementedError("LSOT_MODELS on a mesh is not ported: "
+                                  "ROADMAP A13.4")
+    return n
+
+
 def refuse_unported(args, cfg: AppConfig) -> None:
-    """Raise on the first option or knob the port cannot honor: meshes
-    (`--sp`/`--tp` > 1, and `--dp` > 1 without `--scheduler`, the engine's
-    dp mesh) and the knobs of `UNPORTED_KNOBS`."""
-    if args.sp > 1 or args.tp > 1:
-        raise NotImplementedError("--sp/--tp > 1 is not ported: ROADMAP A13 "
-                                  "(parallelism)")
-    if args.dp > 1 and not args.scheduler:
-        raise NotImplementedError("--dp > 1 without --scheduler (the engine's dp "
-                                  "mesh) is not ported: ROADMAP A13 (parallelism)")
+    """Raise on the first option or knob the port cannot honor: the mesh
+    combinations of `mesh_ranks` and the knobs of `UNPORTED_KNOBS`."""
+    mesh_ranks(args, cfg)
     defaults = AppConfig()
     for name, item in UNPORTED_KNOBS.items():
         if getattr(cfg, name) != getattr(defaults, name):
@@ -221,15 +245,16 @@ def refuse_dp_pool(args, cfg: AppConfig) -> None:
     slots counted; under `--cpu` every local replica on the CPU), the
     checkpoint backend, `LSOT_POOL_PHASES` and `LSOT_POOL_REMOTE` only on
     such a pool, and the remote entries (`LSOT_MODELS` is refused beside
-    them later, as in JAX)."""
-    if args.dp > 1 and not args.cpu:
+    them later, as in JAX). `--dp` without `--scheduler` is the engine's dp
+    mesh (`mesh_ranks`), not a pool."""
+    if args.dp > 1 and args.scheduler and not args.cpu:
         import torch
 
         found = torch.cuda.device_count()
         if found < args.dp * args.tp:
             sys.exit(f"--dp {args.dp} --tp {args.tp} needs {args.dp * args.tp} "
                      f"devices, found {found}")
-    if args.dp > 1 and args.backend != "checkpoint":
+    if args.dp > 1 and args.scheduler and args.backend != "checkpoint":
         sys.exit("--dp N --scheduler builds a replica pool over --backend "
                  "checkpoint (the tiny and fake backends serve one scheduler a "
                  "model)")
@@ -366,6 +391,7 @@ def make_tiny_service(
     supervise: bool = True,
     app_cfg: Optional[AppConfig] = None,
     speculative: int = 0,
+    mesh=None,
 ) -> GenerationService:
     """The JAX entry point's tiny service: TINY widened to a 2048-token
     context (`tiny-demo`), served as `duckdb-nsql` and `llama3.2`, and a
@@ -379,7 +405,11 @@ def make_tiny_service(
     > 0 verifies that many prompt-lookup drafts a round. With
     `supervise` (the default, as in the JAX entry point) each scheduler
     runs under the crash supervisor with `app_cfg`'s knobs (default: the
-    environment's)."""
+    environment's). With a `mesh` the head counts widen to tp where they
+    fall short (as JAX's tiny service does), every rank makes the same
+    weights and keeps its block, and the other ranks' schedulers follow
+    rank 0's (unsupervised there: rank 0's supervisor rebuilds on every
+    rank)."""
     import torch
 
     from .. import resolve_device
@@ -391,10 +421,15 @@ def make_tiny_service(
     from ..serve.supervisor import SupervisedScheduler
     from ..tokenizer import ByteTokenizer
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     cfg = dataclasses.replace(TINY, name="tiny-demo", max_seq_len=2048)
     if dev.type == "cuda":
         cfg = dataclasses.replace(cfg, head_dim=64)
+    if mesh is not None and mesh.shape["tp"] > 1:
+        tp = mesh.shape["tp"]
+        cfg = dataclasses.replace(cfg, name=f"tiny-demo-tp{tp}",
+                                  num_heads=max(cfg.num_heads, tp),
+                                  num_kv_heads=max(cfg.num_kv_heads, tp))
     mistral_cfg = dataclasses.replace(cfg, name=cfg.name + "-swa", sliding_window=32)
     if weights is None:
         weights = tuple(
@@ -420,7 +455,7 @@ def make_tiny_service(
                     mcfg, mparams, num_slots=num_slots, prompt_bucket=64,
                     kv_layout=kv_layout, kv_quant=kv_quant,
                     max_queue_depth=app_cfg.max_queue_depth,
-                    speculative_draft=speculative, device=dev,
+                    speculative_draft=speculative, device=dev, mesh=mesh,
                     **scheduler_qos(app_cfg))
 
             # The factory closes over the loaded params: a restart
@@ -430,13 +465,13 @@ def make_tiny_service(
                 spill_path=_spill_path(app_cfg, name),
                 stall_factor=app_cfg.stall_factor, stall_min_s=app_cfg.stall_min_s,
                 warmup_grace_s=app_cfg.stall_warmup_s, name=f"scheduler:{name}")
-                if supervise else make_sched())
+                if supervise and (mesh is None or mesh.is_primary) else make_sched())
             backend = SchedulerBackend(sched, tok, max_new_tokens=max_new_tokens,
                                        deadline_s=deadline_s)
         else:
             eng = InferenceEngine(mcfg, mparams, stop_ids=(mcfg.eos_id,),
                                   prompt_bucket=64, device=dev, kv_quant=kv_quant,
-                                  speculative_draft=speculative)
+                                  speculative_draft=speculative, mesh=mesh)
             backend = EngineBackend(eng, tok, max_new_tokens=max_new_tokens)
         svc.register(name, backend, template=template)
     return svc
@@ -466,14 +501,15 @@ def refuse_int8_speculation(args, cfg: AppConfig) -> None:
 
 
 def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
-                            device=None) -> GenerationService:
+                            device=None, mesh=None) -> GenerationService:
     """Real weights: duckdb-nsql (NL->SQL) and llama3.2 (error analysis)
     from HF safetensors directories or GGUF blobs, each behind a
     continuous-batching scheduler (supervised by default) or, with
     `--no-scheduler`, a lock-serialised engine. The JAX entry point's
     single-checkpoint branch (`LSOT_MODELS` takes
     `make_multimodel_checkpoint_service`). With `--dp N` each model is a
-    replica pool (`make_dp_pool_backend`)."""
+    replica pool (`make_dp_pool_backend`). With a `mesh` each rank loads
+    its own block of every model straight from the checkpoint."""
     from ..serve.factory import assemble_reference_service
     from ..serve.scheduler import SchedulerBackend
     from ..tokenizer import HFTokenizer
@@ -506,7 +542,7 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
                 journal_spill=_spill_path(cfg, src),
                 stall_factor=cfg.stall_factor, stall_min_s=cfg.stall_min_s,
                 stall_warmup_s=cfg.stall_warmup_s,
-                speculative_draft=args.speculative, device=device,
+                speculative_draft=args.speculative, device=device, mesh=mesh,
                 **scheduler_qos(cfg))
             if args.kv_hbm_gb:
                 common["kv_hbm_budget_bytes"] = int(args.kv_hbm_gb * 2**30)
@@ -519,7 +555,7 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
                     kv_quant=kv_quant, quantize_int8=args.int8,
                     quantize_int4=args.int4,
                     quantize_unembed8=args.int8_unembed, device=device,
-                    speculative_draft=args.speculative,
+                    speculative_draft=args.speculative, mesh=mesh,
                     sec_per_tok_seed=cfg.stok_seed or None)
 
     return assemble_reference_service(
@@ -708,9 +744,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --scheduler and --backend checkpoint: that many "
                          "scheduler replicas behind one pool, replica i on cuda:i "
                          "(LSOT_POOL_PHASES gives their phase roles); without "
-                         "--scheduler > 1 raises (ROADMAP A13)")
-    ap.add_argument("--sp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
-    ap.add_argument("--tp", type=int, default=1, help="> 1 raises (ROADMAP A13)")
+                         "--scheduler: the engine's batch rows over dp ranks")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence parallelism (--no-scheduler): ring-attention "
+                         "prefill, cache slots over sp ranks")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism: heads, MLP and vocabulary over tp "
+                         "ranks, which the command starts itself")
     ap.add_argument("--speculative", type=int, default=0, metavar="N",
                     help="prompt-lookup speculative decoding: draft N tokens a "
                          "round from the prompt and the text so far, verified in "
@@ -760,9 +800,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_service(args, cfg: AppConfig) -> GenerationService:
+def build_service(args, cfg: AppConfig, mesh=None) -> GenerationService:
     """The service the flags ask for, after refusing what the port cannot
-    honor."""
+    honor; on `mesh` (`main` builds it over the ranks it starts) this rank's
+    side of it."""
     refuse_unported(args, cfg)
     refuse_dp_pool(args, cfg)
     if args.int4 and args.int8:
@@ -783,7 +824,7 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
                                                       device=device)
                    if cfg.models else
                    make_checkpoint_service(args, cfg, args.max_new_tokens,
-                                           device=device))
+                                           device=device, mesh=mesh))
     elif cfg.models:
         # The tiny fleet: co-resident random-weight models in one
         # model-routing pool.
@@ -805,20 +846,43 @@ def build_service(args, cfg: AppConfig) -> GenerationService:
             32, scheduler=args.scheduler, kv_layout=args.kv_layout,
             kv_quant=resolve_kv_quant(args, cfg)[0], int4=args.int4,
             num_slots=args.slots, device=device, deadline_s=cfg.deadline_s or None,
-            supervise=args.supervise, app_cfg=cfg, speculative=args.speculative)
+            supervise=args.supervise, app_cfg=cfg, speculative=args.speculative,
+            mesh=mesh)
     # Per-tenant model routing (LSOT_TENANT_MODELS), as the config says.
     service.set_tenant_models(cfg.tenant_models)
     return service
 
 
 def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     cfg = AppConfig.from_env()
     if args.host:
         cfg = dataclasses.replace(cfg, host=args.host)
     if args.port:
         cfg = dataclasses.replace(cfg, port=args.port)
-    service = build_service(args, cfg)
+    mesh, children = None, []
+    if mesh_ranks(args, cfg) > 1:
+        from ..parallel import launch, spmd
+
+        mesh, children = launch.join(
+            args.dp, args.sp, args.tp, args.cpu,
+            "llm_based_apache_spark_optimization_tpu_torch.app", argv)
+    service = build_service(args, cfg, mesh)
+    if mesh is not None and not mesh.is_primary:
+        launch.follow(mesh)  # until rank 0 closes the channel
+        return
+    if mesh is not None:
+        spmd.drive(mesh)
+    try:
+        _serve(args, cfg, service)
+    finally:
+        if mesh is not None:
+            service.close()
+            launch.finish(mesh, children)
+
+
+def _serve(args, cfg: AppConfig, service) -> None:
     cfg.ensure_dirs()
     history = SQLiteHistory(cfg.history_db)
     factory = create_api_app if args.api else create_web_app

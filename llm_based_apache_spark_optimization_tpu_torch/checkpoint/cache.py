@@ -36,21 +36,35 @@ def load_native(
     path,
     dtype: Optional[torch.dtype] = torch.bfloat16,
     device=None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Restore a param tree onto `device` (default CUDA). Float leaves are
     cast to `dtype` (None keeps the saved dtypes); integer leaves (int4
-    packs) keep theirs. The tree must match `cfg`'s layer count."""
-    dev = resolve_load_device(device)
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    packs) keep theirs. The tree must match `cfg`'s layer count. Under a
+    `mesh` the file is memory-mapped and each rank reads and places only
+    its own block of every leaf (the specs of `specs_for_params`, so int4
+    and fused trees too), as JAX restores straight to its shardings."""
+    dev = resolve_load_device(device, mesh)
+    tree = torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=mesh is not None)
+    specs = None
+    if mesh is not None:
+        from ..parallel.sharding import shard_tensor, specs_for_params, validate_tp
 
-    def place(node):
+        validate_tp(cfg, mesh.shape["tp"])
+        specs = specs_for_params(tree, tp=mesh.shape["tp"])
+
+    def place(node, spec):
         if isinstance(node, dict):
-            return {k: place(v) for k, v in node.items()}
+            return {k: place(v, None if spec is None else spec[k])
+                    for k, v in node.items()}
+        if spec is not None:
+            node = shard_tensor(node, spec, mesh)
         if dtype is not None and node.is_floating_point():
             node = node.to(dtype)
         return node.to(dev)
 
-    params = place(tree)
+    params = place(tree, specs)
     layers = params["blocks"]["ln_attn"].shape[0]
     if layers != cfg.num_layers:
         raise ValueError(f"{path}: {layers} layers saved, {cfg.name} has "

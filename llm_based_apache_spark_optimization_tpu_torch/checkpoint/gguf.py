@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..models.configs import LlamaConfig, RopeFreqFactors
-from .hf import place, resolve_load_device
+from .hf import place_leaf, resolve_load_device
 
 __all__ = ["config_from_gguf", "load_gguf_checkpoint", "write_gguf"]
 
@@ -124,48 +124,53 @@ def load_gguf_checkpoint(
     cfg: Optional[LlamaConfig] = None,
     dtype: Optional[torch.dtype] = None,
     device=None,
+    mesh=None,
 ) -> Tuple[LlamaConfig, Dict[str, Any]]:
     """Load a GGUF blob into (config, param tree) on `device` (default
-    CUDA); mirrors `load_hf_checkpoint`. Quantized tensors dequantize to
-    f32 in C++ and land as `dtype` (default bf16), one stacked parameter
-    at a time."""
+    CUDA); mirrors `load_hf_checkpoint`, a `mesh` included. Quantized
+    tensors dequantize to f32 in C++ and land as `dtype` (default bf16),
+    one stacked parameter at a time."""
     from ..native import GGUFReader
 
     dtype = dtype or torch.bfloat16
-    dev = resolve_load_device(device)
+    dev = resolve_load_device(device, mesh)
 
     with GGUFReader(path) as r:
         if cfg is None:
             cfg = config_from_gguf(r)
+        if mesh is not None:
+            from ..parallel.sharding import validate_tp
 
-        def stack(tmpl: str, transpose: bool, unpermute_heads: int = 0):
+            validate_tp(cfg, mesh.shape["tp"])
+
+        def stack(name: str, tmpl: str, transpose: bool, unpermute_heads: int = 0):
             mats = []
             for i in range(cfg.num_layers):
                 t = r.tensor_f32(tmpl.format(i=i))
                 mats.append(_unpermute_qk(t, unpermute_heads) if unpermute_heads else t)
-            return place(torch.from_numpy(np.stack(mats, axis=0)), dtype, dev,
-                         transpose)
+            return place_leaf(name, torch.from_numpy(np.stack(mats, axis=0)),
+                              dtype, dev, mesh, transpose)
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            return place(torch.from_numpy(a), dtype, dev)
+        def put(name: str, a: np.ndarray) -> torch.Tensor:
+            return place_leaf(name, torch.from_numpy(a), dtype, dev, mesh)
 
         params: Dict[str, Any] = {
-            "embed": put(r.tensor_f32("token_embd.weight")),
+            "embed": put("embed", r.tensor_f32("token_embd.weight")),
             "blocks": {
-                "wq": stack("blk.{i}.attn_q.weight", True, cfg.num_heads),
-                "wk": stack("blk.{i}.attn_k.weight", True, cfg.num_kv_heads),
-                "wv": stack("blk.{i}.attn_v.weight", True),
-                "wo": stack("blk.{i}.attn_output.weight", True),
-                "wg": stack("blk.{i}.ffn_gate.weight", True),
-                "wu": stack("blk.{i}.ffn_up.weight", True),
-                "wd": stack("blk.{i}.ffn_down.weight", True),
-                "ln_attn": stack("blk.{i}.attn_norm.weight", False),
-                "ln_mlp": stack("blk.{i}.ffn_norm.weight", False),
+                "wq": stack("wq", "blk.{i}.attn_q.weight", True, cfg.num_heads),
+                "wk": stack("wk", "blk.{i}.attn_k.weight", True, cfg.num_kv_heads),
+                "wv": stack("wv", "blk.{i}.attn_v.weight", True),
+                "wo": stack("wo", "blk.{i}.attn_output.weight", True),
+                "wg": stack("wg", "blk.{i}.ffn_gate.weight", True),
+                "wu": stack("wu", "blk.{i}.ffn_up.weight", True),
+                "wd": stack("wd", "blk.{i}.ffn_down.weight", True),
+                "ln_attn": stack("ln_attn", "blk.{i}.attn_norm.weight", False),
+                "ln_mlp": stack("ln_mlp", "blk.{i}.ffn_norm.weight", False),
             },
-            "final_norm": put(r.tensor_f32("output_norm.weight")),
+            "final_norm": put("final_norm", r.tensor_f32("output_norm.weight")),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = put(r.tensor_f32("output.weight"))
+            params["lm_head"] = put("lm_head", r.tensor_f32("output.weight"))
     return cfg, params
 
 

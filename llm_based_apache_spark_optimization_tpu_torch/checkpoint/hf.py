@@ -127,16 +127,34 @@ def place(t: torch.Tensor, dtype: torch.dtype, device: torch.device,
     return t.to(dtype).contiguous()
 
 
-def resolve_load_device(device) -> torch.device:
-    """The one device a checkpoint loads onto. A list of several devices is
-    a sharded placement, which the port does not have yet."""
+def resolve_load_device(device, mesh=None) -> torch.device:
+    """The one device a checkpoint loads onto: the mesh rank's under a
+    `mesh` (each rank loads its own block), else `device`. A sharded load
+    names its mesh; a list of several devices is not one."""
+    if mesh is not None:
+        return mesh.device
     if isinstance(device, (list, tuple)):
         if len(device) > 1:
-            raise NotImplementedError(
-                "loading onto more than one device is not ported: ROADMAP "
-                "A13 (parallelism)")
+            raise ValueError(
+                "a checkpoint loads onto one device, or onto a mesh: pass "
+                "mesh=parallel.make_mesh(...) for a sharded load")
         device = device[0] if device else None
     return resolve_device(device)
+
+
+def place_leaf(name: str, t: torch.Tensor, dtype: torch.dtype,
+               device: torch.device, mesh, transpose: bool = False) -> torch.Tensor:
+    """Leaf `name` of the params tree from host tensor `t`, as `place` puts
+    it. Under a `mesh` only this rank's block (parallel/sharding.py): cut
+    from the host tensor, transposed first, so only the block reaches the
+    device."""
+    if mesh is not None:
+        from ..parallel.sharding import block, leaf_spec
+
+        if transpose:
+            t = t.transpose(-1, -2)
+        t, transpose = block(t, leaf_spec(name), mesh), False
+    return place(t, dtype, device, transpose)
 
 
 def load_hf_checkpoint(
@@ -144,23 +162,30 @@ def load_hf_checkpoint(
     cfg: Optional[LlamaConfig] = None,
     dtype: torch.dtype = torch.bfloat16,
     device=None,
+    mesh=None,
 ) -> tuple:
     """Load an HF-format directory into (config, param tree) on `device`
     (default CUDA). `cfg=None` infers the architecture from the directory's
-    config.json."""
+    config.json. Under a `mesh` each rank keeps only its block of every
+    tensor (parallel/sharding.py), on its own device: the tree is the one
+    `shard_params` would give."""
     ckpt_dir = Path(ckpt_dir)
-    dev = resolve_load_device(device)
+    dev = resolve_load_device(device, mesh)
     if cfg is None:
         hf_cfg = json.loads((ckpt_dir / "config.json").read_text())
         cfg = config_from_hf(hf_cfg, name=ckpt_dir.name)
+    if mesh is not None:
+        from ..parallel.sharding import validate_tp
+
+        validate_tp(cfg, mesh.shape["tp"])
     r = _ShardedReader(ckpt_dir)
 
-    def put(t: torch.Tensor) -> torch.Tensor:
-        return place(t, dtype, dev)
+    def put(t: torch.Tensor, name: str) -> torch.Tensor:
+        return place_leaf(name, t, dtype, dev, mesh)
 
-    def stack(tmpl: str, transpose: bool) -> torch.Tensor:
+    def stack(tmpl: str, transpose: bool, name: str) -> torch.Tensor:
         mats = [r.get(tmpl.format(i=i)) for i in range(cfg.num_layers)]
-        return place(torch.stack(mats), dtype, dev, transpose)
+        return place_leaf(name, torch.stack(mats), dtype, dev, mesh, transpose)
 
     p = "model.layers.{i}."
     names = {
@@ -175,14 +200,14 @@ def load_hf_checkpoint(
         "ln_mlp": (p + "post_attention_layernorm.weight", False),
     }
     params: Dict[str, Any] = {
-        "embed": put(r.get("model.embed_tokens.weight")),
-        "blocks": {k: stack(n, t) for k, (n, t) in names.items()},
-        "final_norm": put(r.get("model.norm.weight")),
+        "embed": put(r.get("model.embed_tokens.weight"), "embed"),
+        "blocks": {k: stack(n, t, k) for k, (n, t) in names.items()},
+        "final_norm": put(r.get("model.norm.weight"), "final_norm"),
     }
     if not cfg.tie_embeddings:
         name = ("lm_head.weight" if "lm_head.weight" in r
                 else "model.embed_tokens.weight")  # some exports tie implicitly
-        params["lm_head"] = put(r.get(name))
+        params["lm_head"] = put(r.get(name), "lm_head")
     return cfg, params
 
 

@@ -32,6 +32,18 @@ window position is masked with its own state and budget, acceptance stops
 at the grammar-valid prefix, and the committed state is the one after the
 accepted prefix. `last_spec_rounds` counts the verify forwards.
 
+With a `mesh` (parallel/) each rank holds its block of the params
+(`shard_params` of the whole tree it is given, or a tree loaded straight to
+the mesh) and allocates its block of the cache: its dp rows (the batch is
+padded with one-token rows to a multiple of dp and sliced back), a tp-th of
+the KV heads and, with sp > 1, an sp-th of the slots. Every rank of the
+mesh calls `generate` with the same arguments (SPMD); under an entry point
+only rank 0 does, and it posts the call to the others over the step
+channel (`parallel/spmd.py`) once `spmd.drive` is on. With sp > 1 the
+prompt pads to a multiple of sp, the prefill runs ring attention and the
+decode reads the sharded slots through the partial-softmax combine; the
+paged layout needs sp = 1. Every rank returns every row.
+
 With a grammar `constraint` (a compiled `constrain.CompiledMask`), the first
 token is masked to the tokens whose completion fits the whole budget
 (`need[init] <= budget`) and every step to `need[state] <= budget - step`;
@@ -50,6 +62,7 @@ import torch
 from .. import resolve_device
 from ..models.configs import LlamaConfig
 from ..models.llama import _UNROLL_MAX_T, Params, forward, fuse_blocks
+from ..ops.common import all_gather_object
 from ..ops.quant import quantize_cache
 from ..ops.sampling import (
     SamplingParams,
@@ -79,7 +92,8 @@ class InferenceEngine:
     drafts a round (`speculative_ngram`-token lookups); `last_spec_rounds`
     is then the last call's number of verify rounds (None without).
     `fuse_matmuls=True` runs the fused tree (`models/llama.fuse_blocks`):
-    one matmul for Q|K|V (MHA) or K|V (GQA) and one for gate|up."""
+    one matmul for Q|K|V (MHA) or K|V (GQA) and one for gate|up. `mesh`
+    shards it (module docstring); the device is then the mesh rank's."""
 
     def __init__(
         self,
@@ -95,6 +109,7 @@ class InferenceEngine:
         speculative_draft: int = 0,
         speculative_ngram: int = NGRAM,
         fuse_matmuls: bool = False,
+        mesh=None,
     ):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
@@ -122,6 +137,22 @@ class InferenceEngine:
         self.kv_page_size = (int(kv_page_size or default_page_size())
                              if kv_layout == "paged" else 0)
         self.cfg = cfg
+        self.mesh = mesh
+        self._kv_cfg = cfg
+        if mesh is not None:
+            from ..parallel.sharding import shard_params
+
+            if mesh.shape["sp"] > 1 and kv_layout == "paged":
+                raise NotImplementedError(
+                    "the paged engine under sp > 1 is not ported: ROADMAP "
+                    "A13.1 (sequence parallelism beyond the engine's "
+                    "contiguous cache)")
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh rank's "
+                                 f"{mesh.device}")
+            device = mesh.device
+            params = shard_params(params, cfg, mesh)
+            self._kv_cfg = mesh.local_cfg(cfg)
         self.device = resolve_device(device)
         if params["final_norm"].device.type != self.device.type:
             raise ValueError(
@@ -139,10 +170,17 @@ class InferenceEngine:
         self.prompt_bucket = min(prompt_bucket, max(1, cfg.max_seq_len // 2))
         self.new_bucket = max(1, new_bucket)
         self.last_stats: dict = {}
+        if mesh is not None:  # last: a follower's step loop may drive it at once
+            self._mesh_id = mesh.register(self)
 
     def padded_prompt_len(self, n: int) -> int:
-        """Device-side prompt length for an n-token prompt."""
-        return bucket_len(n, self.prompt_bucket)
+        """Device-side prompt length for an n-token prompt: bucketed, then
+        on an sp mesh padded so each sp rank takes an equal block through
+        the ring."""
+        t = bucket_len(n, self.prompt_bucket)
+        if self.mesh is not None:
+            t += -t % self.mesh.shape["sp"]
+        return t
 
     @torch.inference_mode()
     def generate(
@@ -153,6 +191,18 @@ class InferenceEngine:
         seed: int = 0,
         constraint=None,
     ) -> List[List[int]]:
+        mesh = self.mesh
+        if mesh is not None and mesh.driving and mesh.is_primary:
+            from ..parallel import spmd
+
+            with mesh.lock:
+                spmd.post(mesh, self._mesh_id, "generate", prompts,
+                          max_new_tokens, sampling, seed, constraint)
+                return self._generate(prompts, max_new_tokens, sampling, seed,
+                                      constraint)
+        return self._generate(prompts, max_new_tokens, sampling, seed, constraint)
+
+    def _generate(self, prompts, max_new_tokens, sampling, seed, constraint):
         if not prompts or not all(prompts):
             raise ValueError("generate needs at least one non-empty prompt")
         if constraint is not None and max_new_tokens < constraint.min_new_tokens:
@@ -161,15 +211,24 @@ class InferenceEngine:
                 f"constrained parse (grammar needs >= "
                 f"{constraint.min_new_tokens} tokens incl. the stop id)"
             )
-        cfg, dev = self.cfg, self.device
+        cfg, dev, mesh = self.cfg, self.device, self.mesh
         t0 = time.perf_counter()
-        b = len(prompts)
+        b_all = len(prompts)
         t = self.padded_prompt_len(max(len(p) for p in prompts))
         if t + max_new_tokens > cfg.max_seq_len:
             raise ValueError(
                 f"bucketed prompt ({t}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds model context max_seq_len={cfg.max_seq_len}"
             )
+        sp = dp = 1
+        if mesh is not None:
+            sp, dp = mesh.shape["sp"], mesh.shape["dp"]
+            # The batch axis shards over dp: pad with one-token rows to a
+            # multiple of dp (sliced off below), keep this rank's rows.
+            padded = list(prompts) + [[cfg.bos_id]] * (-b_all % dp)
+            per = len(padded) // dp
+            prompts = padded[mesh.coords["dp"] * per:(mesh.coords["dp"] + 1) * per]
+        b = len(prompts)
         tokens = torch.tensor(
             [p + [cfg.pad_id] * (t - len(p)) for p in prompts],
             dtype=torch.int32, device=dev,
@@ -185,7 +244,10 @@ class InferenceEngine:
         d1 = self.speculative_draft + 1 if self.speculative_draft else 0
         # Paged: a prompt-sized transient cache, packed into pages below. A
         # speculative loop's cache spans one verify window more.
-        cache = init_cache(cfg, b, t if paged else t + cap + d1,
+        s_cache = t if paged else t + cap + d1
+        if sp > 1:  # this rank's sp-th of the slots
+            s_cache = -(-(s_cache + -s_cache % 8) // sp)
+        cache = init_cache(self._kv_cfg, b, s_cache,
                            dtype=self.params["final_norm"].dtype, device=dev)
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t)
         gen = None
@@ -193,7 +255,8 @@ class InferenceEngine:
             gen = torch.Generator(device=dev).manual_seed(seed)
 
         logits, cache = forward(cfg, self.params, tokens, positions, cache,
-                                logit_indices=lengths - 1)
+                                logit_indices=lengths - 1, mesh=mesh,
+                                attn_impl="ring" if sp > 1 else None)
         first_logits = logits[:, 0]
         tabs = cstate = None
         if constraint is not None:
@@ -242,9 +305,15 @@ class InferenceEngine:
             "forward_calls": forwards,
             "decode_steps": forwards - 1,
             "prompt_len": t,
-            "batch": b,
+            "batch": b_all,
         }
-        return [out_l[i][: lens_l[i]] for i in range(b)]
+        rows = [out_l[i][: lens_l[i]] for i in range(b)]
+        if dp > 1:
+            # Every rank returns every row: the dp ranks' rows in dp order.
+            parts = all_gather_object((mesh.coords, rows), mesh)
+            rows = [r for c, part in parts if c["sp"] == 0 and c["tp"] == 0
+                    for r in part]
+        return rows[:b_all]
 
     def _decode_loop(self, cache, lengths, cur, done, finished, cstate, tabs,
                      budget, sampling, gen):
@@ -259,7 +328,7 @@ class InferenceEngine:
         step = 1
         while step < budget and not finished:
             logits, cache = forward(cfg, self.params, cur[:, None], pos[:, None],
-                                    cache)
+                                    cache, mesh=self.mesh)
             step_logits = logits[:, 0]
             if tabs is not None:
                 # Allowed iff its completion still fits the remaining
@@ -314,7 +383,8 @@ class InferenceEngine:
             drafts = ngram_draft(hist, hlen, D, self.speculative_ngram)   # [B, D]
             verify = torch.cat([cur[:, None], drafts], dim=1)             # [B, D+1]
             logits, cache = forward(cfg, self.params, verify,
-                                    (pos[:, None] + jd).to(torch.int32), cache)
+                                    (pos[:, None] + jd).to(torch.int32), cache,
+                                    mesh=self.mesh)
             draws = None
             if knobs is not None:
                 draws = (torch.rand((b, D), generator=gen, device=dev),

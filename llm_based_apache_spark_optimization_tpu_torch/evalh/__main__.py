@@ -14,7 +14,8 @@ checkpoints at the service (app/__main__.py wiring) for real scores.
 Counterpart of the JAX package's `evalh/__main__.py`, with every option and
 default of its parser. `--backend tiny` and `--chaos`'s schedulers run on
 the card and raise without one; `--cpu` runs them on the CPU.
-`--virtual-devices N > 0` raises: tp meshes are ROADMAP A13.
+`--virtual-devices N` runs the command on N CPU ranks, which it starts: with
+`--backend tiny --configs`, a config naming tp <= N runs on a tp mesh.
 """
 
 from __future__ import annotations
@@ -104,13 +105,24 @@ def main(argv=None) -> None:
                          "schedulers on the CPU; without it they run on the "
                          "card and raise without one")
     ap.add_argument("--virtual-devices", type=int, default=0, metavar="N",
-                    help="N > 0 raises: tp meshes are ROADMAP A13")
+                    help="N CPU ranks (the command starts them): with "
+                         "--backend tiny, --configs naming tp <= N run on a "
+                         "tp mesh")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else None
 
-    from .report import force_virtual_devices, refuse_tp_factory
+    from .report import force_virtual_devices, virtual_device_services
 
     force_virtual_devices(args.virtual_devices)
+    factory = done = None
+    if args.backend == "tiny" and args.virtual_devices > 1 and args.configs is not None:
+        group = virtual_device_services(
+            args.virtual_devices, "llm_based_apache_spark_optimization_tpu_torch.evalh",
+            argv, args.max_new_tokens)
+        if group is None:
+            return  # a follower rank: rank 0 printed the rows
+        factory, done = group
     if args.chaos is not None:
         # Mostly host-only (fake daemon, SQLite, toy schedulers); the
         # stages from kv-pressure on build tiny schedulers on `device`.
@@ -152,10 +164,9 @@ def main(argv=None) -> None:
             "fake": make_fake_service,
             "oracle": make_oracle_service,
         }[args.backend]()
-    # Mesh honesty (evalh/configs.run_config): configs naming tp=N on the
-    # tiny backend report the device count they ran beside; nothing builds
-    # a tp mesh until ROADMAP A13.
-    factory = refuse_tp_factory if args.backend == "tiny" else None
+    # Mesh honesty (evalh/configs.run_config): configs naming tp=N run on
+    # the tp=N service of the `--virtual-devices` group, or report the
+    # device count they ran beside.
 
     if args.repair is not None:
         if args.configs is not None:
@@ -219,6 +230,8 @@ def main(argv=None) -> None:
                 "avg_latency_s": round(rep.avg_latency_s, 4),
                 "aggregate_tok_per_s": round(rep.aggregate_tok_per_s, 1),
             }))
+        if done is not None:
+            done()
         return
 
     if args.spider:

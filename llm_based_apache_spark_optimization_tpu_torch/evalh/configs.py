@@ -14,9 +14,11 @@ smoke models (`--backend tiny`/`fake`) for plumbing-true dry runs on CI.
 Results carry the same metric surface as the eval harness (exact match /
 edit distance / latency / aggregate tok/s).
 
-Counterpart of the JAX package's `evalh/configs.py`. The port serves no
-tp > 1 mesh yet (ROADMAP A13): a config naming tp=N runs on one device
-and its row says so, with the devices torch sees (`device_count`).
+Counterpart of the JAX package's `evalh/configs.py`. A config naming tp=N
+runs on a tp=N mesh when the command runs on a group of at least N ranks
+(`--virtual-devices N`: N CPU ranks, evalh/report.virtual_device_services);
+otherwise on one device, and its row says so with the devices it had
+(`device_count`).
 """
 
 from __future__ import annotations
@@ -104,12 +106,16 @@ def _sql_cases(n: int):
 
 
 def device_count(device=None) -> int:
-    """The devices a run on `device` could shard over: 1 on the CPU, else
-    the CUDA cards torch sees."""
+    """The devices a run on `device` could shard over: the ranks of the
+    process group when there is one (`--virtual-devices N`: N CPU ranks),
+    else 1 on the CPU and the CUDA cards torch sees on the card."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
     if device is not None and str(device).startswith("cpu"):
         return 1
-    import torch
-
     return torch.cuda.device_count()
 
 
@@ -125,31 +131,40 @@ def run_config(
     """Execute one BASELINE config against the service's registered models.
 
     Mesh honesty: a config naming tp=N runs on the mesh it names, or the
-    report row says exactly what ran instead. The port builds no tp-sharded
-    service yet (ROADMAP A13), so `service_factory` is never called: with
-    one the row reads "tp=1 (requested tp=N; D device(s))", D being
-    `device_count(device)`. `service_mesh` describes the mesh the passed-in
-    service already runs on, so a service-owned mesh is reported truthfully
-    rather than defaulting to tp=1. The row never claims a mesh that wasn't
-    built.
+    report row says exactly what ran instead. With `service_factory` and at
+    least N devices (`device_count(device)`: a group's ranks) the factory
+    builds the tp=N service and the row reads "tp=N"; with fewer, "tp=1
+    (requested tp=N; D device(s))". `service_mesh` describes the mesh the
+    passed-in service already runs on, so a service-owned mesh is reported
+    truthfully rather than defaulting to tp=1. The row never claims a mesh
+    that wasn't built. A factory-built service is closed after its run.
     """
     mesh_desc = service_mesh or "tp=1"
+    built: Optional[GenerationService] = None
     if cfg.tp > 1:
-        if service_factory is not None:
-            mesh_desc = (f"tp=1 (requested tp={cfg.tp}; "
-                         f"{device_count(device)} device(s))")
+        ndev = device_count(device)
+        if service_factory is not None and ndev >= cfg.tp:
+            built = service = service_factory(cfg.tp)
+            mesh_desc = f"tp={cfg.tp}"
+        elif service_factory is not None:
+            mesh_desc = f"tp=1 (requested tp={cfg.tp}; {ndev} device(s))"
         elif service_mesh is not None:
             mesh_desc = (f"{service_mesh} (service-owned; config requested "
                          f"tp={cfg.tp})")
         else:
             mesh_desc = f"tp=1 (requested tp={cfg.tp}; service owns its mesh)"
-    if warmup:
-        # Untimed pass first: the first contact with each batch shape pays
-        # one-time costs (kernel builds, allocator growth) that do not
-        # belong in the measured row. A truncated token budget suffices, so
-        # the warmup costs a small fraction of the measured pass.
-        _run_config_body(service, cfg, min(8, max_new_tokens))
-    rep = _run_config_body(service, cfg, max_new_tokens)
+    try:
+        if warmup:
+            # Untimed pass first: the first contact with each batch shape
+            # pays one-time costs (kernel builds, allocator growth) that do
+            # not belong in the measured row. A truncated token budget
+            # suffices, so the warmup costs a small fraction of the
+            # measured pass.
+            _run_config_body(service, cfg, min(8, max_new_tokens))
+        rep = _run_config_body(service, cfg, max_new_tokens)
+    finally:
+        if built is not None:
+            built.close()
     return dataclasses.replace(rep, mesh=mesh_desc)
 
 

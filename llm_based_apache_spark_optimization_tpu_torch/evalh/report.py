@@ -583,20 +583,58 @@ def generate(
 
 
 def force_virtual_devices(n: int) -> None:
-    """Virtual devices are an XLA feature the port has no counterpart of:
-    tp > 1 meshes are ROADMAP A13. `--virtual-devices 0` (the default) is
-    a no-op; any N > 0 raises."""
-    if n > 0:
-        raise NotImplementedError(
-            "--virtual-devices N > 0 (a tp mesh over virtual devices) is not "
-            "ported: ROADMAP A13 (parallelism)")
+    """JAX forces N virtual XLA devices. The port's counterpart is a group
+    of N CPU ranks, which `virtual_device_services` forms: this only checks
+    N (0, the default, and 1 form no group)."""
+    if n < 0:
+        raise ValueError(f"--virtual-devices must be >= 0, got {n}")
 
 
-def refuse_tp_factory(tp: int):
-    """The `service_factory` of the tiny backend: configs naming tp > 1
-    report the one device they ran on, and nothing builds a tp mesh until
-    ROADMAP A13 (`run_config` never calls this)."""
-    raise NotImplementedError(f"tp={tp} is not ported: ROADMAP A13 (parallelism)")
+def virtual_device_services(n: int, module: str, argv, max_new_tokens: int,
+                            scheduler: bool = False):
+    """`--virtual-devices N` with the tiny backend: N CPU ranks, and on
+    them one tiny service for each BASELINE tp that divides N, on a mesh
+    (dp=N/tp, tp): the services a config naming that tp runs on. The
+    command starts the other ranks itself (parallel/launch.py). On rank 0
+    returns (factory, done): `factory(tp)` is that service (`run_config`
+    closes it after its rows), `done()` ends the group. The other ranks
+    follow rank 0's steps until it ends the group, then return None."""
+    from ..app.__main__ import make_tiny_service
+    from ..parallel import launch, make_mesh, spmd
+    from .configs import CONFIGS
+
+    children = launch.start_group(n, module, argv)
+    services, meshes = {}, []
+    for tp in sorted({c.tp for c in CONFIGS.values()}):
+        if tp <= 1 or n % tp:
+            continue
+        mesh = make_mesh(dp=n // tp, tp=tp, devices=["cpu"] * n)
+        meshes.append(mesh)
+        # The scheduler has no dp axis: a dp > 1 mesh serves engines.
+        services[tp] = make_tiny_service(max_new_tokens, device="cpu", mesh=mesh,
+                                         scheduler=scheduler and n == tp)
+    import torch.distributed as dist
+
+    if dist.get_rank() != 0:
+        for m in meshes:
+            spmd.ensure_following(m)
+        launch.follow(*meshes)
+        return None
+    for m in meshes:
+        spmd.drive(m)
+        print(m.describe(), file=sys.stderr)
+
+    def factory(tp: int):
+        if tp not in services:
+            raise ValueError(f"tp={tp} does not divide the {n} ranks")
+        return services[tp]
+
+    def done() -> None:
+        for m in meshes:
+            spmd.close(m)
+        launch.finish(None, children)
+
+    return factory, done
 
 
 def main(argv=None) -> None:
@@ -637,11 +675,21 @@ def main(argv=None) -> None:
                     help="run on the CPU; without it the tiny models run on "
                          "the card and the report needs one")
     ap.add_argument("--virtual-devices", type=int, default=0, metavar="N",
-                    help="N > 0 raises: tp meshes are ROADMAP A13")
+                    help="N CPU ranks (the command starts them): the tiny "
+                         "backend's configs naming tp <= N run on a tp mesh")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
 
     force_virtual_devices(args.virtual_devices)
     device = "cpu" if args.cpu else None
+    factory = done = None
+    if args.backend == "tiny" and args.virtual_devices > 1:
+        group = virtual_device_services(
+            args.virtual_devices, "llm_based_apache_spark_optimization_tpu_torch.evalh.report",
+            argv, args.max_new_tokens, scheduler=args.scheduler)
+        if group is None:
+            return  # a follower rank: rank 0 wrote the report
+        factory, done = group
 
     from ..app.__main__ import (
         make_fake_service,
@@ -649,7 +697,6 @@ def main(argv=None) -> None:
         make_tiny_service,
     )
 
-    factory = None
     if args.backend == "tiny":
         service = make_tiny_service(args.max_new_tokens,
                                     scheduler=args.scheduler,
@@ -657,7 +704,6 @@ def main(argv=None) -> None:
                                     device=device)
         desc = ("tiny in-tree engine, random weights (smoke"
                 + (", scheduler backends)" if args.scheduler else ")"))
-        factory = refuse_tp_factory
     elif args.backend == "oracle":
         service = make_oracle_service()
         desc = ("oracle canned backend (answers every SQL case with its "
@@ -687,6 +733,8 @@ def main(argv=None) -> None:
         with_configs=args.backend != "oracle",
         device=device,
     )
+    if done is not None:
+        done()
     if args.out == "-":
         sys.stdout.write(text)
     else:

@@ -68,6 +68,19 @@ onto the other.
 - Attention, page writes and int4 matmuls go through
   `ops.kernels.dispatch`: the hand-written kernels on CUDA, their plain
   versions on the CPU.
+- Under a mesh (`parallel/`) `params` and the caches are this rank's
+  blocks (`parallel.sharding.shard_params`, `Mesh.local_cfg`): a tp-th of
+  the heads, KV heads, MLP hidden axis and vocabulary. The forward runs the
+  collectives GSPMD inserts in JAX: an all-reduce over tp after `wo` and
+  `wd` (row-parallel, `ops.quant.mm(..., "row")`) and after the embedding
+  lookup (each rank gathers only its vocabulary rows), and an all-gather of
+  the vocab-sharded logits, so every rank returns the whole [B, T, V].
+  Attention reads through the `sharded_*` kernel wrappers on the rank's
+  heads. With sp > 1 the contiguous cache holds this rank's sp-th of the
+  slots: `attn_impl="ring"` prefills through ring attention over the
+  call's fresh K/V (from position 0, as JAX's ring branch), and later
+  steps read through `ops.ring_attention.sp_cache_attention`; each rank
+  writes only the positions its slots hold.
 """
 
 from __future__ import annotations
@@ -87,8 +100,18 @@ from ..ops.kernels.dispatch import (
     paged_attention,
     paged_attention_quantized,
 )
+from ..ops.common import all_gather, all_reduce, axis_index, axis_size
+from ..ops.kernels.attention import (
+    sharded_flash_gqa_attention,
+    sharded_flash_gqa_attention_quantized,
+)
+from ..ops.kernels.paged_attention import (
+    sharded_ragged_paged_attention,
+    sharded_ragged_paged_attention_quantized,
+)
 from ..ops.norm import rms_norm
 from ..ops.quant import is_q4tensor, is_qtensor, mm, mm_stacked, quantize_kv
+from ..ops.ring_attention import ring_gqa_attention, sp_cache_attention
 from ..ops.rope import apply_rope, rope_cos_sin
 from .configs import LlamaConfig
 
@@ -107,37 +130,46 @@ def init_params(
     generator: Optional[torch.Generator] = None,
     dtype: torch.dtype = torch.bfloat16,
     device=None,
+    mesh=None,
 ) -> Params:
     """Random weights made on `device` (default CUDA) from `generator`
     (default: seed 0 on that device), scaled 1/sqrt(fan_in) so random models
-    give finite logits at any depth. Norm weights are ones."""
-    dev = resolve_device(device)
+    give finite logits at any depth. Norm weights are ones. Under a `mesh`
+    (on the mesh rank's device) each weight is made whole, one at a time,
+    and only this rank's block is kept: the tree `shard_params` gives of
+    the whole one, without ever holding the whole tree."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     d, f = cfg.hidden_size, cfg.intermediate_size
     nh, kh, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
 
-    def w(shape, fan_in):
+    def w(shape, fan_in, name):
         x = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
-        return x.mul_(fan_in ** -0.5).to(dtype)
+        x = x.mul_(fan_in ** -0.5).to(dtype)
+        if mesh is None:
+            return x
+        from ..parallel.sharding import leaf_spec, shard_tensor
+
+        return shard_tensor(x, leaf_spec(name), mesh)
 
     params: Params = {
-        "embed": w((cfg.vocab_size, d), d),
+        "embed": w((cfg.vocab_size, d), d, "embed"),
         "blocks": {
-            "wq": w((L, d, nh * hd), d),
-            "wk": w((L, d, kh * hd), d),
-            "wv": w((L, d, kh * hd), d),
-            "wo": w((L, nh * hd, d), nh * hd),
-            "wg": w((L, d, f), d),
-            "wu": w((L, d, f), d),
-            "wd": w((L, f, d), f),
+            "wq": w((L, d, nh * hd), d, "wq"),
+            "wk": w((L, d, kh * hd), d, "wk"),
+            "wv": w((L, d, kh * hd), d, "wv"),
+            "wo": w((L, nh * hd, d), nh * hd, "wo"),
+            "wg": w((L, d, f), d, "wg"),
+            "wu": w((L, d, f), d, "wu"),
+            "wd": w((L, f, d), f, "wd"),
             "ln_attn": torch.ones((L, d), dtype=dtype, device=dev),
             "ln_mlp": torch.ones((L, d), dtype=dtype, device=dev),
         },
         "final_norm": torch.ones((d,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = w((cfg.vocab_size, d), d)
+        params["lm_head"] = w((cfg.vocab_size, d), d, "lm_head")
     return params
 
 
@@ -250,21 +282,51 @@ def _at(w, layer: int):
     return {k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
 
 
-def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+def _write_sp(layer_cache: torch.Tensor, new: torch.Tensor,
+              positions: torch.Tensor, base: int) -> None:
+    """Write `new` [B, T, K(, H)] at global `positions` [B, T] into this sp
+    rank's block of slots [base, base + S_loc) of `layer_cache` [B, K,
+    S_loc(, H)]; positions another rank holds are left to it."""
+    local = positions.long() - base
+    own = (local >= 0) & (local < layer_cache.shape[2])
+    rows, cols = own.nonzero(as_tuple=True)
+    layer_cache[rows, :, local[rows, cols]] = new[rows, cols].to(layer_cache.dtype)
+
+
+def _embed(params: Params, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """[B, T] token ids -> [B, T, D]: the table's rows; an int8 table's
     rows dequantized in f32 (value x the row's scale), then cast to
-    `final_norm`'s dtype."""
+    `final_norm`'s dtype. A vocab-sharded table (tp > 1): each rank looks
+    up the ids its rows hold, zeros elsewhere, and the all-reduce over tp
+    adds the one nonzero row of each id."""
     emb = params["embed"]
+    idx = tokens.long()
+    tp = axis_size(mesh, "tp")
+    if tp > 1:
+        v_loc = (emb["q8"] if is_qtensor(emb) else emb).shape[0]
+        idx = idx - axis_index(mesh, "tp") * v_loc
+        own = (idx >= 0) & (idx < v_loc)
+        idx = idx.clamp(0, v_loc - 1)
     if is_qtensor(emb):
-        idx = tokens.long()
         rows = emb["q8"][idx].float() * emb["s"][idx][..., None]
-        return rows.to(params["final_norm"].dtype)
-    return emb[tokens.long()]
+        rows = rows.to(params["final_norm"].dtype)
+    else:
+        rows = emb[idx]
+    if tp > 1:
+        rows = all_reduce(rows * own[..., None].to(rows.dtype), mesh, "tp")
+    return rows
 
 
-def _unembed(x: torch.Tensor, w) -> torch.Tensor:
+def _unembed(x: torch.Tensor, w, mesh=None) -> torch.Tensor:
     """[B, T, D] x [V, D] -> [B, T, V] f32 logits, accumulated in f32; an
-    int8 table through the int8 matmul kernel's [V, D] layout."""
+    int8 table through the int8 matmul kernel's [V, D] layout. A
+    vocab-sharded table gives this rank's [B, T, V/tp] block, all-gathered
+    over tp into the whole logits."""
+    logits = _unembed_local(x, w)
+    return all_gather(logits, mesh, "tp", dim=-1)
+
+
+def _unembed_local(x: torch.Tensor, w) -> torch.Tensor:
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
     if is_qtensor(w):
@@ -293,6 +355,10 @@ def forward(
     span: Optional[int] = None,                       # cache slots rows read
                                                       # (paged: positions the
                                                       # chunk's views cover)
+    mesh=None,                                        # parallel.Mesh: params
+                                                      # and cache are this
+                                                      # rank's blocks
+    attn_impl: Optional[str] = None,                  # "ring": sp prefill
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run T tokens through the stack; returns (logits f32, cache).
 
@@ -307,8 +373,27 @@ def forward(
     the whole cache), one layer at a time; an int8 cache then serves any T.
     With a paged cache and `span`, row i is the chunk of the slot whose
     table row is ptab[i], over views of positions [0, span) (span at least
-    the chunk's last position + 1), one layer at a time; any T."""
+    the chunk's last position + 1), one layer at a time; any T.
+
+    Under a `mesh` (module docstring) every rank of a tp/sp group calls the
+    forward with the same tokens and gets the same logits. With sp > 1 the
+    contiguous cache's slots are sharded: `attn_impl="ring"` is the
+    prefill from position 0 through ring attention; without it the call
+    reads the sharded slots (`sp_cache_attention`). Paged caches and `rows`
+    need sp = 1."""
     b, t = tokens.shape
+    tp, sp = axis_size(mesh, "tp"), axis_size(mesh, "sp")
+    sharded = mesh is not None and mesh.size > 1
+    if attn_impl not in (None, "ring", "sp_combine"):
+        raise ValueError(f"attn_impl must be None, 'ring' or 'sp_combine', "
+                         f"got {attn_impl!r}")
+    if attn_impl == "ring" and sp == 1:
+        raise ValueError('attn_impl="ring" requires a mesh with an "sp" axis > 1')
+    if sp > 1 and cache is not None and ("kp" in cache or rows is not None):
+        raise NotImplementedError(
+            "a paged cache or a row-chunked cache under sp > 1 is not ported: "
+            "ROADMAP A13.1 (sequence parallelism beyond the engine's "
+            "contiguous cache)")
     paged = cache is not None and "kp" in cache
     quant = cache is not None and "k8" in cache
     chunk = paged and span is not None
@@ -331,11 +416,22 @@ def forward(
             "(engine/generate.py), or passes `span` for the paged chunk "
             "path (serve/scheduler.py)."
         )
-    x = _embed(params, tokens)  # [B, T, D]
+    x = _embed(params, tokens, mesh)  # [B, T, D]
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     start = positions[:, 0]
-    nh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nh, kh, hd = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
+    if sharded:  # the kernels on this rank's heads (dp rows, tp heads)
+        attend = lambda *a: sharded_flash_gqa_attention(mesh, *a)  # noqa: E731
+        attend_q = lambda *a: sharded_flash_gqa_attention_quantized(mesh, *a)  # noqa: E731
+        attend_paged = lambda *a: sharded_ragged_paged_attention(mesh, *a)  # noqa: E731
+        attend_paged_q = lambda *a: sharded_ragged_paged_attention_quantized(mesh, *a)  # noqa: E731
+    else:
+        attend, attend_q = attention, attention_quantized
+        attend_paged, attend_paged_q = paged_attention, paged_attention_quantized
+    if sp > 1:
+        s_base = axis_index(mesh, "sp") * (
+            cache["k8" if quant else "k"].shape[3] if cache is not None else 0)
     blocks = params["blocks"]
     if chunk:
         chunk_pages = -(-span // cache["kp"].shape[3])
@@ -346,19 +442,24 @@ def forward(
     for l in range(cfg.num_layers):
         h = rms_norm(x, blocks["ln_attn"][l], cfg.norm_eps)
         if "wqkv" in blocks:  # fused MHA: one [D, 3, O] matmul
-            fused = mm_stacked(h, _at(blocks["wqkv"], l))
+            fused = mm_stacked(h, _at(blocks["wqkv"], l), mesh)
             q, k, v = (fused[..., i, :] for i in range(3))
         else:
-            q = mm(h, _at(blocks["wq"], l))
+            q = mm(h, _at(blocks["wq"], l), mesh)
             if "wkv" in blocks:  # fused GQA: Q alone, K|V one [D, 2, KO] matmul
-                kv = mm_stacked(h, _at(blocks["wkv"], l))
+                kv = mm_stacked(h, _at(blocks["wkv"], l), mesh)
                 k, v = kv[..., 0, :], kv[..., 1, :]
             else:
-                k, v = mm(h, _at(blocks["wk"], l)), mm(h, _at(blocks["wv"], l))
+                k = mm(h, _at(blocks["wk"], l), mesh)
+                v = mm(h, _at(blocks["wv"], l), mesh)
         q, k = q.reshape(b, t, nh, hd), k.reshape(b, t, kh, hd)
         v = v.reshape(b, t, kh, hd)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        if chunk:
+        if sp > 1:
+            attn = _sp_layer(cache, l, q, k, v, positions, base=s_base, mesh=mesh,
+                             window=cfg.sliding_window, kv_lens=kv_lens,
+                             ring=attn_impl == "ring", quant=quant)
+        elif chunk:
             views = []
             for name, new in (("k", k), ("v", v)):
                 view = _page_view(cache, name, l, chunk_pages, x.dtype)
@@ -371,22 +472,22 @@ def forward(
             else:
                 page_write(cache["kp"], cache["vp"], k, v, positions,
                            cache["ptab"], l, q_lens)
-            attn = attention(q, views[0], views[1], positions, cfg.sliding_window,
-                             kv_lens)
+            attn = attend(q, views[0], views[1], positions, cfg.sliding_window,
+                          kv_lens)
         elif paged and "kps" in cache:
             page_write_quantized(cache["kp"], cache["kps"], cache["vp"],
                                  cache["vps"], k, v, positions, cache["ptab"],
                                  l, q_lens)
-            attn = paged_attention_quantized(
+            attn = attend_paged_q(
                 q, cache["kp"][l], cache["kps"][l], cache["vp"][l],
                 cache["vps"][l], cache["ptab"], positions, cfg.sliding_window,
                 kv_lens, q_lens)
         elif paged:
             page_write(cache["kp"], cache["vp"], k, v, positions,
                        cache["ptab"], l, q_lens)
-            attn = paged_attention(q, cache["kp"][l], cache["vp"][l],
-                                   cache["ptab"], positions,
-                                   cfg.sliding_window, kv_lens, q_lens)
+            attn = attend_paged(q, cache["kp"][l], cache["vp"][l],
+                                cache["ptab"], positions,
+                                cfg.sliding_window, kv_lens, q_lens)
         elif rows is not None:
             views = []
             for name, new in (("k", k), ("v", v)):
@@ -394,22 +495,22 @@ def forward(
                 _write_cache(view, new, start)
                 _write_rows(cache, name, l, rows, positions, new)
                 views.append(view)
-            attn = attention(q, views[0], views[1], positions, cfg.sliding_window,
-                             kv_lens)
+            attn = attend(q, views[0], views[1], positions, cfg.sliding_window,
+                          kv_lens)
         elif quant:
             for name, new in (("k", k), ("v", v)):
                 qn = quantize_kv(new)
                 _write_cache(cache[f"{name}8"][l], qn["q8"], start)
                 _write_cache(cache[f"{name}s"][l], qn["s"], start)
             if t == 1:
-                attn = attention_quantized(q, cache["k8"][l], cache["ks"][l],
-                                           cache["v8"][l], cache["vs"][l],
-                                           positions, cfg.sliding_window, kv_lens)
+                attn = attend_q(q, cache["k8"][l], cache["ks"][l],
+                                cache["v8"][l], cache["vs"][l],
+                                positions, cfg.sliding_window, kv_lens)
             else:
                 # A window (a verify round): the quantized paged attention
                 # over the layer as a pool [P = B, K, PS = S, H] whose row b
                 # maps its one page b.
-                attn = paged_attention_quantized(
+                attn = attend_paged_q(
                     q, cache["k8"][l], cache["ks"][l], cache["v8"][l],
                     cache["vs"][l], one_page, positions, cfg.sliding_window,
                     kv_lens)
@@ -421,21 +522,50 @@ def forward(
                 k_full, v_full = cache["k"][l], cache["v"][l]
                 _write_cache(k_full, k, start)
                 _write_cache(v_full, v, start)
-            attn = attention(q, k_full, v_full, positions, cfg.sliding_window,
-                             kv_lens)
-        x = x + mm(attn.reshape(b, t, nh * hd), _at(blocks["wo"], l))
+            attn = attend(q, k_full, v_full, positions, cfg.sliding_window,
+                          kv_lens)
+        x = x + mm(attn.reshape(b, t, nh * hd), _at(blocks["wo"], l), mesh, "row")
         h2 = rms_norm(x, blocks["ln_mlp"][l], cfg.norm_eps)
         if "wgu" in blocks:  # fused: gate|up one [D, 2, F] matmul
-            gu = mm_stacked(h2, _at(blocks["wgu"], l))
+            gu = mm_stacked(h2, _at(blocks["wgu"], l), mesh)
             g_out, u_out = gu[..., 0, :], gu[..., 1, :]
         else:
-            g_out = mm(h2, _at(blocks["wg"], l))
-            u_out = mm(h2, _at(blocks["wu"], l))
+            g_out = mm(h2, _at(blocks["wg"], l), mesh)
+            u_out = mm(h2, _at(blocks["wu"], l), mesh)
         gate = F.silu(g_out.float()).to(x.dtype)
-        x = x + mm(gate * u_out, _at(blocks["wd"], l))
+        x = x + mm(gate * u_out, _at(blocks["wd"], l), mesh, "row")
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logit_indices is not None:
         x = x[torch.arange(b, device=x.device), logit_indices.long()][:, None]
     unembed = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return _unembed(x, unembed), cache
+    return _unembed(x, unembed, mesh), cache
+
+
+def _sp_layer(cache, layer: int, q, k, v, positions, *, base: int, mesh,
+              window, kv_lens, ring: bool, quant: bool) -> torch.Tensor:
+    """One layer's attention with the sequence axis over sp: write the
+    fresh K/V (int8: quantized) into this rank's slots of the contiguous
+    cache, then attend through the ring (a prefill from position 0, over
+    the fresh K/V) or over the sharded slots (a decode step or window)."""
+    if cache is not None:
+        if quant:
+            for name, new in (("k", k), ("v", v)):
+                qn = quantize_kv(new)
+                _write_sp(cache[f"{name}8"][layer], qn["q8"], positions, base)
+                _write_sp(cache[f"{name}s"][layer], qn["s"], positions, base)
+        else:
+            _write_sp(cache["k"][layer], k, positions, base)
+            _write_sp(cache["v"][layer], v, positions, base)
+    if ring:
+        return ring_gqa_attention(mesh, q, k, v, positions, sliding_window=window)
+    if cache is None:
+        return attention(q, k.transpose(1, 2).contiguous(),
+                         v.transpose(1, 2).contiguous(), positions, window, kv_lens)
+    if quant:
+        return sp_cache_attention(q, cache["k8"][layer], cache["v8"][layer],
+                                  positions, mesh, window, kv_lens,
+                                  k_scale=cache["ks"][layer],
+                                  v_scale=cache["vs"][layer])
+    return sp_cache_attention(q, cache["k"][layer], cache["v"][layer], positions,
+                              mesh, window, kv_lens)

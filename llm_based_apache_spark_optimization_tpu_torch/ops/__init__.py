@@ -1,6 +1,6 @@
-"""Numerical building blocks: rmsnorm, rope, attention, sampling, the
-quantizers and matmuls of int8 and int4 weights, and the hand-written CUDA
-kernels under `kernels/`."""
+"""Numerical building blocks: rmsnorm, rope, attention, ring attention,
+sampling, the quantizers and matmuls of int8 and int4 weights, and the
+hand-written CUDA kernels under `kernels/`."""
 
 from .quant import (  # noqa: F401
     dequantize_weight,
@@ -16,3 +16,4 @@ from .quant import (  # noqa: F401
     quantize_weight_int4,
     tp_safe_group,
 )
+from .ring_attention import ring_gqa_attention, sp_cache_attention  # noqa: F401

@@ -311,3 +311,58 @@ def flash_gqa_attention_quantized(
         raise ValueError(f"flash_gqa_attention_quantized runs on cuda or cpu, not {q.device}")
     return flash_gqa_attention_quantized_cuda(q, k8, ks, v8, vs, q_positions,
                                               sliding_window, kv_lens)
+
+
+def _local_heads(mesh, q: torch.Tensor, kv_heads: int, name: str) -> None:
+    """A sharded wrapper's operands are this rank's blocks: a tp-th of the
+    query heads and of the KV heads, whole groups."""
+    if q.shape[2] % kv_heads:
+        raise ValueError(f"{name}: {q.shape[2]} query heads on this rank do "
+                         f"not group over its {kv_heads} KV heads")
+
+
+def sharded_flash_gqa_attention(
+    mesh,
+    q: torch.Tensor,            # [B/dp, T, N/tp, H] — this rank's block
+    k: torch.Tensor,            # [B/dp, K/tp, S, H]
+    v: torch.Tensor,
+    q_positions: torch.Tensor,  # [B/dp, T]
+    sliding_window: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The flash kernel under a dp x tp mesh: JAX wraps the Pallas call in a
+    `shard_map` over batch rows (dp) and heads (tp). Each rank of the port
+    already holds that block, and heads never meet inside attention, so
+    this is the kernel launched on the rank's own block, no collective. The
+    cache's slots must be whole on the rank (sp = 1): a cache sharded over
+    sp reads through `ops.ring_attention.sp_cache_attention`."""
+    from .dispatch import attention
+
+    if mesh is not None and mesh.shape["sp"] > 1:
+        raise ValueError("sharded_flash_gqa_attention needs the cache's slots "
+                         "whole on each rank (sp = 1)")
+    _local_heads(mesh, q, k.shape[1], "sharded_flash_gqa_attention")
+    return attention(q, k, v, q_positions, sliding_window, kv_lens)
+
+
+def sharded_flash_gqa_attention_quantized(
+    mesh,
+    q: torch.Tensor,            # [B/dp, 1, N/tp, H]
+    k8: torch.Tensor,           # [B/dp, K/tp, S, H] int8
+    ks: torch.Tensor,           # [B/dp, K/tp, S] f32
+    v8: torch.Tensor,
+    vs: torch.Tensor,
+    q_positions: torch.Tensor,
+    sliding_window: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`flash_gqa_attention_quantized` on this rank's dp rows and tp heads
+    of the int8 cache (JAX `sharded_flash_gqa_attention_quantized`)."""
+    from .dispatch import attention_quantized
+
+    if mesh is not None and mesh.shape["sp"] > 1:
+        raise ValueError("sharded_flash_gqa_attention_quantized needs the "
+                         "cache's slots whole on each rank (sp = 1)")
+    _local_heads(mesh, q, k8.shape[1], "sharded_flash_gqa_attention_quantized")
+    return attention_quantized(q, k8, ks, v8, vs, q_positions, sliding_window,
+                               kv_lens)

@@ -141,3 +141,25 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Te
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul runs on cuda or cpu, not {x.device}")
     return int4_matmul_cuda(x, q4, s4)
+
+
+def sharded_int4_matmul(mesh, x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
+                        *, partition: str = "col") -> torch.Tensor:
+    """The int4 kernel under a tp mesh (JAX `sharded_int4_matmul`, a
+    `shard_map` per Megatron partition). `q4`/`s4` are this rank's block:
+    - "col" (wq/wk/wv/wg/wu, stacked fused trees): a tp-th of the out axis;
+      the kernel runs on the rank's rows and columns, no collective;
+    - "row" (wo/wd): a tp-th of the contraction, split at whole quant
+      groups (`parallel.sharding.specs_for_params` checks it); the group
+      scales apply inside the kernel, before the all-reduce over tp that
+      adds the ranks' partial products (a group's scale multiplies only its
+      own products, all on one rank)."""
+    from ..common import all_reduce
+    from .dispatch import int4_mm
+
+    if partition not in ("col", "row"):
+        raise ValueError(f"partition must be 'col' or 'row', got {partition!r}")
+    out = int4_mm(x, q4, s4)
+    if partition == "row":
+        out = all_reduce(out, mesh, "tp")
+    return out

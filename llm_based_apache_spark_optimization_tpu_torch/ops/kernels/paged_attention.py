@@ -348,3 +348,48 @@ def ragged_paged_attention_quantized(
     return ragged_paged_attention_quantized_cuda(
         q, k_pool, k_scale, v_pool, v_scale, page_table, q_positions, sliding_window,
         kv_lens, q_lens)
+
+
+def sharded_ragged_paged_attention(
+    mesh,
+    q: torch.Tensor,            # [B, T, N/tp, H] — this rank's heads
+    k_pool: torch.Tensor,       # [P, K/tp, PS, H] — this rank's pool block
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,   # [B, NP] — replicated
+    q_positions: torch.Tensor,
+    sliding_window: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    q_lens: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The ragged paged kernel under a tp mesh (JAX
+    `sharded_ragged_paged_attention`: a `shard_map` over the pool's KV-head
+    axis, tables replicated). Each rank holds its tp-th of the pool's KV
+    heads and of the query heads, so it launches the kernel on that block;
+    heads never meet, no collective."""
+    from .dispatch import paged_attention
+
+    validate_window(q, k_pool.shape[1])
+    return paged_attention(q, k_pool, v_pool, page_table, q_positions,
+                           sliding_window, kv_lens, q_lens)
+
+
+def sharded_ragged_paged_attention_quantized(
+    mesh,
+    q: torch.Tensor,
+    k_pool: torch.Tensor,       # [P, K/tp, PS, H] int8
+    k_scale: torch.Tensor,      # [P, K/tp, PS] f32
+    v_pool: torch.Tensor,
+    v_scale: torch.Tensor,
+    page_table: torch.Tensor,
+    q_positions: torch.Tensor,
+    sliding_window: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    q_lens: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`sharded_ragged_paged_attention` over the int8 pool and its scales."""
+    from .dispatch import paged_attention_quantized
+
+    validate_window(q, k_pool.shape[1])
+    return paged_attention_quantized(q, k_pool, k_scale, v_pool, v_scale,
+                                     page_table, q_positions, sliding_window,
+                                     kv_lens, q_lens)

@@ -29,9 +29,10 @@ serving configurations use, the way the reference's users run these models
 - int8 KV: one f32 scale per cache slot (absmax over the head dim), int8
   values. `quantize_cache` gives the contiguous cache layout
   {"k8", "ks", "v8", "vs"}.
-- `mm(x, w)`: a plain `@` for a bf16/f32 weight, the int8 matmul kernel for
-  a q8 tree, the int4 matmul kernel (`ops/kernels/int4mm.py`) for a q4
-  tree; on the CPU the kernels' plain versions.
+- `mm(x, w, mesh, partition)`: a plain `@` for a bf16/f32 weight, the int8
+  matmul kernel for a q8 tree, the int4 matmul kernel
+  (`ops/kernels/int4mm.py`) for a q4 tree; on the CPU the kernels' plain
+  versions. Under a mesh a row-parallel product is all-reduced over tp.
 
 Rounding is `torch.round` (half to even, as `jnp.round`) and every division
 is a true tensor-by-tensor division (PyTorch turns a division by a Python
@@ -107,18 +108,24 @@ def dequantize_weight_int4(w: Dict[str, torch.Tensor],
     return (grouped * w["s4"][..., None, :]).reshape(q.shape).to(dtype)
 
 
-def quantize_params_int4(params: Dict[str, Any], group: int = 128) -> Dict[str, Any]:
+def quantize_params_int4(params: Dict[str, Any], group: int = 128,
+                         mesh=None) -> Dict[str, Any]:
     """int4-quantize the block matmul weights of a params tree (group
     clamped by `tp_safe_group`). Layer by layer, so a 7B tree quantizes on
     the card without a full-size f32 copy; the result is the same as
-    quantizing the stacked weight at once."""
+    quantizing the stacked weight at once. Under a `mesh` the tree is a
+    rank's block and the result that block of the whole tree's
+    quantization: a row-parallel weight's group comes from its whole
+    contraction (tp_safe_group keeps whole groups on each rank)."""
     out = dict(params)
     blocks = {}
+    tp = 1 if mesh is None else mesh.shape["tp"]
     for k, v in params["blocks"].items():
         if k not in QUANT_KEYS:
             blocks[k] = v
             continue
-        g = tp_safe_group(v.shape[-2], group)
+        n_in = v.shape[-2] * (tp if k in ("wo", "wd") else 1)
+        g = tp_safe_group(n_in, group)
         per = [quantize_weight_int4(v[i], g) for i in range(v.shape[0])]
         blocks[k] = {"q4": torch.stack([p["q4"] for p in per]),
                      "s4": torch.stack([p["s4"] for p in per])}
@@ -126,12 +133,18 @@ def quantize_params_int4(params: Dict[str, Any], group: int = 128) -> Dict[str, 
     return out
 
 
-def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, mesh=None) -> Dict[str, torch.Tensor]:
     """[..., in, out] float -> {"q8": int8 [..., in, out], "s": f32
     [..., out]}: absmax over the contraction axis / 127 (1 where a column is
-    all zeros)."""
+    all zeros). With a `mesh`, `w` is a row-parallel block (a tp-th of the
+    contraction): the absmax is reduced over tp first, so every rank gets
+    the scale of the whole weight and its block of the whole weight's q8."""
     w32 = w.float()
     amax = w32.abs().amax(dim=-2)                        # [..., out]
+    if mesh is not None:
+        from .common import all_reduce
+
+        amax = all_reduce(amax, mesh, "tp", op="max")
     s = amax / torch.full_like(amax, 127.0)
     s = torch.where(s == 0.0, torch.ones_like(s), s)
     q8 = torch.clamp(torch.round(w32 / s[..., None, :]), -127, 127).to(torch.int8)
@@ -145,17 +158,21 @@ def dequantize_weight(w: Dict[str, torch.Tensor],
     return (w["q8"].float() * w["s"][..., None, :]).to(dtype)
 
 
-def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
+def quantize_params(params: Dict[str, Any], mesh=None) -> Dict[str, Any]:
     """int8-quantize the block matmul weights of a params tree. Layer by
     layer, so a 7B tree quantizes on the card without a full-size f32 copy;
-    the result is the same as quantizing the stacked weight at once."""
+    the result is the same as quantizing the stacked weight at once. Under
+    a `mesh` the tree is a rank's block (a sharded load) and the result is
+    that rank's block of the whole tree's quantization: the row-parallel
+    weights' scales come from the absmax over every rank's rows."""
     out = dict(params)
     blocks = {}
     for k, v in params["blocks"].items():
         if k not in QUANT_KEYS:
             blocks[k] = v
             continue
-        per = [quantize_weight(v[i]) for i in range(v.shape[0])]
+        row = mesh if k in ("wo", "wd") else None
+        per = [quantize_weight(v[i], row) for i in range(v.shape[0])]
         blocks[k] = {"q8": torch.stack([p["q8"] for p in per]),
                      "s": torch.stack([p["s"] for p in per])}
     out["blocks"] = blocks
@@ -263,29 +280,58 @@ def quantize_cache(k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"k8": kq["q8"], "ks": kq["s"], "v8": vq["q8"], "vs": vq["s"]}
 
 
-def mm(x: torch.Tensor, w: Any) -> torch.Tensor:
+def mm(x: torch.Tensor, w: Any, mesh=None, partition: str = "col") -> torch.Tensor:
     """x [..., IN] @ w: a plain matmul for a tensor; for a q8 tree the int8
     matmul kernel, for a q4 tree the int4 matmul kernel (their plain
-    versions on the CPU); in x's dtype."""
+    versions on the CPU); in x's dtype.
+
+    Under a mesh `w` is this rank's block with the weight's Megatron
+    `partition` (parallel/sharding.py): "col" (wq/wk/wv/wg/wu) holds a
+    tp-th of the out axis and needs no collective; "row" (wo/wd) holds a
+    tp-th of the contraction, so the partial products are all-reduced over
+    tp. A q4 tree goes through `sharded_int4_matmul`. A q8 tree's
+    per-channel scale multiplies each partial product inside the int8
+    kernel, before the all-reduce, where JAX scales the sum: the same
+    product, rounded in another order."""
+    if is_q4tensor(w):
+        return _q4_mm(x, w, mesh, partition)
     if isinstance(w, torch.Tensor):
-        return x @ w
-    if is_qtensor(w):
+        out = x @ w
+    elif is_qtensor(w):
         from .kernels.dispatch import int8_mm
 
-        return _rows(x, lambda x2: int8_mm(x2, w["q8"], w["s"]))
-    if is_q4tensor(w):
-        from .kernels.dispatch import int4_mm
+        out = _rows(x, lambda x2: int8_mm(x2, w["q8"], w["s"]))
+    else:
+        raise TypeError(f"mm takes a tensor, a q8 or a q4 tree, got {type(w).__name__}")
+    if partition == "row" and mesh is not None:
+        from .common import all_reduce
 
-        return _rows(x, lambda x2: int4_mm(x2, w["q4"], w["s4"]))
-    raise TypeError(f"mm takes a tensor, a q8 or a q4 tree, got {type(w).__name__}")
+        out = all_reduce(out, mesh, "tp")
+    elif partition not in ("col", "row"):
+        raise ValueError(f"partition must be 'col' or 'row', got {partition!r}")
+    return out
 
 
-def mm_stacked(x: torch.Tensor, w: Any) -> torch.Tensor:
+def _q4_mm(x: torch.Tensor, w: Dict[str, torch.Tensor], mesh,
+           partition: str) -> torch.Tensor:
+    """The int4 route of mm/mm_stacked: x's leading axes flattened to kernel
+    rows, the sharded wrapper under a mesh."""
+    from .kernels.dispatch import int4_mm
+    from .kernels.int4mm import sharded_int4_matmul
+
+    if mesh is not None:
+        return _rows(x, lambda x2: sharded_int4_matmul(
+            mesh, x2, w["q4"], w["s4"], partition=partition))
+    return _rows(x, lambda x2: int4_mm(x2, w["q4"], w["s4"]))
+
+
+def mm_stacked(x: torch.Tensor, w: Any, mesh=None) -> torch.Tensor:
     """x [..., D] @ a stacked fused weight [D, C, O] -> [..., C, O]
     (`models/llama.fuse_blocks`): one matmul over the contiguous (C, O)
     tail, so each output column is the same dot product as unfused. A
     tensor, a q8 tree (s [C, O]) or a q4 tree (q4 [D/2, C, O], s4 [G, C,
-    O]: the int4 kernel flattens the tail)."""
+    O]: the int4 kernel flattens the tail). Always column-parallel: under a
+    mesh each rank holds a tp-th of O and the C split stays local."""
     if isinstance(w, torch.Tensor):
         c, o = w.shape[-2:]
         out = x @ w.reshape(w.shape[0], c * o)
@@ -296,10 +342,8 @@ def mm_stacked(x: torch.Tensor, w: Any) -> torch.Tensor:
         q8 = w["q8"].reshape(w["q8"].shape[0], c * o)
         out = _rows(x, lambda x2: int8_mm(x2, q8, w["s"].reshape(c * o)))
     elif is_q4tensor(w):
-        from .kernels.dispatch import int4_mm
-
         c, o = w["q4"].shape[-2:]
-        out = _rows(x, lambda x2: int4_mm(x2, w["q4"], w["s4"]))
+        out = _q4_mm(x, w, mesh, "col")
     else:
         raise TypeError(f"mm_stacked takes a tensor, a q8 or a q4 tree, got "
                         f"{type(w).__name__}")

@@ -48,27 +48,26 @@ def resolve_constraint(constrain, tokenizer, stop_ids):
 
 
 def refuse_unported_load(mesh=None, quantize_int8=False, quantize_int4=False) -> None:
-    """Raise on checkpoint-constructor options that do not combine, and,
-    naming the ROADMAP item, on one the port cannot honor yet."""
+    """Raise on checkpoint-constructor options that do not combine."""
     if quantize_int8 and quantize_int4:
         raise ValueError("pick one of quantize_int8 / quantize_int4")
-    if mesh is not None:
-        raise NotImplementedError("mesh is not ported: ROADMAP A13 (parallelism)")
 
 
 def quantize_loaded(params, quantize_int8=False, quantize_int4=False,
-                    quantize_unembed8=False):
+                    quantize_unembed8=False, mesh=None):
     """A loaded tree in the serving format the checkpoint constructors ask
     for, in the JAX package's order: int4 or int8 block weights first
     (`quantize_params_int4`, `quantize_params`), then the int8 embed /
     unembed tables (`quantize_unembed`), which compose with either or
-    none."""
+    none. Under a `mesh` the tree is this rank's block (a load straight to
+    the mesh) and so is the result: int4 groups and unembed rows lie whole
+    on a rank, and the int8 row-parallel scales reduce over tp."""
     from ..ops.quant import quantize_params, quantize_params_int4, quantize_unembed
 
     if quantize_int4:
-        params = quantize_params_int4(params)
+        params = quantize_params_int4(params, mesh=mesh)
     elif quantize_int8:
-        params = quantize_params(params)
+        params = quantize_params(params, mesh)
     if quantize_unembed8:
         params = quantize_unembed(params)
     return params
@@ -167,7 +166,8 @@ class EngineBackend:
 
         return cls._from_checkpoint(
             lambda dtype, device: load_hf_checkpoint(
-                ckpt_dir, dtype=dtype or torch.bfloat16, device=device),
+                ckpt_dir, dtype=dtype or torch.bfloat16, device=device,
+                mesh=kwargs.get("mesh")),
             tokenizer, **kwargs)
 
     @classmethod
@@ -180,7 +180,8 @@ class EngineBackend:
 
         return cls._from_checkpoint(
             lambda dtype, device: load_gguf_checkpoint(
-                gguf_path, cfg=cfg, dtype=dtype, device=device),
+                gguf_path, cfg=cfg, dtype=dtype, device=device,
+                mesh=kwargs.get("mesh")),
             tokenizer, **kwargs)
 
     @classmethod
@@ -194,15 +195,15 @@ class EngineBackend:
         from .. import resolve_device
 
         refuse_unported_load(mesh, quantize_int8, quantize_int4)
-        dev = resolve_device(device)
+        dev = mesh.device if mesh is not None else resolve_device(device)
         cfg, params = load(dtype, dev)
         params = quantize_loaded(params, quantize_int8, quantize_int4,
-                                 quantize_unembed8)
+                                 quantize_unembed8, mesh)
         engine = InferenceEngine(
             cfg, params, prompt_bucket=prompt_bucket, device=dev,
             stop_ids=stop_ids if stop_ids is not None
             else resolve_stop_ids(cfg, tokenizer),
-            kv_quant=kv_quant, speculative_draft=speculative_draft,
+            kv_quant=kv_quant, speculative_draft=speculative_draft, mesh=mesh,
         )
         return cls(engine, tokenizer, **kwargs)
 

@@ -203,8 +203,17 @@ the fault seams run before it is taken.
   transport (serve/remote.py): a `SocketTransport` to a worker process or a
   `LoopbackTransport`, kept under a heartbeat lease. The elastic fleet's
   `FleetAutoscaler` (serve/elastic.py) joins standbys through `add_replica`
-  and retires them through `retire_replica`. Meshes (A7.12, A13) are not
-  ported.
+  and retires them through `retire_replica`.
+- A tp mesh (`mesh`, parallel/; A7.12): each rank holds its block of the
+  params and allocates its block of the cache or pool (a tp-th of the KV
+  heads). Rank 0 runs the host loop; every forward and every device cache
+  operation it takes (`_fwd`, `_mirror`: prefix-block publish, restore and
+  evict, page copies) is posted over the step channel
+  (parallel/spmd.py) and replayed by the other ranks' schedulers, which
+  follow from `start()` to rank 0's `shutdown()` and take no requests.
+  dp must be 1 (as JAX: the slot axis cannot shard); sp > 1, phase roles
+  (the handoff's page export) and `kv_spill` raise NotImplementedError
+  under a mesh (ROADMAP A13.1, A13.2).
 - Phase roles (`phase_role`, paged only; a pool's `LSOT_POOL_PHASES`): a
   "prefill" replica's final chunk parks its first token on the device
   (`_handoff_pending`); `_pack_handoffs` commits and streams it, exports
@@ -283,6 +292,7 @@ from .resilience import (
     SlotStalled,
 )
 from .watchdog import CombinedHeartbeat, Heartbeat
+from ..parallel.sharding import shard_params, validate_tp
 
 _M32 = 0xFFFFFFFF
 _log = logging.getLogger("lsot.scheduler")
@@ -657,8 +667,13 @@ class ContinuousBatchingScheduler:
         tenant_weights: Optional[str] = None,
         prefix_tenant_ns: Optional[bool] = None,
         pump_depth: Optional[int] = None,
+        mesh=None,
         device=None,
     ):
+        # The constructor's arguments: under a mesh a follower rebuilds its
+        # twin of a scheduler rank 0 rebuilds (`_register`).
+        init_args = {k: v for k, v in locals().items()
+                     if k not in ("self", "__class__")}
         # Phase role (PHASE_ROLES): "mixed", the default, is the scheduler
         # without roles. A "prefill" replica commits and streams each
         # request's first token, exports its KV pages into a host blob
@@ -771,6 +786,40 @@ class ContinuousBatchingScheduler:
                 "(a phase-split replica has no mixed rounds to unify)")
         self._ragged = bool(ragged)
         self.cfg = cfg
+        self.mesh = mesh
+        self._kv_cfg = cfg
+        # Rank 0 of a mesh of several ranks posts its device steps; the other
+        # ranks replay them (`_mesh_follower`).
+        self._mesh_drive = self._mesh_follower = False
+        if mesh is not None:
+            if mesh.shape["dp"] != 1:
+                raise ValueError(
+                    "scheduler mesh must have dp=1: request parallelism comes "
+                    "from slots; the slot axis is dynamically indexed and "
+                    "cannot shard")
+            if mesh.shape["sp"] != 1:
+                raise NotImplementedError(
+                    "the scheduler under sp > 1 is not ported: ROADMAP A13.1 "
+                    "(sequence parallelism beyond the engine's contiguous "
+                    "cache)")
+            if phase_role != "mixed":
+                raise NotImplementedError(
+                    "phase roles under a mesh are not ported (the handoff "
+                    "exports a sharded pool): ROADMAP A13.2")
+            validate_tp(cfg, mesh.shape["tp"])
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh rank's "
+                                 f"{mesh.device}")
+            device = mesh.device
+            # Rank 0's rebuild of this scheduler (same params, same
+            # arguments) is matched to this one by the key.
+            self._twin_key = (id(params), {k: v for k, v in init_args.items()
+                                           if k != "params"})
+            params = shard_params(params, cfg, mesh)
+            self._kv_cfg = mesh.local_cfg(cfg)
+            self._mesh_drive = mesh.distributed and mesh.is_primary
+            self._mesh_follower = mesh.distributed and not mesh.is_primary
+            self._mesh_closed = False
         self.device = resolve_device(device)
         if params["final_norm"].device.type != self.device.type:
             raise ValueError(f"params are on {params['final_norm'].device}, "
@@ -780,6 +829,12 @@ class ContinuousBatchingScheduler:
             # (models/llama.fuse_blocks); `self.params` is the fused tree.
             params = fuse_blocks(params)
         self.params = params
+        if mesh is not None:
+            # How this rank rebuilds a twin when rank 0 rebuilds this
+            # scheduler (`_register`): from this rank's final tree, the
+            # whole tree is not kept.
+            recipe = partial(ContinuousBatchingScheduler,
+                             **dict(init_args, params=params, fuse_matmuls=False))
         self._weight_bits = infer_weight_bits(params)
         self.num_slots = num_slots
         self.max_seq = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
@@ -802,8 +857,8 @@ class ContinuousBatchingScheduler:
         else:
             # [L, slots, K, S, H], S rounded up to a multiple of 8 (int8:
             # values, and scales [L, slots, K, S]).
-            self._cache = init_cache(cfg, num_slots, self.max_seq, dtype, dev,
-                                     kv_quant)
+            self._cache = init_cache(self._kv_cfg, num_slots, self.max_seq,
+                                     dtype, dev, kv_quant)
             # Prefix cache: content key (token prefix) -> one block's K/V
             # (and scales), each [L, 1, K, pblock(, H)].
             self._prefix_cache: "OrderedDict[Tuple[int, ...], Dict[str, torch.Tensor]]" = (
@@ -977,8 +1032,71 @@ class ContinuousBatchingScheduler:
         self._profile_arm: Optional[Dict[str, object]] = None
         self._profile_active: Optional[Dict[str, object]] = None
         self._profile_last: Optional[Dict[str, object]] = None
+        if mesh is not None:
+            # Registered last: a follower's step loop may drive it at once.
+            self._mesh_id = self._register(mesh)
+            mesh._recipes[self._mesh_id] = (self._twin_key, recipe)
 
     # ----------------------------------------------------- device helpers
+
+    def _fwd(self, tokens, positions, cache, **kw):
+        """`models.llama.forward` over this scheduler's params and mesh. On
+        rank 0 of a mesh the call is posted first (the cache named, not
+        sent: "cache" or a paged call's page table), and both run under
+        the mesh's lock."""
+        if not self._mesh_drive:
+            return forward(self.cfg, self.params, tokens, positions, cache,
+                           mesh=self.mesh, **kw)
+        from ..parallel import spmd
+
+        ref = cache["ptab"] if self._paged else "cache"
+        with self.mesh.lock:
+            spmd.post(self.mesh, self._mesh_id, "_follow_fwd", tokens,
+                      positions, ref, kw)
+            return forward(self.cfg, self.params, tokens, positions, cache,
+                           mesh=self.mesh, **kw)
+
+    def _register(self, mesh) -> int:
+        """This scheduler's index on the mesh. Built while the followers
+        follow (rank 0's supervisor rebuilding a crashed scheduler), it
+        first has each follower build its twin from the recipe of the
+        scheduler built before from the same params and arguments."""
+        if not (mesh.driving and mesh.is_primary):
+            return mesh.register(self)
+        from ..parallel import spmd
+
+        same = [i for i, (key, _) in mesh._recipes.items() if key == self._twin_key]
+        if not same:
+            raise NotImplementedError(
+                "a scheduler built on rank 0 after the followers started, "
+                "with no twin on them, is not ported: ROADMAP A13.3")
+        with mesh.lock:
+            spmd.post_rebuild(mesh, same[-1])
+            return mesh.register(self)
+
+    @torch.inference_mode()
+    def _follow_fwd(self, tokens, positions, ref, kw) -> None:
+        cache = self._cache if isinstance(ref, str) else dict(self._pool, ptab=ref)
+        forward(self.cfg, self.params, tokens, positions, cache, mesh=self.mesh,
+                **kw)
+
+    def _mirror(self, method: str, *args) -> None:
+        """Rank 0 of a mesh: post a device cache operation for the other
+        ranks' schedulers to apply to their blocks."""
+        if self._mesh_drive:
+            from ..parallel import spmd
+
+            with self.mesh.lock:
+                spmd.post(self.mesh, self._mesh_id, method, *args)
+
+    def _follow_publish(self, key, slot: int, start: int) -> None:
+        self._prefix_cache[key] = self._slice_block(slot, start)
+
+    def _follow_restore(self, key, slot: int, start: int) -> None:
+        self._restore_block(self._prefix_cache[key], slot, start)
+
+    def _follow_evict(self, key) -> None:
+        self._prefix_cache.pop(key, None)
 
     def _h2d(self, data, dtype: torch.dtype) -> torch.Tensor:
         """A host list as a tensor on the scheduler's device, without a
@@ -1042,6 +1160,7 @@ class ContinuousBatchingScheduler:
     def _copy_page(self, dst: int, src: int) -> None:
         """One-page device copy (copy-on-write), every layer, K and V (and
         their scale pages in an int8 pool)."""
+        self._mirror("_copy_page", dst, src)
         for pool in self._pool.values():
             pool[:, dst] = pool[:, src]
 
@@ -1060,7 +1179,7 @@ class ContinuousBatchingScheduler:
         if kv_pages:
             num_pages = int(kv_pages)
         elif kv_hbm_budget_bytes:
-            num_pages = pages_for_budget(cfg, kv_hbm_budget_bytes, ps,
+            num_pages = pages_for_budget(self._kv_cfg, kv_hbm_budget_bytes, ps,
                                          dtype.itemsize, self.kv_quant)
         else:
             # Default: the contiguous layout's own footprint.
@@ -1079,8 +1198,8 @@ class ContinuousBatchingScheduler:
         self._prefix_pages: "OrderedDict[Tuple[int, ...], Tuple[int, ...]]" = (
             OrderedDict())
         self._page_wait_events = 0
-        self._pool = init_page_pool(cfg, num_pages, ps, dtype, self.device,
-                                    self.kv_quant)
+        self._pool = init_page_pool(self._kv_cfg, num_pages, ps, dtype,
+                                    self.device, self.kv_quant)
         # Device page tables; the unmapped sentinel is num_pages.
         self._ptab = torch.full((num_slots, self._pages_per_slot), num_pages,
                                 dtype=torch.int32, device=self.device)
@@ -1102,6 +1221,10 @@ class ContinuousBatchingScheduler:
         self._kv_overcommit = float(kv_overcommit)
         self._kv_spill = bool(_env_on("LSOT_KV_SPILL") if kv_spill is None
                               else kv_spill)
+        if self._kv_spill and self.mesh is not None:
+            raise NotImplementedError(
+                "kv_spill under a mesh is not ported (a spill exports the "
+                "rank's pool block): ROADMAP A13.2")
         if kv_watermark_low is None:
             kv_watermark_low = float(os.environ.get("LSOT_KV_WATERMARK_LOW", "0.0"))
         if kv_watermark_high is None:
@@ -1395,6 +1518,12 @@ class ContinuousBatchingScheduler:
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> "ContinuousBatchingScheduler":
+        if self._mesh_follower:
+            # This rank replays rank 0's steps (parallel/spmd.py).
+            from ..parallel import spmd
+
+            spmd.ensure_following(self.mesh)
+            return self
         if self._thread is None:
             if self._crash is not None:
                 raise self._crash_error()
@@ -1411,12 +1540,23 @@ class ContinuousBatchingScheduler:
         return self
 
     def shutdown(self, timeout: Optional[float] = None) -> None:
-        """Stop the event loop and join it."""
+        """Stop the event loop and join it. Under a mesh rank 0 then tells
+        the other ranks' schedulers, which return from here once it has."""
+        if self._mesh_follower:
+            from ..parallel import spmd
+
+            spmd.wait_closed(self.mesh, self._mesh_id)
+            return
         if self._thread is not None:
             self._stop_evt.set()
             self._queue.put(None)  # wake the loop
             self._thread.join(timeout)
             self._thread = None
+        if self._mesh_drive and not self._mesh_closed:
+            from ..parallel import spmd
+
+            self._mesh_closed = True
+            spmd.post_close(self.mesh, self._mesh_id)
 
     def __enter__(self):
         return self.start()
@@ -1469,6 +1609,10 @@ class ContinuousBatchingScheduler:
         sched.* spans. A non-empty `model_id` must be this scheduler's
         (`UnknownModel` otherwise); `tenant` and `qos` order admission
         under QoS and are carried but never read with it off."""
+        if self._mesh_follower:
+            raise RuntimeError(
+                f"rank {self.mesh.rank} follows rank 0's scheduler: submit on "
+                "rank 0 (parallel.is_primary)")
         if model_id and model_id != self.model_id:
             from .modelpool import UnknownModel
 
@@ -2326,6 +2470,7 @@ class ContinuousBatchingScheduler:
         for j in range(n):
             key = req.ns + tuple(ids[: (j + 1) * pb])
             self._prefix_cache.move_to_end(key)  # LRU touch
+            self._mirror("_follow_restore", key, slot, j * pb)
             self._restore_block(self._prefix_cache[key], slot, j * pb)
         req.prefilled = n * pb
         self._prefix_note_admission(req, ids, n * pb, n)
@@ -2455,15 +2600,15 @@ class ContinuousBatchingScheduler:
             rows = [self._slot_pages[s] + [num_pages] * (
                 self._pages_per_slot - len(self._slot_pages[s])) for s, _ in group]
             cache = dict(self._pool, ptab=self._h2d(rows, torch.int32))
-            logits, _ = forward(cfg, self.params, tokens_t, positions, cache,
-                                logit_indices=last, span=span)
+            logits, _ = self._fwd(tokens_t, positions, cache,
+                                  logit_indices=last, span=span)
         else:
             # Over the slots' own cache rows, one layer at a time, reading
             # the slots below the chunks' end (rounded up to 64).
-            logits, _ = forward(cfg, self.params, tokens_t, positions,
-                                self._cache, logit_indices=last,
-                                rows=self._h2d([s for s, _ in group], torch.int64),
-                                span=span + -span % 64)
+            logits, _ = self._fwd(tokens_t, positions,
+                                  self._cache, logit_indices=last,
+                                  rows=self._h2d([s for s, _ in group], torch.int64),
+                                  span=span + -span % 64)
         self.prefill_forwards += 1
         self._note_prefill(starts, t)
         first = logits[:, 0]
@@ -2590,12 +2735,15 @@ class ContinuousBatchingScheduler:
                 continue
             if self._first_sighting(key):
                 continue
+            self._mirror("_follow_publish", key, slot, b0 * pb)
             entry = self._prefix_cache[key] = self._slice_block(slot, b0 * pb)
             if not self._prefix_block_bytes:
                 self._prefix_block_bytes = sum(b.nbytes for b in entry.values())
             self._prefix_note_publish(key)
             while len(self._prefix_cache) > self._prefix_cache_blocks:
-                self._prefix_note_evict(self._prefix_cache.popitem(last=False)[0])
+                evicted = self._prefix_cache.popitem(last=False)[0]
+                self._mirror("_follow_evict", evicted)
+                self._prefix_note_evict(evicted)
 
     def _publish_blocks_paged(self, slot: int, req: _Request,
                               chunk_start: int) -> None:
@@ -2640,8 +2788,8 @@ class ContinuousBatchingScheduler:
         slots' states advance. Returns [slots, chunk]."""
         cache = dict(self._pool, ptab=self._ptab) if self._paged else self._cache
         for i in range(first, self.decode_chunk):
-            logits, _ = forward(
-                self.cfg, self.params, cur[:, None], pos[:, None], cache,
+            logits, _ = self._fwd(
+                cur[:, None], pos[:, None], cache,
                 # Parked slots read nothing; live slots up to their position.
                 kv_lens=torch.where(active, pos + 1, 0),
             )
@@ -2727,13 +2875,13 @@ class ContinuousBatchingScheduler:
         last = torch.where(pref, self._h2d(p_lengths, torch.int64) - 1, 0)
         cache = dict(self._pool, ptab=self._ptab)
         if w == 1:  # one column a row: unembed it alone
-            logits, _ = forward(cfg, self.params, tokens0, pos0, cache,
-                                logit_indices=last, kv_lens=kv0,
-                                q_lens=q_lens.to(torch.int32))
+            logits, _ = self._fwd(tokens0, pos0, cache,
+                                  logit_indices=last, kv_lens=kv0,
+                                  q_lens=q_lens.to(torch.int32))
             first = logits[:, 0]
         else:
-            logits, _ = forward(cfg, self.params, tokens0, pos0, cache, kv_lens=kv0,
-                                q_lens=q_lens.to(torch.int32))
+            logits, _ = self._fwd(tokens0, pos0, cache, kv_lens=kv0,
+                                  q_lens=q_lens.to(torch.int32))
             first = logits[torch.arange(num_slots, device=dev), last]
         if grammar:
             p_cinits, p_cbudgets = [0] * num_slots, [1] * num_slots
@@ -2788,12 +2936,12 @@ class ContinuousBatchingScheduler:
         drafts, verify, vpos = self._spec_window()
         kv_lens = torch.where(active, self._pos + d1, 0)
         if self._paged:
-            logits, _ = forward(self.cfg, self.params, verify, vpos,
-                                dict(self._pool, ptab=self._ptab), kv_lens=kv_lens,
-                                q_lens=torch.where(active, d1, 0).to(torch.int32))
+            logits, _ = self._fwd(verify, vpos,
+                                  dict(self._pool, ptab=self._ptab), kv_lens=kv_lens,
+                                  q_lens=torch.where(active, d1, 0).to(torch.int32))
         else:
-            logits, _ = forward(self.cfg, self.params, verify, vpos, self._cache,
-                                kv_lens=kv_lens)
+            logits, _ = self._fwd(verify, vpos, self._cache,
+                                  kv_lens=kv_lens)
         return self._commit_verify(logits, drafts, active, sampled, grammar)
 
     def _commit_verify(self, logits: torch.Tensor, drafts: torch.Tensor,
@@ -5585,7 +5733,8 @@ class SchedulerBackend:
 
         return cls._from_checkpoint(
             lambda dtype, device: load_hf_checkpoint(
-                ckpt_dir, dtype=dtype or torch.bfloat16, device=device),
+                ckpt_dir, dtype=dtype or torch.bfloat16, device=device,
+                mesh=kwargs.get("mesh")),
             os.path.basename(ckpt_dir.rstrip("/")), tokenizer, **kwargs)
 
     @classmethod
@@ -5600,7 +5749,8 @@ class SchedulerBackend:
 
         return cls._from_checkpoint(
             lambda dtype, device: load_gguf_checkpoint(
-                gguf_path, cfg=cfg, dtype=dtype, device=device),
+                gguf_path, cfg=cfg, dtype=dtype, device=device,
+                mesh=kwargs.get("mesh")),
             os.path.basename(gguf_path), tokenizer, **kwargs)
 
     @classmethod
@@ -5646,9 +5796,10 @@ class SchedulerBackend:
         from .backends import quantize_loaded, refuse_unported_load, resolve_stop_ids
 
         refuse_unported_load(mesh, quantize_int8, quantize_int4)
-        cfg, params = load(dtype, resolve_device(device))
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        cfg, params = load(dtype, dev)
         params = quantize_loaded(params, quantize_int8, quantize_int4,
-                                 quantize_unembed8)
+                                 quantize_unembed8, mesh)
         stops = (tuple(stop_ids) if stop_ids is not None
                  else resolve_stop_ids(cfg, tokenizer))
 
@@ -5668,9 +5819,11 @@ class SchedulerBackend:
                 max_queue_depth=max_queue_depth,
                 speculative_draft=speculative_draft, qos=qos,
                 tenant_weights=tenant_weights, prefix_tenant_ns=prefix_tenant_ns,
-                device=params["final_norm"].device)
+                mesh=mesh, device=params["final_norm"].device)
 
-        if supervise:
+        # A follower rank's scheduler only replays rank 0's steps; rank 0's
+        # supervisor rebuilds a crashed one on every rank (`_register`).
+        if supervise and (mesh is None or mesh.is_primary):
             from .supervisor import SupervisedScheduler
 
             return cls(SupervisedScheduler(

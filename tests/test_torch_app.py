@@ -319,11 +319,35 @@ def args_for(*argv):
     (("--dp", "2", "--no-scheduler"), "A13"),
     (("--sp", "2"), "A13"),
 ])
-def test_entry_point_refuses_unported_flags(argv, item):
-    """Meshes are A13: `--tp`/`--sp` > 1, and `--dp` > 1 without
-    `--scheduler` (the engine's dp mesh; with it, a replica pool)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        entry.build_service(args_for("--cpu", "--backend", "tiny", *argv), AppConfig())
+def test_entry_point_refuses_unported_flags(argv, item, tmp_path):
+    """The meshes of ROADMAP A13 are ported: `--tp`/`--sp` > 1, and `--dp`
+    > 1 without `--scheduler` (the engine's dp mesh), parse and build a
+    mesh over two gloo ranks, on which the entry point's tiny service
+    serves each model's completion as one rank does. `--sp` with the
+    scheduler exits with JAX's message (decode has no sequence to shard);
+    with `--no-scheduler` it builds the sp mesh."""
+    from torch_spmd import run_group
+
+    assert item == "A13"
+    argv = list(argv)
+    if argv[0] == "--sp":
+        args = args_for("--cpu", "--backend", "tiny", *argv)
+        with pytest.raises(SystemExit, match="no sp axis"):
+            entry.mesh_ranks(args, AppConfig())
+        argv.append("--no-scheduler")
+    flags = ["--cpu", "--backend", "tiny", *argv]
+    base = entry.build_service(args_for(*[f for f in flags if f not in argv[:2]]),
+                               AppConfig())
+    try:
+        want = [base.generate(m, "select count from taxi", max_new_tokens=6).response
+                for m in ("duckdb-nsql", "mistral")]
+    finally:
+        base.close()
+    (shape, texts), (shape1, _) = run_group(
+        2, "app_cases", tmp_path,
+        {"argv": flags, "prompt": "select count from taxi", "new": 6})
+    assert shape == shape1 == {"dp": 1, "sp": 1, "tp": 1, argv[0][2:]: 2}
+    assert texts == want
 
 
 @pytest.mark.parametrize("knob,value,item", [

@@ -198,10 +198,21 @@ def test_config_from_hf_matches_jax():
 
 
 def test_loading_onto_several_devices_names_a13(tmp_path):
+    """A sharded load (ROADMAP A13, ported) names its mesh: a list of
+    several devices is not one and raises, pointing at `mesh`; a load onto
+    a mesh of one rank is the plain load (each rank's block on a mesh of
+    several: tests/test_torch_parallel.py)."""
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import make_mesh
+
     jax_save_hf(JAX_TINY, jax_init(JAX_TINY, jax.random.key(8), dtype=jnp.float32),
                 tmp_path)
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="mesh"):
         load_hf_checkpoint(tmp_path, device=["cpu", "cpu"])
+    _, whole = load_hf_checkpoint(tmp_path, device="cpu", dtype=torch.float32)
+    _, on_mesh = load_hf_checkpoint(tmp_path, dtype=torch.float32,
+                                    mesh=make_mesh(devices=["cpu"]))
+    for k, v in leaves(whole).items():
+        assert torch.equal(leaves(on_mesh)[k], v), k
 
 
 def test_native_cache_round_trip(tmp_path):
@@ -312,9 +323,28 @@ def test_backends_from_hf_checkpoint_serve_speculative(tmp_path, backend):
     ({"mesh": object()}, "A13"),
 ])
 def test_scheduler_from_hf_refuses_unported(tmp_path, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SchedulerBackend.from_hf_checkpoint(str(tmp_path), ByteTokenizer(),
-                                            device="cpu", **kwargs)
+    """A mesh (ROADMAP A13) is ported: the constructor takes one and loads
+    each rank's block onto its device (tests/test_torch_parallel.py); what
+    it still refuses is a scheduler mesh with a dp axis (as JAX) and the
+    spill of a sharded pool (ROADMAP A13.2)."""
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import make_mesh
+
+    assert item == "A13" and "mesh" in kwargs
+    jax_save_hf(JAX_TINY, jax_init(JAX_TINY, jax.random.key(8), dtype=jnp.float32),
+                tmp_path)
+    sb = SchedulerBackend.from_hf_checkpoint(
+        str(tmp_path), ByteTokenizer(), mesh=make_mesh(devices=["cpu"]),
+        dtype=torch.float32, num_slots=2, max_seq=64)
+    try:
+        assert sb.scheduler.mesh.shape == {"dp": 1, "sp": 1, "tp": 1}
+        assert sb.scheduler.submit([1, 5, 9], max_new_tokens=4).result(timeout=60)
+    finally:
+        sb.shutdown()
+    with pytest.raises(NotImplementedError, match="A13.2"):
+        SchedulerBackend.from_hf_checkpoint(
+            str(tmp_path), ByteTokenizer(), mesh=make_mesh(devices=["cpu"]),
+            dtype=torch.float32, num_slots=2, max_seq=64, kv_layout="paged",
+            kv_spill=True)
 
 
 def int8_tokens_of_jax(jtree, jcfg, ids):

@@ -12,8 +12,9 @@ rendered text (apart from wall-clock fields and the mesh column):
 - a tiny engine service of each package built from one seed-0 tree through
   the bridge: the same greedy SQL, then the same summary, configs table,
   repair leg and report;
-- the CLIs (`python -m ...evalh`, `...evalh.report`) with `--cpu`, and the
-  refusals the port adds (`--virtual-devices N > 0`, a tp factory).
+- the CLIs (`python -m ...evalh`, `...evalh.report`) with `--cpu`, and
+  `--virtual-devices N` (N CPU ranks for the tiny backend's tp configs;
+  tests/test_torch_parallel.py drives that group).
 
 Under tests/conftest.py JAX sees 8 virtual CPU devices; the port sees one
 (`configs.device_count("cpu")`)."""
@@ -372,9 +373,10 @@ def test_run_config_mesh_honesty():
 
 
 def test_run_config_mesh_row_without_tp():
-    """The port's mesh column on the CPU: a factory is never called for a
-    tp > 1 config, whose row names the one device; the tiny backend's
-    factory refuses tp > 1 by name (ROADMAP A13)."""
+    """The port's mesh column on the CPU without a process group: a factory
+    is not called for a tp > 1 config, whose row names the one device
+    (with a group of ranks it builds the tp service and the row reads
+    "tp=N": tests/test_torch_parallel.py); `--virtual-devices` takes N >= 0."""
     cfg4 = t_configs.CONFIGS["4-spider-batch32-tp4"]
     calls = []
     rep = t_configs.run_config(_fake_service(P["torch"]), cfg4, max_new_tokens=8,
@@ -384,8 +386,8 @@ def test_run_config_mesh_row_without_tp():
                                service_mesh="tp=2")
     assert rep.mesh == "tp=2 (service-owned; config requested tp=4)"
     assert t_configs.device_count("cpu") == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        t_report.refuse_tp_factory(4)
+    with pytest.raises(ValueError, match="virtual-devices"):
+        t_report.force_virtual_devices(-1)
 
 
 def test_execution_match_metric():
@@ -915,11 +917,18 @@ def test_cli_parser_options_are_jax(monkeypatch, capsys):
     assert "--virtual-devices" in capsys.readouterr().out
 
 
-def test_virtual_devices_refused_naming_a13():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        t_cli.main(["--backend", "fake", "--virtual-devices", "8"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        t_report.main(["--backend", "fake", "--virtual-devices", "4"])
+def test_virtual_devices_refused_naming_a13(tmp_path):
+    """`--virtual-devices N` is no longer refused: it runs the tiny
+    backend's tp configs on N CPU ranks (tests/test_torch_parallel.py
+    drives that group). The canned backends serve no model, so they form
+    no group and run as before."""
+    import torch.distributed as dist
+
+    out = tmp_path / "report.md"
+    t_report.main(["--backend", "fake", "--cpu", "--virtual-devices", "4",
+                   "-o", str(out)])
+    assert "| Config | Mesh |" in out.read_text()
+    assert not dist.is_initialized()
     t_report.force_virtual_devices(0)
 
 

@@ -1,0 +1,392 @@
+"""Process groups for the port's parallel tests, on the CPU over gloo.
+
+`run_group(world, fn, tmp_path, payload)` spawns `world` processes
+(`torch.multiprocessing`, "spawn"), joins them into one gloo group through a
+`FileStore` file in `tmp_path` (no TCP port, so concurrent test workers
+cannot collide), calls `fn(payload)` on each rank and returns the ranks'
+results in rank order. `fn` is a function of this module, named; the
+children import only torch, numpy and the port (not jax and not the JAX
+package: the parent computes the reference and passes it as numpy).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PKG = "llm_based_apache_spark_optimization_tpu_torch"
+
+
+def _child(rank: int, world: int, store: str, fn: str, payload, outdir: str,
+           timeout: float) -> None:
+    import faulthandler
+
+    # A rank stuck in a collective prints where it waits and exits, so the
+    # parent fails instead of hanging.
+    faulthandler.dump_traceback_later(timeout, exit=True)
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    torch.set_num_threads(1)
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import init_distributed
+
+    init_distributed(num_processes=world, process_id=rank,
+                     init_method=f"file://{store}")
+    with open(payload, "rb") as f:  # a file: numpy in spawn arguments is slow
+        payload = pickle.load(f)
+    try:
+        out = globals()[fn](payload)
+    finally:
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(Path(outdir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_group(world: int, fn: str, tmp_path, payload=None, timeout: float = 300.0):
+    """Results of `fn(payload)` on each of `world` gloo ranks, rank order."""
+    import torch.multiprocessing as mp
+
+    tmp = Path(tmp_path)
+    tmp.mkdir(parents=True, exist_ok=True)
+    store = tmp / f"store_{fn}"
+    outdir = tmp / f"out_{fn}"
+    outdir.mkdir(exist_ok=True)
+    with open(outdir / "payload.pkl", "wb") as f:
+        pickle.dump(payload, f)
+    ctx = mp.start_processes(_child, args=(world, str(store), fn,
+                                           str(outdir / "payload.pkl"),
+                                           str(outdir), timeout),
+                             nprocs=world, join=False, start_method="spawn")
+    while not ctx.join(timeout=timeout):
+        pass
+    out = []
+    for r in range(world):
+        with open(outdir / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+# ------------------------------------------------------------------ helpers
+
+def _mesh(dp=1, sp=1, tp=1):
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import make_mesh
+
+    return make_mesh(dp=dp, sp=sp, tp=tp, devices=["cpu"] * (dp * sp * tp))
+
+
+def _params(tree):
+    from llm_based_apache_spark_optimization_tpu_torch.convert import params_from_jax
+
+    return params_from_jax(tree, device="cpu")
+
+
+def _np(x):
+    if isinstance(x, dict):
+        return {k: _np(v) for k, v in x.items()}
+    return x.detach().cpu().numpy()
+
+
+def _cfg(name: str):
+    from llm_based_apache_spark_optimization_tpu_torch.models import configs
+
+    cfg = {c.name: c for c in vars(configs).values()
+           if isinstance(c, configs.LlamaConfig)}[name]
+    return cfg
+
+
+def _tree(params, quant):
+    from llm_based_apache_spark_optimization_tpu_torch.ops import quant as q
+
+    if quant == "int8":
+        return q.quantize_params(params)
+    if quant == "int4":
+        return q.quantize_params_int4(params)
+    if quant == "unembed8":
+        return q.quantize_unembed(params)
+    return params
+
+
+def engine_cases(p):
+    """Greedy generate through `InferenceEngine(..., mesh=...)` on every
+    rank, for each case (engine kwargs, params variant, prompts, budget)."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+
+    mesh = _mesh(**p["mesh"])
+    cfg, base = _cfg(p["cfg"]), _params(p["params"])
+    out = []
+    for kw, quant, prompts, new in p["cases"]:
+        eng = InferenceEngine(cfg, _tree(base, quant), device="cpu", mesh=mesh, **kw)
+        out.append(eng.generate(prompts, max_new_tokens=new))
+    return out
+
+
+def scheduler_cases(p):
+    """Greedy generate through `ContinuousBatchingScheduler(..., mesh=...)`:
+    rank 0 submits, the other ranks follow its steps; rank 0's outputs."""
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import spmd
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+
+    mesh = _mesh(**p["mesh"])
+    cfg, base = _cfg(p["cfg"]), _params(p["params"])
+    out = []
+    for kw, quant, prompts, new in p["cases"]:
+        with ContinuousBatchingScheduler(cfg, _tree(base, quant), device="cpu",
+                                         mesh=mesh, **kw) as s:
+            out.append(s.generate(prompts, max_new_tokens=new)
+                       if mesh.is_primary else None)
+    spmd.close(mesh)
+    return out
+
+
+def app_cases(p):
+    """`python -m ...app` flags on every rank of the group: the entry point's
+    mesh and service; rank 0 drives one completion of each model, the
+    others follow. Returns (mesh shape, rank 0's texts)."""
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+    from llm_based_apache_spark_optimization_tpu_torch.app.config import AppConfig
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import launch, spmd
+
+    args = entry.build_parser().parse_args(p["argv"])
+    cfg = AppConfig()
+    assert entry.mesh_ranks(args, cfg) == args.dp * args.sp * args.tp
+    # The group is formed: `join` starts no ranks.
+    mesh, _ = launch.join(args.dp, args.sp, args.tp, args.cpu, "unused", [])
+    svc = entry.build_service(args, cfg, mesh)
+    texts = None
+    if mesh.is_primary:
+        spmd.drive(mesh)
+        texts = [svc.generate(m, p["prompt"], max_new_tokens=p["new"]).response
+                 for m in ("duckdb-nsql", "mistral")]
+        svc.close()
+    spmd.close(mesh)
+    return dict(mesh.shape), texts
+
+
+def parallel_group(p):
+    """One mesh's worth of tests/test_torch_parallel.py: this rank's local
+    shards (bf16, q8, q4, fused, int8 tables), the sharded forward's logits
+    on its dp rows, greedy engines and schedulers per case, and a sharded
+    checkpoint load. Every rank returns its results."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import fuse_blocks, forward
+    from llm_based_apache_spark_optimization_tpu_torch.ops import quant as q
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import shard_params, spmd
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+
+    mesh = _mesh(**p["mesh"])
+    cfg, base = _cfg(p["cfg"]), _params(p["params"])
+    out = {"shape": dict(mesh.shape), "coords": dict(mesh.coords)}
+    trees = {"bf16": base, "q8": q.quantize_params(base),
+             "q4": q.quantize_params_int4(base), "fused": fuse_blocks(base),
+             "unembed8": q.quantize_unembed(base)}
+    out["shards"] = {k: _np(shard_params(t, cfg, mesh)) for k, t in trees.items()}
+    tokens = torch.as_tensor(p["tokens"])
+    dp, di = mesh.shape["dp"], mesh.coords["dp"]
+    rows = tokens.shape[0] // dp
+    mine = tokens[di * rows:(di + 1) * rows]
+    pos = torch.arange(mine.shape[1], dtype=torch.int32)[None].expand_as(mine)
+    local = shard_params(base, cfg, mesh)
+    out["logits"] = forward(cfg, local, mine, pos, None, mesh=mesh)[0].numpy()
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import (
+        gather_batch,
+        shard_batch,
+    )
+
+    out["rows"] = shard_batch(tokens, mesh).numpy()
+    out["gathered"] = gather_batch(shard_batch(tokens, mesh), mesh).numpy()
+    out["engine"] = []
+    for kw, quant, prompts, new in p.get("engine", []):
+        eng = InferenceEngine(cfg, _tree(base, quant), device="cpu", mesh=mesh, **kw)
+        out["engine"].append(eng.generate(prompts, max_new_tokens=new))
+    out["scheduler"] = []
+    for kw, quant, prompts, new in p.get("scheduler", []):
+        with ContinuousBatchingScheduler(cfg, _tree(base, quant), device="cpu",
+                                         mesh=mesh, **kw) as s:
+            out["scheduler"].append(s.generate(prompts, max_new_tokens=new)
+                                    if mesh.is_primary else None)
+    if p.get("ckpt"):
+        from llm_based_apache_spark_optimization_tpu_torch.checkpoint import (
+            load_gguf_checkpoint,
+            load_hf_checkpoint,
+            load_native,
+        )
+
+        _, hf = load_hf_checkpoint(p["ckpt"], dtype=torch.float32, mesh=mesh)
+        out["hf"] = _np(hf)
+        out["native"] = _np(load_native(cfg, p["native"], dtype=None, mesh=mesh))
+        out["q8_loaded"] = _np(q.quantize_params(hf, mesh))
+        out["q4_loaded"] = _np(q.quantize_params_int4(hf, mesh=mesh))
+        if p.get("gguf"):
+            _, gg = load_gguf_checkpoint(p["gguf"], dtype=torch.float32, mesh=mesh)
+            out["gguf"] = _np(gg)
+    spmd.close(mesh)
+    return out
+
+
+def ring_group(p):
+    """tests/test_torch_ring.py on one group of 8 ranks: for each case a
+    mesh of its (dp, sp, tp), this rank's block of the ring output (its dp
+    rows and tp heads, the whole sequence), and greedy generate on a
+    dp x sp x tp mesh."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.ops.ring_attention import (
+        ring_gqa_attention,
+    )
+
+    out = {"ring": [], "engine": []}
+    for case in p["ring"]:
+        mesh = _mesh(**case["mesh"])
+        dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+        q, k, v, pos = (torch.as_tensor(case[n]) for n in ("q", "k", "v", "pos"))
+        rb = q.shape[0] // dp
+        rows = slice(mesh.coords["dp"] * rb, (mesh.coords["dp"] + 1) * rb)
+        nq, nk = q.shape[2] // tp, k.shape[2] // tp
+        qh = slice(mesh.coords["tp"] * nq, (mesh.coords["tp"] + 1) * nq)
+        kh = slice(mesh.coords["tp"] * nk, (mesh.coords["tp"] + 1) * nk)
+        dtype = getattr(torch, case.get("dtype", "float32"))
+        got = ring_gqa_attention(mesh, q[rows, :, qh].to(dtype), k[rows, :, kh].to(dtype),
+                                 v[rows, :, kh].to(dtype), pos[rows],
+                                 sliding_window=case.get("window"))
+        out["ring"].append((dict(mesh.coords), str(got.dtype),
+                            got.float().numpy()))
+    for m, kw, prompts, new in p["engine"]:
+        mesh = _mesh(**m)
+        eng = InferenceEngine(_cfg(p["cfg"]), _params(p["params"]), device="cpu",
+                              mesh=mesh, **kw)
+        out["engine"].append(eng.generate(prompts, max_new_tokens=new))
+    return out
+
+
+def multihost_group(p):
+    """tests/test_torch_multihost.py: two ranks, one dp row each, through
+    `global_mesh` and `process_local_batch`; a sum over the whole batch."""
+    import numpy as np
+
+    from llm_based_apache_spark_optimization_tpu_torch.ops.common import (
+        all_gather,
+        all_reduce,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import (
+        global_mesh,
+        is_primary,
+        process_local_batch,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.parallel.multihost import (
+        process_index,
+    )
+
+    pid = process_index()
+    mesh = global_mesh(dp=2, sp=1, tp=1, devices=["cpu", "cpu"])
+    local = np.arange(15, dtype=np.float32).reshape(3, 5) + 100 * pid
+    arr = process_local_batch(local, mesh)
+    total = all_reduce(arr.sum(), mesh, "dp")
+    whole = all_gather(arr, mesh, "dp", dim=0)
+    return dict(primary=is_primary(), coords=dict(mesh.coords), shape=tuple(arr.shape),
+                total=float(total), whole=whole.numpy())
+
+
+def runbook_group(p):
+    """`runbook.main` on every rank of a tp group (the group is formed, so
+    the command starts no ranks): rank 0 writes the report, the others
+    follow. Returns (mesh shape, the report text on rank 0)."""
+    from llm_based_apache_spark_optimization_tpu_torch import runbook
+
+    runbook.main(p["argv"])
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        return Path(p["out"]).read_text()
+    return None
+
+
+def clone_group(p):
+    """A scheduler rank 0 builds while the other ranks follow (as its
+    supervisor rebuilds a crashed one) from the params and arguments of one
+    built before: every follower builds its twin, and the new one serves.
+    Rank 0 returns both schedulers' outputs."""
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import spmd
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+
+    mesh = _mesh(**p["mesh"])
+    cfg, params = _cfg(p["cfg"]), _params(p["params"])
+
+    def make():
+        return ContinuousBatchingScheduler(cfg, params, device="cpu", mesh=mesh,
+                                           **p["kw"])
+
+    first = make().start()
+    out = None
+    if mesh.is_primary:
+        spmd.drive(mesh)
+        out = [first.generate(p["prompts"], max_new_tokens=p["new"])]
+        first.shutdown()
+        second = make().start()
+        out.append(second.generate(p["prompts"], max_new_tokens=p["new"]))
+        second.shutdown()
+    else:
+        first.shutdown()  # returns once rank 0 has shut it down
+    spmd.close(mesh)
+    return out
+
+
+def evalh_group(p):
+    """`--virtual-devices N`'s services on N ranks: rank 0 runs the BASELINE
+    config that names tp=N through `run_config` with the group's factory
+    and returns its mesh cell and case count; the others follow."""
+    from llm_based_apache_spark_optimization_tpu_torch.app.__main__ import (
+        make_fake_service,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.evalh import configs, report
+
+    group = report.virtual_device_services(p["n"], "unused", [], max_new_tokens=8)
+    if group is None:
+        return None
+    factory, done = group
+    rep = configs.run_config(make_fake_service(), configs.CONFIGS[p["config"]],
+                             max_new_tokens=4, service_factory=factory, device="cpu")
+    done()
+    return rep.mesh, len(rep.cases)
+
+
+def dead_follower_group(p):
+    """A follower whose step loop fails while its process lives on: its
+    `spmd.close` re-raises the failure, and rank 0's next post (the end)
+    fails within rank 0's step timeout instead of waiting on it. Returns
+    (what close raised, seconds it took) on each rank."""
+    import time
+
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import mesh as mesh_mod
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import spmd
+
+    mesh_mod._STEP_TIMEOUT = __import__("datetime").timedelta(seconds=p["timeout_s"])
+    mesh = _mesh(tp=2)
+
+    class Target:
+        def step(self):
+            raise ValueError("the follower's step failed")
+
+    target = Target()
+    idx = mesh.register(target)
+    if not mesh.is_primary:
+        spmd.ensure_following(mesh)
+    else:
+        with mesh.lock:
+            spmd.post(mesh, idx, "step")
+    t0 = time.perf_counter()
+    try:
+        spmd.close(mesh)
+        raised = None
+    except RuntimeError as exc:
+        raised = repr(exc.__cause__ or exc)
+    return raised, time.perf_counter() - t0
