@@ -223,7 +223,7 @@ Phases, each fatal on failure:
 10. Checkpoints, over files written in a temporary directory (removed
    afterwards) from the seed-0 bf16 trees:
    (a) GGUF, the reference's deployment format, at full width, cut to
-   GGUF_LAYERS = 14 of its 28 layers for the run's time:
+   GGUF_LAYERS = 7 of its 28 layers for the run's time:
    LLAMA32_3B (tied embeddings, llama3 rope scaling, so
    `rope_freqs.weight` is written) as a Q4_0 blob by the port's
    `write_gguf` (quantized on the card). `load_gguf_checkpoint` must give
@@ -412,7 +412,8 @@ Phases, each fatal on failure:
    door and model pool): (a) after phase 15 (a), phase 7's schedulers
    freed, one `SchedulerPool` built by the entry point's
    `make_model_pool_service` over phase 7's 7B and 3B bf16 trees at full
-   width and depth: `duckdb-nsql` on two replicas sharing the 7B tree,
+   width, cut to FLEET_LAYERS layers for the run's time (phases 16-19):
+   `duckdb-nsql` on two replicas sharing the 7B tree,
    `llama3.2` on one, paged, FLEET_SLOTS slots a replica, FLEET_HBM_GB GiB
    of KV split 0.75 / 0.25, under the crash supervisor, QoS on with
    LSOT_TENANT_WEIGHTS FLEET_WEIGHTS, behind the service and the JSON API
@@ -445,7 +446,8 @@ Phases, each fatal on failure:
 
 17. The phase-split fleet (ROADMAP A7.5: phase roles and the prefill ->
    decode KV handoff), after phase 16 (a), on phase 7's 7B bf16 tree at
-   full width and depth (`disagg_serve`). First the entry point's `--dp N
+   full width, cut to FLEET_LAYERS layers as in phases 16-19
+   (`disagg_serve`). First the entry point's `--dp N
    --scheduler`, N one more than the cards, exits with the JAX entry
    point's device-count message before any checkpoint is read. Then a
    supervised `SchedulerPool` built through a per-replica factory (one
@@ -473,7 +475,7 @@ Phases, each fatal on failure:
    `{"disagg": ...}` line before the kernels line.
 
 18. The remote fleet (ROADMAP A11's remote half: serve/remote.py), after
-   phase 17, on phase 7's 7B bf16 tree at full width and depth
+   phase 17, on phase 7's 7B bf16 tree at full width, FLEET_LAYERS deep
    (`remote_serve`). Its replicas live in worker processes this file
    starts (`--remote-worker ROLE`, `remote_worker`): each rebuilds the
    tree on the card from seed 0 and prints its checksum, which must equal
@@ -514,7 +516,7 @@ Phases, each fatal on failure:
 
 19. The elastic fleet and the eval harness (serve/elastic.py,
    `serve/factory.standby_spawner`, evalh/), after phase 18, on phase 7's
-   7B bf16 tree (`elastic_serve`). (a) A supervised `SchedulerPool` of one
+   7B bf16 tree, FLEET_LAYERS deep (`elastic_serve`). (a) A supervised `SchedulerPool` of one
    local mixed replica of phase 17's shape, a standby worker process of
    this file (`--remote-worker mixed`) that `standby_spawner` points at,
    and `FleetAutoscaler(...).run()` with ELASTIC_KNOBS (fleet 1..2, up at
@@ -539,11 +541,9 @@ Phases, each fatal on failure:
 20. Meshes (parallel/, `mesh_serve`), inside phase 10 while its HF
    directory exists: two ranks, processes of this file (`--mesh-rank R`)
    on cuda:0 joined over gloo (NCCL refuses two ranks on one card), every
-   collective staged through host memory. (a) tp=2 DUCKDB_NSQL_7B, bf16,
-   paged scheduler (pages of 64, 8 slots, 8 GiB of KV in all): six SQL
-   requests at once, then two in turn; rank 0 drives, rank 1 replays its
-   steps; rows 1, 4 and 6 against their plain versions at the per-rank
-   shapes (16 heads), launch counts exact on each rank. (b) tp=2
+   collective staged through host memory. (a) rows 1, 4 and 6 against
+   their plain versions at the 7B's per-rank shapes (16 heads); its tp=2
+   paged scheduler is served by phase 21's pool. (b) tp=2
    LLAMA32_3B int4 engine (12 query and 4 KV heads a rank), bf16 and int8
    cache, rows 2, 3 and 8 at the per-rank shapes. (c) sp=2: a 2048-token
    prompt through ring attention, then 16 decode steps on the sp-sharded
@@ -554,6 +554,31 @@ Phases, each fatal on failure:
    `fleet_compare`'s rule, ring logits within LOGIT_TOL. Prints an
    `{"mesh": ...}` line before the kernels line; the ranks' launches join
    it per rank (`mesh_*_rank0`, `mesh_*_rank1`).
+21. A replica pool of tp meshes (`pool_mesh_serve`), after phase 20: the
+   entry point's `--dp 2 --tp 2 --scheduler --kv-layout paged` pool of
+   DUCKDB_NSQL_7B at full width, POOL_LAYERS deep (16 heads a rank),
+   built by `launch.join_pool` and `make_dp_pool_backend` over the seed
+   tree: this process is world rank 0 and rank 0 of both replicas' meshes,
+   two follower processes of this file (`--pool-rank R`) hold the other
+   halves, every shard on cuda:0 (LSOT_MESH_DEVICES) over gloo. First rows
+   5 and 7 at pages of 16 and the int8 matmul at the tp=2 halves against
+   their plain versions, and the tp=1 references. (a)
+   `LSOT_POOL_PHASES=prefill:1,decode:1`, pages of 64, 8 slots, 8 GiB of KV
+   a replica: six SQL requests at once, then two in turn, the second under
+   `sched:handoff` (the prefill replica is rebuilt on its mesh, its
+   follower building the twin): exports equal imports, every blob holding
+   every head, nothing lost, no page leaked. (b) mixed/mixed, `--int8`,
+   an int8 pool of 16-token pages with spill and overcommit 0.25, its
+   pages withheld by `kv:pressure` down to two admissions and a page:
+   POOL_B_REQUESTS 384-token prompts at once, preemptions >= 1, spilled =
+   restored. Streams equal the tp=1 references or leave them at near-ties
+   (`fleet_compare`); launch counts exact on every rank (each follower its
+   replica's, this process their sum). (c) the native layer on the host:
+   the C++ CSV scanner over NATIVE_ROWS rows x 8 columns and the C++ BPE
+   encoder over NATIVE_BYTES of prompts, each equal to its Python pass,
+   which a process of this file (`--native-python DIR`) runs beside (a)-(b).
+   Prints export p50, blob bytes, the handoff gap p50, both times of each
+   native pass, and a `{"pool_mesh": ...}` line before the kernels line.
 
 Every phase prints its seconds.
 
@@ -3813,7 +3838,7 @@ def counted_traffic(torch, svc, incarnations, label, err_model=None, sql_model=N
 
 #: Layers of phase 10 (a)'s 3B Q4_0 blob (of 28): cut for the run's time
 #: when phase 20 came.
-GGUF_LAYERS = 14
+GGUF_LAYERS = 7
 
 
 def gguf_serve(torch, engines, root):
@@ -4181,6 +4206,30 @@ FLEET_SHED_BURST = "batch=2"    # LSOT_TENANT_BURST of the shed check
 # SQL requests of burst B (cut from 8 to 4 for the run's time: four fill the
 # two 7B replicas' slots, so the restarted one holds work to replay)
 FLEET_BURST_B = 4
+# The depth of the 7B and the 3B in phases 16-19 (cut from 32 and 28 layers
+# for the run's time: their pools, placements, handoffs, transports and
+# autoscaler do the same work a layer; widths stay whole).
+FLEET_LAYERS = 8
+
+
+def depth_cut(cfg, params, layers, clone=False):
+    """A model cut to its first `layers` layers: its config, and a tree whose
+    block weights are views of `params`' first layers (copies with
+    `clone`, so the whole tree can be freed)."""
+    def cut(v):
+        return v[:layers].clone() if clone else v[:layers]
+
+    return (dataclasses.replace(cfg, num_layers=layers),
+            {**params, "blocks": {k: cut(v) for k, v in params["blocks"].items()}})
+
+
+def fleet_model(eng, layers=FLEET_LAYERS):
+    """An engine's model cut to `layers` layers, as the fleet phases take it:
+    `cfg`, `params` (views) and `stop_ids`."""
+    import types
+
+    cfg, params = depth_cut(eng.cfg, eng.params, layers)
+    return types.SimpleNamespace(cfg=cfg, params=params, stop_ids=eng.stop_ids)
 
 
 def recording_tokenizer():
@@ -4273,7 +4322,7 @@ def fleet_serve(torch, engines, smi):
     from llm_based_apache_spark_optimization_tpu_torch.sql import SQLiteBackend
 
     tok = recording_tokenizer()
-    e7, e3 = engines["duckdb-nsql"], engines["llama3.2"]
+    e7, e3 = fleet_model(engines["duckdb-nsql"]), fleet_model(engines["llama3.2"])
     specs = [ModelSpec("duckdb-nsql", hbm_fraction=0.75, replicas=2),
              ModelSpec("llama3.2", hbm_fraction=0.25, template="llama3-chat",
                        add_bos=False)]
@@ -4672,7 +4721,7 @@ def disagg_serve(torch, engines, smi):
     from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
 
     numbers = {"entry_point_dp": dp_entry_refusal(torch)}
-    e7 = engines["duckdb-nsql"]
+    e7 = fleet_model(engines["duckdb-nsql"])
     cfg, params = e7.cfg, e7.params
     tok = ByteTokenizer()
     roles = ("prefill", "decode")
@@ -5014,9 +5063,10 @@ def _remote_worker(role) -> int:
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     t0 = time.perf_counter()
-    cfg = DUCKDB_NSQL_7B
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_params(cfg, gen, torch.bfloat16, device="cuda")
+    cfg, params = depth_cut(DUCKDB_NSQL_7B, init_params(DUCKDB_NSQL_7B, gen, torch.bfloat16,
+                                                        device="cuda"),
+                            FLEET_LAYERS, clone=True)
     tok = ByteTokenizer()
     print(json.dumps({"tree_checksum": tree_checksum(torch, params)}), flush=True)
     torch.cuda.empty_cache()
@@ -5225,7 +5275,7 @@ def remote_serve(torch, engines, smi, split=None):
     )
     from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
 
-    e7 = engines["duckdb-nsql"]
+    e7 = fleet_model(engines["duckdb-nsql"])
     cfg, params = e7.cfg, e7.params
     tok = ByteTokenizer()
     enc = "msgpack" if remote.HAVE_MSGPACK else "json"
@@ -5779,7 +5829,7 @@ def elastic_serve(torch, engines, smi):
     from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
     from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
 
-    e7 = engines["duckdb-nsql"]
+    e7 = fleet_model(engines["duckdb-nsql"])
     cfg, params = e7.cfg, e7.params
     tok = ByteTokenizer()
     label = "elastic_pool"
@@ -8521,9 +8571,7 @@ def time_int8(torch, mm8, mm_mod, report=""):
 
 # ------------------------------------------------------------- phase 20: meshes
 
-MESH_SLOTS = 8        # (a): slots of the tp=2 paged scheduler, as phase 17's replica
-MESH_PAGE = 64        # (a): its page size
-MESH_KV_GB = 8        # (a): KV of the pool in all (each rank holds half the heads)
+MESH_SLOTS = 8        # the SQL prompts of the phase (phase 21's pool serves them too)
 MESH_B_PROMPTS = 4    # (b): prompts of the 3B int4 engine batch
 MESH_RING_T = 2048    # (c): the ring prefill's prompt
 MESH_RING_DECODE = 16  # (c): decode steps on the sp-sharded cache
@@ -8568,56 +8616,34 @@ def mesh_norm(text):
 
 
 def mesh_inputs(torch, engines):
-    """What phase 20's ranks and references take: the SQL prompts, the
-    pool's pages (MESH_KV_GB of the whole 7B's KV), the stop ids and the
-    ring's 2048-token prompt (seed 7)."""
-    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
-        pages_for_budget,
-    )
+    """What phase 20's ranks and references take: the SQL prompts, the stop
+    ids and the ring's 2048-token prompt (seed 7)."""
     from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
 
     e7, e3 = engines["duckdb-nsql"], engines["llama3.2"]
     g = torch.Generator().manual_seed(7)
     ring = torch.randint(3, e7.cfg.vocab_size, (MESH_RING_T,), generator=g)
     return {"prompts": mesh_prompts(ByteTokenizer()),
-            "pages": pages_for_budget(e7.cfg, MESH_KV_GB * 2**30, MESH_PAGE),
             "stop7": list(e7.stop_ids), "stop3": list(e3.stop_ids),
             "ring_prompt": ring.tolist()}
 
 
 def mesh_references(torch, engines, inp):
-    """Phase 20's tp=1 side, in this process: (a) a lone paged scheduler of
-    the 7B weights with the mesh's pool, six requests at once then two in
-    turn; (b) the 3B int4 engine over a bf16 and an int8 cache; (c) the 7B
-    prefill of the 2048-token prompt and 16 greedy decode steps. Returns
-    what the ranks are held to."""
+    """Phase 20's tp=1 side, in this process: (b) the 3B int4 engine over a
+    bf16 and an int8 cache; (c) the 7B prefill of the 2048-token prompt and
+    16 greedy decode steps. Returns what the ranks are held to. (a)'s tp=2
+    scheduler moved to phase 21's pool, with its reference."""
     from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
     from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import init_cache
     from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
     from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
         quantize_params_int4,
     )
-    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
-        ContinuousBatchingScheduler,
-    )
 
     e7, e3 = engines["duckdb-nsql"], engines["llama3.2"]
     cfg7 = e7.cfg
-    prompts, pages = inp["prompts"], inp["pages"]
+    prompts = inp["prompts"]
     ref = {}
-    t0 = time.perf_counter()
-    with ContinuousBatchingScheduler(cfg7, e7.params, num_slots=MESH_SLOTS,
-                                     decode_chunk=8, kv_layout="paged",
-                                     kv_page_size=MESH_PAGE, kv_pages=pages,
-                                     stop_ids=e7.stop_ids, device="cuda") as s:
-        futs = [s.submit(p, max_new_tokens=MAX_NEW) for p in prompts[:6]]
-        want = [f.result(timeout=300) for f in futs]
-        want += [s.submit(p, max_new_tokens=MAX_NEW).result(timeout=300)
-                 for p in prompts[6:]]
-    ref["a"] = want
-    print(f"  (a) tp=1 paged scheduler, {pages} pages of {MESH_PAGE} "
-          f"({MESH_KV_GB} GiB): {sum(map(len, want))} tokens in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     q4 = quantize_params_int4(e3.params)
     b_prompts = prompts[:MESH_B_PROMPTS]
     ref["b"] = {}
@@ -8739,10 +8765,7 @@ def mesh_serve(torch, engines, smi, hf_dir=None):
         r0, r1 = ranks
         e7, e3 = engines["duckdb-nsql"], engines["llama3.2"]
         bounds, div = {}, []
-        # (a) every stream equals the lone tp=1 scheduler's, or diverges at a
-        # near-tie within twice the 7B bf16 top-id drift.
-        div += fleet_compare(torch, "mesh_tp2_scheduler", e7.cfg, e7.params, e7.stop_ids,
-                             ref["prompts"], r0["a"]["streams"], ref["a"], bounds)
+        # (a) is the per-rank kernel checks alone (its scheduler: phase 21).
         # (b) greedy tokens of the tp=2 int4 engine against tp=1's.
         for kvq in ("None", "int8"):
             div += fleet_compare(torch, f"mesh_tp2_3b_int4_kv{kvq}", e3.cfg, q4,
@@ -8763,9 +8786,6 @@ def mesh_serve(torch, engines, smi, hf_dir=None):
                              [ref["ring_tokens"]], bounds)
         assert r1["c"]["tokens"] == r0["c"]["tokens"], "(c) ranks disagree"
         numbers.update(
-            a={"streams": len(ref["a"]), "tokens": sum(map(len, r0["a"]["streams"])),
-               "equal": sum(a == b for a, b in zip(r0["a"]["streams"], ref["a"])),
-               "seconds": r0["a"]["seconds"], "pages": ref["pages"]},
             b={kvq: {"equal": sum(a == b for a, b in zip(r0["b"][kvq], ref["b"][kvq])),
                      "seconds": r0["b"]["seconds"][kvq]} for kvq in ("None", "int8")},
             c={"prefill_rel_err": rel, "prefill_s": r0["c"]["prefill_s"],
@@ -8928,7 +8948,6 @@ def mesh_rank(rank) -> int:
         DUCKDB_NSQL_7B,
         LLAMA32_3B,
     )
-    from llm_based_apache_spark_optimization_tpu_torch.ops.common import broadcast_object
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.launches import (
         reset_launches,
     )
@@ -8948,47 +8967,14 @@ def mesh_rank(rank) -> int:
     out = {"staged": mesh.describe(), "launches": {}, "kernels": {}}
     inf = torch.inference_mode()
 
-    # (a) tp=2 7B bf16 paged scheduler: rank 0 submits, rank 1 follows.
-    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
-    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
-        ContinuousBatchingScheduler,
-    )
-
+    # (a) the per-rank kernel checks at the 7B's 16 heads a rank. Its tp=2
+    # paged scheduler is served by phase 21's pool of tp=2 replicas, which
+    # repeats its shapes (a cut for the run's time: PERF.md section 4).
     out["kernels"].update(rank_kernel_checks(torch, "a"))
-    with inf:
-        params = init_params(DUCKDB_NSQL_7B, torch.Generator(device="cuda").manual_seed(0),
-                             torch.bfloat16, mesh=mesh)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    sched = ContinuousBatchingScheduler(
-        DUCKDB_NSQL_7B, params, num_slots=MESH_SLOTS, decode_chunk=8, kv_layout="paged",
-        kv_page_size=MESH_PAGE, kv_pages=ref["pages"], stop_ids=ref["stop7"], mesh=mesh)
-    with sched:
-        if mesh.is_primary:
-            futs = [sched.submit(p, max_new_tokens=MAX_NEW) for p in ref["prompts"][:6]]
-            streams = [f.result(timeout=300) for f in futs]
-            streams += [sched.submit(p, max_new_tokens=MAX_NEW).result(timeout=300)
-                        for p in ref["prompts"][6:]]
-    torch.cuda.synchronize()
-    seconds = round(time.perf_counter() - t0, 2)
-    got = _launch_snapshot()
-    expected = None
-    if mesh.is_primary:
-        expected = dict.fromkeys(got, 0)
-        expect_paged(expected, sched, sched.rounds_issued, sched.prefill_forwards)
-        out["a"] = {"streams": streams, "seconds": seconds}
-    expected = broadcast_object(expected, mesh)
-    assert got == expected, f"(a) rank {rank}: launches {got} != {expected}"
-    out["launches"]["mesh_tp2_scheduler"] = got
-    print(f"  (a) rank {rank}: launches equal the expected {expected} in {seconds} s",
-          flush=True)
-    del sched, params
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # (b) tp=2 3B int4 engine (12 query and 4 KV heads a rank), SPMD.
     from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
     from llm_based_apache_spark_optimization_tpu_torch.ops.quant import (
         quantize_params_int4,
     )
@@ -9017,7 +9003,6 @@ def mesh_rank(rank) -> int:
         assert got == want, f"(b) rank {rank} kv {kvq}: launches {got} != {want}"
         out["launches"][f"mesh_tp2_3b_int4_kv{kvq}"] = got
     del q4, eng
-    # Drop (a)'s mesh: its recipes hold this rank's 7B block for a rebuild.
     spmd.close(mesh)
     del mesh
     gc.collect()
@@ -9109,6 +9094,769 @@ def mesh_rank(rank) -> int:
     return 0
 
 
+# ------------------------------------------------- phase 21: a pool of tp meshes
+
+POOL_SLOTS = 8          # slots a replica, as phase 17's
+POOL_KV_GB = 8          # (a): KV a replica, priced on every head (each rank holds half)
+POOL_DEVICES = "cuda:0,cuda:0,cuda:0,cuda:0"  # LSOT_MESH_DEVICES: both tp=2 replicas on one card
+POOL_TIMEOUT_S = 600    # a follower that has not finished by then is stuck
+POOL_B_PAGE = 16        # (b): pages of 16 tokens, so 32 new tokens need top-ups
+POOL_B_LEN = 384        # (b): each prompt exactly one prompt bucket, BOS included
+POOL_B_REQUESTS = 3     # (b): requests at once (a replica that takes two preempts)
+POOL_LAYERS = 16        # the 7B's depth in phase 21 (widths whole: 16 heads a rank)
+POOL_B_OVERCOMMIT = 0.25
+POOL_MODULE = f"{PKG}.app"
+NATIVE_ROWS = 500_000   # (c): the CSV's data rows
+NATIVE_MERGES = 256     # (c): the BPE's merges, trained on the app's prompts
+NATIVE_BYTES = 2**20    # (c): the text the BPE encodes, as prompts of the app
+# Rows of PERF.md's table held against their plain versions at phase 21's
+# per-rank shapes (`pool_kernel_checks`).
+POOL_ROWS = {"paged_q": "row5", "write_q": "row7", "int8": "int8_matmul"}
+
+
+def pool_args(extra=()):
+    """The entry point's flags of phase 21's pools: `--dp 2 --tp 2
+    --scheduler --kv-layout paged`, POOL_SLOTS slots, MAX_NEW tokens."""
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+
+    return entry.build_parser().parse_args(
+        ["--backend", "checkpoint", "--api", "--sql-model-path", "phase21-seed-tree",
+         "--dp", "2", "--tp", "2", "--scheduler", "--kv-layout", "paged",
+         "--slots", str(POOL_SLOTS), "--max-new-tokens", str(MAX_NEW), *extra])
+
+
+def pool_env(part):
+    """The environment of phase 21's part (a) or (b): the knobs the entry
+    point's AppConfig reads. (b)'s pool: int8 KV, spill, overcommit 0.25,
+    pages of POOL_B_PAGE."""
+    env = {"LSOT_MESH_DEVICES": POOL_DEVICES}
+    if part == "a":
+        env["LSOT_POOL_PHASES"] = "prefill:1,decode:1"
+    else:
+        env.update(LSOT_KV_QUANT="int8", LSOT_KV_SPILL="1",
+                   LSOT_KV_OVERCOMMIT=str(POOL_B_OVERCOMMIT),
+                   LSOT_KV_PAGE_SIZE=str(POOL_B_PAGE))
+    return env
+
+
+class pool_environ:
+    """`pool_env(part)` set in os.environ for the block, the old values back
+    after it."""
+
+    def __init__(self, part):
+        self.env = pool_env(part)
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pool_b_prompts(tok):
+    """(b)'s prompts: POOL_B_REQUESTS SQL prompts, each POOL_B_LEN tokens
+    exactly (a prompt bucket, so the admission reserves no slack past it),
+    each starting with its own index (no two share a prefix block)."""
+    out = []
+    for i, q in enumerate((SCHED_SQL * 2)[:POOL_B_REQUESTS]):
+        text = f"Request {i}. {q}\n\n{SYSTEM_SQL}"
+        ids = tok.encode(text)[:POOL_B_LEN]
+        ids += [tok.encode(" ", add_bos=False)[0]] * (POOL_B_LEN - len(ids))
+        out.append(ids)
+    return out
+
+
+def pool_b_pages(cfg):
+    """(b)'s pool and pressure: the pool holds one max-length row (the
+    least a pool may), and `kv:pressure` withholds all but two admissions
+    and a page, so the two admitted requests' top-ups (each needs one more
+    page after 16 tokens) find one free page: the second preempts the
+    first, which spills. Returns (pages, bytes of the pool, pages
+    withheld, pages an admission takes)."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import bucket_len
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import (
+        page_bytes,
+        pages_for_tokens,
+    )
+
+    pages = pages_for_tokens(cfg.max_seq_len, POOL_B_PAGE)
+    pb = page_bytes(cfg, POOL_B_PAGE, 2, "int8")
+    reserve = -int(-MAX_NEW * POOL_B_OVERCOMMIT // 1)
+    admit = pages_for_tokens(bucket_len(POOL_B_LEN, 128) + reserve
+                             + 2 * SCHED["decode_chunk"], POOL_B_PAGE)
+    budget = pages_for_tokens(POOL_B_LEN + MAX_NEW + 2 * SCHED["decode_chunk"], POOL_B_PAGE)
+    assert budget > admit, (budget, admit)
+    return pages, pages * pb, pages - (2 * admit + 1), admit
+
+
+def pool_kernel_checks(torch, mm8):
+    """Rows of PERF.md's table at phase 21's per-rank shapes (16 of the 7B's
+    32 heads a rank), against their plain versions: row 5 (the paged decode
+    over an int8 pool of POOL_B_PAGE-token pages), row 7 (the write into
+    it, bit for bit), and the int8 matmul at the tp=2 halves of the 7B's
+    weights (column-parallel wq and wg, row-parallel wo and wd, the
+    vocab-parallel unembed) at R = 1, 8 and 128. Returns the worst error
+    by row."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        paged_attention as pa_mod,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        paged_write as pw_mod,
+    )
+
+    tol = TOL["bfloat16"]
+    worst = {}
+
+    def note(row, label, err, limit):
+        print(f"  {row:11s} {label:34s} err={err:.3e} tol={limit:.0e} "
+              f"{'ok' if err <= limit else 'FAIL'}", flush=True)
+        assert err <= limit, f"{row}/{label}: {err} > {limit}"
+        worst[row] = max(worst.get(row, 0.0), err)
+
+    rows = [(p, 1, p + 1) for p in (384, 390, 399, 400, 401, 415, 64, 5)]
+    q, kp, vp, tab, pos, window, kvl, qln = paged_case(
+        torch, torch.bfloat16, b=8, t=1, n=16, kh=16, h=128, ps=POOL_B_PAGE, np_tab=27,
+        rows=rows)
+    kp8, kps = quantize(torch, kp)
+    vp8, vps = quantize(torch, vp)
+    args = (q, kp8, kps, vp8, vps, tab, pos, window, kvl, qln)
+    out = pa_mod.ragged_paged_attention_quantized_cuda(*args)
+    ref = pa_mod.ragged_paged_attention_quantized_plain(*args)
+    note("row5", "paged_q decode 7b/tp2 b8 ps16", (out.float() - ref.float()).abs().max().item(),
+         tol)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    shape = (2, 232, 16, POOL_B_PAGE, 128)
+    pools = [torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8),
+             torch.rand(shape[:4], generator=g, device="cuda"),
+             torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8),
+             torch.rand(shape[:4], generator=g, device="cuda")]
+    refs = [x.clone() for x in pools]
+    k_new, v_new, wpos, wtab, q_lens = write_case(torch, "7b_tp2_t1_b8_ps16", 16, 128,
+                                                   POOL_B_PAGE, 8, 1, 27, 232,
+                                                   torch.bfloat16, g)
+    pw_mod.fused_page_write_quantized_cuda(*pools, k_new, v_new, wpos, wtab, 1, q_lens)
+    pw_mod.fused_page_write_quantized_plain(*refs, k_new, v_new, wpos, wtab, 1, q_lens)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, r) for a, r in zip(pools, refs))
+    note("row7", "write_q 7b/tp2 b8 ps16 (bit-exact)", 0.0 if same else 1.0, 0.0)
+    del pools, refs
+    for name, layout, n_in, n_out in (("wq col half", "io", 4096, 2048),
+                                      ("wo row half", "io", 2048, 4096),
+                                      ("wg col half", "io", 4096, 5504),
+                                      ("wd row half", "io", 5504, 4096),
+                                      ("unembed vocab half", "vd", 4096, 16000)):
+        q8, s = int8_weight(torch, g, layout, n_in, n_out)
+        for r in (1, 8, 128):
+            x = torch.randn((r, n_in), generator=g, device="cuda").to(torch.bfloat16)
+            out = mm8.int8_matmul_cuda(x, q8, s, layout)
+            ref = mm8.int8_matmul_plain(x, q8, s, layout)
+            if layout == "vd":
+                err = float((out.float() - ref.float()).abs().max()
+                            / ref.float().abs().max())
+                note("int8_matmul", f"int8 7b/tp2 {name} R={r} (rel)", err, INT8_LOGIT_TOL)
+            else:
+                note("int8_matmul", f"int8 7b/tp2 {name} R={r} (bf16 ulps)",
+                     bf16_ulps(out, ref), 1.0)
+    return worst
+
+
+def pool_references(torch, engines, tok):
+    """Phase 21's tp=1 side, in this process before the ranks load: (a) a
+    lone mixed paged scheduler of the 7B bf16 tree with a replica's shape
+    (pages of 64, POOL_SLOTS slots, POOL_KV_GB of KV), six SQL requests at
+    once then two in turn; (b) a lone mixed scheduler of the tree's int8
+    quantization over an int8 pool of POOL_B_PAGE-token pages, no
+    pressure, (b)'s prompts at once. Returns the streams."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_params
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+
+    e7 = fleet_model(engines["duckdb-nsql"], POOL_LAYERS)
+    prompts_a = mesh_prompts(tok)
+    ref = {"prompts_a": prompts_a, "prompts_b": pool_b_prompts(tok)}
+    t0 = time.perf_counter()
+    with ContinuousBatchingScheduler(
+            e7.cfg, e7.params, num_slots=POOL_SLOTS, kv_layout="paged",
+            kv_page_size=SCHED["kv_page_size"], kv_hbm_budget_bytes=POOL_KV_GB * 2**30,
+            stop_ids=e7.stop_ids, device="cuda") as s:
+        futs = [s.submit(p, max_new_tokens=MAX_NEW) for p in prompts_a[:6]]
+        want = [f.result(timeout=300) for f in futs]
+        want += [s.submit(p, max_new_tokens=MAX_NEW).result(timeout=300)
+                 for p in prompts_a[6:]]
+    ref["a"] = want
+    print(f"  (a) tp=1 mixed paged scheduler: {sum(map(len, want))} tokens in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    q8 = quantize_params(e7.params)
+    t0 = time.perf_counter()
+    with ContinuousBatchingScheduler(
+            e7.cfg, q8, num_slots=POOL_SLOTS, kv_layout="paged", kv_page_size=POOL_B_PAGE,
+            kv_quant="int8", stop_ids=e7.stop_ids, device="cuda") as s:
+        futs = [s.submit(p, max_new_tokens=MAX_NEW) for p in ref["prompts_b"]]
+        ref["b"] = [f.result(timeout=300) for f in futs]
+    print(f"  (b) tp=1 int8 scheduler over an int8 pool: {sum(map(len, ref['b']))} tokens "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return ref
+
+
+def start_pool_followers(root, addr):
+    """Phase 21's two follower processes (`--pool-rank 1`, `2`), world
+    ranks 1 and 2 of the pool's group (this process is rank 0), their
+    output in files under `root`."""
+    procs = []
+    for rank in (1, 2):
+        env = dict(os.environ, LSOT_POOL_ROOT=root, LSOT_POOL_ADDR=addr)
+        log = open(os.path.join(root, f"pool_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pool-rank", str(rank)],
+            env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_pool_followers(procs, root):
+    """Wait for the followers; a failed or stuck one fails the phase with
+    the tail of its log. Returns their JSON results."""
+    deadline = time.time() + POOL_TIMEOUT_S
+    for p, log in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            for q, _ in procs:
+                q.kill()
+                q.wait()
+        log.close()
+    out = []
+    for rank, (p, _) in zip((1, 2), procs):
+        with open(os.path.join(root, f"pool_rank{rank}.log")) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith("  "):
+                print(f"  [rank {rank}] {line.strip()}", flush=True)
+        assert p.returncode == 0, f"pool rank {rank} failed ({p.returncode}):\n{text[-4000:]}"
+        with open(os.path.join(root, f"pool_rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def pool_objects(pool, objects):
+    """Record each replica object of `pool` (a rebuilt one too) by its
+    replica index; every one was built after the counts were reset."""
+    for i, sc in enumerate(pool.schedulers):
+        objects.setdefault(id(sc), (i, sc))
+
+
+def pool_expected(objects, n):
+    """The launches each of the `n` replicas' objects made (`expect_paged`),
+    by replica index."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import LAUNCHES
+
+    out = [dict.fromkeys(LAUNCHES, 0) for _ in range(n)]
+    for i, sc in objects.values():
+        expect_paged(out[i], sc, sc.rounds_issued, sc.prefill_forwards)
+    return out
+
+
+def pool_part_a(torch, engines, ref, tok, smi, bounds):
+    """(a) on the pool's process: the phase-split pool of two tp=2 7B
+    replicas, built by the entry point's `launch.join_pool` and
+    `make_dp_pool_backend` over the 7B bf16 tree; six SQL requests at once,
+    then two in turn, the second under `sched:handoff` (its prefill
+    replica dies before the export and is rebuilt on its mesh). Returns
+    (numbers, rank 0's launches, the expected launches by replica)."""
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+    from llm_based_apache_spark_optimization_tpu_torch.app.config import AppConfig
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import launch, spmd
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    e7 = fleet_model(engines["duckdb-nsql"], POOL_LAYERS)
+    with pool_environ("a"):
+        args, cfg = pool_args(("--kv-hbm-gb", str(POOL_KV_GB))), AppConfig.from_env()
+        assert entry.is_tp_pool(args, cfg) and entry.mesh_ranks(args, cfg) == 3
+        meshes, _ = launch.join_pool(2, 2, False, POOL_MODULE, [], local=[0, 1])
+        assert all(m.staged and m.backend == "gloo" for m in meshes), meshes
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        backend = entry.make_dp_pool_backend(args, cfg, "phase21-a", tok, True, MAX_NEW,
+                                             None, meshes=meshes, loaded=(e7.cfg, e7.params))
+    built = round(time.perf_counter() - t0, 2)
+    for m in meshes:
+        spmd.drive(m)
+    sup = backend.scheduler
+    pool = sup._inner
+    assert [s.phase_role for s in pool.schedulers] == ["prefill", "decode"]
+    assert [s.mesh.ranks for s in pool.schedulers] == [[0, 1], [0, 2]]
+    pages = pool.schedulers[0].page_stats["pages_total"]
+    print(f"  (a) pool built in {built} s: {pages} pages of {SCHED['kv_page_size']} a "
+          f"replica ({POOL_KV_GB} GiB on every head, half a rank); "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated here", flush=True)
+    factory = pool._factory
+    pool._factory = lambda i: (FAULTS.clear(), factory(i))[1]  # one crash episode
+    objects = {}
+    pool_objects(pool, objects)
+    h0 = sup.health()
+    prompts = ref["prompts_a"]
+    t0 = time.perf_counter()
+    outs, streams, split = timed_burst(
+        lambda p, on: sup.submit(p, max_new_tokens=MAX_NEW, on_token=on), prompts[:6])
+    burst_s = round(time.perf_counter() - t0, 3)
+    for k, p in enumerate(prompts[6:]):
+        if k == 1:
+            FAULTS.configure("sched:handoff:1", 0)
+        try:
+            o, s, _ = timed_burst(
+                lambda p, on: sup.submit(p, max_new_tokens=MAX_NEW, on_token=on), [p])
+        finally:
+            FAULTS.clear()
+        outs += o
+        streams += s
+        pool_objects(pool, objects)
+    seconds = round(time.perf_counter() - t0, 3)
+    for sc in pool.schedulers:
+        st = wait_idle(sc)
+        assert st["pages_in_use"] == st["prefix_resident_pages"], st
+    torch.cuda.synchronize()
+    got = dict(LAUNCHES)
+    expected = pool_expected(objects, 2)
+    health = sup.health()
+    objs = [sc for _, sc in objects.values()]
+    ho = {k: sum(getattr(sc, f"_ho_{k}") for sc in objs)
+          for k in ("exports", "imports", "inplace", "backpressure")}
+    direct = sum(sc._rid_seq - sc._ho_imports for sc in objs if sc.phase_role == "decode")
+    reps = {r["replica"]: r for r in pool.replica_health()}
+    exports = [r for sc in objs for r in sc.flight.snapshot()
+               if r.get("kind") == "handoff_export"]
+    print(f"  (a) {len(prompts)} requests in {seconds} s (six at once {burst_s} s); exports "
+          f"{ho['exports']}, imports {ho['imports']}, in place {ho['inplace']}, prefilled by "
+          f"r1 after the fault {direct}; replayed {health['replayed'] - h0['replayed']}, "
+          f"lost {health['lost']}; replicas "
+          f"{[(k, v['state'], v['restarts']) for k, v in reps.items()]}", flush=True)
+    assert all(o is not None for o in outs), "(a): a request was lost"
+    assert health["lost"] == 0 and health["restarts"] == 0, health
+    assert ho["exports"] == ho["imports"] > 0, ho
+    assert ho["imports"] + ho["inplace"] + direct == len(prompts), (ho, direct)
+    assert reps["r0"]["restarts"] == 1 and reps["r1"]["restarts"] == 0, reps
+    for i, (s, o) in enumerate(zip(streams, outs)):
+        assert s[1:] == o[1:], f"(a)[{i}]: stream {s} != {o}"
+    # Every blob holds every head: its bytes are its pages at the whole
+    # model's page bytes, as a tp=1 replica's.
+    from llm_based_apache_spark_optimization_tpu_torch.engine.paged_kv import page_bytes
+
+    pb = page_bytes(e7.cfg, SCHED["kv_page_size"], 2)
+    assert exports and all(r["bytes"] == r["pages"] * pb for r in exports), exports[:2]
+    div = fleet_compare(torch, "pool_tp2_split", e7.cfg, e7.params, e7.stop_ids, prompts,
+                        outs, ref["a"], bounds)
+    backend.shutdown()
+    launch.finish(meshes, [])
+    numbers = {
+        "requests": len(prompts), "seconds": seconds, "burst_s": burst_s, "build_s": built,
+        "pages_a_replica": pages, "exports": ho["exports"], "imports": ho["imports"],
+        "inplace": ho["inplace"], "reprefilled": direct,
+        "export_s_p50": p50([r["export_s"] for r in exports]),
+        "blob_bytes": sorted({r["bytes"] for r in exports}),
+        "blob_pages": sorted({r["pages"] for r in exports}),
+        "handoff_gap_s_p50": split["second_token_gap_s_p50"], "split": split,
+        "restarts": {k: v["restarts"] for k, v in reps.items()},
+        "streams_equal": f"{len(prompts) - len(div)} of {len(prompts)}",
+        "divergences": div}
+    del backend, sup, pool, objects, objs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers, got, expected
+
+
+def pool_part_b(torch, engines, ref, tok, smi, bounds):
+    """(b) on the pool's process: the same pool, mixed/mixed, `--int8`,
+    `LSOT_KV_QUANT=int8`, `LSOT_KV_SPILL=1`, over an overcommitted pool of
+    one max-length row whose pages `kv:pressure` withholds down to two
+    admissions and a page (`pool_b_pages`); (b)'s prompts at once. Returns
+    (numbers, rank 0's launches, the expected launches by replica)."""
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+    from llm_based_apache_spark_optimization_tpu_torch.app.config import AppConfig
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import launch, spmd
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    e7 = fleet_model(engines["duckdb-nsql"], POOL_LAYERS)
+    pages, nbytes, withheld, admit = pool_b_pages(e7.cfg)
+    with pool_environ("b"):
+        args = pool_args(("--int8", "--kv-hbm-gb", repr((nbytes + 0.5) / 2**30)))
+        cfg = AppConfig.from_env()
+        assert cfg.kv_spill and cfg.kv_quant == "int8"
+        meshes, _ = launch.join_pool(2, 2, False, POOL_MODULE, [], local=[0, 1])
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        backend = entry.make_dp_pool_backend(args, cfg, "phase21-b", tok, True, MAX_NEW,
+                                             "int8", meshes=meshes,
+                                             loaded=(e7.cfg, e7.params))
+    built = round(time.perf_counter() - t0, 2)
+    for m in meshes:
+        spmd.drive(m)
+    sup = backend.scheduler
+    pool = sup._inner
+    assert [s.phase_role for s in pool.schedulers] == ["mixed", "mixed"]
+    st0 = pool.schedulers[0].page_stats
+    assert st0["pages_total"] == pages and st0["page_size"] == POOL_B_PAGE, st0
+    print(f"  (b) pool built in {built} s: {pages} pages of {POOL_B_PAGE} a replica, "
+          f"{withheld} withheld (an admission takes {admit})", flush=True)
+    objects = {}
+    pool_objects(pool, objects)
+    FAULTS.configure(f"kv:pressure:1:{withheld}", 0)
+    t0 = time.perf_counter()
+    try:
+        outs, streams, timing_b = timed_burst(
+            lambda p, on: sup.submit(p, max_new_tokens=MAX_NEW, on_token=on),
+            ref["prompts_b"])
+    finally:
+        FAULTS.clear()
+    seconds = round(time.perf_counter() - t0, 3)
+    stats = [wait_idle(sc) for sc in pool.schedulers]
+    torch.cuda.synchronize()
+    got = dict(LAUNCHES)
+    expected = pool_expected(objects, 2)
+    spilled = sum(s["spilled_pages"] for s in stats)
+    restored = sum(s["restored_pages"] for s in stats)
+    preempt = sum(s["preemptions"] for s in stats)
+    health = sup.health()
+    print(f"  (b) {len(outs)} requests in {seconds} s: preemptions {preempt}, spilled "
+          f"{spilled} pages, restored {restored}, page waits "
+          f"{sum(s['page_waits'] for s in stats)}; lost {health['lost']}", flush=True)
+    assert all(o is not None for o in outs) and health["lost"] == 0, health
+    assert preempt >= 1 and spilled == restored > 0, stats
+    for i, (s, o) in enumerate(zip(streams, outs)):
+        assert s == o, f"(b)[{i}]: stream {s} != {o}"
+    backend.shutdown()
+    launch.finish(meshes, [])
+    del backend, sup, pool, objects
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The near-tie rule over the tree's int8 quantization, made again now
+    # that the ranks' memory is free.
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_params
+
+    q8 = quantize_params(e7.params)
+    div = fleet_compare(torch, "pool_tp2_int8_spill", e7.cfg, q8, e7.stop_ids,
+                        ref["prompts_b"], outs, ref["b"], bounds, kv_quant="int8")
+    del q8
+    numbers = {"requests": len(outs), "seconds": seconds, "build_s": built,
+               "pages_a_replica": pages, "withheld": withheld, "preemptions": preempt,
+               "spilled_pages": spilled, "restored_pages": restored, "timing": timing_b,
+               "streams_equal": f"{len(outs) - len(div)} of {len(outs)}",
+               "divergences": div}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers, got, expected
+
+
+def pool_rank(rank) -> int:
+    """A follower of phase 21 (a process `pool_mesh_serve` starts): world
+    rank `rank`, on replica rank-1's tp=2 mesh in both parts. It builds its
+    replica's twin through the entry point's `make_dp_pool_backend` (its
+    block of the 7B tree for (a); the whole tree's int8 quantization,
+    made one follower at a time, for (b)), follows rank 0's steps until it
+    closes the mesh, and writes each part's launch counts to
+    LSOT_POOL_ROOT/pool_rank{rank}.json."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(POOL_TIMEOUT_S - 30, exit=True)
+    import torch
+
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+    from llm_based_apache_spark_optimization_tpu_torch.app.config import AppConfig
+    from llm_based_apache_spark_optimization_tpu_torch.models import DUCKDB_NSQL_7B
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels.launches import (
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.quant import quantize_params
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import (
+        init_distributed,
+        launch,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.environ["LSOT_POOL_ROOT"]
+    assert init_distributed(os.environ["LSOT_POOL_ADDR"], 3, rank)
+    tok = ByteTokenizer()
+    out = {"launches": {}}
+    for part in ("a", "b"):
+        with pool_environ(part):
+            extra = ("--kv-hbm-gb", str(POOL_KV_GB)) if part == "a" else ()
+            args, cfg = pool_args(extra), AppConfig.from_env()
+            meshes, _ = launch.join_pool(2, 2, False, POOL_MODULE, [], local=[0, 1])
+            mine = [m for m in meshes if m is not None]
+            assert len(mine) == 1 and mine[0].rank == 1 and meshes[rank - 1] is mine[0]
+            print(f"  part ({part}): {mine[0].describe()}", flush=True)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            if part == "a":
+                with torch.inference_mode():
+                    cfg7, params = depth_cut(DUCKDB_NSQL_7B, init_params(
+                        DUCKDB_NSQL_7B, gen, torch.bfloat16, mesh=mine[0]), POOL_LAYERS,
+                        clone=True)
+                torch.cuda.empty_cache()  # the whole weights made on the way
+            else:
+                # The block of the whole tree's quantization: made whole on the
+                # card, one follower after the other, and kept on the host.
+                turn = os.path.join(root, f"pool_b_loaded{rank - 1}")
+                while rank == 2 and not os.path.exists(turn):
+                    time.sleep(0.2)
+                with torch.inference_mode():
+                    cfg7, cut = depth_cut(DUCKDB_NSQL_7B, init_params(
+                        DUCKDB_NSQL_7B, gen, torch.bfloat16, device="cuda"), POOL_LAYERS)
+                    q8 = quantize_params(cut)
+                    params = tree_to(q8, "cpu")
+                del cut
+                del q8
+                torch.cuda.empty_cache()
+                open(os.path.join(root, f"pool_b_loaded{rank}"), "w").close()
+                args.int8 = False  # the tree is quantized already
+            torch.cuda.synchronize()
+            reset_launches()
+            backend = entry.make_dp_pool_backend(
+                args, cfg, f"phase21-{part}", tok, True, MAX_NEW,
+                "int8" if part == "b" else None, meshes=meshes,
+                loaded=(cfg7, params))
+            del params
+            launch.follow(*mine)
+            torch.cuda.synchronize()
+            out["launches"][part] = _launch_snapshot()
+            print(f"  part ({part}): followed rank 0 to the end; launches "
+                  f"{out['launches'][part]}", flush=True)
+            del backend
+            gc.collect()
+            torch.cuda.empty_cache()
+    with open(os.path.join(root, f"pool_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def native_python(root) -> int:
+    """(c)'s Python side, a process beside the mesh parts: writes a CSV of
+    NATIVE_ROWS rows x 8 mixed columns (seed 0), runs the Python schema
+    pass over it, trains the BPE (NATIVE_MERGES merges on the app's
+    prompts), picks NATIVE_BYTES of prompts (seed 0) and encodes them with
+    the Python merge loop; writes the results and times to
+    `root`/native_python.json, the tokenizer to `root`/bpe.json and the
+    texts to `root`/texts.json."""
+    import csv
+    import hashlib
+    import random
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from llm_based_apache_spark_optimization_tpu_torch.sql.sqlite_backend import (
+        _infer_dtype,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer.bpe import train_bpe
+
+    os.environ["LSOT_NO_NATIVE"] = "1"  # this process is the Python side
+    rng = random.Random(0)
+    path = os.path.join(root, "trips.csv")
+    t0 = time.perf_counter()
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["VendorID", "passenger_count", "trip_distance", "payment_type",
+                    "pickup_datetime", "store_and_fwd_flag", "trip_id", "note"])
+        for i in range(NATIVE_ROWS):
+            w.writerow([rng.randint(1, 2), rng.randint(0, 6), f"{rng.uniform(0, 30):.2f}",
+                        rng.choice(["1", "2", "3", "4"]),
+                        f"2024-01-{rng.randint(1, 28):02d} {rng.randint(0, 23):02d}:"
+                        f"{rng.randint(0, 59):02d}:{rng.randint(0, 59):02d}",
+                        rng.choice(["Y", "N"]), 3_000_000_000 + i,
+                        "" if rng.random() < 0.1 else rng.choice(["ok", "late", "a, b"])])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        rows = list(reader)
+    dtypes = [_infer_dtype([r[i] if i < len(r) else "" for r in rows])
+              for i in range(len(header))]
+    csv_s = time.perf_counter() - t0
+    prompts = ([f"{SYSTEM_SQL}\n\n{q}" for q in SCHED_SQL] + list(APP_QUESTIONS)
+               + [ERROR_PROMPT])
+    t0 = time.perf_counter()
+    bpe = train_bpe(prompts * 2, num_merges=NATIVE_MERGES)
+    train_s = time.perf_counter() - t0
+    bpe.save(os.path.join(root, "bpe.json"))
+    texts, n = [], 0
+    while n < NATIVE_BYTES:
+        texts.append(rng.choice(prompts))
+        n += len(texts[-1].encode())
+    with open(os.path.join(root, "texts.json"), "w") as f:
+        json.dump(texts, f)
+    t0 = time.perf_counter()
+    ids = [bpe.encode(t, add_bos=False) for t in texts]
+    bpe_s = time.perf_counter() - t0
+    digest = hashlib.sha256(json.dumps(ids).encode()).hexdigest()
+    with open(os.path.join(root, "native_python.json"), "w") as f:
+        json.dump({"csv": {"path": path, "dtypes": dtypes, "rows": len(rows),
+                           "bytes": os.path.getsize(path), "write_s": round(write_s, 3),
+                           "python_s": round(csv_s, 4)},
+                   "bpe": {"merges": len(bpe.merges), "texts": len(texts), "bytes": n,
+                           "ids": sum(map(len, ids)), "digest": digest,
+                           "train_s": round(train_s, 3), "python_s": round(bpe_s, 4)}}, f)
+    return 0
+
+
+def native_serve(root, bg, smi):
+    """(c): the C++ scanner over the CSV and the C++ encoder over the texts
+    `native_python` wrote, in this process, against its Python results:
+    the dtypes and the row count equal, the ids equal (their digest), and
+    `SQLiteBackend.load_csv` takes the scanner's dtypes. Returns the
+    numbers."""
+    import hashlib
+
+    from llm_based_apache_spark_optimization_tpu_torch import native
+    from llm_based_apache_spark_optimization_tpu_torch.sql.sqlite_backend import (
+        SQLiteBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer.bpe import BPETokenizer
+
+    rc, out, err, seconds = bg.wait(POOL_TIMEOUT_S)
+    assert rc == 0, f"(c) the Python side failed ({rc}): {err}"
+    with open(os.path.join(root, "native_python.json")) as f:
+        py = json.load(f)
+    t0 = time.perf_counter()
+    lib = native.load_text()
+    build_s = time.perf_counter() - t0
+    assert lib is not None and not native.native_disabled()
+    t0 = time.perf_counter()
+    scanned = native.csv_scan(py["csv"]["path"])
+    scan_s = time.perf_counter() - t0
+    assert scanned is not None, "(c) the scanner refused the CSV"
+    assert scanned == (py["csv"]["dtypes"], py["csv"]["rows"]), (scanned, py["csv"])
+    calls = []
+    real = native.csv_scan
+    native.csv_scan = lambda p, *a: calls.append(p) or real(p, *a)
+    try:
+        schema = SQLiteBackend().load_csv(py["csv"]["path"])
+    finally:
+        native.csv_scan = real
+    assert calls and list(schema.dtypes) == py["csv"]["dtypes"], schema
+    bpe = BPETokenizer.load(os.path.join(root, "bpe.json"))
+    assert bpe._native is not None
+    with open(os.path.join(root, "texts.json")) as f:
+        texts = json.load(f)
+    t0 = time.perf_counter()
+    ids = [bpe.encode(t, add_bos=False) for t in texts]
+    bpe_s = time.perf_counter() - t0
+    digest = hashlib.sha256(json.dumps(ids).encode()).hexdigest()
+    assert digest == py["bpe"]["digest"] and sum(map(len, ids)) == py["bpe"]["ids"], \
+        "(c) the C++ encoder's ids differ from the Python loop's"
+    numbers = {"csv": {"rows": py["csv"]["rows"], "bytes": py["csv"]["bytes"],
+                       "dtypes": py["csv"]["dtypes"], "cpp_s": round(scan_s, 4),
+                       "python_s": py["csv"]["python_s"]},
+               "bpe": {"merges": py["bpe"]["merges"], "bytes": py["bpe"]["bytes"],
+                       "ids": py["bpe"]["ids"], "cpp_s": round(bpe_s, 4),
+                       "python_s": py["bpe"]["python_s"]},
+               "library_load_s": round(build_s, 3), "python_side_s": seconds}
+    print(f"  (c) CSV of {py['csv']['rows']} rows x 8 ({py['csv']['bytes']} bytes): C++ scan "
+          f"{scan_s:.4f} s, Python pass {py['csv']['python_s']} s, dtypes equal; BPE of "
+          f"{py['bpe']['merges']} merges over {py['bpe']['bytes']} bytes: C++ {bpe_s:.4f} s, "
+          f"Python loop {py['bpe']['python_s']} s, ids equal ({py['bpe']['ids']}); host of "
+          f"{smi}", flush=True)
+    return numbers
+
+
+def pool_mesh_serve(torch, engines, smi):
+    """Phase 21: a replica pool of two tp=2 DUCKDB_NSQL_7B replicas (full
+    width, 16 heads a rank), every rank on cuda:0 over gloo
+    (LSOT_MESH_DEVICES), so each collective stages through host memory:
+    this process is the pool's, world rank 0 and rank 0 of both replicas'
+    meshes; two follower processes (`pool_rank`) hold the other halves.
+    (c)'s Python side runs in a process beside it (`native_python`). First
+    the kernels at the per-rank shapes and the tp=1 references, freed
+    before the ranks load; then (a) and (b) (`pool_part_a`,
+    `pool_part_b`), whose launches are held on every rank: each follower's
+    equal its replica's objects' expected count, rank 0's their sum; then
+    (c). Returns (launches by path, numbers)."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import int8mm as mm8
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import (
+        init_distributed,
+        multihost,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="lsot-pool-")
+    bg = Background([sys.executable, os.path.abspath(__file__), "--native-python", root],
+                    "native")
+    try:
+        numbers = {"device": smi, "kernels_per_rank": pool_kernel_checks(torch, mm8)}
+        tok = ByteTokenizer()
+        ref = pool_references(torch, engines, tok)
+        gc.collect()
+        torch.cuda.empty_cache()  # the followers need what the references freed
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            addr = f"127.0.0.1:{s.getsockname()[1]}"
+        procs = start_pool_followers(root, addr)
+        bounds = {}
+        try:
+            t0 = time.perf_counter()
+            assert init_distributed(addr, 3, 0)
+            numbers["a"], got_a, want_a = pool_part_a(torch, engines, ref, tok, smi, bounds)
+            numbers["b"], got_b, want_b = pool_part_b(torch, engines, ref, tok, smi,
+                                                      bounds)
+            dist.barrier()  # the followers wrote their counts and end after it
+            followers = wait_pool_followers(procs, root)
+            numbers["ranks_s"] = round(time.perf_counter() - t0, 1)
+        finally:
+            for p, _ in procs:  # stop a follower left running by a failure here
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            multihost._initialized = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = {}
+        for part, got, want in (("a", got_a, want_a), ("b", got_b, want_b)):
+            label = "pool_tp2_split" if part == "a" else "pool_tp2_int8_spill"
+            total = {k: want[0][k] + want[1][k] for k in want[0]}
+            assert got == total, f"({part}) rank 0: launches {got} != {total}"
+            launches[f"{label}_rank0"] = got
+            for rank, f in zip((1, 2), followers):
+                counts = f["launches"][part]
+                assert counts == want[rank - 1], \
+                    f"({part}) rank {rank}: launches {counts} != {want[rank - 1]}"
+                launches[f"{label}_rank{rank}"] = counts
+            print(f"  ({part}) launches: rank 0 {got} = replica 0's + replica 1's; each "
+                  f"follower its replica's", flush=True)
+        numbers["c"] = native_serve(root, bg, smi)
+        numbers["seconds"] = round(time.perf_counter() - t_phase, 1)
+        print(f"  phase 21: {json.dumps(numbers)}", flush=True)
+        return launches, numbers
+    finally:
+        bg.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -9157,6 +9905,15 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # one worker process of phases 18-19
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # one rank process of phase 20
+    ap.add_argument("--pool-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # one follower process of phase 21
+    ap.add_argument("--native-python", default="",
+                    help=argparse.SUPPRESS)  # phase 21 (c)'s Python side
+    ap.add_argument("--pool-mesh-only", action="store_true",
+                    help="build and run phase 21 alone: the --dp 2 --tp 2 pool of tp=2 "
+                         "7B replicas, phase-split and int8 with spill, every rank on "
+                         "one card, and the native scanner and encoder (prints its "
+                         "numbers and no ok line)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build and run phase 20 alone: tp=2 and sp=2 on two ranks of "
                          "one card over the 7B and 3B weights, and the runbook over a "
@@ -9172,6 +9929,11 @@ def main() -> int:
     if args.mesh_rank is not None:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return mesh_rank(args.mesh_rank)
+    if args.pool_rank is not None:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return pool_rank(args.pool_rank)
+    if args.native_python:
+        return native_python(args.native_python)
 
     import torch
 
@@ -9342,6 +10104,15 @@ def main() -> int:
         print(json.dumps({"mesh": mesh_numbers, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.pool_mesh_only:
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
+        phase("pool of tp meshes, phase 21: two tp=2 replicas on cuda:0 (gloo), the "
+              "native layer")
+        _, pool_numbers = pool_mesh_serve(torch, engines, smi)
+        phase(None)
+        print(json.dumps({"pool_mesh": pool_numbers, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.disagg_only:
         engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
         phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
@@ -9468,6 +10239,11 @@ def main() -> int:
     ckpt_launches = checkpoints(torch, engines, after_hf=phase20)
     if not mesh_out:  # no tokenizers package: phase 20 without the runbook's (d)
         phase20(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("pool of tp meshes, phase 21: two tp=2 replicas on cuda:0 (gloo), the native "
+          "layer")
+    pool_launches, pool_numbers = pool_mesh_serve(torch, engines, smi)
 
     phase("timing")
     assert engines["duckdb-nsql"].cfg == DUCKDB_NSQL_7B
@@ -9520,7 +10296,7 @@ def main() -> int:
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
              "fleet_pool": fleet_launches, **disagg_launches, **remote_launches,
-             **elastic_launches, **mesh_out["launches"],
+             **elastic_launches, **mesh_out["launches"], **pool_launches,
              **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
@@ -9575,6 +10351,10 @@ def main() -> int:
             # per-rank shapes of the tp=2 meshes, on each rank.
             entry["mesh_per_rank_max_err"] = mesh_out["numbers"]["kernels_per_rank"][
                 MESH_ROWS[launch]]
+        if launch in POOL_ROWS:
+            # Phase 21: the row at the per-rank shapes of its tp=2 replicas.
+            entry["pool_per_rank_max_err"] = pool_numbers["kernels_per_rank"][
+                POOL_ROWS[launch]]
         if launch.endswith("_window"):
             # bf16 only: f32 windows run the tile kernel, recorded apart.
             entry["max_row_rel_err_by_dtype"] = errors[launch + "_rel"]
@@ -9598,6 +10378,7 @@ def main() -> int:
                       "device": smi}))
     print(json.dumps({"elastic": elastic, "device": smi}))
     print(json.dumps({"mesh": mesh_out["numbers"], "device": smi}))
+    print(json.dumps({"pool_mesh": pool_numbers, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

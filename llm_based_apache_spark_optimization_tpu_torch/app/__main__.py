@@ -53,6 +53,13 @@ loads its own hf directory or gguf blob (`make_multimodel_checkpoint_service`,
 replicas behind one `SchedulerPool` (`make_dp_pool_backend`): one host-side
 load and quantization, replica i on `cuda:i` (under `--cpu` all on the CPU),
 each rebuilt alone after a crash, the crash supervisor around the pool.
+With `--tp M` each replica is a tp mesh of its own (JAX's submeshes): this
+process is rank 0 of every replica's mesh, on its first card `cuda:i*M`,
+and starts the other M-1 ranks of each (1 + N*(M-1) processes,
+parallel/launch.join_pool); each replica's scheduler shards the one host
+tree onto its mesh, and a crashed replica is rebuilt on its mesh, its
+followers building their twins. `LSOT_MESH_DEVICES` (N*M entries) places
+the shards, e.g. all on one card.
 `LSOT_POOL_PHASES` ("prefill:1,decode:1") gives the replicas phase roles
 (paged only): a prefill replica hands each request's KV pages to a decode
 replica after its first token; `LSOT_PUMP_DEPTH` bounds the handoffs a
@@ -77,11 +84,12 @@ models on a mesh of dp*sp*tp ranks (parallel/): the command starts the
 other ranks itself (parallel/launch.py), every rank loads its own block of
 the weights, rank 0 serves HTTP and drives, and the others follow its
 device steps. One rank a card over NCCL, or LSOT_MESH_DEVICES to place
-ranks (two on one card run over gloo, staged through host memory). It
-refuses, naming the ROADMAP item, every option it cannot honor yet, instead
-of ignoring it: a mesh beside `--dp N --scheduler` or `LSOT_MODELS`
-(A13.4), and the environment knob of `UNPORTED_KNOBS`, the bench seed
-(A12's bench).
+ranks (two on one card run over gloo, staged through host memory).
+`LSOT_MODELS` beside `--tp`/`--dp` builds its model pool unsharded and
+starts no rank, as the JAX entry point does. It refuses, naming the
+ROADMAP item, every option it cannot honor yet, instead of ignoring it: a
+pool of tp meshes under an outer launcher (A13.5), and the environment
+knob of `UNPORTED_KNOBS`, the bench seed (A12's bench).
 
 `make_oracle_service` answers every eval case with its expected SQL: the
 eval harness's self-proof (`python -m ...evalh --backend oracle` reads
@@ -106,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from typing import Optional, Tuple
 
@@ -146,26 +155,37 @@ def _spill_path(cfg: AppConfig, tag: str) -> Optional[str]:
 
 
 def mesh_ranks(args, cfg: AppConfig) -> int:
-    """Ranks of the mesh the flags ask for: dp*sp*tp for the tiny and
-    checkpoint models, 1 (no mesh) for the fake backend and for the `--dp N
-    --scheduler` replica pool at `--tp 1`. Raises on a combination the port
-    cannot shard yet, as JAX exits on `--scheduler` with sp."""
+    """Processes the flags ask for: dp*sp*tp for a mesh of the tiny and
+    checkpoint models; 1 + (local replicas)*(tp-1) for the `--dp N --tp M
+    --scheduler` replica pool of tp meshes (`pool_replicas`); 1 (no mesh)
+    for the fake backend, for the pool at `--tp 1`, and beside
+    `LSOT_MODELS`, whose model pool is built unsharded as in JAX. Exits on
+    `--scheduler` with sp, as JAX does."""
     n = args.dp * args.sp * args.tp
-    if n == 1 or args.backend == "fake":
+    if n == 1 or args.backend == "fake" or (cfg.models and args.backend == "tiny"):
         return 1
     if args.scheduler and args.sp > 1:
         sys.exit("--scheduler has no sp axis (decode's T=1 has no sequence "
                  "to shard); use sp with --no-scheduler")
-    if args.scheduler and args.dp > 1:
-        if args.tp == 1:
-            return 1  # the replica pool, one scheduler a card
-        raise NotImplementedError(
-            "--dp N --scheduler with --tp > 1 (a replica pool of tp meshes) "
-            "is not ported: ROADMAP A13.4")
     if cfg.models:
-        raise NotImplementedError("LSOT_MODELS on a mesh is not ported: "
-                                  "ROADMAP A13.4")
+        return 1
+    if args.scheduler and args.dp > 1:
+        return 1 + len(pool_replicas(args, cfg)) * (args.tp - 1)
     return n
+
+
+def pool_replicas(args, cfg: AppConfig) -> list:
+    """The local replicas of the `--dp N --scheduler` pool: its indices
+    less the remote slots of `LSOT_POOL_REMOTE`."""
+    remote = parse_pool_remote(cfg.pool_remote, args.dp) if not cfg.models else {}
+    return [i for i in range(args.dp) if i not in remote]
+
+
+def is_tp_pool(args, cfg: AppConfig) -> bool:
+    """`--dp N --tp M --scheduler` (N, M > 1) on the checkpoint backend: a
+    replica pool of tp meshes (`make_dp_pool_backend`)."""
+    return (args.backend == "checkpoint" and args.scheduler and args.dp > 1
+            and args.tp > 1 and args.sp == 1 and not cfg.models)
 
 
 def refuse_unported(args, cfg: AppConfig) -> None:
@@ -241,13 +261,15 @@ def parse_pool_remote(spec: str, replicas: int) -> dict:
 
 def refuse_dp_pool(args, cfg: AppConfig) -> None:
     """The checks of `--dp N --scheduler` that need no checkpoint, with the
-    JAX entry point's messages: N devices (replica i on `cuda:i`, remote
-    slots counted; under `--cpu` every local replica on the CPU), the
+    JAX entry point's messages: N*tp devices (replica i on `cuda:i*tp`,
+    remote slots counted; under `--cpu` every local replica on the CPU,
+    and under `--tp` > 1 LSOT_MESH_DEVICES may name the cards), the
     checkpoint backend, `LSOT_POOL_PHASES` and `LSOT_POOL_REMOTE` only on
     such a pool, and the remote entries (`LSOT_MODELS` is refused beside
     them later, as in JAX). `--dp` without `--scheduler` is the engine's dp
     mesh (`mesh_ranks`), not a pool."""
-    if args.dp > 1 and args.scheduler and not args.cpu:
+    if args.dp > 1 and args.scheduler and not args.cpu and not (
+            args.tp > 1 and os.environ.get("LSOT_MESH_DEVICES")):
         import torch
 
         found = torch.cuda.device_count()
@@ -278,14 +300,21 @@ def _tree_to(tree, device):
 
 
 def make_dp_pool_backend(args, cfg: AppConfig, src: str, tok, add_bos: bool,
-                         max_new_tokens: int, kv_quant: Optional[str]):
-    """`--dp N --scheduler` (`--tp 1`): N scheduler replicas of one
-    checkpoint behind a `SchedulerPool`, the JAX entry point's dp pool.
-    The checkpoint is read and quantized once on the host, then copied to
-    each replica's device (replica i on `cuda:i`; all on the CPU under
-    `--cpu`, sharing the tree). A per-replica factory rebuilds a crashed
-    replica from that tree; `LSOT_POOL_PHASES` gives each replica its phase
-    role, `LSOT_PUMP_DEPTH` a prefill replica's bound on packed handoffs,
+                         max_new_tokens: int, kv_quant: Optional[str],
+                         meshes=None, loaded=None):
+    """`--dp N --scheduler`: N scheduler replicas of one checkpoint behind a
+    `SchedulerPool`, the JAX entry point's dp pool. The checkpoint is read
+    (or `loaded` = (config, params) taken as read) and quantized once on
+    the host. At `--tp 1` the tree is copied to each replica's device
+    (replica i on `cuda:i`; all on the CPU under `--cpu`, sharing the
+    tree). With `meshes` (`launch.join_pool`: replica i's tp mesh, None for
+    a remote slot) replica i's scheduler shards the host tree onto its mesh
+    (JAX's `mesh=scheduler_meshes[i]`); on a follower rank, which lies on
+    one replica's mesh, only that replica's twin is built, and it follows
+    rank 0's steps. A per-replica factory rebuilds a crashed replica from
+    the same tree (on its mesh, where the followers build its twin);
+    `LSOT_POOL_PHASES` gives each replica its phase role,
+    `LSOT_PUMP_DEPTH` a prefill replica's bound on packed handoffs,
     `LSOT_REPLICA_WEIGHTS` its capacity weight, and the crash supervisor
     wraps the pool (`--supervise`). A slot of `LSOT_POOL_REMOTE` is a
     `SocketTransport` to its worker instead (its factory entry connects
@@ -312,13 +341,16 @@ def make_dp_pool_backend(args, cfg: AppConfig, src: str, tok, add_bos: bool,
     except ValueError as e:
         sys.exit(f"LSOT_REPLICA_WEIGHTS: {e}")
     remote = parse_pool_remote(cfg.pool_remote, args.dp)
-    path = src.split(":", 1)[0]
-    load = load_gguf_checkpoint if path.endswith(".gguf") else load_hf_checkpoint
-    mcfg, params = load(path, device="cpu")
+    if loaded is None:
+        path = src.split(":", 1)[0]
+        load = load_gguf_checkpoint if path.endswith(".gguf") else load_hf_checkpoint
+        loaded = load(path, device="cpu")
+    mcfg, params = loaded
     params = quantize_loaded(params, args.int8, args.int4, args.int8_unembed)
-    devices = ["cpu"] * args.dp if args.cpu else [f"cuda:{i}" for i in range(args.dp)]
-    trees = {d: params if d == "cpu" else _tree_to(params, d)
-             for i, d in enumerate(devices) if i not in remote}
+    if meshes is None:
+        devices = ["cpu"] * args.dp if args.cpu else [f"cuda:{i}" for i in range(args.dp)]
+        trees = {d: params if d == "cpu" else _tree_to(params, d)
+                 for i, d in enumerate(devices) if i not in remote}
     stops = resolve_stop_ids(mcfg, tok)
 
     def make_replica(i):
@@ -326,16 +358,25 @@ def make_dp_pool_backend(args, cfg: AppConfig, src: str, tok, add_bos: bool,
             from ..serve.remote import SocketTransport
 
             return SocketTransport(remote[i], label=f"r{i}")
+        placed = (dict(params=params, mesh=meshes[i]) if meshes is not None
+                  else dict(params=trees[devices[i]], device=devices[i]))
         return ContinuousBatchingScheduler(
-            mcfg, trees[devices[i]], num_slots=args.slots, stop_ids=stops,
+            mcfg, num_slots=args.slots, stop_ids=stops,
             kv_quant=kv_quant, kv_layout=args.kv_layout,
             kv_hbm_budget_bytes=int(args.kv_hbm_gb * 2**30) or None,
             kv_overcommit=cfg.kv_overcommit, kv_spill=cfg.kv_spill,
             kv_watermark_low=cfg.kv_watermark_low,
             kv_watermark_high=cfg.kv_watermark_high,
             speculative_draft=args.speculative, max_queue_depth=cfg.max_queue_depth,
-            phase_role=roles[i], pump_depth=cfg.pump_depth, device=devices[i],
+            phase_role=roles[i], pump_depth=cfg.pump_depth, **placed,
             **scheduler_qos(cfg))
+
+    mine = [i for i, m in enumerate(meshes or []) if m is not None and not m.is_primary]
+    if mine:
+        # A follower rank: its replica's twin, kept by a backend nothing
+        # submits to, replays rank 0's steps.
+        return SchedulerBackend(make_replica(mine[0]), tok,
+                                max_new_tokens=max_new_tokens, add_bos=add_bos)
 
     def make_pool():
         return SchedulerPool([make_replica(i) for i in range(args.dp)],
@@ -501,15 +542,16 @@ def refuse_int8_speculation(args, cfg: AppConfig) -> None:
 
 
 def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
-                            device=None, mesh=None) -> GenerationService:
+                            device=None, mesh=None, pool_meshes=None) -> GenerationService:
     """Real weights: duckdb-nsql (NL->SQL) and llama3.2 (error analysis)
     from HF safetensors directories or GGUF blobs, each behind a
     continuous-batching scheduler (supervised by default) or, with
     `--no-scheduler`, a lock-serialised engine. The JAX entry point's
     single-checkpoint branch (`LSOT_MODELS` takes
     `make_multimodel_checkpoint_service`). With `--dp N` each model is a
-    replica pool (`make_dp_pool_backend`). With a `mesh` each rank loads
-    its own block of every model straight from the checkpoint."""
+    replica pool (`make_dp_pool_backend`), each replica on its mesh of
+    `pool_meshes` under `--tp` > 1. With a `mesh` each rank loads its own
+    block of every model straight from the checkpoint."""
     from ..serve.factory import assemble_reference_service
     from ..serve.scheduler import SchedulerBackend
     from ..tokenizer import HFTokenizer
@@ -525,7 +567,7 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
         gguf = path.endswith(".gguf")
         if args.scheduler and args.dp > 1:
             return make_dp_pool_backend(args, cfg, src, tok, add_bos, max_new_tokens,
-                                        kv_quant)
+                                        kv_quant, meshes=pool_meshes)
         if args.scheduler:
             common = dict(
                 max_new_tokens=max_new_tokens, add_bos=add_bos,
@@ -803,7 +845,8 @@ def build_parser() -> argparse.ArgumentParser:
 def build_service(args, cfg: AppConfig, mesh=None) -> GenerationService:
     """The service the flags ask for, after refusing what the port cannot
     honor; on `mesh` (`main` builds it over the ranks it starts) this rank's
-    side of it."""
+    side of it. For the replica pool of tp meshes `mesh` is the list of
+    replica meshes `launch.join_pool` gives."""
     refuse_unported(args, cfg)
     refuse_dp_pool(args, cfg)
     if args.int4 and args.int8:
@@ -823,8 +866,10 @@ def build_service(args, cfg: AppConfig, mesh=None) -> GenerationService:
         service = (make_multimodel_checkpoint_service(args, cfg, args.max_new_tokens,
                                                       device=device)
                    if cfg.models else
-                   make_checkpoint_service(args, cfg, args.max_new_tokens,
-                                           device=device, mesh=mesh))
+                   make_checkpoint_service(
+                       args, cfg, args.max_new_tokens, device=device,
+                       mesh=None if isinstance(mesh, list) else mesh,
+                       pool_meshes=mesh if isinstance(mesh, list) else None))
     elif cfg.models:
         # The tiny fleet: co-resident random-weight models in one
         # model-routing pool.
@@ -861,25 +906,30 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, host=args.host)
     if args.port:
         cfg = dataclasses.replace(cfg, port=args.port)
+    refuse_dp_pool(args, cfg)  # JAX's exits, before any rank starts
     mesh, children = None, []
     if mesh_ranks(args, cfg) > 1:
         from ..parallel import launch, spmd
 
-        mesh, children = launch.join(
-            args.dp, args.sp, args.tp, args.cpu,
-            "llm_based_apache_spark_optimization_tpu_torch.app", argv)
+        module = "llm_based_apache_spark_optimization_tpu_torch.app"
+        if is_tp_pool(args, cfg):
+            mesh, children = launch.join_pool(args.dp, args.tp, args.cpu, module, argv,
+                                              local=pool_replicas(args, cfg))
+        else:
+            mesh, children = launch.join(args.dp, args.sp, args.tp, args.cpu, module, argv)
     service = build_service(args, cfg, mesh)
-    if mesh is not None and not mesh.is_primary:
-        launch.follow(mesh)  # until rank 0 closes the channel
+    meshes = [m for m in (mesh if isinstance(mesh, list) else [mesh]) if m is not None]
+    if any(not m.is_primary for m in meshes):
+        launch.follow(*meshes)  # until rank 0 closes the channel
         return
-    if mesh is not None:
-        spmd.drive(mesh)
+    for m in meshes:
+        spmd.drive(m)
     try:
         _serve(args, cfg, service)
     finally:
-        if mesh is not None:
+        if meshes:
             service.close()
-            launch.finish(mesh, children)
+            launch.finish(meshes, children)
 
 
 def _serve(args, cfg: AppConfig, service) -> None:

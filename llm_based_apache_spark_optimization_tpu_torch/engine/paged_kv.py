@@ -22,6 +22,12 @@ Counterpart of the JAX package's `engine/paged_kv.py`:
   pool array, scales included (the spill format of the scheduler's
   preemption); `import_pages` writes a blob back into pool pages, bit for
   bit. bf16 stacks travel as their 16-bit patterns (numpy has no bf16).
+- Under a tp mesh each rank's pool holds its tp-th of the KV heads, and a
+  blob keeps the unsharded layout all the same: the export gathers every
+  rank's head block to the mesh's rank 0, the import sends rank 0's blob
+  to every rank, which writes its own block. So a tp=2 replica's blob is
+  what a tp=1 replica exports from the same pool contents, and a replica
+  of any tp imports it.
 """
 
 from __future__ import annotations
@@ -167,15 +173,22 @@ def export_pages(pool: Dict[str, torch.Tensor],
     return export_pages_start(pool, page_ids)()
 
 
-def export_pages_start(pool: Dict[str, torch.Tensor],
-                       page_ids: Sequence[int]) -> Callable[[], Tuple[np.ndarray, ...]]:
+def export_pages_start(pool: Dict[str, torch.Tensor], page_ids: Sequence[int],
+                       mesh=None) -> Callable[[], Tuple[np.ndarray, ...]]:
     """`export_pages` in two halves: this call enqueues the gather and the
     copy to pinned host buffers; the function it returns waits for that
     copy and returns the blob. A caller issuing under a dispatch lock waits
-    outside it."""
+    outside it. Under a tp `mesh` every rank of it calls this with the same
+    pages (module docstring): the heads are gathered to rank 0, whose
+    function returns the whole blob; the others' return an empty tuple."""
+    from ..ops.common import all_gather, axis_index
+
     dev = next(iter(pool.values())).device
     idx = torch.tensor(list(page_ids), dtype=torch.int64, device=dev)
-    stacks = [arr[:, idx] for arr in pool.values()]
+    # [L, n, K, page_size(, H)]: the KV-head axis is 2 in every pool array.
+    stacks = [all_gather(arr[:, idx], mesh, "tp", dim=2) for arr in pool.values()]
+    if axis_index(mesh, "tp"):
+        return lambda: ()  # rank 0 holds the blob
     done = None
     if dev.type == "cuda":
         host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in stacks]
@@ -195,19 +208,38 @@ def export_pages_start(pool: Dict[str, torch.Tensor],
 
 
 def import_pages(pool: Dict[str, torch.Tensor], page_ids: Sequence[int],
-                 stacks: Sequence[np.ndarray]) -> None:
+                 stacks: Optional[Sequence[np.ndarray]], mesh=None) -> None:
     """Write an `export_pages` blob into pool pages `page_ids` (freshly
     allocated, exclusive), in place: one indexed copy per pool array. On
     the card the host arrays go through pinned buffers without a
-    synchronise, ordered on the current stream before any later round."""
+    synchronise, ordered on the current stream before any later round.
+    Under a tp `mesh` every rank of it calls this with the same pages: rank
+    0 brings the whole blob, the others None, and each rank writes its own
+    block of the heads."""
+    from ..ops.common import axis_index, axis_size, broadcast
+
     dev = next(iter(pool.values())).device
     idx = torch.tensor(list(page_ids), dtype=torch.int64, device=dev)
-    for arr, stack in zip(pool.values(), stacks):
-        src = torch.from_numpy(np.ascontiguousarray(stack))
-        if src.dtype != arr.dtype:
-            src = src.view(arr.dtype)  # bf16 from its 16-bit patterns
-        if dev.type == "cuda":
-            src = src.pin_memory().to(dev, non_blocking=True)
+    tp, r = axis_size(mesh, "tp"), axis_index(mesh, "tp")
+    staged = mesh is not None and mesh.staged
+    for i, arr in enumerate(pool.values()):
+        shape = (arr.shape[0], len(page_ids), arr.shape[2] * tp, *arr.shape[3:])
+        src = like = None
+        if r == 0:
+            src = torch.from_numpy(np.ascontiguousarray(stacks[i]))
+            if src.dtype != arr.dtype:
+                src = src.view(arr.dtype)  # bf16 from its 16-bit patterns
+            if dev.type == "cuda" and not staged:
+                src = src.pin_memory().to(dev, non_blocking=True)
+        else:
+            like = torch.empty(shape, dtype=arr.dtype,
+                               device="cpu" if staged else dev)
+        if tp > 1:
+            kl = arr.shape[2]
+            src = broadcast(src, mesh, "tp", like=like).narrow(2, r * kl, kl)
+        if src.device != dev:
+            src = (src.pin_memory().to(dev, non_blocking=True)
+                   if dev.type == "cuda" else src.to(dev))
         arr[:, idx] = src
 
 

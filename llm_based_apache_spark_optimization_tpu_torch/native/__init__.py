@@ -1,11 +1,18 @@
-"""The GGUF reader: `native/gguf.cpp`, built with g++ at first use and bound
-with ctypes.
+"""The native libraries: C++ built with g++ at first use, bound with ctypes.
 
-Counterpart of the JAX package's `native.GGUFReader`, with its own copy of
-the C++ source. The library builds into the package's git-ignored `build/`
-(next to the CUDA kernels) the first time a GGUF file is opened, and is
-rebuilt when `gguf.cpp` or `gguf.h` is newer than it. A failed build raises:
-there is no Python reader to fall back to.
+Counterpart of the JAX package's `native/`, with its own copies of the C++
+sources. Two libraries build into the package's git-ignored `build/` (next
+to the CUDA kernels), each the first time it is needed and again when one
+of its sources is newer than it:
+- `libgguf.so` (`gguf.cpp`, `gguf.h`): the GGUF reader, `GGUFReader`;
+- `libtext.so` (`bpe.cpp`, `csvscan.cpp`, `text.h`): the BPE encoder
+  (`NativeBPE`, which `tokenizer.BPETokenizer` encodes with) and the CSV
+  schema scanner (`csv_scan`, which `sql.SQLiteBackend.load_csv` infers
+  dtypes with).
+A failed build raises: nothing falls back to Python on its own.
+`LSOT_NO_NATIVE=1` is the explicit choice of the Python passes for the
+encoder and the scanner, as in the JAX package (`NativeBPE.create` and
+`csv_scan` return None); the GGUF reader has no Python pass and ignores it.
 """
 
 from __future__ import annotations
@@ -14,53 +21,82 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 _SRC = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (os.path.join(_SRC, "gguf.cpp"), os.path.join(_SRC, "gguf.h"))
+TEXT_SOURCES = tuple(os.path.join(_SRC, f) for f in ("bpe.cpp", "csvscan.cpp", "text.h"))
 BUILD = os.path.join(os.path.dirname(_SRC), "build")
 LIB = os.path.join(BUILD, "libgguf.so")
+TEXT_LIB = os.path.join(BUILD, "libtext.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_text_lib: Optional[ctypes.CDLL] = None
 
 
-def build_command(out: str) -> List[str]:
-    """The g++ command that builds the reader into `out`."""
+def build_command(out: str, *cpp: str) -> List[str]:
+    """The g++ command that builds `cpp` (default: the GGUF reader) into
+    `out`."""
     return ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", f"-I{_SRC}",
-            SOURCES[0], "-o", out]
+            *(cpp or SOURCES[:1]), "-o", out]
 
 
-def _build() -> None:
+def _build(lib: str, *cpp: str) -> None:
     os.makedirs(BUILD, exist_ok=True)
     # Build to a temporary name, then rename: a concurrent loader sees no
     # file or a complete one, never half a library.
-    tmp = f"{LIB}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    names = ", ".join(os.path.basename(f) for f in (cpp or SOURCES[:1]))
     try:
-        proc = subprocess.run(build_command(tmp), capture_output=True,
+        proc = subprocess.run(build_command(tmp, *cpp), capture_output=True,
                               text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as e:
-        raise RuntimeError(f"building the GGUF reader failed: {e}") from e
+        raise RuntimeError(f"building native/{names} failed: {e}") from e
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise RuntimeError(
-            f"g++ failed for native/gguf.cpp:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB)
+            f"g++ failed for native/{names}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+
+
+def _stale(lib: str, sources: Sequence[str]) -> bool:
+    return not os.path.exists(lib) or os.path.getmtime(lib) < max(
+        os.path.getmtime(f) for f in sources)
 
 
 def load() -> ctypes.CDLL:
-    """The reader's library, built first if missing or stale."""
+    """The GGUF reader's library, built first if missing or stale."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(LIB) or os.path.getmtime(LIB) < max(
-                os.path.getmtime(f) for f in SOURCES):
-            _build()
+        if _stale(LIB, SOURCES):
+            _build(LIB)
         lib = ctypes.CDLL(LIB)
         _declare(lib)
         _lib = lib
+        return lib
+
+
+def native_disabled() -> bool:
+    """`LSOT_NO_NATIVE=1`: the Python encoder and scanner are asked for."""
+    return os.environ.get("LSOT_NO_NATIVE") == "1"
+
+
+def load_text() -> ctypes.CDLL:
+    """The text library (BPE encoder, CSV scanner), built first if missing
+    or stale. Raises when it cannot be built."""
+    global _text_lib
+    with _lock:
+        if _text_lib is not None:
+            return _text_lib
+        if _stale(TEXT_LIB, TEXT_SOURCES):
+            _build(TEXT_LIB, *(f for f in TEXT_SOURCES if f.endswith(".cpp")))
+        lib = ctypes.CDLL(TEXT_LIB)
+        _declare_text(lib)
+        _text_lib = lib
         return lib
 
 
@@ -160,3 +196,77 @@ class GGUFReader:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter teardown
             pass
+
+
+def _declare_text(lib: ctypes.CDLL) -> None:
+    c = ctypes
+    sigs = {
+        "lsot_bpe_new": (c.c_void_p, [c.POINTER(c.c_int32), c.c_int32, c.c_int32]),
+        "lsot_bpe_free": (None, [c.c_void_p]),
+        "lsot_bpe_encode": (c.c_int32, [c.c_void_p, c.POINTER(c.c_uint8), c.c_int32,
+                                        c.POINTER(c.c_int32), c.c_int32]),
+        "lsot_csv_scan": (c.c_int32, [c.c_char_p, c.POINTER(c.c_int32), c.c_int32,
+                                      c.POINTER(c.c_int64)]),
+    }
+    for name, (res, args) in sigs.items():
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
+
+
+class NativeBPE:
+    """ctypes handle to the C++ BPE encoder (`bpe.cpp`): the merge loop of
+    `tokenizer.bpe.BPETokenizer._merge`, same output. `NativeBPE.create`
+    returns None under `LSOT_NO_NATIVE=1` and raises when the library cannot
+    be built."""
+
+    def __init__(self, lib: ctypes.CDLL, merges: Sequence[Tuple[int, int]],
+                 n_special: int):
+        self._lib = lib
+        flat = [int(x) for pair in merges for x in pair]
+        arr = (ctypes.c_int32 * len(flat))(*flat)
+        self._h = lib.lsot_bpe_new(arr, len(merges), n_special)
+
+    @classmethod
+    def create(cls, merges: Sequence[Tuple[int, int]],
+               n_special: int) -> Optional["NativeBPE"]:
+        if native_disabled():
+            return None
+        return cls(load_text(), merges, n_special)
+
+    def encode_bytes(self, data: bytes) -> List[int]:
+        n = len(data)
+        if n == 0:
+            return []
+        buf = (ctypes.c_uint8 * n).from_buffer_copy(data)
+        out = (ctypes.c_int32 * n)()
+        count = self._lib.lsot_bpe_encode(self._h, buf, n, out, n)
+        if count < 0:  # cannot happen (merges only shrink the sequence)
+            raise RuntimeError("native BPE output overflow")
+        return list(out[:count])
+
+    def __del__(self):
+        h, lib = getattr(self, "_h", None), getattr(self, "_lib", None)
+        if h and lib is not None:
+            lib.lsot_bpe_free(h)
+
+
+#: Dtype code -> Spark-compatible dtype name (text.h's LSOT_CSV_*).
+CSV_DTYPE_NAMES = ("string", "int", "bigint", "double", "timestamp")
+
+
+def csv_scan(path, max_cols: int = 4096):
+    """The C++ CSV schema scan (`csvscan.cpp`): (dtype names, data-row
+    count), or None under `LSOT_NO_NATIVE=1` or for a file the scanner
+    refuses (unreadable or empty, a row wider than the header, more than
+    `max_cols` columns), where the caller takes the Python pass. Raises
+    when the library cannot be built."""
+    if native_disabled():
+        return None
+    lib = load_text()
+    dtypes = (ctypes.c_int32 * max_cols)()
+    n_rows = ctypes.c_int64()
+    n = lib.lsot_csv_scan(os.fsencode(path), dtypes, max_cols, ctypes.byref(n_rows))
+    if n < 0:
+        return None
+    return [CSV_DTYPE_NAMES[dtypes[i]] for i in range(n)], int(n_rows.value)

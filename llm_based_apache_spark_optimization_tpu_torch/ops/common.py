@@ -5,7 +5,8 @@ a `shard_map` body, code sees its per-device block and names mesh axes for
 its collectives. The port is SPMD already (each rank holds its own block,
 parallel/mesh.py), so its counterparts are the collectives themselves,
 named by mesh axis: `all_reduce`, `all_gather` along a tensor dim,
-`ring_shift` (ring attention's rotation) and the axis's size and index.
+`broadcast` from an axis's first rank, `ring_shift` (ring attention's
+rotation) and the axis's size and index.
 Each is the identity on an axis of size 1 or without a mesh.
 
 On a gloo mesh over CUDA tensors (two ranks on one card: `Mesh.staged`)
@@ -91,14 +92,29 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh, axis: str = "sp"
     return [o.to(x.device) for o, x in zip(outs, tensors)]
 
 
+def broadcast(x: Optional[torch.Tensor], mesh, axis: str = "tp", *,
+              like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The first rank of `axis`'s tensor `x` on every rank of the axis; the
+    other ranks pass `like`, a tensor of its shape and dtype to receive
+    into. On a staged mesh the result stays in host memory."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    import torch.distributed as dist
+
+    buf = _host(x if mesh.coords[axis] == 0 else like, mesh).contiguous()
+    dist.broadcast(buf, src=mesh.axis_ranks(axis)[0], group=mesh.group(axis))
+    return buf
+
+
 def broadcast_object(obj, mesh, src: int = 0) -> Optional[object]:
-    """`obj` from global rank `src` on every rank, over the control group."""
+    """`obj` from the mesh's rank `src` on every rank, over the control
+    group."""
     if mesh is None or mesh.size == 1:
         return obj
     import torch.distributed as dist
 
     box = [obj]
-    dist.broadcast_object_list(box, src=src, group=mesh.control)
+    dist.broadcast_object_list(box, src=mesh.ranks[src], group=mesh.control)
     return box[0]
 
 

@@ -23,6 +23,13 @@ Rank 0 watches the ranks it started: one that exits before rank 0 ends the
 group ends rank 0 too, with that rank's exit code (its collectives would
 otherwise wait on a peer that is gone). A follower whose step loop fails
 exits at once with code 1 (`follow`), so rank 0 sees it.
+
+A replica pool of tp meshes (`--dp N --tp M --scheduler`, `join_pool`) is
+one command too: its process is world rank 0 and rank 0 of every replica's
+submesh, and it starts the other M-1 ranks of each local replica
+(1 + N*(M-1) processes in all; parallel/mesh.make_submeshes). Replica i's
+shards sit on `pool_devices(...)[i*M:(i+1)*M]`, JAX's device slice. Under
+an outer launcher the pool is not ported (ROADMAP A13.5).
 """
 
 from __future__ import annotations
@@ -40,6 +47,9 @@ import torch
 from .mesh import Mesh
 
 _WATCH_PERIOD_S = 0.5
+# Set in the environment of the ranks `start_group` starts: such a rank is
+# not under an outer launcher.
+_STARTED_BY = "LSOT_STARTED_BY"
 
 
 def _free_port() -> int:
@@ -125,7 +135,7 @@ def start_group(world: int, module: str, argv: Sequence[str],
     for rank in range(1, world):
         env = dict(os.environ, LSOT_COORDINATOR=addr,
                    LSOT_NUM_PROCESSES=str(world), LSOT_PROCESS_ID=str(rank),
-                   **extra)
+                   **{_STARTED_BY: str(os.getpid())}, **extra)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", module, *argv], env=env))
     children = Ranks(procs)
@@ -149,6 +159,63 @@ def join(dp: int, sp: int, tp: int, cpu: bool, module: str,
     return mesh, children
 
 
+def pool_devices(dp: int, tp: int, cpu: bool) -> List[str]:
+    """The card of each shard of a pool of dp tp-replicas, replica i's shard
+    j at i*tp + j: all "cpu" with `--cpu`; else LSOT_MESH_DEVICES (dp*tp
+    entries; "cuda:0,cuda:0,cuda:0,cuda:0" puts a dp=2 tp=2 pool on one
+    card, over gloo); else `cuda:0..dp*tp-1`, and a host with fewer cards
+    raises."""
+    n = dp * tp
+    if cpu:
+        return ["cpu"] * n
+    spec = os.environ.get("LSOT_MESH_DEVICES", "")
+    devices = [d.strip() for d in spec.split(",") if d.strip()]
+    if devices:
+        if len(devices) != n:
+            raise ValueError(f"LSOT_MESH_DEVICES lists {len(devices)} devices; a "
+                             f"pool of {dp} tp={tp} replicas has {n} shards")
+        return devices
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < n:
+        raise RuntimeError(
+            f"a pool of {dp} tp={tp} replicas needs {n} CUDA devices, one a "
+            f"shard; this host has {count}. Pass --cpu, or name the placement "
+            "with LSOT_MESH_DEVICES")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def join_pool(dp: int, tp: int, cpu: bool, module: str, argv: Sequence[str],
+              local: Optional[Sequence[int]] = None
+              ) -> Tuple[List[Optional[Mesh]], Ranks]:
+    """A replica pool's submeshes (module docstring): the group of 1 +
+    len(local)*(tp-1) ranks formed (this command starting the others where
+    it is rank 0), then one tp mesh for each replica of `local` (default
+    all: the others are remote slots, with no mesh). Returns the mesh of
+    each replica index (None where this rank holds no shard of it) and the
+    started ranks."""
+    import torch.distributed as dist
+
+    from .mesh import make_submeshes
+
+    if os.environ.get("LSOT_PROCESS_ID") and not os.environ.get(_STARTED_BY) \
+            and not dist.is_initialized():
+        raise NotImplementedError(
+            "a replica pool of tp meshes under an outer launcher (LSOT_PROCESS_ID "
+            "set by another program) is not ported: ROADMAP A13.5, the "
+            "remainder of A13.4; start it as one command")
+    local = list(range(dp)) if local is None else list(local)
+    devices = pool_devices(dp, tp, cpu)
+    children = start_group(1 + len(local) * (tp - 1), module, argv, devices)
+    meshes = make_submeshes(tp, [devices[i * tp:(i + 1) * tp] for i in local])
+    out: List[Optional[Mesh]] = [None] * dp
+    for i, m in zip(local, meshes):
+        out[i] = m
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        for i in local:
+            print(f"replica {i}: {out[i].describe()}", file=sys.stderr)
+    return out, children
+
+
 def follow(*meshes: Mesh) -> None:
     """A follower rank: follow rank 0's steps on each mesh until it closes
     the channel. A failure ends the process at once with code 1, whatever
@@ -164,16 +231,18 @@ def follow(*meshes: Mesh) -> None:
         os._exit(1)
 
 
-def finish(mesh: Optional[Mesh], children: Sequence[subprocess.Popen],
+def finish(mesh, children: Sequence[subprocess.Popen],
            timeout: float = 120.0) -> None:
-    """Close the step channel and wait for the started ranks to exit."""
+    """Close the step channel of `mesh` (a Mesh, a list of them as
+    `join_pool` gives, or None) and wait for the started ranks to exit."""
     ending = getattr(children, "ending", None)
     if ending is not None:
         ending.set()
-    if mesh is not None:
-        from . import spmd
+    from . import spmd
 
-        spmd.close(mesh)
+    for m in (mesh if isinstance(mesh, (list, tuple)) else [mesh]):
+        if m is not None:
+            spmd.close(m)
     for p in children:
         try:
             p.wait(timeout=timeout)

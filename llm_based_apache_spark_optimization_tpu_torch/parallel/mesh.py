@@ -82,11 +82,15 @@ class Mesh:
     def __init__(self, dp: int, sp: int, tp: int,
                  devices: Sequence[torch.device], rank: int = 0,
                  groups: Optional[Dict[str, object]] = None,
-                 control=None, steps=None, backend: str = "gloo"):
+                 control=None, steps=None, backend: str = "gloo",
+                 ranks: Optional[Sequence[int]] = None):
         self.shape = {"dp": dp, "sp": sp, "tp": tp}
         self.devices = [torch.device(d) for d in devices]
         self.size = dp * sp * tp
         self.rank = rank
+        # The world rank of each rank of this mesh (a submesh spans part of
+        # the world); `rank` and `coords` are the mesh's own.
+        self.ranks = list(range(self.size)) if ranks is None else list(ranks)
         self.coords = {"dp": rank // (sp * tp), "sp": (rank // tp) % sp,
                        "tp": rank % tp}
         self.device = self.devices[rank]
@@ -120,16 +124,18 @@ class Mesh:
         """The layout in one line, as entry points print it."""
         staged = (" (gloo on CUDA tensors: collectives staged through host "
                   "memory)" if self.staged else "")
+        part = ("" if self.ranks == list(range(self.size))
+                else f" as world ranks {self.ranks}")
         return (f"mesh dp={self.shape['dp']} sp={self.shape['sp']} "
-                f"tp={self.shape['tp']} over {[str(d) for d in self.devices]}, "
-                f"backend {self.backend}{staged}")
+                f"tp={self.shape['tp']} over {[str(d) for d in self.devices]}"
+                f"{part}, backend {self.backend}{staged}")
 
     def group(self, axis: str):
         return self._groups.get(axis)
 
     def axis_ranks(self, axis: str) -> List[int]:
-        """Global ranks along `axis` through this rank, in axis order."""
-        return _axis_ranks(self.shape, self.rank, axis)
+        """World ranks along `axis` through this rank, in axis order."""
+        return [self.ranks[r] for r in _axis_ranks(self.shape, self.rank, axis)]
 
     @property
     def is_primary(self) -> bool:
@@ -244,3 +250,50 @@ def make_mesh(
                            timeout=_STEP_TIMEOUT if rank == 0 else _IDLE_TIMEOUT)
     return Mesh(dp, sp, tp, devs, rank=rank, groups=groups, control=control,
                 steps=steps, backend=backend)
+
+
+def make_submeshes(tp: int, devices: Sequence[Sequence]) -> List[Optional[Mesh]]:
+    """A replica pool's tp meshes over one world: mesh i over the cards
+    `devices[i]` (tp of them), as world ranks [0, 1 + i*(tp-1), ...,
+    (i+1)*(tp-1)], so world rank 0 (the pool's process) is rank 0 of every
+    mesh and the world has 1 + len(devices)*(tp-1) ranks. Every world rank
+    calls this with the same arguments, since forming the groups is
+    collective; it returns the meshes this rank lies on, None for the
+    others. Each mesh has its own tp group (NCCL where its ranks' cards
+    differ, else gloo), control group and step channel. A follower rank
+    makes its card current; the pool's process names a replica's card on
+    that replica's threads."""
+    n = len(devices)
+    world = 1 + n * (tp - 1)
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a pool of {n} tp={tp} meshes needs torch.distributed initialised "
+            f"with {world} processes (parallel.init_distributed)")
+    if dist.get_world_size() != world:
+        raise ValueError(f"a pool of {n} tp={tp} meshes has {world} ranks, the "
+                         f"world {dist.get_world_size()}")
+    rank = dist.get_rank()
+    out: List[Optional[Mesh]] = []
+    for i, devs in enumerate(devices):
+        devs = [torch.device(d) for d in devs]
+        if len(devs) != tp:
+            raise ValueError(f"mesh {i} lists {len(devs)} devices for tp={tp}")
+        ranks = [0] + [1 + i * (tp - 1) + j for j in range(tp - 1)]
+        backend = backend_for(devs)
+        local = ranks.index(rank) if rank in ranks else None
+        # new_group is collective over the world: every rank forms every
+        # mesh's groups in the same order.
+        tp_group = dist.new_group(ranks, backend=backend)
+        control = dist.new_group(ranks, backend="gloo")
+        steps = dist.new_group(ranks, backend="gloo",
+                               timeout=_STEP_TIMEOUT if local == 0 else _IDLE_TIMEOUT)
+        if local is None:
+            out.append(None)
+            continue
+        if local > 0 and devs[local].type == "cuda":
+            torch.cuda.set_device(devs[local])
+        out.append(Mesh(1, 1, tp, devs, rank=local, groups={"tp": tp_group},
+                        control=control, steps=steps, backend=backend, ranks=ranks))
+    return out

@@ -57,7 +57,7 @@ def _bcast(mesh, msg=None):
     import torch.distributed as dist
 
     box = [msg]
-    dist.broadcast_object_list(box, src=0, group=mesh.steps)
+    dist.broadcast_object_list(box, src=mesh.ranks[0], group=mesh.steps)
     return box[0]
 
 

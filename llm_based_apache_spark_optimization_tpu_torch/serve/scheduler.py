@@ -208,12 +208,16 @@ the fault seams run before it is taken.
   params and allocates its block of the cache or pool (a tp-th of the KV
   heads). Rank 0 runs the host loop; every forward and every device cache
   operation it takes (`_fwd`, `_mirror`: prefix-block publish, restore and
-  evict, page copies) is posted over the step channel
-  (parallel/spmd.py) and replayed by the other ranks' schedulers, which
-  follow from `start()` to rank 0's `shutdown()` and take no requests.
-  dp must be 1 (as JAX: the slot axis cannot shard); sp > 1, phase roles
-  (the handoff's page export) and `kv_spill` raise NotImplementedError
-  under a mesh (ROADMAP A13.1, A13.2).
+  evict, page copies, page exports and imports) is posted over the step
+  channel (parallel/spmd.py) and replayed by the other ranks' schedulers,
+  which follow from `start()` to rank 0's `shutdown()` and take no
+  requests. A spill or handoff blob keeps the unsharded layout: the export
+  gathers every rank's heads to rank 0, the import sends rank 0's blob to
+  every rank (engine/paged_kv.py), so phase roles and `kv_spill` work on a
+  mesh and a blob moves between replicas of any tp. dp must be 1 (as JAX:
+  the slot axis cannot shard); sp > 1 raises NotImplementedError (ROADMAP
+  A13.1). A pool's replicas may each run on a tp mesh of their own
+  (parallel/mesh.make_submeshes).
 - Phase roles (`phase_role`, paged only; a pool's `LSOT_POOL_PHASES`): a
   "prefill" replica's final chunk parks its first token on the device
   (`_handoff_pending`); `_pack_handoffs` commits and streams it, exports
@@ -254,7 +258,6 @@ from ..engine.kvcache import bucket_len, init_cache
 from ..engine.paged_kv import (
     PageAllocator,
     default_page_size,
-    export_pages,
     export_pages_start,
     handoff_bytes,
     import_pages,
@@ -802,10 +805,6 @@ class ContinuousBatchingScheduler:
                     "the scheduler under sp > 1 is not ported: ROADMAP A13.1 "
                     "(sequence parallelism beyond the engine's contiguous "
                     "cache)")
-            if phase_role != "mixed":
-                raise NotImplementedError(
-                    "phase roles under a mesh are not ported (the handoff "
-                    "exports a sharded pool): ROADMAP A13.2")
             validate_tp(cfg, mesh.shape["tp"])
             if device is not None and torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh rank's "
@@ -830,11 +829,13 @@ class ContinuousBatchingScheduler:
             params = fuse_blocks(params)
         self.params = params
         if mesh is not None:
-            # How this rank rebuilds a twin when rank 0 rebuilds this
+            # How a follower rebuilds a twin when rank 0 rebuilds this
             # scheduler (`_register`): from this rank's final tree, the
-            # whole tree is not kept.
-            recipe = partial(ContinuousBatchingScheduler,
-                             **dict(init_args, params=params, fuse_matmuls=False))
+            # whole tree is not kept. Rank 0 keeps only the key: a recipe
+            # there would hold a crashed replica's block past its restart.
+            recipe = (None if mesh.is_primary else
+                      partial(ContinuousBatchingScheduler,
+                              **dict(init_args, params=params, fuse_matmuls=False)))
         self._weight_bits = infer_weight_bits(params)
         self.num_slots = num_slots
         self.max_seq = min(max_seq or cfg.max_seq_len, cfg.max_seq_len)
@@ -1089,6 +1090,37 @@ class ContinuousBatchingScheduler:
             with self.mesh.lock:
                 spmd.post(self.mesh, self._mesh_id, method, *args)
 
+    def _export_start(self, pages: List[int]):
+        """`export_pages_start` of pool pages; on rank 0 of a mesh posted
+        first, so every rank gathers its heads into rank 0's blob."""
+        if not self._mesh_drive:
+            return export_pages_start(self._pool, pages, self.mesh)
+        from ..parallel import spmd
+
+        with self.mesh.lock:
+            spmd.post(self.mesh, self._mesh_id, "_follow_export", pages)
+            return export_pages_start(self._pool, pages, self.mesh)
+
+    def _import(self, pages: List[int], blob) -> None:
+        """`import_pages` of a whole blob; on rank 0 of a mesh posted first,
+        so every rank writes its block of the heads."""
+        if not self._mesh_drive:
+            import_pages(self._pool, pages, blob, self.mesh)
+            return
+        from ..parallel import spmd
+
+        with self.mesh.lock:
+            spmd.post(self.mesh, self._mesh_id, "_follow_import", pages)
+            import_pages(self._pool, pages, blob, self.mesh)
+
+    @torch.inference_mode()
+    def _follow_export(self, pages) -> None:
+        export_pages_start(self._pool, pages, self.mesh)()
+
+    @torch.inference_mode()
+    def _follow_import(self, pages) -> None:
+        import_pages(self._pool, pages, None, self.mesh)
+
     def _follow_publish(self, key, slot: int, start: int) -> None:
         self._prefix_cache[key] = self._slice_block(slot, start)
 
@@ -1179,7 +1211,9 @@ class ContinuousBatchingScheduler:
         if kv_pages:
             num_pages = int(kv_pages)
         elif kv_hbm_budget_bytes:
-            num_pages = pages_for_budget(self._kv_cfg, kv_hbm_budget_bytes, ps,
+            # The budget prices the whole pool, every KV head (as JAX's
+            # global array): under a tp mesh each rank holds a tp-th of it.
+            num_pages = pages_for_budget(cfg, kv_hbm_budget_bytes, ps,
                                          dtype.itemsize, self.kv_quant)
         else:
             # Default: the contiguous layout's own footprint.
@@ -1221,10 +1255,6 @@ class ContinuousBatchingScheduler:
         self._kv_overcommit = float(kv_overcommit)
         self._kv_spill = bool(_env_on("LSOT_KV_SPILL") if kv_spill is None
                               else kv_spill)
-        if self._kv_spill and self.mesh is not None:
-            raise NotImplementedError(
-                "kv_spill under a mesh is not ported (a spill exports the "
-                "rank's pool block): ROADMAP A13.2")
         if kv_watermark_low is None:
             kv_watermark_low = float(os.environ.get("LSOT_KV_WATERMARK_LOW", "0.0"))
         if kv_watermark_high is None:
@@ -1361,7 +1391,7 @@ class ContinuousBatchingScheduler:
             plen = len(req.ids) + len(req.generated)
             npg = min(pages_for_tokens(plen, self._page_size),
                       len(self._slot_pages[slot]))
-            req.spilled = export_pages(self._pool, self._slot_pages[slot][:npg])
+            req.spilled = self._export_start(self._slot_pages[slot][:npg])()
             self._page_alloc.note_spill(npg)
         req.resume_pref = len(req.generated)
         req.preempted += 1
@@ -1503,7 +1533,7 @@ class ContinuousBatchingScheduler:
         counters, so a pool's spilled == restored stays exact."""
         parts = req.spilled
         n = parts[0].shape[1]
-        import_pages(self._pool, self._slot_pages[slot][:n], parts)
+        self._import(self._slot_pages[slot][:n], parts)
         if req.handoff is None:
             self._page_alloc.note_restore(n)
         else:
@@ -3450,7 +3480,7 @@ class ContinuousBatchingScheduler:
         # The gather and the copy's issue take the dispatch lock; the wait
         # for the copy does not, so a sibling on the card issues meanwhile.
         with self._dispatch_lock:
-            finish = export_pages_start(self._pool, self._slot_pages[slot][:npg])
+            finish = self._export_start(self._slot_pages[slot][:npg])
         blob = finish()
         wall = time.perf_counter() - t0
         nbytes = handoff_bytes(blob)

@@ -12,9 +12,11 @@ execute identically on SQLite and Spark SQL; engine-specific SQL surfaces the
 same way it does in the reference — as an execution error routed to the
 error-analysis model.
 
-A copy of the JAX package's `sql/sqlite_backend.py` whose type inference is
-the Python pass alone: the JAX module's C++ CSV scanner (`native/`) is not
-ported (ROADMAP A14), and the Python pass is its behavioral reference.
+A copy of the JAX package's `sql/sqlite_backend.py`: type inference takes
+the C++ scanner's dtypes (`native.csv_scan`, `native/csvscan.cpp`) when its
+column count equals the header's, and otherwise (ragged rows, a file the
+scanner refuses, `LSOT_NO_NATIVE=1`) the Python pass, which is its
+behavioral reference.
 """
 
 from __future__ import annotations
@@ -91,10 +93,18 @@ class SQLiteBackend:
             except StopIteration:
                 raise ValueError(f"empty CSV: {path}")
             rows = list(reader)
-        dtypes = tuple(
-            _infer_dtype([r[i] if i < len(r) else "" for r in rows])
-            for i in range(len(header))
-        )
+        # Inference: the C++ scanner's dtypes, where it read as many
+        # columns as the header has; the Python pass otherwise.
+        from ..native import csv_scan
+
+        scanned = csv_scan(p)
+        if scanned is not None and len(scanned[0]) == len(header):
+            dtypes = tuple(scanned[0])
+        else:
+            dtypes = tuple(
+                _infer_dtype([r[i] if i < len(r) else "" for r in rows])
+                for i in range(len(header))
+            )
         cols = ", ".join(
             f'"{c}" {_AFFINITY[t]}' for c, t in zip(header, dtypes)
         )

@@ -5,8 +5,10 @@ so a tokenizer saved by either package loads in the other. Byte-level means
 the base alphabet is the 256 byte values — any input is encodable, no unk
 token.
 
-Encoding is the classic lowest-rank-first merge loop, in Python (the JAX
-package's C++ encoder of the same loop waits for ROADMAP A14).
+Encoding is the classic lowest-rank-first merge loop. The C++ encoder of
+the same loop (`native/bpe.cpp`, built at first use) does it, as in the JAX
+package; `_merge` is the Python reference it is held to, and encodes only
+under `LSOT_NO_NATIVE=1`.
 
 File format (JSON): {"n_special": int, "merges": [[a, b], ...]} where merging
 the pair (a, b) produces id base_vocab + rank, base_vocab = n_special + 256.
@@ -44,13 +46,23 @@ class BPETokenizer:
         for (a, b), new_id in self.merges.items():
             assert new_id == len(self._bytes), "merges must be rank-ordered"
             self._bytes.append(self._bytes[a] + self._bytes[b])
+        # The C++ merge loop (native/bpe.cpp): None only under
+        # LSOT_NO_NATIVE=1, where `_merge` encodes (the same ids, held
+        # equal in tests/test_torch_native.py); a failed build raises.
+        from ..native import NativeBPE
+
+        self._native = NativeBPE.create(list(merges), n_special)
 
     @property
     def vocab_size(self) -> int:
         return self.base + len(self.merges)
 
     def encode(self, text: str, add_bos: bool = True) -> List[int]:
-        ids = self._merge([self.n_special + b for b in text.encode("utf-8")])
+        data = text.encode("utf-8")
+        if self._native is not None:
+            ids = self._native.encode_bytes(data)
+        else:
+            ids = self._merge([self.n_special + b for b in data])
         return [self.bos_id] + ids if add_bos else ids
 
     def _merge(self, ids: List[int]) -> List[int]:

@@ -324,9 +324,10 @@ def test_backends_from_hf_checkpoint_serve_speculative(tmp_path, backend):
 ])
 def test_scheduler_from_hf_refuses_unported(tmp_path, kwargs, item):
     """A mesh (ROADMAP A13) is ported: the constructor takes one and loads
-    each rank's block onto its device (tests/test_torch_parallel.py); what
-    it still refuses is a scheduler mesh with a dp axis (as JAX) and the
-    spill of a sharded pool (ROADMAP A13.2)."""
+    each rank's block onto its device (tests/test_torch_parallel.py). The
+    spill of a sharded pool (ROADMAP A13.2), refused until the exports of
+    a sharded pool were ported, now builds: the paged scheduler under the
+    mesh takes `kv_spill` (tests/test_torch_pool_mesh.py spills on tp=2)."""
     from llm_based_apache_spark_optimization_tpu_torch.parallel import make_mesh
 
     assert item == "A13" and "mesh" in kwargs
@@ -340,11 +341,15 @@ def test_scheduler_from_hf_refuses_unported(tmp_path, kwargs, item):
         assert sb.scheduler.submit([1, 5, 9], max_new_tokens=4).result(timeout=60)
     finally:
         sb.shutdown()
-    with pytest.raises(NotImplementedError, match="A13.2"):
-        SchedulerBackend.from_hf_checkpoint(
-            str(tmp_path), ByteTokenizer(), mesh=make_mesh(devices=["cpu"]),
-            dtype=torch.float32, num_slots=2, max_seq=64, kv_layout="paged",
-            kv_spill=True)
+    sb = SchedulerBackend.from_hf_checkpoint(
+        str(tmp_path), ByteTokenizer(), mesh=make_mesh(devices=["cpu"]),
+        dtype=torch.float32, num_slots=2, max_seq=64, kv_layout="paged",
+        kv_spill=True)
+    try:
+        assert sb.scheduler._kv_spill and sb.scheduler.mesh is not None
+        assert sb.scheduler.submit([1, 5, 9], max_new_tokens=4).result(timeout=60)
+    finally:
+        sb.shutdown()
 
 
 def int8_tokens_of_jax(jtree, jcfg, ids):

@@ -390,3 +390,174 @@ def dead_follower_group(p):
     except RuntimeError as exc:
         raised = repr(exc.__cause__ or exc)
     return raised, time.perf_counter() - t0
+
+
+def _prompt_tokens(svc, prompts, new):
+    """Greedy token ids of `prompts` (token lists) submitted at once
+    through the service's duckdb-nsql scheduler (the supervised pool)."""
+    sched = svc._models["duckdb-nsql"].backend.scheduler
+    futs = [sched.submit(ids, max_new_tokens=new) for ids in prompts]
+    return [f.result(timeout=240) for f in futs]
+
+
+def _handoff_counts(pool):
+    """A pool's handoff counts by replica: exports, imports, pages and
+    bytes each way (None before any handoff)."""
+    hs = pool.handoff_stats
+    return ({r["replica"]: (r["exports"], r["imports"], r["pages_out"], r["pages_in"],
+                            r["bytes_out"], r["bytes_in"]) for r in hs["replicas"]}
+            if hs else None)
+
+
+def _wait_restarted(pool, timeout=60.0):
+    """Wait until no replica of `pool` is restarting."""
+    import time
+
+    deadline = time.time() + timeout
+    while any(r["state"] == "restarting" for r in pool.replica_loads()):
+        assert time.time() < deadline, pool.replica_loads()
+        time.sleep(0.02)
+
+
+def pool_group(p):
+    """`python -m ...app --cpu --dp 2 --tp 2 --scheduler ...` on a group of
+    1 + 2*(2-1) = 3 ranks, as the entry point forms it: rank 0 is the
+    pool's process and rank 0 of both replicas' tp meshes, ranks 1 and 2
+    the followers of replica 0 and replica 1. Rank 0 serves p["waves"] of
+    token prompts (each submitted at once), then p["texts"] through the
+    service from four threads; with p["restart"] a `sched:handoff` fault
+    crashes the prefill replica in the second wave and the pool rebuilds
+    it on its mesh (the fault cleared by the rebuild). Rank 0 returns what
+    it served and the pool's counters; a follower its mesh's world ranks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+    from llm_based_apache_spark_optimization_tpu_torch.app.config import AppConfig
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import launch, spmd
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    os.environ.update(p.get("env", {}))
+    args = entry.build_parser().parse_args(p["argv"])
+    cfg = AppConfig.from_env(history_db=":memory:")
+    assert entry.is_tp_pool(args, cfg)
+    assert entry.mesh_ranks(args, cfg) == dist.get_world_size()
+    meshes, _ = launch.join_pool(args.dp, args.tp, args.cpu, "unused", [],
+                                 local=entry.pool_replicas(args, cfg))
+    svc = entry.build_service(args, cfg, meshes)
+    mine = [m for m in meshes if m is not None]
+    if not mine[0].is_primary:
+        launch.follow(*mine)
+        return {"ranks": mine[0].ranks, "device": str(mine[0].device)}
+    for m in mine:
+        spmd.drive(m)
+    sup = svc._models["duckdb-nsql"].backend.scheduler
+    pool = sup._inner
+    out = {"meshes": [m.ranks for m in mine], "waves": [],
+           "roles": [s.phase_role for s in pool.schedulers],
+           "tp": [s.mesh.shape["tp"] for s in pool.schedulers]}
+    try:
+        for w, prompts in enumerate(p["waves"]):
+            if p.get("restart") and w == 1:
+                factory = pool._factory
+                pool._factory = lambda i: (FAULTS.clear(), factory(i))[1]
+                FAULTS.configure("sched:handoff:1", 0)
+            out["waves"].append(_prompt_tokens(svc, prompts, p["new"]))
+            out.setdefault("wave_handoffs", []).append(_handoff_counts(pool))
+        _wait_restarted(pool)
+        if p.get("texts"):
+            with ThreadPoolExecutor(max_workers=4) as ex:
+                res = [f.result() for f in [
+                    ex.submit(svc.generate, "duckdb-nsql", q, system=p["system"])
+                    for q in p["texts"]]]
+            out["texts"] = [(r.response, r.output_tokens) for r in res]
+        out["handoffs"] = _handoff_counts(pool)
+        out["restarts"] = {r["replica"]: r["restarts"] for r in pool.replica_loads()}
+        out["health"] = {k: sup.health()[k] for k in ("lost", "restarts")}
+        out["pages_in_use"] = [s.page_stats["pages_in_use"] if s.kv_layout == "paged"
+                               else 0 for s in pool.schedulers]
+        out["pages_total"] = [s.page_stats["pages_total"] if s.kv_layout == "paged"
+                              else 0 for s in pool.schedulers]
+    finally:
+        FAULTS.clear()
+        svc.close()
+        launch.finish(mine, [])
+    return out
+
+
+def cross_tp_group(p):
+    """Phase-split pools on two ranks whose replicas differ in tp: pool A
+    has a tp=2 prefill replica (on the mesh) and a tp=1 decode replica on
+    rank 0 alone, pool B the reverse. Rank 0 records every blob its decode
+    replica imports and returns (A's tokens and blobs, B's tokens and
+    blobs, each pool's handoff counts); rank 1 builds the tp=2 replicas'
+    twins in the same order and follows."""
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import spmd
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+        SchedulerPool,
+    )
+
+    mesh = _mesh(tp=2)
+    cfg, params = _cfg(p["cfg"]), _params(p["params"])
+
+    def make(role, sharded):
+        kw = dict(p["kw"], phase_role=role)
+        if sharded:
+            return ContinuousBatchingScheduler(cfg, params, mesh=mesh, **kw)
+        return ContinuousBatchingScheduler(cfg, params, device="cpu", **kw)
+
+    layouts = (("prefill", True), ("decode", False)), (("prefill", False), ("decode", True))
+    if not mesh.is_primary:
+        twins = [make(role, True).start() for pair in layouts
+                 for role, sharded in pair if sharded]
+        spmd.close(mesh)
+        del twins
+        return None
+    # Every replica is built before rank 0 drives: a tp=2 one built while
+    # it drives would need a twin recipe on rank 1.
+    pools = [[make(role, sharded) for role, sharded in pair] for pair in layouts]
+    spmd.drive(mesh)
+    out = []
+    for reps in pools:
+        blobs = []
+        dec = reps[1]
+        real = dec._import
+        dec._import = lambda pages, blob, real=real, blobs=blobs: (
+            blobs.append([a.copy() for a in blob]), real(pages, blob))[1]
+        with SchedulerPool(reps) as pool:
+            futs = [pool.submit(ids, max_new_tokens=p["new"]) for ids in p["prompts"]]
+            toks = [f.result(timeout=240) for f in futs]
+            counts = {r["replica"]: (r["exports"], r["imports"])
+                      for r in pool.handoff_stats["replicas"]}
+        out.append({"tokens": toks, "blobs": blobs, "counts": counts})
+    spmd.close(mesh)
+    return out
+
+
+def spill_group(p):
+    """`kv_spill` on a tp=2 paged scheduler under a page-pressure storm
+    (`kv:pressure`, set on rank 0, whose loop runs the pressure seam):
+    rank 0 returns the tokens of p["prompts"] submitted at once (seeds 41
+    + i) and the page stats; rank 1 follows."""
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import spmd
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    mesh = _mesh(tp=2)
+    cfg, params = _cfg(p["cfg"]), _params(p["params"])
+    out = None
+    with ContinuousBatchingScheduler(cfg, params, mesh=mesh, **p["kw"]) as s:
+        if mesh.is_primary:
+            FAULTS.configure(p["pressure"], 0)
+            try:
+                futs = [s.submit(ids, max_new_tokens=p["new"], seed=41 + i)
+                        for i, ids in enumerate(p["prompts"])]
+                out = ([f.result(timeout=240) for f in futs], dict(s.page_stats))
+            finally:
+                FAULTS.clear()
+    spmd.close(mesh)
+    return out
