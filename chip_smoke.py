@@ -9011,15 +9011,19 @@ def mesh_rank(rank) -> int:
     # (c) sp=2 ring prefill of one 2048-token prompt on the 7B, then decode
     # steps on the sp-sharded cache through the sp combine.
     from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import init_cache
-    from llm_based_apache_spark_optimization_tpu_torch.models.llama import forward
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import (
+        SpSlotCache,
+        forward,
+    )
 
     smesh = make_mesh(sp=2, devices=["cuda:0", "cuda:0"])
     with inf:
         params = init_params(DUCKDB_NSQL_7B, torch.Generator(device="cuda").manual_seed(0),
                              torch.bfloat16, device="cuda")
         s_total = MESH_RING_T + MESH_RING_DECODE
-        cache = init_cache(DUCKDB_NSQL_7B, 1, -(-(s_total + -s_total % 8) // 2),
-                           dtype=torch.bfloat16, device="cuda")
+        cache = SpSlotCache(init_cache(DUCKDB_NSQL_7B, 1,
+                                       -(-(s_total + -s_total % 8) // 2),
+                                       dtype=torch.bfloat16, device="cuda"))
         toks = torch.tensor([ref["ring_prompt"]], dtype=torch.int32, device="cuda")
         pos = torch.arange(MESH_RING_T, dtype=torch.int32, device="cuda")[None]
         reset_launches()
@@ -9857,6 +9861,514 @@ def pool_mesh_serve(torch, engines, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------- phase 22: sequence parallelism past the contiguous cache
+
+SP_LAYERS = 16          # the 7B's depth in phase 22 (widths whole: 32 heads and KV heads a rank)
+SP_DEVICES = "cuda:0,cuda:0"  # LSOT_MESH_DEVICES: both sp ranks on one card
+SP_TIMEOUT_S = 480      # a follower that has not finished by then is stuck
+SP_MAX_SEQ = 1024       # (b), (c): the schedulers' context (a prompt and MAX_NEW fit)
+SP_SLOTS = 8            # (b): slots a scheduler
+SP_C_SLOTS = 4          # (c): the scheduler rank 0 builds alone
+SP_BURST = 6            # (b), (c): SQL requests at once, each past the prompt bucket
+SP_MODULE = f"{PKG}.app"
+# Rows of PERF.md's table checked at an sp rank's shapes (`sp_kernel_checks`).
+SP_ROWS = {"paged": "row4", "paged_q": "row5", "write": "row6", "write_q": "row7"}
+
+
+def sp_args(*extra):
+    """(a)'s entry point flags: `--sp 2 --no-scheduler --kv-layout paged`."""
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+
+    return entry.build_parser().parse_args(
+        ["--backend", "checkpoint", "--sql-model-path", "phase22-seed-tree", "--sp", "2",
+         "--no-scheduler", "--kv-layout", "paged", "--max-new-tokens", str(MAX_NEW),
+         *extra])
+
+
+def sp_engine_backend(args, tok, loaded, mesh=None):
+    """The entry point's engine backend for `args`, as its checkpoint branch
+    builds it once the tree is loaded (`EngineBackend.from_hf_checkpoint`
+    hands `_from_checkpoint` a loader; here the loader returns `loaded`),
+    on `mesh` or, without one, on the card alone."""
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+    from llm_based_apache_spark_optimization_tpu_torch.app.config import AppConfig
+    from llm_based_apache_spark_optimization_tpu_torch.serve import EngineBackend
+
+    kv_quant, _ = entry.resolve_kv_quant(args, AppConfig())
+    return EngineBackend._from_checkpoint(
+        lambda dtype, device: loaded, tok, max_new_tokens=args.max_new_tokens,
+        add_bos=True, kv_quant=kv_quant, quantize_int8=args.int8,
+        quantize_int4=args.int4, quantize_unembed8=args.int8_unembed,
+        speculative_draft=args.speculative, kv_layout=args.kv_layout, mesh=mesh,
+        device="cuda" if mesh is None else None)
+
+
+class sp_pools:
+    """Record the shape of every page pool the engine packs its prefill
+    into (`engine.generate.pack_prefill_pages`) while the block runs."""
+
+    def __enter__(self):
+        from llm_based_apache_spark_optimization_tpu_torch.engine import generate as gen_mod
+
+        self.mod, self.real, self.shapes = gen_mod, gen_mod.pack_prefill_pages, []
+
+        def pack(*a, **kw):
+            out = self.real(*a, **kw)
+            self.shapes.append(list(out["kp"].shape))
+            return out
+
+        gen_mod.pack_prefill_pages = pack
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.pack_prefill_pages = self.real
+
+
+def sp_kernel_checks(torch):
+    """Rows 4-7 of PERF.md's table at an sp rank's shapes, against their
+    plain versions: the pool whole on the rank and every head of the 7B
+    (32 query and 32 KV heads, pages of 64): the paged decode over a bf16
+    and an int8 pool (rows 4, 5) and the page write into each, bit for bit
+    (rows 6, 7). Returns the worst error by row."""
+    from llm_based_apache_spark_optimization_tpu_torch.models import DUCKDB_NSQL_7B
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        paged_attention as pa_mod,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        paged_write as pw_mod,
+    )
+
+    tol = TOL["bfloat16"]
+    worst = {}
+
+    def note(row, label, err, limit):
+        print(f"  {row:6s} {label:34s} err={err:.3e} tol={limit:.0e} "
+              f"{'ok' if err <= limit else 'FAIL'}", flush=True)
+        assert err <= limit, f"{row}/{label}: {err} > {limit}"
+        worst[row] = max(worst.get(row, 0.0), err)
+
+    ps, kh = SCHED["kv_page_size"], DUCKDB_NSQL_7B.num_kv_heads
+    assert kh == DUCKDB_NSQL_7B.num_heads  # the 7B is MHA: every head a rank
+    rows = [(p, 1, p + 1) for p in (383, 390, 399, 412, 415, 64, 5, 1023)]
+    q, kp, vp, tab, pos, window, kvl, qln = paged_case(
+        torch, torch.bfloat16, b=8, t=1, n=kh, kh=kh, h=128, ps=ps, np_tab=16, rows=rows)
+    args = (q, kp, vp, tab, pos, window, kvl, qln)
+    out = pa_mod.ragged_paged_attention_cuda(*args)
+    ref = pa_mod.ragged_paged_attention_plain(*args)
+    note("row4", "paged decode 7b/sp2 b8 ps64", (out.float() - ref.float()).abs().max().item(),
+         tol)
+    kp8, kps = quantize(torch, kp)
+    vp8, vps = quantize(torch, vp)
+    args = (q, kp8, kps, vp8, vps, tab, pos, window, kvl, qln)
+    out = pa_mod.ragged_paged_attention_quantized_cuda(*args)
+    ref = pa_mod.ragged_paged_attention_quantized_plain(*args)
+    note("row5", "paged_q decode 7b/sp2 b8 ps64",
+         (out.float() - ref.float()).abs().max().item(), tol)
+    del q, kp, vp, kp8, vp8, kps, vps
+    g = torch.Generator(device="cuda").manual_seed(22)
+    shape = (2, 136, kh, ps, 128)
+    for row, quant in (("row6", False), ("row7", True)):
+        if quant:
+            pools = [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                   dtype=torch.int8),
+                     torch.rand(shape[:4], generator=g, device="cuda"),
+                     torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                   dtype=torch.int8),
+                     torch.rand(shape[:4], generator=g, device="cuda")]
+        else:
+            pools = [torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+                     for _ in range(2)]
+        refs = [x.clone() for x in pools]
+        k_new, v_new, wpos, wtab, q_lens = write_case(torch, "7b_sp2_t1_b8", kh, 128, ps,
+                                                       8, 1, 16, 136, torch.bfloat16, g)
+        if quant:
+            pw_mod.fused_page_write_quantized_cuda(*pools, k_new, v_new, wpos, wtab, 1,
+                                                   q_lens)
+            pw_mod.fused_page_write_quantized_plain(*refs, k_new, v_new, wpos, wtab, 1,
+                                                    q_lens)
+        else:
+            pw_mod.fused_page_write_cuda(*pools, k_new, v_new, wpos, wtab, 1, q_lens)
+            pw_mod.fused_page_write_plain(*refs, k_new, v_new, wpos, wtab, 1, q_lens)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, r) for a, r in zip(pools, refs))
+        note(row, f"{'write_q' if quant else 'write'} 7b/sp2 b8 ps64 (bit-exact)",
+             0.0 if same else 1.0, 0.0)
+        del pools, refs
+    return worst
+
+
+def sp_sql_texts():
+    """(a)'s three NL->SQL requests (355-368 prompt bytes each)."""
+    return [f"{SYSTEM_SQL}\n\n{q}" for q in QUESTIONS]
+
+
+def sp_sched_kw(stop_ids, layout, slots=SP_SLOTS):
+    return dict(num_slots=slots, max_seq=SP_MAX_SEQ, kv_layout=layout,
+                kv_page_size=SCHED["kv_page_size"], stop_ids=stop_ids)
+
+
+def sp_references(torch, engines, tok):
+    """Phase 22's sp = 1 side, in this process before the follower loads,
+    from the same seed-0 tree cut to SP_LAYERS: (a) the entry point's paged
+    engine backend on the card alone, bf16 and int8 KV, the three requests
+    in turn; (b) a lone contiguous and a lone paged scheduler, SP_SLOTS
+    slots, the SP_BURST prompts at once; (c) a fresh paged scheduler of
+    SP_C_SLOTS slots, the same burst. Returns the token streams."""
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+
+    e7 = fleet_model(engines["duckdb-nsql"], SP_LAYERS)
+    rec = recording_tokenizer()
+    ref = {"prompts": mesh_prompts(tok)[:SP_BURST], "a": {}}
+    t0 = time.perf_counter()
+    for kvq, extra in (("bf16", ()), ("int8", ("--kv-int8",))):
+        backend = sp_engine_backend(sp_args(*extra), rec, (e7.cfg, e7.params))
+        ref["a"][kvq] = []
+        for text in sp_sql_texts():
+            backend.complete(text)
+            ref["a"][kvq].append((rec.local.prompt, rec.local.out))
+        del backend
+    print(f"  (a) sp=1 paged engine backends: 2 x {len(QUESTIONS)} requests in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for label, layout, slots in (("b_contiguous", "contiguous", SP_SLOTS),
+                                 ("b_paged", "paged", SP_SLOTS),
+                                 ("c", "paged", SP_C_SLOTS)):
+        t0 = time.perf_counter()
+        with ContinuousBatchingScheduler(
+                e7.cfg, e7.params, device="cuda",
+                **sp_sched_kw(e7.stop_ids, layout, slots)) as s:
+            futs = [s.submit(p, max_new_tokens=MAX_NEW) for p in ref["prompts"]]
+            ref[label] = [f.result(timeout=300) for f in futs]
+        print(f"  ({label}) sp=1 {layout} scheduler, {slots} slots: "
+              f"{sum(map(len, ref[label]))} tokens in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return ref
+
+
+def sp_expected_engine(launches, backend):
+    """Add the paged engine's last generate to `launches`: a page write and
+    a ragged paged attention (int8 pool: the quantized pair) a layer for
+    each decode step; the ring prefill launches nothing."""
+    eng = backend.engine
+    q = "_quantized" if eng.kv_quant else ""
+    n = eng.cfg.num_layers * eng.last_stats["decode_steps"]
+    launches["ragged_paged_attention" + q] += n
+    launches["fused_page_write" + q] += n
+
+
+def sp_part_a(torch, params, cfg):
+    """(a) on either rank: the mesh the entry point forms for its flags,
+    the engine backends for bf16 and int8 KV built in turn on it (their
+    pools whole on each sp rank); rank 0 drives the three requests through
+    each and returns the streams, the pools' shapes and the launches."""
+    from llm_based_apache_spark_optimization_tpu_torch.app import __main__ as entry
+    from llm_based_apache_spark_optimization_tpu_torch.app.config import AppConfig
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import launch, spmd
+
+    args = sp_args()
+    assert entry.mesh_ranks(args, AppConfig()) == 2
+    try:
+        entry.mesh_ranks(sp_args("--scheduler"), AppConfig())
+        raise AssertionError("--scheduler with --sp 2 did not exit")
+    except SystemExit as exc:
+        assert "no sp axis" in str(exc), exc
+    mesh, _ = launch.join(args.dp, args.sp, args.tp, args.cpu, SP_MODULE, [])
+    assert mesh.shape == {"dp": 1, "sp": 2, "tp": 1} and mesh.staged, mesh
+    rec = recording_tokenizer()
+    backends = {kvq: sp_engine_backend(sp_args(*extra), rec, (cfg, params), mesh)
+                for kvq, extra in (("bf16", ()), ("int8", ("--kv-int8",)))}
+    assert all(b.engine.kv_layout == "paged" for b in backends.values())
+    out = {"streams": {}, "pools": [], "prompt_lens": [],
+           "expected": dict.fromkeys(LAUNCHES, 0)}
+    torch.cuda.synchronize()
+    reset_launches()
+    with sp_pools() as pools:
+        if mesh.is_primary:
+            spmd.drive(mesh)
+            t0 = time.perf_counter()
+            for kvq, backend in backends.items():
+                out["streams"][kvq] = []
+                for text in sp_sql_texts():
+                    backend.complete(text)
+                    out["streams"][kvq].append((rec.local.prompt, rec.local.out))
+                    out["prompt_lens"].append(backend.engine.last_stats["prompt_len"])
+                    sp_expected_engine(out["expected"], backend)
+            out["seconds"] = round(time.perf_counter() - t0, 2)
+            launch.finish(mesh, [])
+        else:
+            launch.follow(mesh)
+        torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+    out["pools"] = pools.shapes
+    out["mesh"] = mesh.describe()
+    del backends
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_part_bc(torch, params, cfg, stop_ids, prompts):
+    """(b) and (c) on either rank, on one sp = 2 mesh: the tree placed on
+    it (`shard_params`), then a contiguous and a paged scheduler built on
+    both ranks and started. Rank 0 drives: SP_BURST prompts at once through
+    each, then (c): a paged scheduler of SP_C_SLOTS slots built on rank 0
+    alone, with no twin (the follower builds it from the posted message
+    over its placed tree), the same burst. A follower waits for rank 0 to
+    shut each down and reports what its mesh still keeps."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import (
+        launch,
+        shard_params,
+        spmd,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+
+    mesh, _ = launch.join(1, 2, 1, False, SP_MODULE, [])
+    local = shard_params(params, cfg, mesh)
+    assert mesh.tree_index(local) == 0
+    torch.cuda.synchronize()
+    reset_launches()
+    scheds = {layout: ContinuousBatchingScheduler(
+        cfg, local, mesh=mesh, **sp_sched_kw(stop_ids, layout)).start()
+        for layout in ("contiguous", "paged")}
+    # The paged pool: every page and every KV head on each rank.
+    out = {"expected": dict.fromkeys(LAUNCHES, 0),
+           "pool": list(scheds["paged"]._pool["kp"].shape)}
+    if not mesh.is_primary:
+        for layout in ("contiguous", "paged"):
+            scheds.pop(layout).shutdown()  # returns once rank 0 has shut it down
+        out["kept"] = len(mesh._kept)
+        launch.follow(mesh)
+        torch.cuda.synchronize()
+        out["launches"] = dict(LAUNCHES)
+        return out
+    spmd.drive(mesh)
+    for label, layout in (("b_contiguous", "contiguous"), ("b_paged", "paged"), ("c", "paged")):
+        if label == "c":
+            t0 = time.perf_counter()
+            sc = ContinuousBatchingScheduler(
+                cfg, local, mesh=mesh,
+                **sp_sched_kw(stop_ids, layout, SP_C_SLOTS)).start()
+            out["c_build_s"] = round(time.perf_counter() - t0, 2)
+            assert sc._mesh_id == 2 and len(mesh._recipes) == 3
+        else:
+            sc = scheds[layout]
+        t0 = time.perf_counter()
+        outs, streams, timing_ = timed_burst(
+            lambda p, on, sc=sc: sc.submit(p, max_new_tokens=MAX_NEW, on_token=on), prompts)
+        assert all(o is not None for o in outs), f"({label}): a request was lost"
+        for i, (s, o) in enumerate(zip(streams, outs)):
+            assert s == o, f"({label})[{i}]: stream {s} != {o}"
+        if sc._paged:
+            st = wait_idle(sc)
+            assert st["pages_in_use"] == st["prefix_resident_pages"], (label, st)
+            out[f"{label}_pages"] = st["pages_total"]
+        (expect_paged if sc._paged else expect_contiguous)(
+            out["expected"], sc, sc.rounds_issued, sc.prefill_forwards)
+        out[label] = {"streams": outs, "seconds": round(time.perf_counter() - t0, 2),
+                      "timing": timing_}
+        if label != "b_paged":  # the paged one stays up while (c) runs
+            sc.shutdown()
+    scheds["paged"].shutdown()
+    launch.finish(mesh, [])
+    torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+    return out
+
+
+def sp_rank(rank) -> int:
+    """Phase 22's follower (a process `sp_serve` starts): world rank 1 of
+    both sp = 2 meshes. It makes the 7B tree from seed 0 on the card, cut
+    to SP_LAYERS, runs (a) and (b)-(c) beside rank 0 (`sp_part_a`,
+    `sp_part_bc`) and writes its launch counts, pools and holdings to
+    LSOT_SP_ROOT/sp_rank1.json."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(SP_TIMEOUT_S - 30, exit=True)
+    import torch
+
+    from llm_based_apache_spark_optimization_tpu_torch.models import DUCKDB_NSQL_7B
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import init_distributed
+    from llm_based_apache_spark_optimization_tpu_torch.serve import resolve_stop_ids
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = os.environ["LSOT_SP_ROOT"]
+    assert init_distributed(os.environ["LSOT_SP_ADDR"], 2, rank)
+    with torch.inference_mode():
+        cfg, params = depth_cut(DUCKDB_NSQL_7B, init_params(
+            DUCKDB_NSQL_7B, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+            device="cuda"), SP_LAYERS, clone=True)
+    torch.cuda.empty_cache()  # the whole weights made on the way
+    stop_ids = resolve_stop_ids(DUCKDB_NSQL_7B, ByteTokenizer())
+    a = sp_part_a(torch, params, cfg)
+    print(f"  (a) rank {rank}: followed; pools {a['pools']}; launches "
+          f"{ {k: v for k, v in a['launches'].items() if v} }", flush=True)
+    bc = sp_part_bc(torch, params, cfg, stop_ids, None)
+    print(f"  (b), (c) rank {rank}: followed; kept {bc['kept']}; launches "
+          f"{ {k: v for k, v in bc['launches'].items() if v} }", flush=True)
+    with open(os.path.join(root, f"sp_rank{rank}.json"), "w") as f:
+        json.dump({"a": {"launches": a["launches"], "pools": a["pools"]},
+                   "bc": {"launches": bc["launches"], "kept": bc["kept"],
+                          "pool": bc["pool"]}}, f)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sp_serve(torch, engines, smi):
+    """Phase 22: sequence parallelism past the engine's contiguous cache
+    (ROADMAP A13.1) and a scheduler built on a running mesh (A13.3) on the
+    7B (DUCKDB_NSQL_7B at full width, SP_LAYERS deep), over sp = 2 meshes
+    of two ranks on cuda:0 (gloo, staged through host memory): this
+    process is rank 0, one follower process (`sp_rank`) rank 1. First rows
+    4-7 at an sp rank's shapes (`sp_kernel_checks`) and the sp = 1
+    controls (`sp_references`); then (a) the entry point's `--sp 2
+    --no-scheduler --kv-layout paged` engine backends, bf16 and `--kv-int8`
+    (`sp_part_a`), then (b) and (c) (`sp_part_bc`). Checks: every stream
+    equals its control's or leaves it at a near-tie (`fleet_compare`);
+    each rank's pool holds every page and every head, the same shape on
+    both; no page leaks; the follower keeps nothing once rank 0 shut (c)'s
+    scheduler down; each part's launches equal on both ranks and equal the
+    count the engines' steps and the schedulers' rounds give. Returns
+    (launches by path, numbers)."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import (
+        init_distributed,
+        multihost,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="lsot-sp-")
+    old_devices = os.environ.get("LSOT_MESH_DEVICES")
+    try:
+        numbers = {"device": smi, "layers": SP_LAYERS,
+                   "kernels_per_rank": sp_kernel_checks(torch)}
+        tok = ByteTokenizer()
+        ref = sp_references(torch, engines, tok)
+        e7 = fleet_model(engines["duckdb-nsql"], SP_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            addr = f"127.0.0.1:{s.getsockname()[1]}"
+        os.environ["LSOT_MESH_DEVICES"] = SP_DEVICES
+        log = open(os.path.join(root, "sp_rank1.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-rank", "1"],
+            env=dict(os.environ, LSOT_SP_ROOT=root, LSOT_SP_ADDR=addr),
+            stdout=log, stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            assert init_distributed(addr, 2, 0)
+            a = sp_part_a(torch, e7.params, e7.cfg)
+            bc = sp_part_bc(torch, e7.params, e7.cfg, e7.stop_ids, ref["prompts"])
+            dist.barrier()  # the follower wrote its counts and ends after it
+            try:
+                proc.wait(timeout=SP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.close()
+            with open(os.path.join(root, "sp_rank1.log")) as f:
+                text = f.read()
+            for line in text.splitlines():
+                if line.startswith("  "):
+                    print(f"  [rank 1] {line.strip()}", flush=True)
+            assert proc.returncode == 0, f"sp rank 1 failed ({proc.returncode}):\n{text[-4000:]}"
+            with open(os.path.join(root, "sp_rank1.json")) as f:
+                r1 = json.load(f)
+            numbers["ranks_s"] = round(time.perf_counter() - t0, 1)
+        finally:
+            if proc.poll() is None:  # stop the follower left running by a failure here
+                proc.kill()
+                proc.wait()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            multihost._initialized = False
+        bounds, div = {}, []
+        # (a): the streams against the sp = 1 engine backends'; the pools,
+        # one a request: every page (the prompt's bucket and the decode cap)
+        # and every head, on both ranks.
+        from llm_based_apache_spark_optimization_tpu_torch.engine.kvcache import bucket_len
+
+        cap = bucket_len(MAX_NEW, 64)
+        ps = SCHED["kv_page_size"]
+        want_pools = [[SP_LAYERS, -(-(t + cap) // ps), e7.cfg.num_kv_heads, ps,
+                       e7.cfg.head_dim] for t in a["prompt_lens"]]
+        for kvq in ("bf16", "int8"):
+            got, want = a["streams"][kvq], ref["a"][kvq]
+            assert [p for p, _ in got] == [p for p, _ in want]
+            div += fleet_compare(torch, f"sp2_engine_paged_{kvq}", e7.cfg, e7.params,
+                                 e7.stop_ids, [p for p, _ in want], [o for _, o in got],
+                                 [o for _, o in want], bounds,
+                                 kv_quant=None if kvq == "bf16" else "int8")
+        assert a["pools"] == r1["a"]["pools"] == want_pools, \
+            (a["pools"], r1["a"]["pools"], want_pools)
+        # (b), (c): the streams against the sp = 1 schedulers'.
+        for label in ("b_contiguous", "b_paged", "c"):
+            div += fleet_compare(torch, f"sp2_sched_{label}", e7.cfg, e7.params,
+                                 e7.stop_ids, ref["prompts"], bc[label]["streams"],
+                                 ref[label], bounds)
+        assert r1["bc"]["kept"] == 0, r1["bc"]
+        assert bc["pool"] == r1["bc"]["pool"] == [
+            SP_LAYERS, bc["b_paged_pages"], e7.cfg.num_kv_heads, ps, e7.cfg.head_dim], \
+            (bc["pool"], r1["bc"]["pool"])
+        launches = {}
+        for part, mine, follower in (("sp2_engine_paged", a, r1["a"]),
+                                     ("sp2_schedulers", bc, r1["bc"])):
+            assert mine["launches"] == follower["launches"] == mine["expected"], \
+                (part, mine["launches"], follower["launches"], mine["expected"])
+            launches[f"{part}_rank0"] = mine["launches"]
+            launches[f"{part}_rank1"] = follower["launches"]
+        for row, key in (("row4", "ragged_paged_attention"),
+                         ("row5", "ragged_paged_attention_quantized"),
+                         ("row6", "fused_page_write"),
+                         ("row7", "fused_page_write_quantized")):
+            assert a["launches"][key] > 0, f"(a) launched no {key}"
+        for key in ("flash_gqa_prefill", "flash_gqa_decode", "ragged_paged_attention",
+                    "fused_page_write"):
+            assert bc["launches"][key] > 0, f"(b) launched no {key}"
+        print(f"  launches: each part's equal on both ranks and equal to its steps' count; "
+              f"(a) {json.dumps({k: v for k, v in a['launches'].items() if v})}; (b)+(c) "
+              f"{json.dumps({k: v for k, v in bc['launches'].items() if v})}", flush=True)
+        numbers.update(
+            a={"seconds": a["seconds"], "pools": a["pools"]},
+            **{label: {"seconds": bc[label]["seconds"], "timing": bc[label]["timing"]}
+               for label in ("b_contiguous", "b_paged", "c")},
+            c_build_s=bc["c_build_s"], pages={k: v for k, v in bc.items()
+                                              if k.endswith("_pages")},
+            divergences=div, staged=a["mesh"])
+        numbers["seconds"] = round(time.perf_counter() - t_phase, 1)
+        print(f"  phase 22: {json.dumps(numbers)}", flush=True)
+        return launches, numbers
+    finally:
+        if old_devices is None:
+            os.environ.pop("LSOT_MESH_DEVICES", None)
+        else:
+            os.environ["LSOT_MESH_DEVICES"] = old_devices
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -9909,6 +10421,14 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # one follower process of phase 21
     ap.add_argument("--native-python", default="",
                     help=argparse.SUPPRESS)  # phase 21 (c)'s Python side
+    ap.add_argument("--sp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # the follower process of phase 22
+    ap.add_argument("--sp-only", action="store_true",
+                    help="build and run phase 22 alone: sp=2 on two ranks of one card "
+                         "over the 7B weights, the paged engine behind the entry point's "
+                         "--sp 2 --no-scheduler --kv-layout paged, schedulers on the sp "
+                         "mesh and one built on it while it runs (prints its numbers and "
+                         "no ok line)")
     ap.add_argument("--pool-mesh-only", action="store_true",
                     help="build and run phase 21 alone: the --dp 2 --tp 2 pool of tp=2 "
                          "7B replicas, phase-split and int8 with spill, every rank on "
@@ -9932,6 +10452,9 @@ def main() -> int:
     if args.pool_rank is not None:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return pool_rank(args.pool_rank)
+    if args.sp_rank is not None:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return sp_rank(args.sp_rank)
     if args.native_python:
         return native_python(args.native_python)
 
@@ -10113,6 +10636,15 @@ def main() -> int:
         print(json.dumps({"pool_mesh": pool_numbers, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.sp_only:
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
+        phase("sequence parallelism, phase 22: sp=2 on two ranks of cuda:0 (gloo), the "
+              "paged engine and schedulers on it")
+        _, sp_numbers = sp_serve(torch, engines, smi)
+        phase(None)
+        print(json.dumps({"sp": sp_numbers, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.disagg_only:
         engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
         phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
@@ -10244,6 +10776,11 @@ def main() -> int:
     phase("pool of tp meshes, phase 21: two tp=2 replicas on cuda:0 (gloo), the native "
           "layer")
     pool_launches, pool_numbers = pool_mesh_serve(torch, engines, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("sequence parallelism, phase 22: sp=2 on two ranks of cuda:0 (gloo), the paged "
+          "engine and schedulers on it")
+    sp_launches, sp_numbers = sp_serve(torch, engines, smi)
 
     phase("timing")
     assert engines["duckdb-nsql"].cfg == DUCKDB_NSQL_7B
@@ -10296,7 +10833,7 @@ def main() -> int:
              "quantized_scheduler": q_launches["scheduler"],
              "quantized_contiguous_scheduler": q_launches["contiguous"],
              "fleet_pool": fleet_launches, **disagg_launches, **remote_launches,
-             **elastic_launches, **mesh_out["launches"], **pool_launches,
+             **elastic_launches, **mesh_out["launches"], **pool_launches, **sp_launches,
              **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
@@ -10355,6 +10892,9 @@ def main() -> int:
             # Phase 21: the row at the per-rank shapes of its tp=2 replicas.
             entry["pool_per_rank_max_err"] = pool_numbers["kernels_per_rank"][
                 POOL_ROWS[launch]]
+        if launch in SP_ROWS:
+            # Phase 22: the row at an sp rank's shapes (the whole pool, every head).
+            entry["sp_per_rank_max_err"] = sp_numbers["kernels_per_rank"][SP_ROWS[launch]]
         if launch.endswith("_window"):
             # bf16 only: f32 windows run the tile kernel, recorded apart.
             entry["max_row_rel_err_by_dtype"] = errors[launch + "_rel"]
@@ -10379,6 +10919,7 @@ def main() -> int:
     print(json.dumps({"elastic": elastic, "device": smi}))
     print(json.dumps({"mesh": mesh_out["numbers"], "device": smi}))
     print(json.dumps({"pool_mesh": pool_numbers, "device": smi}))
+    print(json.dumps({"sp": sp_numbers, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,11 @@ service, as the JAX package's `app/__main__.py` does:
 Serving backends default to the continuous-batching scheduler over the
 contiguous KV layout (`--scheduler`, `--kv-layout contiguous`), the
 reference app's defaults: concurrent HTTP requests share one decode batch
-on the device. `--no-scheduler` serves lock-serialised engines instead.
+on the device. `--no-scheduler` serves lock-serialised engines instead,
+over the layout `--kv-layout` names. (The JAX entry point gives its
+engines no layout, though its own exit for int8 KV with `--speculative`
+on an engine tells the user to pass `--kv-layout=paged`; the port's
+engines take the flag, so that combination serves.)
 Each scheduler runs under the crash supervisor by default (`--supervise`,
 as in the JAX entry point: journal, restart with backoff, replay;
 `/readyz` reports ready|restarting|degraded|dead); `--no-supervise` leaves
@@ -80,16 +84,20 @@ have no effect.
 The port runs on a CUDA card and raises without one; `--cpu` runs it on the
 CPU (the kernels' plain versions). `--tp`/`--sp` > 1, and `--dp` > 1
 without `--scheduler` (the engine's dp mesh), serve the tiny or checkpoint
-models on a mesh of dp*sp*tp ranks (parallel/): the command starts the
+models on a mesh of dp*sp*tp ranks (parallel/); `--sp` takes the engine,
+`--no-scheduler`, with either KV layout (`--kv-layout paged`: the pool
+whole on each sp rank), `--kv-int8` and `--speculative`, and exits with
+`--scheduler`, as the JAX entry point does. The command starts the
 other ranks itself (parallel/launch.py), every rank loads its own block of
 the weights, rank 0 serves HTTP and drives, and the others follow its
 device steps. One rank a card over NCCL, or LSOT_MESH_DEVICES to place
 ranks (two on one card run over gloo, staged through host memory).
 `LSOT_MODELS` beside `--tp`/`--dp` builds its model pool unsharded and
 starts no rank, as the JAX entry point does. It refuses, naming the
-ROADMAP item, every option it cannot honor yet, instead of ignoring it: a
-pool of tp meshes under an outer launcher (A13.5), and the environment
-knob of `UNPORTED_KNOBS`, the bench seed (A12's bench).
+ROADMAP item, every option it cannot honor, instead of ignoring it: a
+pool of tp meshes under an outer launcher (A13.5, a path the JAX entry
+point does not have: it never initialises a multi-host runtime), and the
+environment knob of `UNPORTED_KNOBS`, the bench seed (A12's bench).
 
 `make_oracle_service` answers every eval case with its expected SQL: the
 eval harness's self-proof (`python -m ...evalh --backend oracle` reads
@@ -512,7 +520,8 @@ def make_tiny_service(
         else:
             eng = InferenceEngine(mcfg, mparams, stop_ids=(mcfg.eos_id,),
                                   prompt_bucket=64, device=dev, kv_quant=kv_quant,
-                                  speculative_draft=speculative, mesh=mesh)
+                                  kv_layout=kv_layout, speculative_draft=speculative,
+                                  mesh=mesh)
             backend = EngineBackend(eng, tok, max_new_tokens=max_new_tokens)
         svc.register(name, backend, template=template)
     return svc
@@ -598,7 +607,7 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
                     quantize_int4=args.int4,
                     quantize_unembed8=args.int8_unembed, device=device,
                     speculative_draft=args.speculative, mesh=mesh,
-                    sec_per_tok_seed=cfg.stok_seed or None)
+                    kv_layout=args.kv_layout, sec_per_tok_seed=cfg.stok_seed or None)
 
     return assemble_reference_service(
         build, args.sql_model_path, args.error_model_path,
@@ -806,10 +815,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8 KV cache with one f32 scale a slot (scheduler and "
                          "engine backends)")
     ap.add_argument("--kv-layout", choices=("contiguous", "paged"), default="contiguous",
-                    help="KV layout of the scheduler backends (default contiguous, "
-                         "the reference app's): one cache row a slot, or a shared "
-                         "page pool with per-slot page tables (pool size: "
-                         "--kv-hbm-gb)")
+                    help="KV layout of the scheduler and engine backends (default "
+                         "contiguous, the reference app's): one cache row a slot, or "
+                         "a shared page pool with per-slot page tables (a "
+                         "scheduler's pool size: --kv-hbm-gb)")
     ap.add_argument("--kv-hbm-gb", type=float, default=0.0, metavar="GB",
                     help="device-memory budget of a checkpoint scheduler's paged KV "
                          "pool (0 = slots x max_seq pages, the contiguous layout's "

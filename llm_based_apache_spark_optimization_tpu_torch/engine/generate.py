@@ -40,9 +40,14 @@ the KV heads and, with sp > 1, an sp-th of the slots. Every rank of the
 mesh calls `generate` with the same arguments (SPMD); under an entry point
 only rank 0 does, and it posts the call to the others over the step
 channel (`parallel/spmd.py`) once `spmd.drive` is on. With sp > 1 the
-prompt pads to a multiple of sp, the prefill runs ring attention and the
-decode reads the sharded slots through the partial-softmax combine; the
-paged layout needs sp = 1. Every rank returns every row.
+prompt pads to a multiple of sp and the prefill runs ring attention into a
+cache whose slots are split over sp (`models.llama.SpSlotCache`, JAX's
+`cache_spec`); the contiguous layout's decode reads those slots through the
+partial-softmax combine. The paged layout follows JAX's
+`paged_pool_spec`: the prompt-sized transient is all-gathered over sp (what
+GSPMD does implicitly in JAX), packed into a pool whole on every sp rank,
+and each sp rank then runs the same paged decode or verify windows through
+the tp path's kernels. Every rank returns every row.
 
 With a grammar `constraint` (a compiled `constrain.CompiledMask`), the first
 token is masked to the tokens whose completion fits the whole budget
@@ -61,8 +66,8 @@ import torch
 
 from .. import resolve_device
 from ..models.configs import LlamaConfig
-from ..models.llama import _UNROLL_MAX_T, Params, forward, fuse_blocks
-from ..ops.common import all_gather_object
+from ..models.llama import _UNROLL_MAX_T, Params, SpSlotCache, forward, fuse_blocks
+from ..ops.common import all_gather, all_gather_object
 from ..ops.quant import quantize_cache
 from ..ops.sampling import (
     SamplingParams,
@@ -142,11 +147,6 @@ class InferenceEngine:
         if mesh is not None:
             from ..parallel.sharding import shard_params
 
-            if mesh.shape["sp"] > 1 and kv_layout == "paged":
-                raise NotImplementedError(
-                    "the paged engine under sp > 1 is not ported: ROADMAP "
-                    "A13.1 (sequence parallelism beyond the engine's "
-                    "contiguous cache)")
             if device is not None and torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh rank's "
                                  f"{mesh.device}")
@@ -249,6 +249,8 @@ class InferenceEngine:
             s_cache = -(-(s_cache + -s_cache % 8) // sp)
         cache = init_cache(self._kv_cfg, b, s_cache,
                            dtype=self.params["final_norm"].dtype, device=dev)
+        if sp > 1:
+            cache = SpSlotCache(cache)
         positions = torch.arange(t, dtype=torch.int32, device=dev)[None].expand(b, t)
         gen = None
         if not sampling.is_greedy:
@@ -278,11 +280,18 @@ class InferenceEngine:
         finished = bool(done.all())  # synchronises: the first token exists
         ttft = time.perf_counter() - t0
         if paged:
+            if sp > 1:
+                # The pool is whole on every sp rank: gather the transient's
+                # slots, keep the prompt's t.
+                cache = {n: all_gather(cache[n], mesh, "sp", dim=3)[:, :, :, :t]
+                         for n in ("k", "v")}
             ps = self.kv_page_size
             cache = pack_prefill_pages(cache, ps, -(-(t + cap + d1) // ps),
                                        kv_quant=self.kv_quant)
         elif self.kv_quant:
             cache = quantize_cache(cache["k"], cache["v"])
+            if sp > 1:
+                cache = SpSlotCache(cache)
         if self.speculative_draft:
             out_t, forwards = self._speculative_loop(
                 cache, tokens, lengths, cur, done, cstate, tabs, budget, cap,

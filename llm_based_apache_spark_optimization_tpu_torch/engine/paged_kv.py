@@ -27,7 +27,10 @@ Counterpart of the JAX package's `engine/paged_kv.py`:
   rank's head block to the mesh's rank 0, the import sends rank 0's blob
   to every rank, which writes its own block. So a tp=2 replica's blob is
   what a tp=1 replica exports from the same pool contents, and a replica
-  of any tp imports it.
+  of any tp imports it. Under sp every sp rank holds the same heads as its
+  sp = 0 peer (the pool is whole on each sp rank): the export reads the
+  sp = 0 ranks' heads alone, and the import writes the blob's heads on
+  every sp rank.
 """
 
 from __future__ import annotations
@@ -178,11 +181,14 @@ def export_pages_start(pool: Dict[str, torch.Tensor], page_ids: Sequence[int],
     """`export_pages` in two halves: this call enqueues the gather and the
     copy to pinned host buffers; the function it returns waits for that
     copy and returns the blob. A caller issuing under a dispatch lock waits
-    outside it. Under a tp `mesh` every rank of it calls this with the same
-    pages (module docstring): the heads are gathered to rank 0, whose
-    function returns the whole blob; the others' return an empty tuple."""
+    outside it. Under a `mesh` every rank of it calls this with the same
+    pages (module docstring): the sp = 0 ranks' heads are gathered to rank
+    0, whose function returns the whole blob; the others' return an empty
+    tuple."""
     from ..ops.common import all_gather, axis_index
 
+    if axis_index(mesh, "sp"):
+        return lambda: ()  # a replica of its sp = 0 peer's heads
     dev = next(iter(pool.values())).device
     idx = torch.tensor(list(page_ids), dtype=torch.int64, device=dev)
     # [L, n, K, page_size(, H)]: the KV-head axis is 2 in every pool array.
@@ -213,19 +219,21 @@ def import_pages(pool: Dict[str, torch.Tensor], page_ids: Sequence[int],
     allocated, exclusive), in place: one indexed copy per pool array. On
     the card the host arrays go through pinned buffers without a
     synchronise, ordered on the current stream before any later round.
-    Under a tp `mesh` every rank of it calls this with the same pages: rank
-    0 brings the whole blob, the others None, and each rank writes its own
-    block of the heads."""
+    Under a `mesh` every rank of it calls this with the same pages: rank 0
+    brings the whole blob, the others None; the blob goes from rank 0 to
+    the other sp ranks of tp index 0, then from each of those to its tp
+    peers, and each rank writes its own block of the heads."""
     from ..ops.common import axis_index, axis_size, broadcast
 
     dev = next(iter(pool.values())).device
     idx = torch.tensor(list(page_ids), dtype=torch.int64, device=dev)
     tp, r = axis_size(mesh, "tp"), axis_index(mesh, "tp")
+    primary = r == 0 and axis_index(mesh, "sp") == 0
     staged = mesh is not None and mesh.staged
     for i, arr in enumerate(pool.values()):
         shape = (arr.shape[0], len(page_ids), arr.shape[2] * tp, *arr.shape[3:])
         src = like = None
-        if r == 0:
+        if primary:
             src = torch.from_numpy(np.ascontiguousarray(stacks[i]))
             if src.dtype != arr.dtype:
                 src = src.view(arr.dtype)  # bf16 from its 16-bit patterns
@@ -234,6 +242,8 @@ def import_pages(pool: Dict[str, torch.Tensor], page_ids: Sequence[int],
         else:
             like = torch.empty(shape, dtype=arr.dtype,
                                device="cpu" if staged else dev)
+        if r == 0:
+            src = broadcast(src, mesh, "sp", like=like)
         if tp > 1:
             kl = arr.shape[2]
             src = broadcast(src, mesh, "tp", like=like).narrow(2, r * kl, kl)

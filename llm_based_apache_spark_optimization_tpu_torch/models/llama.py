@@ -76,11 +76,19 @@ onto the other.
   lookup (each rank gathers only its vocabulary rows), and an all-gather of
   the vocab-sharded logits, so every rank returns the whole [B, T, V].
   Attention reads through the `sharded_*` kernel wrappers on the rank's
-  heads. With sp > 1 the contiguous cache holds this rank's sp-th of the
-  slots: `attn_impl="ring"` prefills through ring attention over the
-  call's fresh K/V (from position 0, as JAX's ring branch), and later
-  steps read through `ops.ring_attention.sp_cache_attention`; each rank
-  writes only the positions its slots hold.
+  heads. Under sp > 1 a cache is one of two kinds, and its type says which
+  (`SpSlotCache`, never its shape):
+  - the engine's contiguous cache, an `SpSlotCache`, holds this rank's
+    sp-th of the slots (JAX's `cache_spec`): `attn_impl="ring"` prefills
+    through ring attention over the call's fresh K/V (from position 0, as
+    JAX's ring branch), later steps read through
+    `ops.ring_attention.sp_cache_attention`, and each rank writes only the
+    positions its slots hold;
+  - every other cache is whole on each sp rank (JAX's `paged_pool_spec`
+    and the scheduler's placement: KV heads over tp, slots and pages
+    replicated): the scheduler's contiguous cache with `rows`, any paged
+    pool. Those take the tp path above on every sp rank, whose ranks
+    compute the same step as replicas.
 """
 
 from __future__ import annotations
@@ -205,6 +213,16 @@ def fuse_blocks(params: Params) -> Params:
     out = dict(params)
     out["blocks"] = blocks
     return out
+
+
+class SpSlotCache(dict):
+    """A contiguous cache ({"k", "v"} or int8 {"k8", "v8", "ks", "vs"})
+    whose slots are split over the mesh's sp axis: sp rank r holds global
+    slots [r * S_loc, (r + 1) * S_loc) (the engine's cache under sp,
+    `parallel.sharding.cache_spec`). `forward` takes the ring and
+    `sp_cache_attention` for it and the tp path for any other cache, and
+    raises where the two meet (a split cache with `rows` or a page pool, a
+    ring prefill into a whole cache)."""
 
 
 def _write_cache(layer_cache: torch.Tensor, new: torch.Tensor,
@@ -376,24 +394,30 @@ def forward(
     the chunk's last position + 1), one layer at a time; any T.
 
     Under a `mesh` (module docstring) every rank of a tp/sp group calls the
-    forward with the same tokens and gets the same logits. With sp > 1 the
-    contiguous cache's slots are sharded: `attn_impl="ring"` is the
-    prefill from position 0 through ring attention; without it the call
-    reads the sharded slots (`sp_cache_attention`). Paged caches and `rows`
-    need sp = 1."""
+    forward with the same tokens and gets the same logits. An
+    `SpSlotCache` (sp > 1) has its slots split over sp: `attn_impl="ring"`
+    is the prefill from position 0 through ring attention; without it the
+    call reads the split slots (`sp_cache_attention`). Any other cache is
+    whole on each sp rank and takes the tp path, `rows` and paged caches
+    included."""
     b, t = tokens.shape
     tp, sp = axis_size(mesh, "tp"), axis_size(mesh, "sp")
     sharded = mesh is not None and mesh.size > 1
-    if attn_impl not in (None, "ring", "sp_combine"):
-        raise ValueError(f"attn_impl must be None, 'ring' or 'sp_combine', "
-                         f"got {attn_impl!r}")
+    if attn_impl not in (None, "ring"):
+        raise ValueError(f"attn_impl must be None or 'ring', got {attn_impl!r}")
     if attn_impl == "ring" and sp == 1:
         raise ValueError('attn_impl="ring" requires a mesh with an "sp" axis > 1')
-    if sp > 1 and cache is not None and ("kp" in cache or rows is not None):
-        raise NotImplementedError(
-            "a paged cache or a row-chunked cache under sp > 1 is not ported: "
-            "ROADMAP A13.1 (sequence parallelism beyond the engine's "
-            "contiguous cache)")
+    split = isinstance(cache, SpSlotCache)
+    if split and sp == 1:
+        raise ValueError("an SpSlotCache splits its slots over sp: it needs a "
+                         "mesh with an \"sp\" axis > 1")
+    if split and ("kp" in cache or rows is not None):
+        raise ValueError("a cache split over sp is the engine's contiguous "
+                         "cache: rows and page pools run on caches whole on "
+                         "each sp rank")
+    if attn_impl == "ring" and cache is not None and not split:
+        raise ValueError('attn_impl="ring" prefills a cache split over sp '
+                         "(an SpSlotCache); this cache is whole on each rank")
     paged = cache is not None and "kp" in cache
     quant = cache is not None and "k8" in cache
     chunk = paged and span is not None
@@ -429,9 +453,10 @@ def forward(
     else:
         attend, attend_q = attention, attention_quantized
         attend_paged, attend_paged_q = paged_attention, paged_attention_quantized
-    if sp > 1:
-        s_base = axis_index(mesh, "sp") * (
-            cache["k8" if quant else "k"].shape[3] if cache is not None else 0)
+    # The sp path: a split cache, or a ring prefill with no cache.
+    sp_path = split or attn_impl == "ring"
+    s_base = (axis_index(mesh, "sp") * cache["k8" if quant else "k"].shape[3]
+              if split else 0)
     blocks = params["blocks"]
     if chunk:
         chunk_pages = -(-span // cache["kp"].shape[3])
@@ -455,7 +480,7 @@ def forward(
         q, k = q.reshape(b, t, nh, hd), k.reshape(b, t, kh, hd)
         v = v.reshape(b, t, kh, hd)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        if sp > 1:
+        if sp_path:
             attn = _sp_layer(cache, l, q, k, v, positions, base=s_base, mesh=mesh,
                              window=cfg.sliding_window, kv_lens=kv_lens,
                              ring=attn_impl == "ring", quant=quant)
@@ -545,9 +570,9 @@ def forward(
 def _sp_layer(cache, layer: int, q, k, v, positions, *, base: int, mesh,
               window, kv_lens, ring: bool, quant: bool) -> torch.Tensor:
     """One layer's attention with the sequence axis over sp: write the
-    fresh K/V (int8: quantized) into this rank's slots of the contiguous
-    cache, then attend through the ring (a prefill from position 0, over
-    the fresh K/V) or over the sharded slots (a decode step or window)."""
+    fresh K/V (int8: quantized) into this rank's slots of the split cache,
+    if any, then attend through the ring (a prefill from position 0, over
+    the fresh K/V) or over the split slots (a decode step or window)."""
     if cache is not None:
         if quant:
             for name, new in (("k", k), ("v", v)):
@@ -559,9 +584,6 @@ def _sp_layer(cache, layer: int, q, k, v, positions, *, base: int, mesh,
             _write_sp(cache["v"][layer], v, positions, base)
     if ring:
         return ring_gqa_attention(mesh, q, k, v, positions, sliding_window=window)
-    if cache is None:
-        return attention(q, k.transpose(1, 2).contiguous(),
-                         v.transpose(1, 2).contiguous(), positions, window, kv_lens)
     if quant:
         return sp_cache_attention(q, cache["k8"][layer], cache["v8"][layer],
                                   positions, mesh, window, kv_lens,

@@ -334,13 +334,12 @@ def sharded_flash_gqa_attention(
     `shard_map` over batch rows (dp) and heads (tp). Each rank of the port
     already holds that block, and heads never meet inside attention, so
     this is the kernel launched on the rank's own block, no collective. The
-    cache's slots must be whole on the rank (sp = 1): a cache sharded over
-    sp reads through `ops.ring_attention.sp_cache_attention`."""
+    cache's slots are whole on the rank (under sp the scheduler's cache is,
+    and every sp rank computes the same block); a cache whose slots are
+    split over sp reads through `ops.ring_attention.sp_cache_attention`
+    (`models.llama.SpSlotCache`)."""
     from .dispatch import attention
 
-    if mesh is not None and mesh.shape["sp"] > 1:
-        raise ValueError("sharded_flash_gqa_attention needs the cache's slots "
-                         "whole on each rank (sp = 1)")
     _local_heads(mesh, q, k.shape[1], "sharded_flash_gqa_attention")
     return attention(q, k, v, q_positions, sliding_window, kv_lens)
 
@@ -357,12 +356,10 @@ def sharded_flash_gqa_attention_quantized(
     kv_lens: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`flash_gqa_attention_quantized` on this rank's dp rows and tp heads
-    of the int8 cache (JAX `sharded_flash_gqa_attention_quantized`)."""
+    of the int8 cache, its slots whole on the rank (JAX
+    `sharded_flash_gqa_attention_quantized`)."""
     from .dispatch import attention_quantized
 
-    if mesh is not None and mesh.shape["sp"] > 1:
-        raise ValueError("sharded_flash_gqa_attention_quantized needs the "
-                         "cache's slots whole on each rank (sp = 1)")
     _local_heads(mesh, q, k8.shape[1], "sharded_flash_gqa_attention_quantized")
     return attention_quantized(q, k8, ks, v8, vs, q_positions, sliding_window,
                                kv_lens)

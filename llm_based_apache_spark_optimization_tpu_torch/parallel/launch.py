@@ -29,7 +29,9 @@ one command too: its process is world rank 0 and rank 0 of every replica's
 submesh, and it starts the other M-1 ranks of each local replica
 (1 + N*(M-1) processes in all; parallel/mesh.make_submeshes). Replica i's
 shards sit on `pool_devices(...)[i*M:(i+1)*M]`, JAX's device slice. Under
-an outer launcher the pool is not ported (ROADMAP A13.5).
+an outer launcher the pool is refused (ROADMAP A13.5): the JAX entry point
+never joins a multi-host runtime (its `init_distributed` is exported and
+called by no entry point), so there is no path of its to follow.
 """
 
 from __future__ import annotations
@@ -201,8 +203,10 @@ def join_pool(dp: int, tp: int, cpu: bool, module: str, argv: Sequence[str],
             and not dist.is_initialized():
         raise NotImplementedError(
             "a replica pool of tp meshes under an outer launcher (LSOT_PROCESS_ID "
-            "set by another program) is not ported: ROADMAP A13.5, the "
-            "remainder of A13.4; start it as one command")
+            "set by another program) is refused: ROADMAP A13.5. The JAX entry "
+            "point never initialises a multi-host runtime (its init_distributed "
+            "is called by no entry point), so the port has no path to follow; "
+            "start the pool as one command")
     local = list(range(dp)) if local is None else list(local)
     devices = pool_devices(dp, tp, cpu)
     children = start_group(1 + len(local) * (tp - 1), module, argv, devices)

@@ -113,6 +113,9 @@ class Mesh:
         # that index when rank 0 rebuilds it (a supervised restart).
         self._recipes: Dict[int, tuple] = {}
         self._follower = None
+        # Param trees placed on the mesh (`place`), by index: each a list of
+        # (path, weak reference to the leaf), so no tree outlives its owner.
+        self._trees: List[List[tuple]] = []
 
     def __repr__(self) -> str:
         return (f"Mesh(dp={self.shape['dp']}, sp={self.shape['sp']}, "
@@ -178,10 +181,70 @@ class Mesh:
         return obj
 
     def drop(self, idx: int) -> None:
-        """Forget object `idx` (rank 0 shut it down)."""
+        """Forget object `idx` (rank 0 shut it down), and let go of it if
+        only the mesh held it (a follower's twin or build)."""
         with self._registered:
             self._registered.wait_for(lambda: idx < len(self._targets))
+            obj = self._targets[idx]()
             self._targets[idx] = lambda: None
+            self._kept = [o for o in self._kept if o is not obj]
+
+    # Param trees: every rank places the same trees in the same order
+    # (`parallel.sharding.shard_params`, which every engine and scheduler
+    # calls), so an index names the same tree on every rank. Rank 0 builds a
+    # scheduler while the others follow by posting its tree's index.
+    def _replaying(self) -> bool:
+        """True where a placement is rank 0's alone or a replayed step's:
+        rank 0 while it drives, a follower on its step loop's thread."""
+        if self.driving and self.is_primary:
+            return True
+        f = self._follower
+        return f is not None and f.thread is threading.current_thread()
+
+    def place(self, tree) -> Optional[int]:
+        """Give param tree `tree` (a nested dict of tensors) the mesh's
+        next index, held by weak references to its leaves; a tree placed
+        before keeps its index. While rank 0 drives, or on a follower's
+        step loop, nothing is placed (the other ranks place nothing then):
+        returns the index, or None."""
+        idx = self.tree_index(tree)
+        if idx is not None or self._replaying():
+            return idx
+        self._trees.append([(path, weakref.ref(leaf)) for path, leaf in _leaves(tree)])
+        return len(self._trees) - 1
+
+    def tree_index(self, tree) -> Optional[int]:
+        """The index `place` gave `tree` (the same leaves), or None."""
+        leaves = list(_leaves(tree))
+        for i, entry in enumerate(self._trees):
+            if len(entry) == len(leaves) and all(
+                    p == q and ref() is x for (p, ref), (q, x) in zip(entry, leaves)):
+                return i
+        return None
+
+    def tree(self, idx: int) -> dict:
+        """Placed tree `idx`, rebuilt from its leaves; raises if its owner
+        dropped it."""
+        out: dict = {}
+        for path, ref in self._trees[idx]:
+            leaf = ref()
+            if leaf is None:
+                raise RuntimeError(f"param tree {idx} placed on this mesh is gone: "
+                                   "its owner dropped it while rank 0 builds on it")
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = leaf
+        return out
+
+
+def _leaves(tree, path=()):
+    """(path, tensor) for every leaf of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
 
 
 

@@ -212,7 +212,16 @@ def shard_params(params: Pytree, cfg: LlamaConfig, mesh: Mesh) -> Pytree:
     tree, on the mesh's device. Specs come from the tree itself
     (`specs_for_params`), so every layout shards: bf16, q8, q4, fused. A
     tree that is already local (loaded straight to the mesh) is returned
-    as it is."""
+    as it is. The local tree is placed on the mesh (`Mesh.place`): every
+    rank that shards the same trees in the same order gives each the same
+    index, which names it when rank 0 builds a scheduler from it while the
+    others follow."""
+    local = _shard_params(params, cfg, mesh)
+    mesh.place(local)
+    return local
+
+
+def _shard_params(params: Pytree, cfg: LlamaConfig, mesh: Mesh) -> Pytree:
     tp = mesh.shape["tp"]
     validate_tp(cfg, tp)
     if cfg.vocab_size % tp:

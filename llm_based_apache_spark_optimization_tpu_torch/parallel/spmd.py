@@ -11,7 +11,11 @@ So rank 0 (`multihost.is_primary`) runs the entry point, the service and
 the host loops, and the other ranks follow. An object that rank 0 drives
 (a scheduler; an engine once `drive` is on) registers with the mesh in
 construction order, which every rank follows, so the same index names it
-everywhere. For each device step it takes (a forward, a cache operation,
+everywhere. A scheduler rank 0 builds while the others follow has them
+build its counterpart first: a twin from the recipe of an earlier one with
+the same params and arguments (a supervised restart, `post_rebuild`), or
+else an object from a posted factory over a param tree every rank placed
+(`post_build`, `Mesh.place`). For each device step it takes (a forward, a cache operation,
 an engine call) rank 0 broadcasts a small descriptor over the mesh's gloo
 step group (`Mesh.steps`), `(target, method, args, kwargs)` with its host
 tensors,
@@ -31,6 +35,7 @@ import torch
 _END = "__end__"
 _CLOSE = "__close__"
 _REBUILD = "__rebuild__"
+_BUILD = "__build__"
 
 
 def _to_host(obj: Any) -> Any:
@@ -82,6 +87,20 @@ def post_rebuild(mesh, recipe: int) -> None:
     _bcast(mesh, (recipe, _REBUILD, (), {}))
 
 
+def post_build(mesh, tree: int, factory) -> None:
+    """Rank 0: every follower builds and starts `factory(params=<its placed
+    tree `tree`>, mesh=<its mesh>)` (`Mesh.place`, `Mesh.tree`) and
+    registers it next, as rank 0 registers the object it builds: an object
+    with no earlier twin. `factory` is picklable (a `functools.partial` of
+    a class and its arguments). The caller holds `mesh.lock`."""
+    _bcast(mesh, (tree, _BUILD, (factory,), {}))
+
+
+def _keep_started(mesh, obj) -> None:
+    mesh._kept.append(obj)  # nothing else on this rank holds it
+    obj.start()
+
+
 class _Follower:
     def __init__(self, mesh):
         self.mesh = mesh
@@ -106,9 +125,10 @@ class _Follower:
                     self.closed_event(target).set()
                     continue
                 if method == _REBUILD:
-                    twin = mesh._recipes[target][1]()
-                    mesh._kept.append(twin)  # nothing else on this rank holds it
-                    twin.start()
+                    _keep_started(mesh, mesh._recipes[target][1]())
+                    continue
+                if method == _BUILD:
+                    _keep_started(mesh, args[0](params=mesh.tree(target), mesh=mesh))
                     continue
                 obj = mesh.target(target)
                 getattr(obj, method)(*_to_device(args, mesh.device),

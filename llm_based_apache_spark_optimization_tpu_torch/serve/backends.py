@@ -157,9 +157,10 @@ class EngineBackend:
         to int4 (served by the int4 matmul kernel), `quantize_int8=True`
         to int8 (the int8 matmul kernel), and `quantize_unembed8=True`
         stores the embed/unembed tables in int8; `kv_quant="int8"`
-        stores the KV cache in int8; `speculative_draft=N` verifies N
-        prompt-lookup drafts a round (engine/speculative.py; with the
-        int8 cache the engine refuses it, as JAX's does). The other arguments are those of the
+        stores the KV cache in int8; `kv_layout="paged"` decodes over the
+        page pool; `speculative_draft=N` verifies N prompt-lookup drafts
+        a round (engine/speculative.py; with the contiguous int8 cache the
+        engine refuses it, as JAX's does). The other arguments are those of the
         JAX package's `EngineBackend.from_hf_checkpoint`; what the port
         cannot honor yet raises and names its ROADMAP item."""
         from ..checkpoint import load_hf_checkpoint
@@ -190,7 +191,7 @@ class EngineBackend:
         prompt_bucket: int = 128, stop_ids: Optional[Sequence[int]] = None,
         quantize_int8: bool = False, quantize_int4: bool = False,
         quantize_unembed8: bool = False, speculative_draft: int = 0,
-        kv_quant=None, device=None, **kwargs,
+        kv_quant=None, device=None, kv_layout: str = "contiguous", **kwargs,
     ) -> "EngineBackend":
         from .. import resolve_device
 
@@ -204,6 +205,7 @@ class EngineBackend:
             stop_ids=stop_ids if stop_ids is not None
             else resolve_stop_ids(cfg, tokenizer),
             kv_quant=kv_quant, speculative_draft=speculative_draft, mesh=mesh,
+            kv_layout=kv_layout,
         )
         return cls(engine, tokenizer, **kwargs)
 

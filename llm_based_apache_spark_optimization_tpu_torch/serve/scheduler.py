@@ -204,9 +204,11 @@ the fault seams run before it is taken.
   `LoopbackTransport`, kept under a heartbeat lease. The elastic fleet's
   `FleetAutoscaler` (serve/elastic.py) joins standbys through `add_replica`
   and retires them through `retire_replica`.
-- A tp mesh (`mesh`, parallel/; A7.12): each rank holds its block of the
+- A mesh (`mesh`, parallel/; A7.12): each rank holds its block of the
   params and allocates its block of the cache or pool (a tp-th of the KV
-  heads). Rank 0 runs the host loop; every forward and every device cache
+  heads; slots and pages whole on every sp rank, as JAX places them, so
+  the sp ranks of a tp rank are replicas computing the same step). Rank 0
+  runs the host loop; every forward and every device cache
   operation it takes (`_fwd`, `_mirror`: prefix-block publish, restore and
   evict, page copies, page exports and imports) is posted over the step
   channel (parallel/spmd.py) and replayed by the other ranks' schedulers,
@@ -214,10 +216,14 @@ the fault seams run before it is taken.
   requests. A spill or handoff blob keeps the unsharded layout: the export
   gathers every rank's heads to rank 0, the import sends rank 0's blob to
   every rank (engine/paged_kv.py), so phase roles and `kv_spill` work on a
-  mesh and a blob moves between replicas of any tp. dp must be 1 (as JAX:
-  the slot axis cannot shard); sp > 1 raises NotImplementedError (ROADMAP
-  A13.1). A pool's replicas may each run on a tp mesh of their own
-  (parallel/mesh.make_submeshes).
+  mesh and a blob moves between replicas of any tp (under sp the export
+  reads the sp = 0 ranks' heads and the import writes every sp rank's).
+  dp must be 1 (as JAX: the slot axis cannot shard). Rank 0 may build a
+  scheduler while the others follow: they build a twin from an earlier
+  one's recipe (a supervised restart), or else one from the params tree
+  every rank placed on the mesh (`parallel.Mesh.place`) and rank 0's
+  posted arguments (`_register`). A pool's replicas may each run on a tp
+  mesh of their own (parallel/mesh.make_submeshes).
 - Phase roles (`phase_role`, paged only; a pool's `LSOT_POOL_PHASES`): a
   "prefill" replica's final chunk parks its first token on the device
   (`_handoff_pending`); `_pack_handoffs` commits and streams it, exports
@@ -800,11 +806,6 @@ class ContinuousBatchingScheduler:
                     "scheduler mesh must have dp=1: request parallelism comes "
                     "from slots; the slot axis is dynamically indexed and "
                     "cannot shard")
-            if mesh.shape["sp"] != 1:
-                raise NotImplementedError(
-                    "the scheduler under sp > 1 is not ported: ROADMAP A13.1 "
-                    "(sequence parallelism beyond the engine's contiguous "
-                    "cache)")
             validate_tp(cfg, mesh.shape["tp"])
             if device is not None and torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh rank's "
@@ -814,7 +815,7 @@ class ContinuousBatchingScheduler:
             # arguments) is matched to this one by the key.
             self._twin_key = (id(params), {k: v for k, v in init_args.items()
                                            if k != "params"})
-            params = shard_params(params, cfg, mesh)
+            params = local = shard_params(params, cfg, mesh)
             self._kv_cfg = mesh.local_cfg(cfg)
             self._mesh_drive = mesh.distributed and mesh.is_primary
             self._mesh_follower = mesh.distributed and not mesh.is_primary
@@ -1035,7 +1036,7 @@ class ContinuousBatchingScheduler:
         self._profile_last: Optional[Dict[str, object]] = None
         if mesh is not None:
             # Registered last: a follower's step loop may drive it at once.
-            self._mesh_id = self._register(mesh)
+            self._mesh_id = self._register(mesh, init_args, local)
             mesh._recipes[self._mesh_id] = (self._twin_key, recipe)
 
     # ----------------------------------------------------- device helpers
@@ -1057,22 +1058,34 @@ class ContinuousBatchingScheduler:
             return forward(self.cfg, self.params, tokens, positions, cache,
                            mesh=self.mesh, **kw)
 
-    def _register(self, mesh) -> int:
+    def _register(self, mesh, init_args: dict, local) -> int:
         """This scheduler's index on the mesh. Built while the followers
-        follow (rank 0's supervisor rebuilding a crashed scheduler), it
-        first has each follower build its twin from the recipe of the
-        scheduler built before from the same params and arguments."""
+        follow, it first has each follower build its counterpart: the twin
+        from the recipe of the scheduler built before from the same params
+        and arguments (rank 0's supervisor rebuilding a crashed one), or
+        else a scheduler from the follower's own block of the params tree
+        (`local`, placed on every rank: `Mesh.place`) and these
+        arguments."""
         if not (mesh.driving and mesh.is_primary):
             return mesh.register(self)
         from ..parallel import spmd
 
         same = [i for i, (key, _) in mesh._recipes.items() if key == self._twin_key]
-        if not same:
-            raise NotImplementedError(
-                "a scheduler built on rank 0 after the followers started, "
-                "with no twin on them, is not ported: ROADMAP A13.3")
+        if same:
+            with mesh.lock:
+                spmd.post_rebuild(mesh, same[-1])
+                return mesh.register(self)
+        tree = mesh.tree_index(local)
+        if tree is None:
+            raise ValueError(
+                "a scheduler built on rank 0 while the other ranks follow needs "
+                "a params tree placed on every rank of the mesh: shard it with "
+                "parallel.shard_params on each rank, in the same order, before "
+                "they follow")
+        args = {k: v for k, v in init_args.items()
+                if k not in ("params", "mesh", "device")}
         with mesh.lock:
-            spmd.post_rebuild(mesh, same[-1])
+            spmd.post_build(mesh, tree, partial(ContinuousBatchingScheduler, **args))
             return mesh.register(self)
 
     @torch.inference_mode()

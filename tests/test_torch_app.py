@@ -350,6 +350,39 @@ def test_entry_point_refuses_unported_flags(argv, item, tmp_path):
     assert texts == want
 
 
+@pytest.mark.parametrize("extra", [(), ("--kv-int8",), ("--speculative", "3"),
+                                   ("--kv-int8", "--speculative", "3")],
+                         ids=["bf16", "int8", "speculative", "int8_speculative"])
+def test_entry_point_serves_the_paged_engine_under_sp(extra, tmp_path):
+    """`--sp 2 --no-scheduler --kv-layout paged` (ROADMAP A13.1) builds
+    the sp mesh over two gloo ranks and its paged engines (the entry
+    point's engines take `--kv-layout`; their pools whole on each sp rank)
+    serve each model's completion as one rank's paged engines do, with
+    int8 KV, speculation, and both, the combination JAX's exit points to;
+    `--scheduler` with `--sp` still exits with JAX's message."""
+    from torch_spmd import run_group
+
+    with pytest.raises(SystemExit, match="no sp axis"):
+        entry.mesh_ranks(args_for("--cpu", "--backend", "tiny", "--sp", "2",
+                                  "--scheduler"), AppConfig())
+    flags = ["--cpu", "--backend", "tiny", "--no-scheduler", "--kv-layout", "paged",
+             *extra]
+    base = entry.build_service(args_for(*flags), AppConfig())
+    try:
+        eng = base._models["duckdb-nsql"].backend.engine
+        assert eng.kv_layout == "paged" and eng.speculative_draft == (
+            3 if "--speculative" in extra else 0)
+        want = [base.generate(m, "select count from taxi", max_new_tokens=6).response
+                for m in ("duckdb-nsql", "mistral")]
+    finally:
+        base.close()
+    (shape, texts), (shape1, _) = run_group(
+        2, "app_cases", tmp_path,
+        {"argv": [*flags, "--sp", "2"], "prompt": "select count from taxi", "new": 6})
+    assert shape == shape1 == {"dp": 1, "sp": 2, "tp": 1}
+    assert texts == want
+
+
 @pytest.mark.parametrize("knob,value,item", [
     ("LSOT_SCALE_DOWN_Q", "1", "A11"),
     ("LSOT_FLEET_WORKERS", "localhost:9", "A11"),

@@ -421,10 +421,12 @@ def test_evalh_virtual_devices_run_the_tp_config(tmp_path):
 
 
 def test_scheduler_mesh_refusals(jparams):
-    """dp > 1 raises as in JAX; sp > 1 names its ROADMAP item (A13.1).
-    Phase roles and `kv_spill` on a mesh, refused until the exports of a
-    sharded pool were ported, now build (tests/test_torch_pool_mesh.py
-    serves them on tp=2 meshes)."""
+    """dp > 1 raises as in JAX. sp > 1, refused until ROADMAP A13.1 was
+    ported, now builds: the scheduler and the paged engine on an sp mesh
+    (tests/test_torch_sp.py serves them against JAX). Phase roles and
+    `kv_spill` on a mesh, refused until the exports of a sharded pool were
+    ported, now build (tests/test_torch_pool_mesh.py serves them on tp=2
+    meshes)."""
     from llm_based_apache_spark_optimization_tpu_torch.parallel.mesh import Mesh
     from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
         ContinuousBatchingScheduler,
@@ -433,15 +435,17 @@ def test_scheduler_mesh_refusals(jparams):
     tp = params_from_jax(np_tree(jparams), device="cpu")
     with pytest.raises(ValueError, match="dp=1"):
         ContinuousBatchingScheduler(TINY, tp, mesh=Mesh(2, 1, 1, ["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="A13.1"):
-        ContinuousBatchingScheduler(TINY, tp, mesh=Mesh(1, 2, 1, ["cpu"] * 2))
+    for layout in ("contiguous", "paged"):
+        s = ContinuousBatchingScheduler(TINY, tp, mesh=Mesh(1, 2, 1, ["cpu"] * 2),
+                                        kv_layout=layout)
+        assert s.mesh.shape["sp"] == 2 and s.kv_layout == layout
     for role, spill in (("prefill", False), ("decode", True), ("mixed", True)):
         s = ContinuousBatchingScheduler(TINY, tp, mesh=make_mesh(devices=["cpu"]),
                                         kv_layout="paged", phase_role=role,
                                         kv_spill=spill)
         assert (s.phase_role, s._kv_spill) == (role, spill)
-    cfg = dataclasses.replace(TINY, num_heads=4)
-    with pytest.raises(NotImplementedError, match="A13.1"):
-        from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
 
-        InferenceEngine(cfg, tp, mesh=Mesh(1, 2, 1, ["cpu"] * 2), kv_layout="paged")
+    cfg = dataclasses.replace(TINY, num_heads=4)
+    eng = InferenceEngine(cfg, tp, mesh=Mesh(1, 2, 1, ["cpu"] * 2), kv_layout="paged")
+    assert eng.kv_layout == "paged" and eng.mesh.shape["sp"] == 2

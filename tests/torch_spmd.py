@@ -561,3 +561,75 @@ def spill_group(p):
                 FAULTS.clear()
     spmd.close(mesh)
     return out
+
+
+def sp_group(p):
+    """tests/test_torch_sp.py on one dp=1 x sp=2 x tp=2 group of 4 ranks,
+    every case in one spawn:
+    - p["engine"]: greedy generate through the engine on every rank (the
+      paged engine with its pool gathered whole on each sp rank);
+    - p["sched"]: schedulers built on every rank in the same order, rank 0
+      submitting and the others following; each rank's pool shape and page
+      count, and its mixed rounds;
+    - p["spill"]: `kv_spill` under a page-pressure storm on rank 0's loop,
+      the tokens (seeds 41 + i) and page stats;
+    - p["budget"]: the pool pages a `kv_hbm_budget_bytes` buys;
+    - p["build"]: a second params tree placed on every rank, then, once the
+      followers follow, a scheduler rank 0 alone builds from it with
+      arguments no earlier one had (no twin): its tokens, and on each
+      follower what the mesh still holds once rank 0 shut it down.
+    Rank 0 returns everything; the others their pool pages and holdings."""
+    from llm_based_apache_spark_optimization_tpu_torch.engine import InferenceEngine
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import shard_params, spmd
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.utils.faults import FAULTS
+
+    mesh = _mesh(sp=2, tp=2)
+    cfg, params = _cfg(p["cfg"]), _params(p["params"])
+    primary = mesh.is_primary
+
+    def sched(**kw):
+        return ContinuousBatchingScheduler(cfg, params, device="cpu", mesh=mesh, **kw)
+
+    out = {"coords": dict(mesh.coords), "engine": [], "sched": [], "pages": [],
+           "mixed": []}
+    for kw, prompts, new in p["engine"]:
+        eng = InferenceEngine(cfg, params, device="cpu", mesh=mesh, **kw)
+        out["engine"].append(eng.generate(prompts, max_new_tokens=new))
+    for kw, prompts, new in p["sched"]:
+        with sched(**kw) as s:
+            out["sched"].append(s.generate(prompts, max_new_tokens=new)
+                                if primary else None)
+            out["pages"].append((tuple(s._pool["kp"].shape), s.page_stats["pages_total"])
+                                if s._paged else None)
+            out["mixed"].append(s.mixed_rounds)
+    kw, prompts, new, pressure = p["spill"]
+    with sched(**kw) as s:
+        if primary:
+            FAULTS.configure(pressure, 0)
+            try:
+                futs = [s.submit(ids, max_new_tokens=new, seed=41 + i)
+                        for i, ids in enumerate(prompts)]
+                out["spill"] = ([f.result(timeout=240) for f in futs],
+                                dict(s.page_stats))
+            finally:
+                FAULTS.clear()
+    kw, budget = p["budget"]
+    with sched(kv_hbm_budget_bytes=budget, **kw) as s:
+        out["budget_pages"] = s.page_stats["pages_total"]
+    # A13.3: a second tree, placed on every rank before they follow.
+    other = shard_params(_params(p["params"]), cfg, mesh)
+    first_kw, kw, prompts, new = p["build"]
+    first = sched(**first_kw).start()
+    if primary:
+        spmd.drive(mesh)
+        with ContinuousBatchingScheduler(cfg, other, mesh=mesh, **kw) as s:
+            out["build"] = s.generate(prompts, max_new_tokens=new)
+        first.shutdown()
+    else:
+        first.shutdown()  # returns once rank 0 has shut it down
+    spmd.close(mesh)
+    out["kept"] = len(mesh._kept)
+    return out
