@@ -22,6 +22,9 @@
                                          # weights alone
     python3 chip_smoke.py --mesh-only    # phases 1, 2, then 20 on the 7B
                                          # and 3B weights alone
+    python3 chip_smoke.py --pool-mesh-only  # phases 1, 2, then 21 on the 7B
+    python3 chip_smoke.py --sp-only      # phases 1, 2, then 22 on the 7B
+    python3 chip_smoke.py --warmup-only  # phases 1, 2, then 23 on the 7B
 
 `--timing-only` times the package that sits beside this file (and prints
 the bf16 prefill's output digests), so a copy of this file placed in an
@@ -153,6 +156,7 @@ Phases, each fatal on failure:
    first step alone; the rest at T = 1, recorded at the dispatch seam), no
    flash prefill; the live pool's decode step kernel vs plain.
    (b) overcommit: the 7B paged scheduler at its default max_seq (4096),
+   FLEET_LAYERS deep (since PR 24),
    kv_overcommit 0.5, a burst of six OVERCOMMIT_NEW-token requests, the last three
    under the generic grammar, over a pool that
    holds their admissions (more than one max-length row's 64 pages) and
@@ -579,6 +583,32 @@ Phases, each fatal on failure:
    which a process of this file (`--native-python DIR`) runs beside (a)-(b).
    Prints export p50, blob bytes, the handoff gap p50, both times of each
    native pass, and a `{"pool_mesh": ...}` line before the kernels line.
+22. Sequence parallelism past the contiguous cache (`sp_serve`), after
+   phase 21: the 7B at full width, SP_LAYERS deep, this process rank 0
+   and one `--sp-rank 1` follower on cuda:0 over gloo: rows 4-7 at an sp
+   rank's shapes, the entry point's paged engine backends, a contiguous
+   and a paged scheduler, and a scheduler rank 0 builds alone, each beside
+   its sp = 1 control; an `{"sp": ...}` line before the kernels line.
+23. The warmup (`warmup_serve`), after phase 22, on the 7B at full width,
+   FLEET_LAYERS deep. (a) Cold start: two fresh processes of this file
+   (`--warm-child cold|warm`, the kernel libraries already built), each
+   the app's default scheduler (contiguous, WARM_SLOTS slots) over the
+   seed-0 tree: two SQL prompts of one length that share no leading block,
+   served in turn; the second process first calls `warmup(len(prompt))`.
+   Each prints TTFT 1, TTFT 2 and the excess (TTFT 1 - TTFT 2), the second
+   the warmup's seconds; WARM_ROUNDS such pairs, since one TTFT moves by
+   a decode round with the host. The streams must be equal or near-ties
+   (`fleet_compare`); the warmed processes' median excess is held to
+   max(20 ms, 10% of their median TTFT 2) and reported. (b) State neutrality: a contiguous bf16, a paged int8
+   and a paged speculative (D = SPEC_DRAFT) scheduler, each serving two
+   requests, then warmed: every cache position below the park position (a
+   pool: every page and the tables), the slot state, the counters, the
+   allocator's counts, the perf ledger and the flight ring must be
+   unchanged; then a burst of six, its streams held to an unwarmed twin's;
+   launch counts exact, the warmup's included (`expect_warmup`). (c) A
+   pool rebuild warms the fresh replica before its start(), timed; beside
+   it the restart seconds of phases 10 (c) and 16, whose rebuilds warm
+   now. An `{"warmup": ...}` line before the kernels line.
 
 Every phase prints its seconds.
 
@@ -595,6 +625,7 @@ import gc
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -2063,8 +2094,9 @@ def burst(sched, prompts, max_new, constraints=None):
 
 
 def overcommit_serve(torch, engines, tally):
-    """Overcommit at full width: the 7B paged bf16 scheduler (phase 6's
-    settings, max_seq 4096) with kv_overcommit 0.5 over a pool that holds the six burst
+    """Overcommit at full width, FLEET_LAYERS deep (for the run's time): the
+    7B paged bf16 scheduler (phase 6's settings, max_seq 4096) with
+    kv_overcommit 0.5 over a pool that holds the six burst
     requests' admissions (prompt + half the OVERCOMMIT_NEW budget) but not their
     whole budgets, so top-ups fail and preempt. The last three requests of
     the burst decode under the generic grammar (admitted last, they have
@@ -2093,8 +2125,8 @@ def overcommit_serve(torch, engines, tally):
     from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
-    eng = engines["duckdb-nsql"]
-    cfg, n_layers = eng.cfg, eng.cfg.num_layers
+    eng = fleet_model(engines["duckdb-nsql"])
+    cfg = eng.cfg
     prompts = [tok.encode(f"Overcommit request {i}. {SYSTEM_SQL}\n\n{q}")
                for i, q in enumerate(SCHED_SQL[2:])]
     stops = resolve_stop_ids(cfg, tok)
@@ -2329,6 +2361,34 @@ def expect_contiguous(expected, sched, rounds, prefills):
     expected[decode] += n_layers * sched.decode_chunk * rounds
     expected["flash_gqa_prefill"] += n_layers * prefills
     add_matmuls(expected, sched.params, n_layers, sched.decode_chunk * rounds + prefills)
+
+
+def expect_warmup(expected, sched):
+    """Add one `warmup()`'s launches of `sched` to `expected`: a prefill
+    forward for each of its k-buckets (a ragged scheduler: one mixed round
+    instead) and one parked round (a verify round under speculation), as
+    `expect_paged`, `expect_contiguous` and `expect_spec` count them. The
+    rebuilt replicas of a pool or a supervisor warm before they serve."""
+    import types
+
+    nk = len(sched._kbuckets())
+    rounds, prefills = (2, 0) if sched._ragged else (1, nk)
+    view = types.SimpleNamespace(cfg=sched.cfg, kv_quant=sched.kv_quant,
+                                 decode_chunk=sched.decode_chunk, params=sched.params,
+                                 _paged=sched._paged, _spec_draft=sched._spec_draft,
+                                 mixed_rounds=int(sched._ragged), ragged_prefills=0)
+    expect_served(expected, view, rounds, prefills)
+
+
+def expect_served(expected, sched, rounds, prefills):
+    """A scheduler's launches by its kind (`expect_spec`, `expect_paged`,
+    `expect_contiguous`)."""
+    if sched._spec_draft:
+        expect_spec(expected, sched, rounds, prefills)
+    elif sched._paged:
+        expect_paged(expected, sched, rounds, prefills)
+    else:
+        expect_contiguous(expected, sched, rounds, prefills)
 
 
 def live_cache_logits(torch, sched):
@@ -4041,13 +4101,14 @@ def supervised_crash(torch, sb):
         ctl.shutdown()
         del ctl
 
-        seen, stop = [], threading.Event()
+        seen, stamps, stop = [], [], threading.Event()
 
         def poll():
             while not stop.is_set():
                 st = sup.health()["state"]
                 if not seen or seen[-1] != st:
                     seen.append(st)
+                    stamps.append(time.perf_counter())
                 time.sleep(0.002)
 
         poller = threading.Thread(target=poll, daemon=True)
@@ -4084,11 +4145,17 @@ def supervised_crash(torch, sb):
     launches = dict(LAUNCHES)
     want = dict.fromkeys(LAUNCHES, 0)
     expect_contiguous(want, inner1, inner1.rounds_issued - r0, inner1.prefill_forwards - p0)
-    for s in incarnations[1:]:
+    for s in incarnations[1:]:  # rebuilt by the restart driver, which warms it
         expect_contiguous(want, s, s.rounds_issued, s.prefill_forwards)
+        expect_warmup(want, s)
     h = sup.health()
+    # restarting -> ready: teardown, backoff, rebuild, warmup and start.
+    restart_s = next((round(b - a, 4) for a, b, x, y in zip(stamps, stamps[1:], seen, seen[1:])
+                      if x == "restarting" and y == "ready"), None)
+    _WARMUP["supervised_restart_s"] = restart_s
     print(f"  burst of {len(prompts)} with one sched:crash: {wall:.3f} s; health states "
-          f"{seen}; restarts {h['restarts']}, replayed {h['replayed']}, lost {h['lost']}; "
+          f"{seen}; restarting -> ready in {restart_s} s (the rebuild's warmup included); "
+          f"restarts {h['restarts']}, replayed {h['replayed']}, lost {h['lost']}; "
           f"incarnations {len(incarnations)}", flush=True)
     print(f"  tokens {[len(g) for g in got]}; equal to the fault-free burst: "
           f"{got == expected}; streamed once each: {streamed == got}", flush=True)
@@ -4369,6 +4436,7 @@ def fleet_serve(torch, engines, smi):
         torch.cuda.synchronize()
         reset_launches()
         track()
+        initial = set(objects)
         # Burst A: the storm first, then the quiet tenant and the explanations.
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=18) as ex:
@@ -4464,7 +4532,8 @@ def fleet_serve(torch, engines, smi):
             wait_idle(sc)
         h = sup.health()
         reps = {r["replica"]: r for r in h["replicas"]}
-        print(f"  restart of {victim} ({held} slots held) in {numbers['restart_s']} s; "
+        print(f"  restart of {victim} ({held} slots held) in {numbers['restart_s']} s "
+              f"(the rebuild's warmup included); "
               f"supervisor restarts "
               f"{h['restarts']}, replayed {h['replayed'] - h0['replayed']}, lost "
               f"{h['lost']}; replicas {[(k, v['state'], v['restarts']) for k, v in reps.items()]}",
@@ -4477,11 +4546,14 @@ def fleet_serve(torch, engines, smi):
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         expected = dict.fromkeys(LAUNCHES, 0)
-        for sc, rounds0, prefills0 in objects.values():
+        for key, (sc, rounds0, prefills0) in objects.items():
             expect_paged(expected, sc, sc.rounds_issued - rounds0,
                          sc.prefill_forwards - prefills0)
+            if key not in initial:  # the rebuild warmed it before it served
+                expect_warmup(expected, sc)
         print(f"  launches {launches} expected {expected}", flush=True)
         assert launches == expected, f"launch counts {launches} != {expected}"
+        _WARMUP["fleet_restart_s"] = numbers["restart_s"]
         objects.clear()  # the rebuilt replica's predecessor, and its page pool
         del old
 
@@ -4773,6 +4845,7 @@ def disagg_serve(torch, engines, smi):
             pre._pack_handoffs = pack_then_fault
         objects = {id(sc): (sc, sc.rounds_issued, sc.prefill_forwards)
                    for sc in pool.schedulers}
+        initial = list(pool.schedulers)
         h0 = sup.health()
         torch.cuda.synchronize()
         reset_launches()
@@ -4793,6 +4866,8 @@ def disagg_serve(torch, engines, smi):
         for sc, rounds0, prefills0 in objects.values():
             expect_paged(expected, sc, sc.rounds_issued - rounds0,
                          sc.prefill_forwards - prefills0)
+            if sc not in initial:  # a rebuilt replica warms before it serves
+                expect_warmup(expected, sc)
         health = sup.health()
         replayed = health["replayed"] - h0["replayed"]
         objs = [sc for sc, _, _ in objects.values()]
@@ -5024,7 +5099,7 @@ def remote_worker(role) -> int:
     """`--remote-worker ROLE`: one worker process of phase 18. Rebuilds the
     7B bf16 tree on the card from seed 0 (`make_engines`' recipe) and prints
     its checksum, builds a paged scheduler of phase 17's shape with phase
-    role ROLE, warms it up with one request, zeroes the launch counts and
+    role ROLE, warms it (`warmup()`, then one request), zeroes the launch counts and
     serves it with the port's `ReplicaServer` (printing its listening line
     and, as a JSON line, each blob frame it encodes or decodes). On SIGTERM
     it prints its launch counts beside the counts its rounds imply
@@ -5074,6 +5149,7 @@ def _remote_worker(role) -> int:
         cfg, params, num_slots=DISAGG_SLOTS, stop_ids=resolve_stop_ids(cfg, tok),
         kv_layout="paged", kv_page_size=SCHED["kv_page_size"],
         kv_hbm_budget_bytes=DISAGG_HBM_GB * 2**30, phase_role=role, device="cuda")
+    sched.warmup()  # as the worker's own entry point (serve/remote.py) warms
     sched.start()
     sched.submit(tok.encode(QUESTIONS[0]), max_new_tokens=4).result(timeout=300)
     wait_idle(sched)
@@ -9107,7 +9183,7 @@ POOL_TIMEOUT_S = 600    # a follower that has not finished by then is stuck
 POOL_B_PAGE = 16        # (b): pages of 16 tokens, so 32 new tokens need top-ups
 POOL_B_LEN = 384        # (b): each prompt exactly one prompt bucket, BOS included
 POOL_B_REQUESTS = 3     # (b): requests at once (a replica that takes two preempts)
-POOL_LAYERS = 16        # the 7B's depth in phase 21 (widths whole: 16 heads a rank)
+POOL_LAYERS = 8         # the 7B's depth in phase 21 (widths whole: 16 heads a rank)
 POOL_B_OVERCOMMIT = 0.25
 POOL_MODULE = f"{PKG}.app"
 NATIVE_ROWS = 500_000   # (c): the CSV's data rows
@@ -9349,19 +9425,25 @@ def wait_pool_followers(procs, root):
 
 def pool_objects(pool, objects):
     """Record each replica object of `pool` (a rebuilt one too) by its
-    replica index; every one was built after the counts were reset."""
+    replica index, and whether it is a rebuild; every one was built after
+    the counts were reset."""
     for i, sc in enumerate(pool.schedulers):
-        objects.setdefault(id(sc), (i, sc))
+        if id(sc) not in objects:
+            rebuilt = any(j == i for j, _, _ in objects.values())
+            objects[id(sc)] = (i, sc, rebuilt)
 
 
 def pool_expected(objects, n):
-    """The launches each of the `n` replicas' objects made (`expect_paged`),
-    by replica index."""
+    """The launches each of the `n` replicas' objects made (`expect_paged`;
+    a rebuilt one's warmup, `expect_warmup`, too: its followers warm with
+    it), by replica index."""
     from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import LAUNCHES
 
     out = [dict.fromkeys(LAUNCHES, 0) for _ in range(n)]
-    for i, sc in objects.values():
+    for i, sc, rebuilt in objects.values():
         expect_paged(out[i], sc, sc.rounds_issued, sc.prefill_forwards)
+        if rebuilt:
+            expect_warmup(out[i], sc)
     return out
 
 
@@ -9432,7 +9514,7 @@ def pool_part_a(torch, engines, ref, tok, smi, bounds):
     got = dict(LAUNCHES)
     expected = pool_expected(objects, 2)
     health = sup.health()
-    objs = [sc for _, sc in objects.values()]
+    objs = [sc for _, sc, _ in objects.values()]
     ho = {k: sum(getattr(sc, f"_ho_{k}") for sc in objs)
           for k in ("exports", "imports", "inplace", "backpressure")}
     direct = sum(sc._rid_seq - sc._ho_imports for sc in objs if sc.phase_role == "decode")
@@ -9863,7 +9945,7 @@ def pool_mesh_serve(torch, engines, smi):
 
 # ------------------------------- phase 22: sequence parallelism past the contiguous cache
 
-SP_LAYERS = 16          # the 7B's depth in phase 22 (widths whole: 32 heads and KV heads a rank)
+SP_LAYERS = 8           # the 7B's depth in phase 22 (widths whole: 32 heads and KV heads a rank)
 SP_DEVICES = "cuda:0,cuda:0"  # LSOT_MESH_DEVICES: both sp ranks on one card
 SP_TIMEOUT_S = 480      # a follower that has not finished by then is stuck
 SP_MAX_SEQ = 1024       # (b), (c): the schedulers' context (a prompt and MAX_NEW fit)
@@ -10369,6 +10451,306 @@ def sp_serve(torch, engines, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------- phase 23: warmup before serving
+
+WARM_SLOTS = 8          # the app's default scheduler: contiguous, 8 slots
+WARM_KV_GB = 4          # (b): KV of each paged scheduler
+WARM_TIMEOUT_S = 600    # a cold-start child that has not answered by then is stuck
+WARM_ROUNDS = 1         # (a): pairs of fresh processes, unwarmed then warmed (3 in
+                        # PR 24's call 4: a single TTFT varies by ~0.05 s with the
+                        # host; 1 since, for the run's time)
+_WARMUP = {}            # (c)'s restart seconds, taken in phases 10 (c) and 16
+
+
+def warm_prompts(tok):
+    """(a)'s two SQL prompts: the app's NL->SQL shape, each opening with its
+    own request number (so they share no leading block), cut to one length
+    (so both prefill through the same buckets)."""
+    ids = [tok.encode(f"Request {i}. {SYSTEM_SQL}\n\n{q}") for i, q in enumerate(QUESTIONS)]
+    n = min(len(x) for x in ids[:2])
+    return [x[:n] for x in ids[:2]]
+
+
+def warm_child(mode) -> int:
+    """`--warm-child MODE`: one fresh process of phase 23 (a). Builds the
+    app's default scheduler (contiguous, WARM_SLOTS slots) over the 7B
+    bf16 tree from seed 0, FLEET_LAYERS deep (`make_engines`' recipe, cut
+    as `fleet_model` cuts it), prints the tree's checksum; with MODE "warm"
+    calls `warmup(len(prompt))` and times it; then serves the two
+    `warm_prompts` in turn and prints each one's TTFT (submit -> first
+    accepted token) and stream as one JSON line. Exits 1 on any failure."""
+    try:
+        return _warm_child(mode)
+    except BaseException:  # noqa: BLE001 — a child must not linger half-built
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+
+
+def _warm_child(mode) -> int:
+    import torch
+
+    from llm_based_apache_spark_optimization_tpu_torch.models import DUCKDB_NSQL_7B
+    from llm_based_apache_spark_optimization_tpu_torch.models.llama import init_params
+    from llm_based_apache_spark_optimization_tpu_torch.serve import resolve_stop_ids
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg, params = depth_cut(DUCKDB_NSQL_7B, init_params(DUCKDB_NSQL_7B, gen, torch.bfloat16,
+                                                        device="cuda"),
+                            FLEET_LAYERS, clone=True)
+    torch.cuda.empty_cache()
+    tok = ByteTokenizer()
+    out = {"mode": mode, "tree_checksum": tree_checksum(torch, params)}
+    sched = ContinuousBatchingScheduler(cfg, params, num_slots=WARM_SLOTS,
+                                        stop_ids=resolve_stop_ids(cfg, tok), device="cuda")
+    prompts = warm_prompts(tok)
+    torch.cuda.synchronize()
+    out["build_s"] = round(time.perf_counter() - t0, 3)
+    if mode == "warm":
+        t1 = time.perf_counter()
+        sched.warmup(len(prompts[0]))
+        torch.cuda.synchronize()
+        out["warmup_s"] = round(time.perf_counter() - t1, 6)
+    sched.start()
+    ttft, streams = [], []
+    for p in prompts:
+        first = []
+        t_submit = time.perf_counter()
+        fut = sched.submit(p, max_new_tokens=MAX_NEW,
+                           on_token=lambda _t: first or first.append(time.perf_counter()))
+        streams.append(fut.result(timeout=300))
+        ttft.append(first[0] - t_submit)
+        wait_settled(sched)
+    sched.shutdown()
+    out.update(prompt_tokens=len(prompts[0]), ttft_s=[round(x, 6) for x in ttft],
+               excess_s=round(ttft[0] - ttft[1], 6), streams=streams)
+    print(json.dumps({"warm_child": out}), flush=True)
+    return 0
+
+
+def warm_state(torch, sched):
+    """A scheduler's state that a warmup must leave as it found it: every
+    cache position below the park position (a pool: every page, and the
+    page tables), the slot state, the draft history below max_seq; the
+    counters, the allocator's counts, the perf ledger (its pending prefill
+    pile included), the flight ring and the prefix stats."""
+    if sched._paged:
+        dev = {n: p.clone() for n, p in sched._pool.items()}
+        dev["ptab"] = sched._ptab.clone()
+    else:
+        dev = {n: c[:, :, :, :sched._park].clone() for n, c in sched._cache.items()}
+    for n in ("_cur", "_pos", "_temps", "_topps", "_topks", "_seeds", "_counts",
+              "_cstates", "_crem"):
+        dev[n] = getattr(sched, n).clone()
+    if sched._spec_draft:
+        dev["_hist"] = sched._hist[:, :sched.max_seq].clone()
+        dev["_hlen"] = sched._hlen.clone()
+    host = ({n: getattr(sched, n) for n in ("rounds_issued", "prefill_forwards",
+                                            "mixed_rounds", "ragged_prefills")},
+            sched.page_stats, sched.perf_stats, sched.perf._pending_prefill_flops,
+            sched.flight.snapshot(), sched.flight_stats, sched.prefix_stats)
+    return dev, host
+
+
+def warm_cold_start(torch, engines, smi, bounds):
+    """(a): WARM_ROUNDS pairs of fresh processes, one after the other,
+    unwarmed then warmed; the excess held to its limit is the warmed
+    processes' median."""
+    m = fleet_model(engines["duckdb-nsql"])
+    want = tree_checksum(torch, m.params)
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    prompts = warm_prompts(ByteTokenizer())
+    children = {"cold": [], "warm": []}
+    div = []
+    for _ in range(WARM_ROUNDS):
+        for mode in ("cold", "warm"):
+            w = Worker([sys.executable, os.path.abspath(__file__), "--warm-child", mode],
+                       f"warm-{mode}")
+            try:
+                line = w.wait_for(lambda x: x.startswith('{"warm_child"'), WARM_TIMEOUT_S)
+                rc = w.proc.wait(timeout=120)
+            finally:
+                w.kill()
+            assert rc == 0, f"warm child {mode} exited {rc}: {w.log[-20:]}"
+            c = json.loads(line)["warm_child"]
+            assert c["tree_checksum"] == want, (c, want)
+            children[mode].append(c)
+            print(f"  (a) {mode} process: TTFT 1 {c['ttft_s'][0]} s, TTFT 2 {c['ttft_s'][1]} "
+                  f"s, excess {c['excess_s']} s" + (f", warmup {c['warmup_s']} s"
+                                                   if "warmup_s" in c else "")
+                  + f" ({c['prompt_tokens']} prompt tokens; on {smi})", flush=True)
+        div += fleet_compare(torch, "warmup_cold_start", m.cfg, m.params, m.stop_ids,
+                             prompts, children["warm"][-1]["streams"],
+                             children["cold"][-1]["streams"], bounds)
+    out = {mode: {k: [c[k] for c in cs] for k in ("ttft_s", "excess_s", "build_s")}
+           for mode, cs in children.items()}
+    warm = children["warm"]
+    excess = statistics.median(c["excess_s"] for c in warm)
+    limit = max(0.020, 0.1 * statistics.median(c["ttft_s"][1] for c in warm))
+    out.update(warmup_s=[c["warmup_s"] for c in warm],
+               cold_excess_median_s=round(statistics.median(
+                   c["excess_s"] for c in children["cold"]), 6),
+               warm_excess_median_s=round(excess, 6), excess_limit_s=round(limit, 6),
+               excess_within_limit=excess <= limit,
+               streams_equal=all(w["streams"] == c["streams"]
+                                 for w, c in zip(warm, children["cold"])),
+               divergences=div)
+    print(f"  (a) median excess: unwarmed {out['cold_excess_median_s']} s, warmed "
+          f"{out['warm_excess_median_s']} s against max(20 ms, 10% of TTFT 2) = "
+          f"{limit:.6f} s: {'held' if out['excess_within_limit'] else 'missed'}; streams "
+          f"equal: {out['streams_equal']} ({len(div)} near-ties)", flush=True)
+    return out
+
+
+def warm_neutral(torch, engines, smi, bounds):
+    """(b): three schedulers in this process, each served, warmed, checked
+    unchanged, served a burst and held to an unwarmed twin."""
+    from llm_based_apache_spark_optimization_tpu_torch.ops.kernels import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch.tokenizer import ByteTokenizer
+
+    m = fleet_model(engines["duckdb-nsql"])
+    tok = ByteTokenizer()
+    turn = [tok.encode(f"{SYSTEM_SQL}\n\n{q}") for q in SCHED_SQL[:2]]
+    burst_p = [tok.encode(f"Burst {i}. {SYSTEM_SQL}\n\n{q}")
+               for i, q in enumerate(SCHED_SQL[2:8])]
+    paged = dict(kv_layout="paged", kv_page_size=SCHED["kv_page_size"],
+                 kv_hbm_budget_bytes=WARM_KV_GB * 2**30)
+    variants = (("contiguous_bf16", {}), ("paged_int8", dict(paged, kv_quant="int8")),
+                ("paged_spec8", dict(paged, speculative_draft=SPEC_DRAFT)))
+    launches, numbers = {}, {}
+    for label, kw in variants:
+        torch.cuda.synchronize()
+        reset_launches()
+        streams = {}
+        for side in ("warmed", "twin"):
+            sched = ContinuousBatchingScheduler(m.cfg, m.params, num_slots=WARM_SLOTS,
+                                                stop_ids=m.stop_ids, device="cuda", **kw)
+            with sched:
+                for p in turn:
+                    sched.submit(p, max_new_tokens=MAX_NEW).result(timeout=300)
+                wait_settled(sched)
+            if side == "warmed":
+                dev, host = warm_state(torch, sched)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sched.warmup()
+                torch.cuda.synchronize()
+                warm_s = round(time.perf_counter() - t0, 6)
+                dev2, host2 = warm_state(torch, sched)
+                same = {n: bool(torch.equal(dev[n], dev2[n])) for n in dev}
+                assert all(same.values()), f"{label}: the warmup changed {same}"
+                assert host == host2, f"{label}: the warmup moved {host} -> {host2}"
+                del dev, dev2
+            with sched:
+                outs, got, timing = timed_burst(
+                    lambda p, on: sched.submit(p, max_new_tokens=MAX_NEW, on_token=on),
+                    burst_p)
+                wait_settled(sched)
+            assert all(o is not None for o in outs), f"{label}: a request was lost"
+            if sched._paged:
+                st = sched.page_stats
+                assert st["pages_in_use"] == st["prefix_resident_pages"], st
+            streams[side] = (sched, outs, timing)
+        torch.cuda.synchronize()
+        launches[f"warmup_{label}"] = dict(LAUNCHES)
+        expected = dict.fromkeys(LAUNCHES, 0)
+        for sc, _, _ in streams.values():
+            expect_served(expected, sc, sc.rounds_issued, sc.prefill_forwards)
+        expect_warmup(expected, streams["warmed"][0])
+        assert launches[f"warmup_{label}"] == expected, \
+            f"{label}: launch counts {launches[f'warmup_{label}']} != {expected}"
+        div = fleet_compare(torch, f"warmup_{label}", m.cfg, m.params, m.stop_ids, burst_p,
+                            streams["warmed"][1], streams["twin"][1], bounds,
+                            kv_quant=kw.get("kv_quant"))
+        numbers[label] = dict(warmup_s=warm_s, state_unchanged=True, tensors_checked=len(same),
+                              streams_equal=f"{len(burst_p) - len(div)} of {len(burst_p)}",
+                              divergences=div, ttft_p50_s=streams["warmed"][2]["ttft_p50_s"],
+                              twin_ttft_p50_s=streams["twin"][2]["ttft_p50_s"])
+        print(f"  (b) {label}: warmup {warm_s} s; {len(same)} tensors below the park "
+              f"position (pool: every page) and the counters, ledger and flight ring "
+              f"unchanged; burst of {len(burst_p)}: {numbers[label]['streams_equal']} streams "
+              f"equal to the unwarmed twin's, TTFT p50 {numbers[label]['ttft_p50_s']} s "
+              f"(twin {numbers[label]['twin_ttft_p50_s']} s); on {smi}", flush=True)
+        del streams, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def warm_rebuild(torch, engines, smi):
+    """(c) here: a pool of one contiguous replica over the same tree, its
+    targeted restart; the fresh replica warms before it starts. The
+    restarts of phases 10 (c) and 16, which warm through the supervisor's
+    restart driver and the pool's rebuild, are read from their phases."""
+    import random
+
+    from llm_based_apache_spark_optimization_tpu_torch.serve import resilience
+    from llm_based_apache_spark_optimization_tpu_torch.serve.scheduler import (
+        ContinuousBatchingScheduler,
+        SchedulerPool,
+    )
+
+    m = fleet_model(engines["duckdb-nsql"])
+    events = []
+
+    def build(i=0):
+        s = ContinuousBatchingScheduler(m.cfg, m.params, num_slots=WARM_SLOTS,
+                                        stop_ids=m.stop_ids, device="cuda")
+        warm, start = s.warmup, s.start
+        s.warmup = lambda n=None: (events.append("warmup"), warm(n))[1]
+        s.start = lambda: (events.append("start"), start())[1]
+        return s
+
+    pool = SchedulerPool([build()], factory=build, max_restarts=2,
+                         restart_policy=resilience.RetryPolicy(
+                             max_attempts=3, base_delay_s=0.001, max_delay_s=0.01),
+                         rng=random.Random(0), replica_join_s=5.0)
+    with pool:
+        t0 = time.perf_counter()
+        assert pool.restart_replica("r0") is True
+        while True:
+            r0 = pool.replica_health()[0]
+            if r0["restarts"] == 1 and r0["state"] in ("ready", "degraded"):
+                break
+            assert time.perf_counter() - t0 < 120, r0
+            time.sleep(0.005)
+        restart_s = round(time.perf_counter() - t0, 4)
+        assert pool.generate([[1, 5, 9]], max_new_tokens=4)
+    assert events == ["start", "warmup", "start"], events
+    out = {"pool_rebuild_s": restart_s, "supervised_restart_s": _WARMUP.get(
+        "supervised_restart_s"), "fleet_restart_s": _WARMUP.get("fleet_restart_s")}
+    print(f"  (c) a pool rebuild warmed before start(): {events}; restart {restart_s} s "
+          f"with the warmup; phase 10 (c)'s supervised restart "
+          f"{out['supervised_restart_s']} s, phase 16's targeted restart "
+          f"{out['fleet_restart_s']} s (not run: None); on {smi}", flush=True)
+    return out
+
+
+def warmup_serve(torch, engines, smi):
+    """Phase 23: the warmup on the card. (a) cold start in two fresh
+    processes, (b) state neutrality in this one, (c) restarts that warm
+    before serving."""
+    bounds = {}
+    numbers = {"cold_start": warm_cold_start(torch, engines, smi, bounds)}
+    launches, numbers["neutral"] = warm_neutral(torch, engines, smi, bounds)
+    numbers["restarts"] = warm_rebuild(torch, engines, smi)
+    return launches, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -10423,6 +10805,13 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # phase 21 (c)'s Python side
     ap.add_argument("--sp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # the follower process of phase 22
+    ap.add_argument("--warm-child", default="", choices=["", "cold", "warm"],
+                    help=argparse.SUPPRESS)  # one cold-start process of phase 23 (a)
+    ap.add_argument("--warmup-only", action="store_true",
+                    help="build and run phase 23 alone: the warmup's cold start in two "
+                         "fresh processes, its state neutrality on three schedulers and "
+                         "a pool rebuild that warms, over the 7B weights (prints its "
+                         "numbers and no ok line)")
     ap.add_argument("--sp-only", action="store_true",
                     help="build and run phase 22 alone: sp=2 on two ranks of one card "
                          "over the 7B weights, the paged engine behind the entry point's "
@@ -10457,6 +10846,9 @@ def main() -> int:
         return sp_rank(args.sp_rank)
     if args.native_python:
         return native_python(args.native_python)
+    if args.warm_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return warm_child(args.warm_child)
 
     import torch
 
@@ -10645,6 +11037,14 @@ def main() -> int:
         print(json.dumps({"sp": sp_numbers, "phase_seconds": _PHASE["seconds"],
                           "device": smi}))
         return 0
+    if args.warmup_only:
+        engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
+        phase("warmup, phase 23: cold start, state neutrality, restarts that warm")
+        _, warm_numbers = warmup_serve(torch, engines, smi)
+        phase(None)
+        print(json.dumps({"warmup": warm_numbers, "phase_seconds": _PHASE["seconds"],
+                          "device": smi}))
+        return 0
     if args.disagg_only:
         engines = make_engines(torch, (("duckdb-nsql", DUCKDB_NSQL_7B),))
         phase("disaggregated fleet, phase 17: prefill:1,decode:1 over the 7B tree")
@@ -10781,6 +11181,10 @@ def main() -> int:
     phase("sequence parallelism, phase 22: sp=2 on two ranks of cuda:0 (gloo), the paged "
           "engine and schedulers on it")
     sp_launches, sp_numbers = sp_serve(torch, engines, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("warmup, phase 23: cold start, state neutrality, restarts that warm")
+    warm_launches, warm_numbers = warmup_serve(torch, engines, smi)
 
     phase("timing")
     assert engines["duckdb-nsql"].cfg == DUCKDB_NSQL_7B
@@ -10834,6 +11238,7 @@ def main() -> int:
              "quantized_contiguous_scheduler": q_launches["contiguous"],
              "fleet_pool": fleet_launches, **disagg_launches, **remote_launches,
              **elastic_launches, **mesh_out["launches"], **pool_launches, **sp_launches,
+             **warm_launches,
              **ckpt_launches, **constrained_launches, **spec_launches, **q8_launches}
     window_tol = {"bfloat16": TOL["bfloat16"], "bfloat16_max_row_rel": WINDOW_ROW_TOL}
     tolerance = {"paged_window": window_tol, "paged_q_window": window_tol,
@@ -10920,6 +11325,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh_out["numbers"], "device": smi}))
     print(json.dumps({"pool_mesh": pool_numbers, "device": smi}))
     print(json.dumps({"sp": sp_numbers, "device": smi}))
+    print(json.dumps({"warmup": warm_numbers, "device": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,8 +96,9 @@ ranks (two on one card run over gloo, staged through host memory).
 starts no rank, as the JAX entry point does. It refuses, naming the
 ROADMAP item, every option it cannot honor, instead of ignoring it: a
 pool of tp meshes under an outer launcher (A13.5, a path the JAX entry
-point does not have: it never initialises a multi-host runtime), and the
-environment knob of `UNPORTED_KNOBS`, the bench seed (A12's bench).
+point does not have: it never initialises a multi-host runtime). The
+engine backends take their deadline clamp's seed from `LSOT_STOK_SEED`,
+else from the bench artifact `LSOT_STOK_SEED_BENCH` names, as JAX's do.
 
 `make_oracle_service` answers every eval case with its expected SQL: the
 eval harness's self-proof (`python -m ...evalh --backend oracle` reads
@@ -132,12 +133,6 @@ from ..sql import default_backend
 from .api import create_api_app
 from .config import AppConfig
 from .web import create_web_app
-
-#: Environment knobs of layers the port does not have yet: AppConfig field
-#: -> the ROADMAP item that brings it.
-UNPORTED_KNOBS = {
-    "stok_seed_bench": "A12 (the bench artifact)",
-}
 
 #: Per-process spill-path disambiguation: the same source can build two
 #: supervisors (e.g. --error-model-path equal to --sql-model-path), and
@@ -197,14 +192,9 @@ def is_tp_pool(args, cfg: AppConfig) -> bool:
 
 
 def refuse_unported(args, cfg: AppConfig) -> None:
-    """Raise on the first option or knob the port cannot honor: the mesh
-    combinations of `mesh_ranks` and the knobs of `UNPORTED_KNOBS`."""
+    """Raise on the first option the port cannot honor: the mesh
+    combinations of `mesh_ranks`."""
     mesh_ranks(args, cfg)
-    defaults = AppConfig()
-    for name, item in UNPORTED_KNOBS.items():
-        if getattr(cfg, name) != getattr(defaults, name):
-            raise NotImplementedError(
-                f"LSOT_{name.upper()} is not ported: ROADMAP {item}")
 
 
 def configure_observability(cfg: AppConfig) -> None:
@@ -600,14 +590,21 @@ def make_checkpoint_service(args, cfg: AppConfig, max_new_tokens: int,
             load = (SchedulerBackend.from_gguf if gguf
                     else SchedulerBackend.from_hf_checkpoint)
             return load(path, tok, **common)
-        # Deadline-clamp seconds-a-token seed: LSOT_STOK_SEED, else unseeded.
+        # Deadline-clamp seconds-a-token seed: LSOT_STOK_SEED wins, else the
+        # last bench artifact's headline converted to a step's wall
+        # (LSOT_STOK_SEED_BENCH); unseeded, the first request runs unclamped.
+        stok = cfg.stok_seed or None
+        if stok is None and cfg.stok_seed_bench:
+            from ..serve.backends import stok_seed_from_bench
+
+            stok = stok_seed_from_bench(cfg.stok_seed_bench)
         load = EngineBackend.from_gguf if gguf else EngineBackend.from_hf_checkpoint
         return load(path, tok, max_new_tokens=max_new_tokens, add_bos=add_bos,
                     kv_quant=kv_quant, quantize_int8=args.int8,
                     quantize_int4=args.int4,
                     quantize_unembed8=args.int8_unembed, device=device,
                     speculative_draft=args.speculative, mesh=mesh,
-                    kv_layout=args.kv_layout, sec_per_tok_seed=cfg.stok_seed or None)
+                    kv_layout=args.kv_layout, sec_per_tok_seed=stok)
 
     return assemble_reference_service(
         build, args.sql_model_path, args.error_model_path,

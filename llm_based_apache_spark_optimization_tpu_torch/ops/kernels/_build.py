@@ -5,8 +5,9 @@ plain C interface: no PyTorch headers, so a build takes seconds); the
 `csrc/*.cuh` headers are shared between sources. A library is rebuilt when
 its source or any header is newer than it. Nothing is built at import:
 `load(name)` builds on first use, `kernel_fn(name, argtypes)` binds the
-C function of that name, and `build_all()` starts one nvcc per source at
-once and waits for all of them.
+C function of that name, `build_all()` starts one nvcc per source at
+once and waits for all of them, and `load_all(names)` does the same for
+the stale ones of `names`, then loads each.
 """
 
 from __future__ import annotations
@@ -84,6 +85,18 @@ def build_all(force: bool = False, extra_flags=()) -> Dict[str, str]:
         names = [n for n in sources() if force or _stale(n)]
         procs = {n: _start(n, extra_flags) for n in names}
         return {n: _finish(n, p) for n, p in procs.items()}
+
+
+def load_all(names) -> None:
+    """Load the libraries of `names`, the stale ones built first, one nvcc
+    process each, all started together (a warmup's loads: not one build
+    after another inside the first forward)."""
+    with _lock:
+        procs = {n: _start(n) for n in names if n not in _loaded and _stale(n)}
+        for n, p in procs.items():
+            _finish(n, p)
+    for n in names:
+        load(n)
 
 
 def load(name: str) -> ctypes.CDLL:

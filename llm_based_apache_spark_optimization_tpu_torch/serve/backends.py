@@ -6,8 +6,9 @@ deadline clamp (a request's remaining deadline exchanged for a step budget
 at the measured seconds a token), its grammar constraint (a `constrain=`
 spec, "spark_sql" or a {"table", "columns"} schema, compiled once per
 tokenizer through `resolve_constraint`) and its checkpoint constructors
-(`from_hf_checkpoint`, `from_gguf`). `FakeBackend` answers canned text
-(demos and tests) and takes no constraint.
+(`from_hf_checkpoint`, `from_gguf`); `stok_seed_from_bench` seeds that
+clamp from a bench artifact. `FakeBackend` answers canned text (demos and
+tests) and takes no constraint.
 """
 
 from __future__ import annotations
@@ -45,6 +46,43 @@ def resolve_constraint(constrain, tokenizer, stop_ids):
     from ..constrain import get_constraint
 
     return get_constraint(constrain, tokenizer, stop_ids)
+
+
+def stok_seed_from_bench(path: str) -> Optional[float]:
+    """Seconds-a-token seed of the deadline clamp from a bench artifact
+    (one JSON object a line; the last parseable line is the richest), as
+    the JAX package reads it. Its headline `value` is AGGREGATE output
+    tok/s at batch B, and decode is weight-streaming bound, so the wall of
+    one decode step, which a serving request pays a token whatever its own
+    batch, is ~B / value; B is parsed from the `metric` string ("B=<n>"),
+    else 1 (which under-estimates: a request may overrun its deadline but
+    is never refused for it). None when the file is missing or
+    unparseable: the caller runs unseeded."""
+    import json
+    import re
+
+    try:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+    except OSError:
+        return None
+    obj = None
+    for ln in reversed(text.splitlines()):
+        ln = ln.strip()
+        if ln.startswith("{"):
+            try:
+                obj = json.loads(ln)
+            except json.JSONDecodeError:
+                continue
+            break
+    if not isinstance(obj, dict):
+        return None
+    value = obj.get("value")
+    if not isinstance(value, (int, float)) or value <= 0:
+        return None
+    m = re.search(r"B=(\d+)", str(obj.get("metric", "")))
+    batch = int(m.group(1)) if m else 1
+    return batch / float(value)
 
 
 def refuse_unported_load(mesh=None, quantize_int8=False, quantize_int4=False) -> None:

@@ -237,6 +237,10 @@ the fault seams run before it is taken.
   `LSOT_PUMP_DEPTH` packed blobs, the prefill replica decodes in place.
   `handoff_stats`, the `handoff_*` flight events, the `pages_migrated` /
   `handoff_wait_s` columns and the `sched.handoff` span record it.
+- `warmup(prompt_len)` (JAX's) pays serving's first-use costs before the
+  first request and changes no visible state; `SchedulerPool.warmup`
+  warms every replica, and the pool's targeted rebuild warms the fresh
+  replica before it starts, as the supervisor's restart driver does.
 """
 
 from __future__ import annotations
@@ -333,6 +337,18 @@ def _leaves(tree) -> List[torch.Tensor]:
     items = tree.values() if isinstance(tree, dict) else (
         tree if isinstance(tree, (list, tuple)) else ())
     return [t for v in items for t in _leaves(v)]
+
+
+def _weight_kernels(tree) -> set:
+    """The matmul kernel libraries a params tree's quantized weights launch:
+    `int4_matmul` for a q4 tree, `int8_matmul` for a q8 one."""
+    if not isinstance(tree, dict):
+        return set()
+    if "q4" in tree:
+        return {"int4_matmul"}
+    if "q8" in tree:
+        return {"int8_matmul"}
+    return set().union(*(_weight_kernels(v) for v in tree.values()))
 
 
 def _env_on(name: str) -> bool:
@@ -1557,6 +1573,178 @@ class ContinuousBatchingScheduler:
         req.spilled = None
         req.prefilled = len(req.full_ids)
         self._resume_ready(slot, req, mode=mode)
+
+    # --------------------------------------------------------------- warmup
+
+    def warmup(self, prompt_len: Optional[int] = None) -> None:
+        """Pay serving's first-use costs before the first request (JAX
+        `warmup`): after the call the first request pays none of them, and
+        no visible state has changed. Call before start(), or while the
+        loop is idle.
+
+        - The kernel libraries this configuration launches
+          (`_kernel_libraries`) are loaded, the stale ones built first, one
+          nvcc each, all started at once (`_build.load_all`), not one after
+          another inside the first forward.
+        - One prefill forward for each of JAX's k-buckets (`_kbuckets`) at
+          the chunk bucket of `prompt_len` (default: the prompt bucket),
+          through the forward and kernels `_prefill_forward` runs, then the
+          first token's mask and sampler: the kernels' first launches
+          (module loads, the shared-memory opt-ins), cuBLAS's handle and
+          workspace, the caching allocators' growth to the chunk's
+          activations. JAX aims its rows at an out-of-bounds slot, whose
+          scatter XLA drops; a row index here would raise or write out of
+          bounds. So a contiguous forward writes into a scratch cache of
+          the chunk's span, freed after, and a paged one goes through a
+          table of sentinel pages: the page write drops their writes and
+          the chunk's views clip them to a real page, read only. Nothing
+          is counted: no `prefill_forwards`, no ledger entry, no flight
+          record. A ragged scheduler prefills in mixed rounds: it warms
+          one mixed round with no chunk row instead.
+        - One decode round with every slot parked (`kv_lens` 0; the verify
+          round under speculation), sampled and masked, so that every op
+          of a round runs once. Its writes land at the park position or
+          drop through the sentinel table; a contiguous verify window,
+          clamped into its row's tail, also writes below the park
+          position, so that tail is saved and put back. With no slot
+          active no counter moves.
+
+        JAX also runs its per-slot state scatters, at an out-of-bounds
+        slot, to compile them; the port's are eager indexing with nothing
+        to compile, so none runs.
+
+        On rank 0 of a mesh the warmup is one posted step
+        (`_follow_warmup`): every follower runs the same forwards over its
+        own scratch, so the collectives line up and no rank writes below
+        its park position. A follower's own call does nothing: it warms
+        when rank 0 does."""
+        if self._mesh_follower:
+            return
+        want = prompt_len or self.prompt_bucket
+        t = next((b for b in self._buckets if b >= want), self.prompt_bucket)
+        self._load_kernels()
+        with self._device_context(), self._dispatch_lock:
+            if not self._mesh_drive:
+                self._warm(t)
+                return
+            from ..parallel import spmd
+
+            with self.mesh.lock:
+                spmd.post(self.mesh, self._mesh_id, "_follow_warmup", t)
+                # This rank's forwards are the posted step's: none posts.
+                self._mesh_drive = False
+                try:
+                    self._warm(t)
+                finally:
+                    self._mesh_drive = True
+
+    @torch.inference_mode()
+    def _follow_warmup(self, t: int) -> None:
+        self._load_kernels()
+        self._warm(t)
+
+    def _kbuckets(self) -> List[int]:
+        """JAX's prefill k-buckets: the powers of two below `_prefill_kmax`,
+        then `_prefill_kmax`."""
+        kb, out = 1, []
+        while kb < self._prefill_kmax:
+            out.append(kb)
+            kb *= 2
+        return out + [self._prefill_kmax]
+
+    def _kernel_libraries(self) -> List[str]:
+        """The kernel libraries (`csrc/<name>.cu`) this configuration
+        launches: the flash prefill (row 1) over every prefill chunk and a
+        contiguous bf16 verify window, which a ragged scheduler's mixed
+        rounds replace; the contiguous decode (row 2 in the same library,
+        row 3 over an int8 cache, whose verify window runs row 5); the
+        paged attention and page write (rows 4 and 6, int8 pool 5 and 7);
+        and the int4 or int8 matmul of a quantized tree."""
+        q = "_quantized" if self.kv_quant else ""
+        libs = [] if self._ragged else ["flash_gqa_attention"]
+        if self._paged:
+            libs += ["ragged_paged_attention" + q, "fused_page_write" + q]
+        elif self.kv_quant:
+            libs.append("flash_gqa_attention_quantized")
+            if self._spec_draft:
+                libs.append("ragged_paged_attention_quantized")
+        return libs + sorted(_weight_kernels(self.params))
+
+    def _load_kernels(self) -> None:
+        if self.device.type == "cuda":
+            from ..ops.kernels import _build
+
+            _build.load_all(self._kernel_libraries())
+
+    def _warm(self, t: int) -> None:
+        """The warmup's device work at chunk bucket `t` (`warmup`)."""
+        if not self._ragged:
+            self._warm_prefill(t)
+        # The rounds run with every slot parked, as a fresh scheduler's are
+        # (a retired slot keeps its last position, where a round would
+        # write), then the slot state is put back as it was.
+        names = ("_cur", "_pos", "_cstates", "_crem", "_counts") + (
+            ("_hlen",) if self._spec_draft else ())
+        saved = {n: getattr(self, n) for n in names}
+        self._cur = torch.full_like(self._cur, self.cfg.pad_id)
+        self._pos = torch.full_like(self._pos, self._park)
+        parked = torch.zeros(self.num_slots, dtype=torch.bool, device=self.device)
+        tail, lo = {}, self._park
+        if self._spec_draft and not self._paged:
+            # A parked row's verify window is clamped into its row's tail.
+            lo = max(0, next(iter(self._cache.values())).shape[3] - self._spec_draft - 1)
+            tail = {n: c[:, :, :, lo:self._park].clone() for n, c in self._cache.items()}
+        try:
+            if self._ragged and self._spec_draft:
+                self._mixed_spec_round([], t, parked, True, True)
+            elif self._ragged:
+                self._mixed_round([], t, parked, True, True)
+            if self._spec_draft:
+                self._spec_round(parked, True, True)
+            else:
+                self._decode_round(parked, True, True)
+        finally:
+            for n, v in saved.items():
+                setattr(self, n, v)
+            for n, v in tail.items():
+                self._cache[n][:, :, :, lo:self._park] = v
+
+    def _warm_prefill(self, t: int) -> None:
+        """One `t`-bucket prefill forward of k pad rows for each k of
+        `_kbuckets`, built as `_prefill_forward` builds its inputs, into
+        nothing that serving reads (`warmup`)."""
+        dev, kmax, pad = self.device, self._prefill_kmax, self.cfg.pad_id
+        if self._paged:
+            span = t
+            cache = dict(self._pool)
+            sentinel = [self._page_alloc.num_pages] * self._pages_per_slot
+        else:
+            s_cache = next(iter(self._cache.values())).shape[3]
+            span = min(t + -t % 64, s_cache)
+            cache = init_cache(self._kv_cfg, kmax, span, self._dtype, dev, self.kv_quant)
+        for k in self._kbuckets():
+            tokens = self._h2d([[pad] * t] * k, torch.int32)
+            positions = (self._h2d([0] * k, torch.int32)[:, None]
+                         + torch.arange(t, dtype=torch.int32, device=dev))
+            last = self._h2d([0] * k, torch.int64)
+            if self._paged:
+                cache["ptab"] = self._h2d([sentinel] * k, torch.int32)
+                logits, _ = self._fwd(tokens, positions, cache, logit_indices=last,
+                                      span=span)
+            else:
+                logits, _ = self._fwd(tokens, positions, cache, logit_indices=last,
+                                      rows=self._h2d(list(range(k)), torch.int64),
+                                      span=span)
+            first = logits[:, 0]
+            # The sentinel grammar state and budget allow every token.
+            first = apply_token_mask(first, allowed_tokens(
+                self._ctables["need"], self._h2d([0] * k, torch.int32),
+                self._h2d([1] * k, torch.int32), first.shape[-1]))
+            sample_runtime(first, self._h2d([0.0] * k, torch.float32),
+                           self._h2d([1.0] * k, torch.float32),
+                           self._h2d([0] * k, torch.int32),
+                           self._h2d([0] * k, torch.int64),
+                           torch.zeros(k, dtype=torch.int64, device=dev))
 
     # ------------------------------------------------------------ lifecycle
 
@@ -3617,6 +3805,13 @@ class ContinuousBatchingScheduler:
     def _run(self) -> None:
         try:
             with self._device_context():
+                if self._stream is not None:
+                    # cuBLAS keeps a handle and workspace per thread, made at
+                    # the thread's first matmul: made here, before the loop,
+                    # so that a warmed scheduler's first request (`warmup()`
+                    # runs on the caller's thread) pays none of it.
+                    x = torch.zeros(1, 64, dtype=self._dtype, device=self.device)
+                    x @ x.t()
                 self._loop()
             self._close(RuntimeError("scheduler shut down mid-request"))
         except BaseException as exc:  # noqa: BLE001 — a dead loop must not hang clients
@@ -4067,6 +4262,14 @@ class SchedulerPool:
         if not hints:
             return 1.0
         return float(min(60.0, max(1.0, min(hints))))
+
+    def warmup(self, prompt_len: Optional[int] = None) -> None:
+        """Warm every replica (`ContinuousBatchingScheduler.warmup`); a
+        remote replica's transport warms in its own process."""
+        for s in self.schedulers:
+            warm = getattr(s, "warmup", None)
+            if callable(warm):
+                warm(prompt_len)
 
     @property
     def heartbeat(self) -> Optional[CombinedHeartbeat]:
@@ -5055,6 +5258,12 @@ class SchedulerPool:
                     return
             try:
                 fresh = self._build_replica(idx)
+                # Warmed before it serves, as the supervisor's restart
+                # driver warms: a cold first round pays the kernels' loads
+                # and first launches on a live request.
+                warm = getattr(fresh, "warmup", None)
+                if callable(warm):
+                    warm()
                 fresh.start()
             except Exception:  # noqa: BLE001 — a failed rebuild burns one credit
                 _log.exception("replica %s rebuild failed (restart %d/%d)",

@@ -440,6 +440,12 @@ class SupervisedScheduler:
     def resident_digests(self, limit=None):
         return self._inner.resident_digests(limit)
 
+    def prefix_affinity(self, digests):
+        """Cache-aware routing feed passthrough (an inner SchedulerPool;
+        [] for an inner without one)."""
+        fn = getattr(self._inner, "prefix_affinity", None)
+        return fn(digests) if callable(fn) else []
+
     @property
     def page_stats(self):
         """Paged-KV pool stats passthrough (None for contiguous inner
@@ -469,6 +475,13 @@ class SupervisedScheduler:
     @property
     def phase_role(self):
         return getattr(self._inner, "phase_role", "mixed")
+
+    @property
+    def model_id(self):
+        """Model axis passthrough: a supervised scheduler reports its
+        checkpoint id like a bare one, so a pool routes it under that
+        model."""
+        return getattr(self._inner, "model_id", "")
 
     def profile_rounds(self, rounds=None, out_dir=None):
         """On-demand capture passthrough (/debug/profile): the inner loop

@@ -399,7 +399,7 @@ def test_entry_point_refuses_unported_knobs(monkeypatch, tmp_path, knob, value, 
     cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
                              output_dir=str(tmp_path / "out"), history_db=":memory:")
     field = knob[len("LSOT_"):].lower()
-    assert item == "A11" and field not in entry.UNPORTED_KNOBS
+    assert item == "A11" and field in _read_by_port()
     assert str(getattr(cfg, field)) != str(getattr(AppConfig(), field))
     svc = entry.build_service(args_for("--cpu"), cfg)
     assert not any(hasattr(e.backend, "autoscaler") for e in svc._models.values())
@@ -627,13 +627,11 @@ def _read_by_port():
 
 @pytest.mark.parametrize("field", sorted(AppConfig.__dataclass_fields__))
 def test_every_app_config_field_is_read_or_refused(field):
-    """Each AppConfig knob is honoured by the port (some module reads it)
-    or listed in UNPORTED_KNOBS, whose knobs the entry point refuses by
-    name; none is read into AppConfig and then ignored."""
-    assert field in _read_by_port() or field in entry.UNPORTED_KNOBS
-    if field in entry.UNPORTED_KNOBS:
-        assert entry.UNPORTED_KNOBS[field].split()[0] in {
-            "A7.7", "A7.8", "A11", "A12"}
+    """Each AppConfig knob is honoured by the port: some module reads it,
+    none is read into AppConfig and then ignored, and the entry point
+    refuses none (the bench seed was the last it refused)."""
+    assert field in _read_by_port()
+    assert not hasattr(entry, "UNPORTED_KNOBS")
 
 
 @pytest.mark.parametrize("knob,value,item", [
@@ -643,20 +641,69 @@ def test_every_app_config_field_is_read_or_refused(field):
     ("LSOT_FLEET_MAX", "4", "A11"),
 ])
 def test_entry_point_refuses_inert_knobs(monkeypatch, tmp_path, knob, value, item):
-    """The knob of the layer the port does not have is refused by name: the
-    bench seed (A12's bench half). The autoscaler's (A11) are honoured on
-    the dp pool and, as in the JAX entry point, read without effect
-    elsewhere; the remote replicas' are honoured
-    (`test_entry_point_pool_remote_*`)."""
+    """No knob is refused any more. The bench seed (A12) is read where the
+    JAX entry point reads it, by the checkpoint engine backends
+    (`test_stok_seed_bench_seeds_the_engine_backend_as_jax`), and without
+    effect elsewhere; the autoscaler's (A11) are honoured on the dp pool
+    and, as in the JAX entry point, read without effect elsewhere; the
+    remote replicas' are honoured (`test_entry_point_pool_remote_*`)."""
     monkeypatch.setenv(knob, value)
     cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
                              output_dir=str(tmp_path / "out"), history_db=":memory:")
-    if item == "A11":
-        assert set(entry.UNPORTED_KNOBS) == {"stok_seed_bench"}
-        entry.build_service(args_for("--cpu"), cfg)
-        return
-    with pytest.raises(NotImplementedError, match=f"{knob} is not ported: ROADMAP {item}"):
-        entry.build_service(args_for("--cpu"), cfg)
+    field = knob[len("LSOT_"):].lower()
+    assert item in ("A11", "A12") and field in _read_by_port()
+    assert str(getattr(cfg, field)) != str(getattr(AppConfig(), field))
+    entry.build_service(args_for("--cpu"), cfg).close()
+
+
+def test_stok_seed_bench_seeds_the_engine_backend_as_jax(monkeypatch, tmp_path):
+    """LSOT_STOK_SEED_BENCH gives the checkpoint engine backend the same
+    deadline-clamp seed in both entry points (the artifact's B / value;
+    None for a missing file), and LSOT_STOK_SEED wins over it in both."""
+    import argparse
+
+    from llm_based_apache_spark_optimization_tpu import tokenizer as jax_tokenizer
+    from llm_based_apache_spark_optimization_tpu.app import __main__ as jax_entry
+    from llm_based_apache_spark_optimization_tpu.serve import (
+        EngineBackend as JaxEngineBackend,
+    )
+    from llm_based_apache_spark_optimization_tpu_torch import tokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.serve import EngineBackend
+
+    bench = tmp_path / "bench.jsonl"
+    bench.write_text("\n".join([json.dumps({"metric": "B=2", "value": 10.0}),
+                                json.dumps({"metric": "decode tok/s B=8", "value": 64.0}),
+                                "{torn"]))
+
+    class Built(Exception):
+        pass
+
+    def spy(seen):
+        def from_hf_checkpoint(cls, path, tok, **kwargs):
+            seen.append(kwargs.get("sec_per_tok_seed"))
+            raise Built
+        return classmethod(from_hf_checkpoint)
+
+    seen = {"jax": [], "torch": []}
+    for mod in (jax_tokenizer, tokenizer):
+        monkeypatch.setattr(mod, "HFTokenizer", lambda path: None)
+    monkeypatch.setattr(JaxEngineBackend, "from_hf_checkpoint", spy(seen["jax"]))
+    monkeypatch.setattr(EngineBackend, "from_hf_checkpoint", spy(seen["torch"]))
+    args = args_for("--cpu", "--backend", "checkpoint", "--no-scheduler",
+                    "--sql-model-path", "ckpt")
+    for path, explicit in ((bench, ""), (tmp_path / "missing.jsonl", ""), (bench, "0.25")):
+        monkeypatch.setenv("LSOT_STOK_SEED_BENCH", str(path))
+        if explicit:
+            monkeypatch.setenv("LSOT_STOK_SEED", explicit)
+        else:
+            monkeypatch.delenv("LSOT_STOK_SEED", raising=False)
+        with pytest.raises(Built):
+            jax_entry.make_checkpoint_service(argparse.Namespace(**vars(args)), 8)
+        cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                                 output_dir=str(tmp_path / "out"), history_db=":memory:")
+        with pytest.raises(Built):
+            entry.build_service(args, cfg)
+    assert seen["torch"] == seen["jax"] == [8 / 64.0, None, 0.25]
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -1340,7 +1387,7 @@ def test_entry_point_pool_remote_serves_with_r1_remote(tiny_hf_dir, monkeypatch,
     under the lease knobs (`LSOT_LEASE_S`, `LSOT_LEASE_MISSES`), and
     `POST /process-data/` is served on both replicas (round robin) with the
     same SQL; the loads and /healthz carry r1's socket block. The three
-    remote knobs left `UNPORTED_KNOBS`."""
+    remote knobs are read by the port."""
     from llm_based_apache_spark_optimization_tpu_torch.checkpoint import load_hf_checkpoint
     from llm_based_apache_spark_optimization_tpu_torch.serve import resolve_stop_ids
     from llm_based_apache_spark_optimization_tpu_torch.serve.remote import (
@@ -1352,7 +1399,7 @@ def test_entry_point_pool_remote_serves_with_r1_remote(tiny_hf_dir, monkeypatch,
     )
     from llm_based_apache_spark_optimization_tpu_torch.tokenizer import HFTokenizer
 
-    assert not {"pool_remote", "lease_s", "lease_misses"} & set(entry.UNPORTED_KNOBS)
+    assert {"pool_remote", "lease_s", "lease_misses"} <= _read_by_port()
     mcfg, params = load_hf_checkpoint(tiny_hf_dir, device="cpu")
     worker = ContinuousBatchingScheduler(
         mcfg, params, num_slots=2,

@@ -642,7 +642,7 @@ def test_entry_point_honours_observability_knob(monkeypatch, tmp_path, knob,
     """Each knob the port used to refuse now reaches its layer: set alone,
     the service builds and the knob's effect is visible there."""
     value, effect = KNOB_EFFECTS[knob]
-    assert knob[5:].lower() not in entry.UNPORTED_KNOBS
+    assert not hasattr(entry, "UNPORTED_KNOBS")  # the entry point refuses no knob
     monkeypatch.setenv(knob, value.format(tmp=tmp_path))
     cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
                              output_dir=str(tmp_path / "out"), history_db=":memory:")
@@ -654,12 +654,38 @@ def test_entry_point_honours_observability_knob(monkeypatch, tmp_path, knob,
         svc.close()
 
 
-def test_stok_seed_bench_stays_refused(monkeypatch, tmp_path):
-    monkeypatch.setenv("LSOT_STOK_SEED_BENCH", "bench.jsonl")
-    cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
-                             output_dir=str(tmp_path / "out"), history_db=":memory:")
-    with pytest.raises(NotImplementedError, match="LSOT_STOK_SEED_BENCH is not ported"):
-        entry.build_service(entry.build_parser().parse_args(["--cpu"]), cfg)
+def test_stok_seed_bench_is_honoured(monkeypatch, tmp_path):
+    """LSOT_STOK_SEED_BENCH seeds the checkpoint engine backend's deadline
+    clamp with the artifact's B / value, as the JAX entry point does, and
+    LSOT_STOK_SEED wins over it."""
+    from llm_based_apache_spark_optimization_tpu_torch import tokenizer
+    from llm_based_apache_spark_optimization_tpu_torch.serve import EngineBackend
+
+    bench = tmp_path / "bench.jsonl"
+    bench.write_text(json.dumps({"metric": "decode tok/s B=4", "value": 200.0}) + "\n")
+    seen = []
+
+    class Built(Exception):
+        pass
+
+    def from_hf_checkpoint(cls, path, tok, **kwargs):
+        seen.append(kwargs["sec_per_tok_seed"])
+        raise Built
+
+    monkeypatch.setattr(tokenizer, "HFTokenizer", lambda path: None)
+    monkeypatch.setattr(EngineBackend, "from_hf_checkpoint", classmethod(from_hf_checkpoint))
+    monkeypatch.setenv("LSOT_STOK_SEED_BENCH", str(bench))
+    args = entry.build_parser().parse_args(
+        ["--cpu", "--backend", "checkpoint", "--no-scheduler", "--sql-model-path", "ckpt"])
+    monkeypatch.delenv("LSOT_STOK_SEED", raising=False)
+    for explicit in (None, "0.5"):
+        if explicit:
+            monkeypatch.setenv("LSOT_STOK_SEED", explicit)
+        cfg = AppConfig.from_env(input_dir=str(tmp_path / "in"),
+                                 output_dir=str(tmp_path / "out"), history_db=":memory:")
+        with pytest.raises(Built):
+            entry.build_service(args, cfg)
+    assert seen == [4 / 200.0, 0.5]
 
 
 def _free_port():

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import time
 from pathlib import Path
 
 import numpy as np
@@ -619,8 +620,12 @@ def sp_group(p):
     kw, budget = p["budget"]
     with sched(kv_hbm_budget_bytes=budget, **kw) as s:
         out["budget_pages"] = s.page_stats["pages_total"]
-    # A13.3: a second tree, placed on every rank before they follow.
+    # A13.3: a second tree, placed on every rank before they follow: the
+    # barrier keeps rank 0's build message behind every rank's placement.
     other = shard_params(_params(p["params"]), cfg, mesh)
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.control)
     first_kw, kw, prompts, new = p["build"]
     first = sched(**first_kw).start()
     if primary:
@@ -632,4 +637,73 @@ def sp_group(p):
         first.shutdown()  # returns once rank 0 has shut it down
     spmd.close(mesh)
     out["kept"] = len(mesh._kept)
+    return out
+
+
+def warmup_group(p):
+    """tests/test_torch_warmup.py's tp=2 mesh: for each case a TINY
+    scheduler on every rank; rank 0 serves `first`, stops, warms and
+    serves `after`, the follower replays. Each rank reports whether its
+    cache below the park position (a pool: every page) is what it was
+    before the warmup, the forwards it ran for the warmup, and rank 0 its
+    streams."""
+    import threading
+
+    from llm_based_apache_spark_optimization_tpu_torch.parallel import spmd
+    from llm_based_apache_spark_optimization_tpu_torch.serve import scheduler as sm
+
+    mesh = _mesh(tp=2)
+    cfg, base = _cfg("tiny"), _params(p["params"])
+    calls = []
+    real = sm.forward
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    sm.forward = counted
+
+    def state(s):
+        if s._paged:
+            return [t.clone() for t in s._pool.values()]
+        return [c[:, :, :, :s._park].clone() for c in s._cache.values()]
+
+    out = []
+    for kw in p["cases"]:
+        s = sm.ContinuousBatchingScheduler(cfg, base, device="cpu", mesh=mesh, **kw)
+        snaps, done = {}, threading.Event()
+
+        def snap(tag, s=s):
+            snaps[tag] = (state(s), len(calls))
+            if tag == "after":
+                done.set()
+
+        # A step rank 0 posts: the follower takes it after the warmup's.
+        s._snap = snap
+        streams = None
+        if mesh.is_primary:
+            # A mesh scheduler's shutdown closes its followers for good: it
+            # warms while its loop is idle.
+            with s:
+                first = [s.submit(q, max_new_tokens=6).result(timeout=120)
+                         for q in p["first"]]
+                while any(r is not None for r in s._slot_req):
+                    time.sleep(0.01)
+                with mesh.lock:
+                    spmd.post(mesh, s._mesh_id, "_snap", "before")
+                    snap("before")
+                s.warmup()
+                with mesh.lock:
+                    spmd.post(mesh, s._mesh_id, "_snap", "after")
+                    snap("after")
+                futs = [s.submit(q, max_new_tokens=6) for q in p["after"]]
+                streams = (first, [f.result(timeout=120) for f in futs])
+        else:
+            s.start()
+            assert done.wait(120), "the follower never took the snapshot step"
+            s.shutdown()
+        (before, n0), (after, n1) = snaps["before"], snaps["after"]
+        out.append({"unchanged": all(torch.equal(x, y) for x, y in zip(before, after)),
+                    "warm_forwards": n1 - n0, "streams": streams})
+    spmd.close(mesh)
     return out
